@@ -1,0 +1,86 @@
+"""Application-facing pack/unpack contract (`NRD.hlsli`) - the part the REBLUR_DIFFUSE
+slice needs, counterpart of `nrdtpu/frontend.py`."""
+
+from __future__ import annotations
+
+import torch
+
+from . import math as nm
+from .settings import NormalEncoding, RoughnessEncoding
+
+NRD_FP16_MAX = 65504.0
+NRD_EPS = 1e-6
+NRD_INF = 1e6
+
+
+def pack_normal_roughness(n, roughness, material_id=0.0,
+                          normal_encoding=NormalEncoding.R10_G10_B10_A2_UNORM,
+                          roughness_encoding=RoughnessEncoding.LINEAR,
+                          quantized=False):
+    """NRD_FrontEnd_PackNormalAndRoughness (NRD.hlsli:640-667) for R10G10B10A2 normals.
+    Returns (..., 4)."""
+    if normal_encoding != NormalEncoding.R10_G10_B10_A2_UNORM:
+        raise NotImplementedError("the port packs R10G10B10A2 normals only (ROADMAP.md)")
+    if roughness_encoding == RoughnessEncoding.SQRT_LINEAR:
+        roughness = torch.sqrt(nm.saturate(roughness))
+    elif roughness_encoding == RoughnessEncoding.SQ_LINEAR:
+        roughness = roughness * roughness
+    material_id = torch.broadcast_to(torch.as_tensor(material_id, dtype=torch.float32,
+                                                     device=roughness.device),
+                                     roughness.shape)
+    xy = nm.encode_unit_vector(n, signed=False)
+    p = torch.stack([xy[..., 0], xy[..., 1], roughness, nm.saturate(material_id / 3.0)], -1)
+    if quantized:
+        p = torch.cat([nm.quantize_unorm(p[..., :3], 10), nm.quantize_unorm(p[..., 3:], 2)],
+                      -1)
+    return p
+
+
+def unpack_normal_roughness(p, normal_encoding=NormalEncoding.R10_G10_B10_A2_UNORM,
+                            roughness_encoding=RoughnessEncoding.LINEAR):
+    """NRD_FrontEnd_UnpackNormalAndRoughness (NRD.hlsli:600-628).
+    Returns (normal (..., 3), roughness (...,), material_id (...,))."""
+    if normal_encoding != NormalEncoding.R10_G10_B10_A2_UNORM:
+        raise NotImplementedError("the port unpacks R10G10B10A2 normals only (ROADMAP.md)")
+    n = nm.safe_normalize(nm.decode_unit_vector(p[..., :2], signed=False, do_normalize=False))
+    roughness = p[..., 2]
+    if roughness_encoding == RoughnessEncoding.SQRT_LINEAR:
+        roughness = roughness * roughness
+    elif roughness_encoding == RoughnessEncoding.SQ_LINEAR:
+        roughness = torch.sqrt(nm.saturate(roughness))
+    return n, roughness, p[..., 3] * 3.0
+
+
+def get_hit_distance_normalization(view_z, hit_dist_params, roughness):
+    """_REBLUR_GetHitDistanceNormalization (NRD.hlsli:520-523); params are host (A, B, C, D)."""
+    a, b, c, d = (float(v) for v in hit_dist_params)
+    return (a + torch.abs(view_z) * b) * nm.lerp(
+        1.0, c, nm.saturate(torch.exp2(d * roughness * roughness)))
+
+
+def reblur_get_norm_hit_dist(hit_dist, view_z, hit_dist_params, roughness):
+    """REBLUR_FrontEnd_GetNormHitDist (NRD.hlsli:722-727)."""
+    return nm.saturate(hit_dist / get_hit_distance_normalization(view_z, hit_dist_params,
+                                                                 roughness))
+
+
+def _sanitize(x, lo, hi):
+    return torch.where(torch.isfinite(x), torch.clamp(x, lo, hi), 0.0)
+
+
+def reblur_pack_radiance_hitdist(radiance, norm_hit_dist, sanitize=True):
+    """REBLUR_FrontEnd_PackRadianceAndNormHitDist (NRD.hlsli:732-743)."""
+    if sanitize:
+        radiance = _sanitize(radiance, 0.0, NRD_FP16_MAX)
+        norm_hit_dist = _sanitize(norm_hit_dist, 0.0, 1.0)
+    return torch.cat([nm.linear_to_ycocg(radiance), norm_hit_dist[..., None]], -1)
+
+
+def reblur_unpack_radiance_hitdist(data):
+    """REBLUR_BackEnd_UnpackRadianceAndNormHitDist (NRD.hlsli:863-868)."""
+    return torch.cat([nm.ycocg_to_linear(data[..., :3]), data[..., 3:4]], -1)
+
+
+def get_normalized_strand_thickness(strand_thickness, pixel_size):
+    """NRD_GetNormalizedStrandThickness (NRD.hlsli:1158-1161)."""
+    return pixel_size / (pixel_size + strand_thickness)

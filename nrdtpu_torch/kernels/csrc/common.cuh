@@ -1,0 +1,191 @@
+// Device functions shared by the REBLUR kernels. Each mirrors, operation for operation, the
+// plain version it is held against: nrdtpu_torch/math.py, nrdtpu_torch/frontend.py and
+// nrdtpu_torch/ops/resample.py (themselves the XLA functions of nrdtpu/math.py and
+// nrdtpu/ops/resample.py). The library is built with --fmad=false, so a*b+c stays two
+// roundings, as in the plain versions.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace nrd {
+
+constexpr float kPi = 3.14159265358979323846f;
+constexpr float kHalfPi = 1.57079632679489661923f;
+constexpr int kBlock = 16;  // 16x16 threads, one per pixel
+
+__device__ __forceinline__ float saturate(float x) { return fminf(fmaxf(x, 0.0f), 1.0f); }
+
+__device__ __forceinline__ int clampi(int v, int lo, int hi) { return min(max(v, lo), hi); }
+
+// float texel coordinate -> int, bounded first (any coordinate beyond +-2^20 clamps to the
+// same edge texel)
+__device__ __forceinline__ int to_index(float v) {
+  return (int)fminf(fmaxf(v, -1048576.0f), 1048576.0f);
+}
+
+__device__ __forceinline__ float load(const float* p) { return *p; }
+__device__ __forceinline__ float load(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+
+// (h, w, C) image with clamp-to-edge addressing
+template <typename T, int C>
+struct Image {
+  const T* p;
+  int w, h;
+  __device__ __forceinline__ float at(int x, int y, int c) const {
+    x = clampi(x, 0, w - 1);
+    y = clampi(y, 0, h - 1);
+    return load(p + ((size_t)y * w + x) * C + c);
+  }
+};
+
+struct V3 {
+  float x, y, z;
+};
+
+__device__ __forceinline__ float dot3(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
+
+// NRD_FrontEnd_UnpackNormalAndRoughness normal: octahedral decode + _NRD_SafeNormalize
+__device__ __forceinline__ V3 unpack_normal(float px, float py) {
+  float qx = px * 2.0f - 1.0f;
+  float qy = py * 2.0f - 1.0f;
+  float z = 1.0f - fabsf(qx) - fabsf(qy);
+  float t = saturate(-z);
+  float x = qx - t * (qx >= 0.0f ? 1.0f : -1.0f);
+  float y = qy - t * (qy >= 0.0f ? 1.0f : -1.0f);
+  float inv = rsqrtf(x * x + y * y + z * z + 1e-9f);
+  return V3{x * inv, y * inv, z * inv};
+}
+
+// Math::AcosApprox as the JAX package defines it
+__device__ __forceinline__ float acos_approx(float x) {
+  x = fminf(fmaxf(x, -1.0f), 1.0f);
+  float res = sqrtf(saturate(1.0f - fabsf(x))) * kHalfPi;
+  return x >= 0.0f ? res : kPi - res;
+}
+
+// ComputeNonExponentialWeight: SmoothStep(1, 0, |x px + py|)
+__device__ __forceinline__ float compute_weight(float x, float px, float py) {
+  float t = saturate((fabsf(x * px + py) - 1.0f) / -1.0f);
+  return t * t * (3.0f - 2.0f * t);
+}
+
+// ComputeExponentialWeight with the true exponential
+__device__ __forceinline__ float compute_exponential_weight(float x, float px, float py) {
+  return expf(-3.0f * fabsf(x * px + py));
+}
+
+__device__ __forceinline__ float in_screen_nearest(float u, float v) {
+  return (u > 0.0f && v > 0.0f && u < 1.0f && v < 1.0f) ? 1.0f : 0.0f;
+}
+
+// Geometry::ReconstructViewPosition; fr = (x0, y0, dx, dy)
+__device__ __forceinline__ V3 reconstruct_view_position(float u, float v, const float fr[4],
+                                                        float z, float ortho) {
+  float scale = z + (1.0f - z) * fabsf(ortho);
+  return V3{(u * fr[2] + fr[0]) * scale, (v * fr[3] + fr[1]) * scale, z};
+}
+
+// bilinear weights of fractional offsets, order (00, 10, 01, 11)
+__device__ __forceinline__ void bilinear_weights(float fx, float fy, float w[4]) {
+  w[0] = (1.0f - fx) * (1.0f - fy);
+  w[1] = fx * (1.0f - fy);
+  w[2] = (1.0f - fx) * fy;
+  w[3] = fx * fy;
+}
+
+// Filtering::ApplyBilinearCustomWeights over the 2x2 at integer origin (x0, y0):
+// renormalized, 0 where the weight sum is ~0
+template <typename T, int C>
+__device__ __forceinline__ void bilinear_custom(const Image<T, C>& img, int x0, int y0,
+                                                const float w[4], float out[C]) {
+  float wsum = w[0] + w[1] + w[2] + w[3];
+  bool small = wsum < 0.0001f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    float s = img.at(x0, y0, c) * w[0] + img.at(x0 + 1, y0, c) * w[1] +
+              img.at(x0, y0 + 1, c) * w[2] + img.at(x0 + 1, y0 + 1, c) * w[3];
+    out[c] = small ? 0.0f : s / wsum;
+  }
+}
+
+// linear-clamp sample at uv (SampleLevel with gLinearClamp)
+template <typename T, int C>
+__device__ __forceinline__ void sample_bilinear(const Image<T, C>& img, float u, float v,
+                                                float out[C]) {
+  float posx = u * (float)img.w - 0.5f;
+  float posy = v * (float)img.h - 0.5f;
+  float ox = floorf(posx), oy = floorf(posy);
+  float w[4];
+  bilinear_weights(posx - ox, posy - oy, w);
+  int x0 = to_index(ox), y0 = to_index(oy);
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    out[c] = img.at(x0, y0, c) * w[0] + img.at(x0 + 1, y0, c) * w[1] +
+             img.at(x0, y0 + 1, c) * w[2] + img.at(x0 + 1, y0 + 1, c) * w[3];
+}
+
+// Catmull-Rom weights per axis, sharpness 0.5
+__device__ __forceinline__ void catmull_rom_weights(float f, float w[4]) {
+  w[0] = f * (f * (-0.5f * f + 1.0f) - 0.5f);
+  w[1] = f * (f * (1.5f * f - 2.5f)) + 1.0f;
+  w[2] = f * (f * (-1.5f * f + 2.0f) + 0.5f);
+  w[3] = f * (f * (0.5f * f - 0.5f));
+}
+
+// _BicubicFilterNoCornersWithFallbackToBilinearFilterWithCustomWeights (Common.hlsli:602-646):
+// 13-tap Catmull-Rom as 5 bilinear taps, or the custom bilinear weights bw where
+// use_bicubic is false. (spx, spy) is the sample position in pixels of img.
+template <typename T, int C>
+__device__ __forceinline__ void sample_catrom(const Image<T, C>& img, float spx, float spy,
+                                              bool use_bicubic, const float bw[4],
+                                              float out[C]) {
+  float cx = floorf(spx - 0.5f) + 0.5f;
+  float cy = floorf(spy - 0.5f) + 0.5f;
+  float fx = saturate(spx - cx);
+  float fy = saturate(spy - cy);
+  float wx[4], wy[4];
+  catmull_rom_weights(fx, wx);
+  catmull_rom_weights(fy, wy);
+  float w12x = wx[1] + wx[2], w12y = wy[1] + wy[2];
+  float tcx = wx[2] / w12x;
+  float tcy = wy[2] / w12y;
+
+  float wt[5], tx[5], ty[5];
+  if (use_bicubic) {
+    wt[0] = w12x * wy[0]; tx[0] = cx + tcx; ty[0] = cy - 1.0f;
+    wt[1] = wx[0] * w12y; tx[1] = cx - 1.0f; ty[1] = cy + tcy;
+    wt[2] = w12x * w12y;  tx[2] = cx + tcx; ty[2] = cy + tcy;
+    wt[3] = wx[3] * w12y; tx[3] = cx + 2.0f; ty[3] = cy + tcy;
+    wt[4] = w12x * wy[3]; tx[4] = cx + tcx; ty[4] = cy + 2.0f;
+  } else {
+    wt[0] = bw[0]; tx[0] = cx;        ty[0] = cy;
+    wt[1] = bw[1]; tx[1] = cx + 1.0f; ty[1] = cy;
+    wt[2] = bw[2]; tx[2] = cx;        ty[2] = cy + 1.0f;
+    wt[3] = bw[3]; tx[3] = cx + 1.0f; ty[3] = cy + 1.0f;
+    wt[4] = 0.0f;  tx[4] = cx + fx;   ty[4] = cy + fy;
+  }
+  float wsum = wt[0] + wt[1] + wt[2] + wt[3] + wt[4];
+  float inv_w = 1.0f / (float)img.w, inv_h = 1.0f / (float)img.h;
+
+  float acc[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) acc[c] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    float s[C];
+    sample_bilinear(img, tx[k] * inv_w, ty[k] * inv_h, s);
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[c] = acc[c] + s[c] * wt[k];
+  }
+  float div = fabsf(wsum) < 0.0001f ? 1.0f : wsum;
+#pragma unroll
+  for (int c = 0; c < C; ++c) out[c] = wsum < 0.0001f ? 0.0f : acc[c] / div;
+}
+
+__device__ __forceinline__ float pixel_u(int x, int w) { return ((float)x + 0.5f) / (float)w; }
+
+}  // namespace nrd
+
+extern "C" const char* nrd_error_string(int err);

@@ -1,0 +1,150 @@
+"""Surface-motion footprint resolve + history sampling - kernel `csrc/smb_resolve.cu`.
+
+Replaces `nrdtpu/kernels/reblur_pallas.py:577` (`reblur_smb_resolve`). Computes, per pixel,
+every gather of `surface_motion_reprojection` at the reprojected position
+(`nrdtpu/passes/reblur/kernels.py:142-249`) and, in the same pass, the CatRom-13 sample of
+the history (bilinear-custom fallback) and the bilinear-custom sample of the fast history
+(`:451-456`):
+
+  - the current 2x2 normal average and the previous one over the centre 2x2 of the
+    footprint, weighted by in-range viewZ;
+  - 4x4 previous viewZ and material taps, rooted at bilinear_origin - 1 with clamp
+    addressing, tested against the per-quad threshold;
+  - occlusion weights, fbits, allow_catrom, the diffuse accumulation speed
+    (bilinear-custom) and the raw footprint-quality sum.
+
+Bound on the H100: gathers. Per pixel at 2560x1440 it reads 16 viewZ + 16 material taps
+(128 B), 4 previous and 4 current packed normals (128 B), 4 accumulation taps (16 B), 13 x 4
+bf16 history taps (~5 x 4 x 4 x 2 = 160 B) and 4 fast-history taps, ~0.5 KB of mostly
+L1/L2-resident neighbourhood for 44 B of output; device-memory traffic is near the compulsory
+~100 B/px. This first version is one thread per pixel in 16x16 blocks with plain global
+loads (NRD's own compute-shader shape); shared-memory footprints are later work.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import frontend as fe
+from .. import math as nm
+from ..ops import resample, stencil
+from . import build
+
+launches = 0
+
+CENTER_TAPS = ((1, 1), (2, 1), (1, 2), (2, 2))  # (x, y) of the bilinear 2x2 inside the 4x4
+CORNER_TAPS = ((0, 0), (3, 0), (0, 3), (3, 3))
+PLANES = ("fbits", "allow_catrom", "footprint_raw", "diff_accum_speed", "fast")
+
+
+def _pack(history, planes):
+    out = {name: planes[k] for k, name in enumerate(PLANES)}
+    out["allow_catrom"] = out["allow_catrom"] > 0.5
+    out["history"] = history
+    return out
+
+
+def smb_resolve_ref(smb_uv, xv_prev_z, base_threshold, navg_thr, normal_roughness,
+                    prev_view_z, prev_normal_roughness, prev_material_id, prev_diff_accum,
+                    history, fast_history, *, view_z_scale, denoising_range,
+                    rect_size_prev, min_material, world_prev_to_world):
+    """Plain PyTorch version of the kernel (the XLA formulas, gather by gather)."""
+    def unpack(p):
+        return fe.unpack_normal_roughness(p)[0]
+
+    # current Navg over the 2x2 at offsets {-1, 0} (TA lines 70-97)
+    n_avg = torch.zeros_like(normal_roughness[..., :3])
+    for dy, dx in ((-1, -1), (-1, 0), (0, -1), (0, 0)):
+        n_avg = n_avg + unpack(stencil.shifted(normal_roughness, dy, dx))
+    n_avg = n_avg / 4.0
+
+    origin, frac = nm.bilinear_filter(smb_uv, rect_size_prev)
+    x0 = resample.to_index(origin[..., 0])
+    y0 = resample.to_index(origin[..., 1])
+
+    z_taps = [[torch.abs(resample.texel_fetch(prev_view_z, x0 - 1 + i, y0 - 1 + j))
+               * view_z_scale for i in range(4)] for j in range(4)]
+
+    smb_navg = torch.zeros_like(n_avg)
+    wsum = torch.zeros_like(xv_prev_z)
+    for tx, ty in CENTER_TAPS:
+        w_ = (z_taps[ty][tx] < denoising_range).to(torch.float32)
+        npv = unpack(resample.texel_fetch(prev_normal_roughness, x0 + tx - 1, y0 + ty - 1))
+        smb_navg = smb_navg + npv * w_[..., None]
+        wsum = wsum + w_
+    smb_navg = smb_navg / torch.where(wsum == 0.0, 1.0, wsum)[..., None]
+    smb_navg = nm.rotate_vector(world_prev_to_world, smb_navg)
+
+    navg_ok = (nm.dot(smb_navg, n_avg) > navg_thr).to(torch.float32)
+    in_screen4 = resample.is_in_screen_bilinear(origin, rect_size_prev)
+    quad_threshold = [base_threshold * navg_ok * in_screen4[..., q] - fe.NRD_EPS
+                      for q in range(4)]
+
+    material_id = normal_roughness[..., 3] * 3.0
+    mat_c = torch.clamp_min(material_id, min_material)
+    occ = [[None] * 4 for _ in range(4)]
+    for j in range(4):
+        for i in range(4):
+            q = (1 if i >= 2 else 0) + (2 if j >= 2 else 0)
+            plane_dist = torch.abs(z_taps[j][i] - xv_prev_z)
+            o = (plane_dist <= quad_threshold[q]).to(torch.float32)
+            mat = resample.texel_fetch(prev_material_id, x0 - 1 + i, y0 - 1 + j)
+            occ[j][i] = o * (mat_c == torch.clamp_min(mat, min_material)).to(torch.float32)
+
+    occ_center = torch.stack([occ[ty][tx] for tx, ty in CENTER_TAPS], -1)
+    weights = nm.get_bilinear_custom_weights(frac, occ_center)
+    occ12_sum = sum(occ[j][i] for j in range(4) for i in range(4) if (i, j) not in CORNER_TAPS)
+    allow_catrom = occ12_sum > 11.5
+    fbits = (occ_center[..., 0] * 1.0 + occ_center[..., 1] * 2.0
+             + occ_center[..., 2] * 4.0 + occ_center[..., 3] * 8.0)
+
+    footprint_raw = torch.sum(occ_center * nm.bilinear_weights(frac), -1)
+
+    sample_pos = nm.scale2(nm.saturate(smb_uv), rect_size_prev[0], rect_size_prev[1])
+    hist = resample.sample_catrom(history.float(), sample_pos, allow_catrom, weights)
+    fast = resample.bilinear_custom(fast_history.float(), torch.floor(sample_pos - 0.5),
+                                    weights)
+    diff_accum_speed = resample.bilinear_custom(prev_diff_accum, origin, weights)
+    planes = torch.stack([fbits, allow_catrom.to(torch.float32), footprint_raw,
+                          diff_accum_speed, fast])
+    return _pack(hist, planes)
+
+
+def smb_resolve(smb_uv, xv_prev_z, base_threshold, navg_thr, normal_roughness, prev_view_z,
+                prev_normal_roughness, prev_material_id, prev_diff_accum, history, fast_history,
+                *, view_z_scale, denoising_range, rect_size_prev, min_material,
+                world_prev_to_world):
+    """Returns dict(history (h, w, 4), fast, fbits, allow_catrom (bool), footprint_raw,
+    diff_accum_speed). All planes share the (h, w) of the current frame;
+    the previous-frame planes and the histories have the same size (rect = resource)."""
+    global launches
+    kw = dict(view_z_scale=view_z_scale, denoising_range=denoising_range,
+              rect_size_prev=rect_size_prev, min_material=min_material,
+              world_prev_to_world=world_prev_to_world)
+    dev = build.kernel_device(normal_roughness)
+    if dev is None:
+        return smb_resolve_ref(smb_uv, xv_prev_z, base_threshold, navg_thr, normal_roughness,
+                               prev_view_z, prev_normal_roughness, prev_material_id,
+                               prev_diff_accum, history, fast_history, **kw)
+    h, w = xv_prev_z.shape
+    f32, bf16 = torch.float32, torch.bfloat16
+    ins = [("smb_uv", smb_uv, f32, (h, w, 2)), ("xv_prev_z", xv_prev_z, f32, (h, w)),
+           ("base_threshold", base_threshold, f32, (h, w)), ("navg_thr", navg_thr, f32, (h, w)),
+           ("normal_roughness", normal_roughness, f32, (h, w, 4)),
+           ("prev_view_z", prev_view_z, f32, (h, w)),
+           ("prev_normal_roughness", prev_normal_roughness, f32, (h, w, 4)),
+           ("prev_material_id", prev_material_id, f32, (h, w)),
+           ("prev_diff_accum", prev_diff_accum, f32, (h, w)),
+           ("history", history, bf16, (h, w, 4)), ("fast_history", fast_history, bf16, (h, w))]
+    for name, t, dt, shape in ins:
+        build.check(name, t, dev, dt, shape)
+    out_hist = torch.empty((h, w, 4), dtype=f32, device=dev)
+    planes = torch.empty((len(PLANES), h, w), dtype=f32, device=dev)
+    m = np.asarray(world_prev_to_world, np.float32)[:3, :3].reshape(-1)
+    consts = [view_z_scale, denoising_range, rect_size_prev[0], rect_size_prev[1],
+              min_material, *m]
+    build.launch("nrd_smb_resolve", [t for _, t, _, _ in ins] + [out_hist, planes], consts,
+                 w, h)
+    launches += 1
+    return _pack(out_hist, planes)

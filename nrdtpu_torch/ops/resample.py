@@ -1,0 +1,148 @@
+"""Texture-sampling equivalents - counterpart of `nrdtpu/ops/resample.py`.
+
+Conventions: images are (H, W) or (H, W, C); pixel (x, y) lives at [y, x]; uv is (..., 2) in
+[0, 1] with texel centres at (i + 0.5) / size; addressing is clamp-to-edge. These are the
+plain versions the hand kernels are held against (`kernels/csrc/common.cuh` mirrors them).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import math as nm
+
+
+def _chanify(img):
+    return (img[..., None], False) if img.dim() == 2 else (img, True)
+
+
+def texel_fetch(img, x, y):
+    """Integer fetch with clamp addressing; x, y integer tensors of one shape."""
+    img_c, had_c = _chanify(img)
+    h, w = img_c.shape[0], img_c.shape[1]
+    xc = torch.clamp(x.long(), 0, w - 1)
+    yc = torch.clamp(y.long(), 0, h - 1)
+    out = img_c[yc, xc]
+    return out if had_c else out[..., 0]
+
+
+def to_index(origin):
+    """Float texel coordinate -> int64, bounded first so that no value overflows (any
+    coordinate beyond +-2^20 clamps to the same edge texel)."""
+    return torch.clamp(origin, -1048576.0, 1048576.0).long()
+
+
+def sample_nearest(img, uv):
+    img_c, _ = _chanify(img)
+    h, w = img_c.shape[0], img_c.shape[1]
+    return texel_fetch(img, to_index(torch.floor(uv[..., 0] * w)),
+                       to_index(torch.floor(uv[..., 1] * h)))
+
+
+def gather_2x2(img, origin):
+    """2x2 footprint at integer origin (..., 2) = (x, y): (s00, s10, s01, s11)."""
+    x0 = to_index(origin[..., 0])
+    y0 = to_index(origin[..., 1])
+    return (texel_fetch(img, x0, y0), texel_fetch(img, x0 + 1, y0),
+            texel_fetch(img, x0, y0 + 1), texel_fetch(img, x0 + 1, y0 + 1))
+
+
+def sample_bilinear(img, uv):
+    """Linear-clamp sampler (SampleLevel with gLinearClamp)."""
+    img_c, had_c = _chanify(img)
+    h, w = img_c.shape[0], img_c.shape[1]
+    origin, f = nm.bilinear_filter(uv, (w, h))
+    s00, s10, s01, s11 = gather_2x2(img_c, origin)
+    wts = nm.bilinear_weights(f)
+    out = (s00 * wts[..., 0:1] + s10 * wts[..., 1:2]
+           + s01 * wts[..., 2:3] + s11 * wts[..., 3:4])
+    return out if had_c else out[..., 0]
+
+
+def bilinear_custom(img, origin, weights):
+    """_BilinearFilterWithCustomWeights_Color (Common.hlsli:648-656); 0 where the weight
+    sum is ~0."""
+    img_c, had_c = _chanify(img)
+    s00, s10, s01, s11 = gather_2x2(img_c, origin)
+    out = nm.apply_bilinear_custom_weights(s00, s10, s01, s11, weights)
+    return out if had_c else out[..., 0]
+
+
+def sample_catrom(img, sample_pos, use_bicubic=None, bilinear_custom_weights=None,
+                  sharpness: float = 0.5):
+    """13-tap Catmull-Rom (no corners) with per-pixel fallback to the custom bilinear
+    weights (Common.hlsli:602-646). `sample_pos` is in pixels of `img`; returns 0 where the
+    weight sum vanishes."""
+    img_c, had_c = _chanify(img)
+    h, w = img_c.shape[0], img_c.shape[1]
+    inv_w, inv_h = float(np.float32(1.0) / np.float32(w)), float(np.float32(1.0) / np.float32(h))
+
+    center_pos = torch.floor(sample_pos - 0.5) + 0.5
+    f = nm.saturate(sample_pos - center_pos)
+    w0x, w1x, w2x, w3x = nm.catmull_rom_weights(f[..., 0], sharpness)
+    w0y, w1y, w2y, w3y = nm.catmull_rom_weights(f[..., 1], sharpness)
+    w12x, w12y = w1x + w2x, w1y + w2y
+    tcx = w2x / w12x
+    tcy = w2y / w12y
+
+    wa = w12x * w0y
+    wb = w0x * w12y
+    wc = w12x * w12y
+    wd = w3x * w12y
+    we = w12x * w3y
+
+    cx, cy = center_pos[..., 0], center_pos[..., 1]
+    if use_bicubic is not None:
+        ub = use_bicubic
+        bw = bilinear_custom_weights
+        wa = torch.where(ub, wa, bw[..., 0])
+        wb = torch.where(ub, wb, bw[..., 1])
+        wc = torch.where(ub, wc, bw[..., 2])
+        wd = torch.where(ub, wd, bw[..., 3])
+        we = torch.where(ub, we, 0.0)
+        taps = ((torch.where(ub, cx + tcx, cx), torch.where(ub, cy - 1.0, cy)),
+                (torch.where(ub, cx - 1.0, cx + 1.0), torch.where(ub, cy + tcy, cy)),
+                (torch.where(ub, cx + tcx, cx), torch.where(ub, cy + tcy, cy + 1.0)),
+                (torch.where(ub, cx + 2.0, cx + 1.0), torch.where(ub, cy + tcy, cy + 1.0)),
+                (torch.where(ub, cx + tcx, cx + f[..., 0]),
+                 torch.where(ub, cy + 2.0, cy + f[..., 1])))
+    else:
+        taps = ((cx + tcx, cy - 1.0), (cx - 1.0, cy + tcy), (cx + tcx, cy + tcy),
+                (cx + 2.0, cy + tcy), (cx + tcx, cy + 2.0))
+    wsum = wa + wb + wc + wd + we
+
+    color = None
+    for (px, py), wt in zip(taps, (wa, wb, wc, wd, we)):
+        t = sample_bilinear(img_c, torch.stack([px * inv_w, py * inv_h], -1)) * wt[..., None]
+        color = t if color is None else color + t
+    color = torch.where((wsum < 0.0001)[..., None], 0.0,
+                        color / torch.where(torch.abs(wsum) < 0.0001, 1.0, wsum)[..., None])
+    return color if had_c else color[..., 0]
+
+
+def pixel_uv_grid(h: int, w: int, device=None):
+    """uv of every pixel centre of an (h, w) rect: (h, w, 2), y-down."""
+    x = nm.div(torch.arange(w, dtype=torch.float32, device=device) + 0.5, w)
+    y = nm.div(torch.arange(h, dtype=torch.float32, device=device) + 0.5, h)
+    v, u = torch.meshgrid(y, x, indexing="ij")
+    return torch.stack([u, v], -1)
+
+
+def is_in_screen_nearest(uv):
+    """IsInScreenNearest (Common.hlsli:280-283)."""
+    inside = (uv > 0.0).all(-1) & (uv < 1.0).all(-1)
+    return inside.to(torch.float32)
+
+
+def is_in_screen_bilinear(footprint_origin, rect_size):
+    """IsInScreenBilinear (Common.hlsli:287-295): per-tap validity of a 2x2 footprint."""
+    px, py = footprint_origin[..., 0], footprint_origin[..., 1]
+    rx, ry = float(rect_size[0]), float(rect_size[1])
+
+    def ok(p, r):
+        return ((p >= 0.0) & (p < r)).to(torch.float32)
+
+    x0, x1 = ok(px, rx), ok(px + 1.0, rx)
+    y0, y1 = ok(py, ry), ok(py + 1.0, ry)
+    return torch.stack([x0 * y0, x1 * y0, x0 * y1, x1 * y1], -1)

@@ -1,0 +1,126 @@
+"""REBLUR shared helpers (REBLUR_Common.hlsli + REBLUR_Config.hlsli) - the part the diffuse
+path uses; counterpart of `nrdtpu/passes/reblur/common.py`.
+
+Signals are (h, w, 4): YCoCg + normalized hit distance, hit distance the last channel.
+Frame constants (`sc`, `dc`) are host values: Python floats or small numpy arrays.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ... import math as nm
+
+REBLUR_ACCUMSPEED_BITS = 6
+REBLUR_MATERIALID_BITS = 4
+REBLUR_MAX_ACCUM_FRAME_NUM = (1 << REBLUR_ACCUMSPEED_BITS) - 1  # 63
+REBLUR_MAX_MATERIALID_NUM = (1 << REBLUR_MATERIALID_BITS) - 1
+
+REBLUR_PRE_BLUR_FRACTION_SCALE = 2.0
+REBLUR_PRE_BLUR_NON_LINEAR_ACCUM_SPEED = 1.0 / (1.0 + 10.0)
+REBLUR_BLUR_FRACTION_SCALE = 1.0
+REBLUR_POST_BLUR_FRACTION_SCALE = 0.5
+REBLUR_POST_BLUR_RADIUS_SCALE = 2.0
+
+REBLUR_ALMOST_ZERO_ANGLE = 0.017452383413910866  # float32 cos(89 degrees)
+REBLUR_FIREFLY_SUPPRESSOR_MAX_RELATIVE_INTENSITY = 38.0
+REBLUR_FIREFLY_SUPPRESSOR_RADIUS_SCALE = 0.1
+REBLUR_FIREFLY_SUPPRESSOR_FAST_RELATIVE_INTENSITY = 4.0
+REBLUR_SAMPLES_PER_FRAME = 1.0
+
+f32 = np.float32
+
+
+def color_clamping_sigma_scale(occlusion: bool) -> float:
+    return 1.0 if occlusion else 2.0
+
+
+def quantize_accum_speed(a):
+    """6-bit round-trip of accumSpeed / 63 - the R16_UINT feedback precision."""
+    return torch.round(nm.saturate(a / REBLUR_MAX_ACCUM_FRAME_NUM) * REBLUR_MAX_ACCUM_FRAME_NUM)
+
+
+def quantize_material_id(m):
+    return torch.round(torch.clamp(m, 0, REBLUR_MAX_MATERIALID_NUM))
+
+
+def get_view_vector(sc, x_world):
+    """GetViewVector (world space): normalize(-X) for perspective (camera at origin)."""
+    if float(sc["ortho_mode"]) == 0.0:
+        return nm.normalize(-x_world)
+    vv = [float(c) for c in sc["view_vector_world"]]
+    return torch.tensor(vv, dtype=torch.float32, device=x_world.device).expand_as(x_world)
+
+
+def get_view_vector_prev(sc, x_prev):
+    if float(sc["ortho_mode"]) == 0.0:
+        cd = torch.tensor([float(c) for c in sc["camera_delta"]], dtype=torch.float32,
+                          device=x_prev.device)
+        return nm.normalize(cd - x_prev)
+    vv = [float(c) for c in sc["view_vector_world_prev"]]
+    return torch.tensor(vv, dtype=torch.float32, device=x_prev.device).expand_as(x_prev)
+
+
+def get_min_allowed_limit_for_hit_dist_non_linear_accum_speed(dc, roughness):
+    """REBLUR_Common.hlsli:94-102."""
+    frame_num = 0.5 * nm.get_spec_magic_curve(roughness) * float(dc["max_accumulated_frame_num"])
+    return 1.0 / (1.0 + frame_num)
+
+
+def get_fade_based_on_accumulated_frames(dc, accum_speed):
+    """REBLUR_Common.hlsli:104-110 (the bounds evaluated in float32, as on the device)."""
+    n = f32(dc["history_fix_frame_num"])
+    a = n * f32(2.0) / f32(3.0) + f32(1e-6)
+    b = n * f32(4.0) / f32(3.0) + f32(2e-6)
+    return nm.saturate((accum_speed - float(a)) / float(b - a))
+
+
+def extract_hit_dist(signal):
+    return signal[..., -1]
+
+
+def get_luma(signal):
+    """GetLuma: YCoCg .x for radiance signals."""
+    return signal[..., 0]
+
+
+def get_luma_scale(curr_luma, new_luma):
+    return (new_luma + nm.EPS) / (curr_luma + nm.EPS)
+
+
+def change_luma(signal, new_luma):
+    scale = get_luma_scale(get_luma(signal), new_luma)
+    return torch.cat([signal[..., :3] * scale[..., None], signal[..., 3:]], -1)
+
+
+def clamp_negative_to_zero(signal):
+    """ClampNegativeToZero (REBLUR_Common.hlsli:168-240) for radiance."""
+    hit = nm.saturate(signal[..., -1:])
+    return torch.cat([nm.linear_to_ycocg(nm.ycocg_to_linear(signal[..., :3])), hit], -1)
+
+
+def mix_history_and_current(dc, history, current, f, roughness):
+    """MixHistoryAndCurrent (REBLUR_Common.hlsli:152-207) for radiance."""
+    min_limit = get_min_allowed_limit_for_hit_dist_non_linear_accum_speed(dc, roughness)
+    f_hit = torch.maximum(f, min_limit)
+    out_rgb = nm.lerp(history[..., :3], current[..., :3], f[..., None])
+    out_hit = nm.lerp(history[..., 3], current[..., 3], f_hit)
+    return torch.cat([out_rgb, out_hit[..., None]], -1)
+
+
+def compute_antilag(sc, dc, history, avg, sigma, accum_speed):
+    """ComputeAntilag mode 2 (REBLUR_Common.hlsli:244-274)."""
+    s = sigma * float(dc["antilag_params"][0])
+    frs = f32(sc["framerate_scale"])
+    magic = float(f32(dc["antilag_params"][1]) * frs * frs)
+    hc = torch.clamp(history, avg - s, avg + s)
+    d = torch.abs(history - hc) / (torch.maximum(history, hc) + nm.EPS)
+    return 1.0 / (1.0 + d * accum_speed / magic)
+
+
+def get_temporal_accumulation_params(sc, is_in_screen_mul_footprint_quality, accum_speed):
+    """REBLUR_Common.hlsli:297-306. Returns (w, sigma_scale)."""
+    a = accum_speed * REBLUR_SAMPLES_PER_FRAME
+    w = is_in_screen_mul_footprint_quality * a / (1.0 + a)
+    return w, 1.0 + 3.0 * float(sc["framerate_scale"]) * w

@@ -1,0 +1,273 @@
+"""Synthetic scene generator: deterministic multi-frame G-buffers + noisy signals.
+
+Counterpart of `nrdtpu/utils/scene.py` (numpy only; the packed normals go through the
+port's frontend), so the port's tests and `chip_smoke.py` drive the same scenes.
+
+The reference has no unit tests; its regression corpus is ~200 recorded interactive scenes
+(SURVEY.md §4). This module replaces that with an analytic ray-traced scene (ground plane +
+spheres, RH world, orbiting/translating camera) so temporal behavior - reprojection,
+disocclusion, accumulation, history reset - is testable without any GPU and without recorded
+data. Everything is numpy and deterministic per (seed, frame_index).
+
+Produces the exact NRD input contract:
+  IN_VIEWZ (+ linear view depth), IN_NORMAL_ROUGHNESS (packed), IN_MV (2.5D screen-space,
+  mv = uv_prev - uv), noisy diffuse/specular radiance+hitDist, penumbra for SIGMA, and the
+  clean (converged) images every denoiser should approach.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Tuple
+
+import numpy as np
+
+from .. import camera
+from ..frontend import NRD_FP16_MAX
+from ..settings import CommonSettings, NormalEncoding, RoughnessEncoding
+
+
+@dataclass
+class SceneSpec:
+    size: Tuple[int, int] = (128, 128)          # (w, h)
+    fov_y: float = float(np.radians(70))
+    plane_y: float = 0.0
+    spheres: tuple = (
+        # (center xyz, radius, roughness, material_id)
+        ((0.0, 1.0, -6.0), 1.0, 0.3, 0.0),
+        ((2.5, 0.7, -8.0), 0.7, 0.05, 1.0),
+        ((-2.0, 1.5, -10.0), 1.5, 0.8, 0.0),
+    )
+    plane_roughness: float = 0.9
+    light_dir: Tuple[float, float, float] = (0.35, 0.8, 0.49)  # towards the light
+    light_tan_angular_radius: float = 0.15
+    sky_z: float = 1e7                           # beyond denoisingRange
+    noise: float = 0.25                          # relative radiance noise level
+    seed: int = 0
+
+
+def _normalize(v):
+    return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+
+def camera_path(frame: int, mode: str = "static"):
+    """Returns (eye, target) for a named camera path."""
+    if mode == "static":
+        return np.array([0.0, 1.5, 2.0]), np.array([0.0, 1.0, -6.0])
+    if mode == "strafe":
+        x = 0.06 * frame
+        return np.array([x, 1.5, 2.0]), np.array([x, 1.0, -6.0])
+    if mode == "orbit":
+        a = 0.02 * frame
+        eye = np.array([np.sin(a) * 6.0, 1.8, 2.0 + np.cos(a) * 2.0 - 2.0])
+        return eye, np.array([0.0, 1.0, -6.0])
+    if mode == "zoom":
+        # dolly toward the scene: radial screen motion, worst case for any
+        # block-uniform motion model (VERDICT r1: rotation/zoom divergence)
+        z = 2.0 - 0.08 * frame
+        return np.array([0.0, 1.5, z]), np.array([0.0, 1.0, -6.0])
+    raise ValueError(mode)
+
+
+@dataclass
+class FrameData:
+    """Raw (unpacked) per-frame scene data; packing into NRD inputs happens on top."""
+
+    view_z: np.ndarray          # (h, w), +inf -> sky_z
+    normal: np.ndarray          # (h, w, 3) world space
+    roughness: np.ndarray       # (h, w)
+    material_id: np.ndarray     # (h, w)
+    world_pos: np.ndarray       # (h, w, 3) absolute
+    mv: np.ndarray              # (h, w, 3) screen-space uv delta (prev - curr), z = viewZ delta
+    hit_mask: np.ndarray        # (h, w) 1 where geometry
+    # lighting
+    diff_clean: np.ndarray      # (h, w, 3) clean diffuse radiance
+    diff_noisy: np.ndarray      # (h, w, 3)
+    diff_hit_dist: np.ndarray   # (h, w) mean AO ray length
+    shadow_clean: np.ndarray    # (h, w) clean shadow (0 umbra, 1 lit)
+    dist_to_occluder: np.ndarray  # (h, w) FP16_MAX where lit
+    ao_clean: np.ndarray = None   # (h, w) clean normalized occlusion (AO)
+    ao_noisy: np.ndarray = None   # (h, w) 1-sample AO estimate in [0, 1]
+    spec_clean: np.ndarray = None  # (h, w, 3) clean specular radiance
+    spec_noisy: np.ndarray = None  # (h, w, 3)
+    spec_hit_dist: np.ndarray = None  # (h, w) reflection ray length
+    common_settings: CommonSettings = field(default=None)
+    view_to_clip: np.ndarray = field(default=None)
+    world_to_view: np.ndarray = field(default=None)
+
+
+class SceneGenerator:
+    def __init__(self, spec: SceneSpec = SceneSpec(), camera_mode: str = "static"):
+        self.spec = spec
+        self.camera_mode = camera_mode
+        self._prev = None  # (view_to_clip, world_to_view)
+
+    # -- analytic tracing ----------------------------------------------------
+    def _trace(self, origins, dirs):
+        """Nearest hit among plane+spheres. Returns (t, normal, roughness, matid)."""
+        sp = self.spec
+        big = np.float32(1e30)
+        t_best = np.full(dirs.shape[:-1], big, np.float32)
+        n_best = np.zeros(dirs.shape, np.float32)
+        rough = np.full(dirs.shape[:-1], 1.0, np.float32)
+        matid = np.zeros(dirs.shape[:-1], np.float32)
+
+        # ground plane y = plane_y
+        denom = dirs[..., 1]
+        t_plane = np.where(np.abs(denom) > 1e-6,
+                           (sp.plane_y - origins[..., 1]) / denom, big)
+        hit = (t_plane > 1e-3) & (t_plane < t_best)
+        t_best = np.where(hit, t_plane, t_best)
+        n_best = np.where(hit[..., None], np.array([0.0, 1.0, 0.0], np.float32), n_best)
+        rough = np.where(hit, sp.plane_roughness, rough)
+        matid = np.where(hit, 0.0, matid)
+
+        for center, radius, r_sph, mid in sp.spheres:
+            oc = origins - np.asarray(center, np.float32)
+            b = np.sum(oc * dirs, -1)
+            c = np.sum(oc * oc, -1) - radius * radius
+            disc = b * b - c
+            sq = np.sqrt(np.maximum(disc, 0.0))
+            t0 = -b - sq
+            t_sph = np.where((disc > 0) & (t0 > 1e-3), t0, big)
+            hit = t_sph < t_best
+            t_best = np.where(hit, t_sph, t_best)
+            p = origins + dirs * t_sph[..., None]
+            n = _normalize(p - np.asarray(center, np.float32))
+            n_best = np.where(hit[..., None], n, n_best)
+            rough = np.where(hit, r_sph, rough)
+            matid = np.where(hit, mid, matid)
+        return t_best, n_best, rough, matid
+
+    def _shadow(self, points, normals):
+        """Analytic sphere shadows for the directional light; returns (vis, distToOccluder)."""
+        sp = self.spec
+        ld = _normalize(np.asarray(sp.light_dir, np.float32))
+        vis = np.ones(points.shape[:-1], np.float32)
+        dist = np.full(points.shape[:-1], NRD_FP16_MAX, np.float32)
+        nol = np.sum(normals * ld, -1)
+        for center, radius, _, _ in sp.spheres:
+            oc = points + normals * 1e-3 - np.asarray(center, np.float32)
+            b = np.sum(oc * ld, -1)
+            c = np.sum(oc * oc, -1) - radius * radius
+            disc = b * b - c
+            t0 = -b - np.sqrt(np.maximum(disc, 0.0))
+            occluded = (disc > 0) & (t0 > 1e-3)
+            vis = np.where(occluded, 0.0, vis)
+            dist = np.where(occluded, np.minimum(dist, np.maximum(t0, 1e-3)), dist)
+        vis = np.where(nol <= 0.0, 0.0, vis)
+        dist = np.where(nol <= 0.0, 1e-3, dist)  # NoL <= 0 -> 0 distance (NRD.hlsli:66)
+        return vis, dist
+
+    # -- frame ----------------------------------------------------------------
+    def frame(self, frame_index: int) -> FrameData:
+        sp = self.spec
+        w, h = sp.size
+        aspect = w / h
+        eye, target = camera_path(frame_index, self.camera_mode)
+        eye_prev, target_prev = camera_path(max(frame_index - 1, 0), self.camera_mode)
+
+        world_to_view = camera.look_at_rh(eye, target)
+        world_to_view_prev = camera.look_at_rh(eye_prev, target_prev)
+        view_to_clip = camera.perspective_rh(sp.fov_y, aspect, 0.1)
+
+        # primary rays through pixel centers (y-down uv)
+        u = (np.arange(w, dtype=np.float32) + 0.5) / w
+        v = (np.arange(h, dtype=np.float32) + 0.5) / h
+        uu, vv = np.meshgrid(u, v)
+        ndc_x = uu * 2.0 - 1.0
+        ndc_y = 1.0 - vv * 2.0
+        tan_y = np.tan(sp.fov_y * 0.5)
+        view_to_world = camera.invert_ortho(world_to_view)
+        # RH view: x right, y up, camera looks down -z
+        dirs_view = np.stack([ndc_x * tan_y * aspect, ndc_y * tan_y,
+                              -np.ones_like(ndc_x)], -1)
+        dirs_world = _normalize(dirs_view @ view_to_world[:3, :3].T)
+        origins = np.broadcast_to(eye.astype(np.float32), dirs_world.shape)
+
+        t, normal, roughness, matid = self._trace(origins, dirs_world)
+        hit_mask = (t < 1e29).astype(np.float32)
+        world_pos = origins + dirs_world * np.where(hit_mask > 0, t, 0.0)[..., None]
+        # linear view Z = -view.z in RH = distance along camera forward
+        view_z = np.where(hit_mask > 0, t * (-dirs_view[..., 2] /
+                                             np.linalg.norm(dirs_view, axis=-1)), sp.sky_z)
+
+        # motion vectors: mv = uv_prev - uv_curr for static geometry
+        wvp = world_to_view_prev
+        view_prev = world_pos @ wvp[:3, :3].T + wvp[:3, 3]
+        clip_prev = view_prev @ view_to_clip[:3, :3].T + view_to_clip[:3, 3]
+        w_prev = view_prev @ view_to_clip[3, :3].T + view_to_clip[3, 3]
+        ndc_prev = clip_prev[..., :2] / np.where(np.abs(w_prev[..., None]) < 1e-9, 1e-9,
+                                                 w_prev[..., None])
+        uv_prev = np.stack([ndc_prev[..., 0] * 0.5 + 0.5, 0.5 - ndc_prev[..., 1] * 0.5], -1)
+        uv_curr = np.stack([uu, vv], -1)
+        view_z_prev = -view_prev[..., 2]
+        mv = np.concatenate([uv_prev - uv_curr, (view_z_prev - view_z)[..., None]], -1)
+        mv = np.where(hit_mask[..., None] > 0, mv, 0.0).astype(np.float32)
+
+        # lighting
+        ld = _normalize(np.asarray(sp.light_dir, np.float32))
+        shadow_clean, dist_to_occluder = self._shadow(world_pos, normal)
+        nol = np.maximum(np.sum(normal * ld, -1), 0.0)
+        albedo = np.stack([0.7 + 0.2 * np.sin(matid * 3.0), np.full_like(nol, 0.6),
+                           0.5 + 0.3 * np.cos(matid)], -1)
+        diff_clean = albedo * (nol * shadow_clean + 0.15)[..., None]  # direct + ambient
+        diff_clean = np.where(hit_mask[..., None] > 0, diff_clean, 0.0).astype(np.float32)
+
+        rng = np.random.default_rng(sp.seed * 65521 + frame_index)
+        noise = rng.gamma(shape=1.0 / max(sp.noise, 1e-6) ** 2,
+                          scale=sp.noise ** 2, size=nol.shape).astype(np.float32)
+        diff_noisy = diff_clean * noise[..., None]
+        diff_hit_dist = np.where(hit_mask > 0, 0.5 + 0.1 * view_z, 0.0).astype(np.float32)
+
+        # specular: environment reflection along R with analytic hit distance
+        r_dir = dirs_world - 2.0 * np.sum(dirs_world * normal, -1, keepdims=True) * normal
+        sky_col = np.stack([0.35 + 0.35 * r_dir[..., 1], 0.45 + 0.3 * r_dir[..., 1],
+                            0.6 + 0.4 * np.clip(r_dir[..., 1], 0, 1)], -1)
+        spec_t, _, _, _ = self._trace(world_pos + normal * 1e-3, _normalize(r_dir))
+        spec_hit_dist = np.where(spec_t < 1e29, spec_t, 30.0).astype(np.float32)
+        spec_clean = np.where(hit_mask[..., None] > 0,
+                              np.where((spec_t < 1e29)[..., None], sky_col * 0.3, sky_col),
+                              0.0).astype(np.float32)
+        spec_noise = rng.gamma(shape=1.0 / max(sp.noise, 1e-6) ** 2,
+                               scale=sp.noise ** 2, size=spec_t.shape).astype(np.float32)
+        spec_noisy = spec_clean * spec_noise[..., None]
+        spec_hit_dist = np.where(hit_mask > 0, spec_hit_dist, 0.0).astype(np.float32)
+
+        # AO-like normalized occlusion: smooth analytic target + binary 1-spp estimate
+        ao_clean = np.clip(0.25 + 0.6 * normal[..., 1] + 0.15 * shadow_clean, 0.0, 1.0)
+        ao_clean = np.where(hit_mask > 0, ao_clean, 0.0).astype(np.float32)
+        ao_noisy = (rng.uniform(size=ao_clean.shape) < ao_clean).astype(np.float32)
+
+        cs = CommonSettings()
+        cs.viewToClipMatrix = view_to_clip.flatten(order="F")
+        cs.viewToClipMatrixPrev = view_to_clip.flatten(order="F")
+        cs.worldToViewMatrix = world_to_view.flatten(order="F")
+        cs.worldToViewMatrixPrev = world_to_view_prev.flatten(order="F")
+        cs.resourceSize = cs.resourceSizePrev = cs.rectSize = cs.rectSizePrev = (w, h)
+        cs.frameIndex = frame_index
+        cs.denoisingRange = 100000.0
+        cs.motionVectorScale = (1.0, 1.0, 1.0)  # 2.5D uv-space MV
+
+        return FrameData(
+            view_z=view_z.astype(np.float32), normal=normal.astype(np.float32),
+            roughness=roughness.astype(np.float32), material_id=matid.astype(np.float32),
+            world_pos=world_pos.astype(np.float32), mv=mv, hit_mask=hit_mask,
+            diff_clean=diff_clean, diff_noisy=diff_noisy, diff_hit_dist=diff_hit_dist,
+            shadow_clean=shadow_clean.astype(np.float32),
+            dist_to_occluder=dist_to_occluder.astype(np.float32),
+            ao_clean=ao_clean, ao_noisy=ao_noisy,
+            spec_clean=spec_clean, spec_noisy=spec_noisy, spec_hit_dist=spec_hit_dist,
+            common_settings=cs, view_to_clip=view_to_clip, world_to_view=world_to_view)
+
+    def packed_normal_roughness(self, fd: FrameData,
+                                ne=NormalEncoding.R10_G10_B10_A2_UNORM,
+                                re_=RoughnessEncoding.LINEAR):
+        import torch
+
+        from .. import frontend as fe
+
+        return fe.pack_normal_roughness(
+            torch.from_numpy(fd.normal), torch.from_numpy(fd.roughness),
+            torch.from_numpy(fd.material_id), normal_encoding=ne, roughness_encoding=re_,
+            quantized=True).numpy()

@@ -1,0 +1,106 @@
+"""Hand-written kernels on the card (marker `cuda`; skips where there is no CUDA device).
+
+Each kernel runs on the inputs the main path gives it (frame 4 of the orbit scene at
+128x96) and is held against its plain PyTorch version on the same card; the Engine on the
+card is held against the Engine on the CPU. Run on a machine with an H100:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda
+
+Tolerance: |kernel - plain| <= 1e-4 + 1e-4 |plain| on all but 1e-4 of the values. Both
+sides run the same float32 op order (nvcc --fmad=false); exp/rsqrt/division may differ in
+the last bit, which can flip a step function (floor snap, plane-distance test) at a pixel
+sitting on its threshold.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from nrdtpu_torch import kernels as KM
+from nrdtpu_torch.engine import Engine
+from nrdtpu_torch.settings import Denoiser, ResourceType as RT
+from nrdtpu_torch.utils.scene import SceneGenerator, SceneSpec
+
+# the tensors here are small: one intra-op thread, so that test workers do not contend
+torch.set_num_threads(1)
+
+pytestmark = pytest.mark.cuda
+SIZE = (128, 96)
+ATOL, RTOL, FLIP_FRACTION = 1e-4, 1e-4, 1e-4
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the hand-written kernels run only on the card")
+    return torch.device("cuda")
+
+
+def _pools(n):
+    gen = SceneGenerator(SceneSpec(size=SIZE, noise=0.4), camera_mode="orbit")
+    for i in range(n):
+        fd = gen.frame(i)
+        fd.common_settings.timeDeltaBetweenFrames = 16.66
+        sig = np.concatenate([fd.diff_noisy, np.full(fd.view_z.shape + (1,), 0.5, np.float32)],
+                             -1)
+        yield fd.common_settings, {RT.IN_VIEWZ: fd.view_z,
+                                   RT.IN_NORMAL_ROUGHNESS: gen.packed_normal_roughness(fd),
+                                   RT.IN_MV: fd.mv, RT.IN_DIFF_RADIANCE_HITDIST: sig}
+
+
+@pytest.fixture(scope="module")
+def recorded(cuda):
+    eng = Engine({0: Denoiser.REBLUR_DIFFUSE}, resource_size=SIZE, device=cuda)
+    calls = []
+    originals = {n: getattr(m, n) for n, m in KM.MODULES.items()}
+    pools = list(_pools(4))
+    try:
+        for i, (cs, pool) in enumerate(pools):
+            if i == len(pools) - 1:
+                for n, m in KM.MODULES.items():
+                    def rec(*a, _n=n, _f=originals[n], **k):
+                        calls.append((_n, a, k))
+                        return _f(*a, **k)
+                    setattr(m, n, rec)
+            eng.set_common_settings(cs)
+            eng.denoise([0], pool)
+    finally:
+        for n, m in KM.MODULES.items():
+            setattr(m, n, originals[n])
+    return calls
+
+
+def _flat(r):
+    if isinstance(r, dict):
+        return {k: r[k] for k in sorted(r)}
+    return {str(i): v for i, v in enumerate(r)} if isinstance(r, tuple) else {"out": r}
+
+
+@pytest.mark.parametrize("name", sorted(KM.MODULES))
+def test_kernel_matches_plain_version(recorded, name):
+    calls = [(a, k) for n, a, k in recorded if n == name]
+    assert calls
+    mod = KM.MODULES[name]
+    for a, k in calls:
+        before = mod.launches
+        got = _flat(getattr(mod, name)(*a, **k))
+        assert mod.launches == before + 1
+        want = _flat(getattr(mod, name + "_ref")(*a, **k))
+        torch.cuda.synchronize()
+        for key, w in want.items():
+            g, w = got[key].float(), w.float()
+            over = ((g - w).abs() > ATOL + RTOL * w.abs()).float().mean().item()
+            assert over <= FLIP_FRACTION, f"{name}.{key}: {over:.3g} of values out of tolerance"
+
+
+def test_engine_card_matches_cpu(cuda):
+    card = Engine({0: Denoiser.REBLUR_DIFFUSE}, resource_size=SIZE, device=cuda)
+    cpu = Engine({0: Denoiser.REBLUR_DIFFUSE}, resource_size=SIZE)
+    for cs, pool in _pools(4):
+        outs = []
+        for eng in (card, cpu):
+            eng.set_common_settings(cs)
+            outs.append(eng.denoise([0], pool)[RT.OUT_DIFF_RADIANCE_HITDIST].cpu().double())
+        mse = float(((outs[0] - outs[1]) ** 2).mean())
+        peak = float(outs[1].abs().max())
+        assert mse == 0.0 or 10.0 * np.log10(peak * peak / mse) >= 50.0

@@ -1,0 +1,166 @@
+"""The PyTorch port stands alone: no JAX and no `nrdtpu` import, a CPU tensor always takes a
+kernel's plain version, and nothing carries on on the CPU where CUDA was asked for."""
+
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from nrdtpu_torch import kernels as KM
+from nrdtpu_torch.kernels import build
+
+# the tensors here are small: one intra-op thread, so that test workers do not contend
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_ONE_FRAME = """
+import sys
+import numpy as np
+from nrdtpu_torch.engine import Engine
+from nrdtpu_torch.settings import Denoiser, ResourceType as RT
+from nrdtpu_torch.utils.scene import SceneGenerator, SceneSpec
+gen = SceneGenerator(SceneSpec(size=(64, 48)), camera_mode="orbit")
+fd = gen.frame(0)
+eng = Engine({0: Denoiser.REBLUR_DIFFUSE}, resource_size=(64, 48))
+eng.set_common_settings(fd.common_settings)
+sig = np.concatenate([fd.diff_noisy, np.full((48, 64, 1), 0.5, np.float32)], -1)
+out = eng.denoise([0], {RT.IN_VIEWZ: fd.view_z, RT.IN_NORMAL_ROUGHNESS:
+                        gen.packed_normal_roughness(fd), RT.IN_MV: fd.mv,
+                        RT.IN_DIFF_RADIANCE_HITDIST: sig})[RT.OUT_DIFF_RADIANCE_HITDIST]
+assert out.shape == (48, 64, 4) and bool(out.isfinite().all())
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.") or m == "nrdtpu"
+             or m.startswith("nrdtpu."))
+print("IMPORTED", bad)
+assert not bad, bad
+"""
+
+
+def _clean_env():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    return env
+
+
+def test_port_imports_no_jax_and_no_nrdtpu():
+    res = subprocess.run([sys.executable, "-c", _ONE_FRAME], cwd=REPO, env=_clean_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "IMPORTED []" in res.stdout
+
+
+@pytest.fixture(scope="module")
+def recorded_calls():
+    """The kernel calls of one CPU frame of the main path, recorded at the wrappers."""
+    from nrdtpu_torch.engine import Engine
+    from nrdtpu_torch.settings import Denoiser, ResourceType as RT
+    from nrdtpu_torch.utils.scene import SceneGenerator, SceneSpec
+
+    gen = SceneGenerator(SceneSpec(size=(48, 32)), camera_mode="orbit")
+    eng = Engine({0: Denoiser.REBLUR_DIFFUSE}, resource_size=(48, 32))
+    calls = []
+    originals = {n: getattr(m, n) for n, m in KM.MODULES.items()}
+    try:
+        for n, m in KM.MODULES.items():
+            def rec(*a, _n=n, _f=originals[n], **k):
+                calls.append((_n, a, k))
+                return _f(*a, **k)
+            setattr(m, n, rec)
+        for i in range(2):
+            fd = gen.frame(i)
+            eng.set_common_settings(fd.common_settings)
+            sig = np.concatenate([fd.diff_noisy, np.full((32, 48, 1), 0.5, np.float32)], -1)
+            eng.denoise([0], {RT.IN_VIEWZ: fd.view_z,
+                              RT.IN_NORMAL_ROUGHNESS: gen.packed_normal_roughness(fd),
+                              RT.IN_MV: fd.mv, RT.IN_DIFF_RADIANCE_HITDIST: sig})
+    finally:
+        for n, m in KM.MODULES.items():
+            setattr(m, n, originals[n])
+    return calls
+
+
+def _flat(r):
+    if isinstance(r, dict):
+        return [r[k] for k in sorted(r)]
+    return list(r) if isinstance(r, tuple) else [r]
+
+
+@pytest.mark.parametrize("name", sorted(KM.MODULES))
+def test_wrapper_takes_plain_version_on_cpu(recorded_calls, name, monkeypatch):
+    """For CPU tensors each wrapper returns exactly its plain version, launches nothing and
+    never asks for the kernel library."""
+    def no_library():
+        raise AssertionError("the kernel library was asked for on the CPU")
+
+    monkeypatch.setattr(build, "library", no_library)
+    calls = [(a, k) for n, a, k in recorded_calls if n == name]
+    assert calls, f"{name} is not on the main path"
+    mod = KM.MODULES[name]
+    KM.reset_launch_counts()
+    for a, k in calls:
+        got, want = _flat(getattr(mod, name)(*a, **k)), _flat(getattr(mod, name + "_ref")(*a, **k))
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert KM.launch_counts()[name] == 0
+
+
+@pytest.mark.parametrize("name", sorted(KM.MODULES))
+def test_wrapper_raises_off_cpu_without_kernel(recorded_calls, name):
+    """A tensor that is neither on the CPU nor on a CUDA card has no kernel: it raises."""
+    a, k = next((a, k) for n, a, k in recorded_calls if n == name)
+    meta = [x.to("meta") if isinstance(x, torch.Tensor) else x for x in a]
+    with pytest.raises(ValueError):
+        getattr(KM.MODULES[name], name)(*meta, **k)
+
+
+def test_engine_cuda_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the no-CUDA path cannot be exercised here")
+    from nrdtpu_torch.engine import Engine
+    from nrdtpu_torch.settings import Denoiser
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine({0: Denoiser.REBLUR_DIFFUSE}, resource_size=(64, 48), device="cuda")
+
+
+def test_unported_variants_raise():
+    from nrdtpu_torch.engine import Engine
+    from nrdtpu_torch.settings import Denoiser
+
+    for d in (Denoiser.REBLUR_DIFFUSE_SPECULAR, Denoiser.SIGMA_SHADOW, Denoiser.RELAX_DIFFUSE):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Engine({0: d}, resource_size=(64, 48))
+
+
+def test_denoise_before_common_settings_raises():
+    from nrdtpu_torch.engine import Engine
+    from nrdtpu_torch.settings import Denoiser
+
+    eng = Engine({0: Denoiser.REBLUR_DIFFUSE}, resource_size=(64, 48))
+    with pytest.raises(RuntimeError, match="set_common_settings"):
+        eng.denoise([0], {})
+
+
+def _run_smoke(cwd):
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=_clean_env(),
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_chip_smoke_fails_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: chip_smoke.py would run for real")
+    res = _run_smoke(REPO)
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    """In a directory that holds chip_smoke.py and nothing else of the repo it must fail."""
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path / "chip_smoke.py")
+    res = _run_smoke(tmp_path)
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout
