@@ -1,5 +1,5 @@
-"""Application-facing pack/unpack contract (`NRD.hlsli`) - the part the REBLUR_DIFFUSE
-slice needs, counterpart of `nrdtpu/frontend.py`."""
+"""Application-facing pack/unpack contract (`NRD.hlsli`) - the part the REBLUR_DIFFUSE and
+REBLUR_SPECULAR slices need, counterpart of `nrdtpu/frontend.py`."""
 
 from __future__ import annotations
 
@@ -79,6 +79,35 @@ def reblur_pack_radiance_hitdist(radiance, norm_hit_dist, sanitize=True):
 def reblur_unpack_radiance_hitdist(data):
     """REBLUR_BackEnd_UnpackRadianceAndNormHitDist (NRD.hlsli:863-868)."""
     return torch.cat([nm.ycocg_to_linear(data[..., :3]), data[..., 3:4]], -1)
+
+
+def environment_term_rtg(rf0, nov, roughness):
+    """_NRD_EnvironmentTerm_Rtg (NRD.hlsli:490-517) - preintegrated GGX environment BRDF."""
+    m = nm.saturate(roughness * roughness)
+    x1, xn, xz, xw = 1.0, nov, nov * nov, nov * nov * nov
+    y1, ym, yz, yw = 1.0, m, m * m, m * m * m
+
+    def dot2(mat, a, b):
+        return mat[0][0] * a[0] * b[0] + mat[0][1] * a[0] * b[1] + \
+            mat[1][0] * a[1] * b[0] + mat[1][1] * a[1] * b[1]
+
+    def dot3(mat, a, b):
+        s = 0.0
+        for i in range(3):
+            for j in range(3):
+                s = s + mat[i][j] * a[i] * b[j]
+        return s
+
+    m1 = ((0.99044, -1.28514), (1.29678, -0.755907))
+    m2 = ((1.0, 2.92338, 59.4188), (20.3225, -27.0302, 222.592), (121.563, 626.13, 316.627))
+    m3 = ((0.0365463, 3.32707), (9.0632, -9.04756))
+    m4 = ((1.0, 3.59685, -1.36772), (9.04401, -16.3174, 9.22949), (5.56589, 19.7886, -20.2123))
+
+    bias = dot2(m1, (x1, xn), (y1, ym)) / torch.clamp_min(
+        dot3(m2, (x1, xn, xw), (y1, ym, yw)), NRD_EPS)
+    scale = dot2(m3, (x1, xn), (y1, ym)) / torch.clamp_min(
+        dot3(m4, (x1, xz, xw), (y1, ym, yw)), NRD_EPS)
+    return nm.saturate(rf0 * scale[..., None] + bias[..., None])
 
 
 def get_normalized_strand_thickness(strand_thickness, pixel_size):

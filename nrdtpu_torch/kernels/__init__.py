@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels (sm_90a) of the REBLUR_DIFFUSE path, one module each.
+"""Hand-written CUDA kernels (sm_90a) of the REBLUR_DIFFUSE and REBLUR_SPECULAR paths, one
+module each.
 
 Every module holds the kernel's wrapper, its plain PyTorch version (`*_ref`) and a launch
 count (`launches`). The wrapper takes the plain version for CPU tensors and launches the
@@ -9,15 +10,23 @@ kernel for CUDA tensors; it never falls back from one to the other.
   history_fix    <- nrdtpu/kernels/reblur_hfix2.py:222 history_fix_taps_pallas2
   ts_prelude     <- nrdtpu/kernels/reblur_pallas.py:1754 moments_minmax_pallas
                     + nrdtpu/kernels/reblur_pallas.py:1705 hist_sample_pallas
+  spec_ta_head   <- nrdtpu/kernels/reblur_pallas.py:942 spec_ta_head
+                    (= :882 spec_prelude + :847 shift_planes + :171 nearest_resolve)
+  nearest_multi  <- nrdtpu/kernels/reblur_pallas.py:219 nearest_resolve_multi
+  vmb_resolve    <- nrdtpu/kernels/reblur_pallas.py:779 reblur_vmb_resolve
 """
 
-from . import history_fix, smb_resolve, spatial_filter, ts_prelude
+from . import (history_fix, nearest_multi, smb_resolve, spatial_filter, spec_ta_head,
+               ts_prelude, vmb_resolve)
 
 MODULES = {
     "smb_resolve": smb_resolve,
     "spatial_filter": spatial_filter,
     "history_fix": history_fix,
     "ts_prelude": ts_prelude,
+    "spec_ta_head": spec_ta_head,
+    "nearest_multi": nearest_multi,
+    "vmb_resolve": vmb_resolve,
 }
 
 

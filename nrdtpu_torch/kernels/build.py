@@ -1,5 +1,6 @@
 """Build the CUDA sources of `csrc/` into one shared library with nvcc and bind it with
-ctypes (no PyTorch headers, so a build takes seconds).
+ctypes (no PyTorch headers, so a build takes seconds). Each source compiles in its own nvcc
+process, all started together; one more call links the objects.
 
 The library is built at first use into `_build/`, named by a hash of the sources and flags,
 and reused while neither changes. A missing nvcc, a failed build or a failed launch raises.
@@ -25,7 +26,7 @@ CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
 # --fmad=false: no a*b+c contraction, so step functions (plane-distance and material tests,
 # floor snaps) see the same float32 values as the plain versions.
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v"]
 
 _lib = None
@@ -58,20 +59,41 @@ def library():
     so = BUILD_DIR / f"libnrdtpu_torch_{digest.hexdigest()[:16]}.so"
     t0 = time.perf_counter()
     if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        (BUILD_DIR / "build.log").write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
-        os.replace(tmp, so)
+        _build(so, cu)
     lib = ctypes.CDLL(str(so))
     lib.nrd_error_string.argtypes = [ctypes.c_int]
     lib.nrd_error_string.restype = ctypes.c_char_p
     build_seconds = time.perf_counter() - t0
     _lib = lib
     return lib
+
+
+def _build(so: Path, sources):
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+    jobs = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in jobs]
+    logs = [(cmd, *p.communicate(), p.returncode) for cmd, p in zip(jobs, procs)]
+    tmp = so.with_suffix(f".{tag}")
+    link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp),
+            *map(str, objs)]
+    failed = [(cmd, out) for cmd, out, _, rc in logs if rc != 0]
+    if not failed:
+        res = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        logs.append((link, res.stdout, None, res.returncode))
+        if res.returncode != 0:
+            failed.append((link, res.stdout))
+    (BUILD_DIR / "build.log").write_text(
+        "".join(" ".join(cmd) + "\n" + out for cmd, out, _, _ in logs))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        cmd, out = failed[0]
+        raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{out[-4000:]}")
+    os.replace(tmp, so)
 
 
 def launch(entry: str, tensors, consts, w: int, h: int):

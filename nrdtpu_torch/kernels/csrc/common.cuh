@@ -71,6 +71,32 @@ __device__ __forceinline__ float compute_weight(float x, float px, float py) {
   return t * t * (3.0f - 2.0f * t);
 }
 
+// HLSL smoothstep(a, b, x), also for a > b
+__device__ __forceinline__ float smoothstep(float a, float b, float x) {
+  float t = saturate((x - a) / (b - a));
+  return t * t * (3.0f - 2.0f * t);
+}
+
+// ComputeNonExponentialWeightWithSigma: SmoothStep(1, 0, |x px + py| - sigma px)
+__device__ __forceinline__ float compute_weight_with_sigma(float x, float px, float py,
+                                                           float sigma) {
+  float t = saturate((fabsf(x * px + py) - sigma * px - 1.0f) / -1.0f);
+  return t * t * (3.0f - 2.0f * t);
+}
+
+// Rng::Hash (PCG), as nrdtpu_torch/math.py:hash_* emulates it in int64
+__device__ __forceinline__ uint32_t hash_init(uint32_t x, uint32_t y, uint32_t frame) {
+  uint32_t s = (x * 1597334677u) ^ (y * 3812015801u) ^ (frame * 2798796415u);
+  return s * 747796405u + 2891336453u;
+}
+
+__device__ __forceinline__ float hash_float(uint32_t& s) {
+  s = s * 747796405u + 2891336453u;
+  uint32_t word = ((s >> ((s >> 28u) + 4u)) ^ s) * 277803737u;
+  uint32_t bits = (word >> 22u) ^ word;
+  return (float)(bits >> 8u) * (1.0f / 16777216.0f);
+}
+
 // ComputeExponentialWeight with the true exponential
 __device__ __forceinline__ float compute_exponential_weight(float x, float px, float py) {
   return expf(-3.0f * fabsf(x * px + py));

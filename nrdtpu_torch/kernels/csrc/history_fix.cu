@@ -1,7 +1,9 @@
-// H3: REBLUR diffuse history fix: stride-tap reconstruction + 3x3 fast-history moments.
+// H3: REBLUR history fix: stride-tap reconstruction + 3x3 fast-history moments, diffuse
+// or specular (roughness weight + low-roughness hitT guide).
 // Replaces nrdtpu/kernels/reblur_hfix2.py:222 history_fix_taps_pallas2; computes
-// nrdtpu/passes/reblur/kernels.py:546-552, :629-683 and :693-700 per pixel. The plain version
-// is nrdtpu_torch/kernels/history_fix.py:history_fix_ref. One thread per pixel.
+// nrdtpu/passes/reblur/kernels.py:546-552, :629-683 and :693-700 per pixel, for is_diffuse
+// True or False. The plain version is nrdtpu_torch/kernels/history_fix.py:history_fix_ref.
+// One thread per pixel.
 #include "common.cuh"
 
 namespace {
@@ -9,7 +11,8 @@ namespace {
 using nrd::Image;
 using nrd::V3;
 
-enum Param { STRIDE, GA, GB, NWP, HA, HB, HDS, FSZ, NX, NY, NZ, NVX, NVY, NVZ };
+enum Param { STRIDE, GA, GB, NWP, HA, HB, HDS, FSZ, NX, NY, NZ, NVX, NVY, NVZ,
+             RA, RB, HIT_DIST, GUIDE_B };  // the last four in specular mode only
 
 struct HfArgs {
   const float* signal;  // (h, w, 4)
@@ -17,12 +20,13 @@ struct HfArgs {
   const float* nr;      // (h, w, 4)
   const float* data1;   // (h, w) accumulated frames
   const float* fast;    // (h, w) fast history
-  const float* params;  // (14, h, w), order of Param
+  const float* params;  // (14 or 18, h, w), order of Param
   float* out;           // (h, w, 4)
   float* moments;       // (2, h, w): m1, m2 of the 3x3 fast history
   int w, h;
   float fr[4];
   float rect_inv_w, rect_inv_h, view_z_scale, ortho, min_material;
+  bool spec;
 };
 
 __global__ void __launch_bounds__(256) history_fix_kernel(HfArgs a) {
@@ -63,6 +67,14 @@ __global__ void __launch_bounds__(256) history_fix_kernel(HfArgs a) {
   const float hds = P[HDS * plane], fsz = P[FSZ * plane];
   const V3 n{P[NX * plane], P[NY * plane], P[NZ * plane]};
   const V3 nv{P[NVX * plane], P[NVY * plane], P[NVZ * plane]};
+  float ra = 0.0f, rb = 0.0f, hit_dist = 0.0f, gb_lo = 0.0f, gb_hi = 0.0f;
+  if (a.spec) {
+    ra = P[RA * plane];
+    rb = P[RB * plane];
+    hit_dist = P[HIT_DIST * plane];
+    gb_lo = 0.2f + P[GUIDE_B * plane];
+    gb_hi = 0.05f + P[GUIDE_B * plane];
+  }
   const Image<float, 4> nr{a.nr, a.w, a.h};
   const Image<float, 1> vz{a.view_z, a.w, a.h};
   const Image<float, 1> data1{a.data1, a.w, a.h};
@@ -92,12 +104,20 @@ __global__ void __launch_bounds__(256) history_fix_kernel(HfArgs a) {
       w_ = w_ * nrd::compute_weight(nrd::dot3(nv, xvs), ga, gb);
       w_ = w_ * (mat_c == ms ? 1.0f : 0.0f);
       w_ = w_ * nrd::compute_exponential_weight(angle, nwp, 0.0f);
+      if (a.spec) {
+        const float rs = nr.at(px, py, 2);
+        w_ = w_ * nrd::compute_exponential_weight(rs * rs, ra, rb);
+      }
       w_ = w_ * (1.0f + data1.at(px, py, 0));
       float s[4];
 #pragma unroll
       for (int c = 0; c < 4; ++c) s[c] = w_ == 0.0f ? 0.0f : sig.at(px, py, c);
-      const float hs_factor = nrd::saturate(s[3] * hds / fsz);
-      w_ = w_ * nrd::compute_exponential_weight(hs_factor, ha, hb);
+      const float hs = s[3] * hds;
+      w_ = w_ * nrd::compute_exponential_weight(nrd::saturate(hs / fsz), ha, hb);
+      if (a.spec) {
+        const float d = fabsf(hit_dist - hs) / (fmaxf(hit_dist, hs) + 0.001f);
+        w_ = w_ * nrd::smoothstep(gb_lo, gb_hi, d);
+      }
       sum = sum + w_;
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[c] = acc[c] + s[c] * w_;
@@ -110,7 +130,8 @@ __global__ void __launch_bounds__(256) history_fix_kernel(HfArgs a) {
 }  // namespace
 
 // ptrs: signal, view_z, nr, data1, fast, params, out, moments
-// consts: frustum[4], rect_inv_w, rect_inv_h, view_z_scale, ortho_mode, min_material
+// consts: frustum[4], rect_inv_w, rect_inv_h, view_z_scale, ortho_mode, min_material,
+//         specular mode (0 or 1)
 extern "C" int nrd_history_fix(void* const* p, const float* c, int w, int h, void* stream) {
   HfArgs a;
   a.signal = (const float*)p[0];
@@ -129,6 +150,7 @@ extern "C" int nrd_history_fix(void* const* p, const float* c, int w, int h, voi
   a.view_z_scale = c[6];
   a.ortho = c[7];
   a.min_material = c[8];
+  a.spec = c[9] != 0.0f;
   dim3 block(nrd::kBlock, nrd::kBlock);
   dim3 grid((w + nrd::kBlock - 1) / nrd::kBlock, (h + nrd::kBlock - 1) / nrd::kBlock);
   history_fix_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);

@@ -18,11 +18,12 @@ struct SmbArgs {
   const float* prev_vz;     // (h, w) raw previous viewZ
   const float* prev_nr;     // (h, w, 4)
   const float* prev_mat;    // (h, w)
-  const float* diff_accum;  // (h, w)
+  const float* accum;       // (h, w) accumulation speed of the signal being denoised
   const __nv_bfloat16* hist;  // (h, w, 4)
   const __nv_bfloat16* fast;  // (h, w)
   float* out_hist;          // (h, w, 4)
-  float* out_planes;        // (5, h, w): fbits, allow_catrom, footprint_raw, diff accum, fast
+  float* out_planes;        // (5, h, w): fbits, allow_catrom, footprint_raw, accum, fast
+  float* out_navg;          // (2, h, w, 3): current n_avg, previous smb_navg (rotated)
   int w, h;
   float view_z_scale, denoising_range, rect_prev_w, rect_prev_h, min_material;
   float m[9];               // world_prev_to_world rotation, row-major
@@ -126,7 +127,7 @@ __global__ void __launch_bounds__(256) smb_resolve_kernel(SmbArgs a) {
   const float footprint = oc[0] * bw[0] + oc[1] * bw[1] + oc[2] * bw[2] + oc[3] * bw[3];
 
   float das;
-  nrd::bilinear_custom(Image<float, 1>{a.diff_accum, a.w, a.h}, bx, by, ow, &das);
+  nrd::bilinear_custom(Image<float, 1>{a.accum, a.w, a.h}, bx, by, ow, &das);
 
   // history samples at the saturated reprojected position
   const float spx = nrd::saturate(u) * a.rect_prev_w, spy = nrd::saturate(v) * a.rect_prev_h;
@@ -144,6 +145,14 @@ __global__ void __launch_bounds__(256) smb_resolve_kernel(SmbArgs a) {
   a.out_planes[2 * plane + i] = footprint;
   a.out_planes[3 * plane + i] = das;
   a.out_planes[4 * plane + i] = fast;
+  float* nv = a.out_navg + 3 * i;
+  nv[0] = n_avg.x;
+  nv[1] = n_avg.y;
+  nv[2] = n_avg.z;
+  nv += 3 * plane;
+  nv[0] = sn.x;
+  nv[1] = sn.y;
+  nv[2] = sn.z;
 }
 
 }  // namespace
@@ -152,8 +161,8 @@ extern "C" const char* nrd_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// ptrs: smb_uv, xv_prev_z, base_thr, navg_thr, nr, prev_vz, prev_nr, prev_mat, diff_accum,
-//       hist, fast, out_hist, out_planes
+// ptrs: smb_uv, xv_prev_z, base_thr, navg_thr, nr, prev_vz, prev_nr, prev_mat, accum,
+//       hist, fast, out_hist, out_planes, out_navg
 // consts: view_z_scale, denoising_range, rect_prev_w, rect_prev_h, min_material, m[9]
 extern "C" int nrd_smb_resolve(void* const* p, const float* c, int w, int h, void* stream) {
   SmbArgs a;
@@ -165,11 +174,12 @@ extern "C" int nrd_smb_resolve(void* const* p, const float* c, int w, int h, voi
   a.prev_vz = (const float*)p[5];
   a.prev_nr = (const float*)p[6];
   a.prev_mat = (const float*)p[7];
-  a.diff_accum = (const float*)p[8];
+  a.accum = (const float*)p[8];
   a.hist = (const __nv_bfloat16*)p[9];
   a.fast = (const __nv_bfloat16*)p[10];
   a.out_hist = (float*)p[11];
   a.out_planes = (float*)p[12];
+  a.out_navg = (float*)p[13];
   a.w = w;
   a.h = h;
   a.view_z_scale = c[0];

@@ -1,15 +1,18 @@
-"""REBLUR diffuse history fix - kernel `csrc/history_fix.cu`.
+"""REBLUR history fix, diffuse and specular - kernel `csrc/history_fix.cu`.
 
 Replaces `nrdtpu/kernels/reblur_hfix2.py:222` (`history_fix_taps_pallas2`). Computes the
 stride-tap reconstruction of `history_fix` (`nrdtpu/passes/reblur/kernels.py:546-552`,
 `:629-683`): 20 taps of the 5x5 grid without centre and corners at the per-pixel floored
 stride, weighted by plane distance, material, normal angle, accumulation speed and hit
 distance, replacing the signal where the stride is non-zero; plus the 3x3 mean and second
-moment of the fast history (`:693-700`) that the clamp after it needs.
+moment of the fast history (`:693-700`) that the clamp after it needs. The specular mode
+(`is_diffuse=False`) adds the relaxed roughness weight of each tap and the low-roughness
+hit-distance guide (`:653-668`).
 
 Bound on the H100: gathers. Per pixel at 2560x1440 it reads 14 param planes (56 B) and 20 taps
 of viewZ, packed normal, accumulation speed and signal (20 x 40 B = 800 B); pixels with
-stride 0 (converged history) skip the taps, so the cost falls as history builds up. One
+stride 0 (converged history) skip the taps, so the cost falls as history builds up; the
+specular mode reads 4 more param planes (16 B). One
 thread per pixel in 16x16 blocks with plain global loads; the TPU kernel's hat-blended
 stride levels are not carried over (the stride is per pixel, as in XLA).
 """
@@ -27,13 +30,16 @@ launches = 0
 
 PARAMS = ("stride", "ga", "gb", "normal_weight_param", "ha", "hb", "hit_dist_scale",
           "frustum_size", "nx", "ny", "nz", "nvx", "nvy", "nvz")
+# specular mode appends these planes: the roughness weight and the low-roughness hitT guide
+SPEC_PARAMS = ("ra", "rb", "hit_dist", "guide_b")
 
 
 def history_fix_ref(signal, view_z_in, normal_roughness, data1, fast_history, params, *,
                     frustum, rect_size_inv, view_z_scale, ortho_mode, min_material):
     """Plain PyTorch version of the kernel (the XLA stride-tap loop + 3x3 moments)."""
     h, w = view_z_in.shape
-    p = dict(zip(PARAMS, params))
+    spec = params.shape[0] == len(PARAMS) + len(SPEC_PARAMS)
+    p = dict(zip(PARAMS + SPEC_PARAMS, params))
     stride = p["stride"]
     n = torch.stack([p["nx"], p["ny"], p["nz"]], -1)
     nv = torch.stack([p["nvx"], p["nvy"], p["nvz"]], -1)
@@ -54,7 +60,7 @@ def history_fix_ref(signal, view_z_in, normal_roughness, data1, fast_history, pa
             px = torch.clamp(xs + ofx, 0, w - 1).long()
             py = torch.clamp(ys + ofy, 0, h - 1).long()
             zs = torch.abs(resample.texel_fetch(view_z_in, px, py)) * view_z_scale
-            ns, _, ms = fe.unpack_normal_roughness(resample.texel_fetch(normal_roughness, px, py))
+            ns, rs, ms = fe.unpack_normal_roughness(resample.texel_fetch(normal_roughness, px, py))
             angle = nm.acos_approx(nm.dot(ns, n))
             xvs = nm.reconstruct_view_position(uv_s, frustum, zs, ortho_mode)
             w_ = resample.is_in_screen_nearest(uv_s)
@@ -62,12 +68,18 @@ def history_fix_ref(signal, view_z_in, normal_roughness, data1, fast_history, pa
             w_ = w_ * (torch.clamp_min(material_id, min_material)
                        == torch.clamp_min(ms, min_material)).to(torch.float32)
             w_ = w_ * nm.compute_exponential_weight(angle, p["normal_weight_param"], 0.0)
+            if spec:
+                w_ = w_ * nm.compute_exponential_weight(rs * rs, p["ra"], p["rb"])
             w_ = w_ * (1.0 + resample.texel_fetch(data1, px, py))
             s = resample.texel_fetch(signal, px, py)
             s = torch.where((w_ == 0.0)[..., None], 0.0, s)
-            hs_factor = nm.get_hit_dist_factor(s[..., -1] * p["hit_dist_scale"],
-                                               p["frustum_size"])
-            w_ = w_ * nm.compute_exponential_weight(hs_factor, p["ha"], p["hb"])
+            hs = s[..., -1] * p["hit_dist_scale"]
+            w_ = w_ * nm.compute_exponential_weight(nm.get_hit_dist_factor(hs, p["frustum_size"]),
+                                                    p["ha"], p["hb"])
+            if spec:
+                hd, b = p["hit_dist"], p["guide_b"]
+                d = torch.abs(hd - hs) / (torch.maximum(hd, hs) + 0.001)
+                w_ = w_ * nm.smoothstep(0.2 + b, 0.05 + b, d)
             sum_ = sum_ + w_
             acc = acc + s * w_[..., None]
     reconstructed = acc * (1.0 / torch.clamp_min(sum_, 1e-15))[..., None]
@@ -85,7 +97,8 @@ def history_fix_ref(signal, view_z_in, normal_roughness, data1, fast_history, pa
 def history_fix(signal, view_z_in, normal_roughness, data1, fast_history, params, *, frustum,
                 rect_size_inv, view_z_scale, ortho_mode, min_material):
     """signal (h, w, 4), data1 = accumulated frames (h, w), fast_history (h, w), params
-    (14, h, w) float32 planes named by PARAMS. Returns (signal_out (h, w, 4), m1, m2)."""
+    float32 planes named by PARAMS (14, h, w; diffuse) or PARAMS + SPEC_PARAMS (18, h, w;
+    specular). Returns (signal_out (h, w, 4), m1, m2)."""
     global launches
     kw = dict(frustum=frustum, rect_size_inv=rect_size_inv, view_z_scale=view_z_scale,
               ortho_mode=ortho_mode, min_material=min_material)
@@ -97,13 +110,15 @@ def history_fix(signal, view_z_in, normal_roughness, data1, fast_history, params
     f32 = torch.float32
     ins = [("signal", signal, (h, w, 4)), ("view_z_in", view_z_in, (h, w)),
            ("normal_roughness", normal_roughness, (h, w, 4)), ("data1", data1, (h, w)),
-           ("fast_history", fast_history, (h, w)), ("params", params, (len(PARAMS), h, w))]
+           ("fast_history", fast_history, (h, w)), ("params", params, (params.shape[0], h, w))]
+    if params.shape[0] not in (len(PARAMS), len(PARAMS) + len(SPEC_PARAMS)):
+        raise ValueError(f"params: {params.shape[0]} planes")
     for name, t, shape in ins:
         build.check(name, t, dev, f32, shape)
     out = torch.empty((h, w, 4), dtype=f32, device=dev)
     moments = torch.empty((2, h, w), dtype=f32, device=dev)
     consts = [*frustum, rect_size_inv[0], rect_size_inv[1], view_z_scale, ortho_mode,
-              min_material]
+              min_material, params.shape[0] > len(PARAMS)]
     build.launch("nrd_history_fix", [t for _, t, _ in ins] + [out, moments], consts, w, h)
     launches += 1
     return out, moments[0], moments[1]

@@ -10,14 +10,15 @@ the history (bilinear-custom fallback) and the bilinear-custom sample of the fas
     footprint, weighted by in-range viewZ;
   - 4x4 previous viewZ and material taps, rooted at bilinear_origin - 1 with clamp
     addressing, tested against the per-quad threshold;
-  - occlusion weights, fbits, allow_catrom, the diffuse accumulation speed
-    (bilinear-custom) and the raw footprint-quality sum.
+  - occlusion weights, fbits, allow_catrom, the accumulation speed of the signal being
+    denoised (bilinear-custom: diff_accum or spec_accum) and the raw footprint-quality sum;
+  - the two normal averages themselves, which the specular TA reads (`:398-411`).
 
 Bound on the H100: gathers. Per pixel at 2560x1440 it reads 16 viewZ + 16 material taps
 (128 B), 4 previous and 4 current packed normals (128 B), 4 accumulation taps (16 B), 13 x 4
 bf16 history taps (~5 x 4 x 4 x 2 = 160 B) and 4 fast-history taps, ~0.5 KB of mostly
-L1/L2-resident neighbourhood for 44 B of output; device-memory traffic is near the compulsory
-~100 B/px. This first version is one thread per pixel in 16x16 blocks with plain global
+L1/L2-resident neighbourhood for 68 B of output; device-memory traffic is near the compulsory
+~125 B/px. This first version is one thread per pixel in 16x16 blocks with plain global
 loads (NRD's own compute-shader shape); shared-memory footprints are later work.
 """
 
@@ -35,18 +36,19 @@ launches = 0
 
 CENTER_TAPS = ((1, 1), (2, 1), (1, 2), (2, 2))  # (x, y) of the bilinear 2x2 inside the 4x4
 CORNER_TAPS = ((0, 0), (3, 0), (0, 3), (3, 3))
-PLANES = ("fbits", "allow_catrom", "footprint_raw", "diff_accum_speed", "fast")
+PLANES = ("fbits", "allow_catrom", "footprint_raw", "accum_speed", "fast")
 
 
-def _pack(history, planes):
+def _pack(history, planes, navg):
     out = {name: planes[k] for k, name in enumerate(PLANES)}
     out["allow_catrom"] = out["allow_catrom"] > 0.5
     out["history"] = history
+    out["n_avg"], out["smb_navg"] = navg[0], navg[1]
     return out
 
 
 def smb_resolve_ref(smb_uv, xv_prev_z, base_threshold, navg_thr, normal_roughness,
-                    prev_view_z, prev_normal_roughness, prev_material_id, prev_diff_accum,
+                    prev_view_z, prev_normal_roughness, prev_material_id, prev_accum,
                     history, fast_history, *, view_z_scale, denoising_range,
                     rect_size_prev, min_material, world_prev_to_world):
     """Plain PyTorch version of the kernel (the XLA formulas, gather by gather)."""
@@ -105,18 +107,20 @@ def smb_resolve_ref(smb_uv, xv_prev_z, base_threshold, navg_thr, normal_roughnes
     hist = resample.sample_catrom(history.float(), sample_pos, allow_catrom, weights)
     fast = resample.bilinear_custom(fast_history.float(), torch.floor(sample_pos - 0.5),
                                     weights)
-    diff_accum_speed = resample.bilinear_custom(prev_diff_accum, origin, weights)
-    planes = torch.stack([fbits, allow_catrom.to(torch.float32), footprint_raw,
-                          diff_accum_speed, fast])
-    return _pack(hist, planes)
+    accum_speed = resample.bilinear_custom(prev_accum, origin, weights)
+    planes = torch.stack([fbits, allow_catrom.to(torch.float32), footprint_raw, accum_speed,
+                          fast])
+    return _pack(hist, planes, torch.stack([n_avg, smb_navg]))
 
 
 def smb_resolve(smb_uv, xv_prev_z, base_threshold, navg_thr, normal_roughness, prev_view_z,
-                prev_normal_roughness, prev_material_id, prev_diff_accum, history, fast_history,
+                prev_normal_roughness, prev_material_id, prev_accum, history, fast_history,
                 *, view_z_scale, denoising_range, rect_size_prev, min_material,
                 world_prev_to_world):
-    """Returns dict(history (h, w, 4), fast, fbits, allow_catrom (bool), footprint_raw,
-    diff_accum_speed). All planes share the (h, w) of the current frame;
+    """prev_accum: the previous accumulation speed of the signal whose history is sampled.
+    Returns dict(history (h, w, 4), fast, fbits, allow_catrom (bool), footprint_raw,
+    accum_speed, n_avg (h, w, 3), smb_navg (h, w, 3)). All planes share the (h, w) of the
+    current frame;
     the previous-frame planes and the histories have the same size (rect = resource)."""
     global launches
     kw = dict(view_z_scale=view_z_scale, denoising_range=denoising_range,
@@ -126,7 +130,7 @@ def smb_resolve(smb_uv, xv_prev_z, base_threshold, navg_thr, normal_roughness, p
     if dev is None:
         return smb_resolve_ref(smb_uv, xv_prev_z, base_threshold, navg_thr, normal_roughness,
                                prev_view_z, prev_normal_roughness, prev_material_id,
-                               prev_diff_accum, history, fast_history, **kw)
+                               prev_accum, history, fast_history, **kw)
     h, w = xv_prev_z.shape
     f32, bf16 = torch.float32, torch.bfloat16
     ins = [("smb_uv", smb_uv, f32, (h, w, 2)), ("xv_prev_z", xv_prev_z, f32, (h, w)),
@@ -135,16 +139,17 @@ def smb_resolve(smb_uv, xv_prev_z, base_threshold, navg_thr, normal_roughness, p
            ("prev_view_z", prev_view_z, f32, (h, w)),
            ("prev_normal_roughness", prev_normal_roughness, f32, (h, w, 4)),
            ("prev_material_id", prev_material_id, f32, (h, w)),
-           ("prev_diff_accum", prev_diff_accum, f32, (h, w)),
+           ("prev_accum", prev_accum, f32, (h, w)),
            ("history", history, bf16, (h, w, 4)), ("fast_history", fast_history, bf16, (h, w))]
     for name, t, dt, shape in ins:
         build.check(name, t, dev, dt, shape)
     out_hist = torch.empty((h, w, 4), dtype=f32, device=dev)
     planes = torch.empty((len(PLANES), h, w), dtype=f32, device=dev)
+    navg = torch.empty((2, h, w, 3), dtype=f32, device=dev)
     m = np.asarray(world_prev_to_world, np.float32)[:3, :3].reshape(-1)
     consts = [view_z_scale, denoising_range, rect_size_prev[0], rect_size_prev[1],
               min_material, *m]
-    build.launch("nrd_smb_resolve", [t for _, t, _, _ in ins] + [out_hist, planes], consts,
-                 w, h)
+    build.launch("nrd_smb_resolve", [t for _, t, _, _ in ins] + [out_hist, planes, navg],
+                 consts, w, h)
     launches += 1
-    return _pack(out_hist, planes)
+    return _pack(out_hist, planes, navg)

@@ -1,16 +1,26 @@
-"""REBLUR diffuse spatial-filter tap loop - kernel `csrc/spatial_filter.cu`.
+"""REBLUR spatial-filter tap loop, diffuse and specular - kernel `csrc/spatial_filter.cu`.
 
 Replaces `nrdtpu/kernels/reblur_blur2.py:264` (`spatial_filter_taps_pallas2`), run three times
 a frame: PrePass, Blur and PostBlur. Computes the tap loop shared by `diffuse_pre_pass`
-(`nrdtpu/passes/reblur/kernels.py:2164-2189`) and `diffuse_spatial_filter` (`:844-873`): for
-each of the 8 Poisson taps (6 in performance mode) the per-pixel scaled rotator places the
-tap, which snaps to a pixel centre; plane-distance, material, normal-angle, hit-distance and
-Gaussian weights multiply, and the float4 signal accumulates. The two passes differ only in
-the rotator, the skew and the constants, all of which arrive in the `params` planes.
+(`nrdtpu/passes/reblur/kernels.py:2164-2189`), `diffuse_spatial_filter` (`:844-873`) and
+`specular_spatial_filter` (`:1710-1756`): for each of the 8 Poisson taps (6 in performance
+mode) the per-pixel scaled rotator places the tap, which snaps to a pixel centre;
+plane-distance, material, normal-angle, hit-distance and Gaussian weights multiply, and the
+float4 signal accumulates. The passes differ in the rotator, the skew and the constants,
+all of which arrive in the `params` planes, and in three modes chosen by the plane count:
+
+  - diffuse (PARAMS);
+  - specular (+ SPEC_PARAMS): the roughness weight of each tap (`:1727`);
+  - specular PrePass (+ PREPASS_PARAMS): also the stochastic minimum of the taps' hit
+    distances, hitDistForTracking (`:1732-1743`), with 8 (6) random numbers drawn per pixel
+    from `hash_init(pixel, frame_index)` in tap order, as the XLA loop draws them, and the
+    taps' weights scaled by `use_prepass_not_only_for_specular_motion_estimation` and the
+    hit-distance / roughness lerp.
 
 Bound on the H100: gathers. Per pixel at 2560x1440 it reads 16 param planes (64 B), the
 centre signal, and 8 taps of viewZ, packed normal and signal (8 x 36 B = 288 B) scattered
 over a radius of up to 60 px; taps land in L1/L2 for small radii and miss for large ones.
+The specular modes read 2 (Blur, PostBlur) or 7 (PrePass) more param planes, 8-28 B/px.
 This first version is one thread per pixel in 16x16 blocks with plain global loads; the
 TPU kernel's static tap lattice (which ignored the rotator) is not carried over.
 """
@@ -30,6 +40,10 @@ launches = 0
 # params planes, in order (the pass glue stacks them)
 PARAMS = ("rot0", "rot1", "rot2", "rot3", "ga", "gb", "normal_weight_param", "ha", "hb",
           "min_hit_dist_weight", "nx", "ny", "nz", "nvx", "nvy", "nvz")
+SPEC_PARAMS = ("wr_a", "wr_b")
+PREPASS_PARAMS = ("hit_dist", "roughness", "xvx", "xvy", "xvz")
+MODES = {len(PARAMS): "diffuse", len(PARAMS + SPEC_PARAMS): "spec",
+         len(PARAMS + SPEC_PARAMS + PREPASS_PARAMS): "spec_prepass"}
 
 
 def tap_table(perf_mode: bool) -> np.ndarray:
@@ -50,10 +64,11 @@ def _device_taps(perf_mode, device):
 
 
 def spatial_filter_ref(signal, view_z_in, normal_roughness, params, *, frustum, rect_size,
-                       view_z_scale, ortho_mode, min_material, perf_mode):
+                       view_z_scale, ortho_mode, min_material, perf_mode, prepass=None):
     """Plain PyTorch version of the kernel (the XLA tap loop)."""
     h, w = view_z_in.shape
-    p = dict(zip(PARAMS, params))
+    mode = MODES[params.shape[0]]
+    p = dict(zip(PARAMS + SPEC_PARAMS + PREPASS_PARAMS, params))
     uv = resample.pixel_uv_grid(h, w, signal.device)
     rot = torch.stack([p["rot0"], p["rot1"], p["rot2"], p["rot3"]], -1)
     n = torch.stack([p["nx"], p["ny"], p["nz"]], -1)
@@ -63,6 +78,14 @@ def spatial_filter_ref(signal, view_z_in, normal_roughness, params, *, frustum, 
 
     sum_ = torch.ones_like(view_z_in)
     acc = signal
+    if mode == "spec_prepass":
+        hit_dist = p["hit_dist"]
+        hdt = torch.where(hit_dist == 0.0, fe.NRD_INF, hit_dist)
+        xv = torch.stack([p["xvx"], p["xvy"], p["xvz"]], -1)
+        state = nm.hash_init(torch.arange(w, device=signal.device)[None, :].expand(h, w),
+                             torch.arange(h, device=signal.device)[:, None].expand(h, w),
+                             prepass["frame_index"])
+        rough_lerp = nm.linearstep(0.5, 1.0, p["roughness"])
     for ox, oy, gw in tap_table(perf_mode):
         ox, oy = float(ox), float(oy)
         us = uv[..., 0] + (ox * rot[..., 0] + oy * rot[..., 2])
@@ -79,23 +102,48 @@ def spatial_filter_ref(signal, view_z_in, normal_roughness, params, *, frustum, 
         w_ = w_ * (torch.clamp_min(material_id, min_material)
                    == torch.clamp_min(ms, min_material)).to(torch.float32)
         w_ = w_ * nm.compute_weight(angle, p["normal_weight_param"], 0.0)
+        if mode != "diffuse":
+            w_ = w_ * nm.compute_weight(nr_s[..., 2], p["wr_a"], p["wr_b"])
         s = resample.sample_nearest(signal, uv_s)
         s = torch.where((w_ == 0.0)[..., None], 0.0, s)
+        if mode == "spec_prepass":
+            hs = s[..., -1] * fe.get_hit_distance_normalization(zs, prepass["hit_dist_params"],
+                                                                nr_s[..., 2])
+            d = nm.length(xvs - xv) + fe.NRD_EPS
+            geometry_weight = w_ * nm.saturate(hs / d)
+            state, rnd = nm.hash_float(state)
+            take = (rnd < geometry_weight) & (hs > 0.0)
+            hdt = torch.where(take, torch.minimum(hdt, hs), hdt)
+            w_ = w_ * prepass["use_prepass_not_only"]
+            t = hs / (d + hit_dist)
+            w_ = w_ * nm.lerp(nm.saturate(t), 1.0, rough_lerp)
         w_ = w_ * nm.lerp(p["min_hit_dist_weight"], 1.0,
                           nm.compute_exponential_weight(s[..., -1], p["ha"], p["hb"]))
         w_ = w_ * float(gw)
         sum_ = sum_ + w_
         acc = acc + s * w_[..., None]
-    return acc * (1.0 / torch.clamp_min(sum_, 1e-15))[..., None]
+    out = acc * (1.0 / torch.clamp_min(sum_, 1e-15))[..., None]
+    if mode == "spec_prepass":
+        return out, torch.where(hdt == fe.NRD_INF, 0.0, hdt)
+    return out
 
 
 def spatial_filter(signal, view_z_in, normal_roughness, params, *, frustum, rect_size,
-                   view_z_scale, ortho_mode, min_material, perf_mode):
-    """signal (h, w, 4), view_z_in (h, w), normal_roughness (h, w, 4), params (16, h, w)
-    float32 planes named by PARAMS. Returns the filtered signal (h, w, 4)."""
+                   view_z_scale, ortho_mode, min_material, perf_mode, prepass=None):
+    """signal (h, w, 4), view_z_in (h, w), normal_roughness (h, w, 4) with linear roughness,
+    params float32 planes named by PARAMS (+ SPEC_PARAMS (+ PREPASS_PARAMS)): (16 | 18 | 23,
+    h, w). The specular PrePass mode takes `prepass` = dict(hit_dist_params (A, B, C, D),
+    use_prepass_not_only, frame_index). Returns the filtered signal (h, w, 4), and in the
+    PrePass mode also hitDistForTracking (h, w)."""
     global launches
     kw = dict(frustum=frustum, rect_size=rect_size, view_z_scale=view_z_scale,
-              ortho_mode=ortho_mode, min_material=min_material, perf_mode=perf_mode)
+              ortho_mode=ortho_mode, min_material=min_material, perf_mode=perf_mode,
+              prepass=prepass)
+    if params.shape[0] not in MODES:
+        raise ValueError(f"params: {params.shape[0]} planes")
+    prepass_mode = MODES[params.shape[0]] == "spec_prepass"
+    if prepass_mode != (prepass is not None):
+        raise ValueError("the specular PrePass mode and only it takes `prepass`")
     dev = build.kernel_device(signal)
     if dev is None:
         return spatial_filter_ref(signal, view_z_in, normal_roughness, params, **kw)
@@ -103,13 +151,18 @@ def spatial_filter(signal, view_z_in, normal_roughness, params, *, frustum, rect
     f32 = torch.float32
     ins = [("signal", signal, (h, w, 4)), ("view_z_in", view_z_in, (h, w)),
            ("normal_roughness", normal_roughness, (h, w, 4)),
-           ("params", params, (len(PARAMS), h, w))]
+           ("params", params, (params.shape[0], h, w))]
     for name, t, shape in ins:
         build.check(name, t, dev, f32, shape)
     taps = _device_taps(perf_mode, dev)
     out = torch.empty((h, w, 4), dtype=f32, device=dev)
+    hdt = torch.empty((h, w) if prepass_mode else (1,), dtype=f32, device=dev)
     consts = [*frustum, rect_size[0], rect_size[1], view_z_scale, ortho_mode, min_material,
-              taps.shape[0]]
-    build.launch("nrd_spatial_filter", [t for _, t, _ in ins] + [taps, out], consts, w, h)
+              taps.shape[0], params.shape[0]]
+    if prepass_mode:
+        f = int(prepass["frame_index"]) & 0xFFFFFFFF
+        consts += [*prepass["hit_dist_params"], prepass["use_prepass_not_only"], f & 0xFFFF,
+                   f >> 16]
+    build.launch("nrd_spatial_filter", [t for _, t, _ in ins] + [taps, out, hdt], consts, w, h)
     launches += 1
-    return out
+    return (out, hdt) if prepass_mode else out

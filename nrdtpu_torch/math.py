@@ -1,5 +1,5 @@
 """Math foundation of the PyTorch port - the subset of `nrdtpu/math.py` the REBLUR_DIFFUSE
-slice calls.
+and REBLUR_SPECULAR slices call.
 
 Every function keeps the op order of its JAX counterpart, so that float32 results agree
 with the XLA reference path to the last bits wherever the ops themselves are exact
@@ -41,6 +41,57 @@ def bayer4x4(pixel_pos, frame_index) -> np.float32:
     return np.float32((base + _reverse_bits_4(frame_index)) & 15) / np.float32(16.0)
 
 
+def bayer4x4_planes(h: int, w: int, frame_index, device=None):
+    """bayer4x4 at every pixel of an (h, w) rect, float32 (h, w)."""
+    px = torch.arange(w, device=device)[None, :] & 3
+    py = torch.arange(h, device=device)[:, None] & 3
+    pxy = px ^ py
+    base = ((pxy & 1) << 3) | ((py & 1) << 2) | (((pxy >> 1) & 1) << 1) | ((py >> 1) & 1)
+    return ((base + _reverse_bits_4(frame_index)) & 15).to(torch.float32) / 16.0
+
+
+# ---------------------------------------------------------------------------
+# Hash RNG (Rng::Hash, PCG) - uint32 arithmetic emulated in int64
+# ---------------------------------------------------------------------------
+# PyTorch has no uint32 shifts on the CPU, so the state is an int64 tensor holding a value in
+# [0, 2^32). Products are split so that none leaves int64: the stream is bit for bit the one
+# of `nrdtpu.math.hash_*` and of the kernels' uint32 code (`kernels/csrc/common.cuh`).
+
+_U32 = 0xFFFFFFFF
+
+
+def _mul32(a, b: int):
+    """(a * b) mod 2^32 for an int64 tensor a in [0, 2^32) and a constant b < 2^32."""
+    return (a * (b & 0xFFFF) + ((a * (b >> 16)) & 0xFFFF) * 65536) & _U32
+
+
+def hash_init(px, py, frame_index):
+    """Rng::Hash::Initialize; px, py integer tensors, frame_index a host integer (taken
+    mod 2^32, as a uint32 cast does). Returns the int64 state."""
+    f = ((int(frame_index) & _U32) * 2798796415) & _U32
+    state = _mul32(px.long(), 1597334677) ^ _mul32(py.long(), 3812015801) ^ f
+    return (_mul32(state, 747796405) + 2891336453) & _U32
+
+
+def hash_next(state):
+    """One PCG step; returns (new_state, 32 random bits)."""
+    state = (_mul32(state, 747796405) + 2891336453) & _U32
+    word = _mul32(((state >> ((state >> 28) + 4)) ^ state), 277803737)
+    return state, (word >> 22) ^ word
+
+
+def hash_float(state):
+    """Returns (new_state, float32 in [0, 1))."""
+    state, bits = hash_next(state)
+    return state, (bits >> 8).to(torch.float32) * (1.0 / 16777216.0)
+
+
+def hash_float2(state):
+    state, a = hash_float(state)
+    state, b = hash_float(state)
+    return state, torch.stack([a, b], -1)
+
+
 def get_rotator(angle) -> np.ndarray:
     a = np.float32(angle)
     ca, sa = np.cos(a), np.sin(a)
@@ -73,9 +124,19 @@ def div(x, s: float):
     return x / torch.full_like(x, s)
 
 
+def smoothstep01(x):
+    x = saturate(x)
+    return x * x * (3.0 - 2.0 * x)
+
+
 def smoothstep(a, b, x):
     t = saturate((x - a) / (b - a))
     return t * t * (3.0 - 2.0 * t)
+
+
+def pow01(x, y):
+    """Math::Pow01: pow of the saturated base (a tensor or float exponent)."""
+    return torch.pow(saturate(x), y)
 
 
 def linearstep(a, b, x):
@@ -104,6 +165,20 @@ def length(v):
 
 def dot(a, b):
     return torch.sum(a * b, dim=-1)
+
+
+def reflect(i, n):
+    """HLSL reflect over the last axis: i - 2 dot(n, i) n."""
+    return i - 2.0 * dot(n, i)[..., None] * n
+
+
+_LUMA = (0.2126, 0.7152, 0.0722)
+
+
+def luminance(rgb):
+    """_NRD_Luminance (NRD.hlsli:350-354) over the last axis."""
+    w = torch.tensor(_LUMA, dtype=torch.float32, device=rgb.device)
+    return dot(rgb, w)
 
 
 def get_std_dev(m1, m2):
@@ -283,8 +358,10 @@ def pow01_quarter(x):
 
 
 def get_specular_lobe_tan_half_angle(roughness, percent_of_volume):
+    """percent_of_volume: a tensor or a host float (then evaluated in float32)."""
     m = roughness * roughness
-    return m * torch.sqrt(percent_of_volume / torch.clamp_min(1.0 - percent_of_volume, EPS))
+    p = torch.as_tensor(percent_of_volume, dtype=torch.float32, device=m.device)
+    return m * torch.sqrt(p / torch.clamp_min(1.0 - p, EPS))
 
 
 def get_spec_magic_curve(roughness):
@@ -309,6 +386,58 @@ def get_hit_distance_weight_params(hit_dist, non_linear_accum_speed, roughness):
     norm = lerp(0.0005, 1.0, torch.minimum(non_linear_accum_speed, smc))
     a = 1.0 / norm
     return a, -(hit_dist * a)
+
+
+NRD_ROUGHNESS_SENSITIVITY = 0.01
+
+
+def get_roughness_weight_params(roughness, fraction, sensitivity=NRD_ROUGHNESS_SENSITIVITY):
+    """GetRoughnessWeightParams (Common.hlsli:523-529). Returns (a, b)."""
+    a = 1.0 / lerp(sensitivity, 1.0, saturate(roughness * fraction))
+    return a, -(roughness * a)
+
+
+def get_relaxed_roughness_weight_params(m, fraction=1.0,
+                                        sensitivity=NRD_ROUGHNESS_SENSITIVITY):
+    """GetRelaxedRoughnessWeightParams (Common.hlsli:531-540); m = roughness^2."""
+    a = 1.0 / lerp(sensitivity, 1.0, lerp(m * m, m, fraction))
+    return a, -(m * a)
+
+
+def compute_non_exponential_weight_with_sigma(x, px, py, sigma):
+    """ComputeNonExponentialWeightWithSigma (Common.hlsli:562-563)."""
+    return smoothstep(1.0, 0.0, torch.abs(x * px + py) - sigma * px)
+
+
+def get_specular_dominant_factor(nov, roughness):
+    """_NRD_GetSpecularDominantFactor (NRD.hlsli:386-392), G2-preintegrated fit."""
+    a = 0.298475 * torch.log(39.4115 - 39.0029 * roughness)
+    return saturate(torch.pow(saturate(1.0 - nov), 10.8649) * (1.0 - a) + a)
+
+
+def get_specular_dominant_direction(n, v, roughness):
+    """ImportanceSampling::GetSpecularDominantDirection over the last axis.
+    Returns (..., 4): the normalized direction and the dominant factor."""
+    nov = torch.abs(dot(n, v))
+    f = get_specular_dominant_factor(nov, roughness)
+    d = normalize(lerp(n, reflect(-v, n), f[..., None]))
+    return torch.cat([d, f[..., None]], -1)
+
+
+def get_basis(n):
+    """Geometry::GetBasis (branchless ONB) over the last axis. Returns (t, b)."""
+    z = n[..., 2]
+    sign = torch.where(z >= 0.0, 1.0, -1.0)
+    a = -1.0 / (sign + z)
+    b = n[..., 0] * n[..., 1] * a
+    t = torch.stack([1.0 + sign * n[..., 0] * n[..., 0] * a, sign * b, -sign * n[..., 0]], -1)
+    bt = torch.stack([b, sign + n[..., 1] * n[..., 1] * a, -n[..., 1]], -1)
+    return t, bt
+
+
+def rotate_vector_by_basis(t, b, n, v):
+    """World -> local: the rows of the basis are (t, b, n)."""
+    return torch.stack([dot(t, v), dot(b, v), dot(n, v)], -1)
 
 
 def compute_exponential_weight(x, px, py):

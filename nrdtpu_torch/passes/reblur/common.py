@@ -28,6 +28,10 @@ REBLUR_FIREFLY_SUPPRESSOR_MAX_RELATIVE_INTENSITY = 38.0
 REBLUR_FIREFLY_SUPPRESSOR_RADIUS_SCALE = 0.1
 REBLUR_FIREFLY_SUPPRESSOR_FAST_RELATIVE_INTENSITY = 4.0
 REBLUR_SAMPLES_PER_FRAME = 1.0
+REBLUR_VIRTUAL_MOTION_PREV_PREV_WEIGHT_ITERATION_NUM = 1
+REBLUR_ROUGHNESS_SENSITIVITY_IN_TA = nm.NRD_ROUGHNESS_SENSITIVITY * 0.3
+REBLUR_MAX_PERCENT_OF_LOBE_VOLUME_FOR_PRE_PASS = 0.3
+NRD_CURVATURE_Z_THRESHOLD = 0.1
 
 f32 = np.float32
 
@@ -74,6 +78,28 @@ def get_fade_based_on_accumulated_frames(dc, accum_speed):
     a = n * f32(2.0) / f32(3.0) + f32(1e-6)
     b = n * f32(4.0) / f32(3.0) + f32(2e-6)
     return nm.saturate((accum_speed - float(a)) / float(b - a))
+
+
+def get_non_linear_accum_speed(accum_speed, max_accum_speed, confidence):
+    """GetNonLinearAccumSpeed (REBLUR_Common.hlsli:112-124), confidence variant, with
+    data on every pixel (no checkerboard)."""
+    return torch.maximum(1.0 - confidence,
+                         1.0 / (1.0 + torch.clamp_max(accum_speed, max_accum_speed)))
+
+
+def remap_roughness_to_responsive_factor(dc, roughness):
+    """REBLUR_Common.hlsli:126-131."""
+    amount = (roughness + nm.EPS) / float(
+        f32(dc["responsive_accumulation_roughness_threshold"]) + f32(nm.EPS))
+    return nm.smoothstep01(amount)
+
+
+def get_modified_roughness_from_normal_variance(roughness, n_avg_unnormalized):
+    """Filtering::GetModifiedRoughnessFromNormalVariance: widen roughness by the normal
+    variance of the 2x2 footprint (vMF fit)."""
+    l = nm.length(n_avg_unnormalized)  # noqa: E741
+    kappa = nm.saturate(1.0 - l * l) / torch.clamp_min(l * (3.0 - l * l), 1e-15)
+    return torch.sqrt(nm.saturate(roughness * roughness + kappa))
 
 
 def extract_hit_dist(signal):

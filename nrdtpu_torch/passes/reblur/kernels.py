@@ -1,13 +1,17 @@
-"""REBLUR diffuse passes - counterpart of the XLA functions in
+"""REBLUR diffuse and specular passes - counterpart of the XLA functions in
 `nrdtpu/passes/reblur/kernels.py` (REBLUR_*.hlsli).
 
-Each pass is elementwise torch glue around one hand-written kernel of `nrdtpu_torch.kernels`:
+Each pass is elementwise torch glue around hand-written kernels of `nrdtpu_torch.kernels`:
 
-  surface_motion_reprojection -> smb_resolve     (prev footprint + history sampling)
-  diffuse_pre_pass,
-  diffuse_spatial_filter      -> spatial_filter  (PrePass / Blur / PostBlur tap loop)
-  history_fix                 -> history_fix     (stride taps + 3x3 fast-history moments)
-  temporal_stabilization      -> ts_prelude      (3x3 luma moments + history sampling)
+  surface_motion_reprojection     -> smb_resolve     (prev footprint + history sampling)
+  temporal_accumulation_specular  -> spec_ta_head    (3x3 stencils, curvature neighbours)
+                                     nearest_multi   (stochastic nearest previous normals)
+                                     vmb_resolve     (virtual-motion footprint + history)
+  diffuse_pre_pass, diffuse_spatial_filter,
+  specular_spatial_filter         -> spatial_filter  (PrePass / Blur / PostBlur tap loop)
+  history_fix                     -> history_fix     (stride taps + 3x3 fast-history moments)
+  temporal_stabilization,
+  temporal_stabilization_specular -> ts_prelude      (3x3 luma moments + history sampling)
 
 The glue keeps the op order of the XLA functions; the kernels compute the per-pixel formula
 of the XLA gathers, not the TPU kernels' workarounds. Frame constants (`sc`, `dc`) are host
@@ -24,12 +28,16 @@ from ... import math as nm
 from ... import vec3 as v3
 from ...frontend import NRD_EPS
 from ...kernels import history_fix as k_history_fix
+from ...kernels import nearest_multi as k_nearest_multi
 from ...kernels import smb_resolve as k_smb_resolve
 from ...kernels import spatial_filter as k_spatial_filter
+from ...kernels import spec_ta_head as k_spec_ta_head
 from ...kernels import ts_prelude as k_ts_prelude
+from ...kernels import vmb_resolve as k_vmb_resolve
 from ...ops import resample, tiles
 from . import common as C
 
+PRE_BLUR = 0
 BLUR = 1
 POST_BLUR = 2
 
@@ -98,12 +106,15 @@ def _smb_pixel_uv(sc, uv, view_z, x, mv_in):
 
 def surface_motion_reprojection(sc, dc, view_z_in, normal_roughness, mv_in, prev_view_z,
                                 prev_normal_roughness, prev_internal, config, history,
-                                fast_history, disocclusion_threshold_mix=None):
+                                fast_history, disocclusion_threshold_mix=None, *,
+                                which="diff"):
     """The surface-motion machinery of TA (lines 131-305) plus the history samples at the
     reprojected position (`sample_history` / `sample_history_bilinear`, lines 451-456).
 
-    prev_internal: dict(diff_accum, material_id). The footprint gathers and the
-    history sampling run in `kernels.smb_resolve`; the rest is elementwise here."""
+    prev_internal: dict(diff_accum, spec_accum, material_id); `which` ("diff" or "spec")
+    names the signal whose history, fast history and accumulation speed are sampled. The
+    footprint gathers and the history sampling run in `kernels.smb_resolve`; the rest is
+    elementwise here. Returns the `sm` dict both TA halves read."""
     h, w = view_z_in.shape
     uv = resample.pixel_uv_grid(h, w, view_z_in.device)
     view_z = unpack_view_z(sc, view_z_in)
@@ -126,6 +137,7 @@ def surface_motion_reprojection(sc, dc, view_z_in, normal_roughness, mv_in, prev
     parallax1 = nm.length(nm.scale2(p1_uv - uv_zp1, rw, rh))
     parallax2 = nm.length(nm.scale2(p2_uv - uv_zp2, rw, rh))
     parallax_max = torch.maximum(parallax1, parallax2)
+    parallax_min = torch.minimum(parallax1, parallax2)
 
     # disocclusion threshold (lines 213-234)
     pixel_size = nm.pixel_radius_to_world(float(sc["unproject"]), ortho, 1.0, view_z)
@@ -156,7 +168,7 @@ def surface_motion_reprojection(sc, dc, view_z_in, normal_roughness, mv_in, prev
     res = k_smb_resolve.smb_resolve(
         smb_pixel_uv.contiguous(), xv_prev[..., 2].contiguous(), base_threshold.contiguous(),
         navg_thr.contiguous(), normal_roughness, prev_view_z, prev_normal_roughness,
-        prev_internal["material_id"], prev_internal["diff_accum"], history, fast_history,
+        prev_internal["material_id"], prev_internal[f"{which}_accum"], history, fast_history,
         view_z_scale=float(sc["view_z_scale"]), denoising_range=float(sc["denoising_range"]),
         rect_size_prev=_v(sc["rect_size_prev"]), min_material=min_material,
         world_prev_to_world=np.asarray(sc["world_prev_to_world"], np.float32)[:3, :3])
@@ -169,9 +181,14 @@ def surface_motion_reprojection(sc, dc, view_z_in, normal_roughness, mv_in, prev
     size_quality = nm.lerp(0.1, 1.0, nm.saturate(size_quality))
     footprint_quality = torch.sqrt(nm.saturate(res["footprint_raw"])) * size_quality
 
-    return dict(material_id=material_id, allow_catrom=res["allow_catrom"], fbits=res["fbits"],
-                diff_accum_speed=res["diff_accum_speed"], footprint_quality=footprint_quality,
-                history=res["history"], fast=res["fast"])
+    return {"uv": uv, "view_z": view_z, "n": n, "roughness": roughness,
+            "material_id": material_id, "x": x, "v": v, "nov": nov, "n_avg": res["n_avg"],
+            "smb_navg": res["smb_navg"], "x_prev": x_prev, "smb_pixel_uv": smb_pixel_uv,
+            "parallax_max": parallax_max, "parallax_min": parallax_min,
+            "pixel_size": pixel_size, "frustum_size": frustum_size,
+            "allow_catrom": res["allow_catrom"], "fbits": res["fbits"],
+            f"{which}_accum_speed": res["accum_speed"], "footprint_quality": footprint_quality,
+            "dis_thr": disocclusion_threshold, "history": res["history"], "fast": res["fast"]}
 
 
 def temporal_accumulation_diffuse(sc, dc, sm, diff_input, diff_confidence=None):
@@ -215,15 +232,376 @@ def temporal_accumulation_diffuse(sc, dc, sm, diff_input, diff_confidence=None):
 
 
 # ---------------------------------------------------------------------------
-# HistoryFix (REBLUR_HistoryFix.hlsli) - diffuse
+# TemporalAccumulation - specular half (REBLUR_TemporalAccumulation.hlsli:323-814)
 # ---------------------------------------------------------------------------
 
 
-def history_fix(sc, dc, view_z_in, normal_roughness, data1_diff, signal, fast_history, config,
-                *, anti_firefly: bool = False):
+def get_xvirtual(hit_dist, curvature, x, x_prev, n, v, roughness):
+    """GetXvirtual, NRD_USE_SPECULAR_MOTION_V2 == 1 (Common.hlsli:411-461), on (..., 3)."""
+    d4 = nm.get_specular_dominant_direction(n, v, roughness)
+    d, dw = d4[..., :3], d4[..., 3]
+    reflection_ray = d * hit_dist[..., None]
+    t, b = nm.get_basis(n)
+    o = nm.rotate_vector_by_basis(t, b, n, reflection_ray)
+    oz = -o[..., 2]
+    mag = 1.0 / (2.0 * curvature * oz - 1.0)
+    f = nm.length(x)
+    f = f * (1.0 - torch.abs(nm.dot(n, v)))
+    f = f * torch.clamp_min(curvature, 0.0)
+    mag = mag / (1.0 + f)
+    iw_len = nm.length(o * mag[..., None])
+    closeness = nm.saturate(iw_len / (hit_dist + NRD_EPS))
+    origin = nm.lerp(x_prev, x, (closeness * dw)[..., None])
+    return origin - v * (iw_len * dw)[..., None]
+
+
+def get_xvirtual3(hit_dist, curvature, x, x_prev, n, v, roughness):
+    """get_xvirtual on plane-wise V3s."""
+    d, dw = v3.get_specular_dominant_direction(n, v, roughness, nm.get_specular_dominant_factor)
+    reflection_ray = d * hit_dist
+    t, b = v3.get_basis(n)
+    o = v3.V3(v3.dot(t, reflection_ray), v3.dot(b, reflection_ray), v3.dot(n, reflection_ray))
+    mag = 1.0 / (2.0 * curvature * -o.z - 1.0)
+    f = v3.length(x)
+    f = f * (1.0 - torch.abs(v3.dot(n, v)))
+    f = f * torch.clamp_min(curvature, 0.0)
+    mag = mag / (1.0 + f)
+    iw_len = v3.length(o * mag)
+    closeness = nm.saturate(iw_len / (hit_dist + NRD_EPS))
+    origin = v3.lerp(x_prev, x, closeness * dw)
+    return origin - v * (iw_len * dw)
+
+
+def _stochastic_bilinear_uvs(sc, uvs, tex_size):
+    """StochasticBilinear (Common.hlsli:359-372) of each uv in turn: one Rng stream per pixel
+    (Rng::Hash::Initialize at TA :117), two draws per fetch, in the reference's order."""
+    h, w = uvs[0].shape[:2]
+    dev = uvs[0].device
+    state = nm.hash_init(torch.arange(w, device=dev)[None, :].expand(h, w),
+                         torch.arange(h, device=dev)[:, None].expand(h, w), sc["frame_index"])
+    out = []
+    for uv in uvs:
+        state, rnd = nm.hash_float2(state)
+        origin, f = nm.bilinear_filter(uv, tex_size)
+        origin = origin + (rnd < f).to(torch.float32)
+        out.append(torch.stack([nm.div(origin[..., 0] + 0.5, tex_size[0]),
+                                nm.div(origin[..., 1] + 0.5, tex_size[1])], -1))
+    return torch.stack(out)
+
+
+def temporal_accumulation_specular(sc, dc, sm, spec_input, spec_history, spec_fast_history,
+                                   view_z_in, normal_roughness, prev_view_z,
+                                   prev_normal_roughness, prev_internal,
+                                   hit_dist_for_tracking_in, prev_spec_hitdist_for_tracking,
+                                   config, spec_confidence=None, *, has_prepass_hitdist):
+    """Specular half of TA (`nrdtpu/passes/reblur/kernels.py:978-1548`, XLA path) for the
+    radiance signal; `sm` is surface_motion_reprojection(..., which="spec"). The gathers run
+    in three kernels: spec_ta_head (3x3 stencils, curvature neighbours, high-parallax
+    nearest), nearest_multi (stochastic nearest previous normals) and vmb_resolve (the
+    virtual-motion footprint and history samples). Returns dict(spec, fast, accum_speed,
+    fbits_vmb, curvature, virtual_history_amount, hit_dist_for_tracking)."""
+    h, w = view_z_in.shape
+    uv, view_z = sm["uv"], sm["view_z"]
+    n, roughness, nov = sm["n"], sm["roughness"], sm["nov"]
+    enc_err = nm.normal_encoding_error(int(config.normal_encoding))
+    ortho = float(sc["ortho_mode"])
+    is_persp = ortho == 0.0
+    rw_, rh_ = _v(sc["rect_size"])
+    riw_, rih_ = _v(sc["rect_size_inv"])
+    rect_prev = _v(sc["rect_size_prev"])
+    mafn = float(dc["max_accumulated_frame_num"])
+    hffn = float(dc["history_fix_frame_num"])
+
+    x3, xp3, n3, vv3 = v3.V3.of(sm["x"]), v3.V3.of(sm["x_prev"]), v3.V3.of(n), v3.V3.of(sm["v"])
+    u_p, v_p = uv[..., 0], uv[..., 1]
+    smb_u, smb_v = sm["smb_pixel_uv"][..., 0], sm["smb_pixel_uv"][..., 1]
+    cd = _v(sc["camera_delta"])
+    cd3 = v3.V3(cd[0], cd[1], cd[2])
+
+    # curvature direction: predicted motion (lines 356-380)
+    p1u, p1v = v3.get_screen_uv(sc["world_to_clip_prev"], xp3 + cd3)
+    dux = ((smb_u if is_persp else u_p) - p1u) * rw_
+    duy = ((smb_v if is_persp else v_p) - p1v) * rh_
+    parallax1 = torch.sqrt(dux * dux + duy * duy)
+    inv_par = 1.0 / torch.clamp_min(parallax1, 1.0 / 256.0)
+    dux = dux * inv_par
+    duy = duy * inv_par
+
+    # high-parallax flattening position (lines 404-429)
+    bayer = nm.bayer4x4_planes(h, w, sc["frame_index"], view_z.device)
+    delta_uv_len_fixed = sm["parallax_min"] * (1.0 + float(sc["framerate_scale"]) * bayer)
+    mu = u_p + delta_uv_len_fixed * dux * riw_
+    mv_ = v_p + delta_uv_len_fixed * duy * rih_
+    mu = (torch.floor(mu * rw_) + 0.5) * riw_
+    mv_ = (torch.floor(mv_ * rh_) + 0.5) * rih_
+    in_screen_high = (mu > 0.0) & (mu < 1.0) & (mv_ > 0.0) & (mv_ < 1.0)
+
+    # 3x3 min hitDist for tracking + roughness variance (lines 62-111), the curvature
+    # neighbours and the high-parallax nearest fetches: one launch
+    head = k_spec_ta_head.spec_ta_head(hit_dist_for_tracking_in.contiguous(), normal_roughness,
+                                       view_z_in, torch.stack([mu, mv_], -1))
+    roughness_sigma = nm.get_std_dev(head["rough_m1"], head["rough_m2"])
+    roughness_modified = C.get_modified_roughness_from_normal_variance(roughness, sm["n_avg"])
+    hit_dist_normalization = fe.get_hit_distance_normalization(view_z, dc["hit_dist_params"],
+                                                               roughness)
+    hit_dist_for_tracking = torch.where(head["hdt_min"] == fe.NRD_INF, 0.0, head["hdt_min"])
+    if not has_prepass_hitdist:
+        hit_dist_for_tracking = hit_dist_for_tracking * hit_dist_normalization
+
+    # accumulation speed (lines 325-331)
+    confidence = sm["footprint_quality"]
+    if spec_confidence is not None:
+        confidence = confidence * spec_confidence
+    smb_accum = sm["spec_accum_speed"]
+    smb_accum = smb_accum * nm.lerp(confidence, 1.0, 1.0 / (1.0 + smb_accum))
+    smb_accum = torch.clamp_max(smb_accum, mafn)
+    spec = spec_input
+
+    # curvature estimation along the predicted motion (lines 381-447)
+    v2w = sc["view_to_world"]
+    vvw = _v(sc["view_vector_world"])
+    ones = torch.ones_like(view_z)
+
+    def edge_point(du_, dv_):
+        xe = v3.reconstruct_view_position(u_p + du_ * riw_, v_p + dv_ * rih_, sc["frustum"],
+                                          ones, ortho)
+        xw = v3.rotate(v2w, xe)
+        vw = v3.normalize(-xw) if is_persp else v3.V3.full_like(view_z, *vvw)
+        o = v3.V3.full_like(view_z, 0.0, 0.0, 0.0) if is_persp else xw
+        ndv = v3.dot(n3, vw)
+        t = v3.dot(x3 - o, n3) / torch.where(torch.abs(ndv) < 1e-9, 1e-9, ndv)
+        return o + vw * t
+
+    x10 = edge_point(1.0, 0.0)
+    x01 = edge_point(0.0, 1.0)
+    n10 = v3.decode_oct_raw(head["nr01_0"], head["nr01_1"])
+    n01 = v3.decode_oct_raw(head["nr10_0"], head["nr10_1"])
+    wmx = torch.abs(dux) + 1.0 / 256.0
+    wmy = torch.abs(duy) + 1.0 / 256.0
+    wnorm = 1.0 / (wmx + wmy)
+    wmx = wmx * wnorm
+    wmy = wmy * wnorm
+    x_edge = x10 * wmx + x01 * wmy
+    n_edge = v3.normalize(n10 * wmx + n01 * wmy)
+
+    z_high = unpack_view_z(sc, head["z_high"])
+    n_high = v3.decode_oct_raw(head["nr_high_0"], head["nr_high_1"])
+    x_high = v3.rotate(v2w, v3.reconstruct_view_position(mu, mv_, sc["frustum"], z_high, ortho))
+    z_error = torch.abs(z_high - view_z) / torch.clamp_min(torch.maximum(z_high, view_z), 1e-15)
+    replace = (z_error < C.NRD_CURVATURE_Z_THRESHOLD) & (delta_uv_len_fixed > 1.0) \
+        & in_screen_high
+    x_edge = v3.where(replace, x_high, x_edge)
+    n_edge = v3.where(replace, n_high, n_edge)
+    edge = x_edge - x3
+    edge_len_sq = v3.dot(edge, edge)
+    curvature = v3.dot(n_edge - n3, edge) / torch.clamp_min(edge_len_sq, 1e-15)
+    curvature = torch.where(edge_len_sq < 1e-15, 0.0, curvature)
+
+    # virtual motion coordinates (lines 449-457)
+    x_virtual3 = get_xvirtual3(hit_dist_for_tracking, curvature, x3, xp3, n3, vv3, roughness)
+    x_virtual_length = v3.length(x_virtual3)
+    vmb_u, vmb_v = v3.get_screen_uv(sc["world_to_clip_prev"], x_virtual3)
+    is_camera_attached = sm["material_id"] == float(sc["camera_attached_reflection_material_id"])
+    vmb_u = torch.where(is_camera_attached, smb_u, vmb_u)
+    vmb_v = torch.where(is_camera_attached, smb_v, vmb_v)
+    vmb_pixel_uv = torch.stack([vmb_u, vmb_v], -1)
+    vdx = (vmb_u - smb_u) * rw_
+    vdy = (vmb_v - smb_v) * rh_
+    vmb_pixels_traveled = torch.sqrt(vdx * vdx + vdy * vdy)
+    ra, rb = nm.get_relaxed_roughness_weight_params(
+        roughness * roughness, float(dc["roughness_fraction"]),
+        C.REBLUR_ROUGHNESS_SENSITIVITY_IN_TA)
+
+    # virtual normal confidence: the vmb normal and the prev-prev taps (lines 472-479,
+    # 579-585), fetched stochastically-nearest in one launch
+    iters = C.REBLUR_VIRTUAL_MOTION_PREV_PREV_WEIGHT_ITERATION_NUM
+    step_between_taps = torch.clamp_max(vmb_pixels_traveled * float(sc["framerate_scale"]),
+                                        2.0) + vmb_pixels_traveled / iters
+    duv_u = vmb_u - smb_u
+    duv_v = vmb_v - smb_v
+    inv_vd = torch.rsqrt(torch.clamp_min(duv_u * duv_u + duv_v * duv_v, 1e-15))
+    vmb_dir_u = nm.div(duv_u * inv_vd, rect_prev[0])
+    vmb_dir_v = nm.div(duv_v * inv_vd, rect_prev[1])
+    pp_uvs, pp_inscreen = [], []
+    for it in range(1, iters + 1):
+        ppu = vmb_u + vmb_dir_u * (it * step_between_taps)
+        ppv = vmb_v + vmb_dir_v * (it * step_between_taps)
+        pp_uvs.append(torch.stack([ppu, ppv], -1))
+        pp_inscreen.append((ppu > 0.0) & (ppu < 1.0) & (ppv > 0.0) & (ppv < 1.0))
+    ph, pw = prev_normal_roughness.shape[:2]
+    taps = k_nearest_multi.nearest_multi(
+        prev_normal_roughness,
+        _stochastic_bilinear_uvs(sc, [vmb_pixel_uv] + pp_uvs, (float(pw), float(ph))))
+    vmb_n, vmb_roughness, _ = unpack_nr(taps[0], config)
+    vmb_n3 = v3.rotate(sc["world_prev_to_world"], v3.V3.of(vmb_n))
+    dfactor = nm.get_specular_dominant_factor(nov, roughness)
+    virtual_normal_confidence = 1.0 / (
+        1.0 + 0.5 * dfactor * nm.saturate(v3.length(n3 - vmb_n3) - enc_err)
+        * vmb_pixels_traveled)
+    smb_navg3 = v3.where(sm["footprint_quality"] == 0.0, vmb_n3, v3.V3.of(sm["smb_navg"]))
+
+    # virtual motion disocclusion (lines 481-519): the footprint gathers in one launch
+    vmb_thr = sm["dis_thr"] * sm["frustum_size"]
+    vmb_thr = vmb_thr * nm.lerp(0.25, 1.0, nov)
+    vmb_thr = vmb_thr * (v3.dot(vmb_n3, n3) > C.REBLUR_ALMOST_ZERO_ANGLE).to(torch.float32)
+    vmb_thr = vmb_thr * (v3.dot(vmb_n3, smb_navg3) > C.REBLUR_ALMOST_ZERO_ANGLE).to(torch.float32)
+    vmb_vv3 = v3.reconstruct_view_position(vmb_u, vmb_v, sc["frustum_prev"], ones, 0.0)
+    vmb_v3_ = v3.rotate_inv(sc["world_to_view_prev"], vmb_vv3)
+    nox_curr = v3.dot(n3, xp3 - cd3)
+    params = torch.stack([nox_curr, vmb_thr, n3.x, n3.y, n3.z, vmb_v3_.x, vmb_v3_.y, vmb_v3_.z,
+                          ra, rb, roughness_sigma, nm.smoothstep(1.0, 0.0, sm["parallax_max"]),
+                          sm["material_id"], sm["allow_catrom"].to(torch.float32)])
+    vmb = k_vmb_resolve.vmb_resolve(
+        vmb_pixel_uv, params, prev_view_z, prev_normal_roughness, prev_internal["material_id"],
+        prev_internal["spec_accum"], spec_history, spec_fast_history,
+        prev_spec_hitdist_for_tracking, view_z_scale=float(sc["view_z_scale"]),
+        ortho_mode=ortho, rect_size_prev=rect_prev, min_material=float(dc["spec_min_material"]),
+        resolution_scale_prev=_v(sc["resolution_scale_prev"]))
+    virtual_roughness_confidence = vmb["rough_conf"]
+    vmb_footprint_quality = torch.sqrt(nm.saturate(vmb["footprint_raw"]))
+    vmb_accum = vmb["accum_raw"]
+    vmb_accum = vmb_accum * nm.lerp(vmb_footprint_quality, 1.0, 1.0 / (1.0 + vmb_accum))
+
+    # curvature / lobe angles (lines 532-554)
+    curvature_angle_tan = sm["pixel_size"] * torch.abs(curvature)
+    curvature_angle_tan = curvature_angle_tan * torch.clamp_min(
+        vmb_pixels_traveled / torch.clamp_min(nov, 0.01), 1.0)
+    curvature_angle_tan = curvature_angle_tan * 2.0
+    curvature_angle = torch.atan(curvature_angle_tan)
+    percent_of_volume = nm.NRD_MAX_PERCENT_OF_LOBE_VOLUME / (1.0 + vmb_accum)
+    lobe_tan_half = nm.get_specular_lobe_tan_half_angle(roughness_modified, percent_of_volume)
+    lobe_half_angle = torch.clamp_min(torch.atan(lobe_tan_half), enc_err)
+    angle_nw = nm.acos_approx(v3.dot(n3, vmb_n3))
+    normal_weight = nm.smoothstep01(
+        1.0 - (angle_nw - curvature_angle - enc_err) / lobe_half_angle)
+    normal_weight = nm.lerp(nm.smoothstep(1.0, 0.0, vmb_pixels_traveled), 1.0, normal_weight)
+    virtual_normal_confidence = torch.minimum(virtual_normal_confidence, normal_weight)
+    virtual_history_amount = nm.smoothstep(0.05, 0.95, dfactor)
+    virtual_history_amount = virtual_history_amount * virtual_normal_confidence
+
+    # parallax confidence (lines 561-577)
+    hdt_prev = vmb["hdt_prev"]
+    x_virtual_prev3 = get_xvirtual3(hdt_prev, curvature, x3, xp3, n3, vv3, roughness)
+    vpu, vpv = v3.get_screen_uv(sc["world_to_clip_prev"], x_virtual_prev3)
+    vpu = torch.where(is_camera_attached, smb_u, vpu)
+    vpv = torch.where(is_camera_attached, smb_v, vpv)
+    pixel_size_at_xvirtual = nm.pixel_radius_to_world(float(sc["unproject"]), ortho, 1.0,
+                                                      x_virtual_length)
+    r_conf = (lobe_tan_half + curvature_angle) * torch.minimum(
+        hit_dist_for_tracking, hdt_prev) / torch.clamp_min(pixel_size_at_xvirtual, 1e-15)
+    dcx = (vpu - vmb_u) * rw_
+    dcy = (vpv - vmb_v) * rh_
+    d_conf = torch.sqrt(dcx * dcx + dcy * dcy)
+    r_conf = torch.clamp_min(r_conf, 0.1)
+    virtual_parallax_confidence = nm.linearstep(r_conf, 0.0, d_conf)
+
+    # prev-prev taps (lines 579-608)
+    ra2, rb2 = nm.get_relaxed_roughness_weight_params(
+        vmb_roughness * vmb_roughness, float(dc["roughness_fraction"]),
+        C.REBLUR_ROUGHNESS_SENSITIVITY_IN_TA)
+    for it in range(1, iters + 1):
+        n_pp, r_pp, _ = unpack_nr(taps[it], config)
+        angle_pp = nm.acos_approx(v3.dot(vmb_n3, v3.V3.of(n_pp)))
+        wx = nm.smoothstep01(
+            1.0 - (angle_pp - curvature_angle * (1.0 + it * step_between_taps) - enc_err)
+            / lobe_half_angle)
+        wy = nm.compute_non_exponential_weight_with_sigma(r_pp * r_pp, ra2, rb2,
+                                                          roughness_sigma)
+        wx = nm.lerp(1.0, wx, nm.saturate(step_between_taps))
+        wy = nm.lerp(1.0, wy, nm.saturate(step_between_taps))
+        wx = torch.where(pp_inscreen[it - 1], wx, 1.0)
+        wy = torch.where(pp_inscreen[it - 1], wy, 1.0)
+        virtual_normal_confidence = torch.minimum(virtual_normal_confidence, wx)
+        virtual_roughness_confidence = torch.minimum(virtual_roughness_confidence, wy)
+
+    virtual_confidence_for_smb = virtual_normal_confidence * virtual_roughness_confidence
+    virtual_confidence = virtual_confidence_for_smb * virtual_parallax_confidence
+    virtual_history_amount = virtual_history_amount * virtual_roughness_confidence
+
+    # surface history confidence (lines 617-654)
+    smb_history = sm["history"]
+    a_par = torch.atan(sm["parallax_max"] * sm["pixel_size"]
+                       / torch.clamp_min(v3.length(x3), 1e-9))
+    nlas_smb = 1.0 / (1.0 + smb_accum)
+    h_conf = nm.lerp(C.extract_hit_dist(smb_history), C.extract_hit_dist(spec),
+                     nlas_smb) * hit_dist_normalization
+    tana0 = nm.get_specular_lobe_tan_half_angle(roughness_modified,
+                                                nm.NRD_MAX_PERCENT_OF_LOBE_VOLUME)
+    tana0 = tana0 * nm.lerp(nov, 1.0, roughness_modified)
+    tana0 = tana0 * nlas_smb
+    tana0 = tana0 / (nm.get_hit_dist_factor(h_conf, sm["frustum_size"]) + NRD_EPS)
+    a0 = torch.clamp_min(torch.atan(tana0), enc_err)
+    surface_history_confidence = torch.pow(nm.saturate(nm.linearstep(a0, 0.0, a_par)), 4.0)
+
+    # responsive accumulation (lines 656-702)
+    responsive_factor = C.remap_roughness_to_responsive_factor(dc, roughness)
+    smc = nm.get_spec_magic_curve(roughness_modified)
+    fx = v3.dot(n3, v3.normalize(smb_navg3))
+    fy = v3.dot(n3, vmb_n3)
+    power = nm.lerp(32.0, 1.0, smc) * (1.0 - responsive_factor)
+    fx = nm.lerp(smc, 1.0, responsive_factor) * nm.pow01(fx, power)
+    fy = nm.lerp(smc, 1.0, responsive_factor) * nm.pow01(fy, power)
+    smb_max_frame_num = torch.minimum(mafn * surface_history_confidence,
+                                      torch.clamp_min(mafn * fx, hffn))
+    smb_boosted_max = torch.maximum(smb_max_frame_num, hffn * (1.0 - virtual_confidence_for_smb))
+    smb_accum_boosted = torch.minimum(smb_accum, smb_boosted_max)
+    vmb_max_frame_num = torch.minimum(mafn * virtual_confidence, torch.clamp_min(mafn * fy, hffn))
+    smb_accum = torch.minimum(smb_accum, smb_max_frame_num)
+    vmb_accum = torch.minimum(vmb_accum, vmb_max_frame_num)
+    magic = torch.where(vmb_accum > smb_accum, 8.0, 0.5)
+    virtual_history_amount = virtual_history_amount * (
+        1.0 + (vmb_accum - smb_accum) / (magic * torch.maximum(vmb_accum, smb_accum) + 1.0))
+    virtual_history_amount = nm.saturate(virtual_history_amount)
+
+    # virtual history + accumulation (lines 708-754)
+    smb_history = C.clamp_negative_to_zero(smb_history)
+    vmb_history = C.clamp_negative_to_zero(vmb["history"])
+    smb_nlas = 1.0 / (1.0 + smb_accum)
+    vmb_nlas = 1.0 / (1.0 + vmb_accum)
+    smb_spec = C.mix_history_and_current(dc, smb_history, spec, smb_nlas, roughness_modified)
+    vmb_spec = C.mix_history_and_current(dc, vmb_history, spec, vmb_nlas, roughness_modified)
+    vha4 = virtual_history_amount[..., None]
+    spec_result = nm.lerp(smb_spec, vmb_spec, vha4)
+    spec_accum_speed = nm.lerp(smb_accum_boosted, vmb_accum, virtual_history_amount)
+    history_mixed = nm.lerp(smb_history, vmb_history, vha4)
+
+    # firefly suppressor (lines 756-771)
+    max_rel = (float(dc["firefly_suppressor_min_relative_scale"])
+               + C.REBLUR_FIREFLY_SUPPRESSOR_MAX_RELATIVE_INTENSITY / (spec_accum_speed + 1.0))
+    antifirefly = spec_accum_speed * float(dc["max_blur_radius"]) \
+        * C.REBLUR_FIREFLY_SUPPRESSOR_RADIUS_SCALE
+    antifirefly = antifirefly / (1.0 + antifirefly)
+    luma = C.get_luma(spec_result)
+    luma_clamped = torch.minimum(luma, C.get_luma(history_mixed) * max_rel)
+    spec_result = C.change_luma(spec_result, nm.lerp(luma, luma_clamped, antifirefly))
+
+    # fast history (lines 779-794)
+    mfafn = float(dc["max_fast_accumulated_frame_num"])
+    smb_fast_nlas = C.get_non_linear_accum_speed(smb_accum, mfafn, surface_history_confidence)
+    vmb_fast_nlas = C.get_non_linear_accum_speed(vmb_accum, mfafn, virtual_confidence)
+    smb_fast = nm.lerp(sm["fast"], C.get_luma(spec), smb_fast_nlas)
+    vmb_fast = nm.lerp(vmb["fast"], C.get_luma(spec), vmb_fast_nlas)
+    fast_result = nm.lerp(smb_fast, vmb_fast, virtual_history_amount)
+    fast_clamped = torch.minimum(fast_result, C.get_luma(history_mixed) * max_rel
+                                 * C.REBLUR_FIREFLY_SUPPRESSOR_FAST_RELATIVE_INTENSITY)
+    fast_result = nm.lerp(fast_result, fast_clamped, antifirefly)
+    return dict(spec=spec_result, fast=fast_result, accum_speed=spec_accum_speed,
+                fbits_vmb=vmb["fbits_vmb"], curvature=curvature,
+                virtual_history_amount=virtual_history_amount,
+                hit_dist_for_tracking=hit_dist_for_tracking)
+
+
+# ---------------------------------------------------------------------------
+# HistoryFix (REBLUR_HistoryFix.hlsli)
+# ---------------------------------------------------------------------------
+
+
+def history_fix(sc, dc, view_z_in, normal_roughness, data1, signal, fast_history, config, *,
+                is_diffuse: bool = True, anti_firefly: bool = False):
     """Sparse 5x5-no-corners history reconstruction + fast-history color clamping.
 
-    signal: (h, w, 4) output of TA; fast_history: (h, w). Returns (signal_out, fast_out)."""
+    data1: accumulated frames of the signal (data1_diff or data1_spec); signal: (h, w, 4)
+    output of TA; fast_history: (h, w). Returns (signal_out, fast_out)."""
     if anti_firefly:
         raise NotImplementedError(
             "REBLUR anti-firefly (the 9x9 ring of HistoryFix) is not ported yet (ROADMAP.md)")
@@ -235,35 +613,46 @@ def history_fix(sc, dc, view_z_in, normal_roughness, data1_diff, signal, fast_hi
     frustum_size = nm.get_frustum_size(float(sc["min_rect_dim_mul_unproject"]), ortho, view_z)
     xv3 = v3.reconstruct_view_position(uv[..., 0], uv[..., 1], sc["frustum"], view_z, ortho)
     nv3 = v3.rotate(sc["world_to_view"], n3)
+    # the signal's roughness for specular, 1 for diffuse
+    rough = torch.ones_like(roughness) if is_diffuse else roughness
 
-    frame_num = data1_diff
+    frame_num = data1
     stride = float(dc["history_fix_base_pixel_stride"]) / (2.0 + frame_num)
     stride = stride * (frame_num < float(dc["history_fix_frame_num"])).to(torch.float32)
+    if not is_diffuse:
+        stride = stride * nm.lerp(0.5, 1.0, nm.get_spec_magic_curve(roughness))
     stride = torch.floor(stride)
 
-    ones = torch.ones_like(roughness)
     nlas = 1.0 / (1.0 + frame_num)
     enc_err = nm.normal_encoding_error(int(config.normal_encoding))
-    normal_weight_param = nm.get_normal_weight_param(nlas, float(dc["lobe_angle_fraction"]), ones,
+    normal_weight_param = nm.get_normal_weight_param(nlas, float(dc["lobe_angle_fraction"]), rough,
                                                      enc_err)
     ga = 1.0 / (float(dc["plane_dist_sensitivity"]) * frustum_size)
     gb = -v3.dot(nv3, xv3) * ga
-    hit_dist_scale = fe.get_hit_distance_normalization(view_z, dc["hit_dist_params"], ones)
+    hit_dist_scale = fe.get_hit_distance_normalization(view_z, dc["hit_dist_params"], rough)
     hit_dist = C.extract_hit_dist(signal) * hit_dist_scale
     hit_dist_factor = nm.get_hit_dist_factor(hit_dist, frustum_size)
-    ha, hb = nm.get_hit_distance_weight_params(hit_dist_factor, nlas, ones)
+    ha, hb = nm.get_hit_distance_weight_params(hit_dist_factor, nlas, rough)
 
-    params = torch.stack([stride, ga, gb, normal_weight_param, ha, hb, hit_dist_scale,
-                          frustum_size, n3.x, n3.y, n3.z, nv3.x, nv3.y, nv3.z])
+    planes = [stride, ga, gb, normal_weight_param, ha, hb, hit_dist_scale, frustum_size,
+              n3.x, n3.y, n3.z, nv3.x, nv3.y, nv3.z]
+    if not is_diffuse:
+        # roughness weight and low-roughness hitT guide (lines 349-352)
+        ra, rb = nm.get_relaxed_roughness_weight_params(
+            roughness * roughness, float(np.sqrt(np.float32(dc["roughness_fraction"]))))
+        planes += [ra, rb, hit_dist, nm.linearstep(0.03, 0.05, roughness)]
+    min_material = dc["diff_min_material"] if is_diffuse else dc["spec_min_material"]
     signal_out, m1, m2 = k_history_fix.history_fix(
-        signal, view_z_in, normal_roughness, data1_diff, fast_history, params,
+        signal, view_z_in, normal_roughness, data1, fast_history, torch.stack(planes),
         frustum=_v(sc["frustum"]), rect_size_inv=_v(sc["rect_size_inv"]),
         view_z_scale=float(sc["view_z_scale"]), ortho_mode=ortho,
-        min_material=float(dc["diff_min_material"]))
+        min_material=float(min_material))
 
     # local variance over 3x3 fast history + fast history adjustments (lines 169-244)
     f = nm.saturate(frame_num / float(np.float32(dc["history_fix_frame_num"])
                                       + np.float32(NRD_EPS)))
+    if not is_diffuse:
+        f = nm.lerp(1.0, f, nm.get_spec_magic_curve(roughness))
     luma = C.get_luma(signal_out)
     fast_out = nm.lerp(luma, fast_history, f)
     sigma = nm.get_std_dev(m1, m2) * C.color_clamping_sigma_scale(False)
@@ -390,6 +779,92 @@ def diffuse_pre_pass(sc, dc, signal, view_z_in, normal_roughness, config, *,
     return signal if float(dc["diff_prepass_blur_radius"]) == 0.0 else out
 
 
+def specular_spatial_filter(sc, dc, mode, spec, view_z_in, normal_roughness, data1, config, *,
+                            perf_mode: bool = False):
+    """Adaptive Poisson specular blur (REBLUR_Common_SpecularSpatialFilter.hlsli). mode:
+    PRE_BLUR, BLUR or POST_BLUR. Returns (spec_out, hit_dist_for_tracking); the second is
+    the PrePass's stochastic hitDist minimum, None in the other modes."""
+    prepass = mode == PRE_BLUR
+    if prepass and float(dc["spec_prepass_blur_radius"]) == 0.0:
+        hit = C.extract_hit_dist(spec)
+        return spec, torch.where(hit == 0.0, 0.0, hit)
+    uv, view_z, n3, roughness, nv3, xv3, frustum_size = _geometry(sc, view_z_in,
+                                                                  normal_roughness, config)
+    ortho = float(sc["ortho_mode"])
+    vv3 = (v3.normalize(v3.V3(-xv3.x, -xv3.y, -xv3.z)) if ortho == 0.0
+           else v3.V3.full_like(view_z, 0.0, 0.0, -1.0))
+    nov = torch.abs(v3.dot(nv3, vv3))
+    enc_err = nm.normal_encoding_error(int(config.normal_encoding))
+    smc = nm.get_spec_magic_curve(roughness)
+    rotator, fraction_scale, radius_scale = {
+        PRE_BLUR: (sc["rotator_pre"], C.REBLUR_PRE_BLUR_FRACTION_SCALE, 1.0),
+        BLUR: (sc["rotator"], C.REBLUR_BLUR_FRACTION_SCALE, 1.0),
+        POST_BLUR: (sc["rotator_post"], C.REBLUR_POST_BLUR_FRACTION_SCALE,
+                    C.REBLUR_POST_BLUR_RADIUS_SCALE)}[mode]
+
+    dv3, dvf = v3.get_specular_dominant_direction(nv3, vv3, roughness,
+                                                  nm.get_specular_dominant_factor)
+    nod = torch.abs(v3.dot(nv3, dv3))
+    hit_dist_scale = fe.get_hit_distance_normalization(view_z, dc["hit_dist_params"], roughness)
+    hit_dist = C.extract_hit_dist(spec) * hit_dist_scale
+    hit_dist_factor = nm.get_hit_dist_factor(hit_dist, frustum_size)
+    if prepass:
+        blur_radius = float(dc["spec_prepass_blur_radius"])
+        area_factor = roughness * hit_dist_factor
+        nlas = torch.full_like(view_z, C.REBLUR_PRE_BLUR_NON_LINEAR_ACCUM_SPEED)
+    else:
+        boost = 1.0 - C.get_fade_based_on_accumulated_frames(dc, data1)
+        boost = boost * (1.0 - torch.pow(nm.saturate(1.0 - nov), 5.0))
+        boost = boost * smc
+        nlas = 1.0 / (1.0 + C.REBLUR_SAMPLES_PER_FRAME * (1.0 - boost) * data1)
+        blur_radius = float(dc["max_blur_radius"])
+        area_factor = roughness * hit_dist_factor * nlas
+    blur_radius = blur_radius * torch.sqrt(nm.saturate(area_factor))
+    if prepass:
+        # lobe-bound radius (REBLUR_PrePass.hlsli:71-80)
+        lobe_tan = nm.get_specular_lobe_tan_half_angle(
+            roughness, C.REBLUR_MAX_PERCENT_OF_LOBE_VOLUME_FOR_PRE_PASS)
+        lobe_radius = hit_dist * nod * lobe_tan
+        min_blur_radius = lobe_radius / nm.pixel_radius_to_world(
+            float(sc["unproject"]), ortho, 1.0, view_z + hit_dist * dvf)
+        blur_radius = torch.minimum(blur_radius, min_blur_radius)
+    blur_radius = blur_radius * radius_scale
+    blur_radius = torch.maximum(blur_radius, float(dc["min_blur_radius"]) * smc)
+
+    rf_scaled = float(np.clip(np.float32(dc["roughness_fraction"]) * np.float32(fraction_scale),
+                              0.0, 1.0))
+    ga = 1.0 / (float(dc["plane_dist_sensitivity"]) * frustum_size)
+    gb = -v3.dot(nv3, xv3) * ga
+    normal_weight_param = nm.get_normal_weight_param(
+        nlas, float(dc["lobe_angle_fraction"]), roughness, enc_err) / fraction_scale
+    wr_a, wr_b = nm.get_roughness_weight_params(roughness, rf_scaled)
+    ha, hb = nm.get_hit_distance_weight_params(C.extract_hit_dist(spec), nlas, roughness)
+    min_hit_dist_weight = float(np.float32(dc["min_hit_distance_weight"])
+                                * np.float32(fraction_scale)) * smc
+    if not prepass:
+        min_hit_dist_weight = min_hit_dist_weight * torch.sqrt(nlas)
+
+    rinv = _v(sc["rect_size_inv"])
+    skew = torch.stack([rinv[0] * blur_radius, rinv[1] * blur_radius], -1)
+    scaled_rotator = nm.scale_rotator(_rotator_planes(_v(rotator), view_z), skew)
+    params = [scaled_rotator[..., 0], scaled_rotator[..., 1], scaled_rotator[..., 2],
+              scaled_rotator[..., 3], ga, gb, normal_weight_param, ha, hb, min_hit_dist_weight,
+              n3.x, n3.y, n3.z, nv3.x, nv3.y, nv3.z, wr_a, wr_b]
+    extra = None
+    if prepass:
+        params += [hit_dist, roughness, xv3.x, xv3.y, xv3.z]
+        extra = dict(hit_dist_params=_v(dc["hit_dist_params"]),
+                     use_prepass_not_only=float(
+                         dc["use_prepass_not_only_for_specular_motion_estimation"]),
+                     frame_index=int(sc["frame_index"]))
+    res = k_spatial_filter.spatial_filter(
+        spec, view_z_in, normal_roughness, torch.stack(params), frustum=_v(sc["frustum"]),
+        rect_size=_v(sc["rect_size"]), view_z_scale=float(sc["view_z_scale"]),
+        ortho_mode=ortho, min_material=float(dc["spec_min_material"]), perf_mode=perf_mode,
+        prepass=extra)
+    return res if prepass else (res, None)
+
+
 # ---------------------------------------------------------------------------
 # SplitScreen (REBLUR_SplitScreen.hlsli)
 # ---------------------------------------------------------------------------
@@ -409,31 +884,46 @@ def split_screen(sc, noisy_input, view_z_in, out_signal):
 # ---------------------------------------------------------------------------
 
 
-def temporal_stabilization(sc, dc, view_z_in, normal_roughness, mv_in, data1_diff, fbits, diff,
-                           diff_luma_stab_history, config):
-    """Anti-lag output filter, diffuse half.
-    Returns dict(diff, diff_luma_stab, data1_diff, mv_out)."""
+def _ts_surface_motion(sc, view_z_in, mv_in, fbits):
+    """TS lines 50-70: the surface-motion position and the footprint quality from fbits
+    bits 0-3. Returns (uv, view_z, x, x_prev, smb_pixel_uv, smb_quality)."""
     h, w = view_z_in.shape
     uv = resample.pixel_uv_grid(h, w, view_z_in.device)
     view_z = unpack_view_z(sc, view_z_in)
     xv = nm.reconstruct_view_position(uv, sc["frustum"], view_z, sc["ortho_mode"])
     x = nm.rotate_vector(sc["view_to_world"], xv)
-    _, smb_pixel_uv = _smb_pixel_uv(sc, uv, view_z, x, mv_in)
-
+    x_prev, smb_pixel_uv = _smb_pixel_uv(sc, uv, view_z, x, mv_in)
     _, smb_frac = nm.bilinear_filter(smb_pixel_uv, _v(sc["rect_size_prev"]))
-    bits = fbits.to(torch.int32)
-    smb_occ = torch.stack([((bits >> b) & 1).to(torch.float32) for b in range(4)], -1)
-    bw = nm.bilinear_weights(smb_frac)
-    smb_quality = torch.sqrt(nm.saturate(torch.sum(smb_occ * bw, -1)))
+    return uv, view_z, x, x_prev, smb_pixel_uv, _fbits_quality(fbits, smb_frac, 0)
 
+
+def _fbits_quality(fbits, frac, first_bit):
+    """sqrt(saturate(sum of the bilinear weights of the unoccluded taps)), the taps' bits
+    first_bit..first_bit+3 of fbits."""
+    bits = fbits.to(torch.int32)
+    occ = torch.stack([((bits >> b) & 1).to(torch.float32)
+                       for b in range(first_bit, first_bit + 4)], -1)
+    return torch.sqrt(nm.saturate(torch.sum(occ * nm.bilinear_weights(frac), -1)))
+
+
+def _luma_moments(dc, luma, pre):
+    """(m1, sigma, RCRS luma) of the ts_prelude results (lines 131-135)."""
+    m1 = pre["m1"]
+    luma_rcrs = (torch.clamp(luma, pre["lmin"], pre["lmax"])
+                 if float(dc["max_blur_radius"]) != 0.0 else luma)
+    return m1, nm.get_std_dev(m1, pre["m2"]), luma_rcrs
+
+
+def temporal_stabilization(sc, dc, view_z_in, normal_roughness, mv_in, data1_diff, fbits, diff,
+                           diff_luma_stab_history, config):
+    """Anti-lag output filter, diffuse half.
+    Returns dict(diff, diff_luma_stab, data1_diff, mv_out)."""
+    uv, _, _, _, smb_pixel_uv, smb_quality = _ts_surface_motion(sc, view_z_in, mv_in, fbits)
     luma = C.get_luma(diff)
     pre = k_ts_prelude.ts_prelude(luma.contiguous(), diff_luma_stab_history,
                                   smb_pixel_uv.contiguous(), fbits,
                                   rect_size_prev=_v(sc["rect_size_prev"]))
-    m1, m2 = pre["m1"], pre["m2"]
-    sigma = nm.get_std_dev(m1, m2)
-    luma_rcrs = (torch.clamp(luma, pre["lmin"], pre["lmax"])
-                 if float(dc["max_blur_radius"]) != 0.0 else luma)
+    m1, sigma, luma_rcrs = _luma_moments(dc, luma, pre)
     smb_hist = torch.clamp_min(pre["history"], 0.0)
 
     antilag = C.compute_antilag(sc, dc, smb_hist, m1, sigma, smb_quality * data1_diff)
@@ -450,3 +940,91 @@ def temporal_stabilization(sc, dc, view_z_in, normal_roughness, mv_in, data1_dif
     dmin = torch.clamp_max(d1, float(dc["history_fix_frame_num"]))
     return dict(diff=C.change_luma(diff, luma_stab), diff_luma_stab=luma_stab,
                 data1_diff=nm.lerp(dmin, d1, antilag), mv_out=mv_in)
+
+
+def temporal_stabilization_specular(sc, dc, view_z_in, normal_roughness, mv_in, data1_spec,
+                                    fbits, curvature, virtual_history_amount, spec,
+                                    spec_luma_stab_history, spec_hitdist_for_tracking,
+                                    base_color_metalness, config, *, has_prepass):
+    """Anti-lag output filter, specular half (TS lines 233-343): the surface- and
+    virtual-motion histories (fbits bits 0-3 and 4-7) combined by the virtual history
+    amount, and the MV patching under IN_BASECOLOR_METALNESS (lines 250-285).
+    Returns dict(spec, spec_luma_stab, data1_spec, mv_out)."""
+    uv, view_z, x, x_prev, smb_pixel_uv, smb_quality = _ts_surface_motion(sc, view_z_in, mv_in,
+                                                                          fbits)
+    n, roughness, material_id = unpack_nr(normal_roughness, config)
+    rect_prev = _v(sc["rect_size_prev"])
+
+    # hit dist for tracking (lines 233-240)
+    hdt = C.extract_hit_dist(spec) * fe.get_hit_distance_normalization(
+        view_z, dc["hit_dist_params"], roughness)
+    if (has_prepass and spec_hitdist_for_tracking is not None
+            and float(dc["spec_prepass_blur_radius"]) != 0.0):
+        hdt = torch.minimum(hdt, spec_hitdist_for_tracking)
+    v = C.get_view_vector(sc, x)
+    nov = torch.abs(nm.dot(n, v))
+    x_virtual = get_xvirtual(hdt, curvature, x, x_prev, n, v, roughness)
+    vmb_pixel_uv = nm.get_screen_uv(sc["world_to_clip_prev"], x_virtual)
+    is_cam_attached = material_id == float(sc["camera_attached_reflection_material_id"])
+    vmb_pixel_uv = torch.where(is_cam_attached[..., None], uv, vmb_pixel_uv)
+
+    mv_out = mv_in
+    if base_color_metalness is not None:
+        # MV patching (lines 250-285)
+        base_color = base_color_metalness[..., :3]
+        metalness = base_color_metalness[..., 3]
+        albedo = base_color * (1.0 - metalness[..., None])
+        rf0 = nm.lerp(torch.full_like(base_color, 0.04), base_color, metalness[..., None])
+        fenv = fe.environment_term_rtg(rf0, nov, roughness)
+        lum_spec = nm.luminance(fenv)
+        lum_diff = nm.luminance(albedo * (1.0 - fenv))
+        spec_prob = lum_spec / (lum_diff + lum_spec + NRD_EPS)
+        th = np.asarray(dc["spec_probability_thresholds"], np.float32)
+        f = nm.saturate((spec_prob - float(th[0])) / float(th[1] - th[0]))
+        f = f * f * (3.0 - 2.0 * f)
+        f = f * (1.0 - nm.get_spec_magic_curve(roughness))
+        f = f * (1.0 - torch.sqrt(nm.saturate(torch.abs(curvature))))
+        spec_mv_z = nm.affine_transform(sc["world_to_view_prev"], x_virtual)[..., 2] - view_z
+        mvs = _v(sc["mv_scale"])
+        new_mv = [nm.div(vmb_pixel_uv[..., 0] - uv[..., 0], mvs[0]),
+                  nm.div(vmb_pixel_uv[..., 1] - uv[..., 1], mvs[1]),
+                  mv_in[..., 2] if mvs[2] == 0.0 else nm.div(spec_mv_z, mvs[2])]
+        mv_out3 = nm.lerp(mv_in[..., :3], torch.stack(new_mv, -1), f[..., None])
+        mv_out = mv_out3 if mv_in.shape[-1] == 3 else torch.cat([mv_out3, mv_in[..., 3:]], -1)
+
+    _, vmb_frac = nm.bilinear_filter(vmb_pixel_uv, rect_prev)
+    vmb_quality = _fbits_quality(fbits, vmb_frac, 4)
+
+    # combine surface & virtual motion (lines 287-343)
+    luma = C.get_luma(spec)
+    pre = k_ts_prelude.ts_prelude(luma.contiguous(), spec_luma_stab_history,
+                                  smb_pixel_uv.contiguous(), fbits, rect_size_prev=rect_prev,
+                                  vmb_uv=vmb_pixel_uv.contiguous())
+    m1, sigma, luma_rcrs = _luma_moments(dc, luma, pre)
+    smb_hist = torch.clamp_min(pre["history"], 0.0)
+    vmb_hist = torch.clamp_min(pre["vmb_history"], 0.0)
+    spec_hist = nm.lerp(smb_hist, vmb_hist, virtual_history_amount)
+    quality = nm.lerp(smb_quality, vmb_quality, virtual_history_amount)
+    antilag = C.compute_antilag(sc, dc, spec_hist, m1, sigma, quality * data1_spec)
+    taw, ta_sigma_scale = C.get_temporal_accumulation_params(sc, quality, data1_spec)
+    history_weight = taw * antilag
+    history_weight = history_weight * (uv[..., 0] >= float(sc["split_screen"])).to(torch.float32)
+    split_prev = float(sc["split_screen_prev"])
+    smb_ok = (smb_pixel_uv[..., 0] >= split_prev).to(torch.float32)
+    vmb_ok = (vmb_pixel_uv[..., 0] >= split_prev).to(torch.float32)
+    history_weight = history_weight * torch.where(virtual_history_amount != 1.0, smb_ok, 1.0)
+    history_weight = history_weight * torch.where(virtual_history_amount != 0.0, vmb_ok, 1.0)
+
+    responsive_factor = C.remap_roughness_to_responsive_factor(dc, roughness)
+    smc = nm.get_spec_magic_curve(roughness)
+    acceleration = nm.lerp(smc, 1.0, 0.5 + responsive_factor * 0.5)
+    history_weight = history_weight * torch.where(
+        material_id == float(sc["strand_material_id"]), 0.5, acceleration)
+
+    spec_hist = torch.clamp(spec_hist, m1 - sigma * ta_sigma_scale, m1 + sigma * ta_sigma_scale)
+    luma_stab = nm.lerp(luma_rcrs, spec_hist,
+                        torch.clamp_max(history_weight, float(dc["stabilization_strength"])))
+    d1 = data1_spec + 1.0
+    smin = torch.clamp_max(d1, float(dc["history_fix_frame_num"]))
+    return dict(spec=C.change_luma(spec, luma_stab), spec_luma_stab=luma_stab,
+                data1_spec=nm.lerp(smin, d1, antilag), mv_out=mv_out)

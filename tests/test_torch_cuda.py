@@ -1,8 +1,9 @@
 """Hand-written kernels on the card (marker `cuda`; skips where there is no CUDA device).
 
-Each kernel runs on the inputs the main path gives it (frame 4 of the orbit scene at
-128x96) and is held against its plain PyTorch version on the same card; the Engine on the
-card is held against the Engine on the CPU. Run on a machine with an H100:
+Each kernel runs on the inputs the main paths give it (frame 4 of the orbit scene at 128x96,
+REBLUR_DIFFUSE and REBLUR_SPECULAR) and is held against its plain PyTorch version on the same
+card; the Engine on the card is held against the Engine on the CPU, for both variants. Run on
+a machine with an H100:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 
@@ -16,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from nrdtpu_torch import frontend as fe
 from nrdtpu_torch import kernels as KM
 from nrdtpu_torch.engine import Engine
 from nrdtpu_torch.settings import Denoiser, ResourceType as RT
@@ -36,37 +38,55 @@ def cuda():
     return torch.device("cuda")
 
 
-def _pools(n):
+VARIANTS = (Denoiser.REBLUR_DIFFUSE, Denoiser.REBLUR_SPECULAR)
+
+
+def _pools(denoiser, n):
     gen = SceneGenerator(SceneSpec(size=SIZE, noise=0.4), camera_mode="orbit")
+    hdp = np.array([3.0, 0.1, 20.0, -25.0], np.float32)
     for i in range(n):
         fd = gen.frame(i)
         fd.common_settings.timeDeltaBetweenFrames = 16.66
-        sig = np.concatenate([fd.diff_noisy, np.full(fd.view_z.shape + (1,), 0.5, np.float32)],
-                             -1)
-        yield fd.common_settings, {RT.IN_VIEWZ: fd.view_z,
-                                   RT.IN_NORMAL_ROUGHNESS: gen.packed_normal_roughness(fd),
-                                   RT.IN_MV: fd.mv, RT.IN_DIFF_RADIANCE_HITDIST: sig}
+        pool = {RT.IN_VIEWZ: fd.view_z, RT.IN_NORMAL_ROUGHNESS: gen.packed_normal_roughness(fd),
+                RT.IN_MV: fd.mv}
+        if denoiser == Denoiser.REBLUR_DIFFUSE:
+            sig = np.concatenate([fd.diff_noisy, np.full(fd.view_z.shape + (1,), 0.5, np.float32)],
+                                 -1)
+            pool[RT.IN_DIFF_RADIANCE_HITDIST] = sig
+        else:
+            nhd = fe.reblur_get_norm_hit_dist(torch.from_numpy(fd.spec_hit_dist),
+                                              torch.from_numpy(fd.view_z), hdp,
+                                              torch.from_numpy(fd.roughness))
+            pool[RT.IN_SPEC_RADIANCE_HITDIST] = fe.reblur_pack_radiance_hitdist(
+                torch.from_numpy(fd.spec_noisy), nhd).numpy()
+        yield fd.common_settings, pool
+
+
+def _out(denoiser):
+    return (RT.OUT_DIFF_RADIANCE_HITDIST if denoiser == Denoiser.REBLUR_DIFFUSE
+            else RT.OUT_SPEC_RADIANCE_HITDIST)
 
 
 @pytest.fixture(scope="module")
 def recorded(cuda):
-    eng = Engine({0: Denoiser.REBLUR_DIFFUSE}, resource_size=SIZE, device=cuda)
     calls = []
     originals = {n: getattr(m, n) for n, m in KM.MODULES.items()}
-    pools = list(_pools(4))
-    try:
-        for i, (cs, pool) in enumerate(pools):
-            if i == len(pools) - 1:
-                for n, m in KM.MODULES.items():
-                    def rec(*a, _n=n, _f=originals[n], **k):
-                        calls.append((_n, a, k))
-                        return _f(*a, **k)
-                    setattr(m, n, rec)
-            eng.set_common_settings(cs)
-            eng.denoise([0], pool)
-    finally:
-        for n, m in KM.MODULES.items():
-            setattr(m, n, originals[n])
+    for denoiser in VARIANTS:
+        eng = Engine({0: denoiser}, resource_size=SIZE, device=cuda)
+        pools = list(_pools(denoiser, 4))
+        try:
+            for i, (cs, pool) in enumerate(pools):
+                if i == len(pools) - 1:
+                    for n, m in KM.MODULES.items():
+                        def rec(*a, _n=n, _f=originals[n], **k):
+                            calls.append((_n, a, k))
+                            return _f(*a, **k)
+                        setattr(m, n, rec)
+                eng.set_common_settings(cs)
+                eng.denoise([0], pool)
+        finally:
+            for n, m in KM.MODULES.items():
+                setattr(m, n, originals[n])
     return calls
 
 
@@ -93,14 +113,15 @@ def test_kernel_matches_plain_version(recorded, name):
             assert over <= FLIP_FRACTION, f"{name}.{key}: {over:.3g} of values out of tolerance"
 
 
-def test_engine_card_matches_cpu(cuda):
-    card = Engine({0: Denoiser.REBLUR_DIFFUSE}, resource_size=SIZE, device=cuda)
-    cpu = Engine({0: Denoiser.REBLUR_DIFFUSE}, resource_size=SIZE)
-    for cs, pool in _pools(4):
+@pytest.mark.parametrize("denoiser", VARIANTS, ids=lambda d: d.name)
+def test_engine_card_matches_cpu(cuda, denoiser):
+    card = Engine({0: denoiser}, resource_size=SIZE, device=cuda)
+    cpu = Engine({0: denoiser}, resource_size=SIZE)
+    for cs, pool in _pools(denoiser, 4):
         outs = []
         for eng in (card, cpu):
             eng.set_common_settings(cs)
-            outs.append(eng.denoise([0], pool)[RT.OUT_DIFF_RADIANCE_HITDIST].cpu().double())
+            outs.append(eng.denoise([0], pool)[_out(denoiser)].cpu().double())
         mse = float(((outs[0] - outs[1]) ** 2).mean())
         peak = float(outs[1].abs().max())
         assert mse == 0.0 or 10.0 * np.log10(peak * peak / mse) >= 50.0

@@ -26,13 +26,17 @@ from nrdtpu_torch.settings import Denoiser, ResourceType as RT
 from nrdtpu_torch.utils.scene import SceneGenerator, SceneSpec
 gen = SceneGenerator(SceneSpec(size=(64, 48)), camera_mode="orbit")
 fd = gen.frame(0)
-eng = Engine({0: Denoiser.REBLUR_DIFFUSE}, resource_size=(64, 48))
-eng.set_common_settings(fd.common_settings)
 sig = np.concatenate([fd.diff_noisy, np.full((48, 64, 1), 0.5, np.float32)], -1)
-out = eng.denoise([0], {RT.IN_VIEWZ: fd.view_z, RT.IN_NORMAL_ROUGHNESS:
-                        gen.packed_normal_roughness(fd), RT.IN_MV: fd.mv,
-                        RT.IN_DIFF_RADIANCE_HITDIST: sig})[RT.OUT_DIFF_RADIANCE_HITDIST]
-assert out.shape == (48, 64, 4) and bool(out.isfinite().all())
+for d, rt_in, rt_out in ((Denoiser.REBLUR_DIFFUSE, RT.IN_DIFF_RADIANCE_HITDIST,
+                          RT.OUT_DIFF_RADIANCE_HITDIST),
+                         (Denoiser.REBLUR_SPECULAR, RT.IN_SPEC_RADIANCE_HITDIST,
+                          RT.OUT_SPEC_RADIANCE_HITDIST)):
+    eng = Engine({0: d}, resource_size=(64, 48))
+    eng.set_common_settings(fd.common_settings)
+    out = eng.denoise([0], {RT.IN_VIEWZ: fd.view_z, RT.IN_NORMAL_ROUGHNESS:
+                            gen.packed_normal_roughness(fd), RT.IN_MV: fd.mv,
+                            rt_in: sig})[rt_out]
+    assert out.shape == (48, 64, 4) and bool(out.isfinite().all())
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.") or m == "nrdtpu"
              or m.startswith("nrdtpu."))
 print("IMPORTED", bad)
@@ -55,13 +59,12 @@ def test_port_imports_no_jax_and_no_nrdtpu():
 
 @pytest.fixture(scope="module")
 def recorded_calls():
-    """The kernel calls of one CPU frame of the main path, recorded at the wrappers."""
+    """The kernel calls of two CPU frames of each main path, recorded at the wrappers."""
     from nrdtpu_torch.engine import Engine
     from nrdtpu_torch.settings import Denoiser, ResourceType as RT
     from nrdtpu_torch.utils.scene import SceneGenerator, SceneSpec
 
     gen = SceneGenerator(SceneSpec(size=(48, 32)), camera_mode="orbit")
-    eng = Engine({0: Denoiser.REBLUR_DIFFUSE}, resource_size=(48, 32))
     calls = []
     originals = {n: getattr(m, n) for n, m in KM.MODULES.items()}
     try:
@@ -70,13 +73,16 @@ def recorded_calls():
                 calls.append((_n, a, k))
                 return _f(*a, **k)
             setattr(m, n, rec)
-        for i in range(2):
-            fd = gen.frame(i)
-            eng.set_common_settings(fd.common_settings)
-            sig = np.concatenate([fd.diff_noisy, np.full((32, 48, 1), 0.5, np.float32)], -1)
-            eng.denoise([0], {RT.IN_VIEWZ: fd.view_z,
-                              RT.IN_NORMAL_ROUGHNESS: gen.packed_normal_roughness(fd),
-                              RT.IN_MV: fd.mv, RT.IN_DIFF_RADIANCE_HITDIST: sig})
+        for d, rt in ((Denoiser.REBLUR_DIFFUSE, RT.IN_DIFF_RADIANCE_HITDIST),
+                      (Denoiser.REBLUR_SPECULAR, RT.IN_SPEC_RADIANCE_HITDIST)):
+            eng = Engine({0: d}, resource_size=(48, 32))
+            for i in range(2):
+                fd = gen.frame(i)
+                eng.set_common_settings(fd.common_settings)
+                sig = np.concatenate([fd.diff_noisy, np.full((32, 48, 1), 0.5, np.float32)], -1)
+                eng.denoise([0], {RT.IN_VIEWZ: fd.view_z,
+                                  RT.IN_NORMAL_ROUGHNESS: gen.packed_normal_roughness(fd),
+                                  RT.IN_MV: fd.mv, rt: sig})
     finally:
         for n, m in KM.MODULES.items():
             setattr(m, n, originals[n])
@@ -98,7 +104,7 @@ def test_wrapper_takes_plain_version_on_cpu(recorded_calls, name, monkeypatch):
 
     monkeypatch.setattr(build, "library", no_library)
     calls = [(a, k) for n, a, k in recorded_calls if n == name]
-    assert calls, f"{name} is not on the main path"
+    assert calls, f"{name} is on neither main path"
     mod = KM.MODULES[name]
     KM.reset_launch_counts()
     for a, k in calls:

@@ -155,3 +155,24 @@ def test_stencil_shifted(images, dy, dx):
     np.testing.assert_array_equal(tst.shifted(torch.from_numpy(img), dy, dx).numpy(),
                                   np.asarray(jst.shifted(jnp.asarray(img), dy, dx)))
     assert tst.offsets_square(2) == jst.offsets_square(2)
+
+
+@pytest.mark.parametrize("frame_index", [0, 7, 123457, 2**31 + 12345, 2**32 - 1])
+def test_hash_is_bit_exact(frame_index):
+    """The PCG stream (int64 emulation of uint32) equals nrdtpu.math's, draw for draw, over a
+    64x48 grid; it drives the stochastic nearest fetches and the PrePass hitDist minimum."""
+    from nrdtpu import math as jm
+    from nrdtpu_torch import math as tm
+
+    xs, ys = np.meshgrid(np.arange(64, dtype=np.int32), np.arange(48, dtype=np.int32))
+    js = jm.hash_init((jnp.asarray(xs), jnp.asarray(ys)), frame_index)
+    ts = tm.hash_init(torch.from_numpy(xs), torch.from_numpy(ys), frame_index)
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js).astype(np.int64))
+    for _ in range(3):
+        js, ja = jm.hash_float(js)
+        ts, ta = tm.hash_float(ts)
+        np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
+        js, jb = jm.hash_float2(js)
+        ts, tb = tm.hash_float2(ts)
+        np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js).astype(np.int64))

@@ -1,7 +1,7 @@
-"""The PyTorch port's REBLUR diffuse passes against the numpy transliterations of the NRD HLSL
-(`tests/oracle/reblur.py`), at the same >= 40 dB PSNR bar `tests/test_oracle.py` holds the
-JAX package to, on the same synthetic slanted-wall scene. The frame constants come from the
-port's own FrameMath; the passes run their plain CPU path (the kernels' `*_ref`).
+"""The PyTorch port's REBLUR diffuse and specular passes against the numpy transliterations of
+the NRD HLSL (`tests/oracle/reblur.py`), at the same >= 40 dB PSNR bar `tests/test_oracle.py`
+holds the JAX package to, on the same synthetic slanted-wall scene. The frame constants come
+from the port's own FrameMath; the passes run their plain CPU path (the kernels' `*_ref`).
 """
 
 import os
@@ -154,5 +154,69 @@ def test_ts_diffuse_matches_oracle(translate_x):
     got = K.temporal_stabilization(sc, dc, t(s["view_z"]), t(s["nr"]), t(s["mv"]), t(data1),
                                    t(fbits), t(diff), t(hist), cfg)
     for name in ("diff", "diff_luma_stab", "data1_diff"):
+        p = psnr(ref[name], got[name].numpy())
+        assert p >= BAR_DB, f"TS {name}: {p:.1f} dB vs HLSL oracle"
+
+
+@pytest.mark.parametrize("translate_x", [0.0, 0.013])
+def test_ta_specular_matches_oracle(translate_x):
+    """Specular TA (REBLUR_TemporalAccumulation.hlsli:306-830): curvature along the motion,
+    GetXvirtual, the virtual-motion confidences, the smb/vmb blend, firefly and fast history.
+    Curvature is compared under real parallax only: with a static camera its mixing
+    direction is float noise (the reference's own comment, as tests/test_oracle.py says)."""
+    sc, dc, cfg = _camera(translate_x)
+    s = _scene(sc)
+    accum = RNG.uniform(0.0, 40.0, (H_, W)).astype(np.float32)
+    spec_input = RNG.uniform(0.0, 1.0, (H_, W, 4)).astype(np.float32)
+    spec_input[..., 1:3] -= 0.5
+    history = RNG.uniform(0.0, 1.0, (H_, W, 4)).astype(np.float32)
+    fast_hist = RNG.uniform(0.0, 1.0, (H_, W)).astype(np.float32)
+    prev_hdt = RNG.uniform(0.0, 5.0, (H_, W)).astype(np.float32)
+    hdt_in = spec_input[..., 3]  # ExtractHitDist(spec): PrePass off
+    zeros = np.zeros((H_, W), np.float32)
+    ref = O.ta_specular(sc, dc, s["view_z"], s["nr"], s["mv"], s["view_z"], s["nr"], accum,
+                        accum, zeros, spec_input, history, fast_hist, hdt_in, prev_hdt,
+                        has_prepass_hitdist=False)
+    prev_internal = dict(diff_accum=t(accum), spec_accum=t(accum), material_id=t(zeros))
+    sm = K.surface_motion_reprojection(sc, dc, t(s["view_z"]), t(s["nr"]), t(s["mv"]),
+                                       t(s["view_z"]), t(s["nr"]), prev_internal, cfg,
+                                       t(history), t(fast_hist), which="spec")
+    got = K.temporal_accumulation_specular(
+        sc, dc, sm, t(spec_input), t(history), t(fast_hist), t(s["view_z"]), t(s["nr"]),
+        t(s["view_z"]), t(s["nr"]), prev_internal, t(hdt_in), t(prev_hdt), cfg,
+        has_prepass_hitdist=False)
+    names = [("hdt", "hit_dist_for_tracking"), ("virtual_history_amount",) * 2,
+             ("accum_speed",) * 2, ("spec",) * 2, ("fast",) * 2]
+    if translate_x != 0.0:
+        names.append(("curvature",) * 2)
+    for r, g in names:
+        p = psnr(ref[r], got[g].numpy())
+        assert p >= BAR_DB, f"TA specular {g}: {p:.1f} dB vs HLSL oracle"
+    # fbits are binary: a tap on its plane-distance threshold legitimately flips
+    flips = np.mean(np.asarray(ref["fbits"]).astype(np.int64)
+                    != (sm["fbits"] + got["fbits_vmb"]).numpy().astype(np.int64))
+    assert flips < 0.01, f"TA specular fbits: {flips:.2%} of pixels flipped"
+
+
+@pytest.mark.parametrize("translate_x", [0.0, 0.013])
+def test_ts_specular_matches_oracle(translate_x):
+    """Specular TS (REBLUR_TemporalStabilization.hlsli:233-343): the surface- and
+    virtual-motion histories combined by the virtual history amount."""
+    sc, dc, cfg = _camera(translate_x)
+    s = _scene(sc)
+    s["mv"] = s["mv"] + np.asarray([0.37 / W, 0.23 / H_, 0.0], np.float32)  # off-lattice
+    data1 = RNG.uniform(0.0, 30.0, (H_, W)).astype(np.float32)
+    fbits = RNG.integers(0, 256, (H_, W)).astype(np.float32)
+    curvature = RNG.uniform(-0.2, 0.2, (H_, W)).astype(np.float32)
+    amount = RNG.uniform(0.0, 1.0, (H_, W)).astype(np.float32)
+    sig = RNG.uniform(0.0, 1.0, (2, H_, W, 4)).astype(np.float32)
+    sig[..., 1:3] -= 0.5
+    hist = RNG.uniform(0.0, 1.0, (H_, W)).astype(np.float32)
+    ref = O.temporal_stabilization(sc, dc, s["view_z"], s["nr"], s["mv"], data1, data1, fbits,
+                                   curvature, amount, sig[0], sig[1], hist, hist)
+    got = K.temporal_stabilization_specular(
+        sc, dc, t(s["view_z"]), t(s["nr"]), t(s["mv"]), t(data1), t(fbits), t(curvature),
+        t(amount), t(sig[1]), t(hist), None, None, cfg, has_prepass=False)
+    for name in ("spec", "spec_luma_stab", "data1_spec"):
         p = psnr(ref[name], got[name].numpy())
         assert p >= BAR_DB, f"TS {name}: {p:.1f} dB vs HLSL oracle"
