@@ -8,9 +8,10 @@ Denoise of NRD), run eagerly on one device:
     outputs = eng.denoise([0], {ResourceType.IN_VIEWZ: view_z, ...})
 
 Inputs may be numpy arrays or tensors; they are moved to the engine's device. The state is
-a dict of tensors on that device. On "cuda" every kernel of the pass graph is a hand-written
-CUDA kernel; on "cpu" each runs its plain PyTorch version. Asking for "cuda" on a machine
-without CUDA raises - the engine never carries on on the CPU.
+a dict of tensors on that device. The engine runs on the card unless the caller asks for
+`device="cpu"`: on "cuda" (the default) every kernel of the pass graph is a hand-written CUDA
+kernel; on "cpu" each runs its plain PyTorch version. On a machine without CUDA the default
+raises - the engine never carries on on the CPU unless asked to.
 """
 
 from __future__ import annotations
@@ -59,10 +60,11 @@ class Engine:
                  rect_size: Optional[Tuple[int, int]] = None,
                  normal_encoding: NormalEncoding = NormalEncoding.R10_G10_B10_A2_UNORM,
                  roughness_encoding: RoughnessEncoding = RoughnessEncoding.LINEAR,
-                 mesh=None, device="cpu"):
+                 mesh=None, device="cuda"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("Engine(device='cuda'): CUDA is not available on this machine")
+            raise RuntimeError("Engine(device='cuda'): CUDA is not available on this machine; "
+                               "pass device='cpu' to run the plain PyTorch versions")
         if self.device.type not in ("cpu", "cuda"):
             raise ValueError(f"unsupported device {self.device}")
         if mesh is not None:

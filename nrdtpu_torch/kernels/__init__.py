@@ -1,5 +1,5 @@
-"""Hand-written CUDA kernels (sm_90a) of the REBLUR_DIFFUSE and REBLUR_SPECULAR paths, one
-module each.
+"""Hand-written CUDA kernels (sm_90a) of the REBLUR_DIFFUSE, REBLUR_SPECULAR and
+REBLUR_DIFFUSE_SPECULAR paths, one module each.
 
 Every module holds the kernel's wrapper, its plain PyTorch version (`*_ref`) and a launch
 count (`launches`). The wrapper takes the plain version for CPU tensors and launches the
@@ -14,10 +14,12 @@ kernel for CUDA tensors; it never falls back from one to the other.
                     (= :882 spec_prelude + :847 shift_planes + :171 nearest_resolve)
   nearest_multi  <- nrdtpu/kernels/reblur_pallas.py:219 nearest_resolve_multi
   vmb_resolve    <- nrdtpu/kernels/reblur_pallas.py:779 reblur_vmb_resolve
+  spatial_filter_fused <- nrdtpu/kernels/reblur_fused.py:787 spatial_filter_fused_pallas
+  history_fix_fused    <- nrdtpu/kernels/reblur_fused.py:668 history_fix_fused_pallas
 """
 
-from . import (history_fix, nearest_multi, smb_resolve, spatial_filter, spec_ta_head,
-               ts_prelude, vmb_resolve)
+from . import (history_fix, history_fix_fused, nearest_multi, smb_resolve, spatial_filter,
+               spatial_filter_fused, spec_ta_head, ts_prelude, vmb_resolve)
 
 MODULES = {
     "smb_resolve": smb_resolve,
@@ -27,6 +29,8 @@ MODULES = {
     "spec_ta_head": spec_ta_head,
     "nearest_multi": nearest_multi,
     "vmb_resolve": vmb_resolve,
+    "spatial_filter_fused": spatial_filter_fused,
+    "history_fix_fused": history_fix_fused,
 }
 
 

@@ -160,13 +160,16 @@ __device__ __forceinline__ void catmull_rom_weights(float f, float w[4]) {
   w[3] = f * (f * (0.5f * f - 0.5f));
 }
 
-// _BicubicFilterNoCornersWithFallbackToBilinearFilterWithCustomWeights (Common.hlsli:602-646):
-// 13-tap Catmull-Rom as 5 bilinear taps, or the custom bilinear weights bw where
-// use_bicubic is false. (spx, spy) is the sample position in pixels of img.
-template <typename T, int C>
-__device__ __forceinline__ void sample_catrom(const Image<T, C>& img, float spx, float spy,
-                                              bool use_bicubic, const float bw[4],
-                                              float out[C]) {
+// The 5 bilinear taps of _BicubicFilterNoCornersWithFallbackToBilinearFilterWithCustomWeights
+// (Common.hlsli:602-646): 13-tap Catmull-Rom, or the custom bilinear weights bw where
+// use_bicubic is false. (spx, spy) is the sample position in pixels. Computed once, they
+// apply to every image of the same size (catrom_apply).
+struct CatromTaps {
+  float wt[5], tx[5], ty[5], wsum;
+};
+
+__device__ __forceinline__ CatromTaps catrom_taps(float spx, float spy, bool use_bicubic,
+                                                  const float bw[4]) {
   float cx = floorf(spx - 0.5f) + 0.5f;
   float cy = floorf(spy - 0.5f) + 0.5f;
   float fx = saturate(spx - cx);
@@ -178,36 +181,48 @@ __device__ __forceinline__ void sample_catrom(const Image<T, C>& img, float spx,
   float tcx = wx[2] / w12x;
   float tcy = wy[2] / w12y;
 
-  float wt[5], tx[5], ty[5];
+  CatromTaps t;
   if (use_bicubic) {
-    wt[0] = w12x * wy[0]; tx[0] = cx + tcx; ty[0] = cy - 1.0f;
-    wt[1] = wx[0] * w12y; tx[1] = cx - 1.0f; ty[1] = cy + tcy;
-    wt[2] = w12x * w12y;  tx[2] = cx + tcx; ty[2] = cy + tcy;
-    wt[3] = wx[3] * w12y; tx[3] = cx + 2.0f; ty[3] = cy + tcy;
-    wt[4] = w12x * wy[3]; tx[4] = cx + tcx; ty[4] = cy + 2.0f;
+    t.wt[0] = w12x * wy[0]; t.tx[0] = cx + tcx; t.ty[0] = cy - 1.0f;
+    t.wt[1] = wx[0] * w12y; t.tx[1] = cx - 1.0f; t.ty[1] = cy + tcy;
+    t.wt[2] = w12x * w12y;  t.tx[2] = cx + tcx; t.ty[2] = cy + tcy;
+    t.wt[3] = wx[3] * w12y; t.tx[3] = cx + 2.0f; t.ty[3] = cy + tcy;
+    t.wt[4] = w12x * wy[3]; t.tx[4] = cx + tcx; t.ty[4] = cy + 2.0f;
   } else {
-    wt[0] = bw[0]; tx[0] = cx;        ty[0] = cy;
-    wt[1] = bw[1]; tx[1] = cx + 1.0f; ty[1] = cy;
-    wt[2] = bw[2]; tx[2] = cx;        ty[2] = cy + 1.0f;
-    wt[3] = bw[3]; tx[3] = cx + 1.0f; ty[3] = cy + 1.0f;
-    wt[4] = 0.0f;  tx[4] = cx + fx;   ty[4] = cy + fy;
+    t.wt[0] = bw[0]; t.tx[0] = cx;        t.ty[0] = cy;
+    t.wt[1] = bw[1]; t.tx[1] = cx + 1.0f; t.ty[1] = cy;
+    t.wt[2] = bw[2]; t.tx[2] = cx;        t.ty[2] = cy + 1.0f;
+    t.wt[3] = bw[3]; t.tx[3] = cx + 1.0f; t.ty[3] = cy + 1.0f;
+    t.wt[4] = 0.0f;  t.tx[4] = cx + fx;   t.ty[4] = cy + fy;
   }
-  float wsum = wt[0] + wt[1] + wt[2] + wt[3] + wt[4];
-  float inv_w = 1.0f / (float)img.w, inv_h = 1.0f / (float)img.h;
+  t.wsum = t.wt[0] + t.wt[1] + t.wt[2] + t.wt[3] + t.wt[4];
+  return t;
+}
 
+template <typename T, int C>
+__device__ __forceinline__ void catrom_apply(const Image<T, C>& img, const CatromTaps& t,
+                                             float out[C]) {
+  float inv_w = 1.0f / (float)img.w, inv_h = 1.0f / (float)img.h;
   float acc[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) acc[c] = 0.0f;
 #pragma unroll
   for (int k = 0; k < 5; ++k) {
     float s[C];
-    sample_bilinear(img, tx[k] * inv_w, ty[k] * inv_h, s);
+    sample_bilinear(img, t.tx[k] * inv_w, t.ty[k] * inv_h, s);
 #pragma unroll
-    for (int c = 0; c < C; ++c) acc[c] = acc[c] + s[c] * wt[k];
+    for (int c = 0; c < C; ++c) acc[c] = acc[c] + s[c] * t.wt[k];
   }
-  float div = fabsf(wsum) < 0.0001f ? 1.0f : wsum;
+  float div = fabsf(t.wsum) < 0.0001f ? 1.0f : t.wsum;
 #pragma unroll
-  for (int c = 0; c < C; ++c) out[c] = wsum < 0.0001f ? 0.0f : acc[c] / div;
+  for (int c = 0; c < C; ++c) out[c] = t.wsum < 0.0001f ? 0.0f : acc[c] / div;
+}
+
+template <typename T, int C>
+__device__ __forceinline__ void sample_catrom(const Image<T, C>& img, float spx, float spy,
+                                              bool use_bicubic, const float bw[4],
+                                              float out[C]) {
+  catrom_apply(img, catrom_taps(spx, spy, use_bicubic, bw), out);
 }
 
 __device__ __forceinline__ float pixel_u(int x, int w) { return ((float)x + 0.5f) / (float)w; }

@@ -1,7 +1,9 @@
 // H1: surface-motion footprint resolve + history sampling (REBLUR TemporalAccumulation).
 // Replaces nrdtpu/kernels/reblur_pallas.py:577 reblur_smb_resolve; computes the gathers of
-// nrdtpu/passes/reblur/kernels.py:142-249 and :451-456 per pixel. The plain version is
-// nrdtpu_torch/kernels/smb_resolve.py:smb_resolve_ref. One thread per pixel.
+// nrdtpu/passes/reblur/kernels.py:142-249 and :451-456 per pixel. With two signals
+// (REBLUR_DIFFUSE_SPECULAR) one launch resolves the footprint once and samples both signals'
+// histories, fast histories and accumulation planes with the same weights. The plain version
+// is nrdtpu_torch/kernels/smb_resolve.py:smb_resolve_ref. One thread per pixel.
 #include "common.cuh"
 
 namespace {
@@ -18,13 +20,14 @@ struct SmbArgs {
   const float* prev_vz;     // (h, w) raw previous viewZ
   const float* prev_nr;     // (h, w, 4)
   const float* prev_mat;    // (h, w)
-  const float* accum;       // (h, w) accumulation speed of the signal being denoised
-  const __nv_bfloat16* hist;  // (h, w, 4)
-  const __nv_bfloat16* fast;  // (h, w)
-  float* out_hist;          // (h, w, 4)
-  float* out_planes;        // (5, h, w): fbits, allow_catrom, footprint_raw, accum, fast
+  const float* accum[2];    // (h, w) accumulation speed of each signal being denoised
+  const __nv_bfloat16* hist[2];  // (h, w, 4)
+  const __nv_bfloat16* fast[2];  // (h, w)
+  float* out_hist;          // (nsig, h, w, 4)
+  float* out_planes;        // (3 + 2 nsig, h, w): fbits, allow_catrom, footprint_raw,
+                            // accum, fast [, accum and fast of the second signal]
   float* out_navg;          // (2, h, w, 3): current n_avg, previous smb_navg (rotated)
-  int w, h;
+  int w, h, nsig;
   float view_z_scale, denoising_range, rect_prev_w, rect_prev_h, min_material;
   float m[9];               // world_prev_to_world rotation, row-major
 };
@@ -126,25 +129,28 @@ __global__ void __launch_bounds__(256) smb_resolve_kernel(SmbArgs a) {
   const float fbits = oc[0] * 1.0f + oc[1] * 2.0f + oc[2] * 4.0f + oc[3] * 8.0f;
   const float footprint = oc[0] * bw[0] + oc[1] * bw[1] + oc[2] * bw[2] + oc[3] * bw[3];
 
-  float das;
-  nrd::bilinear_custom(Image<float, 1>{a.accum, a.w, a.h}, bx, by, ow, &das);
-
-  // history samples at the saturated reprojected position
-  const float spx = nrd::saturate(u) * a.rect_prev_w, spy = nrd::saturate(v) * a.rect_prev_h;
-  float hist[4];
-  nrd::sample_catrom(Image<__nv_bfloat16, 4>{a.hist, a.w, a.h}, spx, spy, allow_catrom, ow, hist);
-  float fast;
-  nrd::bilinear_custom(Image<__nv_bfloat16, 1>{a.fast, a.w, a.h}, nrd::to_index(floorf(spx - 0.5f)),
-                       nrd::to_index(floorf(spy - 0.5f)), ow, &fast);
-
-#pragma unroll
-  for (int c = 0; c < 4; ++c) a.out_hist[4 * i + c] = hist[c];
   const size_t plane = (size_t)a.w * a.h;
   a.out_planes[i] = fbits;
   a.out_planes[plane + i] = allow_catrom ? 1.0f : 0.0f;
   a.out_planes[2 * plane + i] = footprint;
-  a.out_planes[3 * plane + i] = das;
-  a.out_planes[4 * plane + i] = fast;
+
+  // per signal: accumulation speed and the history samples at the saturated reprojected
+  // position, with the CatRom taps and bilinear weights computed once
+  const float spx = nrd::saturate(u) * a.rect_prev_w, spy = nrd::saturate(v) * a.rect_prev_h;
+  const nrd::CatromTaps taps = nrd::catrom_taps(spx, spy, allow_catrom, ow);
+  const int fx0 = nrd::to_index(floorf(spx - 0.5f)), fy0 = nrd::to_index(floorf(spy - 0.5f));
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {  // unrolled: s is constant, the pointers stay in registers
+    if (s >= a.nsig) break;
+    float das, fast, hist[4];
+    nrd::bilinear_custom(Image<float, 1>{a.accum[s], a.w, a.h}, bx, by, ow, &das);
+    nrd::catrom_apply(Image<__nv_bfloat16, 4>{a.hist[s], a.w, a.h}, taps, hist);
+    nrd::bilinear_custom(Image<__nv_bfloat16, 1>{a.fast[s], a.w, a.h}, fx0, fy0, ow, &fast);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) a.out_hist[4 * (s * plane + i) + c] = hist[c];
+    a.out_planes[(3 + 2 * s) * plane + i] = das;
+    a.out_planes[(4 + 2 * s) * plane + i] = fast;
+  }
   float* nv = a.out_navg + 3 * i;
   nv[0] = n_avg.x;
   nv[1] = n_avg.y;
@@ -162,8 +168,9 @@ extern "C" const char* nrd_error_string(int err) {
 }
 
 // ptrs: smb_uv, xv_prev_z, base_thr, navg_thr, nr, prev_vz, prev_nr, prev_mat, accum,
-//       hist, fast, out_hist, out_planes, out_navg
-// consts: view_z_scale, denoising_range, rect_prev_w, rect_prev_h, min_material, m[9]
+//       hist, fast, out_hist, out_planes, out_navg [, accum, hist, fast of a second signal]
+// consts: view_z_scale, denoising_range, rect_prev_w, rect_prev_h, min_material, m[9],
+//         signal count (1 or 2)
 extern "C" int nrd_smb_resolve(void* const* p, const float* c, int w, int h, void* stream) {
   SmbArgs a;
   a.smb_uv = (const float*)p[0];
@@ -174,14 +181,19 @@ extern "C" int nrd_smb_resolve(void* const* p, const float* c, int w, int h, voi
   a.prev_vz = (const float*)p[5];
   a.prev_nr = (const float*)p[6];
   a.prev_mat = (const float*)p[7];
-  a.accum = (const float*)p[8];
-  a.hist = (const __nv_bfloat16*)p[9];
-  a.fast = (const __nv_bfloat16*)p[10];
   a.out_hist = (float*)p[11];
   a.out_planes = (float*)p[12];
   a.out_navg = (float*)p[13];
   a.w = w;
   a.h = h;
+  a.nsig = (int)c[14];
+  if (a.nsig != 1 && a.nsig != 2) return (int)cudaErrorInvalidValue;
+  for (int s = 0; s < 2; ++s) {  // the second signal's pointers follow the outputs
+    const int k = s == 0 ? 8 : 14;
+    a.accum[s] = (const float*)p[s < a.nsig ? k : 8];
+    a.hist[s] = (const __nv_bfloat16*)p[s < a.nsig ? k + 1 : 9];
+    a.fast[s] = (const __nv_bfloat16*)p[s < a.nsig ? k + 2 : 10];
+  }
   a.view_z_scale = c[0];
   a.denoising_range = c[1];
   a.rect_prev_w = c[2];

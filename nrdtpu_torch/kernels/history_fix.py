@@ -7,14 +7,20 @@ stride, weighted by plane distance, material, normal angle, accumulation speed a
 distance, replacing the signal where the stride is non-zero; plus the 3x3 mean and second
 moment of the fast history (`:693-700`) that the clamp after it needs. The specular mode
 (`is_diffuse=False`) adds the relaxed roughness weight of each tap and the low-roughness
-hit-distance guide (`:653-668`).
+hit-distance guide (`:653-668`). With `anti_firefly=True` it also returns the mean and second
+moment of the fast history over the 9x9 square minus the 3x3 (72 taps, radius 4 in every
+mode, `:705-719`; the TPU kernel's ring is `reblur_hfix2.py:209-212`).
+
+The per-pixel work is the device functions of `csrc/reblur_filters.cuh`, shared with the fused
+two-signal kernel (`history_fix_fused`).
 
 Bound on the H100: gathers. Per pixel at 2560x1440 it reads 14 param planes (56 B) and 20 taps
 of viewZ, packed normal, accumulation speed and signal (20 x 40 B = 800 B); pixels with
 stride 0 (converged history) skip the taps, so the cost falls as history builds up; the
-specular mode reads 4 more param planes (16 B). One
-thread per pixel in 16x16 blocks with plain global loads; the TPU kernel's hat-blended
-stride levels are not carried over (the stride is per pixel, as in XLA).
+specular mode reads 4 more param planes (16 B); the ring reads 72 fast-history taps, all
+L1-resident neighbours (8 B/px more written). One thread per pixel in 16x16 blocks with plain
+global loads; the TPU kernel's hat-blended stride levels are not carried over (the stride is
+per pixel, as in XLA).
 """
 
 from __future__ import annotations
@@ -28,18 +34,39 @@ from . import build
 
 launches = 0
 
-PARAMS = ("stride", "ga", "gb", "normal_weight_param", "ha", "hb", "hit_dist_scale",
-          "frustum_size", "nx", "ny", "nz", "nvx", "nvy", "nvz")
+# per-pixel planes, in order (the pass glue stacks them): shared by the signals of a pixel,
+# and the signal's own
+SHARED = ("ga", "gb", "frustum_size", "nx", "ny", "nz", "nvx", "nvy", "nvz")
+PARAMS = ("stride", "normal_weight_param", "ha", "hb", "hit_dist_scale")
 # specular mode appends these planes: the roughness weight and the low-roughness hitT guide
 SPEC_PARAMS = ("ra", "rb", "hit_dist", "guide_b")
+ANTI_FIREFLY_RADIUS = 4  # REBLUR_ANTI_FIREFLY_FILTER_RADIUS, in every mode (kernels.py:706)
 
 
-def history_fix_ref(signal, view_z_in, normal_roughness, data1, fast_history, params, *,
-                    frustum, rect_size_inv, view_z_scale, ortho_mode, min_material):
-    """Plain PyTorch version of the kernel (the XLA stride-tap loop + 3x3 moments)."""
+def _moments(fast_history, offsets):
+    m1 = torch.zeros_like(fast_history)
+    m2 = torch.zeros_like(fast_history)
+    for dy, dx in offsets:
+        t = stencil.shifted(fast_history, dy, dx)
+        m1 = m1 + t
+        m2 = m2 + t * t
+    return m1 / float(len(offsets)), m2 / float(len(offsets))
+
+
+def anti_firefly_offsets():
+    """(dy, dx) of the anti-firefly ring, row by row: the 9x9 square minus the 3x3."""
+    return [(dy, dx) for dy, dx in stencil.offsets_square(ANTI_FIREFLY_RADIUS)
+            if not (abs(dy) <= 1 and abs(dx) <= 1)]
+
+
+def history_fix_ref(signal, view_z_in, normal_roughness, data1, fast_history, shared, params, *,
+                    frustum, rect_size_inv, view_z_scale, ortho_mode, min_material,
+                    anti_firefly=False):
+    """Plain PyTorch version of the kernel (the XLA stride-tap loop + 3x3 moments + ring)."""
     h, w = view_z_in.shape
     spec = params.shape[0] == len(PARAMS) + len(SPEC_PARAMS)
-    p = dict(zip(PARAMS + SPEC_PARAMS, params))
+    p = dict(zip(SHARED, shared))
+    p.update(zip(PARAMS + SPEC_PARAMS, params))
     stride = p["stride"]
     n = torch.stack([p["nx"], p["ny"], p["nz"]], -1)
     nv = torch.stack([p["nvx"], p["nvy"], p["nvz"]], -1)
@@ -84,41 +111,46 @@ def history_fix_ref(signal, view_z_in, normal_roughness, data1, fast_history, pa
             acc = acc + s * w_[..., None]
     reconstructed = acc * (1.0 / torch.clamp_min(sum_, 1e-15))[..., None]
     out = torch.where((stride != 0.0)[..., None], reconstructed, signal)
-
-    m1 = torch.zeros_like(fast_history)
-    m2 = torch.zeros_like(fast_history)
-    for dy, dx in stencil.offsets_square(1):
-        t = stencil.shifted(fast_history, dy, dx)
-        m1 = m1 + t
-        m2 = m2 + t * t
-    return out, m1 / 9.0, m2 / 9.0
+    m1, m2 = _moments(fast_history, stencil.offsets_square(1))
+    if not anti_firefly:
+        return out, m1, m2
+    return (out, m1, m2, *_moments(fast_history, anti_firefly_offsets()))
 
 
-def history_fix(signal, view_z_in, normal_roughness, data1, fast_history, params, *, frustum,
-                rect_size_inv, view_z_scale, ortho_mode, min_material):
-    """signal (h, w, 4), data1 = accumulated frames (h, w), fast_history (h, w), params
-    float32 planes named by PARAMS (14, h, w; diffuse) or PARAMS + SPEC_PARAMS (18, h, w;
-    specular). Returns (signal_out (h, w, 4), m1, m2)."""
+def check_params(shared, params):
+    if shared.shape[0] != len(SHARED):
+        raise ValueError(f"shared: {shared.shape[0]} planes")
+    if params.shape[0] not in (len(PARAMS), len(PARAMS) + len(SPEC_PARAMS)):
+        raise ValueError(f"params: {params.shape[0]} planes")
+
+
+def history_fix(signal, view_z_in, normal_roughness, data1, fast_history, shared, params, *,
+                frustum, rect_size_inv, view_z_scale, ortho_mode, min_material,
+                anti_firefly=False):
+    """signal (h, w, 4), data1 = accumulated frames (h, w), fast_history (h, w), shared float32
+    planes named by SHARED (9, h, w), params named by PARAMS (5, h, w; diffuse) or PARAMS +
+    SPEC_PARAMS (9, h, w; specular). Returns (signal_out (h, w, 4), m1, m2), and with
+    `anti_firefly` also the ring's (m1, m2)."""
     global launches
     kw = dict(frustum=frustum, rect_size_inv=rect_size_inv, view_z_scale=view_z_scale,
-              ortho_mode=ortho_mode, min_material=min_material)
+              ortho_mode=ortho_mode, min_material=min_material, anti_firefly=anti_firefly)
+    check_params(shared, params)
     dev = build.kernel_device(signal)
     if dev is None:
-        return history_fix_ref(signal, view_z_in, normal_roughness, data1, fast_history,
+        return history_fix_ref(signal, view_z_in, normal_roughness, data1, fast_history, shared,
                                params, **kw)
     h, w = view_z_in.shape
     f32 = torch.float32
     ins = [("signal", signal, (h, w, 4)), ("view_z_in", view_z_in, (h, w)),
            ("normal_roughness", normal_roughness, (h, w, 4)), ("data1", data1, (h, w)),
-           ("fast_history", fast_history, (h, w)), ("params", params, (params.shape[0], h, w))]
-    if params.shape[0] not in (len(PARAMS), len(PARAMS) + len(SPEC_PARAMS)):
-        raise ValueError(f"params: {params.shape[0]} planes")
+           ("fast_history", fast_history, (h, w)), ("shared", shared, (len(SHARED), h, w)),
+           ("params", params, (params.shape[0], h, w))]
     for name, t, shape in ins:
         build.check(name, t, dev, f32, shape)
     out = torch.empty((h, w, 4), dtype=f32, device=dev)
-    moments = torch.empty((2, h, w), dtype=f32, device=dev)
+    moments = torch.empty((4 if anti_firefly else 2, h, w), dtype=f32, device=dev)
     consts = [*frustum, rect_size_inv[0], rect_size_inv[1], view_z_scale, ortho_mode,
-              min_material, params.shape[0] > len(PARAMS)]
+              min_material, params.shape[0] > len(PARAMS), anti_firefly]
     build.launch("nrd_history_fix", [t for _, t, _ in ins] + [out, moments], consts, w, h)
     launches += 1
-    return out, moments[0], moments[1]
+    return (out, *moments)

@@ -14,12 +14,17 @@ the history (bilinear-custom fallback) and the bilinear-custom sample of the fas
     denoised (bilinear-custom: diff_accum or spec_accum) and the raw footprint-quality sum;
   - the two normal averages themselves, which the specular TA reads (`:398-411`).
 
+With a second signal (`second=`, REBLUR_DIFFUSE_SPECULAR) the same launch samples both
+signals' histories, fast histories and accumulation planes, the CatRom taps and bilinear
+weights computed once; the footprint's outputs are written once.
+
 Bound on the H100: gathers. Per pixel at 2560x1440 it reads 16 viewZ + 16 material taps
 (128 B), 4 previous and 4 current packed normals (128 B), 4 accumulation taps (16 B), 13 x 4
 bf16 history taps (~5 x 4 x 4 x 2 = 160 B) and 4 fast-history taps, ~0.5 KB of mostly
 L1/L2-resident neighbourhood for 68 B of output; device-memory traffic is near the compulsory
-~125 B/px. This first version is one thread per pixel in 16x16 blocks with plain global
-loads (NRD's own compute-shader shape); shared-memory footprints are later work.
+~125 B/px (a second signal adds ~30 B/px). This first version is one thread per pixel in
+16x16 blocks with plain global loads (NRD's own compute-shader shape); shared-memory
+footprints are later work.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ launches = 0
 CENTER_TAPS = ((1, 1), (2, 1), (1, 2), (2, 2))  # (x, y) of the bilinear 2x2 inside the 4x4
 CORNER_TAPS = ((0, 0), (3, 0), (0, 3), (3, 3))
 PLANES = ("fbits", "allow_catrom", "footprint_raw", "accum_speed", "fast")
+PER_SIGNAL = ("history", "fast", "accum_speed")  # a second signal adds these, suffixed _2
 
 
 def _pack(history, planes, navg):
@@ -50,8 +56,20 @@ def _pack(history, planes, navg):
 def smb_resolve_ref(smb_uv, xv_prev_z, base_threshold, navg_thr, normal_roughness,
                     prev_view_z, prev_normal_roughness, prev_material_id, prev_accum,
                     history, fast_history, *, view_z_scale, denoising_range,
-                    rect_size_prev, min_material, world_prev_to_world):
-    """Plain PyTorch version of the kernel (the XLA formulas, gather by gather)."""
+                    rect_size_prev, min_material, world_prev_to_world, second=None):
+    """Plain PyTorch version of the kernel (the XLA formulas, gather by gather); with a
+    second signal, the one-signal version run per signal."""
+    kw = dict(view_z_scale=view_z_scale, denoising_range=denoising_range,
+              rect_size_prev=rect_size_prev, min_material=min_material,
+              world_prev_to_world=world_prev_to_world)
+    if second is not None:
+        args = (smb_uv, xv_prev_z, base_threshold, navg_thr, normal_roughness, prev_view_z,
+                prev_normal_roughness, prev_material_id)
+        out = smb_resolve_ref(*args, prev_accum, history, fast_history, **kw)
+        two = smb_resolve_ref(*args, *second, **kw)
+        out.update({k + "_2": two[k] for k in PER_SIGNAL})
+        return out
+
     def unpack(p):
         return fe.unpack_normal_roughness(p)[0]
 
@@ -116,12 +134,14 @@ def smb_resolve_ref(smb_uv, xv_prev_z, base_threshold, navg_thr, normal_roughnes
 def smb_resolve(smb_uv, xv_prev_z, base_threshold, navg_thr, normal_roughness, prev_view_z,
                 prev_normal_roughness, prev_material_id, prev_accum, history, fast_history,
                 *, view_z_scale, denoising_range, rect_size_prev, min_material,
-                world_prev_to_world):
+                world_prev_to_world, second=None):
     """prev_accum: the previous accumulation speed of the signal whose history is sampled.
     Returns dict(history (h, w, 4), fast, fbits, allow_catrom (bool), footprint_raw,
     accum_speed, n_avg (h, w, 3), smb_navg (h, w, 3)). All planes share the (h, w) of the
     current frame;
-    the previous-frame planes and the histories have the same size (rect = resource)."""
+    the previous-frame planes and the histories have the same size (rect = resource).
+    second: (prev_accum, history, fast_history) of a second signal, sampled in the same
+    launch; its results come as history_2, fast_2 and accum_speed_2."""
     global launches
     kw = dict(view_z_scale=view_z_scale, denoising_range=denoising_range,
               rect_size_prev=rect_size_prev, min_material=min_material,
@@ -130,7 +150,7 @@ def smb_resolve(smb_uv, xv_prev_z, base_threshold, navg_thr, normal_roughness, p
     if dev is None:
         return smb_resolve_ref(smb_uv, xv_prev_z, base_threshold, navg_thr, normal_roughness,
                                prev_view_z, prev_normal_roughness, prev_material_id,
-                               prev_accum, history, fast_history, **kw)
+                               prev_accum, history, fast_history, second=second, **kw)
     h, w = xv_prev_z.shape
     f32, bf16 = torch.float32, torch.bfloat16
     ins = [("smb_uv", smb_uv, f32, (h, w, 2)), ("xv_prev_z", xv_prev_z, f32, (h, w)),
@@ -141,15 +161,26 @@ def smb_resolve(smb_uv, xv_prev_z, base_threshold, navg_thr, normal_roughness, p
            ("prev_material_id", prev_material_id, f32, (h, w)),
            ("prev_accum", prev_accum, f32, (h, w)),
            ("history", history, bf16, (h, w, 4)), ("fast_history", fast_history, bf16, (h, w))]
-    for name, t, dt, shape in ins:
+    extra = []
+    if second is not None:
+        extra = [("prev_accum_2", second[0], f32, (h, w)),
+                 ("history_2", second[1], bf16, (h, w, 4)),
+                 ("fast_history_2", second[2], bf16, (h, w))]
+    for name, t, dt, shape in ins + extra:
         build.check(name, t, dev, dt, shape)
-    out_hist = torch.empty((h, w, 4), dtype=f32, device=dev)
-    planes = torch.empty((len(PLANES), h, w), dtype=f32, device=dev)
+    nsig = 1 + len(extra) // 3
+    out_hist = torch.empty((nsig, h, w, 4), dtype=f32, device=dev)
+    planes = torch.empty((len(PLANES) + 2 * (nsig - 1), h, w), dtype=f32, device=dev)
     navg = torch.empty((2, h, w, 3), dtype=f32, device=dev)
     m = np.asarray(world_prev_to_world, np.float32)[:3, :3].reshape(-1)
     consts = [view_z_scale, denoising_range, rect_size_prev[0], rect_size_prev[1],
-              min_material, *m]
-    build.launch("nrd_smb_resolve", [t for _, t, _, _ in ins] + [out_hist, planes, navg],
+              min_material, *m, nsig]
+    build.launch("nrd_smb_resolve",
+                 [t for _, t, _, _ in ins] + [out_hist, planes, navg] + [t for _, t, _, _ in extra],
                  consts, w, h)
     launches += 1
-    return _pack(out_hist, planes, navg)
+    out = _pack(out_hist[0], planes, navg)
+    if second is not None:
+        out.update(history_2=out_hist[1], accum_speed_2=planes[len(PLANES)],
+                   fast_2=planes[len(PLANES) + 1])
+    return out

@@ -7,7 +7,9 @@ a frame: PrePass, Blur and PostBlur. Computes the tap loop shared by `diffuse_pr
 mode) the per-pixel scaled rotator places the tap, which snaps to a pixel centre;
 plane-distance, material, normal-angle, hit-distance and Gaussian weights multiply, and the
 float4 signal accumulates. The passes differ in the rotator, the skew and the constants,
-all of which arrive in the `params` planes, and in three modes chosen by the plane count:
+all of which arrive in per-pixel planes: `shared` (the centre's plane-distance parameters,
+normal and view-space normal, the same for every signal of the pixel) and `params` (the
+signal's own), whose count chooses one of three modes:
 
   - diffuse (PARAMS);
   - specular (+ SPEC_PARAMS): the roughness weight of each tap (`:1727`);
@@ -16,6 +18,9 @@ all of which arrive in the `params` planes, and in three modes chosen by the pla
     from `hash_init(pixel, frame_index)` in tap order, as the XLA loop draws them, and the
     taps' weights scaled by `use_prepass_not_only_for_specular_motion_estimation` and the
     hit-distance / roughness lerp.
+
+The tap loop is the device function `sf_filter` of `csrc/reblur_filters.cuh`, shared with
+the fused two-signal kernel (`spatial_filter_fused`).
 
 Bound on the H100: gathers. Per pixel at 2560x1440 it reads 16 param planes (64 B), the
 centre signal, and 8 taps of viewZ, packed normal and signal (8 x 36 B = 288 B) scattered
@@ -37,9 +42,11 @@ from . import build
 
 launches = 0
 
-# params planes, in order (the pass glue stacks them)
-PARAMS = ("rot0", "rot1", "rot2", "rot3", "ga", "gb", "normal_weight_param", "ha", "hb",
-          "min_hit_dist_weight", "nx", "ny", "nz", "nvx", "nvy", "nvz")
+# per-pixel planes, in order (the pass glue stacks them): shared by the signals of a pixel,
+# and the signal's own
+SHARED = ("ga", "gb", "nx", "ny", "nz", "nvx", "nvy", "nvz")
+PARAMS = ("rot0", "rot1", "rot2", "rot3", "normal_weight_param", "ha", "hb",
+          "min_hit_dist_weight")
 SPEC_PARAMS = ("wr_a", "wr_b")
 PREPASS_PARAMS = ("hit_dist", "roughness", "xvx", "xvy", "xvz")
 MODES = {len(PARAMS): "diffuse", len(PARAMS + SPEC_PARAMS): "spec",
@@ -56,19 +63,21 @@ def tap_table(perf_mode: bool) -> np.ndarray:
 _TAPS = {}
 
 
-def _device_taps(perf_mode, device):
+def device_taps(perf_mode, device):
     key = (perf_mode, str(device))
     if key not in _TAPS:
         _TAPS[key] = torch.as_tensor(tap_table(perf_mode), device=device)
     return _TAPS[key]
 
 
-def spatial_filter_ref(signal, view_z_in, normal_roughness, params, *, frustum, rect_size,
-                       view_z_scale, ortho_mode, min_material, perf_mode, prepass=None):
+def spatial_filter_ref(signal, view_z_in, normal_roughness, shared, params, *, frustum,
+                       rect_size, view_z_scale, ortho_mode, min_material, perf_mode,
+                       prepass=None):
     """Plain PyTorch version of the kernel (the XLA tap loop)."""
     h, w = view_z_in.shape
     mode = MODES[params.shape[0]]
-    p = dict(zip(PARAMS + SPEC_PARAMS + PREPASS_PARAMS, params))
+    p = dict(zip(SHARED, shared))
+    p.update(zip(PARAMS + SPEC_PARAMS + PREPASS_PARAMS, params))
     uv = resample.pixel_uv_grid(h, w, signal.device)
     rot = torch.stack([p["rot0"], p["rot1"], p["rot2"], p["rot3"]], -1)
     n = torch.stack([p["nx"], p["ny"], p["nz"]], -1)
@@ -128,41 +137,54 @@ def spatial_filter_ref(signal, view_z_in, normal_roughness, params, *, frustum, 
     return out
 
 
-def spatial_filter(signal, view_z_in, normal_roughness, params, *, frustum, rect_size,
-                   view_z_scale, ortho_mode, min_material, perf_mode, prepass=None):
-    """signal (h, w, 4), view_z_in (h, w), normal_roughness (h, w, 4) with linear roughness,
-    params float32 planes named by PARAMS (+ SPEC_PARAMS (+ PREPASS_PARAMS)): (16 | 18 | 23,
-    h, w). The specular PrePass mode takes `prepass` = dict(hit_dist_params (A, B, C, D),
-    use_prepass_not_only, frame_index). Returns the filtered signal (h, w, 4), and in the
-    PrePass mode also hitDistForTracking (h, w)."""
-    global launches
-    kw = dict(frustum=frustum, rect_size=rect_size, view_z_scale=view_z_scale,
-              ortho_mode=ortho_mode, min_material=min_material, perf_mode=perf_mode,
-              prepass=prepass)
+def check_params(params, prepass):
+    """The mode of `params` (8 | 10 | 15 planes); raise unless `prepass` goes with it."""
     if params.shape[0] not in MODES:
         raise ValueError(f"params: {params.shape[0]} planes")
     prepass_mode = MODES[params.shape[0]] == "spec_prepass"
     if prepass_mode != (prepass is not None):
         raise ValueError("the specular PrePass mode and only it takes `prepass`")
+    return prepass_mode
+
+
+def prepass_consts(prepass):
+    """Launch constants of the specular PrePass: hit-distance parameters, the prepass-only
+    flag and the frame index as two 16-bit halves (a float carries neither half exactly
+    beyond 2^24)."""
+    f = int(prepass["frame_index"]) & 0xFFFFFFFF
+    return [*prepass["hit_dist_params"], prepass["use_prepass_not_only"], f & 0xFFFF, f >> 16]
+
+
+def spatial_filter(signal, view_z_in, normal_roughness, shared, params, *, frustum, rect_size,
+                   view_z_scale, ortho_mode, min_material, perf_mode, prepass=None):
+    """signal (h, w, 4), view_z_in (h, w), normal_roughness (h, w, 4) with linear roughness,
+    shared float32 planes named by SHARED (8, h, w), params float32 planes named by PARAMS
+    (+ SPEC_PARAMS (+ PREPASS_PARAMS)): (8 | 10 | 15, h, w). The specular PrePass mode takes
+    `prepass` = dict(hit_dist_params (A, B, C, D), use_prepass_not_only, frame_index).
+    Returns the filtered signal (h, w, 4), and in the PrePass mode also hitDistForTracking
+    (h, w)."""
+    global launches
+    kw = dict(frustum=frustum, rect_size=rect_size, view_z_scale=view_z_scale,
+              ortho_mode=ortho_mode, min_material=min_material, perf_mode=perf_mode,
+              prepass=prepass)
+    prepass_mode = check_params(params, prepass)
     dev = build.kernel_device(signal)
     if dev is None:
-        return spatial_filter_ref(signal, view_z_in, normal_roughness, params, **kw)
+        return spatial_filter_ref(signal, view_z_in, normal_roughness, shared, params, **kw)
     h, w = view_z_in.shape
     f32 = torch.float32
     ins = [("signal", signal, (h, w, 4)), ("view_z_in", view_z_in, (h, w)),
            ("normal_roughness", normal_roughness, (h, w, 4)),
-           ("params", params, (params.shape[0], h, w))]
+           ("shared", shared, (len(SHARED), h, w)), ("params", params, (params.shape[0], h, w))]
     for name, t, shape in ins:
         build.check(name, t, dev, f32, shape)
-    taps = _device_taps(perf_mode, dev)
+    taps = device_taps(perf_mode, dev)
     out = torch.empty((h, w, 4), dtype=f32, device=dev)
     hdt = torch.empty((h, w) if prepass_mode else (1,), dtype=f32, device=dev)
     consts = [*frustum, rect_size[0], rect_size[1], view_z_scale, ortho_mode, min_material,
               taps.shape[0], params.shape[0]]
     if prepass_mode:
-        f = int(prepass["frame_index"]) & 0xFFFFFFFF
-        consts += [*prepass["hit_dist_params"], prepass["use_prepass_not_only"], f & 0xFFFF,
-                   f >> 16]
+        consts += prepass_consts(prepass)
     build.launch("nrd_spatial_filter", [t for _, t, _ in ins] + [taps, out, hdt], consts, w, h)
     launches += 1
     return (out, hdt) if prepass_mode else out

@@ -32,6 +32,7 @@ REBLUR_VIRTUAL_MOTION_PREV_PREV_WEIGHT_ITERATION_NUM = 1
 REBLUR_ROUGHNESS_SENSITIVITY_IN_TA = nm.NRD_ROUGHNESS_SENSITIVITY * 0.3
 REBLUR_MAX_PERCENT_OF_LOBE_VOLUME_FOR_PRE_PASS = 0.3
 NRD_CURVATURE_Z_THRESHOLD = 0.1
+REBLUR_ANTI_FIREFLY_SIGMA_SCALE = 2.0  # the ring's radius is kernels.history_fix's
 
 f32 = np.float32
 

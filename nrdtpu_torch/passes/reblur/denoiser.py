@@ -1,14 +1,17 @@
 """REBLUR pass graph for the PyTorch port - counterpart of `nrdtpu/passes/reblur/denoiser.py`.
 
-This port runs REBLUR_DIFFUSE and REBLUR_SPECULAR (`denoiser.py:162-606` with one signal):
-PrePass, TemporalAccumulation, HistoryFix, Blur, PostBlur and TemporalStabilization. Every
-other variant, and the settings paths not ported yet (checkerboard, hit-distance
-reconstruction, anti-firefly), raise NotImplementedError; ROADMAP.md lists them.
+This port runs REBLUR_DIFFUSE, REBLUR_SPECULAR and REBLUR_DIFFUSE_SPECULAR
+(`denoiser.py:162-606`): PrePass, TemporalAccumulation, HistoryFix, Blur, PostBlur and
+TemporalStabilization, with or without the anti-firefly ring of HistoryFix. With both signals
+the spatial stages and HistoryFix run one fused launch for the two (`fused_spatial_filter`,
+`fused_history_fix`) on the card and on the CPU alike, and TA samples both histories in one
+launch. Every other variant, and the settings paths not ported yet (checkerboard, hit-distance
+reconstruction), raise NotImplementedError; ROADMAP.md lists them.
 
 State (the permanent pool; histories in bf16, the RGBA16f-history analogue):
   prev_view_z (h, w), prev_normal_roughness (h, w, 4), diff_accum / spec_accum / material_id
-  (h, w); per signal s in {diff, spec}: s_history (h, w, 4), s_fast_history (h, w),
-  s_luma_stab (h, w); for specular also prev_spec_hitdist_for_tracking (h, w) float32.
+  (h, w); per signal s present in {diff, spec}: s_history (h, w, 4), s_fast_history (h, w),
+  s_luma_stab (h, w); with specular also prev_spec_hitdist_for_tracking (h, w) float32.
 """
 
 from __future__ import annotations
@@ -30,19 +33,24 @@ from . import common as C
 from . import kernels as K
 
 RT = ResourceType
-PORTED = (Denoiser.REBLUR_DIFFUSE, Denoiser.REBLUR_SPECULAR)
+PORTED = (Denoiser.REBLUR_DIFFUSE, Denoiser.REBLUR_SPECULAR, Denoiser.REBLUR_DIFFUSE_SPECULAR)
+IN_RT = {"diff": RT.IN_DIFF_RADIANCE_HITDIST, "spec": RT.IN_SPEC_RADIANCE_HITDIST}
+OUT_RT = {"diff": RT.OUT_DIFF_RADIANCE_HITDIST, "spec": RT.OUT_SPEC_RADIANCE_HITDIST}
 
 
 class ReblurDenoiser:
     def __init__(self, config, device):
         if config.denoiser not in PORTED:
             raise NotImplementedError(
-                f"{config.denoiser.name} is not ported yet; the port runs REBLUR_DIFFUSE and "
-                "REBLUR_SPECULAR (ROADMAP.md lists the next slices)")
+                f"{config.denoiser.name} is not ported yet; the port runs "
+                + ", ".join(d.name for d in PORTED) + " (ROADMAP.md lists the next slices)")
         self.config = config
         self.device = torch.device(device)
-        self.which = "diff" if config.denoiser == Denoiser.REBLUR_DIFFUSE else "spec"
-        if self.which == "spec" and config.roughness_encoding != RoughnessEncoding.LINEAR:
+        self.has_diffuse = "DIFFUSE" in config.denoiser.name
+        self.has_specular = "SPECULAR" in config.denoiser.name
+        self.signals = tuple(sig for sig, present in (("diff", self.has_diffuse),
+                                                      ("spec", self.has_specular)) if present)
+        if self.has_specular and config.roughness_encoding != RoughnessEncoding.LINEAR:
             raise NotImplementedError(
                 "the port's specular path takes linear roughness only (ROADMAP.md)")
         self._s = ReblurSettings()
@@ -53,10 +61,11 @@ class ReblurDenoiser:
                 self._skip_prepass(s))
 
     def _skip_prepass(self, s: ReblurSettings):
-        """`nrdtpu/passes/reblur/denoiser.py:58-63` for one signal."""
-        radius = (s.diffusePrepassBlurRadius if self.which == "diff"
-                  else s.specularPrepassBlurRadius)
-        return radius == 0.0 and s.checkerboardMode == CheckerboardMode.OFF
+        """`nrdtpu/passes/reblur/denoiser.py:58-63`: no PrePass only if every signal's
+        radius is 0."""
+        radius = {"diff": s.diffusePrepassBlurRadius, "spec": s.specularPrepassBlurRadius}
+        return (all(radius[sig] == 0.0 for sig in self.signals)
+                and s.checkerboardMode == CheckerboardMode.OFF)
 
     def specialize(self, s: ReblurSettings):
         if s.checkerboardMode != CheckerboardMode.OFF:
@@ -64,26 +73,24 @@ class ReblurDenoiser:
         if s.hitDistanceReconstructionMode != HitDistanceReconstructionMode.OFF:
             raise NotImplementedError(
                 "REBLUR hit-distance reconstruction is not ported yet (ROADMAP.md)")
-        if s.enableAntiFirefly:
-            raise NotImplementedError("REBLUR anti-firefly is not ported yet (ROADMAP.md)")
         self._s = s
 
     def init_state(self):
         w, h = self.config.rect_size
         kw = dict(device=self.device)
         f32, bf16 = torch.float32, torch.bfloat16
-        sig = self.which
         state = {
             "prev_view_z": torch.full((h, w), 1e7, dtype=f32, **kw),
             "prev_normal_roughness": torch.zeros((h, w, 4), dtype=f32, **kw),
             "diff_accum": torch.zeros((h, w), dtype=f32, **kw),
             "spec_accum": torch.zeros((h, w), dtype=f32, **kw),
             "material_id": torch.zeros((h, w), dtype=f32, **kw),
-            f"{sig}_history": torch.zeros((h, w, 4), dtype=bf16, **kw),
-            f"{sig}_fast_history": torch.zeros((h, w), dtype=bf16, **kw),
-            f"{sig}_luma_stab": torch.zeros((h, w), dtype=bf16, **kw),
         }
-        if sig == "spec":
+        for sig in self.signals:
+            state[f"{sig}_history"] = torch.zeros((h, w, 4), dtype=bf16, **kw)
+            state[f"{sig}_fast_history"] = torch.zeros((h, w), dtype=bf16, **kw)
+            state[f"{sig}_luma_stab"] = torch.zeros((h, w), dtype=bf16, **kw)
+        if self.has_specular:
             state["prev_spec_hitdist_for_tracking"] = torch.zeros((h, w), dtype=f32, **kw)
         return state
 
@@ -134,106 +141,143 @@ class ReblurDenoiser:
     def frame(self, sc: dict, dc: dict, state: dict, inputs: dict):
         cfg = self.config
         s = self._s
-        sig = self.which
-        spec_path = sig == "spec"
         view_z = inputs[RT.IN_VIEWZ]
         normal_roughness = inputs[RT.IN_NORMAL_ROUGHNESS]
         mv = inputs[RT.IN_MV]
-        raw_in = inputs[RT.IN_SPEC_RADIANCE_HITDIST if spec_path else RT.IN_DIFF_RADIANCE_HITDIST]
+        raw_in = {sig: inputs[IN_RT[sig]] for sig in self.signals}
         perf = s.enablePerformanceMode
         skip_prepass = self._skip_prepass(s)
+        # both signals: the spatial stages and HistoryFix run fused (denoiser.py:245-246)
+        fused = self.has_diffuse and self.has_specular
+        anti_firefly = {sig: s.enableAntiFirefly for sig in self.signals}
 
         tile_map = K.classify_tiles(sc, view_z)
         dead = K.sky_pixel_mask(sc, tile_map, view_z)
+        geom = (K.make_filter_geometry(sc, dc, view_z, normal_roughness, cfg)
+                if fused else None)
 
         # PREPASS
-        signal = raw_in
+        signal = dict(raw_in)
         hdt_prepass = None
         if not skip_prepass:
-            if spec_path:
-                signal, hdt_prepass = K.specular_spatial_filter(
-                    sc, dc, K.PRE_BLUR, signal, view_z, normal_roughness, None, cfg,
+            if fused:
+                signal["diff"], signal["spec"], hdt_prepass = K.fused_spatial_filter(
+                    sc, dc, K.PRE_BLUR, geom, view_z, normal_roughness, signal["diff"],
+                    signal["spec"], perf_mode=perf)
+            elif self.has_specular:
+                signal["spec"], hdt_prepass = K.specular_spatial_filter(
+                    sc, dc, K.PRE_BLUR, signal["spec"], view_z, normal_roughness, None, cfg,
                     perf_mode=perf)
             else:
-                signal = K.diffuse_pre_pass(sc, dc, signal, view_z, normal_roughness, cfg,
-                                            perf_mode=perf)
+                signal["diff"] = K.diffuse_pre_pass(sc, dc, signal["diff"], view_z,
+                                                    normal_roughness, cfg, perf_mode=perf)
 
-        # TEMPORAL ACCUMULATION
+        # TEMPORAL ACCUMULATION: one surface-motion footprint, both signals' samples
         prev_internal = {k: state[k] for k in ("diff_accum", "spec_accum", "material_id")}
         sm = K.surface_motion_reprojection(
             sc, dc, view_z, normal_roughness, mv, state["prev_view_z"],
-            state["prev_normal_roughness"], prev_internal, cfg, state[f"{sig}_history"],
-            state[f"{sig}_fast_history"],
-            disocclusion_threshold_mix=inputs.get(RT.IN_DISOCCLUSION_THRESHOLD_MIX), which=sig)
+            state["prev_normal_roughness"], prev_internal, cfg,
+            {sig: (state[f"{sig}_history"], state[f"{sig}_fast_history"])
+             for sig in self.signals},
+            disocclusion_threshold_mix=inputs.get(RT.IN_DISOCCLUSION_THRESHOLD_MIX))
         fbits = sm["fbits"]
-        if spec_path:
+        sig1, fast1, data1 = {}, {}, {}
+        ta = None
+        if self.has_diffuse:
+            sig1["diff"], fast1["diff"], data1["diff"] = K.temporal_accumulation_diffuse(
+                sc, dc, sm, signal["diff"], inputs.get(RT.IN_DIFF_CONFIDENCE))
+        if self.has_specular:
             ta = K.temporal_accumulation_specular(
-                sc, dc, sm, signal, state["spec_history"], state["spec_fast_history"], view_z,
-                normal_roughness, state["prev_view_z"], state["prev_normal_roughness"],
-                prev_internal, C.extract_hit_dist(signal) if skip_prepass else hdt_prepass,
+                sc, dc, sm, signal["spec"], state["spec_history"], state["spec_fast_history"],
+                view_z, normal_roughness, state["prev_view_z"], state["prev_normal_roughness"],
+                prev_internal,
+                C.extract_hit_dist(signal["spec"]) if skip_prepass else hdt_prepass,
                 state["prev_spec_hitdist_for_tracking"], cfg, inputs.get(RT.IN_SPEC_CONFIDENCE),
                 has_prepass_hitdist=not skip_prepass)
-            sig1, fast1, data1 = ta["spec"], ta["fast"], ta["accum_speed"]
+            sig1["spec"], fast1["spec"], data1["spec"] = ta["spec"], ta["fast"], ta["accum_speed"]
             fbits = fbits + ta["fbits_vmb"]
-        else:
-            sig1, fast1, data1 = K.temporal_accumulation_diffuse(
-                sc, dc, sm, signal, inputs.get(RT.IN_DIFF_CONFIDENCE))
         material_id = sm["material_id"]
         del sm  # its full-resolution planes are dead after TA: free them for the later passes
 
         # HISTORY FIX, BLUR, POST BLUR
-        sig2, fast2 = K.history_fix(sc, dc, view_z, normal_roughness, data1, sig1, fast1, cfg,
-                                    is_diffuse=not spec_path)
-        if spec_path:
-            sig3, _ = K.specular_spatial_filter(sc, dc, K.BLUR, sig2, view_z, normal_roughness,
-                                                data1, cfg, perf_mode=perf)
-            sig4, _ = K.specular_spatial_filter(sc, dc, K.POST_BLUR, sig3, view_z,
-                                                normal_roughness, data1, cfg, perf_mode=perf)
+        sig4, fast2 = {}, {}
+        if fused:
+            (sig2_d, fast2["diff"]), (sig2_s, fast2["spec"]) = K.fused_history_fix(
+                sc, dc, geom, view_z, normal_roughness,
+                (sig1["diff"], data1["diff"], fast1["diff"]),
+                (sig1["spec"], data1["spec"], fast1["spec"]),
+                anti_firefly=(anti_firefly["diff"], anti_firefly["spec"]))
+            kw = dict(data1_diff=data1["diff"], data1_spec=data1["spec"], perf_mode=perf)
+            sig3_d, sig3_s, _ = K.fused_spatial_filter(sc, dc, K.BLUR, geom, view_z,
+                                                       normal_roughness, sig2_d, sig2_s, **kw)
+            sig4["diff"], sig4["spec"], _ = K.fused_spatial_filter(
+                sc, dc, K.POST_BLUR, geom, view_z, normal_roughness, sig3_d, sig3_s, **kw)
         else:
-            sig3 = K.diffuse_spatial_filter(sc, dc, K.BLUR, sig2, view_z, normal_roughness,
-                                            data1, cfg, perf_mode=perf)
-            sig4 = K.diffuse_spatial_filter(sc, dc, K.POST_BLUR, sig3, view_z,
-                                            normal_roughness, data1, cfg, perf_mode=perf)
+            (sig,) = self.signals
+            spec_path = sig == "spec"
+            sig2, fast2[sig] = K.history_fix(sc, dc, view_z, normal_roughness, data1[sig],
+                                             sig1[sig], fast1[sig], cfg,
+                                             is_diffuse=not spec_path,
+                                             anti_firefly=anti_firefly[sig])
+            if spec_path:
+                sig3, _ = K.specular_spatial_filter(sc, dc, K.BLUR, sig2, view_z,
+                                                    normal_roughness, data1[sig], cfg,
+                                                    perf_mode=perf)
+                sig4[sig], _ = K.specular_spatial_filter(sc, dc, K.POST_BLUR, sig3, view_z,
+                                                         normal_roughness, data1[sig], cfg,
+                                                         perf_mode=perf)
+            else:
+                sig3 = K.diffuse_spatial_filter(sc, dc, K.BLUR, sig2, view_z, normal_roughness,
+                                                data1[sig], cfg, perf_mode=perf)
+                sig4[sig] = K.diffuse_spatial_filter(sc, dc, K.POST_BLUR, sig3, view_z,
+                                                     normal_roughness, data1[sig], cfg,
+                                                     perf_mode=perf)
+        del geom
 
         new_state = dict(state)
         keep = dead
         outs = {}
         # TEMPORAL STABILIZATION or direct output
         if s.maxStabilizedFrameNum == 0:
-            out_sig = sig4
-            inc = data1 + 1.0
+            out_sig = dict(sig4)
+            inc = {sig: data1[sig] + 1.0 for sig in self.signals}
         else:
-            if spec_path:
-                ts = K.temporal_stabilization_specular(
-                    sc, dc, view_z, normal_roughness, mv, data1, fbits, ta["curvature"],
-                    ta["virtual_history_amount"], sig4, state["spec_luma_stab"],
+            ts_sm = K.ts_surface_motion(sc, view_z, mv, fbits)
+            ts = {}
+            if self.has_diffuse:
+                ts["diff"] = K.temporal_stabilization(
+                    sc, dc, view_z, normal_roughness, mv, data1["diff"], fbits, sig4["diff"],
+                    state["diff_luma_stab"], cfg, surface_motion=ts_sm)
+            if self.has_specular:
+                ts["spec"] = K.temporal_stabilization_specular(
+                    sc, dc, view_z, normal_roughness, mv, data1["spec"], fbits, ta["curvature"],
+                    ta["virtual_history_amount"], sig4["spec"], state["spec_luma_stab"],
                     ta["hit_dist_for_tracking"], inputs.get(RT.IN_BASECOLOR_METALNESS), cfg,
-                    has_prepass=not skip_prepass)
+                    has_prepass=not skip_prepass, surface_motion=ts_sm)
                 if RT.IN_BASECOLOR_METALNESS in inputs:
-                    outs[RT.IN_MV] = ts["mv_out"]  # patched MV, as the reference writes it
-            else:
-                ts = K.temporal_stabilization(sc, dc, view_z, normal_roughness, mv, data1,
-                                              fbits, sig4, state["diff_luma_stab"], cfg)
-            out_sig = ts[sig]
-            new_state[f"{sig}_luma_stab"] = torch.where(keep, state[f"{sig}_luma_stab"],
-                                                        ts[f"{sig}_luma_stab"])
-            inc = ts[f"data1_{sig}"]
+                    outs[RT.IN_MV] = ts["spec"]["mv_out"]  # patched MV, as the reference writes it
+            out_sig = {sig: ts[sig][sig] for sig in self.signals}
+            inc = {sig: ts[sig][f"data1_{sig}"] for sig in self.signals}
+            for sig in self.signals:
+                new_state[f"{sig}_luma_stab"] = torch.where(keep, state[f"{sig}_luma_stab"],
+                                                            ts[sig][f"{sig}_luma_stab"])
 
         new_state["prev_view_z"] = view_z.clone()  # the caller may reuse its input buffer
         new_state["prev_normal_roughness"] = torch.where(
             keep[..., None], state["prev_normal_roughness"], normal_roughness)
         new_state["material_id"] = torch.where(keep, state["material_id"],
                                                C.quantize_material_id(material_id))
-        new_state[f"{sig}_accum"] = torch.where(keep, state[f"{sig}_accum"],
-                                                C.quantize_accum_speed(inc))
-        if spec_path:
+        if self.has_specular:
             new_state["prev_spec_hitdist_for_tracking"] = torch.where(
                 keep, state["prev_spec_hitdist_for_tracking"], ta["hit_dist_for_tracking"])
-
-        out_sig = torch.where(dead[..., None], raw_in, out_sig)
-        out_rt = RT.OUT_SPEC_RADIANCE_HITDIST if spec_path else RT.OUT_DIFF_RADIANCE_HITDIST
-        outs[out_rt] = K.split_screen(sc, raw_in, view_z, out_sig)
-        # history for the next frame = PostBlur output (PostBlur writes the history)
-        new_state[f"{sig}_history"] = torch.where(keep[..., None], state[f"{sig}_history"], sig4)
-        new_state[f"{sig}_fast_history"] = torch.where(keep, state[f"{sig}_fast_history"], fast2)
+        for sig in self.signals:
+            new_state[f"{sig}_accum"] = torch.where(keep, state[f"{sig}_accum"],
+                                                    C.quantize_accum_speed(inc[sig]))
+            out = torch.where(dead[..., None], raw_in[sig], out_sig[sig])
+            outs[OUT_RT[sig]] = K.split_screen(sc, raw_in[sig], view_z, out)
+            # history for the next frame = PostBlur output (PostBlur writes the history)
+            new_state[f"{sig}_history"] = torch.where(keep[..., None], state[f"{sig}_history"],
+                                                      sig4[sig])
+            new_state[f"{sig}_fast_history"] = torch.where(keep, state[f"{sig}_fast_history"],
+                                                           fast2[sig])
         return outs, requantize_state(state, new_state)

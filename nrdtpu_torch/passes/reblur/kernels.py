@@ -3,13 +3,17 @@
 
 Each pass is elementwise torch glue around hand-written kernels of `nrdtpu_torch.kernels`:
 
-  surface_motion_reprojection     -> smb_resolve     (prev footprint + history sampling)
+  surface_motion_reprojection     -> smb_resolve     (prev footprint + history sampling,
+                                                      one launch for one or both signals)
   temporal_accumulation_specular  -> spec_ta_head    (3x3 stencils, curvature neighbours)
                                      nearest_multi   (stochastic nearest previous normals)
                                      vmb_resolve     (virtual-motion footprint + history)
   diffuse_pre_pass, diffuse_spatial_filter,
   specular_spatial_filter         -> spatial_filter  (PrePass / Blur / PostBlur tap loop)
-  history_fix                     -> history_fix     (stride taps + 3x3 fast-history moments)
+  fused_spatial_filter            -> spatial_filter_fused (the same, both signals at once)
+  history_fix                     -> history_fix     (stride taps + 3x3 fast-history moments
+                                                      + the anti-firefly ring)
+  fused_history_fix               -> history_fix_fused (the same, both signals at once)
   temporal_stabilization,
   temporal_stabilization_specular -> ts_prelude      (3x3 luma moments + history sampling)
 
@@ -28,9 +32,11 @@ from ... import math as nm
 from ... import vec3 as v3
 from ...frontend import NRD_EPS
 from ...kernels import history_fix as k_history_fix
+from ...kernels import history_fix_fused as k_history_fix_fused
 from ...kernels import nearest_multi as k_nearest_multi
 from ...kernels import smb_resolve as k_smb_resolve
 from ...kernels import spatial_filter as k_spatial_filter
+from ...kernels import spatial_filter_fused as k_spatial_filter_fused
 from ...kernels import spec_ta_head as k_spec_ta_head
 from ...kernels import ts_prelude as k_ts_prelude
 from ...kernels import vmb_resolve as k_vmb_resolve
@@ -105,16 +111,17 @@ def _smb_pixel_uv(sc, uv, view_z, x, mv_in):
 
 
 def surface_motion_reprojection(sc, dc, view_z_in, normal_roughness, mv_in, prev_view_z,
-                                prev_normal_roughness, prev_internal, config, history,
-                                fast_history, disocclusion_threshold_mix=None, *,
-                                which="diff"):
+                                prev_normal_roughness, prev_internal, config, histories,
+                                disocclusion_threshold_mix=None):
     """The surface-motion machinery of TA (lines 131-305) plus the history samples at the
     reprojected position (`sample_history` / `sample_history_bilinear`, lines 451-456).
 
-    prev_internal: dict(diff_accum, spec_accum, material_id); `which` ("diff" or "spec")
-    names the signal whose history, fast history and accumulation speed are sampled. The
-    footprint gathers and the history sampling run in `kernels.smb_resolve`; the rest is
-    elementwise here. Returns the `sm` dict both TA halves read."""
+    prev_internal: dict(diff_accum, spec_accum, material_id); histories: {signal: (history,
+    fast_history)} for the signals present ("diff", "spec" or both), whose histories, fast
+    histories and accumulation speeds are sampled. The footprint gathers and the history
+    sampling run in one `kernels.smb_resolve` launch; the rest is elementwise here. Returns
+    the `sm` dict both TA halves read, with `{signal}_history`, `{signal}_fast` and
+    `{signal}_accum_speed` per signal."""
     h, w = view_z_in.shape
     uv = resample.pixel_uv_grid(h, w, view_z_in.device)
     view_z = unpack_view_z(sc, view_z_in)
@@ -165,13 +172,16 @@ def surface_motion_reprojection(sc, dc, view_z_in, normal_roughness, mv_in, prev
     # the material test takes the smaller minimum even for diffuse
     # (nrdtpu/passes/reblur/kernels.py:214)
     min_material = min(float(dc["spec_min_material"]), float(dc["diff_min_material"]))
+    signals = [sig for sig in ("diff", "spec") if sig in histories]
+    per_signal = [(prev_internal[f"{sig}_accum"], *histories[sig]) for sig in signals]
     res = k_smb_resolve.smb_resolve(
         smb_pixel_uv.contiguous(), xv_prev[..., 2].contiguous(), base_threshold.contiguous(),
         navg_thr.contiguous(), normal_roughness, prev_view_z, prev_normal_roughness,
-        prev_internal["material_id"], prev_internal[f"{which}_accum"], history, fast_history,
+        prev_internal["material_id"], *per_signal[0],
         view_z_scale=float(sc["view_z_scale"]), denoising_range=float(sc["denoising_range"]),
         rect_size_prev=_v(sc["rect_size_prev"]), min_material=min_material,
-        world_prev_to_world=np.asarray(sc["world_prev_to_world"], np.float32)[:3, :3])
+        world_prev_to_world=np.asarray(sc["world_prev_to_world"], np.float32)[:3, :3],
+        second=per_signal[1] if len(signals) == 2 else None)
 
     # footprint quality (lines 296-305)
     smb_vprev = C.get_view_vector_prev(sc, x_prev)
@@ -181,14 +191,18 @@ def surface_motion_reprojection(sc, dc, view_z_in, normal_roughness, mv_in, prev
     size_quality = nm.lerp(0.1, 1.0, nm.saturate(size_quality))
     footprint_quality = torch.sqrt(nm.saturate(res["footprint_raw"])) * size_quality
 
-    return {"uv": uv, "view_z": view_z, "n": n, "roughness": roughness,
-            "material_id": material_id, "x": x, "v": v, "nov": nov, "n_avg": res["n_avg"],
-            "smb_navg": res["smb_navg"], "x_prev": x_prev, "smb_pixel_uv": smb_pixel_uv,
-            "parallax_max": parallax_max, "parallax_min": parallax_min,
-            "pixel_size": pixel_size, "frustum_size": frustum_size,
-            "allow_catrom": res["allow_catrom"], "fbits": res["fbits"],
-            f"{which}_accum_speed": res["accum_speed"], "footprint_quality": footprint_quality,
-            "dis_thr": disocclusion_threshold, "history": res["history"], "fast": res["fast"]}
+    sm = {"uv": uv, "view_z": view_z, "n": n, "roughness": roughness,
+          "material_id": material_id, "x": x, "v": v, "nov": nov, "n_avg": res["n_avg"],
+          "smb_navg": res["smb_navg"], "x_prev": x_prev, "smb_pixel_uv": smb_pixel_uv,
+          "parallax_max": parallax_max, "parallax_min": parallax_min,
+          "pixel_size": pixel_size, "frustum_size": frustum_size,
+          "allow_catrom": res["allow_catrom"], "fbits": res["fbits"],
+          "footprint_quality": footprint_quality, "dis_thr": disocclusion_threshold}
+    for sig, suffix in zip(signals, ("", "_2")):
+        sm[f"{sig}_accum_speed"] = res["accum_speed" + suffix]
+        sm[f"{sig}_history"] = res["history" + suffix]
+        sm[f"{sig}_fast"] = res["fast" + suffix]
+    return sm
 
 
 def temporal_accumulation_diffuse(sc, dc, sm, diff_input, diff_confidence=None):
@@ -202,8 +216,8 @@ def temporal_accumulation_diffuse(sc, dc, sm, diff_input, diff_confidence=None):
                                                   1.0 / (1.0 + diff_accum_speed))
     diff_accum_speed = torch.clamp_max(diff_accum_speed, float(dc["max_accumulated_frame_num"]))
 
-    smb_diff_history = C.clamp_negative_to_zero(sm["history"])
-    smb_diff_fast = sm["fast"]
+    smb_diff_history = C.clamp_negative_to_zero(sm["diff_history"])
+    smb_diff_fast = sm["diff_fast"]
 
     diff_nlas = 1.0 / (1.0 + diff_accum_speed)
     diff_result = C.mix_history_and_current(dc, smb_diff_history, diff_input, diff_nlas,
@@ -295,7 +309,7 @@ def temporal_accumulation_specular(sc, dc, sm, spec_input, spec_history, spec_fa
                                    hit_dist_for_tracking_in, prev_spec_hitdist_for_tracking,
                                    config, spec_confidence=None, *, has_prepass_hitdist):
     """Specular half of TA (`nrdtpu/passes/reblur/kernels.py:978-1548`, XLA path) for the
-    radiance signal; `sm` is surface_motion_reprojection(..., which="spec"). The gathers run
+    radiance signal; `sm` is surface_motion_reprojection with the "spec" signal. The gathers run
     in three kernels: spec_ta_head (3x3 stencils, curvature neighbours, high-parallax
     nearest), nearest_multi (stochastic nearest previous normals) and vmb_resolve (the
     virtual-motion footprint and history samples). Returns dict(spec, fast, accum_speed,
@@ -519,7 +533,7 @@ def temporal_accumulation_specular(sc, dc, sm, spec_input, spec_history, spec_fa
     virtual_history_amount = virtual_history_amount * virtual_roughness_confidence
 
     # surface history confidence (lines 617-654)
-    smb_history = sm["history"]
+    smb_history = sm["spec_history"]
     a_par = torch.atan(sm["parallax_max"] * sm["pixel_size"]
                        / torch.clamp_min(v3.length(x3), 1e-9))
     nlas_smb = 1.0 / (1.0 + smb_accum)
@@ -579,7 +593,7 @@ def temporal_accumulation_specular(sc, dc, sm, spec_input, spec_history, spec_fa
     mfafn = float(dc["max_fast_accumulated_frame_num"])
     smb_fast_nlas = C.get_non_linear_accum_speed(smb_accum, mfafn, surface_history_confidence)
     vmb_fast_nlas = C.get_non_linear_accum_speed(vmb_accum, mfafn, virtual_confidence)
-    smb_fast = nm.lerp(sm["fast"], C.get_luma(spec), smb_fast_nlas)
+    smb_fast = nm.lerp(sm["spec_fast"], C.get_luma(spec), smb_fast_nlas)
     vmb_fast = nm.lerp(vmb["fast"], C.get_luma(spec), vmb_fast_nlas)
     fast_result = nm.lerp(smb_fast, vmb_fast, virtual_history_amount)
     fast_clamped = torch.minimum(fast_result, C.get_luma(history_mixed) * max_rel
@@ -592,70 +606,108 @@ def temporal_accumulation_specular(sc, dc, sm, spec_input, spec_history, spec_fa
 
 
 # ---------------------------------------------------------------------------
-# HistoryFix (REBLUR_HistoryFix.hlsli)
+# Filter geometry shared by the spatial filters and HistoryFix
 # ---------------------------------------------------------------------------
 
 
-def history_fix(sc, dc, view_z_in, normal_roughness, data1, signal, fast_history, config, *,
-                is_diffuse: bool = True, anti_firefly: bool = False):
-    """Sparse 5x5-no-corners history reconstruction + fast-history color clamping.
-
-    data1: accumulated frames of the signal (data1_diff or data1_spec); signal: (h, w, 4)
-    output of TA; fast_history: (h, w). Returns (signal_out, fast_out)."""
-    if anti_firefly:
-        raise NotImplementedError(
-            "REBLUR anti-firefly (the 9x9 ring of HistoryFix) is not ported yet (ROADMAP.md)")
+def make_filter_geometry(sc, dc, view_z_in, normal_roughness, config, signals=("diff", "spec")):
+    """The per-frame geometry of the spatial stages and HistoryFix (`kernels.py:1783-1816`):
+    view_z, n3, nv3, xv3, vv3, nov, frustum size, the plane-distance parameters ga/gb, and per
+    signal its hit-distance scale (and the specular magic curve). It depends only on the
+    G-buffer, so REBLUR_DIFFUSE_SPECULAR computes it once a frame; the one-signal passes
+    compute it per call, for their one signal."""
     h, w = view_z_in.shape
     uv = resample.pixel_uv_grid(h, w, view_z_in.device)
     view_z = unpack_view_z(sc, view_z_in)
     n3, roughness, _ = unpack_nr3(normal_roughness, config)
-    ortho = float(sc["ortho_mode"])
-    frustum_size = nm.get_frustum_size(float(sc["min_rect_dim_mul_unproject"]), ortho, view_z)
-    xv3 = v3.reconstruct_view_position(uv[..., 0], uv[..., 1], sc["frustum"], view_z, ortho)
     nv3 = v3.rotate(sc["world_to_view"], n3)
-    # the signal's roughness for specular, 1 for diffuse
-    rough = torch.ones_like(roughness) if is_diffuse else roughness
+    ortho = float(sc["ortho_mode"])
+    xv3 = v3.reconstruct_view_position(uv[..., 0], uv[..., 1], sc["frustum"], view_z, ortho)
+    vv3 = (v3.normalize(v3.V3(-xv3.x, -xv3.y, -xv3.z)) if ortho == 0.0
+           else v3.V3.full_like(view_z, 0.0, 0.0, -1.0))
+    frustum_size = nm.get_frustum_size(float(sc["min_rect_dim_mul_unproject"]), ortho, view_z)
+    ga = 1.0 / (float(dc["plane_dist_sensitivity"]) * frustum_size)
+    geom = dict(view_z=view_z, n3=n3, roughness=roughness, nv3=nv3, xv3=xv3, vv3=vv3,
+                nov=torch.abs(v3.dot(nv3, vv3)), frustum_size=frustum_size, ga=ga,
+                gb=-v3.dot(nv3, xv3) * ga,
+                enc_err=nm.normal_encoding_error(int(config.normal_encoding)))
+    if "diff" in signals:
+        geom["hd_scale_diff"] = fe.get_hit_distance_normalization(
+            view_z, dc["hit_dist_params"], torch.ones_like(roughness))
+    if "spec" in signals:
+        geom["smc"] = nm.get_spec_magic_curve(roughness)
+        geom["hd_scale_spec"] = fe.get_hit_distance_normalization(view_z, dc["hit_dist_params"],
+                                                                  roughness)
+    return geom
 
+
+def _shared_planes(geom, key, planes):
+    """Stack the geometry planes a kernel shares between signals once per geometry."""
+    if key not in geom:
+        geom[key] = torch.stack(planes(geom))
+    return geom[key]
+
+
+# ---------------------------------------------------------------------------
+# HistoryFix (REBLUR_HistoryFix.hlsli)
+# ---------------------------------------------------------------------------
+
+
+def _hfix_shared(geom):
+    return _shared_planes(geom, "hfix_shared", lambda g: [
+        g["ga"], g["gb"], g["frustum_size"], g["n3"].x, g["n3"].y, g["n3"].z,
+        g["nv3"].x, g["nv3"].y, g["nv3"].z])
+
+
+def _hfix_params(dc, geom, signal, data1, is_diffuse):
+    """The signal's planes of the stride taps (`history_fix`, `kernels.py:544-571`; the fused
+    `_fused_hfix_params`, `:2003-2031`), in the order of `kernels.history_fix.PARAMS` (+
+    SPEC_PARAMS)."""
+    roughness = geom["roughness"]
     frame_num = data1
     stride = float(dc["history_fix_base_pixel_stride"]) / (2.0 + frame_num)
     stride = stride * (frame_num < float(dc["history_fix_frame_num"])).to(torch.float32)
     if not is_diffuse:
-        stride = stride * nm.lerp(0.5, 1.0, nm.get_spec_magic_curve(roughness))
+        stride = stride * nm.lerp(0.5, 1.0, geom["smc"])
     stride = torch.floor(stride)
-
     nlas = 1.0 / (1.0 + frame_num)
-    enc_err = nm.normal_encoding_error(int(config.normal_encoding))
+    # the signal's roughness for specular, 1 for diffuse
+    rough = torch.ones_like(roughness) if is_diffuse else roughness
     normal_weight_param = nm.get_normal_weight_param(nlas, float(dc["lobe_angle_fraction"]), rough,
-                                                     enc_err)
-    ga = 1.0 / (float(dc["plane_dist_sensitivity"]) * frustum_size)
-    gb = -v3.dot(nv3, xv3) * ga
-    hit_dist_scale = fe.get_hit_distance_normalization(view_z, dc["hit_dist_params"], rough)
+                                                     geom["enc_err"])
+    hit_dist_scale = geom["hd_scale_diff" if is_diffuse else "hd_scale_spec"]
     hit_dist = C.extract_hit_dist(signal) * hit_dist_scale
-    hit_dist_factor = nm.get_hit_dist_factor(hit_dist, frustum_size)
+    hit_dist_factor = nm.get_hit_dist_factor(hit_dist, geom["frustum_size"])
     ha, hb = nm.get_hit_distance_weight_params(hit_dist_factor, nlas, rough)
-
-    planes = [stride, ga, gb, normal_weight_param, ha, hb, hit_dist_scale, frustum_size,
-              n3.x, n3.y, n3.z, nv3.x, nv3.y, nv3.z]
+    planes = [stride, normal_weight_param, ha, hb, hit_dist_scale]
     if not is_diffuse:
         # roughness weight and low-roughness hitT guide (lines 349-352)
         ra, rb = nm.get_relaxed_roughness_weight_params(
             roughness * roughness, float(np.sqrt(np.float32(dc["roughness_fraction"]))))
         planes += [ra, rb, hit_dist, nm.linearstep(0.03, 0.05, roughness)]
-    min_material = dc["diff_min_material"] if is_diffuse else dc["spec_min_material"]
-    signal_out, m1, m2 = k_history_fix.history_fix(
-        signal, view_z_in, normal_roughness, data1, fast_history, torch.stack(planes),
-        frustum=_v(sc["frustum"]), rect_size_inv=_v(sc["rect_size_inv"]),
-        view_z_scale=float(sc["view_z_scale"]), ortho_mode=ortho,
-        min_material=float(min_material))
+    return torch.stack(planes)
 
-    # local variance over 3x3 fast history + fast history adjustments (lines 169-244)
+
+def _hfix_consts(sc):
+    return dict(frustum=_v(sc["frustum"]), rect_size_inv=_v(sc["rect_size_inv"]),
+                view_z_scale=float(sc["view_z_scale"]), ortho_mode=float(sc["ortho_mode"]))
+
+
+def _history_fix_clamp(dc, geom, frame_num, signal_out, fast_history, m1, m2, ring, is_diffuse):
+    """The fast-history adjustments after the taps (lines 169-244; `kernels.py:685-732`): the
+    anti-firefly clamp to the ring's moments where `ring` = (m1, m2) is given, then the clamp
+    to the 3x3 moments. Returns (signal_out, fast_out)."""
     f = nm.saturate(frame_num / float(np.float32(dc["history_fix_frame_num"])
                                       + np.float32(NRD_EPS)))
     if not is_diffuse:
-        f = nm.lerp(1.0, f, nm.get_spec_magic_curve(roughness))
+        f = nm.lerp(1.0, f, geom["smc"])
     luma = C.get_luma(signal_out)
     fast_out = nm.lerp(luma, fast_history, f)
     sigma = nm.get_std_dev(m1, m2) * C.color_clamping_sigma_scale(False)
+    if ring is not None:
+        am1, am2 = ring
+        asig = nm.get_std_dev(am1, am2) * C.REBLUR_ANTI_FIREFLY_SIGMA_SCALE
+        luma = torch.clamp(luma, am1 - asig, am1 + asig)
     luma_clamped = torch.clamp(luma, m1 - sigma, m1 + sigma)
     fast_enabled = 1.0 if (float(dc["max_fast_accumulated_frame_num"])
                            < float(dc["max_accumulated_frame_num"])) else 0.0
@@ -663,151 +715,128 @@ def history_fix(sc, dc, view_z_in, normal_roughness, data1, signal, fast_history
     return C.change_luma(signal_out, luma), fast_out
 
 
+def history_fix(sc, dc, view_z_in, normal_roughness, data1, signal, fast_history, config, *,
+                is_diffuse: bool = True, anti_firefly: bool = False):
+    """Sparse 5x5-no-corners history reconstruction + fast-history color clamping, with the
+    9x9 anti-firefly clamp when `anti_firefly`.
+
+    data1: accumulated frames of the signal (data1_diff or data1_spec); signal: (h, w, 4)
+    output of TA; fast_history: (h, w). Returns (signal_out, fast_out)."""
+    geom = make_filter_geometry(sc, dc, view_z_in, normal_roughness, config,
+                                ("diff",) if is_diffuse else ("spec",))
+    min_material = dc["diff_min_material"] if is_diffuse else dc["spec_min_material"]
+    res = k_history_fix.history_fix(
+        signal, view_z_in, normal_roughness, data1, fast_history, _hfix_shared(geom),
+        _hfix_params(dc, geom, signal, data1, is_diffuse), min_material=float(min_material),
+        anti_firefly=anti_firefly, **_hfix_consts(sc))
+    return _history_fix_clamp(dc, geom, data1, res[0], fast_history, res[1], res[2],
+                              res[3:] if anti_firefly else None, is_diffuse)
+
+
+def fused_history_fix(sc, dc, geom, view_z_in, normal_roughness, diff, spec, *,
+                      anti_firefly=(False, False)):
+    """HistoryFix of both signals in one `history_fix_fused` launch (`kernels.py:2035-2071`),
+    computing what `history_fix` computes per signal. diff, spec: (signal, data1,
+    fast_history); anti_firefly: the (diffuse, specular) flags. Returns ((diff_out,
+    diff_fast), (spec_out, spec_fast))."""
+    res = k_history_fix_fused.history_fix_fused(
+        diff[0], spec[0], view_z_in, normal_roughness, diff[1], spec[1], diff[2], spec[2],
+        _hfix_shared(geom), _hfix_params(dc, geom, diff[0], diff[1], True),
+        _hfix_params(dc, geom, spec[0], spec[1], False),
+        diff_min_material=float(dc["diff_min_material"]),
+        spec_min_material=float(dc["spec_min_material"]), anti_firefly=anti_firefly,
+        **_hfix_consts(sc))
+    out = []
+    for name, (signal, data1, fast), af in (("diff", diff, anti_firefly[0]),
+                                            ("spec", spec, anti_firefly[1])):
+        ring = (res[f"{name}_am1"], res[f"{name}_am2"]) if af else None
+        out.append(_history_fix_clamp(dc, geom, data1, res[name], fast, res[f"{name}_m1"],
+                                      res[f"{name}_m2"], ring, name == "diff"))
+    return tuple(out)
+
+
 # ---------------------------------------------------------------------------
 # Spatial filters (REBLUR_Blur.hlsli, REBLUR_PrePass.hlsli,
-# REBLUR_Common_DiffuseSpatialFilter.hlsli)
+# REBLUR_Common_DiffuseSpatialFilter.hlsli, REBLUR_Common_SpecularSpatialFilter.hlsli)
 # ---------------------------------------------------------------------------
 
 
-def _geometry(sc, view_z_in, normal_roughness, config):
-    h, w = view_z_in.shape
-    uv = resample.pixel_uv_grid(h, w, view_z_in.device)
-    view_z = unpack_view_z(sc, view_z_in)
-    n3, roughness, _ = unpack_nr3(normal_roughness, config)
-    nv3 = v3.rotate(sc["world_to_view"], n3)
-    ortho = float(sc["ortho_mode"])
-    xv3 = v3.reconstruct_view_position(uv[..., 0], uv[..., 1], sc["frustum"], view_z, ortho)
-    frustum_size = nm.get_frustum_size(float(sc["min_rect_dim_mul_unproject"]), ortho, view_z)
-    return uv, view_z, n3, roughness, nv3, xv3, frustum_size
+def _sf_shared(geom):
+    return _shared_planes(geom, "sf_shared", lambda g: [
+        g["ga"], g["gb"], g["n3"].x, g["n3"].y, g["n3"].z, g["nv3"].x, g["nv3"].y, g["nv3"].z])
 
 
-def _spatial_taps(sc, dc, signal, view_z_in, normal_roughness, config, scaled_rotator, ga, gb,
-                  normal_weight_param, ha, hb, min_hit_dist_weight, n3, nv3, perf_mode):
-    params = torch.stack([scaled_rotator[..., 0], scaled_rotator[..., 1],
-                          scaled_rotator[..., 2], scaled_rotator[..., 3], ga, gb,
-                          normal_weight_param, ha, hb, min_hit_dist_weight,
-                          n3.x, n3.y, n3.z, nv3.x, nv3.y, nv3.z])
-    return k_spatial_filter.spatial_filter(
-        signal, view_z_in, normal_roughness, params, frustum=_v(sc["frustum"]),
-        rect_size=_v(sc["rect_size"]), view_z_scale=float(sc["view_z_scale"]),
-        ortho_mode=float(sc["ortho_mode"]), min_material=float(dc["diff_min_material"]),
-        perf_mode=perf_mode)
+def _scaled_rotator(rotator, skew_x, skew_y):
+    """The 4 planes of ScaleRotator(rotator, skew): x terms by skew_x, y terms by skew_y."""
+    r = _v(rotator)
+    return [r[0] * skew_x, r[1] * skew_y, r[2] * skew_x, r[3] * skew_y]
 
 
-def diffuse_spatial_filter(sc, dc, mode, signal, view_z_in, normal_roughness, data1, config,
-                           *, perf_mode: bool = False):
-    """Adaptive-radius 8-tap Poisson blur, screen-space sampling. mode: BLUR or POST_BLUR."""
-    uv, view_z, n3, roughness, nv3, xv3, frustum_size = _geometry(sc, view_z_in,
-                                                                  normal_roughness, config)
-    vv3 = (v3.normalize(v3.V3(-xv3.x, -xv3.y, -xv3.z)) if float(sc["ortho_mode"]) == 0.0
-           else v3.V3.full_like(view_z, 0.0, 0.0, -1.0))
-    nov = torch.abs(v3.dot(nv3, vv3))
-    rotator = _v(sc["rotator"] if mode == BLUR else sc["rotator_post"])
-    fraction_scale = (C.REBLUR_BLUR_FRACTION_SCALE if mode == BLUR
-                      else C.REBLUR_POST_BLUR_FRACTION_SCALE)
-    radius_scale = 1.0 if mode == BLUR else C.REBLUR_POST_BLUR_RADIUS_SCALE
-
-    ones = torch.ones_like(roughness)
-    hit_dist_scale = fe.get_hit_distance_normalization(view_z, dc["hit_dist_params"], ones)
-    hit_dist = C.extract_hit_dist(signal) * hit_dist_scale
-    hit_dist_factor = nm.get_hit_dist_factor(hit_dist, frustum_size)
-
-    boost = 1.0 - C.get_fade_based_on_accumulated_frames(dc, data1)
-    boost = boost * (1.0 - torch.pow(nm.saturate(1.0 - nov), 5.0))
-    nlas = 1.0 / (1.0 + C.REBLUR_SAMPLES_PER_FRAME * (1.0 - boost) * data1)
-
-    blur_radius = float(dc["max_blur_radius"]) * torch.sqrt(nm.saturate(hit_dist_factor * nlas))
-    blur_radius = blur_radius * radius_scale
-    blur_radius = torch.clamp_min(blur_radius, float(dc["min_blur_radius"]))
-
-    enc_err = nm.normal_encoding_error(int(config.normal_encoding))
-    ga = 1.0 / (float(dc["plane_dist_sensitivity"]) * frustum_size)
-    gb = -v3.dot(nv3, xv3) * ga
-    normal_weight_param = nm.get_normal_weight_param(
-        nlas, float(dc["lobe_angle_fraction"]), ones, enc_err) / fraction_scale
-    ha, hb = nm.get_hit_distance_weight_params(C.extract_hit_dist(signal), nlas, ones)
-    min_hit_dist_weight = float(np.float32(dc["min_hit_distance_weight"])
-                                * np.float32(fraction_scale)) * torch.sqrt(nlas)
-
-    # screen-space sampling (REBLUR_USE_SCREEN_SPACE_SAMPLING_FOR_DIFFUSE == 1)
-    skew_x = nm.lerp(1.0 - torch.abs(nv3.x), 1.0, nov)
-    skew_y = nm.lerp(1.0 - torch.abs(nv3.y), 1.0, nov)
-    skew_max = torch.maximum(skew_x, skew_y)
+def _diff_spatial_params(sc, dc, mode, geom, signal, data1):
+    """The diffuse planes of PrePass, Blur or PostBlur (`diffuse_pre_pass`,
+    `kernels.py:2104-2120`; `diffuse_spatial_filter`, `:763-843`; the fused
+    `_fused_diff_params`, `:1819-1854`), in the order of `kernels.spatial_filter.PARAMS`.
+    Blur and PostBlur sample in screen space: the radius is skewed by the view-space normal
+    (REBLUR_USE_SCREEN_SPACE_SAMPLING_FOR_DIFFUSE == 1)."""
+    view_z = geom["view_z"]
+    ones = torch.ones_like(view_z)
+    hit_dist = C.extract_hit_dist(signal) * geom["hd_scale_diff"]
+    hit_dist_factor = nm.get_hit_dist_factor(hit_dist, geom["frustum_size"])
     rinv = _v(sc["rect_size_inv"])
-    skew = torch.stack([skew_x / skew_max * rinv[0] * blur_radius,
-                        skew_y / skew_max * rinv[1] * blur_radius], -1)
-    scaled_rotator = nm.scale_rotator(_rotator_planes(rotator, view_z), skew)
-    return _spatial_taps(sc, dc, signal, view_z_in, normal_roughness, config, scaled_rotator,
-                         ga, gb, normal_weight_param, ha, hb, min_hit_dist_weight, n3, nv3,
-                         perf_mode)
-
-
-def _rotator_planes(rotator, like):
-    return torch.stack([torch.full_like(like, r) for r in rotator], -1)
-
-
-def diffuse_pre_pass(sc, dc, signal, view_z_in, normal_roughness, config, *,
-                     perf_mode: bool = False):
-    """Diffuse PrePass: the spatial filter with pre-pass constants and no skew."""
-    uv, view_z, n3, roughness, nv3, xv3, frustum_size = _geometry(sc, view_z_in,
-                                                                  normal_roughness, config)
-    ones = torch.ones_like(roughness)
-    nlas = torch.full_like(view_z, C.REBLUR_PRE_BLUR_NON_LINEAR_ACCUM_SPEED)
-    fraction_scale = C.REBLUR_PRE_BLUR_FRACTION_SCALE
-
-    hit_dist_scale = fe.get_hit_distance_normalization(view_z, dc["hit_dist_params"], ones)
-    hit_dist = C.extract_hit_dist(signal) * hit_dist_scale
-    hit_dist_factor = nm.get_hit_dist_factor(hit_dist, frustum_size)
-    blur_radius = float(dc["diff_prepass_blur_radius"]) * torch.sqrt(nm.saturate(hit_dist_factor))
-    blur_radius = torch.clamp_min(blur_radius, float(dc["min_blur_radius"]))
-
-    enc_err = nm.normal_encoding_error(int(config.normal_encoding))
-    ga = 1.0 / (float(dc["plane_dist_sensitivity"]) * frustum_size)
-    gb = -v3.dot(nv3, xv3) * ga
+    if mode == PRE_BLUR:
+        rotator = sc["rotator_pre"]
+        nlas = torch.full_like(view_z, C.REBLUR_PRE_BLUR_NON_LINEAR_ACCUM_SPEED)
+        fraction_scale = C.REBLUR_PRE_BLUR_FRACTION_SCALE
+        blur_radius = float(dc["diff_prepass_blur_radius"]) * torch.sqrt(
+            nm.saturate(hit_dist_factor))
+        blur_radius = torch.clamp_min(blur_radius, float(dc["min_blur_radius"]))
+        min_hit_dist_weight = torch.full_like(
+            view_z, float(np.float32(dc["min_hit_distance_weight"]) * np.float32(fraction_scale)))
+        skew_x, skew_y = rinv[0] * blur_radius, rinv[1] * blur_radius
+    else:
+        rotator = sc["rotator"] if mode == BLUR else sc["rotator_post"]
+        fraction_scale = (C.REBLUR_BLUR_FRACTION_SCALE if mode == BLUR
+                          else C.REBLUR_POST_BLUR_FRACTION_SCALE)
+        radius_scale = 1.0 if mode == BLUR else C.REBLUR_POST_BLUR_RADIUS_SCALE
+        nov = geom["nov"]
+        boost = 1.0 - C.get_fade_based_on_accumulated_frames(dc, data1)
+        boost = boost * (1.0 - torch.pow(nm.saturate(1.0 - nov), 5.0))
+        nlas = 1.0 / (1.0 + C.REBLUR_SAMPLES_PER_FRAME * (1.0 - boost) * data1)
+        blur_radius = float(dc["max_blur_radius"]) * torch.sqrt(
+            nm.saturate(hit_dist_factor * nlas))
+        blur_radius = blur_radius * radius_scale
+        blur_radius = torch.clamp_min(blur_radius, float(dc["min_blur_radius"]))
+        min_hit_dist_weight = float(np.float32(dc["min_hit_distance_weight"])
+                                    * np.float32(fraction_scale)) * torch.sqrt(nlas)
+        nv3 = geom["nv3"]
+        skew_x = nm.lerp(1.0 - torch.abs(nv3.x), 1.0, nov)
+        skew_y = nm.lerp(1.0 - torch.abs(nv3.y), 1.0, nov)
+        skew_max = torch.maximum(skew_x, skew_y)
+        skew_x = skew_x / skew_max * rinv[0] * blur_radius
+        skew_y = skew_y / skew_max * rinv[1] * blur_radius
     normal_weight_param = nm.get_normal_weight_param(
-        nlas, float(dc["lobe_angle_fraction"]), ones, enc_err) / fraction_scale
+        nlas, float(dc["lobe_angle_fraction"]), ones, geom["enc_err"]) / fraction_scale
     ha, hb = nm.get_hit_distance_weight_params(C.extract_hit_dist(signal), nlas, ones)
-    min_hit_dist_weight = torch.full_like(
-        view_z, float(np.float32(dc["min_hit_distance_weight"]) * np.float32(fraction_scale)))
-
-    rinv = _v(sc["rect_size_inv"])
-    skew = torch.stack([rinv[0] * blur_radius, rinv[1] * blur_radius], -1)
-    scaled_rotator = nm.scale_rotator(_rotator_planes(_v(sc["rotator_pre"]), view_z), skew)
-    out = _spatial_taps(sc, dc, signal, view_z_in, normal_roughness, config, scaled_rotator,
-                        ga, gb, normal_weight_param, ha, hb, min_hit_dist_weight, n3, nv3,
-                        perf_mode)
-    return signal if float(dc["diff_prepass_blur_radius"]) == 0.0 else out
+    return torch.stack(_scaled_rotator(rotator, skew_x, skew_y)
+                       + [normal_weight_param, ha, hb, min_hit_dist_weight])
 
 
-def specular_spatial_filter(sc, dc, mode, spec, view_z_in, normal_roughness, data1, config, *,
-                            perf_mode: bool = False):
-    """Adaptive Poisson specular blur (REBLUR_Common_SpecularSpatialFilter.hlsli). mode:
-    PRE_BLUR, BLUR or POST_BLUR. Returns (spec_out, hit_dist_for_tracking); the second is
-    the PrePass's stochastic hitDist minimum, None in the other modes."""
+def _spec_spatial_params(sc, dc, mode, geom, spec, data1):
+    """The specular planes of PrePass, Blur or PostBlur (`specular_spatial_filter`,
+    `kernels.py:1592-1656`; the fused `_fused_spec_params`, `:1857-1912`), in the order of
+    `kernels.spatial_filter.PARAMS + SPEC_PARAMS` (+ PREPASS_PARAMS in the PrePass, whose
+    radius is bound by the specular lobe, REBLUR_PrePass.hlsli:71-80)."""
     prepass = mode == PRE_BLUR
-    if prepass and float(dc["spec_prepass_blur_radius"]) == 0.0:
-        hit = C.extract_hit_dist(spec)
-        return spec, torch.where(hit == 0.0, 0.0, hit)
-    uv, view_z, n3, roughness, nv3, xv3, frustum_size = _geometry(sc, view_z_in,
-                                                                  normal_roughness, config)
-    ortho = float(sc["ortho_mode"])
-    vv3 = (v3.normalize(v3.V3(-xv3.x, -xv3.y, -xv3.z)) if ortho == 0.0
-           else v3.V3.full_like(view_z, 0.0, 0.0, -1.0))
-    nov = torch.abs(v3.dot(nv3, vv3))
-    enc_err = nm.normal_encoding_error(int(config.normal_encoding))
-    smc = nm.get_spec_magic_curve(roughness)
+    view_z, roughness, smc = geom["view_z"], geom["roughness"], geom["smc"]
+    nv3, nov = geom["nv3"], geom["nov"]
     rotator, fraction_scale, radius_scale = {
         PRE_BLUR: (sc["rotator_pre"], C.REBLUR_PRE_BLUR_FRACTION_SCALE, 1.0),
         BLUR: (sc["rotator"], C.REBLUR_BLUR_FRACTION_SCALE, 1.0),
         POST_BLUR: (sc["rotator_post"], C.REBLUR_POST_BLUR_FRACTION_SCALE,
                     C.REBLUR_POST_BLUR_RADIUS_SCALE)}[mode]
 
-    dv3, dvf = v3.get_specular_dominant_direction(nv3, vv3, roughness,
-                                                  nm.get_specular_dominant_factor)
-    nod = torch.abs(v3.dot(nv3, dv3))
-    hit_dist_scale = fe.get_hit_distance_normalization(view_z, dc["hit_dist_params"], roughness)
-    hit_dist = C.extract_hit_dist(spec) * hit_dist_scale
-    hit_dist_factor = nm.get_hit_dist_factor(hit_dist, frustum_size)
+    hit_dist = C.extract_hit_dist(spec) * geom["hd_scale_spec"]
+    hit_dist_factor = nm.get_hit_dist_factor(hit_dist, geom["frustum_size"])
     if prepass:
         blur_radius = float(dc["spec_prepass_blur_radius"])
         area_factor = roughness * hit_dist_factor
@@ -821,22 +850,22 @@ def specular_spatial_filter(sc, dc, mode, spec, view_z_in, normal_roughness, dat
         area_factor = roughness * hit_dist_factor * nlas
     blur_radius = blur_radius * torch.sqrt(nm.saturate(area_factor))
     if prepass:
-        # lobe-bound radius (REBLUR_PrePass.hlsli:71-80)
+        dv3, dvf = v3.get_specular_dominant_direction(nv3, geom["vv3"], roughness,
+                                                      nm.get_specular_dominant_factor)
+        nod = torch.abs(v3.dot(nv3, dv3))
         lobe_tan = nm.get_specular_lobe_tan_half_angle(
             roughness, C.REBLUR_MAX_PERCENT_OF_LOBE_VOLUME_FOR_PRE_PASS)
         lobe_radius = hit_dist * nod * lobe_tan
         min_blur_radius = lobe_radius / nm.pixel_radius_to_world(
-            float(sc["unproject"]), ortho, 1.0, view_z + hit_dist * dvf)
+            float(sc["unproject"]), float(sc["ortho_mode"]), 1.0, view_z + hit_dist * dvf)
         blur_radius = torch.minimum(blur_radius, min_blur_radius)
     blur_radius = blur_radius * radius_scale
     blur_radius = torch.maximum(blur_radius, float(dc["min_blur_radius"]) * smc)
 
     rf_scaled = float(np.clip(np.float32(dc["roughness_fraction"]) * np.float32(fraction_scale),
                               0.0, 1.0))
-    ga = 1.0 / (float(dc["plane_dist_sensitivity"]) * frustum_size)
-    gb = -v3.dot(nv3, xv3) * ga
     normal_weight_param = nm.get_normal_weight_param(
-        nlas, float(dc["lobe_angle_fraction"]), roughness, enc_err) / fraction_scale
+        nlas, float(dc["lobe_angle_fraction"]), roughness, geom["enc_err"]) / fraction_scale
     wr_a, wr_b = nm.get_roughness_weight_params(roughness, rf_scaled)
     ha, hb = nm.get_hit_distance_weight_params(C.extract_hit_dist(spec), nlas, roughness)
     min_hit_dist_weight = float(np.float32(dc["min_hit_distance_weight"])
@@ -845,24 +874,88 @@ def specular_spatial_filter(sc, dc, mode, spec, view_z_in, normal_roughness, dat
         min_hit_dist_weight = min_hit_dist_weight * torch.sqrt(nlas)
 
     rinv = _v(sc["rect_size_inv"])
-    skew = torch.stack([rinv[0] * blur_radius, rinv[1] * blur_radius], -1)
-    scaled_rotator = nm.scale_rotator(_rotator_planes(_v(rotator), view_z), skew)
-    params = [scaled_rotator[..., 0], scaled_rotator[..., 1], scaled_rotator[..., 2],
-              scaled_rotator[..., 3], ga, gb, normal_weight_param, ha, hb, min_hit_dist_weight,
-              n3.x, n3.y, n3.z, nv3.x, nv3.y, nv3.z, wr_a, wr_b]
-    extra = None
+    planes = _scaled_rotator(rotator, rinv[0] * blur_radius, rinv[1] * blur_radius) + [
+        normal_weight_param, ha, hb, min_hit_dist_weight, wr_a, wr_b]
     if prepass:
-        params += [hit_dist, roughness, xv3.x, xv3.y, xv3.z]
-        extra = dict(hit_dist_params=_v(dc["hit_dist_params"]),
-                     use_prepass_not_only=float(
-                         dc["use_prepass_not_only_for_specular_motion_estimation"]),
-                     frame_index=int(sc["frame_index"]))
+        xv3 = geom["xv3"]
+        planes += [hit_dist, roughness, xv3.x, xv3.y, xv3.z]
+    return torch.stack(planes)
+
+
+def _sf_consts(sc):
+    return dict(frustum=_v(sc["frustum"]), rect_size=_v(sc["rect_size"]),
+                view_z_scale=float(sc["view_z_scale"]), ortho_mode=float(sc["ortho_mode"]))
+
+
+def _prepass_consts(sc, dc):
+    not_only = float(dc["use_prepass_not_only_for_specular_motion_estimation"])
+    return dict(hit_dist_params=_v(dc["hit_dist_params"]), use_prepass_not_only=not_only,
+                frame_index=int(sc["frame_index"]))
+
+
+def _prepass_off_hit_dist(spec):
+    """hitDistForTracking of a specular PrePass with radius 0 (`kernels.py:1776-1778`)."""
+    hit = C.extract_hit_dist(spec)
+    return torch.where(hit == 0.0, 0.0, hit)
+
+
+def diffuse_spatial_filter(sc, dc, mode, signal, view_z_in, normal_roughness, data1, config,
+                           *, perf_mode: bool = False):
+    """Adaptive-radius 8-tap Poisson blur, screen-space sampling. mode: PRE_BLUR (see
+    diffuse_pre_pass), BLUR or POST_BLUR."""
+    geom = make_filter_geometry(sc, dc, view_z_in, normal_roughness, config, ("diff",))
+    return k_spatial_filter.spatial_filter(
+        signal, view_z_in, normal_roughness, _sf_shared(geom),
+        _diff_spatial_params(sc, dc, mode, geom, signal, data1),
+        min_material=float(dc["diff_min_material"]), perf_mode=perf_mode, **_sf_consts(sc))
+
+
+def diffuse_pre_pass(sc, dc, signal, view_z_in, normal_roughness, config, *,
+                     perf_mode: bool = False):
+    """Diffuse PrePass: the spatial filter with pre-pass constants and no skew."""
+    out = diffuse_spatial_filter(sc, dc, PRE_BLUR, signal, view_z_in, normal_roughness, None,
+                                 config, perf_mode=perf_mode)
+    return signal if float(dc["diff_prepass_blur_radius"]) == 0.0 else out
+
+
+def specular_spatial_filter(sc, dc, mode, spec, view_z_in, normal_roughness, data1, config, *,
+                            perf_mode: bool = False):
+    """Adaptive Poisson specular blur (REBLUR_Common_SpecularSpatialFilter.hlsli). mode:
+    PRE_BLUR, BLUR or POST_BLUR. Returns (spec_out, hit_dist_for_tracking); the second is
+    the PrePass's stochastic hitDist minimum, None in the other modes."""
+    prepass = mode == PRE_BLUR
+    if prepass and float(dc["spec_prepass_blur_radius"]) == 0.0:
+        return spec, _prepass_off_hit_dist(spec)
+    geom = make_filter_geometry(sc, dc, view_z_in, normal_roughness, config, ("spec",))
     res = k_spatial_filter.spatial_filter(
-        spec, view_z_in, normal_roughness, torch.stack(params), frustum=_v(sc["frustum"]),
-        rect_size=_v(sc["rect_size"]), view_z_scale=float(sc["view_z_scale"]),
-        ortho_mode=ortho, min_material=float(dc["spec_min_material"]), perf_mode=perf_mode,
-        prepass=extra)
+        spec, view_z_in, normal_roughness, _sf_shared(geom),
+        _spec_spatial_params(sc, dc, mode, geom, spec, data1),
+        min_material=float(dc["spec_min_material"]), perf_mode=perf_mode,
+        prepass=_prepass_consts(sc, dc) if prepass else None, **_sf_consts(sc))
     return res if prepass else (res, None)
+
+
+def fused_spatial_filter(sc, dc, mode, geom, view_z_in, normal_roughness, diff, spec, *,
+                         data1_diff=None, data1_spec=None, perf_mode: bool = False):
+    """PrePass, Blur or PostBlur of both signals in one `spatial_filter_fused` launch
+    (`kernels.py:1916-2000`), computing what diffuse_pre_pass / diffuse_spatial_filter and
+    specular_spatial_filter compute per signal, each at its own tap positions. A PrePass
+    whose radius is 0 passes its signal through (and, for specular, its hit distance).
+    Returns (diff_out, spec_out, hit_dist_for_tracking or None)."""
+    prepass = mode == PRE_BLUR
+    res = k_spatial_filter_fused.spatial_filter_fused(
+        diff, spec, view_z_in, normal_roughness, _sf_shared(geom),
+        _diff_spatial_params(sc, dc, mode, geom, diff, data1_diff),
+        _spec_spatial_params(sc, dc, mode, geom, spec, data1_spec),
+        diff_min_material=float(dc["diff_min_material"]),
+        spec_min_material=float(dc["spec_min_material"]), perf_mode=perf_mode,
+        prepass=_prepass_consts(sc, dc) if prepass else None, **_sf_consts(sc))
+    diff_out, spec_out, hdt = res["diff"], res["spec"], res.get("hdt")
+    if prepass and float(dc["diff_prepass_blur_radius"]) == 0.0:
+        diff_out = diff
+    if prepass and float(dc["spec_prepass_blur_radius"]) == 0.0:
+        spec_out, hdt = spec, _prepass_off_hit_dist(spec)
+    return diff_out, spec_out, hdt
 
 
 # ---------------------------------------------------------------------------
@@ -884,9 +977,10 @@ def split_screen(sc, noisy_input, view_z_in, out_signal):
 # ---------------------------------------------------------------------------
 
 
-def _ts_surface_motion(sc, view_z_in, mv_in, fbits):
+def ts_surface_motion(sc, view_z_in, mv_in, fbits):
     """TS lines 50-70: the surface-motion position and the footprint quality from fbits
-    bits 0-3. Returns (uv, view_z, x, x_prev, smb_pixel_uv, smb_quality)."""
+    bits 0-3, shared by both halves of TS. Returns (uv, view_z, x, x_prev, smb_pixel_uv,
+    smb_quality)."""
     h, w = view_z_in.shape
     uv = resample.pixel_uv_grid(h, w, view_z_in.device)
     view_z = unpack_view_z(sc, view_z_in)
@@ -915,10 +1009,11 @@ def _luma_moments(dc, luma, pre):
 
 
 def temporal_stabilization(sc, dc, view_z_in, normal_roughness, mv_in, data1_diff, fbits, diff,
-                           diff_luma_stab_history, config):
-    """Anti-lag output filter, diffuse half.
-    Returns dict(diff, diff_luma_stab, data1_diff, mv_out)."""
-    uv, _, _, _, smb_pixel_uv, smb_quality = _ts_surface_motion(sc, view_z_in, mv_in, fbits)
+                           diff_luma_stab_history, config, *, surface_motion=None):
+    """Anti-lag output filter, diffuse half. surface_motion: ts_surface_motion(...) when the
+    specular half shares it. Returns dict(diff, diff_luma_stab, data1_diff, mv_out)."""
+    uv, _, _, _, smb_pixel_uv, smb_quality = (
+        surface_motion or ts_surface_motion(sc, view_z_in, mv_in, fbits))
     luma = C.get_luma(diff)
     pre = k_ts_prelude.ts_prelude(luma.contiguous(), diff_luma_stab_history,
                                   smb_pixel_uv.contiguous(), fbits,
@@ -945,13 +1040,15 @@ def temporal_stabilization(sc, dc, view_z_in, normal_roughness, mv_in, data1_dif
 def temporal_stabilization_specular(sc, dc, view_z_in, normal_roughness, mv_in, data1_spec,
                                     fbits, curvature, virtual_history_amount, spec,
                                     spec_luma_stab_history, spec_hitdist_for_tracking,
-                                    base_color_metalness, config, *, has_prepass):
+                                    base_color_metalness, config, *, has_prepass,
+                                    surface_motion=None):
     """Anti-lag output filter, specular half (TS lines 233-343): the surface- and
     virtual-motion histories (fbits bits 0-3 and 4-7) combined by the virtual history
     amount, and the MV patching under IN_BASECOLOR_METALNESS (lines 250-285).
+    surface_motion: ts_surface_motion(...) when the diffuse half shares it.
     Returns dict(spec, spec_luma_stab, data1_spec, mv_out)."""
-    uv, view_z, x, x_prev, smb_pixel_uv, smb_quality = _ts_surface_motion(sc, view_z_in, mv_in,
-                                                                          fbits)
+    uv, view_z, x, x_prev, smb_pixel_uv, smb_quality = (
+        surface_motion or ts_surface_motion(sc, view_z_in, mv_in, fbits))
     n, roughness, material_id = unpack_nr(normal_roughness, config)
     rect_prev = _v(sc["rect_size_prev"])
 

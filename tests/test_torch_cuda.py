@@ -1,9 +1,10 @@
 """Hand-written kernels on the card (marker `cuda`; skips where there is no CUDA device).
 
 Each kernel runs on the inputs the main paths give it (frame 4 of the orbit scene at 128x96,
-REBLUR_DIFFUSE and REBLUR_SPECULAR) and is held against its plain PyTorch version on the same
-card; the Engine on the card is held against the Engine on the CPU, for both variants. Run on
-a machine with an H100:
+REBLUR_DIFFUSE, REBLUR_SPECULAR and REBLUR_DIFFUSE_SPECULAR, each with and without the
+anti-firefly ring) and is held against its plain PyTorch version on the same card; the Engine
+on the card is held against the Engine on the CPU, for every variant and output. Run on a
+machine with an H100:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 
@@ -20,7 +21,7 @@ import torch
 from nrdtpu_torch import frontend as fe
 from nrdtpu_torch import kernels as KM
 from nrdtpu_torch.engine import Engine
-from nrdtpu_torch.settings import Denoiser, ResourceType as RT
+from nrdtpu_torch.settings import Denoiser, ResourceType as RT, replace
 from nrdtpu_torch.utils.scene import SceneGenerator, SceneSpec
 
 # the tensors here are small: one intra-op thread, so that test workers do not contend
@@ -38,10 +39,11 @@ def cuda():
     return torch.device("cuda")
 
 
-VARIANTS = (Denoiser.REBLUR_DIFFUSE, Denoiser.REBLUR_SPECULAR)
+VARIANTS = (Denoiser.REBLUR_DIFFUSE, Denoiser.REBLUR_SPECULAR, Denoiser.REBLUR_DIFFUSE_SPECULAR)
 
 
 def _pools(denoiser, n):
+    """Both signals' inputs; each variant reads its own."""
     gen = SceneGenerator(SceneSpec(size=SIZE, noise=0.4), camera_mode="orbit")
     hdp = np.array([3.0, 0.1, 20.0, -25.0], np.float32)
     for i in range(n):
@@ -49,30 +51,34 @@ def _pools(denoiser, n):
         fd.common_settings.timeDeltaBetweenFrames = 16.66
         pool = {RT.IN_VIEWZ: fd.view_z, RT.IN_NORMAL_ROUGHNESS: gen.packed_normal_roughness(fd),
                 RT.IN_MV: fd.mv}
-        if denoiser == Denoiser.REBLUR_DIFFUSE:
-            sig = np.concatenate([fd.diff_noisy, np.full(fd.view_z.shape + (1,), 0.5, np.float32)],
-                                 -1)
-            pool[RT.IN_DIFF_RADIANCE_HITDIST] = sig
-        else:
-            nhd = fe.reblur_get_norm_hit_dist(torch.from_numpy(fd.spec_hit_dist),
-                                              torch.from_numpy(fd.view_z), hdp,
-                                              torch.from_numpy(fd.roughness))
-            pool[RT.IN_SPEC_RADIANCE_HITDIST] = fe.reblur_pack_radiance_hitdist(
-                torch.from_numpy(fd.spec_noisy), nhd).numpy()
+        sig = np.concatenate([fd.diff_noisy, np.full(fd.view_z.shape + (1,), 0.5, np.float32)], -1)
+        pool[RT.IN_DIFF_RADIANCE_HITDIST] = sig
+        nhd = fe.reblur_get_norm_hit_dist(torch.from_numpy(fd.spec_hit_dist),
+                                          torch.from_numpy(fd.view_z), hdp,
+                                          torch.from_numpy(fd.roughness))
+        pool[RT.IN_SPEC_RADIANCE_HITDIST] = fe.reblur_pack_radiance_hitdist(
+            torch.from_numpy(fd.spec_noisy), nhd).numpy()
         yield fd.common_settings, pool
 
 
-def _out(denoiser):
-    return (RT.OUT_DIFF_RADIANCE_HITDIST if denoiser == Denoiser.REBLUR_DIFFUSE
-            else RT.OUT_SPEC_RADIANCE_HITDIST)
+def _outs(denoiser):
+    return [rt for rt, present in ((RT.OUT_DIFF_RADIANCE_HITDIST, "DIFFUSE" in denoiser.name),
+                                   (RT.OUT_SPEC_RADIANCE_HITDIST, "SPECULAR" in denoiser.name))
+            if present]
+
+
+def _engine(denoiser, device, anti_firefly):
+    eng = Engine({0: denoiser}, resource_size=SIZE, device=device)
+    eng.set_denoiser_settings(0, replace(eng._settings[0], enableAntiFirefly=anti_firefly))
+    return eng
 
 
 @pytest.fixture(scope="module")
 def recorded(cuda):
     calls = []
     originals = {n: getattr(m, n) for n, m in KM.MODULES.items()}
-    for denoiser in VARIANTS:
-        eng = Engine({0: denoiser}, resource_size=SIZE, device=cuda)
+    for denoiser, anti_firefly in [(d, af) for d in VARIANTS for af in (False, True)]:
+        eng = _engine(denoiser, cuda, anti_firefly)
         pools = list(_pools(denoiser, 4))
         try:
             for i, (cs, pool) in enumerate(pools):
@@ -114,14 +120,17 @@ def test_kernel_matches_plain_version(recorded, name):
 
 
 @pytest.mark.parametrize("denoiser", VARIANTS, ids=lambda d: d.name)
-def test_engine_card_matches_cpu(cuda, denoiser):
-    card = Engine({0: denoiser}, resource_size=SIZE, device=cuda)
-    cpu = Engine({0: denoiser}, resource_size=SIZE)
+@pytest.mark.parametrize("anti_firefly", [False, True], ids=["default", "anti_firefly"])
+def test_engine_card_matches_cpu(cuda, denoiser, anti_firefly):
+    card = _engine(denoiser, cuda, anti_firefly)
+    cpu = _engine(denoiser, "cpu", anti_firefly)
     for cs, pool in _pools(denoiser, 4):
         outs = []
         for eng in (card, cpu):
             eng.set_common_settings(cs)
-            outs.append(eng.denoise([0], pool)[_out(denoiser)].cpu().double())
-        mse = float(((outs[0] - outs[1]) ** 2).mean())
-        peak = float(outs[1].abs().max())
-        assert mse == 0.0 or 10.0 * np.log10(peak * peak / mse) >= 50.0
+            outs.append(eng.denoise([0], pool))
+        for rt in _outs(denoiser):
+            a, b = outs[0][rt].cpu().double(), outs[1][rt].cpu().double()
+            mse = float(((a - b) ** 2).mean())
+            peak = float(b.abs().max())
+            assert mse == 0.0 or 10.0 * np.log10(peak * peak / mse) >= 50.0, rt

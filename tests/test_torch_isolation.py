@@ -27,16 +27,14 @@ from nrdtpu_torch.utils.scene import SceneGenerator, SceneSpec
 gen = SceneGenerator(SceneSpec(size=(64, 48)), camera_mode="orbit")
 fd = gen.frame(0)
 sig = np.concatenate([fd.diff_noisy, np.full((48, 64, 1), 0.5, np.float32)], -1)
-for d, rt_in, rt_out in ((Denoiser.REBLUR_DIFFUSE, RT.IN_DIFF_RADIANCE_HITDIST,
-                          RT.OUT_DIFF_RADIANCE_HITDIST),
-                         (Denoiser.REBLUR_SPECULAR, RT.IN_SPEC_RADIANCE_HITDIST,
-                          RT.OUT_SPEC_RADIANCE_HITDIST)):
-    eng = Engine({0: d}, resource_size=(64, 48))
+for d in (Denoiser.REBLUR_DIFFUSE, Denoiser.REBLUR_SPECULAR, Denoiser.REBLUR_DIFFUSE_SPECULAR):
+    eng = Engine({0: d}, resource_size=(64, 48), device="cpu")
     eng.set_common_settings(fd.common_settings)
-    out = eng.denoise([0], {RT.IN_VIEWZ: fd.view_z, RT.IN_NORMAL_ROUGHNESS:
-                            gen.packed_normal_roughness(fd), RT.IN_MV: fd.mv,
-                            rt_in: sig})[rt_out]
-    assert out.shape == (48, 64, 4) and bool(out.isfinite().all())
+    outs = eng.denoise([0], {RT.IN_VIEWZ: fd.view_z, RT.IN_NORMAL_ROUGHNESS:
+                             gen.packed_normal_roughness(fd), RT.IN_MV: fd.mv,
+                             RT.IN_DIFF_RADIANCE_HITDIST: sig, RT.IN_SPEC_RADIANCE_HITDIST: sig})
+    for out in outs.values():
+        assert out.shape == (48, 64, 4) and bool(out.isfinite().all())
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.") or m == "nrdtpu"
              or m.startswith("nrdtpu."))
 print("IMPORTED", bad)
@@ -59,9 +57,10 @@ def test_port_imports_no_jax_and_no_nrdtpu():
 
 @pytest.fixture(scope="module")
 def recorded_calls():
-    """The kernel calls of two CPU frames of each main path, recorded at the wrappers."""
+    """The kernel calls of two CPU frames of each main path, recorded at the wrappers; the
+    second frame of REBLUR_DIFFUSE_SPECULAR with the anti-firefly ring."""
     from nrdtpu_torch.engine import Engine
-    from nrdtpu_torch.settings import Denoiser, ResourceType as RT
+    from nrdtpu_torch.settings import Denoiser, ResourceType as RT, replace
     from nrdtpu_torch.utils.scene import SceneGenerator, SceneSpec
 
     gen = SceneGenerator(SceneSpec(size=(48, 32)), camera_mode="orbit")
@@ -73,16 +72,19 @@ def recorded_calls():
                 calls.append((_n, a, k))
                 return _f(*a, **k)
             setattr(m, n, rec)
-        for d, rt in ((Denoiser.REBLUR_DIFFUSE, RT.IN_DIFF_RADIANCE_HITDIST),
-                      (Denoiser.REBLUR_SPECULAR, RT.IN_SPEC_RADIANCE_HITDIST)):
-            eng = Engine({0: d}, resource_size=(48, 32))
+        for d in (Denoiser.REBLUR_DIFFUSE, Denoiser.REBLUR_SPECULAR,
+                  Denoiser.REBLUR_DIFFUSE_SPECULAR):
+            eng = Engine({0: d}, resource_size=(48, 32), device="cpu")
             for i in range(2):
+                if i == 1 and d == Denoiser.REBLUR_DIFFUSE_SPECULAR:
+                    eng.set_denoiser_settings(0, replace(eng._settings[0], enableAntiFirefly=True))
                 fd = gen.frame(i)
                 eng.set_common_settings(fd.common_settings)
                 sig = np.concatenate([fd.diff_noisy, np.full((32, 48, 1), 0.5, np.float32)], -1)
                 eng.denoise([0], {RT.IN_VIEWZ: fd.view_z,
                                   RT.IN_NORMAL_ROUGHNESS: gen.packed_normal_roughness(fd),
-                                  RT.IN_MV: fd.mv, rt: sig})
+                                  RT.IN_MV: fd.mv, RT.IN_DIFF_RADIANCE_HITDIST: sig,
+                                  RT.IN_SPEC_RADIANCE_HITDIST: sig})
     finally:
         for n, m in KM.MODULES.items():
             setattr(m, n, originals[n])
@@ -133,20 +135,32 @@ def test_engine_cuda_raises_without_cuda():
         Engine({0: Denoiser.REBLUR_DIFFUSE}, resource_size=(64, 48), device="cuda")
 
 
+def test_engine_default_device_raises_without_cuda():
+    """The Engine runs on the card unless asked for the CPU: without CUDA, the default
+    raises rather than carrying on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is usable")
+    from nrdtpu_torch.engine import Engine
+    from nrdtpu_torch.settings import Denoiser
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine({0: Denoiser.REBLUR_DIFFUSE}, resource_size=(64, 48))
+
+
 def test_unported_variants_raise():
     from nrdtpu_torch.engine import Engine
     from nrdtpu_torch.settings import Denoiser
 
-    for d in (Denoiser.REBLUR_DIFFUSE_SPECULAR, Denoiser.SIGMA_SHADOW, Denoiser.RELAX_DIFFUSE):
+    for d in (Denoiser.REBLUR_DIFFUSE_SPECULAR_SH, Denoiser.SIGMA_SHADOW, Denoiser.RELAX_DIFFUSE):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Engine({0: d}, resource_size=(64, 48))
+            Engine({0: d}, resource_size=(64, 48), device="cpu")
 
 
 def test_denoise_before_common_settings_raises():
     from nrdtpu_torch.engine import Engine
     from nrdtpu_torch.settings import Denoiser
 
-    eng = Engine({0: Denoiser.REBLUR_DIFFUSE}, resource_size=(64, 48))
+    eng = Engine({0: Denoiser.REBLUR_DIFFUSE}, resource_size=(64, 48), device="cpu")
     with pytest.raises(RuntimeError, match="set_common_settings"):
         eng.denoise([0], {})
 

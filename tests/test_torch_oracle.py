@@ -37,7 +37,7 @@ def psnr(ref, x):
 
 
 def _camera(translate_x=0.0):
-    eng = Engine({0: Denoiser.REBLUR_DIFFUSE}, resource_size=(W, H_))
+    eng = Engine({0: Denoiser.REBLUR_DIFFUSE}, resource_size=(W, H_), device="cpu")
     cs = CommonSettings()
     proj = np.zeros((4, 4), np.float32)
     proj[0, 0] = proj[1, 1] = 1.0
@@ -57,7 +57,7 @@ def _camera(translate_x=0.0):
     return sc, dc, eng._instances[0].config
 
 
-def _scene(sc):
+def _scene(sc, rng=RNG):
     """Slanted wall with a closer box, lumpy normals, noisy YCoCg signal, true MV."""
     uv = O._pixel_uv(H_, W)
     view_z = 8.0 + 3.0 * uv[..., 0] + 1.5 * uv[..., 1]
@@ -76,7 +76,7 @@ def _scene(sc):
                               x + np.asarray(sc["camera_delta"])[None, None, :])
     mv = np.concatenate([(uv_prev - uv), np.zeros((H_, W, 1), np.float32)],
                         -1).astype(np.float32)
-    signal = RNG.uniform(0.0, 1.0, (H_, W, 4)).astype(np.float32)
+    signal = rng.uniform(0.0, 1.0, (H_, W, 4)).astype(np.float32)
     signal[..., 1:3] -= 0.5  # YCoCg chroma is signed
     return dict(view_z=view_z, nr=nr, mv=mv, signal=signal)
 
@@ -125,7 +125,7 @@ def test_ta_diffuse_matches_oracle(translate_x):
                          material_id=torch.zeros((H_, W)))
     sm = K.surface_motion_reprojection(sc, dc, t(s["view_z"]), t(s["nr"]), t(s["mv"]),
                                        t(s["view_z"]), t(s["nr"]), prev_internal, cfg,
-                                       t(history), t(fast_hist))
+                                       {"diff": (t(history), t(fast_hist))})
     got_diff, got_fast, got_accum = K.temporal_accumulation_diffuse(sc, dc, sm, t(s["signal"]))
     for name, r, g in (("fbits", ref["fbits"], sm["fbits"]),
                        ("accum speed", ref["accum_speed"], got_accum),
@@ -180,7 +180,7 @@ def test_ta_specular_matches_oracle(translate_x):
     prev_internal = dict(diff_accum=t(accum), spec_accum=t(accum), material_id=t(zeros))
     sm = K.surface_motion_reprojection(sc, dc, t(s["view_z"]), t(s["nr"]), t(s["mv"]),
                                        t(s["view_z"]), t(s["nr"]), prev_internal, cfg,
-                                       t(history), t(fast_hist), which="spec")
+                                       {"spec": (t(history), t(fast_hist))})
     got = K.temporal_accumulation_specular(
         sc, dc, sm, t(spec_input), t(history), t(fast_hist), t(s["view_z"]), t(s["nr"]),
         t(s["view_z"]), t(s["nr"]), prev_internal, t(hdt_in), t(prev_hdt), cfg,

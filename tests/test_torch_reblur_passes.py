@@ -113,7 +113,7 @@ def test_smb_and_ta_diffuse(ctx):
     prev_internal = {k: st[k] for k in ("diff_accum", "spec_accum", "material_id")}
     sm = TK.surface_motion_reprojection(ctx["sc"], ctx["dc"], vz, nr, mv, st["prev_view_z"],
                                         st["prev_normal_roughness"], prev_internal, ctx["cfg"],
-                                        st["diff_history"], st["diff_fast_history"])
+                                        {"diff": (st["diff_history"], st["diff_fast_history"])})
     np.testing.assert_array_equal(sm["fbits"].numpy(), np.asarray(j["sm"]["fbits"]))
     np.testing.assert_array_equal(sm["allow_catrom"].numpy(), np.asarray(j["sm"]["allow_catrom"]))
     close("footprint_quality", sm["footprint_quality"], j["sm"]["footprint_quality"])

@@ -44,7 +44,7 @@ def _run(size, n_frames, **settings):
     fields changed."""
     gen = SceneGenerator(SceneSpec(size=size, noise=0.4), camera_mode="orbit")
     je = JEngine({0: JDenoiser.REBLUR_DIFFUSE}, resource_size=size)
-    te = TEngine({0: Denoiser.REBLUR_DIFFUSE}, resource_size=size)
+    te = TEngine({0: Denoiser.REBLUR_DIFFUSE}, resource_size=size, device="cpu")
     if settings:
         je.set_denoiser_settings(0, replace(je._settings[0], **settings))
         te.set_denoiser_settings(0, replace(te._settings[0], **settings))

@@ -134,8 +134,7 @@ def _sm(ctx):
     prev_internal = {k: st[k] for k in ("diff_accum", "spec_accum", "material_id")}
     sm = TK.surface_motion_reprojection(ctx["sc"], ctx["dc"], vz, nr, mv, st["prev_view_z"],
                                         st["prev_normal_roughness"], prev_internal, ctx["cfg"],
-                                        st["spec_history"], st["spec_fast_history"],
-                                        which="spec")
+                                        {"spec": (st["spec_history"], st["spec_fast_history"])})
     return sm, prev_internal
 
 

@@ -44,7 +44,7 @@ def run(size, n_frames, settings=None, from_frame=0):
     ReblurSettings fields in `settings` are changed on both."""
     gen = SceneGenerator(SceneSpec(size=size, noise=0.4), camera_mode="orbit")
     je = JEngine({0: JDenoiser.REBLUR_SPECULAR}, resource_size=size)
-    te = TEngine({0: Denoiser.REBLUR_SPECULAR}, resource_size=size)
+    te = TEngine({0: Denoiser.REBLUR_SPECULAR}, resource_size=size, device="cpu")
     frames = []
     for i in range(n_frames):
         if settings and i == from_frame:
