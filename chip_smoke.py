@@ -1,27 +1,38 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one CUDA card and check them.
 
-    python3 chip_smoke.py   # REBLUR_DIFFUSE, REBLUR_SPECULAR, REBLUR_DIFFUSE_SPECULAR, 2560x1440
+    python3 chip_smoke.py   # the REBLUR and SIGMA paths of PATHS, 2560x1440
+
+Paths: REBLUR_DIFFUSE, REBLUR_SPECULAR, REBLUR_DIFFUSE_SPECULAR on the orbit scene;
+REBLUR_DIFFUSE_SPECULAR with hitDistanceReconstructionMode AREA_3X3 on the same frames with
+holes punched into the hit distance (.w = 0 on a seeded 30 % of the geometry pixels, as a
+renderer that traces some pixels and not others sends them); SIGMA_SHADOW and
+SIGMA_SHADOW_TRANSLUCENCY with the penumbra packed from the scene's distance to the occluder.
 
 Phases, each of which raises on failure (exit code != 0):
   1. build the hand-written kernels from `nrdtpu_torch/kernels/csrc/` with nvcc, one process
      per source, all started together;
-  2. per variant: run 3 frames of the orbit scene through `Engine(device="cuda")`, record
-     every kernel call of frame 4, and hold each kernel against its plain PyTorch version
-     on the same inputs on the card; time both, and compute each call's bound (compulsory
-     bytes over the card's memory rate, or operations over its float32 rate). The same again
-     with `enableAntiFirefly=True`, so that the anti-firefly ring of history_fix and
-     history_fix_fused is held against its plain version too. Every kernel module must be
-     called by one of the paths;
-  3. slices: for each variant a fresh `Engine(device="cuda")` runs 3 warm-up + 24 frames with
+  2. per REBLUR variant: run 3 frames of the orbit scene through `Engine(device="cuda")`,
+     record every kernel call of frame 4, and hold each kernel against its plain PyTorch
+     version on the same inputs on the card; time both, and compute each call's bound
+     (compulsory bytes over the card's memory rate, or operations over its float32 rate).
+     The same again with `enableAntiFirefly=True` (the anti-firefly ring of history_fix and
+     history_fix_fused), and with hit-distance reconstruction at radius 1 and 2 on the
+     punched frames (hitdist_recon only); then each SIGMA variant. Every kernel module must
+     be called by one of the paths;
+  3. slices: for each path a fresh `Engine(device="cuda")` runs 3 warm-up + 24 frames with
      the launch counts set to 0 just before and read just after; every output must be
-     finite, every kernel of the path launched exactly its count a frame, and each denoised
-     output must beat its noisy input by >= 3 dB against the scene's clean image; prints the
-     median ms/frame (CUDA events), the host ms/frame and the peak allocator bytes;
-  4. card vs CPU: the same 4 frames at 256x160 on the card and on the CPU plain path must
-     agree to >= 50 dB PSNR, for every output of every variant.
+     finite and every kernel of the path launched exactly its count a frame; each REBLUR
+     output must beat its noisy input by >= 3 dB against the scene's clean image, each SIGMA
+     output must lie in [0, 1], be lit on average (> 0.99) where the 9x9 neighbourhood is lit
+     and dark (< 0.15) in the umbra core; prints the median ms/frame (CUDA events), the host
+     ms/frame and the peak allocator bytes;
+  4. lit scene: both SIGMA variants on a scene without occluders at 256x160 keep every lit
+     pixel above 0.99;
+  5. card vs CPU: the same 4 frames at 256x160 on the card and on the CPU plain path must
+     agree to >= 50 dB PSNR, for every output of every path.
 
-With `--profile` it also traces 3 frames of each variant (after 4 warm-up) with
+With `--profile` it also traces 3 frames of each path (after 4 warm-up) with
 torch.profiler and prints the device time a frame, the device's idle share against the
 slice's median ms/frame, and the device time by kernel.
 
@@ -53,12 +64,16 @@ HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
 ATOL, RTOL, FLIP_FRACTION = 1e-4, 1e-4, 1e-4
 P = "nrdtpu/kernels/reblur_pallas.py"
 F = "nrdtpu/kernels/reblur_fused.py"
-SOURCES = {  # kernel: (source, TPU kernel it replaces, the other TPU kernels it also replaces)
+SP = "nrdtpu/kernels/sigma_pallas.py"
+# kernel: (source, TPU kernel it replaces, the other TPU kernels it also replaces: another
+# computation fused into it, or the v1 kernel that `nrdtpu/kernels/__init__.py` selects in its
+# place for the same pass under NRDTPU_BLUR=1)
+SOURCES = {
     "smb_resolve": ("nrdtpu_torch/kernels/csrc/smb_resolve.cu", f"{P}:577", None),
     "spatial_filter": ("nrdtpu_torch/kernels/csrc/spatial_filter.cu",
-                       "nrdtpu/kernels/reblur_blur2.py:264", None),
+                       "nrdtpu/kernels/reblur_blur2.py:264", f"{P}:1207"),
     "history_fix": ("nrdtpu_torch/kernels/csrc/history_fix.cu",
-                    "nrdtpu/kernels/reblur_hfix2.py:222", None),
+                    "nrdtpu/kernels/reblur_hfix2.py:222", f"{P}:1446"),
     "ts_prelude": ("nrdtpu_torch/kernels/csrc/ts_prelude.cu", f"{P}:1754", f"{P}:1705"),
     "spec_ta_head": ("nrdtpu_torch/kernels/csrc/spec_ta_head.cu", f"{P}:942",
                      f"{P}:882, {P}:847, {P}:171"),
@@ -67,26 +82,46 @@ SOURCES = {  # kernel: (source, TPU kernel it replaces, the other TPU kernels it
     "spatial_filter_fused": ("nrdtpu_torch/kernels/csrc/spatial_filter_fused.cu", f"{F}:787",
                              None),
     "history_fix_fused": ("nrdtpu_torch/kernels/csrc/history_fix_fused.cu", f"{F}:668", None),
+    "hitdist_recon": ("nrdtpu_torch/kernels/csrc/hitdist_recon.cu", f"{P}:1596", None),
+    "sigma_blur": ("nrdtpu_torch/kernels/csrc/sigma_blur.cu",
+                   "nrdtpu/kernels/sigma_blur2.py:281", f"{SP}:291"),
+    "sigma_ts": ("nrdtpu_torch/kernels/csrc/sigma_ts.cu", f"{SP}:449", None),
 }
-# per variant: its signals and its launches per frame
-VARIANTS = {
+DS_LAUNCHES = {"smb_resolve": 1, "spec_ta_head": 1, "nearest_multi": 1, "vmb_resolve": 1,
+               "spatial_filter_fused": 3, "history_fix_fused": 1, "ts_prelude": 2}
+SIGMA_LAUNCHES = {"sigma_blur": 2, "sigma_ts": 1}
+# per path: its denoiser, its signals (outputs), settings changed from the defaults, whether
+# its frames have hit-distance holes, and its launches per frame
+PATHS = {
     "REBLUR_DIFFUSE": dict(signals=("diff",), launches={
         "smb_resolve": 1, "spatial_filter": 3, "history_fix": 1, "ts_prelude": 1}),
     "REBLUR_SPECULAR": dict(signals=("spec",), launches={
         "smb_resolve": 1, "spatial_filter": 3, "history_fix": 1, "ts_prelude": 1,
         "spec_ta_head": 1, "nearest_multi": 1, "vmb_resolve": 1}),
-    "REBLUR_DIFFUSE_SPECULAR": dict(signals=("diff", "spec"), launches={
-        "smb_resolve": 1, "spec_ta_head": 1, "nearest_multi": 1, "vmb_resolve": 1,
-        "spatial_filter_fused": 3, "history_fix_fused": 1, "ts_prelude": 2}),
+    "REBLUR_DIFFUSE_SPECULAR": dict(signals=("diff", "spec"), launches=DS_LAUNCHES),
+    "REBLUR_DIFFUSE_SPECULAR+AREA_3X3": dict(
+        denoiser="REBLUR_DIFFUSE_SPECULAR", signals=("diff", "spec"), holes=True,
+        settings=dict(hitDistanceReconstructionMode="AREA_3X3"),
+        launches={**DS_LAUNCHES, "hitdist_recon": 1}),
+    "SIGMA_SHADOW": dict(signals=("shadow",), launches=SIGMA_LAUNCHES),
+    "SIGMA_SHADOW_TRANSLUCENCY": dict(signals=("shadow",), launches=SIGMA_LAUNCHES),
 }
+REBLUR_VARIANTS = ("REBLUR_DIFFUSE", "REBLUR_SPECULAR", "REBLUR_DIFFUSE_SPECULAR")
+HOLE_FRACTION = 0.3  # of the geometry pixels whose hit distance the frames with holes zero
+TRANSLUCENCY_RGB = (0.3, 0.6, 0.2)
 # Float operations a pixel, counted from the kernel sources (transcendentals count as one):
 # the fixed part of each kernel, and the parts that depend on the call (taps, signals)
 SF_TAP_OPS, SF_PREPASS_TAP_OPS = 110, 40   # reblur_filters.cuh:sf_filter, one tap
 HF_TAP_OPS, HF_MOMENT_OPS, HF_RING_OPS = 100, 27, 216  # :hf_filter tap, 3x3, the 72-tap ring
 FIXED_OPS = {"smb_resolve": 450, "ts_prelude": 40, "spec_ta_head": 120, "vmb_resolve": 600,
              "nearest_multi": 0, "spatial_filter": 0, "spatial_filter_fused": 0,
-             "history_fix": 0, "history_fix_fused": 0}
+             "history_fix": 0, "history_fix_fused": 0, "hitdist_recon": 40, "sigma_blur": 90,
+             "sigma_ts": 150}
 SMB_SIGNAL_OPS, TS_SAMPLE_OPS, NEAREST_SET_OPS = 200, 200, 12
+HD_TAP_OPS, HD_SIGNAL_TAP_OPS = 60, 15      # hitdist_recon.cu: one tap, and per signal
+SB_DENSE_TAP_OPS, SB_POISSON_TAP_OPS = 35, 50  # sigma_blur.cu: one tap, + 3 a channel
+ST_TAP_OPS, ST_CHANNEL_OPS = 5, 80          # sigma_ts.cu: a moment tap (+ 4 a channel),
+                                            # and the CatRom sample + clamp of a channel
 
 
 def log(*a):
@@ -110,21 +145,22 @@ def in_rt(sig):
 def out_rt(sig):
     from nrdtpu_torch.settings import ResourceType as RT
 
-    return RT.OUT_DIFF_RADIANCE_HITDIST if sig == "diff" else RT.OUT_SPEC_RADIANCE_HITDIST
+    return {"diff": RT.OUT_DIFF_RADIANCE_HITDIST, "spec": RT.OUT_SPEC_RADIANCE_HITDIST,
+            "shadow": RT.OUT_SHADOW_TRANSLUCENCY}[sig]
 
 
 class Scene:
-    """Frames of the port's orbit scene as input pools (numpy) for every variant."""
+    """Frames of the port's orbit scene as input pools (numpy) for every path."""
 
     def __init__(self, w, h, seed=0):
         from nrdtpu_torch.utils.scene import SceneGenerator, SceneSpec
 
-        self.w, self.h = w, h
+        self.w, self.h, self.seed = w, h, seed
         self.gen = SceneGenerator(SceneSpec(size=(w, h), noise=0.4, seed=seed),
                                   camera_mode="orbit")
 
     def frame(self, i, truth=False):
-        """(common settings, {variant: pool}, truth or None)."""
+        """(common settings, {path: pool}, truth or None)."""
         from nrdtpu_torch import frontend as fe
         from nrdtpu_torch.settings import ResourceType as RT
 
@@ -135,18 +171,35 @@ class Scene:
         view_z = torch.from_numpy(fd.view_z)
         base = {RT.IN_VIEWZ: fd.view_z, RT.IN_MV: fd.mv,
                 RT.IN_NORMAL_ROUGHNESS: self.gen.packed_normal_roughness(fd)}
-        packed = {}
+        holes = ((np.random.default_rng((self.seed, i)).random(fd.view_z.shape) < HOLE_FRACTION)
+                 & (fd.hit_mask > 0))
+        packed, punched = {}, {}
         for sig, noisy, hit, rough in (
                 ("diff", fd.diff_noisy, fd.diff_hit_dist, torch.ones(self.h, self.w)),
                 ("spec", fd.spec_noisy, fd.spec_hit_dist, torch.from_numpy(fd.roughness))):
             nhd = fe.reblur_get_norm_hit_dist(torch.from_numpy(hit), view_z, hdp, rough)
             packed[sig] = fe.reblur_pack_radiance_hitdist(torch.from_numpy(noisy), nhd).numpy()
-        pools = {name: {**base, **{in_rt(sig): packed[sig] for sig in v["signals"]}}
-                 for name, v in VARIANTS.items()}
+            punched[sig] = packed[sig].copy()
+            punched[sig][..., 3][holes] = 0.0
+        dist = torch.from_numpy(fd.dist_to_occluder)
+        penumbra = fe.sigma_pack_penumbra_directional(
+            dist, self.gen.spec.light_tan_angular_radius).numpy()
+        rgb = torch.tensor(TRANSLUCENCY_RGB).expand(self.h, self.w, 3)
+        sigma = {RT.IN_VIEWZ: fd.view_z, RT.IN_MV: fd.mv, RT.IN_PENUMBRA: penumbra,
+                 RT.IN_NORMAL_ROUGHNESS: base[RT.IN_NORMAL_ROUGHNESS]}
+        pools = {}
+        for name, v in PATHS.items():
+            if name.startswith("SIGMA"):
+                pools[name] = dict(sigma)
+                if name == "SIGMA_SHADOW_TRANSLUCENCY":
+                    pools[name][RT.IN_TRANSLUCENCY] = fe.sigma_pack_translucency(dist, rgb).numpy()
+            else:
+                src = punched if v.get("holes") else packed
+                pools[name] = {**base, **{in_rt(sig): src[sig] for sig in v["signals"]}}
         t = None
         if truth:
             t = dict(mask=fd.hit_mask > 0, diff=(fd.diff_clean, fd.diff_noisy),
-                     spec=(fd.spec_clean, fd.spec_noisy))
+                     spec=(fd.spec_clean, fd.spec_noisy), shadow_clean=fd.shadow_clean)
         return cs, pools, t
 
     def frames(self, n, workers=4):
@@ -162,14 +215,24 @@ class Scene:
                 yield pending.pop(i).result()
 
 
-def engine(variant, w, h, device, anti_firefly=False):
+def engine(denoiser, w, h, device, **settings):
+    """A fresh Engine of the denoiser on the device, with `settings` changed from the
+    defaults (enum fields by name)."""
+    from nrdtpu_torch import settings as S
     from nrdtpu_torch.engine import Engine
-    from nrdtpu_torch.settings import Denoiser, replace
 
-    eng = Engine({0: Denoiser[variant]}, resource_size=(w, h), device=device)
-    if anti_firefly:
-        eng.set_denoiser_settings(0, replace(eng._settings[0], enableAntiFirefly=True))
+    eng = Engine({0: S.Denoiser[denoiser]}, resource_size=(w, h), device=device)
+    if settings:
+        if "hitDistanceReconstructionMode" in settings:
+            settings["hitDistanceReconstructionMode"] = S.HitDistanceReconstructionMode[
+                settings["hitDistanceReconstructionMode"]]
+        eng.set_denoiser_settings(0, S.replace(eng._settings[0], **settings))
     return eng
+
+
+def path_engine(path, w, h, device):
+    return engine(PATHS[path].get("denoiser", path), w, h, device,
+                  **PATHS[path].get("settings", {}))
 
 
 def card_line():
@@ -235,6 +298,16 @@ def _ops(name, a, k):
         for params, ring in per:
             live = int((params[0] != 0.0).sum())
             ops += HF_MOMENT_OPS * px + (HF_RING_OPS * px if ring else 0) + HF_TAP_OPS * 20 * live
+    elif name == "hitdist_recon":
+        taps = (2 * k["radius"] + 1) ** 2 - 1
+        nsig = sum(x is not None for x in a[2:4])
+        ops += (HD_TAP_OPS + HD_SIGNAL_TAP_OPS * nsig) * taps * px
+    elif name == "sigma_blur":
+        c = 1 if a[1] is None else a[1].shape[-1]
+        ops += ((SB_DENSE_TAP_OPS + 3 * c) * 24 + (SB_POISSON_TAP_OPS + 3 * c) * 8) * px
+    elif name == "sigma_ts":
+        c = a[0].shape[-1]
+        ops += ((ST_TAP_OPS + 4 * c) * 25 + ST_CHANNEL_OPS * c) * px
     return ops
 
 
@@ -261,11 +334,12 @@ def _library(name, a, k):
                                                    padding_mode="border", align_corners=False)
 
 
-def record_calls(variant, w, h, frames, anti_firefly):
-    """Every kernel call of the last of `frames` through a fresh Engine(device="cuda")."""
+def record_calls(denoiser, pool, w, h, frames, **settings):
+    """Every kernel call of the last of `frames` (their pools[pool]) through a fresh
+    Engine(device="cuda")."""
     from nrdtpu_torch import kernels as KM
 
-    eng = engine(variant, w, h, "cuda", anti_firefly)
+    eng = engine(denoiser, w, h, "cuda", **settings)
     calls = []
     originals = {name: getattr(m, name) for name, m in KM.MODULES.items()}
     try:
@@ -277,7 +351,7 @@ def record_calls(variant, w, h, frames, anti_firefly):
                         return _f(*a, **k)
                     setattr(m, name, rec)
             eng.set_common_settings(cs)
-            eng.denoise([0], pools[variant])
+            eng.denoise([0], pools[pool])
     finally:
         for name, m in KM.MODULES.items():
             setattr(m, name, originals[name])
@@ -285,54 +359,72 @@ def record_calls(variant, w, h, frames, anti_firefly):
     return calls
 
 
+def kernel_runs():
+    """(label, denoiser, pool, settings, kernels to hold or None for all, timed) of the
+    kernel phase: each REBLUR variant with and without the anti-firefly ring (the ring's
+    history-fix calls timed apart), each with hit-distance reconstruction at radius 1 and 2
+    on the frames with holes (the AREA_3X3 slice's pools), each SIGMA variant."""
+    runs = []
+    for v in REBLUR_VARIANTS:
+        runs.append((v, v, v, {}, None, True))
+        runs.append((v, v, v, dict(enableAntiFirefly=True), None, False))
+    for v in REBLUR_VARIANTS:
+        for mode in ("AREA_3X3", "AREA_5X5"):
+            runs.append((f"{v} {mode}", v, "REBLUR_DIFFUSE_SPECULAR+AREA_3X3",
+                         dict(hitDistanceReconstructionMode=mode), {"hitdist_recon"}, True))
+    for v in ("SIGMA_SHADOW", "SIGMA_SHADOW_TRANSLUCENCY"):
+        runs.append((v, v, v, {}, None, True))
+    return runs
+
+
 def kernel_phase(w, h, frames):
-    """Record the kernel calls of one frame of each main path, with and without the
-    anti-firefly ring, and hold each kernel against its plain version on the same inputs.
-    Times and bounds are of the calls without the ring; the ring's calls of the history
-    fixes are timed apart."""
+    """Record the kernel calls of one frame of each run of `kernel_runs` and hold each kernel
+    against its plain version on the same inputs. Times and bounds are of the timed runs;
+    the anti-firefly ring's calls of the history fixes are timed apart."""
     from nrdtpu_torch import kernels as KM
 
     results = {}
-    for variant in VARIANTS:
-        for af in (False, True):
-            for name, a, k in record_calls(variant, w, h, frames, af):
-                m = KM.MODULES[name]
-                kern = getattr(m, name)
-                ref = getattr(m, name + "_ref")
-                got = _outputs(kern(*a, **k))
-                want = _outputs(ref(*a, **k))
-                torch.cuda.synchronize()
-                r = results.setdefault(name, dict(max_abs_err=0.0, max_rel_err=0.0, over=0,
-                                                  count=0, ms={}, plain_ms={}, bound_ms={},
-                                                  bound_by=set(), library_ms={},
-                                                  ms_anti_firefly={}, outputs={}))
-                for key in want:
-                    g, wv = got[key].float(), want[key].float()
-                    d = (g - wv).abs()
-                    over = int((d > ATOL + RTOL * wv.abs()).sum())
-                    mx = float(d.max())
-                    o = r["outputs"].setdefault(key, dict(max_abs_err=0.0, over=0, count=0))
-                    o["max_abs_err"] = max(o["max_abs_err"], mx)
-                    o["over"] += over
-                    o["count"] += d.numel()
-                    r["max_abs_err"] = max(r["max_abs_err"], mx)
-                    rel = float((d / wv.abs().clamp_min(1e-6)).max())
-                    r["max_rel_err"] = max(r["max_rel_err"], rel)
-                    r["over"] += over
-                    r["count"] += d.numel()
-                if af:
-                    if name in ("history_fix", "history_fix_fused"):
-                        r["ms_anti_firefly"].setdefault(variant, []).append(
-                            _time(lambda: kern(*a, **k), 20))
-                    continue
-                r["ms"].setdefault(variant, []).append(_time(lambda: kern(*a, **k), 20))
-                r["plain_ms"].setdefault(variant, []).append(_time(lambda: ref(*a, **k), 3))
-                b, by = _bound(name, a, k, got)
-                r["bound_ms"].setdefault(variant, []).append(b)
-                r["bound_by"].add(by)
-                lib = _library(name, a, k)
-                if lib is not None:
-                    r["library_ms"].setdefault(variant, []).append(_time(lib, 20))
+    for label, denoiser, pool, settings, only, timed in kernel_runs():
+        for name, a, k in record_calls(denoiser, pool, w, h, frames, **settings):
+            if only is not None and name not in only:
+                continue
+            m = KM.MODULES[name]
+            kern = getattr(m, name)
+            ref = getattr(m, name + "_ref")
+            got = _outputs(kern(*a, **k))
+            want = _outputs(ref(*a, **k))
+            torch.cuda.synchronize()
+            r = results.setdefault(name, dict(max_abs_err=0.0, max_rel_err=0.0, over=0,
+                                              count=0, ms={}, plain_ms={}, bound_ms={},
+                                              bound_by=set(), library_ms={},
+                                              ms_anti_firefly={}, outputs={}))
+            for key in want:
+                g, wv = got[key].float(), want[key].float()
+                d = (g - wv).abs()
+                over = int((d > ATOL + RTOL * wv.abs()).sum())
+                mx = float(d.max())
+                o = r["outputs"].setdefault(key, dict(max_abs_err=0.0, over=0, count=0))
+                o["max_abs_err"] = max(o["max_abs_err"], mx)
+                o["over"] += over
+                o["count"] += d.numel()
+                r["max_abs_err"] = max(r["max_abs_err"], mx)
+                rel = float((d / wv.abs().clamp_min(1e-6)).max())
+                r["max_rel_err"] = max(r["max_rel_err"], rel)
+                r["over"] += over
+                r["count"] += d.numel()
+            if not timed:
+                if name in ("history_fix", "history_fix_fused"):
+                    r["ms_anti_firefly"].setdefault(label, []).append(
+                        _time(lambda: kern(*a, **k), 20))
+                continue
+            r["ms"].setdefault(label, []).append(_time(lambda: kern(*a, **k), 20))
+            r["plain_ms"].setdefault(label, []).append(_time(lambda: ref(*a, **k), 3))
+            b, by = _bound(name, a, k, got)
+            r["bound_ms"].setdefault(label, []).append(b)
+            r["bound_by"].add(by)
+            lib = _library(name, a, k)
+            if lib is not None:
+                r["library_ms"].setdefault(label, []).append(_time(lib, 20))
     for name, r in results.items():
         frac = r["over"] / max(r["count"], 1)
         r["over_fraction"] = frac
@@ -362,21 +454,84 @@ def kernel_phase(w, h, frames):
     return results
 
 
-def slice_phase(variant, w, h, frames, warmup):
+def _min_filter(x, size=9):
+    """Minimum over each size x size neighbourhood (in-image pixels only), (h, w) float."""
+    t = torch.as_tensor(x, dtype=torch.float32)[None, None]
+    return (-torch.nn.functional.max_pool2d(-t, size, stride=1, padding=size // 2))[0, 0].numpy()
+
+
+def check_shadow(path, out, truth):
+    """SIGMA's output criteria (tests/test_sigma.py) on a frame of the orbit scene: in [0, 1],
+    dark (< 0.15) in the umbra core (the 9x9 neighbourhood in the analytic umbra), lit on
+    average (> 0.99) in the lit core. TS lets the history through where it was darker (the
+    "street magic", 0.6 x history weight x antilag), so single lit-core pixels may dip;
+    `lit_scene_check` holds every pixel of a scene without occluders above 0.99."""
+    out = out.cpu().numpy()
+    if not (out.min() >= 0.0 and out.max() <= 1.0):
+        raise AssertionError(f"{path}: output outside [0, 1]: [{out.min()}, {out.max()}]")
+    shadow = out[..., 0] * out[..., 0]  # SIGMA_BackEnd_UnpackShadow
+    geometry = truth["mask"].astype(np.float32)
+    lit_core = _min_filter(truth["shadow_clean"] * geometry) > 0.5
+    umbra_core = (_min_filter((1.0 - truth["shadow_clean"]) * geometry) > 0.5)
+    lit = shadow[lit_core]
+    umbra_max = float(shadow[umbra_core].max()) if umbra_core.any() else None
+    lit_mean = float(lit.mean()) if lit.size else None
+    if lit.size:
+        log(f"slice {path}: {lit.size} lit-core pixels, mean {lit_mean}, min {lit.min()}, "
+            f"below 0.99 {float((lit < 0.99).mean())}")
+    log(f"slice {path}: {int(umbra_core.sum())} umbra-core pixels, max {umbra_max}")
+    if lit_mean is None or umbra_max is None:
+        if shadow.size >= 1_000_000:  # every full-size orbit frame has both cores
+            raise AssertionError(f"{path}: the frame has no lit or no umbra core to check")
+        return
+    if not (lit_mean > 0.99 and umbra_max < 0.15):
+        raise AssertionError(f"{path}: lit core mean {lit_mean} (> 0.99 expected), umbra core "
+                             f"max {umbra_max} (< 0.15 expected)")
+
+
+def lit_scene_check(w=256, h=160, frames=3):
+    """tests/test_sigma.py's "fully lit stays lit" on the card: a scene without occluders,
+    static camera; every lit geometry pixel of both SIGMA variants' output > 0.99."""
+    from nrdtpu_torch import frontend as fe
+    from nrdtpu_torch.settings import ResourceType as RT
+    from nrdtpu_torch.utils.scene import SceneGenerator, SceneSpec
+
+    gen = SceneGenerator(SceneSpec(size=(w, h), spheres=()), camera_mode="static")
+    for path in ("SIGMA_SHADOW", "SIGMA_SHADOW_TRANSLUCENCY"):
+        eng = path_engine(path, w, h, "cuda")
+        for i in range(frames):
+            fd = gen.frame(i)
+            dist = torch.from_numpy(fd.dist_to_occluder)
+            pool = {RT.IN_VIEWZ: fd.view_z, RT.IN_MV: fd.mv,
+                    RT.IN_NORMAL_ROUGHNESS: gen.packed_normal_roughness(fd),
+                    RT.IN_PENUMBRA: fe.sigma_pack_penumbra_directional(
+                        dist, gen.spec.light_tan_angular_radius).numpy(),
+                    RT.IN_TRANSLUCENCY: fe.sigma_pack_translucency(
+                        dist, torch.tensor(TRANSLUCENCY_RGB).expand(h, w, 3)).numpy()}
+            eng.set_common_settings(fd.common_settings)
+            out = eng.denoise([0], pool)[RT.OUT_SHADOW_TRANSLUCENCY].cpu().numpy()
+        lit = (fd.hit_mask > 0) & (fd.shadow_clean > 0.5)
+        low = float((out[..., 0] ** 2)[lit].min())
+        log(f"lit scene {path}: {int(lit.sum())} lit geometry pixels, min {low}")
+        if not low > 0.99:
+            raise AssertionError(f"{path}: a lit pixel of the occluder-free scene is {low}")
+
+
+def slice_phase(path, w, h, frames, warmup):
     """One main path through the Engine, with its own launch counts."""
     from nrdtpu_torch import frontend as fe
     from nrdtpu_torch import kernels as KM
 
     n = len(frames)
-    signals = VARIANTS[variant]["signals"]
-    eng = engine(variant, w, h, "cuda")
+    signals = PATHS[path]["signals"]
+    eng = path_engine(path, w, h, "cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ms, host_ms = [], []
     gains = {}
     KM.reset_launch_counts()
     for i, (cs, pools, truth) in enumerate(frames):
-        pool = {k: torch.from_numpy(v).cuda() for k, v in pools[variant].items()}
+        pool = {k: torch.from_numpy(v).cuda() for k, v in pools[path].items()}
         torch.cuda.synchronize()
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
@@ -388,10 +543,13 @@ def slice_phase(variant, w, h, frames, warmup):
         host = (time.perf_counter() - t0) * 1e3
         for sig in signals:
             out = outs[out_rt(sig)]
-            if tuple(out.shape) != (h, w, 4) or not bool(torch.isfinite(out).all()):
-                raise AssertionError(f"{variant} frame {i} {sig}: output not finite or of "
+            c = 1 if path == "SIGMA_SHADOW" else 4
+            if tuple(out.shape) != (h, w, c) or not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"{path} frame {i} {sig}: output not finite or of "
                                      f"shape {tuple(out.shape)}")
-            if truth is not None:
+            if truth is not None and sig == "shadow":
+                check_shadow(path, out, truth)
+            elif truth is not None:
                 rgb = fe.reblur_unpack_radiance_hitdist(out)[..., :3].cpu().numpy()
                 clean, noisy = truth[sig]
                 m = truth["mask"]
@@ -401,33 +559,32 @@ def slice_phase(variant, w, h, frames, warmup):
             host_ms.append(host)
     counts = KM.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    expected = {k: n * VARIANTS[variant]["launches"].get(k, 0) for k in KM.MODULES}
-    log(f"slice {variant}: {n} frames at {w}x{h}, launches {counts} (expected {expected})")
+    expected = {k: n * PATHS[path]["launches"].get(k, 0) for k in KM.MODULES}
+    log(f"slice {path}: {n} frames at {w}x{h}, launches {counts} (expected {expected})")
     if counts != expected:
-        raise AssertionError(f"{variant} launch counts {counts} != {expected}")
-    log(f"slice {variant}: median {np.median(ms):.3f} ms/frame (CUDA events, {len(ms)} frames "
+        raise AssertionError(f"{path} launch counts {counts} != {expected}")
+    log(f"slice {path}: median {np.median(ms):.3f} ms/frame (CUDA events, {len(ms)} frames "
         f"after {warmup} warm-up; min {min(ms):.3f}, max {max(ms):.3f}); host wall "
         f"{np.median(host_ms):.3f} ms/frame")
-    log(f"slice {variant}: peak allocated {peak / 1e6:.2f} MB (NRD REBLUR_DIFFUSE working set "
+    log(f"slice {path}: peak allocated {peak / 1e6:.2f} MB (NRD REBLUR_DIFFUSE working set "
         f"{NRD_WORKING_SET_MB} MB)")
-    for sig in signals:
-        noisy_db, out_db = gains[sig]
-        log(f"slice {variant} {sig}: PSNR vs clean on geometry: noisy input {noisy_db:.2f} dB, "
+    for sig, (noisy_db, out_db) in gains.items():
+        log(f"slice {path} {sig}: PSNR vs clean on geometry: noisy input {noisy_db:.2f} dB, "
             f"denoised {out_db:.2f} dB")
         if not out_db >= noisy_db + 3.0:
-            raise AssertionError(f"{variant} {sig}: denoised output does not beat the noisy "
+            raise AssertionError(f"{path} {sig}: denoised output does not beat the noisy "
                                  f"input by 3 dB: {gains[sig]}")
     return counts, float(np.median(ms))
 
 
-def profile_phase(variant, w, h, frames, slice_ms, warmup=4, n=3):
+def profile_phase(path, w, h, frames, slice_ms, warmup=4, n=3):
     """Device time a frame by kernel name over n traced frames after `warmup` frames."""
     from torch.profiler import ProfilerActivity, profile
 
     from nrdtpu_torch import kernels as KM
 
-    eng = engine(variant, w, h, "cuda")
-    pools = [(cs, {k: torch.from_numpy(v).cuda() for k, v in p[variant].items()})
+    eng = path_engine(path, w, h, "cuda")
+    pools = [(cs, {k: torch.from_numpy(v).cuda() for k, v in p[path].items()})
              for cs, p, _ in frames[:warmup + n]]
     for cs, pool in pools[:warmup]:
         eng.set_common_settings(cs)
@@ -445,7 +602,7 @@ def profile_phase(variant, w, h, frames, slice_ms, warmup=4, n=3):
 
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not events:
-        raise AssertionError(f"profile {variant}: the trace holds no device events")
+        raise AssertionError(f"profile {path}: the trace holds no device events")
     by_name = {}
     for e in events:
         t, c = by_name.get(e.name, (0.0, 0))
@@ -453,35 +610,35 @@ def profile_phase(variant, w, h, frames, slice_ms, warmup=4, n=3):
     busy = sum(t for t, _ in by_name.values())
     groups = {"hand kernels": 0.0, "torch.cat / torch.stack copies": 0.0, "rest of the glue": 0.0}
     for name, (t, _) in by_name.items():
-        key = ("hand kernels" if any(f"{k}_kernel(" in name for k in KM.MODULES)
+        key = ("hand kernels" if any(f"{k}_kernel" in name for k in KM.MODULES)
                else "torch.cat / torch.stack copies" if "CatArrayBatchedCopy" in name
                else "rest of the glue")
         groups[key] += t
-    log(f"profile {variant}: device busy {busy:.3f} ms/frame, idle share "
+    log(f"profile {path}: device busy {busy:.3f} ms/frame, idle share "
         f"{1.0 - busy / slice_ms:.3f} of the slice's {slice_ms:.3f} ms/frame; "
         f"{len(events) / n:.0f} device events a frame; "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in groups.items()))
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
-        log(f"profile {variant}:   {t:8.3f} ms/frame  {c / n:5.0f} x  {name[:90]}")
+        log(f"profile {path}:   {t:8.3f} ms/frame  {c / n:5.0f} x  {name[:90]}")
 
 
 def card_vs_cpu_phase(w=256, h=160, frames=4):
     frames = list(Scene(w, h).frames(frames, workers=1))
-    for variant, v in VARIANTS.items():
-        cuda, cpu = engine(variant, w, h, "cuda"), engine(variant, w, h, "cpu")
+    for path, v in PATHS.items():
+        cuda, cpu = path_engine(path, w, h, "cuda"), path_engine(path, w, h, "cpu")
         worst = {sig: float("inf") for sig in v["signals"]}
         for i, (cs, pools, _) in enumerate(frames):
             outs = []
             for eng in (cuda, cpu):
                 eng.set_common_settings(cs)
-                outs.append(eng.denoise([0], pools[variant]))
+                outs.append(eng.denoise([0], pools[path]))
             for sig in v["signals"]:
                 p = psnr(outs[0][out_rt(sig)].cpu().numpy(), outs[1][out_rt(sig)].cpu().numpy())
                 worst[sig] = min(worst[sig], p)
-                log(f"card vs cpu {variant} {sig} frame {i}: {p:.2f} dB")
+                log(f"card vs cpu {path} {sig} frame {i}: {p:.2f} dB")
         for sig, p in worst.items():
             if p < 50.0:
-                raise AssertionError(f"{variant} {sig}: card and CPU disagree: {p:.2f} dB < 50 dB")
+                raise AssertionError(f"{path} {sig}: card and CPU disagree: {p:.2f} dB < 50 dB")
 
 
 def main():
@@ -490,7 +647,7 @@ def main():
     ap.add_argument("--height", type=int, default=1440)
     ap.add_argument("--frames", type=int, default=24, help="timed frames of each slice")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace each variant with torch.profiler")
+                    help="also trace each path with torch.profiler")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -506,22 +663,22 @@ def main():
 
     warmup = 3
     # the frames are made first, so that the scene generator's threads do not compete with
-    # the denoiser for the host while it is timed; every variant reads the same frames
+    # the denoiser for the host while it is timed; every path reads the same frames
     t0 = time.perf_counter()
     frames = list(Scene(args.width, args.height).frames(warmup + args.frames))
     log(f"scene: {len(frames)} frames in {time.perf_counter() - t0:.1f} s")
     kr = kernel_phase(args.width, args.height, frames[:4])
     log(f"phase kernels: done at {time.perf_counter() - t_start:.1f} s")
     counts, slice_ms = {}, {}
-    for variant in VARIANTS:
-        counts[variant], slice_ms[variant] = slice_phase(variant, args.width, args.height,
-                                                         frames, warmup)
-        log(f"phase slice {variant}: done at {time.perf_counter() - t_start:.1f} s")
+    for path in PATHS:
+        counts[path], slice_ms[path] = slice_phase(path, args.width, args.height, frames, warmup)
+        log(f"phase slice {path}: done at {time.perf_counter() - t_start:.1f} s")
     if args.profile:
-        for variant in VARIANTS:
-            profile_phase(variant, args.width, args.height, frames, slice_ms[variant])
+        for path in PATHS:
+            profile_phase(path, args.width, args.height, frames, slice_ms[path])
         log(f"phase profile: done at {time.perf_counter() - t_start:.1f} s")
     del frames
+    lit_scene_check()
     card_vs_cpu_phase()
     log(f"phase card vs cpu: done at {time.perf_counter() - t_start:.1f} s")
 

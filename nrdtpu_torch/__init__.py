@@ -2,8 +2,10 @@
 
 A second package beside `nrdtpu` (the JAX reference): the same settings, resource contract
 and state, with every TPU kernel of the ported path written by hand in CUDA C++ for sm_90a
-(`kernels/csrc/`). It imports torch and numpy only. It runs REBLUR_DIFFUSE and
-REBLUR_SPECULAR through `engine.Engine`; ROADMAP.md lists what is still to be ported.
+(`kernels/csrc/`). It imports torch and numpy only. It runs REBLUR_DIFFUSE,
+REBLUR_SPECULAR, REBLUR_DIFFUSE_SPECULAR (with hit-distance reconstruction), SIGMA_SHADOW and
+SIGMA_SHADOW_TRANSLUCENCY through `engine.Engine`; ROADMAP.md lists what is still to be
+ported.
 """
 
 from . import settings  # noqa: F401

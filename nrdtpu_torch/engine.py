@@ -52,6 +52,10 @@ def _denoiser_class(d: Denoiser):
         from .passes.reblur.denoiser import ReblurDenoiser
 
         return ReblurDenoiser
+    if d in (Denoiser.SIGMA_SHADOW, Denoiser.SIGMA_SHADOW_TRANSLUCENCY):
+        from .passes.sigma.denoiser import SigmaDenoiser
+
+        return SigmaDenoiser
     raise NotImplementedError(f"{d.name} is not ported yet (ROADMAP.md lists the next slices)")
 
 

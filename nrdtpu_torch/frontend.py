@@ -1,5 +1,5 @@
-"""Application-facing pack/unpack contract (`NRD.hlsli`) - the part the REBLUR_DIFFUSE and
-REBLUR_SPECULAR slices need, counterpart of `nrdtpu/frontend.py`."""
+"""Application-facing pack/unpack contract (`NRD.hlsli`) - the part the REBLUR and SIGMA
+slices need, counterpart of `nrdtpu/frontend.py`."""
 
 from __future__ import annotations
 
@@ -79,6 +79,32 @@ def reblur_pack_radiance_hitdist(radiance, norm_hit_dist, sanitize=True):
 def reblur_unpack_radiance_hitdist(data):
     """REBLUR_BackEnd_UnpackRadianceAndNormHitDist (NRD.hlsli:863-868)."""
     return torch.cat([nm.ycocg_to_linear(data[..., :3]), data[..., 3:4]], -1)
+
+
+def sigma_pack_penumbra_directional(distance_to_occluder, tan_of_light_angular_radius):
+    """SIGMA_FrontEnd_PackPenumbra, directional light (NRD.hlsli:828-834)."""
+    penumbra_radius = distance_to_occluder * tan_of_light_angular_radius * 0.5
+    return torch.where(distance_to_occluder >= NRD_FP16_MAX, NRD_FP16_MAX,
+                       torch.clamp_max(penumbra_radius, 32768.0))
+
+
+def sigma_pack_penumbra_local(distance_to_occluder, distance_to_light, light_size):
+    """SIGMA_FrontEnd_PackPenumbra, local light (NRD.hlsli:837-845)."""
+    penumbra_size = light_size * distance_to_occluder / torch.clamp_min(
+        distance_to_light - distance_to_occluder, NRD_EPS)
+    return torch.where(distance_to_occluder >= NRD_FP16_MAX, NRD_FP16_MAX,
+                       torch.clamp_max(penumbra_size * 0.5, 32768.0))
+
+
+def sigma_pack_translucency(distance_to_occluder, translucency):
+    """SIGMA_FrontEnd_PackTranslucency (NRD.hlsli:848-855)."""
+    x = (distance_to_occluder >= NRD_FP16_MAX).to(torch.float32)
+    return torch.cat([x[..., None], nm.saturate(translucency)], -1)
+
+
+def sigma_unpack_shadow(shadow):
+    """SIGMA_BackEnd_UnpackShadow (NRD.hlsli:931): the shadow is stored as its square root."""
+    return shadow * shadow
 
 
 def environment_term_rtg(rf0, nov, roughness):

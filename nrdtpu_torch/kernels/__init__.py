@@ -1,13 +1,16 @@
-"""Hand-written CUDA kernels (sm_90a) of the REBLUR_DIFFUSE, REBLUR_SPECULAR and
-REBLUR_DIFFUSE_SPECULAR paths, one module each.
+"""Hand-written CUDA kernels (sm_90a) of the REBLUR_DIFFUSE, REBLUR_SPECULAR,
+REBLUR_DIFFUSE_SPECULAR, SIGMA_SHADOW and SIGMA_SHADOW_TRANSLUCENCY paths, one module each.
 
 Every module holds the kernel's wrapper, its plain PyTorch version (`*_ref`) and a launch
 count (`launches`). The wrapper takes the plain version for CPU tensors and launches the
-kernel for CUDA tensors; it never falls back from one to the other.
+kernel for CUDA tensors; it never falls back from one to the other. A v1 twin below is the
+kernel that `nrdtpu/kernels/__init__.py` selects for the same pass under NRDTPU_BLUR=1.
 
   smb_resolve    <- nrdtpu/kernels/reblur_pallas.py:577 reblur_smb_resolve
   spatial_filter <- nrdtpu/kernels/reblur_blur2.py:264 spatial_filter_taps_pallas2
+                    (and its v1 twin nrdtpu/kernels/reblur_pallas.py:1207)
   history_fix    <- nrdtpu/kernels/reblur_hfix2.py:222 history_fix_taps_pallas2
+                    (and its v1 twin nrdtpu/kernels/reblur_pallas.py:1446)
   ts_prelude     <- nrdtpu/kernels/reblur_pallas.py:1754 moments_minmax_pallas
                     + nrdtpu/kernels/reblur_pallas.py:1705 hist_sample_pallas
   spec_ta_head   <- nrdtpu/kernels/reblur_pallas.py:942 spec_ta_head
@@ -16,10 +19,15 @@ kernel for CUDA tensors; it never falls back from one to the other.
   vmb_resolve    <- nrdtpu/kernels/reblur_pallas.py:779 reblur_vmb_resolve
   spatial_filter_fused <- nrdtpu/kernels/reblur_fused.py:787 spatial_filter_fused_pallas
   history_fix_fused    <- nrdtpu/kernels/reblur_fused.py:668 history_fix_fused_pallas
+  hitdist_recon  <- nrdtpu/kernels/reblur_pallas.py:1596 hitdist_recon_pallas
+  sigma_blur     <- nrdtpu/kernels/sigma_blur2.py:281 sigma_blur_pallas2
+                    (and its v1 twin nrdtpu/kernels/sigma_pallas.py:291 sigma_blur_pallas)
+  sigma_ts       <- nrdtpu/kernels/sigma_pallas.py:449 sigma_ts_pallas
 """
 
-from . import (history_fix, history_fix_fused, nearest_multi, smb_resolve, spatial_filter,
-               spatial_filter_fused, spec_ta_head, ts_prelude, vmb_resolve)
+from . import (history_fix, history_fix_fused, hitdist_recon, nearest_multi, sigma_blur,
+               sigma_ts, smb_resolve, spatial_filter, spatial_filter_fused, spec_ta_head,
+               ts_prelude, vmb_resolve)
 
 MODULES = {
     "smb_resolve": smb_resolve,
@@ -31,6 +39,9 @@ MODULES = {
     "vmb_resolve": vmb_resolve,
     "spatial_filter_fused": spatial_filter_fused,
     "history_fix_fused": history_fix_fused,
+    "hitdist_recon": hitdist_recon,
+    "sigma_blur": sigma_blur,
+    "sigma_ts": sigma_ts,
 }
 
 

@@ -1,0 +1,115 @@
+"""REBLUR hit-distance reconstruction - kernel `csrc/hitdist_recon.cu`.
+
+Replaces `nrdtpu/kernels/reblur_pallas.py:1596` (`hitdist_recon_pallas`). Computes the taps
+of the XLA function `nrdtpu/passes/reblur/kernels.py:2212-2293`: where a signal's hit distance
+is 0 (a pixel the renderer traced no hit for), it is refilled from the (2r+1)^2 neighbourhood,
+r = 1 (AREA_3X3) or 2 (AREA_5X5), centre excluded. A non-zero centre keeps its value through a
+1000x weight. Each tap is weighted by in-screen (strict `0 < uv < 1`, as XLA's
+`is_in_screen_nearest`; the TPU kernel's own test is not carried over), a Gaussian of |o|/2,
+the plane distance to the centre's plane (`ga`, `gb`), the normal angle (the signal's
+normal-weight parameter) and, for specular, the roughness^2 weight (`ra`, `rb`); zero taps
+weigh 0. Diffuse, specular or both in one launch; the other channels stay in the glue.
+
+Bound on the H100: memory. Per pixel at 2560x1440 it reads viewZ (4 B), the packed normal
+(16 B), each signal (16 B, only its .w is used), the parameter planes (12-24 B) and writes
+4 B a signal: ~84 B/px with both signals, ~310 MB, ~0.09 ms at 3.35 TB/s. The taps are L1/L2
+neighbours. One thread per pixel in 16x16 blocks with plain global loads.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import frontend as fe
+from .. import math as nm
+from ..ops import resample, stencil
+from . import build
+
+launches = 0
+# (dy, dx, Gaussian weight of |o|/2) of each tap, row by row, for radius 1 and 2
+TAPS = {r: [(dy, dx, nm.get_gaussian_weight(float((dx * dx + dy * dy) ** 0.5) * 0.5))
+            for dy, dx in stencil.offsets_square(r, exclude_center=True)] for r in (1, 2)}
+
+
+def hitdist_recon_ref(view_z_in, normal_roughness, diff, spec, params, *, radius,
+                      view_z_scale, frustum, ortho_mode, rect_size_inv, world_to_view):
+    """Plain PyTorch version of the kernel (the tap loop of the XLA function). diff, spec:
+    (h, w, 4) signals or None; params: (P, h, w) = ga, gb, then the diffuse normal-weight
+    parameter if diff, then the specular one, ra and rb if spec. Returns {signal: (h, w)}."""
+    h, w = view_z_in.shape
+    uv = resample.pixel_uv_grid(h, w, view_z_in.device)
+    view_z = torch.abs(view_z_in) * view_z_scale
+    n, _, _ = fe.unpack_normal_roughness(normal_roughness)
+    nv = nm.rotate_vector(world_to_view, n)
+    rest = iter(params[2:])
+    ga, gb = params[0], params[1]
+    sig = {}
+    if diff is not None:
+        sig["diff"] = dict(hd=diff[..., 3], nwp=next(rest))
+    if spec is not None:
+        sig["spec"] = dict(hd=spec[..., 3], nwp=next(rest), ra=next(rest), rb=next(rest))
+    for s in sig.values():
+        s["sum"] = 1000.0 * (s["hd"] != 0.0).to(torch.float32)
+        s["acc"] = s["hd"] * s["sum"]
+    rinv = [float(v) for v in np.asarray(rect_size_inv, np.float32)]
+    for dy, dx, gauss in TAPS[radius]:
+        zs = stencil.shifted(view_z, dy, dx)
+        nr_s = stencil.shifted(normal_roughness, dy, dx)
+        ns, rs, _ = fe.unpack_normal_roughness(nr_s)
+        uv_s = torch.stack([uv[..., 0] + dx * rinv[0], uv[..., 1] + dy * rinv[1]], -1)
+        xvs = nm.reconstruct_view_position(uv_s, frustum, zs, ortho_mode)
+        w_ = resample.is_in_screen_nearest(uv_s)
+        w_ = w_ * gauss
+        w_ = w_ * nm.compute_weight(nm.dot(nv, xvs), ga, gb)
+        angle = nm.acos_approx(nm.dot(n, ns))
+        for name, s in sig.items():
+            ws = w_ * nm.compute_exponential_weight(angle, s["nwp"], 0.0)
+            if name == "spec":
+                ws = ws * nm.compute_exponential_weight(rs * rs, s["ra"], s["rb"])
+            tap = stencil.shifted(s["hd"], dy, dx)
+            ws = ws * (tap != 0.0).to(torch.float32)
+            s["acc"] = s["acc"] + tap * ws
+            s["sum"] = s["sum"] + ws
+    return {name: s["acc"] / torch.clamp_min(s["sum"], fe.NRD_EPS) for name, s in sig.items()}
+
+
+def hitdist_recon(view_z_in, normal_roughness, diff, spec, params, *, radius, view_z_scale,
+                  frustum, ortho_mode, rect_size_inv, world_to_view):
+    """view_z_in (h, w), normal_roughness (h, w, 4), diff / spec (h, w, 4) or None (at least
+    one given), params (P, h, w) as `hitdist_recon_ref` says; radius 1 or 2. Returns
+    {"diff": (h, w), "spec": (h, w)} for the signals given: the reconstructed hit distance."""
+    global launches
+    kw = dict(radius=radius, view_z_scale=view_z_scale, frustum=frustum, ortho_mode=ortho_mode,
+              rect_size_inv=rect_size_inv, world_to_view=world_to_view)
+    dev = build.kernel_device(view_z_in)
+    if dev is None:
+        return hitdist_recon_ref(view_z_in, normal_roughness, diff, spec, params, **kw)
+    if radius not in (1, 2):
+        raise ValueError(f"radius {radius}: the kernel takes 1 (3x3) or 2 (5x5)")
+    h, w = view_z_in.shape
+    f32 = torch.float32
+    names = [name for name, s in (("diff", diff), ("spec", spec)) if s is not None]
+    if not names:
+        raise ValueError("hitdist_recon: no signal given")
+    n_params = 2 + (diff is not None) + 3 * (spec is not None)
+    ins = [("view_z_in", view_z_in, (h, w)), ("normal_roughness", normal_roughness, (h, w, 4)),
+           ("params", params, (n_params, h, w))]
+    ins += [(name, s, (h, w, 4)) for name, s in (("diff", diff), ("spec", spec)) if s is not None]
+    for name, t, shape in ins:
+        build.check(name, t, dev, f32, shape)
+    out = torch.empty((len(names), h, w), dtype=f32, device=dev)
+    gauss = [g for _, _, g in TAPS[radius]]
+    m = np.asarray(world_to_view, np.float32)[:3, :3].reshape(-1)
+    consts = [radius, diff is not None, spec is not None, view_z_scale, *_v(frustum),
+              ortho_mode, *_v(rect_size_inv), *m, *gauss]
+    # an absent signal's pointer is the present one's; the kernel does not read it
+    sigs = [diff if diff is not None else spec, spec if spec is not None else diff]
+    build.launch("nrd_hitdist_recon", [view_z_in, normal_roughness, *sigs, params, out], consts,
+                 w, h)
+    launches += 1
+    return {name: out[k] for k, name in enumerate(names)}
+
+
+def _v(x):
+    return [float(c) for c in np.asarray(x, np.float32).reshape(-1)]

@@ -1,5 +1,5 @@
-"""Math foundation of the PyTorch port - the subset of `nrdtpu/math.py` the REBLUR_DIFFUSE
-and REBLUR_SPECULAR slices call.
+"""Math foundation of the PyTorch port - the subset of `nrdtpu/math.py` the REBLUR and SIGMA
+slices call.
 
 Every function keeps the op order of its JAX counterpart, so that float32 results agree
 with the XLA reference path to the last bits wherever the ops themselves are exact
@@ -194,6 +194,13 @@ def scale_rotator(rotator, scale):
     """rotator (..., 4), scale (..., 2): output x gets scale[0], output y gets scale[1]."""
     return torch.stack([rotator[..., 0] * scale[..., 0], rotator[..., 1] * scale[..., 1],
                         rotator[..., 2] * scale[..., 0], rotator[..., 3] * scale[..., 1]], -1)
+
+
+def rotate_vector2(rotator, v):
+    """Apply a rotator (..., 4) to a host 2-vector (x, y), as a Poisson tap offset is."""
+    vx, vy = float(v[0]), float(v[1])
+    return torch.stack([vx * rotator[..., 0] + vy * rotator[..., 2],
+                        vx * rotator[..., 1] + vy * rotator[..., 3]], -1)
 
 
 # ---------------------------------------------------------------------------
@@ -453,6 +460,12 @@ def compute_weight(x, px, py):
 def get_gaussian_weight(r: float) -> float:
     """GetGaussianWeight (Common.hlsli:571-574) of a static tap radius, in float32."""
     return float(torch.exp(torch.tensor(-0.66 * r * r, dtype=torch.float32)))
+
+
+def get_geometry_weight_params(plane_dist_sensitivity, frustum_size, xv, nv):
+    """GetGeometryWeightParams (Common.hlsli:501-508). Returns (a, b) with w = f(|d a + b|)."""
+    a = 1.0 / (plane_dist_sensitivity * frustum_size)
+    return a, -(dot(nv, xv) * a)
 
 
 def get_disocclusion_threshold(disocclusion_threshold, frustum_size, nov):

@@ -121,6 +121,35 @@ def sample_catrom(img, sample_pos, use_bicubic=None, bilinear_custom_weights=Non
     return color if had_c else color[..., 0]
 
 
+def _bspline_weights(t):
+    """Cubic B-spline basis at offsets -1..2."""
+    t2 = t * t
+    t3 = t2 * t
+    return ((1.0 - 3.0 * t + 3.0 * t2 - t3) / 6.0, (4.0 - 6.0 * t2 + 3.0 * t3) / 6.0,
+            (1.0 + 3.0 * t + 3.0 * t2 - 3.0 * t3) / 6.0, t3 / 6.0)
+
+
+def sample_bicubic_bspline(img, uv):
+    """Cubic B-spline texture filter (TextureCubic, SIGMA_Common.hlsli:44-93), evaluated as
+    its 16 taps; smooths the 1/16-resolution tile maps up to pixels."""
+    img_c, had_c = _chanify(img)
+    h, w = img_c.shape[0], img_c.shape[1]
+    pos = nm.scale2(uv, float(w), float(h)) - 0.5
+    base = torch.floor(pos)
+    f = pos - base
+    wx = _bspline_weights(f[..., 0])
+    wy = _bspline_weights(f[..., 1])
+    x0 = base[..., 0].to(torch.int32)
+    y0 = base[..., 1].to(torch.int32)
+    out = 0.0
+    for j in range(4):
+        row = 0.0
+        for i in range(4):
+            row = row + texel_fetch(img_c, x0 + (i - 1), y0 + (j - 1)) * wx[i][..., None]
+        out = out + row * wy[j][..., None]
+    return out if had_c else out[..., 0]
+
+
 def pixel_uv_grid(h: int, w: int, device=None):
     """uv of every pixel centre of an (h, w) rect: (h, w, 2), y-down."""
     x = nm.div(torch.arange(w, dtype=torch.float32, device=device) + 0.5, w)

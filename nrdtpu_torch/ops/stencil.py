@@ -15,6 +15,7 @@ def shifted(img, dy: int, dx: int):
     return img.index_select(0, rows).index_select(1, cols)
 
 
-def offsets_square(radius: int):
+def offsets_square(radius: int, exclude_center: bool = False):
     """Static list of (dy, dx) offsets for a (2r+1)^2 stencil, row by row."""
-    return [(dy, dx) for dy in range(-radius, radius + 1) for dx in range(-radius, radius + 1)]
+    return [(dy, dx) for dy in range(-radius, radius + 1) for dx in range(-radius, radius + 1)
+            if not (exclude_center and dy == 0 and dx == 0)]

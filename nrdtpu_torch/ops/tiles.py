@@ -1,19 +1,28 @@
-"""1/16-resolution tile maps - counterpart of `nrdtpu/ops/tiles.py` (REBLUR sky tiles)."""
+"""1/16-resolution tile maps - counterpart of `nrdtpu/ops/tiles.py` (REBLUR sky tiles, SIGMA
+tile classification)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 TILE = 16
+_PAD = {"max": -float("inf"), "min": float("inf"), "sum": 0.0}
 
 
-def tile_reduce_min(img, tile: int = TILE):
-    """(H, W) -> (ceil(H/t), ceil(W/t)) minimum over each t x t tile."""
+def tile_reduce(img, op: str = "max", tile: int = TILE):
+    """(H, W) -> (ceil(H/t), ceil(W/t)) min / max / sum over each t x t tile; the ragged edge
+    is padded with the operation's identity."""
     h, w = img.shape
     ph, pw = (-h) % tile, (-w) % tile
-    x = F.pad(img, (0, pw, 0, ph), value=float("inf"))
-    return x.reshape((h + ph) // tile, tile, (w + pw) // tile, tile).amin(dim=(1, 3))
+    x = F.pad(img, (0, pw, 0, ph), value=_PAD[op])
+    x = x.reshape((h + ph) // tile, tile, (w + pw) // tile, tile)
+    if op == "max":
+        return x.amax(dim=(1, 3))
+    if op == "min":
+        return x.amin(dim=(1, 3))
+    return x.sum(dim=(1, 3))
 
 
 def tile_upsample_nearest(tile_map, h: int, w: int, tile: int = TILE):
@@ -24,4 +33,20 @@ def tile_upsample_nearest(tile_map, h: int, w: int, tile: int = TILE):
 
 def classify_sky_tiles(view_z, denoising_range: float, tile: int = TILE):
     """REBLUR ClassifyTiles: 1 where ALL pixels of the tile are beyond denoisingRange."""
-    return tile_reduce_min((torch.abs(view_z) > denoising_range).to(torch.float32), tile)
+    return tile_reduce((torch.abs(view_z) > denoising_range).to(torch.float32), "min", tile)
+
+
+def upsample_tile_value(tiles_smoothed, h: int, w: int, resolution_scale, tile: int = TILE):
+    """The tile value (channel 1, cubic B-spline upsampled to pixels) with the sky tiles
+    (channel 0) zeroed - `nrdtpu/ops/tiles.py:upsample_tile_value`. The port always takes
+    its gather path (`resample.sample_bicubic_bspline`, the XLA SIGMA passes' own formula);
+    the phase-aligned matmul form there is a TPU workaround for slow gathers."""
+    from . import resample
+
+    uv = resample.pixel_uv_grid(h, w, tiles_smoothed.device)
+    rs = np.broadcast_to(np.asarray(resolution_scale, np.float32), (2,))
+    tile_value = resample.sample_bicubic_bspline(
+        tiles_smoothed[..., 1], torch.stack([uv[..., 0] * float(rs[0]),
+                                             uv[..., 1] * float(rs[1])], -1))
+    sky = tile_upsample_nearest(tiles_smoothed[..., 0], h, w, tile)
+    return torch.where(sky > 0.0, 0.0, tile_value)

@@ -1,12 +1,13 @@
 """REBLUR pass graph for the PyTorch port - counterpart of `nrdtpu/passes/reblur/denoiser.py`.
 
 This port runs REBLUR_DIFFUSE, REBLUR_SPECULAR and REBLUR_DIFFUSE_SPECULAR
-(`denoiser.py:162-606`): PrePass, TemporalAccumulation, HistoryFix, Blur, PostBlur and
+(`denoiser.py:162-606`): hit-distance reconstruction (AREA_3X3 / AREA_5X5, off under
+checkerboard, `:225-237`), PrePass, TemporalAccumulation, HistoryFix, Blur, PostBlur and
 TemporalStabilization, with or without the anti-firefly ring of HistoryFix. With both signals
 the spatial stages and HistoryFix run one fused launch for the two (`fused_spatial_filter`,
 `fused_history_fix`) on the card and on the CPU alike, and TA samples both histories in one
-launch. Every other variant, and the settings paths not ported yet (checkerboard, hit-distance
-reconstruction), raise NotImplementedError; ROADMAP.md lists them.
+launch; the reconstruction refills both signals in one launch. Every other variant, and the
+settings path not ported yet (checkerboard), raise NotImplementedError; ROADMAP.md lists them.
 
 State (the permanent pool; histories in bf16, the RGBA16f-history analogue):
   prev_view_z (h, w), prev_normal_roughness (h, w, 4), diff_accum / spec_accum / material_id
@@ -70,9 +71,6 @@ class ReblurDenoiser:
     def specialize(self, s: ReblurSettings):
         if s.checkerboardMode != CheckerboardMode.OFF:
             raise NotImplementedError("REBLUR checkerboard is not ported yet (ROADMAP.md)")
-        if s.hitDistanceReconstructionMode != HitDistanceReconstructionMode.OFF:
-            raise NotImplementedError(
-                "REBLUR hit-distance reconstruction is not ported yet (ROADMAP.md)")
         self._s = s
 
     def init_state(self):
@@ -156,8 +154,18 @@ class ReblurDenoiser:
         geom = (K.make_filter_geometry(sc, dc, view_z, normal_roughness, cfg)
                 if fused else None)
 
-        # PREPASS
+        # HITDIST_RECONSTRUCTION: off under checkerboard (`denoiser.py:225-237`)
         signal = dict(raw_in)
+        if (s.hitDistanceReconstructionMode != HitDistanceReconstructionMode.OFF
+                and s.checkerboardMode == CheckerboardMode.OFF):
+            radius = (2 if s.hitDistanceReconstructionMode
+                      == HitDistanceReconstructionMode.AREA_5X5 else 1)
+            signal["diff"], signal["spec"] = K.hit_dist_reconstruction(
+                sc, dc, view_z, normal_roughness, signal.get("diff"), signal.get("spec"), cfg,
+                radius=radius)
+            signal = {sig: signal[sig] for sig in self.signals}
+
+        # PREPASS
         hdt_prepass = None
         if not skip_prepass:
             if fused:

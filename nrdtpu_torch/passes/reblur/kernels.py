@@ -16,6 +16,7 @@ Each pass is elementwise torch glue around hand-written kernels of `nrdtpu_torch
   fused_history_fix               -> history_fix_fused (the same, both signals at once)
   temporal_stabilization,
   temporal_stabilization_specular -> ts_prelude      (3x3 luma moments + history sampling)
+  hit_dist_reconstruction         -> hitdist_recon   (3x3 / 5x5 refill of hitT == 0)
 
 The glue keeps the op order of the XLA functions; the kernels compute the per-pixel formula
 of the XLA gathers, not the TPU kernels' workarounds. Frame constants (`sc`, `dc`) are host
@@ -33,6 +34,7 @@ from ... import vec3 as v3
 from ...frontend import NRD_EPS
 from ...kernels import history_fix as k_history_fix
 from ...kernels import history_fix_fused as k_history_fix_fused
+from ...kernels import hitdist_recon as k_hitdist_recon
 from ...kernels import nearest_multi as k_nearest_multi
 from ...kernels import smb_resolve as k_smb_resolve
 from ...kernels import spatial_filter as k_spatial_filter
@@ -85,7 +87,7 @@ def sky_pixel_mask(sc, tile_map, view_z):
     return (sky > 0.0) | (unpack_view_z(sc, view_z) > float(sc["denoising_range"]))
 
 
-def _smb_pixel_uv(sc, uv, view_z, x, mv_in):
+def surface_motion_position(sc, uv, view_z, x, mv_in):
     """Surface-motion previous position and uv (TA lines 131-150, TS lines 50-70)."""
     mvs = _v(sc["mv_scale"])
     mv = torch.stack([mv_in[..., i] * mvs[i] for i in range(3)], -1)
@@ -129,7 +131,7 @@ def surface_motion_reprojection(sc, dc, view_z_in, normal_roughness, mv_in, prev
 
     xv = nm.reconstruct_view_position(uv, sc["frustum"], view_z, sc["ortho_mode"])
     x = nm.rotate_vector(sc["view_to_world"], xv)
-    x_prev, smb_pixel_uv = _smb_pixel_uv(sc, uv, view_z, x, mv_in)
+    x_prev, smb_pixel_uv = surface_motion_position(sc, uv, view_z, x, mv_in)
 
     # parallax (lines 206-211)
     ortho = float(sc["ortho_mode"])
@@ -959,6 +961,41 @@ def fused_spatial_filter(sc, dc, mode, geom, view_z_in, normal_roughness, diff, 
 
 
 # ---------------------------------------------------------------------------
+# Hit distance reconstruction (REBLUR_HitDistReconstruction.hlsli)
+# ---------------------------------------------------------------------------
+
+
+def hit_dist_reconstruction(sc, dc, view_z_in, normal_roughness, diff, spec, config, *,
+                            radius: int):
+    """Refill hitT == 0 holes from the 3x3 (radius 1) or 5x5 (radius 2) neighbourhood
+    (`kernels.py:2212-2293`). diff / spec: (h, w, 4) signals or None; only the hit-distance
+    channel changes. Returns (diff_out, spec_out)."""
+    h, w = view_z_in.shape
+    uv = resample.pixel_uv_grid(h, w, view_z_in.device)
+    view_z = unpack_view_z(sc, view_z_in)
+    n, roughness, _ = unpack_nr(normal_roughness, config)
+    nv = nm.rotate_vector(sc["world_to_view"], n)
+    xv = nm.reconstruct_view_position(uv, sc["frustum"], view_z, sc["ortho_mode"])
+    ortho = float(sc["ortho_mode"])
+    frustum_size = nm.get_frustum_size(float(sc["min_rect_dim_mul_unproject"]), ortho, view_z)
+    enc_err = nm.normal_encoding_error(int(config.normal_encoding))
+    ones = torch.ones_like(view_z)
+    params = list(nm.get_geometry_weight_params(float(dc["plane_dist_sensitivity"]),
+                                                frustum_size, xv, nv))
+    if diff is not None:
+        params.append(nm.get_normal_weight_param(ones, 1.0, ones, enc_err))
+    if spec is not None:
+        ra, rb = nm.get_relaxed_roughness_weight_params(roughness * roughness)
+        params += [nm.get_normal_weight_param(ones, 1.0, roughness, enc_err), ra, rb]
+    hd = k_hitdist_recon.hitdist_recon(
+        view_z_in, normal_roughness, diff, spec, torch.stack(params), radius=radius,
+        view_z_scale=float(sc["view_z_scale"]), frustum=sc["frustum"], ortho_mode=ortho,
+        rect_size_inv=sc["rect_size_inv"], world_to_view=sc["world_to_view"])
+    return tuple(None if s is None else torch.cat([s[..., :-1], hd[name][..., None]], -1)
+                 for name, s in (("diff", diff), ("spec", spec)))
+
+
+# ---------------------------------------------------------------------------
 # SplitScreen (REBLUR_SplitScreen.hlsli)
 # ---------------------------------------------------------------------------
 
@@ -986,7 +1023,7 @@ def ts_surface_motion(sc, view_z_in, mv_in, fbits):
     view_z = unpack_view_z(sc, view_z_in)
     xv = nm.reconstruct_view_position(uv, sc["frustum"], view_z, sc["ortho_mode"])
     x = nm.rotate_vector(sc["view_to_world"], xv)
-    x_prev, smb_pixel_uv = _smb_pixel_uv(sc, uv, view_z, x, mv_in)
+    x_prev, smb_pixel_uv = surface_motion_position(sc, uv, view_z, x, mv_in)
     _, smb_frac = nm.bilinear_filter(smb_pixel_uv, _v(sc["rect_size_prev"]))
     return uv, view_z, x, x_prev, smb_pixel_uv, _fbits_quality(fbits, smb_frac, 0)
 

@@ -1,10 +1,11 @@
 """Hand-written kernels on the card (marker `cuda`; skips where there is no CUDA device).
 
-Each kernel runs on the inputs the main paths give it (frame 4 of the orbit scene at 128x96,
+Each kernel runs on the inputs the main paths give it (frame 4 of the orbit scene at 128x96:
 REBLUR_DIFFUSE, REBLUR_SPECULAR and REBLUR_DIFFUSE_SPECULAR, each with and without the
-anti-firefly ring) and is held against its plain PyTorch version on the same card; the Engine
-on the card is held against the Engine on the CPU, for every variant and output. Run on a
-machine with an H100:
+anti-firefly ring and with AREA_3X3 hit-distance reconstruction on inputs with hit-distance
+holes; SIGMA_SHADOW and SIGMA_SHADOW_TRANSLUCENCY) and is held against its plain PyTorch
+version on the same card; the Engine on the card is held against the Engine on the CPU, for
+every path and output. Run on a machine with an H100:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 
@@ -21,7 +22,8 @@ import torch
 from nrdtpu_torch import frontend as fe
 from nrdtpu_torch import kernels as KM
 from nrdtpu_torch.engine import Engine
-from nrdtpu_torch.settings import Denoiser, ResourceType as RT, replace
+from nrdtpu_torch.settings import Denoiser, HitDistanceReconstructionMode, ResourceType as RT
+from nrdtpu_torch.settings import replace
 from nrdtpu_torch.utils.scene import SceneGenerator, SceneSpec
 
 # the tensors here are small: one intra-op thread, so that test workers do not contend
@@ -40,12 +42,16 @@ def cuda():
 
 
 VARIANTS = (Denoiser.REBLUR_DIFFUSE, Denoiser.REBLUR_SPECULAR, Denoiser.REBLUR_DIFFUSE_SPECULAR)
+SIGMA = (Denoiser.SIGMA_SHADOW, Denoiser.SIGMA_SHADOW_TRANSLUCENCY)
+AREA_3X3 = dict(hitDistanceReconstructionMode=HitDistanceReconstructionMode.AREA_3X3)
 
 
-def _pools(denoiser, n):
-    """Both signals' inputs; each variant reads its own."""
+def _pools(denoiser, n, holes=False):
+    """Both signals' inputs (with holes: the hit distance zeroed on a seeded 30 % of the
+    geometry pixels) and SIGMA's; each path reads its own."""
     gen = SceneGenerator(SceneSpec(size=SIZE, noise=0.4), camera_mode="orbit")
     hdp = np.array([3.0, 0.1, 20.0, -25.0], np.float32)
+    rng = np.random.default_rng(7)
     for i in range(n):
         fd = gen.frame(i)
         fd.common_settings.timeDeltaBetweenFrames = 16.66
@@ -58,28 +64,47 @@ def _pools(denoiser, n):
                                           torch.from_numpy(fd.roughness))
         pool[RT.IN_SPEC_RADIANCE_HITDIST] = fe.reblur_pack_radiance_hitdist(
             torch.from_numpy(fd.spec_noisy), nhd).numpy()
+        if holes:
+            hole = (rng.random(fd.view_z.shape) < 0.3) & (fd.hit_mask > 0)
+            for rt in (RT.IN_DIFF_RADIANCE_HITDIST, RT.IN_SPEC_RADIANCE_HITDIST):
+                pool[rt] = pool[rt].copy()
+                pool[rt][..., 3][hole] = 0.0
+        dist = torch.from_numpy(fd.dist_to_occluder)
+        pool[RT.IN_PENUMBRA] = fe.sigma_pack_penumbra_directional(
+            dist, gen.spec.light_tan_angular_radius).numpy()
+        pool[RT.IN_TRANSLUCENCY] = fe.sigma_pack_translucency(
+            dist, torch.tensor([0.3, 0.6, 0.2]).expand(SIZE[1], SIZE[0], 3)).numpy()
         yield fd.common_settings, pool
 
 
 def _outs(denoiser):
+    if denoiser in SIGMA:
+        return [RT.OUT_SHADOW_TRANSLUCENCY]
     return [rt for rt, present in ((RT.OUT_DIFF_RADIANCE_HITDIST, "DIFFUSE" in denoiser.name),
                                    (RT.OUT_SPEC_RADIANCE_HITDIST, "SPECULAR" in denoiser.name))
             if present]
 
 
-def _engine(denoiser, device, anti_firefly):
+def _engine(denoiser, device, anti_firefly=False, **settings):
     eng = Engine({0: denoiser}, resource_size=SIZE, device=device)
-    eng.set_denoiser_settings(0, replace(eng._settings[0], enableAntiFirefly=anti_firefly))
+    if denoiser not in SIGMA:
+        eng.set_denoiser_settings(0, replace(eng._settings[0], enableAntiFirefly=anti_firefly,
+                                             **settings))
     return eng
+
+
+# (denoiser, anti-firefly ring, settings, inputs with hit-distance holes) of every path
+PATHS = ([(d, af, {}, False) for d in VARIANTS for af in (False, True)]
+         + [(d, False, AREA_3X3, True) for d in VARIANTS] + [(d, False, {}, False) for d in SIGMA])
 
 
 @pytest.fixture(scope="module")
 def recorded(cuda):
     calls = []
     originals = {n: getattr(m, n) for n, m in KM.MODULES.items()}
-    for denoiser, anti_firefly in [(d, af) for d in VARIANTS for af in (False, True)]:
-        eng = _engine(denoiser, cuda, anti_firefly)
-        pools = list(_pools(denoiser, 4))
+    for denoiser, anti_firefly, settings, holes in PATHS:
+        eng = _engine(denoiser, cuda, anti_firefly, **settings)
+        pools = list(_pools(denoiser, 4, holes))
         try:
             for i, (cs, pool) in enumerate(pools):
                 if i == len(pools) - 1:
@@ -125,6 +150,25 @@ def test_engine_card_matches_cpu(cuda, denoiser, anti_firefly):
     card = _engine(denoiser, cuda, anti_firefly)
     cpu = _engine(denoiser, "cpu", anti_firefly)
     for cs, pool in _pools(denoiser, 4):
+        outs = []
+        for eng in (card, cpu):
+            eng.set_common_settings(cs)
+            outs.append(eng.denoise([0], pool))
+        for rt in _outs(denoiser):
+            a, b = outs[0][rt].cpu().double(), outs[1][rt].cpu().double()
+            mse = float(((a - b) ** 2).mean())
+            peak = float(b.abs().max())
+            assert mse == 0.0 or 10.0 * np.log10(peak * peak / mse) >= 50.0, rt
+
+
+@pytest.mark.parametrize("denoiser,settings,holes",
+                         [(d, AREA_3X3, True) for d in VARIANTS] + [(d, {}, False) for d in SIGMA],
+                         ids=[f"{d.name}-AREA_3X3" for d in VARIANTS] + [d.name for d in SIGMA])
+def test_engine_card_matches_cpu_new_paths(cuda, denoiser, settings, holes):
+    """Hit-distance reconstruction on inputs with holes, and the SIGMA variants."""
+    card = _engine(denoiser, cuda, **settings)
+    cpu = _engine(denoiser, "cpu", **settings)
+    for cs, pool in _pools(denoiser, 4, holes):
         outs = []
         for eng in (card, cpu):
             eng.set_common_settings(cs)

@@ -22,19 +22,29 @@ _ONE_FRAME = """
 import sys
 import numpy as np
 from nrdtpu_torch.engine import Engine
-from nrdtpu_torch.settings import Denoiser, ResourceType as RT
+from nrdtpu_torch.settings import Denoiser, HitDistanceReconstructionMode, ResourceType as RT
+from nrdtpu_torch.settings import replace
 from nrdtpu_torch.utils.scene import SceneGenerator, SceneSpec
 gen = SceneGenerator(SceneSpec(size=(64, 48)), camera_mode="orbit")
 fd = gen.frame(0)
 sig = np.concatenate([fd.diff_noisy, np.full((48, 64, 1), 0.5, np.float32)], -1)
-for d in (Denoiser.REBLUR_DIFFUSE, Denoiser.REBLUR_SPECULAR, Denoiser.REBLUR_DIFFUSE_SPECULAR):
+sig[::3, ::2, 3] = 0.0
+pool = {RT.IN_VIEWZ: fd.view_z, RT.IN_NORMAL_ROUGHNESS: gen.packed_normal_roughness(fd),
+        RT.IN_MV: fd.mv, RT.IN_DIFF_RADIANCE_HITDIST: sig, RT.IN_SPEC_RADIANCE_HITDIST: sig,
+        RT.IN_PENUMBRA: np.where(fd.shadow_clean > 0.5, 65504.0, 1.0).astype(np.float32),
+        RT.IN_TRANSLUCENCY: np.full((48, 64, 4), 0.5, np.float32)}
+for d in (Denoiser.REBLUR_DIFFUSE, Denoiser.REBLUR_SPECULAR, Denoiser.REBLUR_DIFFUSE_SPECULAR,
+          Denoiser.SIGMA_SHADOW, Denoiser.SIGMA_SHADOW_TRANSLUCENCY):
     eng = Engine({0: d}, resource_size=(64, 48), device="cpu")
+    if d.name.startswith("REBLUR"):
+        eng.set_denoiser_settings(0, replace(
+            eng._settings[0],
+            hitDistanceReconstructionMode=HitDistanceReconstructionMode.AREA_3X3))
     eng.set_common_settings(fd.common_settings)
-    outs = eng.denoise([0], {RT.IN_VIEWZ: fd.view_z, RT.IN_NORMAL_ROUGHNESS:
-                             gen.packed_normal_roughness(fd), RT.IN_MV: fd.mv,
-                             RT.IN_DIFF_RADIANCE_HITDIST: sig, RT.IN_SPEC_RADIANCE_HITDIST: sig})
+    outs = eng.denoise([0], pool)
     for out in outs.values():
-        assert out.shape == (48, 64, 4) and bool(out.isfinite().all())
+        c = 1 if d == Denoiser.SIGMA_SHADOW else 4
+        assert out.shape == (48, 64, c) and bool(out.isfinite().all())
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.") or m == "nrdtpu"
              or m.startswith("nrdtpu."))
 print("IMPORTED", bad)
@@ -58,9 +68,13 @@ def test_port_imports_no_jax_and_no_nrdtpu():
 @pytest.fixture(scope="module")
 def recorded_calls():
     """The kernel calls of two CPU frames of each main path, recorded at the wrappers; the
-    second frame of REBLUR_DIFFUSE_SPECULAR with the anti-firefly ring."""
+    second frame of REBLUR_DIFFUSE_SPECULAR with the anti-firefly ring, one frame of it with
+    AREA_3X3 hit-distance reconstruction on a signal with holes, and two frames of each
+    SIGMA variant."""
+    from nrdtpu_torch import frontend as fe
     from nrdtpu_torch.engine import Engine
-    from nrdtpu_torch.settings import Denoiser, ResourceType as RT, replace
+    from nrdtpu_torch.settings import Denoiser, HitDistanceReconstructionMode, replace
+    from nrdtpu_torch.settings import ResourceType as RT
     from nrdtpu_torch.utils.scene import SceneGenerator, SceneSpec
 
     gen = SceneGenerator(SceneSpec(size=(48, 32)), camera_mode="orbit")
@@ -85,6 +99,29 @@ def recorded_calls():
                                   RT.IN_NORMAL_ROUGHNESS: gen.packed_normal_roughness(fd),
                                   RT.IN_MV: fd.mv, RT.IN_DIFF_RADIANCE_HITDIST: sig,
                                   RT.IN_SPEC_RADIANCE_HITDIST: sig})
+        fd = gen.frame(2)
+        eng = Engine({0: Denoiser.REBLUR_DIFFUSE_SPECULAR}, resource_size=(48, 32), device="cpu")
+        eng.set_denoiser_settings(0, replace(
+            eng._settings[0], hitDistanceReconstructionMode=HitDistanceReconstructionMode.AREA_3X3))
+        eng.set_common_settings(fd.common_settings)
+        sig = np.concatenate([fd.diff_noisy, np.full((32, 48, 1), 0.5, np.float32)], -1)
+        sig[::2, ::3, 3] = 0.0
+        eng.denoise([0], {RT.IN_VIEWZ: fd.view_z,
+                          RT.IN_NORMAL_ROUGHNESS: gen.packed_normal_roughness(fd),
+                          RT.IN_MV: fd.mv, RT.IN_DIFF_RADIANCE_HITDIST: sig,
+                          RT.IN_SPEC_RADIANCE_HITDIST: sig})
+        for d in (Denoiser.SIGMA_SHADOW, Denoiser.SIGMA_SHADOW_TRANSLUCENCY):
+            eng = Engine({0: d}, resource_size=(48, 32), device="cpu")
+            for i in range(2):
+                fd = gen.frame(i)
+                eng.set_common_settings(fd.common_settings)
+                dist = torch.from_numpy(fd.dist_to_occluder)
+                eng.denoise([0], {
+                    RT.IN_VIEWZ: fd.view_z, RT.IN_MV: fd.mv,
+                    RT.IN_NORMAL_ROUGHNESS: gen.packed_normal_roughness(fd),
+                    RT.IN_PENUMBRA: fe.sigma_pack_penumbra_directional(dist, 0.15).numpy(),
+                    RT.IN_TRANSLUCENCY: fe.sigma_pack_translucency(
+                        dist, torch.full((32, 48, 3), 0.4)).numpy()})
     finally:
         for n, m in KM.MODULES.items():
             setattr(m, n, originals[n])
@@ -151,7 +188,8 @@ def test_unported_variants_raise():
     from nrdtpu_torch.engine import Engine
     from nrdtpu_torch.settings import Denoiser
 
-    for d in (Denoiser.REBLUR_DIFFUSE_SPECULAR_SH, Denoiser.SIGMA_SHADOW, Denoiser.RELAX_DIFFUSE):
+    for d in (Denoiser.REBLUR_DIFFUSE_SPECULAR_SH, Denoiser.REBLUR_DIFFUSE_OCCLUSION,
+              Denoiser.RELAX_DIFFUSE):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Engine({0: d}, resource_size=(64, 48), device="cpu")
 
