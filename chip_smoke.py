@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one CUDA card and check them.
 
-    python3 chip_smoke.py   # the REBLUR and SIGMA paths of PATHS, 2560x1440
+    python3 chip_smoke.py   # the REBLUR, SIGMA and RELAX paths of PATHS, 2560x1440
 
 Paths: REBLUR_DIFFUSE, REBLUR_SPECULAR, REBLUR_DIFFUSE_SPECULAR on the orbit scene;
 REBLUR_DIFFUSE_SPECULAR with hitDistanceReconstructionMode AREA_3X3 on the same frames with
 holes punched into the hit distance (.w = 0 on a seeded 30 % of the geometry pixels, as a
 renderer that traces some pixels and not others sends them); SIGMA_SHADOW and
-SIGMA_SHADOW_TRANSLUCENCY with the penumbra packed from the scene's distance to the occluder.
+SIGMA_SHADOW_TRANSLUCENCY with the penumbra packed from the scene's distance to the occluder;
+RELAX_DIFFUSE with the radiance and the raw hit distance packed by
+`relax_pack_radiance_hitdist`.
 
 Phases, each of which raises on failure (exit code != 0):
   1. build the hand-written kernels from `nrdtpu_torch/kernels/csrc/` with nvcc, one process
@@ -18,12 +20,15 @@ Phases, each of which raises on failure (exit code != 0):
      (compulsory bytes over the card's memory rate, or operations over its float32 rate).
      The same again with `enableAntiFirefly=True` (the anti-firefly ring of history_fix and
      history_fix_fused), and with hit-distance reconstruction at radius 1 and 2 on the
-     punched frames (hitdist_recon only); then each SIGMA variant. Every kernel module must
-     be called by one of the paths;
+     punched frames (hitdist_recon only); then each SIGMA variant; then RELAX_DIFFUSE (its
+     five kernels, all five à-trous calls) and RELAX_DIFFUSE with AREA_3X3 on RELAX-packed
+     punched frames (hitdist_recon on RELAX's constants, not timed). Every kernel module
+     must be called by one of the paths;
   3. slices: for each path a fresh `Engine(device="cuda")` runs 3 warm-up + 24 frames with
      the launch counts set to 0 just before and read just after; every output must be
      finite and every kernel of the path launched exactly its count a frame; each REBLUR
-     output must beat its noisy input by >= 3 dB against the scene's clean image, each SIGMA
+     and RELAX output must beat its noisy input by >= 3 dB against the scene's clean image,
+     each SIGMA
      output must lie in [0, 1], be lit on average (> 0.99) where the 9x9 neighbourhood is lit
      and dark (< 0.15) in the umbra core; prints the median ms/frame (CUDA events), the host
      ms/frame and the peak allocator bytes;
@@ -65,6 +70,7 @@ ATOL, RTOL, FLIP_FRACTION = 1e-4, 1e-4, 1e-4
 P = "nrdtpu/kernels/reblur_pallas.py"
 F = "nrdtpu/kernels/reblur_fused.py"
 SP = "nrdtpu/kernels/sigma_pallas.py"
+RP = "nrdtpu/kernels/relax_pallas.py"
 # kernel: (source, TPU kernel it replaces, the other TPU kernels it also replaces: another
 # computation fused into it, or the v1 kernel that `nrdtpu/kernels/__init__.py` selects in its
 # place for the same pass under NRDTPU_BLUR=1)
@@ -86,6 +92,12 @@ SOURCES = {
     "sigma_blur": ("nrdtpu_torch/kernels/csrc/sigma_blur.cu",
                    "nrdtpu/kernels/sigma_blur2.py:281", f"{SP}:291"),
     "sigma_ts": ("nrdtpu_torch/kernels/csrc/sigma_ts.cu", f"{SP}:449", None),
+    "relax_prepass": ("nrdtpu_torch/kernels/csrc/relax_prepass.cu", f"{RP}:751", None),
+    "relax_smb_resolve": ("nrdtpu_torch/kernels/csrc/relax_smb_resolve.cu", f"{RP}:1000", None),
+    "relax_history_fix": ("nrdtpu_torch/kernels/csrc/relax_history_fix.cu", f"{RP}:1499", None),
+    "relax_clamp_moments": ("nrdtpu_torch/kernels/csrc/relax_clamp_moments.cu", f"{RP}:479",
+                            None),
+    "relax_atrous": ("nrdtpu_torch/kernels/csrc/relax_atrous.cu", f"{RP}:338", None),
 }
 DS_LAUNCHES = {"smb_resolve": 1, "spec_ta_head": 1, "nearest_multi": 1, "vmb_resolve": 1,
                "spatial_filter_fused": 3, "history_fix_fused": 1, "ts_prelude": 2}
@@ -105,7 +117,12 @@ PATHS = {
         launches={**DS_LAUNCHES, "hitdist_recon": 1}),
     "SIGMA_SHADOW": dict(signals=("shadow",), launches=SIGMA_LAUNCHES),
     "SIGMA_SHADOW_TRANSLUCENCY": dict(signals=("shadow",), launches=SIGMA_LAUNCHES),
+    "RELAX_DIFFUSE": dict(signals=("diff",), relax=True, launches={
+        "relax_prepass": 1, "relax_smb_resolve": 1, "relax_history_fix": 1,
+        "relax_clamp_moments": 1, "relax_atrous": 5}),
 }
+# RELAX-packed frames with hit-distance holes: the kernel phase's RELAX AREA_3X3 run
+RELAX_HOLES = "RELAX_DIFFUSE+holes"
 REBLUR_VARIANTS = ("REBLUR_DIFFUSE", "REBLUR_SPECULAR", "REBLUR_DIFFUSE_SPECULAR")
 HOLE_FRACTION = 0.3  # of the geometry pixels whose hit distance the frames with holes zero
 TRANSLUCENCY_RGB = (0.3, 0.6, 0.2)
@@ -116,12 +133,17 @@ HF_TAP_OPS, HF_MOMENT_OPS, HF_RING_OPS = 100, 27, 216  # :hf_filter tap, 3x3, th
 FIXED_OPS = {"smb_resolve": 450, "ts_prelude": 40, "spec_ta_head": 120, "vmb_resolve": 600,
              "nearest_multi": 0, "spatial_filter": 0, "spatial_filter_fused": 0,
              "history_fix": 0, "history_fix_fused": 0, "hitdist_recon": 40, "sigma_blur": 90,
-             "sigma_ts": 150}
+             "sigma_ts": 150, "relax_prepass": 60, "relax_smb_resolve": 450,
+             "relax_history_fix": 10, "relax_clamp_moments": 1010, "relax_atrous": 80}
 SMB_SIGNAL_OPS, TS_SAMPLE_OPS, NEAREST_SET_OPS = 200, 200, 12
 HD_TAP_OPS, HD_SIGNAL_TAP_OPS = 60, 15      # hitdist_recon.cu: one tap, and per signal
 SB_DENSE_TAP_OPS, SB_POISSON_TAP_OPS = 35, 50  # sigma_blur.cu: one tap, + 3 a channel
 ST_TAP_OPS, ST_CHANNEL_OPS = 5, 80          # sigma_ts.cu: a moment tap (+ 4 a channel),
                                             # and the CatRom sample + clamp of a channel
+RP_TAP_OPS = 100                            # relax_prepass.cu: one Poisson tap
+RS_HISTORY_OPS = 160                        # relax_smb_resolve.cu: CatRom of one history
+RH_TAP_OPS = 80                             # relax_history_fix.cu: one stride tap
+RA_TAP_OPS, RA_SVE_TAP_OPS = 90, 45         # relax_atrous.cu: an à-trous tap, a 5x5 tap
 
 
 def log(*a):
@@ -181,6 +203,11 @@ class Scene:
             packed[sig] = fe.reblur_pack_radiance_hitdist(torch.from_numpy(noisy), nhd).numpy()
             punched[sig] = packed[sig].copy()
             punched[sig][..., 3][holes] = 0.0
+        # RELAX takes the radiance and the raw hit distance
+        relax = fe.relax_pack_radiance_hitdist(torch.from_numpy(fd.diff_noisy),
+                                               torch.from_numpy(fd.diff_hit_dist)).numpy()
+        relax_punched = relax.copy()
+        relax_punched[..., 3][holes] = 0.0
         dist = torch.from_numpy(fd.dist_to_occluder)
         penumbra = fe.sigma_pack_penumbra_directional(
             dist, self.gen.spec.light_tan_angular_radius).numpy()
@@ -193,9 +220,12 @@ class Scene:
                 pools[name] = dict(sigma)
                 if name == "SIGMA_SHADOW_TRANSLUCENCY":
                     pools[name][RT.IN_TRANSLUCENCY] = fe.sigma_pack_translucency(dist, rgb).numpy()
+            elif v.get("relax"):
+                pools[name] = {**base, in_rt("diff"): relax}
             else:
                 src = punched if v.get("holes") else packed
                 pools[name] = {**base, **{in_rt(sig): src[sig] for sig in v["signals"]}}
+        pools[RELAX_HOLES] = {**base, in_rt("diff"): relax_punched}
         t = None
         if truth:
             t = dict(mask=fd.hit_mask > 0, diff=(fd.diff_clean, fd.diff_noisy),
@@ -308,6 +338,16 @@ def _ops(name, a, k):
     elif name == "sigma_ts":
         c = a[0].shape[-1]
         ops += ((ST_TAP_OPS + 4 * c) * 25 + ST_CHANNEL_OPS * c) * px
+    elif name == "relax_prepass":
+        ops += (RP_TAP_OPS * 8 * px) if k["blur_radius"] > 0.0 else 0
+    elif name == "relax_smb_resolve":
+        ops += RS_HISTORY_OPS * len(a[8]) * px
+    elif name == "relax_history_fix":  # the taps run only where the fix applies
+        live = int((a[3] <= k["frame_num"]).sum()) if k["frame_num"] != 1.0 else 0
+        ops += RH_TAP_OPS * 24 * live
+    elif name == "relax_atrous":  # iteration 0: the 5x5 estimation in place of short histories
+        short = int((a[3] < k["history_threshold"]).sum()) if k["is_first"] else 0
+        ops += RA_TAP_OPS * 8 * (px - short) + RA_SVE_TAP_OPS * 25 * short
     return ops
 
 
@@ -363,7 +403,9 @@ def kernel_runs():
     """(label, denoiser, pool, settings, kernels to hold or None for all, timed) of the
     kernel phase: each REBLUR variant with and without the anti-firefly ring (the ring's
     history-fix calls timed apart), each with hit-distance reconstruction at radius 1 and 2
-    on the frames with holes (the AREA_3X3 slice's pools), each SIGMA variant."""
+    on the frames with holes (the AREA_3X3 slice's pools), each SIGMA variant, RELAX_DIFFUSE
+    (every call of its five kernels) and, not timed, RELAX_DIFFUSE's AREA_3X3 reconstruction
+    on RELAX-packed frames with holes."""
     runs = []
     for v in REBLUR_VARIANTS:
         runs.append((v, v, v, {}, None, True))
@@ -374,6 +416,9 @@ def kernel_runs():
                          dict(hitDistanceReconstructionMode=mode), {"hitdist_recon"}, True))
     for v in ("SIGMA_SHADOW", "SIGMA_SHADOW_TRANSLUCENCY"):
         runs.append((v, v, v, {}, None, True))
+    runs.append(("RELAX_DIFFUSE", "RELAX_DIFFUSE", "RELAX_DIFFUSE", {}, None, True))
+    runs.append(("RELAX_DIFFUSE AREA_3X3", "RELAX_DIFFUSE", RELAX_HOLES,
+                 dict(hitDistanceReconstructionMode="AREA_3X3"), {"hitdist_recon"}, False))
     return runs
 
 
@@ -391,6 +436,8 @@ def kernel_phase(w, h, frames):
             m = KM.MODULES[name]
             kern = getattr(m, name)
             ref = getattr(m, name + "_ref")
+            # the à-trous ladder's calls are kept apart by stride
+            lab = f"{label} step {k['step_size']}" if name == "relax_atrous" else label
             got = _outputs(kern(*a, **k))
             want = _outputs(ref(*a, **k))
             torch.cuda.synchronize()
@@ -414,17 +461,17 @@ def kernel_phase(w, h, frames):
                 r["count"] += d.numel()
             if not timed:
                 if name in ("history_fix", "history_fix_fused"):
-                    r["ms_anti_firefly"].setdefault(label, []).append(
+                    r["ms_anti_firefly"].setdefault(lab, []).append(
                         _time(lambda: kern(*a, **k), 20))
                 continue
-            r["ms"].setdefault(label, []).append(_time(lambda: kern(*a, **k), 20))
-            r["plain_ms"].setdefault(label, []).append(_time(lambda: ref(*a, **k), 3))
+            r["ms"].setdefault(lab, []).append(_time(lambda: kern(*a, **k), 20))
+            r["plain_ms"].setdefault(lab, []).append(_time(lambda: ref(*a, **k), 3))
             b, by = _bound(name, a, k, got)
-            r["bound_ms"].setdefault(label, []).append(b)
+            r["bound_ms"].setdefault(lab, []).append(b)
             r["bound_by"].add(by)
             lib = _library(name, a, k)
             if lib is not None:
-                r["library_ms"].setdefault(label, []).append(_time(lib, 20))
+                r["library_ms"].setdefault(lab, []).append(_time(lib, 20))
     for name, r in results.items():
         frac = r["over"] / max(r["count"], 1)
         r["over_fraction"] = frac
@@ -550,7 +597,9 @@ def slice_phase(path, w, h, frames, warmup):
             if truth is not None and sig == "shadow":
                 check_shadow(path, out, truth)
             elif truth is not None:
-                rgb = fe.reblur_unpack_radiance_hitdist(out)[..., :3].cpu().numpy()
+                unpack = (fe.relax_unpack_radiance if PATHS[path].get("relax")
+                          else fe.reblur_unpack_radiance_hitdist)
+                rgb = unpack(out)[..., :3].cpu().numpy()
                 clean, noisy = truth[sig]
                 m = truth["mask"]
                 gains[sig] = (psnr(noisy[m], clean[m]), psnr(rgb[m], clean[m]))
@@ -618,8 +667,12 @@ def profile_phase(path, w, h, frames, slice_ms, warmup=4, n=3):
         f"{1.0 - busy / slice_ms:.3f} of the slice's {slice_ms:.3f} ms/frame; "
         f"{len(events) / n:.0f} device events a frame; "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in groups.items()))
-    for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    for name, (t, c) in ranked[:12]:
         log(f"profile {path}:   {t:8.3f} ms/frame  {c / n:5.0f} x  {name[:90]}")
+    for name, (t, c) in ranked:  # every hand kernel of the path, in or below the top 12
+        if any(f"{k}_kernel" in name for k in KM.MODULES):
+            log(f"profile {path}: hand kernel {t:8.3f} ms/frame  {c / n:5.0f} x  {name[:90]}")
 
 
 def card_vs_cpu_phase(w=256, h=160, frames=4):

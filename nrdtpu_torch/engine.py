@@ -56,6 +56,10 @@ def _denoiser_class(d: Denoiser):
         from .passes.sigma.denoiser import SigmaDenoiser
 
         return SigmaDenoiser
+    if d.name.startswith("RELAX"):
+        from .passes.relax.denoiser import RelaxDenoiser
+
+        return RelaxDenoiser
     raise NotImplementedError(f"{d.name} is not ported yet (ROADMAP.md lists the next slices)")
 
 

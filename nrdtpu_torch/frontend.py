@@ -81,6 +81,20 @@ def reblur_unpack_radiance_hitdist(data):
     return torch.cat([nm.ycocg_to_linear(data[..., :3]), data[..., 3:4]], -1)
 
 
+def relax_pack_radiance_hitdist(radiance, hit_dist, sanitize=True):
+    """RELAX_FrontEnd_PackRadianceAndHitDist (NRD.hlsli:789-798): raw radiance and raw hitT
+    (not REBLUR's normalized hit distance)."""
+    if sanitize:
+        radiance = _sanitize(radiance, 0.0, NRD_FP16_MAX)
+        hit_dist = _sanitize(hit_dist, 0.0, NRD_FP16_MAX)
+    return torch.cat([radiance, hit_dist[..., None]], -1)
+
+
+def relax_unpack_radiance(color):
+    """RELAX_BackEnd_UnpackRadiance (NRD.hlsli:903-906): the identity."""
+    return color
+
+
 def sigma_pack_penumbra_directional(distance_to_occluder, tan_of_light_angular_radius):
     """SIGMA_FrontEnd_PackPenumbra, directional light (NRD.hlsli:828-834)."""
     penumbra_radius = distance_to_occluder * tan_of_light_angular_radius * 0.5

@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels (sm_90a) of the REBLUR_DIFFUSE, REBLUR_SPECULAR,
-REBLUR_DIFFUSE_SPECULAR, SIGMA_SHADOW and SIGMA_SHADOW_TRANSLUCENCY paths, one module each.
+REBLUR_DIFFUSE_SPECULAR, SIGMA_SHADOW, SIGMA_SHADOW_TRANSLUCENCY and RELAX_DIFFUSE paths, one
+module each.
 
 Every module holds the kernel's wrapper, its plain PyTorch version (`*_ref`) and a launch
 count (`launches`). The wrapper takes the plain version for CPU tensors and launches the
@@ -23,11 +24,17 @@ kernel that `nrdtpu/kernels/__init__.py` selects for the same pass under NRDTPU_
   sigma_blur     <- nrdtpu/kernels/sigma_blur2.py:281 sigma_blur_pallas2
                     (and its v1 twin nrdtpu/kernels/sigma_pallas.py:291 sigma_blur_pallas)
   sigma_ts       <- nrdtpu/kernels/sigma_pallas.py:449 sigma_ts_pallas
+  relax_prepass       <- nrdtpu/kernels/relax_pallas.py:751 relax_prepass_taps_pallas (K15)
+  relax_smb_resolve   <- nrdtpu/kernels/relax_pallas.py:1000 relax_smb_resolve (K16)
+  relax_history_fix   <- nrdtpu/kernels/relax_pallas.py:1499 relax_history_fix_pallas (K19)
+  relax_clamp_moments <- nrdtpu/kernels/relax_pallas.py:479 relax_clamp_moments_pallas (K20)
+  relax_atrous        <- nrdtpu/kernels/relax_pallas.py:338 relax_atrous_pallas (K22)
 """
 
-from . import (history_fix, history_fix_fused, hitdist_recon, nearest_multi, sigma_blur,
-               sigma_ts, smb_resolve, spatial_filter, spatial_filter_fused, spec_ta_head,
-               ts_prelude, vmb_resolve)
+from . import (history_fix, history_fix_fused, hitdist_recon, nearest_multi, relax_atrous,
+               relax_clamp_moments, relax_history_fix, relax_prepass, relax_smb_resolve,
+               sigma_blur, sigma_ts, smb_resolve, spatial_filter, spatial_filter_fused,
+               spec_ta_head, ts_prelude, vmb_resolve)
 
 MODULES = {
     "smb_resolve": smb_resolve,
@@ -42,6 +49,11 @@ MODULES = {
     "hitdist_recon": hitdist_recon,
     "sigma_blur": sigma_blur,
     "sigma_ts": sigma_ts,
+    "relax_prepass": relax_prepass,
+    "relax_smb_resolve": relax_smb_resolve,
+    "relax_history_fix": relax_history_fix,
+    "relax_clamp_moments": relax_clamp_moments,
+    "relax_atrous": relax_atrous,
 }
 
 

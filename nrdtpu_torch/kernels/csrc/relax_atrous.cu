@@ -1,0 +1,203 @@
+// K22: one RELAX à-trous iteration, diffuse. Iteration 0: the 3x3 Gaussian prefilter of the
+// centre's variance, the 3x3 taps accumulating (rgb, 2nd moment) with the variance taken at
+// the end, and where history length < threshold the 5x5 spatial variance estimation in its
+// place. Later iterations: variance propagated with w^2, the lobe fraction relaxed with the
+// stride and the history length, and above stride 4 each pixel's taps jittered by
+// floor(step / 2 (rnd - 0.5)) from the PCG hash of (pixel, frame index). Each tap is
+// sample_nearest(uv + duv) with XLA's float uv and in-screen test, weighted by plane
+// distance, the 3x3 Gaussian, denoising range, normal angle, material and luminance.
+// Replaces nrdtpu/kernels/relax_pallas.py:338 relax_atrous_pallas; computes
+// nrdtpu/passes/relax/kernels.py:1349-1598 (diffuse part) per pixel. The plain version is
+// nrdtpu_torch/kernels/relax_atrous.py:relax_atrous_ref. One thread per pixel.
+#include "relax_common.cuh"
+
+namespace {
+
+using nrd::Image;
+using nrd::V3;
+
+struct AtrousArgs {
+  const float* signal;  // (h, w, 4) (rgb, 2nd moment) at iteration 0, else (rgb, variance)
+  const float* view_z;  // (h, w) raw
+  const float* nr;      // (h, w, 4)
+  const float* hl;      // (h, w) history length
+  float* out;           // (h, w, 4) (rgb, variance)
+  relax::Frame f;
+  float denoising_range, depth_threshold, lobe_fraction, nwp_sve, phi, max_rel, min_material,
+      history_threshold;
+  int step;
+  bool is_first;
+  uint32_t frame_index;
+  float w0, w0_sq, k01, k11;  // Gaussian 3x3: centre, centre squared, edge, corner
+};
+
+// 3x3 Gaussian prefilter of the centre's variance, [|dx|][|dy|]
+__constant__ float kPrefilter[2][2] = {{0.25f, 0.125f}, {0.125f, 0.0625f}};
+
+// the 5x5 spatial variance estimation of a short history (clamp-to-edge)
+__device__ __forceinline__ void variance_estimation(const AtrousArgs& a, int x, int y, V3 n,
+                                                    float mat_c, float hl, float out[4]) {
+  const Image<float, 4> sig{a.signal, a.f.w, a.f.h};
+  const Image<float, 4> nr{a.nr, a.f.w, a.f.h};
+  float swsum = 0.0f, s_rgb[3] = {0.0f, 0.0f, 0.0f}, s_m1 = 0.0f, s_m2 = 0.0f;
+  for (int dy = -2; dy <= 2; ++dy)
+    for (int dx = -2; dx <= 2; ++dx) {
+      const int tx = x + dx, ty = y + dy;
+      const V3 ns = nrd::unpack_normal(nr.at(tx, ty, 0), nr.at(tx, ty, 1));
+      float w_ = nrd::compute_weight(nrd::acos_approx(nrd::dot3(n, ns)), a.nwp_sve, 0.0f);
+      w_ = w_ * (fmaxf(nr.at(tx, ty, 3) * 3.0f, a.min_material) == mat_c ? 1.0f : 0.0f);
+      float s[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[c] = sig.at(tx, ty, c);
+      swsum = swsum + w_;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) s_rgb[c] = s_rgb[c] + s[c] * w_;
+      s_m1 = s_m1 + relax::luminance(s[0], s[1], s[2]) * w_;
+      s_m2 = s_m2 + s[3] * w_;
+    }
+  swsum = fmaxf(swsum, 1e-6f);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) out[c] = s_rgb[c] / swsum;
+  s_m1 = s_m1 / swsum;
+  s_m2 = s_m2 / swsum;
+  const float boost = fmaxf(4.0f / (hl + 1.0f), 1.0f);
+  out[3] = fmaxf(s_m2 - s_m1 * s_m1, 0.0f) * boost;
+}
+
+__global__ void __launch_bounds__(256) relax_atrous_kernel(AtrousArgs a) {
+  const int x = blockIdx.x * nrd::kBlock + threadIdx.x;
+  const int y = blockIdx.y * nrd::kBlock + threadIdx.y;
+  if (x >= a.f.w || y >= a.f.h) return;
+  const size_t i = (size_t)y * a.f.w + x;
+  const Image<float, 4> sig{a.signal, a.f.w, a.f.h};
+  const Image<float, 4> nr{a.nr, a.f.w, a.f.h};
+  const Image<float, 1> vz{a.view_z, a.f.w, a.f.h};
+  const float hl = a.hl[i];
+  const V3 n = nrd::unpack_normal(nr.at(x, y, 0), nr.at(x, y, 1));
+  const float mat_c = fmaxf(nr.at(x, y, 3) * 3.0f, a.min_material);
+  float out[4];
+  if (a.is_first && !(hl >= a.history_threshold)) {
+    variance_estimation(a, x, y, n, mat_c, hl, out);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) a.out[4 * i + c] = out[c];
+    return;
+  }
+
+  const float fw = (float)a.f.w, fh = (float)a.f.h;
+  const float u = nrd::pixel_u(x, a.f.w), v = nrd::pixel_u(y, a.f.h);
+  const float z = relax::view_z(a.f, vz.at(x, y, 0));
+  const V3 xc = relax::world_pos(a.f, u, v, z);
+  const float thr = a.depth_threshold * (a.f.ortho == 0.0f ? z : 1.0f);
+  float c[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) c[k] = sig.at(x, y, k);
+
+  float nwp, var;
+  if (a.is_first) {
+    nwp = relax::normal_weight_param2(a.lobe_fraction);
+    float pre[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int dy = -1; dy <= 1; ++dy)
+      for (int dx = -1; dx <= 1; ++dx) {
+        const float k = kPrefilter[abs(dx)][abs(dy)];
+#pragma unroll
+        for (int ch = 0; ch < 4; ++ch) pre[ch] = pre[ch] + sig.at(x + dx, y + dy, ch) * k;
+      }
+    const float m1 = relax::luminance(pre[0], pre[1], pre[2]);
+    var = fmaxf(pre[3] - m1 * m1, 0.0f);
+  } else {
+    const float dlf = 0.99f + (a.lobe_fraction - 0.99f) * nrd::saturate(hl / 5.0f);
+    nwp = relax::normal_weight_param2(dlf);
+    var = c[3];
+  }
+
+  float offx = 0.0f, offy = 0.0f;
+  if (!a.is_first && a.step > 4) {
+    uint32_t rng = nrd::hash_init((uint32_t)x, (uint32_t)y, a.frame_index);
+    const float r0 = nrd::hash_float(rng);
+    const float r1 = nrd::hash_float(rng);
+    const float half = (float)a.step * 0.5f;
+    offx = floorf(half * (r0 - 0.5f));
+    offy = floorf(half * (r1 - 0.5f));
+  }
+
+  const float phi_inv = 1.0f / fmaxf(a.phi * sqrtf(var), 1e-4f);
+  const float center_l = relax::luminance(c[0], c[1], c[2]);
+  const float rinv_x = 1.0f / fw, rinv_y = 1.0f / fh;
+  float wsum = a.w0;
+  float acc[4] = {c[0] * a.w0, c[1] * a.w0, c[2] * a.w0, c[3] * (a.is_first ? a.w0 : a.w0_sq)};
+  for (int yy = -1; yy <= 1; ++yy)
+    for (int xx = -1; xx <= 1; ++xx) {
+      if (xx == 0 && yy == 0) continue;
+      const float kern = (xx == 0 || yy == 0) ? a.k01 : a.k11;
+      const float us = u + ((float)(xx * a.step) + offx) * rinv_x;
+      const float vs = v + ((float)(yy * a.step) + offy) * rinv_y;
+      const float inside = nrd::in_screen_nearest(us, vs);
+      const int tx = nrd::to_index(floorf(us * fw)), ty = nrd::to_index(floorf(vs * fh));
+      const float zs = relax::view_z(a.f, vz.at(tx, ty, 0));
+      const V3 ns = nrd::unpack_normal(nr.at(tx, ty, 0), nr.at(tx, ty, 1));
+      const float ms = nr.at(tx, ty, 3) * 3.0f;
+      const V3 xs = relax::world_pos(a.f, us, vs, zs);
+      float gw = (relax::plane_dist(xs, xc, n) < thr ? 1.0f : 0.0f) * kern;
+      gw = gw * inside * (zs < a.denoising_range ? 1.0f : 0.0f);
+      float w_ = gw * nrd::compute_weight(nrd::acos_approx(nrd::dot3(n, ns)), nwp, 0.0f);
+      w_ = w_ * (fmaxf(ms, a.min_material) == mat_c ? 1.0f : 0.0f);
+      float s[4];
+#pragma unroll
+      for (int ch = 0; ch < 4; ++ch) s[ch] = sig.at(tx, ty, ch);
+      const float sl = relax::luminance(s[0], s[1], s[2]);
+      const float lw = fminf(fabsf(center_l - sl) * phi_inv, a.max_rel);
+      w_ = w_ * expf(-lw);
+      wsum = wsum + w_;
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) acc[ch] = acc[ch] + s[ch] * w_;
+      acc[3] = acc[3] + s[3] * (a.is_first ? w_ : w_ * w_);
+    }
+  if (a.is_first) {
+#pragma unroll
+    for (int ch = 0; ch < 4; ++ch) out[ch] = acc[ch] / wsum;
+    const float m1 = relax::luminance(out[0], out[1], out[2]);
+    out[3] = fmaxf(out[3] - m1 * m1, 0.0f);
+  } else {
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) out[ch] = acc[ch] / wsum;
+    out[3] = acc[3] / (wsum * wsum);
+  }
+#pragma unroll
+  for (int ch = 0; ch < 4; ++ch) a.out[4 * i + ch] = out[ch];
+}
+
+}  // namespace
+
+// ptrs: signal, view_z, nr, history_length, out
+// consts: frame geometry (relax::load_frame), denoising_range, depth_threshold,
+//         lobe_fraction, nwp_sve, phi, max_rel, min_material, history_threshold, step,
+//         is_first (0 or 1), frame index low 16 bits, high 16 bits, w0, w0^2, k01, k11
+extern "C" int nrd_relax_atrous(void* const* p, const float* c, int w, int h, void* stream) {
+  AtrousArgs a;
+  a.signal = (const float*)p[0];
+  a.view_z = (const float*)p[1];
+  a.nr = (const float*)p[2];
+  a.hl = (const float*)p[3];
+  a.out = (float*)p[4];
+  a.f = relax::load_frame(c, w, h);
+  const float* q = c + relax::kFrameConsts;
+  a.denoising_range = q[0];
+  a.depth_threshold = q[1];
+  a.lobe_fraction = q[2];
+  a.nwp_sve = q[3];
+  a.phi = q[4];
+  a.max_rel = q[5];
+  a.min_material = q[6];
+  a.history_threshold = q[7];
+  a.step = (int)q[8];
+  a.is_first = q[9] != 0.0f;
+  a.frame_index = (uint32_t)q[10] | ((uint32_t)q[11] << 16);
+  a.w0 = q[12];
+  a.w0_sq = q[13];
+  a.k01 = q[14];
+  a.k11 = q[15];
+  dim3 block(nrd::kBlock, nrd::kBlock);
+  dim3 grid((w + nrd::kBlock - 1) / nrd::kBlock, (h + nrd::kBlock - 1) / nrd::kBlock);
+  relax_atrous_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,204 @@
+"""RELAX à-trous iteration, diffuse - kernel `csrc/relax_atrous.cu` (K22).
+
+Replaces `nrdtpu/kernels/relax_pallas.py:338` (`relax_atrous_pallas`). Computes the diffuse
+part of `atrous` (`nrdtpu/passes/relax/kernels.py:1340-1606`) per pixel, in two modes:
+
+  - iteration 0 (`is_first`): the 3x3 Gaussian prefilter of the centre's variance
+    (`:1456-1463`), the 3x3 à-trous taps accumulating (rgb, 2nd moment) with the variance
+    taken at the end (`:1538-1542`), and where `history_length < history_threshold` the 5x5
+    spatial variance estimation in its place (`:1560-1598`, clamp-to-edge);
+  - later iterations: the signal's .w is the variance, propagated with w^2 (`:1534`,
+    `:1544`); the diffuse lobe fraction relaxes with the stride and the history length
+    (`:1363-1366`), and strides above 4 jitter each pixel's taps by
+    `floor(step / 2 (rnd - 0.5))`, rnd from the PCG hash of (pixel, frame index)
+    (`:1472-1477`, bit-exact with `nrdtpu_torch.math.hash_*`). The TPU kernel's per-block
+    jitter (`relax_pallas.py:6-9`) is not carried over.
+
+Each tap is `sample_nearest(uv + duv)` with XLA's float uv and its in-screen test, weighted
+by plane distance, the 3x3 Gaussian, denoising range, normal angle, material and luminance.
+
+Bound on the H100: gathers. Per pixel it reads the centre's signal, viewZ, packed normal and
+history length (40 B) and 8 taps of viewZ, packed normal and signal (8 x 36 B, `step` px
+away: 1 to 16 at the default 5 iterations); iteration 0 reads 8 more signal taps of the 3x3
+and, where the history is short, the 25 taps of the 5x5 (L1 neighbours); it writes 16 B.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import frontend as fe
+from .. import math as nm
+from ..ops import resample, stencil
+from ..passes import relax as RC
+from . import build
+
+launches = 0
+G3 = (0.44198, 0.27901)                    # kernelWeightGaussian3x3, RELAX_Atrous.hlsli:120
+PREFILTER = ((0.25, 0.125), (0.125, 0.0625))  # the 3x3 variance prefilter, [|dx|][|dy|]
+F32 = np.float32
+
+
+def normal_weight_param2(angle_fraction):
+    """get_normal_weight_param2 of roughness 1 (the diffuse lobe) and a tensor or host
+    angle fraction."""
+    return RC.get_normal_weight_param2(torch.ones(()), angle_fraction)
+
+
+def lobe_fraction(lobe_angle_fraction, step_size, is_first):
+    """The diffuse lobe fraction before its history-length relaxation, float32 (`:1360-1364`):
+    the settings' fraction at iteration 0, else fraction / sqrt(step)."""
+    if is_first:
+        return float(F32(lobe_angle_fraction))
+    return float(F32(lobe_angle_fraction) / F32(step_size ** 0.5))
+
+
+def relax_atrous_ref(signal, view_z_in, normal_roughness, history_length, *, step_size,
+                     is_first, frame_index, frustum, ortho_mode, view_z_scale, denoising_range,
+                     depth_threshold, lobe_fraction, lobe_angle_fraction, phi_luminance,
+                     max_luminance_relative_difference, min_material, history_threshold):
+    """Plain PyTorch version of the kernel (the XLA iteration, op for op). lobe_fraction is
+    `lobe_fraction(...)` of this iteration, lobe_angle_fraction the settings' (the 5x5
+    estimation's normal weight)."""
+    h, w = view_z_in.shape
+    dev = signal.device
+    uv = resample.pixel_uv_grid(h, w, dev)
+    view_z = torch.abs(view_z_in) * view_z_scale
+    n, _, material_id = fe.unpack_normal_roughness(normal_roughness)
+    x = RC.world_pos(frustum, ortho_mode, uv, view_z)
+    thr = depth_threshold * (view_z if ortho_mode == 0.0 else torch.ones_like(view_z))
+    mat_c = torch.clamp_min(material_id, min_material)
+
+    if is_first:
+        nwp = normal_weight_param2(lobe_fraction) * torch.ones_like(view_z)
+        acc = torch.zeros_like(signal)
+        for dy, dx in stencil.offsets_square(1):
+            acc = acc + stencil.shifted(signal, dy, dx) * PREFILTER[abs(dx)][abs(dy)]
+        m1 = nm.luminance(acc[..., :3])
+        var = torch.clamp_min(acc[..., 3] - m1 * m1, 0.0)
+    else:
+        # lerp(0.99, fraction, saturate(hl / 5)) with XLA's float32 (fraction - 0.99)
+        span = float(F32(lobe_fraction) - F32(0.99))
+        dlf = 0.99 + span * nm.saturate(history_length / 5.0)
+        nwp = normal_weight_param2(dlf)
+        var = signal[..., 3]
+
+    off_x = off_y = 0.0
+    if not is_first and step_size > 4:
+        xs_ = torch.arange(w, device=dev)[None, :].expand(h, w)
+        ys_ = torch.arange(h, device=dev)[:, None].expand(h, w)
+        _, rnd = nm.hash_float2(nm.hash_init(xs_, ys_, frame_index))
+        off_x = torch.floor(step_size * 0.5 * (rnd[..., 0] - 0.5))
+        off_y = torch.floor(step_size * 0.5 * (rnd[..., 1] - 0.5))
+
+    phi_inv = 1.0 / torch.clamp_min(phi_luminance * torch.sqrt(var), 1e-4)
+    center_l = nm.luminance(signal[..., :3])
+    w0 = G3[0] * G3[0]
+    wsum = torch.full_like(view_z, w0)
+    if is_first:
+        acc = signal * w0
+    else:
+        acc = signal * torch.tensor([w0, w0, w0, w0 * w0], dtype=torch.float32, device=dev)
+    rinv_x, rinv_y = float(F32(1.0) / F32(w)), float(F32(1.0) / F32(h))
+    for yy in range(-1, 2):
+        for xx in range(-1, 2):
+            if xx == 0 and yy == 0:
+                continue
+            kern = G3[abs(xx)] * G3[abs(yy)]
+            uv_s = torch.stack([uv[..., 0] + (float(xx * step_size) + off_x) * rinv_x,
+                                uv[..., 1] + (float(yy * step_size) + off_y) * rinv_y], -1)
+            inside = resample.is_in_screen_nearest(uv_s)
+            zs = torch.abs(resample.sample_nearest(view_z_in, uv_s)) * view_z_scale
+            ns, _, ms = fe.unpack_normal_roughness(resample.sample_nearest(normal_roughness, uv_s))
+            xs = RC.world_pos(frustum, ortho_mode, uv_s, zs)
+            gw = RC.get_plane_distance_weight_atrous(x, n, xs, thr) * kern
+            gw = gw * inside * (zs < denoising_range).to(torch.float32)
+            w_ = gw * nm.compute_weight(nm.acos_approx(nm.dot(n, ns)), nwp, 0.0)
+            w_ = w_ * (torch.clamp_min(ms, min_material) == mat_c).to(torch.float32)
+            s = resample.sample_nearest(signal, uv_s)
+            sl = nm.luminance(s[..., :3])
+            lw = torch.clamp_max(torch.abs(center_l - sl) * phi_inv,
+                                 max_luminance_relative_difference)
+            w_ = w_ * torch.exp(-lw)
+            wsum = wsum + w_
+            if is_first:
+                acc = acc + s * w_[..., None]
+            else:
+                acc = acc + s * torch.stack([w_, w_, w_, w_ * w_], -1)
+    if is_first:
+        out = acc / wsum[..., None]
+        m1 = nm.luminance(out[..., :3])
+        out = torch.cat([out[..., :3], torch.clamp_min(out[..., 3] - m1 * m1, 0.0)[..., None]], -1)
+        return torch.where((history_length >= history_threshold)[..., None], out,
+                           _variance_estimation(signal, normal_roughness, history_length, n,
+                                                mat_c, lobe_angle_fraction, min_material))
+    return acc / torch.stack([wsum, wsum, wsum, wsum * wsum], -1)
+
+
+def _variance_estimation(signal, normal_roughness, history_length, n, mat_c,
+                         lobe_angle_fraction, min_material):
+    """The 5x5 spatial variance estimation of short histories (`:1560-1598`)."""
+    nwp = normal_weight_param2(lobe_angle_fraction)
+    swsum = torch.zeros_like(history_length)
+    s_rgb = torch.zeros_like(signal[..., :3])
+    s_m1 = torch.zeros_like(history_length)
+    s_m2 = torch.zeros_like(history_length)
+    for dy, dx in stencil.offsets_square(2):
+        ns, _, ms = fe.unpack_normal_roughness(stencil.shifted(normal_roughness, dy, dx))
+        w_ = nm.compute_weight(nm.acos_approx(nm.dot(n, ns)), nwp, 0.0)
+        w_ = w_ * (torch.clamp_min(ms, min_material) == mat_c).to(torch.float32)
+        s = stencil.shifted(signal, dy, dx)
+        swsum = swsum + w_
+        s_rgb = s_rgb + s[..., :3] * w_[..., None]
+        s_m1 = s_m1 + nm.luminance(s[..., :3]) * w_
+        s_m2 = s_m2 + s[..., 3] * w_
+    swsum = torch.clamp_min(swsum, 1e-6)
+    s_rgb = s_rgb / swsum[..., None]
+    s_m1 = s_m1 / swsum
+    s_m2 = s_m2 / swsum
+    boost = torch.clamp_min(torch.full_like(history_length, 4.0) / (history_length + 1.0), 1.0)
+    s_var = torch.clamp_min(s_m2 - s_m1 * s_m1, 0.0) * boost
+    return torch.cat([s_rgb, s_var[..., None]], -1)
+
+
+def _frame_halves(frame_index):
+    f = int(frame_index) & 0xFFFFFFFF
+    return float(f & 0xFFFF), float(f >> 16)
+
+
+def relax_atrous(signal, view_z_in, normal_roughness, history_length, *, step_size, is_first,
+                 frame_index, frustum, ortho_mode, view_z_scale, denoising_range,
+                 depth_threshold, lobe_fraction, lobe_angle_fraction, phi_luminance,
+                 max_luminance_relative_difference, min_material, history_threshold):
+    """signal (h, w, 4): at iteration 0 (rgb, 2nd moment), later (rgb, variance);
+    history_length (h, w); frustum = the 9 floats right, up, forward. Returns (h, w, 4) =
+    (rgb, variance)."""
+    global launches
+    kw = dict(step_size=step_size, is_first=is_first, frame_index=frame_index, frustum=frustum,
+              ortho_mode=ortho_mode, view_z_scale=view_z_scale,
+              denoising_range=denoising_range, depth_threshold=depth_threshold,
+              lobe_fraction=lobe_fraction, lobe_angle_fraction=lobe_angle_fraction,
+              phi_luminance=phi_luminance,
+              max_luminance_relative_difference=max_luminance_relative_difference,
+              min_material=min_material, history_threshold=history_threshold)
+    dev = build.kernel_device(signal)
+    if dev is None:
+        return relax_atrous_ref(signal, view_z_in, normal_roughness, history_length, **kw)
+    h, w = view_z_in.shape
+    f32 = torch.float32
+    ins = [("signal", signal, (h, w, 4)), ("view_z_in", view_z_in, (h, w)),
+           ("normal_roughness", normal_roughness, (h, w, 4)),
+           ("history_length", history_length, (h, w))]
+    for name, t, shape in ins:
+        build.check(name, t, dev, f32, shape)
+    out = torch.empty((h, w, 4), dtype=f32, device=dev)
+    w0 = G3[0] * G3[0]
+    consts = [*frustum, ortho_mode, view_z_scale, denoising_range, depth_threshold,
+              lobe_fraction, float(normal_weight_param2(lobe_angle_fraction)), phi_luminance,
+              max_luminance_relative_difference, min_material, history_threshold,
+              step_size, is_first, *_frame_halves(frame_index), w0, w0 * w0,
+              G3[0] * G3[1], G3[1] * G3[1]]
+    build.launch("nrd_relax_atrous", [t for _, t, _ in ins] + [out], consts, w, h)
+    launches += 1
+    return out

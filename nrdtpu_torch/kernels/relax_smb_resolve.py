@@ -1,0 +1,141 @@
+"""RELAX surface-motion loader - kernel `csrc/relax_smb_resolve.cu` (K16).
+
+Replaces `nrdtpu/kernels/relax_pallas.py:1000` (`relax_smb_resolve`). Computes, per pixel, the
+gathers of `temporal_accumulation`'s loadSurfaceMotionBasedPrevData
+(`nrdtpu/passes/relax/kernels.py:376-389`, `:426`, `:485-549`, `:580-583`) as XLA does them:
+
+  - the current 3x3 normal average (unit length, for the backface test);
+  - the 4x4 previous viewZ and material taps around the reprojected footprint, rooted at
+    bilinear_origin - 1 with clamp addressing, tested against the per-quad in-screen
+    thresholds (`:485-516`); bicubic where all 12 non-corner taps pass;
+  - the backface test against the previous normal, bilinear at the footprint centre
+    ((origin + 1) / resource size, `:519-529`), rotated into this frame;
+  - the history length, bilinear with the custom weights (`:543-549`), + 1, at most 255;
+  - the footprint quality before its refinements (1 for bicubic, else the custom weights'
+    sum; 0 where no tap is valid) and smb_found (2 bicubic, 1 bilinear, 0 none);
+  - `sample_catrom(history, uv_smb x rect_prev, use_bicubic, custom_w)` of every history
+    plane set given (`:580-583`): RELAX_DIFFUSE gives the slow and the responsive history.
+
+The TPU kernel's block-base + tent-residual capture (`relax_pallas.py:1020-1022`,
+`:847-851`) is not carried over: the footprint is each pixel's own.
+
+Bound on the H100: gathers. Per pixel it reads 9 current packed normals (144 B, L1
+neighbours), 16 previous viewZ and 16 material taps (128 B), 4 previous packed normals and 4
+history lengths (80 B), and 5 bilinear (20 texel) taps of each (h, w, 4) history (2 x 320 B,
+mostly shared with the neighbours); it writes 3 planes and 16 B per history.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import frontend as fe
+from .. import math as nm
+from ..ops import resample, stencil
+from ..passes import relax as RC
+from . import build
+
+launches = 0
+PLANES = ("history_length", "footprint_quality", "smb_found")
+CORNERS = ((0, 0), (3, 0), (0, 3), (3, 3))  # (x, y) inside the 4x4
+
+
+def relax_smb_resolve_ref(smb_uv, xv_prev_z, base_threshold, normal_roughness, prev_view_z,
+                          prev_material_id, prev_history_length, prev_normal_roughness,
+                          histories, *, view_z_scale, rect_size_prev, resource_size,
+                          min_material, world_prev_to_world):
+    """Plain PyTorch version of the kernel (the XLA formulas, gather by gather)."""
+    n_avg = torch.zeros_like(normal_roughness[..., :3])
+    for dy, dx in stencil.offsets_square(1):
+        n_avg = n_avg + fe.unpack_normal_roughness(stencil.shifted(normal_roughness, dy, dx))[0]
+    n_avg_unit = nm.normalize(nm.div(n_avg, 9.0))
+
+    origin, frac = nm.bilinear_filter(smb_uv, rect_size_prev)
+    in_screen4 = resample.is_in_screen_bilinear(origin, rect_size_prev)
+    quad_thr = [base_threshold * in_screen4[..., q] - fe.NRD_EPS for q in range(4)]
+    x0 = resample.to_index(origin[..., 0]) - 1
+    y0 = resample.to_index(origin[..., 1]) - 1
+    mat_c = torch.clamp_min(normal_roughness[..., 3] * 3.0, min_material)
+    occ = [[None] * 4 for _ in range(4)]
+    for j in range(4):
+        for i in range(4):
+            q = (1 if i >= 2 else 0) + (2 if j >= 2 else 0)
+            z = torch.abs(resample.texel_fetch(prev_view_z, x0 + i, y0 + j)) * view_z_scale
+            ok = (torch.abs(z - xv_prev_z) <= quad_thr[q]).to(torch.float32)
+            mat = resample.texel_fetch(prev_material_id, x0 + i, y0 + j)
+            occ[j][i] = ok * (mat_c == torch.clamp_min(mat, min_material)).to(torch.float32)
+    occ12 = sum(occ[j][i] for j in range(4) for i in range(4) if (i, j) not in CORNERS)
+    bicubic_valid = (occ12 > 11.5).to(torch.float32)
+    bilinear_valid = torch.stack([occ[1][1], occ[1][2], occ[2][1], occ[2][2]], -1)
+
+    rw, rh = (float(v) for v in np.asarray(resource_size, np.float32))
+    center_uv = torch.stack([nm.div(origin[..., 0] + 1.0, rw), nm.div(origin[..., 1] + 1.0, rh)],
+                            -1)
+    prev_normal, _ = RC.unpack_prev_normal_roughness(
+        resample.sample_bilinear(prev_normal_roughness, center_uv))
+    prev_normal = nm.rotate_vector(world_prev_to_world, prev_normal)
+    backface = nm.dot(n_avg_unit, prev_normal) < 0.0
+    bilinear_valid = torch.where(backface[..., None], 0.0, bilinear_valid)
+    bicubic_valid = torch.where(backface, 0.0, bicubic_valid)
+
+    custom_w = nm.get_bilinear_custom_weights(frac, bilinear_valid)
+    use_bicubic = bicubic_valid > 0.0
+    any_valid = (bilinear_valid > 0.0).any(-1)
+    smb_found = torch.where(any_valid, torch.where(use_bicubic, 2.0, 1.0), 0.0)
+    quality = torch.where(use_bicubic, 1.0, torch.sum(custom_w, -1))
+    quality = torch.where(any_valid, quality, 0.0)
+
+    taps = [resample.texel_fetch(prev_history_length, x0 + 1 + dx, y0 + 1 + dy)[..., None]
+            for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1))]
+    history_length = nm.apply_bilinear_custom_weights(*taps, custom_w)[..., 0]
+    history_length = torch.clamp_max(history_length + 1.0, 255.0)
+
+    sample_pos = nm.scale2(smb_uv, float(rect_size_prev[0]), float(rect_size_prev[1]))
+    hist = torch.stack([resample.sample_catrom(img, sample_pos, use_bicubic, custom_w)
+                        for img in histories])
+    return dict(history_length=history_length, footprint_quality=quality, smb_found=smb_found,
+                histories=hist)
+
+
+def relax_smb_resolve(smb_uv, xv_prev_z, base_threshold, normal_roughness, prev_view_z,
+                      prev_material_id, prev_history_length, prev_normal_roughness, histories,
+                      *, view_z_scale, rect_size_prev, resource_size, min_material,
+                      world_prev_to_world):
+    """smb_uv (h, w, 2) surface-motion uv; xv_prev_z, base_threshold (h, w) from the glue;
+    normal_roughness (h, w, 4) current; the previous frame's raw viewZ, material id, history
+    length (h, w) and 8-bit packed normal/roughness (h, w, 4); histories: a sequence of
+    (h, w, 4) float32 history planes sampled with the same footprint. Returns
+    dict(history_length, footprint_quality, smb_found (h, w), histories (k, h, w, 4))."""
+    global launches
+    kw = dict(view_z_scale=view_z_scale, rect_size_prev=rect_size_prev,
+              resource_size=resource_size, min_material=min_material,
+              world_prev_to_world=world_prev_to_world)
+    histories = tuple(histories)
+    dev = build.kernel_device(normal_roughness)
+    if dev is None:
+        return relax_smb_resolve_ref(smb_uv, xv_prev_z, base_threshold, normal_roughness,
+                                     prev_view_z, prev_material_id, prev_history_length,
+                                     prev_normal_roughness, histories, **kw)
+    h, w = xv_prev_z.shape
+    if not 1 <= len(histories) <= 4:
+        raise ValueError(f"histories: {len(histories)} planes, 1 to 4 supported")
+    f32 = torch.float32
+    ins = [("smb_uv", smb_uv, (h, w, 2)), ("xv_prev_z", xv_prev_z, (h, w)),
+           ("base_threshold", base_threshold, (h, w)),
+           ("normal_roughness", normal_roughness, (h, w, 4)), ("prev_view_z", prev_view_z, (h, w)),
+           ("prev_material_id", prev_material_id, (h, w)),
+           ("prev_history_length", prev_history_length, (h, w)),
+           ("prev_normal_roughness", prev_normal_roughness, (h, w, 4))]
+    ins += [(f"histories[{k}]", t, (h, w, 4)) for k, t in enumerate(histories)]
+    for name, t, shape in ins:
+        build.check(name, t, dev, f32, shape)
+    planes = torch.empty((len(PLANES), h, w), dtype=f32, device=dev)
+    hist = torch.empty((len(histories), h, w, 4), dtype=f32, device=dev)
+    m = np.asarray(world_prev_to_world, np.float32)[:3, :3].reshape(-1)
+    consts = [view_z_scale, rect_size_prev[0], rect_size_prev[1], resource_size[0],
+              resource_size[1], min_material, *m, len(histories)]
+    build.launch("nrd_relax_smb_resolve", [t for _, t, _ in ins[:8]] + [planes, hist]
+                 + [t for _, t, _ in ins[8:]], consts, w, h)
+    launches += 1
+    return dict(zip(PLANES, planes), histories=hist)

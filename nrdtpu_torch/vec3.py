@@ -93,6 +93,13 @@ def rotate_inv(m, v: V3):
               r[0][2] * v.x + r[1][2] * v.y + r[2][2] * v.z)
 
 
+def affine(m, v: V3):
+    """(m @ [v, 1]).xyz for a row-major host 4x4."""
+    r = rotate(m, v)
+    a = _m(m)
+    return V3(r.x + a[0][3], r.y + a[1][3], r.z + a[2][3])
+
+
 def reflect(i: V3, n: V3):
     d = 2.0 * dot(n, i)
     return V3(i.x - d * n.x, i.y - d * n.y, i.z - d * n.z)

@@ -3,9 +3,10 @@
 Each kernel runs on the inputs the main paths give it (frame 4 of the orbit scene at 128x96:
 REBLUR_DIFFUSE, REBLUR_SPECULAR and REBLUR_DIFFUSE_SPECULAR, each with and without the
 anti-firefly ring and with AREA_3X3 hit-distance reconstruction on inputs with hit-distance
-holes; SIGMA_SHADOW and SIGMA_SHADOW_TRANSLUCENCY) and is held against its plain PyTorch
-version on the same card; the Engine on the card is held against the Engine on the CPU, for
-every path and output. Run on a machine with an H100:
+holes; SIGMA_SHADOW and SIGMA_SHADOW_TRANSLUCENCY; RELAX_DIFFUSE, also with AREA_3X3: its
+five kernels, the à-trous at iteration 0 and at the jittered strides) and is held against its
+plain PyTorch version on the same card; the Engine on the card is held against the Engine on
+the CPU, for every path and output. Run on a machine with an H100:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 
@@ -43,6 +44,7 @@ def cuda():
 
 VARIANTS = (Denoiser.REBLUR_DIFFUSE, Denoiser.REBLUR_SPECULAR, Denoiser.REBLUR_DIFFUSE_SPECULAR)
 SIGMA = (Denoiser.SIGMA_SHADOW, Denoiser.SIGMA_SHADOW_TRANSLUCENCY)
+RELAX = (Denoiser.RELAX_DIFFUSE,)
 AREA_3X3 = dict(hitDistanceReconstructionMode=HitDistanceReconstructionMode.AREA_3X3)
 
 
@@ -57,7 +59,12 @@ def _pools(denoiser, n, holes=False):
         fd.common_settings.timeDeltaBetweenFrames = 16.66
         pool = {RT.IN_VIEWZ: fd.view_z, RT.IN_NORMAL_ROUGHNESS: gen.packed_normal_roughness(fd),
                 RT.IN_MV: fd.mv}
-        sig = np.concatenate([fd.diff_noisy, np.full(fd.view_z.shape + (1,), 0.5, np.float32)], -1)
+        if denoiser in RELAX:  # raw radiance and raw hit distance
+            sig = fe.relax_pack_radiance_hitdist(torch.from_numpy(fd.diff_noisy),
+                                                 torch.from_numpy(fd.diff_hit_dist)).numpy()
+        else:
+            sig = np.concatenate([fd.diff_noisy, np.full(fd.view_z.shape + (1,), 0.5, np.float32)],
+                                 -1)
         pool[RT.IN_DIFF_RADIANCE_HITDIST] = sig
         nhd = fe.reblur_get_norm_hit_dist(torch.from_numpy(fd.spec_hit_dist),
                                           torch.from_numpy(fd.view_z), hdp,
@@ -95,7 +102,8 @@ def _engine(denoiser, device, anti_firefly=False, **settings):
 
 # (denoiser, anti-firefly ring, settings, inputs with hit-distance holes) of every path
 PATHS = ([(d, af, {}, False) for d in VARIANTS for af in (False, True)]
-         + [(d, False, AREA_3X3, True) for d in VARIANTS] + [(d, False, {}, False) for d in SIGMA])
+         + [(d, False, AREA_3X3, True) for d in VARIANTS] + [(d, False, {}, False) for d in SIGMA]
+         + [(d, False, s, h) for d in RELAX for s, h in (({}, False), (AREA_3X3, True))])
 
 
 @pytest.fixture(scope="module")
@@ -162,10 +170,13 @@ def test_engine_card_matches_cpu(cuda, denoiser, anti_firefly):
 
 
 @pytest.mark.parametrize("denoiser,settings,holes",
-                         [(d, AREA_3X3, True) for d in VARIANTS] + [(d, {}, False) for d in SIGMA],
-                         ids=[f"{d.name}-AREA_3X3" for d in VARIANTS] + [d.name for d in SIGMA])
+                         [(d, AREA_3X3, True) for d in VARIANTS + RELAX]
+                         + [(d, {}, False) for d in SIGMA + RELAX],
+                         ids=[f"{d.name}-AREA_3X3" for d in VARIANTS + RELAX]
+                         + [d.name for d in SIGMA + RELAX])
 def test_engine_card_matches_cpu_new_paths(cuda, denoiser, settings, holes):
-    """Hit-distance reconstruction on inputs with holes, and the SIGMA variants."""
+    """Hit-distance reconstruction on inputs with holes, the SIGMA variants and
+    RELAX_DIFFUSE."""
     card = _engine(denoiser, cuda, **settings)
     cpu = _engine(denoiser, "cpu", **settings)
     for cs, pool in _pools(denoiser, 4, holes):
