@@ -97,13 +97,15 @@ def _build(so: Path, sources):
 
 
 def launch(entry: str, tensors, consts, w: int, h: int):
-    """Launch one C entry on the current stream of the tensors' device; raise on error."""
+    """Launch one C entry on the current stream of the tensors' device; raise on error. An
+    optional input given as None reaches the kernel as a null pointer."""
     lib = library()
     fn = getattr(lib, entry)
     fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_float),
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    ptrs = (ctypes.c_void_p * len(tensors))(
+        *[None if t is None else t.data_ptr() for t in tensors])
     vals = (ctypes.c_float * max(1, len(consts)))(*[float(c) for c in consts])
     stream = torch.cuda.current_stream(tensors[0].device).cuda_stream
     err = fn(ptrs, vals, int(w), int(h), ctypes.c_void_p(stream))

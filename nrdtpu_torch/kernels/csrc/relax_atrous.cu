@@ -1,13 +1,18 @@
-// K22: one RELAX à-trous iteration, diffuse. Iteration 0: the 3x3 Gaussian prefilter of the
-// centre's variance, the 3x3 taps accumulating (rgb, 2nd moment) with the variance taken at
-// the end, and where history length < threshold the 5x5 spatial variance estimation in its
-// place. Later iterations: variance propagated with w^2, the lobe fraction relaxed with the
-// stride and the history length, and above stride 4 each pixel's taps jittered by
-// floor(step / 2 (rnd - 0.5)) from the PCG hash of (pixel, frame index). Each tap is
-// sample_nearest(uv + duv) with XLA's float uv and in-screen test, weighted by plane
+// K22: one RELAX à-trous iteration, diffuse or specular. Iteration 0: the 3x3 Gaussian
+// prefilter of the centre's variance, the 3x3 taps accumulating (rgb, 2nd moment) with the
+// variance taken at the end, and where history length < threshold the 5x5 spatial variance
+// estimation in its place. Later iterations: variance propagated with w^2, the lobe fraction
+// relaxed with the stride and the history length, and above stride 4 each pixel's taps
+// jittered by floor(step / 2 (rnd - 0.5)) from the PCG hash of (pixel, frame index). Each tap
+// is sample_nearest(uv + duv) with XLA's float uv and in-screen test, weighted by plane
 // distance, the 3x3 Gaussian, denoising range, normal angle, material and luminance.
+// The optional confidence planes relax the edge stopping per pixel: IN_DIFF_CONFIDENCE the
+// diffuse lobe fraction and luminance weight, IN_SPEC_CONFIDENCE and the TA's reprojection
+// confidence the specular ones. The specular mode weights its later iterations' taps by the
+// specular normal weight x the roughness weight (or the simplified normal weight); its
+// iteration 0 keeps the diffuse normal weight, as XLA does (use_variance_estimation).
 // Replaces nrdtpu/kernels/relax_pallas.py:338 relax_atrous_pallas; computes
-// nrdtpu/passes/relax/kernels.py:1349-1598 (diffuse part) per pixel. The plain version is
+// nrdtpu/passes/relax/kernels.py:1349-1598 per pixel. The plain version is
 // nrdtpu_torch/kernels/relax_atrous.py:relax_atrous_ref. One thread per pixel.
 #include "relax_common.cuh"
 
@@ -22,13 +27,21 @@ struct AtrousArgs {
   const float* nr;      // (h, w, 4)
   const float* hl;      // (h, w) history length
   float* out;           // (h, w, 4) (rgb, variance)
+  const float* diff_conf;  // (h, w) IN_DIFF_CONFIDENCE or null
+  const float* spec_conf;  // (h, w) IN_SPEC_CONFIDENCE or null
+  const float* reproj;     // (h, w) the TA's specular reprojection confidence or null
   relax::Frame f;
   float denoising_range, depth_threshold, lobe_fraction, nwp_sve, phi, max_rel, min_material,
       history_threshold;
   int step;
-  bool is_first;
+  bool is_first, spec;
   uint32_t frame_index;
   float w0, w0_sq, k01, k11;  // Gaussian 3x3: centre, centre squared, edge, corner
+  float conf_mult, conf_normal, conf_lum;  // confidence-driven relaxations
+  // specular: the settings' lobe fraction, roughness fraction, normal edge-stopping
+  // relaxation, lobe slack, luminance and roughness edge-stopping relaxations
+  float laf, rf, nesr, slack, lesr, resr;
+  bool roughness_edge_stopping;
 };
 
 // 3x3 Gaussian prefilter of the centre's variance, [|dx|][|dy|]
@@ -64,6 +77,11 @@ __device__ __forceinline__ void variance_estimation(const AtrousArgs& a, int x, 
   out[3] = fmaxf(s_m2 - s_m1 * s_m1, 0.0f) * boost;
 }
 
+// saturate(multiplier (1 - confidence)) x a relaxation, saturated
+__device__ __forceinline__ float relaxation(const AtrousArgs& a, float conf, float r) {
+  return nrd::saturate(nrd::saturate(a.conf_mult * (1.0f - conf)) * r);
+}
+
 __global__ void __launch_bounds__(256) relax_atrous_kernel(AtrousArgs a) {
   const int x = blockIdx.x * nrd::kBlock + threadIdx.x;
   const int y = blockIdx.y * nrd::kBlock + threadIdx.y;
@@ -92,22 +110,43 @@ __global__ void __launch_bounds__(256) relax_atrous_kernel(AtrousArgs a) {
 #pragma unroll
   for (int k = 0; k < 4; ++k) c[k] = sig.at(x, y, k);
 
-  float nwp, var;
-  if (a.is_first) {
-    nwp = relax::normal_weight_param2(a.lobe_fraction);
-    float pre[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int dy = -1; dy <= 1; ++dy)
-      for (int dx = -1; dx <= 1; ++dx) {
-        const float k = kPrefilter[abs(dx)][abs(dy)];
-#pragma unroll
-        for (int ch = 0; ch < 4; ++ch) pre[ch] = pre[ch] + sig.at(x + dx, y + dy, ch) * k;
-      }
-    const float m1 = relax::luminance(pre[0], pre[1], pre[2]);
-    var = fmaxf(pre[3] - m1 * m1, 0.0f);
-  } else {
-    const float dlf = 0.99f + (a.lobe_fraction - 0.99f) * nrd::saturate(hl / 5.0f);
-    nwp = relax::normal_weight_param2(dlf);
-    var = c[3];
+  // the diffuse lobe fraction, relaxed by IN_DIFF_CONFIDENCE
+  const float dlf0 =
+      a.is_first ? a.lobe_fraction : 0.99f + (a.lobe_fraction - 0.99f) * nrd::saturate(hl / 5.0f);
+  float dlf = dlf0, lum_relax = 1.0f;
+  if (a.diff_conf != nullptr) {
+    const float conf = a.diff_conf[i];
+    dlf = dlf0 + (1.0f - dlf0) * relaxation(a, conf, a.conf_normal);
+    lum_relax = 1.0f - relaxation(a, conf, a.conf_lum);
+  }
+  const float nwp = relax::normal_weight_param2(dlf);
+
+  // the specular relaxations and, after iteration 0, the specular weights' parameters
+  const bool spec_taps = a.spec && !a.is_first;
+  float nwp_simpl = 0.0f, ra = 0.0f, rb = 0.0f, angle0 = 0.0f, f0 = 0.0f;
+  V3 cv{0.0f, 0.0f, 0.0f};
+  if (a.spec) {
+    const float reproj = a.reproj != nullptr ? a.reproj[i] : 1.0f;
+    lum_relax = 1.0f;
+    if ((a.step <= 4 || a.is_first) && a.reproj != nullptr)
+      lum_relax = 1.0f + (reproj - 1.0f) * a.lesr;
+    float spec_lobe = a.laf, dlf_simpl = dlf0;
+    if (a.spec_conf != nullptr) {
+      const float conf = a.spec_conf[i];
+      const float rr = relaxation(a, conf, a.conf_normal);
+      dlf_simpl = dlf0 + (1.0f - dlf0) * rr;
+      spec_lobe = a.laf + (1.0f - a.laf) * rr;
+      lum_relax = lum_relax * (1.0f - relaxation(a, conf, a.conf_lum));
+    }
+    if (spec_taps) {
+      nwp_simpl = relax::normal_weight_param2(dlf_simpl);
+      const float rough = nr.at(x, y, 2);
+      ra = 1.0f / (0.01f + 0.99f * nrd::saturate(rough * a.rf));
+      rb = -(rough * ra);
+      relax::normal_weight_params_atrous(rough, hl, reproj, a.nesr, spec_lobe, a.slack,
+                                         &angle0, &f0);
+      cv = relax::neg_normalize(xc);
+    }
   }
 
   float offx = 0.0f, offy = 0.0f;
@@ -118,6 +157,21 @@ __global__ void __launch_bounds__(256) relax_atrous_kernel(AtrousArgs a) {
     const float half = (float)a.step * 0.5f;
     offx = floorf(half * (r0 - 0.5f));
     offy = floorf(half * (r1 - 0.5f));
+  }
+
+  float var;
+  if (a.is_first) {
+    float pre[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int dy = -1; dy <= 1; ++dy)
+      for (int dx = -1; dx <= 1; ++dx) {
+        const float k = kPrefilter[abs(dx)][abs(dy)];
+#pragma unroll
+        for (int ch = 0; ch < 4; ++ch) pre[ch] = pre[ch] + sig.at(x + dx, y + dy, ch) * k;
+      }
+    const float m1 = relax::luminance(pre[0], pre[1], pre[2]);
+    var = fmaxf(pre[3] - m1 * m1, 0.0f);
+  } else {
+    var = c[3];
   }
 
   const float phi_inv = 1.0f / fmaxf(a.phi * sqrtf(var), 1e-4f);
@@ -139,13 +193,26 @@ __global__ void __launch_bounds__(256) relax_atrous_kernel(AtrousArgs a) {
       const V3 xs = relax::world_pos(a.f, us, vs, zs);
       float gw = (relax::plane_dist(xs, xc, n) < thr ? 1.0f : 0.0f) * kern;
       gw = gw * inside * (zs < a.denoising_range ? 1.0f : 0.0f);
-      float w_ = gw * nrd::compute_weight(nrd::acos_approx(nrd::dot3(n, ns)), nwp, 0.0f);
+      const float angle = nrd::acos_approx(nrd::dot3(n, ns));
+      float w_;
+      if (spec_taps) {
+        if (a.roughness_edge_stopping) {
+          const V3 sv = relax::neg_normalize(
+              V3{xs.x + a.resr * xc.x, xs.y + a.resr * xc.y, xs.z + a.resr * xc.z});
+          const float nw = relax::specular_normal_weight_atrous(angle0, f0, n, ns, cv, sv);
+          w_ = gw * (nw * nrd::compute_weight(nr.at(tx, ty, 2), ra, rb));
+        } else {
+          w_ = gw * nrd::compute_weight(angle, nwp_simpl, 0.0f);
+        }
+      } else {
+        w_ = gw * nrd::compute_weight(angle, nwp, 0.0f);
+      }
       w_ = w_ * (fmaxf(ms, a.min_material) == mat_c ? 1.0f : 0.0f);
       float s[4];
 #pragma unroll
       for (int ch = 0; ch < 4; ++ch) s[ch] = sig.at(tx, ty, ch);
       const float sl = relax::luminance(s[0], s[1], s[2]);
-      const float lw = fminf(fabsf(center_l - sl) * phi_inv, a.max_rel);
+      const float lw = fminf(fabsf(center_l - sl) * phi_inv, a.max_rel) * lum_relax;
       w_ = w_ * expf(-lw);
       wsum = wsum + w_;
 #pragma unroll
@@ -168,10 +235,15 @@ __global__ void __launch_bounds__(256) relax_atrous_kernel(AtrousArgs a) {
 
 }  // namespace
 
-// ptrs: signal, view_z, nr, history_length, out
+// ptrs: signal, view_z, nr, history_length, out, then diff_conf, spec_conf, reproj (each may
+//       be null)
 // consts: frame geometry (relax::load_frame), denoising_range, depth_threshold,
 //         lobe_fraction, nwp_sve, phi, max_rel, min_material, history_threshold, step,
-//         is_first (0 or 1), frame index low 16 bits, high 16 bits, w0, w0^2, k01, k11
+//         is_first (0 or 1), frame index low 16 bits, high 16 bits, w0, w0^2, k01, k11,
+//         confidence multiplier, normal and luminance relaxations, specular (0 or 1), the
+//         settings' lobe fraction, roughness fraction, normal edge-stopping relaxation, lobe
+//         slack, luminance and roughness edge-stopping relaxations, roughness edge stopping
+//         (0 or 1)
 extern "C" int nrd_relax_atrous(void* const* p, const float* c, int w, int h, void* stream) {
   AtrousArgs a;
   a.signal = (const float*)p[0];
@@ -179,6 +251,9 @@ extern "C" int nrd_relax_atrous(void* const* p, const float* c, int w, int h, vo
   a.nr = (const float*)p[2];
   a.hl = (const float*)p[3];
   a.out = (float*)p[4];
+  a.diff_conf = (const float*)p[5];
+  a.spec_conf = (const float*)p[6];
+  a.reproj = (const float*)p[7];
   a.f = relax::load_frame(c, w, h);
   const float* q = c + relax::kFrameConsts;
   a.denoising_range = q[0];
@@ -196,6 +271,17 @@ extern "C" int nrd_relax_atrous(void* const* p, const float* c, int w, int h, vo
   a.w0_sq = q[13];
   a.k01 = q[14];
   a.k11 = q[15];
+  a.conf_mult = q[16];
+  a.conf_normal = q[17];
+  a.conf_lum = q[18];
+  a.spec = q[19] != 0.0f;
+  a.laf = q[20];
+  a.rf = q[21];
+  a.nesr = q[22];
+  a.slack = q[23];
+  a.lesr = q[24];
+  a.resr = q[25];
+  a.roughness_edge_stopping = q[26] != 0.0f;
   dim3 block(nrd::kBlock, nrd::kBlock);
   dim3 grid((w + nrd::kBlock - 1) / nrd::kBlock, (h + nrd::kBlock - 1) / nrd::kBlock);
   relax_atrous_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);

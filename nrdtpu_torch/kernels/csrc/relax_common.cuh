@@ -76,4 +76,33 @@ __device__ __forceinline__ float normal_weight_param2(float p) {
   return 1.0f / fmaxf(atanf(tan_half), kNormalUlp);
 }
 
+// -normalize(v), normalize guarding a zero vector with 1e-15
+__device__ __forceinline__ V3 neg_normalize(V3 v) {
+  const float inv = rsqrtf(fmaxf(v.x * v.x + v.y * v.y + v.z * v.z, 1e-15f));
+  return V3{-(v.x * inv), -(v.y * inv), -(v.z * inv)};
+}
+
+// GetNormalWeightParams_ATrous (passes/relax/__init__.py:get_normal_weight_params_atrous)
+__device__ __forceinline__ void normal_weight_params_atrous(float roughness, float hl,
+                                                            float reproj, float nesr,
+                                                            float lobe_fraction, float slack,
+                                                            float* angle0, float* f0) {
+  float relaxation = nrd::saturate(hl / 5.0f);
+  relaxation = relaxation * (1.0f + (reproj - 1.0f) * nesr);
+  *f0 = 0.9f + 0.1f * relaxation;
+  const float r = nrd::saturate(roughness);
+  const float tan_half = r * r * lobe_fraction / (1.0f - lobe_fraction + 1e-6f);
+  float angle = atanf(tan_half) * (10.0f - 9.0f * relaxation);
+  angle = angle + slack;
+  *angle0 = fminf(nrd::kHalfPi, angle);
+}
+
+// GetSpecularNormalWeight_ATrous: saturate(1 - smoothstep(0, angle0, acos(min(n0.n, v0.v))) f0)
+__device__ __forceinline__ float specular_normal_weight_atrous(float angle0, float f0, V3 n0,
+                                                               V3 n, V3 v0, V3 v) {
+  const float cosa = fminf(nrd::dot3(n0, n), nrd::dot3(v0, v));
+  const float a = nrd::smoothstep(0.0f, angle0, nrd::acos_approx(cosa));
+  return nrd::saturate(1.0f - a * f0);
+}
+
 }  // namespace relax

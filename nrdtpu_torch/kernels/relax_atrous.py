@@ -38,6 +38,10 @@ launches = 0
 G3 = (0.44198, 0.27901)                    # kernelWeightGaussian3x3, RELAX_Atrous.hlsli:120
 PREFILTER = ((0.25, 0.125), (0.125, 0.0625))  # the 3x3 variance prefilter, [|dx|][|dy|]
 F32 = np.float32
+# the specular constants of `specular`, in the order the kernel reads them
+SPECULAR_CONSTS = ("roughness_fraction", "normal_edge_stopping_relaxation", "lobe_angle_slack",
+                   "luminance_edge_stopping_relaxation", "roughness_edge_stopping_relaxation",
+                   "roughness_edge_stopping_enabled")
 
 
 def normal_weight_param2(angle_fraction):
@@ -54,34 +58,86 @@ def lobe_fraction(lobe_angle_fraction, step_size, is_first):
     return float(F32(lobe_angle_fraction) / F32(step_size ** 0.5))
 
 
-def relax_atrous_ref(signal, view_z_in, normal_roughness, history_length, *, step_size,
-                     is_first, frame_index, frustum, ortho_mode, view_z_scale, denoising_range,
+def _relaxation(confidence, relaxation):
+    """(normal, luminance) edge-stopping relaxation of a confidence plane (`:1377-1391`):
+    r0 = saturate(multiplier (1 - confidence)), then saturate(r0 x each relaxation)."""
+    mult, normal, lum = relaxation
+    r0 = nm.saturate(mult * (1.0 - confidence))
+    return nm.saturate(r0 * normal), nm.saturate(r0 * lum)
+
+
+def _toward_one(fraction, t):
+    """lerp(fraction, 1, t) of a host or per-pixel fraction, (1 - fraction) in float32."""
+    if isinstance(fraction, torch.Tensor):
+        return fraction + (1.0 - fraction) * t
+    return fraction + float(F32(1.0) - F32(fraction)) * t
+
+
+def relax_atrous_ref(signal, view_z_in, normal_roughness, history_length, diff_confidence=None,
+                     spec_confidence=None, reprojection_confidence=None, *, step_size, is_first,
+                     frame_index, frustum, ortho_mode, view_z_scale, denoising_range,
                      depth_threshold, lobe_fraction, lobe_angle_fraction, phi_luminance,
-                     max_luminance_relative_difference, min_material, history_threshold):
+                     max_luminance_relative_difference, min_material, history_threshold,
+                     confidence_relaxation, specular=None):
     """Plain PyTorch version of the kernel (the XLA iteration, op for op). lobe_fraction is
     `lobe_fraction(...)` of this iteration, lobe_angle_fraction the settings' (the 5x5
-    estimation's normal weight)."""
+    estimation's normal weight and the specular lobe)."""
     h, w = view_z_in.shape
     dev = signal.device
     uv = resample.pixel_uv_grid(h, w, dev)
     view_z = torch.abs(view_z_in) * view_z_scale
-    n, _, material_id = fe.unpack_normal_roughness(normal_roughness)
+    n, roughness, material_id = fe.unpack_normal_roughness(normal_roughness)
     x = RC.world_pos(frustum, ortho_mode, uv, view_z)
     thr = depth_threshold * (view_z if ortho_mode == 0.0 else torch.ones_like(view_z))
     mat_c = torch.clamp_min(material_id, min_material)
+    ones = torch.ones_like(view_z)
+
+    # the diffuse lobe fraction (`:1360-1366`), relaxed by IN_DIFF_CONFIDENCE (`:1385-1391`)
+    if is_first:
+        dlf0 = float(F32(lobe_fraction))
+    else:
+        # lerp(0.99, fraction, saturate(hl / 5)) with XLA's float32 (fraction - 0.99)
+        span = float(F32(lobe_fraction) - F32(0.99))
+        dlf0 = 0.99 + span * nm.saturate(history_length / 5.0)
+    dlf, lum_relax = dlf0, ones
+    if diff_confidence is not None:
+        rr, rl = _relaxation(diff_confidence, confidence_relaxation)
+        dlf = _toward_one(dlf0, rr)
+        lum_relax = 1.0 - rl
+    nwp = normal_weight_param2(dlf) * ones
+
+    spec_taps = specular is not None and not is_first
+    if specular is not None:
+        # the specular relaxations (`:1368-1384`); iteration 0 keeps the diffuse normal
+        # weight for the specular signal (use_variance_estimation, `:1513`)
+        lum_relax = ones
+        if (step_size <= 4 or is_first) and reprojection_confidence is not None:
+            lum_relax = nm.lerp(1.0, reprojection_confidence,
+                                specular["luminance_edge_stopping_relaxation"])
+        spec_lobe, dlf_simpl = lobe_angle_fraction, dlf0
+        if spec_confidence is not None:
+            rr, rl = _relaxation(spec_confidence, confidence_relaxation)
+            dlf_simpl = _toward_one(dlf0, rr)
+            spec_lobe = _toward_one(lobe_angle_fraction, rr)
+            lum_relax = lum_relax * (1.0 - rl)
+    if spec_taps:
+        nwp_simpl = normal_weight_param2(dlf_simpl) * ones
+        ra, rb = nm.get_roughness_weight_params(roughness, specular["roughness_fraction"])
+        angle0, f0 = RC.get_normal_weight_params_atrous(
+            roughness, history_length,
+            reprojection_confidence if reprojection_confidence is not None else ones,
+            specular["normal_edge_stopping_relaxation"], spec_lobe,
+            specular["lobe_angle_slack"])
+        cv = -nm.normalize(x)
+        resr = specular["roughness_edge_stopping_relaxation"]
 
     if is_first:
-        nwp = normal_weight_param2(lobe_fraction) * torch.ones_like(view_z)
         acc = torch.zeros_like(signal)
         for dy, dx in stencil.offsets_square(1):
             acc = acc + stencil.shifted(signal, dy, dx) * PREFILTER[abs(dx)][abs(dy)]
         m1 = nm.luminance(acc[..., :3])
         var = torch.clamp_min(acc[..., 3] - m1 * m1, 0.0)
     else:
-        # lerp(0.99, fraction, saturate(hl / 5)) with XLA's float32 (fraction - 0.99)
-        span = float(F32(lobe_fraction) - F32(0.99))
-        dlf = 0.99 + span * nm.saturate(history_length / 5.0)
-        nwp = normal_weight_param2(dlf)
         var = signal[..., 3]
 
     off_x = off_y = 0.0
@@ -110,16 +166,26 @@ def relax_atrous_ref(signal, view_z_in, normal_roughness, history_length, *, ste
                                 uv[..., 1] + (float(yy * step_size) + off_y) * rinv_y], -1)
             inside = resample.is_in_screen_nearest(uv_s)
             zs = torch.abs(resample.sample_nearest(view_z_in, uv_s)) * view_z_scale
-            ns, _, ms = fe.unpack_normal_roughness(resample.sample_nearest(normal_roughness, uv_s))
+            ns, rs, ms = fe.unpack_normal_roughness(resample.sample_nearest(normal_roughness,
+                                                                            uv_s))
             xs = RC.world_pos(frustum, ortho_mode, uv_s, zs)
             gw = RC.get_plane_distance_weight_atrous(x, n, xs, thr) * kern
             gw = gw * inside * (zs < denoising_range).to(torch.float32)
-            w_ = gw * nm.compute_weight(nm.acos_approx(nm.dot(n, ns)), nwp, 0.0)
+            angle = nm.acos_approx(nm.dot(n, ns))
+            if spec_taps:
+                sv = -nm.normalize(xs + resr * x)
+                nw = RC.get_specular_normal_weight_atrous(angle0, f0, n, ns, cv, sv)
+                if specular["roughness_edge_stopping_enabled"] != 0.0:
+                    w_ = gw * (nw * nm.compute_weight(rs, ra, rb))
+                else:
+                    w_ = gw * nm.compute_weight(angle, nwp_simpl, 0.0)
+            else:
+                w_ = gw * nm.compute_weight(angle, nwp, 0.0)
             w_ = w_ * (torch.clamp_min(ms, min_material) == mat_c).to(torch.float32)
             s = resample.sample_nearest(signal, uv_s)
             sl = nm.luminance(s[..., :3])
             lw = torch.clamp_max(torch.abs(center_l - sl) * phi_inv,
-                                 max_luminance_relative_difference)
+                                 max_luminance_relative_difference) * lum_relax
             w_ = w_ * torch.exp(-lw)
             wsum = wsum + w_
             if is_first:
@@ -167,13 +233,20 @@ def _frame_halves(frame_index):
     return float(f & 0xFFFF), float(f >> 16)
 
 
-def relax_atrous(signal, view_z_in, normal_roughness, history_length, *, step_size, is_first,
+def relax_atrous(signal, view_z_in, normal_roughness, history_length, diff_confidence=None,
+                 spec_confidence=None, reprojection_confidence=None, *, step_size, is_first,
                  frame_index, frustum, ortho_mode, view_z_scale, denoising_range,
                  depth_threshold, lobe_fraction, lobe_angle_fraction, phi_luminance,
-                 max_luminance_relative_difference, min_material, history_threshold):
+                 max_luminance_relative_difference, min_material, history_threshold,
+                 confidence_relaxation, specular=None):
     """signal (h, w, 4): at iteration 0 (rgb, 2nd moment), later (rgb, variance);
-    history_length (h, w); frustum = the 9 floats right, up, forward. Returns (h, w, 4) =
-    (rgb, variance)."""
+    history_length (h, w); the optional (h, w) planes IN_DIFF_CONFIDENCE, IN_SPEC_CONFIDENCE
+    and the TA's specular reprojection confidence; frustum = the 9 floats right, up, forward;
+    confidence_relaxation = the settings' (multiplier, normal, luminance) relaxations;
+    specular = None for the diffuse signal, else the dict of the specular constants
+    (roughness_fraction, normal_edge_stopping_relaxation, lobe_angle_slack,
+    luminance_edge_stopping_relaxation, roughness_edge_stopping_relaxation,
+    roughness_edge_stopping_enabled). Returns (h, w, 4) = (rgb, variance)."""
     global launches
     kw = dict(step_size=step_size, is_first=is_first, frame_index=frame_index, frustum=frustum,
               ortho_mode=ortho_mode, view_z_scale=view_z_scale,
@@ -181,24 +254,33 @@ def relax_atrous(signal, view_z_in, normal_roughness, history_length, *, step_si
               lobe_fraction=lobe_fraction, lobe_angle_fraction=lobe_angle_fraction,
               phi_luminance=phi_luminance,
               max_luminance_relative_difference=max_luminance_relative_difference,
-              min_material=min_material, history_threshold=history_threshold)
+              min_material=min_material, history_threshold=history_threshold,
+              confidence_relaxation=confidence_relaxation, specular=specular)
+    planes = (diff_confidence, spec_confidence, reprojection_confidence)
     dev = build.kernel_device(signal)
     if dev is None:
-        return relax_atrous_ref(signal, view_z_in, normal_roughness, history_length, **kw)
+        return relax_atrous_ref(signal, view_z_in, normal_roughness, history_length, *planes,
+                                **kw)
     h, w = view_z_in.shape
     f32 = torch.float32
     ins = [("signal", signal, (h, w, 4)), ("view_z_in", view_z_in, (h, w)),
            ("normal_roughness", normal_roughness, (h, w, 4)),
            ("history_length", history_length, (h, w))]
+    ins += [(name, t, (h, w)) for name, t in zip(
+        ("diff_confidence", "spec_confidence", "reprojection_confidence"), planes)
+        if t is not None]
     for name, t, shape in ins:
         build.check(name, t, dev, f32, shape)
     out = torch.empty((h, w, 4), dtype=f32, device=dev)
     w0 = G3[0] * G3[0]
+    sp = specular or {}
     consts = [*frustum, ortho_mode, view_z_scale, denoising_range, depth_threshold,
               lobe_fraction, float(normal_weight_param2(lobe_angle_fraction)), phi_luminance,
               max_luminance_relative_difference, min_material, history_threshold,
               step_size, is_first, *_frame_halves(frame_index), w0, w0 * w0,
-              G3[0] * G3[1], G3[1] * G3[1]]
-    build.launch("nrd_relax_atrous", [t for _, t, _ in ins] + [out], consts, w, h)
+              G3[0] * G3[1], G3[1] * G3[1], *confidence_relaxation,
+              specular is not None, lobe_angle_fraction, *[sp.get(k, 0.0) for k in SPECULAR_CONSTS]]
+    build.launch("nrd_relax_atrous", [signal, view_z_in, normal_roughness, history_length, out,
+                                      *planes], consts, w, h)
     launches += 1
     return out

@@ -134,6 +134,28 @@ def get_normal_weight_param2(roughness, angle_fraction):
     return 1.0 / torch.clamp_min(angle, RELAX_NORMAL_ULP)
 
 
+def get_normal_weight_params_atrous(roughness, history_length, reprojection_confidence,
+                                    normal_edge_stopping_relaxation, lobe_angle_fraction,
+                                    lobe_angle_slack):
+    """GetNormalWeightParams_ATrous (RELAX_Common.hlsli:117-137), op for op as
+    `nrdtpu/passes/relax/kernels.py:111-123`. Returns (angle, f)."""
+    relaxation = nm.saturate(history_length / 5.0)
+    relaxation = relaxation * nm.lerp(1.0, reprojection_confidence,
+                                      normal_edge_stopping_relaxation)
+    f = 0.9 + 0.1 * relaxation
+    angle = torch.atan(get_spec_lobe_tan_half_angle(roughness, lobe_angle_fraction))
+    angle = angle * (10.0 - 9.0 * relaxation)
+    angle = angle + lobe_angle_slack
+    return torch.clamp_max(angle, nm.PI * 0.5), f
+
+
+def get_specular_normal_weight_atrous(angle0, f0, n0, n, v0, v):
+    """GetSpecularNormalWeight_ATrous (RELAX_Common.hlsli:139-148) on (..., 3) vectors."""
+    cosa = torch.minimum(nm.dot(n0, n), nm.dot(v0, v))
+    a = nm.smoothstep(0.0, angle0, nm.acos_approx(cosa))
+    return nm.saturate(1.0 - a * f0)
+
+
 def get_bilateral_weight(z, zc):
     return nm.linearstep(0.03, 0.0, torch.abs(z - zc) / torch.clamp_min(torch.maximum(z, zc),
                                                                          1e-15))

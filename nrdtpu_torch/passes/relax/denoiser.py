@@ -178,7 +178,9 @@ class RelaxDenoiser:
         iterations = int(np.clip(s.atrousIterationNum, 2, 8))
         for i in range(iterations):
             cur = K.atrous(sc, dc, view_z, normal_roughness, history_length, cur, cfg,
-                           step_size=1 << i, is_first=i == 0)
+                           step_size=1 << i, is_first=i == 0,
+                           diff_confidence=inputs.get(RT.IN_DIFF_CONFIDENCE),
+                           spec_confidence=inputs.get(RT.IN_SPEC_CONFIDENCE))
 
         keep = dead
         n, rough, mat = unpack_nr(normal_roughness, cfg)
