@@ -8,8 +8,9 @@ REBLUR_DIFFUSE_SPECULAR with hitDistanceReconstructionMode AREA_3X3 on the same 
 holes punched into the hit distance (.w = 0 on a seeded 30 % of the geometry pixels, as a
 renderer that traces some pixels and not others sends them); SIGMA_SHADOW and
 SIGMA_SHADOW_TRANSLUCENCY with the penumbra packed from the scene's distance to the occluder;
-RELAX_DIFFUSE with the radiance and the raw hit distance packed by
-`relax_pack_radiance_hitdist`.
+RELAX_DIFFUSE and RELAX_SPECULAR with the radiance and the raw hit distance packed by
+`relax_pack_radiance_hitdist`, and RELAX_SPECULAR with `enableAntiFirefly=True` on the same
+frames (the anti-firefly pass, off by default, on a main path of its own).
 
 Phases, each of which raises on failure (exit code != 0):
   1. build the hand-written kernels from `nrdtpu_torch/kernels/csrc/` with nvcc, one process
@@ -20,10 +21,11 @@ Phases, each of which raises on failure (exit code != 0):
      (compulsory bytes over the card's memory rate, or operations over its float32 rate).
      The same again with `enableAntiFirefly=True` (the anti-firefly ring of history_fix and
      history_fix_fused), and with hit-distance reconstruction at radius 1 and 2 on the
-     punched frames (hitdist_recon only); then each SIGMA variant; then RELAX_DIFFUSE (its
-     five kernels, all five à-trous calls) and RELAX_DIFFUSE with AREA_3X3 on RELAX-packed
-     punched frames (hitdist_recon on RELAX's constants, not timed). Every kernel module
-     must be called by one of the paths;
+     punched frames (hitdist_recon only); then each SIGMA variant; then RELAX_DIFFUSE and
+     RELAX_SPECULAR (every kernel of each, all five à-trous calls), both with
+     `enableAntiFirefly=True` (relax_antifirefly timed, the rest held only), and both with
+     AREA_3X3 on RELAX-packed punched frames (hitdist_recon on RELAX's constants, not
+     timed). Every kernel module must be called by one of the paths;
   3. slices: for each path a fresh `Engine(device="cuda")` runs 3 warm-up + 24 frames with
      the launch counts set to 0 just before and read just after; every output must be
      finite and every kernel of the path launched exactly its count a frame; each REBLUR
@@ -98,10 +100,16 @@ SOURCES = {
     "relax_clamp_moments": ("nrdtpu_torch/kernels/csrc/relax_clamp_moments.cu", f"{RP}:479",
                             None),
     "relax_atrous": ("nrdtpu_torch/kernels/csrc/relax_atrous.cu", f"{RP}:338", None),
+    "relax_vmb_resolve": ("nrdtpu_torch/kernels/csrc/relax_vmb_resolve.cu", f"{RP}:1219", None),
+    "relax_antifirefly": ("nrdtpu_torch/kernels/csrc/relax_antifirefly.cu", f"{RP}:537", None),
+    "bilinear_resolve": ("nrdtpu_torch/kernels/csrc/bilinear_resolve.cu", f"{P}:1813", None),
 }
 DS_LAUNCHES = {"smb_resolve": 1, "spec_ta_head": 1, "nearest_multi": 1, "vmb_resolve": 1,
                "spatial_filter_fused": 3, "history_fix_fused": 1, "ts_prelude": 2}
 SIGMA_LAUNCHES = {"sigma_blur": 2, "sigma_ts": 1}
+RS_LAUNCHES = {"relax_prepass": 1, "relax_smb_resolve": 1, "relax_vmb_resolve": 1,
+               "nearest_multi": 1, "bilinear_resolve": 1, "relax_history_fix": 1,
+               "relax_clamp_moments": 1, "relax_atrous": 5}
 # per path: its denoiser, its signals (outputs), settings changed from the defaults, whether
 # its frames have hit-distance holes, and its launches per frame
 PATHS = {
@@ -120,9 +128,14 @@ PATHS = {
     "RELAX_DIFFUSE": dict(signals=("diff",), relax=True, launches={
         "relax_prepass": 1, "relax_smb_resolve": 1, "relax_history_fix": 1,
         "relax_clamp_moments": 1, "relax_atrous": 5}),
+    "RELAX_SPECULAR": dict(signals=("spec",), relax=True, launches=RS_LAUNCHES),
+    "RELAX_SPECULAR+ANTI_FIREFLY": dict(
+        denoiser="RELAX_SPECULAR", signals=("spec",), relax=True,
+        settings=dict(enableAntiFirefly=True), launches={**RS_LAUNCHES, "relax_antifirefly": 1}),
 }
-# RELAX-packed frames with hit-distance holes: the kernel phase's RELAX AREA_3X3 run
-RELAX_HOLES = "RELAX_DIFFUSE+holes"
+RELAX_VARIANTS = ("RELAX_DIFFUSE", "RELAX_SPECULAR")
+# RELAX-packed frames with hit-distance holes: the kernel phase's RELAX AREA_3X3 runs
+RELAX_HOLES = {v: f"{v}+holes" for v in RELAX_VARIANTS}
 REBLUR_VARIANTS = ("REBLUR_DIFFUSE", "REBLUR_SPECULAR", "REBLUR_DIFFUSE_SPECULAR")
 HOLE_FRACTION = 0.3  # of the geometry pixels whose hit distance the frames with holes zero
 TRANSLUCENCY_RGB = (0.3, 0.6, 0.2)
@@ -134,7 +147,8 @@ FIXED_OPS = {"smb_resolve": 450, "ts_prelude": 40, "spec_ta_head": 120, "vmb_res
              "nearest_multi": 0, "spatial_filter": 0, "spatial_filter_fused": 0,
              "history_fix": 0, "history_fix_fused": 0, "hitdist_recon": 40, "sigma_blur": 90,
              "sigma_ts": 150, "relax_prepass": 60, "relax_smb_resolve": 450,
-             "relax_history_fix": 10, "relax_clamp_moments": 1010, "relax_atrous": 80}
+             "relax_history_fix": 10, "relax_clamp_moments": 1010, "relax_atrous": 80,
+             "relax_vmb_resolve": 250, "relax_antifirefly": 0, "bilinear_resolve": 0}
 SMB_SIGNAL_OPS, TS_SAMPLE_OPS, NEAREST_SET_OPS = 200, 200, 12
 HD_TAP_OPS, HD_SIGNAL_TAP_OPS = 60, 15      # hitdist_recon.cu: one tap, and per signal
 SB_DENSE_TAP_OPS, SB_POISSON_TAP_OPS = 35, 50  # sigma_blur.cu: one tap, + 3 a channel
@@ -144,6 +158,13 @@ RP_TAP_OPS = 100                            # relax_prepass.cu: one Poisson tap
 RS_HISTORY_OPS = 160                        # relax_smb_resolve.cu: CatRom of one history
 RH_TAP_OPS = 80                             # relax_history_fix.cu: one stride tap
 RA_TAP_OPS, RA_SVE_TAP_OPS = 90, 45         # relax_atrous.cu: an à-trous tap, a 5x5 tap
+RA_SPEC_OPS, RA_SPEC_TAP_OPS = 60, 50       # the specular mode's parameters, + a tap
+RP_SPEC_OPS, RP_SPEC_TAP_OPS = 120, 30      # relax_prepass.cu's specular mode, + a tap
+RS_SPEC_OPS = 40                            # relax_smb_resolve.cu's specular planes
+RH_SPEC_TAP_OPS = 40                        # relax_history_fix.cu's specular tap weight
+RV_HISTORY_OPS = 160                        # relax_vmb_resolve.cu: CatRom of one history
+AF_SIGNAL_OPS = 8 * 12 + 10                 # relax_antifirefly.cu: 8 taps of one signal
+BR_SET_OPS = 30                             # bilinear_resolve.cu: one bilinear sample
 
 
 def log(*a):
@@ -204,10 +225,13 @@ class Scene:
             punched[sig] = packed[sig].copy()
             punched[sig][..., 3][holes] = 0.0
         # RELAX takes the radiance and the raw hit distance
-        relax = fe.relax_pack_radiance_hitdist(torch.from_numpy(fd.diff_noisy),
-                                               torch.from_numpy(fd.diff_hit_dist)).numpy()
-        relax_punched = relax.copy()
-        relax_punched[..., 3][holes] = 0.0
+        relax, relax_punched = {}, {}
+        for v, noisy, hit in (("RELAX_DIFFUSE", fd.diff_noisy, fd.diff_hit_dist),
+                              ("RELAX_SPECULAR", fd.spec_noisy, fd.spec_hit_dist)):
+            relax[v] = fe.relax_pack_radiance_hitdist(torch.from_numpy(noisy),
+                                                      torch.from_numpy(hit)).numpy()
+            relax_punched[v] = relax[v].copy()
+            relax_punched[v][..., 3][holes] = 0.0
         dist = torch.from_numpy(fd.dist_to_occluder)
         penumbra = fe.sigma_pack_penumbra_directional(
             dist, self.gen.spec.light_tan_angular_radius).numpy()
@@ -221,11 +245,12 @@ class Scene:
                 if name == "SIGMA_SHADOW_TRANSLUCENCY":
                     pools[name][RT.IN_TRANSLUCENCY] = fe.sigma_pack_translucency(dist, rgb).numpy()
             elif v.get("relax"):
-                pools[name] = {**base, in_rt("diff"): relax}
+                pools[name] = {**base, in_rt(v["signals"][0]): relax[v.get("denoiser", name)]}
             else:
                 src = punched if v.get("holes") else packed
                 pools[name] = {**base, **{in_rt(sig): src[sig] for sig in v["signals"]}}
-        pools[RELAX_HOLES] = {**base, in_rt("diff"): relax_punched}
+        for name, holes_name in RELAX_HOLES.items():
+            pools[holes_name] = {**base, in_rt(PATHS[name]["signals"][0]): relax_punched[name]}
         t = None
         if truth:
             t = dict(mask=fd.hit_mask > 0, diff=(fd.diff_clean, fd.diff_noisy),
@@ -339,15 +364,28 @@ def _ops(name, a, k):
         c = a[0].shape[-1]
         ops += ((ST_TAP_OPS + 4 * c) * 25 + ST_CHANNEL_OPS * c) * px
     elif name == "relax_prepass":
-        ops += (RP_TAP_OPS * 8 * px) if k["blur_radius"] > 0.0 else 0
+        spec = k.get("specular") is not None
+        if k["blur_radius"] > 0.0:
+            ops += (RP_TAP_OPS + (RP_SPEC_TAP_OPS if spec else 0)) * 8 * px
+            ops += RP_SPEC_OPS * px if spec else 0
     elif name == "relax_smb_resolve":
         ops += RS_HISTORY_OPS * len(a[8]) * px
+        ops += RS_SPEC_OPS * px if len(a) > 9 and a[9] is not None else 0
     elif name == "relax_history_fix":  # the taps run only where the fix applies
         live = int((a[3] <= k["frame_num"]).sum()) if k["frame_num"] != 1.0 else 0
-        ops += RH_TAP_OPS * 24 * live
+        spec = k.get("specular") is not None
+        ops += (RH_TAP_OPS + (RH_SPEC_TAP_OPS if spec else 0)) * 24 * live
     elif name == "relax_atrous":  # iteration 0: the 5x5 estimation in place of short histories
         short = int((a[3] < k["history_threshold"]).sum()) if k["is_first"] else 0
-        ops += RA_TAP_OPS * 8 * (px - short) + RA_SVE_TAP_OPS * 25 * short
+        spec = k.get("specular") is not None and not k["is_first"]
+        ops += (RA_TAP_OPS + (RA_SPEC_TAP_OPS if spec else 0)) * 8 * (px - short)
+        ops += RA_SVE_TAP_OPS * 25 * short + (RA_SPEC_OPS * px if spec else 0)
+    elif name == "relax_vmb_resolve":
+        ops += RV_HISTORY_OPS * 2 * px
+    elif name == "relax_antifirefly":
+        ops += AF_SIGNAL_OPS * len(a[1]) * px
+    elif name == "bilinear_resolve":
+        ops += BR_SET_OPS * a[1].shape[0] * px
     return ops
 
 
@@ -362,16 +400,22 @@ def _bound(name, a, k, outputs):
 
 def _library(name, a, k):
     """One PyTorch call computing the same function on the same inputs, where there is one:
-    nearest_multi is a nearest-texel sample at S uv sets (grid_sample, border clamp). It is
-    a yardstick here only; the port never calls it."""
-    if name != "nearest_multi":
+    nearest_multi is a nearest-texel sample and bilinear_resolve a bilinear sample at S uv
+    sets (grid_sample with border padding and align_corners=False: the texel centres at
+    (i + 0.5) / size and the clamp-to-edge addressing of the kernels). It is a yardstick
+    here only; the port never calls it."""
+    if name not in ("nearest_multi", "bilinear_resolve"):
         return None
     packed, uvs = a
     img = packed.permute(2, 0, 1)[None].contiguous()
     s, h, w = uvs.shape[:3]
+    if name == "bilinear_resolve":
+        sx, sy = k["scale"]
+        uvs = torch.stack([uvs[..., 0] * float(sx), uvs[..., 1] * float(sy)], -1)
     grid = (uvs.reshape(1, s * h, w, 2) * 2.0 - 1.0).contiguous()
-    return lambda: torch.nn.functional.grid_sample(img, grid, mode="nearest",
-                                                   padding_mode="border", align_corners=False)
+    mode = "nearest" if name == "nearest_multi" else "bilinear"
+    return lambda: torch.nn.functional.grid_sample(img, grid, mode=mode, padding_mode="border",
+                                                   align_corners=False)
 
 
 def record_calls(denoiser, pool, w, h, frames, **settings):
@@ -400,12 +444,13 @@ def record_calls(denoiser, pool, w, h, frames, **settings):
 
 
 def kernel_runs():
-    """(label, denoiser, pool, settings, kernels to hold or None for all, timed) of the
-    kernel phase: each REBLUR variant with and without the anti-firefly ring (the ring's
-    history-fix calls timed apart), each with hit-distance reconstruction at radius 1 and 2
-    on the frames with holes (the AREA_3X3 slice's pools), each SIGMA variant, RELAX_DIFFUSE
-    (every call of its five kernels) and, not timed, RELAX_DIFFUSE's AREA_3X3 reconstruction
-    on RELAX-packed frames with holes."""
+    """(label, denoiser, pool, settings, kernels to hold or None for all, timed: True, False
+    or the kernels to time) of the kernel phase: each REBLUR variant with and without the
+    anti-firefly ring (the ring's history-fix calls timed apart), each with hit-distance
+    reconstruction at radius 1 and 2 on the frames with holes (the AREA_3X3 slice's pools),
+    each SIGMA variant, RELAX_DIFFUSE and RELAX_SPECULAR (every call of their kernels), both
+    with the anti-firefly pass (relax_antifirefly timed, the rest held only) and, not timed,
+    both with AREA_3X3 reconstruction on RELAX-packed frames with holes."""
     runs = []
     for v in REBLUR_VARIANTS:
         runs.append((v, v, v, {}, None, True))
@@ -416,9 +461,12 @@ def kernel_runs():
                          dict(hitDistanceReconstructionMode=mode), {"hitdist_recon"}, True))
     for v in ("SIGMA_SHADOW", "SIGMA_SHADOW_TRANSLUCENCY"):
         runs.append((v, v, v, {}, None, True))
-    runs.append(("RELAX_DIFFUSE", "RELAX_DIFFUSE", "RELAX_DIFFUSE", {}, None, True))
-    runs.append(("RELAX_DIFFUSE AREA_3X3", "RELAX_DIFFUSE", RELAX_HOLES,
-                 dict(hitDistanceReconstructionMode="AREA_3X3"), {"hitdist_recon"}, False))
+    for v in RELAX_VARIANTS:
+        runs.append((v, v, v, {}, None, True))
+        runs.append((f"{v} anti-firefly", v, v, dict(enableAntiFirefly=True), None,
+                     {"relax_antifirefly"}))
+        runs.append((f"{v} AREA_3X3", v, RELAX_HOLES[v],
+                     dict(hitDistanceReconstructionMode="AREA_3X3"), {"hitdist_recon"}, False))
     return runs
 
 
@@ -459,7 +507,7 @@ def kernel_phase(w, h, frames):
                 r["max_rel_err"] = max(r["max_rel_err"], rel)
                 r["over"] += over
                 r["count"] += d.numel()
-            if not timed:
+            if timed is not True and not (timed and name in timed):
                 if name in ("history_fix", "history_fix_fused"):
                     r["ms_anti_firefly"].setdefault(lab, []).append(
                         _time(lambda: kern(*a, **k), 20))

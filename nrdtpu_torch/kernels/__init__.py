@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels (sm_90a) of the REBLUR_DIFFUSE, REBLUR_SPECULAR,
-REBLUR_DIFFUSE_SPECULAR, SIGMA_SHADOW, SIGMA_SHADOW_TRANSLUCENCY and RELAX_DIFFUSE paths, one
-module each.
+REBLUR_DIFFUSE_SPECULAR, SIGMA_SHADOW, SIGMA_SHADOW_TRANSLUCENCY, RELAX_DIFFUSE and
+RELAX_SPECULAR paths, one module each.
 
 Every module holds the kernel's wrapper, its plain PyTorch version (`*_ref`) and a launch
 count (`launches`). The wrapper takes the plain version for CPU tensors and launches the
@@ -29,12 +29,16 @@ kernel that `nrdtpu/kernels/__init__.py` selects for the same pass under NRDTPU_
   relax_history_fix   <- nrdtpu/kernels/relax_pallas.py:1499 relax_history_fix_pallas (K19)
   relax_clamp_moments <- nrdtpu/kernels/relax_pallas.py:479 relax_clamp_moments_pallas (K20)
   relax_atrous        <- nrdtpu/kernels/relax_pallas.py:338 relax_atrous_pallas (K22)
+  relax_vmb_resolve   <- nrdtpu/kernels/relax_pallas.py:1219 relax_vmb_resolve (K17)
+  relax_antifirefly   <- nrdtpu/kernels/relax_pallas.py:537 relax_antifirefly_pallas (K21)
+  bilinear_resolve    <- nrdtpu/kernels/reblur_pallas.py:1813 bilinear_resolve
 """
 
-from . import (history_fix, history_fix_fused, hitdist_recon, nearest_multi, relax_atrous,
-               relax_clamp_moments, relax_history_fix, relax_prepass, relax_smb_resolve,
-               sigma_blur, sigma_ts, smb_resolve, spatial_filter, spatial_filter_fused,
-               spec_ta_head, ts_prelude, vmb_resolve)
+from . import (bilinear_resolve, history_fix, history_fix_fused, hitdist_recon, nearest_multi,
+               relax_antifirefly, relax_atrous, relax_clamp_moments, relax_history_fix,
+               relax_prepass, relax_smb_resolve, relax_vmb_resolve, sigma_blur, sigma_ts,
+               smb_resolve, spatial_filter, spatial_filter_fused, spec_ta_head, ts_prelude,
+               vmb_resolve)
 
 MODULES = {
     "smb_resolve": smb_resolve,
@@ -54,6 +58,9 @@ MODULES = {
     "relax_history_fix": relax_history_fix,
     "relax_clamp_moments": relax_clamp_moments,
     "relax_atrous": relax_atrous,
+    "relax_vmb_resolve": relax_vmb_resolve,
+    "relax_antifirefly": relax_antifirefly,
+    "bilinear_resolve": bilinear_resolve,
 }
 
 

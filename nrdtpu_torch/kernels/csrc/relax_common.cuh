@@ -76,6 +76,28 @@ __device__ __forceinline__ float normal_weight_param2(float p) {
   return 1.0f / fmaxf(atanf(tan_half), kNormalUlp);
 }
 
+// GetSpecMagicCurve with the default power 0.25
+__device__ __forceinline__ float spec_magic_curve(float r) {
+  const float f = 1.0f - exp2f(-200.0f * r * r);
+  return f * sqrtf(sqrtf(nrd::saturate(r)));
+}
+
+// ImportanceSampling::GetSpecularDominantDirection (G2 fit): the unit direction, and the
+// dominant factor in *factor
+__device__ __forceinline__ V3 specular_dominant_direction(V3 n, V3 v, float roughness,
+                                                          float* factor) {
+  const float nov = fabsf(nrd::dot3(n, v));
+  const float a = 0.298475f * logf(39.4115f - 39.0029f * roughness);
+  const float f = nrd::saturate(powf(nrd::saturate(1.0f - nov), 10.8649f) * (1.0f - a) + a);
+  const V3 i{-v.x, -v.y, -v.z};
+  const float d2 = 2.0f * nrd::dot3(n, i);
+  const V3 r{i.x - d2 * n.x, i.y - d2 * n.y, i.z - d2 * n.z};
+  const V3 d{n.x + (r.x - n.x) * f, n.y + (r.y - n.y) * f, n.z + (r.z - n.z) * f};
+  const float inv = rsqrtf(fmaxf(d.x * d.x + d.y * d.y + d.z * d.z, 1e-15f));
+  *factor = f;
+  return V3{d.x * inv, d.y * inv, d.z * inv};
+}
+
 // -normalize(v), normalize guarding a zero vector with 1e-15
 __device__ __forceinline__ V3 neg_normalize(V3 v) {
   const float inv = rsqrtf(fmaxf(v.x * v.x + v.y * v.y + v.z * v.z, 1e-15f));

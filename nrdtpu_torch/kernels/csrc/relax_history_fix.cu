@@ -1,10 +1,12 @@
-// K19: RELAX history fix, diffuse: where the history is short (history length <= frame num,
-// frame num != 1) the 24 taps of the 5x5 at the pixel's own stride floor(base / (1 + hl) +
-// 0.5), clamp addressing with the in-screen test, weighted by plane distance,
-// pow(max(0.01, n . ns), power) and material, counted where the weight is above 1e-4;
-// elsewhere the signal passes through (and the taps are skipped). Replaces
-// nrdtpu/kernels/relax_pallas.py:1499 relax_history_fix_pallas; computes
-// nrdtpu/passes/relax/kernels.py:1021-1131 (diffuse part) per pixel. The plain version is
+// K19: RELAX history fix: where the history is short (history length <= frame num, frame num
+// != 1) the 24 taps of the 5x5 at the pixel's own stride floor(base / (1 + hl) + 0.5), clamp
+// addressing with the in-screen test, weighted by plane distance, the normal weight (diffuse:
+// pow(max(0.01, n . ns), power); specular: the specular normal weight at the angle0 / f0 of
+// history length 5 and the tap's view vector relaxed by roughness_edge_stopping_relaxation)
+// and material, counted where the weight is above 1e-4; elsewhere the signal passes through
+// (and the taps are skipped). Replaces nrdtpu/kernels/relax_pallas.py:1499
+// relax_history_fix_pallas; computes nrdtpu/passes/relax/kernels.py:1021-1131 per pixel for
+// one signal. The plain version is
 // nrdtpu_torch/kernels/relax_history_fix.py:relax_history_fix_ref. One thread per pixel.
 #include "relax_common.cuh"
 
@@ -21,6 +23,8 @@ struct RelaxHfArgs {
   float* out;           // (h, w, 4)
   relax::Frame f;
   float depth_threshold, base_stride, frame_num, normal_power, min_material;
+  bool spec;
+  float laf, slack, resr;  // specular: lobe fraction, lobe slack, roughness relaxation
 };
 
 __global__ void __launch_bounds__(256) relax_history_fix_kernel(RelaxHfArgs a) {
@@ -43,6 +47,13 @@ __global__ void __launch_bounds__(256) relax_history_fix_kernel(RelaxHfArgs a) {
     const V3 xc = relax::world_pos(a.f, nrd::pixel_u(x, a.f.w), nrd::pixel_u(y, a.f.h), z);
     const float thr = a.depth_threshold * (a.f.ortho == 0.0f ? z : 1.0f);
     const float stride = floorf(a.base_stride / (1.0f + hl) + 0.5f);
+    float angle0 = 0.0f, f0 = 0.0f;
+    V3 cv{0.0f, 0.0f, 0.0f};
+    if (a.spec) {
+      relax::normal_weight_params_atrous(nr.at(x, y, 2), 5.0f, 1.0f, 0.0f, a.laf, a.slack,
+                                         &angle0, &f0);
+      cv = relax::neg_normalize(xc);
+    }
     float wsum = 1.0f;
     for (int j = -2; j <= 2; ++j)
       for (int k = -2; k <= 2; ++k) {
@@ -57,7 +68,14 @@ __global__ void __launch_bounds__(256) relax_history_fix_kernel(RelaxHfArgs a) {
         const float zs = relax::view_z(a.f, vz.at(tx, ty, 0));
         const V3 xs = relax::world_pos(a.f, ((float)tx + 0.5f) / fw, ((float)ty + 0.5f) / fh, zs);
         const float gw = relax::plane_dist(xs, xc, n) < thr ? 1.0f : 0.0f;
-        float dw = gw * powf(fmaxf(nrd::dot3(n, ns), 0.01f), a.normal_power);
+        float dw;
+        if (!a.spec) {
+          dw = gw * powf(fmaxf(nrd::dot3(n, ns), 0.01f), a.normal_power);
+        } else {
+          const V3 sv = relax::neg_normalize(
+              V3{xs.x + a.resr * xc.x, xs.y + a.resr * xc.y, xs.z + a.resr * xc.z});
+          dw = gw * relax::specular_normal_weight_atrous(angle0, f0, n, ns, cv, sv);
+        }
         dw = dw * inside;
         dw = dw * (fmaxf(ms, a.min_material) == mat_c ? 1.0f : 0.0f);
         if (dw > 1e-4f) {
@@ -77,7 +95,8 @@ __global__ void __launch_bounds__(256) relax_history_fix_kernel(RelaxHfArgs a) {
 
 // ptrs: signal, view_z, nr, history_length, out
 // consts: frame geometry (relax::load_frame), depth_threshold, base_stride, frame_num,
-//         normal_power (already max(power, 0.01)), min_material
+//         normal_power (already max(power, 0.01)), min_material, specular (0 or 1), lobe
+//         fraction, lobe slack, roughness edge-stopping relaxation
 extern "C" int nrd_relax_history_fix(void* const* p, const float* c, int w, int h,
                                      void* stream) {
   RelaxHfArgs a;
@@ -93,6 +112,10 @@ extern "C" int nrd_relax_history_fix(void* const* p, const float* c, int w, int 
   a.frame_num = q[2];
   a.normal_power = q[3];
   a.min_material = q[4];
+  a.spec = q[5] != 0.0f;
+  a.laf = q[6];
+  a.slack = q[7];
+  a.resr = q[8];
   dim3 block(nrd::kBlock, nrd::kBlock);
   dim3 grid((w + nrd::kBlock - 1) / nrd::kBlock, (h + nrd::kBlock - 1) / nrd::kBlock);
   relax_history_fix_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);

@@ -3,8 +3,11 @@
 // per-quad in-screen thresholds, the backface test against the previous normal at the
 // footprint centre, the custom-bilinear history length (+ 1, at most 255), the footprint
 // quality and smb_found, and the CatRom-12 / bilinear-custom samples of 1 to 4 (h, w, 4)
-// histories. Replaces nrdtpu/kernels/relax_pallas.py:1000 relax_smb_resolve; computes
-// nrdtpu/passes/relax/kernels.py:376-389, :426, :485-549 and :580-583 per pixel. The plain
+// histories. With the specular signal also the un-normalised 3x3 normal average, the 3x3 min
+// of the current specular hitT (0 counts as NRD_INF) and the previous reflection hitT,
+// bilinear with the custom weights. Replaces nrdtpu/kernels/relax_pallas.py:1000
+// relax_smb_resolve; computes nrdtpu/passes/relax/kernels.py:376-394, :426, :485-549,
+// :580-583 and :805-814 per pixel. The plain
 // version is nrdtpu_torch/kernels/relax_smb_resolve.py:relax_smb_resolve_ref. One thread per
 // pixel.
 #include "relax_common.cuh"
@@ -25,10 +28,14 @@ struct RelaxSmbArgs {
   const float* prev_mat;   // (h, w)
   const float* prev_hl;    // (h, w) previous history length
   const float* prev_nr;    // (h, w, 4) RGBA8-quantized 0.5 n + 0.5, roughness
-  float* planes;           // (3, h, w): history length, footprint quality, smb_found
+  float* planes;           // (3, h, w): history length, footprint quality, smb_found, and
+                           // with spec (+5): n_avg x, y, z, min hitT, reflection hitT
   float* hist_out;         // (nhist, h, w, 4)
   const float* hist[kMaxHistories];  // (h, w, 4) each
+  const float* spec_hit;   // (h, w) current specular hitT (PrePass output), spec only
+  const float* prev_ht;    // (h, w) previous reflection hitT, spec only
   int w, h, nhist;
+  bool spec;
   float view_z_scale, rect_prev_w, rect_prev_h, res_w, res_h, min_material;
   float m[9];              // world_prev_to_world rotation, row-major
 };
@@ -44,6 +51,13 @@ __global__ void __launch_bounds__(256) relax_smb_resolve_kernel(RelaxSmbArgs a) 
   const Image<float, 1> prev_mat{a.prev_mat, a.w, a.h};
 
   // current 3x3 normal average, row by row, made unit length
+  // and with spec the 3x3 min of the current hitT, 0 counting as NRD_INF
+  const Image<float, 1> hit{a.spec_hit, a.w, a.h};
+  float min_hit = 0.0f;
+  if (a.spec) {
+    min_hit = hit.at(x, y, 0);
+    if (min_hit == 0.0f) min_hit = 1e6f;
+  }
   V3 na{0.0f, 0.0f, 0.0f};
 #pragma unroll
   for (int dy = -1; dy <= 1; ++dy)
@@ -51,8 +65,18 @@ __global__ void __launch_bounds__(256) relax_smb_resolve_kernel(RelaxSmbArgs a) 
     for (int dx = -1; dx <= 1; ++dx) {
       const V3 n = nrd::unpack_normal(nr.at(x + dx, y + dy, 0), nr.at(x + dx, y + dy, 1));
       na = V3{na.x + n.x, na.y + n.y, na.z + n.z};
+      if (a.spec && (dx != 0 || dy != 0)) {
+        const float t = hit.at(x + dx, y + dy, 0);
+        min_hit = fminf(min_hit, t == 0.0f ? 1e6f : t);
+      }
     }
   na = V3{na.x / 9.0f, na.y / 9.0f, na.z / 9.0f};
+  if (a.spec) {
+    a.planes[3 * plane + i] = na.x;
+    a.planes[4 * plane + i] = na.y;
+    a.planes[5 * plane + i] = na.z;
+    a.planes[6 * plane + i] = min_hit;
+  }
   const float inv = rsqrtf(fmaxf(na.x * na.x + na.y * na.y + na.z * na.z, 1e-15f));
   na = V3{na.x * inv, na.y * inv, na.z * inv};
 
@@ -126,6 +150,11 @@ __global__ void __launch_bounds__(256) relax_smb_resolve_kernel(RelaxSmbArgs a) 
   a.planes[i] = fminf(hl + 1.0f, 255.0f);
   a.planes[plane + i] = any_valid ? quality : 0.0f;
   a.planes[2 * plane + i] = any_valid ? (bicubic ? 2.0f : 1.0f) : 0.0f;
+  if (a.spec) {
+    float ht;
+    nrd::bilinear_custom(Image<float, 1>{a.prev_ht, a.w, a.h}, bx, by, cw, &ht);
+    a.planes[7 * plane + i] = ht;
+  }
 
   // the histories at uv_smb x rect_prev, with the CatRom taps computed once
   const nrd::CatromTaps taps =
@@ -143,8 +172,10 @@ __global__ void __launch_bounds__(256) relax_smb_resolve_kernel(RelaxSmbArgs a) 
 }  // namespace
 
 // ptrs: smb_uv, xv_prev_z, base_thr, nr, prev_vz, prev_mat, prev_hl, prev_nr, planes,
-//       hist_out, then the nhist histories
-// consts: view_z_scale, rect_prev_w, rect_prev_h, res_w, res_h, min_material, m[9], nhist
+//       hist_out, 4 history slots (the first nhist used), spec_hit, prev_ht (null without
+//       spec)
+// consts: view_z_scale, rect_prev_w, rect_prev_h, res_w, res_h, min_material, m[9], nhist,
+//         spec (0 or 1)
 extern "C" int nrd_relax_smb_resolve(void* const* p, const float* c, int w, int h,
                                      void* stream) {
   RelaxSmbArgs a;
@@ -163,6 +194,10 @@ extern "C" int nrd_relax_smb_resolve(void* const* p, const float* c, int w, int 
   a.nhist = (int)c[15];
   if (a.nhist < 1 || a.nhist > kMaxHistories) return (int)cudaErrorInvalidValue;
   for (int s = 0; s < kMaxHistories; ++s) a.hist[s] = (const float*)p[10 + (s < a.nhist ? s : 0)];
+  a.spec = c[16] != 0.0f;
+  a.spec_hit = (const float*)p[14];
+  a.prev_ht = (const float*)p[15];
+  if (a.spec && (a.spec_hit == nullptr || a.prev_ht == nullptr)) return (int)cudaErrorInvalidValue;
   a.view_z_scale = c[0];
   a.rect_prev_w = c[1];
   a.rect_prev_h = c[2];

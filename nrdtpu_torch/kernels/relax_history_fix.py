@@ -1,12 +1,15 @@
-"""RELAX history fix, diffuse - kernel `csrc/relax_history_fix.cu` (K19).
+"""RELAX history fix - kernel `csrc/relax_history_fix.cu` (K19).
 
-Replaces `nrdtpu/kernels/relax_pallas.py:1499` (`relax_history_fix_pallas`). Computes the
-diffuse part of `history_fix` (`nrdtpu/passes/relax/kernels.py:1017-1131`) per pixel: where
+Replaces `nrdtpu/kernels/relax_pallas.py:1499` (`relax_history_fix_pallas`). Computes
+`history_fix` (`nrdtpu/passes/relax/kernels.py:1017-1131`) for one signal per pixel: where
 the history is short (`history_length <= history_fix_frame_num`, and the frame number is not
 1), the 24 taps of the 5x5 grid at the pixel's own stride `floor(14 / (1 + hl) + 0.5)`
 (`:1034`), clamp addressing with the in-screen test (`:1069-1077`), each weighted by plane
 distance, `pow(max(0.01, n . ns), power)` and material and counted only where its weight is
-above 1e-4 (`:1083-1094`); elsewhere the signal passes through. The stride is continuous, as
+above 1e-4 (`:1083-1094`); elsewhere the signal passes through. The specular signal weights
+its taps by the specular normal weight instead (`:1099-1114`): `angle0` / `f0` of
+`get_normal_weight_params_atrous(roughness, 5, 1, 0, ...)` (`:1030-1032`) and the tap's view
+vector relaxed by `roughness_edge_stopping_relaxation`. The stride is continuous, as
 in XLA: the TPU kernel's hat-blended stride levels (`relax_pallas.py:1502-1503`) are not
 carried over. Pixels whose history is long skip the taps.
 
@@ -26,18 +29,26 @@ from ..passes import relax as RC
 from . import build
 
 launches = 0
+# the constants of `specular`, in the order the kernel reads them
+SPECULAR_CONSTS = ("lobe_angle_fraction", "lobe_angle_slack",
+                   "roughness_edge_stopping_relaxation")
 
 
 def relax_history_fix_ref(signal, view_z_in, normal_roughness, history_length, *, frustum,
                           ortho_mode, view_z_scale, depth_threshold, base_stride, frame_num,
-                          normal_power, min_material):
+                          normal_power, min_material, specular=None):
     """Plain PyTorch version of the kernel (the XLA stride-tap loop and the select)."""
     h, w = view_z_in.shape
     dev = signal.device
     uv = resample.pixel_uv_grid(h, w, dev)
     view_z = torch.abs(view_z_in) * view_z_scale
-    n, _, material_id = fe.unpack_normal_roughness(normal_roughness)
+    n, roughness, material_id = fe.unpack_normal_roughness(normal_roughness)
     x = RC.world_pos(frustum, ortho_mode, uv, view_z)
+    if specular is not None:
+        cv = -nm.normalize(x)
+        angle0, f0 = RC.get_normal_weight_params_atrous(
+            roughness, torch.full_like(roughness, 5.0), torch.ones_like(roughness), 0.0,
+            specular["lobe_angle_fraction"], specular["lobe_angle_slack"])
     thr = depth_threshold * (view_z if ortho_mode == 0.0 else torch.ones_like(view_z))
     stride = torch.floor(torch.full_like(history_length, base_stride) / (1.0 + history_length)
                          + 0.5)
@@ -63,7 +74,12 @@ def relax_history_fix_ref(signal, view_z_in, normal_roughness, history_length, *
                                 nm.div(py.to(torch.float32) + 0.5, h)], -1)
             xs = RC.world_pos(frustum, ortho_mode, uv_s, zs)
             gw = RC.get_plane_distance_weight_atrous(x, n, xs, thr)
-            dw = gw * torch.pow(torch.clamp_min(nm.dot(n, ns), 0.01), max(normal_power, 0.01))
+            if specular is None:
+                dw = gw * torch.pow(torch.clamp_min(nm.dot(n, ns), 0.01),
+                                    max(normal_power, 0.01))
+            else:
+                sv = -nm.normalize(xs + specular["roughness_edge_stopping_relaxation"] * x)
+                dw = gw * RC.get_specular_normal_weight_atrous(angle0, f0, n, ns, cv, sv)
             dw = dw * inside
             dw = dw * (torch.clamp_min(ms, min_material) == mat_c).to(torch.float32)
             s = resample.texel_fetch(signal, px, py)
@@ -74,15 +90,17 @@ def relax_history_fix_ref(signal, view_z_in, normal_roughness, history_length, *
 
 def relax_history_fix(signal, view_z_in, normal_roughness, history_length, *, frustum,
                       ortho_mode, view_z_scale, depth_threshold, base_stride, frame_num,
-                      normal_power, min_material):
+                      normal_power, min_material, specular=None):
     """signal (h, w, 4) = the accumulated history (rgb, 2nd moment); history_length (h, w)
     after TA; frustum = the 9 floats right, up, forward; base_stride =
-    historyFixBasePixelStride, frame_num = historyFixFrameNum + 1. Returns (h, w, 4): the
-    reconstruction where the fix applies, the signal elsewhere."""
+    historyFixBasePixelStride, frame_num = historyFixFrameNum + 1; specular = None for the
+    diffuse signal, else dict(lobe_angle_fraction, lobe_angle_slack,
+    roughness_edge_stopping_relaxation). Returns (h, w, 4): the reconstruction where the fix
+    applies, the signal elsewhere."""
     global launches
     kw = dict(frustum=frustum, ortho_mode=ortho_mode, view_z_scale=view_z_scale,
               depth_threshold=depth_threshold, base_stride=base_stride, frame_num=frame_num,
-              normal_power=normal_power, min_material=min_material)
+              normal_power=normal_power, min_material=min_material, specular=specular)
     dev = build.kernel_device(signal)
     if dev is None:
         return relax_history_fix_ref(signal, view_z_in, normal_roughness, history_length, **kw)
@@ -94,8 +112,10 @@ def relax_history_fix(signal, view_z_in, normal_roughness, history_length, *, fr
     for name, t, shape in ins:
         build.check(name, t, dev, f32, shape)
     out = torch.empty((h, w, 4), dtype=f32, device=dev)
+    sp = specular or {}
     consts = [*frustum, ortho_mode, view_z_scale, depth_threshold, base_stride, frame_num,
-              max(normal_power, 0.01), min_material]
+              max(normal_power, 0.01), min_material, specular is not None,
+              *[sp.get(k, 0.0) for k in SPECULAR_CONSTS]]
     build.launch("nrd_relax_history_fix", [t for _, t, _ in ins] + [out], consts, w, h)
     launches += 1
     return out

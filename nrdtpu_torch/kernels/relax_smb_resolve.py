@@ -14,7 +14,12 @@ gathers of `temporal_accumulation`'s loadSurfaceMotionBasedPrevData
   - the footprint quality before its refinements (1 for bicubic, else the custom weights'
     sum; 0 where no tap is valid) and smb_found (2 bicubic, 1 bilinear, 0 none);
   - `sample_catrom(history, uv_smb x rect_prev, use_bicubic, custom_w)` of every history
-    plane set given (`:580-583`): RELAX_DIFFUSE gives the slow and the responsive history.
+    plane set given (`:580-583`, `:805-808`): the slow and the responsive history of the
+    signal;
+  - with the specular signal (`spec_hit` and `prev_reflection_hit_t` given, `:376-394`,
+    `:809-814`): the un-normalised 3x3 normal average (h, w, 3), the 3x3 min of the current
+    specular hitT (0 counts as NRD_INF) and the previous reflection hitT, bilinear with the
+    custom weights at the footprint's 2x2.
 
 The TPU kernel's block-base + tent-residual capture (`relax_pallas.py:1020-1022`,
 `:847-851`) is not carried over: the footprint is each pixel's own.
@@ -38,18 +43,26 @@ from . import build
 
 launches = 0
 PLANES = ("history_length", "footprint_quality", "smb_found")
+SPEC_PLANES = ("n_avg_x", "n_avg_y", "n_avg_z", "min_hit", "reflection_hit_t")
 CORNERS = ((0, 0), (3, 0), (0, 3), (3, 3))  # (x, y) inside the 4x4
 
 
 def relax_smb_resolve_ref(smb_uv, xv_prev_z, base_threshold, normal_roughness, prev_view_z,
                           prev_material_id, prev_history_length, prev_normal_roughness,
-                          histories, *, view_z_scale, rect_size_prev, resource_size,
-                          min_material, world_prev_to_world):
+                          histories, spec_hit=None, prev_reflection_hit_t=None, *,
+                          view_z_scale, rect_size_prev, resource_size, min_material,
+                          world_prev_to_world):
     """Plain PyTorch version of the kernel (the XLA formulas, gather by gather)."""
     n_avg = torch.zeros_like(normal_roughness[..., :3])
+    if spec_hit is not None:
+        min_hit = torch.where(spec_hit == 0.0, fe.NRD_INF, spec_hit)
     for dy, dx in stencil.offsets_square(1):
         n_avg = n_avg + fe.unpack_normal_roughness(stencil.shifted(normal_roughness, dy, dx))[0]
-    n_avg_unit = nm.normalize(nm.div(n_avg, 9.0))
+        if spec_hit is not None and (dy, dx) != (0, 0):
+            h_ = stencil.shifted(spec_hit, dy, dx)
+            min_hit = torch.minimum(min_hit, torch.where(h_ == 0.0, fe.NRD_INF, h_))
+    n_avg = nm.div(n_avg, 9.0)
+    n_avg_unit = nm.normalize(n_avg)
 
     origin, frac = nm.bilinear_filter(smb_uv, rect_size_prev)
     in_screen4 = resample.is_in_screen_bilinear(origin, rect_size_prev)
@@ -94,19 +107,27 @@ def relax_smb_resolve_ref(smb_uv, xv_prev_z, base_threshold, normal_roughness, p
     sample_pos = nm.scale2(smb_uv, float(rect_size_prev[0]), float(rect_size_prev[1]))
     hist = torch.stack([resample.sample_catrom(img, sample_pos, use_bicubic, custom_w)
                         for img in histories])
-    return dict(history_length=history_length, footprint_quality=quality, smb_found=smb_found,
-                histories=hist)
+    out = dict(history_length=history_length, footprint_quality=quality, smb_found=smb_found,
+               histories=hist)
+    if spec_hit is not None:
+        taps = [resample.texel_fetch(prev_reflection_hit_t, x0 + 1 + dx, y0 + 1 + dy)[..., None]
+                for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1))]
+        out.update(n_avg=n_avg, min_hit=min_hit,
+                   reflection_hit_t=nm.apply_bilinear_custom_weights(*taps, custom_w)[..., 0])
+    return out
 
 
 def relax_smb_resolve(smb_uv, xv_prev_z, base_threshold, normal_roughness, prev_view_z,
                       prev_material_id, prev_history_length, prev_normal_roughness, histories,
-                      *, view_z_scale, rect_size_prev, resource_size, min_material,
-                      world_prev_to_world):
+                      spec_hit=None, prev_reflection_hit_t=None, *, view_z_scale,
+                      rect_size_prev, resource_size, min_material, world_prev_to_world):
     """smb_uv (h, w, 2) surface-motion uv; xv_prev_z, base_threshold (h, w) from the glue;
     normal_roughness (h, w, 4) current; the previous frame's raw viewZ, material id, history
     length (h, w) and 8-bit packed normal/roughness (h, w, 4); histories: a sequence of
-    (h, w, 4) float32 history planes sampled with the same footprint. Returns
-    dict(history_length, footprint_quality, smb_found (h, w), histories (k, h, w, 4))."""
+    (h, w, 4) float32 history planes sampled with the same footprint; for the specular
+    signal, spec_hit (h, w) the PrePass's hitT and prev_reflection_hit_t (h, w). Returns
+    dict(history_length, footprint_quality, smb_found (h, w), histories (k, h, w, 4)), and
+    with the specular signal n_avg (h, w, 3), min_hit and reflection_hit_t (h, w)."""
     global launches
     kw = dict(view_z_scale=view_z_scale, rect_size_prev=rect_size_prev,
               resource_size=resource_size, min_material=min_material,
@@ -116,7 +137,8 @@ def relax_smb_resolve(smb_uv, xv_prev_z, base_threshold, normal_roughness, prev_
     if dev is None:
         return relax_smb_resolve_ref(smb_uv, xv_prev_z, base_threshold, normal_roughness,
                                      prev_view_z, prev_material_id, prev_history_length,
-                                     prev_normal_roughness, histories, **kw)
+                                     prev_normal_roughness, histories, spec_hit,
+                                     prev_reflection_hit_t, **kw)
     h, w = xv_prev_z.shape
     if not 1 <= len(histories) <= 4:
         raise ValueError(f"histories: {len(histories)} planes, 1 to 4 supported")
@@ -127,15 +149,29 @@ def relax_smb_resolve(smb_uv, xv_prev_z, base_threshold, normal_roughness, prev_
            ("prev_material_id", prev_material_id, (h, w)),
            ("prev_history_length", prev_history_length, (h, w)),
            ("prev_normal_roughness", prev_normal_roughness, (h, w, 4))]
-    ins += [(f"histories[{k}]", t, (h, w, 4)) for k, t in enumerate(histories)]
-    for name, t, shape in ins:
+    spec = spec_hit is not None
+    if spec != (prev_reflection_hit_t is not None):
+        raise ValueError("spec_hit and prev_reflection_hit_t come together")
+    if spec:
+        ins += [("spec_hit", spec_hit, (h, w)),
+                ("prev_reflection_hit_t", prev_reflection_hit_t, (h, w))]
+    hist_ins = [(f"histories[{k}]", t, (h, w, 4)) for k, t in enumerate(histories)]
+    for name, t, shape in ins + hist_ins:
         build.check(name, t, dev, f32, shape)
-    planes = torch.empty((len(PLANES), h, w), dtype=f32, device=dev)
+    names = PLANES + (SPEC_PLANES if spec else ())
+    planes = torch.empty((len(names), h, w), dtype=f32, device=dev)
     hist = torch.empty((len(histories), h, w, 4), dtype=f32, device=dev)
     m = np.asarray(world_prev_to_world, np.float32)[:3, :3].reshape(-1)
     consts = [view_z_scale, rect_size_prev[0], rect_size_prev[1], resource_size[0],
-              resource_size[1], min_material, *m, len(histories)]
-    build.launch("nrd_relax_smb_resolve", [t for _, t, _ in ins[:8]] + [planes, hist]
-                 + [t for _, t, _ in ins[8:]], consts, w, h)
+              resource_size[1], min_material, *m, len(histories), spec]
+    build.launch("nrd_relax_smb_resolve",
+                 [t for _, t, _ in ins[:8]] + [planes, hist]
+                 + [t for _, t, _ in hist_ins] + [None] * (4 - len(histories))
+                 + ([spec_hit, prev_reflection_hit_t] if spec else [None, None]),
+                 consts, w, h)
     launches += 1
-    return dict(zip(PLANES, planes), histories=hist)
+    out = dict(zip(PLANES, planes), histories=hist)
+    if spec:
+        out.update(n_avg=planes[3:6].permute(1, 2, 0), min_hit=planes[6],
+                   reflection_hit_t=planes[7])
+    return out

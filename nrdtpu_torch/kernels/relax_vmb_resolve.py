@@ -1,0 +1,119 @@
+"""RELAX virtual-motion loader - kernel `csrc/relax_vmb_resolve.cu` (K17).
+
+Replaces `nrdtpu/kernels/relax_pallas.py:1219` (`relax_vmb_resolve`). Computes, per pixel,
+the gathers of `temporal_accumulation`'s loadVirtualMotionBasedPrevData as XLA does them
+(`nrdtpu/passes/relax/kernels.py:742-796`):
+
+  - the 2x2 footprint at the virtual-motion uv: each previous texel's world position in the
+    previous camera (its texel-centre uv, the previous frustum vectors), tested by plane
+    distance |(x - camera_delta - x_prev) . n| against the per-tap in-screen threshold, and
+    its material against `spec_min_material`; `any` and `all` of the four;
+  - the specular slow and responsive histories at uv_vmb x rect_prev through the CatRom
+    footprint where the surface-motion footprint was bicubic and all four taps pass, else
+    with the custom bilinear weights (`sample_catrom`, the code K16 uses);
+  - the previous reflection hitT and the packed previous normal/roughness, plain bilinear at
+    uv_vmb x resolution_scale_prev.
+
+The TPU kernel's block-base capture (`relax_pallas.py:1239-1241`) is not carried over: the
+footprint is each pixel's own.
+
+Bound on the H100: gathers. Per pixel it reads the uv, the normal, x - delta, the threshold,
+the packed current normal and smb_found (56 B), 4 previous viewZ and material taps (32 B), 4
+taps of the reflection hitT and of the packed previous normal (80 B) and the 5 bilinear (20
+texel) taps of two (h, w, 4) histories (2 x 320 B, mostly shared with the neighbours); it
+writes 3 x 16 B and 3 planes.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import frontend as fe
+from .. import math as nm
+from ..ops import resample
+from ..passes import relax as RC
+from . import build
+
+launches = 0
+SIGNALS = ("spec_vmb", "spec_vmb_resp", "nr_packed")
+PLANES = ("hit_t", "any", "all")
+TAPS = ((0, 0), (0, 1), (1, 0), (1, 1))  # (dy, dx) of the 2x2
+
+
+def relax_vmb_resolve_ref(uv_vmb, n, x_minus_delta, threshold_base, normal_roughness,
+                          smb_found, prev_view_z, prev_material_id, prev_reflection_hit_t,
+                          prev_normal_roughness, spec_history, spec_responsive_history, *,
+                          prev_frustum, ortho_mode, view_z_scale, rect_size_prev,
+                          resolution_scale_prev, min_material):
+    """Plain PyTorch version of the kernel (the XLA formulas, gather by gather)."""
+    rw, rh = (float(v) for v in rect_size_prev)
+    origin, frac = nm.bilinear_filter(uv_vmb, rect_size_prev)
+    in_screen = resample.is_in_screen_bilinear(origin, rect_size_prev)
+    vx0 = resample.to_index(origin[..., 0])
+    vy0 = resample.to_index(origin[..., 1])
+    mat_c = torch.clamp_min(normal_roughness[..., 3] * 3.0, min_material)
+    valid = []
+    for k, (dy, dx) in enumerate(TAPS):
+        zp = torch.abs(resample.texel_fetch(prev_view_z, vx0 + dx, vy0 + dy)) * view_z_scale
+        tap_uv = torch.stack([nm.div((vx0 + dx).to(torch.float32) + 0.5, rw),
+                              nm.div((vy0 + dy).to(torch.float32) + 0.5, rh)], -1)
+        xp = RC.world_pos(prev_frustum, ortho_mode, tap_uv, zp)
+        thr = threshold_base * in_screen[..., k] - fe.NRD_EPS
+        ok = (torch.abs(nm.dot(x_minus_delta - xp, n)) <= thr).to(torch.float32)
+        mp = resample.texel_fetch(prev_material_id, vx0 + dx, vy0 + dy)
+        valid.append(ok * (mat_c == torch.clamp_min(mp, min_material)).to(torch.float32))
+    valid4 = torch.stack(valid, -1)
+    any_ = (valid4 > 0.0).any(-1)
+    all_ = (valid4 > 0.0).all(-1)
+    custom_w = nm.get_bilinear_custom_weights(frac, valid4)
+    use_bicubic = (smb_found == 2.0) & all_
+    pos = nm.scale2(uv_vmb, rw, rh)
+    uv_res = nm.scale2(uv_vmb, float(resolution_scale_prev[0]), float(resolution_scale_prev[1]))
+    return dict(
+        spec_vmb=resample.sample_catrom(spec_history, pos, use_bicubic, custom_w),
+        spec_vmb_resp=resample.sample_catrom(spec_responsive_history, pos, use_bicubic,
+                                             custom_w),
+        nr_packed=resample.sample_bilinear(prev_normal_roughness, uv_res),
+        hit_t=resample.sample_bilinear(prev_reflection_hit_t, uv_res),
+        any=any_.to(torch.float32), all=all_.to(torch.float32))
+
+
+def relax_vmb_resolve(uv_vmb, n, x_minus_delta, threshold_base, normal_roughness, smb_found,
+                      prev_view_z, prev_material_id, prev_reflection_hit_t,
+                      prev_normal_roughness, spec_history, spec_responsive_history, *,
+                      prev_frustum, ortho_mode, view_z_scale, rect_size_prev,
+                      resolution_scale_prev, min_material):
+    """uv_vmb (h, w, 2) virtual-motion uv; n and x_minus_delta (h, w, 3) the TA's normal and
+    world position minus the camera delta; threshold_base (h, w) the disocclusion threshold
+    x viewZ (x 1 in ortho); normal_roughness (h, w, 4) current (material in .w);
+    smb_found (h, w) K16's (2 where its footprint was bicubic); the previous raw viewZ,
+    material id, reflection hitT (h, w), packed normal/roughness (h, w, 4) and the specular
+    slow and responsive histories (h, w, 4); prev_frustum = the previous camera's 9 floats
+    right, up, forward. Returns dict(spec_vmb, spec_vmb_resp, nr_packed (h, w, 4), hit_t,
+    any, all (h, w), any / all as 0 or 1)."""
+    global launches
+    kw = dict(prev_frustum=prev_frustum, ortho_mode=ortho_mode, view_z_scale=view_z_scale,
+              rect_size_prev=rect_size_prev, resolution_scale_prev=resolution_scale_prev,
+              min_material=min_material)
+    args = (uv_vmb, n, x_minus_delta, threshold_base, normal_roughness, smb_found, prev_view_z,
+            prev_material_id, prev_reflection_hit_t, prev_normal_roughness, spec_history,
+            spec_responsive_history)
+    dev = build.kernel_device(normal_roughness)
+    if dev is None:
+        return relax_vmb_resolve_ref(*args, **kw)
+    h, w = threshold_base.shape
+    shapes = ((h, w, 2), (h, w, 3), (h, w, 3), (h, w), (h, w, 4), (h, w), (h, w), (h, w),
+              (h, w), (h, w, 4), (h, w, 4), (h, w, 4))
+    names = ("uv_vmb", "n", "x_minus_delta", "threshold_base", "normal_roughness", "smb_found",
+             "prev_view_z", "prev_material_id", "prev_reflection_hit_t",
+             "prev_normal_roughness", "spec_history", "spec_responsive_history")
+    for name, t, shape in zip(names, args, shapes):
+        build.check(name, t, dev, torch.float32, shape)
+    sig = torch.empty((len(SIGNALS), h, w, 4), dtype=torch.float32, device=dev)
+    planes = torch.empty((len(PLANES), h, w), dtype=torch.float32, device=dev)
+    consts = [*prev_frustum, ortho_mode, view_z_scale, rect_size_prev[0], rect_size_prev[1],
+              resolution_scale_prev[0], resolution_scale_prev[1], min_material]
+    build.launch("nrd_relax_vmb_resolve", [*args, sig, planes], consts, w, h)
+    launches += 1
+    return dict(zip(SIGNALS, sig), **dict(zip(PLANES, planes)))

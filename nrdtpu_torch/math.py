@@ -150,6 +150,10 @@ def acos_approx(x):
     return torch.where(x >= 0.0, res, PI - res)
 
 
+def rsqrt_safe(x):
+    return torch.rsqrt(torch.clamp_min(x, 1e-15))
+
+
 def safe_normalize(v):
     """_NRD_SafeNormalize (NRD.hlsli:321-324) over the last axis."""
     return v * torch.rsqrt(torch.sum(v * v, dim=-1, keepdim=True) + 1e-9)
@@ -466,6 +470,19 @@ def get_geometry_weight_params(plane_dist_sensitivity, frustum_size, xv, nv):
     """GetGeometryWeightParams (Common.hlsli:501-508). Returns (a, b) with w = f(|d a + b|)."""
     a = 1.0 / (plane_dist_sensitivity * frustum_size)
     return a, -(dot(nv, xv) * a)
+
+
+def get_encoding_aware_normal_weight(n_curr, n_prev, max_angle, curvature_angle,
+                                     threshold_angle=0.0, remap=False):
+    """GetEncodingAwareNormalWeight (Common.hlsli:578-589) over the last axis."""
+    angle = acos_approx(dot(n_curr, n_prev))
+    w = smoothstep01(1.0 - (angle - curvature_angle - threshold_angle) / max_angle)
+    return smoothstep(0.05, 0.95, w) if remap else w
+
+
+def apply_thin_lens_equation(o, curvature):
+    """ApplyThinLensEquation (Common.hlsli:404-409)."""
+    return o / (2.0 * curvature * o + 1.0)
 
 
 def get_disocclusion_threshold(disocclusion_threshold, frustum_size, nov):

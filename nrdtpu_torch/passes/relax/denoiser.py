@@ -1,16 +1,18 @@
 """RELAX pass graph for the PyTorch port - counterpart of `nrdtpu/passes/relax/denoiser.py`.
 
-This port runs RELAX_DIFFUSE (`denoiser.py:166-392`): hit-distance reconstruction
-(AREA_3X3 / AREA_5X5 through REBLUR's kernel, off under checkerboard, `:249-255`), PrePass,
-TemporalAccumulation, HistoryFix (into the responsive history), HistoryClamping, the à-trous
-ladder (2 to 8 iterations, 5 by default) and SplitScreen. The other RELAX variants, the
-checkerboard resolve and the anti-firefly pass raise NotImplementedError; ROADMAP.md lists
-them.
+This port runs RELAX_DIFFUSE and RELAX_SPECULAR (`denoiser.py:166-392`, one signal each):
+hit-distance reconstruction (AREA_3X3 / AREA_5X5 through REBLUR's kernel, off under
+checkerboard, `:249-255`), PrePass, TemporalAccumulation, HistoryFix (into the responsive
+history), HistoryClamping, the optional anti-firefly pass, the à-trous ladder (2 to 8
+iterations, 5 by default) with IN_DIFF_CONFIDENCE / IN_SPEC_CONFIDENCE and the TA's specular
+reprojection confidence in every iteration, and SplitScreen. The other RELAX variants and
+the checkerboard resolve raise NotImplementedError; ROADMAP.md lists them.
 
 State (the permanent pool, all float32 as the JAX package keeps it for RELAX):
   history_length (h, w) 0..255, rounded to whole frames; normal_roughness_prev (h, w, 4) the
   RGBA8-quantized 0.5 n + 0.5 and roughness; material_id_prev, view_z_prev (h, w);
-  diff_illum_prev (h, w, 4) slow history (rgb + 2nd moment), diff_responsive_prev (h, w, 4).
+  <diff|spec>_illum_prev (h, w, 4) slow history (rgb + 2nd moment) after the anti-firefly
+  pass, <diff|spec>_responsive_prev (h, w, 4); RELAX_SPECULAR also reflection_hit_t (h, w).
 """
 
 from __future__ import annotations
@@ -32,7 +34,12 @@ from . import frustum_vectors, pack_prev_normal_roughness, unpack_nr
 from . import kernels as K
 
 RT = ResourceType
-PORTED = (Denoiser.RELAX_DIFFUSE,)
+PORTED = (Denoiser.RELAX_DIFFUSE, Denoiser.RELAX_SPECULAR)
+# per signal: its input and output resources and its confidence input
+SIGNAL_RESOURCES = {
+    "diff": (RT.IN_DIFF_RADIANCE_HITDIST, RT.OUT_DIFF_RADIANCE_HITDIST, RT.IN_DIFF_CONFIDENCE),
+    "spec": (RT.IN_SPEC_RADIANCE_HITDIST, RT.OUT_SPEC_RADIANCE_HITDIST, RT.IN_SPEC_CONFIDENCE),
+}
 
 
 class RelaxDenoiser:
@@ -44,6 +51,7 @@ class RelaxDenoiser:
                 "slices)")
         self.config = config
         self.device = torch.device(device)
+        self.which = "spec" if config.denoiser == Denoiser.RELAX_SPECULAR else "diff"
         self._s = RelaxSettings()
 
     def static_key(self, s: RelaxSettings):
@@ -53,22 +61,22 @@ class RelaxDenoiser:
     def specialize(self, s: RelaxSettings):
         if s.checkerboardMode != CheckerboardMode.OFF:
             raise NotImplementedError("RELAX checkerboard is not ported yet (ROADMAP.md)")
-        if s.enableAntiFirefly:
-            raise NotImplementedError("the RELAX anti-firefly pass (K21) is not ported yet; "
-                                      "it comes with RELAX_SPECULAR (ROADMAP.md)")
         self._s = s
 
     def init_state(self):
         w, h = self.config.rect_size
         kw = dict(dtype=torch.float32, device=self.device)
-        return {
+        state = {
             "history_length": torch.zeros((h, w), **kw),
             "normal_roughness_prev": torch.full((h, w, 4), 1.0 / 255.0, **kw),
             "material_id_prev": torch.zeros((h, w), **kw),
             "view_z_prev": torch.full((h, w), 1e7, **kw),
-            "diff_illum_prev": torch.zeros((h, w, 4), **kw),
-            "diff_responsive_prev": torch.zeros((h, w, 4), **kw),
+            f"{self.which}_illum_prev": torch.zeros((h, w, 4), **kw),
+            f"{self.which}_responsive_prev": torch.zeros((h, w, 4), **kw),
         }
+        if self.which == "spec":
+            state["reflection_hit_t"] = torch.zeros((h, w), **kw)
+        return state
 
     # -- AddSharedConstants_Relax (Relax.cpp:60-180), denoiser part -----------------
     def frame_constants(self, consts: dict, s: RelaxSettings) -> dict:
@@ -146,41 +154,54 @@ class RelaxDenoiser:
     def frame(self, sc: dict, dc: dict, state: dict, inputs: dict):
         cfg = self.config
         s = self._s
+        which = self.which
+        rt_in, rt_out, rt_conf = SIGNAL_RESOURCES[which]
         sc = self._relax_sc(sc)
         view_z = inputs[RT.IN_VIEWZ]
         normal_roughness = inputs[RT.IN_NORMAL_ROUGHNESS]
         mv = inputs[RT.IN_MV]
-        raw = inputs[RT.IN_DIFF_RADIANCE_HITDIST]
+        raw = inputs[rt_in]
+        dt_mix = inputs.get(RT.IN_DISOCCLUSION_THRESHOLD_MIX)
         if mv.shape[-1] == 2:
             mv = torch.cat([mv, torch.zeros_like(mv[..., :1])], -1)
 
         dead = K.dead_mask(sc, K.classify_tiles(sc, view_z), view_z)
 
-        diff = raw
+        sig = raw
         if s.hitDistanceReconstructionMode != HitDistanceReconstructionMode.OFF:
             radius = (2 if s.hitDistanceReconstructionMode
                       == HitDistanceReconstructionMode.AREA_5X5 else 1)
-            diff, _ = RK.hit_dist_reconstruction(sc, dc, view_z, normal_roughness, diff, None,
-                                                 cfg, radius=radius)
+            pair = (sig, None) if which == "diff" else (None, sig)
+            rec = RK.hit_dist_reconstruction(sc, dc, view_z, normal_roughness, *pair, cfg,
+                                             radius=radius)
+            sig = rec[0] if which == "diff" else rec[1]
 
-        diff_p = K.pre_pass(sc, dc, diff, view_z, normal_roughness, cfg)
-        ta = K.temporal_accumulation(sc, dc, view_z, normal_roughness, mv, diff_p, state, cfg,
-                                     diff_confidence=inputs.get(RT.IN_DIFF_CONFIDENCE),
-                                     dt_mix=inputs.get(RT.IN_DISOCCLUSION_THRESHOLD_MIX))
+        pre = K.pre_pass(sc, dc, sig, view_z, normal_roughness, cfg, which)
+        if which == "diff":
+            ta = K.temporal_accumulation(sc, dc, view_z, normal_roughness, mv, pre, state, cfg,
+                                         diff_confidence=inputs.get(rt_conf), dt_mix=dt_mix)
+        else:
+            ta = K.temporal_accumulation_specular(sc, dc, view_z, normal_roughness, mv, pre,
+                                                  state, cfg, spec_confidence=inputs.get(rt_conf),
+                                                  dt_mix=dt_mix)
         history_length = ta["history_length"]
-        diff_fix = K.history_fix(sc, dc, view_z, normal_roughness, history_length, ta["diff"],
-                                 cfg)
-        diff_resp = K.apply_history_fix(dc, history_length, diff_fix, ta["diff_fast"])
-        hc = K.history_clamping(sc, dc, view_z, diff_p, ta["diff"], diff_resp, history_length)
-        del ta, diff_fix, diff_p
+        fixed = K.history_fix(sc, dc, view_z, normal_roughness, history_length, ta[which], cfg,
+                              which)
+        resp = K.apply_history_fix(dc, history_length, fixed, ta[which + "_fast"])
+        hc = K.history_clamping(sc, dc, view_z, pre, ta[which], resp, history_length, which)
+        del fixed, pre, resp
 
-        cur = hc["diff_slow"]
+        slow = hc[which + "_slow"]
+        if s.enableAntiFirefly:
+            (slow,) = K.anti_firefly(dc, normal_roughness, (slow,), (which,))
+        cur = slow
         iterations = int(np.clip(s.atrousIterationNum, 2, 8))
         for i in range(iterations):
             cur = K.atrous(sc, dc, view_z, normal_roughness, history_length, cur, cfg,
-                           step_size=1 << i, is_first=i == 0,
+                           step_size=1 << i, is_first=i == 0, which=which,
                            diff_confidence=inputs.get(RT.IN_DIFF_CONFIDENCE),
-                           spec_confidence=inputs.get(RT.IN_SPEC_CONFIDENCE))
+                           spec_confidence=inputs.get(RT.IN_SPEC_CONFIDENCE),
+                           reprojection_confidence=ta.get("spec_reprojection_confidence"))
 
         keep = dead
         n, rough, mat = unpack_nr(normal_roughness, cfg)
@@ -193,9 +214,13 @@ class RelaxDenoiser:
             torch.where(dead[..., None], 1.0 / 255.0, n), torch.where(dead, 1.0 / 255.0, rough))
         new_state["material_id_prev"] = mat
         new_state["view_z_prev"] = view_z.clone()  # the caller may reuse its input buffer
-        new_state["diff_illum_prev"] = torch.where(keep[..., None], state["diff_illum_prev"],
-                                                   hc["diff_slow"])
-        new_state["diff_responsive_prev"] = torch.where(
-            keep[..., None], state["diff_responsive_prev"], hc["diff_resp"])
+        # the slow history after the anti-firefly pass (`denoiser.py:299-304`, `:358-362`)
+        new_state[which + "_illum_prev"] = torch.where(keep[..., None],
+                                                       state[which + "_illum_prev"], slow)
+        new_state[which + "_responsive_prev"] = torch.where(
+            keep[..., None], state[which + "_responsive_prev"], hc[which + "_resp"])
+        if which == "spec":
+            new_state["reflection_hit_t"] = torch.where(keep, state["reflection_hit_t"],
+                                                        ta["reflection_hit_t"])
         out = K.split_screen(sc, view_z, raw, torch.where(dead[..., None], raw, cur))
-        return {RT.OUT_DIFF_RADIANCE_HITDIST: out}, requantize_state(state, new_state)
+        return {rt_out: out}, requantize_state(state, new_state)

@@ -3,8 +3,9 @@
 Each kernel runs on the inputs the main paths give it (frame 4 of the orbit scene at 128x96:
 REBLUR_DIFFUSE, REBLUR_SPECULAR and REBLUR_DIFFUSE_SPECULAR, each with and without the
 anti-firefly ring and with AREA_3X3 hit-distance reconstruction on inputs with hit-distance
-holes; SIGMA_SHADOW and SIGMA_SHADOW_TRANSLUCENCY; RELAX_DIFFUSE, also with AREA_3X3: its
-five kernels, the à-trous at iteration 0 and at the jittered strides) and is held against its
+holes; SIGMA_SHADOW and SIGMA_SHADOW_TRANSLUCENCY; RELAX_DIFFUSE and RELAX_SPECULAR, each also with
+the anti-firefly pass and with AREA_3X3: their kernels, the à-trous at iteration 0 and at the
+jittered strides) and is held against its
 plain PyTorch version on the same card; the Engine on the card is held against the Engine on
 the CPU, for every path and output. Run on a machine with an H100:
 
@@ -44,7 +45,7 @@ def cuda():
 
 VARIANTS = (Denoiser.REBLUR_DIFFUSE, Denoiser.REBLUR_SPECULAR, Denoiser.REBLUR_DIFFUSE_SPECULAR)
 SIGMA = (Denoiser.SIGMA_SHADOW, Denoiser.SIGMA_SHADOW_TRANSLUCENCY)
-RELAX = (Denoiser.RELAX_DIFFUSE,)
+RELAX = (Denoiser.RELAX_DIFFUSE, Denoiser.RELAX_SPECULAR)
 AREA_3X3 = dict(hitDistanceReconstructionMode=HitDistanceReconstructionMode.AREA_3X3)
 
 
@@ -60,17 +61,18 @@ def _pools(denoiser, n, holes=False):
         pool = {RT.IN_VIEWZ: fd.view_z, RT.IN_NORMAL_ROUGHNESS: gen.packed_normal_roughness(fd),
                 RT.IN_MV: fd.mv}
         if denoiser in RELAX:  # raw radiance and raw hit distance
-            sig = fe.relax_pack_radiance_hitdist(torch.from_numpy(fd.diff_noisy),
-                                                 torch.from_numpy(fd.diff_hit_dist)).numpy()
+            pool[RT.IN_DIFF_RADIANCE_HITDIST] = fe.relax_pack_radiance_hitdist(
+                torch.from_numpy(fd.diff_noisy), torch.from_numpy(fd.diff_hit_dist)).numpy()
+            pool[RT.IN_SPEC_RADIANCE_HITDIST] = fe.relax_pack_radiance_hitdist(
+                torch.from_numpy(fd.spec_noisy), torch.from_numpy(fd.spec_hit_dist)).numpy()
         else:
-            sig = np.concatenate([fd.diff_noisy, np.full(fd.view_z.shape + (1,), 0.5, np.float32)],
-                                 -1)
-        pool[RT.IN_DIFF_RADIANCE_HITDIST] = sig
-        nhd = fe.reblur_get_norm_hit_dist(torch.from_numpy(fd.spec_hit_dist),
-                                          torch.from_numpy(fd.view_z), hdp,
-                                          torch.from_numpy(fd.roughness))
-        pool[RT.IN_SPEC_RADIANCE_HITDIST] = fe.reblur_pack_radiance_hitdist(
-            torch.from_numpy(fd.spec_noisy), nhd).numpy()
+            pool[RT.IN_DIFF_RADIANCE_HITDIST] = np.concatenate(
+                [fd.diff_noisy, np.full(fd.view_z.shape + (1,), 0.5, np.float32)], -1)
+            nhd = fe.reblur_get_norm_hit_dist(torch.from_numpy(fd.spec_hit_dist),
+                                              torch.from_numpy(fd.view_z), hdp,
+                                              torch.from_numpy(fd.roughness))
+            pool[RT.IN_SPEC_RADIANCE_HITDIST] = fe.reblur_pack_radiance_hitdist(
+                torch.from_numpy(fd.spec_noisy), nhd).numpy()
         if holes:
             hole = (rng.random(fd.view_z.shape) < 0.3) & (fd.hit_mask > 0)
             for rt in (RT.IN_DIFF_RADIANCE_HITDIST, RT.IN_SPEC_RADIANCE_HITDIST):
@@ -103,7 +105,8 @@ def _engine(denoiser, device, anti_firefly=False, **settings):
 # (denoiser, anti-firefly ring, settings, inputs with hit-distance holes) of every path
 PATHS = ([(d, af, {}, False) for d in VARIANTS for af in (False, True)]
          + [(d, False, AREA_3X3, True) for d in VARIANTS] + [(d, False, {}, False) for d in SIGMA]
-         + [(d, False, s, h) for d in RELAX for s, h in (({}, False), (AREA_3X3, True))])
+         + [(d, af, s, h) for d in RELAX
+            for af, s, h in ((False, {}, False), (True, {}, False), (False, AREA_3X3, True))])
 
 
 @pytest.fixture(scope="module")
@@ -152,7 +155,7 @@ def test_kernel_matches_plain_version(recorded, name):
             assert over <= FLIP_FRACTION, f"{name}.{key}: {over:.3g} of values out of tolerance"
 
 
-@pytest.mark.parametrize("denoiser", VARIANTS, ids=lambda d: d.name)
+@pytest.mark.parametrize("denoiser", VARIANTS + RELAX, ids=lambda d: d.name)
 @pytest.mark.parametrize("anti_firefly", [False, True], ids=["default", "anti_firefly"])
 def test_engine_card_matches_cpu(cuda, denoiser, anti_firefly):
     card = _engine(denoiser, cuda, anti_firefly)
@@ -175,8 +178,8 @@ def test_engine_card_matches_cpu(cuda, denoiser, anti_firefly):
                          ids=[f"{d.name}-AREA_3X3" for d in VARIANTS + RELAX]
                          + [d.name for d in SIGMA + RELAX])
 def test_engine_card_matches_cpu_new_paths(cuda, denoiser, settings, holes):
-    """Hit-distance reconstruction on inputs with holes, the SIGMA variants and
-    RELAX_DIFFUSE."""
+    """Hit-distance reconstruction on inputs with holes, the SIGMA variants and the RELAX
+    variants."""
     card = _engine(denoiser, cuda, **settings)
     cpu = _engine(denoiser, "cpu", **settings)
     for cs, pool in _pools(denoiser, 4, holes):

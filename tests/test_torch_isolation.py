@@ -34,7 +34,8 @@ pool = {RT.IN_VIEWZ: fd.view_z, RT.IN_NORMAL_ROUGHNESS: gen.packed_normal_roughn
         RT.IN_PENUMBRA: np.where(fd.shadow_clean > 0.5, 65504.0, 1.0).astype(np.float32),
         RT.IN_TRANSLUCENCY: np.full((48, 64, 4), 0.5, np.float32)}
 for d in (Denoiser.REBLUR_DIFFUSE, Denoiser.REBLUR_SPECULAR, Denoiser.REBLUR_DIFFUSE_SPECULAR,
-          Denoiser.SIGMA_SHADOW, Denoiser.SIGMA_SHADOW_TRANSLUCENCY, Denoiser.RELAX_DIFFUSE):
+          Denoiser.SIGMA_SHADOW, Denoiser.SIGMA_SHADOW_TRANSLUCENCY, Denoiser.RELAX_DIFFUSE,
+          Denoiser.RELAX_SPECULAR):
     eng = Engine({0: d}, resource_size=(64, 48), device="cpu")
     if not d.name.startswith("SIGMA"):
         eng.set_denoiser_settings(0, replace(
@@ -70,7 +71,8 @@ def recorded_calls():
     """The kernel calls of two CPU frames of each main path, recorded at the wrappers; the
     second frame of REBLUR_DIFFUSE_SPECULAR with the anti-firefly ring, one frame of it with
     AREA_3X3 hit-distance reconstruction on a signal with holes, two frames of RELAX_DIFFUSE
-    and two frames of each SIGMA variant."""
+    and of RELAX_SPECULAR (its second frame with the anti-firefly pass) and two frames of
+    each SIGMA variant."""
     from nrdtpu_torch import frontend as fe
     from nrdtpu_torch.engine import Engine
     from nrdtpu_torch.settings import Denoiser, HitDistanceReconstructionMode, replace
@@ -110,15 +112,21 @@ def recorded_calls():
                           RT.IN_NORMAL_ROUGHNESS: gen.packed_normal_roughness(fd),
                           RT.IN_MV: fd.mv, RT.IN_DIFF_RADIANCE_HITDIST: sig,
                           RT.IN_SPEC_RADIANCE_HITDIST: sig})
-        eng = Engine({0: Denoiser.RELAX_DIFFUSE}, resource_size=(48, 32), device="cpu")
-        for i in range(2):
-            fd = gen.frame(i)
-            eng.set_common_settings(fd.common_settings)
-            eng.denoise([0], {RT.IN_VIEWZ: fd.view_z, RT.IN_MV: fd.mv,
-                              RT.IN_NORMAL_ROUGHNESS: gen.packed_normal_roughness(fd),
-                              RT.IN_DIFF_RADIANCE_HITDIST: fe.relax_pack_radiance_hitdist(
-                                  torch.from_numpy(fd.diff_noisy),
-                                  torch.from_numpy(fd.diff_hit_dist)).numpy()})
+        for d, rt, noisy, hit in (
+                (Denoiser.RELAX_DIFFUSE, RT.IN_DIFF_RADIANCE_HITDIST, "diff_noisy", "diff_hit_dist"),
+                (Denoiser.RELAX_SPECULAR, RT.IN_SPEC_RADIANCE_HITDIST, "spec_noisy",
+                 "spec_hit_dist")):
+            eng = Engine({0: d}, resource_size=(48, 32), device="cpu")
+            for i in range(2):
+                if i == 1 and d == Denoiser.RELAX_SPECULAR:
+                    eng.set_denoiser_settings(0, replace(eng._settings[0], enableAntiFirefly=True))
+                fd = gen.frame(i)
+                eng.set_common_settings(fd.common_settings)
+                eng.denoise([0], {RT.IN_VIEWZ: fd.view_z, RT.IN_MV: fd.mv,
+                                  RT.IN_NORMAL_ROUGHNESS: gen.packed_normal_roughness(fd),
+                                  rt: fe.relax_pack_radiance_hitdist(
+                                      torch.from_numpy(getattr(fd, noisy)),
+                                      torch.from_numpy(getattr(fd, hit))).numpy()})
         for d in (Denoiser.SIGMA_SHADOW, Denoiser.SIGMA_SHADOW_TRANSLUCENCY):
             eng = Engine({0: d}, resource_size=(48, 32), device="cpu")
             for i in range(2):
@@ -198,7 +206,7 @@ def test_unported_variants_raise():
     from nrdtpu_torch.settings import Denoiser
 
     for d in (Denoiser.REBLUR_DIFFUSE_SPECULAR_SH, Denoiser.REBLUR_DIFFUSE_OCCLUSION,
-              Denoiser.RELAX_SPECULAR):
+              Denoiser.RELAX_DIFFUSE_SPECULAR):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Engine({0: d}, resource_size=(64, 48), device="cpu")
 

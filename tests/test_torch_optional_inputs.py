@@ -114,6 +114,9 @@ def run(denoiser, optional, settings):
 CASES = {
     "RELAX_DIFFUSE-diff_confidence": ("RELAX_DIFFUSE", ("diff_confidence",), CONFIDENCE_DRIVEN),
     "RELAX_DIFFUSE-threshold_mix": ("RELAX_DIFFUSE", ("threshold_mix",), {}),
+    "RELAX_SPECULAR-spec_confidence": ("RELAX_SPECULAR", ("spec_confidence",),
+                                       CONFIDENCE_DRIVEN),
+    "RELAX_SPECULAR-threshold_mix": ("RELAX_SPECULAR", ("threshold_mix",), {}),
     "REBLUR_DIFFUSE_SPECULAR-all": ("REBLUR_DIFFUSE_SPECULAR",
                                     ("diff_confidence", "spec_confidence", "threshold_mix"), {}),
 }

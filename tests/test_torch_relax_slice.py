@@ -136,17 +136,15 @@ def test_atrous_iterations(iterations, calls):
     assert c.counts["relax_atrous"] == calls and bool(out.isfinite().all())
 
 
-@pytest.mark.parametrize("denoiser", ["RELAX_SPECULAR", "RELAX_DIFFUSE_SPECULAR",
-                                      "RELAX_DIFFUSE_SH", "RELAX_SPECULAR_SH",
-                                      "RELAX_DIFFUSE_SPECULAR_SH"])
+@pytest.mark.parametrize("denoiser", ["RELAX_DIFFUSE_SPECULAR", "RELAX_DIFFUSE_SH",
+                                      "RELAX_SPECULAR_SH", "RELAX_DIFFUSE_SPECULAR_SH"])
 def test_unported_variants_raise(denoiser):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TEngine({0: Denoiser[denoiser]}, resource_size=(48, 32), device="cpu")
 
 
 @pytest.mark.parametrize("settings", [dict(checkerboardMode=CheckerboardMode.BLACK),
-                                      dict(enableAntiFirefly=True), "validation"],
-                         ids=["checkerboard", "anti_firefly", "validation"])
+                                      "validation"], ids=["checkerboard", "validation"])
 def test_unported_settings_raise(settings):
     gen = SceneGenerator(SceneSpec(size=(48, 32)), camera_mode="orbit")
     eng = TEngine({0: Denoiser.RELAX_DIFFUSE}, resource_size=(48, 32), device="cpu")
