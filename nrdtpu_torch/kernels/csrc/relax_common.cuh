@@ -1,9 +1,11 @@
 // Device functions shared by the RELAX kernels (RELAX_Common.hlsli): the camera-relative
 // world position from the frustum right / up / forward vectors, the plane distance, the
-// luminance and YCoCg. Each mirrors, operation for operation, the plain version it is held
-// against (nrdtpu_torch/passes/relax/__init__.py and the kernels' *_ref, themselves the XLA
-// functions of nrdtpu/passes/relax/kernels.py:36-136). Built with --fmad=false, as every
-// kernel of the library.
+// luminance and YCoCg, the normal-weight parameters, the specular normal weight, the spec
+// magic curve and the specular dominant direction. Each mirrors, operation for operation,
+// the plain version it is held against (nrdtpu_torch/passes/relax/__init__.py,
+// nrdtpu_torch/math.py and the kernels' *_ref, themselves the XLA functions of
+// nrdtpu/passes/relax/kernels.py:36-136 and nrdtpu/math.py). Built with --fmad=false, as
+// every kernel of the library.
 #pragma once
 
 #include "common.cuh"

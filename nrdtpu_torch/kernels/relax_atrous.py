@@ -1,7 +1,7 @@
-"""RELAX à-trous iteration, diffuse - kernel `csrc/relax_atrous.cu` (K22).
+"""RELAX à-trous iteration - kernel `csrc/relax_atrous.cu` (K22).
 
-Replaces `nrdtpu/kernels/relax_pallas.py:338` (`relax_atrous_pallas`). Computes the diffuse
-part of `atrous` (`nrdtpu/passes/relax/kernels.py:1340-1606`) per pixel, in two modes:
+Replaces `nrdtpu/kernels/relax_pallas.py:338` (`relax_atrous_pallas`). Computes `atrous`
+(`nrdtpu/passes/relax/kernels.py:1340-1606`) for one signal per pixel, in two modes:
 
   - iteration 0 (`is_first`): the 3x3 Gaussian prefilter of the centre's variance
     (`:1456-1463`), the 3x3 à-trous taps accumulating (rgb, 2nd moment) with the variance
@@ -16,6 +16,13 @@ part of `atrous` (`nrdtpu/passes/relax/kernels.py:1340-1606`) per pixel, in two 
 
 Each tap is `sample_nearest(uv + duv)` with XLA's float uv and its in-screen test, weighted
 by plane distance, the 3x3 Gaussian, denoising range, normal angle, material and luminance.
+IN_DIFF_CONFIDENCE relaxes the diffuse lobe fraction and the luminance weight per pixel
+(`:1385-1391`). The specular signal (`specular` given) relaxes its luminance weight by the
+TA's reprojection confidence at strides <= 4 (`:1368-1373`) and by IN_SPEC_CONFIDENCE
+(`:1377-1384`), and after iteration 0 weights its taps by the specular normal weight (angle0
+/ f0 per pixel from roughness, history length and reprojection confidence) x the roughness
+weight, or by the simplified normal weight without roughness edge stopping (`:1513-1519`);
+iteration 0 keeps the diffuse normal weight, as XLA does (`use_variance_estimation`).
 
 Bound on the H100: gathers. Per pixel it reads the centre's signal, viewZ, packed normal and
 history length (40 B) and 8 taps of viewZ, packed normal and signal (8 x 36 B, `step` px

@@ -1,13 +1,18 @@
-"""RELAX PrePass, diffuse - kernel `csrc/relax_prepass.cu` (K15).
+"""RELAX PrePass - kernel `csrc/relax_prepass.cu` (K15).
 
-Replaces `nrdtpu/kernels/relax_pallas.py:751` (`relax_prepass_taps_pallas`). Computes the
-diffuse branch of `pre_pass` (`nrdtpu/passes/relax/kernels.py:160-306`) per pixel: the blur
+Replaces `nrdtpu/kernels/relax_pallas.py:751` (`relax_prepass_taps_pallas`). Computes
+`pre_pass` (`nrdtpu/passes/relax/kernels.py:160-306`) per pixel. The diffuse branch: the blur
 radius `diffusePrepassBlurRadius * hit_dist_factor` (at least 1 where hitT == 0, `:201-210`),
 8 rotated Poisson taps snapped to texel centres (`(floor(uv rect + off r) + 0.5) / rect`,
 `:238-241`), each weighted by in-screen, denoising range, material, normal angle, plane
 distance, hit distance and its Gaussian weight, then the radius-disabled select and the
 FP16_MAX clip (`:293-298`). The radius is each pixel's own: the TPU kernel's radius lattice
-(`relax_pallas.py:558-575`) and its 32-px cap (`:755-756`) are not carried over.
+(`relax_pallas.py:558-575`) and its 32-px cap (`:755-756`) are not carried over. The specular
+branch (`:176-199`, `:252-273`, `:286-289`) clamps the hit distance to the denoising range,
+takes the radius from the dominant direction, the hit-distance factor and the spec magic
+curve, capped by the lobe radius, weights each tap also by roughness, by the normal weight at
+half the lobe fraction with the pixel's roughness and by lerp(saturate(t), 1,
+linearstep(0.5, 1, roughness)), and writes the min hitT of the kept taps.
 
 Bound on the H100: gathers. Per pixel it reads the centre's signal, viewZ and packed normal
 (36 B) and 8 taps of the same (8 x 36 B, neighbours up to 30 px x the hit-distance factor

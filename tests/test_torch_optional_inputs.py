@@ -127,4 +127,5 @@ def test_optional_inputs_match_jax(case):
     denoiser, optional, settings = CASES[case]
     for i, frame in enumerate(run(denoiser, optional, settings)):
         for name, p in frame.items():
+            print(f"{case} frame {i} {name}: {p:.2f} dB against JAX")
             assert p >= PSNR_BAR_DB, f"{case} frame {i} {name}: {p:.2f} dB"

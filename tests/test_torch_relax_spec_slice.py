@@ -90,6 +90,7 @@ def test_output_matches_jax(runs, frame):
     r = frames[frame]
     assert r["torch"].shape == r["jax"].shape and np.isfinite(r["torch"]).all()
     p = psnr(r["torch"], r["jax"])
+    print(f"RELAX_SPECULAR {name} frame {frame}: {p:.2f} dB against JAX")
     assert p >= PSNR_BAR_DB, f"{name} frame {frame}: {p:.2f} dB"
 
 
