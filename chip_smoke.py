@@ -4,7 +4,9 @@
     python3 chip_smoke.py   # the REBLUR, SIGMA and RELAX paths of PATHS, 2560x1440
 
 Paths: REBLUR_DIFFUSE, REBLUR_SPECULAR, REBLUR_DIFFUSE_SPECULAR on the orbit scene;
-REBLUR_DIFFUSE_SPECULAR with hitDistanceReconstructionMode AREA_3X3 on the same frames with
+REBLUR_DIFFUSE_SPECULAR with NRDTPU_REBLUR_BAND=1 set for its engines only (HistoryFix, Blur and
+PostBlur in one band launch); REBLUR_DIFFUSE_SPECULAR with hitDistanceReconstructionMode
+AREA_3X3 on the same frames with
 holes punched into the hit distance (.w = 0 on a seeded 30 % of the geometry pixels, as a
 renderer that traces some pixels and not others sends them); SIGMA_SHADOW and
 SIGMA_SHADOW_TRANSLUCENCY with the penumbra packed from the scene's distance to the occluder;
@@ -25,7 +27,13 @@ Phases, each of which raises on failure (exit code != 0):
      RELAX_SPECULAR (every kernel of each, all five à-trous calls), both with
      `enableAntiFirefly=True` (relax_antifirefly timed, the rest held only), and both with
      AREA_3X3 on RELAX-packed punched frames (hitdist_recon on RELAX's constants, not
-     timed). Every kernel module must be called by one of the paths;
+     timed); then the band of REBLUR_DIFFUSE_SPECULAR+BAND, by default, with the anti-firefly
+     ring and in performance mode, each timed beside the three-launch chain it replaces (the
+     history fix, its clamp, the Blur and PostBlur parameters and two spatial-filter
+     launches, glue included) on the same inputs; then the halo launcher (its `box` body on 1
+     and 4 channels, halo 4, blocks 64x256 and 16x16, at the slice's size). Every kernel
+     module but `halo_call` must be called by one of the paths, and `halo_call`, which no
+     path calls (as in the JAX package), by the halo phase;
   3. slices: for each path a fresh `Engine(device="cuda")` runs 3 warm-up + 24 frames with
      the launch counts set to 0 just before and read just after; every output must be
      finite and every kernel of the path launched exactly its count a frame; each REBLUR
@@ -37,7 +45,8 @@ Phases, each of which raises on failure (exit code != 0):
   4. lit scene: both SIGMA variants on a scene without occluders at 256x160 keep every lit
      pixel above 0.99;
   5. card vs CPU: the same 4 frames at 256x160 on the card and on the CPU plain path must
-     agree to >= 50 dB PSNR, for every output of every path.
+     agree to >= 50 dB PSNR, for every output of every path, and of REFERENCE on a static
+     camera (plain torch ops on both, no kernel).
 
 With `--profile` it also traces 3 frames of each path (after 4 warm-up) with
 torch.profiler and prints the device time a frame, the device's idle share against the
@@ -51,7 +60,9 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -103,15 +114,24 @@ SOURCES = {
     "relax_vmb_resolve": ("nrdtpu_torch/kernels/csrc/relax_vmb_resolve.cu", f"{RP}:1219", None),
     "relax_antifirefly": ("nrdtpu_torch/kernels/csrc/relax_antifirefly.cu", f"{RP}:537", None),
     "bilinear_resolve": ("nrdtpu_torch/kernels/csrc/bilinear_resolve.cu", f"{P}:1813", None),
+    "reblur_band": ("nrdtpu_torch/kernels/csrc/reblur_band.cu",
+                    "nrdtpu/kernels/reblur_band.py:496", None),
+    "halo_call": ("nrdtpu_torch/kernels/csrc/halo.cu", "nrdtpu/kernels/halo.py:30", None),
 }
+# the kernels that no main path launches (as in the JAX package); a phase of their own
+# holds them
+NO_MAIN_PATH = ("halo_call",)
 DS_LAUNCHES = {"smb_resolve": 1, "spec_ta_head": 1, "nearest_multi": 1, "vmb_resolve": 1,
                "spatial_filter_fused": 3, "history_fix_fused": 1, "ts_prelude": 2}
+BAND_LAUNCHES = {"smb_resolve": 1, "spec_ta_head": 1, "nearest_multi": 1, "vmb_resolve": 1,
+                 "spatial_filter_fused": 1, "reblur_band": 1, "ts_prelude": 2}
 SIGMA_LAUNCHES = {"sigma_blur": 2, "sigma_ts": 1}
 RS_LAUNCHES = {"relax_prepass": 1, "relax_smb_resolve": 1, "relax_vmb_resolve": 1,
                "nearest_multi": 1, "bilinear_resolve": 1, "relax_history_fix": 1,
                "relax_clamp_moments": 1, "relax_atrous": 5}
 # per path: its denoiser, its signals (outputs), settings changed from the defaults, whether
-# its frames have hit-distance holes, and its launches per frame
+# its frames have hit-distance holes, the environment its engines run in, and its launches
+# per frame
 PATHS = {
     "REBLUR_DIFFUSE": dict(signals=("diff",), launches={
         "smb_resolve": 1, "spatial_filter": 3, "history_fix": 1, "ts_prelude": 1}),
@@ -119,6 +139,9 @@ PATHS = {
         "smb_resolve": 1, "spatial_filter": 3, "history_fix": 1, "ts_prelude": 1,
         "spec_ta_head": 1, "nearest_multi": 1, "vmb_resolve": 1}),
     "REBLUR_DIFFUSE_SPECULAR": dict(signals=("diff", "spec"), launches=DS_LAUNCHES),
+    "REBLUR_DIFFUSE_SPECULAR+BAND": dict(
+        denoiser="REBLUR_DIFFUSE_SPECULAR", signals=("diff", "spec"),
+        env={"NRDTPU_REBLUR_BAND": "1"}, launches=BAND_LAUNCHES),
     "REBLUR_DIFFUSE_SPECULAR+AREA_3X3": dict(
         denoiser="REBLUR_DIFFUSE_SPECULAR", signals=("diff", "spec"), holes=True,
         settings=dict(hitDistanceReconstructionMode="AREA_3X3"),
@@ -143,7 +166,7 @@ TRANSLUCENCY_RGB = (0.3, 0.6, 0.2)
 # the fixed part of each kernel, and the parts that depend on the call (taps, signals)
 SF_TAP_OPS, SF_PREPASS_TAP_OPS = 110, 40   # reblur_filters.cuh:sf_filter, one tap
 HF_TAP_OPS, HF_MOMENT_OPS, HF_RING_OPS = 100, 27, 216  # :hf_filter tap, 3x3, the 72-tap ring
-FIXED_OPS = {"smb_resolve": 450, "ts_prelude": 40, "spec_ta_head": 120, "vmb_resolve": 600,
+FIXED_OPS = {"reblur_band": 0, "smb_resolve": 450, "ts_prelude": 40, "spec_ta_head": 120, "vmb_resolve": 600,
              "nearest_multi": 0, "spatial_filter": 0, "spatial_filter_fused": 0,
              "history_fix": 0, "history_fix_fused": 0, "hitdist_recon": 40, "sigma_blur": 90,
              "sigma_ts": 150, "relax_prepass": 60, "relax_smb_resolve": 450,
@@ -165,6 +188,9 @@ RH_SPEC_TAP_OPS = 40                        # relax_history_fix.cu's specular ta
 RV_HISTORY_OPS = 160                        # relax_vmb_resolve.cu: CatRom of one history
 AF_SIGNAL_OPS = 8 * 12 + 10                 # relax_antifirefly.cu: 8 taps of one signal
 BR_SET_OPS = 30                             # bilinear_resolve.cu: one bilinear sample
+BAND_CLAMP_OPS, BAND_PARAM_OPS = 30, 90     # reblur_filters.cuh: hf_clamp, and the
+                                            # Blur/PostBlur parameters of one signal
+BAND_SCRATCH_BYTES_PER_PX = 128             # reblur_band.cu: sig2 and sig3 written and read
 
 
 def log(*a):
@@ -285,6 +311,22 @@ def engine(denoiser, w, h, device, **settings):
     return eng
 
 
+@contextlib.contextmanager
+def path_env(path):
+    """The environment a path's engines run in (the band's switch), set only while they do."""
+    env = PATHS.get(path, {}).get("env", {})
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def path_engine(path, w, h, device):
     return engine(PATHS[path].get("denoiser", path), w, h, device,
                   **PATHS[path].get("settings", {}))
@@ -331,7 +373,10 @@ def _ops(name, a, k):
     fixes count the taps only of the pixels whose stride is non-zero in this call."""
     from nrdtpu_torch.kernels import spatial_filter as sf
 
-    h, w = a[0].shape[:2]  # every kernel's first argument is a (h, w, ...) plane
+    if name == "halo_call":  # box: (2 halo + 1)^2 adds and a division a channel
+        body, images, out_channels, halo = a[:4]
+        return sum(t.numel() for t in images) * ((2 * halo + 1) ** 2 + 1)
+    h, w = a[0].shape[:2]  # every other kernel's first argument is a (h, w, ...) plane
     px = h * w
     ops = FIXED_OPS[name] * px
     ntaps = len(sf.tap_table(bool(k.get("perf_mode", False))))
@@ -346,10 +391,12 @@ def _ops(name, a, k):
         for params in per:
             extra = SF_PREPASS_TAP_OPS if sf.MODES[params.shape[0]] == "spec_prepass" else 0
             ops += (SF_TAP_OPS + extra) * ntaps * px
-    elif name in ("history_fix", "history_fix_fused"):
+    elif name in ("history_fix", "history_fix_fused", "reblur_band"):
         af = k.get("anti_firefly", False)
         per = ([(a[6], af)] if name == "history_fix"
                else [(a[9], af[0]), (a[10], af[1])])
+        if name == "reblur_band":  # the clamp, then the Blur and PostBlur of each signal
+            ops += 2 * (BAND_CLAMP_OPS + 2 * (BAND_PARAM_OPS + SF_TAP_OPS * ntaps)) * px
         for params, ring in per:
             live = int((params[0] != 0.0).sum())
             ops += HF_MOMENT_OPS * px + (HF_RING_OPS * px if ring else 0) + HF_TAP_OPS * 20 * live
@@ -389,10 +436,11 @@ def _ops(name, a, k):
     return ops
 
 
-def _bound(name, a, k, outputs):
+def _bound(name, a, k, outputs, extra_bytes=0):
     """(bound ms, "bytes" or "operations"): each input read once and each output written
-    once at the memory rate, against the operations at the float32 rate."""
-    nbytes = sum(t.nbytes for t in _tensors(a) + _tensors(k) + _tensors(outputs))
+    once (plus `extra_bytes`) at the memory rate, against the operations at the float32
+    rate."""
+    nbytes = sum(t.nbytes for t in _tensors(a) + _tensors(k) + _tensors(outputs)) + extra_bytes
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = _ops(name, a, k) / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -420,25 +468,35 @@ def _library(name, a, k):
 
 def record_calls(denoiser, pool, w, h, frames, **settings):
     """Every kernel call of the last of `frames` (their pools[pool]) through a fresh
-    Engine(device="cuda")."""
+    Engine(device="cuda") in the environment of the path `pool`, and the pass calls of the
+    band (`spatial_band`, name "pass spatial_band", with the geometry as it stood)."""
     from nrdtpu_torch import kernels as KM
+    from nrdtpu_torch.passes.reblur import kernels as RK
 
     eng = engine(denoiser, w, h, "cuda", **settings)
     calls = []
     originals = {name: getattr(m, name) for name, m in KM.MODULES.items()}
+    band_pass = RK.spatial_band
     try:
-        for i, (cs, pools, _) in enumerate(frames):
-            if i == len(frames) - 1:
-                for name, m in KM.MODULES.items():
-                    def rec(*a, _n=name, _f=originals[name], **k):
-                        calls.append((_n, a, k))
-                        return _f(*a, **k)
-                    setattr(m, name, rec)
-            eng.set_common_settings(cs)
-            eng.denoise([0], pools[pool])
+        with path_env(pool):
+            for i, (cs, pools, _) in enumerate(frames):
+                if i == len(frames) - 1:
+                    for name, m in KM.MODULES.items():
+                        def rec(*a, _n=name, _f=originals[name], **k):
+                            calls.append((_n, a, k))
+                            return _f(*a, **k)
+                        setattr(m, name, rec)
+
+                    def rec_pass(sc, dc, geom, *a, **k):
+                        calls.append(("pass spatial_band", (sc, dc, dict(geom)) + a, k))
+                        return band_pass(sc, dc, geom, *a, **k)
+                    RK.spatial_band = rec_pass
+                eng.set_common_settings(cs)
+                eng.denoise([0], pools[pool])
     finally:
         for name, m in KM.MODULES.items():
             setattr(m, name, originals[name])
+        RK.spatial_band = band_pass
     torch.cuda.synchronize()
     return calls
 
@@ -467,67 +525,126 @@ def kernel_runs():
                      {"relax_antifirefly"}))
         runs.append((f"{v} AREA_3X3", v, RELAX_HOLES[v],
                      dict(hitDistanceReconstructionMode="AREA_3X3"), {"hitdist_recon"}, False))
+    band = "REBLUR_DIFFUSE_SPECULAR+BAND"
+    for label, settings in (("", {}), (" anti-firefly", dict(enableAntiFirefly=True)),
+                            (" perf", dict(enablePerformanceMode=True))):
+        runs.append((band + label, "REBLUR_DIFFUSE_SPECULAR", band, settings, {"reblur_band"},
+                     {"reblur_band"}))
     return runs
+
+
+def _hold(results, name, lab, a, k, timed, extra_bytes=0):
+    """Hold one call of a kernel against its plain version on the same inputs and add it to
+    `results`; when `timed`, time both, with the call's bound and library time."""
+    from nrdtpu_torch import kernels as KM
+
+    m = KM.MODULES[name]
+    kern, ref = getattr(m, name), getattr(m, name + "_ref")
+    got = _outputs(kern(*a, **k))
+    want = _outputs(ref(*a, **k))
+    torch.cuda.synchronize()
+    r = results.setdefault(name, dict(max_abs_err=0.0, max_rel_err=0.0, over=0, count=0, ms={},
+                                      plain_ms={}, bound_ms={}, bound_by=set(), library_ms={},
+                                      ms_anti_firefly={}, outputs={}, scratch_bound_ms={}))
+    for key in want:
+        g, wv = got[key].float(), want[key].float()
+        d = (g - wv).abs()
+        over = int((d > ATOL + RTOL * wv.abs()).sum())
+        mx = float(d.max())
+        o = r["outputs"].setdefault(key, dict(max_abs_err=0.0, over=0, count=0))
+        o["max_abs_err"] = max(o["max_abs_err"], mx)
+        o["over"] += over
+        o["count"] += d.numel()
+        r["max_abs_err"] = max(r["max_abs_err"], mx)
+        rel = float((d / wv.abs().clamp_min(1e-6)).max())
+        r["max_rel_err"] = max(r["max_rel_err"], rel)
+        r["over"] += over
+        r["count"] += d.numel()
+    if not timed:
+        if name in ("history_fix", "history_fix_fused"):
+            r["ms_anti_firefly"].setdefault(lab, []).append(_time(lambda: kern(*a, **k), 20))
+        return
+    r["ms"].setdefault(lab, []).append(_time(lambda: kern(*a, **k), 20))
+    r["plain_ms"].setdefault(lab, []).append(_time(lambda: ref(*a, **k), 3))
+    b, by = _bound(name, a, k, got)
+    r["bound_ms"].setdefault(lab, []).append(b)
+    r["bound_by"].add(by)
+    if extra_bytes:
+        r["scratch_bound_ms"].setdefault(lab, []).append(_bound(name, a, k, got, extra_bytes)[0])
+    lib = _library(name, a, k)
+    if lib is not None:
+        r["library_ms"].setdefault(lab, []).append(_time(lib, 20))
+
+
+def band_chain(label, a, k):
+    """The band pass (`spatial_band`: its glue and one launch) and the three-launch chain it
+    replaces (`spatial_chain`: N5, the clamp, the parameters and N4 twice, glue included) on
+    the same inputs: their times, and how far apart their outputs are."""
+    from nrdtpu_torch.passes.reblur import kernels as RK
+
+    sc, dc, geom, *rest = a
+    runs = {fn.__name__: (lambda fn=fn: fn(sc, dc, dict(geom), *rest, **k))
+            for fn in (RK.spatial_band, RK.spatial_chain)}
+    (bd, bf), (bs, bsf) = runs["spatial_band"]()
+    (cd, cf), (cs, csf) = runs["spatial_chain"]()
+    torch.cuda.synchronize()
+    err = max(float((x - y).abs().max()) for x, y in ((bd, cd), (bf, cf), (bs, cs), (bsf, csf)))
+    res = {name: _time(fn, 20) for name, fn in runs.items()}
+    log(f"band {label}: spatial_band (glue + 1 launch) {res['spatial_band']:.4f} ms, "
+        f"spatial_chain (glue + 3 launches) {res['spatial_chain']:.4f} ms, max |band - chain| "
+        f"{err:.3g}")
+    return dict(pass_ms=res["spatial_band"], chain_ms=res["spatial_chain"], chain_max_abs=err)
+
+
+def halo_phase(w, h, results):
+    """The halo launcher at the slice's size: `box` on 1 and 4 channels, halo 4, blocks
+    64x256 and 16x16, each held against its plain version and timed."""
+    rng = np.random.default_rng(0)
+    for c in (1, 4):
+        img = torch.from_numpy(rng.random((h, w) + (() if c == 1 else (c,)),
+                                          dtype=np.float32)).cuda()
+        for block in ((64, 256), (16, 16)):
+            _hold(results, "halo_call", f"box {c} ch, block {block[0]}x{block[1]}",
+                  ("box", [img], [c], 4, block), {}, True)
 
 
 def kernel_phase(w, h, frames):
     """Record the kernel calls of one frame of each run of `kernel_runs` and hold each kernel
-    against its plain version on the same inputs. Times and bounds are of the timed runs;
-    the anti-firefly ring's calls of the history fixes are timed apart."""
+    against its plain version on the same inputs, then the halo launcher (`halo_phase`).
+    Times and bounds are of the timed runs; the anti-firefly ring's calls of the history
+    fixes are timed apart; the band is also timed against the chain it replaces."""
     from nrdtpu_torch import kernels as KM
 
-    results = {}
+    results, chain = {}, {}
     for label, denoiser, pool, settings, only, timed in kernel_runs():
         for name, a, k in record_calls(denoiser, pool, w, h, frames, **settings):
+            if name == "pass spatial_band":
+                chain[label] = band_chain(label, a, k)
+                continue
             if only is not None and name not in only:
                 continue
-            m = KM.MODULES[name]
-            kern = getattr(m, name)
-            ref = getattr(m, name + "_ref")
             # the à-trous ladder's calls are kept apart by stride
             lab = f"{label} step {k['step_size']}" if name == "relax_atrous" else label
-            got = _outputs(kern(*a, **k))
-            want = _outputs(ref(*a, **k))
-            torch.cuda.synchronize()
-            r = results.setdefault(name, dict(max_abs_err=0.0, max_rel_err=0.0, over=0,
-                                              count=0, ms={}, plain_ms={}, bound_ms={},
-                                              bound_by=set(), library_ms={},
-                                              ms_anti_firefly={}, outputs={}))
-            for key in want:
-                g, wv = got[key].float(), want[key].float()
-                d = (g - wv).abs()
-                over = int((d > ATOL + RTOL * wv.abs()).sum())
-                mx = float(d.max())
-                o = r["outputs"].setdefault(key, dict(max_abs_err=0.0, over=0, count=0))
-                o["max_abs_err"] = max(o["max_abs_err"], mx)
-                o["over"] += over
-                o["count"] += d.numel()
-                r["max_abs_err"] = max(r["max_abs_err"], mx)
-                rel = float((d / wv.abs().clamp_min(1e-6)).max())
-                r["max_rel_err"] = max(r["max_rel_err"], rel)
-                r["over"] += over
-                r["count"] += d.numel()
-            if timed is not True and not (timed and name in timed):
-                if name in ("history_fix", "history_fix_fused"):
-                    r["ms_anti_firefly"].setdefault(lab, []).append(
-                        _time(lambda: kern(*a, **k), 20))
-                continue
-            r["ms"].setdefault(lab, []).append(_time(lambda: kern(*a, **k), 20))
-            r["plain_ms"].setdefault(lab, []).append(_time(lambda: ref(*a, **k), 3))
-            b, by = _bound(name, a, k, got)
-            r["bound_ms"].setdefault(lab, []).append(b)
-            r["bound_by"].add(by)
-            lib = _library(name, a, k)
-            if lib is not None:
-                r["library_ms"].setdefault(lab, []).append(_time(lib, 20))
+            scratch = (BAND_SCRATCH_BYTES_PER_PX * a[0].shape[0] * a[0].shape[1]
+                       if name == "reblur_band" else 0)
+            _hold(results, name, lab, a, k, timed is True or bool(timed and name in timed),
+                  scratch)
+    missing = set(KM.MODULES) - set(results)
+    if missing != set(NO_MAIN_PATH):
+        raise AssertionError(f"kernels called by no main path: {sorted(missing)}; only "
+                             f"{list(NO_MAIN_PATH)} may be")
+    halo_phase(w, h, results)
     for name, r in results.items():
         frac = r["over"] / max(r["count"], 1)
         r["over_fraction"] = frac
-        for key in ("ms", "plain_ms", "bound_ms", "library_ms", "ms_anti_firefly"):
+        for key in ("ms", "plain_ms", "bound_ms", "library_ms", "ms_anti_firefly",
+                    "scratch_bound_ms"):
             r[key + "_by_path"] = {v: float(np.mean(t)) for v, t in r[key].items()}
             vals = [x for t in r[key].values() for x in t]
             r[key] = float(np.mean(vals)) if vals else None
         r["bound_by"] = "operations" if "operations" in r["bound_by"] else "bytes"
+        if name == "reblur_band":
+            r["chain_by_path"] = chain
         log(f"kernel {name}: max_abs_err {r['max_abs_err']:.3g} max_rel_err "
             f"{r['max_rel_err']:.3g} over-tolerance fraction {frac:.3g} | mean per launch "
             f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
@@ -537,15 +654,19 @@ def kernel_phase(w, h, frames):
             + (" | with the anti-firefly ring "
                + ", ".join(f"{v}: {t:.4f} ms" for v, t in r["ms_anti_firefly_by_path"].items())
                if r["ms_anti_firefly_by_path"] else "")
+            + (" | bound with the scratch round trips "
+               + ", ".join(f"{v}: {t:.4f} ms" for v, t in r["scratch_bound_ms_by_path"].items())
+               if r["scratch_bound_ms_by_path"] else "")
             + " | per output "
             + ", ".join(f"{k}: max_abs {v['max_abs_err']:.3g} over {v['over'] / v['count']:.3g}"
                         for k, v in r["outputs"].items()))
         if frac > FLIP_FRACTION:
             raise AssertionError(f"{name} disagrees with its plain version: {frac:.3g} of "
                                  f"values outside atol={ATOL}, rtol={RTOL}")
-    missing = set(KM.MODULES) - set(results)
-    if missing:
-        raise AssertionError(f"kernels called by no main path: {sorted(missing)}")
+    if not set(NO_MAIN_PATH) <= set(results):
+        raise AssertionError(f"the halo phase did not run {list(NO_MAIN_PATH)}")
+    if len(chain) != 3:
+        raise AssertionError(f"the band's pass ran in {sorted(chain)}, not in its three runs")
     return results
 
 
@@ -632,7 +753,8 @@ def slice_phase(path, w, h, frames, warmup):
         t0 = time.perf_counter()
         e0.record()
         eng.set_common_settings(cs)
-        outs = eng.denoise([0], pool)
+        with path_env(path):
+            outs = eng.denoise([0], pool)
         e1.record()
         torch.cuda.synchronize()
         host = (time.perf_counter() - t0) * 1e3
@@ -683,15 +805,16 @@ def profile_phase(path, w, h, frames, slice_ms, warmup=4, n=3):
     eng = path_engine(path, w, h, "cuda")
     pools = [(cs, {k: torch.from_numpy(v).cuda() for k, v in p[path].items()})
              for cs, p, _ in frames[:warmup + n]]
-    for cs, pool in pools[:warmup]:
-        eng.set_common_settings(cs)
-        eng.denoise([0], pool)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for cs, pool in pools[warmup:]:
+    with path_env(path):
+        for cs, pool in pools[:warmup]:
             eng.set_common_settings(cs)
             eng.denoise([0], pool)
         torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for cs, pool in pools[warmup:]:
+                eng.set_common_settings(cs)
+                eng.denoise([0], pool)
+            torch.cuda.synchronize()
 
     # device-side events only (kernels, copies): the aten ops that launch them carry the
     # same time as their "self device time" and would count it twice
@@ -732,7 +855,8 @@ def card_vs_cpu_phase(w=256, h=160, frames=4):
             outs = []
             for eng in (cuda, cpu):
                 eng.set_common_settings(cs)
-                outs.append(eng.denoise([0], pools[path]))
+                with path_env(path):
+                    outs.append(eng.denoise([0], pools[path]))
             for sig in v["signals"]:
                 p = psnr(outs[0][out_rt(sig)].cpu().numpy(), outs[1][out_rt(sig)].cpu().numpy())
                 worst[sig] = min(worst[sig], p)
@@ -740,6 +864,37 @@ def card_vs_cpu_phase(w=256, h=160, frames=4):
         for sig, p in worst.items():
             if p < 50.0:
                 raise AssertionError(f"{path} {sig}: card and CPU disagree: {p:.2f} dB < 50 dB")
+    reference_card_vs_cpu(w, h, len(frames))
+
+
+def reference_card_vs_cpu(w, h, n):
+    """REFERENCE (plain accumulation, no kernel) on a static camera, so that the history
+    builds up: the card's output against the CPU's, and the accumulation against the running
+    mean of its inputs."""
+    from nrdtpu_torch import settings as S
+    from nrdtpu_torch.engine import Engine
+    from nrdtpu_torch.settings import ResourceType as RT
+    from nrdtpu_torch.utils.scene import SceneGenerator, SceneSpec
+
+    gen = SceneGenerator(SceneSpec(size=(w, h), noise=0.5), camera_mode="static")
+    engs = [Engine({0: S.Denoiser.REFERENCE}, resource_size=(w, h), device=d)
+            for d in ("cuda", "cpu")]
+    signals = []
+    for i in range(n):
+        fd = gen.frame(i)
+        signals.append(np.concatenate([fd.diff_noisy, fd.diff_hit_dist[..., None]], -1))
+        outs = []
+        for eng in engs:
+            eng.set_common_settings(fd.common_settings)
+            outs.append(eng.denoise([0], {RT.IN_SIGNAL: signals[-1]})[RT.OUT_SIGNAL].cpu().numpy())
+        p = psnr(outs[0], outs[1])
+        log(f"card vs cpu REFERENCE frame {i}: {p:.2f} dB")
+        if p < 50.0:
+            raise AssertionError(f"REFERENCE: card and CPU disagree: {p:.2f} dB < 50 dB")
+    err = float(np.abs(outs[0] - np.mean(signals, axis=0)).max())
+    log(f"REFERENCE: max |output - running mean of {n} frames| {err:.3g}")
+    if not err < 1e-4:
+        raise AssertionError(f"REFERENCE does not accumulate the running mean: {err}")
 
 
 def main():
@@ -795,6 +950,10 @@ def main():
                  bound_ms_by_path=r["bound_ms_by_path"])
         if r["ms_anti_firefly_by_path"]:
             k["ms_anti_firefly_by_path"] = r["ms_anti_firefly_by_path"]
+        if r["scratch_bound_ms_by_path"]:
+            k["bound_ms_with_scratch_by_path"] = r["scratch_bound_ms_by_path"]
+        if "chain_by_path" in r:
+            k["band_vs_chain_by_path"] = r["chain_by_path"]
         if also:
             k["also_replaces"] = also
         kernels.append(k)

@@ -48,6 +48,10 @@ class DenoiserConfig:
 
 
 def _denoiser_class(d: Denoiser):
+    if d == Denoiser.REFERENCE:
+        from .passes.reference import ReferenceDenoiser
+
+        return ReferenceDenoiser
     if d.name.startswith("REBLUR"):
         from .passes.reblur.denoiser import ReblurDenoiser
 

@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels (sm_90a) of the REBLUR_DIFFUSE, REBLUR_SPECULAR,
-REBLUR_DIFFUSE_SPECULAR, SIGMA_SHADOW, SIGMA_SHADOW_TRANSLUCENCY, RELAX_DIFFUSE and
-RELAX_SPECULAR paths, one module each.
+REBLUR_DIFFUSE_SPECULAR (also under NRDTPU_REBLUR_BAND=1), SIGMA_SHADOW,
+SIGMA_SHADOW_TRANSLUCENCY, RELAX_DIFFUSE and RELAX_SPECULAR paths, one module each, and the
+halo-window launcher, which no path calls (as in the JAX package).
 
 Every module holds the kernel's wrapper, its plain PyTorch version (`*_ref`) and a launch
 count (`launches`). The wrapper takes the plain version for CPU tensors and launches the
@@ -32,13 +33,15 @@ kernel that `nrdtpu/kernels/__init__.py` selects for the same pass under NRDTPU_
   relax_vmb_resolve   <- nrdtpu/kernels/relax_pallas.py:1219 relax_vmb_resolve (K17)
   relax_antifirefly   <- nrdtpu/kernels/relax_pallas.py:537 relax_antifirefly_pallas (K21)
   bilinear_resolve    <- nrdtpu/kernels/reblur_pallas.py:1813 bilinear_resolve
+  reblur_band         <- nrdtpu/kernels/reblur_band.py:496 reblur_spatial_band (K23)
+  halo_call           <- nrdtpu/kernels/halo.py:30 halo_call (K24)
 """
 
-from . import (bilinear_resolve, history_fix, history_fix_fused, hitdist_recon, nearest_multi,
-               relax_antifirefly, relax_atrous, relax_clamp_moments, relax_history_fix,
-               relax_prepass, relax_smb_resolve, relax_vmb_resolve, sigma_blur, sigma_ts,
-               smb_resolve, spatial_filter, spatial_filter_fused, spec_ta_head, ts_prelude,
-               vmb_resolve)
+from . import (bilinear_resolve, halo, history_fix, history_fix_fused, hitdist_recon,
+               nearest_multi, reblur_band, relax_antifirefly, relax_atrous, relax_clamp_moments,
+               relax_history_fix, relax_prepass, relax_smb_resolve, relax_vmb_resolve,
+               sigma_blur, sigma_ts, smb_resolve, spatial_filter, spatial_filter_fused,
+               spec_ta_head, ts_prelude, vmb_resolve)
 
 MODULES = {
     "smb_resolve": smb_resolve,
@@ -61,6 +64,8 @@ MODULES = {
     "relax_vmb_resolve": relax_vmb_resolve,
     "relax_antifirefly": relax_antifirefly,
     "bilinear_resolve": bilinear_resolve,
+    "reblur_band": reblur_band,
+    "halo_call": halo,
 }
 
 

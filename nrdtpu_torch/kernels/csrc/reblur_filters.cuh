@@ -286,4 +286,160 @@ __device__ __forceinline__ void hf_filter(const HfFrame& f, const Centre& c, con
   for (int q = 0; q < 4; ++q) out[q] = acc[q] * inv;
 }
 
+// ---------------------------------------------------------------------------------------
+// REBLUR parameter math (nrdtpu_torch/math.py) and the per-pixel parameters of the band
+// kernel's stages (nrdtpu_torch/passes/reblur/params.py), line by line in float32. A
+// decimal constant of the torch code is a Python double that meets a float32 tensor rounded
+// to float32: it is written (float)<double> here, and a host difference such as 1.0 - 0.01
+// is taken in double before that rounding, as Python takes it.
+// ---------------------------------------------------------------------------------------
+
+// the JAX package's atan: odd minimax polynomial with range reduction (math.py:atan_approx)
+__device__ __forceinline__ float atan_approx(float x) {
+  const float ax = fabsf(x);
+  const bool hi = ax > 1.0f;
+  const float a = hi ? 1.0f / fmaxf(ax, (float)1e-30) : ax;
+  const float s = a * a;
+  const float p =
+      a * ((float)0.99988660 +
+           s * ((float)-0.33029950 +
+                s * ((float)0.18014100 + s * ((float)-0.08513300 + s * (float)0.02083510))));
+  const float r = hi ? (float)(3.141592653589793 / 2.0) - p : p;
+  return x < 0.0f ? -r : r;
+}
+
+// GetSpecMagicCurve, power 0.25 (math.py:get_spec_magic_curve)
+__device__ __forceinline__ float spec_magic_curve(float roughness) {
+  const float f = 1.0f - exp2f(-200.0f * roughness * roughness);
+  return f * sqrtf(sqrtf(saturate(roughness)));
+}
+
+// GetNormalWeightParam (math.py:get_normal_weight_param): percent of volume
+// 0.75 lerp(laf, 1, nlas), then 1 / max(atan(tan half angle), encoding error)
+__device__ __forceinline__ float normal_weight_param(float nlas, float laf, float one_minus_laf,
+                                                     float roughness, float enc_err) {
+  const float p = 0.75f * (laf + one_minus_laf * nlas);
+  const float m = roughness * roughness;
+  const float tan_half = m * sqrtf(p / fmaxf(1.0f - p, (float)1e-6));
+  return 1.0f / fmaxf(atan_approx(tan_half), enc_err);
+}
+
+// GetHitDistanceWeightParams (math.py:get_hit_distance_weight_params), smc the magic curve
+// of the roughness
+__device__ __forceinline__ void hit_distance_weight_params(float hit_dist, float nlas,
+                                                           float smc, float* a, float* b) {
+  const float norm = (float)0.0005 + (float)(1.0 - 0.0005) * fminf(nlas, smc);
+  *a = 1.0f / norm;
+  *b = -(hit_dist * *a);
+}
+
+// GetRoughnessWeightParams (math.py:get_roughness_weight_params), sensitivity 0.01
+__device__ __forceinline__ void roughness_weight_params(float roughness, float fraction,
+                                                        float* a, float* b) {
+  *a = 1.0f / ((float)0.01 + (float)(1.0 - 0.01) * saturate(roughness * fraction));
+  *b = -(roughness * *a);
+}
+
+// the history fix's clamp (params.py:history_fix_clamp) of one signal, in place: the
+// fast-history mix, the anti-firefly clamp to the ring's moments (ring), the clamp to the
+// 3x3 moments, ChangeLuma. smc: the specular magic curve (spec only).
+struct HfClampConsts {
+  float frame_div, fast_enabled;  // historyFixFrameNum + NRD_EPS; 1 if the fast history is on
+};
+
+__device__ __forceinline__ void hf_clamp(const HfClampConsts& k, float sig[4], float frame_num,
+                                         float fast, float m1, float m2, bool ring, float am1,
+                                         float am2, bool spec, float smc, float* fast_out) {
+  float f = saturate(frame_num / k.frame_div);
+  if (spec) f = 1.0f + (f - 1.0f) * smc;
+  float luma = sig[0];
+  *fast_out = luma + (fast - luma) * f;
+  const float sigma = sqrtf(fabsf(m2 - m1 * m1)) * 2.0f;
+  if (ring) {
+    const float asig = sqrtf(fabsf(am2 - am1 * am1)) * 2.0f;
+    luma = fminf(fmaxf(luma, am1 - asig), am1 + asig);
+  }
+  const float clamped = fminf(fmaxf(luma, m1 - sigma), m1 + sigma);
+  luma = clamped + (luma - clamped) * (1.0f / (1.0f + k.fast_enabled * frame_num * 2.0f));
+  const float scale = (luma + (float)1e-6) / (sig[0] + (float)1e-6);
+#pragma unroll
+  for (int q = 0; q < 3; ++q) sig[q] = sig[q] * scale;
+}
+
+// The Blur / PostBlur parameters of one signal (params.py:diff_spatial_params,
+// spec_spatial_params outside the PrePass), written in the order of SfParam.
+struct StageConsts {
+  float fraction_scale, radius_scale;
+  float mhdw_scale;  // minHitDistanceWeight * fraction scale
+  float rf_scaled;   // saturate(roughnessFraction * fraction scale)
+  float rot[4];
+};
+
+struct BlurConsts {
+  float fade_a, fade_ba;  // GetFadeBasedOnAccumulatedFrames: (a, b - a)
+  float max_blur_radius, min_blur_radius;
+  float laf, one_minus_laf, enc_err;
+  float rect_inv_w, rect_inv_h;
+};
+
+// the non-linear accumulation speed of the blur radius; boost scaled by smc (specular) or 1
+__device__ __forceinline__ float blur_nlas(const BlurConsts& k, float data1, float nov,
+                                           bool spec, float smc) {
+  float boost = 1.0f - saturate((data1 - k.fade_a) / k.fade_ba);
+  boost = boost * (1.0f - powf(saturate(1.0f - nov), 5.0f));
+  if (spec) boost = boost * smc;
+  return 1.0f / (1.0f + (1.0f - boost) * data1);
+}
+
+// diffuse: hit_dist the signal's normalized hit distance; hds, fsz the hit-distance scale
+// and the frustum size; nvx, nvy the view-space normal (screen-space skew)
+__device__ __forceinline__ void diff_blur_params(const BlurConsts& k, const StageConsts& s,
+                                                 float hit_dist, float data1, float hds,
+                                                 float fsz, float nov, float nvx, float nvy,
+                                                 float prm[kSfDiffParams]) {
+  const float hit_dist_factor = saturate(hit_dist * hds / fsz);
+  const float nlas = blur_nlas(k, data1, nov, false, 0.0f);
+  float blur_radius = k.max_blur_radius * sqrtf(saturate(hit_dist_factor * nlas));
+  blur_radius = blur_radius * s.radius_scale;
+  blur_radius = fmaxf(blur_radius, k.min_blur_radius);
+  const float mhdw = s.mhdw_scale * sqrtf(nlas);
+  const float ax = 1.0f - fabsf(nvx), ay = 1.0f - fabsf(nvy);
+  float skew_x = ax + (1.0f - ax) * nov;
+  float skew_y = ay + (1.0f - ay) * nov;
+  const float skew_max = fmaxf(skew_x, skew_y);
+  skew_x = skew_x / skew_max * k.rect_inv_w * blur_radius;
+  skew_y = skew_y / skew_max * k.rect_inv_h * blur_radius;
+  prm[SF_ROT0] = s.rot[0] * skew_x;
+  prm[SF_ROT1] = s.rot[1] * skew_y;
+  prm[SF_ROT2] = s.rot[2] * skew_x;
+  prm[SF_ROT3] = s.rot[3] * skew_y;
+  prm[SF_NWP] = normal_weight_param(nlas, k.laf, k.one_minus_laf, 1.0f, k.enc_err) /
+                s.fraction_scale;
+  hit_distance_weight_params(hit_dist, nlas, spec_magic_curve(1.0f), &prm[SF_HA], &prm[SF_HB]);
+  prm[SF_MHDW] = mhdw;
+}
+
+// specular: as diffuse, with the roughness, its magic curve and the roughness weight; no
+// skew
+__device__ __forceinline__ void spec_blur_params(const BlurConsts& k, const StageConsts& s,
+                                                 float hit_dist, float data1, float hds,
+                                                 float fsz, float nov, float roughness,
+                                                 float smc, float prm[kSfSpecParams]) {
+  const float hit_dist_factor = saturate(hit_dist * hds / fsz);
+  const float nlas = blur_nlas(k, data1, nov, true, smc);
+  float blur_radius = k.max_blur_radius * sqrtf(saturate(roughness * hit_dist_factor * nlas));
+  blur_radius = blur_radius * s.radius_scale;
+  blur_radius = fmaxf(blur_radius, k.min_blur_radius * smc);
+  const float skew_x = k.rect_inv_w * blur_radius, skew_y = k.rect_inv_h * blur_radius;
+  prm[SF_ROT0] = s.rot[0] * skew_x;
+  prm[SF_ROT1] = s.rot[1] * skew_y;
+  prm[SF_ROT2] = s.rot[2] * skew_x;
+  prm[SF_ROT3] = s.rot[3] * skew_y;
+  prm[SF_NWP] = normal_weight_param(nlas, k.laf, k.one_minus_laf, roughness, k.enc_err) /
+                s.fraction_scale;
+  hit_distance_weight_params(hit_dist, nlas, smc, &prm[SF_HA], &prm[SF_HB]);
+  prm[SF_MHDW] = s.mhdw_scale * smc * sqrtf(nlas);
+  roughness_weight_params(roughness, s.rf_scaled, &prm[SF_WR_A], &prm[SF_WR_B]);
+}
+
 }  // namespace nrd

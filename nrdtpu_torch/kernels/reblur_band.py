@@ -1,0 +1,168 @@
+"""REBLUR HistoryFix + Blur + PostBlur of both signals in one launch - kernel
+`csrc/reblur_band.cu` (K23).
+
+Replaces `nrdtpu/kernels/reblur_band.py:496` (`reblur_spatial_band`, whose `pl.pallas_call` is
+at :614), which REBLUR_DIFFUSE_SPECULAR runs once a frame under NRDTPU_REBLUR_BAND=1 in place
+of the three-launch chain (`nrdtpu/passes/reblur/denoiser.py:403-428`). It computes what the
+port's chain computes for both radiance signals (`passes/reblur/kernels.py:spatial_chain`):
+
+  A. the history fix: N5's per-pixel body (`history_fix_fused`: the 20 stride taps, the 3x3
+     fast-history moments, the anti-firefly ring where a signal's flag is set), then the clamp
+     (`passes/reblur/params.py:history_fix_clamp`) in the kernel; it writes sig2 and fast2;
+  B. Blur: the BLUR planes of each signal (`params.diff_spatial_params` /
+     `spec_spatial_params`: the rotator, the diffuse screen-space skew, the radius, the
+     normal, hit-distance and roughness weights) from sig2's hit distance and the
+     accumulation speed, then N4's tap loop (`spatial_filter_fused`); it writes sig3;
+  C. PostBlur: the same with the POST_BLUR constants on sig3; it writes sig4.
+
+One thread per pixel in 16x16 tiles. Each phase reads the previous one's output at its taps,
+so the three phases are one cooperative launch of a persistent grid (occupancy x SM count
+CTAs, each walking the tiles) with a grid-wide barrier between phases; sig2 and sig3 live in
+float32 scratch that the wrapper allocates. A cooperative launch the card cannot hold raises,
+as every launch error does: there is no fallback to three launches.
+
+The plain version `reblur_band_ref` is that chain on torch tensors: N5's plain version, the
+clamp, the parameters and N4's plain version twice, so on the CPU the band and the chain give
+identical results.
+
+Not carried over from the TPU kernel: the bf16 band windows and buffers
+(`reblur_band.py:537-553`, `:595-597`), the zeroed stride and radius of sky pixels (`:128`,
+`:182`), the 40-row bands, 8-row chunks and column splits (`:48-56`, `:520-528`), the two-band
+delay of fast2 (`:491-493`), the performance-mode ring radius of 3 (`:517`), and the SH and
+occlusion modes, which the port does not run yet.
+
+Bound on the H100: per pixel at 2560x1440 it reads the two TA signals (32 B), their
+accumulation speeds and fast histories (16 B), viewZ and the packed normal (20 B), 14 shared
+planes (56 B) and 5 + 9 history-fix planes (56 B), and writes both PostBlur signals and fast
+histories (40 B): 220 B/px of compulsory traffic. The scratch round trips of sig2 and sig3
+add 128 B/px. The taps (20 + 8 + 8 a signal) hit L1/L2.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import vec3 as v3
+from ..passes.reblur import common as C
+from ..passes.reblur import params as P
+from . import build
+from . import history_fix as hf
+from . import history_fix_fused as hff
+from . import spatial_filter as sf
+from . import spatial_filter_fused as sff
+
+launches = 0
+
+# the per-pixel planes of the frame's geometry, in order: the history fix's shared planes,
+# then what the Blur and PostBlur parameters read
+PLANES = hf.SHARED + ("nov", "roughness", "smc", "hd_scale_diff", "hd_scale_spec")
+STAGES = (P.BLUR, P.POST_BLUR)
+
+
+def _geometry(planes, view_z_in, view_z_scale, enc_err):
+    """The `make_filter_geometry` entries that the clamp and the parameters read."""
+    p = dict(zip(PLANES, planes))
+    return dict(view_z=torch.abs(view_z_in) * view_z_scale, frustum_size=p["frustum_size"],
+                nov=p["nov"], roughness=p["roughness"], smc=p["smc"],
+                hd_scale_diff=p["hd_scale_diff"], hd_scale_spec=p["hd_scale_spec"],
+                nv3=v3.V3(p["nvx"], p["nvy"], p["nvz"]), enc_err=enc_err)
+
+
+def reblur_band_ref(diff, spec, view_z_in, normal_roughness, diff_data1, spec_data1, diff_fast,
+                    spec_fast, planes, diff_params, spec_params, *, frustum, rect_size,
+                    rect_size_inv, view_z_scale, ortho_mode, diff_min_material,
+                    spec_min_material, rotator, rotator_post, enc_err, dc, perf_mode,
+                    anti_firefly=(False, False)):
+    """Plain version: N5's plain version, the clamp, and for Blur and PostBlur the parameters
+    and N4's plain version."""
+    p = dict(zip(PLANES, planes))
+    res = hff.history_fix_fused_ref(
+        diff, spec, view_z_in, normal_roughness, diff_data1, spec_data1, diff_fast, spec_fast,
+        planes[:len(hf.SHARED)], diff_params, spec_params, frustum=frustum,
+        rect_size_inv=rect_size_inv, view_z_scale=view_z_scale, ortho_mode=ortho_mode,
+        diff_min_material=diff_min_material, spec_min_material=spec_min_material,
+        anti_firefly=anti_firefly)
+    geom = _geometry(planes, view_z_in, view_z_scale, enc_err)
+    sig, out = {}, {}
+    for name, data1, fast, af in (("diff", diff_data1, diff_fast, anti_firefly[0]),
+                                  ("spec", spec_data1, spec_fast, anti_firefly[1])):
+        ring = (res[f"{name}_am1"], res[f"{name}_am2"]) if af else None
+        sig[name], out[f"{name}_fast"] = P.history_fix_clamp(
+            dc, geom, data1, res[name], fast, res[f"{name}_m1"], res[f"{name}_m2"], ring,
+            name == "diff")
+    sc = dict(rect_size_inv=rect_size_inv, rotator=rotator, rotator_post=rotator_post)
+    shared = torch.stack([p[k] for k in sf.SHARED])
+    for mode in STAGES:
+        sig = sff.spatial_filter_fused_ref(
+            sig["diff"], sig["spec"], view_z_in, normal_roughness, shared,
+            P.diff_spatial_params(sc, dc, mode, geom, sig["diff"], diff_data1),
+            P.spec_spatial_params(sc, dc, mode, geom, sig["spec"], spec_data1),
+            frustum=frustum, rect_size=rect_size, view_z_scale=view_z_scale,
+            ortho_mode=ortho_mode, diff_min_material=diff_min_material,
+            spec_min_material=spec_min_material, perf_mode=perf_mode)
+    out.update(diff=sig["diff"], spec=sig["spec"])
+    return out
+
+
+def band_consts(dc, *, rotator, rotator_post, enc_err):
+    """The host constants of the clamp and of the Blur / PostBlur parameters, each the float32
+    value that the plain version's torch ops see."""
+    fade_a, fade_ba = C.fade_bounds(dc)
+    laf = float(dc["lobe_angle_fraction"])
+    consts = [P.history_fix_frame_div(dc), P.fast_history_enabled(dc), fade_a, fade_ba,
+              float(dc["max_blur_radius"]), float(dc["min_blur_radius"]), laf, 1.0 - laf,
+              enc_err, *P._v(rotator), *P._v(rotator_post)]
+    for mode in STAGES:
+        fraction_scale, radius_scale = P.STAGE_SCALES[mode]
+        consts += [fraction_scale, radius_scale, P.min_hit_dist_weight_scale(dc, fraction_scale),
+                   P.roughness_fraction_scaled(dc, fraction_scale)]
+    return consts
+
+
+def reblur_band(diff, spec, view_z_in, normal_roughness, diff_data1, spec_data1, diff_fast,
+                spec_fast, planes, diff_params, spec_params, *, frustum, rect_size,
+                rect_size_inv, view_z_scale, ortho_mode, diff_min_material, spec_min_material,
+                rotator, rotator_post, enc_err, dc, perf_mode, anti_firefly=(False, False)):
+    """diff, spec (h, w, 4): the TA outputs; *_data1, *_fast (h, w); planes (14, h, w) named by
+    PLANES; diff_params (5, h, w) named by history_fix.PARAMS, spec_params (9, h, w) by PARAMS
+    + SPEC_PARAMS; rotator, rotator_post: the Blur and PostBlur rotators; dc: the REBLUR frame
+    constants; anti_firefly: (diffuse, specular) ring flags. Returns dict(diff, spec,
+    diff_fast, spec_fast): the PostBlur signals and the history fix's fast histories."""
+    global launches
+    kw = dict(frustum=frustum, rect_size=rect_size, rect_size_inv=rect_size_inv,
+              view_z_scale=view_z_scale, ortho_mode=ortho_mode,
+              diff_min_material=diff_min_material, spec_min_material=spec_min_material,
+              rotator=rotator, rotator_post=rotator_post, enc_err=enc_err, dc=dc,
+              perf_mode=perf_mode, anti_firefly=tuple(anti_firefly))
+    if planes.shape[0] != len(PLANES):
+        raise ValueError(f"planes: {planes.shape[0]} planes, expected {len(PLANES)}")
+    if (diff_params.shape[0] != len(hf.PARAMS)
+            or spec_params.shape[0] != len(hf.PARAMS + hf.SPEC_PARAMS)):
+        raise ValueError("diff_params takes the diffuse planes, spec_params the specular ones")
+    dev = build.kernel_device(diff)
+    if dev is None:
+        return reblur_band_ref(diff, spec, view_z_in, normal_roughness, diff_data1, spec_data1,
+                               diff_fast, spec_fast, planes, diff_params, spec_params, **kw)
+    h, w = view_z_in.shape
+    f32 = torch.float32
+    ins = [("diff", diff, (h, w, 4)), ("spec", spec, (h, w, 4)), ("diff_data1", diff_data1, (h, w)),
+           ("spec_data1", spec_data1, (h, w)), ("diff_fast", diff_fast, (h, w)),
+           ("spec_fast", spec_fast, (h, w)),
+           ("diff_params", diff_params, (diff_params.shape[0], h, w)),
+           ("spec_params", spec_params, (spec_params.shape[0], h, w)),
+           ("view_z_in", view_z_in, (h, w)), ("normal_roughness", normal_roughness, (h, w, 4)),
+           ("planes", planes, (len(PLANES), h, w))]
+    for name, t, shape in ins:
+        build.check(name, t, dev, f32, shape)
+    taps = sf.device_taps(perf_mode, dev)
+    out = torch.empty((2, h, w, 4), dtype=f32, device=dev)
+    fast = torch.empty((2, h, w), dtype=f32, device=dev)
+    scratch = torch.empty((2, 2, h, w, 4), dtype=f32, device=dev)  # sig2, sig3
+    consts = [*frustum, rect_size[0], rect_size[1], rect_size_inv[0], rect_size_inv[1],
+              view_z_scale, ortho_mode, diff_min_material, spec_min_material,
+              *map(bool, anti_firefly), taps.shape[0],
+              *band_consts(dc, rotator=rotator, rotator_post=rotator_post, enc_err=enc_err)]
+    build.launch("nrd_reblur_band", [t for _, t, _ in ins] + [taps, scratch, fast, out], consts,
+                 w, h)
+    launches += 1
+    return dict(diff=out[0], spec=out[1], diff_fast=fast[0], spec_fast=fast[1])

@@ -73,12 +73,18 @@ def get_min_allowed_limit_for_hit_dist_non_linear_accum_speed(dc, roughness):
     return 1.0 / (1.0 + frame_num)
 
 
-def get_fade_based_on_accumulated_frames(dc, accum_speed):
-    """REBLUR_Common.hlsli:104-110 (the bounds evaluated in float32, as on the device)."""
+def fade_bounds(dc):
+    """(a, b - a) of GetFadeBasedOnAccumulatedFrames, evaluated in float32 as on the device."""
     n = f32(dc["history_fix_frame_num"])
     a = n * f32(2.0) / f32(3.0) + f32(1e-6)
     b = n * f32(4.0) / f32(3.0) + f32(2e-6)
-    return nm.saturate((accum_speed - float(a)) / float(b - a))
+    return float(a), float(b - a)
+
+
+def get_fade_based_on_accumulated_frames(dc, accum_speed):
+    """REBLUR_Common.hlsli:104-110."""
+    a, ba = fade_bounds(dc)
+    return nm.saturate((accum_speed - a) / ba)
 
 
 def get_non_linear_accum_speed(accum_speed, max_accum_speed, confidence):

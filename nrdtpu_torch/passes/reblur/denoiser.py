@@ -6,7 +6,9 @@ checkerboard, `:225-237`), PrePass, TemporalAccumulation, HistoryFix, Blur, Post
 TemporalStabilization, with or without the anti-firefly ring of HistoryFix. With both signals
 the spatial stages and HistoryFix run one fused launch for the two (`fused_spatial_filter`,
 `fused_history_fix`) on the card and on the CPU alike, and TA samples both histories in one
-launch; the reconstruction refills both signals in one launch. Every other variant, and the
+launch; the reconstruction refills both signals in one launch. With NRDTPU_REBLUR_BAND=1 (the
+JAX package's switch, off by default) HistoryFix, Blur and PostBlur of both signals run as one
+band launch (`spatial_band`). Every other variant, and the
 settings path not ported yet (checkerboard), raise NotImplementedError; ROADMAP.md lists them.
 
 State (the permanent pool; histories in bf16, the RGBA16f-history analogue):
@@ -16,6 +18,8 @@ State (the permanent pool; histories in bf16, the RGBA16f-history analogue):
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -207,19 +211,17 @@ class ReblurDenoiser:
         material_id = sm["material_id"]
         del sm  # its full-resolution planes are dead after TA: free them for the later passes
 
-        # HISTORY FIX, BLUR, POST BLUR
+        # HISTORY FIX, BLUR, POST BLUR: with both signals, in one band launch under
+        # NRDTPU_REBLUR_BAND=1 (`denoiser.py:403-428`), else three launches
         sig4, fast2 = {}, {}
         if fused:
-            (sig2_d, fast2["diff"]), (sig2_s, fast2["spec"]) = K.fused_history_fix(
+            band = os.environ.get("NRDTPU_REBLUR_BAND", "0") == "1"
+            (sig4["diff"], fast2["diff"]), (sig4["spec"], fast2["spec"]) = (
+                K.spatial_band if band else K.spatial_chain)(
                 sc, dc, geom, view_z, normal_roughness,
                 (sig1["diff"], data1["diff"], fast1["diff"]),
                 (sig1["spec"], data1["spec"], fast1["spec"]),
-                anti_firefly=(anti_firefly["diff"], anti_firefly["spec"]))
-            kw = dict(data1_diff=data1["diff"], data1_spec=data1["spec"], perf_mode=perf)
-            sig3_d, sig3_s, _ = K.fused_spatial_filter(sc, dc, K.BLUR, geom, view_z,
-                                                       normal_roughness, sig2_d, sig2_s, **kw)
-            sig4["diff"], sig4["spec"], _ = K.fused_spatial_filter(
-                sc, dc, K.POST_BLUR, geom, view_z, normal_roughness, sig3_d, sig3_s, **kw)
+                anti_firefly=(anti_firefly["diff"], anti_firefly["spec"]), perf_mode=perf)
         else:
             (sig,) = self.signals
             spec_path = sig == "spec"

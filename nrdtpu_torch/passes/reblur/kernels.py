@@ -14,6 +14,8 @@ Each pass is elementwise torch glue around hand-written kernels of `nrdtpu_torch
   history_fix                     -> history_fix     (stride taps + 3x3 fast-history moments
                                                       + the anti-firefly ring)
   fused_history_fix               -> history_fix_fused (the same, both signals at once)
+  spatial_band                    -> reblur_band     (history fix, its clamp, Blur and PostBlur
+                                                      of both signals, one launch)
   temporal_stabilization,
   temporal_stabilization_specular -> ts_prelude      (3x3 luma moments + history sampling)
   hit_dist_reconstruction         -> hitdist_recon   (3x3 / 5x5 refill of hitT == 0)
@@ -36,6 +38,7 @@ from ...kernels import history_fix as k_history_fix
 from ...kernels import history_fix_fused as k_history_fix_fused
 from ...kernels import hitdist_recon as k_hitdist_recon
 from ...kernels import nearest_multi as k_nearest_multi
+from ...kernels import reblur_band as k_reblur_band
 from ...kernels import smb_resolve as k_smb_resolve
 from ...kernels import spatial_filter as k_spatial_filter
 from ...kernels import spatial_filter_fused as k_spatial_filter_fused
@@ -44,14 +47,8 @@ from ...kernels import ts_prelude as k_ts_prelude
 from ...kernels import vmb_resolve as k_vmb_resolve
 from ...ops import resample, tiles
 from . import common as C
-
-PRE_BLUR = 0
-BLUR = 1
-POST_BLUR = 2
-
-
-def _v(x):
-    return [float(c) for c in np.asarray(x, np.float32).reshape(-1)]
+from .params import (BLUR, POST_BLUR, PRE_BLUR, _v, diff_spatial_params, history_fix_clamp,
+                     spec_spatial_params)
 
 
 # ---------------------------------------------------------------------------
@@ -695,28 +692,6 @@ def _hfix_consts(sc):
                 view_z_scale=float(sc["view_z_scale"]), ortho_mode=float(sc["ortho_mode"]))
 
 
-def _history_fix_clamp(dc, geom, frame_num, signal_out, fast_history, m1, m2, ring, is_diffuse):
-    """The fast-history adjustments after the taps (lines 169-244; `kernels.py:685-732`): the
-    anti-firefly clamp to the ring's moments where `ring` = (m1, m2) is given, then the clamp
-    to the 3x3 moments. Returns (signal_out, fast_out)."""
-    f = nm.saturate(frame_num / float(np.float32(dc["history_fix_frame_num"])
-                                      + np.float32(NRD_EPS)))
-    if not is_diffuse:
-        f = nm.lerp(1.0, f, geom["smc"])
-    luma = C.get_luma(signal_out)
-    fast_out = nm.lerp(luma, fast_history, f)
-    sigma = nm.get_std_dev(m1, m2) * C.color_clamping_sigma_scale(False)
-    if ring is not None:
-        am1, am2 = ring
-        asig = nm.get_std_dev(am1, am2) * C.REBLUR_ANTI_FIREFLY_SIGMA_SCALE
-        luma = torch.clamp(luma, am1 - asig, am1 + asig)
-    luma_clamped = torch.clamp(luma, m1 - sigma, m1 + sigma)
-    fast_enabled = 1.0 if (float(dc["max_fast_accumulated_frame_num"])
-                           < float(dc["max_accumulated_frame_num"])) else 0.0
-    luma = nm.lerp(luma_clamped, luma, 1.0 / (1.0 + fast_enabled * frame_num * 2.0))
-    return C.change_luma(signal_out, luma), fast_out
-
-
 def history_fix(sc, dc, view_z_in, normal_roughness, data1, signal, fast_history, config, *,
                 is_diffuse: bool = True, anti_firefly: bool = False):
     """Sparse 5x5-no-corners history reconstruction + fast-history color clamping, with the
@@ -731,8 +706,8 @@ def history_fix(sc, dc, view_z_in, normal_roughness, data1, signal, fast_history
         signal, view_z_in, normal_roughness, data1, fast_history, _hfix_shared(geom),
         _hfix_params(dc, geom, signal, data1, is_diffuse), min_material=float(min_material),
         anti_firefly=anti_firefly, **_hfix_consts(sc))
-    return _history_fix_clamp(dc, geom, data1, res[0], fast_history, res[1], res[2],
-                              res[3:] if anti_firefly else None, is_diffuse)
+    return history_fix_clamp(dc, geom, data1, res[0], fast_history, res[1], res[2],
+                             res[3:] if anti_firefly else None, is_diffuse)
 
 
 def fused_history_fix(sc, dc, geom, view_z_in, normal_roughness, diff, spec, *,
@@ -752,8 +727,8 @@ def fused_history_fix(sc, dc, geom, view_z_in, normal_roughness, diff, spec, *,
     for name, (signal, data1, fast), af in (("diff", diff, anti_firefly[0]),
                                             ("spec", spec, anti_firefly[1])):
         ring = (res[f"{name}_am1"], res[f"{name}_am2"]) if af else None
-        out.append(_history_fix_clamp(dc, geom, data1, res[name], fast, res[f"{name}_m1"],
-                                      res[f"{name}_m2"], ring, name == "diff"))
+        out.append(history_fix_clamp(dc, geom, data1, res[name], fast, res[f"{name}_m1"],
+                                     res[f"{name}_m2"], ring, name == "diff"))
     return tuple(out)
 
 
@@ -766,122 +741,6 @@ def fused_history_fix(sc, dc, geom, view_z_in, normal_roughness, diff, spec, *,
 def _sf_shared(geom):
     return _shared_planes(geom, "sf_shared", lambda g: [
         g["ga"], g["gb"], g["n3"].x, g["n3"].y, g["n3"].z, g["nv3"].x, g["nv3"].y, g["nv3"].z])
-
-
-def _scaled_rotator(rotator, skew_x, skew_y):
-    """The 4 planes of ScaleRotator(rotator, skew): x terms by skew_x, y terms by skew_y."""
-    r = _v(rotator)
-    return [r[0] * skew_x, r[1] * skew_y, r[2] * skew_x, r[3] * skew_y]
-
-
-def _diff_spatial_params(sc, dc, mode, geom, signal, data1):
-    """The diffuse planes of PrePass, Blur or PostBlur (`diffuse_pre_pass`,
-    `kernels.py:2104-2120`; `diffuse_spatial_filter`, `:763-843`; the fused
-    `_fused_diff_params`, `:1819-1854`), in the order of `kernels.spatial_filter.PARAMS`.
-    Blur and PostBlur sample in screen space: the radius is skewed by the view-space normal
-    (REBLUR_USE_SCREEN_SPACE_SAMPLING_FOR_DIFFUSE == 1)."""
-    view_z = geom["view_z"]
-    ones = torch.ones_like(view_z)
-    hit_dist = C.extract_hit_dist(signal) * geom["hd_scale_diff"]
-    hit_dist_factor = nm.get_hit_dist_factor(hit_dist, geom["frustum_size"])
-    rinv = _v(sc["rect_size_inv"])
-    if mode == PRE_BLUR:
-        rotator = sc["rotator_pre"]
-        nlas = torch.full_like(view_z, C.REBLUR_PRE_BLUR_NON_LINEAR_ACCUM_SPEED)
-        fraction_scale = C.REBLUR_PRE_BLUR_FRACTION_SCALE
-        blur_radius = float(dc["diff_prepass_blur_radius"]) * torch.sqrt(
-            nm.saturate(hit_dist_factor))
-        blur_radius = torch.clamp_min(blur_radius, float(dc["min_blur_radius"]))
-        min_hit_dist_weight = torch.full_like(
-            view_z, float(np.float32(dc["min_hit_distance_weight"]) * np.float32(fraction_scale)))
-        skew_x, skew_y = rinv[0] * blur_radius, rinv[1] * blur_radius
-    else:
-        rotator = sc["rotator"] if mode == BLUR else sc["rotator_post"]
-        fraction_scale = (C.REBLUR_BLUR_FRACTION_SCALE if mode == BLUR
-                          else C.REBLUR_POST_BLUR_FRACTION_SCALE)
-        radius_scale = 1.0 if mode == BLUR else C.REBLUR_POST_BLUR_RADIUS_SCALE
-        nov = geom["nov"]
-        boost = 1.0 - C.get_fade_based_on_accumulated_frames(dc, data1)
-        boost = boost * (1.0 - torch.pow(nm.saturate(1.0 - nov), 5.0))
-        nlas = 1.0 / (1.0 + C.REBLUR_SAMPLES_PER_FRAME * (1.0 - boost) * data1)
-        blur_radius = float(dc["max_blur_radius"]) * torch.sqrt(
-            nm.saturate(hit_dist_factor * nlas))
-        blur_radius = blur_radius * radius_scale
-        blur_radius = torch.clamp_min(blur_radius, float(dc["min_blur_radius"]))
-        min_hit_dist_weight = float(np.float32(dc["min_hit_distance_weight"])
-                                    * np.float32(fraction_scale)) * torch.sqrt(nlas)
-        nv3 = geom["nv3"]
-        skew_x = nm.lerp(1.0 - torch.abs(nv3.x), 1.0, nov)
-        skew_y = nm.lerp(1.0 - torch.abs(nv3.y), 1.0, nov)
-        skew_max = torch.maximum(skew_x, skew_y)
-        skew_x = skew_x / skew_max * rinv[0] * blur_radius
-        skew_y = skew_y / skew_max * rinv[1] * blur_radius
-    normal_weight_param = nm.get_normal_weight_param(
-        nlas, float(dc["lobe_angle_fraction"]), ones, geom["enc_err"]) / fraction_scale
-    ha, hb = nm.get_hit_distance_weight_params(C.extract_hit_dist(signal), nlas, ones)
-    return torch.stack(_scaled_rotator(rotator, skew_x, skew_y)
-                       + [normal_weight_param, ha, hb, min_hit_dist_weight])
-
-
-def _spec_spatial_params(sc, dc, mode, geom, spec, data1):
-    """The specular planes of PrePass, Blur or PostBlur (`specular_spatial_filter`,
-    `kernels.py:1592-1656`; the fused `_fused_spec_params`, `:1857-1912`), in the order of
-    `kernels.spatial_filter.PARAMS + SPEC_PARAMS` (+ PREPASS_PARAMS in the PrePass, whose
-    radius is bound by the specular lobe, REBLUR_PrePass.hlsli:71-80)."""
-    prepass = mode == PRE_BLUR
-    view_z, roughness, smc = geom["view_z"], geom["roughness"], geom["smc"]
-    nv3, nov = geom["nv3"], geom["nov"]
-    rotator, fraction_scale, radius_scale = {
-        PRE_BLUR: (sc["rotator_pre"], C.REBLUR_PRE_BLUR_FRACTION_SCALE, 1.0),
-        BLUR: (sc["rotator"], C.REBLUR_BLUR_FRACTION_SCALE, 1.0),
-        POST_BLUR: (sc["rotator_post"], C.REBLUR_POST_BLUR_FRACTION_SCALE,
-                    C.REBLUR_POST_BLUR_RADIUS_SCALE)}[mode]
-
-    hit_dist = C.extract_hit_dist(spec) * geom["hd_scale_spec"]
-    hit_dist_factor = nm.get_hit_dist_factor(hit_dist, geom["frustum_size"])
-    if prepass:
-        blur_radius = float(dc["spec_prepass_blur_radius"])
-        area_factor = roughness * hit_dist_factor
-        nlas = torch.full_like(view_z, C.REBLUR_PRE_BLUR_NON_LINEAR_ACCUM_SPEED)
-    else:
-        boost = 1.0 - C.get_fade_based_on_accumulated_frames(dc, data1)
-        boost = boost * (1.0 - torch.pow(nm.saturate(1.0 - nov), 5.0))
-        boost = boost * smc
-        nlas = 1.0 / (1.0 + C.REBLUR_SAMPLES_PER_FRAME * (1.0 - boost) * data1)
-        blur_radius = float(dc["max_blur_radius"])
-        area_factor = roughness * hit_dist_factor * nlas
-    blur_radius = blur_radius * torch.sqrt(nm.saturate(area_factor))
-    if prepass:
-        dv3, dvf = v3.get_specular_dominant_direction(nv3, geom["vv3"], roughness,
-                                                      nm.get_specular_dominant_factor)
-        nod = torch.abs(v3.dot(nv3, dv3))
-        lobe_tan = nm.get_specular_lobe_tan_half_angle(
-            roughness, C.REBLUR_MAX_PERCENT_OF_LOBE_VOLUME_FOR_PRE_PASS)
-        lobe_radius = hit_dist * nod * lobe_tan
-        min_blur_radius = lobe_radius / nm.pixel_radius_to_world(
-            float(sc["unproject"]), float(sc["ortho_mode"]), 1.0, view_z + hit_dist * dvf)
-        blur_radius = torch.minimum(blur_radius, min_blur_radius)
-    blur_radius = blur_radius * radius_scale
-    blur_radius = torch.maximum(blur_radius, float(dc["min_blur_radius"]) * smc)
-
-    rf_scaled = float(np.clip(np.float32(dc["roughness_fraction"]) * np.float32(fraction_scale),
-                              0.0, 1.0))
-    normal_weight_param = nm.get_normal_weight_param(
-        nlas, float(dc["lobe_angle_fraction"]), roughness, geom["enc_err"]) / fraction_scale
-    wr_a, wr_b = nm.get_roughness_weight_params(roughness, rf_scaled)
-    ha, hb = nm.get_hit_distance_weight_params(C.extract_hit_dist(spec), nlas, roughness)
-    min_hit_dist_weight = float(np.float32(dc["min_hit_distance_weight"])
-                                * np.float32(fraction_scale)) * smc
-    if not prepass:
-        min_hit_dist_weight = min_hit_dist_weight * torch.sqrt(nlas)
-
-    rinv = _v(sc["rect_size_inv"])
-    planes = _scaled_rotator(rotator, rinv[0] * blur_radius, rinv[1] * blur_radius) + [
-        normal_weight_param, ha, hb, min_hit_dist_weight, wr_a, wr_b]
-    if prepass:
-        xv3 = geom["xv3"]
-        planes += [hit_dist, roughness, xv3.x, xv3.y, xv3.z]
-    return torch.stack(planes)
 
 
 def _sf_consts(sc):
@@ -908,7 +767,7 @@ def diffuse_spatial_filter(sc, dc, mode, signal, view_z_in, normal_roughness, da
     geom = make_filter_geometry(sc, dc, view_z_in, normal_roughness, config, ("diff",))
     return k_spatial_filter.spatial_filter(
         signal, view_z_in, normal_roughness, _sf_shared(geom),
-        _diff_spatial_params(sc, dc, mode, geom, signal, data1),
+        diff_spatial_params(sc, dc, mode, geom, signal, data1),
         min_material=float(dc["diff_min_material"]), perf_mode=perf_mode, **_sf_consts(sc))
 
 
@@ -931,7 +790,7 @@ def specular_spatial_filter(sc, dc, mode, spec, view_z_in, normal_roughness, dat
     geom = make_filter_geometry(sc, dc, view_z_in, normal_roughness, config, ("spec",))
     res = k_spatial_filter.spatial_filter(
         spec, view_z_in, normal_roughness, _sf_shared(geom),
-        _spec_spatial_params(sc, dc, mode, geom, spec, data1),
+        spec_spatial_params(sc, dc, mode, geom, spec, data1),
         min_material=float(dc["spec_min_material"]), perf_mode=perf_mode,
         prepass=_prepass_consts(sc, dc) if prepass else None, **_sf_consts(sc))
     return res if prepass else (res, None)
@@ -947,8 +806,8 @@ def fused_spatial_filter(sc, dc, mode, geom, view_z_in, normal_roughness, diff, 
     prepass = mode == PRE_BLUR
     res = k_spatial_filter_fused.spatial_filter_fused(
         diff, spec, view_z_in, normal_roughness, _sf_shared(geom),
-        _diff_spatial_params(sc, dc, mode, geom, diff, data1_diff),
-        _spec_spatial_params(sc, dc, mode, geom, spec, data1_spec),
+        diff_spatial_params(sc, dc, mode, geom, diff, data1_diff),
+        spec_spatial_params(sc, dc, mode, geom, spec, data1_spec),
         diff_min_material=float(dc["diff_min_material"]),
         spec_min_material=float(dc["spec_min_material"]), perf_mode=perf_mode,
         prepass=_prepass_consts(sc, dc) if prepass else None, **_sf_consts(sc))
@@ -958,6 +817,44 @@ def fused_spatial_filter(sc, dc, mode, geom, view_z_in, normal_roughness, diff, 
     if prepass and float(dc["spec_prepass_blur_radius"]) == 0.0:
         spec_out, hdt = spec, _prepass_off_hit_dist(spec)
     return diff_out, spec_out, hdt
+
+
+def spatial_chain(sc, dc, geom, view_z_in, normal_roughness, diff, spec, *, anti_firefly,
+                  perf_mode):
+    """HistoryFix, Blur and PostBlur of both signals as three launches with the glue between
+    them (`fused_history_fix`, then `fused_spatial_filter` in BLUR and POST_BLUR mode). diff,
+    spec: (TA output, data1, fast history); anti_firefly: the (diffuse, specular) flags.
+    Returns ((diff4, diff_fast2), (spec4, spec_fast2))."""
+    (d2, d_fast), (s2, s_fast) = fused_history_fix(sc, dc, geom, view_z_in, normal_roughness,
+                                                   diff, spec, anti_firefly=anti_firefly)
+    kw = dict(data1_diff=diff[1], data1_spec=spec[1], perf_mode=perf_mode)
+    d3, s3, _ = fused_spatial_filter(sc, dc, BLUR, geom, view_z_in, normal_roughness, d2, s2,
+                                     **kw)
+    d4, s4, _ = fused_spatial_filter(sc, dc, POST_BLUR, geom, view_z_in, normal_roughness, d3,
+                                     s3, **kw)
+    return (d4, d_fast), (s4, s_fast)
+
+
+def _band_planes(geom):
+    return _shared_planes(geom, "band_planes", lambda g: list(_hfix_shared(g)) + [
+        g["nov"], g["roughness"], g["smc"], g["hd_scale_diff"], g["hd_scale_spec"]])
+
+
+def spatial_band(sc, dc, geom, view_z_in, normal_roughness, diff, spec, *, anti_firefly,
+                 perf_mode):
+    """What `spatial_chain` computes, in one `reblur_band` launch: the history fix, its clamp
+    and both spatial stages with their parameters computed in the kernel (the band pipeline,
+    `nrdtpu/passes/reblur/denoiser.py:403-428`). Only the history fix's parameter planes are
+    computed here, from the TA outputs. Same arguments and result as `spatial_chain`."""
+    res = k_reblur_band.reblur_band(
+        diff[0], spec[0], view_z_in, normal_roughness, diff[1], spec[1], diff[2], spec[2],
+        _band_planes(geom), _hfix_params(dc, geom, diff[0], diff[1], True),
+        _hfix_params(dc, geom, spec[0], spec[1], False),
+        rect_size=_v(sc["rect_size"]), diff_min_material=float(dc["diff_min_material"]),
+        spec_min_material=float(dc["spec_min_material"]), rotator=sc["rotator"],
+        rotator_post=sc["rotator_post"], enc_err=geom["enc_err"], dc=dc, perf_mode=perf_mode,
+        anti_firefly=anti_firefly, **_hfix_consts(sc))
+    return (res["diff"], res["diff_fast"]), (res["spec"], res["spec_fast"])
 
 
 # ---------------------------------------------------------------------------

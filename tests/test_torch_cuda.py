@@ -3,11 +3,13 @@
 Each kernel runs on the inputs the main paths give it (frame 4 of the orbit scene at 128x96:
 REBLUR_DIFFUSE, REBLUR_SPECULAR and REBLUR_DIFFUSE_SPECULAR, each with and without the
 anti-firefly ring and with AREA_3X3 hit-distance reconstruction on inputs with hit-distance
-holes; SIGMA_SHADOW and SIGMA_SHADOW_TRANSLUCENCY; RELAX_DIFFUSE and RELAX_SPECULAR, each also with
-the anti-firefly pass and with AREA_3X3: their kernels, the à-trous at iteration 0 and at the
-jittered strides) and is held against its
-plain PyTorch version on the same card; the Engine on the card is held against the Engine on
-the CPU, for every path and output. Run on a machine with an H100:
+holes; REBLUR_DIFFUSE_SPECULAR under NRDTPU_REBLUR_BAND=1, by default, with the anti-firefly ring
+and in performance mode; SIGMA_SHADOW and SIGMA_SHADOW_TRANSLUCENCY; RELAX_DIFFUSE and
+RELAX_SPECULAR, each also with the anti-firefly pass and with AREA_3X3: their kernels, the
+à-trous at iteration 0 and at the jittered strides; the halo launcher's `box` body on 1 and 4
+channels at two blocks) and is held against its plain PyTorch version on the same card; the
+Engine on the card is held against the Engine on the CPU, for every path and output. Run on a
+machine with an H100:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 
@@ -47,6 +49,8 @@ VARIANTS = (Denoiser.REBLUR_DIFFUSE, Denoiser.REBLUR_SPECULAR, Denoiser.REBLUR_D
 SIGMA = (Denoiser.SIGMA_SHADOW, Denoiser.SIGMA_SHADOW_TRANSLUCENCY)
 RELAX = (Denoiser.RELAX_DIFFUSE, Denoiser.RELAX_SPECULAR)
 AREA_3X3 = dict(hitDistanceReconstructionMode=HitDistanceReconstructionMode.AREA_3X3)
+# the band's switch, set only while its engines run
+BAND = ("NRDTPU_REBLUR_BAND", "1")
 
 
 def _pools(denoiser, n, holes=False):
@@ -102,33 +106,47 @@ def _engine(denoiser, device, anti_firefly=False, **settings):
     return eng
 
 
-# (denoiser, anti-firefly ring, settings, inputs with hit-distance holes) of every path
-PATHS = ([(d, af, {}, False) for d in VARIANTS for af in (False, True)]
-         + [(d, False, AREA_3X3, True) for d in VARIANTS] + [(d, False, {}, False) for d in SIGMA]
-         + [(d, af, s, h) for d in RELAX
-            for af, s, h in ((False, {}, False), (True, {}, False), (False, AREA_3X3, True))])
+# (denoiser, anti-firefly ring, settings, inputs with hit-distance holes, band) of every path
+PATHS = ([(d, af, {}, False, False) for d in VARIANTS for af in (False, True)]
+         + [(d, False, AREA_3X3, True, False) for d in VARIANTS]
+         + [(d, False, {}, False, False) for d in SIGMA]
+         + [(d, af, s, h, False) for d in RELAX
+            for af, s, h in ((False, {}, False), (True, {}, False), (False, AREA_3X3, True))]
+         + [(Denoiser.REBLUR_DIFFUSE_SPECULAR, af, s, False, True)
+            for af, s in ((False, {}), (True, {}), (False, dict(enablePerformanceMode=True)))])
 
 
 @pytest.fixture(scope="module")
 def recorded(cuda):
     calls = []
     originals = {n: getattr(m, n) for n, m in KM.MODULES.items()}
-    for denoiser, anti_firefly, settings, holes in PATHS:
+    for denoiser, anti_firefly, settings, holes, band in PATHS:
         eng = _engine(denoiser, cuda, anti_firefly, **settings)
         pools = list(_pools(denoiser, 4, holes))
         try:
-            for i, (cs, pool) in enumerate(pools):
-                if i == len(pools) - 1:
-                    for n, m in KM.MODULES.items():
-                        def rec(*a, _n=n, _f=originals[n], **k):
-                            calls.append((_n, a, k))
-                            return _f(*a, **k)
-                        setattr(m, n, rec)
-                eng.set_common_settings(cs)
-                eng.denoise([0], pool)
+            with pytest.MonkeyPatch.context() as mp:
+                if band:
+                    mp.setenv(*BAND)
+                for i, (cs, pool) in enumerate(pools):
+                    if i == len(pools) - 1:
+                        for n, m in KM.MODULES.items():
+                            def rec(*a, _n=n, _f=originals[n], **k):
+                                calls.append((_n, a, k))
+                                return _f(*a, **k)
+                            setattr(m, n, rec)
+                    eng.set_common_settings(cs)
+                    eng.denoise([0], pool)
         finally:
             for n, m in KM.MODULES.items():
                 setattr(m, n, originals[n])
+    # the halo launcher, which no path calls: `box` on 1 and 4 channels, at a block that
+    # divides the image and at one that does not
+    rng = np.random.default_rng(3)
+    for c in (1, 4):
+        img = torch.from_numpy(rng.random((SIZE[1], SIZE[0]) + (() if c == 1 else (c,)),
+                                          dtype=np.float32)).to(cuda)
+        for block in ((64, 256), (16, 24)):
+            calls.append(("halo_call", ("box", [img], [c], 4, block), {}))
     return calls
 
 
@@ -166,6 +184,26 @@ def test_engine_card_matches_cpu(cuda, denoiser, anti_firefly):
             eng.set_common_settings(cs)
             outs.append(eng.denoise([0], pool))
         for rt in _outs(denoiser):
+            a, b = outs[0][rt].cpu().double(), outs[1][rt].cpu().double()
+            mse = float(((a - b) ** 2).mean())
+            peak = float(b.abs().max())
+            assert mse == 0.0 or 10.0 * np.log10(peak * peak / mse) >= 50.0, rt
+
+
+@pytest.mark.parametrize("anti_firefly,settings", [(False, {}), (True, {}),
+                                                   (False, dict(enablePerformanceMode=True))],
+                         ids=["default", "anti_firefly", "perf"])
+def test_engine_card_matches_cpu_band(cuda, anti_firefly, settings, monkeypatch):
+    """REBLUR_DIFFUSE_SPECULAR under NRDTPU_REBLUR_BAND=1: the band kernel on the card."""
+    monkeypatch.setenv(*BAND)
+    card = _engine(Denoiser.REBLUR_DIFFUSE_SPECULAR, cuda, anti_firefly, **settings)
+    cpu = _engine(Denoiser.REBLUR_DIFFUSE_SPECULAR, "cpu", anti_firefly, **settings)
+    for cs, pool in _pools(Denoiser.REBLUR_DIFFUSE_SPECULAR, 4):
+        outs = []
+        for eng in (card, cpu):
+            eng.set_common_settings(cs)
+            outs.append(eng.denoise([0], pool))
+        for rt in _outs(Denoiser.REBLUR_DIFFUSE_SPECULAR):
             a, b = outs[0][rt].cpu().double(), outs[1][rt].cpu().double()
             mse = float(((a - b) ** 2).mean())
             peak = float(b.abs().max())

@@ -2,6 +2,10 @@
 and the PyTorch port's Engine on the CPU (fused stages, two-signal TA), 6 frames of the
 orbit scene at 128x96.
 
+The port also runs the band (NRDTPU_REBLUR_BAND=1, set only while its engine runs: HistoryFix,
+Blur and PostBlur in one `reblur_band` launch) on the same frames, held against the same JAX
+frames; JAX runs its default path once for both.
+
 Bars, as for the one-signal slices: OUT_DIFF_RADIANCE_HITDIST and OUT_SPEC_RADIANCE_HITDIST
 each >= 60 dB PSNR against JAX on every frame (the passes agree to ~1e-6 relative each;
 across frames the bf16 history re-quantization can round a value the other way, which the
@@ -13,6 +17,8 @@ setting changed from frame 2 on.
 import numpy as np
 import pytest
 import torch
+
+from nrdtpu_torch import kernels as KM
 
 import jax.numpy as jnp
 
@@ -56,13 +62,40 @@ def _pool(gen, fd):
                 jfe.reblur_pack_radiance_hitdist(jnp.asarray(fd.spec_noisy), sn))}
 
 
-def run(denoiser, size, n_frames, settings=None, from_frame=0):
+# the band's kernel and the kernels it replaces, counted a frame on the band path
+BAND_WRAPPERS = ("reblur_band", "spatial_filter_fused", "history_fix_fused")
+
+
+def _run_band(engine, pool, counts):
+    """One frame of the port's band engine: NRDTPU_REBLUR_BAND=1 only while it runs, with the
+    wrappers of BAND_WRAPPERS counting their calls (on the CPU `launches` stays 0)."""
+    originals = {n: getattr(KM.MODULES[n], n) for n in BAND_WRAPPERS}
+    counts.append(dict.fromkeys(BAND_WRAPPERS, 0))
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("NRDTPU_REBLUR_BAND", "1")
+            for n in BAND_WRAPPERS:
+                def rec(*a, _n=n, **k):
+                    counts[-1][_n] += 1
+                    return originals[_n](*a, **k)
+                mp.setattr(KM.MODULES[n], n, rec)
+            return engine.denoise([0], pool)
+    finally:
+        for n in BAND_WRAPPERS:
+            setattr(KM.MODULES[n], n, originals[n])
+
+
+def run(denoiser, size, n_frames, settings=None, from_frame=0, band=False):
     """n_frames of the orbit scene through both Engines; from frame `from_frame` on, the
-    ReblurSettings fields in `settings` are changed on both. Returns per frame the outputs
-    of both, by signal, and both states."""
+    ReblurSettings fields in `settings` are changed on both. With `band`, a second port
+    Engine runs the same frames with NRDTPU_REBLUR_BAND=1. Returns per frame the outputs
+    of both (and of the band: "torch_band", with its wrapper calls "band_calls"), by signal,
+    and both states."""
     gen = SceneGenerator(SceneSpec(size=size, noise=0.4), camera_mode="orbit")
     je = JEngine({0: JDenoiser[denoiser]}, resource_size=size)
     te = TEngine({0: Denoiser[denoiser]}, resource_size=size, device="cpu")
+    tb = TEngine({0: Denoiser[denoiser]}, resource_size=size, device="cpu") if band else None
+    band_calls = []
     signals = [sig for sig, name in (("diff", "DIFFUSE"), ("spec", "SPECULAR"))
                if name in denoiser]
     frames = []
@@ -82,12 +115,18 @@ def run(denoiser, size, n_frames, settings=None, from_frame=0):
             torch={sig: interop.tensor_to_numpy(to[RT(int(OUTPUTS[sig]))]) for sig in signals},
             jstate={k: np.asarray(v) for k, v in je.get_state(0).items()},
             tstate=dict(te.get_state(0))))
+        if band:
+            tb.set_common_settings(fd.common_settings)
+            bo = _run_band(tb, {RT(int(k)): v for k, v in pool.items()}, band_calls)
+            frames[-1].update(
+                torch_band={sig: interop.tensor_to_numpy(bo[RT(int(OUTPUTS[sig]))])
+                            for sig in signals}, band_calls=band_calls[-1])
     return frames
 
 
 @pytest.fixture(scope="module")
 def runs():
-    return run("REBLUR_DIFFUSE_SPECULAR", SIZE, FRAMES)
+    return run("REBLUR_DIFFUSE_SPECULAR", SIZE, FRAMES, band=True)
 
 
 @pytest.mark.parametrize("frame", range(FRAMES))
@@ -98,6 +137,25 @@ def test_output_matches_jax(runs, frame, signal):
     assert got.shape == want.shape and np.isfinite(got).all()
     p = psnr(got, want)
     assert p >= PSNR_BAR_DB, f"frame {frame} {signal}: {p:.2f} dB"
+
+
+@pytest.mark.parametrize("frame", range(FRAMES))
+@pytest.mark.parametrize("signal", ["diff", "spec"])
+def test_band_output_matches_jax(runs, frame, signal):
+    """The port's band path against the same JAX frames (JAX's default three-stage path)."""
+    r = runs[frame]
+    got, want = r["torch_band"][signal], r["jax"][signal]
+    assert got.shape == want.shape and np.isfinite(got).all()
+    p = psnr(got, want)
+    assert p >= PSNR_BAR_DB, f"band frame {frame} {signal}: {p:.2f} dB"
+
+
+def test_band_launches_one_kernel_a_frame(runs):
+    """A band frame calls reblur_band once and spatial_filter_fused once (the PrePass), and
+    history_fix_fused never."""
+    for r in runs:
+        assert r["band_calls"] == {"reblur_band": 1, "spatial_filter_fused": 1,
+                                   "history_fix_fused": 0}
 
 
 def test_accum_speed_matches(runs):

@@ -19,8 +19,10 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _ONE_FRAME = """
+import os
 import sys
 import numpy as np
+import torch
 from nrdtpu_torch.engine import Engine
 from nrdtpu_torch.settings import Denoiser, HitDistanceReconstructionMode, ResourceType as RT
 from nrdtpu_torch.settings import replace
@@ -46,6 +48,15 @@ for d in (Denoiser.REBLUR_DIFFUSE, Denoiser.REBLUR_SPECULAR, Denoiser.REBLUR_DIF
     for out in outs.values():
         c = 1 if d == Denoiser.SIGMA_SHADOW else 4
         assert out.shape == (48, 64, c) and bool(out.isfinite().all())
+os.environ["NRDTPU_REBLUR_BAND"] = "1"
+eng = Engine({0: Denoiser.REBLUR_DIFFUSE_SPECULAR}, resource_size=(64, 48), device="cpu")
+eng.set_common_settings(fd.common_settings)
+assert all(bool(o.isfinite().all()) for o in eng.denoise([0], pool).values())
+eng = Engine({0: Denoiser.REFERENCE}, resource_size=(64, 48), device="cpu")
+eng.set_common_settings(fd.common_settings)
+assert eng.denoise([0], {RT.IN_SIGNAL: sig})[RT.OUT_SIGNAL].shape == (48, 64, 4)
+from nrdtpu_torch.kernels import halo
+assert halo.halo_call("box", [torch.from_numpy(sig)], [4], 2)[0].shape == (48, 64, 4)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.") or m == "nrdtpu"
              or m.startswith("nrdtpu."))
 print("IMPORTED", bad)
@@ -70,9 +81,10 @@ def test_port_imports_no_jax_and_no_nrdtpu():
 def recorded_calls():
     """The kernel calls of two CPU frames of each main path, recorded at the wrappers; the
     second frame of REBLUR_DIFFUSE_SPECULAR with the anti-firefly ring, one frame of it with
-    AREA_3X3 hit-distance reconstruction on a signal with holes, two frames of RELAX_DIFFUSE
-    and of RELAX_SPECULAR (its second frame with the anti-firefly pass) and two frames of
-    each SIGMA variant."""
+    AREA_3X3 hit-distance reconstruction on a signal with holes, two frames of it under
+    NRDTPU_REBLUR_BAND=1 (the band), two frames of RELAX_DIFFUSE and of RELAX_SPECULAR (its
+    second frame with the anti-firefly pass), two frames of each SIGMA variant, and two calls
+    of the halo launcher, which no path calls."""
     from nrdtpu_torch import frontend as fe
     from nrdtpu_torch.engine import Engine
     from nrdtpu_torch.settings import Denoiser, HitDistanceReconstructionMode, replace
@@ -88,6 +100,21 @@ def recorded_calls():
                 calls.append((_n, a, k))
                 return _f(*a, **k)
             setattr(m, n, rec)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("NRDTPU_REBLUR_BAND", "1")
+            eng = Engine({0: Denoiser.REBLUR_DIFFUSE_SPECULAR}, resource_size=(48, 32),
+                         device="cpu")
+            for i in range(2):
+                fd = gen.frame(i)
+                eng.set_common_settings(fd.common_settings)
+                sig = np.concatenate([fd.diff_noisy, np.full((32, 48, 1), 0.5, np.float32)], -1)
+                eng.denoise([0], {RT.IN_VIEWZ: fd.view_z,
+                                  RT.IN_NORMAL_ROUGHNESS: gen.packed_normal_roughness(fd),
+                                  RT.IN_MV: fd.mv, RT.IN_DIFF_RADIANCE_HITDIST: sig,
+                                  RT.IN_SPEC_RADIANCE_HITDIST: sig})
+        img = torch.from_numpy(np.random.default_rng(5).random((32, 48, 3), dtype=np.float32))
+        for block in ((16, 16), (64, 256)):
+            KM.MODULES["halo_call"].halo_call("box", [img], [3], 2, block)
         for d in (Denoiser.REBLUR_DIFFUSE, Denoiser.REBLUR_SPECULAR,
                   Denoiser.REBLUR_DIFFUSE_SPECULAR):
             eng = Engine({0: d}, resource_size=(48, 32), device="cpu")
@@ -174,9 +201,13 @@ def test_wrapper_takes_plain_version_on_cpu(recorded_calls, name, monkeypatch):
 def test_wrapper_raises_off_cpu_without_kernel(recorded_calls, name):
     """A tensor that is neither on the CPU nor on a CUDA card has no kernel: it raises."""
     a, k = next((a, k) for n, a, k in recorded_calls if n == name)
-    meta = [x.to("meta") if isinstance(x, torch.Tensor) else x for x in a]
+
+    def meta(x):
+        if isinstance(x, (list, tuple)):
+            return type(x)(meta(v) for v in x)
+        return x.to("meta") if isinstance(x, torch.Tensor) else x
     with pytest.raises(ValueError):
-        getattr(KM.MODULES[name], name)(*meta, **k)
+        getattr(KM.MODULES[name], name)(*meta(a), **k)
 
 
 def test_engine_cuda_raises_without_cuda():
