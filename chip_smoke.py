@@ -20,7 +20,9 @@ Phases, each of which raises on failure (exit code != 0):
   2. per REBLUR variant: run 3 frames of the orbit scene through `Engine(device="cuda")`,
      record every kernel call of frame 4, and hold each kernel against its plain PyTorch
      version on the same inputs on the card; time both, and compute each call's bound
-     (compulsory bytes over the card's memory rate, or operations over its float32 rate).
+     (compulsory bytes over the card's memory rate, or operations over its float32 rate);
+     read each device kernel's registers and spills from the build log's ptxas lines and
+     work out its CTAs an SM.
      The same again with `enableAntiFirefly=True` (the anti-firefly ring of history_fix and
      history_fix_fused), and with hit-distance reconstruction at radius 1 and 2 on the
      punched frames (hitdist_recon only); then each SIGMA variant; then RELAX_DIFFUSE and
@@ -63,6 +65,7 @@ import concurrent.futures
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -191,6 +194,12 @@ BR_SET_OPS = 30                             # bilinear_resolve.cu: one bilinear 
 BAND_CLAMP_OPS, BAND_PARAM_OPS = 30, 90     # reblur_filters.cuh: hf_clamp, and the
                                             # Blur/PostBlur parameters of one signal
 BAND_SCRATCH_BYTES_PER_PX = 128             # reblur_band.cu: sig2 and sig3 written and read
+# the H100's limits an SM (NVIDIA's data sheet), against which each kernel's CTAs an SM
+# are worked out from its registers, its shared memory and its block size; the runtime keeps
+# 1 KB of shared memory per CTA
+SM_REGISTERS, SM_SHARED_BYTES, SM_THREADS, SM_CTAS = 65536, 232448, 2048, 32
+REGISTER_UNIT, CTA_RESERVED_SHARED = 256, 1024  # registers are given a warp in units of 256
+CTA_THREADS = 256                               # every kernel of csrc/ launches 256 threads
 
 
 def log(*a):
@@ -466,6 +475,102 @@ def _library(name, a, k):
                                                    align_corners=False)
 
 
+def _kernel_name(mangled):
+    """The function name of a mangled kernel entry (its last nested name), with its template
+    argument where it has one bool or int."""
+    rest = mangled[3:] if mangled.startswith("_ZN") else mangled[2:]
+    names = []
+    while rest[:1].isdigit():
+        n = re.match(r"\d+", rest)[0]
+        names.append(rest[len(n):len(n) + int(n)])
+        rest = rest[len(n) + int(n):]
+    if not names:
+        return mangled
+    arg = re.match(r"IL([bi])(\d+)E", rest)
+    if arg:  # one bool or int template argument
+        return names[-1] + f"<{('false', 'true')[int(arg[2])] if arg[1] == 'b' else arg[2]}>"
+    return names[-1] + ("<...>" if rest[:1] == "I" else "")
+
+
+def ptxas_usage(text):
+    """{source file: [dict(kernel, registers, spill_bytes, static_smem)]} from the
+    `-Xptxas -v` lines of the kernels' build log."""
+    usage, src, cur, props = {}, None, None, None
+    for line in text.splitlines():
+        if " -c -o " in line:  # the nvcc command of one source
+            src, cur = os.path.basename(line.split()[-1]), None
+            usage[src] = []
+            continue
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m and src is not None:
+            cur = dict(mangled=m[1], kernel=_kernel_name(m[1]), registers=0, spill_bytes=0,
+                       static_smem=0)
+            usage[src].append(cur)
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = cur if cur is not None and m[1] == cur["mangled"] else None
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and cur is not None and props is cur:
+            cur["spill_bytes"] = int(m[1])
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m[1])
+            smem = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(smem[1]) if smem else 0
+    return usage
+
+
+def ctas_per_sm(registers, shared_bytes, threads=CTA_THREADS):
+    """CTAs an SM can hold at once, by registers, shared memory, threads and the CTA limit."""
+    warps = -(-threads // 32)
+    per_warp = -(-max(registers, 1) * 32 // REGISTER_UNIT) * REGISTER_UNIT
+    return min((SM_REGISTERS // per_warp) // warps,
+               SM_SHARED_BYTES // (shared_bytes + CTA_RESERVED_SHARED), SM_THREADS // threads,
+               SM_CTAS)
+
+
+def _dynamic_smem(name, a, k):
+    """{device kernel: dynamic shared memory} of one launch, as the entry sizes it: K22 stages
+    the tile's window (three float4 a texel) at iteration 0; K24 the windows of one strip of
+    output rows."""
+    from nrdtpu_torch.kernels import build
+
+    if name == "relax_atrous":
+        src = (build.CSRC / "relax_atrous.cu").read_text()
+        tx, ty = map(int, re.search(r"kTileX = (\d+), kTileY = (\d+)", src).groups())
+        if not k["is_first"]:
+            return {}
+        halo = max(k["step_size"], 2)
+        return {"relax_atrous_kernel<true>": (tx + 2 * halo) * (ty + 2 * halo) * 48}
+    if name == "halo_call":
+        _, images, _, halo, (bh, bw) = a[:5]
+        channels = sum(1 if t.dim() == 2 else t.shape[-1] for t in images)
+        row = (bw + 2 * halo) * channels * 4
+        fit = SM_SHARED_BYTES // row - 2 * halo  # a CTA may take all 227 KB
+        strips = -(-bh // fit)
+        return {"halo_call_kernel<...>": (-(-bh // strips) + 2 * halo) * row}
+    return {}
+
+
+def occupancy(name, dynamic_smem):
+    """Registers, spill bytes and CTAs an SM of each device kernel of a kernel module;
+    dynamic_smem: the largest dynamic shared memory of each device kernel in this run."""
+    from nrdtpu_torch.kernels import build
+
+    usage = ptxas_usage((build.BUILD_DIR / "build.log").read_text())
+    out = []
+    for u in usage.get(os.path.basename(SOURCES[name][0]), []):
+        smem = u["static_smem"] + dynamic_smem.get(u["kernel"], 0)
+        out.append(dict(kernel=u["kernel"], registers=u["registers"],
+                        spill_bytes=u["spill_bytes"], shared_bytes=smem,
+                        ctas_per_sm=ctas_per_sm(u["registers"], smem)))
+    if not out:
+        raise AssertionError(f"{name}: no ptxas lines for {SOURCES[name][0]} in build.log")
+    return out
+
+
 def record_calls(denoiser, pool, w, h, frames, **settings):
     """Every kernel call of the last of `frames` (their pools[pool]) through a fresh
     Engine(device="cuda") in the environment of the path `pool`, and the pass calls of the
@@ -545,7 +650,10 @@ def _hold(results, name, lab, a, k, timed, extra_bytes=0):
     torch.cuda.synchronize()
     r = results.setdefault(name, dict(max_abs_err=0.0, max_rel_err=0.0, over=0, count=0, ms={},
                                       plain_ms={}, bound_ms={}, bound_by=set(), library_ms={},
-                                      ms_anti_firefly={}, outputs={}, scratch_bound_ms={}))
+                                      ms_anti_firefly={}, outputs={}, scratch_bound_ms={},
+                                      dynamic_smem={}))
+    for kernel, nbytes in _dynamic_smem(name, a, k).items():
+        r["dynamic_smem"][kernel] = max(r["dynamic_smem"].get(kernel, 0), nbytes)
     for key in want:
         g, wv = got[key].float(), want[key].float()
         d = (g - wv).abs()
@@ -645,7 +753,11 @@ def kernel_phase(w, h, frames):
         r["bound_by"] = "operations" if "operations" in r["bound_by"] else "bytes"
         if name == "reblur_band":
             r["chain_by_path"] = chain
-        log(f"kernel {name}: max_abs_err {r['max_abs_err']:.3g} max_rel_err "
+        r["device_kernels"] = occupancy(name, r.pop("dynamic_smem"))
+        log(f"kernel {name}: " + ", ".join(
+            f"{d['kernel']} {d['registers']} registers, {d['spill_bytes']} B spill, "
+            f"{d['shared_bytes']} B shared, {d['ctas_per_sm']} CTAs/SM"
+            for d in r["device_kernels"]) + f" | max_abs_err {r['max_abs_err']:.3g} max_rel_err "
             f"{r['max_rel_err']:.3g} over-tolerance fraction {frac:.3g} | mean per launch "
             f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}), library {r['library_ms']} ms | by path "
@@ -945,6 +1057,10 @@ def main():
                  launches=sum(c[name] for c in counts.values()),
                  max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                  bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+                 registers=max(d["registers"] for d in r["device_kernels"]),
+                 spill_bytes=max(d["spill_bytes"] for d in r["device_kernels"]),
+                 ctas_per_sm=min(d["ctas_per_sm"] for d in r["device_kernels"]),
+                 device_kernels=r["device_kernels"],
                  launches_by_path={v: c[name] for v, c in counts.items()},
                  ms_by_path=r["ms_by_path"], plain_ms_by_path=r["plain_ms_by_path"],
                  bound_ms_by_path=r["bound_ms_by_path"])

@@ -33,11 +33,19 @@ template <typename T, int C>
 struct Image {
   const T* p;
   int w, h;
-  __device__ __forceinline__ float at(int x, int y, int c) const {
-    x = clampi(x, 0, w - 1);
-    y = clampi(y, 0, h - 1);
-    return load(p + ((size_t)y * w + x) * C + c);
+  __device__ __forceinline__ size_t index(int x, int y) const {
+    return (size_t)clampi(y, 0, h - 1) * w + clampi(x, 0, w - 1);
   }
+  __device__ __forceinline__ float at(int x, int y, int c) const {
+    return load(p + index(x, y) * C + c);
+  }
+  // Through the read-only path, for images that the launch does not write; the index is
+  // clamped once. at4: a float (h, w, 4) record as one 16-byte load (the wrappers check that
+  // such images are 16-byte aligned); ldg: a float (h, w) texel.
+  __device__ __forceinline__ float4 at4(int x, int y) const {
+    return __ldg(reinterpret_cast<const float4*>(p) + index(x, y));
+  }
+  __device__ __forceinline__ float ldg(int x, int y) const { return __ldg(p + index(x, y)); }
 };
 
 struct V3 {

@@ -42,7 +42,8 @@ __global__ void __launch_bounds__(256) history_fix_kernel(HfArgs a) {
   float out[4];
   nrd::hf_filter(a.f, c, a.params + i, plane, a.spec, a.min_material,
                  Image<float, 4>{a.signal, a.f.w, a.f.h}, Image<float, 1>{a.data1, a.f.w, a.f.h},
-                 nr, Image<float, 1>{a.view_z, a.f.w, a.f.h}, out);
+                 nrd::PackedTaps{nr, Image<float, 1>{a.view_z, a.f.w, a.f.h}, a.f.view_z_scale},
+                 out);
 #pragma unroll
   for (int k = 0; k < 4; ++k) a.out[4 * i + k] = out[k];
 }

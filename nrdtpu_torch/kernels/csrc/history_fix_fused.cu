@@ -37,6 +37,7 @@ __global__ void __launch_bounds__(256) history_fix_fused_kernel(HffArgs a) {
   const Image<float, 4> nr{a.nr, a.f.w, a.f.h};
   const Image<float, 1> vz{a.view_z, a.f.w, a.f.h};
   const nrd::Centre c = nrd::hf_centre(a.shared + i, plane, nr, x, y);
+  const nrd::PackedTaps taps{nr, vz, a.f.view_z_scale};
 #pragma unroll
   for (int s = 0; s < 2; ++s) {  // unrolled: s is constant, the arrays stay in registers
     const Image<float, 1> fast{a.fast[s], a.f.w, a.f.h};
@@ -46,7 +47,7 @@ __global__ void __launch_bounds__(256) history_fix_fused_kernel(HffArgs a) {
     float out[4];
     nrd::hf_filter(a.f, c, a.params[s] + i, plane, s == 1, a.min_material[s],
                    Image<float, 4>{a.signal[s], a.f.w, a.f.h},
-                   Image<float, 1>{a.data1[s], a.f.w, a.f.h}, nr, vz, out);
+                   Image<float, 1>{a.data1[s], a.f.w, a.f.h}, taps, out);
     float* o = a.out + 4 * (s * plane + i);
 #pragma unroll
     for (int k = 0; k < 4; ++k) o[k] = out[k];

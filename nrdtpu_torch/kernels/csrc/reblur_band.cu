@@ -1,25 +1,41 @@
-// K23: REBLUR HistoryFix + Blur + PostBlur of both signals in one cooperative launch.
+// K23: REBLUR HistoryFix + Blur + PostBlur of both signals in one entry, four launches.
 // Replaces nrdtpu/kernels/reblur_band.py:496 reblur_spatial_band (its pallas_call at :614);
 // computes what the port's three-launch chain computes (nrdtpu_torch/passes/reblur/
-// kernels.py:spatial_chain), in three phases over one thread per pixel:
-//   A. N5's per-pixel body (hf_filter, the 3x3 and ring moments) for each signal, then the
-//      clamp (hf_clamp); writes sig2 and fast2;
-//   B. the BLUR parameters of each signal from sig2's hit distance (diff_blur_params,
-//      spec_blur_params), then N4's tap loop (sf_filter) on sig2; writes sig3;
+// kernels.py:spatial_chain), in three phases over one thread per (pixel, signal), after a
+// prologue that unpacks each pixel's tap geometry once:
+//   0. the normal and the scaled viewZ of every pixel (unpacked_geometry); writes geometry;
+//   A. N5's per-pixel body (hf_filter, the 3x3 and ring moments), then the clamp (hf_clamp);
+//      writes sig2 and fast2;
+//   B. the BLUR parameters from sig2's hit distance (diff_blur_params, spec_blur_params), then
+//      N4's tap loop (sf_filter) on sig2; writes sig3;
 //   C. the same with the POST_BLUR constants on sig3; writes sig4.
-// A phase reads the previous phase's output at its taps, so the grid is persistent (as many
-// 16x16-thread CTAs as the card holds at once, each walking the 16x16 tiles) and the phases
-// are separated by grid-wide barriers. The plain version is nrdtpu_torch/kernels/
-// reblur_band.py:reblur_band_ref.
-#include <cooperative_groups.h>
-
+// The plain version is nrdtpu_torch/kernels/reblur_band.py:reblur_band_ref.
+//
+// Design for the H100. A phase reads the previous phase's output at its taps, so each phase
+// is its own launch on the caller's stream, in order: stream order is the barrier between
+// them. One CTA per (16x16 tile, signal), the signal in the low bit of blockIdx.x so that the
+// two CTAs of a tile run side by side and share the centre's planes in L2; the hardware
+// schedules the CTAs, so the uneven history-fix tiles (stride-0 pixels skip the 20 taps)
+// balance themselves. Each phase has its own register budget (kFixCtas, kBlurCtas: the CTAs
+// an SM that ptxas is asked to fit), and a thread runs one signal, so the budget is the
+// larger signal's and not the sum of both. A pixel's 36 taps a signal (20 + 8 + 8) each need
+// the tapped texel's unpacked normal and viewZ, the same for every pixel that taps it: the
+// prologue computes them once a pixel into a float4 plane, and the taps read it and nr as
+// float4 records through the read-only path (reblur_filters.cuh:UnpackedTaps). Phase A
+// stages its signal's fast history over the tile and the ring's 4-pixel margin (24x24 floats,
+// clamp-to-edge) in shared memory, where the 3x3 and the 72-tap ring read it. sig2, sig3 and
+// the geometry stay in float32 scratch (the wrapper's), so every phase sees the plain
+// version's float32 values.
 #include "reblur_filters.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
 using nrd::Image;
+
+constexpr int kTileX = 16, kTileY = 16, kThreads = kTileX * kTileY;
+constexpr int kFixCtas = 5, kBlurCtas = 5;
+constexpr int kRing = nrd::kAntiFireflyRadius;
+constexpr int kWinX = kTileX + 2 * kRing, kWinY = kTileY + 2 * kRing;
 
 // the frame's planes (reblur_band.py:PLANES): the history fix's shared planes, then these
 enum BandPlane { BP_NOV = nrd::kHfShared, BP_ROUGH, BP_SMC, BP_HDS_DIFF, BP_HDS_SPEC,
@@ -35,6 +51,7 @@ struct BandArgs {
   const float* planes;     // (kBandPlanes, h, w)
   float* sig2;             // (2, h, w, 4) scratch: history-fix output
   float* sig3;             // (2, h, w, 4) scratch: Blur output
+  float4* geometry;        // (h, w) scratch: the taps' unpacked normal and scaled viewZ
   float* fast2;            // (2, h, w) the history fix's fast histories
   float* out;              // (2, h, w, 4) PostBlur output
   float min_material[2];
@@ -44,98 +61,118 @@ struct BandArgs {
   nrd::HfClampConsts clamp;
   nrd::BlurConsts blur;
   nrd::StageConsts stage[2];  // Blur, PostBlur
-  int tiles_x, tiles;
 };
 
-__device__ __forceinline__ void history_fix_pixel(const BandArgs& a, int x, int y) {
-  const int w = a.hf.w, h = a.hf.h;
-  const size_t i = (size_t)y * w + x, plane = (size_t)w * h;
-  const Image<float, 4> nr{a.nr, w, h};
-  const Image<float, 1> vz{a.view_z, w, h};
-  const nrd::Centre c = nrd::hf_centre(a.planes + i, plane, nr, x, y);
-#pragma unroll
-  for (int s = 0; s < 2; ++s) {  // unrolled: s is constant, the arrays stay in registers
-    const Image<float, 1> fast{a.fast[s], w, h};
-    float m1, m2, am1 = 0.0f, am2 = 0.0f;
-    nrd::fast_moments(fast, x, y, &m1, &m2);
-    if (a.anti_firefly[s]) nrd::anti_firefly_moments(fast, x, y, &am1, &am2);
-    float sig[4];
-    nrd::hf_filter(a.hf, c, a.params[s] + i, plane, s == 1, a.min_material[s],
-                   Image<float, 4>{a.signal[s], w, h}, Image<float, 1>{a.data1[s], w, h}, nr,
-                   vz, sig);
-    const float smc = s == 1 ? a.planes[BP_SMC * plane + i] : 0.0f;
-    float fast_out;
-    nrd::hf_clamp(a.clamp, sig, a.data1[s][i], a.fast[s][i], m1, m2, a.anti_firefly[s], am1,
-                  am2, s == 1, smc, &fast_out);
-    float* o = a.sig2 + 4 * (s * plane + i);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) o[k] = sig[k];
-    a.fast2[s * plane + i] = fast_out;
+// the fast history staged over a tile: rows of kWinX texels from (ox, oy), clamp-to-edge
+struct Window {
+  const float* p;
+  int ox, oy;
+  __device__ __forceinline__ float at(int x, int y, int) const {
+    return p[(y - oy) * kWinX + (x - ox)];
   }
+};
+
+// the tile and the signal of this CTA
+struct Cta {
+  int s, x, y;
+};
+
+__device__ __forceinline__ Cta cta() {
+  return Cta{(int)(blockIdx.x & 1u), (int)(blockIdx.x >> 1) * kTileX + (int)threadIdx.x,
+             (int)blockIdx.y * kTileY + (int)threadIdx.y};
 }
 
-// Blur (stage 0: sig2 -> sig3) or PostBlur (stage 1: sig3 -> out) of both signals
-__device__ __forceinline__ void blur_pixel(const BandArgs& a, int stage, int x, int y) {
+template <bool kSpec>
+__device__ __forceinline__ void history_fix_pixel(const BandArgs& a, const Window& win, int x,
+                                                  int y) {
+  constexpr int s = kSpec ? 1 : 0;
   const int w = a.hf.w, h = a.hf.h;
   const size_t i = (size_t)y * w + x, plane = (size_t)w * h;
   const Image<float, 4> nr{a.nr, w, h};
-  const Image<float, 1> vz{a.view_z, w, h};
-  const float* src = stage == 0 ? a.sig2 : a.sig3;
-  float* dst = stage == 0 ? a.sig3 : a.out;
+  const nrd::Centre c = nrd::hf_centre(a.planes + i, plane, nr, x, y);
+  float m1, m2, am1 = 0.0f, am2 = 0.0f;
+  nrd::fast_moments(win, x, y, &m1, &m2);
+  if (a.anti_firefly[s]) nrd::anti_firefly_moments(win, x, y, &am1, &am2);
+  float sig[4];
+  nrd::hf_filter(a.hf, c, a.params[s] + i, plane, kSpec, a.min_material[s],
+                 Image<float, 4>{a.signal[s], w, h}, Image<float, 1>{a.data1[s], w, h},
+                 nrd::UnpackedTaps{a.geometry, nr}, sig);
+  const float smc = kSpec ? __ldg(a.planes + BP_SMC * plane + i) : 0.0f;
+  float fast_out;
+  nrd::hf_clamp(a.clamp, sig, __ldg(a.data1[s] + i), win.at(x, y, 0), m1, m2, a.anti_firefly[s],
+                am1, am2, kSpec, smc, &fast_out);
+  reinterpret_cast<float4*>(a.sig2)[s * plane + i] = make_float4(sig[0], sig[1], sig[2], sig[3]);
+  a.fast2[s * plane + i] = fast_out;
+}
+
+// Blur (stage 0: sig2 -> sig3) or PostBlur (stage 1: sig3 -> out) of one signal
+template <bool kSpec>
+__device__ __forceinline__ void blur_pixel(const BandArgs& a, int stage, int x, int y) {
+  constexpr int s = kSpec ? 1 : 0;
+  const int w = a.hf.w, h = a.hf.h;
+  const size_t i = (size_t)y * w + x, plane = (size_t)w * h;
+  const Image<float, 4> nr{a.nr, w, h};
+  const float* src = (stage == 0 ? a.sig2 : a.sig3) + 4 * s * plane;
+  float* dst = (stage == 0 ? a.sig3 : a.out) + 4 * s * plane;
   const nrd::StageConsts& k = a.stage[stage];
   // the centre's geometry: sf_filter reads what hf_centre loads but the frustum size
   const nrd::Centre c = nrd::hf_centre(a.planes + i, plane, nr, x, y);
   const float* P = a.planes + i;
-  const float nov = P[BP_NOV * plane];
-  float out[4];
-  {
-    const float* sig = src + 4 * i;
-    float prm[nrd::kSfDiffParams];
-    nrd::diff_blur_params(a.blur, k, sig[3], a.data1[0][i], P[BP_HDS_DIFF * plane], c.fsz, nov,
-                          c.nv.x, c.nv.y, prm);
-    nrd::sf_filter(a.sf, c, prm, 1, nrd::kSfDiffParams, a.min_material[0],
-                   Image<float, 4>{src, w, h}, nr, vz, out, nullptr);
-    float* o = dst + 4 * i;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) o[q] = out[q];
-  }
-  {
-    const float* sig = src + 4 * (plane + i);
-    float prm[nrd::kSfSpecParams];
-    nrd::spec_blur_params(a.blur, k, sig[3], a.data1[1][i], P[BP_HDS_SPEC * plane], c.fsz, nov,
-                          P[BP_ROUGH * plane], P[BP_SMC * plane], prm);
-    nrd::sf_filter(a.sf, c, prm, 1, nrd::kSfSpecParams, a.min_material[1],
-                   Image<float, 4>{src + 4 * plane, w, h}, nr, vz, out, nullptr);
-    float* o = dst + 4 * (plane + i);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) o[q] = out[q];
-  }
-}
-
-// phase 0: history fix, 1: Blur, 2: PostBlur, of the pixel (x, y)
-__device__ __forceinline__ void band_pixel(const BandArgs& a, int phase, int x, int y) {
-  if (phase == 0)
-    history_fix_pixel(a, x, y);
+  const float nov = __ldg(P + BP_NOV * plane);
+  const float hit_dist = __ldg(src + 4 * i + 3);
+  const float data1 = __ldg(a.data1[s] + i);
+  constexpr int nparams = kSpec ? nrd::kSfSpecParams : nrd::kSfDiffParams;
+  float prm[nparams];
+  if constexpr (kSpec)
+    nrd::spec_blur_params(a.blur, k, hit_dist, data1, __ldg(P + BP_HDS_SPEC * plane), c.fsz,
+                          nov, __ldg(P + BP_ROUGH * plane), __ldg(P + BP_SMC * plane), prm);
   else
-    blur_pixel(a, phase - 1, x, y);
+    nrd::diff_blur_params(a.blur, k, hit_dist, data1, __ldg(P + BP_HDS_DIFF * plane), c.fsz,
+                          nov, c.nv.x, c.nv.y, prm);
+  float out[4];
+  nrd::sf_filter(a.sf, c, prm, 1, nparams, a.min_material[s], Image<float, 4>{src, w, h},
+                 nrd::UnpackedTaps{a.geometry, nr}, out, nullptr);
+  reinterpret_cast<float4*>(dst)[i] = make_float4(out[0], out[1], out[2], out[3]);
 }
 
-__global__ void __launch_bounds__(256) reblur_band_kernel(BandArgs a) {
-  cg::grid_group grid = cg::this_grid();
-  for (int phase = 0; phase < 3; ++phase) {
-    if (phase > 0) grid.sync();  // every pixel of the previous phase is written
-    for (int t = blockIdx.x; t < a.tiles; t += gridDim.x) {
-      const int x = (t % a.tiles_x) * nrd::kBlock + threadIdx.x;
-      const int y = (t / a.tiles_x) * nrd::kBlock + threadIdx.y;
-      if (x < a.hf.w && y < a.hf.h) band_pixel(a, phase, x, y);
-    }
+// phase 0: the geometry; 1: the history fix and the clamp; 2: Blur; 3: PostBlur
+template <int kPhase>
+__global__ void __launch_bounds__(kThreads, kPhase == 1 ? kFixCtas : kBlurCtas)
+    reblur_band_kernel(BandArgs a) {
+  if constexpr (kPhase == 0) {  // one thread a pixel
+    const int x = blockIdx.x * kTileX + threadIdx.x, y = blockIdx.y * kTileY + threadIdx.y;
+    if (x >= a.hf.w || y >= a.hf.h) return;
+    const size_t i = (size_t)y * a.hf.w + x;
+    a.geometry[i] = nrd::unpacked_geometry(__ldg(reinterpret_cast<const float4*>(a.nr) + i),
+                                           __ldg(a.view_z + i), a.hf.view_z_scale);
+    return;
+  }
+  const Cta t = cta();
+  if constexpr (kPhase == 1) {  // every thread of the CTA stages, then the ones outside leave
+    __shared__ float fast[kWinY * kWinX];
+    const Window win{fast, t.x - (int)threadIdx.x - kRing, t.y - (int)threadIdx.y - kRing};
+    const Image<float, 1> src{a.fast[t.s], a.hf.w, a.hf.h};
+    for (int k = threadIdx.y * kTileX + threadIdx.x; k < kWinY * kWinX; k += kThreads)
+      fast[k] = src.ldg(win.ox + k % kWinX, win.oy + k / kWinX);
+    __syncthreads();
+    if (t.x >= a.hf.w || t.y >= a.hf.h) return;
+    if (t.s == 0)
+      history_fix_pixel<false>(a, win, t.x, t.y);
+    else
+      history_fix_pixel<true>(a, win, t.x, t.y);
+  } else {
+    if (t.x >= a.hf.w || t.y >= a.hf.h) return;
+    if (t.s == 0)
+      blur_pixel<false>(a, kPhase - 2, t.x, t.y);
+    else
+      blur_pixel<true>(a, kPhase - 2, t.x, t.y);
   }
 }
 
 }  // namespace
 
 // ptrs: diff, spec, diff_data1, spec_data1, diff_fast, spec_fast, diff_params, spec_params,
-//       view_z, nr, planes, taps, scratch (sig2, sig3), fast2, out
+//       view_z, nr, planes, taps, scratch (sig2, sig3, geometry), fast2, out
 // consts: frustum[4], rect_w, rect_h, rect_inv_w, rect_inv_h, view_z_scale, ortho_mode,
 //         diff_min_material, spec_min_material, diffuse ring (0 or 1), specular ring (0 or 1),
 //         ntaps, then reblur_band.py:band_consts: the clamp's frame divisor and fast-history
@@ -157,6 +194,7 @@ extern "C" int nrd_reblur_band(void* const* p, const float* c, int w, int h, voi
   a.sf.taps = (const float*)p[11];
   a.sig2 = (float*)p[12];
   a.sig3 = a.sig2 + (size_t)2 * w * h * 4;
+  a.geometry = reinterpret_cast<float4*>(a.sig3 + (size_t)2 * w * h * 4);
   a.fast2 = (float*)p[13];
   a.out = (float*)p[14];
 
@@ -194,24 +232,20 @@ extern "C" int nrd_reblur_band(void* const* p, const float* c, int w, int h, voi
     a.stage[s].mhdw_scale = sc[2];
     a.stage[s].rf_scaled = sc[3];
   }
-  a.tiles_x = (w + nrd::kBlock - 1) / nrd::kBlock;
-  a.tiles = a.tiles_x * ((h + nrd::kBlock - 1) / nrd::kBlock);
 
-  // the persistent grid: every CTA must be resident at once for the grid-wide barrier
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, reblur_band_kernel,
-                                                        nrd::kBlock * nrd::kBlock, 0);
+  // the geometry one CTA per tile, then the phases one CTA per (tile, signal), in stream order
+  const dim3 block(kTileX, kTileY);
+  const dim3 tiles((w + kTileX - 1) / kTileX, (h + kTileY - 1) / kTileY);
+  const dim3 grid(2 * tiles.x, tiles.y);
+  reblur_band_kernel<0><<<tiles, block, 0, (cudaStream_t)stream>>>(a);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const int grid = per_sm * sms < a.tiles ? per_sm * sms : a.tiles;
-  void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel((const void*)reblur_band_kernel, dim3(grid),
-                                    dim3(nrd::kBlock, nrd::kBlock), args, 0,
-                                    (cudaStream_t)stream);
+  reblur_band_kernel<1><<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  reblur_band_kernel<2><<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  reblur_band_kernel<3><<<grid, block, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -3,12 +3,53 @@
 // N4 (spatial_filter_fused.cu) and N5 (history_fix_fused.cu) call them once per signal, with
 // the centre pixel's shared planes loaded once. The plain versions they are held against are
 // nrdtpu_torch/kernels/spatial_filter.py:spatial_filter_ref and
-// nrdtpu_torch/kernels/history_fix.py:history_fix_ref; the op order below is theirs.
+// nrdtpu_torch/kernels/history_fix.py:history_fix_ref; the op order below is theirs. A tap
+// reads the signal as one float4 through the read-only path, its index clamped once (every
+// image they tap is an input of the launch, never its output), and its geometry through a
+// Taps policy: PackedTaps (H2, H3, N4, N5) or UnpackedTaps (K23).
 #pragma once
 
 #include "common.cuh"
 
 namespace nrd {
+
+// What a tap reads of its texel's geometry: the unpacked normal, material (nr.w x 3),
+// roughness and the scaled viewZ.
+struct TapGeometry {
+  V3 n;
+  float material, roughness, z;
+};
+
+// from the frame's packed planes, unpacked at every tap: nr (h, w, 4) and raw viewZ, read a
+// channel at a time (H2, N4 and N5 measured no faster with one float4 on the H100: PERF.md)
+struct PackedTaps {
+  Image<float, 4> nr;
+  Image<float, 1> vz;
+  float view_z_scale;
+  __device__ __forceinline__ TapGeometry at(int x, int y) const {
+    return TapGeometry{unpack_normal(nr.at(x, y, 0), nr.at(x, y, 1)), nr.at(x, y, 3) * 3.0f,
+                       nr.at(x, y, 2), fabsf(vz.at(x, y, 0)) * view_z_scale};
+  }
+};
+
+// from a (h, w, 4) plane unpacked once a frame, (n.x, n.y, n.z, scaled viewZ), and nr for the
+// material and the roughness: the same values as PackedTaps
+struct UnpackedTaps {
+  const float4* geometry;
+  Image<float, 4> nr;
+  __device__ __forceinline__ TapGeometry at(int x, int y) const {
+    const size_t k = nr.index(x, y);
+    const float4 g = __ldg(geometry + k);
+    const float4 p = __ldg(reinterpret_cast<const float4*>(nr.p) + k);
+    return TapGeometry{V3{g.x, g.y, g.z}, p.w * 3.0f, p.z, g.w};
+  }
+};
+
+// the (n.x, n.y, n.z, scaled viewZ) record of UnpackedTaps, as PackedTaps computes it
+__device__ __forceinline__ float4 unpacked_geometry(float4 nr, float raw_z, float view_z_scale) {
+  const V3 n = unpack_normal(nr.x, nr.y);
+  return make_float4(n.x, n.y, n.z, fabsf(raw_z) * view_z_scale);
+}
 
 // ---------------------------------------------------------------------------------------
 // Spatial filter (PrePass, Blur, PostBlur): nrdtpu/passes/reblur/kernels.py:844-873,
@@ -61,12 +102,11 @@ __device__ __forceinline__ Centre sf_centre(const float* P, size_t plane,
 // count selects the mode: diffuse, specular (roughness weight) or specular PrePass (also the
 // stochastic minimum of the taps' hit distances, hitDistForTracking, written to *hdt_out,
 // with one PCG draw per tap from hash_init(pixel, frame index)).
+template <typename Taps>
 __device__ __forceinline__ void sf_filter(const SfFrame& f, const Centre& c, const float* P,
                                           size_t plane, int nparams, float min_material,
-                                          const Image<float, 4>& sig,
-                                          const Image<float, 4>& nr,
-                                          const Image<float, 1>& vz, float out[4],
-                                          float* hdt_out) {
+                                          const Image<float, 4>& sig, const Taps& taps,
+                                          float out[4], float* hdt_out) {
   const float r0 = P[SF_ROT0 * plane], r1 = P[SF_ROT1 * plane], r2 = P[SF_ROT2 * plane],
               r3 = P[SF_ROT3 * plane];
   const float nwp = P[SF_NWP * plane], ha = P[SF_HA * plane], hb = P[SF_HB * plane];
@@ -86,9 +126,8 @@ __device__ __forceinline__ void sf_filter(const SfFrame& f, const Centre& c, con
   }
 
   float sum = 1.0f;
-  float acc[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) acc[k] = sig.at(c.x, c.y, k);
+  const float4 cs = sig.at4(c.x, c.y);
+  float acc[4] = {cs.x, cs.y, cs.z, cs.w};
 
   for (int t = 0; t < f.ntaps; ++t) {
     const float ox = f.taps[3 * t], oy = f.taps[3 * t + 1], gauss = f.taps[3 * t + 2];
@@ -99,9 +138,10 @@ __device__ __forceinline__ void sf_filter(const SfFrame& f, const Centre& c, con
     const int sx = to_index(floorf(us * (float)f.w));
     const int sy = to_index(floorf(vs * (float)f.h));
 
-    const float zs = fabsf(vz.at(sx, sy, 0)) * f.view_z_scale;
-    const V3 ns = unpack_normal(nr.at(sx, sy, 0), nr.at(sx, sy, 1));
-    const float ms = fmaxf(nr.at(sx, sy, 3) * 3.0f, min_material);
+    const TapGeometry g = taps.at(sx, sy);
+    const float zs = g.z;
+    const V3 ns = g.n;
+    const float ms = fmaxf(g.material, min_material);
     const float angle = acos_approx(dot3(c.n, ns));
     const V3 xvs = reconstruct_view_position(us, vs, f.fr, zs, f.ortho);
 
@@ -109,13 +149,13 @@ __device__ __forceinline__ void sf_filter(const SfFrame& f, const Centre& c, con
     w_ = w_ * compute_weight(dot3(c.nv, xvs), c.ga, c.gb);
     w_ = w_ * (mat_c == ms ? 1.0f : 0.0f);
     w_ = w_ * compute_weight(angle, nwp, 0.0f);
-    if (spec) w_ = w_ * compute_weight(nr.at(sx, sy, 2), wr_a, wr_b);
-    float s[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) s[k] = w_ == 0.0f ? 0.0f : sig.at(sx, sy, k);
+    if (spec) w_ = w_ * compute_weight(g.roughness, wr_a, wr_b);
+    float4 s4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (w_ != 0.0f) s4 = sig.at4(sx, sy);
+    const float s[4] = {s4.x, s4.y, s4.z, s4.w};
     if (prepass) {
       // stochastic hitDistForTracking minimum (REBLUR_PrePass.hlsli)
-      const float rs = nr.at(sx, sy, 2);
+      const float rs = g.roughness;
       const float norm = (f.hdp[0] + fabsf(zs) * f.hdp[1]) *
                          (1.0f + (f.hdp[2] - 1.0f) * saturate(exp2f(f.hdp[3] * rs * rs)));
       const float hs = s[3] * norm;
@@ -176,9 +216,11 @@ __device__ __forceinline__ Centre hf_centre(const float* P, size_t plane,
   return c;
 }
 
-// mean and second moment of the fast history over the 3x3, (dy, dx) row by row
-__device__ __forceinline__ void fast_moments(const Image<float, 1>& fast, int x, int y,
-                                             float* m1, float* m2) {
+// mean and second moment of the fast history over the 3x3, (dy, dx) row by row; Img: any
+// (h, w) image with at(x, y, 0) and clamp-to-edge addressing (Image, or a staged Window)
+template <typename Img>
+__device__ __forceinline__ void fast_moments(const Img& fast, int x, int y, float* m1,
+                                             float* m2) {
   float a = 0.0f, b = 0.0f;
 #pragma unroll
   for (int dy = -1; dy <= 1; ++dy)
@@ -193,8 +235,9 @@ __device__ __forceinline__ void fast_moments(const Image<float, 1>& fast, int x,
 }
 
 // the anti-firefly ring: the same moments over the 9x9 square minus the 3x3 (72 taps)
-__device__ __forceinline__ void anti_firefly_moments(const Image<float, 1>& fast, int x, int y,
-                                                     float* m1, float* m2) {
+template <typename Img>
+__device__ __forceinline__ void anti_firefly_moments(const Img& fast, int x, int y, float* m1,
+                                                     float* m2) {
   const int r = kAntiFireflyRadius;
   float a = 0.0f, b = 0.0f;
   for (int dy = -r; dy <= r; ++dy)
@@ -214,16 +257,15 @@ __device__ __forceinline__ void anti_firefly_moments(const Image<float, 1>& fast
 // signal's (5 | 9, h, w) planes; `spec` adds the relaxed roughness weight and the
 // low-roughness hitT guide. Writes the reconstructed signal, or the centre where the stride
 // is 0.
+template <typename Taps>
 __device__ __forceinline__ void hf_filter(const HfFrame& f, const Centre& c, const float* P,
                                           size_t plane, bool spec, float min_material,
                                           const Image<float, 4>& sig,
-                                          const Image<float, 1>& data1,
-                                          const Image<float, 4>& nr,
-                                          const Image<float, 1>& vz, float out[4]) {
+                                          const Image<float, 1>& data1, const Taps& taps,
+                                          float out[4]) {
   const float stride = P[HF_STRIDE * plane];
-  float center[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) center[k] = sig.at(c.x, c.y, k);
+  const float4 cs = sig.at4(c.x, c.y);
+  const float center[4] = {cs.x, cs.y, cs.z, cs.w};
   if (stride == 0.0f) {  // converged history: the signal passes through
 #pragma unroll
     for (int k = 0; k < 4; ++k) out[k] = center[k];
@@ -240,7 +282,7 @@ __device__ __forceinline__ void hf_filter(const HfFrame& f, const Centre& c, con
     gb_hi = 0.05f + P[HF_GUIDE_B * plane];
   }
   const float mat_c = fmaxf(c.material, min_material);
-  float sum = 1.0f + data1.at(c.x, c.y, 0);
+  float sum = 1.0f + data1.ldg(c.x, c.y);
   float acc[4];
 #pragma unroll
   for (int k = 0; k < 4; ++k) acc[k] = center[k] * sum;
@@ -253,9 +295,10 @@ __device__ __forceinline__ void hf_filter(const HfFrame& f, const Centre& c, con
       const int px = (int)fminf(fmaxf((float)c.x + ofx, 0.0f), (float)(f.w - 1));
       const int py = (int)fminf(fmaxf((float)c.y + ofy, 0.0f), (float)(f.h - 1));
 
-      const float zs = fabsf(vz.at(px, py, 0)) * f.view_z_scale;
-      const V3 ns = unpack_normal(nr.at(px, py, 0), nr.at(px, py, 1));
-      const float ms = fmaxf(nr.at(px, py, 3) * 3.0f, min_material);
+      const TapGeometry g = taps.at(px, py);
+      const float zs = g.z;
+      const V3 ns = g.n;
+      const float ms = fmaxf(g.material, min_material);
       const float angle = acos_approx(dot3(ns, c.n));
       const V3 xvs = reconstruct_view_position(us, vs, f.fr, zs, f.ortho);
 
@@ -264,13 +307,13 @@ __device__ __forceinline__ void hf_filter(const HfFrame& f, const Centre& c, con
       w_ = w_ * (mat_c == ms ? 1.0f : 0.0f);
       w_ = w_ * compute_exponential_weight(angle, nwp, 0.0f);
       if (spec) {
-        const float rs = nr.at(px, py, 2);
+        const float rs = g.roughness;
         w_ = w_ * compute_exponential_weight(rs * rs, ra, rb);
       }
-      w_ = w_ * (1.0f + data1.at(px, py, 0));
-      float s[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) s[q] = w_ == 0.0f ? 0.0f : sig.at(px, py, q);
+      w_ = w_ * (1.0f + data1.ldg(px, py));
+      float4 s4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (w_ != 0.0f) s4 = sig.at4(px, py);
+      const float s[4] = {s4.x, s4.y, s4.z, s4.w};
       const float hs = s[3] * hds;
       w_ = w_ * compute_exponential_weight(saturate(hs / c.fsz), ha, hb);
       if (spec) {

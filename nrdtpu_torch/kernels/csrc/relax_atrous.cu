@@ -13,13 +13,29 @@
 // iteration 0 keeps the diffuse normal weight, as XLA does (use_variance_estimation).
 // Replaces nrdtpu/kernels/relax_pallas.py:338 relax_atrous_pallas; computes
 // nrdtpu/passes/relax/kernels.py:1349-1598 per pixel. The plain version is
-// nrdtpu_torch/kernels/relax_atrous.py:relax_atrous_ref. One thread per pixel.
+// nrdtpu_torch/kernels/relax_atrous.py:relax_atrous_ref.
+//
+// Design for the H100: one thread per pixel in kTileX x kTileY CTAs, at most kMinCtas'
+// register budget (four 256-thread CTAs an SM). A pixel's 8 taps (iteration 0: also the 3x3
+// prefilter and the 5x5 estimation) gather signal, packed normal and viewZ, and each texel is
+// read as one float4 of signal, one float4 of nr (nx, ny, roughness, material / 3) and one
+// float of viewZ through the read-only path, its index clamped once. What a tap derives from
+// the texel alone (derive: the unpacked normal, viewZ, material, luminance) is the same for
+// every pixel that taps it. Iteration 0, whose prefilter, taps and 5x5 estimation read 8-33
+// texels of a 5x5 neighbourhood, first stages the tile's window (halo 2) into shared memory
+// with those values derived once a texel, and reads it there. The later strides read each
+// texel from global memory and derive it at the tap: staging their windows (halo = step) was
+// slower at steps 2 and 4 on the H100 (PERF.md), and steps 8 and 16 jitter their taps. A tap keeps
+// XLA's float uv + duv and finds its texel by floor(us w) as before; the window is indexed by
+// that texel, and a texel outside it is read and derived from global memory.
 #include "relax_common.cuh"
 
 namespace {
 
 using nrd::Image;
 using nrd::V3;
+
+constexpr int kTileX = 16, kTileY = 16, kMinCtas = 4;
 
 struct AtrousArgs {
   const float* signal;  // (h, w, 4) (rgb, 2nd moment) at iteration 0, else (rgb, variance)
@@ -33,7 +49,7 @@ struct AtrousArgs {
   relax::Frame f;
   float denoising_range, depth_threshold, lobe_fraction, nwp_sve, phi, max_rel, min_material,
       history_threshold;
-  int step;
+  int step, halo;  // halo: the staged window's margin (iteration 0)
   bool is_first, spec;
   uint32_t frame_index;
   float w0, w0_sq, k01, k11;  // Gaussian 3x3: centre, centre squared, edge, corner
@@ -47,25 +63,59 @@ struct AtrousArgs {
 // 3x3 Gaussian prefilter of the centre's variance, [|dx|][|dy|]
 __constant__ float kPrefilter[2][2] = {{0.25f, 0.125f}, {0.125f, 0.0625f}};
 
+// one texel of the three tapped images, with what every tap derives from it alone
+struct Texel {
+  float4 g;  // the unpacked normal (x, y, z), viewZ (relax::view_z)
+  float4 s;  // the signal
+  float4 m;  // the signal's luminance, material (nr.w x 3), roughness, unused
+};
+
+__device__ __forceinline__ Texel derive(const relax::Frame& f, float4 s, float4 nr, float raw_z) {
+  const V3 n = nrd::unpack_normal(nr.x, nr.y);
+  return Texel{make_float4(n.x, n.y, n.z, relax::view_z(f, raw_z)), s,
+               make_float4(relax::luminance(s.x, s.y, s.z), nr.w * 3.0f, nr.z, 0.0f)};
+}
+
+__device__ __forceinline__ Texel load_texel(const AtrousArgs& a, int tx, int ty) {
+  const size_t k = Image<float, 4>{a.signal, a.f.w, a.f.h}.index(tx, ty);
+  return derive(a.f, __ldg(reinterpret_cast<const float4*>(a.signal) + k),
+                __ldg(reinterpret_cast<const float4*>(a.nr) + k), __ldg(a.view_z + k));
+}
+
+// The tile's window of texels, clamp-to-edge: wh rows of ww texels from (ox, oy), in shared
+// memory, or nothing (g null) where the stride is not staged.
+struct Window {
+  const float4* g;
+  const float4* s;
+  const float4* m;
+  int ox, oy, ww, wh;
+};
+
+__device__ __forceinline__ Texel fetch(const AtrousArgs& a, const Window& wnd, int tx, int ty) {
+  const int i = tx - wnd.ox, j = ty - wnd.oy;
+  if (wnd.g != nullptr && (unsigned)i < (unsigned)wnd.ww && (unsigned)j < (unsigned)wnd.wh) {
+    const int k = j * wnd.ww + i;
+    return Texel{wnd.g[k], wnd.s[k], wnd.m[k]};
+  }
+  return load_texel(a, tx, ty);
+}
+
 // the 5x5 spatial variance estimation of a short history (clamp-to-edge)
-__device__ __forceinline__ void variance_estimation(const AtrousArgs& a, int x, int y, V3 n,
-                                                    float mat_c, float hl, float out[4]) {
-  const Image<float, 4> sig{a.signal, a.f.w, a.f.h};
-  const Image<float, 4> nr{a.nr, a.f.w, a.f.h};
+__device__ __forceinline__ void variance_estimation(const AtrousArgs& a, const Window& wnd,
+                                                    int x, int y, V3 n, float mat_c, float hl,
+                                                    float out[4]) {
   float swsum = 0.0f, s_rgb[3] = {0.0f, 0.0f, 0.0f}, s_m1 = 0.0f, s_m2 = 0.0f;
   for (int dy = -2; dy <= 2; ++dy)
     for (int dx = -2; dx <= 2; ++dx) {
-      const int tx = x + dx, ty = y + dy;
-      const V3 ns = nrd::unpack_normal(nr.at(tx, ty, 0), nr.at(tx, ty, 1));
+      const Texel t = fetch(a, wnd, x + dx, y + dy);
+      const V3 ns{t.g.x, t.g.y, t.g.z};
       float w_ = nrd::compute_weight(nrd::acos_approx(nrd::dot3(n, ns)), a.nwp_sve, 0.0f);
-      w_ = w_ * (fmaxf(nr.at(tx, ty, 3) * 3.0f, a.min_material) == mat_c ? 1.0f : 0.0f);
-      float s[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[c] = sig.at(tx, ty, c);
+      w_ = w_ * (fmaxf(t.m.y, a.min_material) == mat_c ? 1.0f : 0.0f);
+      const float s[4] = {t.s.x, t.s.y, t.s.z, t.s.w};
       swsum = swsum + w_;
 #pragma unroll
       for (int c = 0; c < 3; ++c) s_rgb[c] = s_rgb[c] + s[c] * w_;
-      s_m1 = s_m1 + relax::luminance(s[0], s[1], s[2]) * w_;
+      s_m1 = s_m1 + t.m.x * w_;
       s_m2 = s_m2 + s[3] * w_;
     }
   swsum = fmaxf(swsum, 1e-6f);
@@ -82,20 +132,42 @@ __device__ __forceinline__ float relaxation(const AtrousArgs& a, float conf, flo
   return nrd::saturate(nrd::saturate(a.conf_mult * (1.0f - conf)) * r);
 }
 
-__global__ void __launch_bounds__(256) relax_atrous_kernel(AtrousArgs a) {
-  const int x = blockIdx.x * nrd::kBlock + threadIdx.x;
-  const int y = blockIdx.y * nrd::kBlock + threadIdx.y;
+template <bool kStaged>
+__global__ void __launch_bounds__(kTileX * kTileY, kMinCtas) relax_atrous_kernel(AtrousArgs a) {
+  const int x = blockIdx.x * kTileX + threadIdx.x;
+  const int y = blockIdx.y * kTileY + threadIdx.y;
+  Window wnd{nullptr, nullptr, nullptr, 0, 0, 0, 0};
+  if constexpr (kStaged) {  // every thread of the CTA stages, then the ones outside the image leave
+    extern __shared__ float4 window[];
+    wnd.ox = blockIdx.x * kTileX - a.halo;
+    wnd.oy = blockIdx.y * kTileY - a.halo;
+    wnd.ww = kTileX + 2 * a.halo;
+    wnd.wh = kTileY + 2 * a.halo;
+    const int n = wnd.ww * wnd.wh;
+    float4* g = window;
+    float4* s = window + n;
+    float4* m = window + 2 * n;
+    for (int j = threadIdx.y; j < wnd.wh; j += kTileY)
+      for (int i = threadIdx.x; i < wnd.ww; i += kTileX) {
+        const Texel t = load_texel(a, wnd.ox + i, wnd.oy + j);
+        g[j * wnd.ww + i] = t.g;
+        s[j * wnd.ww + i] = t.s;
+        m[j * wnd.ww + i] = t.m;
+      }
+    wnd.g = g;
+    wnd.s = s;
+    wnd.m = m;
+    __syncthreads();
+  }
   if (x >= a.f.w || y >= a.f.h) return;
   const size_t i = (size_t)y * a.f.w + x;
-  const Image<float, 4> sig{a.signal, a.f.w, a.f.h};
-  const Image<float, 4> nr{a.nr, a.f.w, a.f.h};
-  const Image<float, 1> vz{a.view_z, a.f.w, a.f.h};
-  const float hl = a.hl[i];
-  const V3 n = nrd::unpack_normal(nr.at(x, y, 0), nr.at(x, y, 1));
-  const float mat_c = fmaxf(nr.at(x, y, 3) * 3.0f, a.min_material);
+  const Texel ct = fetch(a, wnd, x, y);
+  const float hl = __ldg(a.hl + i);
+  const V3 n{ct.g.x, ct.g.y, ct.g.z};
+  const float mat_c = fmaxf(ct.m.y, a.min_material);
   float out[4];
   if (a.is_first && !(hl >= a.history_threshold)) {
-    variance_estimation(a, x, y, n, mat_c, hl, out);
+    variance_estimation(a, wnd, x, y, n, mat_c, hl, out);
 #pragma unroll
     for (int c = 0; c < 4; ++c) a.out[4 * i + c] = out[c];
     return;
@@ -103,19 +175,17 @@ __global__ void __launch_bounds__(256) relax_atrous_kernel(AtrousArgs a) {
 
   const float fw = (float)a.f.w, fh = (float)a.f.h;
   const float u = nrd::pixel_u(x, a.f.w), v = nrd::pixel_u(y, a.f.h);
-  const float z = relax::view_z(a.f, vz.at(x, y, 0));
+  const float z = ct.g.w;
   const V3 xc = relax::world_pos(a.f, u, v, z);
   const float thr = a.depth_threshold * (a.f.ortho == 0.0f ? z : 1.0f);
-  float c[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) c[k] = sig.at(x, y, k);
+  const float c[4] = {ct.s.x, ct.s.y, ct.s.z, ct.s.w};
 
   // the diffuse lobe fraction, relaxed by IN_DIFF_CONFIDENCE
   const float dlf0 =
       a.is_first ? a.lobe_fraction : 0.99f + (a.lobe_fraction - 0.99f) * nrd::saturate(hl / 5.0f);
   float dlf = dlf0, lum_relax = 1.0f;
   if (a.diff_conf != nullptr) {
-    const float conf = a.diff_conf[i];
+    const float conf = __ldg(a.diff_conf + i);
     dlf = dlf0 + (1.0f - dlf0) * relaxation(a, conf, a.conf_normal);
     lum_relax = 1.0f - relaxation(a, conf, a.conf_lum);
   }
@@ -126,13 +196,13 @@ __global__ void __launch_bounds__(256) relax_atrous_kernel(AtrousArgs a) {
   float nwp_simpl = 0.0f, ra = 0.0f, rb = 0.0f, angle0 = 0.0f, f0 = 0.0f;
   V3 cv{0.0f, 0.0f, 0.0f};
   if (a.spec) {
-    const float reproj = a.reproj != nullptr ? a.reproj[i] : 1.0f;
+    const float reproj = a.reproj != nullptr ? __ldg(a.reproj + i) : 1.0f;
     lum_relax = 1.0f;
     if ((a.step <= 4 || a.is_first) && a.reproj != nullptr)
       lum_relax = 1.0f + (reproj - 1.0f) * a.lesr;
     float spec_lobe = a.laf, dlf_simpl = dlf0;
     if (a.spec_conf != nullptr) {
-      const float conf = a.spec_conf[i];
+      const float conf = __ldg(a.spec_conf + i);
       const float rr = relaxation(a, conf, a.conf_normal);
       dlf_simpl = dlf0 + (1.0f - dlf0) * rr;
       spec_lobe = a.laf + (1.0f - a.laf) * rr;
@@ -140,7 +210,7 @@ __global__ void __launch_bounds__(256) relax_atrous_kernel(AtrousArgs a) {
     }
     if (spec_taps) {
       nwp_simpl = relax::normal_weight_param2(dlf_simpl);
-      const float rough = nr.at(x, y, 2);
+      const float rough = ct.m.z;
       ra = 1.0f / (0.01f + 0.99f * nrd::saturate(rough * a.rf));
       rb = -(rough * ra);
       relax::normal_weight_params_atrous(rough, hl, reproj, a.nesr, spec_lobe, a.slack,
@@ -165,8 +235,11 @@ __global__ void __launch_bounds__(256) relax_atrous_kernel(AtrousArgs a) {
     for (int dy = -1; dy <= 1; ++dy)
       for (int dx = -1; dx <= 1; ++dx) {
         const float k = kPrefilter[abs(dx)][abs(dy)];
-#pragma unroll
-        for (int ch = 0; ch < 4; ++ch) pre[ch] = pre[ch] + sig.at(x + dx, y + dy, ch) * k;
+        const float4 s = fetch(a, wnd, x + dx, y + dy).s;
+        pre[0] = pre[0] + s.x * k;
+        pre[1] = pre[1] + s.y * k;
+        pre[2] = pre[2] + s.z * k;
+        pre[3] = pre[3] + s.w * k;
       }
     const float m1 = relax::luminance(pre[0], pre[1], pre[2]);
     var = fmaxf(pre[3] - m1 * m1, 0.0f);
@@ -175,7 +248,7 @@ __global__ void __launch_bounds__(256) relax_atrous_kernel(AtrousArgs a) {
   }
 
   const float phi_inv = 1.0f / fmaxf(a.phi * sqrtf(var), 1e-4f);
-  const float center_l = relax::luminance(c[0], c[1], c[2]);
+  const float center_l = ct.m.x;
   const float rinv_x = 1.0f / fw, rinv_y = 1.0f / fh;
   float wsum = a.w0;
   float acc[4] = {c[0] * a.w0, c[1] * a.w0, c[2] * a.w0, c[3] * (a.is_first ? a.w0 : a.w0_sq)};
@@ -187,9 +260,10 @@ __global__ void __launch_bounds__(256) relax_atrous_kernel(AtrousArgs a) {
       const float vs = v + ((float)(yy * a.step) + offy) * rinv_y;
       const float inside = nrd::in_screen_nearest(us, vs);
       const int tx = nrd::to_index(floorf(us * fw)), ty = nrd::to_index(floorf(vs * fh));
-      const float zs = relax::view_z(a.f, vz.at(tx, ty, 0));
-      const V3 ns = nrd::unpack_normal(nr.at(tx, ty, 0), nr.at(tx, ty, 1));
-      const float ms = nr.at(tx, ty, 3) * 3.0f;
+      const Texel t = fetch(a, wnd, tx, ty);
+      const float zs = t.g.w;
+      const V3 ns{t.g.x, t.g.y, t.g.z};
+      const float ms = t.m.y;
       const V3 xs = relax::world_pos(a.f, us, vs, zs);
       float gw = (relax::plane_dist(xs, xc, n) < thr ? 1.0f : 0.0f) * kern;
       gw = gw * inside * (zs < a.denoising_range ? 1.0f : 0.0f);
@@ -200,7 +274,7 @@ __global__ void __launch_bounds__(256) relax_atrous_kernel(AtrousArgs a) {
           const V3 sv = relax::neg_normalize(
               V3{xs.x + a.resr * xc.x, xs.y + a.resr * xc.y, xs.z + a.resr * xc.z});
           const float nw = relax::specular_normal_weight_atrous(angle0, f0, n, ns, cv, sv);
-          w_ = gw * (nw * nrd::compute_weight(nr.at(tx, ty, 2), ra, rb));
+          w_ = gw * (nw * nrd::compute_weight(t.m.z, ra, rb));
         } else {
           w_ = gw * nrd::compute_weight(angle, nwp_simpl, 0.0f);
         }
@@ -208,10 +282,8 @@ __global__ void __launch_bounds__(256) relax_atrous_kernel(AtrousArgs a) {
         w_ = gw * nrd::compute_weight(angle, nwp, 0.0f);
       }
       w_ = w_ * (fmaxf(ms, a.min_material) == mat_c ? 1.0f : 0.0f);
-      float s[4];
-#pragma unroll
-      for (int ch = 0; ch < 4; ++ch) s[ch] = sig.at(tx, ty, ch);
-      const float sl = relax::luminance(s[0], s[1], s[2]);
+      const float s[4] = {t.s.x, t.s.y, t.s.z, t.s.w};
+      const float sl = t.m.x;
       const float lw = fminf(fabsf(center_l - sl) * phi_inv, a.max_rel) * lum_relax;
       w_ = w_ * expf(-lw);
       wsum = wsum + w_;
@@ -282,8 +354,16 @@ extern "C" int nrd_relax_atrous(void* const* p, const float* c, int w, int h, vo
   a.lesr = q[24];
   a.resr = q[25];
   a.roughness_edge_stopping = q[26] != 0.0f;
-  dim3 block(nrd::kBlock, nrd::kBlock);
-  dim3 grid((w + nrd::kBlock - 1) / nrd::kBlock, (h + nrd::kBlock - 1) / nrd::kBlock);
-  relax_atrous_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  // iteration 0 reads the 5x5 estimation's neighbours and its taps'
+  a.halo = a.step > 2 ? a.step : 2;
+  const dim3 block(kTileX, kTileY);
+  const dim3 grid((w + kTileX - 1) / kTileX, (h + kTileY - 1) / kTileY);
+  if (a.is_first) {
+    const size_t texels = (size_t)(kTileX + 2 * a.halo) * (kTileY + 2 * a.halo);
+    const size_t smem = texels * 3 * sizeof(float4);
+    relax_atrous_kernel<true><<<grid, block, smem, (cudaStream_t)stream>>>(a);
+  } else {
+    relax_atrous_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  }
   return (int)cudaGetLastError();
 }

@@ -33,8 +33,9 @@ __global__ void __launch_bounds__(256) spatial_filter_kernel(SfArgs a) {
   const nrd::Centre c = nrd::sf_centre(a.shared + i, plane, nr, x, y);
   float out[4];
   nrd::sf_filter(a.f, c, a.params + i, plane, a.nparams, a.min_material,
-                 Image<float, 4>{a.signal, a.f.w, a.f.h}, nr,
-                 Image<float, 1>{a.view_z, a.f.w, a.f.h}, out, a.hdt + i);
+                 Image<float, 4>{a.signal, a.f.w, a.f.h},
+                 nrd::PackedTaps{nr, Image<float, 1>{a.view_z, a.f.w, a.f.h}, a.f.view_z_scale},
+                 out, a.hdt + i);
 #pragma unroll
   for (int k = 0; k < 4; ++k) a.out[4 * i + k] = out[k];
 }

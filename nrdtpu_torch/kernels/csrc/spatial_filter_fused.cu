@@ -37,13 +37,14 @@ __global__ void __launch_bounds__(256) spatial_filter_fused_kernel(SffArgs a) {
   const Image<float, 4> nr{a.nr, a.f.w, a.f.h};
   const Image<float, 1> vz{a.view_z, a.f.w, a.f.h};
   const nrd::Centre c = nrd::sf_centre(a.shared + i, plane, nr, x, y);
+  const nrd::PackedTaps taps{nr, vz, a.f.view_z_scale};
   float out[4];
   nrd::sf_filter(a.f, c, a.diff_params + i, plane, nrd::kSfDiffParams, a.diff_min_material,
-                 Image<float, 4>{a.diff, a.f.w, a.f.h}, nr, vz, out, nullptr);
+                 Image<float, 4>{a.diff, a.f.w, a.f.h}, taps, out, nullptr);
 #pragma unroll
   for (int k = 0; k < 4; ++k) a.out[4 * i + k] = out[k];
   nrd::sf_filter(a.f, c, a.spec_params + i, plane, a.spec_nparams, a.spec_min_material,
-                 Image<float, 4>{a.spec, a.f.w, a.f.h}, nr, vz, out, a.hdt + i);
+                 Image<float, 4>{a.spec, a.f.w, a.f.h}, taps, out, a.hdt + i);
 #pragma unroll
   for (int k = 0; k < 4; ++k) a.out[4 * (plane + i) + k] = out[k];
 }

@@ -15,11 +15,12 @@ port's chain computes for both radiance signals (`passes/reblur/kernels.py:spati
      accumulation speed, then N4's tap loop (`spatial_filter_fused`); it writes sig3;
   C. PostBlur: the same with the POST_BLUR constants on sig3; it writes sig4.
 
-One thread per pixel in 16x16 tiles. Each phase reads the previous one's output at its taps,
-so the three phases are one cooperative launch of a persistent grid (occupancy x SM count
-CTAs, each walking the tiles) with a grid-wide barrier between phases; sig2 and sig3 live in
-float32 scratch that the wrapper allocates. A cooperative launch the card cannot hold raises,
-as every launch error does: there is no fallback to three launches.
+One thread per (pixel, signal) in 16x16 tiles. Each phase reads the previous one's output at
+its taps, so the entry makes ordinary launches on the caller's stream, one per phase after a
+prologue that unpacks each pixel's tap geometry (normal, scaled viewZ) once, and stream order
+separates them; each phase has its own register budget. sig2, sig3 and the geometry live in
+float32 scratch that the wrapper allocates. The wrapper counts one launch per call (one call of
+the entry); a launch error raises, as every launch error does.
 
 The plain version `reblur_band_ref` is that chain on torch tensors: N5's plain version, the
 clamp, the parameters and N4's plain version twice, so on the CPU the band and the chain give
@@ -157,7 +158,7 @@ def reblur_band(diff, spec, view_z_in, normal_roughness, diff_data1, spec_data1,
     taps = sf.device_taps(perf_mode, dev)
     out = torch.empty((2, h, w, 4), dtype=f32, device=dev)
     fast = torch.empty((2, h, w), dtype=f32, device=dev)
-    scratch = torch.empty((2, 2, h, w, 4), dtype=f32, device=dev)  # sig2, sig3
+    scratch = torch.empty((5, h, w, 4), dtype=f32, device=dev)  # sig2, sig3, tap geometry
     consts = [*frustum, rect_size[0], rect_size[1], rect_size_inv[0], rect_size_inv[1],
               view_z_scale, ortho_mode, diff_min_material, spec_min_material,
               *map(bool, anti_firefly), taps.shape[0],

@@ -27,7 +27,9 @@ iteration 0 keeps the diffuse normal weight, as XLA does (`use_variance_estimati
 Bound on the H100: gathers. Per pixel it reads the centre's signal, viewZ, packed normal and
 history length (40 B) and 8 taps of viewZ, packed normal and signal (8 x 36 B, `step` px
 away: 1 to 16 at the default 5 iterations); iteration 0 reads 8 more signal taps of the 3x3
-and, where the history is short, the 25 taps of the 5x5 (L1 neighbours); it writes 16 B.
+and, where the history is short, the 25 taps of the 5x5 (L1 neighbours); it writes 16 B. A
+tap is three loads (a float4 of signal, a float4 of `nr`, a float of viewZ); iteration 0 reads
+the tile's window staged in shared memory.
 """
 
 from __future__ import annotations
