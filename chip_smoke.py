@@ -19,12 +19,15 @@ Phases, each of which raises on failure (exit code != 0):
      per source, all started together;
   2. per REBLUR variant: run 3 frames of the orbit scene through `Engine(device="cuda")`,
      record every kernel call of frame 4, and hold each kernel against its plain PyTorch
-     version on the same inputs on the card; time both, and compute each call's bound
-     (compulsory bytes over the card's memory rate, or operations over its float32 rate);
-     read each device kernel's registers and spills from the build log's ptxas lines and
-     work out its CTAs an SM.
+     version on the same inputs on the card (N4 `spatial_filter_fused` by stage: PrePass,
+     Blur, PostBlur); time both, and compute each call's bound (compulsory bytes over the
+     card's memory rate, or operations over its float32 rate); read each device kernel's
+     registers and spills from the build log's ptxas lines, work out its CTAs an SM, and
+     count its SASS instructions (`cuobjdump -sass` of the library; null where the toolkit
+     has no cuobjdump). An entry that launches several device kernels (N5, K23) lists each.
      The same again with `enableAntiFirefly=True` (the anti-firefly ring of history_fix and
-     history_fix_fused), and with hit-distance reconstruction at radius 1 and 2 on the
+     history_fix_fused), REBLUR_DIFFUSE_SPECULAR in performance mode (N4 only, held, not
+     timed), and with hit-distance reconstruction at radius 1 and 2 on the
      punched frames (hitdist_recon only); then each SIGMA variant; then RELAX_DIFFUSE and
      RELAX_SPECULAR (every kernel of each, all five à-trous calls), both with
      `enableAntiFirefly=True` (relax_antifirefly timed, the rest held only), and both with
@@ -163,6 +166,7 @@ RELAX_VARIANTS = ("RELAX_DIFFUSE", "RELAX_SPECULAR")
 # RELAX-packed frames with hit-distance holes: the kernel phase's RELAX AREA_3X3 runs
 RELAX_HOLES = {v: f"{v}+holes" for v in RELAX_VARIANTS}
 REBLUR_VARIANTS = ("REBLUR_DIFFUSE", "REBLUR_SPECULAR", "REBLUR_DIFFUSE_SPECULAR")
+SF_STAGES = ("prepass", "blur", "post_blur")  # N4's calls of a REBLUR_DIFFUSE_SPECULAR frame
 HOLE_FRACTION = 0.3  # of the geometry pixels whose hit distance the frames with holes zero
 TRANSLUCENCY_RGB = (0.3, 0.6, 0.2)
 # Float operations a pixel, counted from the kernel sources (transcendentals count as one):
@@ -191,8 +195,8 @@ RH_SPEC_TAP_OPS = 40                        # relax_history_fix.cu's specular ta
 RV_HISTORY_OPS = 160                        # relax_vmb_resolve.cu: CatRom of one history
 AF_SIGNAL_OPS = 8 * 12 + 10                 # relax_antifirefly.cu: 8 taps of one signal
 BR_SET_OPS = 30                             # bilinear_resolve.cu: one bilinear sample
-BAND_CLAMP_OPS, BAND_PARAM_OPS = 30, 90     # reblur_filters.cuh: hf_clamp, and the
-                                            # Blur/PostBlur parameters of one signal
+BAND_CLAMP_OPS, BAND_PARAM_OPS = 30, 90     # reblur_filters.cuh: hf_clamp (N5 and K23),
+                                            # and the Blur/PostBlur parameters of one signal
 BAND_SCRATCH_BYTES_PER_PX = 128             # reblur_band.cu: sig2 and sig3 written and read
 # the H100's limits an SM (NVIDIA's data sheet), against which each kernel's CTAs an SM
 # are worked out from its registers, its shared memory and its block size; the runtime keeps
@@ -400,12 +404,16 @@ def _ops(name, a, k):
         for params in per:
             extra = SF_PREPASS_TAP_OPS if sf.MODES[params.shape[0]] == "spec_prepass" else 0
             ops += (SF_TAP_OPS + extra) * ntaps * px
-    elif name in ("history_fix", "history_fix_fused", "reblur_band"):
-        af = k.get("anti_firefly", False)
-        per = ([(a[6], af)] if name == "history_fix"
-               else [(a[9], af[0]), (a[10], af[1])])
-        if name == "reblur_band":  # the clamp, then the Blur and PostBlur of each signal
-            ops += 2 * (BAND_CLAMP_OPS + 2 * (BAND_PARAM_OPS + SF_TAP_OPS * ntaps)) * px
+    elif name == "history_fix":
+        live = int((a[6][0] != 0.0).sum())
+        ops += HF_MOMENT_OPS * px + (HF_RING_OPS * px if k.get("anti_firefly") else 0)
+        ops += HF_TAP_OPS * 20 * live
+    elif name in ("history_fix_fused", "reblur_band"):
+        af = k["anti_firefly"]
+        per = [(a[9], af[0]), (a[10], af[1])]
+        ops += 2 * BAND_CLAMP_OPS * px  # the clamp of each signal
+        if name == "reblur_band":  # then the Blur and PostBlur of each signal
+            ops += 2 * 2 * (BAND_PARAM_OPS + SF_TAP_OPS * ntaps) * px
         for params, ring in per:
             live = int((params[0] != 0.0).sum())
             ops += HF_MOMENT_OPS * px + (HF_RING_OPS * px if ring else 0) + HF_TAP_OPS * 20 * live
@@ -475,9 +483,38 @@ def _library(name, a, k):
                                                    align_corners=False)
 
 
+def _template_args(rest):
+    """The bool, int and enum literals of a mangled template argument list (`I...E`), or None
+    where it holds anything else."""
+    if not rest.startswith("I"):
+        return None
+    i, vals = 1, []
+    while rest[i:i + 1] == "L":
+        i += 1
+        if rest[i] in "bi":
+            kind = rest[i]
+            i += 1
+        elif rest[i] == "N":  # an enum: its nested name, then the value
+            i, parts = i + 1, []
+            while rest[i].isdigit():
+                n = re.match(r"\d+", rest[i:])[0]
+                parts.append(rest[i + len(n):i + len(n) + int(n)])
+                i += len(n) + int(n)
+            kind, i = parts[-1], i + 1
+        else:
+            return None
+        v = re.match(r"\d+", rest[i:])
+        if v is None or rest[i + len(v[0]):i + len(v[0]) + 1] != "E":
+            return None
+        i += len(v[0]) + 1
+        vals.append(("false", "true")[int(v[0])] if kind == "b" else v[0] if kind == "i"
+                    else f"{kind}({v[0]})")
+    return vals if rest[i:i + 1] == "E" else None
+
+
 def _kernel_name(mangled):
     """The function name of a mangled kernel entry (its last nested name), with its template
-    argument where it has one bool or int."""
+    arguments where they are bool, int or enum literals."""
     rest = mangled[3:] if mangled.startswith("_ZN") else mangled[2:]
     names = []
     while rest[:1].isdigit():
@@ -486,10 +523,33 @@ def _kernel_name(mangled):
         rest = rest[len(n) + int(n):]
     if not names:
         return mangled
-    arg = re.match(r"IL([bi])(\d+)E", rest)
-    if arg:  # one bool or int template argument
-        return names[-1] + f"<{('false', 'true')[int(arg[2])] if arg[1] == 'b' else arg[2]}>"
+    args = _template_args(rest)
+    if args is not None:
+        return names[-1] + f"<{', '.join(args)}>"
     return names[-1] + ("<...>" if rest[:1] == "I" else "")
+
+
+def sass_instructions(library):
+    """{mangled kernel: SASS instructions, NOPs left out} of the built library, from
+    `cuobjdump -sass`; None where the toolkit has no cuobjdump."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = os.path.join(CUDA_HOME or "", "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    text = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = m[1]
+            counts[cur] = 0
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(\S+)", line)
+        if m and cur is not None and not m[1].startswith("NOP"):
+            counts[cur] += 1
+    return counts
 
 
 def ptxas_usage(text):
@@ -554,9 +614,10 @@ def _dynamic_smem(name, a, k):
     return {}
 
 
-def occupancy(name, dynamic_smem):
-    """Registers, spill bytes and CTAs an SM of each device kernel of a kernel module;
-    dynamic_smem: the largest dynamic shared memory of each device kernel in this run."""
+def occupancy(name, dynamic_smem, sass):
+    """Registers, spill bytes, CTAs an SM and SASS instructions (None without cuobjdump) of
+    each device kernel of a kernel module; dynamic_smem: the largest dynamic shared memory of
+    each device kernel in this run; sass: `sass_instructions` of the library."""
     from nrdtpu_torch.kernels import build
 
     usage = ptxas_usage((build.BUILD_DIR / "build.log").read_text())
@@ -565,7 +626,8 @@ def occupancy(name, dynamic_smem):
         smem = u["static_smem"] + dynamic_smem.get(u["kernel"], 0)
         out.append(dict(kernel=u["kernel"], registers=u["registers"],
                         spill_bytes=u["spill_bytes"], shared_bytes=smem,
-                        ctas_per_sm=ctas_per_sm(u["registers"], smem)))
+                        ctas_per_sm=ctas_per_sm(u["registers"], smem),
+                        sass_instructions=None if sass is None else sass.get(u["mangled"])))
     if not out:
         raise AssertionError(f"{name}: no ptxas lines for {SOURCES[name][0]} in build.log")
     return out
@@ -618,6 +680,9 @@ def kernel_runs():
     for v in REBLUR_VARIANTS:
         runs.append((v, v, v, {}, None, True))
         runs.append((v, v, v, dict(enableAntiFirefly=True), None, False))
+    ds = "REBLUR_DIFFUSE_SPECULAR"
+    runs.append((f"{ds} perf", ds, ds, dict(enablePerformanceMode=True),
+                 {"spatial_filter_fused"}, False))
     for v in REBLUR_VARIANTS:
         for mode in ("AREA_3X3", "AREA_5X5"):
             runs.append((f"{v} {mode}", v, "REBLUR_DIFFUSE_SPECULAR+AREA_3X3",
@@ -720,19 +785,26 @@ def kernel_phase(w, h, frames):
     """Record the kernel calls of one frame of each run of `kernel_runs` and hold each kernel
     against its plain version on the same inputs, then the halo launcher (`halo_phase`).
     Times and bounds are of the timed runs; the anti-firefly ring's calls of the history
-    fixes are timed apart; the band is also timed against the chain it replaces."""
+    fixes are timed apart; the band is also timed against the chain it replaces. N4's calls
+    are kept apart by stage (PrePass, Blur, PostBlur)."""
     from nrdtpu_torch import kernels as KM
+    from nrdtpu_torch.kernels import build
 
     results, chain = {}, {}
     for label, denoiser, pool, settings, only, timed in kernel_runs():
+        stages = iter(SF_STAGES)
         for name, a, k in record_calls(denoiser, pool, w, h, frames, **settings):
             if name == "pass spatial_band":
                 chain[label] = band_chain(label, a, k)
                 continue
+            lab = label
+            if name == "spatial_filter_fused":  # a frame's calls: PrePass, Blur, PostBlur
+                lab = f"{label} {next(stages)}"
             if only is not None and name not in only:
                 continue
             # the à-trous ladder's calls are kept apart by stride
-            lab = f"{label} step {k['step_size']}" if name == "relax_atrous" else label
+            if name == "relax_atrous":
+                lab = f"{label} step {k['step_size']}"
             scratch = (BAND_SCRATCH_BYTES_PER_PX * a[0].shape[0] * a[0].shape[1]
                        if name == "reblur_band" else 0)
             _hold(results, name, lab, a, k, timed is True or bool(timed and name in timed),
@@ -742,6 +814,7 @@ def kernel_phase(w, h, frames):
         raise AssertionError(f"kernels called by no main path: {sorted(missing)}; only "
                              f"{list(NO_MAIN_PATH)} may be")
     halo_phase(w, h, results)
+    sass = sass_instructions(build.library_path())
     for name, r in results.items():
         frac = r["over"] / max(r["count"], 1)
         r["over_fraction"] = frac
@@ -753,10 +826,11 @@ def kernel_phase(w, h, frames):
         r["bound_by"] = "operations" if "operations" in r["bound_by"] else "bytes"
         if name == "reblur_band":
             r["chain_by_path"] = chain
-        r["device_kernels"] = occupancy(name, r.pop("dynamic_smem"))
+        r["device_kernels"] = occupancy(name, r.pop("dynamic_smem"), sass)
         log(f"kernel {name}: " + ", ".join(
             f"{d['kernel']} {d['registers']} registers, {d['spill_bytes']} B spill, "
-            f"{d['shared_bytes']} B shared, {d['ctas_per_sm']} CTAs/SM"
+            f"{d['shared_bytes']} B shared, {d['ctas_per_sm']} CTAs/SM, "
+            f"{d['sass_instructions']} SASS instructions"
             for d in r["device_kernels"]) + f" | max_abs_err {r['max_abs_err']:.3g} max_rel_err "
             f"{r['max_rel_err']:.3g} over-tolerance fraction {frac:.3g} | mean per launch "
             f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
@@ -1060,6 +1134,10 @@ def main():
                  registers=max(d["registers"] for d in r["device_kernels"]),
                  spill_bytes=max(d["spill_bytes"] for d in r["device_kernels"]),
                  ctas_per_sm=min(d["ctas_per_sm"] for d in r["device_kernels"]),
+                 sass_instructions=(None if any(d["sass_instructions"] is None
+                                                for d in r["device_kernels"])
+                                    else sum(d["sass_instructions"]
+                                             for d in r["device_kernels"])),
                  device_kernels=r["device_kernels"],
                  launches_by_path={v: c[name] for v, c in counts.items()},
                  ms_by_path=r["ms_by_path"], plain_ms_by_path=r["plain_ms_by_path"],

@@ -46,20 +46,25 @@ def _nvcc() -> str:
     return nvcc
 
 
-def library():
-    """Build (if needed) and load the kernel library."""
-    global _lib, build_seconds
-    if _lib is not None:
-        return _lib
+def library_path() -> Path:
+    """The library that the current sources and flags build to."""
     cu, cuh = _sources()
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in cuh + cu:
         digest.update(p.name.encode())
         digest.update(p.read_bytes())
-    so = BUILD_DIR / f"libnrdtpu_torch_{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libnrdtpu_torch_{digest.hexdigest()[:16]}.so"
+
+
+def library():
+    """Build (if needed) and load the kernel library."""
+    global _lib, build_seconds
+    if _lib is not None:
+        return _lib
+    so = library_path()
     t0 = time.perf_counter()
     if not so.exists():
-        _build(so, cu)
+        _build(so, _sources()[0])
     lib = ctypes.CDLL(str(so))
     lib.nrd_error_string.argtypes = [ctypes.c_int]
     lib.nrd_error_string.restype = ctypes.c_char_p

@@ -22,10 +22,11 @@ struct HfArgs {
   float* out;           // (h, w, 4)
   float* moments;       // (2 | 4, h, w): m1, m2 of the 3x3 [, of the anti-firefly ring]
   float min_material;
-  bool spec, anti_firefly;
+  bool anti_firefly;
   nrd::HfFrame f;
 };
 
+template <bool kSpec>
 __global__ void __launch_bounds__(256) history_fix_kernel(HfArgs a) {
   const int x = blockIdx.x * nrd::kBlock + threadIdx.x;
   const int y = blockIdx.y * nrd::kBlock + threadIdx.y;
@@ -40,7 +41,7 @@ __global__ void __launch_bounds__(256) history_fix_kernel(HfArgs a) {
   const Image<float, 4> nr{a.nr, a.f.w, a.f.h};
   const nrd::Centre c = nrd::hf_centre(a.shared + i, plane, nr, x, y);
   float out[4];
-  nrd::hf_filter(a.f, c, a.params + i, plane, a.spec, a.min_material,
+  nrd::hf_filter<kSpec>(a.f, c, a.params + i, plane, a.min_material,
                  Image<float, 4>{a.signal, a.f.w, a.f.h}, Image<float, 1>{a.data1, a.f.w, a.f.h},
                  nrd::PackedTaps{nr, Image<float, 1>{a.view_z, a.f.w, a.f.h}, a.f.view_z_scale},
                  out);
@@ -72,10 +73,12 @@ extern "C" int nrd_history_fix(void* const* p, const float* c, int w, int h, voi
   a.f.view_z_scale = c[6];
   a.f.ortho = c[7];
   a.min_material = c[8];
-  a.spec = c[9] != 0.0f;
   a.anti_firefly = c[10] != 0.0f;
   dim3 block(nrd::kBlock, nrd::kBlock);
   dim3 grid((w + nrd::kBlock - 1) / nrd::kBlock, (h + nrd::kBlock - 1) / nrd::kBlock);
-  history_fix_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  if (c[9] != 0.0f)
+    history_fix_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  else
+    history_fix_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -4,8 +4,8 @@
 // kernels.py:spatial_chain), in three phases over one thread per (pixel, signal), after a
 // prologue that unpacks each pixel's tap geometry once:
 //   0. the normal and the scaled viewZ of every pixel (unpacked_geometry); writes geometry;
-//   A. N5's per-pixel body (hf_filter, the 3x3 and ring moments), then the clamp (hf_clamp);
-//      writes sig2 and fast2;
+//   A. the history fix and its clamp, the body that N5 runs (reblur_filters.cuh:
+//      history_fix_cta: hf_filter, the 3x3 and ring moments, hf_clamp); writes sig2 and fast2;
 //   B. the BLUR parameters from sig2's hit distance (diff_blur_params, spec_blur_params), then
 //      N4's tap loop (sf_filter) on sig2; writes sig3;
 //   C. the same with the POST_BLUR constants on sig3; writes sig4.
@@ -22,54 +22,34 @@
 // the tapped texel's unpacked normal and viewZ, the same for every pixel that taps it: the
 // prologue computes them once a pixel into a float4 plane, and the taps read it and nr as
 // float4 records through the read-only path (reblur_filters.cuh:UnpackedTaps). Phase A
-// stages its signal's fast history over the tile and the ring's 4-pixel margin (24x24 floats,
-// clamp-to-edge) in shared memory, where the 3x3 and the 72-tap ring read it. sig2, sig3 and
-// the geometry stay in float32 scratch (the wrapper's), so every phase sees the plain
-// version's float32 values.
+// (as N5) stages its signal's fast history over the tile and the ring's 4-pixel margin
+// (24x24 floats, clamp-to-edge) in shared memory, where the 3x3 and the 72-tap ring read it.
+// sig2, sig3 and the geometry stay in float32 scratch (the wrapper's), so every phase sees the
+// plain version's float32 values.
 #include "reblur_filters.cuh"
 
 namespace {
 
 using nrd::Image;
 
-constexpr int kTileX = 16, kTileY = 16, kThreads = kTileX * kTileY;
+constexpr int kTileX = nrd::kFixTile, kTileY = nrd::kFixTile, kThreads = kTileX * kTileY;
 constexpr int kFixCtas = 5, kBlurCtas = 5;
-constexpr int kRing = nrd::kAntiFireflyRadius;
-constexpr int kWinX = kTileX + 2 * kRing, kWinY = kTileY + 2 * kRing;
 
 // the frame's planes (reblur_band.py:PLANES): the history fix's shared planes, then these
 enum BandPlane { BP_NOV = nrd::kHfShared, BP_ROUGH, BP_SMC, BP_HDS_DIFF, BP_HDS_SPEC,
                  kBandPlanes };
 
 struct BandArgs {
-  const float* signal[2];  // (h, w, 4) TA outputs: diffuse, specular
-  const float* data1[2];   // (h, w) accumulation speeds
-  const float* fast[2];    // (h, w) fast histories
-  const float* params[2];  // (kHfDiffParams | kHfSpecParams, h, w) history-fix planes
+  // phase 1's inputs and outputs: the TA outputs, the history-fix planes, the planes (as
+  // `shared`), the tap geometry (scratch), sig2 (scratch) and fast2
+  nrd::HistoryFixArgs fix;
   const float* view_z;     // (h, w) raw
-  const float* nr;         // (h, w, 4)
   const float* planes;     // (kBandPlanes, h, w)
-  float* sig2;             // (2, h, w, 4) scratch: history-fix output
   float* sig3;             // (2, h, w, 4) scratch: Blur output
-  float4* geometry;        // (h, w) scratch: the taps' unpacked normal and scaled viewZ
-  float* fast2;            // (2, h, w) the history fix's fast histories
   float* out;              // (2, h, w, 4) PostBlur output
-  float min_material[2];
-  bool anti_firefly[2];
-  nrd::HfFrame hf;
   nrd::SfFrame sf;
-  nrd::HfClampConsts clamp;
   nrd::BlurConsts blur;
   nrd::StageConsts stage[2];  // Blur, PostBlur
-};
-
-// the fast history staged over a tile: rows of kWinX texels from (ox, oy), clamp-to-edge
-struct Window {
-  const float* p;
-  int ox, oy;
-  __device__ __forceinline__ float at(int x, int y, int) const {
-    return p[(y - oy) * kWinX + (x - ox)];
-  }
 };
 
 // the tile and the signal of this CTA
@@ -82,37 +62,15 @@ __device__ __forceinline__ Cta cta() {
              (int)blockIdx.y * kTileY + (int)threadIdx.y};
 }
 
-template <bool kSpec>
-__device__ __forceinline__ void history_fix_pixel(const BandArgs& a, const Window& win, int x,
-                                                  int y) {
-  constexpr int s = kSpec ? 1 : 0;
-  const int w = a.hf.w, h = a.hf.h;
-  const size_t i = (size_t)y * w + x, plane = (size_t)w * h;
-  const Image<float, 4> nr{a.nr, w, h};
-  const nrd::Centre c = nrd::hf_centre(a.planes + i, plane, nr, x, y);
-  float m1, m2, am1 = 0.0f, am2 = 0.0f;
-  nrd::fast_moments(win, x, y, &m1, &m2);
-  if (a.anti_firefly[s]) nrd::anti_firefly_moments(win, x, y, &am1, &am2);
-  float sig[4];
-  nrd::hf_filter(a.hf, c, a.params[s] + i, plane, kSpec, a.min_material[s],
-                 Image<float, 4>{a.signal[s], w, h}, Image<float, 1>{a.data1[s], w, h},
-                 nrd::UnpackedTaps{a.geometry, nr}, sig);
-  const float smc = kSpec ? __ldg(a.planes + BP_SMC * plane + i) : 0.0f;
-  float fast_out;
-  nrd::hf_clamp(a.clamp, sig, __ldg(a.data1[s] + i), win.at(x, y, 0), m1, m2, a.anti_firefly[s],
-                am1, am2, kSpec, smc, &fast_out);
-  reinterpret_cast<float4*>(a.sig2)[s * plane + i] = make_float4(sig[0], sig[1], sig[2], sig[3]);
-  a.fast2[s * plane + i] = fast_out;
-}
-
 // Blur (stage 0: sig2 -> sig3) or PostBlur (stage 1: sig3 -> out) of one signal
-template <bool kSpec>
+template <int kTaps, bool kSpec>
 __device__ __forceinline__ void blur_pixel(const BandArgs& a, int stage, int x, int y) {
   constexpr int s = kSpec ? 1 : 0;
-  const int w = a.hf.w, h = a.hf.h;
+  const nrd::HistoryFixArgs& fx = a.fix;
+  const int w = fx.f.w, h = fx.f.h;
   const size_t i = (size_t)y * w + x, plane = (size_t)w * h;
-  const Image<float, 4> nr{a.nr, w, h};
-  const float* src = (stage == 0 ? a.sig2 : a.sig3) + 4 * s * plane;
+  const Image<float, 4> nr{fx.nr, w, h};
+  const float* src = (stage == 0 ? fx.out : a.sig3) + 4 * s * plane;
   float* dst = (stage == 0 ? a.sig3 : a.out) + 4 * s * plane;
   const nrd::StageConsts& k = a.stage[stage];
   // the centre's geometry: sf_filter reads what hf_centre loads but the frustum size
@@ -120,8 +78,9 @@ __device__ __forceinline__ void blur_pixel(const BandArgs& a, int stage, int x, 
   const float* P = a.planes + i;
   const float nov = __ldg(P + BP_NOV * plane);
   const float hit_dist = __ldg(src + 4 * i + 3);
-  const float data1 = __ldg(a.data1[s] + i);
+  const float data1 = __ldg(fx.data1[s] + i);
   constexpr int nparams = kSpec ? nrd::kSfSpecParams : nrd::kSfDiffParams;
+  constexpr nrd::SfMode mode = kSpec ? nrd::SfMode::kSpec : nrd::SfMode::kDiffuse;
   float prm[nparams];
   if constexpr (kSpec)
     nrd::spec_blur_params(a.blur, k, hit_dist, data1, __ldg(P + BP_HDS_SPEC * plane), c.fsz,
@@ -130,93 +89,89 @@ __device__ __forceinline__ void blur_pixel(const BandArgs& a, int stage, int x, 
     nrd::diff_blur_params(a.blur, k, hit_dist, data1, __ldg(P + BP_HDS_DIFF * plane), c.fsz,
                           nov, c.nv.x, c.nv.y, prm);
   float out[4];
-  nrd::sf_filter(a.sf, c, prm, 1, nparams, a.min_material[s], Image<float, 4>{src, w, h},
-                 nrd::UnpackedTaps{a.geometry, nr}, out, nullptr);
+  nrd::sf_filter<kTaps, mode>(a.sf, c, prm, 1, fx.min_material[s], Image<float, 4>{src, w, h},
+                              nrd::UnpackedTaps{fx.geometry, nr}, out, nullptr);
   reinterpret_cast<float4*>(dst)[i] = make_float4(out[0], out[1], out[2], out[3]);
 }
 
-// phase 0: the geometry; 1: the history fix and the clamp; 2: Blur; 3: PostBlur
-template <int kPhase>
+// phase 0: the geometry; 1: the history fix and the clamp; 2: Blur; 3: PostBlur. kTaps: the
+// Poisson taps of phases 2 and 3 (8, or 6 in performance mode)
+template <int kPhase, int kTaps>
 __global__ void __launch_bounds__(kThreads, kPhase == 1 ? kFixCtas : kBlurCtas)
     reblur_band_kernel(BandArgs a) {
+  const int w = a.fix.f.w, h = a.fix.f.h;
   if constexpr (kPhase == 0) {  // one thread a pixel
     const int x = blockIdx.x * kTileX + threadIdx.x, y = blockIdx.y * kTileY + threadIdx.y;
-    if (x >= a.hf.w || y >= a.hf.h) return;
-    const size_t i = (size_t)y * a.hf.w + x;
-    a.geometry[i] = nrd::unpacked_geometry(__ldg(reinterpret_cast<const float4*>(a.nr) + i),
-                                           __ldg(a.view_z + i), a.hf.view_z_scale);
-    return;
-  }
-  const Cta t = cta();
-  if constexpr (kPhase == 1) {  // every thread of the CTA stages, then the ones outside leave
-    __shared__ float fast[kWinY * kWinX];
-    const Window win{fast, t.x - (int)threadIdx.x - kRing, t.y - (int)threadIdx.y - kRing};
-    const Image<float, 1> src{a.fast[t.s], a.hf.w, a.hf.h};
-    for (int k = threadIdx.y * kTileX + threadIdx.x; k < kWinY * kWinX; k += kThreads)
-      fast[k] = src.ldg(win.ox + k % kWinX, win.oy + k / kWinX);
-    __syncthreads();
-    if (t.x >= a.hf.w || t.y >= a.hf.h) return;
-    if (t.s == 0)
-      history_fix_pixel<false>(a, win, t.x, t.y);
-    else
-      history_fix_pixel<true>(a, win, t.x, t.y);
+    if (x >= w || y >= h) return;
+    nrd::write_tap_geometry(const_cast<float4*>(a.fix.geometry), a.fix.nr, a.view_z,
+                            a.fix.f.view_z_scale, (size_t)y * w + x);
+  } else if constexpr (kPhase == 1) {
+    nrd::history_fix_cta(a.fix);
   } else {
-    if (t.x >= a.hf.w || t.y >= a.hf.h) return;
+    const Cta t = cta();
+    if (t.x >= w || t.y >= h) return;
     if (t.s == 0)
-      blur_pixel<false>(a, kPhase - 2, t.x, t.y);
+      blur_pixel<kTaps, false>(a, kPhase - 2, t.x, t.y);
     else
-      blur_pixel<true>(a, kPhase - 2, t.x, t.y);
+      blur_pixel<kTaps, true>(a, kPhase - 2, t.x, t.y);
   }
 }
+
+using Kernel = void (*)(BandArgs);
 
 }  // namespace
 
 // ptrs: diff, spec, diff_data1, spec_data1, diff_fast, spec_fast, diff_params, spec_params,
-//       view_z, nr, planes, taps, scratch (sig2, sig3, geometry), fast2, out
+//       view_z, nr, planes, scratch (sig2, sig3, geometry), fast2, out
 // consts: frustum[4], rect_w, rect_h, rect_inv_w, rect_inv_h, view_z_scale, ortho_mode,
 //         diff_min_material, spec_min_material, diffuse ring (0 or 1), specular ring (0 or 1),
-//         ntaps, then reblur_band.py:band_consts: the clamp's frame divisor and fast-history
-//         flag, the fade's a and b - a, max and min blur radius, lobe angle fraction and
-//         1 - it, encoding error, the Blur and PostBlur rotators, and per stage (Blur,
-//         PostBlur) fraction scale, radius scale, min hit-distance weight scale, scaled
+//         ntaps (8 or 6), then reblur_band.py:band_consts: the clamp's frame divisor and
+//         fast-history flag, the fade's a and b - a, max and min blur radius, lobe angle
+//         fraction and 1 - it, encoding error, the Blur and PostBlur rotators, and per stage
+//         (Blur, PostBlur) fraction scale, radius scale, min hit-distance weight scale, scaled
 //         roughness fraction
 extern "C" int nrd_reblur_band(void* const* p, const float* c, int w, int h, void* stream) {
   BandArgs a;
+  nrd::HistoryFixArgs& x = a.fix;
   for (int s = 0; s < 2; ++s) {
-    a.signal[s] = (const float*)p[s];
-    a.data1[s] = (const float*)p[2 + s];
-    a.fast[s] = (const float*)p[4 + s];
-    a.params[s] = (const float*)p[6 + s];
+    x.signal[s] = (const float*)p[s];
+    x.data1[s] = (const float*)p[2 + s];
+    x.fast[s] = (const float*)p[4 + s];
+    x.params[s] = (const float*)p[6 + s];
   }
   a.view_z = (const float*)p[8];
-  a.nr = (const float*)p[9];
+  x.nr = (const float*)p[9];
   a.planes = (const float*)p[10];
-  a.sf.taps = (const float*)p[11];
-  a.sig2 = (float*)p[12];
-  a.sig3 = a.sig2 + (size_t)2 * w * h * 4;
-  a.geometry = reinterpret_cast<float4*>(a.sig3 + (size_t)2 * w * h * 4);
-  a.fast2 = (float*)p[13];
-  a.out = (float*)p[14];
+  x.shared = a.planes;
+  x.smc = a.planes + (size_t)BP_SMC * w * h;
+  x.out = (float*)p[11];  // sig2
+  a.sig3 = x.out + (size_t)2 * w * h * 4;
+  x.geometry = reinterpret_cast<const float4*>(a.sig3 + (size_t)2 * w * h * 4);
+  x.fast_out = (float*)p[12];
+  a.out = (float*)p[13];
 
-  a.hf.w = a.sf.w = w;
-  a.hf.h = a.sf.h = h;
-  for (int k = 0; k < 4; ++k) a.hf.fr[k] = a.sf.fr[k] = c[k];
+  x.f.w = a.sf.w = w;
+  x.f.h = a.sf.h = h;
+  for (int k = 0; k < 4; ++k) x.f.fr[k] = a.sf.fr[k] = c[k];
   a.sf.rect_w = c[4];
   a.sf.rect_h = c[5];
-  a.hf.rect_inv_w = a.blur.rect_inv_w = c[6];
-  a.hf.rect_inv_h = a.blur.rect_inv_h = c[7];
-  a.hf.view_z_scale = a.sf.view_z_scale = c[8];
-  a.hf.ortho = a.sf.ortho = c[9];
-  a.min_material[0] = c[10];
-  a.min_material[1] = c[11];
-  a.anti_firefly[0] = c[12] != 0.0f;
-  a.anti_firefly[1] = c[13] != 0.0f;
-  a.sf.ntaps = (int)c[14];
+  a.sf.inv_rect_w = 1.0f / c[4];
+  a.sf.inv_rect_h = 1.0f / c[5];
+  x.f.rect_inv_w = a.blur.rect_inv_w = c[6];
+  x.f.rect_inv_h = a.blur.rect_inv_h = c[7];
+  x.f.view_z_scale = a.sf.view_z_scale = c[8];
+  x.f.ortho = a.sf.ortho = c[9];
+  x.min_material[0] = c[10];
+  x.min_material[1] = c[11];
+  x.anti_firefly[0] = c[12] != 0.0f;
+  x.anti_firefly[1] = c[13] != 0.0f;
+  const int ntaps = (int)c[14];
+  if (ntaps != 8 && ntaps != 6) return (int)cudaErrorInvalidValue;
   for (int k = 0; k < 4; ++k) a.sf.hdp[k] = 0.0f;  // no PrePass mode here
   a.sf.use_prepass_not_only = 0.0f;
   a.sf.frame_index = 0;
-  a.clamp.frame_div = c[15];
-  a.clamp.fast_enabled = c[16];
+  x.clamp.frame_div = c[15];
+  x.clamp.fast_enabled = c[16];
   a.blur.fade_a = c[17];
   a.blur.fade_ba = c[18];
   a.blur.max_blur_radius = c[19];
@@ -237,15 +192,17 @@ extern "C" int nrd_reblur_band(void* const* p, const float* c, int w, int h, voi
   const dim3 block(kTileX, kTileY);
   const dim3 tiles((w + kTileX - 1) / kTileX, (h + kTileY - 1) / kTileY);
   const dim3 grid(2 * tiles.x, tiles.y);
-  reblur_band_kernel<0><<<tiles, block, 0, (cudaStream_t)stream>>>(a);
+  const Kernel blur = ntaps == 8 ? reblur_band_kernel<2, 8> : reblur_band_kernel<2, 6>;
+  const Kernel post = ntaps == 8 ? reblur_band_kernel<3, 8> : reblur_band_kernel<3, 6>;
+  reblur_band_kernel<0, 8><<<tiles, block, 0, (cudaStream_t)stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  reblur_band_kernel<1><<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  reblur_band_kernel<1, 8><<<grid, block, 0, (cudaStream_t)stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  reblur_band_kernel<2><<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  blur<<<grid, block, 0, (cudaStream_t)stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  reblur_band_kernel<3><<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  post<<<grid, block, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

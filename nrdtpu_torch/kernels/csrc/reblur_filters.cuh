@@ -1,12 +1,24 @@
 // Per-signal device functions of the REBLUR spatial filter and history fix. H2
-// (spatial_filter.cu) and H3 (history_fix.cu) call them once per pixel for their one signal;
-// N4 (spatial_filter_fused.cu) and N5 (history_fix_fused.cu) call them once per signal, with
-// the centre pixel's shared planes loaded once. The plain versions they are held against are
-// nrdtpu_torch/kernels/spatial_filter.py:spatial_filter_ref and
+// (spatial_filter.cu) and H3 (history_fix.cu) call them for their one signal; N4
+// (spatial_filter_fused.cu), N5 (history_fix_fused.cu) and K23 (reblur_band.cu) run one CTA
+// per (tile, signal) and call them for the CTA's signal. The plain versions they are held
+// against are nrdtpu_torch/kernels/spatial_filter.py:spatial_filter_ref and
 // nrdtpu_torch/kernels/history_fix.py:history_fix_ref; the op order below is theirs. A tap
 // reads the signal as one float4 through the read-only path, its index clamped once (every
 // image they tap is an input of the launch, never its output), and its geometry through a
-// Taps policy: PackedTaps (H2, H3, N4, N5) or UnpackedTaps (K23).
+// Taps policy: PackedTaps (H2, H3, the PrePass of N4) or UnpackedTaps (N5, N4's Blur and
+// PostBlur, K23), whose plane the entry of N5 or K23 writes once a frame.
+//
+// Fewer instructions a tap (chosen by A/B timing on the H100, PERF.md): the tap loops stay
+// rolled (unrolled, their code outgrew the instruction cache and ran slower); the Poisson table
+// is a compile-time table in constant memory, not a device array; a tap's signal is loaded
+// before its weight chain and dropped where the weight is zero, so the load overlaps the
+// arithmetic. Three divisions by a constant of the pixel or the frame are multiplications by
+// its reciprocal: the history fix's hit distance over the frustum size and its hitT-guide
+// smoothstep, and the spatial filter's snap to the pixel centre. They may differ from the
+// plain version's division in the last bit (measured: no value of frame 4 at 2560x1440 moves
+// outside the tolerance that chip_smoke.py holds, PERF.md); every other step is the plain
+// version's float32 op, in its order.
 #pragma once
 
 #include "common.cuh"
@@ -51,6 +63,14 @@ __device__ __forceinline__ float4 unpacked_geometry(float4 nr, float raw_z, floa
   return make_float4(n.x, n.y, n.z, fabsf(raw_z) * view_z_scale);
 }
 
+// the record of pixel i, written by the prologue of N5 and K23 (one thread a pixel)
+__device__ __forceinline__ void write_tap_geometry(float4* geometry, const float* nr,
+                                                   const float* view_z, float view_z_scale,
+                                                   size_t i) {
+  geometry[i] = unpacked_geometry(__ldg(reinterpret_cast<const float4*>(nr) + i),
+                                  __ldg(view_z + i), view_z_scale);
+}
+
 // ---------------------------------------------------------------------------------------
 // Spatial filter (PrePass, Blur, PostBlur): nrdtpu/passes/reblur/kernels.py:844-873,
 // :2164-2189 (diffuse) and :1710-1756 (specular, with the PrePass hitDistForTracking)
@@ -64,11 +84,43 @@ enum SfParam { SF_ROT0, SF_ROT1, SF_ROT2, SF_ROT3, SF_NWP, SF_HA, SF_HB, SF_MHDW
                SF_HIT_DIST, SF_ROUGH, SF_XVX, SF_XVY, SF_XVZ };   // specular PrePass
 constexpr int kSfDiffParams = 8, kSfSpecParams = 10, kSfPrepassParams = 15;
 
+// the three modes of the tap loop, by their plane count
+enum class SfMode { kDiffuse, kSpec, kPrepass };
+
+struct PoissonTap {
+  float ox, oy, gauss;
+};
+
+// The Poisson taps (spatial_filter.py:tap_table): offset x, offset y and the Gaussian weight
+// of the tap radius, float32 as the host computes them; 8 taps (SPECIAL_8), 6 in performance
+// mode (SPECIAL_6). tests/test_torch_kernel_rehearsal.py holds these literals to tap_table.
+namespace {
+__constant__ float kPoissonTaps8[8 * 3] = {
+    -1.0f, 0.0f, 0x1.08a0bcp-1f,  0.0f, 1.0f, 0x1.08a0bcp-1f,
+    1.0f, 0.0f, 0x1.08a0bcp-1f,   0.0f, -1.0f, 0x1.08a0bcp-1f,
+    -0x1.6a09e6p-2f, 0x1.6a09e6p-2f, 0x1.b21f2p-1f,
+    0x1.6a09e6p-2f, 0x1.6a09e6p-2f, 0x1.b21f2p-1f,
+    0x1.6a09e6p-2f, -0x1.6a09e6p-2f, 0x1.b21f2p-1f,
+    -0x1.6a09e6p-2f, -0x1.6a09e6p-2f, 0x1.b21f2p-1f};
+__constant__ float kPoissonTaps6[6 * 3] = {
+    -0x1.bb67aep-1f, -0.5f, 0x1.08a0bcp-1f,  0.0f, 1.0f, 0x1.08a0bcp-1f,
+    0x1.bb67aep-1f, -0.5f, 0x1.08a0bcp-1f,   0.0f, -0x1.333334p-2f, 0x1.e2790cp-1f,
+    0x1.0a0b02p-2f, 0x1.333334p-3f, 0x1.e2790cp-1f,
+    -0x1.0a0b02p-2f, 0x1.333334p-3f, 0x1.e2790cp-1f};
+}  // namespace
+
+template <int kTaps>
+__device__ __forceinline__ PoissonTap poisson_tap(int t) {
+  static_assert(kTaps == 8 || kTaps == 6, "8 taps, or 6 in performance mode");
+  const float* p = kTaps == 8 ? kPoissonTaps8 : kPoissonTaps6;
+  return PoissonTap{p[3 * t], p[3 * t + 1], p[3 * t + 2]};
+}
+
 struct SfFrame {
-  const float* taps;  // (ntaps, 3): offset x, offset y, Gaussian weight
-  int w, h, ntaps;
+  int w, h;
   float fr[4];
   float rect_w, rect_h, view_z_scale, ortho;
+  float inv_rect_w, inv_rect_h;  // 1 / rect_w, 1 / rect_h
   float hdp[4];       // hit-distance parameters A, B, C, D (specular PrePass)
   float use_prepass_not_only;
   uint32_t frame_index;
@@ -98,26 +150,27 @@ __device__ __forceinline__ Centre sf_centre(const float* P, size_t plane,
   return c;
 }
 
-// One signal's tap loop. P points at the pixel in the signal's (nparams, h, w) planes, whose
-// count selects the mode: diffuse, specular (roughness weight) or specular PrePass (also the
-// stochastic minimum of the taps' hit distances, hitDistForTracking, written to *hdt_out,
-// with one PCG draw per tap from hash_init(pixel, frame index)).
-template <typename Taps>
+// One signal's tap loop over kTaps Poisson taps. P points at the pixel in the signal's
+// (nparams, h, w) planes, whose count is the mode's: diffuse, specular (roughness weight) or
+// specular PrePass (also the stochastic minimum of the taps' hit distances,
+// hitDistForTracking, written to *hdt_out, with one PCG draw per tap from hash_init(pixel,
+// frame index), dead taps included).
+template <int kTaps, SfMode kMode, typename Taps>
 __device__ __forceinline__ void sf_filter(const SfFrame& f, const Centre& c, const float* P,
-                                          size_t plane, int nparams, float min_material,
+                                          size_t plane, float min_material,
                                           const Image<float, 4>& sig, const Taps& taps,
                                           float out[4], float* hdt_out) {
+  constexpr bool spec = kMode != SfMode::kDiffuse, prepass = kMode == SfMode::kPrepass;
   const float r0 = P[SF_ROT0 * plane], r1 = P[SF_ROT1 * plane], r2 = P[SF_ROT2 * plane],
               r3 = P[SF_ROT3 * plane];
   const float nwp = P[SF_NWP * plane], ha = P[SF_HA * plane], hb = P[SF_HB * plane];
   const float mhdw = P[SF_MHDW * plane];
   const float mat_c = fmaxf(c.material, min_material);
-  const bool spec = nparams >= kSfSpecParams, prepass = nparams == kSfPrepassParams;
   const float wr_a = spec ? P[SF_WR_A * plane] : 0.0f, wr_b = spec ? P[SF_WR_B * plane] : 0.0f;
   float hit_dist = 0.0f, rough_lerp = 0.0f, hdt = 0.0f;
   V3 xv{0.0f, 0.0f, 0.0f};
   uint32_t rng = 0;
-  if (prepass) {
+  if constexpr (prepass) {
     hit_dist = P[SF_HIT_DIST * plane];
     rough_lerp = saturate((P[SF_ROUGH * plane] - 0.5f) / 0.5f);
     xv = V3{P[SF_XVX * plane], P[SF_XVY * plane], P[SF_XVZ * plane]};
@@ -129,31 +182,31 @@ __device__ __forceinline__ void sf_filter(const SfFrame& f, const Centre& c, con
   const float4 cs = sig.at4(c.x, c.y);
   float acc[4] = {cs.x, cs.y, cs.z, cs.w};
 
-  for (int t = 0; t < f.ntaps; ++t) {
-    const float ox = f.taps[3 * t], oy = f.taps[3 * t + 1], gauss = f.taps[3 * t + 2];
-    float us = c.u + (ox * r0 + oy * r2);
-    float vs = c.v + (ox * r1 + oy * r3);
-    us = (floorf(us * f.rect_w) + 0.5f) / f.rect_w;  // snap to the pixel centre
-    vs = (floorf(vs * f.rect_h) + 0.5f) / f.rect_h;
+#pragma unroll 1
+  for (int t = 0; t < kTaps; ++t) {
+    const PoissonTap tap = poisson_tap<kTaps>(t);
+    float us = c.u + (tap.ox * r0 + tap.oy * r2);
+    float vs = c.v + (tap.ox * r1 + tap.oy * r3);
+    us = (floorf(us * f.rect_w) + 0.5f) * f.inv_rect_w;  // snap to the pixel centre
+    vs = (floorf(vs * f.rect_h) + 0.5f) * f.inv_rect_h;
     const int sx = to_index(floorf(us * (float)f.w));
     const int sy = to_index(floorf(vs * (float)f.h));
 
     const TapGeometry g = taps.at(sx, sy);
     const float zs = g.z;
-    const V3 ns = g.n;
-    const float ms = fmaxf(g.material, min_material);
-    const float angle = acos_approx(dot3(c.n, ns));
     const V3 xvs = reconstruct_view_position(us, vs, f.fr, zs, f.ortho);
-
+    const float4 s_tap = sig.at4(sx, sy);  // issued before the weights, used where w_ != 0
     float w_ = in_screen_nearest(us, vs);
     w_ = w_ * compute_weight(dot3(c.nv, xvs), c.ga, c.gb);
-    w_ = w_ * (mat_c == ms ? 1.0f : 0.0f);
+    w_ = w_ * (mat_c == fmaxf(g.material, min_material) ? 1.0f : 0.0f);
+    float rnd = 0.0f;
+    if constexpr (prepass) rnd = hash_float(rng);  // one draw a tap, as the XLA loop draws
+    const float angle = acos_approx(dot3(c.n, g.n));
     w_ = w_ * compute_weight(angle, nwp, 0.0f);
-    if (spec) w_ = w_ * compute_weight(g.roughness, wr_a, wr_b);
-    float4 s4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (w_ != 0.0f) s4 = sig.at4(sx, sy);
+    if constexpr (spec) w_ = w_ * compute_weight(g.roughness, wr_a, wr_b);
+    const float4 s4 = w_ != 0.0f ? s_tap : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     const float s[4] = {s4.x, s4.y, s4.z, s4.w};
-    if (prepass) {
+    if constexpr (prepass) {
       // stochastic hitDistForTracking minimum (REBLUR_PrePass.hlsli)
       const float rs = g.roughness;
       const float norm = (f.hdp[0] + fabsf(zs) * f.hdp[1]) *
@@ -162,7 +215,6 @@ __device__ __forceinline__ void sf_filter(const SfFrame& f, const Centre& c, con
       const float dx = xvs.x - xv.x, dy = xvs.y - xv.y, dz = xvs.z - xv.z;
       const float d = sqrtf(fmaxf(dx * dx + dy * dy + dz * dz, 0.0f)) + 1e-6f;
       const float geometry_weight = w_ * saturate(hs / d);
-      const float rnd = hash_float(rng);
       if (rnd < geometry_weight && hs > 0.0f) hdt = fminf(hdt, hs);
       w_ = w_ * f.use_prepass_not_only;
       const float tt = saturate(hs / (d + hit_dist));
@@ -170,7 +222,7 @@ __device__ __forceinline__ void sf_filter(const SfFrame& f, const Centre& c, con
     }
     const float e = compute_exponential_weight(s[3], ha, hb);
     w_ = w_ * (mhdw + (1.0f - mhdw) * e);
-    w_ = w_ * gauss;
+    w_ = w_ * tap.gauss;
     sum = sum + w_;
 #pragma unroll
     for (int k = 0; k < 4; ++k) acc[k] = acc[k] + s[k] * w_;
@@ -178,7 +230,7 @@ __device__ __forceinline__ void sf_filter(const SfFrame& f, const Centre& c, con
   const float inv = 1.0f / fmaxf(sum, 1e-15f);
 #pragma unroll
   for (int k = 0; k < 4; ++k) out[k] = acc[k] * inv;
-  if (prepass) *hdt_out = hdt == 1e6f ? 0.0f : hdt;
+  if constexpr (prepass) *hdt_out = hdt == 1e6f ? 0.0f : hdt;
 }
 
 // ---------------------------------------------------------------------------------------
@@ -217,7 +269,7 @@ __device__ __forceinline__ Centre hf_centre(const float* P, size_t plane,
 }
 
 // mean and second moment of the fast history over the 3x3, (dy, dx) row by row; Img: any
-// (h, w) image with at(x, y, 0) and clamp-to-edge addressing (Image, or a staged Window)
+// (h, w) image with at(x, y, 0) and clamp-to-edge addressing (Image, or a staged window)
 template <typename Img>
 __device__ __forceinline__ void fast_moments(const Img& fast, int x, int y, float* m1,
                                              float* m2) {
@@ -254,12 +306,11 @@ __device__ __forceinline__ void anti_firefly_moments(const Img& fast, int x, int
 }
 
 // One signal's 20 stride taps (5x5 without centre and corners). P points at the pixel in the
-// signal's (5 | 9, h, w) planes; `spec` adds the relaxed roughness weight and the
-// low-roughness hitT guide. Writes the reconstructed signal, or the centre where the stride
-// is 0.
-template <typename Taps>
+// signal's (5 | 9, h, w) planes; kSpec adds the relaxed roughness weight and the low-roughness
+// hitT guide. Writes the reconstructed signal, or the centre where the stride is 0.
+template <bool kSpec, typename Taps>
 __device__ __forceinline__ void hf_filter(const HfFrame& f, const Centre& c, const float* P,
-                                          size_t plane, bool spec, float min_material,
+                                          size_t plane, float min_material,
                                           const Image<float, 4>& sig,
                                           const Image<float, 1>& data1, const Taps& taps,
                                           float out[4]) {
@@ -274,7 +325,7 @@ __device__ __forceinline__ void hf_filter(const HfFrame& f, const Centre& c, con
   const float nwp = P[HF_NWP * plane], ha = P[HF_HA * plane], hb = P[HF_HB * plane];
   const float hds = P[HF_HDS * plane];
   float ra = 0.0f, rb = 0.0f, hit_dist = 0.0f, gb_lo = 0.0f, gb_hi = 0.0f;
-  if (spec) {
+  if constexpr (kSpec) {
     ra = P[HF_RA * plane];
     rb = P[HF_RB * plane];
     hit_dist = P[HF_HIT_DIST * plane];
@@ -282,6 +333,7 @@ __device__ __forceinline__ void hf_filter(const HfFrame& f, const Centre& c, con
     gb_hi = 0.05f + P[HF_GUIDE_B * plane];
   }
   const float mat_c = fmaxf(c.material, min_material);
+  const float inv_fsz = 1.0f / c.fsz, inv_gb = 1.0f / (gb_hi - gb_lo);
   float sum = 1.0f + data1.ldg(c.x, c.y);
   float acc[4];
 #pragma unroll
@@ -296,29 +348,26 @@ __device__ __forceinline__ void hf_filter(const HfFrame& f, const Centre& c, con
       const int py = (int)fminf(fmaxf((float)c.y + ofy, 0.0f), (float)(f.h - 1));
 
       const TapGeometry g = taps.at(px, py);
-      const float zs = g.z;
-      const V3 ns = g.n;
-      const float ms = fmaxf(g.material, min_material);
-      const float angle = acos_approx(dot3(ns, c.n));
-      const V3 xvs = reconstruct_view_position(us, vs, f.fr, zs, f.ortho);
-
+      const V3 xvs = reconstruct_view_position(us, vs, f.fr, g.z, f.ortho);
+      const float4 s_tap = sig.at4(px, py);  // issued before the weights
       float w_ = in_screen_nearest(us, vs);
       w_ = w_ * compute_weight(dot3(c.nv, xvs), c.ga, c.gb);
-      w_ = w_ * (mat_c == ms ? 1.0f : 0.0f);
+      w_ = w_ * (mat_c == fmaxf(g.material, min_material) ? 1.0f : 0.0f);
+      const float angle = acos_approx(dot3(g.n, c.n));
       w_ = w_ * compute_exponential_weight(angle, nwp, 0.0f);
-      if (spec) {
+      if constexpr (kSpec) {
         const float rs = g.roughness;
         w_ = w_ * compute_exponential_weight(rs * rs, ra, rb);
       }
       w_ = w_ * (1.0f + data1.ldg(px, py));
-      float4 s4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (w_ != 0.0f) s4 = sig.at4(px, py);
+      const float4 s4 = w_ != 0.0f ? s_tap : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       const float s[4] = {s4.x, s4.y, s4.z, s4.w};
       const float hs = s[3] * hds;
-      w_ = w_ * compute_exponential_weight(saturate(hs / c.fsz), ha, hb);
-      if (spec) {
+      w_ = w_ * compute_exponential_weight(saturate(hs * inv_fsz), ha, hb);
+      if constexpr (kSpec) {
         const float d = fabsf(hit_dist - hs) / (fmaxf(hit_dist, hs) + 0.001f);
-        w_ = w_ * smoothstep(gb_lo, gb_hi, d);
+        const float tt = saturate((d - gb_lo) * inv_gb);  // smoothstep(gb_lo, gb_hi, d)
+        w_ = w_ * (tt * tt * (3.0f - 2.0f * tt));
       }
       sum = sum + w_;
 #pragma unroll
@@ -483,6 +532,87 @@ __device__ __forceinline__ void spec_blur_params(const BlurConsts& k, const Stag
   hit_distance_weight_params(hit_dist, nlas, smc, &prm[SF_HA], &prm[SF_HB]);
   prm[SF_MHDW] = s.mhdw_scale * smc * sqrtf(nlas);
   roughness_weight_params(roughness, s.rf_scaled, &prm[SF_WR_A], &prm[SF_WR_B]);
+}
+
+// ---------------------------------------------------------------------------------------
+// The history fix and its clamp for one (16x16 tile, signal) CTA: N5 (history_fix_fused.cu)
+// and phase 1 of K23 (reblur_band.cu) run this one body. The plain version is
+// nrdtpu_torch/kernels/history_fix_fused.py:history_fix_fused_ref.
+// ---------------------------------------------------------------------------------------
+
+constexpr int kFixTile = 16;
+constexpr int kFixWin = kFixTile + 2 * kAntiFireflyRadius;  // the tile and the ring's margin
+
+struct HistoryFixArgs {
+  const float* signal[2];  // (h, w, 4) TA outputs: diffuse, specular
+  const float* data1[2];   // (h, w) accumulation speeds
+  const float* fast[2];    // (h, w) fast histories
+  const float* params[2];  // (kHfDiffParams | kHfSpecParams, h, w)
+  const float* shared;     // the centre's planes in HfShared order, plane stride w * h
+  const float* smc;        // (h, w) the specular magic curve of the roughness
+  const float* nr;         // (h, w, 4)
+  const float4* geometry;  // (h, w) the taps' unpacked normal and scaled viewZ
+  float* out;              // (2, h, w, 4) the clamped signals
+  float* fast_out;         // (2, h, w) the fast histories after the mix
+  float min_material[2];
+  bool anti_firefly[2];
+  HfFrame f;
+  HfClampConsts clamp;
+};
+
+// a signal's fast history staged over a tile and the ring's margin: rows of kFixWin texels
+// from (ox, oy), clamp-to-edge
+struct FastWindow {
+  const float* p;
+  int ox, oy;
+  __device__ __forceinline__ float at(int x, int y, int) const {
+    return p[(y - oy) * kFixWin + (x - ox)];
+  }
+};
+
+// one pixel: the 3x3 (and ring) moments from the window, the stride taps, the clamp
+template <bool kSpec>
+__device__ __forceinline__ void history_fix_pixel(const HistoryFixArgs& a, const FastWindow& win,
+                                                  int x, int y) {
+  constexpr int s = kSpec ? 1 : 0;
+  const int w = a.f.w, h = a.f.h;
+  const size_t i = (size_t)y * w + x, plane = (size_t)w * h;
+  const Image<float, 4> nr{a.nr, w, h};
+  const Centre c = hf_centre(a.shared + i, plane, nr, x, y);
+  float m1, m2, am1 = 0.0f, am2 = 0.0f;
+  fast_moments(win, x, y, &m1, &m2);
+  if (a.anti_firefly[s]) anti_firefly_moments(win, x, y, &am1, &am2);
+  float sig[4];
+  hf_filter<kSpec>(a.f, c, a.params[s] + i, plane, a.min_material[s],
+                   Image<float, 4>{a.signal[s], w, h}, Image<float, 1>{a.data1[s], w, h},
+                   UnpackedTaps{a.geometry, nr}, sig);
+  const float smc = kSpec ? __ldg(a.smc + i) : 0.0f;
+  float fast_out;
+  hf_clamp(a.clamp, sig, __ldg(a.data1[s] + i), win.at(x, y, 0), m1, m2, a.anti_firefly[s], am1,
+           am2, kSpec, smc, &fast_out);
+  reinterpret_cast<float4*>(a.out)[s * plane + i] = make_float4(sig[0], sig[1], sig[2], sig[3]);
+  a.fast_out[s * plane + i] = fast_out;
+}
+
+// The CTA's signal is the low bit of blockIdx.x, so the two CTAs of a tile run side by side
+// and share the centre's planes in L2. Every thread stages the window, then the threads
+// outside the image leave.
+__device__ __forceinline__ void history_fix_cta(const HistoryFixArgs& a) {
+  __shared__ float window[kFixWin * kFixWin];
+  const int s = (int)(blockIdx.x & 1u);
+  const int x0 = (int)(blockIdx.x >> 1) * kFixTile, y0 = (int)blockIdx.y * kFixTile;
+  const FastWindow win{window, x0 - kAntiFireflyRadius, y0 - kAntiFireflyRadius};
+  const Image<float, 1> src{a.fast[s], a.f.w, a.f.h};
+  for (int k = threadIdx.y * kFixTile + threadIdx.x; k < kFixWin * kFixWin;
+       k += kFixTile * kFixTile)
+    window[k] = src.ldg(win.ox + k % kFixWin, win.oy + k / kFixWin);
+  __syncthreads();
+  const int x = x0 + (int)threadIdx.x, y = y0 + (int)threadIdx.y;
+  if (x >= a.f.w || y >= a.f.h) return;
+  if (s == 0)
+    history_fix_pixel<false>(a, win, x, y);
+  else
+    history_fix_pixel<true>(a, win, x, y);
 }
 
 }  // namespace nrd

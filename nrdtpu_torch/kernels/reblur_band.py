@@ -6,9 +6,9 @@ at :614), which REBLUR_DIFFUSE_SPECULAR runs once a frame under NRDTPU_REBLUR_BA
 of the three-launch chain (`nrdtpu/passes/reblur/denoiser.py:403-428`). It computes what the
 port's chain computes for both radiance signals (`passes/reblur/kernels.py:spatial_chain`):
 
-  A. the history fix: N5's per-pixel body (`history_fix_fused`: the 20 stride taps, the 3x3
-     fast-history moments, the anti-firefly ring where a signal's flag is set), then the clamp
-     (`passes/reblur/params.py:history_fix_clamp`) in the kernel; it writes sig2 and fast2;
+  A. the history fix: N5's body (`history_fix_fused`: the 20 stride taps, the 3x3
+     fast-history moments, the anti-firefly ring where a signal's flag is set, then the clamp
+     `passes/reblur/params.py:history_fix_clamp`); it writes sig2 and fast2;
   B. Blur: the BLUR planes of each signal (`params.diff_spatial_params` /
      `spec_spatial_params`: the rotator, the diffuse screen-space skew, the radius, the
      normal, hit-distance and roughness weights) from sig2's hit distance and the
@@ -22,9 +22,9 @@ separates them; each phase has its own register budget. sig2, sig3 and the geome
 float32 scratch that the wrapper allocates. The wrapper counts one launch per call (one call of
 the entry); a launch error raises, as every launch error does.
 
-The plain version `reblur_band_ref` is that chain on torch tensors: N5's plain version, the
-clamp, the parameters and N4's plain version twice, so on the CPU the band and the chain give
-identical results.
+The plain version `reblur_band_ref` is that chain on torch tensors: N5's plain version (the
+clamp included), the parameters and N4's plain version twice, so on the CPU the band and the
+chain give identical results.
 
 Not carried over from the TPU kernel: the bf16 band windows and buffers
 (`reblur_band.py:537-553`, `:595-597`), the zeroed stride and radius of sky pixels (`:128`,
@@ -61,7 +61,7 @@ STAGES = (P.BLUR, P.POST_BLUR)
 
 
 def _geometry(planes, view_z_in, view_z_scale, enc_err):
-    """The `make_filter_geometry` entries that the clamp and the parameters read."""
+    """The `make_filter_geometry` entries that the Blur and PostBlur parameters read."""
     p = dict(zip(PLANES, planes))
     return dict(view_z=torch.abs(view_z_in) * view_z_scale, frustum_size=p["frustum_size"],
                 nov=p["nov"], roughness=p["roughness"], smc=p["smc"],
@@ -74,23 +74,18 @@ def reblur_band_ref(diff, spec, view_z_in, normal_roughness, diff_data1, spec_da
                     rect_size_inv, view_z_scale, ortho_mode, diff_min_material,
                     spec_min_material, rotator, rotator_post, enc_err, dc, perf_mode,
                     anti_firefly=(False, False)):
-    """Plain version: N5's plain version, the clamp, and for Blur and PostBlur the parameters
-    and N4's plain version."""
+    """Plain version: N5's plain version (the history fix and its clamp), and for Blur and
+    PostBlur the parameters and N4's plain version."""
     p = dict(zip(PLANES, planes))
     res = hff.history_fix_fused_ref(
         diff, spec, view_z_in, normal_roughness, diff_data1, spec_data1, diff_fast, spec_fast,
-        planes[:len(hf.SHARED)], diff_params, spec_params, frustum=frustum,
+        planes[:len(hf.SHARED)], diff_params, spec_params, p["smc"], frustum=frustum,
         rect_size_inv=rect_size_inv, view_z_scale=view_z_scale, ortho_mode=ortho_mode,
-        diff_min_material=diff_min_material, spec_min_material=spec_min_material,
+        diff_min_material=diff_min_material, spec_min_material=spec_min_material, dc=dc,
         anti_firefly=anti_firefly)
     geom = _geometry(planes, view_z_in, view_z_scale, enc_err)
-    sig, out = {}, {}
-    for name, data1, fast, af in (("diff", diff_data1, diff_fast, anti_firefly[0]),
-                                  ("spec", spec_data1, spec_fast, anti_firefly[1])):
-        ring = (res[f"{name}_am1"], res[f"{name}_am2"]) if af else None
-        sig[name], out[f"{name}_fast"] = P.history_fix_clamp(
-            dc, geom, data1, res[name], fast, res[f"{name}_m1"], res[f"{name}_m2"], ring,
-            name == "diff")
+    sig = dict(diff=res["diff"], spec=res["spec"])
+    out = dict(diff_fast=res["diff_fast"], spec_fast=res["spec_fast"])
     sc = dict(rect_size_inv=rect_size_inv, rotator=rotator, rotator_post=rotator_post)
     shared = torch.stack([p[k] for k in sf.SHARED])
     for mode in STAGES:
@@ -155,15 +150,13 @@ def reblur_band(diff, spec, view_z_in, normal_roughness, diff_data1, spec_data1,
            ("planes", planes, (len(PLANES), h, w))]
     for name, t, shape in ins:
         build.check(name, t, dev, f32, shape)
-    taps = sf.device_taps(perf_mode, dev)
     out = torch.empty((2, h, w, 4), dtype=f32, device=dev)
     fast = torch.empty((2, h, w), dtype=f32, device=dev)
     scratch = torch.empty((5, h, w, 4), dtype=f32, device=dev)  # sig2, sig3, tap geometry
     consts = [*frustum, rect_size[0], rect_size[1], rect_size_inv[0], rect_size_inv[1],
               view_z_scale, ortho_mode, diff_min_material, spec_min_material,
-              *map(bool, anti_firefly), taps.shape[0],
+              *map(bool, anti_firefly), sf.ntaps(perf_mode),
               *band_consts(dc, rotator=rotator, rotator_post=rotator_post, enc_err=enc_err)]
-    build.launch("nrd_reblur_band", [t for _, t, _ in ins] + [taps, scratch, fast, out], consts,
-                 w, h)
+    build.launch("nrd_reblur_band", [t for _, t, _ in ins] + [scratch, fast, out], consts, w, h)
     launches += 1
     return dict(diff=out[0], spec=out[1], diff_fast=fast[0], spec_fast=fast[1])

@@ -60,14 +60,10 @@ def tap_table(perf_mode: bool) -> np.ndarray:
                     np.float32)
 
 
-_TAPS = {}
-
-
-def device_taps(perf_mode, device):
-    key = (perf_mode, str(device))
-    if key not in _TAPS:
-        _TAPS[key] = torch.as_tensor(tap_table(perf_mode), device=device)
-    return _TAPS[key]
+def ntaps(perf_mode: bool) -> int:
+    """The kernels' tap count: their table is `tap_table` at compile time
+    (`csrc/reblur_filters.cuh:poisson_tap`)."""
+    return len(nm.SPECIAL_6 if perf_mode else nm.SPECIAL_8)
 
 
 def spatial_filter_ref(signal, view_z_in, normal_roughness, shared, params, *, frustum,
@@ -178,13 +174,12 @@ def spatial_filter(signal, view_z_in, normal_roughness, shared, params, *, frust
            ("shared", shared, (len(SHARED), h, w)), ("params", params, (params.shape[0], h, w))]
     for name, t, shape in ins:
         build.check(name, t, dev, f32, shape)
-    taps = device_taps(perf_mode, dev)
     out = torch.empty((h, w, 4), dtype=f32, device=dev)
     hdt = torch.empty((h, w) if prepass_mode else (1,), dtype=f32, device=dev)
     consts = [*frustum, rect_size[0], rect_size[1], view_z_scale, ortho_mode, min_material,
-              taps.shape[0], params.shape[0]]
+              ntaps(perf_mode), params.shape[0]]
     if prepass_mode:
         consts += prepass_consts(prepass)
-    build.launch("nrd_spatial_filter", [t for _, t, _ in ins] + [taps, out, hdt], consts, w, h)
+    build.launch("nrd_spatial_filter", [t for _, t, _ in ins] + [out, hdt], consts, w, h)
     launches += 1
     return (out, hdt) if prepass_mode else out

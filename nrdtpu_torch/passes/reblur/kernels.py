@@ -712,24 +712,21 @@ def history_fix(sc, dc, view_z_in, normal_roughness, data1, signal, fast_history
 
 def fused_history_fix(sc, dc, geom, view_z_in, normal_roughness, diff, spec, *,
                       anti_firefly=(False, False)):
-    """HistoryFix of both signals in one `history_fix_fused` launch (`kernels.py:2035-2071`),
-    computing what `history_fix` computes per signal. diff, spec: (signal, data1,
-    fast_history); anti_firefly: the (diffuse, specular) flags. Returns ((diff_out,
-    diff_fast), (spec_out, spec_fast))."""
+    """HistoryFix of both signals, the clamp included, in one `history_fix_fused` launch
+    (`kernels.py:2035-2071`), computing what `history_fix` computes per signal. diff, spec:
+    (signal, data1, fast_history); anti_firefly: the (diffuse, specular) flags. The frame's tap
+    geometry that the launch writes goes into `geom["tap_geometry"]`, where the Blur and
+    PostBlur of `fused_spatial_filter` read it. Returns ((diff_out, diff_fast), (spec_out,
+    spec_fast))."""
     res = k_history_fix_fused.history_fix_fused(
         diff[0], spec[0], view_z_in, normal_roughness, diff[1], spec[1], diff[2], spec[2],
         _hfix_shared(geom), _hfix_params(dc, geom, diff[0], diff[1], True),
-        _hfix_params(dc, geom, spec[0], spec[1], False),
+        _hfix_params(dc, geom, spec[0], spec[1], False), geom["smc"],
         diff_min_material=float(dc["diff_min_material"]),
-        spec_min_material=float(dc["spec_min_material"]), anti_firefly=anti_firefly,
+        spec_min_material=float(dc["spec_min_material"]), dc=dc, anti_firefly=anti_firefly,
         **_hfix_consts(sc))
-    out = []
-    for name, (signal, data1, fast), af in (("diff", diff, anti_firefly[0]),
-                                            ("spec", spec, anti_firefly[1])):
-        ring = (res[f"{name}_am1"], res[f"{name}_am2"]) if af else None
-        out.append(history_fix_clamp(dc, geom, data1, res[name], fast, res[f"{name}_m1"],
-                                     res[f"{name}_m2"], ring, name == "diff"))
-    return tuple(out)
+    geom["tap_geometry"] = res["geometry"]
+    return (res["diff"], res["diff_fast"]), (res["spec"], res["spec_fast"])
 
 
 # ---------------------------------------------------------------------------
@@ -800,8 +797,9 @@ def fused_spatial_filter(sc, dc, mode, geom, view_z_in, normal_roughness, diff, 
                          data1_diff=None, data1_spec=None, perf_mode: bool = False):
     """PrePass, Blur or PostBlur of both signals in one `spatial_filter_fused` launch
     (`kernels.py:1916-2000`), computing what diffuse_pre_pass / diffuse_spatial_filter and
-    specular_spatial_filter compute per signal, each at its own tap positions. A PrePass
-    whose radius is 0 passes its signal through (and, for specular, its hit distance).
+    specular_spatial_filter compute per signal, each at its own tap positions; after
+    `fused_history_fix` the taps read the frame's tap geometry that it left in `geom`. A
+    PrePass whose radius is 0 passes its signal through (and, for specular, its hit distance).
     Returns (diff_out, spec_out, hit_dist_for_tracking or None)."""
     prepass = mode == PRE_BLUR
     res = k_spatial_filter_fused.spatial_filter_fused(
@@ -810,7 +808,8 @@ def fused_spatial_filter(sc, dc, mode, geom, view_z_in, normal_roughness, diff, 
         spec_spatial_params(sc, dc, mode, geom, spec, data1_spec),
         diff_min_material=float(dc["diff_min_material"]),
         spec_min_material=float(dc["spec_min_material"]), perf_mode=perf_mode,
-        prepass=_prepass_consts(sc, dc) if prepass else None, **_sf_consts(sc))
+        prepass=_prepass_consts(sc, dc) if prepass else None, geometry=geom.get("tap_geometry"),
+        **_sf_consts(sc))
     diff_out, spec_out, hdt = res["diff"], res["spec"], res.get("hdt")
     if prepass and float(dc["diff_prepass_blur_radius"]) == 0.0:
         diff_out = diff

@@ -48,7 +48,7 @@ inline thread_local dim3 threadIdx, blockIdx;
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-enum { cudaSuccess = 0 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 
 template <typename T>

@@ -36,6 +36,7 @@ from nrdtpu_torch.kernels import smb_resolve as k_smb
 from nrdtpu_torch.kernels import spatial_filter as k_sf
 from nrdtpu_torch.kernels import spatial_filter_fused as k_sff
 from nrdtpu_torch.passes.reblur import kernels as TK
+from nrdtpu_torch.passes.reblur import params as TP
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from oracle import reblur as O  # noqa: E402
@@ -198,7 +199,9 @@ def test_fused_spatial_filter(ctx, mode):
 
 @pytest.mark.parametrize("anti_firefly", [False, True], ids=["default", "anti_firefly"])
 def test_fused_history_fix(ctx, anti_firefly):
-    """N5 + the clamp glue vs history_fix twice, with and without the anti-firefly ring."""
+    """N5 (the clamp in the module) vs history_fix twice, with and without the anti-firefly
+    ring: the clamped signals and the fast histories; the tap geometry it leaves in `geom` is
+    the frame's unpacked normal and scaled viewZ."""
     j, ta = ctx["j"], ctx["j"]["ta"]
     geom, vz, nr = _geom(ctx)
     (d, d_fast), (s, s_fast) = TK.fused_history_fix(
@@ -213,6 +216,9 @@ def test_fused_history_fix(ctx, anti_firefly):
         close(name, got, want)
     if anti_firefly:  # the ring changes the result: the flag reaches the kernel
         assert not np.allclose(d.numpy(), np.asarray(j["hf_diff_False"][0]), rtol=RTOL, atol=ATOL)
+    n3 = geom["n3"]
+    close("tap geometry", geom["tap_geometry"],
+          torch.stack([n3.x, n3.y, n3.z, geom["view_z"]], -1).numpy())
 
 
 @pytest.mark.parametrize("is_diffuse", [True, False], ids=["diffuse", "specular"])
@@ -285,7 +291,8 @@ def _recorded(ctx, names):
 
 def test_plain_versions_are_per_signal(ctx):
     """The plain version of each two-signal kernel equals its one-signal plain version run
-    per signal, exactly: two-signal H1, N4 (PrePass and Blur), N5 (ring on one signal)."""
+    per signal, exactly: two-signal H1, N4 (PrePass and Blur), N5 (ring on one signal; H3's
+    plain version, then params.history_fix_clamp)."""
     calls = _recorded(ctx, ("smb_resolve", "spatial_filter_fused", "history_fix_fused"))
     assert sorted(n for n, _, _ in calls) == ["history_fix_fused", "smb_resolve",
                                               "spatial_filter_fused", "spatial_filter_fused"]
@@ -314,17 +321,20 @@ def test_plain_versions_are_per_signal(ctx):
                 assert torch.equal(both["spec"], res[0]) and torch.equal(both["hdt"], res[1])
         else:
             both = k_hff.history_fix_fused_ref(*a, **k)
-            diff, spec, vz, nr, d1d, d1s, fd, fs, shared, dp, sp = a
+            diff, spec, vz, nr, d1d, d1s, fd, fs, shared, dp, sp, smc = a
             kw = {x: k[x] for x in ("frustum", "rect_size_inv", "view_z_scale", "ortho_mode")}
             for sig, args, mm, af in (("diff", (diff, vz, nr, d1d, fd, shared, dp),
                                        k["diff_min_material"], k["anti_firefly"][0]),
                                       ("spec", (spec, vz, nr, d1s, fs, shared, sp),
                                        k["spec_min_material"], k["anti_firefly"][1])):
                 ref = k_hf.history_fix_ref(*args, min_material=mm, anti_firefly=af, **kw)
-                keys = (sig, f"{sig}_m1", f"{sig}_m2", f"{sig}_am1", f"{sig}_am2")
                 assert len(ref) == (5 if af else 3)
-                for key, v in zip(keys, ref):
-                    assert torch.equal(both[key], v), key
+                want = TP.history_fix_clamp(k["dc"], dict(smc=smc), args[3], ref[0], args[4],
+                                            ref[1], ref[2], ref[3:] if af else None,
+                                            sig == "diff")
+                assert torch.equal(both[sig], want[0]), sig
+                assert torch.equal(both[f"{sig}_fast"], want[1]), f"{sig}_fast"
+            assert torch.equal(both["geometry"], k_hff.tap_geometry_ref(nr, vz, k["view_z_scale"]))
 
 
 # ---------------------------------------------------------------------------
@@ -356,7 +366,8 @@ def test_fused_spatial_filter_diffuse_matches_oracle(mode):
 
 
 def test_fused_history_fix_diffuse_matches_oracle():
-    """The diffuse side of N5 + the clamp glue vs the HLSL history fix (REBLUR_HistoryFix)."""
+    """The diffuse side of N5 (the clamp included) vs the HLSL history fix
+    (REBLUR_HistoryFix)."""
     sc, dc, cfg, s, spec, geom, rng = _oracle_inputs(8)
     h, w = s["view_z"].shape
     data1 = np.broadcast_to(np.where(np.arange(w)[None, :] < w // 2, 1.0, 20.0),

@@ -1,12 +1,15 @@
-"""Rehearsal on the CPU of the two kernels redesigned for the H100: K22 `relax_atrous.cu` and
-K23 `reblur_band.cu`, as they are in the tree, compiled as C++ by g++ through
-`tests/cuda_shim.h` (every CUDA thread a std::thread, `__syncthreads` a barrier of the block)
-and bound through the same ctypes entry points as on the card, with `build.library`,
-`build.kernel_device` and `torch.cuda.current_stream` patched. Each is held against its plain
-version on the calls that the port's Engine makes on the CPU at 48x32 over 4 orbit frames:
-every stride of the à-trous ladder of RELAX_DIFFUSE and RELAX_SPECULAR with IN_DIFF_CONFIDENCE /
-IN_SPEC_CONFIDENCE, and the band of REBLUR_DIFFUSE_SPECULAR (NRDTPU_REBLUR_BAND=1) by default,
-with the anti-firefly ring and in performance mode.
+"""Rehearsal on the CPU of the kernels redesigned for the H100: K22 `relax_atrous.cu`, K23
+`reblur_band.cu`, N4 `spatial_filter_fused.cu` and N5 `history_fix_fused.cu`, as they are in
+the tree, compiled as C++ by g++ through `tests/cuda_shim.h` (every CUDA thread a std::thread,
+`__syncthreads` a barrier of the block) and bound through the same ctypes entry points as on
+the card, with `build.library`, `build.kernel_device` and `torch.cuda.current_stream` patched.
+Each is held against its plain version on the calls that the port's Engine makes on the CPU at
+48x32 over 4 orbit frames: every stride of the à-trous ladder of RELAX_DIFFUSE and
+RELAX_SPECULAR with IN_DIFF_CONFIDENCE / IN_SPEC_CONFIDENCE; the band of
+REBLUR_DIFFUSE_SPECULAR (NRDTPU_REBLUR_BAND=1) by default, with the anti-firefly ring and in
+performance mode; N4's PrePass (hitDistForTracking and its PCG draws), Blur, PostBlur and
+performance mode, and N5 by default and with the ring, both of REBLUR_DIFFUSE_SPECULAR; and
+N5's tap-geometry plane read by N4's Blur (the two kernels chained).
 
 Run alone: python -m pytest tests/test_torch_kernel_rehearsal.py -q
 
@@ -37,7 +40,8 @@ from nrdtpu_torch.utils.scene import SceneGenerator, SceneSpec
 torch.set_num_threads(1)
 
 SHIM = Path(__file__).with_name("cuda_shim.h")
-SOURCES = ("relax_atrous.cu", "reblur_band.cu")
+SOURCES = ("relax_atrous.cu", "reblur_band.cu", "spatial_filter_fused.cu",
+           "history_fix_fused.cu")
 SIZE = (48, 32)
 FRAMES = 4
 ATOL, RTOL, FLIP_FRACTION = 1e-4, 1e-4, 1e-4
@@ -48,6 +52,9 @@ CONFIDENCE_DRIVEN = dict(confidenceDrivenRelaxationMultiplier=1.0,
 BAND_CASES = {"default": {}, "anti_firefly": dict(enableAntiFirefly=True),
               "perf": dict(enablePerformanceMode=True)}
 STEPS = (1, 2, 4, 8, 16)
+# N4's calls of a REBLUR_DIFFUSE_SPECULAR frame, in order
+SF_STAGES = ("prepass", "blur", "post_blur")
+DS = Denoiser.REBLUR_DIFFUSE_SPECULAR
 
 LAUNCH = re.compile(r"([A-Za-z_]\w*(?:<[^<>;]*>)?)\s*<<<([^;]*?)>>>\s*\(([^;]*)\);")
 DYNAMIC_SHARED = re.compile(r"extern\s+__shared__\s+(\w+)\s+(\w+)\s*\[\s*\]\s*;")
@@ -216,3 +223,73 @@ def test_reblur_band_rehearsal(library, case):
     over, count, worst = _hold(library, "reblur_band", calls)
     assert over <= FLIP_FRACTION * count, (f"{case}: {over} of {count} values out of "
                                            f"tolerance, max |d| {worst:.3g}")
+
+
+def test_poisson_table_is_tap_table():
+    """The kernels' compile-time Poisson tables (`reblur_filters.cuh:kPoissonTaps8`, `6`) are
+    `spatial_filter.tap_table` bit for bit, 8 taps and the 6 of performance mode."""
+    from nrdtpu_torch.kernels import spatial_filter as sf
+
+    src = (build.CSRC / "reblur_filters.cuh").read_text()
+    for n, perf in ((8, False), (6, True)):
+        body = re.search(rf"kPoissonTaps{n}\[{n} \* 3\] = \{{(.*?)\}};", src, re.S)[1]
+        literals = [v.strip().rstrip("f") for v in body.split(",")]
+        got = np.array([float.fromhex(v) if "0x" in v else float(v) for v in literals],
+                       np.float32).reshape(n, 3)
+        assert sf.ntaps(perf) == n
+        np.testing.assert_array_equal(got, sf.tap_table(perf))
+
+
+@pytest.fixture(scope="module")
+def ds_calls():
+    """N4's and N5's calls of REBLUR_DIFFUSE_SPECULAR, by default, with the anti-firefly ring
+    and in performance mode."""
+    out = {}
+    for case, settings in BAND_CASES.items():
+        out[case] = {name: _record(DS, name, **settings)
+                     for name in ("spatial_filter_fused", "history_fix_fused")}
+    return out
+
+
+@pytest.mark.parametrize("stage", SF_STAGES + ("perf",))
+def test_spatial_filter_fused_rehearsal(library, ds_calls, stage):
+    case = "perf" if stage == "perf" else "default"
+    calls = ds_calls[case]["spatial_filter_fused"]
+    assert len(calls) == FRAMES * len(SF_STAGES)
+    if stage != "perf":
+        calls = calls[SF_STAGES.index(stage)::len(SF_STAGES)]
+        # the PrePass unpacks its taps; Blur and PostBlur read N5's tap-geometry plane
+        assert all((k["prepass"] is not None) == (stage == "prepass") for _, k in calls)
+        assert all((k["geometry"] is None) == (stage == "prepass") for _, k in calls)
+    over, count, worst = _hold(library, "spatial_filter_fused", calls)
+    assert over <= FLIP_FRACTION * count, (f"{stage}: {over} of {count} values out of "
+                                           f"tolerance, max |d| {worst:.3g}")
+
+
+@pytest.mark.parametrize("case", ["default", "anti_firefly"])
+def test_history_fix_fused_rehearsal(library, ds_calls, case):
+    calls = ds_calls[case]["history_fix_fused"]
+    assert len(calls) == FRAMES
+    assert all(k["anti_firefly"] == ((case == "anti_firefly"),) * 2 for _, k in calls)
+    over, count, worst = _hold(library, "history_fix_fused", calls)
+    assert over <= FLIP_FRACTION * count, (f"{case}: {over} of {count} values out of "
+                                           f"tolerance, max |d| {worst:.3g}")
+
+
+def test_geometry_plane_chain_rehearsal(library, ds_calls):
+    """N5's kernel writes the tap-geometry plane that N4's Blur kernel then reads: the chain
+    of the two kernels against the plain versions."""
+    hff, sff = KM.MODULES["history_fix_fused"], KM.MODULES["spatial_filter_fused"]
+    fix = ds_calls["default"]["history_fix_fused"]
+    blur = ds_calls["default"]["spatial_filter_fused"][1::len(SF_STAGES)]
+    worst = 0.0
+    for (fa, fk), (ba, bk) in zip(fix, blur):
+        with kernels_on_cpu(library):
+            plane = hff.history_fix_fused(*fa, **fk)["geometry"]
+            got = sff.spatial_filter_fused(*ba, **dict(bk, geometry=plane))
+        want = sff.spatial_filter_fused_ref(*ba, **bk)
+        for key in ("diff", "spec"):
+            d = (got[key] - want[key]).abs()
+            assert int((d > ATOL + RTOL * want[key].abs()).sum()) <= FLIP_FRACTION * d.numel()
+            worst = max(worst, float(d.max()))
+    assert worst < 1e-3
