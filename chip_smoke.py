@@ -369,7 +369,8 @@ def _tensors(x):
     return []
 
 
-def _time(fn, reps):
+def time_ms(fn, reps):
+    """Mean ms of one call of `fn` over `reps` calls after one warm-up call, CUDA events."""
     fn()
     torch.cuda.synchronize()
     t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -456,7 +457,10 @@ def _ops(name, a, k):
 def _bound(name, a, k, outputs, extra_bytes=0):
     """(bound ms, "bytes" or "operations"): each input read once and each output written
     once (plus `extra_bytes`) at the memory rate, against the operations at the float32
-    rate."""
+    rate. The tap-geometry plane that N5 writes and N4's Blur and PostBlur read is left out:
+    it holds only what the packed normal and viewZ, counted as inputs, hold."""
+    k = {x: v for x, v in k.items() if x != "geometry"}
+    outputs = {x: v for x, v in outputs.items() if x != "geometry"}
     nbytes = sum(t.nbytes for t in _tensors(a) + _tensors(k) + _tensors(outputs)) + extra_bytes
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = _ops(name, a, k) / F32_OPS_PER_S * 1e3
@@ -512,7 +516,7 @@ def _template_args(rest):
     return vals if rest[i:i + 1] == "E" else None
 
 
-def _kernel_name(mangled):
+def kernel_name(mangled):
     """The function name of a mangled kernel entry (its last nested name), with its template
     arguments where they are bool, int or enum literals."""
     rest = mangled[3:] if mangled.startswith("_ZN") else mangled[2:]
@@ -529,9 +533,9 @@ def _kernel_name(mangled):
     return names[-1] + ("<...>" if rest[:1] == "I" else "")
 
 
-def sass_instructions(library):
-    """{mangled kernel: SASS instructions, NOPs left out} of the built library, from
-    `cuobjdump -sass`; None where the toolkit has no cuobjdump."""
+def sass_listing(library):
+    """{mangled kernel: its lines of `cuobjdump -sass`} of the built library; None where the
+    toolkit has no cuobjdump."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     tool = os.path.join(CUDA_HOME or "", "bin", "cuobjdump")
@@ -539,17 +543,25 @@ def sass_instructions(library):
         return None
     text = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
-    counts, cur = {}, None
+    funcs, cur = {}, None
     for line in text.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
-            cur = m[1]
-            counts[cur] = 0
-            continue
-        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(\S+)", line)
-        if m and cur is not None and not m[1].startswith("NOP"):
-            counts[cur] += 1
-    return counts
+            cur = funcs.setdefault(m[1], [])
+        elif cur is not None:
+            cur.append(line)
+    return funcs
+
+
+def sass_instructions(library):
+    """{mangled kernel: SASS instructions, NOPs left out} of the built library; None where
+    the toolkit has no cuobjdump."""
+    funcs = sass_listing(library)
+    if funcs is None:
+        return None
+    ins = re.compile(r"\s*/\*[0-9a-f]{4,}\*/\s+(\S+)")
+    return {f: sum(1 for line in lines if (m := ins.match(line)) and not m[1].startswith("NOP"))
+            for f, lines in funcs.items()}
 
 
 def ptxas_usage(text):
@@ -563,7 +575,7 @@ def ptxas_usage(text):
             continue
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m and src is not None:
-            cur = dict(mangled=m[1], kernel=_kernel_name(m[1]), registers=0, spill_bytes=0,
+            cur = dict(mangled=m[1], kernel=kernel_name(m[1]), registers=0, spill_bytes=0,
                        static_smem=0)
             usage[src].append(cur)
             continue
@@ -633,6 +645,32 @@ def occupancy(name, dynamic_smem, sass):
     return out
 
 
+@contextlib.contextmanager
+def recording(kernels, passes=None, pass_names=()):
+    """While open, every call of the kernel wrappers of a kernels package (`kernels.MODULES`:
+    this tree's or another's) and of the pass functions `pass_names` of the module `passes`
+    goes into the list it yields as (name, args, kwargs); a pass is named "pass <name>" and
+    its geometry dict copied as it stood."""
+    calls = []
+    saved = [(m, name, getattr(m, name)) for name, m in kernels.MODULES.items()]
+    saved += [(passes, name, getattr(passes, name)) for name in pass_names]
+    try:
+        for m, name, f in saved[:len(kernels.MODULES)]:
+            def rec(*a, _n=name, _f=f, **k):
+                calls.append((_n, a, k))
+                return _f(*a, **k)
+            setattr(m, name, rec)
+        for m, name, f in saved[len(kernels.MODULES):]:
+            def rec_pass(sc, dc, geom, *a, _n=name, _f=f, **k):
+                calls.append((f"pass {_n}", (sc, dc, dict(geom)) + a, k))
+                return _f(sc, dc, geom, *a, **k)
+            setattr(m, name, rec_pass)
+        yield calls
+    finally:
+        for m, name, f in saved:
+            setattr(m, name, f)
+
+
 def record_calls(denoiser, pool, w, h, frames, **settings):
     """Every kernel call of the last of `frames` (their pools[pool]) through a fresh
     Engine(device="cuda") in the environment of the path `pool`, and the pass calls of the
@@ -641,29 +679,16 @@ def record_calls(denoiser, pool, w, h, frames, **settings):
     from nrdtpu_torch.passes.reblur import kernels as RK
 
     eng = engine(denoiser, w, h, "cuda", **settings)
-    calls = []
-    originals = {name: getattr(m, name) for name, m in KM.MODULES.items()}
-    band_pass = RK.spatial_band
-    try:
-        with path_env(pool):
-            for i, (cs, pools, _) in enumerate(frames):
-                if i == len(frames) - 1:
-                    for name, m in KM.MODULES.items():
-                        def rec(*a, _n=name, _f=originals[name], **k):
-                            calls.append((_n, a, k))
-                            return _f(*a, **k)
-                        setattr(m, name, rec)
 
-                    def rec_pass(sc, dc, geom, *a, **k):
-                        calls.append(("pass spatial_band", (sc, dc, dict(geom)) + a, k))
-                        return band_pass(sc, dc, geom, *a, **k)
-                    RK.spatial_band = rec_pass
-                eng.set_common_settings(cs)
-                eng.denoise([0], pools[pool])
-    finally:
-        for name, m in KM.MODULES.items():
-            setattr(m, name, originals[name])
-        RK.spatial_band = band_pass
+    def run(cs, pools):
+        eng.set_common_settings(cs)
+        eng.denoise([0], pools[pool])
+
+    with path_env(pool):
+        for cs, pools, _ in frames[:-1]:
+            run(cs, pools)
+        with recording(KM, RK, ("spatial_band",)) as calls:
+            run(*frames[-1][:2])
     torch.cuda.synchronize()
     return calls
 
@@ -703,6 +728,19 @@ def kernel_runs():
     return runs
 
 
+def disagreement(got, want):
+    """{output: (max |got - want|, max |got - want| / |want|, values outside ATOL + RTOL
+    |want|, values)} of a kernel's result against its plain version's."""
+    got, want = _outputs(got), _outputs(want)
+    out = {}
+    for key in want:
+        g, wv = got[key].float(), want[key].float()
+        d = (g - wv).abs()
+        out[key] = (float(d.max()), float((d / wv.abs().clamp_min(1e-6)).max()),
+                    int((d > ATOL + RTOL * wv.abs()).sum()), d.numel())
+    return out
+
+
 def _hold(results, name, lab, a, k, timed, extra_bytes=0):
     """Hold one call of a kernel against its plain version on the same inputs and add it to
     `results`; when `timed`, time both, with the call's bound and library time."""
@@ -711,7 +749,7 @@ def _hold(results, name, lab, a, k, timed, extra_bytes=0):
     m = KM.MODULES[name]
     kern, ref = getattr(m, name), getattr(m, name + "_ref")
     got = _outputs(kern(*a, **k))
-    want = _outputs(ref(*a, **k))
+    diffs = disagreement(got, ref(*a, **k))
     torch.cuda.synchronize()
     r = results.setdefault(name, dict(max_abs_err=0.0, max_rel_err=0.0, over=0, count=0, ms={},
                                       plain_ms={}, bound_ms={}, bound_by=set(), library_ms={},
@@ -719,26 +757,21 @@ def _hold(results, name, lab, a, k, timed, extra_bytes=0):
                                       dynamic_smem={}))
     for kernel, nbytes in _dynamic_smem(name, a, k).items():
         r["dynamic_smem"][kernel] = max(r["dynamic_smem"].get(kernel, 0), nbytes)
-    for key in want:
-        g, wv = got[key].float(), want[key].float()
-        d = (g - wv).abs()
-        over = int((d > ATOL + RTOL * wv.abs()).sum())
-        mx = float(d.max())
+    for key, (mx, rel, over, count) in diffs.items():
         o = r["outputs"].setdefault(key, dict(max_abs_err=0.0, over=0, count=0))
         o["max_abs_err"] = max(o["max_abs_err"], mx)
         o["over"] += over
-        o["count"] += d.numel()
+        o["count"] += count
         r["max_abs_err"] = max(r["max_abs_err"], mx)
-        rel = float((d / wv.abs().clamp_min(1e-6)).max())
         r["max_rel_err"] = max(r["max_rel_err"], rel)
         r["over"] += over
-        r["count"] += d.numel()
+        r["count"] += count
     if not timed:
         if name in ("history_fix", "history_fix_fused"):
-            r["ms_anti_firefly"].setdefault(lab, []).append(_time(lambda: kern(*a, **k), 20))
+            r["ms_anti_firefly"].setdefault(lab, []).append(time_ms(lambda: kern(*a, **k), 20))
         return
-    r["ms"].setdefault(lab, []).append(_time(lambda: kern(*a, **k), 20))
-    r["plain_ms"].setdefault(lab, []).append(_time(lambda: ref(*a, **k), 3))
+    r["ms"].setdefault(lab, []).append(time_ms(lambda: kern(*a, **k), 20))
+    r["plain_ms"].setdefault(lab, []).append(time_ms(lambda: ref(*a, **k), 3))
     b, by = _bound(name, a, k, got)
     r["bound_ms"].setdefault(lab, []).append(b)
     r["bound_by"].add(by)
@@ -746,7 +779,7 @@ def _hold(results, name, lab, a, k, timed, extra_bytes=0):
         r["scratch_bound_ms"].setdefault(lab, []).append(_bound(name, a, k, got, extra_bytes)[0])
     lib = _library(name, a, k)
     if lib is not None:
-        r["library_ms"].setdefault(lab, []).append(_time(lib, 20))
+        r["library_ms"].setdefault(lab, []).append(time_ms(lib, 20))
 
 
 def band_chain(label, a, k):
@@ -762,7 +795,7 @@ def band_chain(label, a, k):
     (cd, cf), (cs, csf) = runs["spatial_chain"]()
     torch.cuda.synchronize()
     err = max(float((x - y).abs().max()) for x, y in ((bd, cd), (bf, cf), (bs, cs), (bsf, csf)))
-    res = {name: _time(fn, 20) for name, fn in runs.items()}
+    res = {name: time_ms(fn, 20) for name, fn in runs.items()}
     log(f"band {label}: spatial_band (glue + 1 launch) {res['spatial_band']:.4f} ms, "
         f"spatial_chain (glue + 3 launches) {res['spatial_chain']:.4f} ms, max |band - chain| "
         f"{err:.3g}")

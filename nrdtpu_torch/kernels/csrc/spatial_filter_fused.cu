@@ -13,10 +13,10 @@
 // signal's, not the sum of both (measured 8-10 % faster than both signals a thread for Blur
 // and PostBlur, 1-3 % slower for the PrePass, PERF.md); kSfCtas is the CTAs an SM that ptxas
 // is asked to fit (4 and 6 measured no faster). One kernel per tap count (8, or 6 in
-// performance mode), PrePass or not, and tap geometry. Given the frame's tap-geometry plane
-// (N5 writes it; the Blur and PostBlur take it), the taps read it through UnpackedTaps;
-// without it (the PrePass, which runs before N5: the plane and its prologue there measured no
-// faster) they unpack each texel (PackedTaps).
+// performance mode) and stage. The Blur and PostBlur read each tap's unpacked normal and
+// scaled viewZ from the frame's tap-geometry plane that N5 writes (UnpackedTaps); the PrePass,
+// which runs before N5, unpacks each texel (PackedTaps: a plane and its prologue there
+// measured no faster).
 #include "reblur_filters.cuh"
 
 namespace {
@@ -32,7 +32,7 @@ struct SffArgs {
   const float* view_z;       // (h, w) raw
   const float* nr;           // (h, w, 4)
   const float* shared;       // (kSfShared, h, w)
-  const float4* geometry;    // (h, w) the taps' unpacked normal and scaled viewZ, or null
+  const float4* geometry;    // (h, w) the taps' unpacked normal and scaled viewZ; null in PrePass
   float* out;                // (2, h, w, 4): diffuse, specular
   float* hdt;                // (h, w) hitDistForTracking, PrePass only
   float min_material[2];
@@ -58,36 +58,33 @@ __device__ __forceinline__ void filter_pixel(const SffArgs& a, const Taps& taps,
   reinterpret_cast<float4*>(a.out)[s * plane + i] = make_float4(out[0], out[1], out[2], out[3]);
 }
 
-template <int kTaps, bool kPrepass, bool kUnpacked>
+template <int kTaps, bool kPrepass>
 __global__ void __launch_bounds__(256, kSfCtas) spatial_filter_fused_kernel(SffArgs a) {
-  constexpr SfMode kSpecMode = kPrepass ? SfMode::kPrepass : SfMode::kSpec;
   const int s = (int)(blockIdx.x & 1u);
   const int x = (int)(blockIdx.x >> 1) * nrd::kBlock + (int)threadIdx.x;
   const int y = (int)blockIdx.y * nrd::kBlock + (int)threadIdx.y;
   if (x >= a.f.w || y >= a.f.h) return;
   const Image<float, 4> nr{a.nr, a.f.w, a.f.h};
-  if constexpr (kUnpacked)
-    filter_pixel<kTaps, kSpecMode>(a, nrd::UnpackedTaps{a.geometry, nr}, s, x, y);
-  else
-    filter_pixel<kTaps, kSpecMode>(
+  if constexpr (kPrepass)
+    filter_pixel<kTaps, SfMode::kPrepass>(
         a, nrd::PackedTaps{nr, Image<float, 1>{a.view_z, a.f.w, a.f.h}, a.f.view_z_scale}, s, x,
         y);
+  else
+    filter_pixel<kTaps, SfMode::kSpec>(a, nrd::UnpackedTaps{a.geometry, nr}, s, x, y);
 }
 
 using Kernel = void (*)(SffArgs);
 
 template <int kTaps>
-Kernel pick(bool prepass, bool unpacked) {
-  if (prepass)
-    return unpacked ? spatial_filter_fused_kernel<kTaps, true, true>
-                    : spatial_filter_fused_kernel<kTaps, true, false>;
-  return unpacked ? spatial_filter_fused_kernel<kTaps, false, true>
-                  : spatial_filter_fused_kernel<kTaps, false, false>;
+Kernel pick(bool prepass) {
+  return prepass ? spatial_filter_fused_kernel<kTaps, true>
+                 : spatial_filter_fused_kernel<kTaps, false>;
 }
 
 }  // namespace
 
-// ptrs: diff, spec, view_z, nr, shared, diff_params, spec_params, geometry (or null), out, hdt
+// ptrs: diff, spec, view_z, nr, shared, diff_params, spec_params, geometry (null in PrePass
+//       mode, required otherwise), out, hdt
 // consts: frustum[4], rect_w, rect_h, view_z_scale, ortho_mode, diff_min_material,
 //         spec_min_material, ntaps (8 or 6), spec nparams; in PrePass mode also hit-distance
 //         params[4], use_prepass_not_only, frame index low 16 bits, high 16 bits
@@ -120,6 +117,7 @@ extern "C" int nrd_spatial_filter_fused(void* const* p, const float* c, int w, i
       (spec_nparams != nrd::kSfSpecParams && spec_nparams != nrd::kSfPrepassParams))
     return (int)cudaErrorInvalidValue;
   const bool prepass = spec_nparams == nrd::kSfPrepassParams;
+  if (prepass != (a.geometry == nullptr)) return (int)cudaErrorInvalidValue;
   for (int k = 0; k < 4; ++k) a.f.hdp[k] = 0.0f;
   a.f.use_prepass_not_only = 0.0f;
   a.f.frame_index = 0;
@@ -128,8 +126,7 @@ extern "C" int nrd_spatial_filter_fused(void* const* p, const float* c, int w, i
     a.f.use_prepass_not_only = c[16];
     a.f.frame_index = (uint32_t)c[17] | ((uint32_t)c[18] << 16);
   }
-  const Kernel kernel = ntaps == 8 ? pick<8>(prepass, a.geometry != nullptr)
-                                   : pick<6>(prepass, a.geometry != nullptr);
+  const Kernel kernel = ntaps == 8 ? pick<8>(prepass) : pick<6>(prepass);
   const dim3 block(nrd::kBlock, nrd::kBlock);
   const dim3 tiles((w + nrd::kBlock - 1) / nrd::kBlock, (h + nrd::kBlock - 1) / nrd::kBlock);
   const dim3 grid(2 * tiles.x, tiles.y);  // one CTA per (tile, signal)

@@ -10,9 +10,9 @@ per-signal XLA calls compute them (`diffuse_pre_pass` / `diffuse_spatial_filter`
 `specular_spatial_filter`, `nrdtpu/passes/reblur/kernels.py:844-873`, `:2164-2189`,
 `:1710-1756`). Its inputs are the glue's parameter planes, as the TPU kernel's are. The tap
 loop is H2's own device function (`csrc/reblur_filters.cuh:sf_filter`) over the compile-time
-Poisson table. Given the frame's tap geometry (`geometry=`, the (h, w, 4) plane
-that N5 returns; the Blur and PostBlur take it), the taps read each texel's unpacked normal
-and viewZ from it instead of unpacking the packed normal at every tap.
+Poisson table. The Blur and PostBlur take the frame's tap geometry (`geometry`, the (h, w, 4)
+plane that N5 returns) and read each texel's unpacked normal and viewZ from it; the PrePass,
+which runs before N5, takes none and unpacks the packed normal at every tap.
 
 Not carried over from the TPU kernel: the shared static tap lattice and hat-blended radius
 levels (`reblur_fused.py:17-20`), bf16 windows, and the zeroed radius of sky pixels.
@@ -59,8 +59,8 @@ def spatial_filter_fused(diff, spec, view_z_in, normal_roughness, shared, diff_p
     """diff, spec (h, w, 4); shared (8, h, w) planes named by spatial_filter.SHARED;
     diff_params (8, h, w) named by spatial_filter.PARAMS; spec_params (10 | 15, h, w) named by
     PARAMS + SPEC_PARAMS (+ PREPASS_PARAMS, with `prepass` as for spatial_filter); geometry:
-    the frame's tap geometry (h, w, 4) from history_fix_fused, or None. Returns dict(diff,
-    spec[, hdt])."""
+    the frame's tap geometry (h, w, 4) from history_fix_fused, required in Blur and PostBlur
+    mode, None in PrePass mode. Returns dict(diff, spec[, hdt])."""
     global launches
     kw = dict(frustum=frustum, rect_size=rect_size, view_z_scale=view_z_scale,
               ortho_mode=ortho_mode, diff_min_material=diff_min_material,
@@ -71,6 +71,9 @@ def spatial_filter_fused(diff, spec, view_z_in, normal_roughness, shared, diff_p
     if sf.MODES.get(spec_params.shape[0]) not in ("spec", "spec_prepass"):
         raise ValueError(f"spec_params: {spec_params.shape[0]} planes")
     prepass_mode = sf.check_params(spec_params, prepass)
+    if prepass_mode != (geometry is None):
+        raise ValueError("geometry: the tap-geometry plane goes with Blur and PostBlur, not "
+                         "with the PrePass")
     dev = build.kernel_device(diff)
     if dev is None:
         return spatial_filter_fused_ref(diff, spec, view_z_in, normal_roughness, shared,
@@ -81,7 +84,7 @@ def spatial_filter_fused(diff, spec, view_z_in, normal_roughness, shared, diff_p
            ("shared", shared, (len(sf.SHARED), h, w)),
            ("diff_params", diff_params, (diff_params.shape[0], h, w)),
            ("spec_params", spec_params, (spec_params.shape[0], h, w))]
-    if geometry is not None:
+    if not prepass_mode:
         ins.append(("geometry", geometry, (h, w, 4)))
     for name, t, shape in ins:
         build.check(name, t, dev, torch.float32, shape)

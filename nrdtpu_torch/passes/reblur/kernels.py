@@ -714,10 +714,10 @@ def fused_history_fix(sc, dc, geom, view_z_in, normal_roughness, diff, spec, *,
                       anti_firefly=(False, False)):
     """HistoryFix of both signals, the clamp included, in one `history_fix_fused` launch
     (`kernels.py:2035-2071`), computing what `history_fix` computes per signal. diff, spec:
-    (signal, data1, fast_history); anti_firefly: the (diffuse, specular) flags. The frame's tap
-    geometry that the launch writes goes into `geom["tap_geometry"]`, where the Blur and
-    PostBlur of `fused_spatial_filter` read it. Returns ((diff_out, diff_fast), (spec_out,
-    spec_fast))."""
+    (signal, data1, fast_history); anti_firefly: the (diffuse, specular) flags. Returns
+    ((diff_out, diff_fast), (spec_out, spec_fast), tap_geometry): the last is the frame's tap
+    geometry (h, w, 4) that the launch writes, for the Blur and PostBlur of
+    `fused_spatial_filter`."""
     res = k_history_fix_fused.history_fix_fused(
         diff[0], spec[0], view_z_in, normal_roughness, diff[1], spec[1], diff[2], spec[2],
         _hfix_shared(geom), _hfix_params(dc, geom, diff[0], diff[1], True),
@@ -725,8 +725,7 @@ def fused_history_fix(sc, dc, geom, view_z_in, normal_roughness, diff, spec, *,
         diff_min_material=float(dc["diff_min_material"]),
         spec_min_material=float(dc["spec_min_material"]), dc=dc, anti_firefly=anti_firefly,
         **_hfix_consts(sc))
-    geom["tap_geometry"] = res["geometry"]
-    return (res["diff"], res["diff_fast"]), (res["spec"], res["spec_fast"])
+    return (res["diff"], res["diff_fast"]), (res["spec"], res["spec_fast"]), res["geometry"]
 
 
 # ---------------------------------------------------------------------------
@@ -794,11 +793,12 @@ def specular_spatial_filter(sc, dc, mode, spec, view_z_in, normal_roughness, dat
 
 
 def fused_spatial_filter(sc, dc, mode, geom, view_z_in, normal_roughness, diff, spec, *,
-                         data1_diff=None, data1_spec=None, perf_mode: bool = False):
+                         data1_diff=None, data1_spec=None, tap_geometry=None,
+                         perf_mode: bool = False):
     """PrePass, Blur or PostBlur of both signals in one `spatial_filter_fused` launch
     (`kernels.py:1916-2000`), computing what diffuse_pre_pass / diffuse_spatial_filter and
-    specular_spatial_filter compute per signal, each at its own tap positions; after
-    `fused_history_fix` the taps read the frame's tap geometry that it left in `geom`. A
+    specular_spatial_filter compute per signal, each at its own tap positions. Blur and
+    PostBlur take `tap_geometry`, the frame's tap geometry that `fused_history_fix` returns. A
     PrePass whose radius is 0 passes its signal through (and, for specular, its hit distance).
     Returns (diff_out, spec_out, hit_dist_for_tracking or None)."""
     prepass = mode == PRE_BLUR
@@ -808,7 +808,7 @@ def fused_spatial_filter(sc, dc, mode, geom, view_z_in, normal_roughness, diff, 
         spec_spatial_params(sc, dc, mode, geom, spec, data1_spec),
         diff_min_material=float(dc["diff_min_material"]),
         spec_min_material=float(dc["spec_min_material"]), perf_mode=perf_mode,
-        prepass=_prepass_consts(sc, dc) if prepass else None, geometry=geom.get("tap_geometry"),
+        prepass=_prepass_consts(sc, dc) if prepass else None, geometry=tap_geometry,
         **_sf_consts(sc))
     diff_out, spec_out, hdt = res["diff"], res["spec"], res.get("hdt")
     if prepass and float(dc["diff_prepass_blur_radius"]) == 0.0:
@@ -824,9 +824,10 @@ def spatial_chain(sc, dc, geom, view_z_in, normal_roughness, diff, spec, *, anti
     them (`fused_history_fix`, then `fused_spatial_filter` in BLUR and POST_BLUR mode). diff,
     spec: (TA output, data1, fast history); anti_firefly: the (diffuse, specular) flags.
     Returns ((diff4, diff_fast2), (spec4, spec_fast2))."""
-    (d2, d_fast), (s2, s_fast) = fused_history_fix(sc, dc, geom, view_z_in, normal_roughness,
-                                                   diff, spec, anti_firefly=anti_firefly)
-    kw = dict(data1_diff=diff[1], data1_spec=spec[1], perf_mode=perf_mode)
+    (d2, d_fast), (s2, s_fast), tap_geometry = fused_history_fix(
+        sc, dc, geom, view_z_in, normal_roughness, diff, spec, anti_firefly=anti_firefly)
+    kw = dict(data1_diff=diff[1], data1_spec=spec[1], tap_geometry=tap_geometry,
+              perf_mode=perf_mode)
     d3, s3, _ = fused_spatial_filter(sc, dc, BLUR, geom, view_z_in, normal_roughness, d2, s2,
                                      **kw)
     d4, s4, _ = fused_spatial_filter(sc, dc, POST_BLUR, geom, view_z_in, normal_roughness, d3,

@@ -14,9 +14,8 @@ side and back again (parent, change, variants..., variants reversed, change, par
 held against its own plain version (the fraction of values outside 1e-4 + 1e-4 |plain|).
 Labels: N5 `history_fix_fused` and its pass (`fused_history_fix`, the parent's with the
 clamp glue), by default and with the anti-firefly ring; N4 `spatial_filter_fused` by stage,
-also in performance mode, and the change's PrePass with the frame's tap-geometry plane;
-K23 `reblur_band` (default, ring, performance mode); H2 and H3 of REBLUR_DIFFUSE and
-REBLUR_SPECULAR.
+also in performance mode; K23 `reblur_band` (default, ring, performance mode); H2 and H3 of
+REBLUR_DIFFUSE and REBLUR_SPECULAR.
 
 With `--slices` it also runs REBLUR_DIFFUSE_SPECULAR on parent and change in turns (parent,
 change, change, parent): the median ms/frame over `--frames` frames and a torch.profiler
@@ -26,7 +25,10 @@ the card for the run, so their peak memory is not the slice's (`chip_smoke.py` r
 Per side it prints each device kernel's registers and spill bytes (ptxas) and SASS
 instruction count (cuobjdump), the largest loop of each (its instructions between a
 backward branch and its target), and writes the SASS of the REBLUR filter kernels and a JSON
-of every number to `--out`.
+of every number to `--out`. Recording the calls, holding a kernel to its plain version,
+timing, the build log's ptxas lines and the SASS listing are `chip_smoke.py`'s own
+(`recording`, `disagreement`, `time_ms`, `ptxas_usage`, `sass_listing`), so that both
+scripts measure alike.
 """
 
 from __future__ import annotations
@@ -37,7 +39,6 @@ import dataclasses
 import enum
 import importlib
 import json
-import os
 import re
 import subprocess
 import sys
@@ -56,20 +57,18 @@ VARIANT_SOURCES = ("history_fix_fused.cu", "spatial_filter_fused.cu", "reblur_ba
                    "spatial_filter.cu", "history_fix.cu", "smb_resolve.cu")
 SASS_KERNELS = re.compile(r"history_fix|spatial_filter|reblur_band")
 DS = "REBLUR_DIFFUSE_SPECULAR"
-# (label prefix, denoiser, pool, settings, env, kernels recorded)
+BAND = DS + "+BAND"  # chip_smoke.PATHS: the pool and environment (the band's switch)
+# (label prefix, denoiser, path of the pool and environment, settings, kernels recorded)
 RUNS = (
-    ("DS", DS, DS, {}, {}, ("history_fix_fused", "spatial_filter_fused")),
-    ("DS ring", DS, DS, dict(enableAntiFirefly=True), {}, ("history_fix_fused",)),
-    ("DS perf", DS, DS, dict(enablePerformanceMode=True), {}, ("spatial_filter_fused",)),
-    ("band", DS, DS, {}, {"NRDTPU_REBLUR_BAND": "1"}, ("reblur_band",)),
-    ("band ring", DS, DS, dict(enableAntiFirefly=True), {"NRDTPU_REBLUR_BAND": "1"},
-     ("reblur_band",)),
-    ("band perf", DS, DS, dict(enablePerformanceMode=True), {"NRDTPU_REBLUR_BAND": "1"},
-     ("reblur_band",)),
-    ("D", "REBLUR_DIFFUSE", "REBLUR_DIFFUSE", {}, {}, ("spatial_filter", "history_fix")),
-    ("S", "REBLUR_SPECULAR", "REBLUR_SPECULAR", {}, {}, ("spatial_filter", "history_fix")),
+    ("DS", DS, DS, {}, ("history_fix_fused", "spatial_filter_fused")),
+    ("DS ring", DS, DS, dict(enableAntiFirefly=True), ("history_fix_fused",)),
+    ("DS perf", DS, DS, dict(enablePerformanceMode=True), ("spatial_filter_fused",)),
+    ("band", DS, BAND, {}, ("reblur_band",)),
+    ("band ring", DS, BAND, dict(enableAntiFirefly=True), ("reblur_band",)),
+    ("band perf", DS, BAND, dict(enablePerformanceMode=True), ("reblur_band",)),
+    ("D", "REBLUR_DIFFUSE", "REBLUR_DIFFUSE", {}, ("spatial_filter", "history_fix")),
+    ("S", "REBLUR_SPECULAR", "REBLUR_SPECULAR", {}, ("spatial_filter", "history_fix")),
 )
-STAGES = ("prepass", "blur", "post_blur")
 
 
 def log(*a):
@@ -150,66 +149,39 @@ def finish_variant(so, objs, procs):
     return text
 
 
-def record(side, denoiser, pool, settings, env, names, frames, w, h):
-    """The calls of `names` (and of the pass fused_history_fix) in the last frame."""
+def record(side, denoiser, pool, settings, names, frames, w, h):
+    """The calls of `names` (and of the pass fused_history_fix) in the last frame, in the
+    environment of chip_smoke's path `pool`."""
     side.activate()
     eng = side.engine(denoiser, w, h, **{k: side.convert(v) for k, v in settings.items()})
-    mods = {n: side.KM.MODULES[n] for n in names}
-    originals = {n: getattr(m, n) for n, m in mods.items()}
-    fix_pass = side.TK.fused_history_fix
-    calls = []
-    old_env = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    try:
-        for i, (cs, pools, _) in enumerate(frames):
-            if i == len(frames) - 1:
-                for n, m in mods.items():
-                    def rec(*a, _n=n, _f=originals[n], **k):
-                        calls.append((_n, a, k))
-                        return _f(*a, **k)
-                    setattr(m, n, rec)
 
-                def rec_pass(sc, dc, geom, *a, **k):
-                    calls.append(("pass fused_history_fix", (sc, dc, dict(geom)) + a, k))
-                    return fix_pass(sc, dc, geom, *a, **k)
-                side.TK.fused_history_fix = rec_pass
-            eng.set_common_settings(side.convert(cs))
-            eng.denoise([0], side.pool({k: torch.from_numpy(v).cuda()
-                                        for k, v in pools[pool].items()}))
-    finally:
-        for n, m in mods.items():
-            setattr(m, n, originals[n])
-        side.TK.fused_history_fix = fix_pass
-        for k, v in old_env.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+    def run(cs, pools):
+        eng.set_common_settings(side.convert(cs))
+        eng.denoise([0], side.pool({k: torch.from_numpy(v).cuda()
+                                    for k, v in pools[pool].items()}))
+
+    with CS.path_env(pool):
+        for cs, pools, _ in frames[:-1]:
+            run(cs, pools)
+        with CS.recording(side.KM, side.TK, ("fused_history_fix",)) as calls:
+            run(*frames[-1][:2])
     torch.cuda.synchronize()
-    return calls
+    return [c for c in calls if c[0] in names or c[0] == "pass fused_history_fix"]
 
 
 def labelled(prefix, calls):
-    """{label: (kernel name, args, kwargs)}: N4's calls by stage, the rest by name."""
-    out, stages = {}, iter(STAGES)
-    sf_stages = iter(STAGES)
+    """{label: (kernel name, args, kwargs)}: the spatial filters' calls by stage, the rest by
+    name."""
+    out, stages = {}, {"spatial_filter_fused": iter(CS.SF_STAGES),
+                       "spatial_filter": iter(CS.SF_STAGES)}
     for name, a, k in calls:
         if name == "pass fused_history_fix":
             out[f"{prefix} pass"] = (name, a, k)
-        elif name in ("spatial_filter_fused", "spatial_filter"):
-            stage = next(stages if name == "spatial_filter_fused" else sf_stages)
-            out[f"{prefix} {name} {stage}"] = (name, a, k)
+        elif name in stages:
+            out[f"{prefix} {name} {next(stages[name])}"] = (name, a, k)
         else:
             out[f"{prefix} {name}"] = (name, a, k)
     return out
-
-
-def _flat(r):
-    if isinstance(r, dict):
-        return r
-    if isinstance(r, tuple):
-        return {str(i): v for i, v in enumerate(r)}
-    return {"out": r}
 
 
 def runner(side, name, a, k):
@@ -224,15 +196,8 @@ def runner(side, name, a, k):
 
 def hold(run, plain):
     """Values outside 1e-4 + 1e-4 |plain|, their count and the largest difference."""
-    got, want = _flat(run()), _flat(plain())
-    over = count = 0
-    worst = 0.0
-    for key, wv in want.items():
-        d = (got[key].float() - wv.float()).abs()
-        over += int((d > CS.ATOL + CS.RTOL * wv.float().abs()).sum())
-        count += d.numel()
-        worst = max(worst, float(d.max()))
-    return over, count, worst
+    d = CS.disagreement(run(), plain()).values()
+    return (sum(v[2] for v in d), sum(v[3] for v in d), max(v[0] for v in d))
 
 
 def loops(body):
@@ -269,30 +234,15 @@ def loops(body):
 
 
 def sass_report(lib_path, name, out_dir):
-    """{kernel: (instructions, largest loop)} of the filter kernels; writes their SASS."""
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    tool = os.path.join(CUDA_HOME or "", "bin", "cuobjdump")
-    if not os.path.exists(tool):
-        return {}
-    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
-                          check=True, timeout=300).stdout
-    funcs, cur = {}, None
-    for line in text.splitlines():
-        m = re.match(r"\s*Function : (\S+)", line)
-        if m:
-            cur = m[1] if SASS_KERNELS.search(m[1]) else None
-            if cur:
-                funcs[cur] = []
-            continue
-        if cur:
-            funcs[cur].append(line)
-    if name in ("parent", "change"):
+    """{kernel: (instructions, largest loops)} of the filter kernels; writes their SASS."""
+    funcs = {f: lines for f, lines in (CS.sass_listing(lib_path) or {}).items()
+             if SASS_KERNELS.search(f)}
+    if name in ("parent", "change") and funcs:
         import gzip
 
         with gzip.open(out_dir / f"sass_{name}.txt.gz", "wt") as f:
             f.write("".join(f"Function : {k}\n" + "\n".join(b) + "\n" for k, b in funcs.items()))
-    return {CS._kernel_name(f): loops(b) for f, b in funcs.items()}
+    return {CS.kernel_name(f): loops(b) for f, b in funcs.items()}
 
 
 def slice_run(side, w, h, frames, warmup=3, traced=3):
@@ -400,16 +350,9 @@ def main():
     calls = {}
     for s in sides[:2]:
         calls[s.name] = {}
-        for prefix, denoiser, pool, settings, env, names in RUNS:
-            calls[s.name].update(labelled(prefix, record(s, denoiser, pool, settings, env,
-                                                         names, frames, w, h)))
-    # the change's PrePass with the frame's tap-geometry plane, as an N5 of the frame makes it
-    fix = calls["change"]["DS history_fix_fused"]
-    sides[1].activate()
-    plane = sides[1].KM.MODULES["history_fix_fused"].history_fix_fused(*fix[1], **fix[2])
-    name, a, k = calls["change"]["DS spatial_filter_fused prepass"]
-    calls["change"]["DS spatial_filter_fused prepass+plane"] = (
-        name, a, dict(k, geometry=plane["geometry"]))
+        for prefix, denoiser, pool, settings, names in RUNS:
+            calls[s.name].update(labelled(prefix, record(s, denoiser, pool, settings, names,
+                                                         frames, w, h)))
 
     labels = [lab for lab in calls["change"] if not lab.endswith(" pass")
               or lab in calls["parent"]]
@@ -422,7 +365,7 @@ def main():
                 continue
             s.activate()
             run, plain = runner(s, *own[lab])
-            res.setdefault(s.name, []).append(CS._time(run, args.reps))
+            res.setdefault(s.name, []).append(CS.time_ms(run, args.reps))
             if plain is not None and s.name not in report["over"].setdefault(lab, {}):
                 report["over"][lab][s.name] = hold(run, plain)
         report["times"][lab] = res

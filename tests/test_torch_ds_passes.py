@@ -161,6 +161,11 @@ def _geom(ctx, dc=None):
     return geom, vz, nr
 
 
+def _plane(sc, vz, nr):
+    """The frame's tap geometry, as N5 returns it for N4's Blur and PostBlur."""
+    return k_hff.tap_geometry_ref(nr, vz, float(sc["view_z_scale"]))
+
+
 @pytest.mark.parametrize("case", list(PREPASS_CASES) + ["perf"])
 def test_fused_pre_pass(ctx, case):
     """N4 in PrePass mode (the specular half with hitDistForTracking) vs diffuse_pre_pass and
@@ -189,7 +194,8 @@ def test_fused_spatial_filter(ctx, mode):
     d, s, hdt = TK.fused_spatial_filter(
         ctx["sc"], ctx["dc"], TK.POST_BLUR if mode == "post_blur" else TK.BLUR, geom, vz, nr,
         t(src_d), t(src_s), data1_diff=t(j["ta"]["data1_diff"]),
-        data1_spec=t(j["ta"]["data1_spec"]), perf_mode=mode == "blur_perf")
+        data1_spec=t(j["ta"]["data1_spec"]), tap_geometry=_plane(ctx["sc"], vz, nr),
+        perf_mode=mode == "blur_perf")
     key = {"blur": "blur", "post_blur": "post", "blur_perf": "blur"}[mode]
     suffix = "_perf" if mode == "blur_perf" else ""
     close(f"{mode} diff", d, j[f"{key}_diff{suffix}"])
@@ -197,14 +203,28 @@ def test_fused_spatial_filter(ctx, mode):
     assert hdt is None
 
 
+@pytest.mark.parametrize("mode", ["pre_pass", "blur"])
+def test_fused_spatial_filter_geometry_by_stage(ctx, mode):
+    """N4 takes the tap-geometry plane in Blur and PostBlur mode and only there: a Blur
+    without it and a PrePass with it are refused, on the CPU as on the card."""
+    j = ctx["j"]
+    geom, vz, nr = _geom(ctx)
+    plane = None if mode == "blur" else _plane(ctx["sc"], vz, nr)
+    with pytest.raises(ValueError, match="tap-geometry plane"):
+        TK.fused_spatial_filter(ctx["sc"], ctx["dc"], TK.BLUR if mode == "blur" else TK.PRE_BLUR,
+                                geom, vz, nr, t(j["hf_diff_False"][0]), t(j["hf_spec_False"][0]),
+                                data1_diff=t(j["ta"]["data1_diff"]),
+                                data1_spec=t(j["ta"]["data1_spec"]), tap_geometry=plane)
+
+
 @pytest.mark.parametrize("anti_firefly", [False, True], ids=["default", "anti_firefly"])
 def test_fused_history_fix(ctx, anti_firefly):
     """N5 (the clamp in the module) vs history_fix twice, with and without the anti-firefly
-    ring: the clamped signals and the fast histories; the tap geometry it leaves in `geom` is
-    the frame's unpacked normal and scaled viewZ."""
+    ring: the clamped signals and the fast histories; the tap geometry it returns is the
+    frame's unpacked normal and scaled viewZ."""
     j, ta = ctx["j"], ctx["j"]["ta"]
     geom, vz, nr = _geom(ctx)
-    (d, d_fast), (s, s_fast) = TK.fused_history_fix(
+    (d, d_fast), (s, s_fast), plane = TK.fused_history_fix(
         ctx["sc"], ctx["dc"], geom, vz, nr,
         (t(ta["diff"]), t(ta["data1_diff"]), t(ta["diff_fast"])),
         (t(ta["spec"]), t(ta["data1_spec"]), t(ta["spec_fast"])),
@@ -217,7 +237,7 @@ def test_fused_history_fix(ctx, anti_firefly):
     if anti_firefly:  # the ring changes the result: the flag reaches the kernel
         assert not np.allclose(d.numpy(), np.asarray(j["hf_diff_False"][0]), rtol=RTOL, atol=ATOL)
     n3 = geom["n3"]
-    close("tap geometry", geom["tap_geometry"],
+    close("tap geometry", plane,
           torch.stack([n3.x, n3.y, n3.z, geom["view_z"]], -1).numpy())
 
 
@@ -277,7 +297,8 @@ def _recorded(ctx, names):
                                 t(ctx["pool"][RT.IN_SPEC_RADIANCE_HITDIST]))
         TK.fused_spatial_filter(ctx["sc"], ctx["dc"], TK.BLUR, geom, vz, nr,
                                 t(j["hf_diff_False"][0]), t(j["hf_spec_False"][0]),
-                                data1_diff=t(ta["data1_diff"]), data1_spec=t(ta["data1_spec"]))
+                                data1_diff=t(ta["data1_diff"]), data1_spec=t(ta["data1_spec"]),
+                                tap_geometry=_plane(ctx["sc"], vz, nr))
         TK.fused_history_fix(ctx["sc"], ctx["dc"], geom, vz, nr,
                              (t(ta["diff"]), t(ta["data1_diff"]), t(ta["diff_fast"])),
                              (t(ta["spec"]), t(ta["data1_spec"]), t(ta["spec_fast"])),
@@ -360,7 +381,8 @@ def test_fused_spatial_filter_diffuse_matches_oracle(mode):
     ref = O.diffuse_spatial_filter(sc, dc, mode, s["signal"], s["view_z"], s["nr"], data1)
     got, _, _ = TK.fused_spatial_filter(sc, dc, TK.BLUR if mode == "blur" else TK.POST_BLUR,
                                         geom, t(s["view_z"]), t(s["nr"]), t(s["signal"]), t(spec),
-                                        data1_diff=t(data1), data1_spec=t(data1))
+                                        data1_diff=t(data1), data1_spec=t(data1),
+                                        tap_geometry=_plane(sc, t(s["view_z"]), t(s["nr"])))
     p = TO.psnr(ref, got.numpy())
     assert p >= ORACLE_BAR_DB, f"{mode}: PSNR vs HLSL oracle = {p:.1f} dB"
 
@@ -375,9 +397,9 @@ def test_fused_history_fix_diffuse_matches_oracle():
     fast = rng.uniform(0.0, 1.0, (h, w)).astype(np.float32)
     ref_sig, ref_fast = O.history_fix_diffuse(sc, dc, s["view_z"], s["nr"], data1, s["signal"],
                                               fast)
-    (got_sig, got_fast), _ = TK.fused_history_fix(sc, dc, geom, t(s["view_z"]), t(s["nr"]),
-                                                  (t(s["signal"]), t(data1), t(fast)),
-                                                  (t(spec), t(data1), t(fast)))
+    (got_sig, got_fast), _, _ = TK.fused_history_fix(sc, dc, geom, t(s["view_z"]), t(s["nr"]),
+                                                     (t(s["signal"]), t(data1), t(fast)),
+                                                     (t(spec), t(data1), t(fast)))
     assert TO.psnr(ref_sig, got_sig.numpy()) >= ORACLE_BAR_DB
     assert TO.psnr(ref_fast, got_fast.numpy()) >= ORACLE_BAR_DB
 
