@@ -28,8 +28,10 @@ Phases, each of which raises on failure (exit code != 0):
      The same again with `enableAntiFirefly=True` (the anti-firefly ring of history_fix and
      history_fix_fused), REBLUR_DIFFUSE_SPECULAR in performance mode (N4 only, held, not
      timed), and with hit-distance reconstruction at radius 1 and 2 on the
-     punched frames (hitdist_recon only); then each SIGMA variant; then RELAX_DIFFUSE and
-     RELAX_SPECULAR (every kernel of each, all five à-trous calls), both with
+     punched frames (hitdist_recon only); then each SIGMA variant (K13 `sigma_blur` by
+     pass, Blur and PostBlur: with the variant, its four modes); then RELAX_DIFFUSE and
+     RELAX_SPECULAR (every kernel of each, all five à-trous calls; the share of pixels that
+     run K19 `relax_history_fix`'s taps is printed), both with
      `enableAntiFirefly=True` (relax_antifirefly timed, the rest held only), and both with
      AREA_3X3 on RELAX-packed punched frames (hitdist_recon on RELAX's constants, not
      timed); then the band of REBLUR_DIFFUSE_SPECULAR+BAND, by default, with the anti-firefly
@@ -55,7 +57,8 @@ Phases, each of which raises on failure (exit code != 0):
 
 With `--profile` it also traces 3 frames of each path (after 4 warm-up) with
 torch.profiler and prints the device time a frame, the device's idle share against the
-slice's median ms/frame, and the device time by kernel.
+slice's median ms/frame, the device time by kernel, and on the RELAX paths the share of
+pixels that run the history fix's taps on each traced frame.
 
 It prints the card's name and power limit, one JSON line of per-kernel results, and as its
 last line `{"ok": true, "device": {...}}`. It imports torch, numpy and nrdtpu_torch only.
@@ -72,6 +75,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -181,12 +185,15 @@ FIXED_OPS = {"reblur_band": 0, "smb_resolve": 450, "ts_prelude": 40, "spec_ta_he
              "relax_vmb_resolve": 250, "relax_antifirefly": 0, "bilinear_resolve": 0}
 SMB_SIGNAL_OPS, TS_SAMPLE_OPS, NEAREST_SET_OPS = 200, 200, 12
 HD_TAP_OPS, HD_SIGNAL_TAP_OPS = 60, 15      # hitdist_recon.cu: one tap, and per signal
-SB_DENSE_TAP_OPS, SB_POISSON_TAP_OPS = 35, 50  # sigma_blur.cu: one tap, + 3 a channel
+SB_DENSE_TAP_OPS, SB_POISSON_TAP_OPS = 30, 76  # sigma_blur.cu: one tap, + 3 a channel
+SB_TEXEL_OPS = 5                            # sigma_blur.cu: a staged texel (+ 1 a channel
+                                            # on PostBlur), 20x20 of them a 16x16 tile
 ST_TAP_OPS, ST_CHANNEL_OPS = 5, 80          # sigma_ts.cu: a moment tap (+ 4 a channel),
                                             # and the CatRom sample + clamp of a channel
 RP_TAP_OPS = 100                            # relax_prepass.cu: one Poisson tap
 RS_HISTORY_OPS = 160                        # relax_smb_resolve.cu: CatRom of one history
-RH_TAP_OPS = 80                             # relax_history_fix.cu: one stride tap
+RH_TAP_OPS, RH_RECORD_OPS = 40, 43          # relax_history_fix.cu: one stride tap, and
+                                            # one texel's tap record (the prologue)
 RA_TAP_OPS, RA_SVE_TAP_OPS = 90, 45         # relax_atrous.cu: an à-trous tap, a 5x5 tap
 RA_SPEC_OPS, RA_SPEC_TAP_OPS = 60, 50       # the specular mode's parameters, + a tap
 RP_SPEC_OPS, RP_SPEC_TAP_OPS = 120, 30      # relax_prepass.cu's specular mode, + a tap
@@ -425,6 +432,8 @@ def _ops(name, a, k):
     elif name == "sigma_blur":
         c = 1 if a[1] is None else a[1].shape[-1]
         ops += ((SB_DENSE_TAP_OPS + 3 * c) * 24 + (SB_POISSON_TAP_OPS + 3 * c) * 8) * px
+        unpack = c if a[1] is not None and not k["first_pass"] else 0
+        ops += (SB_TEXEL_OPS + unpack) * px * 20 * 20 // (16 * 16)
     elif name == "sigma_ts":
         c = a[0].shape[-1]
         ops += ((ST_TAP_OPS + 4 * c) * 25 + ST_CHANNEL_OPS * c) * px
@@ -437,9 +446,10 @@ def _ops(name, a, k):
         ops += RS_HISTORY_OPS * len(a[8]) * px
         ops += RS_SPEC_OPS * px if len(a) > 9 and a[9] is not None else 0
     elif name == "relax_history_fix":  # the taps run only where the fix applies
-        live = int((a[3] <= k["frame_num"]).sum()) if k["frame_num"] != 1.0 else 0
+        live = history_fix_live(a, k)
         spec = k.get("specular") is not None
         ops += (RH_TAP_OPS + (RH_SPEC_TAP_OPS if spec else 0)) * 24 * live
+        ops += RH_RECORD_OPS * px if k["frame_num"] != 1.0 else 0
     elif name == "relax_atrous":  # iteration 0: the 5x5 estimation in place of short histories
         short = int((a[3] < k["history_threshold"]).sum()) if k["is_first"] else 0
         spec = k.get("specular") is not None and not k["is_first"]
@@ -452,6 +462,12 @@ def _ops(name, a, k):
     elif name == "bilinear_resolve":
         ops += BR_SET_OPS * a[1].shape[0] * px
     return ops
+
+
+def history_fix_live(a, k):
+    """The pixels of one relax_history_fix call that run the taps (history length <= frame
+    num, frame num != 1); the rest pass the signal through."""
+    return int((a[3] <= k["frame_num"]).sum()) if k["frame_num"] != 1.0 else 0
 
 
 def _bound(name, a, k, outputs, extra_bytes=0):
@@ -833,6 +849,13 @@ def kernel_phase(w, h, frames):
             lab = label
             if name == "spatial_filter_fused":  # a frame's calls: PrePass, Blur, PostBlur
                 lab = f"{label} {next(stages)}"
+            if name == "sigma_blur":  # a frame's calls: Blur, then PostBlur
+                lab = f"{label} {'blur' if k['first_pass'] else 'post_blur'}"
+            if name == "relax_history_fix" and timed is True:
+                px = a[3].numel()
+                live = history_fix_live(a, k)
+                log(f"kernel relax_history_fix {label}: {live} of {px} pixels run the taps "
+                    f"({live / px:.4f}) on frame {len(frames)}")
             if only is not None and name not in only:
                 continue
             # the à-trous ladder's calls are kept apart by stride
@@ -1024,16 +1047,25 @@ def profile_phase(path, w, h, frames, slice_ms, warmup=4, n=3):
     eng = path_engine(path, w, h, "cuda")
     pools = [(cs, {k: torch.from_numpy(v).cuda() for k, v in p[path].items()})
              for cs, p, _ in frames[:warmup + n]]
+    # the history fix's calls of the traced frames, for its share of pixels that run the taps
+    history_fix = types.SimpleNamespace(MODULES={"relax_history_fix":
+                                                 KM.MODULES["relax_history_fix"]})
     with path_env(path):
         for cs, pool in pools[:warmup]:
             eng.set_common_settings(cs)
             eng.denoise([0], pool)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+                recording(history_fix) as fixes:
             for cs, pool in pools[warmup:]:
                 eng.set_common_settings(cs)
                 eng.denoise([0], pool)
             torch.cuda.synchronize()
+    if fixes:
+        shares = [history_fix_live(a, k) / a[3].numel() for _, a, k in fixes]
+        log(f"profile {path}: relax_history_fix runs the taps on "
+            + ", ".join(f"{x:.4f}" for x in shares) + " of the pixels of the traced frames "
+            f"{warmup + 1}-{warmup + n}")
 
     # device-side events only (kernels, copies): the aten ops that launch them carry the
     # same time as their "self device time" and would count it twice

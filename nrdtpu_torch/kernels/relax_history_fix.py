@@ -14,8 +14,12 @@ in XLA: the TPU kernel's hat-blended stride levels (`relax_pallas.py:1502-1503`)
 carried over. Pixels whose history is long skip the taps.
 
 Bound on the H100: gathers. Per pixel it reads the centre's signal, viewZ, packed normal and
-history length (40 B) and, where the fix applies, 24 taps of viewZ, packed normal and
-signal (24 x 36 B) up to 2 x 14 px away; it writes 16 B.
+history length (40 B) and, where the fix applies, 24 taps up to 2 x 14 px away; it writes
+16 B. The entry makes two launches on the caller's stream and counts one: a prologue writes
+each texel's tap record (world position and material, unpacked normal and viewZ: 32 B) into
+a (h, w, 8) scratch plane that the wrapper allocates and drops after the call (118 MB at
+2560x1440), then each tap reads its record and signal as three float4 (48 B) in place of
+recomputing them. Where `frame_num` is 1 no pixel runs the taps: no plane, no prologue.
 """
 
 from __future__ import annotations
@@ -112,10 +116,12 @@ def relax_history_fix(signal, view_z_in, normal_roughness, history_length, *, fr
     for name, t, shape in ins:
         build.check(name, t, dev, f32, shape)
     out = torch.empty((h, w, 4), dtype=f32, device=dev)
+    records = (torch.empty((h, w, 8), dtype=f32, device=dev) if frame_num != 1.0 else None)
     sp = specular or {}
     consts = [*frustum, ortho_mode, view_z_scale, depth_threshold, base_stride, frame_num,
               max(normal_power, 0.01), min_material, specular is not None,
               *[sp.get(k, 0.0) for k in SPECULAR_CONSTS]]
-    build.launch("nrd_relax_history_fix", [t for _, t, _ in ins] + [out], consts, w, h)
+    build.launch("nrd_relax_history_fix", [t for _, t, _ in ins] + [out, records], consts, w,
+                 h)
     launches += 1
     return out

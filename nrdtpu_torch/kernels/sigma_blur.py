@@ -25,7 +25,10 @@ Bound on the H100: memory. Per pixel it reads penumbra, viewZ (4 B each), the pa
 (16 B), the shadow (4 or 16 B) and the tile value and sky planes (8 B), and writes the
 penumbra and the packed shadow (8-20 B): ~44-72 B/px, 0.05-0.08 ms at 2560x1440 at
 3.35 TB/s. The 33 taps are L1/L2 neighbours within 32 px. One thread per pixel in 16x16
-blocks with plain global loads.
+blocks, one kernel per mode (channels, first pass, shadow input); each block stages its tile's
+20x20 window of derived texels (penumbra, scaled viewZ, the view position's scale, the
+unpacked shadow) in shared memory for the dense 5x5; a Poisson tap reads it there where it
+falls inside, else global memory.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time this tree's REBLUR hand kernels against another tree's on one CUDA card, in turns.
+"""Time this tree's redesigned hand kernels against another tree's on one CUDA card, in turns.
 
     git archive HEAD | tar -x -C _ab/parent        # the parent commit, unpacked
     python3 scripts/ab_kernels.py --parent _ab/parent [--variant NAME=FLAGS ...] [--slices]
@@ -15,16 +15,21 @@ held against its own plain version (the fraction of values outside 1e-4 + 1e-4 |
 Labels: N5 `history_fix_fused` and its pass (`fused_history_fix`, the parent's with the
 clamp glue), by default and with the anti-firefly ring; N4 `spatial_filter_fused` by stage,
 also in performance mode; K23 `reblur_band` (default, ring, performance mode); H2 and H3 of
-REBLUR_DIFFUSE and REBLUR_SPECULAR.
+REBLUR_DIFFUSE (D) and REBLUR_SPECULAR (S); K13 `sigma_blur` in its four modes (SS / ST
+blur and post_blur: SIGMA_SHADOW and SIGMA_SHADOW_TRANSLUCENCY, Blur and PostBlur); K19
+`relax_history_fix` by signal (RD, RS: RELAX_DIFFUSE, RELAX_SPECULAR; frame 4 runs its taps
+on every pixel).
 
-With `--slices` it also runs REBLUR_DIFFUSE_SPECULAR on parent and change in turns (parent,
-change, change, parent): the median ms/frame over `--frames` frames and a torch.profiler
-trace of 3 frames (device events and device busy time a frame). The slices' frames stay on
-the card for the run, so their peak memory is not the slice's (`chip_smoke.py` reports that).
+With `--slices` it also runs REBLUR_DIFFUSE_SPECULAR, SIGMA_SHADOW_TRANSLUCENCY and
+RELAX_DIFFUSE (`SLICES`) on parent and change in turns (parent, change, change, parent): the
+median ms/frame over `--frames` frames and a torch.profiler trace of 3 frames (device events
+and device busy time a frame). The slices' frames stay on the card for the run, so their
+peak memory is not the slice's (`chip_smoke.py` reports that).
 
 Per side it prints each device kernel's registers and spill bytes (ptxas) and SASS
 instruction count (cuobjdump), the largest loop of each (its instructions between a
-backward branch and its target), and writes the SASS of the REBLUR filter kernels and a JSON
+backward branch and its target), and writes the SASS of the filter kernels (REBLUR's, K13's
+and K19's: `SASS_KERNELS`) and a JSON
 of every number to `--out`. Recording the calls, holding a kernel to its plain version,
 timing, the build log's ptxas lines and the SASS listing are `chip_smoke.py`'s own
 (`recording`, `disagreement`, `time_ms`, `ptxas_usage`, `sass_listing`), so that both
@@ -54,8 +59,9 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as CS  # noqa: E402
 
 VARIANT_SOURCES = ("history_fix_fused.cu", "spatial_filter_fused.cu", "reblur_band.cu",
-                   "spatial_filter.cu", "history_fix.cu", "smb_resolve.cu")
-SASS_KERNELS = re.compile(r"history_fix|spatial_filter|reblur_band")
+                   "spatial_filter.cu", "history_fix.cu", "smb_resolve.cu", "sigma_blur.cu",
+                   "relax_history_fix.cu")
+SASS_KERNELS = re.compile(r"history_fix|spatial_filter|reblur_band|sigma_blur")
 DS = "REBLUR_DIFFUSE_SPECULAR"
 BAND = DS + "+BAND"  # chip_smoke.PATHS: the pool and environment (the band's switch)
 # (label prefix, denoiser, path of the pool and environment, settings, kernels recorded)
@@ -68,7 +74,13 @@ RUNS = (
     ("band perf", DS, BAND, dict(enablePerformanceMode=True), ("reblur_band",)),
     ("D", "REBLUR_DIFFUSE", "REBLUR_DIFFUSE", {}, ("spatial_filter", "history_fix")),
     ("S", "REBLUR_SPECULAR", "REBLUR_SPECULAR", {}, ("spatial_filter", "history_fix")),
+    ("SS", "SIGMA_SHADOW", "SIGMA_SHADOW", {}, ("sigma_blur",)),
+    ("ST", "SIGMA_SHADOW_TRANSLUCENCY", "SIGMA_SHADOW_TRANSLUCENCY", {}, ("sigma_blur",)),
+    ("RD", "RELAX_DIFFUSE", "RELAX_DIFFUSE", {}, ("relax_history_fix",)),
+    ("RS", "RELAX_SPECULAR", "RELAX_SPECULAR", {}, ("relax_history_fix",)),
 )
+# the paths that --slices runs on both sides
+SLICES = (DS, "SIGMA_SHADOW_TRANSLUCENCY", "RELAX_DIFFUSE")
 
 
 def log(*a):
@@ -170,8 +182,8 @@ def record(side, denoiser, pool, settings, names, frames, w, h):
 
 
 def labelled(prefix, calls):
-    """{label: (kernel name, args, kwargs)}: the spatial filters' calls by stage, the rest by
-    name."""
+    """{label: (kernel name, args, kwargs)}: the spatial filters' calls by stage, SIGMA's
+    blur by pass (Blur, PostBlur), the rest by name."""
     out, stages = {}, {"spatial_filter_fused": iter(CS.SF_STAGES),
                        "spatial_filter": iter(CS.SF_STAGES)}
     for name, a, k in calls:
@@ -179,6 +191,8 @@ def labelled(prefix, calls):
             out[f"{prefix} pass"] = (name, a, k)
         elif name in stages:
             out[f"{prefix} {name} {next(stages[name])}"] = (name, a, k)
+        elif name == "sigma_blur":
+            out[f"{prefix} {name} {'blur' if k['first_pass'] else 'post_blur'}"] = (name, a, k)
         else:
             out[f"{prefix} {name}"] = (name, a, k)
     return out
@@ -245,16 +259,16 @@ def sass_report(lib_path, name, out_dir):
     return {CS.kernel_name(f): loops(b) for f, b in funcs.items()}
 
 
-def slice_run(side, w, h, frames, warmup=3, traced=3):
-    """REBLUR_DIFFUSE_SPECULAR on one side: median ms/frame, device events and busy ms a frame
-    of a traced window."""
+def slice_run(side, path, w, h, frames, warmup=3, traced=3):
+    """One path of SLICES on one side: median ms/frame, device events and busy ms a frame of a
+    traced window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     side.activate()
-    eng = side.engine(DS, w, h)
+    eng = side.engine(path, w, h)
     pools = [(side.convert(cs), side.pool({k: torch.from_numpy(v).cuda()
-                                           for k, v in p[DS].items()})) for cs, p, _ in frames]
+                                           for k, v in p[path].items()})) for cs, p, _ in frames]
     torch.cuda.synchronize()
     ms = []
     for i, (cs, pool) in enumerate(pools):
@@ -339,11 +353,12 @@ def main():
 
     if args.slices:
         slice_frames = list(CS.Scene(w, h).frames(3 + args.frames))
-        for s in (sides[0], sides[1], sides[1], sides[0]):
-            r = slice_run(s, w, h, slice_frames)
-            report["slices"].append(dict(side=s.name, **r))
-            log(f"slice {DS} {s.name}: {r['ms']:.3f} ms/frame, {r['events']:.0f} device events "
-                f"a frame, device busy {r['busy_ms']:.3f} ms")
+        for path in SLICES:
+            for s in (sides[0], sides[1], sides[1], sides[0]):
+                r = slice_run(s, path, w, h, slice_frames)
+                report["slices"].append(dict(side=s.name, path=path, **r))
+                log(f"slice {path} {s.name}: {r['ms']:.3f} ms/frame, {r['events']:.0f} device "
+                    f"events a frame, device busy {r['busy_ms']:.3f} ms")
         del slice_frames
         torch.cuda.empty_cache()
     frames = list(CS.Scene(w, h).frames(4))

@@ -57,6 +57,7 @@ inline T __ldg(const T* p) {
 }
 
 inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
+inline float __fdividef(float a, float b) { return a / b; }
 
 struct __nv_bfloat16 {
   uint16_t bits;

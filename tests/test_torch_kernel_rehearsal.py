@@ -1,6 +1,6 @@
 """Rehearsal on the CPU of the kernels redesigned for the H100: K22 `relax_atrous.cu`, K23
-`reblur_band.cu`, N4 `spatial_filter_fused.cu` and N5 `history_fix_fused.cu`, as they are in
-the tree, compiled as C++ by g++ through `tests/cuda_shim.h` (every CUDA thread a std::thread,
+`reblur_band.cu`, N4 `spatial_filter_fused.cu`, N5 `history_fix_fused.cu`, K13
+`sigma_blur.cu` and K19 `relax_history_fix.cu`, as they are in the tree, compiled as C++ by g++ through `tests/cuda_shim.h` (every CUDA thread a std::thread,
 `__syncthreads` a barrier of the block) and bound through the same ctypes entry points as on
 the card, with `build.library`, `build.kernel_device` and `torch.cuda.current_stream` patched.
 Each is held against its plain version on the calls that the port's Engine makes on the CPU at
@@ -8,8 +8,11 @@ Each is held against its plain version on the calls that the port's Engine makes
 RELAX_SPECULAR with IN_DIFF_CONFIDENCE / IN_SPEC_CONFIDENCE; the band of
 REBLUR_DIFFUSE_SPECULAR (NRDTPU_REBLUR_BAND=1) by default, with the anti-firefly ring and in
 performance mode; N4's PrePass (hitDistForTracking and its PCG draws), Blur, PostBlur and
-performance mode, and N5 by default and with the ring, both of REBLUR_DIFFUSE_SPECULAR; and
-N5's tap-geometry plane read by N4's Blur (the two kernels chained).
+performance mode, and N5 by default and with the ring, both of REBLUR_DIFFUSE_SPECULAR;
+N5's tap-geometry plane read by N4's Blur (the two kernels chained); K13 in its four modes
+(SIGMA_SHADOW and SIGMA_SHADOW_TRANSLUCENCY, Blur and PostBlur); K19 on RELAX_DIFFUSE and
+RELAX_SPECULAR (its tap-record prologue, then the taps; the first frame included) and with
+historyFixFrameNum = 0, whose frame num of 1 switches the taps and the prologue off.
 
 Run alone: python -m pytest tests/test_torch_kernel_rehearsal.py -q
 
@@ -41,7 +44,7 @@ torch.set_num_threads(1)
 
 SHIM = Path(__file__).with_name("cuda_shim.h")
 SOURCES = ("relax_atrous.cu", "reblur_band.cu", "spatial_filter_fused.cu",
-           "history_fix_fused.cu")
+           "history_fix_fused.cu", "sigma_blur.cu", "relax_history_fix.cu")
 SIZE = (48, 32)
 FRAMES = 4
 ATOL, RTOL, FLIP_FRACTION = 1e-4, 1e-4, 1e-4
@@ -54,6 +57,17 @@ BAND_CASES = {"default": {}, "anti_firefly": dict(enableAntiFirefly=True),
 STEPS = (1, 2, 4, 8, 16)
 # N4's calls of a REBLUR_DIFFUSE_SPECULAR frame, in order
 SF_STAGES = ("prepass", "blur", "post_blur")
+# K13's four modes: the SIGMA variant and the call of its frame (Blur, then PostBlur)
+SIGMA_MODES = {"shadow_blur": (Denoiser.SIGMA_SHADOW, 0),
+               "shadow_post_blur": (Denoiser.SIGMA_SHADOW, 1),
+               "translucency_blur": (Denoiser.SIGMA_SHADOW_TRANSLUCENCY, 0),
+               "translucency_post_blur": (Denoiser.SIGMA_SHADOW_TRANSLUCENCY, 1)}
+TRANSLUCENCY_RGB = (0.3, 0.6, 0.2)
+# K19's calls: each RELAX signal over the frames (the first one included), and
+# historyFixFrameNum = 0, whose frame num of 1 switches the taps off
+HISTORY_FIX_CASES = {"diffuse": (Denoiser.RELAX_DIFFUSE, {}),
+                     "specular": (Denoiser.RELAX_SPECULAR, {}),
+                     "taps_off": (Denoiser.RELAX_DIFFUSE, dict(historyFixFrameNum=0))}
 DS = Denoiser.REBLUR_DIFFUSE_SPECULAR
 
 LAUNCH = re.compile(r"([A-Za-z_]\w*(?:<[^<>;]*>)?)\s*<<<([^;]*?)>>>\s*\(([^;]*)\);")
@@ -120,14 +134,25 @@ def _ramp(rng, h, w):
     return np.clip(r, 0.0, 1.0).astype(np.float32)
 
 
-def _pools(relax):
+def _pools(kind):
+    """The inputs of each frame for "reblur", "relax" or "sigma" (the penumbra from the
+    scene's distance to the occluder, and a constant translucency)."""
     gen = SceneGenerator(SceneSpec(size=SIZE, noise=0.4), camera_mode="orbit")
     rng = np.random.default_rng(11)
+    relax = kind == "relax"
     for i in range(FRAMES):
         fd = gen.frame(i)
         fd.common_settings.timeDeltaBetweenFrames = 16.66
         pool = {RT.IN_VIEWZ: fd.view_z, RT.IN_NORMAL_ROUGHNESS: gen.packed_normal_roughness(fd),
                 RT.IN_MV: fd.mv}
+        if kind == "sigma":
+            dist = torch.from_numpy(fd.dist_to_occluder)
+            pool[RT.IN_PENUMBRA] = fe.sigma_pack_penumbra_directional(
+                dist, gen.spec.light_tan_angular_radius).numpy()
+            rgb = torch.tensor(TRANSLUCENCY_RGB).expand(SIZE[1], SIZE[0], 3)
+            pool[RT.IN_TRANSLUCENCY] = fe.sigma_pack_translucency(dist, rgb).numpy()
+            yield fd.common_settings, pool
+            continue
         for rt, noisy, hit, conf in (
                 (RT.IN_DIFF_RADIANCE_HITDIST, fd.diff_noisy, fd.diff_hit_dist,
                  RT.IN_DIFF_CONFIDENCE),
@@ -161,7 +186,8 @@ def _record(denoiser, name, env=None, **settings):
         mp.setattr(mod, name, rec)
         for key, value in (env or {}).items():
             mp.setenv(key, value)
-        for cs, pool in _pools(denoiser.name.startswith("RELAX")):
+        kind = denoiser.name.split("_")[0].lower()
+        for cs, pool in _pools(kind):
             eng.set_common_settings(cs)
             eng.denoise([0], pool)
     return calls
@@ -293,3 +319,43 @@ def test_geometry_plane_chain_rehearsal(library, ds_calls):
             assert int((d > ATOL + RTOL * want[key].abs()).sum()) <= FLIP_FRACTION * d.numel()
             worst = max(worst, float(d.max()))
     assert worst < 1e-3
+
+
+@pytest.mark.parametrize("mode", list(SIGMA_MODES))
+def test_sigma_blur_rehearsal(library, mode):
+    """K13 in each of its modes: <1, first pass, no shadow input>, <1, PostBlur, shadow>,
+    <4, first pass, shadow>, <4, PostBlur, shadow>."""
+    denoiser, stage = SIGMA_MODES[mode]
+    calls = _record(denoiser, "sigma_blur")
+    assert len(calls) == 2 * FRAMES
+    calls = calls[stage::2]
+    assert all(k["first_pass"] == (stage == 0) for _, k in calls)
+    channels = 4 if denoiser == Denoiser.SIGMA_SHADOW_TRANSLUCENCY else 1
+    for a, _ in calls:
+        shadow = a[1]
+        if mode == "shadow_blur":
+            assert shadow is None
+        else:
+            assert shadow.shape[-1] == channels
+    over, count, worst = _hold(library, "sigma_blur", calls)
+    assert over <= FLIP_FRACTION * count, (f"{mode}: {over} of {count} values out of "
+                                           f"tolerance, max |d| {worst:.3g}")
+
+
+@pytest.mark.parametrize("case", list(HISTORY_FIX_CASES))
+def test_relax_history_fix_rehearsal(library, case):
+    """K19's prologue (the tap records) and taps against the plain version; with a frame num
+    of 1 the entry runs neither and passes the signal through."""
+    denoiser, settings = HISTORY_FIX_CASES[case]
+    calls = _record(denoiser, "relax_history_fix", **settings)
+    assert len(calls) == FRAMES
+    assert all((k["frame_num"] == 1.0) == (case == "taps_off") for _, k in calls)
+    assert all((k["specular"] is not None) == (case == "specular") for _, k in calls)
+    # the taps run on some pixels of every frame (all of them on the first)
+    if case != "taps_off":
+        assert all(bool((a[3] <= k["frame_num"]).any()) for a, k in calls)
+    over, count, worst = _hold(library, "relax_history_fix", calls)
+    assert over <= FLIP_FRACTION * count, (f"{case}: {over} of {count} values out of "
+                                           f"tolerance, max |d| {worst:.3g}")
+    if case == "taps_off":
+        assert worst == 0.0
