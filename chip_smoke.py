@@ -34,7 +34,9 @@ Phases, each of which raises on failure (exit code != 0):
      run K19 `relax_history_fix`'s taps is printed), both with
      `enableAntiFirefly=True` (relax_antifirefly timed, the rest held only), and both with
      AREA_3X3 on RELAX-packed punched frames (hitdist_recon on RELAX's constants, not
-     timed); then the band of REBLUR_DIFFUSE_SPECULAR+BAND, by default, with the anti-firefly
+     timed); then RELAX_SPECULAR with IN_NORMAL_ROUGHNESS packed as SQ_LINEAR and as
+     SQRT_LINEAR, AREA_3X3 on the punched frames (`ENCODED`: K15, K19, K22 and K12 in each
+     roughness mode, timed); then the band of REBLUR_DIFFUSE_SPECULAR+BAND, by default, with the anti-firefly
      ring and in performance mode, each timed beside the three-launch chain it replaces (the
      history fix, its clamp, the Blur and PostBlur parameters and two spatial-filter
      launches, glue included) on the same inputs; then the halo launcher (its `box` body on 1
@@ -52,8 +54,9 @@ Phases, each of which raises on failure (exit code != 0):
   4. lit scene: both SIGMA variants on a scene without occluders at 256x160 keep every lit
      pixel above 0.99;
   5. card vs CPU: the same 4 frames at 256x160 on the card and on the CPU plain path must
-     agree to >= 50 dB PSNR, for every output of every path, and of REFERENCE on a static
-     camera (plain torch ops on both, no kernel).
+     agree to >= 50 dB PSNR, for every output of every path, of RELAX_SPECULAR at SQ_LINEAR
+     (AREA_3X3 on the punched frames), and of REFERENCE on a static camera (plain torch ops on
+     both, no kernel).
 
 With `--profile` it also traces 3 frames of each path (after 4 warm-up) with
 torch.profiler and prints the device time a frame, the device's idle share against the
@@ -167,6 +170,15 @@ PATHS = {
         settings=dict(enableAntiFirefly=True), launches={**RS_LAUNCHES, "relax_antifirefly": 1}),
 }
 RELAX_VARIANTS = ("RELAX_DIFFUSE", "RELAX_SPECULAR")
+# RELAX_SPECULAR with IN_NORMAL_ROUGHNESS packed at the roughness encodings other than LINEAR,
+# with AREA_3X3 on the frames with hit-distance holes, so that every kernel that unpacks the
+# roughness (ENCODED_KERNELS) runs in the encoding's mode: held and timed in the kernel phase,
+# and SQ_LINEAR card against CPU; not sliced
+ENCODED_KERNELS = ("relax_prepass", "relax_history_fix", "relax_atrous", "hitdist_recon")
+ENCODED = {f"RELAX_SPECULAR+{e}": dict(denoiser="RELAX_SPECULAR", signals=("spec",), relax=True,
+                                       encoding=e,
+                                       settings=dict(hitDistanceReconstructionMode="AREA_3X3"))
+           for e in ("SQ_LINEAR", "SQRT_LINEAR")}
 # RELAX-packed frames with hit-distance holes: the kernel phase's RELAX AREA_3X3 runs
 RELAX_HOLES = {v: f"{v}+holes" for v in RELAX_VARIANTS}
 REBLUR_VARIANTS = ("REBLUR_DIFFUSE", "REBLUR_SPECULAR", "REBLUR_DIFFUSE_SPECULAR")
@@ -180,7 +192,7 @@ HF_TAP_OPS, HF_MOMENT_OPS, HF_RING_OPS = 100, 27, 216  # :hf_filter tap, 3x3, th
 FIXED_OPS = {"reblur_band": 0, "smb_resolve": 450, "ts_prelude": 40, "spec_ta_head": 120, "vmb_resolve": 600,
              "nearest_multi": 0, "spatial_filter": 0, "spatial_filter_fused": 0,
              "history_fix": 0, "history_fix_fused": 0, "hitdist_recon": 40, "sigma_blur": 90,
-             "sigma_ts": 150, "relax_prepass": 60, "relax_smb_resolve": 450,
+             "sigma_ts": 150, "relax_prepass": 60, "relax_smb_resolve": 260,
              "relax_history_fix": 10, "relax_clamp_moments": 1010, "relax_atrous": 80,
              "relax_vmb_resolve": 250, "relax_antifirefly": 0, "bilinear_resolve": 0}
 SMB_SIGNAL_OPS, TS_SAMPLE_OPS, NEAREST_SET_OPS = 200, 200, 12
@@ -191,7 +203,8 @@ SB_TEXEL_OPS = 5                            # sigma_blur.cu: a staged texel (+ 1
 ST_TAP_OPS, ST_CHANNEL_OPS = 5, 80          # sigma_ts.cu: a moment tap (+ 4 a channel),
                                             # and the CatRom sample + clamp of a channel
 RP_TAP_OPS = 100                            # relax_prepass.cu: one Poisson tap
-RS_HISTORY_OPS = 160                        # relax_smb_resolve.cu: CatRom of one history
+RS_HISTORY_OPS = 100                        # relax_smb_resolve.cu: one history through the
+                                            # CatRom footprint (12 texels x 4 channels)
 RH_TAP_OPS, RH_RECORD_OPS = 40, 43          # relax_history_fix.cu: one stride tap, and
                                             # one texel's tap record (the prologue)
 RA_TAP_OPS, RA_SVE_TAP_OPS = 90, 45         # relax_atrous.cu: an à-trous tap, a 5x5 tap
@@ -199,7 +212,7 @@ RA_SPEC_OPS, RA_SPEC_TAP_OPS = 60, 50       # the specular mode's parameters, + 
 RP_SPEC_OPS, RP_SPEC_TAP_OPS = 120, 30      # relax_prepass.cu's specular mode, + a tap
 RS_SPEC_OPS = 40                            # relax_smb_resolve.cu's specular planes
 RH_SPEC_TAP_OPS = 40                        # relax_history_fix.cu's specular tap weight
-RV_HISTORY_OPS = 160                        # relax_vmb_resolve.cu: CatRom of one history
+RV_HISTORY_OPS = 100                        # relax_vmb_resolve.cu: the same, one history
 AF_SIGNAL_OPS = 8 * 12 + 10                 # relax_antifirefly.cu: 8 taps of one signal
 BR_SET_OPS = 30                             # bilinear_resolve.cu: one bilinear sample
 BAND_CLAMP_OPS, BAND_PARAM_OPS = 30, 90     # reblur_filters.cuh: hf_clamp (N5 and K23),
@@ -251,7 +264,7 @@ class Scene:
     def frame(self, i, truth=False):
         """(common settings, {path: pool}, truth or None)."""
         from nrdtpu_torch import frontend as fe
-        from nrdtpu_torch.settings import ResourceType as RT
+        from nrdtpu_torch.settings import ResourceType as RT, RoughnessEncoding
 
         fd = self.gen.frame(i)
         cs = fd.common_settings
@@ -297,6 +310,10 @@ class Scene:
                 pools[name] = {**base, **{in_rt(sig): src[sig] for sig in v["signals"]}}
         for name, holes_name in RELAX_HOLES.items():
             pools[holes_name] = {**base, in_rt(PATHS[name]["signals"][0]): relax_punched[name]}
+        for name, v in ENCODED.items():
+            nr = self.gen.packed_normal_roughness(fd, re_=RoughnessEncoding[v["encoding"]])
+            pools[name] = {**base, RT.IN_NORMAL_ROUGHNESS: nr,
+                           in_rt("spec"): relax_punched[v["denoiser"]]}
         t = None
         if truth:
             t = dict(mask=fd.hit_mask > 0, diff=(fd.diff_clean, fd.diff_noisy),
@@ -316,13 +333,14 @@ class Scene:
                 yield pending.pop(i).result()
 
 
-def engine(denoiser, w, h, device, **settings):
-    """A fresh Engine of the denoiser on the device, with `settings` changed from the
-    defaults (enum fields by name)."""
+def engine(denoiser, w, h, device, roughness_encoding="LINEAR", **settings):
+    """A fresh Engine of the denoiser on the device at the roughness encoding, with
+    `settings` changed from the defaults (enum fields by name)."""
     from nrdtpu_torch import settings as S
     from nrdtpu_torch.engine import Engine
 
-    eng = Engine({0: S.Denoiser[denoiser]}, resource_size=(w, h), device=device)
+    eng = Engine({0: S.Denoiser[denoiser]}, resource_size=(w, h), device=device,
+                 roughness_encoding=S.RoughnessEncoding[roughness_encoding])
     if settings:
         if "hitDistanceReconstructionMode" in settings:
             settings["hitDistanceReconstructionMode"] = S.HitDistanceReconstructionMode[
@@ -348,8 +366,9 @@ def path_env(path):
 
 
 def path_engine(path, w, h, device):
-    return engine(PATHS[path].get("denoiser", path), w, h, device,
-                  **PATHS[path].get("settings", {}))
+    v = PATHS[path] if path in PATHS else ENCODED[path]
+    return engine(v.get("denoiser", path), w, h, device, v.get("encoding", "LINEAR"),
+                  **v.get("settings", {}))
 
 
 def card_line():
@@ -624,6 +643,7 @@ def _dynamic_smem(name, a, k):
     the tile's window (three float4 a texel) at iteration 0; K24 the windows of one strip of
     output rows."""
     from nrdtpu_torch.kernels import build
+    from nrdtpu_torch.settings import RoughnessEncoding
 
     if name == "relax_atrous":
         src = (build.CSRC / "relax_atrous.cu").read_text()
@@ -631,7 +651,8 @@ def _dynamic_smem(name, a, k):
         if not k["is_first"]:
             return {}
         halo = max(k["step_size"], 2)
-        return {"relax_atrous_kernel<true>": (tx + 2 * halo) * (ty + 2 * halo) * 48}
+        mode = build.ROUGHNESS_MODE[k.get("roughness_encoding", RoughnessEncoding.LINEAR)]
+        return {f"relax_atrous_kernel<true, {mode}>": (tx + 2 * halo) * (ty + 2 * halo) * 48}
     if name == "halo_call":
         _, images, _, halo, (bh, bw) = a[:5]
         channels = sum(1 if t.dim() == 2 else t.shape[-1] for t in images)
@@ -716,7 +737,8 @@ def kernel_runs():
     reconstruction at radius 1 and 2 on the frames with holes (the AREA_3X3 slice's pools),
     each SIGMA variant, RELAX_DIFFUSE and RELAX_SPECULAR (every call of their kernels), both
     with the anti-firefly pass (relax_antifirefly timed, the rest held only) and, not timed,
-    both with AREA_3X3 reconstruction on RELAX-packed frames with holes."""
+    both with AREA_3X3 reconstruction on RELAX-packed frames with holes; then the kernels that
+    unpack the roughness on RELAX_SPECULAR at each encoding of ENCODED, timed."""
     runs = []
     for v in REBLUR_VARIANTS:
         runs.append((v, v, v, {}, None, True))
@@ -736,6 +758,10 @@ def kernel_runs():
                      {"relax_antifirefly"}))
         runs.append((f"{v} AREA_3X3", v, RELAX_HOLES[v],
                      dict(hitDistanceReconstructionMode="AREA_3X3"), {"hitdist_recon"}, False))
+    for pool, v in ENCODED.items():
+        runs.append((f"{v['denoiser']} {v['encoding']}", v["denoiser"], pool,
+                     dict(v["settings"], roughness_encoding=v["encoding"]),
+                     set(ENCODED_KERNELS), set(ENCODED_KERNELS)))
     band = "REBLUR_DIFFUSE_SPECULAR+BAND"
     for label, settings in (("", {}), (" anti-firefly", dict(enableAntiFirefly=True)),
                             (" perf", dict(enablePerformanceMode=True))):
@@ -1099,7 +1125,8 @@ def profile_phase(path, w, h, frames, slice_ms, warmup=4, n=3):
 
 def card_vs_cpu_phase(w=256, h=160, frames=4):
     frames = list(Scene(w, h).frames(frames, workers=1))
-    for path, v in PATHS.items():
+    sq = "RELAX_SPECULAR+SQ_LINEAR"
+    for path, v in {**PATHS, sq: ENCODED[sq]}.items():
         cuda, cpu = path_engine(path, w, h, "cuda"), path_engine(path, w, h, "cpu")
         worst = {sig: float("inf") for sig in v["signals"]}
         for i, (cs, pools, _) in enumerate(frames):

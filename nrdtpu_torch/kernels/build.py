@@ -22,12 +22,19 @@ from pathlib import Path
 
 import torch
 
+from ..settings import RoughnessEncoding
+
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
 # --fmad=false: no a*b+c contraction, so step functions (plane-distance and material tests,
 # floor snaps) see the same float32 values as the plain versions.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v"]
+
+# The kernels' roughness decode mode of each roughness encoding (`csrc/common.cuh:
+# decode_roughness`), as `frontend.unpack_normal_roughness` decodes it
+ROUGHNESS_MODE = {RoughnessEncoding.LINEAR: 0, RoughnessEncoding.SQRT_LINEAR: 1,
+                  RoughnessEncoding.SQ_LINEAR: 2}
 
 _lib = None
 build_seconds = None

@@ -66,6 +66,17 @@ __device__ __forceinline__ V3 unpack_normal(float px, float py) {
   return V3{x * inv, y * inv, z * inv};
 }
 
+// The roughness of a packed normal's .z under the roughness encoding (NRD.hlsli:600-628), a
+// kernel's template parameter: 0 LINEAR as packed, 1 SQRT_LINEAR squared, 2 SQ_LINEAR
+// sqrt(saturate(.)) (nrdtpu_torch/kernels/build.py:ROUGHNESS_MODE)
+template <int kRough>
+__device__ __forceinline__ float decode_roughness(float r) {
+  static_assert(kRough >= 0 && kRough <= 2, "roughness mode 0, 1 or 2");
+  if constexpr (kRough == 1) return r * r;
+  if constexpr (kRough == 2) return sqrtf(saturate(r));
+  return r;
+}
+
 // Math::AcosApprox as the JAX package defines it
 __device__ __forceinline__ float acos_approx(float x) {
   x = fminf(fmaxf(x, -1.0f), 1.0f);
@@ -231,6 +242,72 @@ __device__ __forceinline__ void sample_catrom(const Image<T, C>& img, float spx,
                                               bool use_bicubic, const float bw[4],
                                               float out[C]) {
   catrom_apply(img, catrom_taps(spx, spy, use_bicubic, bw), out);
+}
+
+// catrom_apply of N float (h, w, 4) images through one footprint, operation for operation:
+// the 5 bilinear samples in order, each sample's position, origin and weights computed once
+// for all images. A texel is read, as one float4 through the read-only path, only where its
+// bilinear weight is non-zero, and a sample only where its CatRom weight is: a term of weight
+// 0 adds an exact 0. In the bicubic footprint whose positions land on their texels exactly,
+// that reads each of the 12 texels it covers once, in place of the 20 of 5 full bilinears.
+template <int N>
+__device__ __forceinline__ void catrom_apply4(const float4* const img[N], int w, int h,
+                                              const CatromTaps& t, float4 out[N]) {
+  const float inv_w = 1.0f / (float)w, inv_h = 1.0f / (float)h;
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float4 acc[N];
+#pragma unroll
+  for (int s = 0; s < N; ++s) acc[s] = zero;
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    if (t.wt[k] == 0.0f) continue;
+    const float posx = (t.tx[k] * inv_w) * (float)w - 0.5f;
+    const float posy = (t.ty[k] * inv_h) * (float)h - 0.5f;
+    const float ox = floorf(posx), oy = floorf(posy);
+    float bw[4];
+    bilinear_weights(posx - ox, posy - oy, bw);
+    const int x0 = to_index(ox), y0 = to_index(oy);
+    const size_t r0 = (size_t)clampi(y0, 0, h - 1) * w, r1 = (size_t)clampi(y0 + 1, 0, h - 1) * w;
+    const int c0 = clampi(x0, 0, w - 1), c1 = clampi(x0 + 1, 0, w - 1);
+    const size_t idx[4] = {r0 + c0, r0 + c1, r1 + c0, r1 + c1};
+#pragma unroll
+    for (int s = 0; s < N; ++s) {
+      float4 v[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) v[q] = bw[q] != 0.0f ? __ldg(img[s] + idx[q]) : zero;
+      const float4 b = make_float4(
+          v[0].x * bw[0] + v[1].x * bw[1] + v[2].x * bw[2] + v[3].x * bw[3],
+          v[0].y * bw[0] + v[1].y * bw[1] + v[2].y * bw[2] + v[3].y * bw[3],
+          v[0].z * bw[0] + v[1].z * bw[1] + v[2].z * bw[2] + v[3].z * bw[3],
+          v[0].w * bw[0] + v[1].w * bw[1] + v[2].w * bw[2] + v[3].w * bw[3]);
+      acc[s] = make_float4(acc[s].x + b.x * t.wt[k], acc[s].y + b.y * t.wt[k],
+                           acc[s].z + b.z * t.wt[k], acc[s].w + b.w * t.wt[k]);
+    }
+  }
+  const bool small = t.wsum < 0.0001f;
+  const float div = fabsf(t.wsum) < 0.0001f ? 1.0f : t.wsum;
+#pragma unroll
+  for (int s = 0; s < N; ++s)
+    out[s] = small ? zero
+                   : make_float4(acc[s].x / div, acc[s].y / div, acc[s].z / div, acc[s].w / div);
+}
+
+// sample_bilinear of a float (h, w, 4) image: four float4 reads through the read-only path,
+// the same arithmetic per channel
+__device__ __forceinline__ float4 sample_bilinear4(const Image<float, 4>& img, float u,
+                                                   float v) {
+  const float posx = u * (float)img.w - 0.5f;
+  const float posy = v * (float)img.h - 0.5f;
+  const float ox = floorf(posx), oy = floorf(posy);
+  float w[4];
+  bilinear_weights(posx - ox, posy - oy, w);
+  const int x0 = to_index(ox), y0 = to_index(oy);
+  const float4 a = img.at4(x0, y0), b = img.at4(x0 + 1, y0), c = img.at4(x0, y0 + 1),
+               d = img.at4(x0 + 1, y0 + 1);
+  return make_float4(a.x * w[0] + b.x * w[1] + c.x * w[2] + d.x * w[3],
+                     a.y * w[0] + b.y * w[1] + c.y * w[2] + d.y * w[3],
+                     a.z * w[0] + b.z * w[1] + c.z * w[2] + d.z * w[3],
+                     a.w * w[0] + b.w * w[1] + c.w * w[2] + d.w * w[3]);
 }
 
 __device__ __forceinline__ float pixel_u(int x, int w) { return ((float)x + 0.5f) / (float)w; }

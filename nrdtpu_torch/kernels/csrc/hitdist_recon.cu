@@ -3,7 +3,9 @@
 // Gaussian, plane distance, normal angle and (specular) roughness; diffuse, specular or both
 // in one launch. Replaces nrdtpu/kernels/reblur_pallas.py:1596 hitdist_recon_pallas; computes
 // the taps of nrdtpu/passes/reblur/kernels.py:2255-2293. The plain version is
-// nrdtpu_torch/kernels/hitdist_recon.py:hitdist_recon_ref. One thread per pixel.
+// nrdtpu_torch/kernels/hitdist_recon.py:hitdist_recon_ref. One thread per pixel. The roughness
+// encoding is the template parameter kRough (common.cuh:decode_roughness), applied to each
+// tap's roughness, as the TPU kernel's rough_sq.
 #include "common.cuh"
 
 namespace {
@@ -26,6 +28,7 @@ struct HdArgs {
   float gauss[kMaxTaps];  // Gaussian weight of each tap, row by row
 };
 
+template <int kRough>
 __global__ void __launch_bounds__(256) hitdist_recon_kernel(HdArgs a) {
   const int x = blockIdx.x * nrd::kBlock + threadIdx.x;
   const int y = blockIdx.y * nrd::kBlock + threadIdx.y;
@@ -67,7 +70,7 @@ __global__ void __launch_bounds__(256) hitdist_recon_kernel(HdArgs a) {
       const size_t ti = (size_t)ty * a.w + tx;
       const float zs = fabsf(vz.at(tx, ty, 0)) * a.view_z_scale;
       const V3 ns = nrd::unpack_normal(nr.at(tx, ty, 0), nr.at(tx, ty, 1));
-      const float rs = nr.at(tx, ty, 2);
+      const float rs = nrd::decode_roughness<kRough>(nr.at(tx, ty, 2));
       const float us = u + (float)dx * a.rinv_x, vs = v + (float)dy * a.rinv_y;
       const V3 xvs = nrd::reconstruct_view_position(us, vs, a.fr, zs, a.ortho);
       float w_ = nrd::in_screen_nearest(us, vs);
@@ -96,7 +99,8 @@ __global__ void __launch_bounds__(256) hitdist_recon_kernel(HdArgs a) {
 
 // ptrs: view_z, nr, diff signal, spec signal, params, out
 // consts: radius, has_diff, has_spec, view_z_scale, frustum[4], ortho, rinv[2], m[9],
-//         the Gaussian weight of each tap
+//         roughness mode (0 LINEAR, 1 SQRT_LINEAR, 2 SQ_LINEAR), the Gaussian weight of each
+//         tap
 extern "C" int nrd_hitdist_recon(void* const* p, const float* c, int w, int h, void* stream) {
   HdArgs a;
   a.view_z = (const float*)p[0];
@@ -118,9 +122,17 @@ extern "C" int nrd_hitdist_recon(void* const* p, const float* c, int w, int h, v
   a.rinv_y = c[10];
   for (int k = 0; k < 9; ++k) a.m[k] = c[11 + k];
   const int taps = (2 * a.radius + 1) * (2 * a.radius + 1) - 1;
-  for (int k = 0; k < kMaxTaps; ++k) a.gauss[k] = k < taps ? c[20 + k] : 0.0f;
+  const int rough = (int)c[20];
+  for (int k = 0; k < kMaxTaps; ++k) a.gauss[k] = k < taps ? c[21 + k] : 0.0f;
   dim3 block(nrd::kBlock, nrd::kBlock);
   dim3 grid((w + nrd::kBlock - 1) / nrd::kBlock, (h + nrd::kBlock - 1) / nrd::kBlock);
-  hitdist_recon_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  if (rough == 0)
+    hitdist_recon_kernel<0><<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  else if (rough == 1)
+    hitdist_recon_kernel<1><<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  else if (rough == 2)
+    hitdist_recon_kernel<2><<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -27,7 +27,9 @@
 // texel from global memory and derive it at the tap: staging their windows (halo = step) was
 // slower at steps 2 and 4 on the H100 (PERF.md), and steps 8 and 16 jitter their taps. A tap keeps
 // XLA's float uv + duv and finds its texel by floor(us w) as before; the window is indexed by
-// that texel, and a texel outside it is read and derived from global memory.
+// that texel, and a texel outside it is read and derived from global memory. The roughness
+// that derive keeps follows the roughness encoding, the template parameter kRough
+// (common.cuh:decode_roughness), as the TPU kernel's rough_sq.
 #include "relax_common.cuh"
 
 namespace {
@@ -70,15 +72,18 @@ struct Texel {
   float4 m;  // the signal's luminance, material (nr.w x 3), roughness, unused
 };
 
+template <int kRough>
 __device__ __forceinline__ Texel derive(const relax::Frame& f, float4 s, float4 nr, float raw_z) {
   const V3 n = nrd::unpack_normal(nr.x, nr.y);
   return Texel{make_float4(n.x, n.y, n.z, relax::view_z(f, raw_z)), s,
-               make_float4(relax::luminance(s.x, s.y, s.z), nr.w * 3.0f, nr.z, 0.0f)};
+               make_float4(relax::luminance(s.x, s.y, s.z), nr.w * 3.0f,
+                           nrd::decode_roughness<kRough>(nr.z), 0.0f)};
 }
 
+template <int kRough>
 __device__ __forceinline__ Texel load_texel(const AtrousArgs& a, int tx, int ty) {
   const size_t k = Image<float, 4>{a.signal, a.f.w, a.f.h}.index(tx, ty);
-  return derive(a.f, __ldg(reinterpret_cast<const float4*>(a.signal) + k),
+  return derive<kRough>(a.f, __ldg(reinterpret_cast<const float4*>(a.signal) + k),
                 __ldg(reinterpret_cast<const float4*>(a.nr) + k), __ldg(a.view_z + k));
 }
 
@@ -91,23 +96,25 @@ struct Window {
   int ox, oy, ww, wh;
 };
 
+template <int kRough>
 __device__ __forceinline__ Texel fetch(const AtrousArgs& a, const Window& wnd, int tx, int ty) {
   const int i = tx - wnd.ox, j = ty - wnd.oy;
   if (wnd.g != nullptr && (unsigned)i < (unsigned)wnd.ww && (unsigned)j < (unsigned)wnd.wh) {
     const int k = j * wnd.ww + i;
     return Texel{wnd.g[k], wnd.s[k], wnd.m[k]};
   }
-  return load_texel(a, tx, ty);
+  return load_texel<kRough>(a, tx, ty);
 }
 
 // the 5x5 spatial variance estimation of a short history (clamp-to-edge)
+template <int kRough>
 __device__ __forceinline__ void variance_estimation(const AtrousArgs& a, const Window& wnd,
                                                     int x, int y, V3 n, float mat_c, float hl,
                                                     float out[4]) {
   float swsum = 0.0f, s_rgb[3] = {0.0f, 0.0f, 0.0f}, s_m1 = 0.0f, s_m2 = 0.0f;
   for (int dy = -2; dy <= 2; ++dy)
     for (int dx = -2; dx <= 2; ++dx) {
-      const Texel t = fetch(a, wnd, x + dx, y + dy);
+      const Texel t = fetch<kRough>(a, wnd, x + dx, y + dy);
       const V3 ns{t.g.x, t.g.y, t.g.z};
       float w_ = nrd::compute_weight(nrd::acos_approx(nrd::dot3(n, ns)), a.nwp_sve, 0.0f);
       w_ = w_ * (fmaxf(t.m.y, a.min_material) == mat_c ? 1.0f : 0.0f);
@@ -132,7 +139,7 @@ __device__ __forceinline__ float relaxation(const AtrousArgs& a, float conf, flo
   return nrd::saturate(nrd::saturate(a.conf_mult * (1.0f - conf)) * r);
 }
 
-template <bool kStaged>
+template <bool kStaged, int kRough>
 __global__ void __launch_bounds__(kTileX * kTileY, kMinCtas) relax_atrous_kernel(AtrousArgs a) {
   const int x = blockIdx.x * kTileX + threadIdx.x;
   const int y = blockIdx.y * kTileY + threadIdx.y;
@@ -149,7 +156,7 @@ __global__ void __launch_bounds__(kTileX * kTileY, kMinCtas) relax_atrous_kernel
     float4* m = window + 2 * n;
     for (int j = threadIdx.y; j < wnd.wh; j += kTileY)
       for (int i = threadIdx.x; i < wnd.ww; i += kTileX) {
-        const Texel t = load_texel(a, wnd.ox + i, wnd.oy + j);
+        const Texel t = load_texel<kRough>(a, wnd.ox + i, wnd.oy + j);
         g[j * wnd.ww + i] = t.g;
         s[j * wnd.ww + i] = t.s;
         m[j * wnd.ww + i] = t.m;
@@ -161,13 +168,13 @@ __global__ void __launch_bounds__(kTileX * kTileY, kMinCtas) relax_atrous_kernel
   }
   if (x >= a.f.w || y >= a.f.h) return;
   const size_t i = (size_t)y * a.f.w + x;
-  const Texel ct = fetch(a, wnd, x, y);
+  const Texel ct = fetch<kRough>(a, wnd, x, y);
   const float hl = __ldg(a.hl + i);
   const V3 n{ct.g.x, ct.g.y, ct.g.z};
   const float mat_c = fmaxf(ct.m.y, a.min_material);
   float out[4];
   if (a.is_first && !(hl >= a.history_threshold)) {
-    variance_estimation(a, wnd, x, y, n, mat_c, hl, out);
+    variance_estimation<kRough>(a, wnd, x, y, n, mat_c, hl, out);
 #pragma unroll
     for (int c = 0; c < 4; ++c) a.out[4 * i + c] = out[c];
     return;
@@ -235,7 +242,7 @@ __global__ void __launch_bounds__(kTileX * kTileY, kMinCtas) relax_atrous_kernel
     for (int dy = -1; dy <= 1; ++dy)
       for (int dx = -1; dx <= 1; ++dx) {
         const float k = kPrefilter[abs(dx)][abs(dy)];
-        const float4 s = fetch(a, wnd, x + dx, y + dy).s;
+        const float4 s = fetch<kRough>(a, wnd, x + dx, y + dy).s;
         pre[0] = pre[0] + s.x * k;
         pre[1] = pre[1] + s.y * k;
         pre[2] = pre[2] + s.z * k;
@@ -260,7 +267,7 @@ __global__ void __launch_bounds__(kTileX * kTileY, kMinCtas) relax_atrous_kernel
       const float vs = v + ((float)(yy * a.step) + offy) * rinv_y;
       const float inside = nrd::in_screen_nearest(us, vs);
       const int tx = nrd::to_index(floorf(us * fw)), ty = nrd::to_index(floorf(vs * fh));
-      const Texel t = fetch(a, wnd, tx, ty);
+      const Texel t = fetch<kRough>(a, wnd, tx, ty);
       const float zs = t.g.w;
       const V3 ns{t.g.x, t.g.y, t.g.z};
       const float ms = t.m.y;
@@ -315,7 +322,7 @@ __global__ void __launch_bounds__(kTileX * kTileY, kMinCtas) relax_atrous_kernel
 //         confidence multiplier, normal and luminance relaxations, specular (0 or 1), the
 //         settings' lobe fraction, roughness fraction, normal edge-stopping relaxation, lobe
 //         slack, luminance and roughness edge-stopping relaxations, roughness edge stopping
-//         (0 or 1)
+//         (0 or 1), roughness mode (0 LINEAR, 1 SQRT_LINEAR, 2 SQ_LINEAR)
 extern "C" int nrd_relax_atrous(void* const* p, const float* c, int w, int h, void* stream) {
   AtrousArgs a;
   a.signal = (const float*)p[0];
@@ -354,16 +361,26 @@ extern "C" int nrd_relax_atrous(void* const* p, const float* c, int w, int h, vo
   a.lesr = q[24];
   a.resr = q[25];
   a.roughness_edge_stopping = q[26] != 0.0f;
+  const int rough = (int)q[27];
   // iteration 0 reads the 5x5 estimation's neighbours and its taps'
   a.halo = a.step > 2 ? a.step : 2;
   const dim3 block(kTileX, kTileY);
   const dim3 grid((w + kTileX - 1) / kTileX, (h + kTileY - 1) / kTileY);
-  if (a.is_first) {
-    const size_t texels = (size_t)(kTileX + 2 * a.halo) * (kTileY + 2 * a.halo);
-    const size_t smem = texels * 3 * sizeof(float4);
-    relax_atrous_kernel<true><<<grid, block, smem, (cudaStream_t)stream>>>(a);
-  } else {
-    relax_atrous_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(a);
-  }
+  const size_t smem =
+      a.is_first ? (size_t)(kTileX + 2 * a.halo) * (kTileY + 2 * a.halo) * 3 * sizeof(float4) : 0;
+  if (a.is_first && rough == 0)
+    relax_atrous_kernel<true, 0><<<grid, block, smem, (cudaStream_t)stream>>>(a);
+  else if (a.is_first && rough == 1)
+    relax_atrous_kernel<true, 1><<<grid, block, smem, (cudaStream_t)stream>>>(a);
+  else if (a.is_first && rough == 2)
+    relax_atrous_kernel<true, 2><<<grid, block, smem, (cudaStream_t)stream>>>(a);
+  else if (rough == 0)
+    relax_atrous_kernel<false, 0><<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  else if (rough == 1)
+    relax_atrous_kernel<false, 1><<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  else if (rough == 2)
+    relax_atrous_kernel<false, 2><<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

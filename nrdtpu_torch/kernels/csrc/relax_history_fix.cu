@@ -21,6 +21,8 @@
 //      pixel's own geometry comes from its records too; the per-pixel constants (1 / angle0
 //      of the specular smoothstep, roughness relaxation x the centre's position) are hoisted
 //      out of the taps, and the diffuse weight at the default power 8 is three squarings.
+// The specular weight's centre roughness follows the roughness encoding, the template
+// parameter kRough (common.cuh:decode_roughness); the diffuse taps read no roughness.
 // kMinCtas: the CTAs an SM that ptxas is asked to fit (chosen by A/B timing, PERF.md).
 #include "relax_common.cuh"
 
@@ -69,7 +71,7 @@ __device__ __forceinline__ float diffuse_weight(float c, float power, bool pow8)
 }
 
 // phase 1: the history fix of one pixel
-template <bool kSpec>
+template <bool kSpec, int kRough>
 __device__ __forceinline__ void history_fix_pixel(const RelaxHfArgs& a, int x, int y) {
   const size_t i = (size_t)y * a.f.w + x;
   const float4* sig = reinterpret_cast<const float4*>(a.signal);
@@ -89,8 +91,8 @@ __device__ __forceinline__ void history_fix_pixel(const RelaxHfArgs& a, int x, i
     float angle0 = 0.0f, f0 = 0.0f, inv_angle0 = 0.0f;
     V3 cv{0.0f, 0.0f, 0.0f}, rx{0.0f, 0.0f, 0.0f};
     if constexpr (kSpec) {
-      relax::normal_weight_params_atrous(__ldg(a.nr + 4 * i + 2), 5.0f, 1.0f, 0.0f, a.laf,
-                                         a.slack, &angle0, &f0);
+      relax::normal_weight_params_atrous(nrd::decode_roughness<kRough>(__ldg(a.nr + 4 * i + 2)),
+                                         5.0f, 1.0f, 0.0f, a.laf, a.slack, &angle0, &f0);
       inv_angle0 = 1.0f / angle0;
       cv = relax::neg_normalize(xc);
       rx = V3{a.resr * xc.x, a.resr * xc.y, a.resr * xc.z};
@@ -135,8 +137,8 @@ __device__ __forceinline__ void history_fix_pixel(const RelaxHfArgs& a, int x, i
   reinterpret_cast<float4*>(a.out)[i] = make_float4(acc[0], acc[1], acc[2], acc[3]);
 }
 
-// phase 0: the records; 1, 2: the history fix, diffuse or specular
-template <int kPhase>
+// phase 0: the records; 1, 2: the history fix, diffuse or specular (roughness mode kRough)
+template <int kPhase, int kRough = 0>
 __global__ void __launch_bounds__(256, kPhase == 0 ? 1 : kMinCtas)
     relax_history_fix_kernel(RelaxHfArgs a) {
   const int x = blockIdx.x * nrd::kBlock + threadIdx.x;
@@ -145,7 +147,7 @@ __global__ void __launch_bounds__(256, kPhase == 0 ? 1 : kMinCtas)
   if constexpr (kPhase == 0)
     write_records(a, x, y);
   else
-    history_fix_pixel<kPhase == 2>(a, x, y);
+    history_fix_pixel<kPhase == 2, kRough>(a, x, y);
 }
 
 }  // namespace
@@ -154,7 +156,8 @@ __global__ void __launch_bounds__(256, kPhase == 0 ? 1 : kMinCtas)
 //       aligned; may be null where frame_num is 1)
 // consts: frame geometry (relax::load_frame), depth_threshold, base_stride, frame_num,
 //         normal_power (already max(power, 0.01)), min_material, specular (0 or 1), lobe
-//         fraction, lobe slack, roughness edge-stopping relaxation
+//         fraction, lobe slack, roughness edge-stopping relaxation, roughness mode (0 LINEAR,
+//         1 SQRT_LINEAR, 2 SQ_LINEAR)
 extern "C" int nrd_relax_history_fix(void* const* p, const float* c, int w, int h,
                                      void* stream) {
   RelaxHfArgs a;
@@ -175,6 +178,8 @@ extern "C" int nrd_relax_history_fix(void* const* p, const float* c, int w, int 
   a.laf = q[6];
   a.slack = q[7];
   a.resr = q[8];
+  const int rough = (int)q[9];
+  if (rough < 0 || rough > 2) return (int)cudaErrorInvalidValue;
   const bool taps = a.frame_num != 1.0f;
   if (taps && a.rec == nullptr) return (int)cudaErrorInvalidValue;
   const dim3 block(nrd::kBlock, nrd::kBlock);
@@ -184,8 +189,12 @@ extern "C" int nrd_relax_history_fix(void* const* p, const float* c, int w, int 
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  if (spec)
-    relax_history_fix_kernel<2><<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  if (spec && rough == 0)
+    relax_history_fix_kernel<2, 0><<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  else if (spec && rough == 1)
+    relax_history_fix_kernel<2, 1><<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  else if (spec)
+    relax_history_fix_kernel<2, 2><<<grid, block, 0, (cudaStream_t)stream>>>(a);
   else
     relax_history_fix_kernel<1><<<grid, block, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();

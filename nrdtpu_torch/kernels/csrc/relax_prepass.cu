@@ -9,7 +9,9 @@
 // the min hitT of the kept taps in .w. Replaces nrdtpu/kernels/relax_pallas.py:751
 // relax_prepass_taps_pallas (without its 32-px radius cap); computes
 // nrdtpu/passes/relax/kernels.py:160-306 per pixel. The plain version is
-// nrdtpu_torch/kernels/relax_prepass.py:relax_prepass_ref. One thread per pixel.
+// nrdtpu_torch/kernels/relax_prepass.py:relax_prepass_ref. One thread per pixel. The roughness
+// encoding is the template parameter kRough (common.cuh:decode_roughness), applied to the
+// centre's roughness and to each tap's, as the TPU kernel's rough_sq.
 #include "relax_common.cuh"
 
 namespace {
@@ -30,6 +32,7 @@ struct PrepassArgs {
   float unproject, normal_lobe_fraction, rf, lobe_tan_scale;  // specular only
 };
 
+template <int kRough>
 __global__ void __launch_bounds__(256) relax_prepass_kernel(PrepassArgs a) {
   const int x = blockIdx.x * nrd::kBlock + threadIdx.x;
   const int y = blockIdx.y * nrd::kBlock + threadIdx.y;
@@ -67,7 +70,7 @@ __global__ void __launch_bounds__(256) relax_prepass_kernel(PrepassArgs a) {
     } else {
       hit = fmaxf(fminf(c[3], a.denoising_range), 0.0f);
       c[3] = hit;
-      rough = nr.at(x, y, 2);
+      rough = nrd::decode_roughness<kRough>(nr.at(x, y, 2));
       const V3 view = a.f.ortho == 0.0f ? relax::neg_normalize(xc)
                                         : V3{a.f.fwd[0], a.f.fwd[1], a.f.fwd[2]};
       float dfac;
@@ -108,7 +111,8 @@ __global__ void __launch_bounds__(256) relax_prepass_kernel(PrepassArgs a) {
       float w_ = nrd::in_screen_nearest(us, vs);
       w_ = w_ * (zs < a.denoising_range ? 1.0f : 0.0f);
       w_ = w_ * (mat_c == fmaxf(ms, a.min_material) ? 1.0f : 0.0f);
-      if (a.spec) w_ = w_ * nrd::compute_weight(nr.at(tx, ty, 2), ra, rb);
+      if (a.spec)
+        w_ = w_ * nrd::compute_weight(nrd::decode_roughness<kRough>(nr.at(tx, ty, 2)), ra, rb);
       w_ = w_ * nrd::compute_weight(nrd::acos_approx(nrd::dot3(n, ns)), nwp, 0.0f);
       w_ = w_ * (relax::plane_dist(xs, xc, n) / dts <= a.depth_threshold ? 1.0f : 0.0f);
       float s[4];
@@ -151,7 +155,8 @@ __global__ void __launch_bounds__(256) relax_prepass_kernel(PrepassArgs a) {
 // consts: frame geometry (relax::load_frame), denoising_range, frustum_size_scale,
 //         blur_radius, nwp, ha, min_hd_weight, depth_threshold, min_material,
 //         offsets[16] (x, y per tap), gaussian weights[8], specular (0 or 1), unproject,
-//         normal lobe fraction, roughness fraction, lobe tan scale sqrt(0.75 / 0.25)
+//         normal lobe fraction, roughness fraction, lobe tan scale sqrt(0.75 / 0.25),
+//         roughness mode (0 LINEAR, 1 SQRT_LINEAR, 2 SQ_LINEAR)
 extern "C" int nrd_relax_prepass(void* const* p, const float* c, int w, int h, void* stream) {
   PrepassArgs a;
   a.signal = (const float*)p[0];
@@ -175,8 +180,16 @@ extern "C" int nrd_relax_prepass(void* const* p, const float* c, int w, int h, v
   a.normal_lobe_fraction = q[34];
   a.rf = q[35];
   a.lobe_tan_scale = q[36];
+  const int rough = (int)q[37];
   dim3 block(nrd::kBlock, nrd::kBlock);
   dim3 grid((w + nrd::kBlock - 1) / nrd::kBlock, (h + nrd::kBlock - 1) / nrd::kBlock);
-  relax_prepass_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  if (rough == 0)
+    relax_prepass_kernel<0><<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  else if (rough == 1)
+    relax_prepass_kernel<1><<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  else if (rough == 2)
+    relax_prepass_kernel<2><<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

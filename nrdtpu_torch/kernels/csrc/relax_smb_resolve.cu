@@ -8,8 +8,26 @@
 // bilinear with the custom weights. Replaces nrdtpu/kernels/relax_pallas.py:1000
 // relax_smb_resolve; computes nrdtpu/passes/relax/kernels.py:376-394, :426, :485-549,
 // :580-583 and :805-814 per pixel. The plain
-// version is nrdtpu_torch/kernels/relax_smb_resolve.py:relax_smb_resolve_ref. One thread per
-// pixel.
+// version is nrdtpu_torch/kernels/relax_smb_resolve.py:relax_smb_resolve_ref.
+//
+// Design for the H100: one thread per pixel in 16x16 CTAs, one instance per mode
+// <kSpec, kNHist> (the specular planes, the number of histories), so that each holds only
+// its own state, at most kMinCtas' register budget (2 CTAs an SM for 3 or 4 histories, which
+// no path samples yet). Bound by its gathers:
+//   - the 3x3 neighbourhood reads each current texel 9 times: each CTA first stages its
+//     18x18 window (halo 1) in shared memory, each texel's octahedral normal decoded once
+//     and, with the specular signal, its hitT as the min counts it (0 -> NRD_INF);
+//   - the 12 non-corner taps of the previous viewZ and material (the corners weigh in
+//     nothing), their indices clamped once a row and a column;
+//   - the previous normal's bilinear as four float4 reads;
+//   - the histories through one CatRom footprint (common.cuh:catrom_apply4), all of them in
+//     one loop over its 5 bilinear samples: each sample's position, origin and weights
+//     computed once, and a texel read as one float4 only where its weight is non-zero (the
+//     12 texels of the 4x4 without its corners, each once, where the samples land on their
+//     texels). The 5 samples keep their order: summing the 12 texels directly, with the
+//     CatRom weights' products, moved values outside the tolerance where the history's
+//     second moment cancels (PERF.md);
+//   - each history written as one float4.
 #include "relax_common.cuh"
 
 namespace {
@@ -18,6 +36,8 @@ using nrd::Image;
 using nrd::V3;
 
 constexpr int kMaxHistories = 4;
+constexpr int kMinCtas = 4;  // chosen by A/B timing on the H100 (PERF.md)
+constexpr int kWin = nrd::kBlock + 2;  // the staged window: the tile and a halo of 1
 
 struct RelaxSmbArgs {
   const float* smb_uv;     // (h, w, 2)
@@ -35,43 +55,51 @@ struct RelaxSmbArgs {
   const float* spec_hit;   // (h, w) current specular hitT (PrePass output), spec only
   const float* prev_ht;    // (h, w) previous reflection hitT, spec only
   int w, h, nhist;
-  bool spec;
   float view_z_scale, rect_prev_w, rect_prev_h, res_w, res_h, min_material;
   float m[9];              // world_prev_to_world rotation, row-major
 };
 
-__global__ void __launch_bounds__(256) relax_smb_resolve_kernel(RelaxSmbArgs a) {
+template <bool kSpec, int kNHist>
+__global__ void __launch_bounds__(256, kNHist <= 2 ? kMinCtas : 2)
+    relax_smb_resolve_kernel(RelaxSmbArgs a) {
+  // every thread of the CTA stages, then the ones outside the image leave
+  __shared__ float4 win[kWin * kWin];  // (unpacked normal, hitT or NRD_INF)
+  const int ox0 = blockIdx.x * nrd::kBlock - 1, oy0 = blockIdx.y * nrd::kBlock - 1;
+  const Image<float, 4> nr{a.nr, a.w, a.h};
+  for (int k = threadIdx.y * nrd::kBlock + threadIdx.x; k < kWin * kWin;
+       k += nrd::kBlock * nrd::kBlock) {
+    const size_t t = nr.index(ox0 + k % kWin, oy0 + k / kWin);
+    const float4 p = __ldg(reinterpret_cast<const float4*>(a.nr) + t);
+    const V3 n = nrd::unpack_normal(p.x, p.y);
+    float ht = 0.0f;
+    if constexpr (kSpec) {
+      ht = __ldg(a.spec_hit + t);
+      ht = ht == 0.0f ? 1e6f : ht;
+    }
+    win[k] = make_float4(n.x, n.y, n.z, ht);
+  }
+  __syncthreads();
   const int x = blockIdx.x * nrd::kBlock + threadIdx.x;
   const int y = blockIdx.y * nrd::kBlock + threadIdx.y;
   if (x >= a.w || y >= a.h) return;
   const size_t i = (size_t)y * a.w + x;
   const size_t plane = (size_t)a.w * a.h;
-  const Image<float, 4> nr{a.nr, a.w, a.h};
-  const Image<float, 1> prev_vz{a.prev_vz, a.w, a.h};
-  const Image<float, 1> prev_mat{a.prev_mat, a.w, a.h};
 
   // current 3x3 normal average, row by row, made unit length
   // and with spec the 3x3 min of the current hitT, 0 counting as NRD_INF
-  const Image<float, 1> hit{a.spec_hit, a.w, a.h};
   float min_hit = 0.0f;
-  if (a.spec) {
-    min_hit = hit.at(x, y, 0);
-    if (min_hit == 0.0f) min_hit = 1e6f;
-  }
+  if constexpr (kSpec) min_hit = win[(threadIdx.y + 1) * kWin + threadIdx.x + 1].w;
   V3 na{0.0f, 0.0f, 0.0f};
 #pragma unroll
-  for (int dy = -1; dy <= 1; ++dy)
+  for (int dy = 0; dy < 3; ++dy)
 #pragma unroll
-    for (int dx = -1; dx <= 1; ++dx) {
-      const V3 n = nrd::unpack_normal(nr.at(x + dx, y + dy, 0), nr.at(x + dx, y + dy, 1));
-      na = V3{na.x + n.x, na.y + n.y, na.z + n.z};
-      if (a.spec && (dx != 0 || dy != 0)) {
-        const float t = hit.at(x + dx, y + dy, 0);
-        min_hit = fminf(min_hit, t == 0.0f ? 1e6f : t);
-      }
+    for (int dx = 0; dx < 3; ++dx) {
+      const float4 t = win[(threadIdx.y + dy) * kWin + threadIdx.x + dx];
+      na = V3{na.x + t.x, na.y + t.y, na.z + t.z};
+      if constexpr (kSpec) min_hit = fminf(min_hit, t.w);
     }
   na = V3{na.x / 9.0f, na.y / 9.0f, na.z / 9.0f};
-  if (a.spec) {
+  if constexpr (kSpec) {
     a.planes[3 * plane + i] = na.x;
     a.planes[4 * plane + i] = na.y;
     a.planes[5 * plane + i] = na.z;
@@ -80,7 +108,7 @@ __global__ void __launch_bounds__(256) relax_smb_resolve_kernel(RelaxSmbArgs a) 
   const float inv = rsqrtf(fmaxf(na.x * na.x + na.y * na.y + na.z * na.z, 1e-15f));
   na = V3{na.x * inv, na.y * inv, na.z * inv};
 
-  const float u = a.smb_uv[2 * i], v = a.smb_uv[2 * i + 1];
+  const float u = __ldg(a.smb_uv + 2 * i), v = __ldg(a.smb_uv + 2 * i + 1);
   const float posx = u * a.rect_prev_w - 0.5f, posy = v * a.rect_prev_h - 0.5f;
   const float ox = floorf(posx), oy = floorf(posy);
   const float fx = posx - ox, fy = posy - oy;
@@ -92,39 +120,43 @@ __global__ void __launch_bounds__(256) relax_smb_resolve_kernel(RelaxSmbArgs a) 
   const float y0ok = (oy >= 0.0f && oy < a.rect_prev_h) ? 1.0f : 0.0f;
   const float y1ok = (oy + 1.0f >= 0.0f && oy + 1.0f < a.rect_prev_h) ? 1.0f : 0.0f;
   const float in4[4] = {x0ok * y0ok, x1ok * y0ok, x0ok * y1ok, x1ok * y1ok};
-  const float bt = a.base_thr[i];
+  const float bt = __ldg(a.base_thr + i);
   float qthr[4];
 #pragma unroll
   for (int q = 0; q < 4; ++q) qthr[q] = bt * in4[q] - 1e-6f;
 
-  // plane-distance and material occlusion of the 16 taps
-  const float xvz = a.xv_prev_z[i];
-  const float mat_c = fmaxf(nr.at(x, y, 3) * 3.0f, a.min_material);
+  // plane-distance and material occlusion of the 12 non-corner taps of the 4x4
+  const float xvz = __ldg(a.xv_prev_z + i);
+  const float mat_c = fmaxf(__ldg(a.nr + 4 * i + 3) * 3.0f, a.min_material);
+  int col[4];
+  size_t row[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    col[k] = nrd::clampi(bx - 1 + k, 0, a.w - 1);
+    row[k] = (size_t)nrd::clampi(by - 1 + k, 0, a.h - 1) * a.w;
+  }
   float occ[4][4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int q = (k >= 2 ? 1 : 0) + (j >= 2 ? 2 : 0);
-      const float z = fabsf(prev_vz.at(bx - 1 + k, by - 1 + j, 0)) * a.view_z_scale;
-      const float o = fabsf(z - xvz) <= qthr[q] ? 1.0f : 0.0f;
-      const float mt = fmaxf(prev_mat.at(bx - 1 + k, by - 1 + j, 0), a.min_material);
-      occ[j][k] = o * (mat_c == mt ? 1.0f : 0.0f);
-    }
   float occ12 = 0.0f;
 #pragma unroll
   for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
-      if (!((j == 0 || j == 3) && (k == 0 || k == 3))) occ12 = occ12 + occ[j][k];
+    for (int k = 0; k < 4; ++k) {
+      if ((j == 0 || j == 3) && (k == 0 || k == 3)) continue;
+      const int q = (k >= 2 ? 1 : 0) + (j >= 2 ? 2 : 0);
+      const size_t t = row[j] + col[k];
+      const float z = fabsf(__ldg(a.prev_vz + t)) * a.view_z_scale;
+      const float o = fabsf(z - xvz) <= qthr[q] ? 1.0f : 0.0f;
+      const float mt = fmaxf(__ldg(a.prev_mat + t), a.min_material);
+      occ[j][k] = o * (mat_c == mt ? 1.0f : 0.0f);
+      occ12 = occ12 + occ[j][k];
+    }
   bool bicubic = occ12 > 11.5f;
   float bv[4] = {occ[1][1], occ[1][2], occ[2][1], occ[2][2]};
 
   // backface test: the previous normal, bilinear at the footprint centre, in this frame
-  float pn4[4];
-  nrd::sample_bilinear(Image<float, 4>{a.prev_nr, a.w, a.h}, (ox + 1.0f) / a.res_w,
-                       (oy + 1.0f) / a.res_h, pn4);
-  const float px = pn4[0] * 2.0f - 1.0f, py = pn4[1] * 2.0f - 1.0f, pz = pn4[2] * 2.0f - 1.0f;
+  const float4 pn4 = nrd::sample_bilinear4(Image<float, 4>{a.prev_nr, a.w, a.h},
+                                           (ox + 1.0f) / a.res_w, (oy + 1.0f) / a.res_h);
+  const float px = pn4.x * 2.0f - 1.0f, py = pn4.y * 2.0f - 1.0f, pz = pn4.z * 2.0f - 1.0f;
   const float pinv = rsqrtf(px * px + py * py + pz * pz + 1e-9f);
   const V3 p0{px * pinv, py * pinv, pz * pinv};
   const V3 pn{a.m[0] * p0.x + a.m[1] * p0.y + a.m[2] * p0.z,
@@ -150,23 +182,35 @@ __global__ void __launch_bounds__(256) relax_smb_resolve_kernel(RelaxSmbArgs a) 
   a.planes[i] = fminf(hl + 1.0f, 255.0f);
   a.planes[plane + i] = any_valid ? quality : 0.0f;
   a.planes[2 * plane + i] = any_valid ? (bicubic ? 2.0f : 1.0f) : 0.0f;
-  if (a.spec) {
+  if constexpr (kSpec) {
     float ht;
     nrd::bilinear_custom(Image<float, 1>{a.prev_ht, a.w, a.h}, bx, by, cw, &ht);
     a.planes[7 * plane + i] = ht;
   }
 
-  // the histories at uv_smb x rect_prev, with the CatRom taps computed once
+  // the histories at uv_smb x rect_prev through one footprint
   const nrd::CatromTaps taps =
       nrd::catrom_taps(u * a.rect_prev_w, v * a.rect_prev_h, bicubic, cw);
+  const float4* img[kNHist];
 #pragma unroll
-  for (int s = 0; s < kMaxHistories; ++s) {  // unrolled: the pointers stay in registers
-    if (s >= a.nhist) break;
-    float out[4];
-    nrd::catrom_apply(Image<float, 4>{a.hist[s], a.w, a.h}, taps, out);
+  for (int s = 0; s < kNHist; ++s) img[s] = reinterpret_cast<const float4*>(a.hist[s]);
+  float4 out[kNHist];
+  nrd::catrom_apply4<kNHist>(img, a.w, a.h, taps, out);
+  float4* hist_out = reinterpret_cast<float4*>(a.hist_out);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) a.hist_out[4 * (s * plane + i) + c] = out[c];
+  for (int s = 0; s < kNHist; ++s) hist_out[s * plane + i] = out[s];
+}
+
+template <bool kSpec>
+cudaError_t launch(const RelaxSmbArgs& a, dim3 grid, dim3 block, cudaStream_t stream) {
+  switch (a.nhist) {
+    case 1: relax_smb_resolve_kernel<kSpec, 1><<<grid, block, 0, stream>>>(a); break;
+    case 2: relax_smb_resolve_kernel<kSpec, 2><<<grid, block, 0, stream>>>(a); break;
+    case 3: relax_smb_resolve_kernel<kSpec, 3><<<grid, block, 0, stream>>>(a); break;
+    case 4: relax_smb_resolve_kernel<kSpec, 4><<<grid, block, 0, stream>>>(a); break;
+    default: return cudaErrorInvalidValue;
   }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -194,10 +238,10 @@ extern "C" int nrd_relax_smb_resolve(void* const* p, const float* c, int w, int 
   a.nhist = (int)c[15];
   if (a.nhist < 1 || a.nhist > kMaxHistories) return (int)cudaErrorInvalidValue;
   for (int s = 0; s < kMaxHistories; ++s) a.hist[s] = (const float*)p[10 + (s < a.nhist ? s : 0)];
-  a.spec = c[16] != 0.0f;
+  const bool spec = c[16] != 0.0f;
   a.spec_hit = (const float*)p[14];
   a.prev_ht = (const float*)p[15];
-  if (a.spec && (a.spec_hit == nullptr || a.prev_ht == nullptr)) return (int)cudaErrorInvalidValue;
+  if (spec && (a.spec_hit == nullptr || a.prev_ht == nullptr)) return (int)cudaErrorInvalidValue;
   a.view_z_scale = c[0];
   a.rect_prev_w = c[1];
   a.rect_prev_h = c[2];
@@ -205,8 +249,9 @@ extern "C" int nrd_relax_smb_resolve(void* const* p, const float* c, int w, int 
   a.res_h = c[4];
   a.min_material = c[5];
   for (int k = 0; k < 9; ++k) a.m[k] = c[6 + k];
-  dim3 block(nrd::kBlock, nrd::kBlock);
-  dim3 grid((w + nrd::kBlock - 1) / nrd::kBlock, (h + nrd::kBlock - 1) / nrd::kBlock);
-  relax_smb_resolve_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  const dim3 block(nrd::kBlock, nrd::kBlock);
+  const dim3 grid((w + nrd::kBlock - 1) / nrd::kBlock, (h + nrd::kBlock - 1) / nrd::kBlock);
+  const cudaError_t err = spec ? launch<true>(a, grid, block, (cudaStream_t)stream)
+                               : launch<false>(a, grid, block, (cudaStream_t)stream);
+  return (int)err;
 }

@@ -7,13 +7,23 @@
 // hitT and packed normal/roughness, plain bilinear at uv x resolution_scale_prev. Replaces
 // nrdtpu/kernels/relax_pallas.py:1219 relax_vmb_resolve (without its block-base capture);
 // computes nrdtpu/passes/relax/kernels.py:742-796 per pixel. The plain version is
-// nrdtpu_torch/kernels/relax_vmb_resolve.py:relax_vmb_resolve_ref. One thread per pixel.
+// nrdtpu_torch/kernels/relax_vmb_resolve.py:relax_vmb_resolve_ref.
+//
+// Design for the H100: one thread per pixel in 16x16 CTAs, at most kMinCtas' register
+// budget. Bound by its gathers: both histories go through one CatRom footprint in one loop
+// over its 5 bilinear samples (common.cuh:catrom_apply4: each texel read as one float4 and
+// only where its weight is non-zero, the 12 texels of the footprint each once where the
+// samples land on their texels), in place of 5 bilinear samples of 16 scalar reads per
+// history; the previous packed normal is read as four float4; every (h, w, 4) output is
+// written as one float4.
 #include "relax_common.cuh"
 
 namespace {
 
 using nrd::Image;
 using nrd::V3;
+
+constexpr int kMinCtas = 4;  // chosen by A/B timing on the H100 (PERF.md)
 
 struct RelaxVmbArgs {
   const float* uv;        // (h, w, 2) virtual-motion uv
@@ -34,7 +44,7 @@ struct RelaxVmbArgs {
   float rect_prev_w, rect_prev_h, res_scale_x, res_scale_y, min_material;
 };
 
-__global__ void __launch_bounds__(256) relax_vmb_resolve_kernel(RelaxVmbArgs a) {
+__global__ void __launch_bounds__(256, kMinCtas) relax_vmb_resolve_kernel(RelaxVmbArgs a) {
   const int x = blockIdx.x * nrd::kBlock + threadIdx.x;
   const int y = blockIdx.y * nrd::kBlock + threadIdx.y;
   const int w = a.pf.w, h = a.pf.h;
@@ -44,7 +54,7 @@ __global__ void __launch_bounds__(256) relax_vmb_resolve_kernel(RelaxVmbArgs a) 
   const Image<float, 1> prev_vz{a.prev_vz, w, h};
   const Image<float, 1> prev_mat{a.prev_mat, w, h};
 
-  const float u = a.uv[2 * i], v = a.uv[2 * i + 1];
+  const float u = __ldg(a.uv + 2 * i), v = __ldg(a.uv + 2 * i + 1);
   const float posx = u * a.rect_prev_w - 0.5f, posy = v * a.rect_prev_h - 0.5f;
   const float ox = floorf(posx), oy = floorf(posy);
   const int bx = nrd::to_index(ox), by = nrd::to_index(oy);
@@ -56,21 +66,21 @@ __global__ void __launch_bounds__(256) relax_vmb_resolve_kernel(RelaxVmbArgs a) 
   const float y1ok = (oy + 1.0f >= 0.0f && oy + 1.0f < a.rect_prev_h) ? 1.0f : 0.0f;
   const float in4[4] = {x0ok * y0ok, x1ok * y0ok, x0ok * y1ok, x1ok * y1ok};
 
-  const V3 n{a.n[3 * i], a.n[3 * i + 1], a.n[3 * i + 2]};
-  const V3 xm{a.xm[3 * i], a.xm[3 * i + 1], a.xm[3 * i + 2]};
-  const float tb = a.thr_base[i];
-  const float mat_c = fmaxf(a.nr[4 * i + 3] * 3.0f, a.min_material);
+  const V3 n{__ldg(a.n + 3 * i), __ldg(a.n + 3 * i + 1), __ldg(a.n + 3 * i + 2)};
+  const V3 xm{__ldg(a.xm + 3 * i), __ldg(a.xm + 3 * i + 1), __ldg(a.xm + 3 * i + 2)};
+  const float tb = __ldg(a.thr_base + i);
+  const float mat_c = fmaxf(__ldg(a.nr + 4 * i + 3) * 3.0f, a.min_material);
   float valid[4];
   bool any = false, all = true;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const int tx = bx + (k & 1), ty = by + (k >> 1);
-    const float zp = relax::view_z(a.pf, prev_vz.at(tx, ty, 0));
+    const float zp = relax::view_z(a.pf, prev_vz.ldg(tx, ty));
     const V3 xp = relax::world_pos(a.pf, ((float)tx + 0.5f) / a.rect_prev_w,
                                    ((float)ty + 0.5f) / a.rect_prev_h, zp);
     const float thr = tb * in4[k] - 1e-6f;
     float ok = relax::plane_dist(xm, xp, n) <= thr ? 1.0f : 0.0f;
-    ok = ok * (mat_c == fmaxf(prev_mat.at(tx, ty, 0), a.min_material) ? 1.0f : 0.0f);
+    ok = ok * (mat_c == fmaxf(prev_mat.ldg(tx, ty), a.min_material) ? 1.0f : 0.0f);
     valid[k] = ok;
     any = any || ok > 0.0f;
     all = all && ok > 0.0f;
@@ -79,24 +89,22 @@ __global__ void __launch_bounds__(256) relax_vmb_resolve_kernel(RelaxVmbArgs a) 
   nrd::bilinear_weights(posx - ox, posy - oy, bw);
 #pragma unroll
   for (int k = 0; k < 4; ++k) cw[k] = bw[k] * valid[k];
-  const bool bicubic = a.smb_found[i] == 2.0f && all;
+  const bool bicubic = __ldg(a.smb_found + i) == 2.0f && all;
 
-  // the histories at uv x rect_prev, with the CatRom taps computed once (as K16)
+  // both histories at uv x rect_prev through one footprint (as K16)
   const nrd::CatromTaps taps =
       nrd::catrom_taps(u * a.rect_prev_w, v * a.rect_prev_h, bicubic, cw);
-  float out[4];
-  nrd::catrom_apply(Image<float, 4>{a.hist, w, h}, taps, out);
-#pragma unroll
-  for (int c = 0; c < 4; ++c) a.sig[4 * i + c] = out[c];
-  nrd::catrom_apply(Image<float, 4>{a.resp, w, h}, taps, out);
-#pragma unroll
-  for (int c = 0; c < 4; ++c) a.sig[4 * (plane + i) + c] = out[c];
+  const float4* img[2] = {reinterpret_cast<const float4*>(a.hist),
+                          reinterpret_cast<const float4*>(a.resp)};
+  float4 out[2];
+  nrd::catrom_apply4<2>(img, w, h, taps, out);
+  float4* sig = reinterpret_cast<float4*>(a.sig);
+  sig[i] = out[0];
+  sig[plane + i] = out[1];
 
   // plain bilinear of the packed normal and the reflection hitT
   const float ur = u * a.res_scale_x, vr = v * a.res_scale_y;
-  nrd::sample_bilinear(Image<float, 4>{a.prev_nr, w, h}, ur, vr, out);
-#pragma unroll
-  for (int c = 0; c < 4; ++c) a.sig[4 * (2 * plane + i) + c] = out[c];
+  sig[2 * plane + i] = nrd::sample_bilinear4(Image<float, 4>{a.prev_nr, w, h}, ur, vr);
   float ht;
   nrd::sample_bilinear(Image<float, 1>{a.prev_ht, w, h}, ur, vr, &ht);
   a.planes[i] = ht;

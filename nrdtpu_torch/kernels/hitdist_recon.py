@@ -8,7 +8,8 @@ r = 1 (AREA_3X3) or 2 (AREA_5X5), centre excluded. A non-zero centre keeps its v
 `is_in_screen_nearest`; the TPU kernel's own test is not carried over), a Gaussian of |o|/2,
 the plane distance to the centre's plane (`ga`, `gb`), the normal angle (the signal's
 normal-weight parameter) and, for specular, the roughness^2 weight (`ra`, `rb`); zero taps
-weigh 0. Diffuse, specular or both in one launch; the other channels stay in the glue.
+weigh 0. Diffuse, specular or both in one launch; the other channels stay in the glue. The
+taps' roughness is unpacked with the roughness encoding, a template parameter of the kernel.
 
 Bound on the H100: memory. Per pixel at 2560x1440 it reads viewZ (4 B), the packed normal
 (16 B), each signal (16 B, only its .w is used), the parameter planes (12-24 B) and writes
@@ -24,6 +25,7 @@ import torch
 from .. import frontend as fe
 from .. import math as nm
 from ..ops import resample, stencil
+from ..settings import RoughnessEncoding
 from . import build
 
 launches = 0
@@ -33,7 +35,8 @@ TAPS = {r: [(dy, dx, nm.get_gaussian_weight(float((dx * dx + dy * dy) ** 0.5) * 
 
 
 def hitdist_recon_ref(view_z_in, normal_roughness, diff, spec, params, *, radius,
-                      view_z_scale, frustum, ortho_mode, rect_size_inv, world_to_view):
+                      view_z_scale, frustum, ortho_mode, rect_size_inv, world_to_view,
+                      roughness_encoding=RoughnessEncoding.LINEAR):
     """Plain PyTorch version of the kernel (the tap loop of the XLA function). diff, spec:
     (h, w, 4) signals or None; params: (P, h, w) = ga, gb, then the diffuse normal-weight
     parameter if diff, then the specular one, ra and rb if spec. Returns {signal: (h, w)}."""
@@ -56,7 +59,7 @@ def hitdist_recon_ref(view_z_in, normal_roughness, diff, spec, params, *, radius
     for dy, dx, gauss in TAPS[radius]:
         zs = stencil.shifted(view_z, dy, dx)
         nr_s = stencil.shifted(normal_roughness, dy, dx)
-        ns, rs, _ = fe.unpack_normal_roughness(nr_s)
+        ns, rs, _ = fe.unpack_normal_roughness(nr_s, roughness_encoding=roughness_encoding)
         uv_s = torch.stack([uv[..., 0] + dx * rinv[0], uv[..., 1] + dy * rinv[1]], -1)
         xvs = nm.reconstruct_view_position(uv_s, frustum, zs, ortho_mode)
         w_ = resample.is_in_screen_nearest(uv_s)
@@ -75,13 +78,16 @@ def hitdist_recon_ref(view_z_in, normal_roughness, diff, spec, params, *, radius
 
 
 def hitdist_recon(view_z_in, normal_roughness, diff, spec, params, *, radius, view_z_scale,
-                  frustum, ortho_mode, rect_size_inv, world_to_view):
+                  frustum, ortho_mode, rect_size_inv, world_to_view,
+                  roughness_encoding=RoughnessEncoding.LINEAR):
     """view_z_in (h, w), normal_roughness (h, w, 4), diff / spec (h, w, 4) or None (at least
-    one given), params (P, h, w) as `hitdist_recon_ref` says; radius 1 or 2. Returns
+    one given), params (P, h, w) as `hitdist_recon_ref` says; radius 1 or 2;
+    roughness_encoding: how the taps' packed roughness is unpacked. Returns
     {"diff": (h, w), "spec": (h, w)} for the signals given: the reconstructed hit distance."""
     global launches
     kw = dict(radius=radius, view_z_scale=view_z_scale, frustum=frustum, ortho_mode=ortho_mode,
-              rect_size_inv=rect_size_inv, world_to_view=world_to_view)
+              rect_size_inv=rect_size_inv, world_to_view=world_to_view,
+              roughness_encoding=roughness_encoding)
     dev = build.kernel_device(view_z_in)
     if dev is None:
         return hitdist_recon_ref(view_z_in, normal_roughness, diff, spec, params, **kw)
@@ -102,7 +108,8 @@ def hitdist_recon(view_z_in, normal_roughness, diff, spec, params, *, radius, vi
     gauss = [g for _, _, g in TAPS[radius]]
     m = np.asarray(world_to_view, np.float32)[:3, :3].reshape(-1)
     consts = [radius, diff is not None, spec is not None, view_z_scale, *_v(frustum),
-              ortho_mode, *_v(rect_size_inv), *m, *gauss]
+              ortho_mode, *_v(rect_size_inv), *m, build.ROUGHNESS_MODE[roughness_encoding],
+              *gauss]
     # an absent signal's pointer is the present one's; the kernel does not read it
     sigs = [diff if diff is not None else spec, spec if spec is not None else diff]
     build.launch("nrd_hitdist_recon", [view_z_in, normal_roughness, *sigs, params, out], consts,

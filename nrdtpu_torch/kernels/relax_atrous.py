@@ -22,7 +22,9 @@ TA's reprojection confidence at strides <= 4 (`:1368-1373`) and by IN_SPEC_CONFI
 (`:1377-1384`), and after iteration 0 weights its taps by the specular normal weight (angle0
 / f0 per pixel from roughness, history length and reprojection confidence) x the roughness
 weight, or by the simplified normal weight without roughness edge stopping (`:1513-1519`);
-iteration 0 keeps the diffuse normal weight, as XLA does (`use_variance_estimation`).
+iteration 0 keeps the diffuse normal weight, as XLA does (`use_variance_estimation`). Every
+texel's roughness is unpacked with the roughness encoding (`:1352`, `:1507`), a template
+parameter of the kernel.
 
 Bound on the H100: gathers. Per pixel it reads the centre's signal, viewZ, packed normal and
 history length (40 B) and 8 taps of viewZ, packed normal and signal (8 x 36 B, `step` px
@@ -41,6 +43,7 @@ from .. import frontend as fe
 from .. import math as nm
 from ..ops import resample, stencil
 from ..passes import relax as RC
+from ..settings import RoughnessEncoding
 from . import build
 
 launches = 0
@@ -87,7 +90,8 @@ def relax_atrous_ref(signal, view_z_in, normal_roughness, history_length, diff_c
                      frame_index, frustum, ortho_mode, view_z_scale, denoising_range,
                      depth_threshold, lobe_fraction, lobe_angle_fraction, phi_luminance,
                      max_luminance_relative_difference, min_material, history_threshold,
-                     confidence_relaxation, specular=None):
+                     confidence_relaxation, specular=None,
+                     roughness_encoding=RoughnessEncoding.LINEAR):
     """Plain PyTorch version of the kernel (the XLA iteration, op for op). lobe_fraction is
     `lobe_fraction(...)` of this iteration, lobe_angle_fraction the settings' (the 5x5
     estimation's normal weight and the specular lobe)."""
@@ -95,7 +99,8 @@ def relax_atrous_ref(signal, view_z_in, normal_roughness, history_length, diff_c
     dev = signal.device
     uv = resample.pixel_uv_grid(h, w, dev)
     view_z = torch.abs(view_z_in) * view_z_scale
-    n, roughness, material_id = fe.unpack_normal_roughness(normal_roughness)
+    n, roughness, material_id = fe.unpack_normal_roughness(
+        normal_roughness, roughness_encoding=roughness_encoding)
     x = RC.world_pos(frustum, ortho_mode, uv, view_z)
     thr = depth_threshold * (view_z if ortho_mode == 0.0 else torch.ones_like(view_z))
     mat_c = torch.clamp_min(material_id, min_material)
@@ -175,8 +180,9 @@ def relax_atrous_ref(signal, view_z_in, normal_roughness, history_length, diff_c
                                 uv[..., 1] + (float(yy * step_size) + off_y) * rinv_y], -1)
             inside = resample.is_in_screen_nearest(uv_s)
             zs = torch.abs(resample.sample_nearest(view_z_in, uv_s)) * view_z_scale
-            ns, rs, ms = fe.unpack_normal_roughness(resample.sample_nearest(normal_roughness,
-                                                                            uv_s))
+            ns, rs, ms = fe.unpack_normal_roughness(
+                resample.sample_nearest(normal_roughness, uv_s),
+                roughness_encoding=roughness_encoding)
             xs = RC.world_pos(frustum, ortho_mode, uv_s, zs)
             gw = RC.get_plane_distance_weight_atrous(x, n, xs, thr) * kern
             gw = gw * inside * (zs < denoising_range).to(torch.float32)
@@ -207,12 +213,13 @@ def relax_atrous_ref(signal, view_z_in, normal_roughness, history_length, diff_c
         out = torch.cat([out[..., :3], torch.clamp_min(out[..., 3] - m1 * m1, 0.0)[..., None]], -1)
         return torch.where((history_length >= history_threshold)[..., None], out,
                            _variance_estimation(signal, normal_roughness, history_length, n,
-                                                mat_c, lobe_angle_fraction, min_material))
+                                                mat_c, lobe_angle_fraction, min_material,
+                                                roughness_encoding))
     return acc / torch.stack([wsum, wsum, wsum, wsum * wsum], -1)
 
 
 def _variance_estimation(signal, normal_roughness, history_length, n, mat_c,
-                         lobe_angle_fraction, min_material):
+                         lobe_angle_fraction, min_material, roughness_encoding):
     """The 5x5 spatial variance estimation of short histories (`:1560-1598`)."""
     nwp = normal_weight_param2(lobe_angle_fraction)
     swsum = torch.zeros_like(history_length)
@@ -220,7 +227,8 @@ def _variance_estimation(signal, normal_roughness, history_length, n, mat_c,
     s_m1 = torch.zeros_like(history_length)
     s_m2 = torch.zeros_like(history_length)
     for dy, dx in stencil.offsets_square(2):
-        ns, _, ms = fe.unpack_normal_roughness(stencil.shifted(normal_roughness, dy, dx))
+        ns, _, ms = fe.unpack_normal_roughness(stencil.shifted(normal_roughness, dy, dx),
+                                               roughness_encoding=roughness_encoding)
         w_ = nm.compute_weight(nm.acos_approx(nm.dot(n, ns)), nwp, 0.0)
         w_ = w_ * (torch.clamp_min(ms, min_material) == mat_c).to(torch.float32)
         s = stencil.shifted(signal, dy, dx)
@@ -247,7 +255,8 @@ def relax_atrous(signal, view_z_in, normal_roughness, history_length, diff_confi
                  frame_index, frustum, ortho_mode, view_z_scale, denoising_range,
                  depth_threshold, lobe_fraction, lobe_angle_fraction, phi_luminance,
                  max_luminance_relative_difference, min_material, history_threshold,
-                 confidence_relaxation, specular=None):
+                 confidence_relaxation, specular=None,
+                 roughness_encoding=RoughnessEncoding.LINEAR):
     """signal (h, w, 4): at iteration 0 (rgb, 2nd moment), later (rgb, variance);
     history_length (h, w); the optional (h, w) planes IN_DIFF_CONFIDENCE, IN_SPEC_CONFIDENCE
     and the TA's specular reprojection confidence; frustum = the 9 floats right, up, forward;
@@ -255,7 +264,8 @@ def relax_atrous(signal, view_z_in, normal_roughness, history_length, diff_confi
     specular = None for the diffuse signal, else the dict of the specular constants
     (roughness_fraction, normal_edge_stopping_relaxation, lobe_angle_slack,
     luminance_edge_stopping_relaxation, roughness_edge_stopping_relaxation,
-    roughness_edge_stopping_enabled). Returns (h, w, 4) = (rgb, variance)."""
+    roughness_edge_stopping_enabled); roughness_encoding: how the packed roughness is
+    unpacked. Returns (h, w, 4) = (rgb, variance)."""
     global launches
     kw = dict(step_size=step_size, is_first=is_first, frame_index=frame_index, frustum=frustum,
               ortho_mode=ortho_mode, view_z_scale=view_z_scale,
@@ -264,7 +274,8 @@ def relax_atrous(signal, view_z_in, normal_roughness, history_length, diff_confi
               phi_luminance=phi_luminance,
               max_luminance_relative_difference=max_luminance_relative_difference,
               min_material=min_material, history_threshold=history_threshold,
-              confidence_relaxation=confidence_relaxation, specular=specular)
+              confidence_relaxation=confidence_relaxation, specular=specular,
+              roughness_encoding=roughness_encoding)
     planes = (diff_confidence, spec_confidence, reprojection_confidence)
     dev = build.kernel_device(signal)
     if dev is None:
@@ -288,7 +299,8 @@ def relax_atrous(signal, view_z_in, normal_roughness, history_length, diff_confi
               max_luminance_relative_difference, min_material, history_threshold,
               step_size, is_first, *_frame_halves(frame_index), w0, w0 * w0,
               G3[0] * G3[1], G3[1] * G3[1], *confidence_relaxation,
-              specular is not None, lobe_angle_fraction, *[sp.get(k, 0.0) for k in SPECULAR_CONSTS]]
+              specular is not None, lobe_angle_fraction, *[sp.get(k, 0.0) for k in SPECULAR_CONSTS],
+              build.ROUGHNESS_MODE[roughness_encoding]]
     build.launch("nrd_relax_atrous", [signal, view_z_in, normal_roughness, history_length, out,
                                       *planes], consts, w, h)
     launches += 1

@@ -11,7 +11,9 @@ its taps by the specular normal weight instead (`:1099-1114`): `angle0` / `f0` o
 `get_normal_weight_params_atrous(roughness, 5, 1, 0, ...)` (`:1030-1032`) and the tap's view
 vector relaxed by `roughness_edge_stopping_relaxation`. The stride is continuous, as
 in XLA: the TPU kernel's hat-blended stride levels (`relax_pallas.py:1502-1503`) are not
-carried over. Pixels whose history is long skip the taps.
+carried over. Pixels whose history is long skip the taps. The centre's roughness, which the
+specular weight reads, is unpacked with the roughness encoding (`:1024`), a template
+parameter of the specular kernel.
 
 Bound on the H100: gathers. Per pixel it reads the centre's signal, viewZ, packed normal and
 history length (40 B) and, where the fix applies, 24 taps up to 2 x 14 px away; it writes
@@ -30,6 +32,7 @@ from .. import frontend as fe
 from .. import math as nm
 from ..ops import resample
 from ..passes import relax as RC
+from ..settings import RoughnessEncoding
 from . import build
 
 launches = 0
@@ -40,13 +43,15 @@ SPECULAR_CONSTS = ("lobe_angle_fraction", "lobe_angle_slack",
 
 def relax_history_fix_ref(signal, view_z_in, normal_roughness, history_length, *, frustum,
                           ortho_mode, view_z_scale, depth_threshold, base_stride, frame_num,
-                          normal_power, min_material, specular=None):
+                          normal_power, min_material, specular=None,
+                          roughness_encoding=RoughnessEncoding.LINEAR):
     """Plain PyTorch version of the kernel (the XLA stride-tap loop and the select)."""
     h, w = view_z_in.shape
     dev = signal.device
     uv = resample.pixel_uv_grid(h, w, dev)
     view_z = torch.abs(view_z_in) * view_z_scale
-    n, roughness, material_id = fe.unpack_normal_roughness(normal_roughness)
+    n, roughness, material_id = fe.unpack_normal_roughness(
+        normal_roughness, roughness_encoding=roughness_encoding)
     x = RC.world_pos(frustum, ortho_mode, uv, view_z)
     if specular is not None:
         cv = -nm.normalize(x)
@@ -94,17 +99,20 @@ def relax_history_fix_ref(signal, view_z_in, normal_roughness, history_length, *
 
 def relax_history_fix(signal, view_z_in, normal_roughness, history_length, *, frustum,
                       ortho_mode, view_z_scale, depth_threshold, base_stride, frame_num,
-                      normal_power, min_material, specular=None):
+                      normal_power, min_material, specular=None,
+                      roughness_encoding=RoughnessEncoding.LINEAR):
     """signal (h, w, 4) = the accumulated history (rgb, 2nd moment); history_length (h, w)
     after TA; frustum = the 9 floats right, up, forward; base_stride =
     historyFixBasePixelStride, frame_num = historyFixFrameNum + 1; specular = None for the
     diffuse signal, else dict(lobe_angle_fraction, lobe_angle_slack,
-    roughness_edge_stopping_relaxation). Returns (h, w, 4): the reconstruction where the fix
-    applies, the signal elsewhere."""
+    roughness_edge_stopping_relaxation); roughness_encoding: how the packed roughness is
+    unpacked. Returns (h, w, 4): the reconstruction where the fix applies, the signal
+    elsewhere."""
     global launches
     kw = dict(frustum=frustum, ortho_mode=ortho_mode, view_z_scale=view_z_scale,
               depth_threshold=depth_threshold, base_stride=base_stride, frame_num=frame_num,
-              normal_power=normal_power, min_material=min_material, specular=specular)
+              normal_power=normal_power, min_material=min_material, specular=specular,
+              roughness_encoding=roughness_encoding)
     dev = build.kernel_device(signal)
     if dev is None:
         return relax_history_fix_ref(signal, view_z_in, normal_roughness, history_length, **kw)
@@ -120,7 +128,8 @@ def relax_history_fix(signal, view_z_in, normal_roughness, history_length, *, fr
     sp = specular or {}
     consts = [*frustum, ortho_mode, view_z_scale, depth_threshold, base_stride, frame_num,
               max(normal_power, 0.01), min_material, specular is not None,
-              *[sp.get(k, 0.0) for k in SPECULAR_CONSTS]]
+              *[sp.get(k, 0.0) for k in SPECULAR_CONSTS],
+              build.ROUGHNESS_MODE[roughness_encoding]]
     build.launch("nrd_relax_history_fix", [t for _, t, _ in ins] + [out, records], consts, w,
                  h)
     launches += 1

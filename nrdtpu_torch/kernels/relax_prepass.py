@@ -12,7 +12,9 @@ branch (`:176-199`, `:252-273`, `:286-289`) clamps the hit distance to the denoi
 takes the radius from the dominant direction, the hit-distance factor and the spec magic
 curve, capped by the lobe radius, weights each tap also by roughness, by the normal weight at
 half the lobe fraction with the pixel's roughness and by lerp(saturate(t), 1,
-linearstep(0.5, 1, roughness)), and writes the min hitT of the kept taps.
+linearstep(0.5, 1, roughness)), and writes the min hitT of the kept taps. The centre's and
+every tap's roughness are unpacked with the roughness encoding (`:169`, `:243`), a template
+parameter of the kernel.
 
 Bound on the H100: gathers. Per pixel it reads the centre's signal, viewZ and packed normal
 (36 B) and 8 taps of the same (8 x 36 B, neighbours up to 30 px x the hit-distance factor
@@ -28,6 +30,7 @@ from .. import frontend as fe
 from .. import math as nm
 from ..ops import resample
 from ..passes import relax as RC
+from ..settings import RoughnessEncoding
 from . import build
 
 launches = 0
@@ -95,14 +98,16 @@ def _specular_params(signal, n, roughness, x, view_z, frustum, ortho_mode, frust
 def relax_prepass_ref(signal, view_z_in, normal_roughness, *, frustum, ortho_mode, view_z_scale,
                       denoising_range, frustum_size_scale, blur_radius, normal_weight_param,
                       hit_dist_a, min_hit_dist_weight, depth_threshold, min_material,
-                      offsets, gaussian_weights, specular=None):
+                      offsets, gaussian_weights, specular=None,
+                      roughness_encoding=RoughnessEncoding.LINEAR):
     """Plain PyTorch version of the kernel (the XLA tap loop, op for op, then the
     radius-disabled select and the FP16_MAX clip)."""
     h, w = view_z_in.shape
     dev = signal.device
     uv = resample.pixel_uv_grid(h, w, dev)
     view_z = torch.abs(view_z_in) * view_z_scale
-    n, roughness, material_id = fe.unpack_normal_roughness(normal_roughness)
+    n, roughness, material_id = fe.unpack_normal_roughness(
+        normal_roughness, roughness_encoding=roughness_encoding)
     x = RC.world_pos(frustum, ortho_mode, uv, view_z)
     frustum_size = frustum_size_scale * nm.lerp(view_z, 1.0, abs(ortho_mode))
     if specular is None:
@@ -127,7 +132,8 @@ def relax_prepass_ref(signal, view_z_in, normal_roughness, *, frustum, ortho_mod
         # the snap of :241; a true division after the floor on every device (math.div)
         uv_s = torch.stack([nm.div(torch.floor(uv[..., 0] * w + ox * radius) + 0.5, w),
                             nm.div(torch.floor(uv[..., 1] * h + oy * radius) + 0.5, h)], -1)
-        ns, rs, ms = fe.unpack_normal_roughness(resample.sample_nearest(normal_roughness, uv_s))
+        ns, rs, ms = fe.unpack_normal_roughness(resample.sample_nearest(normal_roughness, uv_s),
+                                                roughness_encoding=roughness_encoding)
         zs = torch.abs(resample.sample_nearest(view_z_in, uv_s)) * view_z_scale
         xs = RC.world_pos(frustum, ortho_mode, uv_s, zs)
         w_ = resample.is_in_screen_nearest(uv_s)
@@ -165,21 +171,23 @@ def relax_prepass_ref(signal, view_z_in, normal_roughness, *, frustum, ortho_mod
 def relax_prepass(signal, view_z_in, normal_roughness, *, frustum, ortho_mode, view_z_scale,
                   denoising_range, frustum_size_scale, blur_radius, normal_weight_param,
                   hit_dist_a, min_hit_dist_weight, depth_threshold, min_material, offsets,
-                  gaussian_weights, specular=None):
+                  gaussian_weights, specular=None, roughness_encoding=RoughnessEncoding.LINEAR):
     """signal (h, w, 4) = (radiance, raw hitT); frustum = the 9 floats right, up, forward;
     frustum_size_scale = min(rect) x unproject (float32); blur_radius = the settings' radius
     (<= 0 disables the pass); normal_weight_param and hit_dist_a are the diffuse frame
     constants; offsets (8, 2) and gaussian_weights (8,) from `poisson_taps`. specular = None
     for the diffuse signal, else dict(unproject, normal_lobe_fraction (0.5 x the settings'
     lobe fraction), roughness_fraction): the specular branch with its per-pixel radius and
-    weights and the min hitT of the kept taps. Returns (h, w, 4)."""
+    weights and the min hitT of the kept taps; roughness_encoding: how the packed roughness
+    is unpacked. Returns (h, w, 4)."""
     global launches
     kw = dict(frustum=frustum, ortho_mode=ortho_mode, view_z_scale=view_z_scale,
               denoising_range=denoising_range, frustum_size_scale=frustum_size_scale,
               blur_radius=blur_radius, normal_weight_param=normal_weight_param,
               hit_dist_a=hit_dist_a, min_hit_dist_weight=min_hit_dist_weight,
               depth_threshold=depth_threshold, min_material=min_material, offsets=offsets,
-              gaussian_weights=gaussian_weights, specular=specular)
+              gaussian_weights=gaussian_weights, specular=specular,
+              roughness_encoding=roughness_encoding)
     dev = build.kernel_device(signal)
     if dev is None:
         return relax_prepass_ref(signal, view_z_in, normal_roughness, **kw)
@@ -196,7 +204,8 @@ def relax_prepass(signal, view_z_in, normal_roughness, *, frustum, ortho_mode, v
               depth_threshold, min_material,
               *np.asarray(offsets, np.float32).reshape(-1), *np.asarray(gaussian_weights),
               specular is not None, sp.get("unproject", 0.0), sp.get("normal_lobe_fraction", 0.0),
-              sp.get("roughness_fraction", 0.0), LOBE_TAN_SCALE]
+              sp.get("roughness_fraction", 0.0), LOBE_TAN_SCALE,
+              build.ROUGHNESS_MODE[roughness_encoding]]
     build.launch("nrd_relax_prepass", [t for _, t, _ in ins] + [out], consts, w, h)
     launches += 1
     return out

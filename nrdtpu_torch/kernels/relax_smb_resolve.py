@@ -24,10 +24,16 @@ gathers of `temporal_accumulation`'s loadSurfaceMotionBasedPrevData
 The TPU kernel's block-base + tent-residual capture (`relax_pallas.py:1020-1022`,
 `:847-851`) is not carried over: the footprint is each pixel's own.
 
-Bound on the H100: gathers. Per pixel it reads 9 current packed normals (144 B, L1
-neighbours), 16 previous viewZ and 16 material taps (128 B), 4 previous packed normals and 4
-history lengths (80 B), and 5 bilinear (20 texel) taps of each (h, w, 4) history (2 x 320 B,
-mostly shared with the neighbours); it writes 3 planes and 16 B per history.
+Bound on the H100: gathers. Per pixel it reads the current packed normal (and with the
+specular signal the hitT) of a 3x3 neighbourhood, 12 previous viewZ and 12 material taps
+around the footprint, 4 previous packed normals and 4 history lengths, and the 12 texels of
+the CatRom-12 footprint of each (h, w, 4) history (mostly shared with the neighbours); it
+writes 3 planes (8 with the specular signal) and 16 B per history. One kernel instance per
+mode (the specular planes, the number of histories); each CTA decodes its 18x18 window of
+current normals once into shared memory, and all histories go through one loop over the
+footprint's 5 bilinear samples, each texel read as one float4 and only where its weight is
+non-zero: the footprint's 12 texels each once where the samples land on their texels
+(`csrc/common.cuh:catrom_apply4`, the plain version's arithmetic, operation for operation).
 """
 
 from __future__ import annotations

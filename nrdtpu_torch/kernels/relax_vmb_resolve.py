@@ -19,9 +19,11 @@ footprint is each pixel's own.
 
 Bound on the H100: gathers. Per pixel it reads the uv, the normal, x - delta, the threshold,
 the packed current normal and smb_found (56 B), 4 previous viewZ and material taps (32 B), 4
-taps of the reflection hitT and of the packed previous normal (80 B) and the 5 bilinear (20
-texel) taps of two (h, w, 4) histories (2 x 320 B, mostly shared with the neighbours); it
-writes 3 x 16 B and 3 planes.
+taps of the reflection hitT and of the packed previous normal (80 B) and the 12 texels of the
+CatRom-12 footprint of two (h, w, 4) histories (mostly shared with the neighbours); it writes
+3 x 16 B and 3 planes. Both histories go through one loop over the footprint's 5 bilinear
+samples, each texel read as one float4 for both and only where its weight is non-zero
+(`csrc/common.cuh:catrom_apply4`), and every (h, w, 4) output is one float4 store.
 """
 
 from __future__ import annotations

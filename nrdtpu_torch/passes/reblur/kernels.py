@@ -887,7 +887,8 @@ def hit_dist_reconstruction(sc, dc, view_z_in, normal_roughness, diff, spec, con
     hd = k_hitdist_recon.hitdist_recon(
         view_z_in, normal_roughness, diff, spec, torch.stack(params), radius=radius,
         view_z_scale=float(sc["view_z_scale"]), frustum=sc["frustum"], ortho_mode=ortho,
-        rect_size_inv=sc["rect_size_inv"], world_to_view=sc["world_to_view"])
+        rect_size_inv=sc["rect_size_inv"], world_to_view=sc["world_to_view"],
+        roughness_encoding=config.roughness_encoding)
     return tuple(None if s is None else torch.cat([s[..., :-1], hd[name][..., None]], -1)
                  for name, s in (("diff", diff), ("spec", spec)))
 

@@ -115,7 +115,8 @@ def pre_pass(sc, dc, signal, view_z_in, normal_roughness, config, which: str = "
         hit_dist_a=float(F32(1.0) / norm), min_hit_dist_weight=float(dc["min_hit_distance_weight"]),
         depth_threshold=float(dc["depth_threshold"]),
         min_material=float(dc[which + "_min_material"]), offsets=offsets,
-        gaussian_weights=gauss, specular=specular)
+        gaussian_weights=gauss, specular=specular,
+        roughness_encoding=config.roughness_encoding)
 
 
 # ---------------------------------------------------------------------------
@@ -565,7 +566,8 @@ def history_fix(sc, dc, view_z_in, normal_roughness, history_length, signal, con
         base_stride=float(dc["history_fix_base_pixel_stride"]),
         frame_num=float(dc["history_fix_frame_num"]),
         normal_power=float(dc["history_fix_edge_stopping_normal_power"]),
-        min_material=float(dc[which + "_min_material"]), specular=specular)
+        min_material=float(dc[which + "_min_material"]), specular=specular,
+        roughness_encoding=config.roughness_encoding)
 
 
 def apply_history_fix(dc, history_length, fixed, responsive):
@@ -707,7 +709,7 @@ def atrous(sc, dc, view_z_in, normal_roughness, history_length, signal, config, 
             float(dc["confidence_driven_relaxation_multiplier"]),
             float(dc["confidence_driven_normal_edge_stopping_relaxation"]),
             float(dc["confidence_driven_luminance_edge_stopping_relaxation"])),
-        specular=specular)
+        specular=specular, roughness_encoding=config.roughness_encoding)
 
 
 def split_screen(sc, view_z_in, noisy, out_signal):

@@ -17,19 +17,20 @@ clamp glue), by default and with the anti-firefly ring; N4 `spatial_filter_fused
 also in performance mode; K23 `reblur_band` (default, ring, performance mode); H2 and H3 of
 REBLUR_DIFFUSE (D) and REBLUR_SPECULAR (S); K13 `sigma_blur` in its four modes (SS / ST
 blur and post_blur: SIGMA_SHADOW and SIGMA_SHADOW_TRANSLUCENCY, Blur and PostBlur); K19
-`relax_history_fix` by signal (RD, RS: RELAX_DIFFUSE, RELAX_SPECULAR; frame 4 runs its taps
-on every pixel).
+`relax_history_fix` and K16 `relax_smb_resolve` by signal (RD, RS: RELAX_DIFFUSE,
+RELAX_SPECULAR; frame 4 runs K19's taps on every pixel); K17 `relax_vmb_resolve` (RS).
 
-With `--slices` it also runs REBLUR_DIFFUSE_SPECULAR, SIGMA_SHADOW_TRANSLUCENCY and
-RELAX_DIFFUSE (`SLICES`) on parent and change in turns (parent, change, change, parent): the
-median ms/frame over `--frames` frames and a torch.profiler trace of 3 frames (device events
-and device busy time a frame). The slices' frames stay on the card for the run, so their
-peak memory is not the slice's (`chip_smoke.py` reports that).
+With `--slices` it also runs RELAX_DIFFUSE and RELAX_SPECULAR (`SLICES`) on parent and change
+in turns (parent, change, change, parent): the median ms/frame over `--frames` frames, the
+peak allocated memory above what the slice's resident frames take, and a torch.profiler trace
+of 3 frames (device events and device busy time a frame). The slices' frames stay on the card
+for the run, so the peak is not the slice's own (`chip_smoke.py` reports that); parent and
+change are compared on the same measure.
 
 Per side it prints each device kernel's registers and spill bytes (ptxas) and SASS
 instruction count (cuobjdump), the largest loop of each (its instructions between a
 backward branch and its target), and writes the SASS of the filter kernels (REBLUR's, K13's
-and K19's: `SASS_KERNELS`) and a JSON
+K19's, K16's and K17's: `SASS_KERNELS`) and a JSON
 of every number to `--out`. Recording the calls, holding a kernel to its plain version,
 timing, the build log's ptxas lines and the SASS listing are `chip_smoke.py`'s own
 (`recording`, `disagreement`, `time_ms`, `ptxas_usage`, `sass_listing`), so that both
@@ -60,8 +61,9 @@ import chip_smoke as CS  # noqa: E402
 
 VARIANT_SOURCES = ("history_fix_fused.cu", "spatial_filter_fused.cu", "reblur_band.cu",
                    "spatial_filter.cu", "history_fix.cu", "smb_resolve.cu", "sigma_blur.cu",
-                   "relax_history_fix.cu")
-SASS_KERNELS = re.compile(r"history_fix|spatial_filter|reblur_band|sigma_blur")
+                   "relax_history_fix.cu", "relax_smb_resolve.cu", "relax_vmb_resolve.cu")
+SASS_KERNELS = re.compile(
+    r"history_fix|spatial_filter|reblur_band|sigma_blur|relax_smb_resolve|relax_vmb_resolve")
 DS = "REBLUR_DIFFUSE_SPECULAR"
 BAND = DS + "+BAND"  # chip_smoke.PATHS: the pool and environment (the band's switch)
 # (label prefix, denoiser, path of the pool and environment, settings, kernels recorded)
@@ -76,11 +78,12 @@ RUNS = (
     ("S", "REBLUR_SPECULAR", "REBLUR_SPECULAR", {}, ("spatial_filter", "history_fix")),
     ("SS", "SIGMA_SHADOW", "SIGMA_SHADOW", {}, ("sigma_blur",)),
     ("ST", "SIGMA_SHADOW_TRANSLUCENCY", "SIGMA_SHADOW_TRANSLUCENCY", {}, ("sigma_blur",)),
-    ("RD", "RELAX_DIFFUSE", "RELAX_DIFFUSE", {}, ("relax_history_fix",)),
-    ("RS", "RELAX_SPECULAR", "RELAX_SPECULAR", {}, ("relax_history_fix",)),
+    ("RD", "RELAX_DIFFUSE", "RELAX_DIFFUSE", {}, ("relax_history_fix", "relax_smb_resolve")),
+    ("RS", "RELAX_SPECULAR", "RELAX_SPECULAR", {},
+     ("relax_history_fix", "relax_smb_resolve", "relax_vmb_resolve")),
 )
 # the paths that --slices runs on both sides
-SLICES = (DS, "SIGMA_SHADOW_TRANSLUCENCY", "RELAX_DIFFUSE")
+SLICES = ("RELAX_DIFFUSE", "RELAX_SPECULAR")
 
 
 def log(*a):
@@ -260,8 +263,8 @@ def sass_report(lib_path, name, out_dir):
 
 
 def slice_run(side, path, w, h, frames, warmup=3, traced=3):
-    """One path of SLICES on one side: median ms/frame, device events and busy ms a frame of a
-    traced window."""
+    """One path of SLICES on one side: median ms/frame, the peak allocated MB above the
+    resident frames, device events and busy ms a frame of a traced window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -270,6 +273,8 @@ def slice_run(side, path, w, h, frames, warmup=3, traced=3):
     pools = [(side.convert(cs), side.pool({k: torch.from_numpy(v).cuda()
                                            for k, v in p[path].items()})) for cs, p, _ in frames]
     torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     ms = []
     for i, (cs, pool) in enumerate(pools):
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -280,6 +285,7 @@ def slice_run(side, path, w, h, frames, warmup=3, traced=3):
         torch.cuda.synchronize()
         if i >= warmup:
             ms.append(e0.elapsed_time(e1))
+    peak_mb = (torch.cuda.max_memory_allocated() - resident) / 1e6
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for cs, pool in pools[-traced:]:
             eng.set_common_settings(cs)
@@ -287,7 +293,8 @@ def slice_run(side, path, w, h, frames, warmup=3, traced=3):
         torch.cuda.synchronize()
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in events) / 1e3 / traced
-    return dict(ms=float(np.median(ms)), events=len(events) / traced, busy_ms=busy)
+    return dict(ms=float(np.median(ms)), peak_mb=peak_mb, events=len(events) / traced,
+                busy_ms=busy)
 
 
 def main():
@@ -357,8 +364,9 @@ def main():
             for s in (sides[0], sides[1], sides[1], sides[0]):
                 r = slice_run(s, path, w, h, slice_frames)
                 report["slices"].append(dict(side=s.name, path=path, **r))
-                log(f"slice {path} {s.name}: {r['ms']:.3f} ms/frame, {r['events']:.0f} device "
-                    f"events a frame, device busy {r['busy_ms']:.3f} ms")
+                log(f"slice {path} {s.name}: {r['ms']:.3f} ms/frame, peak {r['peak_mb']:.2f} MB "
+                    f"above the frames, {r['events']:.0f} device events a frame, device busy "
+                    f"{r['busy_ms']:.3f} ms")
         del slice_frames
         torch.cuda.empty_cache()
     frames = list(CS.Scene(w, h).frames(4))

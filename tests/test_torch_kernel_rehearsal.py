@@ -1,6 +1,9 @@
-"""Rehearsal on the CPU of the kernels redesigned for the H100: K22 `relax_atrous.cu`, K23
-`reblur_band.cu`, N4 `spatial_filter_fused.cu`, N5 `history_fix_fused.cu`, K13
-`sigma_blur.cu` and K19 `relax_history_fix.cu`, as they are in the tree, compiled as C++ by g++ through `tests/cuda_shim.h` (every CUDA thread a std::thread,
+"""Rehearsal on the CPU of the kernels redesigned for the H100 and of the kernels with a
+roughness-encoding mode: K22 `relax_atrous.cu`, K23 `reblur_band.cu`, N4
+`spatial_filter_fused.cu`, N5 `history_fix_fused.cu`, K13 `sigma_blur.cu`, K19
+`relax_history_fix.cu`, K16 `relax_smb_resolve.cu`, K17 `relax_vmb_resolve.cu`, K15
+`relax_prepass.cu` and K12 `hitdist_recon.cu`, as they are in the tree, compiled as C++ by g++
+through `tests/cuda_shim.h` (every CUDA thread a std::thread,
 `__syncthreads` a barrier of the block) and bound through the same ctypes entry points as on
 the card, with `build.library`, `build.kernel_device` and `torch.cuda.current_stream` patched.
 Each is held against its plain version on the calls that the port's Engine makes on the CPU at
@@ -12,7 +15,11 @@ performance mode, and N5 by default and with the ring, both of REBLUR_DIFFUSE_SP
 N5's tap-geometry plane read by N4's Blur (the two kernels chained); K13 in its four modes
 (SIGMA_SHADOW and SIGMA_SHADOW_TRANSLUCENCY, Blur and PostBlur); K19 on RELAX_DIFFUSE and
 RELAX_SPECULAR (its tap-record prologue, then the taps; the first frame included) and with
-historyFixFrameNum = 0, whose frame num of 1 switches the taps and the prologue off.
+historyFixFrameNum = 0, whose frame num of 1 switches the taps and the prologue off; K16 on
+RELAX_DIFFUSE and RELAX_SPECULAR and K17 on RELAX_SPECULAR, whose orbit frames give both
+bicubic and bilinear-fallback footprints, their footprint planes (smb_found, any, all) equal;
+and K15, K19, K22 and K12 on RELAX_SPECULAR with AREA_3X3 reconstruction on frames with
+hit-distance holes, IN_NORMAL_ROUGHNESS packed as SQ_LINEAR and as SQRT_LINEAR.
 
 Run alone: python -m pytest tests/test_torch_kernel_rehearsal.py -q
 
@@ -36,7 +43,8 @@ from nrdtpu_torch import frontend as fe
 from nrdtpu_torch import kernels as KM
 from nrdtpu_torch.engine import Engine
 from nrdtpu_torch.kernels import build
-from nrdtpu_torch.settings import Denoiser, ResourceType as RT, replace
+from nrdtpu_torch.settings import Denoiser, HitDistanceReconstructionMode as HM
+from nrdtpu_torch.settings import ResourceType as RT, RoughnessEncoding, replace
 from nrdtpu_torch.utils.scene import SceneGenerator, SceneSpec
 
 # the tensors here are small: one intra-op thread, so that test workers do not contend
@@ -44,7 +52,9 @@ torch.set_num_threads(1)
 
 SHIM = Path(__file__).with_name("cuda_shim.h")
 SOURCES = ("relax_atrous.cu", "reblur_band.cu", "spatial_filter_fused.cu",
-           "history_fix_fused.cu", "sigma_blur.cu", "relax_history_fix.cu")
+           "history_fix_fused.cu", "sigma_blur.cu", "relax_history_fix.cu",
+           "relax_smb_resolve.cu", "relax_vmb_resolve.cu", "relax_prepass.cu",
+           "hitdist_recon.cu")
 SIZE = (48, 32)
 FRAMES = 4
 ATOL, RTOL, FLIP_FRACTION = 1e-4, 1e-4, 1e-4
@@ -69,6 +79,9 @@ HISTORY_FIX_CASES = {"diffuse": (Denoiser.RELAX_DIFFUSE, {}),
                      "specular": (Denoiser.RELAX_SPECULAR, {}),
                      "taps_off": (Denoiser.RELAX_DIFFUSE, dict(historyFixFrameNum=0))}
 DS = Denoiser.REBLUR_DIFFUSE_SPECULAR
+# the kernels that unpack the roughness, each held at the two encodings other than LINEAR
+ENCODED_KERNELS = ("relax_prepass", "relax_history_fix", "relax_atrous", "hitdist_recon")
+HOLE_FRACTION = 0.3  # of the geometry pixels whose hit distance the frames with holes zero
 
 LAUNCH = re.compile(r"([A-Za-z_]\w*(?:<[^<>;]*>)?)\s*<<<([^;]*?)>>>\s*\(([^;]*)\);")
 DYNAMIC_SHARED = re.compile(r"extern\s+__shared__\s+(\w+)\s+(\w+)\s*\[\s*\]\s*;")
@@ -134,17 +147,21 @@ def _ramp(rng, h, w):
     return np.clip(r, 0.0, 1.0).astype(np.float32)
 
 
-def _pools(kind):
+def _pools(kind, encoding=RoughnessEncoding.LINEAR, holes=False):
     """The inputs of each frame for "reblur", "relax" or "sigma" (the penumbra from the
-    scene's distance to the occluder, and a constant translucency)."""
+    scene's distance to the occluder, and a constant translucency), the roughness packed
+    with `encoding`; with `holes` the RELAX hit distance zeroed on a seeded HOLE_FRACTION of
+    the geometry pixels."""
     gen = SceneGenerator(SceneSpec(size=SIZE, noise=0.4), camera_mode="orbit")
     rng = np.random.default_rng(11)
     relax = kind == "relax"
     for i in range(FRAMES):
         fd = gen.frame(i)
         fd.common_settings.timeDeltaBetweenFrames = 16.66
-        pool = {RT.IN_VIEWZ: fd.view_z, RT.IN_NORMAL_ROUGHNESS: gen.packed_normal_roughness(fd),
-                RT.IN_MV: fd.mv}
+        pool = {RT.IN_VIEWZ: fd.view_z, RT.IN_MV: fd.mv,
+                RT.IN_NORMAL_ROUGHNESS: gen.packed_normal_roughness(fd, re_=encoding)}
+        punched = ((np.random.default_rng((17, i)).random(fd.view_z.shape) < HOLE_FRACTION)
+                   & (fd.hit_mask > 0))
         if kind == "sigma":
             dist = torch.from_numpy(fd.dist_to_occluder)
             pool[RT.IN_PENUMBRA] = fe.sigma_pack_penumbra_directional(
@@ -161,6 +178,8 @@ def _pools(kind):
             if relax:
                 pool[rt] = fe.relax_pack_radiance_hitdist(torch.from_numpy(noisy),
                                                           torch.from_numpy(hit)).numpy()
+                if holes:
+                    pool[rt][..., 3][punched] = 0.0
                 pool[conf] = _ramp(rng, SIZE[1], SIZE[0])
             else:
                 rough = (torch.from_numpy(fd.roughness) if rt == RT.IN_SPEC_RADIANCE_HITDIST
@@ -171,12 +190,14 @@ def _pools(kind):
         yield fd.common_settings, pool
 
 
-def _record(denoiser, name, env=None, **settings):
+def _record(denoiser, name, env=None, encoding=RoughnessEncoding.LINEAR, holes=False,
+            **settings):
     """Every call of the wrapper `name` over the frames, through the port's Engine on the
-    CPU (where the wrappers run their plain versions)."""
+    CPU (where the wrappers run their plain versions), at the roughness encoding
+    `encoding`, on frames with hit-distance holes if `holes`."""
     mod = KM.MODULES[name]
     wrapper, calls = getattr(mod, name), []
-    eng = Engine({0: denoiser}, resource_size=SIZE, device="cpu")
+    eng = Engine({0: denoiser}, resource_size=SIZE, roughness_encoding=encoding, device="cpu")
     eng.set_denoiser_settings(0, replace(eng._settings[0], **settings))
 
     def rec(*a, **k):
@@ -187,7 +208,7 @@ def _record(denoiser, name, env=None, **settings):
         for key, value in (env or {}).items():
             mp.setenv(key, value)
         kind = denoiser.name.split("_")[0].lower()
-        for cs, pool in _pools(kind):
+        for cs, pool in _pools(kind, encoding, holes):
             eng.set_common_settings(cs)
             eng.denoise([0], pool)
     return calls
@@ -206,9 +227,10 @@ def _flat(r):
     return dict(enumerate(r)) if isinstance(r, tuple) else {"out": r}
 
 
-def _hold(lib, name, calls):
+def _hold(lib, name, calls, exact=()):
     """Run each call through the rehearsal kernel and the plain version; return the values
-    outside the tolerance, the values and the largest difference."""
+    outside the tolerance, the values and the largest difference. The outputs named in
+    `exact` must be equal."""
     mod = KM.MODULES[name]
     over = count = 0
     worst = 0.0
@@ -222,6 +244,8 @@ def _hold(lib, name, calls):
         for key, w in want.items():
             if w is None:
                 continue
+            if key in exact:
+                assert torch.equal(got[key], w), f"{name}: {key} differs"
             d = (got[key] - w).abs()
             over += int((d > ATOL + RTOL * w.abs()).sum())
             count += d.numel()
@@ -359,3 +383,51 @@ def test_relax_history_fix_rehearsal(library, case):
                                            f"tolerance, max |d| {worst:.3g}")
     if case == "taps_off":
         assert worst == 0.0
+
+
+@pytest.mark.parametrize("denoiser", ["RELAX_DIFFUSE", "RELAX_SPECULAR"])
+def test_relax_smb_resolve_rehearsal(library, denoiser):
+    """K16 (the staged 3x3 window, the 12 occlusion taps, the histories through one CatRom-12
+    footprint) against the plain version, smb_found equal; the frames give both bicubic
+    (smb_found 2) and bilinear-fallback (1) footprints."""
+    calls = _record(Denoiser[denoiser], "relax_smb_resolve")
+    assert len(calls) == FRAMES
+    assert all((a[9] is not None) == (denoiser == "RELAX_SPECULAR") for a, _ in calls)
+    found = torch.cat([KM.relax_smb_resolve.relax_smb_resolve_ref(*a, **k)["smb_found"]
+                       .flatten() for a, k in calls])
+    assert bool((found == 2.0).any()) and bool((found == 1.0).any())
+    over, count, worst = _hold(library, "relax_smb_resolve", calls, exact=("smb_found",))
+    assert over <= FLIP_FRACTION * count, (f"{denoiser}: {over} of {count} values out of "
+                                           f"tolerance, max |d| {worst:.3g}")
+
+
+def test_relax_vmb_resolve_rehearsal(library):
+    """K17 (both histories through one CatRom footprint) against the plain version, any
+    and all equal; the frames give both footprints: bicubic (K16's footprint bicubic and all
+    four taps valid) and the bilinear fallback (some tap valid, not all)."""
+    calls = _record(Denoiser.RELAX_SPECULAR, "relax_vmb_resolve")
+    assert len(calls) == FRAMES
+    bicubic = fallback = False
+    for a, k in calls:
+        r = KM.relax_vmb_resolve.relax_vmb_resolve_ref(*a, **k)
+        bicubic |= bool(((a[5] == 2.0) & (r["all"] > 0.0)).any())
+        fallback |= bool(((r["any"] > 0.0) & ((a[5] != 2.0) | (r["all"] == 0.0))).any())
+    assert bicubic and fallback
+    over, count, worst = _hold(library, "relax_vmb_resolve", calls, exact=("any", "all"))
+    assert over <= FLIP_FRACTION * count, (f"{over} of {count} values out of tolerance, "
+                                           f"max |d| {worst:.3g}")
+
+
+@pytest.mark.parametrize("encoding", ["SQ_LINEAR", "SQRT_LINEAR"])
+@pytest.mark.parametrize("name", ENCODED_KERNELS)
+def test_roughness_encoding_rehearsal(library, name, encoding):
+    """K15, K19, K22 and K12 in the roughness mode of the encoding, on RELAX_SPECULAR's calls
+    with AREA_3X3 reconstruction on frames with hit-distance holes."""
+    enc = RoughnessEncoding[encoding]
+    calls = _record(Denoiser.RELAX_SPECULAR, name, encoding=enc, holes=True,
+                    hitDistanceReconstructionMode=HM.AREA_3X3)
+    assert len(calls) == FRAMES * (len(STEPS) if name == "relax_atrous" else 1)
+    assert all(k["roughness_encoding"] == enc for _, k in calls)
+    over, count, worst = _hold(library, name, calls)
+    assert over <= FLIP_FRACTION * count, (f"{name} {encoding}: {over} of {count} values out "
+                                           f"of tolerance, max |d| {worst:.3g}")
