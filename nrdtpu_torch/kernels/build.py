@@ -126,8 +126,9 @@ def launch(entry: str, tensors, consts, w: int, h: int):
 
 
 def check(name: str, t, device, dtype, shape):
-    """Raise unless `t` is a contiguous tensor of the given device, dtype and shape; a float
-    (..., 4) image must also be 16-byte aligned (the kernels read its records as float4)."""
+    """Raise unless `t` is a contiguous tensor of the given device, dtype and shape; an
+    (..., 4) image must also be aligned to its record (the kernels read a float record as one
+    float4, a bf16 record as one 8-byte load)."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
     if t.device != device:
@@ -138,8 +139,9 @@ def check(name: str, t, device, dtype, shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
-    if dtype == torch.float32 and len(shape) > 1 and shape[-1] == 4 and t.data_ptr() % 16:
-        raise ValueError(f"{name}: not 16-byte aligned")
+    record = 4 * t.element_size()
+    if len(shape) > 1 and shape[-1] == 4 and t.data_ptr() % record:
+        raise ValueError(f"{name}: not {record}-byte aligned")
 
 
 def kernel_device(t):

@@ -244,14 +244,27 @@ __device__ __forceinline__ void sample_catrom(const Image<T, C>& img, float spx,
   catrom_apply(img, catrom_taps(spx, spy, use_bicubic, bw), out);
 }
 
-// catrom_apply of N float (h, w, 4) images through one footprint, operation for operation:
-// the 5 bilinear samples in order, each sample's position, origin and weights computed once
-// for all images. A texel is read, as one float4 through the read-only path, only where its
+// One (h, w, 4) texel as float4, through the read-only path: a float record in one 16-byte
+// load, or a bf16 record in one 8-byte load (uint2), each channel widened exactly to float
+__device__ __forceinline__ float4 texel4(const float4* p, size_t i) { return __ldg(p + i); }
+__device__ __forceinline__ float4 texel4(const uint2* p, size_t i) {
+  const uint2 b = __ldg(p + i);
+  return make_float4(__uint_as_float(b.x << 16), __uint_as_float(b.x & 0xffff0000u),
+                     __uint_as_float(b.y << 16), __uint_as_float(b.y & 0xffff0000u));
+}
+
+// catrom_apply of N (h, w, 4) images through one footprint, operation for operation: float
+// images as float4 (K16, K17), bf16 ones as uint2, each texel widened to float before the
+// multiply-adds of sample_bilinear (H1; the wrappers check that such images are 8-byte
+// aligned). The 5 bilinear samples in order, each sample's position, origin and weights
+// computed once for all images. A texel is read, as one wide load (texel4), only where its
 // bilinear weight is non-zero, and a sample only where its CatRom weight is: a term of weight
-// 0 adds an exact 0. In the bicubic footprint whose positions land on their texels exactly,
-// that reads each of the 12 texels it covers once, in place of the 20 of 5 full bilinears.
-template <int N>
-__device__ __forceinline__ void catrom_apply4(const float4* const img[N], int w, int h,
+// 0 adds an exact 0 where the texel is finite (a non-finite texel times 0 would be NaN), and
+// the callers' histories are the previous frame's outputs, finite. In the bicubic footprint
+// whose positions land on their texels exactly, that reads each of the 12 texels it covers
+// once, in place of the 20 of 5 full bilinears.
+template <int N, typename T>
+__device__ __forceinline__ void catrom_apply4(const T* const img[N], int w, int h,
                                               const CatromTaps& t, float4 out[N]) {
   const float inv_w = 1.0f / (float)w, inv_h = 1.0f / (float)h;
   const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -274,7 +287,7 @@ __device__ __forceinline__ void catrom_apply4(const float4* const img[N], int w,
     for (int s = 0; s < N; ++s) {
       float4 v[4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) v[q] = bw[q] != 0.0f ? __ldg(img[s] + idx[q]) : zero;
+      for (int q = 0; q < 4; ++q) v[q] = bw[q] != 0.0f ? texel4(img[s], idx[q]) : zero;
       const float4 b = make_float4(
           v[0].x * bw[0] + v[1].x * bw[1] + v[2].x * bw[2] + v[3].x * bw[3],
           v[0].y * bw[0] + v[1].y * bw[1] + v[2].y * bw[2] + v[3].y * bw[3],

@@ -18,7 +18,9 @@ parameter of the kernel.
 
 Bound on the H100: gathers. Per pixel it reads the centre's signal, viewZ and packed normal
 (36 B) and 8 taps of the same (8 x 36 B, neighbours up to 30 px x the hit-distance factor
-away) and writes 16 B; one thread per pixel in 16x16 blocks with plain global loads.
+away) and writes 16 B. The kernel is one instance per mode (specular, roughness encoding), one
+thread per pixel in 16x16 CTAs, a rolled tap loop reading each tap's signal and packed normal
+as one float4 each, ahead of its weights (`csrc/relax_prepass.cu`).
 """
 
 from __future__ import annotations

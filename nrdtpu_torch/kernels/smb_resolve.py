@@ -18,13 +18,14 @@ With a second signal (`second=`, REBLUR_DIFFUSE_SPECULAR) the same launch sample
 signals' histories, fast histories and accumulation planes, the CatRom taps and bilinear
 weights computed once; the footprint's outputs are written once.
 
-Bound on the H100: gathers. Per pixel at 2560x1440 it reads 16 viewZ + 16 material taps
-(128 B), 4 previous and 4 current packed normals (128 B), 4 accumulation taps (16 B), 13 x 4
-bf16 history taps (~5 x 4 x 4 x 2 = 160 B) and 4 fast-history taps, ~0.5 KB of mostly
-L1/L2-resident neighbourhood for 68 B of output; device-memory traffic is near the compulsory
-~125 B/px (a second signal adds ~30 B/px). This first version is one thread per pixel in
-16x16 blocks with plain global loads (NRD's own compute-shader shape); shared-memory
-footprints are later work.
+Bound on the H100: gathers. Per pixel at 2560x1440 it reads 12 viewZ + 12 material taps
+(96 B), 4 current (staged once a CTA) and 4 previous packed normals, 4 accumulation taps (16 B),
+the history's CatRom footprint (12 bf16 records of 8 B where the samples land on their texels)
+and 4 fast-history taps, mostly L1/L2-resident neighbourhood, for 68 B of output;
+device-memory traffic is near the compulsory ~125 B/px (a second signal adds ~30 B/px). The
+kernel is one instance per signal count, one thread per pixel in 16x16 CTAs, with the current
+normals decoded once into a shared-memory window and every signal's history read through one
+loop over the CatRom's 5 samples (`csrc/smb_resolve.cu`).
 """
 
 from __future__ import annotations

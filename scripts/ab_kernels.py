@@ -15,13 +15,17 @@ held against its own plain version (the fraction of values outside 1e-4 + 1e-4 |
 Labels: N5 `history_fix_fused` and its pass (`fused_history_fix`, the parent's with the
 clamp glue), by default and with the anti-firefly ring; N4 `spatial_filter_fused` by stage,
 also in performance mode; K23 `reblur_band` (default, ring, performance mode); H2 and H3 of
-REBLUR_DIFFUSE (D) and REBLUR_SPECULAR (S); K13 `sigma_blur` in its four modes (SS / ST
-blur and post_blur: SIGMA_SHADOW and SIGMA_SHADOW_TRANSLUCENCY, Blur and PostBlur); K19
-`relax_history_fix` and K16 `relax_smb_resolve` by signal (RD, RS: RELAX_DIFFUSE,
-RELAX_SPECULAR; frame 4 runs K19's taps on every pixel); K17 `relax_vmb_resolve` (RS).
+REBLUR_DIFFUSE (D) and REBLUR_SPECULAR (S); H1 `smb_resolve` on D, S (one signal) and DS
+(two); K13 `sigma_blur` in its four modes (SS / ST blur and post_blur: SIGMA_SHADOW and
+SIGMA_SHADOW_TRANSLUCENCY, Blur and PostBlur); K19 `relax_history_fix`, K16
+`relax_smb_resolve` and K15 `relax_prepass` by signal (RD, RS: RELAX_DIFFUSE, RELAX_SPECULAR;
+frame 4 runs K19's taps on every pixel); K17 `relax_vmb_resolve` (RS); K15 on RELAX_SPECULAR
+at the roughness encodings SQ_LINEAR and SQRT_LINEAR (`RS SQ_LINEAR`, `RS SQRT_LINEAR`:
+`chip_smoke.ENCODED`'s pools and settings).
 
-With `--slices` it also runs RELAX_DIFFUSE and RELAX_SPECULAR (`SLICES`) on parent and change
-in turns (parent, change, change, parent): the median ms/frame over `--frames` frames, the
+With `--slices` it also runs every path that launches the kernels under test (`SLICES`: D,
+S, DS, DS+BAND, DS+AREA_3X3, RD, RS, RS+AF, as `chip_smoke.PATHS` defines them) on parent and
+change in turns (parent, change, change, parent): the median ms/frame over `--frames` frames, the
 peak allocated memory above what the slice's resident frames take, and a torch.profiler trace
 of 3 frames (device events and device busy time a frame). The slices' frames stay on the card
 for the run, so the peak is not the slice's own (`chip_smoke.py` reports that); parent and
@@ -29,8 +33,8 @@ change are compared on the same measure.
 
 Per side it prints each device kernel's registers and spill bytes (ptxas) and SASS
 instruction count (cuobjdump), the largest loop of each (its instructions between a
-backward branch and its target), and writes the SASS of the filter kernels (REBLUR's, K13's
-K19's, K16's and K17's: `SASS_KERNELS`) and a JSON
+backward branch and its target), and writes the SASS of the filter kernels (REBLUR's, H1's,
+K13's, K15's, K16's, K17's and K19's: `SASS_KERNELS`) and a JSON
 of every number to `--out`. Recording the calls, holding a kernel to its plain version,
 timing, the build log's ptxas lines and the SASS listing are `chip_smoke.py`'s own
 (`recording`, `disagreement`, `time_ms`, `ptxas_usage`, `sass_listing`), so that both
@@ -61,29 +65,37 @@ import chip_smoke as CS  # noqa: E402
 
 VARIANT_SOURCES = ("history_fix_fused.cu", "spatial_filter_fused.cu", "reblur_band.cu",
                    "spatial_filter.cu", "history_fix.cu", "smb_resolve.cu", "sigma_blur.cu",
-                   "relax_history_fix.cu", "relax_smb_resolve.cu", "relax_vmb_resolve.cu")
+                   "relax_history_fix.cu", "relax_smb_resolve.cu", "relax_vmb_resolve.cu",
+                   "relax_prepass.cu")
 SASS_KERNELS = re.compile(
-    r"history_fix|spatial_filter|reblur_band|sigma_blur|relax_smb_resolve|relax_vmb_resolve")
+    r"history_fix|spatial_filter|reblur_band|sigma_blur|smb_resolve|relax_vmb_resolve|"
+    r"relax_prepass")
 DS = "REBLUR_DIFFUSE_SPECULAR"
 BAND = DS + "+BAND"  # chip_smoke.PATHS: the pool and environment (the band's switch)
 # (label prefix, denoiser, path of the pool and environment, settings, kernels recorded)
 RUNS = (
-    ("DS", DS, DS, {}, ("history_fix_fused", "spatial_filter_fused")),
+    ("DS", DS, DS, {}, ("history_fix_fused", "spatial_filter_fused", "smb_resolve")),
     ("DS ring", DS, DS, dict(enableAntiFirefly=True), ("history_fix_fused",)),
     ("DS perf", DS, DS, dict(enablePerformanceMode=True), ("spatial_filter_fused",)),
     ("band", DS, BAND, {}, ("reblur_band",)),
     ("band ring", DS, BAND, dict(enableAntiFirefly=True), ("reblur_band",)),
     ("band perf", DS, BAND, dict(enablePerformanceMode=True), ("reblur_band",)),
-    ("D", "REBLUR_DIFFUSE", "REBLUR_DIFFUSE", {}, ("spatial_filter", "history_fix")),
-    ("S", "REBLUR_SPECULAR", "REBLUR_SPECULAR", {}, ("spatial_filter", "history_fix")),
+    ("D", "REBLUR_DIFFUSE", "REBLUR_DIFFUSE", {},
+     ("spatial_filter", "history_fix", "smb_resolve")),
+    ("S", "REBLUR_SPECULAR", "REBLUR_SPECULAR", {},
+     ("spatial_filter", "history_fix", "smb_resolve")),
     ("SS", "SIGMA_SHADOW", "SIGMA_SHADOW", {}, ("sigma_blur",)),
     ("ST", "SIGMA_SHADOW_TRANSLUCENCY", "SIGMA_SHADOW_TRANSLUCENCY", {}, ("sigma_blur",)),
-    ("RD", "RELAX_DIFFUSE", "RELAX_DIFFUSE", {}, ("relax_history_fix", "relax_smb_resolve")),
+    ("RD", "RELAX_DIFFUSE", "RELAX_DIFFUSE", {},
+     ("relax_history_fix", "relax_smb_resolve", "relax_prepass")),
     ("RS", "RELAX_SPECULAR", "RELAX_SPECULAR", {},
-     ("relax_history_fix", "relax_smb_resolve", "relax_vmb_resolve")),
-)
-# the paths that --slices runs on both sides
-SLICES = ("RELAX_DIFFUSE", "RELAX_SPECULAR")
+     ("relax_history_fix", "relax_smb_resolve", "relax_vmb_resolve", "relax_prepass")),
+) + tuple((f"RS {v['encoding']}", v["denoiser"], pool,
+           dict(v["settings"], roughness_encoding=v["encoding"]), ("relax_prepass",))
+          for pool, v in CS.ENCODED.items())
+# the paths that --slices runs on both sides (chip_smoke.PATHS): those that launch H1 or K15
+SLICES = ("REBLUR_DIFFUSE", "REBLUR_SPECULAR", DS, BAND, DS + "+AREA_3X3", "RELAX_DIFFUSE",
+          "RELAX_SPECULAR", "RELAX_SPECULAR+ANTI_FIREFLY")
 
 
 def log(*a):
@@ -120,8 +132,15 @@ class Side:
                           for f in dataclasses.fields(value)})
         return value
 
-    def engine(self, denoiser, w, h, **settings):
-        eng = self.Engine({0: self.S.Denoiser[denoiser]}, resource_size=(w, h), device="cuda")
+    def engine(self, denoiser, w, h, roughness_encoding="LINEAR", **settings):
+        """An Engine of the denoiser at the roughness encoding, with `settings` changed from
+        the defaults (enum fields of this side's types, or by name)."""
+        eng = self.Engine({0: self.S.Denoiser[denoiser]}, resource_size=(w, h), device="cuda",
+                          roughness_encoding=self.S.RoughnessEncoding[roughness_encoding])
+        if "hitDistanceReconstructionMode" in settings:
+            mode = settings["hitDistanceReconstructionMode"]
+            settings["hitDistanceReconstructionMode"] = self.S.HitDistanceReconstructionMode[
+                getattr(mode, "name", mode)]
         if settings:
             eng.set_denoiser_settings(0, self.S.replace(eng._settings[0], **settings))
         return eng
@@ -263,34 +282,38 @@ def sass_report(lib_path, name, out_dir):
 
 
 def slice_run(side, path, w, h, frames, warmup=3, traced=3):
-    """One path of SLICES on one side: median ms/frame, the peak allocated MB above the
-    resident frames, device events and busy ms a frame of a traced window."""
+    """One path of SLICES on one side, its engine in the path's environment: median
+    ms/frame, the peak allocated MB above the resident frames, device events and busy ms a
+    frame of a traced window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     side.activate()
-    eng = side.engine(path, w, h)
-    pools = [(side.convert(cs), side.pool({k: torch.from_numpy(v).cuda()
-                                           for k, v in p[path].items()})) for cs, p, _ in frames]
-    torch.cuda.synchronize()
-    resident = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    ms = []
-    for i, (cs, pool) in enumerate(pools):
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        eng.set_common_settings(cs)
-        eng.denoise([0], pool)
-        e1.record()
+    v = CS.PATHS[path]
+    with CS.path_env(path):
+        eng = side.engine(v.get("denoiser", path), w, h, **v.get("settings", {}))
+        pools = [(side.convert(cs), side.pool({k: torch.from_numpy(x).cuda()
+                                               for k, x in p[path].items()}))
+                 for cs, p, _ in frames]
         torch.cuda.synchronize()
-        if i >= warmup:
-            ms.append(e0.elapsed_time(e1))
-    peak_mb = (torch.cuda.max_memory_allocated() - resident) / 1e6
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for cs, pool in pools[-traced:]:
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for i, (cs, pool) in enumerate(pools):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
             eng.set_common_settings(cs)
             eng.denoise([0], pool)
-        torch.cuda.synchronize()
+            e1.record()
+            torch.cuda.synchronize()
+            if i >= warmup:
+                ms.append(e0.elapsed_time(e1))
+        peak_mb = (torch.cuda.max_memory_allocated() - resident) / 1e6
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for cs, pool in pools[-traced:]:
+                eng.set_common_settings(cs)
+                eng.denoise([0], pool)
+            torch.cuda.synchronize()
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in events) / 1e3 / traced
     return dict(ms=float(np.median(ms)), peak_mb=peak_mb, events=len(events) / traced,

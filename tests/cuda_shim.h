@@ -44,12 +44,23 @@ struct alignas(16) float4 {
 
 inline float4 make_float4(float x, float y, float z, float w) { return float4{x, y, z, w}; }
 
+struct alignas(8) uint2 {
+  uint32_t x, y;
+};
+
+inline float __uint_as_float(uint32_t u) {
+  float f;
+  memcpy(&f, &u, sizeof f);
+  return f;
+}
+
 inline thread_local dim3 threadIdx, blockIdx;
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline const char* cudaGetErrorString(cudaError_t) { return "cuda shim"; }
 
 template <typename T>
 inline T __ldg(const T* p) {

@@ -2,7 +2,8 @@
 roughness-encoding mode: K22 `relax_atrous.cu`, K23 `reblur_band.cu`, N4
 `spatial_filter_fused.cu`, N5 `history_fix_fused.cu`, K13 `sigma_blur.cu`, K19
 `relax_history_fix.cu`, K16 `relax_smb_resolve.cu`, K17 `relax_vmb_resolve.cu`, K15
-`relax_prepass.cu` and K12 `hitdist_recon.cu`, as they are in the tree, compiled as C++ by g++
+`relax_prepass.cu`, K12 `hitdist_recon.cu` and H1 `smb_resolve.cu`, as they are in the tree,
+compiled as C++ by g++
 through `tests/cuda_shim.h` (every CUDA thread a std::thread,
 `__syncthreads` a barrier of the block) and bound through the same ctypes entry points as on
 the card, with `build.library`, `build.kernel_device` and `torch.cuda.current_stream` patched.
@@ -18,8 +19,13 @@ RELAX_SPECULAR (its tap-record prologue, then the taps; the first frame included
 historyFixFrameNum = 0, whose frame num of 1 switches the taps and the prologue off; K16 on
 RELAX_DIFFUSE and RELAX_SPECULAR and K17 on RELAX_SPECULAR, whose orbit frames give both
 bicubic and bilinear-fallback footprints, their footprint planes (smb_found, any, all) equal;
-and K15, K19, K22 and K12 on RELAX_SPECULAR with AREA_3X3 reconstruction on frames with
-hit-distance holes, IN_NORMAL_ROUGHNESS packed as SQ_LINEAR and as SQRT_LINEAR.
+K15, K19, K22 and K12 on RELAX_SPECULAR with AREA_3X3 reconstruction on frames with
+hit-distance holes, IN_NORMAL_ROUGHNESS packed as SQ_LINEAR and as SQRT_LINEAR; H1 on
+REBLUR_DIFFUSE (one signal) and REBLUR_DIFFUSE_SPECULAR (two), also with both min materials 0
+on frames with striped materials (at the default of 4 the material test never bites), both
+footprints on the frames, fbits and allow_catrom equal; and K15 on RELAX_DIFFUSE and
+RELAX_SPECULAR at LINEAR, with depthThreshold 0.03 (the snapped tap position at its
+plane-distance threshold) and with both min materials 0 on striped materials.
 
 Run alone: python -m pytest tests/test_torch_kernel_rehearsal.py -q
 
@@ -54,7 +60,7 @@ SHIM = Path(__file__).with_name("cuda_shim.h")
 SOURCES = ("relax_atrous.cu", "reblur_band.cu", "spatial_filter_fused.cu",
            "history_fix_fused.cu", "sigma_blur.cu", "relax_history_fix.cu",
            "relax_smb_resolve.cu", "relax_vmb_resolve.cu", "relax_prepass.cu",
-           "hitdist_recon.cu")
+           "hitdist_recon.cu", "smb_resolve.cu")
 SIZE = (48, 32)
 FRAMES = 4
 ATOL, RTOL, FLIP_FRACTION = 1e-4, 1e-4, 1e-4
@@ -82,6 +88,19 @@ DS = Denoiser.REBLUR_DIFFUSE_SPECULAR
 # the kernels that unpack the roughness, each held at the two encodings other than LINEAR
 ENCODED_KERNELS = ("relax_prepass", "relax_history_fix", "relax_atrous", "hitdist_recon")
 HOLE_FRACTION = 0.3  # of the geometry pixels whose hit distance the frames with holes zero
+NO_MIN_MATERIAL = dict(minMaterialForDiffuse=0.0, minMaterialForSpecular=0.0)
+# H1's calls: one signal, two, and two with the material test biting
+SMB_CASES = {"diffuse": (Denoiser.REBLUR_DIFFUSE, {}), "diffuse_specular": (DS, {}),
+             "min_material_0": (DS, NO_MIN_MATERIAL)}
+# K15's calls at LINEAR: each RELAX signal, the plane-distance threshold of 0.03 and the
+# material test biting
+PREPASS_CASES = {"diffuse": (Denoiser.RELAX_DIFFUSE, {}),
+                 "specular": (Denoiser.RELAX_SPECULAR, {}),
+                 "diffuse_depth_threshold": (Denoiser.RELAX_DIFFUSE, dict(depthThreshold=0.03)),
+                 "specular_depth_threshold": (Denoiser.RELAX_SPECULAR,
+                                              dict(depthThreshold=0.03)),
+                 "diffuse_min_material_0": (Denoiser.RELAX_DIFFUSE, NO_MIN_MATERIAL),
+                 "specular_min_material_0": (Denoiser.RELAX_SPECULAR, NO_MIN_MATERIAL)}
 
 LAUNCH = re.compile(r"([A-Za-z_]\w*(?:<[^<>;]*>)?)\s*<<<([^;]*?)>>>\s*\(([^;]*)\);")
 DYNAMIC_SHARED = re.compile(r"extern\s+__shared__\s+(\w+)\s+(\w+)\s*\[\s*\]\s*;")
@@ -103,9 +122,7 @@ def library(tmp_path_factory):
     d = tmp_path_factory.mktemp("rehearsal")
     for stub in ("cuda_runtime.h", "cuda_bf16.h"):
         (d / stub).write_text("#pragma once\n")
-    (d / "errors.cpp").write_text('extern "C" const char* nrd_error_string(int) '
-                                  '{ return "cuda shim"; }\n')
-    units = [d / "errors.cpp"]
+    units = []  # smb_resolve.cu defines the library's nrd_error_string
     for name in SOURCES:
         src = rewrite((build.CSRC / name).read_text())
         assert "<<<" not in src and "extern __shared__" not in src, name
@@ -147,16 +164,25 @@ def _ramp(rng, h, w):
     return np.clip(r, 0.0, 1.0).astype(np.float32)
 
 
-def _pools(kind, encoding=RoughnessEncoding.LINEAR, holes=False):
+def _striped(fd):
+    """Materials 0-3 in stripes fixed to the surfaces (one world unit of x each), so that
+    footprints and taps often land on another material; the scene itself has almost one."""
+    return np.where(fd.hit_mask > 0, np.floor(fd.world_pos[..., 0]) % 4.0, 0.0).astype(
+        np.float32)
+
+
+def _pools(kind, encoding=RoughnessEncoding.LINEAR, holes=False, materials=False):
     """The inputs of each frame for "reblur", "relax" or "sigma" (the penumbra from the
     scene's distance to the occluder, and a constant translucency), the roughness packed
     with `encoding`; with `holes` the RELAX hit distance zeroed on a seeded HOLE_FRACTION of
-    the geometry pixels."""
+    the geometry pixels; with `materials` the materials striped (`_striped`)."""
     gen = SceneGenerator(SceneSpec(size=SIZE, noise=0.4), camera_mode="orbit")
     rng = np.random.default_rng(11)
     relax = kind == "relax"
     for i in range(FRAMES):
         fd = gen.frame(i)
+        if materials:
+            fd.material_id = _striped(fd)
         fd.common_settings.timeDeltaBetweenFrames = 16.66
         pool = {RT.IN_VIEWZ: fd.view_z, RT.IN_MV: fd.mv,
                 RT.IN_NORMAL_ROUGHNESS: gen.packed_normal_roughness(fd, re_=encoding)}
@@ -191,10 +217,11 @@ def _pools(kind, encoding=RoughnessEncoding.LINEAR, holes=False):
 
 
 def _record(denoiser, name, env=None, encoding=RoughnessEncoding.LINEAR, holes=False,
-            **settings):
+            materials=False, **settings):
     """Every call of the wrapper `name` over the frames, through the port's Engine on the
     CPU (where the wrappers run their plain versions), at the roughness encoding
-    `encoding`, on frames with hit-distance holes if `holes`."""
+    `encoding`, on frames with hit-distance holes if `holes` and striped materials if
+    `materials`."""
     mod = KM.MODULES[name]
     wrapper, calls = getattr(mod, name), []
     eng = Engine({0: denoiser}, resource_size=SIZE, roughness_encoding=encoding, device="cpu")
@@ -208,7 +235,7 @@ def _record(denoiser, name, env=None, encoding=RoughnessEncoding.LINEAR, holes=F
         for key, value in (env or {}).items():
             mp.setenv(key, value)
         kind = denoiser.name.split("_")[0].lower()
-        for cs, pool in _pools(kind, encoding, holes):
+        for cs, pool in _pools(kind, encoding, holes, materials):
             eng.set_common_settings(cs)
             eng.denoise([0], pool)
     return calls
@@ -246,7 +273,8 @@ def _hold(lib, name, calls, exact=()):
                 continue
             if key in exact:
                 assert torch.equal(got[key], w), f"{name}: {key} differs"
-            d = (got[key] - w).abs()
+            w = w.float()  # a flag (allow_catrom) as 0 / 1
+            d = (got[key].float() - w).abs()
             over += int((d > ATOL + RTOL * w.abs()).sum())
             count += d.numel()
             worst = max(worst, float(d.max()))
@@ -431,3 +459,49 @@ def test_roughness_encoding_rehearsal(library, name, encoding):
     over, count, worst = _hold(library, name, calls)
     assert over <= FLIP_FRACTION * count, (f"{name} {encoding}: {over} of {count} values out "
                                            f"of tolerance, max |d| {worst:.3g}")
+
+
+def _materials(calls, nr_arg):
+    """The distinct packed materials of the calls' current normal/roughness planes."""
+    return torch.unique(torch.cat([a[nr_arg][..., 3].flatten() for a, _ in calls]))
+
+
+@pytest.mark.parametrize("case", list(SMB_CASES))
+def test_smb_resolve_rehearsal(library, case):
+    """H1 (the staged 17x17 window, the 12 occlusion taps, every signal's history through one
+    CatRom footprint of bf16 texels) against the plain version, fbits and allow_catrom equal;
+    the frames give both bicubic and bilinear-fallback footprints. With the min materials at 0
+    the materials are striped, so that the material test bites."""
+    denoiser, settings = SMB_CASES[case]
+    calls = _record(denoiser, "smb_resolve", materials=bool(settings), **settings)
+    assert len(calls) == FRAMES
+    assert all((k["second"] is not None) == (denoiser == DS) for _, k in calls)
+    assert all(k["min_material"] == (0.0 if settings else 4.0) for _, k in calls)
+    assert len(_materials(calls, 4)) == (4 if settings else 2)
+    catrom = torch.cat([KM.smb_resolve.smb_resolve_ref(*a, **k)["allow_catrom"].flatten()
+                        for a, k in calls])
+    assert bool(catrom.any()) and not bool(catrom.all())
+    over, count, worst = _hold(library, "smb_resolve", calls, exact=("fbits", "allow_catrom"))
+    assert over <= FLIP_FRACTION * count, (f"{case}: {over} of {count} values out of "
+                                           f"tolerance, max |d| {worst:.3g}")
+
+
+@pytest.mark.parametrize("case", list(PREPASS_CASES))
+def test_relax_prepass_rehearsal(library, case):
+    """K15 (the rolled tap loop, float4 signal and normal a tap, the snap by reciprocal) at
+    LINEAR against the plain version, in both modes, at a plane-distance threshold of 0.03 and
+    with the min materials at 0 on striped materials (the material test biting)."""
+    denoiser, settings = PREPASS_CASES[case]
+    striped = "min_material" in case
+    calls = _record(denoiser, "relax_prepass", materials=striped, **settings)
+    assert len(calls) == FRAMES
+    assert all((k["specular"] is not None) == (denoiser == Denoiser.RELAX_SPECULAR)
+               for _, k in calls)
+    assert all(k["roughness_encoding"] == RoughnessEncoding.LINEAR for _, k in calls)
+    assert all(k["depth_threshold"] == np.float32(settings.get("depthThreshold", 0.003))
+               for _, k in calls)
+    assert all(k["min_material"] == (0.0 if striped else 4.0) for _, k in calls)
+    assert len(_materials(calls, 2)) == (4 if striped else 2)
+    over, count, worst = _hold(library, "relax_prepass", calls)
+    assert over <= FLIP_FRACTION * count, (f"{case}: {over} of {count} values out of "
+                                           f"tolerance, max |d| {worst:.3g}")
