@@ -202,6 +202,7 @@ SB_TEXEL_OPS = 5                            # sigma_blur.cu: a staged texel (+ 1
                                             # on PostBlur), 20x20 of them a 16x16 tile
 ST_TAP_OPS, ST_CHANNEL_OPS = 5, 80          # sigma_ts.cu: a moment tap (+ 4 a channel),
                                             # and the CatRom sample + clamp of a channel
+ST_REPROJECT_OPS = 76                       # common.cuh:surface_motion, screen-space branch
 RP_TAP_OPS = 100                            # relax_prepass.cu: one Poisson tap
 RS_HISTORY_OPS = 100                        # relax_smb_resolve.cu: one history through the
                                             # CatRom footprint (12 texels x 4 channels)
@@ -434,7 +435,7 @@ def _ops(name, a, k):
     elif name == "history_fix":
         live = int((a[6][0] != 0.0).sum())
         ops += HF_MOMENT_OPS * px + (HF_RING_OPS * px if k.get("anti_firefly") else 0)
-        ops += HF_TAP_OPS * 20 * live
+        ops += HF_TAP_OPS * 20 * live + BAND_CLAMP_OPS * px
     elif name in ("history_fix_fused", "reblur_band"):
         af = k["anti_firefly"]
         per = [(a[9], af[0]), (a[10], af[1])]
@@ -453,9 +454,10 @@ def _ops(name, a, k):
         ops += ((SB_DENSE_TAP_OPS + 3 * c) * 24 + (SB_POISSON_TAP_OPS + 3 * c) * 8) * px
         unpack = c if a[1] is not None and not k["first_pass"] else 0
         ops += (SB_TEXEL_OPS + unpack) * px * 20 * 20 // (16 * 16)
-    elif name == "sigma_ts":
+    elif name == "sigma_ts":  # hard-shadow and dead pixels pass through
         c = a[0].shape[-1]
-        ops += ((ST_TAP_OPS + 4 * c) * 25 + ST_CHANNEL_OPS * c) * px
+        ops += ((ST_TAP_OPS + 4 * c) * 25 + ST_CHANNEL_OPS * c + ST_REPROJECT_OPS) * \
+            sigma_ts_live(a, k)
     elif name == "relax_prepass":
         spec = k.get("specular") is not None
         if k["blur_radius"] > 0.0:
@@ -481,6 +483,16 @@ def _ops(name, a, k):
     elif name == "bilinear_resolve":
         ops += BR_SET_OPS * a[1].shape[0] * px
     return ops
+
+
+def sigma_ts_live(a, k):
+    """The pixels of one sigma_ts call that run the moments, the reprojection and the history
+    sample: not hard shadow (tile value 0 or penumbra 0) and not dead (sky tile, beyond the
+    denoising range)."""
+    penumbra, view_z_in, tile = a[1], a[2], a[7]
+    live = ((tile[0] != 0.0) & (penumbra != 0.0) & (tile[1] <= 0.0)
+            & (view_z_in.abs() * k["view_z_scale"] <= k["denoising_range"]))
+    return int(live.sum())
 
 
 def history_fix_live(a, k):
@@ -683,14 +695,14 @@ def occupancy(name, dynamic_smem, sass):
 
 
 @contextlib.contextmanager
-def recording(kernels, passes=None, pass_names=()):
+def recording(kernels, passes=()):
     """While open, every call of the kernel wrappers of a kernels package (`kernels.MODULES`:
-    this tree's or another's) and of the pass functions `pass_names` of the module `passes`
-    goes into the list it yields as (name, args, kwargs); a pass is named "pass <name>" and
-    its geometry dict copied as it stood."""
+    this tree's or another's) and of the pass functions `passes` ((module, name) pairs) goes
+    into the list it yields as (name, args, kwargs); a pass is named "pass <name>" and its
+    dict arguments (the frame constants, the geometry) copied as they stood."""
     calls = []
     saved = [(m, name, getattr(m, name)) for name, m in kernels.MODULES.items()]
-    saved += [(passes, name, getattr(passes, name)) for name in pass_names]
+    saved += [(m, name, getattr(m, name)) for m, name in passes]
     try:
         for m, name, f in saved[:len(kernels.MODULES)]:
             def rec(*a, _n=name, _f=f, **k):
@@ -698,14 +710,20 @@ def recording(kernels, passes=None, pass_names=()):
                 return _f(*a, **k)
             setattr(m, name, rec)
         for m, name, f in saved[len(kernels.MODULES):]:
-            def rec_pass(sc, dc, geom, *a, _n=name, _f=f, **k):
-                calls.append((f"pass {_n}", (sc, dc, dict(geom)) + a, k))
-                return _f(sc, dc, geom, *a, **k)
+            def rec_pass(*a, _n=name, _f=f, **k):
+                calls.append((f"pass {_n}", copied(a), k))
+                return _f(*a, **k)
             setattr(m, name, rec_pass)
         yield calls
     finally:
         for m, name, f in saved:
             setattr(m, name, f)
+
+
+def copied(args):
+    """The arguments with each dict copied, so that a pass called again on them finds them as
+    they stood (the glue caches stacked planes in its geometry dict)."""
+    return tuple(dict(x) if isinstance(x, dict) else x for x in args)
 
 
 def record_calls(denoiser, pool, w, h, frames, **settings):
@@ -724,7 +742,7 @@ def record_calls(denoiser, pool, w, h, frames, **settings):
     with path_env(pool):
         for cs, pools, _ in frames[:-1]:
             run(cs, pools)
-        with recording(KM, RK, ("spatial_band",)) as calls:
+        with recording(KM, [(RK, "spatial_band")]) as calls:
             run(*frames[-1][:2])
     torch.cuda.synchronize()
     return calls
@@ -830,8 +848,7 @@ def band_chain(label, a, k):
     the same inputs: their times, and how far apart their outputs are."""
     from nrdtpu_torch.passes.reblur import kernels as RK
 
-    sc, dc, geom, *rest = a
-    runs = {fn.__name__: (lambda fn=fn: fn(sc, dc, dict(geom), *rest, **k))
+    runs = {fn.__name__: (lambda fn=fn: fn(*copied(a), **k))
             for fn in (RK.spatial_band, RK.spatial_chain)}
     (bd, bf), (bs, bsf) = runs["spatial_band"]()
     (cd, cf), (cs, csf) = runs["spatial_chain"]()

@@ -244,31 +244,59 @@ __device__ __forceinline__ void sample_catrom(const Image<T, C>& img, float spx,
   catrom_apply(img, catrom_taps(spx, spy, use_bicubic, bw), out);
 }
 
-// One (h, w, 4) texel as float4, through the read-only path: a float record in one 16-byte
-// load, or a bf16 record in one 8-byte load (uint2), each channel widened exactly to float
+// One texel through the read-only path, each channel widened exactly to float: a float (h, w,
+// 4) record as float4 in one 16-byte load, a bf16 (h, w, 4) record as float4 in one 8-byte load
+// (uint2), a bf16 (h, w) texel (its bits as unsigned short) as float.
 __device__ __forceinline__ float4 texel4(const float4* p, size_t i) { return __ldg(p + i); }
 __device__ __forceinline__ float4 texel4(const uint2* p, size_t i) {
   const uint2 b = __ldg(p + i);
   return make_float4(__uint_as_float(b.x << 16), __uint_as_float(b.x & 0xffff0000u),
                      __uint_as_float(b.y << 16), __uint_as_float(b.y & 0xffff0000u));
 }
+__device__ __forceinline__ float texel4(const unsigned short* p, size_t i) {
+  return __uint_as_float((uint32_t)__ldg(p + i) << 16);
+}
 
-// catrom_apply of N (h, w, 4) images through one footprint, operation for operation: float
-// images as float4 (K16, K17), bf16 ones as uint2, each texel widened to float before the
-// multiply-adds of sample_bilinear (H1; the wrappers check that such images are 8-byte
-// aligned). The 5 bilinear samples in order, each sample's position, origin and weights
-// computed once for all images. A texel is read, as one wide load (texel4), only where its
-// bilinear weight is non-zero, and a sample only where its CatRom weight is: a term of weight
-// 0 adds an exact 0 where the texel is finite (a non-finite texel times 0 would be NaN), and
-// the callers' histories are the previous frame's outputs, finite. In the bicubic footprint
-// whose positions land on their texels exactly, that reads each of the 12 texels it covers
-// once, in place of the 20 of 5 full bilinears.
-template <int N, typename T>
+// The per-channel steps of catrom_apply4 on a float4 texel or a float one: the bilinear sum
+// of a sample, the sample times its CatRom weight into the sum, the final division.
+__device__ __forceinline__ float4 bilinear_sum(const float4 v[4], const float bw[4]) {
+  return make_float4(v[0].x * bw[0] + v[1].x * bw[1] + v[2].x * bw[2] + v[3].x * bw[3],
+                     v[0].y * bw[0] + v[1].y * bw[1] + v[2].y * bw[2] + v[3].y * bw[3],
+                     v[0].z * bw[0] + v[1].z * bw[1] + v[2].z * bw[2] + v[3].z * bw[3],
+                     v[0].w * bw[0] + v[1].w * bw[1] + v[2].w * bw[2] + v[3].w * bw[3]);
+}
+__device__ __forceinline__ float bilinear_sum(const float v[4], const float bw[4]) {
+  return v[0] * bw[0] + v[1] * bw[1] + v[2] * bw[2] + v[3] * bw[3];
+}
+__device__ __forceinline__ float4 add_weighted(float4 acc, float4 b, float wt) {
+  return make_float4(acc.x + b.x * wt, acc.y + b.y * wt, acc.z + b.z * wt, acc.w + b.w * wt);
+}
+__device__ __forceinline__ float add_weighted(float acc, float b, float wt) {
+  return acc + b * wt;
+}
+__device__ __forceinline__ float4 divide(float4 a, float d) {
+  return make_float4(a.x / d, a.y / d, a.z / d, a.w / d);
+}
+__device__ __forceinline__ float divide(float a, float d) { return a / d; }
+
+// catrom_apply of N images through one footprint, operation for operation: float (h, w, 4)
+// images as float4 (K16, K17), bf16 (h, w, 4) ones as uint2 (H1, K14 with four channels), bf16
+// (h, w) ones as unsigned short (K14 with one), each texel widened to float before the
+// multiply-adds of sample_bilinear (the wrappers check that (h, w, 4) images are aligned to
+// their record). V, the texel's type, is float4 or float. The 5 bilinear samples in order,
+// each sample's position, origin and weights computed once for all images. A texel is read,
+// as one wide load (texel4), only where its bilinear weight is non-zero, and a sample only
+// where its CatRom weight is: a term of weight 0 adds an exact 0 where the texel is finite (a
+// non-finite texel times 0 would be NaN), and the callers' histories are the previous
+// frame's outputs, finite. In the bicubic footprint whose positions land on their texels
+// exactly, that reads each of the 12 texels it covers once, in place of the 20 of 5 full
+// bilinears.
+template <int N, typename T, typename V>
 __device__ __forceinline__ void catrom_apply4(const T* const img[N], int w, int h,
-                                              const CatromTaps& t, float4 out[N]) {
+                                              const CatromTaps& t, V out[N]) {
   const float inv_w = 1.0f / (float)w, inv_h = 1.0f / (float)h;
-  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  float4 acc[N];
+  const V zero{};
+  V acc[N];
 #pragma unroll
   for (int s = 0; s < N; ++s) acc[s] = zero;
 #pragma unroll
@@ -285,24 +313,16 @@ __device__ __forceinline__ void catrom_apply4(const T* const img[N], int w, int 
     const size_t idx[4] = {r0 + c0, r0 + c1, r1 + c0, r1 + c1};
 #pragma unroll
     for (int s = 0; s < N; ++s) {
-      float4 v[4];
+      V v[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q) v[q] = bw[q] != 0.0f ? texel4(img[s], idx[q]) : zero;
-      const float4 b = make_float4(
-          v[0].x * bw[0] + v[1].x * bw[1] + v[2].x * bw[2] + v[3].x * bw[3],
-          v[0].y * bw[0] + v[1].y * bw[1] + v[2].y * bw[2] + v[3].y * bw[3],
-          v[0].z * bw[0] + v[1].z * bw[1] + v[2].z * bw[2] + v[3].z * bw[3],
-          v[0].w * bw[0] + v[1].w * bw[1] + v[2].w * bw[2] + v[3].w * bw[3]);
-      acc[s] = make_float4(acc[s].x + b.x * t.wt[k], acc[s].y + b.y * t.wt[k],
-                           acc[s].z + b.z * t.wt[k], acc[s].w + b.w * t.wt[k]);
+      acc[s] = add_weighted(acc[s], bilinear_sum(v, bw), t.wt[k]);
     }
   }
   const bool small = t.wsum < 0.0001f;
   const float div = fabsf(t.wsum) < 0.0001f ? 1.0f : t.wsum;
 #pragma unroll
-  for (int s = 0; s < N; ++s)
-    out[s] = small ? zero
-                   : make_float4(acc[s].x / div, acc[s].y / div, acc[s].z / div, acc[s].w / div);
+  for (int s = 0; s < N; ++s) out[s] = small ? zero : divide(acc[s], div);
 }
 
 // sample_bilinear of a float (h, w, 4) image: four float4 reads through the read-only path,
@@ -324,6 +344,74 @@ __device__ __forceinline__ float4 sample_bilinear4(const Image<float, 4>& img, f
 }
 
 __device__ __forceinline__ float pixel_u(int x, int w) { return ((float)x + 0.5f) / (float)w; }
+
+// The host constants of the surface-motion reprojection: the frame's matrices (row-major,
+// float32), frustums and motion-vector scale.
+struct SurfaceMotionConsts {
+  float fr[4], fr_prev[4];  // frustum, frustum_prev: (x0, y0, dx, dy)
+  float wtv[9];             // world_to_view[:3, :3]
+  float wtv_prev[12];       // world_to_view_prev[:3, :4]
+  float wtc_prev[12];       // world_to_clip_prev rows 0, 1 and 3
+  float cd[3];              // camera_delta
+  float mvs[3];             // motion-vector scale x, y, z
+  float ortho;
+  bool mv_z_given;          // mv scale z != 0: the mv's z is the viewZ delta
+  bool world_mv;            // mv scale w != 0: the mv is a world-space motion
+};
+
+// The reprojected uv of a pixel and the previous view z of its previous position.
+struct SurfaceMotion {
+  float u, v, xv_prev_z;
+};
+
+// m[:3, :3] (row-major, row stride S) applied to p, or its transpose
+template <int S>
+__device__ __forceinline__ V3 rotate(const float* m, V3 p) {
+  return V3{p.x * m[0] + p.y * m[1] + p.z * m[2], p.x * m[S] + p.y * m[S + 1] + p.z * m[S + 2],
+            p.x * m[2 * S] + p.y * m[2 * S + 1] + p.z * m[2 * S + 2]};
+}
+template <int S>
+__device__ __forceinline__ V3 rotate_transposed(const float* m, V3 p) {
+  return V3{p.x * m[0] + p.y * m[S] + p.z * m[2 * S],
+            p.x * m[1] + p.y * m[S + 1] + p.z * m[2 * S + 1],
+            p.x * m[2] + p.y * m[S + 2] + p.z * m[2 * S + 2]};
+}
+
+// What the SIGMA pass glue computed before its TS kernel, term by term as nrdtpu_torch/math.py
+// and nrdtpu_torch/passes/reblur/kernels.py:surface_motion_position compute it (explicit sums,
+// left to right): the pixel's view position at (u, v) and viewZ view_z, its world position,
+// the previous position and uv by either motion-vector branch (screen space, mv z given or
+// computed; world space, projected by world_to_clip_prev), and the previous view z
+// (affine_transform(world_to_view_prev, x_prev).z). mv: the pixel's IN_MV, unscaled.
+__device__ __forceinline__ SurfaceMotion surface_motion(const SurfaceMotionConsts& k, float u,
+                                                        float v, float view_z,
+                                                        const float mv_in[3]) {
+  const V3 xv = reconstruct_view_position(u, v, k.fr, view_z, k.ortho);
+  const V3 x = rotate_transposed<3>(k.wtv, xv);
+  const V3 mv{mv_in[0] * k.mvs[0], mv_in[1] * k.mvs[1], mv_in[2] * k.mvs[2]};
+  SurfaceMotion r;
+  V3 x_prev;
+  if (k.world_mv) {
+    x_prev = V3{x.x + mv.x, x.y + mv.y, x.z + mv.z};
+    // Geometry::GetScreenUv (math.py:get_screen_uv)
+    const float* m = k.wtc_prev;
+    const float cx = x_prev.x * m[0] + x_prev.y * m[1] + x_prev.z * m[2] + m[3];
+    const float cy = x_prev.x * m[4] + x_prev.y * m[5] + x_prev.z * m[6] + m[7];
+    float cw = x_prev.x * m[8] + x_prev.y * m[9] + x_prev.z * m[10] + m[11];
+    cw = fabsf(cw) < 1e-15f ? 1e-15f : cw;
+    r.u = cx / cw * 0.5f + 0.5f;
+    r.v = 0.5f - cy / cw * 0.5f;
+  } else {
+    r.u = u + mv.x;
+    r.v = v + mv.y;
+    const float mv_z = k.mv_z_given ? mv.z : rotate<4>(k.wtv_prev, x).z + k.wtv_prev[11] - view_z;
+    const V3 xv_prev = reconstruct_view_position(r.u, r.v, k.fr_prev, view_z + mv_z, k.ortho);
+    const V3 xp = rotate_transposed<4>(k.wtv_prev, xv_prev);
+    x_prev = V3{xp.x + k.cd[0], xp.y + k.cd[1], xp.z + k.cd[2]};
+  }
+  r.xv_prev_z = rotate<4>(k.wtv_prev, x_prev).z + k.wtv_prev[11];
+  return r;
+}
 
 }  // namespace nrd
 

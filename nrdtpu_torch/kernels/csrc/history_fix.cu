@@ -1,70 +1,64 @@
-// H3: REBLUR history fix: stride-tap reconstruction + 3x3 fast-history moments, diffuse
-// or specular (roughness weight + low-roughness hitT guide), and on request the anti-firefly
-// ring (mean and second moment of the fast history over the 9x9 square minus the 3x3).
-// Replaces nrdtpu/kernels/reblur_hfix2.py:222 history_fix_taps_pallas2 (ring: :209-212);
-// computes nrdtpu/passes/reblur/kernels.py:546-552, :629-683, :693-700 and :705-719 per pixel
-// through reblur_filters.cuh. The plain version is
-// nrdtpu_torch/kernels/history_fix.py:history_fix_ref. One thread per pixel.
+// H3: REBLUR history fix of one signal, diffuse or specular, the fast-history clamp included:
+// the 20 stride taps (the specular mode adds the roughness weight and the low-roughness hitT
+// guide), the 3x3 moments of the fast history and, on request, the anti-firefly ring (the 9x9
+// square minus the 3x3), then the clamp. Replaces nrdtpu/kernels/reblur_hfix2.py:222
+// history_fix_taps_pallas2 (ring: :209-212) and v1 nrdtpu/kernels/reblur_pallas.py:1446;
+// computes nrdtpu/passes/reblur/kernels.py:546-552 and :629-732 per pixel. The plain version
+// is nrdtpu_torch/kernels/history_fix.py:history_fix_ref.
+//
+// Design for the H100: the one-signal instance of N5's body, two stream-ordered launches.
+//   0. one thread a pixel: each pixel's tap geometry (unpacked normal, scaled viewZ) into the
+//      wrapper's (h, w, 4) scratch plane, which the taps read (reblur_filters.cuh:
+//      UnpackedTaps) instead of unpacking a texel at every tap (2-5 % faster on frame 4 at
+//      2560x1440 than PackedTaps without the prologue, PERF.md);
+//   1. one CTA per 16x16 tile (reblur_filters.cuh:history_fix_cta<kSig>): the fast history
+//      staged over the tile and the ring's margin in shared memory, the taps, the clamp; it
+//      writes the clamped signal and the fast history, and no moment plane leaves the kernel.
+// kFixCtas: the CTAs an SM that ptxas is asked to fit (4: 56 / 64 registers and no spill; 5
+// spilled 32 / 76 B and ran 4 % slower on REBLUR_SPECULAR, PERF.md).
 #include "reblur_filters.cuh"
 
 namespace {
 
-using nrd::Image;
+constexpr int kFixCtas = 4;
 
-struct HfArgs {
-  const float* signal;  // (h, w, 4)
-  const float* view_z;  // (h, w) raw
-  const float* nr;      // (h, w, 4)
-  const float* data1;   // (h, w) accumulated frames
-  const float* fast;    // (h, w) fast history
-  const float* shared;  // (kHfShared, h, w), order of nrd::HfShared
-  const float* params;  // (kHfDiffParams | kHfSpecParams, h, w), order of nrd::HfParam
-  float* out;           // (h, w, 4)
-  float* moments;       // (2 | 4, h, w): m1, m2 of the 3x3 [, of the anti-firefly ring]
-  float min_material;
-  bool anti_firefly;
-  nrd::HfFrame f;
-};
-
-template <bool kSpec>
-__global__ void __launch_bounds__(256) history_fix_kernel(HfArgs a) {
-  const int x = blockIdx.x * nrd::kBlock + threadIdx.x;
-  const int y = blockIdx.y * nrd::kBlock + threadIdx.y;
-  if (x >= a.f.w || y >= a.f.h) return;
-  const size_t i = (size_t)y * a.f.w + x;
-  const size_t plane = (size_t)a.f.w * a.f.h;
-  const Image<float, 1> fast{a.fast, a.f.w, a.f.h};
-  nrd::fast_moments(fast, x, y, a.moments + i, a.moments + plane + i);
-  if (a.anti_firefly)
-    nrd::anti_firefly_moments(fast, x, y, a.moments + 2 * plane + i, a.moments + 3 * plane + i);
-
-  const Image<float, 4> nr{a.nr, a.f.w, a.f.h};
-  const nrd::Centre c = nrd::hf_centre(a.shared + i, plane, nr, x, y);
-  float out[4];
-  nrd::hf_filter<kSpec>(a.f, c, a.params + i, plane, a.min_material,
-                 Image<float, 4>{a.signal, a.f.w, a.f.h}, Image<float, 1>{a.data1, a.f.w, a.f.h},
-                 nrd::PackedTaps{nr, Image<float, 1>{a.view_z, a.f.w, a.f.h}, a.f.view_z_scale},
-                 out);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) a.out[4 * i + k] = out[k];
+// phase 0: the tap geometry, one thread a pixel; 1: the history fix and the clamp of signal
+// kSig
+template <int kPhase, int kSig>
+__global__ void __launch_bounds__(256, kPhase == 1 ? kFixCtas : 1)
+    history_fix_kernel(nrd::HistoryFixArgs a) {
+  if constexpr (kPhase == 0) {
+    const int x = blockIdx.x * nrd::kBlock + threadIdx.x;
+    const int y = blockIdx.y * nrd::kBlock + threadIdx.y;
+    if (x >= a.f.w || y >= a.f.h) return;
+    nrd::write_tap_geometry(const_cast<float4*>(a.geometry), a.nr, a.view_z, a.f.view_z_scale,
+                            (size_t)y * a.f.w + x);
+  } else {
+    nrd::history_fix_cta<kSig>(a);
+  }
 }
 
 }  // namespace
 
-// ptrs: signal, view_z, nr, data1, fast, shared, params, out, moments
+// ptrs: signal, view_z, nr, data1, fast, shared, params, smc (specular only), out, fast_out,
+//       geometry (scratch)
 // consts: frustum[4], rect_inv_w, rect_inv_h, view_z_scale, ortho_mode, min_material,
-//         specular mode (0 or 1), anti-firefly ring (0 or 1)
+//         specular mode (0 or 1), anti-firefly ring (0 or 1), the clamp's frame divisor and
+//         fast-history flag
 extern "C" int nrd_history_fix(void* const* p, const float* c, int w, int h, void* stream) {
-  HfArgs a;
-  a.signal = (const float*)p[0];
+  const int s = c[9] != 0.0f ? 1 : 0;  // the signal's slot: 0 diffuse, 1 specular
+  nrd::HistoryFixArgs a{};
+  a.signal[s] = (const float*)p[0];
   a.view_z = (const float*)p[1];
   a.nr = (const float*)p[2];
-  a.data1 = (const float*)p[3];
-  a.fast = (const float*)p[4];
+  a.data1[s] = (const float*)p[3];
+  a.fast[s] = (const float*)p[4];
   a.shared = (const float*)p[5];
-  a.params = (const float*)p[6];
-  a.out = (float*)p[7];
-  a.moments = (float*)p[8];
+  a.params[s] = (const float*)p[6];
+  a.smc = (const float*)p[7];
+  a.out[s] = (float*)p[8];
+  a.fast_out[s] = (float*)p[9];
+  a.geometry = (const float4*)p[10];
   a.f.w = w;
   a.f.h = h;
   for (int k = 0; k < 4; ++k) a.f.fr[k] = c[k];
@@ -72,13 +66,20 @@ extern "C" int nrd_history_fix(void* const* p, const float* c, int w, int h, voi
   a.f.rect_inv_h = c[5];
   a.f.view_z_scale = c[6];
   a.f.ortho = c[7];
-  a.min_material = c[8];
-  a.anti_firefly = c[10] != 0.0f;
-  dim3 block(nrd::kBlock, nrd::kBlock);
-  dim3 grid((w + nrd::kBlock - 1) / nrd::kBlock, (h + nrd::kBlock - 1) / nrd::kBlock);
-  if (c[9] != 0.0f)
-    history_fix_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  a.min_material[s] = c[8];
+  a.anti_firefly[s] = c[10] != 0.0f;
+  a.clamp.frame_div = c[11];
+  a.clamp.fast_enabled = c[12];
+  if (s == 1 && a.smc == nullptr) return (int)cudaErrorInvalidValue;
+  const dim3 block(nrd::kFixTile, nrd::kFixTile);
+  const dim3 tiles((w + nrd::kFixTile - 1) / nrd::kFixTile,
+                   (h + nrd::kFixTile - 1) / nrd::kFixTile);
+  history_fix_kernel<0, 0><<<tiles, block, 0, (cudaStream_t)stream>>>(a);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (s == 0)
+    history_fix_kernel<1, 0><<<tiles, block, 0, (cudaStream_t)stream>>>(a);
   else
-    history_fix_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(a);
+    history_fix_kernel<1, 1><<<tiles, block, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

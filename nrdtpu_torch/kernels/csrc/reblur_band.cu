@@ -43,7 +43,6 @@ struct BandArgs {
   // phase 1's inputs and outputs: the TA outputs, the history-fix planes, the planes (as
   // `shared`), the tap geometry (scratch), sig2 (scratch) and fast2
   nrd::HistoryFixArgs fix;
-  const float* view_z;     // (h, w) raw
   const float* planes;     // (kBandPlanes, h, w)
   float* sig3;             // (2, h, w, 4) scratch: Blur output
   float* out;              // (2, h, w, 4) PostBlur output
@@ -70,7 +69,7 @@ __device__ __forceinline__ void blur_pixel(const BandArgs& a, int stage, int x, 
   const int w = fx.f.w, h = fx.f.h;
   const size_t i = (size_t)y * w + x, plane = (size_t)w * h;
   const Image<float, 4> nr{fx.nr, w, h};
-  const float* src = (stage == 0 ? fx.out : a.sig3) + 4 * s * plane;
+  const float* src = stage == 0 ? fx.out[s] : a.sig3 + 4 * s * plane;
   float* dst = (stage == 0 ? a.sig3 : a.out) + 4 * s * plane;
   const nrd::StageConsts& k = a.stage[stage];
   // the centre's geometry: sf_filter reads what hf_centre loads but the frustum size
@@ -103,10 +102,10 @@ __global__ void __launch_bounds__(kThreads, kPhase == 1 ? kFixCtas : kBlurCtas)
   if constexpr (kPhase == 0) {  // one thread a pixel
     const int x = blockIdx.x * kTileX + threadIdx.x, y = blockIdx.y * kTileY + threadIdx.y;
     if (x >= w || y >= h) return;
-    nrd::write_tap_geometry(const_cast<float4*>(a.fix.geometry), a.fix.nr, a.view_z,
+    nrd::write_tap_geometry(const_cast<float4*>(a.fix.geometry), a.fix.nr, a.fix.view_z,
                             a.fix.f.view_z_scale, (size_t)y * w + x);
   } else if constexpr (kPhase == 1) {
-    nrd::history_fix_cta(a.fix);
+    nrd::history_fix_cta<nrd::kBothSignals>(a.fix);
   } else {
     const Cta t = cta();
     if (t.x >= w || t.y >= h) return;
@@ -139,15 +138,18 @@ extern "C" int nrd_reblur_band(void* const* p, const float* c, int w, int h, voi
     x.fast[s] = (const float*)p[4 + s];
     x.params[s] = (const float*)p[6 + s];
   }
-  a.view_z = (const float*)p[8];
+  x.view_z = (const float*)p[8];
   x.nr = (const float*)p[9];
   a.planes = (const float*)p[10];
   x.shared = a.planes;
   x.smc = a.planes + (size_t)BP_SMC * w * h;
-  x.out = (float*)p[11];  // sig2
-  a.sig3 = x.out + (size_t)2 * w * h * 4;
+  float* sig2 = (float*)p[11];
+  a.sig3 = sig2 + (size_t)2 * w * h * 4;
   x.geometry = reinterpret_cast<const float4*>(a.sig3 + (size_t)2 * w * h * 4);
-  x.fast_out = (float*)p[12];
+  for (int s = 0; s < 2; ++s) {
+    x.out[s] = sig2 + (size_t)s * w * h * 4;
+    x.fast_out[s] = (float*)p[12] + (size_t)s * w * h;
+  }
   a.out = (float*)p[13];
 
   x.f.w = a.sf.w = w;

@@ -1,13 +1,14 @@
 // Per-signal device functions of the REBLUR spatial filter and history fix. H2
-// (spatial_filter.cu) and H3 (history_fix.cu) call them for their one signal; N4
-// (spatial_filter_fused.cu), N5 (history_fix_fused.cu) and K23 (reblur_band.cu) run one CTA
-// per (tile, signal) and call them for the CTA's signal. The plain versions they are held
-// against are nrdtpu_torch/kernels/spatial_filter.py:spatial_filter_ref and
+// (spatial_filter.cu) calls them for its one signal; N4 (spatial_filter_fused.cu), N5
+// (history_fix_fused.cu) and K23 (reblur_band.cu) run one CTA per (tile, signal) and call them
+// for the CTA's signal, and H3 (history_fix.cu) runs the same CTA body for its one signal.
+// The plain versions they are held against are
+// nrdtpu_torch/kernels/spatial_filter.py:spatial_filter_ref and
 // nrdtpu_torch/kernels/history_fix.py:history_fix_ref; the op order below is theirs. A tap
 // reads the signal as one float4 through the read-only path, its index clamped once (every
 // image they tap is an input of the launch, never its output), and its geometry through a
-// Taps policy: PackedTaps (H2, H3, the PrePass of N4) or UnpackedTaps (N5, N4's Blur and
-// PostBlur, K23), whose plane the entry of N5 or K23 writes once a frame.
+// Taps policy: PackedTaps (H2, the PrePass of N4) or UnpackedTaps (H3, N5, N4's Blur and
+// PostBlur, K23), whose plane the entry of H3, N5 or K23 writes once a call.
 //
 // Fewer instructions a tap (chosen by A/B timing on the H100, PERF.md): the tap loops stay
 // rolled (unrolled, their code outgrew the instruction cache and ran slower); the Poisson table
@@ -535,13 +536,14 @@ __device__ __forceinline__ void spec_blur_params(const BlurConsts& k, const Stag
 }
 
 // ---------------------------------------------------------------------------------------
-// The history fix and its clamp for one (16x16 tile, signal) CTA: N5 (history_fix_fused.cu)
-// and phase 1 of K23 (reblur_band.cu) run this one body. The plain version is
-// nrdtpu_torch/kernels/history_fix_fused.py:history_fix_fused_ref.
+// The history fix and its clamp for one (16x16 tile, signal) CTA: H3 (history_fix.cu, one
+// signal), N5 (history_fix_fused.cu) and phase 1 of K23 (reblur_band.cu, two signals) run this
+// one body. The plain version is nrdtpu_torch/kernels/history_fix.py:history_fix_ref.
 // ---------------------------------------------------------------------------------------
 
 constexpr int kFixTile = 16;
 constexpr int kFixWin = kFixTile + 2 * kAntiFireflyRadius;  // the tile and the ring's margin
+constexpr int kBothSignals = -1;  // history_fix_cta: one CTA per (tile, signal), both signals
 
 struct HistoryFixArgs {
   const float* signal[2];  // (h, w, 4) TA outputs: diffuse, specular
@@ -551,9 +553,10 @@ struct HistoryFixArgs {
   const float* shared;     // the centre's planes in HfShared order, plane stride w * h
   const float* smc;        // (h, w) the specular magic curve of the roughness
   const float* nr;         // (h, w, 4)
+  const float* view_z;     // (h, w) raw: the prologue's input
   const float4* geometry;  // (h, w) the taps' unpacked normal and scaled viewZ
-  float* out;              // (2, h, w, 4) the clamped signals
-  float* fast_out;         // (2, h, w) the fast histories after the mix
+  float* out[2];           // (h, w, 4) the clamped signals
+  float* fast_out[2];      // (h, w) the fast histories after the mix
   float min_material[2];
   bool anti_firefly[2];
   HfFrame f;
@@ -570,7 +573,8 @@ struct FastWindow {
   }
 };
 
-// one pixel: the 3x3 (and ring) moments from the window, the stride taps, the clamp
+// one pixel: the 3x3 (and ring) moments from the window, the stride taps (their geometry from
+// the plane), the clamp
 template <bool kSpec>
 __device__ __forceinline__ void history_fix_pixel(const HistoryFixArgs& a, const FastWindow& win,
                                                   int x, int y) {
@@ -590,17 +594,21 @@ __device__ __forceinline__ void history_fix_pixel(const HistoryFixArgs& a, const
   float fast_out;
   hf_clamp(a.clamp, sig, __ldg(a.data1[s] + i), win.at(x, y, 0), m1, m2, a.anti_firefly[s], am1,
            am2, kSpec, smc, &fast_out);
-  reinterpret_cast<float4*>(a.out)[s * plane + i] = make_float4(sig[0], sig[1], sig[2], sig[3]);
-  a.fast_out[s * plane + i] = fast_out;
+  reinterpret_cast<float4*>(a.out[s])[i] = make_float4(sig[0], sig[1], sig[2], sig[3]);
+  a.fast_out[s][i] = fast_out;
 }
 
-// The CTA's signal is the low bit of blockIdx.x, so the two CTAs of a tile run side by side
-// and share the centre's planes in L2. Every thread stages the window, then the threads
-// outside the image leave.
+// kSig: the CTA's signal (0 diffuse, 1 specular), or kBothSignals: the low bit of blockIdx.x,
+// so that the two CTAs of a tile run side by side and share the centre's planes in L2. Every
+// thread stages the window, then the threads outside the image leave.
+template <int kSig>
 __device__ __forceinline__ void history_fix_cta(const HistoryFixArgs& a) {
+  static_assert(kSig == kBothSignals || kSig == 0 || kSig == 1, "a signal, or both");
+  constexpr bool kBoth = kSig == kBothSignals;
   __shared__ float window[kFixWin * kFixWin];
-  const int s = (int)(blockIdx.x & 1u);
-  const int x0 = (int)(blockIdx.x >> 1) * kFixTile, y0 = (int)blockIdx.y * kFixTile;
+  const int s = kBoth ? (int)(blockIdx.x & 1u) : kSig;
+  const int x0 = (int)(kBoth ? blockIdx.x >> 1 : blockIdx.x) * kFixTile;
+  const int y0 = (int)blockIdx.y * kFixTile;
   const FastWindow win{window, x0 - kAntiFireflyRadius, y0 - kAntiFireflyRadius};
   const Image<float, 1> src{a.fast[s], a.f.w, a.f.h};
   for (int k = threadIdx.y * kFixTile + threadIdx.x; k < kFixWin * kFixWin;

@@ -1,26 +1,28 @@
-"""REBLUR history fix, diffuse and specular - kernel `csrc/history_fix.cu`.
+"""REBLUR history fix, diffuse and specular, the fast-history clamp included - kernel
+`csrc/history_fix.cu`.
 
-Replaces `nrdtpu/kernels/reblur_hfix2.py:222` (`history_fix_taps_pallas2`). Computes the
-stride-tap reconstruction of `history_fix` (`nrdtpu/passes/reblur/kernels.py:546-552`,
-`:629-683`): 20 taps of the 5x5 grid without centre and corners at the per-pixel floored
-stride, weighted by plane distance, material, normal angle, accumulation speed and hit
-distance, replacing the signal where the stride is non-zero; plus the 3x3 mean and second
-moment of the fast history (`:693-700`) that the clamp after it needs. The specular mode
-(`is_diffuse=False`) adds the relaxed roughness weight of each tap and the low-roughness
-hit-distance guide (`:653-668`). With `anti_firefly=True` it also returns the mean and second
-moment of the fast history over the 9x9 square minus the 3x3 (72 taps, radius 4 in every
-mode, `:705-719`; the TPU kernel's ring is `reblur_hfix2.py:209-212`).
+Replaces `nrdtpu/kernels/reblur_hfix2.py:222` (`history_fix_taps_pallas2`). Computes
+`history_fix` (`nrdtpu/passes/reblur/kernels.py:546-552`, `:629-732`): 20 taps of the 5x5
+grid without centre and corners at the per-pixel floored stride, weighted by plane distance,
+material, normal angle, accumulation speed and hit distance, replacing the signal where the
+stride is non-zero; the 3x3 mean and second moment of the fast history (`:693-700`); then the
+clamp (`passes/reblur/params.py:history_fix_clamp`: the fast-history mix, the luminance
+clamp to the 3x3 moments). The specular mode (`params` with the specular planes) adds the
+relaxed roughness weight of each tap and the low-roughness hit-distance guide (`:653-668`).
+With `anti_firefly=True` the luminance is first clamped to the moments of the fast history
+over the 9x9 square minus the 3x3 (72 taps, radius 4 in every mode, `:705-719`; the TPU
+kernel's ring is `reblur_hfix2.py:209-212`). It returns the clamped signal and the fast
+history; the moments stay in the kernel.
 
-The per-pixel work is the device functions of `csrc/reblur_filters.cuh`, shared with the fused
-two-signal kernel (`history_fix_fused`).
+The kernel is the one-signal instance of the body that N5 and K23 run for two signals
+(`csrc/reblur_filters.cuh:history_fix_cta`).
 
-Bound on the H100: gathers. Per pixel at 2560x1440 it reads 14 param planes (56 B) and 20 taps
-of viewZ, packed normal, accumulation speed and signal (20 x 40 B = 800 B); pixels with
-stride 0 (converged history) skip the taps, so the cost falls as history builds up; the
-specular mode reads 4 more param planes (16 B); the ring reads 72 fast-history taps, all
-L1-resident neighbours (8 B/px more written). One thread per pixel in 16x16 blocks with plain
-global loads; the TPU kernel's hat-blended stride levels are not carried over (the stride is
-per pixel, as in XLA).
+Bound on the H100: bytes. Per pixel at 2560x1440 it reads 9 shared planes, 5 (diffuse) or 9
+(specular) of the signal's own planes, the specular magic curve, the signal, viewZ, the packed
+normal, the accumulation speed and the fast history (88-108 B), and writes the clamped signal
+and the fast history (20 B); the 20 taps (pixels with stride 0 skip them) and the fast-history
+window hit L1/L2. The TPU kernel's hat-blended stride levels are not carried over (the stride
+is per pixel, as in XLA).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 from .. import frontend as fe
 from .. import math as nm
 from ..ops import resample, stencil
+from ..passes.reblur import params as P
 from . import build
 
 launches = 0
@@ -59,10 +62,11 @@ def anti_firefly_offsets():
             if not (abs(dy) <= 1 and abs(dx) <= 1)]
 
 
-def history_fix_ref(signal, view_z_in, normal_roughness, data1, fast_history, shared, params, *,
-                    frustum, rect_size_inv, view_z_scale, ortho_mode, min_material,
+def history_fix_ref(signal, view_z_in, normal_roughness, data1, fast_history, shared, params,
+                    smc, *, frustum, rect_size_inv, view_z_scale, ortho_mode, min_material, dc,
                     anti_firefly=False):
-    """Plain PyTorch version of the kernel (the XLA stride-tap loop + 3x3 moments + ring)."""
+    """Plain PyTorch version of the kernel: the XLA stride-tap loop, the 3x3 moments and the
+    ring, then `params.history_fix_clamp`. Returns (signal_out, fast_out)."""
     h, w = view_z_in.shape
     spec = params.shape[0] == len(PARAMS) + len(SPEC_PARAMS)
     p = dict(zip(SHARED, shared))
@@ -112,9 +116,9 @@ def history_fix_ref(signal, view_z_in, normal_roughness, data1, fast_history, sh
     reconstructed = acc * (1.0 / torch.clamp_min(sum_, 1e-15))[..., None]
     out = torch.where((stride != 0.0)[..., None], reconstructed, signal)
     m1, m2 = _moments(fast_history, stencil.offsets_square(1))
-    if not anti_firefly:
-        return out, m1, m2
-    return (out, m1, m2, *_moments(fast_history, anti_firefly_offsets()))
+    ring = _moments(fast_history, anti_firefly_offsets()) if anti_firefly else None
+    return P.history_fix_clamp(dc, dict(smc=smc), data1, out, fast_history, m1, m2, ring,
+                               not spec)
 
 
 def check_params(shared, params):
@@ -124,33 +128,43 @@ def check_params(shared, params):
         raise ValueError(f"params: {params.shape[0]} planes")
 
 
-def history_fix(signal, view_z_in, normal_roughness, data1, fast_history, shared, params, *,
-                frustum, rect_size_inv, view_z_scale, ortho_mode, min_material,
+def history_fix(signal, view_z_in, normal_roughness, data1, fast_history, shared, params, smc,
+                *, frustum, rect_size_inv, view_z_scale, ortho_mode, min_material, dc,
                 anti_firefly=False):
     """signal (h, w, 4), data1 = accumulated frames (h, w), fast_history (h, w), shared float32
     planes named by SHARED (9, h, w), params named by PARAMS (5, h, w; diffuse) or PARAMS +
-    SPEC_PARAMS (9, h, w; specular). Returns (signal_out (h, w, 4), m1, m2), and with
-    `anti_firefly` also the ring's (m1, m2)."""
+    SPEC_PARAMS (9, h, w; specular); smc (h, w): the specular magic curve of the roughness,
+    None for diffuse; dc: the REBLUR frame constants (the clamp's). Returns (signal_out (h, w,
+    4), fast_out (h, w))."""
     global launches
     kw = dict(frustum=frustum, rect_size_inv=rect_size_inv, view_z_scale=view_z_scale,
-              ortho_mode=ortho_mode, min_material=min_material, anti_firefly=anti_firefly)
+              ortho_mode=ortho_mode, min_material=min_material, dc=dc,
+              anti_firefly=anti_firefly)
     check_params(shared, params)
+    spec = params.shape[0] != len(PARAMS)
+    if (smc is None) == spec:
+        raise ValueError("smc: the specular magic curve for the specular mode, None for diffuse")
     dev = build.kernel_device(signal)
     if dev is None:
         return history_fix_ref(signal, view_z_in, normal_roughness, data1, fast_history, shared,
-                               params, **kw)
+                               params, smc, **kw)
     h, w = view_z_in.shape
     f32 = torch.float32
     ins = [("signal", signal, (h, w, 4)), ("view_z_in", view_z_in, (h, w)),
            ("normal_roughness", normal_roughness, (h, w, 4)), ("data1", data1, (h, w)),
            ("fast_history", fast_history, (h, w)), ("shared", shared, (len(SHARED), h, w)),
            ("params", params, (params.shape[0], h, w))]
+    if spec:
+        ins.append(("smc", smc, (h, w)))
     for name, t, shape in ins:
         build.check(name, t, dev, f32, shape)
     out = torch.empty((h, w, 4), dtype=f32, device=dev)
-    moments = torch.empty((4 if anti_firefly else 2, h, w), dtype=f32, device=dev)
+    fast = torch.empty((h, w), dtype=f32, device=dev)
+    geometry = torch.empty((h, w, 4), dtype=f32, device=dev)  # the taps' geometry, scratch
     consts = [*frustum, rect_size_inv[0], rect_size_inv[1], view_z_scale, ortho_mode,
-              min_material, params.shape[0] > len(PARAMS), anti_firefly]
-    build.launch("nrd_history_fix", [t for _, t, _ in ins] + [out, moments], consts, w, h)
+              min_material, spec, anti_firefly, P.history_fix_frame_div(dc),
+              P.fast_history_enabled(dc)]
+    build.launch("nrd_history_fix", [t for _, t, _ in ins[:7]] + [smc, out, fast, geometry],
+                 consts, w, h)
     launches += 1
-    return (out, *moments)
+    return out, fast

@@ -51,20 +51,17 @@ def history_fix_fused_ref(diff, spec, view_z_in, normal_roughness, diff_data1, s
                           diff_fast, spec_fast, shared, diff_params, spec_params, smc, *,
                           frustum, rect_size_inv, view_z_scale, ortho_mode, diff_min_material,
                           spec_min_material, dc, anti_firefly=(False, False)):
-    """Plain version: per signal, H3's plain version, then `params.history_fix_clamp`."""
+    """Plain version: H3's plain version (the taps and the clamp) of each signal, and the tap
+    geometry."""
     kw = dict(frustum=frustum, rect_size_inv=rect_size_inv, view_z_scale=view_z_scale,
-              ortho_mode=ortho_mode)
+              ortho_mode=ortho_mode, dc=dc)
     out = {}
-    for name, sig, data1, fast, params, mm, af in (
-            ("diff", diff, diff_data1, diff_fast, diff_params, diff_min_material,
-             anti_firefly[0]),
-            ("spec", spec, spec_data1, spec_fast, spec_params, spec_min_material,
-             anti_firefly[1])):
-        res = hf.history_fix_ref(sig, view_z_in, normal_roughness, data1, fast, shared, params,
-                                 min_material=mm, anti_firefly=af, **kw)
-        out[name], out[f"{name}_fast"] = P.history_fix_clamp(
-            dc, dict(smc=smc), data1, res[0], fast, res[1], res[2], res[3:] if af else None,
-            name == "diff")
+    out["diff"], out["diff_fast"] = hf.history_fix_ref(
+        diff, view_z_in, normal_roughness, diff_data1, diff_fast, shared, diff_params, None,
+        min_material=diff_min_material, anti_firefly=anti_firefly[0], **kw)
+    out["spec"], out["spec_fast"] = hf.history_fix_ref(
+        spec, view_z_in, normal_roughness, spec_data1, spec_fast, shared, spec_params, smc,
+        min_material=spec_min_material, anti_firefly=anti_firefly[1], **kw)
     out["geometry"] = tap_geometry_ref(normal_roughness, view_z_in, view_z_scale)
     return out
 

@@ -1,10 +1,14 @@
 """SIGMA temporal stabilization - kernel `csrc/sigma_ts.cu`.
 
 Replaces `nrdtpu/kernels/sigma_pallas.py:449` (`sigma_ts_pallas`). Computes, per pixel, the
-XLA function `nrdtpu/passes/sigma/kernels.py:290-414` from the reprojected position on
-(which the pass glue computes as per-pixel planes, both MV branches, `:329-352`):
+XLA function `nrdtpu/passes/sigma/kernels.py:290-414`, the surface-motion reprojection
+included:
 
   - the 5x5 moments of the unpacked shadow with the lit/unlit weight;
+  - the reprojected position and the previous view z of the previous position (`:329-352`),
+    both motion-vector branches (screen space with the mv's z computed or given, world
+    space through `world_to_clip_prev`), as `passes/reblur/kernels.py:
+    surface_motion_position` computes them;
   - the 2x2 gathers of the previous viewZ and history length at the reprojected position,
     with the plane-distance occlusion against the disocclusion threshold;
   - the CatRom-or-bilinear-custom sample of the bf16 packed history (`:379-383`; the XLA
@@ -16,10 +20,10 @@ The TPU kernel's block-base + tent-residual reprojection is not carried over: th
 sampled at each pixel's own position, as XLA does.
 
 Bound on the H100: memory. Per pixel it reads the shadow (4 or 16 B), the penumbra and viewZ
-(8 B), the reprojected uv and view z (12 B), the previous viewZ and history length (8 B,
-L2-resident neighbours), the bf16 history (2 or 8 B) and the tile planes (8 B), and writes
-the shadow and two state planes (12-24 B): ~54-84 B/px, 0.06-0.09 ms at 2560x1440 at
-3.35 TB/s. One thread per pixel in 16x16 blocks with plain global loads.
+(8 B), IN_MV (12 B), the previous viewZ and history length (8 B, L2-resident neighbours),
+the bf16 history (2 or 8 B) and the tile planes (8 B), and writes the shadow and two state
+planes (12-24 B): ~54-84 B/px, 0.06-0.09 ms at 2560x1440 at 3.35 TB/s. The design for that
+card is in the source's header.
 """
 
 from __future__ import annotations
@@ -39,14 +43,26 @@ TAPS = [(dy, dx, nm.get_gaussian_weight(float((dx * dx + dy * dy) ** 0.5) / BORD
         for dy, dx in stencil.offsets_square(BORDER)]
 
 
-def sigma_ts_ref(shadow_packed, penumbra, view_z_in, smb_uv, xv_prev_z, prev_view_z,
-                 prev_history_len, history, tile, *, view_z_scale, min_rect_dim_mul_unproject,
-                 ortho_mode, rect_size_prev, stabilization_strength, denoising_range):
-    """Plain PyTorch version of the kernel (the XLA `temporal_stabilization` after the
-    reprojection, op for op). shadow_packed (h, w, c) float32, history (h, w, c) bf16,
-    smb_uv (h, w, 2) and xv_prev_z (h, w) the reprojected position and its previous view z,
-    tile (2, h, w). Returns (packed shadow (h, w, c), new prev_view_z, new history_len)."""
+def sigma_ts_ref(shadow_packed, penumbra, view_z_in, mv_in, prev_view_z, prev_history_len,
+                 history, tile, *, view_z_scale, min_rect_dim_mul_unproject, rect_size_prev,
+                 stabilization_strength, denoising_range, reprojection):
+    """Plain PyTorch version of the kernel (the XLA `temporal_stabilization`, op for op).
+    shadow_packed (h, w, c) float32, mv_in (h, w, 3) IN_MV, history (h, w, c) bf16, tile
+    (2, h, w); reprojection: the frame constants of `surface_motion_position` (REPROJECTION).
+    Returns (packed shadow (h, w, c), new prev_view_z, new history_len)."""
+    # the pass glue's own function; its module imports this package, so it is imported here
+    from ..passes.reblur.kernels import surface_motion_position
+
+    h, w = view_z_in.shape
+    ortho_mode = float(reprojection["ortho_mode"])
+    # the reprojected position (:329-352)
+    uv = resample.pixel_uv_grid(h, w, view_z_in.device)
     view_z = torch.abs(view_z_in) * view_z_scale
+    xv = nm.reconstruct_view_position(uv, reprojection["frustum"], view_z, ortho_mode)
+    x = nm.rotate_vector_transposed(reprojection["world_to_view"], xv)
+    x_prev, smb_uv = surface_motion_position(reprojection, uv, view_z, x, mv_in)
+    xv_prev_z = nm.affine_transform(reprojection["world_to_view_prev"], x_prev)[..., 2]
+
     shadow = S.unpack_shadow(shadow_packed)
     input_center = shadow
     tile_value, sky_tile = tile[0], tile[1]
@@ -75,8 +91,7 @@ def sigma_ts_ref(shadow_packed, penumbra, view_z_in, smb_uv, xv_prev_z, prev_vie
     origin, frac = nm.bilinear_filter(smb_uv, rp)
     prev_z4 = torch.stack(resample.gather_2x2(prev_view_z, origin), -1)
     prev_len4 = torch.stack(resample.gather_2x2(prev_history_len, origin), -1)
-    frustum_size = nm.get_frustum_size(float(min_rect_dim_mul_unproject), float(ortho_mode),
-                                       view_z)
+    frustum_size = nm.get_frustum_size(float(min_rect_dim_mul_unproject), ortho_mode, view_z)
     # GetDisocclusionThreshold(NRD_DISOCCLUSION_THRESHOLD, frustumSize, NoV = 1)
     disocclusion_threshold = frustum_size * S.NRD_DISOCCLUSION_THRESHOLD
     disocclusion_threshold = disocclusion_threshold * resample.is_in_screen_nearest(smb_uv)
@@ -117,34 +132,56 @@ def sigma_ts_ref(shadow_packed, penumbra, view_z_in, smb_uv, xv_prev_z, prev_vie
     return out, torch.where(dead, prev_view_z, view_z), new_history_length
 
 
-def sigma_ts(shadow_packed, penumbra, view_z_in, smb_uv, xv_prev_z, prev_view_z,
-             prev_history_len, history, tile, *, view_z_scale, min_rect_dim_mul_unproject,
-             ortho_mode, rect_size_prev, stabilization_strength, denoising_range):
+# the frame constants of the reprojection (`surface_motion_position`'s `sc` keys)
+REPROJECTION = ("frustum", "frustum_prev", "world_to_view", "world_to_view_prev",
+                "world_to_clip_prev", "camera_delta", "mv_scale", "ortho_mode")
+
+
+def reprojection_consts(reprojection):
+    """The kernel's reprojection constants (`csrc/sigma_ts.cu:nrd_sigma_ts`), float32 as the
+    plain version's torch ops see them: the frustums, world_to_view[:3, :3],
+    world_to_view_prev[:3, :4], world_to_clip_prev's rows 0, 1 and 3, the camera delta, the
+    mv scale (x, y, z; then whether z and w are non-zero) and the ortho mode."""
+    def f32(key):
+        return np.asarray(reprojection[key], np.float32)
+    mvs = f32("mv_scale").reshape(-1)
+    return [*f32("frustum").reshape(-1), *f32("frustum_prev").reshape(-1),
+            *f32("world_to_view")[:3, :3].reshape(-1),
+            *f32("world_to_view_prev")[:3, :4].reshape(-1),
+            *f32("world_to_clip_prev")[[0, 1, 3], :].reshape(-1),
+            *f32("camera_delta").reshape(-1), *mvs[:3], mvs[2] != 0.0, mvs[3] != 0.0,
+            float(reprojection["ortho_mode"])]
+
+
+def sigma_ts(shadow_packed, penumbra, view_z_in, mv_in, prev_view_z, prev_history_len, history,
+             tile, *, view_z_scale, min_rect_dim_mul_unproject, rect_size_prev,
+             stabilization_strength, denoising_range, reprojection):
     """See `sigma_ts_ref`; c = 1 or 4. Returns (packed shadow, prev_view_z, history_len)."""
     global launches
     kw = dict(view_z_scale=view_z_scale, min_rect_dim_mul_unproject=min_rect_dim_mul_unproject,
-              ortho_mode=ortho_mode, rect_size_prev=rect_size_prev,
-              stabilization_strength=stabilization_strength, denoising_range=denoising_range)
+              rect_size_prev=rect_size_prev, stabilization_strength=stabilization_strength,
+              denoising_range=denoising_range, reprojection=reprojection)
     dev = build.kernel_device(shadow_packed)
     if dev is None:
-        return sigma_ts_ref(shadow_packed, penumbra, view_z_in, smb_uv, xv_prev_z, prev_view_z,
+        return sigma_ts_ref(shadow_packed, penumbra, view_z_in, mv_in, prev_view_z,
                             prev_history_len, history, tile, **kw)
     h, w, c = shadow_packed.shape
     if c not in (1, 4):
         raise ValueError(f"shadow_packed: {c} channels, the kernel takes 1 or 4")
     f32 = torch.float32
     ins = [("shadow_packed", shadow_packed, f32, (h, w, c)), ("penumbra", penumbra, f32, (h, w)),
-           ("view_z_in", view_z_in, f32, (h, w)), ("smb_uv", smb_uv, f32, (h, w, 2)),
-           ("xv_prev_z", xv_prev_z, f32, (h, w)), ("prev_view_z", prev_view_z, f32, (h, w)),
+           ("view_z_in", view_z_in, f32, (h, w)), ("mv_in", mv_in, f32, (h, w, 3)),
+           ("prev_view_z", prev_view_z, f32, (h, w)),
            ("prev_history_len", prev_history_len, f32, (h, w)),
            ("history", history, torch.bfloat16, (h, w, c)), ("tile", tile, f32, (2, h, w))]
     for name, t, dt, shape in ins:
         build.check(name, t, dev, dt, shape)
     out = torch.empty((h, w, c), dtype=f32, device=dev)
     state = torch.empty((2, h, w), dtype=f32, device=dev)
-    consts = [c, view_z_scale, min_rect_dim_mul_unproject, ortho_mode,
+    consts = [c, view_z_scale, min_rect_dim_mul_unproject,
               *[float(v) for v in np.asarray(rect_size_prev, np.float32)],
-              stabilization_strength, denoising_range, *[g for _, _, g in TAPS]]
+              stabilization_strength, denoising_range, *[g for _, _, g in TAPS],
+              *reprojection_consts(reprojection)]
     build.launch("nrd_sigma_ts", [t for _, t, _, _ in ins] + [out, state], consts, w, h)
     launches += 1
     return out, state[0], state[1]

@@ -12,7 +12,7 @@ Each pass is elementwise torch glue around hand-written kernels of `nrdtpu_torch
   specular_spatial_filter         -> spatial_filter  (PrePass / Blur / PostBlur tap loop)
   fused_spatial_filter            -> spatial_filter_fused (the same, both signals at once)
   history_fix                     -> history_fix     (stride taps + 3x3 fast-history moments
-                                                      + the anti-firefly ring)
+                                                      + the anti-firefly ring + the clamp)
   fused_history_fix               -> history_fix_fused (the same, both signals at once)
   spatial_band                    -> reblur_band     (history fix, its clamp, Blur and PostBlur
                                                       of both signals, one launch)
@@ -47,8 +47,7 @@ from ...kernels import ts_prelude as k_ts_prelude
 from ...kernels import vmb_resolve as k_vmb_resolve
 from ...ops import resample, tiles
 from . import common as C
-from .params import (BLUR, POST_BLUR, PRE_BLUR, _v, diff_spatial_params, history_fix_clamp,
-                     spec_spatial_params)
+from .params import BLUR, POST_BLUR, PRE_BLUR, _v, diff_spatial_params, spec_spatial_params
 
 
 # ---------------------------------------------------------------------------
@@ -695,19 +694,17 @@ def _hfix_consts(sc):
 def history_fix(sc, dc, view_z_in, normal_roughness, data1, signal, fast_history, config, *,
                 is_diffuse: bool = True, anti_firefly: bool = False):
     """Sparse 5x5-no-corners history reconstruction + fast-history color clamping, with the
-    9x9 anti-firefly clamp when `anti_firefly`.
+    9x9 anti-firefly clamp when `anti_firefly`, in one `history_fix` launch.
 
     data1: accumulated frames of the signal (data1_diff or data1_spec); signal: (h, w, 4)
     output of TA; fast_history: (h, w). Returns (signal_out, fast_out)."""
     geom = make_filter_geometry(sc, dc, view_z_in, normal_roughness, config,
                                 ("diff",) if is_diffuse else ("spec",))
     min_material = dc["diff_min_material"] if is_diffuse else dc["spec_min_material"]
-    res = k_history_fix.history_fix(
+    return k_history_fix.history_fix(
         signal, view_z_in, normal_roughness, data1, fast_history, _hfix_shared(geom),
-        _hfix_params(dc, geom, signal, data1, is_diffuse), min_material=float(min_material),
-        anti_firefly=anti_firefly, **_hfix_consts(sc))
-    return history_fix_clamp(dc, geom, data1, res[0], fast_history, res[1], res[2],
-                             res[3:] if anti_firefly else None, is_diffuse)
+        _hfix_params(dc, geom, signal, data1, is_diffuse), None if is_diffuse else geom["smc"],
+        min_material=float(min_material), dc=dc, anti_firefly=anti_firefly, **_hfix_consts(sc))
 
 
 def fused_history_fix(sc, dc, geom, view_z_in, normal_roughness, diff, spec, *,

@@ -4,7 +4,7 @@
   classify_tiles, smooth_tiles  torch glue on the 1/16-resolution tile maps
   tile_planes                   the per-pixel tile value and sky mask, once a frame
   blur                          -> sigma_blur (the whole Blur / PostBlur body)
-  temporal_stabilization        -> sigma_ts   (everything after the reprojection)
+  temporal_stabilization        -> sigma_ts   (the reprojection included)
   split_screen                  torch glue
 
 The XLA path recomputes the tile value in Blur, PostBlur and TS from the same tile map; the
@@ -19,8 +19,8 @@ import torch
 from ... import math as nm
 from ...kernels import sigma_blur as k_sigma_blur
 from ...kernels import sigma_ts as k_sigma_ts
-from ...ops import resample, stencil, tiles
-from ..reblur.kernels import surface_motion_position, unpack_view_z
+from ...ops import stencil, tiles
+from ..reblur.kernels import unpack_view_z
 from . import get_kernel_radius_in_pixels, is_lit
 
 
@@ -94,25 +94,17 @@ def blur(sc, dc, penumbra_in, shadow_in, view_z_in, normal_roughness, tile, *, f
 
 def temporal_stabilization(sc, dc, view_z_in, mv_in, penumbra, shadow_packed, history_packed,
                            prev_view_z, prev_history_len, tile):
-    """Surface-motion reprojection + sigma-clamped history blend + antilag (`kernels.py:290`).
-    The reprojected position (both MV branches) is computed here as per-pixel planes; the
-    rest is one `sigma_ts` launch. Returns (out_shadow_packed, new_prev_view_z,
-    new_history_len)."""
-    h, w = view_z_in.shape
-    uv = resample.pixel_uv_grid(h, w, view_z_in.device)
-    view_z = unpack_view_z(sc, view_z_in)
-    xv = nm.reconstruct_view_position(uv, sc["frustum"], view_z, sc["ortho_mode"])
-    x = nm.rotate_vector_transposed(sc["world_to_view"], xv)
-    x_prev, smb_uv = surface_motion_position(sc, uv, view_z, x, mv_in)
-    xv_prev_z = nm.affine_transform(sc["world_to_view_prev"], x_prev)[..., 2]
+    """Surface-motion reprojection + sigma-clamped history blend + antilag (`kernels.py:290`),
+    one `sigma_ts` launch (both MV branches in the kernel). Returns (out_shadow_packed,
+    new_prev_view_z, new_history_len)."""
     return k_sigma_ts.sigma_ts(
-        shadow_packed, penumbra, view_z_in, smb_uv.contiguous(), xv_prev_z.contiguous(),
-        prev_view_z, prev_history_len, history_packed, tile,
-        view_z_scale=float(sc["view_z_scale"]),
+        shadow_packed, penumbra, view_z_in, mv_in.contiguous(), prev_view_z, prev_history_len,
+        history_packed, tile, view_z_scale=float(sc["view_z_scale"]),
         min_rect_dim_mul_unproject=float(sc["min_rect_dim_mul_unproject"]),
-        ortho_mode=float(sc["ortho_mode"]), rect_size_prev=sc["rect_size_prev"],
+        rect_size_prev=sc["rect_size_prev"],
         stabilization_strength=float(dc["stabilization_strength"]),
-        denoising_range=float(sc["denoising_range"]))
+        denoising_range=float(sc["denoising_range"]),
+        reprojection={k: sc[k] for k in k_sigma_ts.REPROJECTION})
 
 
 def split_screen(sc, penumbra, view_z_in, out_shadow, translucency=None, *, channels: int):

@@ -12,19 +12,22 @@ only). Every side records the calls of frame 4 of the orbit scene at 2560x1440 t
 Engine(device="cuda"), then each call is timed (CUDA events, `--reps` launches) side after
 side and back again (parent, change, variants..., variants reversed, change, parent), and
 held against its own plain version (the fraction of values outside 1e-4 + 1e-4 |plain|).
-Labels: N5 `history_fix_fused` and its pass (`fused_history_fix`, the parent's with the
-clamp glue), by default and with the anti-firefly ring; N4 `spatial_filter_fused` by stage,
-also in performance mode; K23 `reblur_band` (default, ring, performance mode); H2 and H3 of
-REBLUR_DIFFUSE (D) and REBLUR_SPECULAR (S); H1 `smb_resolve` on D, S (one signal) and DS
-(two); K13 `sigma_blur` in its four modes (SS / ST blur and post_blur: SIGMA_SHADOW and
-SIGMA_SHADOW_TRANSLUCENCY, Blur and PostBlur); K19 `relax_history_fix`, K16
+Labels: N5 `history_fix_fused` and its pass (`pass fused_history_fix`), by default and with
+the anti-firefly ring; N4 `spatial_filter_fused` by stage, also in performance mode; K23
+`reblur_band` (default, ring, performance mode); H2 and H3 of REBLUR_DIFFUSE (D) and
+REBLUR_SPECULAR (S), H3 also with the ring, and H3's pass (`pass history_fix`: its glue and
+launch, on a tree whose kernel leaves the clamp to the glue the clamp glue included); H1
+`smb_resolve` on D, S (one signal) and DS (two); K13 `sigma_blur` in its four modes (SS / ST
+blur and post_blur: SIGMA_SHADOW and SIGMA_SHADOW_TRANSLUCENCY, Blur and PostBlur); K14
+`sigma_ts` and its pass (`pass temporal_stabilization`: on a tree whose kernel takes the
+reprojected planes, the glue that makes them included) on SS and ST; K19 `relax_history_fix`, K16
 `relax_smb_resolve` and K15 `relax_prepass` by signal (RD, RS: RELAX_DIFFUSE, RELAX_SPECULAR;
 frame 4 runs K19's taps on every pixel); K17 `relax_vmb_resolve` (RS); K15 on RELAX_SPECULAR
 at the roughness encodings SQ_LINEAR and SQRT_LINEAR (`RS SQ_LINEAR`, `RS SQRT_LINEAR`:
-`chip_smoke.ENCODED`'s pools and settings).
+`chip_smoke.ENCODED`'s pools and settings). `--labels REGEX` times only the labels it finds.
 
 With `--slices` it also runs every path that launches the kernels under test (`SLICES`: D,
-S, DS, DS+BAND, DS+AREA_3X3, RD, RS, RS+AF, as `chip_smoke.PATHS` defines them) on parent and
+S, DS, DS+BAND, SS, ST, as `chip_smoke.PATHS` defines them) on parent and
 change in turns (parent, change, change, parent): the median ms/frame over `--frames` frames, the
 peak allocated memory above what the slice's resident frames take, and a torch.profiler trace
 of 3 frames (device events and device busy time a frame). The slices' frames stay on the card
@@ -34,7 +37,7 @@ change are compared on the same measure.
 Per side it prints each device kernel's registers and spill bytes (ptxas) and SASS
 instruction count (cuobjdump), the largest loop of each (its instructions between a
 backward branch and its target), and writes the SASS of the filter kernels (REBLUR's, H1's,
-K13's, K15's, K16's, K17's and K19's: `SASS_KERNELS`) and a JSON
+K13's, K14's, K15's, K16's, K17's and K19's: `SASS_KERNELS`) and a JSON
 of every number to `--out`. Recording the calls, holding a kernel to its plain version,
 timing, the build log's ptxas lines and the SASS listing are `chip_smoke.py`'s own
 (`recording`, `disagreement`, `time_ms`, `ptxas_usage`, `sass_listing`), so that both
@@ -65,27 +68,39 @@ import chip_smoke as CS  # noqa: E402
 
 VARIANT_SOURCES = ("history_fix_fused.cu", "spatial_filter_fused.cu", "reblur_band.cu",
                    "spatial_filter.cu", "history_fix.cu", "smb_resolve.cu", "sigma_blur.cu",
-                   "relax_history_fix.cu", "relax_smb_resolve.cu", "relax_vmb_resolve.cu",
-                   "relax_prepass.cu")
+                   "sigma_ts.cu", "relax_history_fix.cu", "relax_smb_resolve.cu",
+                   "relax_vmb_resolve.cu", "relax_prepass.cu")
 SASS_KERNELS = re.compile(
-    r"history_fix|spatial_filter|reblur_band|sigma_blur|smb_resolve|relax_vmb_resolve|"
+    r"history_fix|spatial_filter|reblur_band|sigma_blur|sigma_ts|smb_resolve|relax_vmb_resolve|"
     r"relax_prepass")
 DS = "REBLUR_DIFFUSE_SPECULAR"
 BAND = DS + "+BAND"  # chip_smoke.PATHS: the pool and environment (the band's switch)
-# (label prefix, denoiser, path of the pool and environment, settings, kernels recorded)
+# the pass functions whose calls are timed beside the kernels' (glue and launch): their
+# module, as a Side attribute
+PASSES = {"fused_history_fix": "TK", "history_fix": "TK", "temporal_stabilization": "SK"}
+# (label prefix, denoiser, path of the pool and environment, settings, kernels and passes
+# ("pass <name>") recorded)
 RUNS = (
-    ("DS", DS, DS, {}, ("history_fix_fused", "spatial_filter_fused", "smb_resolve")),
-    ("DS ring", DS, DS, dict(enableAntiFirefly=True), ("history_fix_fused",)),
+    ("DS", DS, DS, {}, ("history_fix_fused", "spatial_filter_fused", "smb_resolve",
+                        "pass fused_history_fix")),
+    ("DS ring", DS, DS, dict(enableAntiFirefly=True),
+     ("history_fix_fused", "pass fused_history_fix")),
     ("DS perf", DS, DS, dict(enablePerformanceMode=True), ("spatial_filter_fused",)),
     ("band", DS, BAND, {}, ("reblur_band",)),
     ("band ring", DS, BAND, dict(enableAntiFirefly=True), ("reblur_band",)),
     ("band perf", DS, BAND, dict(enablePerformanceMode=True), ("reblur_band",)),
     ("D", "REBLUR_DIFFUSE", "REBLUR_DIFFUSE", {},
-     ("spatial_filter", "history_fix", "smb_resolve")),
+     ("spatial_filter", "history_fix", "smb_resolve", "pass history_fix")),
     ("S", "REBLUR_SPECULAR", "REBLUR_SPECULAR", {},
-     ("spatial_filter", "history_fix", "smb_resolve")),
-    ("SS", "SIGMA_SHADOW", "SIGMA_SHADOW", {}, ("sigma_blur",)),
-    ("ST", "SIGMA_SHADOW_TRANSLUCENCY", "SIGMA_SHADOW_TRANSLUCENCY", {}, ("sigma_blur",)),
+     ("spatial_filter", "history_fix", "smb_resolve", "pass history_fix")),
+    ("D ring", "REBLUR_DIFFUSE", "REBLUR_DIFFUSE", dict(enableAntiFirefly=True),
+     ("history_fix", "pass history_fix")),
+    ("S ring", "REBLUR_SPECULAR", "REBLUR_SPECULAR", dict(enableAntiFirefly=True),
+     ("history_fix", "pass history_fix")),
+    ("SS", "SIGMA_SHADOW", "SIGMA_SHADOW", {},
+     ("sigma_blur", "sigma_ts", "pass temporal_stabilization")),
+    ("ST", "SIGMA_SHADOW_TRANSLUCENCY", "SIGMA_SHADOW_TRANSLUCENCY", {},
+     ("sigma_blur", "sigma_ts", "pass temporal_stabilization")),
     ("RD", "RELAX_DIFFUSE", "RELAX_DIFFUSE", {},
      ("relax_history_fix", "relax_smb_resolve", "relax_prepass")),
     ("RS", "RELAX_SPECULAR", "RELAX_SPECULAR", {},
@@ -93,9 +108,10 @@ RUNS = (
 ) + tuple((f"RS {v['encoding']}", v["denoiser"], pool,
            dict(v["settings"], roughness_encoding=v["encoding"]), ("relax_prepass",))
           for pool, v in CS.ENCODED.items())
-# the paths that --slices runs on both sides (chip_smoke.PATHS): those that launch H1 or K15
-SLICES = ("REBLUR_DIFFUSE", "REBLUR_SPECULAR", DS, BAND, DS + "+AREA_3X3", "RELAX_DIFFUSE",
-          "RELAX_SPECULAR", "RELAX_SPECULAR+ANTI_FIREFLY")
+# the paths that --slices runs on both sides (chip_smoke.PATHS): those that launch H3, K14 or
+# the history-fix body that H3 shares with N5 and K23
+SLICES = ("REBLUR_DIFFUSE", "REBLUR_SPECULAR", DS, BAND, "SIGMA_SHADOW",
+          "SIGMA_SHADOW_TRANSLUCENCY")
 
 
 def log(*a):
@@ -110,6 +126,7 @@ class Side:
         self.KM = importlib.import_module(pkg + ".kernels")
         self.build = importlib.import_module(pkg + ".kernels.build")
         self.TK = importlib.import_module(pkg + ".passes.reblur.kernels")
+        self.SK = importlib.import_module(pkg + ".passes.sigma.kernels")
         self.S = importlib.import_module(pkg + ".settings")
         self.Engine = importlib.import_module(pkg + ".engine").Engine
 
@@ -184,7 +201,7 @@ def finish_variant(so, objs, procs):
 
 
 def record(side, denoiser, pool, settings, names, frames, w, h):
-    """The calls of `names` (and of the pass fused_history_fix) in the last frame, in the
+    """The calls of `names` (kernels, and passes as "pass <name>") in the last frame, in the
     environment of chip_smoke's path `pool`."""
     side.activate()
     eng = side.engine(denoiser, w, h, **{k: side.convert(v) for k, v in settings.items()})
@@ -197,21 +214,20 @@ def record(side, denoiser, pool, settings, names, frames, w, h):
     with CS.path_env(pool):
         for cs, pools, _ in frames[:-1]:
             run(cs, pools)
-        with CS.recording(side.KM, side.TK, ("fused_history_fix",)) as calls:
+        passes = [(getattr(side, mod), name) for name, mod in PASSES.items()]
+        with CS.recording(side.KM, passes) as calls:
             run(*frames[-1][:2])
     torch.cuda.synchronize()
-    return [c for c in calls if c[0] in names or c[0] == "pass fused_history_fix"]
+    return [c for c in calls if c[0] in names]
 
 
 def labelled(prefix, calls):
     """{label: (kernel name, args, kwargs)}: the spatial filters' calls by stage, SIGMA's
-    blur by pass (Blur, PostBlur), the rest by name."""
+    blur by pass (Blur, PostBlur), the rest (and the passes, "pass <name>") by name."""
     out, stages = {}, {"spatial_filter_fused": iter(CS.SF_STAGES),
                        "spatial_filter": iter(CS.SF_STAGES)}
     for name, a, k in calls:
-        if name == "pass fused_history_fix":
-            out[f"{prefix} pass"] = (name, a, k)
-        elif name in stages:
+        if name in stages:
             out[f"{prefix} {name} {next(stages[name])}"] = (name, a, k)
         elif name == "sigma_blur":
             out[f"{prefix} {name} {'blur' if k['first_pass'] else 'post_blur'}"] = (name, a, k)
@@ -222,10 +238,9 @@ def labelled(prefix, calls):
 
 def runner(side, name, a, k):
     """(run, plain) of one recorded call on its side."""
-    if name == "pass fused_history_fix":
-        sc, dc, geom, *rest = a
-        fn = lambda: side.TK.fused_history_fix(sc, dc, dict(geom), *rest, **k)  # noqa: E731
-        return fn, None
+    if name.startswith("pass "):
+        fn = getattr(getattr(side, PASSES[name[5:]]), name[5:])
+        return (lambda: fn(*CS.copied(a), **k)), None
     m = side.KM.MODULES[name]
     return (lambda: getattr(m, name)(*a, **k)), (lambda: getattr(m, name + "_ref")(*a, **k))
 
@@ -331,6 +346,7 @@ def main():
     ap.add_argument("--slices", action="store_true")
     ap.add_argument("--frames", type=int, default=24, help="timed frames of each slice run")
     ap.add_argument("--out", default="_ab/out", help="directory of the JSON and the SASS")
+    ap.add_argument("--labels", help="time only the labels that this regular expression finds")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("ab_kernels: CUDA is not available", file=sys.stderr)
@@ -400,8 +416,9 @@ def main():
             calls[s.name].update(labelled(prefix, record(s, denoiser, pool, settings, names,
                                                          frames, w, h)))
 
-    labels = [lab for lab in calls["change"] if not lab.endswith(" pass")
-              or lab in calls["parent"]]
+    labels = [lab for lab in calls["change"] if " pass " not in lab or lab in calls["parent"]]
+    if args.labels:
+        labels = [lab for lab in labels if re.search(args.labels, lab)]
     order = sides + sides[::-1]
     for lab in labels:
         res = {}

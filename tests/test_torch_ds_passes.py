@@ -36,7 +36,6 @@ from nrdtpu_torch.kernels import smb_resolve as k_smb
 from nrdtpu_torch.kernels import spatial_filter as k_sf
 from nrdtpu_torch.kernels import spatial_filter_fused as k_sff
 from nrdtpu_torch.passes.reblur import kernels as TK
-from nrdtpu_torch.passes.reblur import params as TP
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from oracle import reblur as O  # noqa: E402
@@ -313,7 +312,7 @@ def _recorded(ctx, names):
 def test_plain_versions_are_per_signal(ctx):
     """The plain version of each two-signal kernel equals its one-signal plain version run
     per signal, exactly: two-signal H1, N4 (PrePass and Blur), N5 (ring on one signal; H3's
-    plain version, then params.history_fix_clamp)."""
+    plain version, the clamp included)."""
     calls = _recorded(ctx, ("smb_resolve", "spatial_filter_fused", "history_fix_fused"))
     assert sorted(n for n, _, _ in calls) == ["history_fix_fused", "smb_resolve",
                                               "spatial_filter_fused", "spatial_filter_fused"]
@@ -344,15 +343,13 @@ def test_plain_versions_are_per_signal(ctx):
             both = k_hff.history_fix_fused_ref(*a, **k)
             diff, spec, vz, nr, d1d, d1s, fd, fs, shared, dp, sp, smc = a
             kw = {x: k[x] for x in ("frustum", "rect_size_inv", "view_z_scale", "ortho_mode")}
-            for sig, args, mm, af in (("diff", (diff, vz, nr, d1d, fd, shared, dp),
+            for sig, args, mm, af in (("diff", (diff, vz, nr, d1d, fd, shared, dp, None),
                                        k["diff_min_material"], k["anti_firefly"][0]),
-                                      ("spec", (spec, vz, nr, d1s, fs, shared, sp),
+                                      ("spec", (spec, vz, nr, d1s, fs, shared, sp, smc),
                                        k["spec_min_material"], k["anti_firefly"][1])):
-                ref = k_hf.history_fix_ref(*args, min_material=mm, anti_firefly=af, **kw)
-                assert len(ref) == (5 if af else 3)
-                want = TP.history_fix_clamp(k["dc"], dict(smc=smc), args[3], ref[0], args[4],
-                                            ref[1], ref[2], ref[3:] if af else None,
-                                            sig == "diff")
+                want = k_hf.history_fix_ref(*args, min_material=mm, anti_firefly=af, dc=k["dc"],
+                                            **kw)
+                assert len(want) == 2
                 assert torch.equal(both[sig], want[0]), sig
                 assert torch.equal(both[f"{sig}_fast"], want[1]), f"{sig}_fast"
             assert torch.equal(both["geometry"], k_hff.tap_geometry_ref(nr, vz, k["view_z_scale"]))

@@ -60,7 +60,7 @@ SHIM = Path(__file__).with_name("cuda_shim.h")
 SOURCES = ("relax_atrous.cu", "reblur_band.cu", "spatial_filter_fused.cu",
            "history_fix_fused.cu", "sigma_blur.cu", "relax_history_fix.cu",
            "relax_smb_resolve.cu", "relax_vmb_resolve.cu", "relax_prepass.cu",
-           "hitdist_recon.cu", "smb_resolve.cu")
+           "hitdist_recon.cu", "smb_resolve.cu", "sigma_ts.cu", "history_fix.cu")
 SIZE = (48, 32)
 FRAMES = 4
 ATOL, RTOL, FLIP_FRACTION = 1e-4, 1e-4, 1e-4
@@ -101,6 +101,32 @@ PREPASS_CASES = {"diffuse": (Denoiser.RELAX_DIFFUSE, {}),
                                               dict(depthThreshold=0.03)),
                  "diffuse_min_material_0": (Denoiser.RELAX_DIFFUSE, NO_MIN_MATERIAL),
                  "specular_min_material_0": (Denoiser.RELAX_SPECULAR, NO_MIN_MATERIAL)}
+# K14's calls: each SIGMA variant under each motion-vector branch. The orbit scene sends 2.5D
+# motion vectors (motionVectorScale (1, 1, 1): screen space, the mv's z the viewZ delta);
+# "mv_z_scaled" scales that z by MV_Z_SCALE, so that the given z moves the previous view z
+# across the disocclusion threshold (the scene's own deltas stay below it, where a kernel that
+# ignored the given z would pass); "mv_z_computed" scales the z by 0, so that the kernel
+# computes it from world_to_view_prev; "world_mv" sets isMotionVectorInWorldSpace with IN_MV
+# zeroed, the true world motion of the scene's static geometry, projected by
+# world_to_clip_prev
+MOTIONS = ("mv_z_given", "mv_z_scaled", "mv_z_computed", "world_mv")
+MV_Z_SCALE = 50.0
+# and "umbra": the orbit frames' PostBlur penumbra is nowhere 0 at this size, so these calls
+# zero it on a seeded UMBRA_FRACTION of the pixels, where the hard-shadow pass-through and the
+# moments' lit/unlit weight bite
+UMBRA_FRACTION = 0.2
+SIGMA_TS_CASES = {f"{v}_{m}": (d, m) for v, d in (("shadow", Denoiser.SIGMA_SHADOW),
+                                                    ("translucency",
+                                                     Denoiser.SIGMA_SHADOW_TRANSLUCENCY))
+                  for m in MOTIONS + ("umbra",)}
+# H3's calls: each REBLUR signal alone, with the anti-firefly ring, and with the material test
+# biting (both min materials 0 on striped materials)
+HISTORY_FIX_H3_CASES = {f"{sig}{suffix}": (d, settings)
+                        for sig, d in (("diffuse", Denoiser.REBLUR_DIFFUSE),
+                                       ("specular", Denoiser.REBLUR_SPECULAR))
+                        for suffix, settings in (("", {}),
+                                                 ("_anti_firefly", dict(enableAntiFirefly=True)),
+                                                 ("_min_material_0", NO_MIN_MATERIAL))}
 
 LAUNCH = re.compile(r"([A-Za-z_]\w*(?:<[^<>;]*>)?)\s*<<<([^;]*?)>>>\s*\(([^;]*)\);")
 DYNAMIC_SHARED = re.compile(r"extern\s+__shared__\s+(\w+)\s+(\w+)\s*\[\s*\]\s*;")
@@ -171,11 +197,13 @@ def _striped(fd):
         np.float32)
 
 
-def _pools(kind, encoding=RoughnessEncoding.LINEAR, holes=False, materials=False):
+def _pools(kind, encoding=RoughnessEncoding.LINEAR, holes=False, materials=False,
+           motion="mv_z_given"):
     """The inputs of each frame for "reblur", "relax" or "sigma" (the penumbra from the
     scene's distance to the occluder, and a constant translucency), the roughness packed
     with `encoding`; with `holes` the RELAX hit distance zeroed on a seeded HOLE_FRACTION of
-    the geometry pixels; with `materials` the materials striped (`_striped`)."""
+    the geometry pixels; with `materials` the materials striped (`_striped`); the motion
+    vectors as `motion` of MOTIONS says."""
     gen = SceneGenerator(SceneSpec(size=SIZE, noise=0.4), camera_mode="orbit")
     rng = np.random.default_rng(11)
     relax = kind == "relax"
@@ -184,6 +212,13 @@ def _pools(kind, encoding=RoughnessEncoding.LINEAR, holes=False, materials=False
         if materials:
             fd.material_id = _striped(fd)
         fd.common_settings.timeDeltaBetweenFrames = 16.66
+        if motion == "mv_z_scaled":
+            fd.common_settings.motionVectorScale = (1.0, 1.0, MV_Z_SCALE)
+        elif motion == "mv_z_computed":
+            fd.common_settings.motionVectorScale = (1.0, 1.0, 0.0)
+        elif motion == "world_mv":
+            fd.common_settings.isMotionVectorInWorldSpace = True
+            fd.mv = np.zeros_like(fd.mv)
         pool = {RT.IN_VIEWZ: fd.view_z, RT.IN_MV: fd.mv,
                 RT.IN_NORMAL_ROUGHNESS: gen.packed_normal_roughness(fd, re_=encoding)}
         punched = ((np.random.default_rng((17, i)).random(fd.view_z.shape) < HOLE_FRACTION)
@@ -217,11 +252,11 @@ def _pools(kind, encoding=RoughnessEncoding.LINEAR, holes=False, materials=False
 
 
 def _record(denoiser, name, env=None, encoding=RoughnessEncoding.LINEAR, holes=False,
-            materials=False, **settings):
+            materials=False, motion="mv_z_given", **settings):
     """Every call of the wrapper `name` over the frames, through the port's Engine on the
     CPU (where the wrappers run their plain versions), at the roughness encoding
-    `encoding`, on frames with hit-distance holes if `holes` and striped materials if
-    `materials`."""
+    `encoding`, on frames with hit-distance holes if `holes`, striped materials if
+    `materials` and the motion vectors of `motion`."""
     mod = KM.MODULES[name]
     wrapper, calls = getattr(mod, name), []
     eng = Engine({0: denoiser}, resource_size=SIZE, roughness_encoding=encoding, device="cpu")
@@ -235,7 +270,7 @@ def _record(denoiser, name, env=None, encoding=RoughnessEncoding.LINEAR, holes=F
         for key, value in (env or {}).items():
             mp.setenv(key, value)
         kind = denoiser.name.split("_")[0].lower()
-        for cs, pool in _pools(kind, encoding, holes, materials):
+        for cs, pool in _pools(kind, encoding, holes, materials, motion):
             eng.set_common_settings(cs)
             eng.denoise([0], pool)
     return calls
@@ -503,5 +538,60 @@ def test_relax_prepass_rehearsal(library, case):
     assert all(k["min_material"] == (0.0 if striped else 4.0) for _, k in calls)
     assert len(_materials(calls, 2)) == (4 if striped else 2)
     over, count, worst = _hold(library, "relax_prepass", calls)
+    assert over <= FLIP_FRACTION * count, (f"{case}: {over} of {count} values out of "
+                                           f"tolerance, max |d| {worst:.3g}")
+
+
+@pytest.mark.parametrize("case", list(SIGMA_TS_CASES))
+def test_sigma_ts_rehearsal(library, case):
+    """K14 (the reprojection in the kernel, the staged 20x20 window of the 5x5 moments, the
+    history through the CatRom gather, the hard-shadow and dead-pixel early outs) against the
+    plain version, in each channel count under each motion-vector branch: the mv's z given
+    (also scaled), computed from world_to_view_prev, and the world-space mv projected by
+    world_to_clip_prev; and with penumbra-0 pixels. Every frame has pixels that run the
+    reprojection and pixels that pass through."""
+    denoiser, motion = SIGMA_TS_CASES[case]
+    calls = _record(denoiser, "sigma_ts", motion="mv_z_given" if motion == "umbra" else motion)
+    assert len(calls) == FRAMES
+    if motion == "umbra":
+        rng = np.random.default_rng(23)
+        for a, _ in calls:
+            umbra = torch.from_numpy(rng.random(tuple(a[1].shape)) < UMBRA_FRACTION)
+            assert not bool((a[1] == 0.0).any())
+            a[1][umbra] = 0.0
+    mvs = [np.asarray(k["reprojection"]["mv_scale"]) for _, k in calls]
+    assert all((m[2] == 0.0) == (motion == "mv_z_computed") for m in mvs)
+    assert all((m[2] == MV_Z_SCALE) == (motion == "mv_z_scaled") for m in mvs)
+    assert all((m[3] != 0.0) == (motion == "world_mv") for m in mvs)
+    assert all(bool((a[3] == 0.0).all()) == (motion == "world_mv") for a, _ in calls)
+    channels = 4 if denoiser == Denoiser.SIGMA_SHADOW_TRANSLUCENCY else 1
+    for a, k in calls:
+        assert a[0].shape[-1] == channels
+        penumbra, view_z_in, tile = a[1], a[2], a[7]
+        live = ((tile[0] != 0.0) & (penumbra != 0.0) & (tile[1] == 0.0)
+                & (view_z_in.abs() * k["view_z_scale"] <= k["denoising_range"]))
+        assert bool(live.any()) and not bool(live.all())
+    over, count, worst = _hold(library, "sigma_ts", calls)
+    assert over <= FLIP_FRACTION * count, (f"{case}: {over} of {count} values out of "
+                                           f"tolerance, max |d| {worst:.3g}")
+
+
+@pytest.mark.parametrize("case", list(HISTORY_FIX_H3_CASES))
+def test_history_fix_rehearsal(library, case):
+    """H3 (N5's CTA body for one signal: the staged fast-history window, the taps, the clamp)
+    against the plain version (the taps, the moments and `params.history_fix_clamp`), on
+    REBLUR_DIFFUSE and REBLUR_SPECULAR, with the anti-firefly ring, and with both min
+    materials 0 on striped materials. Every frame has pixels that run the taps."""
+    denoiser, settings = HISTORY_FIX_H3_CASES[case]
+    striped = "min_material" in case
+    calls = _record(denoiser, "history_fix", materials=striped, **settings)
+    assert len(calls) == FRAMES
+    spec = denoiser == Denoiser.REBLUR_SPECULAR
+    assert all((a[7] is not None) == spec for a, _ in calls)
+    assert all(k["anti_firefly"] == ("anti_firefly" in case) for _, k in calls)
+    assert all(k["min_material"] == (0.0 if striped else 4.0) for _, k in calls)
+    assert len(_materials(calls, 2)) == (4 if striped else 2)
+    assert all(bool((a[6][0] != 0.0).any()) for a, _ in calls)  # the stride plane
+    over, count, worst = _hold(library, "history_fix", calls)
     assert over <= FLIP_FRACTION * count, (f"{case}: {over} of {count} values out of "
                                            f"tolerance, max |d| {worst:.3g}")

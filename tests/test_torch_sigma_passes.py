@@ -117,7 +117,7 @@ def ctx(request):
     j["split"] = JS.split_screen(jsc, ja[JRT.IN_PENUMBRA], ja[JRT.IN_VIEWZ], j["ts"][0], tr,
                                  channels=c)
     return dict(variant=variant, size=size, css=css, c=c, sc=interop.consts_from_numpy(sc),
-                dc=interop.consts_from_numpy(dc), jstate=state, pool=pool, j=j,
+                dc=interop.consts_from_numpy(dc), jsc=jsc, jdc=dc, jstate=state, pool=pool, j=j,
                 jout=np.asarray(eng.denoise([0], pool)[JRT.OUT_SHADOW_TRANSLUCENCY]),
                 state=interop.state_from_numpy(state))
 
@@ -191,6 +191,46 @@ def test_temporal_stabilization(ctx, monkeypatch):
     monkeypatch.setattr(k_sigma_ts, "TAPS", xla_taps)
     for name, g, w in zip(("shadow", "prev_view_z", "history_len"), _ts(ctx), ctx["j"]["ts"]):
         close(name, g, w)
+
+
+@pytest.mark.parametrize("motion", ["mv_z_computed", "world_mv"])
+def test_temporal_stabilization_mv_branches(ctx, motion, monkeypatch):
+    """TS under the motion-vector branches that the orbit frames (motionVectorScale (1, 1, 1):
+    screen space, the mv's z given, as in test_temporal_stabilization) do not take: the z scaled
+    by 0 (TS computes the viewZ delta from world_to_view_prev), and
+    isMotionVectorInWorldSpace with IN_MV zeroed (the true world motion of the static scene,
+    projected by world_to_clip_prev), each against the XLA function with the same constants,
+    with the reference's Gaussian weights as there."""
+    from nrdtpu import math as jm
+    from nrdtpu_torch.kernels import sigma_ts as k_sigma_ts
+
+    j, st = ctx["j"], ctx["state"]
+    mvs = np.array(ctx["jsc"]["mv_scale"], np.float32)
+    mv = ctx["pool"][JRT.IN_MV]
+    assert mvs[2] != 0.0 and mvs[3] == 0.0
+    if motion == "mv_z_computed":
+        mvs[2] = 0.0
+    else:
+        mvs[3] = 1.0
+        mv = np.zeros_like(mv)
+    jsc = dict(ctx["jsc"], mv_scale=mvs)
+    want = JS.temporal_stabilization(
+        jsc, ctx["jdc"], jnp.asarray(ctx["pool"][JRT.IN_VIEWZ]), jnp.asarray(mv),
+        j["post"][0], j["post"][1], jnp.asarray(ctx["jstate"]["shadow_history"]),
+        jnp.asarray(ctx["jstate"]["prev_view_z"]), jnp.asarray(ctx["jstate"]["history_len"]),
+        j["tiles"], channels=ctx["c"])
+    xla_taps = [(dy, dx, float(jm.get_gaussian_weight(float((dx * dx + dy * dy) ** 0.5) / 2)))
+                for dy, dx, _ in k_sigma_ts.TAPS]
+    monkeypatch.setattr(k_sigma_ts, "TAPS", xla_taps)
+    got = TS.temporal_stabilization(dict(ctx["sc"], mv_scale=mvs), ctx["dc"],
+                                    _tp(ctx, JRT.IN_VIEWZ), t(mv), t(j["post"][0]),
+                                    t(j["post"][1]), st["shadow_history"], st["prev_view_z"],
+                                    st["history_len"], _tile(ctx))
+    for name, g, w in zip(("shadow", "prev_view_z", "history_len"), got, want):
+        close(f"{motion} {name}", g, w)
+    # the scene's motion vectors are exact, so every branch reprojects to the same place: the
+    # output is the default branch's within the last bits
+    assert psnr(np.asarray(want[0]), np.asarray(j["ts"][0])) >= 60.0
 
 
 def test_split_screen(ctx):

@@ -1,6 +1,8 @@
 """The SIGMA slices end to end: SIGMA_SHADOW and SIGMA_SHADOW_TRANSLUCENCY through the JAX
 Engine (XLA path) and through the PyTorch port's Engine on the CPU, 6 frames of the orbit
-scene at 128x96, with temporal stabilization and with `maxStabilizedFrameNum=0`; then
+scene at 128x96, with temporal stabilization and with `maxStabilizedFrameNum=0`, and
+SIGMA_SHADOW with `isMotionVectorInWorldSpace=True` and IN_MV zeroed (the true world motion of
+the scene's static geometry: TS reprojects through world_to_clip_prev); then
 `tests/test_sigma.py`'s behavioural checks on the port.
 
 Bars: OUT_SHADOW_TRANSLUCENCY >= 60 dB PSNR against JAX on every frame (the passes agree to
@@ -59,7 +61,7 @@ def sigma_pool(gen, fd, translucent):
     return pool
 
 
-def run(variant, max_stabilized):
+def run(variant, max_stabilized, world_mv=False):
     gen = SceneGenerator(SceneSpec(size=SIZE), camera_mode="orbit")
     je = JEngine({0: JDenoiser[variant]}, resource_size=SIZE)
     te = TEngine({0: Denoiser[variant]}, resource_size=SIZE, device="cpu")
@@ -69,6 +71,9 @@ def run(variant, max_stabilized):
     for i in range(FRAMES):
         fd = gen.frame(i)
         fd.common_settings.timeDeltaBetweenFrames = 16.66  # no wall-clock frame rate
+        if world_mv:
+            fd.common_settings.isMotionVectorInWorldSpace = True
+            fd.mv = np.zeros_like(fd.mv)
         pool = sigma_pool(gen, fd, variant == "SIGMA_SHADOW_TRANSLUCENCY")
         je.set_common_settings(fd.common_settings)
         te.set_common_settings(fd.common_settings)
@@ -81,8 +86,12 @@ def run(variant, max_stabilized):
     return frames
 
 
-@pytest.fixture(scope="module", params=[(v, m) for v in VARIANTS for m in (5, 0)],
-                ids=[f"{v}-{s}" for v in VARIANTS for s in ("stabilized", "no_stabilization")])
+RUNS = {f"{v}-{s}": (v, m) for v in VARIANTS for s, m in (("stabilized", 5),
+                                                          ("no_stabilization", 0))}
+RUNS["SIGMA_SHADOW-world_mv"] = ("SIGMA_SHADOW", 5, True)
+
+
+@pytest.fixture(scope="module", params=list(RUNS.values()), ids=list(RUNS))
 def runs(request):
     return run(*request.param)
 
