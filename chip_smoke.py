@@ -32,9 +32,12 @@ Phases, each of which raises on failure (exit code != 0):
      pass, Blur and PostBlur: with the variant, its four modes); then RELAX_DIFFUSE and
      RELAX_SPECULAR (every kernel of each, all five à-trous calls; the share of pixels that
      run K19 `relax_history_fix`'s taps is printed), both with
-     `enableAntiFirefly=True` (relax_antifirefly timed, the rest held only), and both with
+     `enableAntiFirefly=True` (relax_antifirefly timed, the rest held only), both with
      AREA_3X3 on RELAX-packed punched frames (hitdist_recon on RELAX's constants, not
-     timed); then RELAX_SPECULAR with IN_NORMAL_ROUGHNESS packed as SQ_LINEAR and as
+     timed) and both with the history clamp's colour box off (relax_clamp_moments, held);
+     REBLUR_DIFFUSE and REBLUR_DIFFUSE_SPECULAR with maxBlurRadius 0 (ts_prelude in each TS
+     half without the RCRS clamp, held); then RELAX_SPECULAR with IN_NORMAL_ROUGHNESS packed
+     as SQ_LINEAR and as
      SQRT_LINEAR, AREA_3X3 on the punched frames (`ENCODED`: K15, K19, K22 and K12 in each
      roughness mode, timed); then the band of REBLUR_DIFFUSE_SPECULAR+BAND, by default, with the anti-firefly
      ring and in performance mode, each timed beside the three-launch chain it replaces (the
@@ -179,6 +182,8 @@ ENCODED = {f"RELAX_SPECULAR+{e}": dict(denoiser="RELAX_SPECULAR", signals=("spec
                                        encoding=e,
                                        settings=dict(hitDistanceReconstructionMode="AREA_3X3"))
            for e in ("SQ_LINEAR", "SQRT_LINEAR")}
+# RELAX's fast history at the slow one's frame num: the history clamp's colour box off
+NO_FAST_CLAMP = dict(diffuseMaxFastAccumulatedFrameNum=30, specularMaxFastAccumulatedFrameNum=30)
 # RELAX-packed frames with hit-distance holes: the kernel phase's RELAX AREA_3X3 runs
 RELAX_HOLES = {v: f"{v}+holes" for v in RELAX_VARIANTS}
 REBLUR_VARIANTS = ("REBLUR_DIFFUSE", "REBLUR_SPECULAR", "REBLUR_DIFFUSE_SPECULAR")
@@ -189,13 +194,15 @@ TRANSLUCENCY_RGB = (0.3, 0.6, 0.2)
 # the fixed part of each kernel, and the parts that depend on the call (taps, signals)
 SF_TAP_OPS, SF_PREPASS_TAP_OPS = 110, 40   # reblur_filters.cuh:sf_filter, one tap
 HF_TAP_OPS, HF_MOMENT_OPS, HF_RING_OPS = 100, 27, 216  # :hf_filter tap, 3x3, the 72-tap ring
-FIXED_OPS = {"reblur_band": 0, "smb_resolve": 450, "ts_prelude": 40, "spec_ta_head": 120, "vmb_resolve": 600,
+FIXED_OPS = {"reblur_band": 0, "smb_resolve": 450, "ts_prelude": 80, "spec_ta_head": 120, "vmb_resolve": 600,
              "nearest_multi": 0, "spatial_filter": 0, "spatial_filter_fused": 0,
              "history_fix": 0, "history_fix_fused": 0, "hitdist_recon": 40, "sigma_blur": 90,
              "sigma_ts": 150, "relax_prepass": 60, "relax_smb_resolve": 260,
-             "relax_history_fix": 10, "relax_clamp_moments": 1010, "relax_atrous": 80,
+             "relax_history_fix": 10, "relax_clamp_moments": 820, "relax_atrous": 80,
              "relax_vmb_resolve": 250, "relax_antifirefly": 0, "bilinear_resolve": 0}
 SMB_SIGNAL_OPS, TS_SAMPLE_OPS, NEAREST_SET_OPS = 200, 200, 12
+TS_SPEC_OPS = 30                            # ts_prelude.cu: the specular half's lerps, split
+                                            # tests, responsive factor and magic curve
 HD_TAP_OPS, HD_SIGNAL_TAP_OPS = 60, 15      # hitdist_recon.cu: one tap, and per signal
 SB_DENSE_TAP_OPS, SB_POISSON_TAP_OPS = 30, 76  # sigma_blur.cu: one tap, + 3 a channel
 SB_TEXEL_OPS = 5                            # sigma_blur.cu: a staged texel (+ 1 a channel
@@ -423,8 +430,9 @@ def _ops(name, a, k):
     ntaps = len(sf.tap_table(bool(k.get("perf_mode", False))))
     if name == "smb_resolve":
         ops += SMB_SIGNAL_OPS * px * (2 if k.get("second") is not None else 1)
-    elif name == "ts_prelude":
-        ops += TS_SAMPLE_OPS * px * (2 if k.get("vmb_uv") is not None else 1)
+    elif name == "ts_prelude":  # the specular half samples both motions
+        spec = len(a) > 5 and a[5] is not None
+        ops += (TS_SAMPLE_OPS * 2 + TS_SPEC_OPS if spec else TS_SAMPLE_OPS) * px
     elif name == "nearest_multi":
         ops += NEAREST_SET_OPS * px * a[1].shape[0]
     elif name in ("spatial_filter", "spatial_filter_fused"):
@@ -755,8 +763,11 @@ def kernel_runs():
     reconstruction at radius 1 and 2 on the frames with holes (the AREA_3X3 slice's pools),
     each SIGMA variant, RELAX_DIFFUSE and RELAX_SPECULAR (every call of their kernels), both
     with the anti-firefly pass (relax_antifirefly timed, the rest held only) and, not timed,
-    both with AREA_3X3 reconstruction on RELAX-packed frames with holes; then the kernels that
-    unpack the roughness on RELAX_SPECULAR at each encoding of ENCODED, timed."""
+    both with AREA_3X3 reconstruction on RELAX-packed frames with holes and both with the
+    history clamp's colour box off (relax_clamp_moments only); REBLUR_DIFFUSE and
+    REBLUR_DIFFUSE_SPECULAR with maxBlurRadius 0 (ts_prelude without the RCRS clamp, each half,
+    held only); then the kernels that unpack the roughness on RELAX_SPECULAR at each encoding of
+    ENCODED, timed."""
     runs = []
     for v in REBLUR_VARIANTS:
         runs.append((v, v, v, {}, None, True))
@@ -776,6 +787,10 @@ def kernel_runs():
                      {"relax_antifirefly"}))
         runs.append((f"{v} AREA_3X3", v, RELAX_HOLES[v],
                      dict(hitDistanceReconstructionMode="AREA_3X3"), {"hitdist_recon"}, False))
+        runs.append((f"{v} no clamp", v, v, NO_FAST_CLAMP, {"relax_clamp_moments"}, False))
+    for v in ("REBLUR_DIFFUSE", "REBLUR_DIFFUSE_SPECULAR"):
+        runs.append((f"{v} maxBlurRadius 0", v, v, dict(maxBlurRadius=0.0, minBlurRadius=0.0),
+                     {"ts_prelude"}, False))
     for pool, v in ENCODED.items():
         runs.append((f"{v['denoiser']} {v['encoding']}", v["denoiser"], pool,
                      dict(v["settings"], roughness_encoding=v["encoding"]),

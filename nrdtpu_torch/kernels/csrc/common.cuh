@@ -77,6 +77,12 @@ __device__ __forceinline__ float decode_roughness(float r) {
   return r;
 }
 
+// GetSpecMagicCurve, power 0.25 (math.py:get_spec_magic_curve)
+__device__ __forceinline__ float spec_magic_curve(float roughness) {
+  const float f = 1.0f - exp2f(-200.0f * roughness * roughness);
+  return f * sqrtf(sqrtf(saturate(roughness)));
+}
+
 // Math::AcosApprox as the JAX package defines it
 __device__ __forceinline__ float acos_approx(float x) {
   x = fminf(fmaxf(x, -1.0f), 1.0f);

@@ -401,12 +401,6 @@ __device__ __forceinline__ float atan_approx(float x) {
   return x < 0.0f ? -r : r;
 }
 
-// GetSpecMagicCurve, power 0.25 (math.py:get_spec_magic_curve)
-__device__ __forceinline__ float spec_magic_curve(float roughness) {
-  const float f = 1.0f - exp2f(-200.0f * roughness * roughness);
-  return f * sqrtf(sqrtf(saturate(roughness)));
-}
-
 // GetNormalWeightParam (math.py:get_normal_weight_param): percent of volume
 // 0.75 lerp(laf, 1, nlas), then 1 / max(atan(tan half angle), encoding error)
 __device__ __forceinline__ float normal_weight_param(float nlas, float laf, float one_minus_laf,

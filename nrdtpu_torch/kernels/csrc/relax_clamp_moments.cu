@@ -1,85 +1,245 @@
-// K20: RELAX history-clamping moments: over the clamp-to-edge 5x5, each tap weighted by its
-// validity (viewZ < denoisingRange), the mean and second moment of the responsive history
-// in YCoCg, the mean of the noisy radiance and the second moment of its luminance, divided
-// by max(weight sum, 1). Replaces nrdtpu/kernels/relax_pallas.py:479
-// relax_clamp_moments_pallas; computes nrdtpu/passes/relax/kernels.py:1173-1192 per pixel.
-// The plain version is nrdtpu_torch/kernels/relax_clamp_moments.py:relax_clamp_moments_ref.
-// One thread per pixel.
+// K20: RELAX HistoryClamping of one signal in one launch: the responsive history picked per
+// texel (HistoryFix's output where the history is short, the TA's fast history elsewhere),
+// the 5x5 moments over the clamp-to-edge window (each tap weighted by its validity, viewZ <
+// denoisingRange: the mean and second moment of the responsive history in YCoCg, the mean of
+// the noisy radiance and the second moment of its luminance, over max(weight sum, 1)), then
+// the rest of the pass per pixel: the sigma colour box and the clamp of the slow history in
+// YCoCg, the clamping factor, the antilag acceleration and reset, the second-moment
+// correction (nrdtpu/passes/relax/kernels.py:1140-1271). Replaces
+// nrdtpu/kernels/relax_pallas.py:479 relax_clamp_moments_pallas. The plain version is
+// nrdtpu_torch/kernels/relax_clamp_moments.py:relax_clamp_moments_ref.
+//
+// Design for the H100: one thread per pixel in 16x16 CTAs, 40 registers and 6 CTAs an SM, no
+// spill (PERF.md: 6 % faster than 4 CTAs at 44 registers).
+//   - Every texel is a tap of 25 pixels: each CTA first stages its 20x20 window (halo 2,
+//     clamp-to-edge) in shared memory, once a texel, as derived values: the validity and the
+//     responsive history in YCoCg (one float4), the noisy rgb and its luminance (another).
+//     Each thread stages two texels with one float4 load a plane, all loads of both issued
+//     before the first is used, the fast and the fixed history both read so that none waits
+//     on the history length that picks one (3 % faster than a loop of dependent loads). A
+//     second signal would add its two planes to `Window`.
+//   - The taps sum in the plain version's order (dy outer, dx inner) with its operations, so
+//     the moments are the plain version's bit for bit: m2 - m1^2 cancels.
+//   - The pass glue that read the moments back (~60 full-resolution torch launches, and the
+//     responsive history's select before them) is per-pixel arithmetic on host constants:
+//     it runs here term by term, true divisions kept (each feeds a threshold or saturate),
+//     and writes the slow and responsive histories as two float4 planes.
 #include "relax_common.cuh"
 
 namespace {
 
-using nrd::Image;
+constexpr int kBorder = 2;
+constexpr int kTile = nrd::kBlock;         // 16x16 pixels a CTA
+constexpr int kWin = kTile + 2 * kBorder;  // its 20x20 window of texels
+constexpr int kMinCtas = 6;
+static_assert(kWin * kWin <= 2 * kTile * kTile, "two window texels a thread");
 
-struct ClampMomentsArgs {
-  const float* view_z;  // (h, w) raw
-  const float* resp;    // (h, w, 4) responsive history (rgb)
-  const float* noisy;   // (h, w, 4) PrePass output (rgb)
-  float* vec;           // (3, h, w, 3): m1, m2 of the responsive YCoCg, noisy mean
-  float* nm2;           // (h, w) second moment of the noisy luminance
+struct ClampArgs {
+  const float* view_z;          // (h, w) raw
+  const float* fast;            // (h, w, 4) the TA's responsive history
+  const float* fixed;           // (h, w, 4) HistoryFix's output (rgb)
+  const float* history_length;  // (h, w)
+  const float* noisy;           // (h, w, 4) the PrePass output (rgb)
+  const float* slow;            // (h, w, 4) the TA's slow history (rgb, second moment)
+  float* out_slow;              // (h, w, 4)
+  float* out_resp;              // (h, w, 4)
   int w, h;
-  float view_z_scale, denoising_range;
+  float view_z_scale, denoising_range, fix_frame_num, color_box_sigma_scale;
+  float acceleration, reset_temporal_sigma_scale, reset_spatial_sigma_scale, reset_amount;
+  bool clamp;  // maxFastAccumulatedFrameNum < maxAccumulatedFrameNum
 };
 
-__global__ void __launch_bounds__(256) relax_clamp_moments_kernel(ClampMomentsArgs a) {
-  const int x = blockIdx.x * nrd::kBlock + threadIdx.x;
-  const int y = blockIdx.y * nrd::kBlock + threadIdx.y;
+// The staged window: each texel's (validity, responsive history in YCoCg) and (noisy rgb, its
+// luminance).
+struct Window {
+  float4 resp[kWin * kWin];
+  float4 noisy[kWin * kWin];
+};
+
+// What the window stages of a texel, as loaded: both histories, so that no load waits on the
+// history length that selects one.
+struct Texel {
+  float view_z, history_length;
+  float4 fast, fixed, noisy;
+};
+
+__device__ __forceinline__ Texel load_texel(const ClampArgs& a, int ox, int oy, int k) {
+  const int tx = nrd::clampi(ox + k % kWin, 0, a.w - 1);
+  const int ty = nrd::clampi(oy + k / kWin, 0, a.h - 1);
+  const size_t j = (size_t)ty * a.w + tx;
+  return Texel{__ldg(a.view_z + j), __ldg(a.history_length + j),
+               __ldg(reinterpret_cast<const float4*>(a.fast) + j),
+               __ldg(reinterpret_cast<const float4*>(a.fixed) + j),
+               __ldg(reinterpret_cast<const float4*>(a.noisy) + j)};
+}
+
+// Window texel k: its validity and responsive history in YCoCg, its noisy rgb and luminance.
+__device__ __forceinline__ void stage(const ClampArgs& a, Window& wnd, int k, const Texel& t) {
+  const float valid = fabsf(t.view_z) * a.view_z_scale < a.denoising_range ? 1.0f : 0.0f;
+  const float4 r = t.history_length <= a.fix_frame_num ? t.fixed : t.fast;
+  float ry[3];
+  relax::linear_to_ycocg(r.x, r.y, r.z, ry);
+  wnd.resp[k] = make_float4(valid, ry[0], ry[1], ry[2]);
+  wnd.noisy[k] = make_float4(t.noisy.x, t.noisy.y, t.noisy.z,
+                             relax::luminance(t.noisy.x, t.noisy.y, t.noisy.z));
+}
+
+__device__ __forceinline__ float luminance_abs(float r, float g, float b) {
+  return relax::luminance(fabsf(r), fabsf(g), fabsf(b));
+}
+
+__global__ void __launch_bounds__(kTile * kTile, kMinCtas) relax_clamp_moments_kernel(
+    ClampArgs a) {
+  __shared__ Window wnd;
+  const int ox = (int)blockIdx.x * kTile - kBorder, oy = (int)blockIdx.y * kTile - kBorder;
+  // each thread stages texels t0 and t1 of the window, every load of both issued first
+  const int t0 = threadIdx.y * kTile + threadIdx.x, t1 = t0 + kTile * kTile;
+  const bool two = t1 < kWin * kWin;
+  const Texel s0 = load_texel(a, ox, oy, t0);
+  const Texel s1 = load_texel(a, ox, oy, two ? t1 : t0);
+  stage(a, wnd, t0, s0);
+  if (two) stage(a, wnd, t1, s1);
+  __syncthreads();
+  const int x = ox + kBorder + (int)threadIdx.x, y = oy + kBorder + (int)threadIdx.y;
   if (x >= a.w || y >= a.h) return;
   const size_t i = (size_t)y * a.w + x;
-  const size_t plane = (size_t)a.w * a.h;
-  const Image<float, 1> vz{a.view_z, a.w, a.h};
-  const Image<float, 4> resp{a.resp, a.w, a.h};
-  const Image<float, 4> noisy{a.noisy, a.w, a.h};
+  // the window index of the pixel's own texel
+  const int wc = ((int)threadIdx.y + kBorder) * kWin + (int)threadIdx.x + kBorder;
 
+  // the 5x5 moments (:1169-1192)
   float m1[3] = {0.0f, 0.0f, 0.0f}, m2[3] = {0.0f, 0.0f, 0.0f}, nm1[3] = {0.0f, 0.0f, 0.0f};
   float nm2 = 0.0f, wsum = 0.0f;
 #pragma unroll
-  for (int dy = -2; dy <= 2; ++dy)
+  for (int dy = -kBorder; dy <= kBorder; ++dy)
 #pragma unroll
-    for (int dx = -2; dx <= 2; ++dx) {
-      const int tx = x + dx, ty = y + dy;
-      const float w_ = fabsf(vz.at(tx, ty, 0)) * a.view_z_scale < a.denoising_range ? 1.0f : 0.0f;
-      float ry[3];
-      relax::linear_to_ycocg(resp.at(tx, ty, 0), resp.at(tx, ty, 1), resp.at(tx, ty, 2), ry);
-      const float nz[3] = {noisy.at(tx, ty, 0), noisy.at(tx, ty, 1), noisy.at(tx, ty, 2)};
+    for (int dx = -kBorder; dx <= kBorder; ++dx) {
+      const float4 r = wnd.resp[wc + dy * kWin + dx];
+      const float4 n = wnd.noisy[wc + dy * kWin + dx];
+      const float w_ = r.x;
+      const float ry[3] = {r.y, r.z, r.w}, nz[3] = {n.x, n.y, n.z};
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
         m1[c] = m1[c] + ry[c] * w_;
         m2[c] = m2[c] + ry[c] * ry[c] * w_;
         nm1[c] = nm1[c] + nz[c] * w_;
       }
-      const float nl = relax::luminance(nz[0], nz[1], nz[2]);
-      nm2 = nm2 + nl * nl * w_;
+      nm2 = nm2 + n.w * n.w * w_;
       wsum = wsum + w_;
     }
   wsum = fmaxf(wsum, 1.0f);
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    a.vec[3 * i + c] = m1[c] / wsum;
-    a.vec[3 * (plane + i) + c] = m2[c] / wsum;
-    a.vec[3 * (2 * plane + i) + c] = nm1[c] / wsum;
+    m1[c] = m1[c] / wsum;
+    m2[c] = m2[c] / wsum;
+    nm1[c] = nm1[c] / wsum;
   }
-  a.nm2[i] = nm2 / wsum;
+  nm2 = nm2 / wsum;
+
+  // the colour box and the clamp of the slow history (:1193-1210)
+  const float4 centre = wnd.resp[wc];
+  const float resp_ycocg[3] = {centre.y, centre.z, centre.w};
+  const float4 slow = __ldg(reinterpret_cast<const float4*>(a.slow) + i);
+  float slow_ycocg[3], clamped_ycocg[3], sigma[3];
+  relax::linear_to_ycocg(slow.x, slow.y, slow.z, slow_ycocg);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    sigma[c] = sqrtf(fmaxf(m2[c] - m1[c] * m1[c], 0.0f));
+    const float cmin = fminf(m1[c] - a.color_box_sigma_scale * sigma[c], resp_ycocg[c]);
+    const float cmax = fmaxf(m1[c] + a.color_box_sigma_scale * sigma[c], resp_ycocg[c]);
+    clamped_ycocg[c] = a.clamp ? fminf(fmaxf(slow_ycocg[c], cmin), cmax) : slow_ycocg[c];
+  }
+  float clamped[3];
+  relax::ycocg_to_linear(clamped_ycocg, clamped);
+
+  const bool in_fix = __ldg(a.history_length + i) <= a.fix_frame_num;
+  const float4 fast = __ldg(reinterpret_cast<const float4*>(a.fast) + i);
+  const float4 resp = in_fix ? __ldg(reinterpret_cast<const float4*>(a.fixed) + i) : fast;
+  float out_slow[3] = {in_fix ? resp.x : clamped[0], in_fix ? resp.y : clamped[1],
+                       in_fix ? resp.z : clamped[2]};
+  float out_resp[3] = {resp.x, resp.y, resp.z};
+
+  // the clamping factor and the antilag acceleration (:1212-1240)
+  const float dy_clamp = clamped_ycocg[0] - slow_ycocg[0];
+  const float denom = resp_ycocg[0] - slow_ycocg[0];
+  float clamping_factor =
+      dy_clamp == 0.0f ? 0.0f
+                       : nrd::saturate(dy_clamp / (fabsf(denom) < 1e-15f ? 1e-15f : denom));
+  clamping_factor = in_fix ? 1.0f : clamping_factor;
+  float hist_diff_l = a.acceleration * luminance_abs(out_resp[0] - slow.x,
+                                                     out_resp[1] - slow.y,
+                                                     out_resp[2] - slow.z);
+  hist_diff_l = hist_diff_l * clamping_factor;
+  hist_diff_l = in_fix ? 0.0f : hist_diff_l;
+  const float dist[3] = {nm1[0] - out_resp[0], nm1[1] - out_resp[1], nm1[2] - out_resp[2]};
+  const float dist_l = luminance_abs(dist[0], dist[1], dist[2]);
+  const float q = hist_diff_l / fmaxf(dist_l, 1e-15f);
+  float accel[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) accel[c] = dist_l == 0.0f ? 0.0f : dist[c] * q;
+  const float accel_l = luminance_abs(accel[0], accel[1], accel[2]);
+  const float ratio = accel_l == 0.0f ? 0.0f : dist_l / fmaxf(accel_l, 1e-15f);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    accel[c] = ratio < 1.0f ? accel[c] * ratio : accel[c];
+    accel[c] = ratio <= 0.0f ? 0.0f : accel[c];
+    out_slow[c] = out_slow[c] + accel[c];
+    out_resp[c] = out_resp[c] + accel[c];
+  }
+
+  // the history reset (:1242-1262)
+  const float4 noisy = wnd.noisy[wc];
+  const float slow_l = relax::luminance(slow.x, slow.y, slow.z);
+  const float noisy_l = relax::luminance(nm1[0], nm1[1], nm1[2]);
+  const float t_sigma = a.reset_temporal_sigma_scale * sqrtf(fmaxf(nm2 - noisy_l * noisy_l, 0.0f));
+  const float s_sigma = a.reset_spatial_sigma_scale * sigma[0];
+  float reset = a.reset_amount * fmaxf(fabsf(slow_l - noisy_l) - s_sigma - t_sigma, 0.0f) /
+                (1e-6f + fmaxf(slow_l, noisy_l) + s_sigma + t_sigma);
+  reset = nrd::saturate(reset);
+  const float nz[3] = {noisy.x, noisy.y, noisy.z};
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    out_slow[c] = out_slow[c] + (nz[c] - out_slow[c]) * reset;
+    out_resp[c] = out_resp[c] + (nz[c] - out_resp[c]) * reset;
+  }
+
+  // the second-moment correction (:1264-1271)
+  const float out_l = relax::luminance(out_slow[0], out_slow[1], out_slow[2]);
+  const float out_m2 = fmaxf(slow.w + (out_l * out_l - slow_l * slow_l), 0.0f);
+  reinterpret_cast<float4*>(a.out_slow)[i] = make_float4(out_slow[0], out_slow[1], out_slow[2],
+                                                         out_m2);
+  reinterpret_cast<float4*>(a.out_resp)[i] = make_float4(out_resp[0], out_resp[1], out_resp[2],
+                                                         fast.w);
 }
 
 }  // namespace
 
-// ptrs: view_z, resp, noisy, vec, nm2
-// consts: view_z_scale, denoising_range
+// ptrs: view_z, fast, fixed, history_length, noisy, slow, out_slow, out_resp
+// consts: view_z_scale, denoising_range, history_fix_frame_num, color_box_sigma_scale, clamp,
+//         acceleration, reset_temporal_sigma_scale, reset_spatial_sigma_scale, reset_amount
 extern "C" int nrd_relax_clamp_moments(void* const* p, const float* c, int w, int h,
                                        void* stream) {
-  ClampMomentsArgs a;
+  ClampArgs a;
   a.view_z = (const float*)p[0];
-  a.resp = (const float*)p[1];
-  a.noisy = (const float*)p[2];
-  a.vec = (float*)p[3];
-  a.nm2 = (float*)p[4];
+  a.fast = (const float*)p[1];
+  a.fixed = (const float*)p[2];
+  a.history_length = (const float*)p[3];
+  a.noisy = (const float*)p[4];
+  a.slow = (const float*)p[5];
+  a.out_slow = (float*)p[6];
+  a.out_resp = (float*)p[7];
   a.w = w;
   a.h = h;
   a.view_z_scale = c[0];
   a.denoising_range = c[1];
-  dim3 block(nrd::kBlock, nrd::kBlock);
-  dim3 grid((w + nrd::kBlock - 1) / nrd::kBlock, (h + nrd::kBlock - 1) / nrd::kBlock);
+  a.fix_frame_num = c[2];
+  a.color_box_sigma_scale = c[3];
+  a.clamp = c[4] != 0.0f;
+  a.acceleration = c[5];
+  a.reset_temporal_sigma_scale = c[6];
+  a.reset_spatial_sigma_scale = c[7];
+  a.reset_amount = c[8];
+  const dim3 block(kTile, kTile);
+  const dim3 grid((w + kTile - 1) / kTile, (h + kTile - 1) / kTile);
   relax_clamp_moments_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -72,6 +72,14 @@ __device__ __forceinline__ void linear_to_ycocg(float r, float g, float b, float
   out[2] = -0.25f * r + 0.5f * g - 0.25f * b;
 }
 
+// YCoCg -> linear rgb, negative channels clamped to 0
+__device__ __forceinline__ void ycocg_to_linear(const float c[3], float out[3]) {
+  const float t = c[0] - c[2];
+  out[0] = fmaxf(t + c[1], 0.0f);
+  out[1] = fmaxf(c[0] + c[2], 0.0f);
+  out[2] = fmaxf(t - c[1], 0.0f);
+}
+
 // get_normal_weight_param2(roughness 1, fraction): 1 / max(atan(p / (1 - p + 1e-6)), ULP)
 __device__ __forceinline__ float normal_weight_param2(float p) {
   const float tan_half = p / (1.0f - p + 1e-6f);

@@ -140,20 +140,3 @@ def mix_history_and_current(dc, history, current, f, roughness):
     out_rgb = nm.lerp(history[..., :3], current[..., :3], f[..., None])
     out_hit = nm.lerp(history[..., 3], current[..., 3], f_hit)
     return torch.cat([out_rgb, out_hit[..., None]], -1)
-
-
-def compute_antilag(sc, dc, history, avg, sigma, accum_speed):
-    """ComputeAntilag mode 2 (REBLUR_Common.hlsli:244-274)."""
-    s = sigma * float(dc["antilag_params"][0])
-    frs = f32(sc["framerate_scale"])
-    magic = float(f32(dc["antilag_params"][1]) * frs * frs)
-    hc = torch.clamp(history, avg - s, avg + s)
-    d = torch.abs(history - hc) / (torch.maximum(history, hc) + nm.EPS)
-    return 1.0 / (1.0 + d * accum_speed / magic)
-
-
-def get_temporal_accumulation_params(sc, is_in_screen_mul_footprint_quality, accum_speed):
-    """REBLUR_Common.hlsli:297-306. Returns (w, sigma_scale)."""
-    a = accum_speed * REBLUR_SAMPLES_PER_FRAME
-    w = is_in_screen_mul_footprint_quality * a / (1.0 + a)
-    return w, 1.0 + 3.0 * float(sc["framerate_scale"]) * w

@@ -252,7 +252,7 @@ class ReblurDenoiser:
             out_sig = dict(sig4)
             inc = {sig: data1[sig] + 1.0 for sig in self.signals}
         else:
-            ts_sm = K.ts_surface_motion(sc, view_z, mv, fbits)
+            ts_sm = K.ts_surface_motion(sc, view_z, mv)
             ts = {}
             if self.has_diffuse:
                 ts["diff"] = K.temporal_stabilization(

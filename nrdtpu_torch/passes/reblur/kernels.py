@@ -17,7 +17,8 @@ Each pass is elementwise torch glue around hand-written kernels of `nrdtpu_torch
   spatial_band                    -> reblur_band     (history fix, its clamp, Blur and PostBlur
                                                       of both signals, one launch)
   temporal_stabilization,
-  temporal_stabilization_specular -> ts_prelude      (3x3 luma moments + history sampling)
+  temporal_stabilization_specular -> ts_prelude      (3x3 luma moments, history sampling and
+                                                      the rest of the half, one launch each)
   hit_dist_reconstruction         -> hitdist_recon   (3x3 / 5x5 refill of hitT == 0)
 
 The glue keeps the op order of the XLA functions; the kernels compute the per-pixel formula
@@ -909,64 +910,40 @@ def split_screen(sc, noisy_input, view_z_in, out_signal):
 # ---------------------------------------------------------------------------
 
 
-def ts_surface_motion(sc, view_z_in, mv_in, fbits):
-    """TS lines 50-70: the surface-motion position and the footprint quality from fbits
-    bits 0-3, shared by both halves of TS. Returns (uv, view_z, x, x_prev, smb_pixel_uv,
-    smb_quality)."""
+def ts_surface_motion(sc, view_z_in, mv_in):
+    """TS lines 50-70: the surface-motion position, shared by both halves of TS. Returns (uv,
+    view_z, x, x_prev, smb_pixel_uv)."""
     h, w = view_z_in.shape
     uv = resample.pixel_uv_grid(h, w, view_z_in.device)
     view_z = unpack_view_z(sc, view_z_in)
     xv = nm.reconstruct_view_position(uv, sc["frustum"], view_z, sc["ortho_mode"])
     x = nm.rotate_vector(sc["view_to_world"], xv)
     x_prev, smb_pixel_uv = surface_motion_position(sc, uv, view_z, x, mv_in)
-    _, smb_frac = nm.bilinear_filter(smb_pixel_uv, _v(sc["rect_size_prev"]))
-    return uv, view_z, x, x_prev, smb_pixel_uv, _fbits_quality(fbits, smb_frac, 0)
+    return uv, view_z, x, x_prev, smb_pixel_uv
 
 
-def _fbits_quality(fbits, frac, first_bit):
-    """sqrt(saturate(sum of the bilinear weights of the unoccluded taps)), the taps' bits
-    first_bit..first_bit+3 of fbits."""
-    bits = fbits.to(torch.int32)
-    occ = torch.stack([((bits >> b) & 1).to(torch.float32)
-                       for b in range(first_bit, first_bit + 4)], -1)
-    return torch.sqrt(nm.saturate(torch.sum(occ * nm.bilinear_weights(frac), -1)))
-
-
-def _luma_moments(dc, luma, pre):
-    """(m1, sigma, RCRS luma) of the ts_prelude results (lines 131-135)."""
-    m1 = pre["m1"]
-    luma_rcrs = (torch.clamp(luma, pre["lmin"], pre["lmax"])
-                 if float(dc["max_blur_radius"]) != 0.0 else luma)
-    return m1, nm.get_std_dev(m1, pre["m2"]), luma_rcrs
+def _ts_consts(sc, dc):
+    """The host constants of a TS half (`ts_prelude`)."""
+    return dict(rect_size_prev=_v(sc["rect_size_prev"]),
+                max_blur_radius=float(dc["max_blur_radius"]),
+                split_screen=float(sc["split_screen"]),
+                split_screen_prev=float(sc["split_screen_prev"]),
+                antilag_params=_v(dc["antilag_params"]),
+                framerate_scale=float(sc["framerate_scale"]),
+                stabilization_strength=float(dc["stabilization_strength"]),
+                history_fix_frame_num=float(dc["history_fix_frame_num"]))
 
 
 def temporal_stabilization(sc, dc, view_z_in, normal_roughness, mv_in, data1_diff, fbits, diff,
                            diff_luma_stab_history, config, *, surface_motion=None):
-    """Anti-lag output filter, diffuse half. surface_motion: ts_surface_motion(...) when the
-    specular half shares it. Returns dict(diff, diff_luma_stab, data1_diff, mv_out)."""
-    uv, _, _, _, smb_pixel_uv, smb_quality = (
-        surface_motion or ts_surface_motion(sc, view_z_in, mv_in, fbits))
-    luma = C.get_luma(diff)
-    pre = k_ts_prelude.ts_prelude(luma.contiguous(), diff_luma_stab_history,
-                                  smb_pixel_uv.contiguous(), fbits,
-                                  rect_size_prev=_v(sc["rect_size_prev"]))
-    m1, sigma, luma_rcrs = _luma_moments(dc, luma, pre)
-    smb_hist = torch.clamp_min(pre["history"], 0.0)
-
-    antilag = C.compute_antilag(sc, dc, smb_hist, m1, sigma, smb_quality * data1_diff)
-    taw, ta_sigma_scale = C.get_temporal_accumulation_params(sc, smb_quality, data1_diff)
-    history_weight = taw * antilag
-    history_weight = history_weight * (uv[..., 0] >= float(sc["split_screen"])).to(torch.float32)
-    history_weight = history_weight * (smb_pixel_uv[..., 0]
-                                       >= float(sc["split_screen_prev"])).to(torch.float32)
-    hist_clamped = torch.clamp(smb_hist, m1 - sigma * ta_sigma_scale,
-                               m1 + sigma * ta_sigma_scale)
-    luma_stab = nm.lerp(luma_rcrs, hist_clamped,
-                        torch.clamp_max(history_weight, float(dc["stabilization_strength"])))
-    d1 = data1_diff + 1.0
-    dmin = torch.clamp_max(d1, float(dc["history_fix_frame_num"]))
-    return dict(diff=C.change_luma(diff, luma_stab), diff_luma_stab=luma_stab,
-                data1_diff=nm.lerp(dmin, d1, antilag), mv_out=mv_in)
+    """Anti-lag output filter, diffuse half: one `ts_prelude` launch. surface_motion:
+    ts_surface_motion(...) when the specular half shares it. Returns dict(diff,
+    diff_luma_stab, data1_diff, mv_out)."""
+    smb_pixel_uv = (surface_motion or ts_surface_motion(sc, view_z_in, mv_in))[4]
+    ts = k_ts_prelude.ts_prelude(diff, diff_luma_stab_history, smb_pixel_uv, fbits, data1_diff,
+                                 **_ts_consts(sc, dc))
+    return dict(diff=ts["signal"], diff_luma_stab=ts["luma_stab"], data1_diff=ts["data1"],
+                mv_out=mv_in)
 
 
 def temporal_stabilization_specular(sc, dc, view_z_in, normal_roughness, mv_in, data1_spec,
@@ -979,10 +956,9 @@ def temporal_stabilization_specular(sc, dc, view_z_in, normal_roughness, mv_in, 
     amount, and the MV patching under IN_BASECOLOR_METALNESS (lines 250-285).
     surface_motion: ts_surface_motion(...) when the diffuse half shares it.
     Returns dict(spec, spec_luma_stab, data1_spec, mv_out)."""
-    uv, view_z, x, x_prev, smb_pixel_uv, smb_quality = (
-        surface_motion or ts_surface_motion(sc, view_z_in, mv_in, fbits))
+    uv, view_z, x, x_prev, smb_pixel_uv = (surface_motion
+                                            or ts_surface_motion(sc, view_z_in, mv_in))
     n, roughness, material_id = unpack_nr(normal_roughness, config)
-    rect_prev = _v(sc["rect_size_prev"])
 
     # hit dist for tracking (lines 233-240)
     hdt = C.extract_hit_dist(spec) * fe.get_hit_distance_normalization(
@@ -1021,39 +997,11 @@ def temporal_stabilization_specular(sc, dc, view_z_in, normal_roughness, mv_in, 
         mv_out3 = nm.lerp(mv_in[..., :3], torch.stack(new_mv, -1), f[..., None])
         mv_out = mv_out3 if mv_in.shape[-1] == 3 else torch.cat([mv_out3, mv_in[..., 3:]], -1)
 
-    _, vmb_frac = nm.bilinear_filter(vmb_pixel_uv, rect_prev)
-    vmb_quality = _fbits_quality(fbits, vmb_frac, 4)
-
-    # combine surface & virtual motion (lines 287-343)
-    luma = C.get_luma(spec)
-    pre = k_ts_prelude.ts_prelude(luma.contiguous(), spec_luma_stab_history,
-                                  smb_pixel_uv.contiguous(), fbits, rect_size_prev=rect_prev,
-                                  vmb_uv=vmb_pixel_uv.contiguous())
-    m1, sigma, luma_rcrs = _luma_moments(dc, luma, pre)
-    smb_hist = torch.clamp_min(pre["history"], 0.0)
-    vmb_hist = torch.clamp_min(pre["vmb_history"], 0.0)
-    spec_hist = nm.lerp(smb_hist, vmb_hist, virtual_history_amount)
-    quality = nm.lerp(smb_quality, vmb_quality, virtual_history_amount)
-    antilag = C.compute_antilag(sc, dc, spec_hist, m1, sigma, quality * data1_spec)
-    taw, ta_sigma_scale = C.get_temporal_accumulation_params(sc, quality, data1_spec)
-    history_weight = taw * antilag
-    history_weight = history_weight * (uv[..., 0] >= float(sc["split_screen"])).to(torch.float32)
-    split_prev = float(sc["split_screen_prev"])
-    smb_ok = (smb_pixel_uv[..., 0] >= split_prev).to(torch.float32)
-    vmb_ok = (vmb_pixel_uv[..., 0] >= split_prev).to(torch.float32)
-    history_weight = history_weight * torch.where(virtual_history_amount != 1.0, smb_ok, 1.0)
-    history_weight = history_weight * torch.where(virtual_history_amount != 0.0, vmb_ok, 1.0)
-
-    responsive_factor = C.remap_roughness_to_responsive_factor(dc, roughness)
-    smc = nm.get_spec_magic_curve(roughness)
-    acceleration = nm.lerp(smc, 1.0, 0.5 + responsive_factor * 0.5)
-    history_weight = history_weight * torch.where(
-        material_id == float(sc["strand_material_id"]), 0.5, acceleration)
-
-    spec_hist = torch.clamp(spec_hist, m1 - sigma * ta_sigma_scale, m1 + sigma * ta_sigma_scale)
-    luma_stab = nm.lerp(luma_rcrs, spec_hist,
-                        torch.clamp_max(history_weight, float(dc["stabilization_strength"])))
-    d1 = data1_spec + 1.0
-    smin = torch.clamp_max(d1, float(dc["history_fix_frame_num"]))
-    return dict(spec=C.change_luma(spec, luma_stab), spec_luma_stab=luma_stab,
-                data1_spec=nm.lerp(smin, d1, antilag), mv_out=mv_out)
+    # combine surface & virtual motion (lines 287-343): one `ts_prelude` launch
+    ts = k_ts_prelude.ts_prelude(
+        spec, spec_luma_stab_history, smb_pixel_uv, fbits, data1_spec, vmb_pixel_uv,
+        virtual_history_amount, normal_roughness, **_ts_consts(sc, dc),
+        responsive_roughness_threshold=float(dc["responsive_accumulation_roughness_threshold"]),
+        strand_material_id=float(sc["strand_material_id"]))
+    return dict(spec=ts["signal"], spec_luma_stab=ts["luma_stab"], data1_spec=ts["data1"],
+                mv_out=mv_out)

@@ -187,9 +187,9 @@ class RelaxDenoiser:
         history_length = ta["history_length"]
         fixed = K.history_fix(sc, dc, view_z, normal_roughness, history_length, ta[which], cfg,
                               which)
-        resp = K.apply_history_fix(dc, history_length, fixed, ta[which + "_fast"])
-        hc = K.history_clamping(sc, dc, view_z, pre, ta[which], resp, history_length, which)
-        del fixed, pre, resp
+        hc = K.history_clamping(sc, dc, view_z, pre, ta[which], ta[which + "_fast"], fixed,
+                                history_length, which)
+        del fixed, pre
 
         slow = hc[which + "_slow"]
         if s.enableAntiFirefly:

@@ -14,7 +14,8 @@ Each pass is elementwise torch glue around hand-written kernels of `nrdtpu_torch
                           -> relax_vmb_resolve    (virtual-motion footprint and histories)
                           -> bilinear_resolve     (the previous normals 1 and 2 steps back)
   history_fix             -> relax_history_fix    (5x5 stride taps of short histories)
-  history_clamping        -> relax_clamp_moments  (5x5 validity-weighted moments)
+  history_clamping        -> relax_clamp_moments  (the responsive history's select, the 5x5
+                                                   moments and the whole clamp, one launch)
   anti_firefly            -> relax_antifirefly    (3x3 RCRS of the slow history)
   atrous                  -> relax_atrous         (one 3x3 iteration; iteration 0 with the
                                                    variance prefilter and the 5x5 estimation)
@@ -570,91 +571,36 @@ def history_fix(sc, dc, view_z_in, normal_roughness, history_length, signal, con
         roughness_encoding=config.roughness_encoding)
 
 
-def apply_history_fix(dc, history_length, fixed, responsive):
-    """The fixed rgb goes into the responsive history where the history is short
-    (`denoiser.py:278-286`)."""
-    fixmask = (history_length <= float(dc["history_fix_frame_num"]))[..., None]
-    return torch.where(fixmask, torch.cat([fixed[..., :3], responsive[..., 3:]], -1),
-                       responsive)
-
-
 # ---------------------------------------------------------------------------
 # HistoryClamping (RELAX_HistoryClamping.hlsli), diffuse
 # ---------------------------------------------------------------------------
 
 
-def history_clamping(sc, dc, view_z_in, noisy, slow, resp, history_length,
+def history_clamping(sc, dc, view_z_in, noisy, slow, fast, fixed, history_length,
                      which: str = "diff"):
     """Sigma colour-box clamp of the slow history to the responsive one + antilag
-    acceleration and reset + 2nd-moment correction (`kernels.py:1140-1271`) of one signal;
-    the 5x5 moments in one `relax_clamp_moments` launch. The specular signal scales the
-    acceleration by 0.33 and the reset by 0.5 (`:1219`, `:1244`). Returns
-    dict(history_length, <which>_slow, <which>_resp)."""
-    m1, m2, nm1, nm2 = k_clamp_moments.relax_clamp_moments(
-        view_z_in, resp, noisy, view_z_scale=float(sc["view_z_scale"]),
-        denoising_range=float(sc["denoising_range"]))
-    resp_ycocg = nm.linear_to_ycocg(resp[..., :3])
-    sigma = torch.sqrt(torch.clamp_min(m2 - m1 * m1, 0.0))
-    cbss = float(dc["color_box_sigma_scale"])
-    cmin = torch.minimum(m1 - cbss * sigma, resp_ycocg)
-    cmax = torch.maximum(m1 + cbss * sigma, resp_ycocg)
-    slow_ycocg = nm.linear_to_ycocg(slow[..., :3])
-    if F32(dc[which + "_max_fast_accumulated_frame_num"]) < F32(
-            dc[which + "_max_accumulated_frame_num"]):
-        clamped_ycocg = torch.minimum(torch.maximum(slow_ycocg, cmin), cmax)
-    else:
-        clamped_ycocg = slow_ycocg
-    clamped = nm.ycocg_to_linear(clamped_ycocg)
-
-    in_fix = history_length <= float(dc["history_fix_frame_num"])
-    out_slow_rgb = torch.where(in_fix[..., None], resp[..., :3], clamped)
-    out_resp_rgb = resp[..., :3]
-
-    dy_clamp = clamped_ycocg[..., 0] - slow_ycocg[..., 0]
-    denom = resp_ycocg[..., 0] - slow_ycocg[..., 0]
-    clamping_factor = torch.where(
-        dy_clamp == 0.0, 0.0,
-        nm.saturate(dy_clamp / torch.where(torch.abs(denom) < 1e-15, 1e-15, denom)))
-    clamping_factor = torch.where(in_fix, 1.0, clamping_factor)
-
+    acceleration and reset + 2nd-moment correction (`kernels.py:1140-1271`) of one signal,
+    the responsive history being HistoryFix's output `fixed` where the history is short and
+    the TA's `fast` elsewhere (`denoiser.py:278-286`): one `relax_clamp_moments` launch. The
+    specular signal scales the acceleration by 0.33 and the reset by 0.5 (`:1219`, `:1244`).
+    Returns dict(history_length, <which>_slow, <which>_resp)."""
     spec = which == "spec"
     accel_scale = F32((0.33 if spec else 1.0) * RELAX_ANTILAG_ACCELERATION_AMOUNT_SCALE) * F32(
         dc["history_acceleration_amount"])
-    hist_diff_l = float(accel_scale) * nm.luminance(torch.abs(out_resp_rgb - slow[..., :3]))
-    hist_diff_l = hist_diff_l * clamping_factor
-    hist_diff_l = torch.where(in_fix, 0.0, hist_diff_l)
-
-    dist = nm1 - out_resp_rgb
-    dist_l = nm.luminance(torch.abs(dist))
-    accel = torch.where((dist_l == 0.0)[..., None], 0.0,
-                        dist * (hist_diff_l / torch.clamp_min(dist_l, 1e-15))[..., None])
-    accel_l = nm.luminance(torch.abs(accel))
-    ratio = torch.where(accel_l == 0.0, 0.0, dist_l / torch.clamp_min(accel_l, 1e-15))
-    accel = torch.where((ratio < 1.0)[..., None], accel * ratio[..., None], accel)
-    accel = torch.where((ratio <= 0.0)[..., None], 0.0, accel)
-    out_slow_rgb = out_slow_rgb + accel
-    out_resp_rgb = out_resp_rgb + accel
-
-    # history reset (antilag reset)
-    slow_l = nm.luminance(slow[..., :3])
-    noisy_l = nm.luminance(nm1)
-    t_sigma = float(dc["history_reset_temporal_sigma_scale"]) * torch.sqrt(
-        torch.clamp_min(nm2 - noisy_l * noisy_l, 0.0))
-    s_sigma = float(dc["history_reset_spatial_sigma_scale"]) * sigma[..., 0]
     reset_amount = F32(0.5 if spec else 1.0) * F32(dc["history_reset_amount"])
-    reset = float(reset_amount) * torch.clamp_min(
-        torch.abs(slow_l - noisy_l) - s_sigma - t_sigma, 0.0) / (
-        1e-6 + torch.maximum(slow_l, noisy_l) + s_sigma + t_sigma)
-    reset = nm.saturate(reset)
-    out_slow_rgb = nm.lerp(out_slow_rgb, noisy[..., :3], reset[..., None])
-    out_resp_rgb = nm.lerp(out_resp_rgb, noisy[..., :3], reset[..., None])
-
-    # 2nd moment correction
-    out_l = nm.luminance(out_slow_rgb)
-    out_m2 = torch.clamp_min(slow[..., 3] + (out_l * out_l - slow_l * slow_l), 0.0)
-    return {"history_length": history_length,
-            which + "_slow": torch.cat([out_slow_rgb, out_m2[..., None]], -1),
-            which + "_resp": torch.cat([out_resp_rgb, resp[..., 3:]], -1)}
+    out_slow, out_resp = k_clamp_moments.relax_clamp_moments(
+        view_z_in, fast, fixed, history_length, noisy, slow,
+        view_z_scale=float(sc["view_z_scale"]), denoising_range=float(sc["denoising_range"]),
+        history_fix_frame_num=float(dc["history_fix_frame_num"]),
+        color_box_sigma_scale=float(dc["color_box_sigma_scale"]),
+        clamp=bool(F32(dc[which + "_max_fast_accumulated_frame_num"])
+                   < F32(dc[which + "_max_accumulated_frame_num"])),
+        acceleration=float(accel_scale),
+        reset_temporal_sigma_scale=float(dc["history_reset_temporal_sigma_scale"]),
+        reset_spatial_sigma_scale=float(dc["history_reset_spatial_sigma_scale"]),
+        reset_amount=float(reset_amount))
+    return {"history_length": history_length, which + "_slow": out_slow,
+            which + "_resp": out_resp}
 
 
 # ---------------------------------------------------------------------------

@@ -24,10 +24,16 @@ reprojected planes, the glue that makes them included) on SS and ST; K19 `relax_
 `relax_smb_resolve` and K15 `relax_prepass` by signal (RD, RS: RELAX_DIFFUSE, RELAX_SPECULAR;
 frame 4 runs K19's taps on every pixel); K17 `relax_vmb_resolve` (RS); K15 on RELAX_SPECULAR
 at the roughness encodings SQ_LINEAR and SQRT_LINEAR (`RS SQ_LINEAR`, `RS SQRT_LINEAR`:
-`chip_smoke.ENCODED`'s pools and settings). `--labels REGEX` times only the labels it finds.
+`chip_smoke.ENCODED`'s pools and settings); K20 `relax_clamp_moments` and its pass (`pass
+history_clamping`: on a tree whose kernel computes the moments only, the clamp glue included;
+the responsive history's select before it is not) on RD and RS; H4 `ts_prelude` by TS half
+(`D ts_prelude diffuse`, `S ts_prelude specular`, `DS ts_prelude diffuse` / `specular`) and
+REBLUR's TS passes (`pass temporal_stabilization`, `pass temporal_stabilization_specular`: on
+a tree whose kernel is the prelude only, the glue around it included) on D, S and DS.
+`--labels REGEX` times only the labels it finds.
 
 With `--slices` it also runs every path that launches the kernels under test (`SLICES`: D,
-S, DS, DS+BAND, SS, ST, as `chip_smoke.PATHS` defines them) on parent and
+S, DS, DS+BAND, DS+AREA_3X3, RD, RS, RS+AF, as `chip_smoke.PATHS` defines them) on parent and
 change in turns (parent, change, change, parent): the median ms/frame over `--frames` frames, the
 peak allocated memory above what the slice's resident frames take, and a torch.profiler trace
 of 3 frames (device events and device busy time a frame). The slices' frames stay on the card
@@ -37,7 +43,7 @@ change are compared on the same measure.
 Per side it prints each device kernel's registers and spill bytes (ptxas) and SASS
 instruction count (cuobjdump), the largest loop of each (its instructions between a
 backward branch and its target), and writes the SASS of the filter kernels (REBLUR's, H1's,
-K13's, K14's, K15's, K16's, K17's and K19's: `SASS_KERNELS`) and a JSON
+H4's, K13's, K14's, K15's, K16's, K17's, K19's and K20's: `SASS_KERNELS`) and a JSON
 of every number to `--out`. Recording the calls, holding a kernel to its plain version,
 timing, the build log's ptxas lines and the SASS listing are `chip_smoke.py`'s own
 (`recording`, `disagreement`, `time_ms`, `ptxas_usage`, `sass_listing`), so that both
@@ -69,20 +75,25 @@ import chip_smoke as CS  # noqa: E402
 VARIANT_SOURCES = ("history_fix_fused.cu", "spatial_filter_fused.cu", "reblur_band.cu",
                    "spatial_filter.cu", "history_fix.cu", "smb_resolve.cu", "sigma_blur.cu",
                    "sigma_ts.cu", "relax_history_fix.cu", "relax_smb_resolve.cu",
-                   "relax_vmb_resolve.cu", "relax_prepass.cu")
+                   "relax_vmb_resolve.cu", "relax_prepass.cu", "relax_clamp_moments.cu",
+                   "ts_prelude.cu")
 SASS_KERNELS = re.compile(
     r"history_fix|spatial_filter|reblur_band|sigma_blur|sigma_ts|smb_resolve|relax_vmb_resolve|"
-    r"relax_prepass")
+    r"relax_prepass|relax_clamp_moments|ts_prelude")
 DS = "REBLUR_DIFFUSE_SPECULAR"
 BAND = DS + "+BAND"  # chip_smoke.PATHS: the pool and environment (the band's switch)
-# the pass functions whose calls are timed beside the kernels' (glue and launch): their
-# module, as a Side attribute
-PASSES = {"fused_history_fix": "TK", "history_fix": "TK", "temporal_stabilization": "SK"}
+# the pass functions whose calls are timed beside the kernels' (glue and launch), by the
+# family of the denoiser that calls them: their module, as a Side attribute
+PASSES = {("REBLUR", "fused_history_fix"): "TK", ("REBLUR", "history_fix"): "TK",
+          ("REBLUR", "temporal_stabilization"): "TK",
+          ("REBLUR", "temporal_stabilization_specular"): "TK",
+          ("SIGMA", "temporal_stabilization"): "SK", ("RELAX", "history_clamping"): "RK"}
 # (label prefix, denoiser, path of the pool and environment, settings, kernels and passes
 # ("pass <name>") recorded)
 RUNS = (
     ("DS", DS, DS, {}, ("history_fix_fused", "spatial_filter_fused", "smb_resolve",
-                        "pass fused_history_fix")),
+                        "ts_prelude", "pass fused_history_fix", "pass temporal_stabilization",
+                        "pass temporal_stabilization_specular")),
     ("DS ring", DS, DS, dict(enableAntiFirefly=True),
      ("history_fix_fused", "pass fused_history_fix")),
     ("DS perf", DS, DS, dict(enablePerformanceMode=True), ("spatial_filter_fused",)),
@@ -90,9 +101,11 @@ RUNS = (
     ("band ring", DS, BAND, dict(enableAntiFirefly=True), ("reblur_band",)),
     ("band perf", DS, BAND, dict(enablePerformanceMode=True), ("reblur_band",)),
     ("D", "REBLUR_DIFFUSE", "REBLUR_DIFFUSE", {},
-     ("spatial_filter", "history_fix", "smb_resolve", "pass history_fix")),
+     ("spatial_filter", "history_fix", "smb_resolve", "ts_prelude", "pass history_fix",
+      "pass temporal_stabilization")),
     ("S", "REBLUR_SPECULAR", "REBLUR_SPECULAR", {},
-     ("spatial_filter", "history_fix", "smb_resolve", "pass history_fix")),
+     ("spatial_filter", "history_fix", "smb_resolve", "ts_prelude", "pass history_fix",
+      "pass temporal_stabilization_specular")),
     ("D ring", "REBLUR_DIFFUSE", "REBLUR_DIFFUSE", dict(enableAntiFirefly=True),
      ("history_fix", "pass history_fix")),
     ("S ring", "REBLUR_SPECULAR", "REBLUR_SPECULAR", dict(enableAntiFirefly=True),
@@ -102,16 +115,17 @@ RUNS = (
     ("ST", "SIGMA_SHADOW_TRANSLUCENCY", "SIGMA_SHADOW_TRANSLUCENCY", {},
      ("sigma_blur", "sigma_ts", "pass temporal_stabilization")),
     ("RD", "RELAX_DIFFUSE", "RELAX_DIFFUSE", {},
-     ("relax_history_fix", "relax_smb_resolve", "relax_prepass")),
+     ("relax_history_fix", "relax_smb_resolve", "relax_prepass", "relax_clamp_moments",
+      "pass history_clamping")),
     ("RS", "RELAX_SPECULAR", "RELAX_SPECULAR", {},
-     ("relax_history_fix", "relax_smb_resolve", "relax_vmb_resolve", "relax_prepass")),
+     ("relax_history_fix", "relax_smb_resolve", "relax_vmb_resolve", "relax_prepass",
+      "relax_clamp_moments", "pass history_clamping")),
 ) + tuple((f"RS {v['encoding']}", v["denoiser"], pool,
            dict(v["settings"], roughness_encoding=v["encoding"]), ("relax_prepass",))
           for pool, v in CS.ENCODED.items())
-# the paths that --slices runs on both sides (chip_smoke.PATHS): those that launch H3, K14 or
-# the history-fix body that H3 shares with N5 and K23
-SLICES = ("REBLUR_DIFFUSE", "REBLUR_SPECULAR", DS, BAND, "SIGMA_SHADOW",
-          "SIGMA_SHADOW_TRANSLUCENCY")
+# the paths that --slices runs on both sides (chip_smoke.PATHS): those that launch H4 or K20
+SLICES = ("REBLUR_DIFFUSE", "REBLUR_SPECULAR", DS, BAND, DS + "+AREA_3X3", "RELAX_DIFFUSE",
+          "RELAX_SPECULAR", "RELAX_SPECULAR+ANTI_FIREFLY")
 
 
 def log(*a):
@@ -127,6 +141,7 @@ class Side:
         self.build = importlib.import_module(pkg + ".kernels.build")
         self.TK = importlib.import_module(pkg + ".passes.reblur.kernels")
         self.SK = importlib.import_module(pkg + ".passes.sigma.kernels")
+        self.RK = importlib.import_module(pkg + ".passes.relax.kernels")
         self.S = importlib.import_module(pkg + ".settings")
         self.Engine = importlib.import_module(pkg + ".engine").Engine
 
@@ -211,35 +226,42 @@ def record(side, denoiser, pool, settings, names, frames, w, h):
         eng.denoise([0], side.pool({k: torch.from_numpy(v).cuda()
                                     for k, v in pools[pool].items()}))
 
+    family = denoiser.split("_")[0]
     with CS.path_env(pool):
         for cs, pools, _ in frames[:-1]:
             run(cs, pools)
-        passes = [(getattr(side, mod), name) for name, mod in PASSES.items()]
+        passes = [(getattr(side, mod), name) for (fam, name), mod in PASSES.items()
+                  if fam == family]
         with CS.recording(side.KM, passes) as calls:
             run(*frames[-1][:2])
     torch.cuda.synchronize()
-    return [c for c in calls if c[0] in names]
+    return [(name, a, k, family) for name, a, k in calls if name in names]
 
 
 def labelled(prefix, calls):
-    """{label: (kernel name, args, kwargs)}: the spatial filters' calls by stage, SIGMA's
-    blur by pass (Blur, PostBlur), the rest (and the passes, "pass <name>") by name."""
+    """{label: (kernel name, args, kwargs, denoiser family)}: the spatial filters' calls by
+    stage, SIGMA's blur by pass (Blur, PostBlur), H4 by TS half (diffuse, specular), the rest
+    (and the passes, "pass <name>") by name."""
     out, stages = {}, {"spatial_filter_fused": iter(CS.SF_STAGES),
                        "spatial_filter": iter(CS.SF_STAGES)}
-    for name, a, k in calls:
+    for call in calls:
+        name, a, k, _ = call
         if name in stages:
-            out[f"{prefix} {name} {next(stages[name])}"] = (name, a, k)
+            out[f"{prefix} {name} {next(stages[name])}"] = call
         elif name == "sigma_blur":
-            out[f"{prefix} {name} {'blur' if k['first_pass'] else 'post_blur'}"] = (name, a, k)
+            out[f"{prefix} {name} {'blur' if k['first_pass'] else 'post_blur'}"] = call
+        elif name == "ts_prelude":  # the prelude-only wrapper took the vmb uv by keyword
+            spec = len(a) > 5 or k.get("vmb_uv") is not None
+            out[f"{prefix} {name} {'specular' if spec else 'diffuse'}"] = call
         else:
-            out[f"{prefix} {name}"] = (name, a, k)
+            out[f"{prefix} {name}"] = call
     return out
 
 
-def runner(side, name, a, k):
+def runner(side, name, a, k, family):
     """(run, plain) of one recorded call on its side."""
     if name.startswith("pass "):
-        fn = getattr(getattr(side, PASSES[name[5:]]), name[5:])
+        fn = getattr(getattr(side, PASSES[family, name[5:]]), name[5:])
         return (lambda: fn(*CS.copied(a), **k)), None
     m = side.KM.MODULES[name]
     return (lambda: getattr(m, name)(*a, **k)), (lambda: getattr(m, name + "_ref")(*a, **k))

@@ -44,6 +44,12 @@ struct alignas(16) float4 {
 
 inline float4 make_float4(float x, float y, float z, float w) { return float4{x, y, z, w}; }
 
+struct alignas(8) float2 {
+  float x, y;
+};
+
+inline float2 make_float2(float x, float y) { return float2{x, y}; }
+
 struct alignas(8) uint2 {
   uint32_t x, y;
 };

@@ -421,7 +421,7 @@ def test_two_signal_ts_matches_oracle(translate_x):
     ref = O.temporal_stabilization(sc, dc, s["view_z"], s["nr"], mv, data1[0], data1[1], fbits,
                                    curvature, amount, sig[0], sig[1], hist[0], hist[1])
     vz, nr, mv_t = t(s["view_z"]), t(s["nr"]), t(mv)
-    ts_sm = TK.ts_surface_motion(sc, vz, mv_t, t(fbits))
+    ts_sm = TK.ts_surface_motion(sc, vz, mv_t)
     got = TK.temporal_stabilization(sc, dc, vz, nr, mv_t, t(data1[0]), t(fbits), t(sig[0]),
                                     t(hist[0]), cfg, surface_motion=ts_sm)
     got.update(TK.temporal_stabilization_specular(

@@ -2,7 +2,8 @@
 roughness-encoding mode: K22 `relax_atrous.cu`, K23 `reblur_band.cu`, N4
 `spatial_filter_fused.cu`, N5 `history_fix_fused.cu`, K13 `sigma_blur.cu`, K19
 `relax_history_fix.cu`, K16 `relax_smb_resolve.cu`, K17 `relax_vmb_resolve.cu`, K15
-`relax_prepass.cu`, K12 `hitdist_recon.cu` and H1 `smb_resolve.cu`, as they are in the tree,
+`relax_prepass.cu`, K12 `hitdist_recon.cu`, H1 `smb_resolve.cu`, K14 `sigma_ts.cu`, H3
+`history_fix.cu`, K20 `relax_clamp_moments.cu` and H4 `ts_prelude.cu`, as they are in the tree,
 compiled as C++ by g++
 through `tests/cuda_shim.h` (every CUDA thread a std::thread,
 `__syncthreads` a barrier of the block) and bound through the same ctypes entry points as on
@@ -25,7 +26,8 @@ REBLUR_DIFFUSE (one signal) and REBLUR_DIFFUSE_SPECULAR (two), also with both mi
 on frames with striped materials (at the default of 4 the material test never bites), both
 footprints on the frames, fbits and allow_catrom equal; and K15 on RELAX_DIFFUSE and
 RELAX_SPECULAR at LINEAR, with depthThreshold 0.03 (the snapped tap position at its
-plane-distance threshold) and with both min materials 0 on striped materials.
+plane-distance threshold) and with both min materials 0 on striped materials; K20 on
+RELAX_DIFFUSE and RELAX_SPECULAR (`CLAMP_CASES`); H4 on every TS half (`TS_CASES`).
 
 Run alone: python -m pytest tests/test_torch_kernel_rehearsal.py -q
 
@@ -50,6 +52,7 @@ from nrdtpu_torch import kernels as KM
 from nrdtpu_torch.engine import Engine
 from nrdtpu_torch.kernels import build
 from nrdtpu_torch.settings import Denoiser, HitDistanceReconstructionMode as HM
+from nrdtpu_torch.settings import RelaxAntilagSettings
 from nrdtpu_torch.settings import ResourceType as RT, RoughnessEncoding, replace
 from nrdtpu_torch.utils.scene import SceneGenerator, SceneSpec
 
@@ -60,7 +63,8 @@ SHIM = Path(__file__).with_name("cuda_shim.h")
 SOURCES = ("relax_atrous.cu", "reblur_band.cu", "spatial_filter_fused.cu",
            "history_fix_fused.cu", "sigma_blur.cu", "relax_history_fix.cu",
            "relax_smb_resolve.cu", "relax_vmb_resolve.cu", "relax_prepass.cu",
-           "hitdist_recon.cu", "smb_resolve.cu", "sigma_ts.cu", "history_fix.cu")
+           "hitdist_recon.cu", "smb_resolve.cu", "sigma_ts.cu", "history_fix.cu",
+           "relax_clamp_moments.cu", "ts_prelude.cu")
 SIZE = (48, 32)
 FRAMES = 4
 ATOL, RTOL, FLIP_FRACTION = 1e-4, 1e-4, 1e-4
@@ -127,6 +131,37 @@ HISTORY_FIX_H3_CASES = {f"{sig}{suffix}": (d, settings)
                         for suffix, settings in (("", {}),
                                                  ("_anti_firefly", dict(enableAntiFirefly=True)),
                                                  ("_min_material_0", NO_MIN_MATERIAL))}
+# K20's calls: each RELAX signal by default (on frames 1-3 every history is in the fix), with
+# historyFixFrameNum = 1 (histories on both sides of the fix), a tight colour box and an
+# antilag whose acceleration (also its cap at the noisy mean) and reset bite on these frames,
+# and with the tight colour box's clamp off (the max fast frame num at the max frame num)
+STRONG_ANTILAG = RelaxAntilagSettings(accelerationAmount=1.0, spatialSigmaScale=0.5,
+                                      temporalSigmaScale=0.1, resetAmount=1.0)
+CLAMP_CASES = {f"{sig}{suffix}": (d, settings)
+               for sig, d in (("diffuse", Denoiser.RELAX_DIFFUSE),
+                              ("specular", Denoiser.RELAX_SPECULAR))
+               for suffix, settings in (
+                   ("", {}),
+                   ("_fix_mix", dict(historyFixFrameNum=1, antilagSettings=STRONG_ANTILAG,
+                                     historyClampingColorBoxSigmaScale=0.25)),
+                   ("_no_clamp", dict(historyFixFrameNum=1, historyClampingColorBoxSigmaScale=0.25,
+                                      diffuseMaxFastAccumulatedFrameNum=30,
+                                      specularMaxFastAccumulatedFrameNum=30)))}
+# H4's calls: (denoiser, the call's index in a frame, calls a frame) of each TS half
+TS_HALVES = {"diffuse": (Denoiser.REBLUR_DIFFUSE, 0, 1),
+             "specular": (Denoiser.REBLUR_SPECULAR, 0, 1),
+             "ds_diffuse": (DS, 0, 2), "ds_specular": (DS, 1, 2)}
+# and the changes made to a half's recorded calls: maxBlurRadius 0 (no RCRS clamp); splitScreen
+# 0.5 on the pixel's and the previous frame's uv; a seeded 30 % of the pixels with one fbits bit
+# cleared (the CatRom falls back to the bilinear footprint); virtual history amounts of exactly 0
+# and 1 on 20 % of the pixels each, with the previous frame's split screen at 0.5 and the
+# virtual-motion uv mirrored on half of the pixels, so that the surface- and virtual-motion
+# split tests disagree on both sides; materials striped with strand material 2
+TS_CASES = {**{half: (half, "") for half in TS_HALVES},
+            **{f"{half}_{v}": (half, v) for half in ("diffuse", "specular")
+               for v in ("no_rcrs", "split_screen", "occluded")},
+            "specular_virtual_amounts": ("specular", "virtual_amounts"),
+            "specular_strand": ("specular", "strand")}
 
 LAUNCH = re.compile(r"([A-Za-z_]\w*(?:<[^<>;]*>)?)\s*<<<([^;]*?)>>>\s*\(([^;]*)\);")
 DYNAMIC_SHARED = re.compile(r"extern\s+__shared__\s+(\w+)\s+(\w+)\s*\[\s*\]\s*;")
@@ -593,5 +628,109 @@ def test_history_fix_rehearsal(library, case):
     assert len(_materials(calls, 2)) == (4 if striped else 2)
     assert all(bool((a[6][0] != 0.0).any()) for a, _ in calls)  # the stride plane
     over, count, worst = _hold(library, "history_fix", calls)
+    assert over <= FLIP_FRACTION * count, (f"{case}: {over} of {count} values out of "
+                                           f"tolerance, max |d| {worst:.3g}")
+
+
+@pytest.mark.parametrize("case", list(CLAMP_CASES))
+def test_relax_clamp_moments_rehearsal(library, case):
+    """K20 (the responsive history picked per texel, the staged 20x20 window of the 5x5 moments,
+    the whole clamp pass) against the plain version, on RELAX_DIFFUSE and RELAX_SPECULAR: every
+    frame has pixels beyond the denoising range; with historyFixFrameNum = 1 the histories lie
+    on both sides of the fix, and the acceleration and the reset move the output; with the
+    clamp off the slow history passes unclamped."""
+    denoiser, settings = CLAMP_CASES[case]
+    calls = _record(denoiser, "relax_clamp_moments", **settings)
+    assert len(calls) == FRAMES
+    # the first frame resets the history: its max frame nums are 0, the clamp off
+    assert all(k["clamp"] == (i > 0 and "no_clamp" not in case) for i, (_, k) in enumerate(calls))
+    assert all(bool((a[0].abs() * k["view_z_scale"] >= k["denoising_range"]).any())
+               for a, k in calls)
+    in_fix = torch.cat([(a[3] <= k["history_fix_frame_num"]).flatten() for a, k in calls])
+    if case.endswith(("_fix_mix", "_no_clamp")):
+        assert bool(in_fix.any()) and not bool(in_fix.all())
+    if case.endswith("_fix_mix"):
+        ref = KM.relax_clamp_moments.relax_clamp_moments_ref
+        for key in ("acceleration", "reset_amount"):
+            assert any(not torch.equal(ref(*a, **k)[0], ref(*a, **dict(k, **{key: 0.0}))[0])
+                       for a, k in calls), key
+    over, count, worst = _hold(library, "relax_clamp_moments", calls)
+    assert over <= FLIP_FRACTION * count, (f"{case}: {over} of {count} values out of "
+                                           f"tolerance, max |d| {worst:.3g}")
+
+
+@pytest.fixture(scope="module")
+def ts_calls():
+    """H4's calls of a REBLUR denoiser over the frames, with or without striped materials."""
+    cache = {}
+
+    def get(denoiser, materials):
+        if (denoiser, materials) not in cache:
+            cache[denoiser, materials] = _record(denoiser, "ts_prelude", materials=materials)
+        return cache[denoiser, materials]
+    return get
+
+
+def _ts_variant(calls, variant):
+    """The recorded calls of one TS half with the inputs or constants of `variant` changed
+    (TS_CASES)."""
+    rng = np.random.default_rng(29)
+    out = []
+    for a, k in calls:
+        a, k = list(a), dict(k)
+        if variant == "no_rcrs":
+            k["max_blur_radius"] = 0.0
+        if variant == "split_screen":
+            k["split_screen"] = k["split_screen_prev"] = 0.5
+        if variant == "virtual_amounts":  # the previous frame's split only
+            k["split_screen_prev"] = 0.5
+        if variant == "occluded":
+            bits = a[3].to(torch.int32)
+            hit = torch.from_numpy(rng.random(tuple(bits.shape)) < 0.3)
+            bit = torch.from_numpy(rng.integers(0, 8, tuple(bits.shape))).to(torch.int32)
+            cleared = bits & ~torch.bitwise_left_shift(torch.ones_like(bit), bit)
+            a[3] = torch.where(hit, cleared, bits).to(torch.float32)
+        if variant == "virtual_amounts":
+            r = torch.from_numpy(rng.random(tuple(a[6].shape)))
+            a[6] = torch.where(r < 0.2, 0.0, torch.where(r > 0.8, 1.0, a[6]))
+            mirror = torch.from_numpy(rng.random(tuple(a[6].shape)) < 0.5)
+            vmb = a[5].clone()
+            vmb[..., 0] = torch.where(mirror, 1.0 - a[2][..., 0], vmb[..., 0])
+            a[5] = vmb
+        if variant == "strand":
+            k["strand_material_id"] = 2.0
+        out.append((tuple(a), k))
+    return out
+
+
+@pytest.mark.parametrize("case", list(TS_CASES))
+def test_ts_prelude_rehearsal(library, ts_calls, case):
+    """H4 (the staged 18x18 luma window, the history through the CatRom gather at each motion,
+    the rest of the TS half) against the plain version, on each half of REBLUR_DIFFUSE,
+    REBLUR_SPECULAR and REBLUR_DIFFUSE_SPECULAR, and with the changes of TS_CASES, each of which
+    is asserted to reach the kernel's inputs."""
+    half, variant = TS_CASES[case]
+    denoiser, index, per_frame = TS_HALVES[half]
+    calls = ts_calls(denoiser, variant == "strand")
+    assert len(calls) == per_frame * FRAMES
+    calls = _ts_variant(calls[index::per_frame], variant)
+    spec = half.endswith("specular")
+    assert all((len(a) == 8) == spec for a, _ in calls)
+    ref = KM.ts_prelude.ts_prelude_ref
+    if variant in ("no_rcrs", "split_screen"):  # the change moves the output
+        base = ts_calls(denoiser, False)[index::per_frame]
+        assert any(not torch.equal(ref(*a, **k)["signal"], ref(*b, **kb)["signal"])
+                   for (a, k), (b, kb) in zip(calls, base))
+    if variant == "occluded":  # both footprints, of each motion's bits
+        for first in (0, 4) if spec else (0,):
+            four = torch.cat([((a[3].to(torch.int32) >> first) & 15).flatten() for a, _ in calls])
+            assert bool((four == 15).any()) and bool((four != 15).any())
+    if variant == "virtual_amounts":  # the split tests disagree where the amount is 0 or 1
+        for amount in (0.0, 1.0):
+            assert any(bool(((a[6] == amount) & ((a[2][..., 0] >= 0.5) != (a[5][..., 0] >= 0.5)))
+                            .any()) for a, _ in calls)
+    if variant == "strand":
+        assert any(bool((a[7][..., 3] * 3.0 == 2.0).any()) for a, _ in calls)
+    over, count, worst = _hold(library, "ts_prelude", calls)
     assert over <= FLIP_FRACTION * count, (f"{case}: {over} of {count} values out of "
                                            f"tolerance, max |d| {worst:.3g}")

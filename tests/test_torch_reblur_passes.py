@@ -32,6 +32,9 @@ torch.set_num_threads(1)
 
 SIZE = (128, 96)
 RTOL, ATOL = 1e-4, 1e-5
+# TS settings off the defaults: (shared constants, denoiser constants) changed
+TS_CASES = {"max_blur_radius_0": ({}, dict(max_blur_radius=0.0)),
+            "split_screen": (dict(split_screen=0.5, split_screen_prev=0.5), {})}
 HDP = np.array([3.0, 0.1, 20.0, -25.0], np.float32)
 
 
@@ -86,7 +89,8 @@ def ctx():
         j["sm"]["fbits"], None, None, j["post"], None, js["diff_luma_stab"], None, None, None,
         cfg, has_diffuse=True, has_specular=False, has_prepass=True)
     return dict(sc=interop.consts_from_numpy(sc), dc=interop.consts_from_numpy(dc), cfg=cfg,
-                state=interop.state_from_numpy(state), pool=pool, j=j)
+                state=interop.state_from_numpy(state), pool=pool, j=j, jsc=sc, jdc=dc,
+                jstate=state)
 
 
 def t(a):
@@ -155,7 +159,8 @@ def test_history_fix(ctx):
 
 
 def test_temporal_stabilization(ctx):
-    """H4 (ts_prelude) + the TS glue vs the diffuse half of temporal_stabilization."""
+    """H4 (ts_prelude: the whole diffuse TS half) vs the diffuse half of
+    temporal_stabilization."""
     vz, nr, mv = _geom(ctx)
     j = ctx["j"]
     got = TK.temporal_stabilization(ctx["sc"], ctx["dc"], vz, nr, mv, t(j["ta"][2]),
@@ -163,3 +168,28 @@ def test_temporal_stabilization(ctx):
                                     ctx["state"]["diff_luma_stab"], ctx["cfg"])
     for k in ("diff", "diff_luma_stab", "data1_diff"):
         close(f"ts {k}", got[k], j["ts"][k])
+
+
+@pytest.mark.parametrize("case", list(TS_CASES))
+def test_temporal_stabilization_settings(ctx, case):
+    """The diffuse TS half against XLA with maxBlurRadius = 0 (no RCRS clamp of the luma) and
+    with splitScreen = 0.5 (no history left of the split, tested on the pixel's uv and on the
+    reprojected one)."""
+    vz, nr, mv = _geom(ctx)
+    j = ctx["j"]
+    sc_set, dc_set = TS_CASES[case]
+    jsc = dict(ctx["jsc"], **{k: np.float32(v) for k, v in sc_set.items()})
+    jdc = dict(ctx["jdc"], **{k: np.float32(v) for k, v in dc_set.items()})
+    data1 = j["ta"][2]
+    want = JK.temporal_stabilization(
+        jsc, jdc, jnp.asarray(vz.numpy()), jnp.asarray(nr.numpy()), jnp.asarray(mv.numpy()),
+        data1, data1, j["sm"]["fbits"], None, None, j["post"], None,
+        jnp.asarray(ctx["jstate"]["diff_luma_stab"]), None, None, None, ctx["cfg"],
+        has_diffuse=True, has_specular=False, has_prepass=True)
+    assert not np.allclose(np.asarray(want["diff"]), np.asarray(j["ts"]["diff"]))
+    got = TK.temporal_stabilization(interop.consts_from_numpy(jsc),
+                                    interop.consts_from_numpy(jdc), vz, nr, mv, t(data1),
+                                    t(j["sm"]["fbits"]), t(j["post"]),
+                                    ctx["state"]["diff_luma_stab"], ctx["cfg"])
+    for k in ("diff", "diff_luma_stab", "data1_diff"):
+        close(f"ts {case} {k}", got[k], want[k])

@@ -33,6 +33,7 @@ from nrdtpu.utils.scene import SceneGenerator, SceneSpec
 from nrdtpu_torch import frontend as tfe
 from nrdtpu_torch import interop
 from nrdtpu_torch.engine import DenoiserConfig, Engine as TEngine
+from nrdtpu_torch.kernels import relax_clamp_moments as KCM
 from nrdtpu_torch.ops import resample as trs
 from nrdtpu_torch.passes import relax as TC
 from nrdtpu_torch.passes.reblur import kernels as TRK
@@ -189,16 +190,46 @@ def test_history_fix(ctx):
                          _in(ctx, RT.IN_NORMAL_ROUGHNESS), t(hl), t(ctx["j"]["ta"]["diff"]),
                          ctx["cfg"])
     close("history_fix", got, ctx["j"]["fix"])
-    resp = TK.apply_history_fix(ctx["dc"], t(hl), got, t(ctx["j"]["ta"]["diff_fast"]))
+    resp = KCM.responsive_history(t(ctx["j"]["ta"]["diff_fast"]), got, t(hl),
+                                  history_fix_frame_num=float(ctx["dc"]["history_fix_frame_num"]))
     close("responsive history after the fix", resp, ctx["j"]["resp"])
 
 
 @pytest.mark.parametrize("key", ["diff_slow", "diff_resp"])
 def test_history_clamping(ctx, key):
     got = TK.history_clamping(ctx["sc"], ctx["dc"], _in(ctx, RT.IN_VIEWZ), t(ctx["j"]["pre"]),
-                              t(ctx["j"]["ta"]["diff"]), t(ctx["j"]["resp"]),
-                              t(ctx["j"]["ta"]["history_length"]))
+                              t(ctx["j"]["ta"]["diff"]), t(ctx["j"]["ta"]["diff_fast"]),
+                              t(ctx["j"]["fix"]), t(ctx["j"]["ta"]["history_length"]))
     close(f"history_clamping {key}", got[key], ctx["j"]["hc"][key])
+
+
+@pytest.mark.parametrize("clamp", [True, False])
+def test_history_clamping_seeded(ctx, clamp):
+    """The pass against XLA on seeded inputs at 128x96: histories on both sides of
+    historyFixFrameNum, 10 % of the pixels beyond the denoising range, and the colour-box clamp
+    on (diffuseMaxFastAccumulatedFrameNum < diffuseMaxAccumulatedFrameNum, the default) and off
+    (both equal)."""
+    rng = np.random.default_rng(7)
+    h, w = 96, 128
+    far = 2.0 * float(ctx["jsc"]["denoising_range"])
+    view_z = rng.uniform(0.5, 40.0, (h, w)).astype(np.float32)
+    view_z[rng.random((h, w)) < 0.1] = far
+    noisy, slow, fast, fixed = rng.uniform(0.0, 1.0, (4, h, w, 4)).astype(np.float32)
+    hl = rng.integers(0, 12, (h, w)).astype(np.float32)
+    fix_num = ctx["dc_j"]["history_fix_frame_num"]
+    assert (hl <= fix_num).any() and (hl > fix_num).any()
+    key = "diff_max_fast_accumulated_frame_num"
+    n = ctx["dc_j"][key] if clamp else ctx["dc_j"]["diff_max_accumulated_frame_num"]
+    assert (n < ctx["dc_j"]["diff_max_accumulated_frame_num"]) == clamp
+    resp = jnp.where(jnp.asarray(hl <= fix_num)[..., None],
+                     jnp.concatenate([fixed[..., :3], fast[..., 3:]], -1), fast)
+    want = JK.history_clamping(ctx["jsc"], dict(ctx["dc_j"], **{key: n}), jnp.asarray(view_z),
+                               jnp.asarray(noisy), None, jnp.asarray(slow), None, resp, None,
+                               jnp.asarray(hl), ctx["eng"]._instances[0].config, pallas=False)
+    got = TK.history_clamping(ctx["sc"], dict(ctx["dc"], **{key: float(n)}), t(view_z), t(noisy),
+                              t(slow), t(fast), t(fixed), t(hl))
+    for k in ("diff_slow", "diff_resp"):
+        close(f"history_clamping clamp={clamp} {k}", got[k], want[k])
 
 
 @pytest.mark.parametrize("step", ATROUS_STEPS)
@@ -449,7 +480,9 @@ def test_history_clamping_matches_oracle():
     hl = rng.uniform(0.0, 30.0, (OH, OW)).astype(np.float32)
     ref = OR.history_clamping(sc, dc, s["view_z"], noisy_d, noisy_s, slow_d, slow_s, resp_d,
                               resp_s, hl)
-    got = TK.history_clamping(sc, dc, t(s["view_z"]), t(noisy_d), t(slow_d), t(resp_d), t(hl))
+    # the responsive history is resp_d in the fix and out of it
+    got = TK.history_clamping(sc, dc, t(s["view_z"]), t(noisy_d), t(slow_d),
+                              t(resp_d), t(resp_d), t(hl))
     assert psnr(ref["diff"], got["diff_slow"].numpy()) >= BAR_DB
     # .a of the responsive history: the HLSL writes 0, the port carries TA's (0 in the pipeline)
     assert psnr(ref["diff_fast"][..., :3], got["diff_resp"][..., :3].numpy()) >= BAR_DB

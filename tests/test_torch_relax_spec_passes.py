@@ -43,6 +43,7 @@ from nrdtpu_torch import math as tnm
 from nrdtpu_torch.engine import DenoiserConfig
 from nrdtpu_torch.kernels import bilinear_resolve as k_bil
 from nrdtpu_torch.kernels import relax_antifirefly as k_af
+from nrdtpu_torch.kernels import relax_clamp_moments as KCM
 from nrdtpu_torch.kernels import relax_vmb_resolve as k_vmb
 from nrdtpu_torch.passes import relax as TC
 from nrdtpu_torch.passes.relax import kernels as TK
@@ -190,16 +191,46 @@ def test_history_fix(ctx):
                          _in(ctx, RT.IN_NORMAL_ROUGHNESS), t(hl), t(ctx["j"]["ta"]["spec"]),
                          ctx["cfg"], which="spec")
     close("spec history_fix", got, ctx["j"]["fix"])
-    resp = TK.apply_history_fix(ctx["dc"], t(hl), got, t(ctx["j"]["ta"]["spec_fast"]))
+    resp = KCM.responsive_history(t(ctx["j"]["ta"]["spec_fast"]), got, t(hl),
+                                  history_fix_frame_num=float(ctx["dc"]["history_fix_frame_num"]))
     close("responsive history after the fix", resp, ctx["j"]["resp"])
 
 
 @pytest.mark.parametrize("key", ["spec_slow", "spec_resp"])
 def test_history_clamping(ctx, key):
     got = TK.history_clamping(ctx["sc"], ctx["dc"], _in(ctx, RT.IN_VIEWZ), t(ctx["j"]["pre"]),
-                              t(ctx["j"]["ta"]["spec"]), t(ctx["j"]["resp"]),
-                              t(ctx["j"]["ta"]["history_length"]), which="spec")
+                              t(ctx["j"]["ta"]["spec"]), t(ctx["j"]["ta"]["spec_fast"]),
+                              t(ctx["j"]["fix"]), t(ctx["j"]["ta"]["history_length"]), which="spec")
     close(f"spec history_clamping {key}", got[key], ctx["j"]["hc"][key])
+
+
+@pytest.mark.parametrize("clamp", [True, False])
+def test_history_clamping_seeded(ctx, clamp):
+    """The pass against XLA on seeded inputs at 128x96: histories on both sides of
+    historyFixFrameNum, 10 % of the pixels beyond the denoising range, and the colour-box clamp
+    on (specularMaxFastAccumulatedFrameNum < specularMaxAccumulatedFrameNum, the default) and off
+    (both equal)."""
+    rng = np.random.default_rng(7)
+    h, w = 96, 128
+    far = 2.0 * float(ctx["jsc"]["denoising_range"])
+    view_z = rng.uniform(0.5, 40.0, (h, w)).astype(np.float32)
+    view_z[rng.random((h, w)) < 0.1] = far
+    noisy, slow, fast, fixed = rng.uniform(0.0, 1.0, (4, h, w, 4)).astype(np.float32)
+    hl = rng.integers(0, 12, (h, w)).astype(np.float32)
+    fix_num = ctx["dc_j"]["history_fix_frame_num"]
+    assert (hl <= fix_num).any() and (hl > fix_num).any()
+    key = "spec_max_fast_accumulated_frame_num"
+    n = ctx["dc_j"][key] if clamp else ctx["dc_j"]["spec_max_accumulated_frame_num"]
+    assert (n < ctx["dc_j"]["spec_max_accumulated_frame_num"]) == clamp
+    resp = jnp.where(jnp.asarray(hl <= fix_num)[..., None],
+                     jnp.concatenate([fixed[..., :3], fast[..., 3:]], -1), fast)
+    want = JK.history_clamping(ctx["jsc"], dict(ctx["dc_j"], **{key: n}), jnp.asarray(view_z),
+                               None, jnp.asarray(noisy), None, jnp.asarray(slow), None, resp,
+                               jnp.asarray(hl), ctx["jcfg"], pallas=False)
+    got = TK.history_clamping(ctx["sc"], dict(ctx["dc"], **{key: float(n)}), t(view_z), t(noisy),
+                              t(slow), t(fast), t(fixed), t(hl), which="spec")
+    for k in ("spec_slow", "spec_resp"):
+        close(f"history_clamping clamp={clamp} {k}", got[k], want[k])
 
 
 def test_anti_firefly(ctx):
@@ -453,7 +484,9 @@ def test_history_clamping_matches_oracle():
     hl = rng.uniform(0.0, 30.0, (OH, OW)).astype(np.float32)
     ref = OR.history_clamping(sc, dc, s["view_z"], noisy_d, noisy_s, slow_d, slow_s, resp_d,
                               resp_s, hl)
-    got = TK.history_clamping(sc, dc, t(s["view_z"]), t(noisy_s), t(slow_s), t(resp_s), t(hl),
+    # the responsive history is resp_s in the fix and out of it
+    got = TK.history_clamping(sc, dc, t(s["view_z"]), t(noisy_s), t(slow_s),
+                              t(resp_s), t(resp_s), t(hl),
                               which="spec")
     assert psnr(ref["spec"], got["spec_slow"].numpy()) >= BAR_DB
     assert psnr(ref["spec_fast"][..., :3], got["spec_resp"][..., :3].numpy()) >= BAR_DB

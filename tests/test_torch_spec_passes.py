@@ -104,7 +104,8 @@ def ctx():
         cfg, occlusion=False)
     return dict(sc=interop.consts_from_numpy(sc), dc=interop.consts_from_numpy(dc),
                 dc_off=interop.consts_from_numpy(dc_off), cfg=cfg,
-                state=interop.state_from_numpy(state), pool=pool, bcm=bcm, j=j)
+                state=interop.state_from_numpy(state), pool=pool, bcm=bcm, j=j, jsc=sc, jdc=dc,
+                jstate=state)
 
 
 def t(a):
@@ -198,10 +199,43 @@ def test_history_fix_specular(ctx):
     close("history fix fast", fast, ctx["j"]["hf"][1])
 
 
+# TS settings off the defaults: (shared constants, denoiser constants) changed
+TS_CASES = {"max_blur_radius_0": ({}, dict(max_blur_radius=0.0)),
+            "split_screen": (dict(split_screen=0.5, split_screen_prev=0.5), {})}
+
+
+@pytest.mark.parametrize("case", list(TS_CASES))
+def test_temporal_stabilization_specular_settings(ctx, case):
+    """The specular TS half against XLA with maxBlurRadius = 0 (no RCRS clamp of the luma) and
+    with splitScreen = 0.5 (no history left of the split, tested on the pixel's uv and on the
+    surface- and virtual-motion uv by the virtual history amount)."""
+    vz, nr, mv = _geom(ctx)
+    j = ctx["j"]
+    ta = j["ta"]
+    sc_set, dc_set = TS_CASES[case]
+    jsc = dict(ctx["jsc"], **{k: np.float32(v) for k, v in sc_set.items()})
+    jdc = dict(ctx["jdc"], **{k: np.float32(v) for k, v in dc_set.items()})
+    js = ctx["jstate"]
+    want = JK.temporal_stabilization(
+        jsc, jdc, jnp.asarray(vz.numpy()), jnp.asarray(nr.numpy()), jnp.asarray(mv.numpy()),
+        jnp.asarray(js["diff_accum"]), ta["accum_speed"], j["fbits"], ta["curvature"],
+        ta["virtual_history_amount"], None, j["post"], None, jnp.asarray(js["spec_luma_stab"]),
+        ta["hit_dist_for_tracking"], None, ctx["cfg"], has_diffuse=False, has_specular=True,
+        has_prepass=True)
+    assert not np.allclose(np.asarray(want["spec"]), np.asarray(j["ts"]["spec"]))
+    got = TK.temporal_stabilization_specular(
+        interop.consts_from_numpy(jsc), interop.consts_from_numpy(jdc), vz, nr, mv,
+        t(ta["accum_speed"]), t(j["fbits"]), t(ta["curvature"]),
+        t(ta["virtual_history_amount"]), t(j["post"]), ctx["state"]["spec_luma_stab"],
+        t(ta["hit_dist_for_tracking"]), None, ctx["cfg"], has_prepass=True)
+    for k in ("spec", "spec_luma_stab", "data1_spec"):
+        close(f"ts {case} {k}", got[k], want[k])
+
+
 @pytest.mark.parametrize("with_bcm", [False, True], ids=["plain", "base_color_metalness"])
 def test_temporal_stabilization_specular(ctx, with_bcm):
-    """H4 with the virtual-motion sample + the specular TS glue, with and without the MV
-    patching that IN_BASECOLOR_METALNESS turns on."""
+    """H4's specular half (the virtual-motion sample and the rest of the half) + the glue
+    before it, with and without the MV patching that IN_BASECOLOR_METALNESS turns on."""
     vz, nr, mv = _geom(ctx)
     j = ctx["j"]
     ta = j["ta"]
