@@ -19,15 +19,18 @@ Phases, each of which raises on failure (exit code != 0):
      per source, all started together;
   2. per REBLUR variant: run 3 frames of the orbit scene through `Engine(device="cuda")`,
      record every kernel call of frame 4, and hold each kernel against its plain PyTorch
-     version on the same inputs on the card (N4 `spatial_filter_fused` by stage: PrePass,
-     Blur, PostBlur); time both, and compute each call's bound (compulsory bytes over the
-     card's memory rate, or operations over its float32 rate); read each device kernel's
+     version on the same inputs on the card (N4 `spatial_filter_fused` and H2
+     `spatial_filter` by stage: PrePass, Blur, PostBlur); time both, and compute each
+     call's bound (compulsory bytes over the card's memory rate, or operations over its
+     float32 rate); read each device kernel's
      registers and spills from the build log's ptxas lines, work out its CTAs an SM, and
      count its SASS instructions (`cuobjdump -sass` of the library; null where the toolkit
      has no cuobjdump). An entry that launches several device kernels (N5, K23) lists each.
      The same again with `enableAntiFirefly=True` (the anti-firefly ring of history_fix and
      history_fix_fused), REBLUR_DIFFUSE_SPECULAR in performance mode (N4 only, held, not
-     timed), and with hit-distance reconstruction at radius 1 and 2 on the
+     timed), REBLUR_DIFFUSE and REBLUR_SPECULAR in performance mode and with both min
+     materials 0 and REBLUR_SPECULAR with usePrepassOnlyForSpecularMotionEstimation (H2 only,
+     held), and with hit-distance reconstruction at radius 1 and 2 on the
      punched frames (hitdist_recon only); then each SIGMA variant (K13 `sigma_blur` by
      pass, Blur and PostBlur: with the variant, its four modes); then RELAX_DIFFUSE and
      RELAX_SPECULAR (every kernel of each, all five à-trous calls; the share of pixels that
@@ -182,21 +185,28 @@ ENCODED = {f"RELAX_SPECULAR+{e}": dict(denoiser="RELAX_SPECULAR", signals=("spec
                                        encoding=e,
                                        settings=dict(hitDistanceReconstructionMode="AREA_3X3"))
            for e in ("SQ_LINEAR", "SQRT_LINEAR")}
+NO_MIN_MATERIAL = dict(minMaterialForDiffuse=0.0, minMaterialForSpecular=0.0)
 # RELAX's fast history at the slow one's frame num: the history clamp's colour box off
 NO_FAST_CLAMP = dict(diffuseMaxFastAccumulatedFrameNum=30, specularMaxFastAccumulatedFrameNum=30)
 # RELAX-packed frames with hit-distance holes: the kernel phase's RELAX AREA_3X3 runs
 RELAX_HOLES = {v: f"{v}+holes" for v in RELAX_VARIANTS}
 REBLUR_VARIANTS = ("REBLUR_DIFFUSE", "REBLUR_SPECULAR", "REBLUR_DIFFUSE_SPECULAR")
-SF_STAGES = ("prepass", "blur", "post_blur")  # N4's calls of a REBLUR_DIFFUSE_SPECULAR frame
+# the spatial filters' calls of a frame (N4 of REBLUR_DIFFUSE_SPECULAR, H2 of the others); H2's
+# `mode` indexes them
+SF_STAGES = ("prepass", "blur", "post_blur")
 HOLE_FRACTION = 0.3  # of the geometry pixels whose hit distance the frames with holes zero
 TRANSLUCENCY_RGB = (0.3, 0.6, 0.2)
 # Float operations a pixel, counted from the kernel sources (transcendentals count as one):
 # the fixed part of each kernel, and the parts that depend on the call (taps, signals)
 SF_TAP_OPS, SF_PREPASS_TAP_OPS = 110, 40   # reblur_filters.cuh:sf_filter, one tap
+SF_GEOM_OPS = 90                            # reblur_filters.cuh:filter_geometry (H2's centre)
+# H2's parameters of one signal (reblur_filters.cuh): the PrePass's by signal
+# (diff_prepass_params, spec_prepass_params); Blur and PostBlur take BAND_PARAM_OPS
+SF_PREPASS_PARAM_OPS = {False: 50, True: 120}
 HF_TAP_OPS, HF_MOMENT_OPS, HF_RING_OPS = 100, 27, 216  # :hf_filter tap, 3x3, the 72-tap ring
 FIXED_OPS = {"reblur_band": 0, "smb_resolve": 450, "ts_prelude": 80, "spec_ta_head": 120, "vmb_resolve": 600,
              "nearest_multi": 0, "spatial_filter": 0, "spatial_filter_fused": 0,
-             "history_fix": 0, "history_fix_fused": 0, "hitdist_recon": 40, "sigma_blur": 90,
+             "history_fix": 0, "history_fix_fused": 0, "hitdist_recon": 0, "sigma_blur": 90,
              "sigma_ts": 150, "relax_prepass": 60, "relax_smb_resolve": 260,
              "relax_history_fix": 10, "relax_clamp_moments": 820, "relax_atrous": 80,
              "relax_vmb_resolve": 250, "relax_antifirefly": 0, "bilinear_resolve": 0}
@@ -204,6 +214,10 @@ SMB_SIGNAL_OPS, TS_SAMPLE_OPS, NEAREST_SET_OPS = 200, 200, 12
 TS_SPEC_OPS = 30                            # ts_prelude.cu: the specular half's lerps, split
                                             # tests, responsive factor and magic curve
 HD_TAP_OPS, HD_SIGNAL_TAP_OPS = 60, 15      # hitdist_recon.cu: one tap, and per signal
+HD_CENTRE_OPS, HD_SPEC_CENTRE_OPS = 55, 35  # hitdist_recon.cu: the centre's parameters (+ the
+                                            # specular normal weight and roughness weight)
+HD_TEXEL_OPS = 20                           # hitdist_recon.cu: a staged texel (normal, z,
+                                            # roughness), (16 + 2r)^2 of them a 16x16 tile
 SB_DENSE_TAP_OPS, SB_POISSON_TAP_OPS = 30, 76  # sigma_blur.cu: one tap, + 3 a channel
 SB_TEXEL_OPS = 5                            # sigma_blur.cu: a staged texel (+ 1 a channel
                                             # on PostBlur), 20x20 of them a 16x16 tile
@@ -435,9 +449,13 @@ def _ops(name, a, k):
         ops += (TS_SAMPLE_OPS * 2 + TS_SPEC_OPS if spec else TS_SAMPLE_OPS) * px
     elif name == "nearest_multi":
         ops += NEAREST_SET_OPS * px * a[1].shape[0]
-    elif name in ("spatial_filter", "spatial_filter_fused"):
-        per = [a[4]] if name == "spatial_filter" else [a[5], a[6]]
-        for params in per:
+    elif name == "spatial_filter":  # the centre's geometry and parameters, then the taps
+        prepass = k["mode"] == 0
+        params = SF_PREPASS_PARAM_OPS[k["spec"]] if prepass else BAND_PARAM_OPS
+        ops += (SF_GEOM_OPS + params) * px
+        ops += (SF_TAP_OPS + (SF_PREPASS_TAP_OPS if prepass and k["spec"] else 0)) * ntaps * px
+    elif name == "spatial_filter_fused":
+        for params in (a[5], a[6]):
             extra = SF_PREPASS_TAP_OPS if sf.MODES[params.shape[0]] == "spec_prepass" else 0
             ops += (SF_TAP_OPS + extra) * ntaps * px
     elif name == "history_fix":
@@ -457,6 +475,8 @@ def _ops(name, a, k):
         taps = (2 * k["radius"] + 1) ** 2 - 1
         nsig = sum(x is not None for x in a[2:4])
         ops += (HD_TAP_OPS + HD_SIGNAL_TAP_OPS * nsig) * taps * px
+        ops += (HD_CENTRE_OPS + (HD_SPEC_CENTRE_OPS if a[3] is not None else 0)) * px
+        ops += HD_TEXEL_OPS * px * (16 + 2 * k["radius"]) ** 2 // (16 * 16)
     elif name == "sigma_blur":
         c = 1 if a[1] is None else a[1].shape[-1]
         ops += ((SB_DENSE_TAP_OPS + 3 * c) * 24 + (SB_POISSON_TAP_OPS + 3 * c) * 8) * px
@@ -775,6 +795,14 @@ def kernel_runs():
     ds = "REBLUR_DIFFUSE_SPECULAR"
     runs.append((f"{ds} perf", ds, ds, dict(enablePerformanceMode=True),
                  {"spatial_filter_fused"}, False))
+    # H2's other modes, held: performance mode's 6 taps, the material test with both min
+    # materials 0, the specular PrePass with usePrepassOnlyForSpecularMotionEstimation
+    for v in ("REBLUR_DIFFUSE", "REBLUR_SPECULAR"):
+        runs.append((f"{v} perf", v, v, dict(enablePerformanceMode=True), {"spatial_filter"},
+                     False))
+        runs.append((f"{v} min material 0", v, v, NO_MIN_MATERIAL, {"spatial_filter"}, False))
+    runs.append(("REBLUR_SPECULAR prepass only", "REBLUR_SPECULAR", "REBLUR_SPECULAR",
+                 dict(usePrepassOnlyForSpecularMotionEstimation=True), {"spatial_filter"}, False))
     for v in REBLUR_VARIANTS:
         for mode in ("AREA_3X3", "AREA_5X5"):
             runs.append((f"{v} {mode}", v, "REBLUR_DIFFUSE_SPECULAR+AREA_3X3",
@@ -907,6 +935,8 @@ def kernel_phase(w, h, frames):
             lab = label
             if name == "spatial_filter_fused":  # a frame's calls: PrePass, Blur, PostBlur
                 lab = f"{label} {next(stages)}"
+            if name == "spatial_filter":
+                lab = f"{label} {SF_STAGES[k['mode']]}"
             if name == "sigma_blur":  # a frame's calls: Blur, then PostBlur
                 lab = f"{label} {'blur' if k['first_pass'] else 'post_blur'}"
             if name == "relax_history_fix" and timed is True:

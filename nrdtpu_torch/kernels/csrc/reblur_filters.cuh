@@ -530,6 +530,153 @@ __device__ __forceinline__ void spec_blur_params(const BlurConsts& k, const Stag
 }
 
 // ---------------------------------------------------------------------------------------
+// The centre of H2 (spatial_filter.cu), computed in the kernel: the geometry of
+// nrdtpu_torch/passes/reblur/params.py:filter_geometry and the PrePass parameters of
+// diff_spatial_params / spec_spatial_params, line by line in float32 under the rules above
+// ---------------------------------------------------------------------------------------
+
+// vec3.py:decode_oct_raw: the octahedral decode normalized by rsqrt(max(|n|^2, 1e-15)) (the
+// taps' unpack_normal adds 1e-9 instead: the same value for every decoded normal, whose |n|^2
+// is at least 1/3, but each side is written as its torch code writes it)
+__device__ __forceinline__ V3 decode_oct_raw(float px, float py) {
+  const float qx = px * 2.0f - 1.0f, qy = py * 2.0f - 1.0f;
+  const float z = 1.0f - fabsf(qx) - fabsf(qy);
+  const float t = saturate(-z);
+  const float x = qx - t * (qx >= 0.0f ? 1.0f : -1.0f);
+  const float y = qy - t * (qy >= 0.0f ? 1.0f : -1.0f);
+  const float inv = rsqrtf(fmaxf(x * x + y * y + z * z, (float)1e-15));
+  return V3{x * inv, y * inv, z * inv};
+}
+
+// _REBLUR_GetHitDistanceNormalization (frontend.py:get_hit_distance_normalization); hdp: A, B,
+// C, D
+__device__ __forceinline__ float hit_distance_normalization(const float hdp[4], float view_z,
+                                                            float roughness) {
+  return (hdp[0] + fabsf(view_z) * hdp[1]) *
+         (1.0f + (hdp[2] - 1.0f) * saturate(exp2f(hdp[3] * roughness * roughness)));
+}
+
+// _NRD_GetSpecularDominantFactor (math.py:get_specular_dominant_factor)
+__device__ __forceinline__ float specular_dominant_factor(float nov, float roughness) {
+  const float a = (float)0.298475 * logf((float)39.4115 - (float)39.0029 * roughness);
+  return saturate(powf(saturate(1.0f - nov), (float)10.8649) * (1.0f - a) + a);
+}
+
+// the host constants of the geometry beyond SfFrame's (frustum, viewZ scale, ortho, hit-distance
+// parameters)
+struct GeometryConsts {
+  float wtv[9];  // world_to_view[:3, :3], row-major
+  float min_rect_dim_mul_unproject, plane_dist_sensitivity, unproject;
+};
+
+// one pixel's filter_geometry for one signal: hds its hit-distance scale, smc the specular
+// magic curve (specular only)
+struct FilterGeometry {
+  float view_z, roughness, nov, fsz, ga, gb, hds, smc;
+  V3 n, nv, xv, vv;
+};
+
+template <bool kSpec>
+__device__ __forceinline__ FilterGeometry filter_geometry(const SfFrame& f,
+                                                          const GeometryConsts& k, float u,
+                                                          float v, float raw_z, float4 nr) {
+  FilterGeometry g;
+  g.view_z = fabsf(raw_z) * f.view_z_scale;
+  g.n = decode_oct_raw(nr.x, nr.y);
+  g.roughness = nr.z;
+  g.nv = rotate<3>(k.wtv, g.n);
+  g.xv = reconstruct_view_position(u, v, f.fr, g.view_z, f.ortho);
+  if (f.ortho == 0.0f) {  // a frame constant: a uniform branch
+    const V3 m{-g.xv.x, -g.xv.y, -g.xv.z};
+    const float inv = rsqrtf(fmaxf(dot3(m, m), (float)1e-15));
+    g.vv = V3{m.x * inv, m.y * inv, m.z * inv};
+  } else {
+    g.vv = V3{0.0f, 0.0f, -1.0f};
+  }
+  g.nov = fabsf(dot3(g.nv, g.vv));
+  g.fsz = k.min_rect_dim_mul_unproject * (g.view_z + (1.0f - g.view_z) * fabsf(f.ortho));
+  g.ga = 1.0f / (k.plane_dist_sensitivity * g.fsz);
+  g.gb = -dot3(g.nv, g.xv) * g.ga;
+  g.smc = kSpec ? spec_magic_curve(g.roughness) : 0.0f;
+  g.hds = hit_distance_normalization(f.hdp, g.view_z, kSpec ? g.roughness : 1.0f);
+  return g;
+}
+
+// REBLUR_PRE_BLUR_NON_LINEAR_ACCUM_SPEED
+constexpr float kPrepassNlas = (float)(1.0 / (1.0 + 10.0));
+
+// the scaled rotator of a stage: the x terms by skew_x, the y terms by skew_y
+__device__ __forceinline__ void scaled_rotator(const StageConsts& s, float skew_x, float skew_y,
+                                               float* prm) {
+  prm[SF_ROT0] = s.rot[0] * skew_x;
+  prm[SF_ROT1] = s.rot[1] * skew_y;
+  prm[SF_ROT2] = s.rot[2] * skew_x;
+  prm[SF_ROT3] = s.rot[3] * skew_y;
+}
+
+// diffuse PrePass (params.py:diff_spatial_params, PRE_BLUR): hit_dist the signal's normalized
+// hit distance, radius the PrePass blur radius; no skew
+__device__ __forceinline__ void diff_prepass_params(const BlurConsts& k, const StageConsts& s,
+                                                    float radius, float hit_dist,
+                                                    const FilterGeometry& g,
+                                                    float prm[kSfDiffParams]) {
+  const float hit_dist_factor = saturate(hit_dist * g.hds / g.fsz);
+  float blur_radius = radius * sqrtf(saturate(hit_dist_factor));
+  blur_radius = fmaxf(blur_radius, k.min_blur_radius);
+  scaled_rotator(s, k.rect_inv_w * blur_radius, k.rect_inv_h * blur_radius, prm);
+  prm[SF_NWP] = normal_weight_param(kPrepassNlas, k.laf, k.one_minus_laf, 1.0f, k.enc_err) /
+                s.fraction_scale;
+  hit_distance_weight_params(hit_dist, kPrepassNlas, spec_magic_curve(1.0f), &prm[SF_HA],
+                             &prm[SF_HB]);
+  prm[SF_MHDW] = s.mhdw_scale;
+}
+
+// specular PrePass (params.py:spec_spatial_params, PRE_BLUR): the radius bound by the
+// specular lobe (REBLUR_PrePass.hlsli:71-80: the dominant direction, the lobe's tangent and
+// pixel_radius_to_world), the minimum radius scaled by the magic curve, and the planes of the
+// hitDistForTracking minimum
+__device__ __forceinline__ void spec_prepass_params(const BlurConsts& k, const StageConsts& s,
+                                                    const GeometryConsts& gk, float ortho,
+                                                    float radius, float hit_dist,
+                                                    const FilterGeometry& g,
+                                                    float prm[kSfPrepassParams]) {
+  const float hd = hit_dist * g.hds;
+  const float hit_dist_factor = saturate(hd / g.fsz);
+  float blur_radius = radius * sqrtf(saturate(g.roughness * hit_dist_factor));
+  // GetSpecularDominantDirection(nv, vv, roughness): lerp(n, reflect(-v, n), f), normalized
+  const float dvf = specular_dominant_factor(g.nov, g.roughness);
+  const V3 i{-g.vv.x, -g.vv.y, -g.vv.z};
+  const float d = 2.0f * dot3(g.nv, i);
+  const V3 r{i.x - d * g.nv.x, i.y - d * g.nv.y, i.z - d * g.nv.z};
+  const V3 l{g.nv.x + (r.x - g.nv.x) * dvf, g.nv.y + (r.y - g.nv.y) * dvf,
+             g.nv.z + (r.z - g.nv.z) * dvf};
+  const float inv = rsqrtf(fmaxf(dot3(l, l), (float)1e-15));
+  const V3 dv{l.x * inv, l.y * inv, l.z * inv};
+  const float nod = fabsf(dot3(g.nv, dv));
+  // GetSpecularLobeTanHalfAngle(roughness, REBLUR_MAX_PERCENT_OF_LOBE_VOLUME_FOR_PRE_PASS)
+  const float m = g.roughness * g.roughness;
+  const float p = (float)0.3;
+  const float lobe_tan = m * sqrtf(p / fmaxf(1.0f - p, (float)1e-6));
+  const float lobe_radius = hd * nod * lobe_tan;
+  const float z = g.view_z + hd * dvf;
+  const float min_blur_radius = lobe_radius / (gk.unproject * (z + (1.0f - z) * fabsf(ortho)));
+  blur_radius = fminf(blur_radius, min_blur_radius);
+  blur_radius = blur_radius * s.radius_scale;
+  blur_radius = fmaxf(blur_radius, k.min_blur_radius * g.smc);
+  scaled_rotator(s, k.rect_inv_w * blur_radius, k.rect_inv_h * blur_radius, prm);
+  prm[SF_NWP] = normal_weight_param(kPrepassNlas, k.laf, k.one_minus_laf, g.roughness,
+                                    k.enc_err) / s.fraction_scale;
+  hit_distance_weight_params(hit_dist, kPrepassNlas, g.smc, &prm[SF_HA], &prm[SF_HB]);
+  prm[SF_MHDW] = s.mhdw_scale * g.smc;
+  roughness_weight_params(g.roughness, s.rf_scaled, &prm[SF_WR_A], &prm[SF_WR_B]);
+  prm[SF_HIT_DIST] = hd;
+  prm[SF_ROUGH] = g.roughness;
+  prm[SF_XVX] = g.xv.x;
+  prm[SF_XVY] = g.xv.y;
+  prm[SF_XVZ] = g.xv.z;
+}
+
+// ---------------------------------------------------------------------------------------
 // The history fix and its clamp for one (16x16 tile, signal) CTA: H3 (history_fix.cu, one
 // signal), N5 (history_fix_fused.cu) and phase 1 of K23 (reblur_band.cu, two signals) run this
 // one body. The plain version is nrdtpu_torch/kernels/history_fix.py:history_fix_ref.

@@ -1,67 +1,128 @@
-// H2: REBLUR spatial-filter tap loop (PrePass, Blur, PostBlur), diffuse or specular.
-// Replaces nrdtpu/kernels/reblur_blur2.py:264 spatial_filter_taps_pallas2; computes the tap
-// loop of nrdtpu/passes/reblur/kernels.py:844-873 / :2164-2189 (diffuse) and :1710-1756
-// (specular, with the PrePass hitDistForTracking minimum) per pixel, in
-// reblur_filters.cuh:sf_filter, one kernel per tap count and mode. The plain version is
-// nrdtpu_torch/kernels/spatial_filter.py:spatial_filter_ref. One thread per pixel.
+// H2: REBLUR spatial filter of one signal (PrePass, Blur, PostBlur), diffuse or specular, with
+// its centre's geometry and parameters. Replaces nrdtpu/kernels/reblur_blur2.py:264
+// spatial_filter_taps_pallas2 and v1 nrdtpu/kernels/reblur_pallas.py:1207; computes
+// nrdtpu/passes/reblur/kernels.py:763 (diffuse), :1564 (specular), :2075 (the diffuse PrePass)
+// with their geometry (:1783) per pixel. The plain version is
+// nrdtpu_torch/kernels/spatial_filter.py:spatial_filter_ref.
+//
+// Design for the H100: one thread a pixel, 16x16 CTAs. The centre reads its raw viewZ, packed
+// normal, signal and (Blur, PostBlur) accumulation speed, and computes what the pass glue
+// computed into 16-23 planes before: the frame geometry (reblur_filters.cuh:filter_geometry),
+// then the stage's parameters (diff_prepass_params, spec_prepass_params, diff_blur_params,
+// spec_blur_params). Then sf_filter's tap loop, unchanged. The modes are template parameters:
+// the tap count (8, or 6 in performance mode), the signal and the PrePass. The PrePass, which
+// runs before the history fix, unpacks its taps' geometry from the packed planes (PackedTaps);
+// Blur and PostBlur read the (unpacked normal, scaled viewZ) plane that H3 writes
+// (UnpackedTaps: 8-9 % faster than PackedTaps there on frame 4 at 2560x1440, PERF.md).
+// kMinCtas: the CTAs an SM that ptxas is asked to fit (4: 50-59 registers, no spill; at 5 the
+// specular instances spilled 8-24 B and ran no faster, PERF.md).
 #include "reblur_filters.cuh"
 
 namespace {
 
 using nrd::Image;
 
+constexpr int kMinCtas = 4;
+
 struct SfArgs {
-  const float* signal;  // (h, w, 4)
-  const float* view_z;  // (h, w) raw
-  const float* nr;      // (h, w, 4)
-  const float* shared;  // (kSfShared, h, w), order of nrd::SfShared
-  const float* params;  // (nparams, h, w), order of nrd::SfParam
-  float* out;           // (h, w, 4)
-  float* hdt;           // (h, w) hitDistForTracking, specular PrePass only
-  float min_material;
+  const float* signal;     // (h, w, 4)
+  const float* view_z;     // (h, w) raw
+  const float* nr;         // (h, w, 4)
+  const float* data1;      // (h, w) accumulation speed: Blur and PostBlur only
+  const float4* geometry;  // (h, w) the taps' unpacked normal and scaled viewZ (not PrePass)
+  float* out;              // (h, w, 4)
+  float* hdt;              // (h, w) hitDistForTracking, specular PrePass only
+  float min_material, prepass_radius;
   nrd::SfFrame f;
+  nrd::GeometryConsts geo;
+  nrd::BlurConsts blur;
+  nrd::StageConsts stage;
 };
 
-template <int kTaps, nrd::SfMode kMode>
-__global__ void __launch_bounds__(256) spatial_filter_kernel(SfArgs a) {
+template <int kTaps, bool kSpec, bool kPrepass>
+__global__ void __launch_bounds__(256, kMinCtas) spatial_filter_kernel(SfArgs a) {
+  constexpr nrd::SfMode mode = !kSpec ? nrd::SfMode::kDiffuse
+                               : kPrepass ? nrd::SfMode::kPrepass : nrd::SfMode::kSpec;
   const int x = blockIdx.x * nrd::kBlock + threadIdx.x;
   const int y = blockIdx.y * nrd::kBlock + threadIdx.y;
   if (x >= a.f.w || y >= a.f.h) return;
   const size_t i = (size_t)y * a.f.w + x;
-  const size_t plane = (size_t)a.f.w * a.f.h;
   const Image<float, 4> nr{a.nr, a.f.w, a.f.h};
-  const nrd::Centre c = nrd::sf_centre(a.shared + i, plane, nr, x, y);
+  const Image<float, 4> sig{a.signal, a.f.w, a.f.h};
+  const float4 nrc = __ldg(reinterpret_cast<const float4*>(a.nr) + i);
+  const float hit_dist = __ldg(a.signal + 4 * i + 3);
+  const float data1 = kPrepass ? 0.0f : __ldg(a.data1 + i);
+  const float u = nrd::pixel_u(x, a.f.w), v = nrd::pixel_u(y, a.f.h);
+  const nrd::FilterGeometry g =
+      nrd::filter_geometry<kSpec>(a.f, a.geo, u, v, __ldg(a.view_z + i), nrc);
+
+  float prm[kSpec ? nrd::kSfPrepassParams : nrd::kSfDiffParams];
+  if constexpr (kPrepass && kSpec)
+    nrd::spec_prepass_params(a.blur, a.stage, a.geo, a.f.ortho, a.prepass_radius, hit_dist, g,
+                             prm);
+  else if constexpr (kPrepass)
+    nrd::diff_prepass_params(a.blur, a.stage, a.prepass_radius, hit_dist, g, prm);
+  else if constexpr (kSpec)
+    nrd::spec_blur_params(a.blur, a.stage, hit_dist, data1, g.hds, g.fsz, g.nov, g.roughness,
+                          g.smc, prm);
+  else
+    nrd::diff_blur_params(a.blur, a.stage, hit_dist, data1, g.hds, g.fsz, g.nov, g.nv.x, g.nv.y,
+                          prm);
+
+  nrd::Centre c;
+  c.x = x;
+  c.y = y;
+  c.u = u;
+  c.v = v;
+  c.material = nrc.w * 3.0f;
+  c.ga = g.ga;
+  c.gb = g.gb;
+  c.fsz = g.fsz;
+  c.n = g.n;
+  c.nv = g.nv;
   float out[4];
-  nrd::sf_filter<kTaps, kMode>(
-      a.f, c, a.params + i, plane, a.min_material, Image<float, 4>{a.signal, a.f.w, a.f.h},
-      nrd::PackedTaps{nr, Image<float, 1>{a.view_z, a.f.w, a.f.h}, a.f.view_z_scale}, out,
-      a.hdt + i);
+  float* const hdt = kSpec && kPrepass ? a.hdt + i : nullptr;
+  if constexpr (kPrepass)
+    nrd::sf_filter<kTaps, mode>(a.f, c, prm, 1, a.min_material, sig,
+                                nrd::PackedTaps{nr, Image<float, 1>{a.view_z, a.f.w, a.f.h},
+                                                a.f.view_z_scale},
+                                out, hdt);
+  else
+    nrd::sf_filter<kTaps, mode>(a.f, c, prm, 1, a.min_material, sig,
+                                nrd::UnpackedTaps{a.geometry, nr}, out, hdt);
   reinterpret_cast<float4*>(a.out)[i] = make_float4(out[0], out[1], out[2], out[3]);
 }
 
 using Kernel = void (*)(SfArgs);
 
 template <int kTaps>
-Kernel pick(int nparams) {
-  using nrd::SfMode;
-  return nparams == nrd::kSfDiffParams   ? spatial_filter_kernel<kTaps, SfMode::kDiffuse>
-         : nparams == nrd::kSfSpecParams ? spatial_filter_kernel<kTaps, SfMode::kSpec>
-                                         : spatial_filter_kernel<kTaps, SfMode::kPrepass>;
+Kernel pick(bool spec, bool prepass) {
+  if (prepass)
+    return spec ? spatial_filter_kernel<kTaps, true, true>
+                : spatial_filter_kernel<kTaps, false, true>;
+  return spec ? spatial_filter_kernel<kTaps, true, false>
+              : spatial_filter_kernel<kTaps, false, false>;
 }
 
 }  // namespace
 
-// ptrs: signal, view_z, nr, shared, params, out, hdt
-// consts: frustum[4], rect_w, rect_h, view_z_scale, ortho_mode, min_material, ntaps (8 or 6),
-//         nparams; in PrePass mode also hit-distance params[4], use_prepass_not_only,
-//         frame index low 16 bits, high 16 bits
+// ptrs: signal, view_z, nr, data1 and geometry (null in the PrePass), out, hdt (specular
+//       PrePass only)
+// consts (spatial_filter.py:launch_consts): frustum[4], rect_w, rect_h, rect_inv_w,
+//         rect_inv_h, view_z_scale, ortho_mode, world_to_view[3][3], min_rect_dim_mul_unproject,
+//         unproject, plane_dist_sensitivity, hit-distance params[4], lobe angle fraction and
+//         1 - it, encoding error, max and min blur radius, the signal's PrePass blur radius, the
+//         fade's a and b - a, the stage's rotator[4], fraction scale, radius scale, min
+//         hit-distance weight scale and scaled roughness fraction, min material, ntaps (8 or
+//         6), stage (0 PrePass, 1 Blur, 2 PostBlur), specular (0 or 1),
+//         use_prepass_not_only, frame index low 16 bits, high 16 bits
 extern "C" int nrd_spatial_filter(void* const* p, const float* c, int w, int h, void* stream) {
   SfArgs a;
   a.signal = (const float*)p[0];
   a.view_z = (const float*)p[1];
   a.nr = (const float*)p[2];
-  a.shared = (const float*)p[3];
-  a.params = (const float*)p[4];
+  a.data1 = (const float*)p[3];
+  a.geometry = (const float4*)p[4];
   a.out = (float*)p[5];
   a.hdt = (float*)p[6];
   a.f.w = w;
@@ -71,25 +132,40 @@ extern "C" int nrd_spatial_filter(void* const* p, const float* c, int w, int h, 
   a.f.rect_h = c[5];
   a.f.inv_rect_w = 1.0f / c[4];
   a.f.inv_rect_h = 1.0f / c[5];
-  a.f.view_z_scale = c[6];
-  a.f.ortho = c[7];
-  a.min_material = c[8];
-  const int ntaps = (int)c[9], nparams = (int)c[10];
-  if ((ntaps != 8 && ntaps != 6) || (nparams != nrd::kSfDiffParams &&
-                                     nparams != nrd::kSfSpecParams &&
-                                     nparams != nrd::kSfPrepassParams))
+  a.blur.rect_inv_w = c[6];
+  a.blur.rect_inv_h = c[7];
+  a.f.view_z_scale = c[8];
+  a.f.ortho = c[9];
+  for (int k = 0; k < 9; ++k) a.geo.wtv[k] = c[10 + k];
+  a.geo.min_rect_dim_mul_unproject = c[19];
+  a.geo.unproject = c[20];
+  a.geo.plane_dist_sensitivity = c[21];
+  for (int k = 0; k < 4; ++k) a.f.hdp[k] = c[22 + k];
+  a.blur.laf = c[26];
+  a.blur.one_minus_laf = c[27];
+  a.blur.enc_err = c[28];
+  a.blur.max_blur_radius = c[29];
+  a.blur.min_blur_radius = c[30];
+  a.prepass_radius = c[31];
+  a.blur.fade_a = c[32];
+  a.blur.fade_ba = c[33];
+  for (int k = 0; k < 4; ++k) a.stage.rot[k] = c[34 + k];
+  a.stage.fraction_scale = c[38];
+  a.stage.radius_scale = c[39];
+  a.stage.mhdw_scale = c[40];
+  a.stage.rf_scaled = c[41];
+  a.min_material = c[42];
+  const int ntaps = (int)c[43], stage = (int)c[44];
+  const bool spec = c[45] != 0.0f, prepass = stage == 0;
+  a.f.use_prepass_not_only = c[46];
+  a.f.frame_index = (uint32_t)c[47] | ((uint32_t)c[48] << 16);
+  if ((ntaps != 8 && ntaps != 6) || stage < 0 || stage > 2 ||
+      (!prepass && (a.data1 == nullptr || a.geometry == nullptr)) ||
+      (spec && prepass && a.hdt == nullptr))
     return (int)cudaErrorInvalidValue;
-  for (int k = 0; k < 4; ++k) a.f.hdp[k] = 0.0f;
-  a.f.use_prepass_not_only = 0.0f;
-  a.f.frame_index = 0;
-  if (nparams == nrd::kSfPrepassParams) {
-    for (int k = 0; k < 4; ++k) a.f.hdp[k] = c[11 + k];
-    a.f.use_prepass_not_only = c[15];
-    a.f.frame_index = (uint32_t)c[16] | ((uint32_t)c[17] << 16);
-  }
-  dim3 block(nrd::kBlock, nrd::kBlock);
-  dim3 grid((w + nrd::kBlock - 1) / nrd::kBlock, (h + nrd::kBlock - 1) / nrd::kBlock);
-  const Kernel kernel = ntaps == 8 ? pick<8>(nparams) : pick<6>(nparams);
+  const dim3 block(nrd::kBlock, nrd::kBlock);
+  const dim3 grid((w + nrd::kBlock - 1) / nrd::kBlock, (h + nrd::kBlock - 1) / nrd::kBlock);
+  const Kernel kernel = ntaps == 8 ? pick<8>(spec, prepass) : pick<6>(spec, prepass);
   kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -11,8 +11,9 @@ clamp to the 3x3 moments). The specular mode (`params` with the specular planes)
 relaxed roughness weight of each tap and the low-roughness hit-distance guide (`:653-668`).
 With `anti_firefly=True` the luminance is first clamped to the moments of the fast history
 over the 9x9 square minus the 3x3 (72 taps, radius 4 in every mode, `:705-719`; the TPU
-kernel's ring is `reblur_hfix2.py:209-212`). It returns the clamped signal and the fast
-history; the moments stay in the kernel.
+kernel's ring is `reblur_hfix2.py:209-212`). It returns the clamped signal, the fast history
+and the tap-geometry plane (each pixel's unpacked normal and scaled viewZ) that the kernel
+writes for its taps, which H2's Blur and PostBlur then read; the moments stay in the kernel.
 
 The kernel is the one-signal instance of the body that N5 and K23 run for two signals
 (`csrc/reblur_filters.cuh:history_fix_cta`).
@@ -62,11 +63,18 @@ def anti_firefly_offsets():
             if not (abs(dy) <= 1 and abs(dx) <= 1)]
 
 
-def history_fix_ref(signal, view_z_in, normal_roughness, data1, fast_history, shared, params,
+def tap_geometry_ref(normal_roughness, view_z_in, view_z_scale):
+    """(h, w, 4): each pixel's unpacked normal and scaled viewZ, what a tap reads of its texel
+    (`csrc/reblur_filters.cuh:unpacked_geometry`)."""
+    n, _, _ = fe.unpack_normal_roughness(normal_roughness)
+    return torch.cat([n, (torch.abs(view_z_in) * view_z_scale)[..., None]], -1)
+
+
+def taps_and_clamp_ref(signal, view_z_in, normal_roughness, data1, fast_history, shared, params,
                     smc, *, frustum, rect_size_inv, view_z_scale, ortho_mode, min_material, dc,
                     anti_firefly=False):
-    """Plain PyTorch version of the kernel: the XLA stride-tap loop, the 3x3 moments and the
-    ring, then `params.history_fix_clamp`. Returns (signal_out, fast_out)."""
+    """The XLA stride-tap loop, the 3x3 moments and the ring, then
+    `params.history_fix_clamp`. Returns (signal_out, fast_out)."""
     h, w = view_z_in.shape
     spec = params.shape[0] == len(PARAMS) + len(SPEC_PARAMS)
     p = dict(zip(SHARED, shared))
@@ -121,6 +129,20 @@ def history_fix_ref(signal, view_z_in, normal_roughness, data1, fast_history, sh
                                not spec)
 
 
+def history_fix_ref(signal, view_z_in, normal_roughness, data1, fast_history, shared, params,
+                    smc, *, frustum, rect_size_inv, view_z_scale, ortho_mode, min_material, dc,
+                    anti_firefly=False):
+    """Plain PyTorch version of the kernel: the XLA stride-tap loop, the 3x3 moments and the
+    ring, then `params.history_fix_clamp`; and the tap geometry. Returns dict(signal, fast,
+    geometry)."""
+    out, fast = taps_and_clamp_ref(
+        signal, view_z_in, normal_roughness, data1, fast_history, shared, params, smc,
+        frustum=frustum, rect_size_inv=rect_size_inv, view_z_scale=view_z_scale,
+        ortho_mode=ortho_mode, min_material=min_material, dc=dc, anti_firefly=anti_firefly)
+    return dict(signal=out, fast=fast,
+                geometry=tap_geometry_ref(normal_roughness, view_z_in, view_z_scale))
+
+
 def check_params(shared, params):
     if shared.shape[0] != len(SHARED):
         raise ValueError(f"shared: {shared.shape[0]} planes")
@@ -134,8 +156,9 @@ def history_fix(signal, view_z_in, normal_roughness, data1, fast_history, shared
     """signal (h, w, 4), data1 = accumulated frames (h, w), fast_history (h, w), shared float32
     planes named by SHARED (9, h, w), params named by PARAMS (5, h, w; diffuse) or PARAMS +
     SPEC_PARAMS (9, h, w; specular); smc (h, w): the specular magic curve of the roughness,
-    None for diffuse; dc: the REBLUR frame constants (the clamp's). Returns (signal_out (h, w,
-    4), fast_out (h, w))."""
+    None for diffuse; dc: the REBLUR frame constants (the clamp's). Returns dict(signal (h, w,
+    4), fast (h, w), geometry (h, w, 4)): the clamped signal, the fast history and the tap
+    geometry."""
     global launches
     kw = dict(frustum=frustum, rect_size_inv=rect_size_inv, view_z_scale=view_z_scale,
               ortho_mode=ortho_mode, min_material=min_material, dc=dc,
@@ -160,11 +183,11 @@ def history_fix(signal, view_z_in, normal_roughness, data1, fast_history, shared
         build.check(name, t, dev, f32, shape)
     out = torch.empty((h, w, 4), dtype=f32, device=dev)
     fast = torch.empty((h, w), dtype=f32, device=dev)
-    geometry = torch.empty((h, w, 4), dtype=f32, device=dev)  # the taps' geometry, scratch
+    geometry = torch.empty((h, w, 4), dtype=f32, device=dev)  # the taps' geometry
     consts = [*frustum, rect_size_inv[0], rect_size_inv[1], view_z_scale, ortho_mode,
               min_material, spec, anti_firefly, P.history_fix_frame_div(dc),
               P.fast_history_enabled(dc)]
     build.launch("nrd_history_fix", [t for _, t, _ in ins[:7]] + [smc, out, fast, geometry],
                  consts, w, h)
     launches += 1
-    return out, fast
+    return dict(signal=out, fast=fast, geometry=geometry)

@@ -30,21 +30,14 @@ from __future__ import annotations
 
 import torch
 
-from .. import frontend as fe
 from ..passes.reblur import params as P
 from . import build
 from . import history_fix as hf
+from .history_fix import tap_geometry_ref
 
 launches = 0
 
 SIGNALS = ("diff", "spec")
-
-
-def tap_geometry_ref(normal_roughness, view_z_in, view_z_scale):
-    """(h, w, 4): each pixel's unpacked normal and scaled viewZ, what a tap reads of its texel
-    (`csrc/reblur_filters.cuh:unpacked_geometry`)."""
-    n, _, _ = fe.unpack_normal_roughness(normal_roughness)
-    return torch.cat([n, (torch.abs(view_z_in) * view_z_scale)[..., None]], -1)
 
 
 def history_fix_fused_ref(diff, spec, view_z_in, normal_roughness, diff_data1, spec_data1,
@@ -56,10 +49,10 @@ def history_fix_fused_ref(diff, spec, view_z_in, normal_roughness, diff_data1, s
     kw = dict(frustum=frustum, rect_size_inv=rect_size_inv, view_z_scale=view_z_scale,
               ortho_mode=ortho_mode, dc=dc)
     out = {}
-    out["diff"], out["diff_fast"] = hf.history_fix_ref(
+    out["diff"], out["diff_fast"] = hf.taps_and_clamp_ref(
         diff, view_z_in, normal_roughness, diff_data1, diff_fast, shared, diff_params, None,
         min_material=diff_min_material, anti_firefly=anti_firefly[0], **kw)
-    out["spec"], out["spec_fast"] = hf.history_fix_ref(
+    out["spec"], out["spec_fast"] = hf.taps_and_clamp_ref(
         spec, view_z_in, normal_roughness, spec_data1, spec_fast, shared, spec_params, smc,
         min_material=spec_min_material, anti_firefly=anti_firefly[1], **kw)
     out["geometry"] = tap_geometry_ref(normal_roughness, view_z_in, view_z_scale)

@@ -1,20 +1,22 @@
-"""REBLUR hit-distance reconstruction - kernel `csrc/hitdist_recon.cu`.
+"""REBLUR hit-distance reconstruction - kernel `csrc/hitdist_recon.cu` (K12).
 
-Replaces `nrdtpu/kernels/reblur_pallas.py:1596` (`hitdist_recon_pallas`). Computes the taps
-of the XLA function `nrdtpu/passes/reblur/kernels.py:2212-2293`: where a signal's hit distance
-is 0 (a pixel the renderer traced no hit for), it is refilled from the (2r+1)^2 neighbourhood,
-r = 1 (AREA_3X3) or 2 (AREA_5X5), centre excluded. A non-zero centre keeps its value through a
+Replaces `nrdtpu/kernels/reblur_pallas.py:1596` (`hitdist_recon_pallas`). Computes the XLA
+function `nrdtpu/passes/reblur/kernels.py:2212-2293`: where a signal's hit distance is 0 (a
+pixel the renderer traced no hit for), it is refilled from the (2r+1)^2 neighbourhood, r = 1
+(AREA_3X3) or 2 (AREA_5X5), centre excluded. A non-zero centre keeps its value through a
 1000x weight. Each tap is weighted by in-screen (strict `0 < uv < 1`, as XLA's
 `is_in_screen_nearest`; the TPU kernel's own test is not carried over), a Gaussian of |o|/2,
-the plane distance to the centre's plane (`ga`, `gb`), the normal angle (the signal's
-normal-weight parameter) and, for specular, the roughness^2 weight (`ra`, `rb`); zero taps
-weigh 0. Diffuse, specular or both in one launch; the other channels stay in the glue. The
-taps' roughness is unpacked with the roughness encoding, a template parameter of the kernel.
+the plane distance to the centre's plane, the normal angle (the signal's normal-weight
+parameter) and, for specular, the roughness^2 weight; zero taps weigh 0. Diffuse, specular or
+both in one launch. The kernel computes the centre's parameters (`centre_params`) from viewZ,
+the packed normal and the frame constants, and writes each signal whole: .xyz copied, .w
+reconstructed. The roughness is unpacked with the roughness encoding, a template parameter of
+the kernel. REBLUR and RELAX (its raw hit distance) both call it.
 
 Bound on the H100: memory. Per pixel at 2560x1440 it reads viewZ (4 B), the packed normal
-(16 B), each signal (16 B, only its .w is used), the parameter planes (12-24 B) and writes
-4 B a signal: ~84 B/px with both signals, ~310 MB, ~0.09 ms at 3.35 TB/s. The taps are L1/L2
-neighbours. One thread per pixel in 16x16 blocks with plain global loads.
+(16 B) and each signal (16 B), and writes each signal (16 B): 52 B/px with one signal, 84 B/px
+with both. Each CTA stages its (16 + 2r)^2 window of derived texels (normal, scaled viewZ,
+decoded roughness, each signal's hit distance) in shared memory, where the taps read them.
 """
 
 from __future__ import annotations
@@ -34,13 +36,44 @@ TAPS = {r: [(dy, dx, nm.get_gaussian_weight(float((dx * dx + dy * dy) ** 0.5) * 
             for dy, dx in stencil.offsets_square(r, exclude_center=True)] for r in (1, 2)}
 
 
-def hitdist_recon_ref(view_z_in, normal_roughness, diff, spec, params, *, radius,
-                      view_z_scale, frustum, ortho_mode, rect_size_inv, world_to_view,
-                      roughness_encoding=RoughnessEncoding.LINEAR):
-    """Plain PyTorch version of the kernel (the tap loop of the XLA function). diff, spec:
-    (h, w, 4) signals or None; params: (P, h, w) = ga, gb, then the diffuse normal-weight
-    parameter if diff, then the specular one, ra and rb if spec. Returns {signal: (h, w)}."""
+def centre_params(view_z_in, normal_roughness, has_diff, has_spec, *, view_z_scale, frustum,
+                  ortho_mode, world_to_view, min_rect_dim_mul_unproject, plane_dist_sensitivity,
+                  enc_err, roughness_encoding=RoughnessEncoding.LINEAR):
+    """(P, h, w) = ga, gb, then the diffuse normal-weight parameter if has_diff, then the
+    specular one, ra and rb if has_spec: the centre's parameters that the kernel computes per
+    pixel, in the XLA function's op order (`kernels.py:2212-2254`)."""
     h, w = view_z_in.shape
+    uv = resample.pixel_uv_grid(h, w, view_z_in.device)
+    view_z = torch.abs(view_z_in) * view_z_scale
+    n, roughness, _ = fe.unpack_normal_roughness(normal_roughness,
+                                                 roughness_encoding=roughness_encoding)
+    nv = nm.rotate_vector(world_to_view, n)
+    xv = nm.reconstruct_view_position(uv, frustum, view_z, ortho_mode)
+    frustum_size = nm.get_frustum_size(min_rect_dim_mul_unproject, ortho_mode, view_z)
+    ones = torch.ones_like(view_z)
+    params = list(nm.get_geometry_weight_params(plane_dist_sensitivity, frustum_size, xv, nv))
+    if has_diff:
+        params.append(nm.get_normal_weight_param(ones, 1.0, ones, enc_err))
+    if has_spec:
+        ra, rb = nm.get_relaxed_roughness_weight_params(roughness * roughness)
+        params += [nm.get_normal_weight_param(ones, 1.0, roughness, enc_err), ra, rb]
+    return torch.stack(params)
+
+
+def hitdist_recon_ref(view_z_in, normal_roughness, diff, spec, *, radius, view_z_scale, frustum,
+                      ortho_mode, rect_size_inv, world_to_view, min_rect_dim_mul_unproject,
+                      plane_dist_sensitivity, enc_err,
+                      roughness_encoding=RoughnessEncoding.LINEAR):
+    """Plain PyTorch version of the kernel: the centre's parameters (`centre_params`), the tap
+    loop of the XLA function, and each signal with its reconstructed hit distance. diff, spec:
+    (h, w, 4) signals or None. Returns {signal: (h, w, 4)}."""
+    h, w = view_z_in.shape
+    params = centre_params(
+        view_z_in, normal_roughness, diff is not None, spec is not None,
+        view_z_scale=view_z_scale, frustum=frustum, ortho_mode=ortho_mode,
+        world_to_view=world_to_view, min_rect_dim_mul_unproject=min_rect_dim_mul_unproject,
+        plane_dist_sensitivity=plane_dist_sensitivity, enc_err=enc_err,
+        roughness_encoding=roughness_encoding)
     uv = resample.pixel_uv_grid(h, w, view_z_in.device)
     view_z = torch.abs(view_z_in) * view_z_scale
     n, _, _ = fe.unpack_normal_roughness(normal_roughness)
@@ -49,9 +82,10 @@ def hitdist_recon_ref(view_z_in, normal_roughness, diff, spec, params, *, radius
     ga, gb = params[0], params[1]
     sig = {}
     if diff is not None:
-        sig["diff"] = dict(hd=diff[..., 3], nwp=next(rest))
+        sig["diff"] = dict(src=diff, hd=diff[..., 3], nwp=next(rest))
     if spec is not None:
-        sig["spec"] = dict(hd=spec[..., 3], nwp=next(rest), ra=next(rest), rb=next(rest))
+        sig["spec"] = dict(src=spec, hd=spec[..., 3], nwp=next(rest), ra=next(rest),
+                           rb=next(rest))
     for s in sig.values():
         s["sum"] = 1000.0 * (s["hd"] != 0.0).to(torch.float32)
         s["acc"] = s["hd"] * s["sum"]
@@ -74,48 +108,48 @@ def hitdist_recon_ref(view_z_in, normal_roughness, diff, spec, params, *, radius
             ws = ws * (tap != 0.0).to(torch.float32)
             s["acc"] = s["acc"] + tap * ws
             s["sum"] = s["sum"] + ws
-    return {name: s["acc"] / torch.clamp_min(s["sum"], fe.NRD_EPS) for name, s in sig.items()}
+    return {name: torch.cat([s["src"][..., :-1],
+                             (s["acc"] / torch.clamp_min(s["sum"], fe.NRD_EPS))[..., None]], -1)
+            for name, s in sig.items()}
 
 
-def hitdist_recon(view_z_in, normal_roughness, diff, spec, params, *, radius, view_z_scale,
-                  frustum, ortho_mode, rect_size_inv, world_to_view,
-                  roughness_encoding=RoughnessEncoding.LINEAR):
+def hitdist_recon(view_z_in, normal_roughness, diff, spec, *, radius, view_z_scale, frustum,
+                  ortho_mode, rect_size_inv, world_to_view, min_rect_dim_mul_unproject,
+                  plane_dist_sensitivity, enc_err, roughness_encoding=RoughnessEncoding.LINEAR):
     """view_z_in (h, w), normal_roughness (h, w, 4), diff / spec (h, w, 4) or None (at least
-    one given), params (P, h, w) as `hitdist_recon_ref` says; radius 1 or 2;
-    roughness_encoding: how the taps' packed roughness is unpacked. Returns
-    {"diff": (h, w), "spec": (h, w)} for the signals given: the reconstructed hit distance."""
+    one given); radius 1 or 2; the frame constants of `centre_params`; roughness_encoding: how
+    the packed roughness is unpacked. Returns {"diff": (h, w, 4), "spec": (h, w, 4)} for the
+    signals given: each with its reconstructed hit distance."""
     global launches
     kw = dict(radius=radius, view_z_scale=view_z_scale, frustum=frustum, ortho_mode=ortho_mode,
               rect_size_inv=rect_size_inv, world_to_view=world_to_view,
+              min_rect_dim_mul_unproject=min_rect_dim_mul_unproject,
+              plane_dist_sensitivity=plane_dist_sensitivity, enc_err=enc_err,
               roughness_encoding=roughness_encoding)
+    if diff is None and spec is None:
+        raise ValueError("hitdist_recon: no signal given")
     dev = build.kernel_device(view_z_in)
     if dev is None:
-        return hitdist_recon_ref(view_z_in, normal_roughness, diff, spec, params, **kw)
+        return hitdist_recon_ref(view_z_in, normal_roughness, diff, spec, **kw)
     if radius not in (1, 2):
         raise ValueError(f"radius {radius}: the kernel takes 1 (3x3) or 2 (5x5)")
     h, w = view_z_in.shape
     f32 = torch.float32
-    names = [name for name, s in (("diff", diff), ("spec", spec)) if s is not None]
-    if not names:
-        raise ValueError("hitdist_recon: no signal given")
-    n_params = 2 + (diff is not None) + 3 * (spec is not None)
-    ins = [("view_z_in", view_z_in, (h, w)), ("normal_roughness", normal_roughness, (h, w, 4)),
-           ("params", params, (n_params, h, w))]
+    ins = [("view_z_in", view_z_in, (h, w)), ("normal_roughness", normal_roughness, (h, w, 4))]
     ins += [(name, s, (h, w, 4)) for name, s in (("diff", diff), ("spec", spec)) if s is not None]
     for name, t, shape in ins:
         build.check(name, t, dev, f32, shape)
-    out = torch.empty((len(names), h, w), dtype=f32, device=dev)
+    out = {name: torch.empty((h, w, 4), dtype=f32, device=dev)
+           for name, s in (("diff", diff), ("spec", spec)) if s is not None}
     gauss = [g for _, _, g in TAPS[radius]]
     m = np.asarray(world_to_view, np.float32)[:3, :3].reshape(-1)
     consts = [radius, diff is not None, spec is not None, view_z_scale, *_v(frustum),
               ortho_mode, *_v(rect_size_inv), *m, build.ROUGHNESS_MODE[roughness_encoding],
-              *gauss]
-    # an absent signal's pointer is the present one's; the kernel does not read it
-    sigs = [diff if diff is not None else spec, spec if spec is not None else diff]
-    build.launch("nrd_hitdist_recon", [view_z_in, normal_roughness, *sigs, params, out], consts,
-                 w, h)
+              min_rect_dim_mul_unproject, plane_dist_sensitivity, enc_err, *gauss]
+    build.launch("nrd_hitdist_recon", [view_z_in, normal_roughness, diff, spec, out.get("diff"),
+                                       out.get("spec")], consts, w, h)
     launches += 1
-    return {name: out[k] for k, name in enumerate(names)}
+    return out
 
 
 def _v(x):

@@ -1,33 +1,33 @@
-"""REBLUR spatial-filter tap loop, diffuse and specular - kernel `csrc/spatial_filter.cu`.
+"""REBLUR spatial filter of one signal, diffuse and specular, its centre's geometry and
+parameters included - kernel `csrc/spatial_filter.cu` (H2).
 
-Replaces `nrdtpu/kernels/reblur_blur2.py:264` (`spatial_filter_taps_pallas2`), run three times
-a frame: PrePass, Blur and PostBlur. Computes the tap loop shared by `diffuse_pre_pass`
-(`nrdtpu/passes/reblur/kernels.py:2164-2189`), `diffuse_spatial_filter` (`:844-873`) and
-`specular_spatial_filter` (`:1710-1756`): for each of the 8 Poisson taps (6 in performance
-mode) the per-pixel scaled rotator places the tap, which snaps to a pixel centre;
-plane-distance, material, normal-angle, hit-distance and Gaussian weights multiply, and the
-float4 signal accumulates. The passes differ in the rotator, the skew and the constants,
-all of which arrive in per-pixel planes: `shared` (the centre's plane-distance parameters,
-normal and view-space normal, the same for every signal of the pixel) and `params` (the
-signal's own), whose count chooses one of three modes:
+Replaces `nrdtpu/kernels/reblur_blur2.py:264` (`spatial_filter_taps_pallas2`) and v1
+`reblur_pallas.py:1207`, run three times a frame by REBLUR_DIFFUSE and REBLUR_SPECULAR: PrePass,
+Blur and PostBlur. Computes `diffuse_pre_pass` (`nrdtpu/passes/reblur/kernels.py:2075`),
+`diffuse_spatial_filter` (`:763`) and `specular_spatial_filter` (`:1564`) with their geometry
+(`:1783`): per pixel, the frame geometry (`passes/reblur/params.py:filter_geometry`: viewZ,
+the normal and its view-space rotation, the view position and direction, the frustum size, the
+plane-distance parameters, the hit-distance scale and the specular magic curve), the stage's
+parameters (`params.diff_spatial_params`, `spec_spatial_params`: the scaled rotator, the
+radius, the normal, hit-distance and roughness weights), then for each of the 8 Poisson taps
+(6 in performance mode) the tap snapped to a pixel centre, its plane-distance, material,
+normal-angle, hit-distance and Gaussian weights, and the float4 signal accumulated. The
+specular PrePass also takes the stochastic minimum of the taps' hit distances,
+hitDistForTracking (`:1732-1743`), with 8 (6) random numbers drawn per pixel from
+`hash_init(pixel, frame_index)` in tap order, as the XLA loop draws them.
 
-  - diffuse (PARAMS);
-  - specular (+ SPEC_PARAMS): the roughness weight of each tap (`:1727`);
-  - specular PrePass (+ PREPASS_PARAMS): also the stochastic minimum of the taps' hit
-    distances, hitDistForTracking (`:1732-1743`), with 8 (6) random numbers drawn per pixel
-    from `hash_init(pixel, frame_index)` in tap order, as the XLA loop draws them, and the
-    taps' weights scaled by `use_prepass_not_only_for_specular_motion_estimation` and the
-    hit-distance / roughness lerp.
+The kernel takes the raw planes (the signal, viewZ, the packed normal and, for Blur and
+PostBlur, the accumulation speed and `geometry`, the (unpacked normal, scaled viewZ) plane that
+H3 (`history_fix`) returns) and the frame constants (`sc`, `dc`); no parameter plane. The
+PrePass's taps unpack their geometry from the packed planes. The tap loop is the
+device function `sf_filter` of `csrc/reblur_filters.cuh`, shared with N4 and K23, whose glue
+still passes parameter planes (`taps_ref` is its plain version).
 
-The tap loop is the device function `sf_filter` of `csrc/reblur_filters.cuh`, shared with
-the fused two-signal kernel (`spatial_filter_fused`).
-
-Bound on the H100: gathers. Per pixel at 2560x1440 it reads 16 param planes (64 B), the
-centre signal, and 8 taps of viewZ, packed normal and signal (8 x 36 B = 288 B) scattered
-over a radius of up to 60 px; taps land in L1/L2 for small radii and miss for large ones.
-The specular modes read 2 (Blur, PostBlur) or 7 (PrePass) more param planes, 8-28 B/px.
-This first version is one thread per pixel in 16x16 blocks with plain global loads; the
-TPU kernel's static tap lattice (which ignored the rotator) is not carried over.
+Bound on the H100: gathers. Per pixel at 2560x1440 it reads the signal, viewZ, the packed
+normal and the accumulation speed (40 B), writes the signal (16 B, + 4 B hitDistForTracking),
+and reads 8 taps of signal and geometry (8 x 36 B) scattered over a radius of up to 60 px; taps
+land in L1/L2 for small radii and miss for large ones. The centre computes ~150-250
+operations (`chip_smoke.py:SF_GEOM_OPS`, `SF_PARAM_OPS`) against ~8 x 110 in the taps.
 """
 
 from __future__ import annotations
@@ -38,12 +38,14 @@ import torch
 from .. import frontend as fe
 from .. import math as nm
 from ..ops import resample
+from ..passes.reblur import common as C
+from ..passes.reblur import params as P
 from . import build
 
 launches = 0
 
-# per-pixel planes, in order (the pass glue stacks them): shared by the signals of a pixel,
-# and the signal's own
+# per-pixel planes of the tap loop, in order (`taps_ref`; N4's and K23's glue stacks them):
+# shared by the signals of a pixel, and the signal's own
 SHARED = ("ga", "gb", "nx", "ny", "nz", "nvx", "nvy", "nvz")
 PARAMS = ("rot0", "rot1", "rot2", "rot3", "normal_weight_param", "ha", "hb",
           "min_hit_dist_weight")
@@ -66,10 +68,12 @@ def ntaps(perf_mode: bool) -> int:
     return len(nm.SPECIAL_6 if perf_mode else nm.SPECIAL_8)
 
 
-def spatial_filter_ref(signal, view_z_in, normal_roughness, shared, params, *, frustum,
-                       rect_size, view_z_scale, ortho_mode, min_material, perf_mode,
-                       prepass=None):
-    """Plain PyTorch version of the kernel (the XLA tap loop)."""
+def taps_ref(signal, view_z_in, normal_roughness, shared, params, *, frustum, rect_size,
+             view_z_scale, ortho_mode, min_material, perf_mode, prepass=None):
+    """The XLA tap loop on the centre's planes: shared named by SHARED (8, h, w), params by
+    PARAMS (+ SPEC_PARAMS (+ PREPASS_PARAMS)); the specular PrePass mode takes `prepass` =
+    dict(hit_dist_params (A, B, C, D), use_prepass_not_only, frame_index). Returns the
+    filtered signal (h, w, 4), and in the PrePass mode also hitDistForTracking (h, w)."""
     h, w = view_z_in.shape
     mode = MODES[params.shape[0]]
     p = dict(zip(SHARED, shared))
@@ -143,6 +147,14 @@ def check_params(params, prepass):
     return prepass_mode
 
 
+def prepass_inputs(sc, dc):
+    """`taps_ref`'s `prepass` of the frame: hit-distance parameters, the prepass-only flag and
+    the frame index."""
+    not_only = float(dc["use_prepass_not_only_for_specular_motion_estimation"])
+    return dict(hit_dist_params=_v(dc["hit_dist_params"]), use_prepass_not_only=not_only,
+                frame_index=int(sc["frame_index"]))
+
+
 def prepass_consts(prepass):
     """Launch constants of the specular PrePass: hit-distance parameters, the prepass-only
     flag and the frame index as two 16-bit halves (a float carries neither half exactly
@@ -151,35 +163,85 @@ def prepass_consts(prepass):
     return [*prepass["hit_dist_params"], prepass["use_prepass_not_only"], f & 0xFFFF, f >> 16]
 
 
-def spatial_filter(signal, view_z_in, normal_roughness, shared, params, *, frustum, rect_size,
-                   view_z_scale, ortho_mode, min_material, perf_mode, prepass=None):
+ROTATORS = {P.PRE_BLUR: "rotator_pre", P.BLUR: "rotator", P.POST_BLUR: "rotator_post"}
+
+
+def min_material(dc, spec):
+    return float(dc["spec_min_material" if spec else "diff_min_material"])
+
+
+def spatial_filter_ref(signal, view_z_in, normal_roughness, data1=None, *, sc, dc, mode, spec,
+                       enc_err, perf_mode, geometry=None):
+    """Plain PyTorch version of the kernel: the centre's planes that the kernel computes per
+    pixel, from the pass glue's torch functions (`params.filter_geometry`,
+    `diff_spatial_params`, `spec_spatial_params`), then the XLA tap loop (`taps_ref`); the
+    taps unpack their geometry from normal_roughness and view_z_in, the values of
+    `geometry`."""
+    geom = P.filter_geometry(sc, dc, view_z_in, normal_roughness, enc_err,
+                             ("spec",) if spec else ("diff",))
+    shared = torch.stack([geom["ga"], geom["gb"], *geom["n3"], *geom["nv3"]])
+    params = (P.spec_spatial_params if spec else P.diff_spatial_params)(sc, dc, mode, geom,
+                                                                        signal, data1)
+    prepass = prepass_inputs(sc, dc) if spec and mode == P.PRE_BLUR else None
+    return taps_ref(signal, view_z_in, normal_roughness, shared, params,
+                    frustum=_v(sc["frustum"]), rect_size=_v(sc["rect_size"]),
+                    view_z_scale=float(sc["view_z_scale"]), ortho_mode=float(sc["ortho_mode"]),
+                    min_material=min_material(dc, spec), perf_mode=perf_mode, prepass=prepass)
+
+
+def launch_consts(sc, dc, mode, spec, enc_err, perf_mode):
+    """The kernel's host constants, each the float32 value that the plain version's torch ops
+    see (`csrc/spatial_filter.cu:nrd_spatial_filter` lists them)."""
+    fraction_scale, radius_scale = P.STAGE_SCALES[mode]
+    fade_a, fade_ba = C.fade_bounds(dc)
+    laf = float(dc["lobe_angle_fraction"])
+    wtv = np.asarray(sc["world_to_view"], np.float32)[:3, :3].reshape(-1)
+    radius = dc["spec_prepass_blur_radius" if spec else "diff_prepass_blur_radius"]
+    prepass = prepass_inputs(sc, dc)
+    return [*_v(sc["frustum"]), *_v(sc["rect_size"]), *_v(sc["rect_size_inv"]),
+            float(sc["view_z_scale"]), float(sc["ortho_mode"]), *wtv,
+            float(sc["min_rect_dim_mul_unproject"]), float(sc["unproject"]),
+            float(dc["plane_dist_sensitivity"]), *prepass["hit_dist_params"], laf, 1.0 - laf,
+            enc_err, float(dc["max_blur_radius"]), float(dc["min_blur_radius"]), float(radius),
+            fade_a, fade_ba, *_v(sc[ROTATORS[mode]]), fraction_scale, radius_scale,
+            P.min_hit_dist_weight_scale(dc, fraction_scale),
+            P.roughness_fraction_scaled(dc, fraction_scale), min_material(dc, spec),
+            ntaps(perf_mode), mode, spec, *prepass_consts(prepass)[4:]]
+
+
+def spatial_filter(signal, view_z_in, normal_roughness, data1=None, *, sc, dc, mode, spec,
+                   enc_err, perf_mode, geometry=None):
     """signal (h, w, 4), view_z_in (h, w), normal_roughness (h, w, 4) with linear roughness,
-    shared float32 planes named by SHARED (8, h, w), params float32 planes named by PARAMS
-    (+ SPEC_PARAMS (+ PREPASS_PARAMS)): (8 | 10 | 15, h, w). The specular PrePass mode takes
-    `prepass` = dict(hit_dist_params (A, B, C, D), use_prepass_not_only, frame_index).
-    Returns the filtered signal (h, w, 4), and in the PrePass mode also hitDistForTracking
-    (h, w)."""
+    data1 (h, w) the accumulation speed (Blur and PostBlur; None in the PrePass); sc, dc: the
+    frame constants; mode: params.PRE_BLUR, BLUR or POST_BLUR; spec: the specular filter;
+    enc_err: the normal encoding's error; geometry: in Blur and PostBlur the tap geometry (h, w,
+    4) that `history_fix` returns, None in the PrePass. Returns the filtered signal (h, w, 4),
+    and in the specular PrePass also hitDistForTracking (h, w)."""
     global launches
-    kw = dict(frustum=frustum, rect_size=rect_size, view_z_scale=view_z_scale,
-              ortho_mode=ortho_mode, min_material=min_material, perf_mode=perf_mode,
-              prepass=prepass)
-    prepass_mode = check_params(params, prepass)
+    kw = dict(sc=sc, dc=dc, mode=mode, spec=bool(spec), enc_err=enc_err, perf_mode=perf_mode,
+              geometry=geometry)
+    prepass = mode == P.PRE_BLUR
+    if prepass != (data1 is None) or prepass != (geometry is None):
+        raise ValueError("data1 and geometry (the history fix's tap-geometry plane) go with "
+                         "Blur and PostBlur, not with the PrePass")
     dev = build.kernel_device(signal)
     if dev is None:
-        return spatial_filter_ref(signal, view_z_in, normal_roughness, shared, params, **kw)
+        return spatial_filter_ref(signal, view_z_in, normal_roughness, data1, **kw)
     h, w = view_z_in.shape
-    f32 = torch.float32
     ins = [("signal", signal, (h, w, 4)), ("view_z_in", view_z_in, (h, w)),
-           ("normal_roughness", normal_roughness, (h, w, 4)),
-           ("shared", shared, (len(SHARED), h, w)), ("params", params, (params.shape[0], h, w))]
+           ("normal_roughness", normal_roughness, (h, w, 4))]
+    if not prepass:
+        ins += [("data1", data1, (h, w)), ("geometry", geometry, (h, w, 4))]
     for name, t, shape in ins:
-        build.check(name, t, dev, f32, shape)
-    out = torch.empty((h, w, 4), dtype=f32, device=dev)
-    hdt = torch.empty((h, w) if prepass_mode else (1,), dtype=f32, device=dev)
-    consts = [*frustum, rect_size[0], rect_size[1], view_z_scale, ortho_mode, min_material,
-              ntaps(perf_mode), params.shape[0]]
-    if prepass_mode:
-        consts += prepass_consts(prepass)
-    build.launch("nrd_spatial_filter", [t for _, t, _ in ins] + [out, hdt], consts, w, h)
+        build.check(name, t, dev, torch.float32, shape)
+    out = torch.empty((h, w, 4), dtype=torch.float32, device=dev)
+    hdt = torch.empty((h, w), dtype=torch.float32, device=dev) if spec and prepass else None
+    build.launch("nrd_spatial_filter", [signal, view_z_in, normal_roughness, data1, geometry,
+                                        out, hdt],
+                 launch_consts(sc, dc, mode, bool(spec), enc_err, perf_mode), w, h)
     launches += 1
-    return (out, hdt) if prepass_mode else out
+    return (out, hdt) if spec and prepass else out
+
+
+def _v(x):
+    return [float(c) for c in np.asarray(x, np.float32).reshape(-1)]

@@ -37,14 +37,14 @@ def spatial_filter_fused_ref(diff, spec, view_z_in, normal_roughness, shared, di
                              spec_params, *, frustum, rect_size, view_z_scale, ortho_mode,
                              diff_min_material, spec_min_material, perf_mode, prepass=None,
                              geometry=None):
-    """Plain version: H2's plain version run once per signal (the tap geometry it computes
-    from normal_roughness and view_z_in, the values of `geometry`)."""
+    """Plain version: H2's tap loop (`spatial_filter.taps_ref`) run once per signal (the tap
+    geometry it computes from normal_roughness and view_z_in, the values of `geometry`)."""
     kw = dict(frustum=frustum, rect_size=rect_size, view_z_scale=view_z_scale,
               ortho_mode=ortho_mode, perf_mode=perf_mode)
-    out = dict(diff=sf.spatial_filter_ref(diff, view_z_in, normal_roughness, shared, diff_params,
-                                          min_material=diff_min_material, **kw))
-    res = sf.spatial_filter_ref(spec, view_z_in, normal_roughness, shared, spec_params,
-                                min_material=spec_min_material, prepass=prepass, **kw)
+    out = dict(diff=sf.taps_ref(diff, view_z_in, normal_roughness, shared, diff_params,
+                                min_material=diff_min_material, **kw))
+    res = sf.taps_ref(spec, view_z_in, normal_roughness, shared, spec_params,
+                      min_material=spec_min_material, prepass=prepass, **kw)
     if prepass is None:
         out["spec"] = res
     else:

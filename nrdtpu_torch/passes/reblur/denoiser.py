@@ -225,23 +225,22 @@ class ReblurDenoiser:
         else:
             (sig,) = self.signals
             spec_path = sig == "spec"
-            sig2, fast2[sig] = K.history_fix(sc, dc, view_z, normal_roughness, data1[sig],
-                                             sig1[sig], fast1[sig], cfg,
-                                             is_diffuse=not spec_path,
-                                             anti_firefly=anti_firefly[sig])
+            sig2, fast2[sig], tap_geometry = K.history_fix(
+                sc, dc, view_z, normal_roughness, data1[sig], sig1[sig], fast1[sig], cfg,
+                is_diffuse=not spec_path, anti_firefly=anti_firefly[sig])
+            # Blur and PostBlur read the tap geometry that the history fix wrote
+            kw = dict(perf_mode=perf, tap_geometry=tap_geometry)
             if spec_path:
                 sig3, _ = K.specular_spatial_filter(sc, dc, K.BLUR, sig2, view_z,
-                                                    normal_roughness, data1[sig], cfg,
-                                                    perf_mode=perf)
+                                                    normal_roughness, data1[sig], cfg, **kw)
                 sig4[sig], _ = K.specular_spatial_filter(sc, dc, K.POST_BLUR, sig3, view_z,
-                                                         normal_roughness, data1[sig], cfg,
-                                                         perf_mode=perf)
+                                                         normal_roughness, data1[sig], cfg, **kw)
             else:
                 sig3 = K.diffuse_spatial_filter(sc, dc, K.BLUR, sig2, view_z, normal_roughness,
-                                                data1[sig], cfg, perf_mode=perf)
+                                                data1[sig], cfg, **kw)
                 sig4[sig] = K.diffuse_spatial_filter(sc, dc, K.POST_BLUR, sig3, view_z,
-                                                     normal_roughness, data1[sig], cfg,
-                                                     perf_mode=perf)
+                                                     normal_roughness, data1[sig], cfg, **kw)
+            del tap_geometry
         del geom
 
         new_state = dict(state)

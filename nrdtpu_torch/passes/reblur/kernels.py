@@ -48,7 +48,8 @@ from ...kernels import ts_prelude as k_ts_prelude
 from ...kernels import vmb_resolve as k_vmb_resolve
 from ...ops import resample, tiles
 from . import common as C
-from .params import BLUR, POST_BLUR, PRE_BLUR, _v, diff_spatial_params, spec_spatial_params
+from .params import (BLUR, POST_BLUR, PRE_BLUR, _v, diff_spatial_params, filter_geometry,
+                     spec_spatial_params)
 
 
 # ---------------------------------------------------------------------------
@@ -63,14 +64,6 @@ def unpack_view_z(sc, z):
 def unpack_nr(normal_roughness, config):
     return fe.unpack_normal_roughness(normal_roughness, config.normal_encoding,
                                       config.roughness_encoding)
-
-
-def unpack_nr3(normal_roughness, config):
-    """unpack_nr returning a plane-wise V3 normal (R10G10B10A2)."""
-    if config.normal_encoding.name != "R10_G10_B10_A2_UNORM":
-        raise NotImplementedError("the port takes R10G10B10A2 normals only (ROADMAP.md)")
-    n3 = v3.decode_oct_raw(normal_roughness[..., 0], normal_roughness[..., 1])
-    return n3, normal_roughness[..., 2], normal_roughness[..., 3] * 3.0
 
 
 def classify_tiles(sc, view_z):
@@ -610,34 +603,16 @@ def temporal_accumulation_specular(sc, dc, sm, spec_input, spec_history, spec_fa
 
 
 def make_filter_geometry(sc, dc, view_z_in, normal_roughness, config, signals=("diff", "spec")):
-    """The per-frame geometry of the spatial stages and HistoryFix (`kernels.py:1783-1816`):
-    view_z, n3, nv3, xv3, vv3, nov, frustum size, the plane-distance parameters ga/gb, and per
-    signal its hit-distance scale (and the specular magic curve). It depends only on the
-    G-buffer, so REBLUR_DIFFUSE_SPECULAR computes it once a frame; the one-signal passes
-    compute it per call, for their one signal."""
-    h, w = view_z_in.shape
-    uv = resample.pixel_uv_grid(h, w, view_z_in.device)
-    view_z = unpack_view_z(sc, view_z_in)
-    n3, roughness, _ = unpack_nr3(normal_roughness, config)
-    nv3 = v3.rotate(sc["world_to_view"], n3)
-    ortho = float(sc["ortho_mode"])
-    xv3 = v3.reconstruct_view_position(uv[..., 0], uv[..., 1], sc["frustum"], view_z, ortho)
-    vv3 = (v3.normalize(v3.V3(-xv3.x, -xv3.y, -xv3.z)) if ortho == 0.0
-           else v3.V3.full_like(view_z, 0.0, 0.0, -1.0))
-    frustum_size = nm.get_frustum_size(float(sc["min_rect_dim_mul_unproject"]), ortho, view_z)
-    ga = 1.0 / (float(dc["plane_dist_sensitivity"]) * frustum_size)
-    geom = dict(view_z=view_z, n3=n3, roughness=roughness, nv3=nv3, xv3=xv3, vv3=vv3,
-                nov=torch.abs(v3.dot(nv3, vv3)), frustum_size=frustum_size, ga=ga,
-                gb=-v3.dot(nv3, xv3) * ga,
-                enc_err=nm.normal_encoding_error(int(config.normal_encoding)))
-    if "diff" in signals:
-        geom["hd_scale_diff"] = fe.get_hit_distance_normalization(
-            view_z, dc["hit_dist_params"], torch.ones_like(roughness))
-    if "spec" in signals:
-        geom["smc"] = nm.get_spec_magic_curve(roughness)
-        geom["hd_scale_spec"] = fe.get_hit_distance_normalization(view_z, dc["hit_dist_params"],
-                                                                  roughness)
-    return geom
+    """`params.filter_geometry` for the config's normal encoding. It depends only on the
+    G-buffer, so REBLUR_DIFFUSE_SPECULAR computes it once a frame."""
+    return filter_geometry(sc, dc, view_z_in, normal_roughness, _enc_err(config), signals)
+
+
+def _enc_err(config):
+    """The normal encoding's error; the port takes R10G10B10A2 normals only."""
+    if config.normal_encoding.name != "R10_G10_B10_A2_UNORM":
+        raise NotImplementedError("the port takes R10G10B10A2 normals only (ROADMAP.md)")
+    return nm.normal_encoding_error(int(config.normal_encoding))
 
 
 def _shared_planes(geom, key, planes):
@@ -698,14 +673,17 @@ def history_fix(sc, dc, view_z_in, normal_roughness, data1, signal, fast_history
     9x9 anti-firefly clamp when `anti_firefly`, in one `history_fix` launch.
 
     data1: accumulated frames of the signal (data1_diff or data1_spec); signal: (h, w, 4)
-    output of TA; fast_history: (h, w). Returns (signal_out, fast_out)."""
+    output of TA; fast_history: (h, w). Returns (signal_out, fast_out, tap_geometry): the last
+    is the frame's tap geometry (h, w, 4) that the launch writes, for the Blur and PostBlur of
+    `diffuse_spatial_filter` / `specular_spatial_filter`."""
     geom = make_filter_geometry(sc, dc, view_z_in, normal_roughness, config,
                                 ("diff",) if is_diffuse else ("spec",))
     min_material = dc["diff_min_material"] if is_diffuse else dc["spec_min_material"]
-    return k_history_fix.history_fix(
+    res = k_history_fix.history_fix(
         signal, view_z_in, normal_roughness, data1, fast_history, _hfix_shared(geom),
         _hfix_params(dc, geom, signal, data1, is_diffuse), None if is_diffuse else geom["smc"],
         min_material=float(min_material), dc=dc, anti_firefly=anti_firefly, **_hfix_consts(sc))
+    return res["signal"], res["fast"], res["geometry"]
 
 
 def fused_history_fix(sc, dc, geom, view_z_in, normal_roughness, diff, spec, *,
@@ -742,12 +720,6 @@ def _sf_consts(sc):
                 view_z_scale=float(sc["view_z_scale"]), ortho_mode=float(sc["ortho_mode"]))
 
 
-def _prepass_consts(sc, dc):
-    not_only = float(dc["use_prepass_not_only_for_specular_motion_estimation"])
-    return dict(hit_dist_params=_v(dc["hit_dist_params"]), use_prepass_not_only=not_only,
-                frame_index=int(sc["frame_index"]))
-
-
 def _prepass_off_hit_dist(spec):
     """hitDistForTracking of a specular PrePass with radius 0 (`kernels.py:1776-1778`)."""
     hit = C.extract_hit_dist(spec)
@@ -755,14 +727,15 @@ def _prepass_off_hit_dist(spec):
 
 
 def diffuse_spatial_filter(sc, dc, mode, signal, view_z_in, normal_roughness, data1, config,
-                           *, perf_mode: bool = False):
-    """Adaptive-radius 8-tap Poisson blur, screen-space sampling. mode: PRE_BLUR (see
-    diffuse_pre_pass), BLUR or POST_BLUR."""
-    geom = make_filter_geometry(sc, dc, view_z_in, normal_roughness, config, ("diff",))
+                           *, perf_mode: bool = False, tap_geometry=None):
+    """Adaptive-radius 8-tap Poisson blur, screen-space sampling: one `spatial_filter` launch
+    that computes the geometry and the parameters itself. mode: PRE_BLUR (see
+    diffuse_pre_pass), BLUR or POST_BLUR; tap_geometry: the plane that `history_fix` returns,
+    which Blur and PostBlur require."""
     return k_spatial_filter.spatial_filter(
-        signal, view_z_in, normal_roughness, _sf_shared(geom),
-        diff_spatial_params(sc, dc, mode, geom, signal, data1),
-        min_material=float(dc["diff_min_material"]), perf_mode=perf_mode, **_sf_consts(sc))
+        signal, view_z_in, normal_roughness, None if mode == PRE_BLUR else data1, sc=sc, dc=dc,
+        mode=mode, spec=False, enc_err=_enc_err(config), perf_mode=perf_mode,
+        geometry=tap_geometry)
 
 
 def diffuse_pre_pass(sc, dc, signal, view_z_in, normal_roughness, config, *,
@@ -774,19 +747,17 @@ def diffuse_pre_pass(sc, dc, signal, view_z_in, normal_roughness, config, *,
 
 
 def specular_spatial_filter(sc, dc, mode, spec, view_z_in, normal_roughness, data1, config, *,
-                            perf_mode: bool = False):
-    """Adaptive Poisson specular blur (REBLUR_Common_SpecularSpatialFilter.hlsli). mode:
-    PRE_BLUR, BLUR or POST_BLUR. Returns (spec_out, hit_dist_for_tracking); the second is
-    the PrePass's stochastic hitDist minimum, None in the other modes."""
+                            perf_mode: bool = False, tap_geometry=None):
+    """Adaptive Poisson specular blur (REBLUR_Common_SpecularSpatialFilter.hlsli), one
+    `spatial_filter` launch. mode: PRE_BLUR, BLUR or POST_BLUR; tap_geometry as for
+    diffuse_spatial_filter. Returns (spec_out, hit_dist_for_tracking); the second is the
+    PrePass's stochastic hitDist minimum, None in the other modes."""
     prepass = mode == PRE_BLUR
     if prepass and float(dc["spec_prepass_blur_radius"]) == 0.0:
         return spec, _prepass_off_hit_dist(spec)
-    geom = make_filter_geometry(sc, dc, view_z_in, normal_roughness, config, ("spec",))
     res = k_spatial_filter.spatial_filter(
-        spec, view_z_in, normal_roughness, _sf_shared(geom),
-        spec_spatial_params(sc, dc, mode, geom, spec, data1),
-        min_material=float(dc["spec_min_material"]), perf_mode=perf_mode,
-        prepass=_prepass_consts(sc, dc) if prepass else None, **_sf_consts(sc))
+        spec, view_z_in, normal_roughness, None if prepass else data1, sc=sc, dc=dc, mode=mode,
+        spec=True, enc_err=_enc_err(config), perf_mode=perf_mode, geometry=tap_geometry)
     return res if prepass else (res, None)
 
 
@@ -806,8 +777,8 @@ def fused_spatial_filter(sc, dc, mode, geom, view_z_in, normal_roughness, diff, 
         spec_spatial_params(sc, dc, mode, geom, spec, data1_spec),
         diff_min_material=float(dc["diff_min_material"]),
         spec_min_material=float(dc["spec_min_material"]), perf_mode=perf_mode,
-        prepass=_prepass_consts(sc, dc) if prepass else None, geometry=tap_geometry,
-        **_sf_consts(sc))
+        prepass=k_spatial_filter.prepass_inputs(sc, dc) if prepass else None,
+        geometry=tap_geometry, **_sf_consts(sc))
     diff_out, spec_out, hdt = res["diff"], res["spec"], res.get("hdt")
     if prepass and float(dc["diff_prepass_blur_radius"]) == 0.0:
         diff_out = diff
@@ -863,32 +834,18 @@ def spatial_band(sc, dc, geom, view_z_in, normal_roughness, diff, spec, *, anti_
 def hit_dist_reconstruction(sc, dc, view_z_in, normal_roughness, diff, spec, config, *,
                             radius: int):
     """Refill hitT == 0 holes from the 3x3 (radius 1) or 5x5 (radius 2) neighbourhood
-    (`kernels.py:2212-2293`). diff / spec: (h, w, 4) signals or None; only the hit-distance
-    channel changes. Returns (diff_out, spec_out)."""
-    h, w = view_z_in.shape
-    uv = resample.pixel_uv_grid(h, w, view_z_in.device)
-    view_z = unpack_view_z(sc, view_z_in)
-    n, roughness, _ = unpack_nr(normal_roughness, config)
-    nv = nm.rotate_vector(sc["world_to_view"], n)
-    xv = nm.reconstruct_view_position(uv, sc["frustum"], view_z, sc["ortho_mode"])
-    ortho = float(sc["ortho_mode"])
-    frustum_size = nm.get_frustum_size(float(sc["min_rect_dim_mul_unproject"]), ortho, view_z)
-    enc_err = nm.normal_encoding_error(int(config.normal_encoding))
-    ones = torch.ones_like(view_z)
-    params = list(nm.get_geometry_weight_params(float(dc["plane_dist_sensitivity"]),
-                                                frustum_size, xv, nv))
-    if diff is not None:
-        params.append(nm.get_normal_weight_param(ones, 1.0, ones, enc_err))
-    if spec is not None:
-        ra, rb = nm.get_relaxed_roughness_weight_params(roughness * roughness)
-        params += [nm.get_normal_weight_param(ones, 1.0, roughness, enc_err), ra, rb]
-    hd = k_hitdist_recon.hitdist_recon(
-        view_z_in, normal_roughness, diff, spec, torch.stack(params), radius=radius,
-        view_z_scale=float(sc["view_z_scale"]), frustum=sc["frustum"], ortho_mode=ortho,
-        rect_size_inv=sc["rect_size_inv"], world_to_view=sc["world_to_view"],
+    (`kernels.py:2212-2293`) in one `hitdist_recon` launch, which computes the centre's
+    parameters itself. diff / spec: (h, w, 4) signals or None; only the hit-distance channel
+    changes. Returns (diff_out, spec_out)."""
+    out = k_hitdist_recon.hitdist_recon(
+        view_z_in, normal_roughness, diff, spec, radius=radius,
+        view_z_scale=float(sc["view_z_scale"]), frustum=sc["frustum"],
+        ortho_mode=float(sc["ortho_mode"]), rect_size_inv=sc["rect_size_inv"],
+        world_to_view=sc["world_to_view"],
+        min_rect_dim_mul_unproject=float(sc["min_rect_dim_mul_unproject"]),
+        plane_dist_sensitivity=float(dc["plane_dist_sensitivity"]), enc_err=_enc_err(config),
         roughness_encoding=config.roughness_encoding)
-    return tuple(None if s is None else torch.cat([s[..., :-1], hd[name][..., None]], -1)
-                 for name, s in (("diff", diff), ("spec", spec)))
+    return out.get("diff"), out.get("spec")
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,7 @@ torch definition that the pass glue (`kernels.py`) and the band kernel's plain v
 (`nrdtpu_torch/kernels/reblur_band.py`) both call, and whose host constants the band kernel
 takes (`nrdtpu/passes/reblur/kernels.py:685-732`, `:763-843`, `:1592-1656`).
 
-`geom` is `kernels.make_filter_geometry`'s dict, or any dict with the planes a function reads.
+`geom` is `filter_geometry`'s dict, or any dict with the planes a function reads.
 The evaluation order is the XLA functions', op by op in float32: a Python scalar meets a
 tensor as a float32 value, and the host products below are evaluated in float32 as XLA does.
 """
@@ -13,9 +13,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ... import frontend as fe
 from ... import math as nm
 from ... import vec3 as v3
 from ...frontend import NRD_EPS
+from ...ops import resample
 from . import common as C
 
 PRE_BLUR = 0
@@ -51,6 +53,43 @@ def history_fix_frame_div(dc) -> float:
 def fast_history_enabled(dc) -> float:
     return 1.0 if (float(dc["max_fast_accumulated_frame_num"])
                    < float(dc["max_accumulated_frame_num"])) else 0.0
+
+
+# ---------------------------------------------------------------------------
+# Filter geometry shared by the spatial filters and HistoryFix
+# ---------------------------------------------------------------------------
+
+
+def filter_geometry(sc, dc, view_z_in, normal_roughness, enc_err, signals=("diff", "spec")):
+    """The per-frame geometry of the spatial stages and HistoryFix
+    (`nrdtpu/passes/reblur/kernels.py:1783-1816`): view_z, n3, nv3, xv3, vv3, nov, frustum
+    size, the plane-distance parameters ga/gb, and per signal its hit-distance scale (and the
+    specular magic curve). It depends only on the G-buffer (R10G10B10A2 normals, the roughness
+    as packed) and the frame constants; enc_err is the normal encoding's error. H2's kernel
+    computes the same per pixel (`csrc/reblur_filters.cuh:filter_geometry`)."""
+    h, w = view_z_in.shape
+    uv = resample.pixel_uv_grid(h, w, view_z_in.device)
+    view_z = torch.abs(view_z_in) * float(sc["view_z_scale"])
+    n3 = v3.decode_oct_raw(normal_roughness[..., 0], normal_roughness[..., 1])
+    roughness = normal_roughness[..., 2]
+    nv3 = v3.rotate(sc["world_to_view"], n3)
+    ortho = float(sc["ortho_mode"])
+    xv3 = v3.reconstruct_view_position(uv[..., 0], uv[..., 1], sc["frustum"], view_z, ortho)
+    vv3 = (v3.normalize(v3.V3(-xv3.x, -xv3.y, -xv3.z)) if ortho == 0.0
+           else v3.V3.full_like(view_z, 0.0, 0.0, -1.0))
+    frustum_size = nm.get_frustum_size(float(sc["min_rect_dim_mul_unproject"]), ortho, view_z)
+    ga = 1.0 / (float(dc["plane_dist_sensitivity"]) * frustum_size)
+    geom = dict(view_z=view_z, n3=n3, roughness=roughness, nv3=nv3, xv3=xv3, vv3=vv3,
+                nov=torch.abs(v3.dot(nv3, vv3)), frustum_size=frustum_size, ga=ga,
+                gb=-v3.dot(nv3, xv3) * ga, enc_err=enc_err)
+    if "diff" in signals:
+        geom["hd_scale_diff"] = fe.get_hit_distance_normalization(
+            view_z, dc["hit_dist_params"], torch.ones_like(roughness))
+    if "spec" in signals:
+        geom["smc"] = nm.get_spec_magic_curve(roughness)
+        geom["hd_scale_spec"] = fe.get_hit_distance_normalization(view_z, dc["hit_dist_params"],
+                                                                  roughness)
+    return geom
 
 
 # ---------------------------------------------------------------------------

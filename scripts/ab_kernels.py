@@ -29,7 +29,15 @@ history_clamping`: on a tree whose kernel computes the moments only, the clamp g
 the responsive history's select before it is not) on RD and RS; H4 `ts_prelude` by TS half
 (`D ts_prelude diffuse`, `S ts_prelude specular`, `DS ts_prelude diffuse` / `specular`) and
 REBLUR's TS passes (`pass temporal_stabilization`, `pass temporal_stabilization_specular`: on
-a tree whose kernel is the prelude only, the glue around it included) on D, S and DS.
+a tree whose kernel is the prelude only, the glue around it included) on D, S and DS; H2 by
+stage on D and S (`D spatial_filter prepass`, `... blur`, `... post_blur`) and its passes by
+stage (`D pass diffuse_spatial_filter blur`, `S pass
+specular_spatial_filter prepass`, ...: on a tree whose glue computes the geometry and the
+parameter planes, that glue included); K12 `hitdist_recon` and its pass (`pass
+hit_dist_reconstruction`, the glue included) on DS with AREA_3X3 (`DS AREA_3X3`), on D and S
+with AREA_5X5 (`D AREA_5X5`, `S AREA_5X5`; all on chip_smoke's frames with hit-distance
+holes) and on RELAX_SPECULAR at SQ_LINEAR and SQRT_LINEAR with AREA_3X3 (`RS SQ_LINEAR`,
+`RS SQRT_LINEAR`).
 `--labels REGEX` times only the labels it finds.
 
 With `--slices` it also runs every path that launches the kernels under test (`SLICES`: D,
@@ -43,7 +51,7 @@ change are compared on the same measure.
 Per side it prints each device kernel's registers and spill bytes (ptxas) and SASS
 instruction count (cuobjdump), the largest loop of each (its instructions between a
 backward branch and its target), and writes the SASS of the filter kernels (REBLUR's, H1's,
-H4's, K13's, K14's, K15's, K16's, K17's, K19's and K20's: `SASS_KERNELS`) and a JSON
+H4's, K12's, K13's, K14's, K15's, K16's, K17's, K19's and K20's: `SASS_KERNELS`) and a JSON
 of every number to `--out`. Recording the calls, holding a kernel to its plain version,
 timing, the build log's ptxas lines and the SASS listing are `chip_smoke.py`'s own
 (`recording`, `disagreement`, `time_ms`, `ptxas_usage`, `sass_listing`), so that both
@@ -76,10 +84,10 @@ VARIANT_SOURCES = ("history_fix_fused.cu", "spatial_filter_fused.cu", "reblur_ba
                    "spatial_filter.cu", "history_fix.cu", "smb_resolve.cu", "sigma_blur.cu",
                    "sigma_ts.cu", "relax_history_fix.cu", "relax_smb_resolve.cu",
                    "relax_vmb_resolve.cu", "relax_prepass.cu", "relax_clamp_moments.cu",
-                   "ts_prelude.cu")
+                   "ts_prelude.cu", "hitdist_recon.cu")
 SASS_KERNELS = re.compile(
     r"history_fix|spatial_filter|reblur_band|sigma_blur|sigma_ts|smb_resolve|relax_vmb_resolve|"
-    r"relax_prepass|relax_clamp_moments|ts_prelude")
+    r"relax_prepass|relax_clamp_moments|ts_prelude|hitdist_recon")
 DS = "REBLUR_DIFFUSE_SPECULAR"
 BAND = DS + "+BAND"  # chip_smoke.PATHS: the pool and environment (the band's switch)
 # the pass functions whose calls are timed beside the kernels' (glue and launch), by the
@@ -87,7 +95,12 @@ BAND = DS + "+BAND"  # chip_smoke.PATHS: the pool and environment (the band's sw
 PASSES = {("REBLUR", "fused_history_fix"): "TK", ("REBLUR", "history_fix"): "TK",
           ("REBLUR", "temporal_stabilization"): "TK",
           ("REBLUR", "temporal_stabilization_specular"): "TK",
+          ("REBLUR", "diffuse_spatial_filter"): "TK", ("REBLUR", "specular_spatial_filter"): "TK",
+          ("REBLUR", "hit_dist_reconstruction"): "TK", ("RELAX", "hit_dist_reconstruction"): "TK",
           ("SIGMA", "temporal_stabilization"): "SK", ("RELAX", "history_clamping"): "RK"}
+# the spatial filters' passes, labelled by stage (their `mode` argument)
+SF_PASSES = ("pass diffuse_spatial_filter", "pass specular_spatial_filter")
+HOLES = DS + "+AREA_3X3"  # chip_smoke.PATHS: the pool with hit-distance holes
 # (label prefix, denoiser, path of the pool and environment, settings, kernels and passes
 # ("pass <name>") recorded)
 RUNS = (
@@ -102,10 +115,16 @@ RUNS = (
     ("band perf", DS, BAND, dict(enablePerformanceMode=True), ("reblur_band",)),
     ("D", "REBLUR_DIFFUSE", "REBLUR_DIFFUSE", {},
      ("spatial_filter", "history_fix", "smb_resolve", "ts_prelude", "pass history_fix",
-      "pass temporal_stabilization")),
+      "pass temporal_stabilization", "pass diffuse_spatial_filter")),
     ("S", "REBLUR_SPECULAR", "REBLUR_SPECULAR", {},
      ("spatial_filter", "history_fix", "smb_resolve", "ts_prelude", "pass history_fix",
-      "pass temporal_stabilization_specular")),
+      "pass temporal_stabilization_specular", "pass specular_spatial_filter")),
+    ("DS AREA_3X3", DS, HOLES, dict(hitDistanceReconstructionMode="AREA_3X3"),
+     ("hitdist_recon", "pass hit_dist_reconstruction")),
+    ("D AREA_5X5", "REBLUR_DIFFUSE", HOLES, dict(hitDistanceReconstructionMode="AREA_5X5"),
+     ("hitdist_recon", "pass hit_dist_reconstruction")),
+    ("S AREA_5X5", "REBLUR_SPECULAR", HOLES, dict(hitDistanceReconstructionMode="AREA_5X5"),
+     ("hitdist_recon", "pass hit_dist_reconstruction")),
     ("D ring", "REBLUR_DIFFUSE", "REBLUR_DIFFUSE", dict(enableAntiFirefly=True),
      ("history_fix", "pass history_fix")),
     ("S ring", "REBLUR_SPECULAR", "REBLUR_SPECULAR", dict(enableAntiFirefly=True),
@@ -121,7 +140,8 @@ RUNS = (
      ("relax_history_fix", "relax_smb_resolve", "relax_vmb_resolve", "relax_prepass",
       "relax_clamp_moments", "pass history_clamping")),
 ) + tuple((f"RS {v['encoding']}", v["denoiser"], pool,
-           dict(v["settings"], roughness_encoding=v["encoding"]), ("relax_prepass",))
+           dict(v["settings"], roughness_encoding=v["encoding"]),
+           ("relax_prepass", "hitdist_recon", "pass hit_dist_reconstruction"))
           for pool, v in CS.ENCODED.items())
 # the paths that --slices runs on both sides (chip_smoke.PATHS): those that launch H4 or K20
 SLICES = ("REBLUR_DIFFUSE", "REBLUR_SPECULAR", DS, BAND, DS + "+AREA_3X3", "RELAX_DIFFUSE",
@@ -239,14 +259,18 @@ def record(side, denoiser, pool, settings, names, frames, w, h):
 
 
 def labelled(prefix, calls):
-    """{label: (kernel name, args, kwargs, denoiser family)}: the spatial filters' calls by
-    stage, SIGMA's blur by pass (Blur, PostBlur), H4 by TS half (diffuse, specular), the rest
-    (and the passes, "pass <name>") by name."""
+    """{label: (kernel name, args, kwargs, denoiser family)}: the spatial filters' calls and
+    passes by stage, SIGMA's blur by pass (Blur, PostBlur), H4 by TS half (diffuse, specular),
+    the rest (and the passes, "pass <name>") by name."""
     out, stages = {}, {"spatial_filter_fused": iter(CS.SF_STAGES),
                        "spatial_filter": iter(CS.SF_STAGES)}
     for call in calls:
         name, a, k, _ = call
-        if name in stages:
+        if name in SF_PASSES:
+            out[f"{prefix} {name} {CS.SF_STAGES[a[2]]}"] = call
+        elif name == "spatial_filter" and "mode" in k:  # the kernel that takes its stage
+            out[f"{prefix} {name} {CS.SF_STAGES[k['mode']]}"] = call
+        elif name in stages:
             out[f"{prefix} {name} {next(stages[name])}"] = call
         elif name == "sigma_blur":
             out[f"{prefix} {name} {'blur' if k['first_pass'] else 'post_blur'}"] = call

@@ -2,8 +2,9 @@
 
 Each kernel runs on the inputs the main paths give it (frame 4 of the orbit scene at 128x96:
 REBLUR_DIFFUSE, REBLUR_SPECULAR and REBLUR_DIFFUSE_SPECULAR, each with and without the
-anti-firefly ring and with AREA_3X3 hit-distance reconstruction on inputs with hit-distance
-holes; REBLUR_DIFFUSE_SPECULAR under NRDTPU_REBLUR_BAND=1, by default, with the anti-firefly ring
+anti-firefly ring and with AREA_3X3 and AREA_5X5 hit-distance reconstruction on inputs with
+hit-distance holes; REBLUR_DIFFUSE and REBLUR_SPECULAR in performance mode and with both min
+materials 0, REBLUR_SPECULAR with usePrepassOnlyForSpecularMotionEstimation; REBLUR_DIFFUSE_SPECULAR under NRDTPU_REBLUR_BAND=1, by default, with the anti-firefly ring
 and in performance mode; SIGMA_SHADOW and SIGMA_SHADOW_TRANSLUCENCY; RELAX_DIFFUSE and
 RELAX_SPECULAR, each also with the anti-firefly pass and with AREA_3X3: their kernels, the
 à-trous at iteration 0 and at the jittered strides; the halo launcher's `box` body on 1 and 4
@@ -49,6 +50,12 @@ VARIANTS = (Denoiser.REBLUR_DIFFUSE, Denoiser.REBLUR_SPECULAR, Denoiser.REBLUR_D
 SIGMA = (Denoiser.SIGMA_SHADOW, Denoiser.SIGMA_SHADOW_TRANSLUCENCY)
 RELAX = (Denoiser.RELAX_DIFFUSE, Denoiser.RELAX_SPECULAR)
 AREA_3X3 = dict(hitDistanceReconstructionMode=HitDistanceReconstructionMode.AREA_3X3)
+AREA_5X5 = dict(hitDistanceReconstructionMode=HitDistanceReconstructionMode.AREA_5X5)
+# H2's other modes on the one-signal REBLUR paths: performance mode's 6 taps, both min
+# materials 0, and the specular PrePass with usePrepassOnlyForSpecularMotionEstimation
+SF_SETTINGS = (dict(enablePerformanceMode=True),
+               dict(minMaterialForDiffuse=0.0, minMaterialForSpecular=0.0))
+PREPASS_ONLY = dict(usePrepassOnlyForSpecularMotionEstimation=True)
 # the band's switch, set only while its engines run
 BAND = ("NRDTPU_REBLUR_BAND", "1")
 
@@ -108,7 +115,9 @@ def _engine(denoiser, device, anti_firefly=False, **settings):
 
 # (denoiser, anti-firefly ring, settings, inputs with hit-distance holes, band) of every path
 PATHS = ([(d, af, {}, False, False) for d in VARIANTS for af in (False, True)]
-         + [(d, False, AREA_3X3, True, False) for d in VARIANTS]
+         + [(d, False, area, True, False) for d in VARIANTS for area in (AREA_3X3, AREA_5X5)]
+         + [(d, False, s, False, False) for d in VARIANTS[:2] for s in SF_SETTINGS]
+         + [(Denoiser.REBLUR_SPECULAR, False, PREPASS_ONLY, False, False)]
          + [(d, False, {}, False, False) for d in SIGMA]
          + [(d, af, s, h, False) for d in RELAX
             for af, s, h in ((False, {}, False), (True, {}, False), (False, AREA_3X3, True))]

@@ -246,9 +246,9 @@ def test_history_fix_anti_firefly(ctx, is_diffuse):
     j, ta = ctx["j"], ctx["j"]["ta"]
     _, vz, nr = _geom(ctx)
     sig = "diff" if is_diffuse else "spec"
-    out, fast = TK.history_fix(ctx["sc"], ctx["dc"], vz, nr, t(ta[f"data1_{sig}"]), t(ta[sig]),
-                               t(ta[f"{sig}_fast"]), ctx["cfg"], is_diffuse=is_diffuse,
-                               anti_firefly=True)
+    out, fast, _ = TK.history_fix(ctx["sc"], ctx["dc"], vz, nr, t(ta[f"data1_{sig}"]),
+                                  t(ta[sig]), t(ta[f"{sig}_fast"]), ctx["cfg"],
+                                  is_diffuse=is_diffuse, anti_firefly=True)
     close("signal", out, j[f"hf_{sig}_True"][0])
     close("fast", fast, j[f"hf_{sig}_True"][1])
 
@@ -311,8 +311,8 @@ def _recorded(ctx, names):
 
 def test_plain_versions_are_per_signal(ctx):
     """The plain version of each two-signal kernel equals its one-signal plain version run
-    per signal, exactly: two-signal H1, N4 (PrePass and Blur), N5 (ring on one signal; H3's
-    plain version, the clamp included)."""
+    per signal, exactly: two-signal H1, N4 (PrePass and Blur; H2's tap loop `taps_ref`), N5
+    (ring on one signal; H3's plain version, the clamp and the tap geometry included)."""
     calls = _recorded(ctx, ("smb_resolve", "spatial_filter_fused", "history_fix_fused"))
     assert sorted(n for n, _, _ in calls) == ["history_fix_fused", "smb_resolve",
                                               "spatial_filter_fused", "spatial_filter_fused"]
@@ -330,11 +330,10 @@ def test_plain_versions_are_per_signal(ctx):
             diff, spec, vz, nr, shared, dp, sp = a
             kw = {x: k[x] for x in ("frustum", "rect_size", "view_z_scale", "ortho_mode",
                                     "perf_mode")}
-            assert torch.equal(both["diff"], k_sf.spatial_filter_ref(
+            assert torch.equal(both["diff"], k_sf.taps_ref(
                 diff, vz, nr, shared, dp, min_material=k["diff_min_material"], **kw))
-            res = k_sf.spatial_filter_ref(spec, vz, nr, shared, sp,
-                                          min_material=k["spec_min_material"],
-                                          prepass=k["prepass"], **kw)
+            res = k_sf.taps_ref(spec, vz, nr, shared, sp, min_material=k["spec_min_material"],
+                                prepass=k["prepass"], **kw)
             if k["prepass"] is None:
                 assert torch.equal(both["spec"], res)
             else:
@@ -349,9 +348,10 @@ def test_plain_versions_are_per_signal(ctx):
                                        k["spec_min_material"], k["anti_firefly"][1])):
                 want = k_hf.history_fix_ref(*args, min_material=mm, anti_firefly=af, dc=k["dc"],
                                             **kw)
-                assert len(want) == 2
-                assert torch.equal(both[sig], want[0]), sig
-                assert torch.equal(both[f"{sig}_fast"], want[1]), f"{sig}_fast"
+                assert len(want) == 3
+                assert torch.equal(both[sig], want["signal"]), sig
+                assert torch.equal(both[f"{sig}_fast"], want["fast"]), f"{sig}_fast"
+                assert torch.equal(both["geometry"], want["geometry"])
             assert torch.equal(both["geometry"], k_hff.tap_geometry_ref(nr, vz, k["view_z_scale"]))
 
 

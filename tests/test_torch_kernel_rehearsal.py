@@ -3,7 +3,8 @@ roughness-encoding mode: K22 `relax_atrous.cu`, K23 `reblur_band.cu`, N4
 `spatial_filter_fused.cu`, N5 `history_fix_fused.cu`, K13 `sigma_blur.cu`, K19
 `relax_history_fix.cu`, K16 `relax_smb_resolve.cu`, K17 `relax_vmb_resolve.cu`, K15
 `relax_prepass.cu`, K12 `hitdist_recon.cu`, H1 `smb_resolve.cu`, K14 `sigma_ts.cu`, H3
-`history_fix.cu`, K20 `relax_clamp_moments.cu` and H4 `ts_prelude.cu`, as they are in the tree,
+`history_fix.cu`, K20 `relax_clamp_moments.cu`, H4 `ts_prelude.cu` and H2 `spatial_filter.cu`,
+as they are in the tree,
 compiled as C++ by g++
 through `tests/cuda_shim.h` (every CUDA thread a std::thread,
 `__syncthreads` a barrier of the block) and bound through the same ctypes entry points as on
@@ -27,7 +28,13 @@ on frames with striped materials (at the default of 4 the material test never bi
 footprints on the frames, fbits and allow_catrom equal; and K15 on RELAX_DIFFUSE and
 RELAX_SPECULAR at LINEAR, with depthThreshold 0.03 (the snapped tap position at its
 plane-distance threshold) and with both min materials 0 on striped materials; K20 on
-RELAX_DIFFUSE and RELAX_SPECULAR (`CLAMP_CASES`); H4 on every TS half (`TS_CASES`).
+RELAX_DIFFUSE and RELAX_SPECULAR (`CLAMP_CASES`); H4 on every TS half (`TS_CASES`); H2 on
+REBLUR_DIFFUSE and REBLUR_SPECULAR by stage (`SF_CASES`: PrePass, Blur and PostBlur, these two
+with the taps on H3's geometry plane; performance mode,
+usePrepassOnlyForSpecularMotionEstimation and both min materials 0 on striped materials),
+and H3's kernel chained into H2's Blur; K12 on REBLUR_DIFFUSE, REBLUR_SPECULAR and
+REBLUR_DIFFUSE_SPECULAR at radius 1 and 2 (`HD_CASES`) on frames with hit-distance holes,
+the image border's included.
 
 Run alone: python -m pytest tests/test_torch_kernel_rehearsal.py -q
 
@@ -64,7 +71,7 @@ SOURCES = ("relax_atrous.cu", "reblur_band.cu", "spatial_filter_fused.cu",
            "history_fix_fused.cu", "sigma_blur.cu", "relax_history_fix.cu",
            "relax_smb_resolve.cu", "relax_vmb_resolve.cu", "relax_prepass.cu",
            "hitdist_recon.cu", "smb_resolve.cu", "sigma_ts.cu", "history_fix.cu",
-           "relax_clamp_moments.cu", "ts_prelude.cu")
+           "relax_clamp_moments.cu", "ts_prelude.cu", "spatial_filter.cu")
 SIZE = (48, 32)
 FRAMES = 4
 ATOL, RTOL, FLIP_FRACTION = 1e-4, 1e-4, 1e-4
@@ -163,6 +170,22 @@ TS_CASES = {**{half: (half, "") for half in TS_HALVES},
             "specular_virtual_amounts": ("specular", "virtual_amounts"),
             "specular_strand": ("specular", "strand")}
 
+# H2's calls: (denoiser, settings, striped materials) of each case, whose frames' PrePass, Blur
+# and PostBlur calls (SF_STAGES, in order) are held by stage
+SF_CASES = {"diffuse": (Denoiser.REBLUR_DIFFUSE, {}, False),
+            "diffuse_perf": (Denoiser.REBLUR_DIFFUSE, dict(enablePerformanceMode=True), False),
+            "diffuse_min_material_0": (Denoiser.REBLUR_DIFFUSE, NO_MIN_MATERIAL, True),
+            "specular": (Denoiser.REBLUR_SPECULAR, {}, False),
+            "specular_prepass_only": (Denoiser.REBLUR_SPECULAR,
+                                      dict(usePrepassOnlyForSpecularMotionEstimation=True), False),
+            "specular_min_material_0": (Denoiser.REBLUR_SPECULAR, NO_MIN_MATERIAL, True)}
+# K12's calls: each REBLUR variant at each radius, on frames with hit-distance holes
+HD_CASES = {f"{sig}_{mode.name.lower()}": (d, mode)
+            for sig, d in (("diffuse", Denoiser.REBLUR_DIFFUSE),
+                           ("specular", Denoiser.REBLUR_SPECULAR),
+                           ("diffuse_specular", DS))
+            for mode in (HM.AREA_3X3, HM.AREA_5X5)}
+
 LAUNCH = re.compile(r"([A-Za-z_]\w*(?:<[^<>;]*>)?)\s*<<<([^;]*?)>>>\s*\(([^;]*)\);")
 DYNAMIC_SHARED = re.compile(r"extern\s+__shared__\s+(\w+)\s+(\w+)\s*\[\s*\]\s*;")
 
@@ -236,9 +259,10 @@ def _pools(kind, encoding=RoughnessEncoding.LINEAR, holes=False, materials=False
            motion="mv_z_given"):
     """The inputs of each frame for "reblur", "relax" or "sigma" (the penumbra from the
     scene's distance to the occluder, and a constant translucency), the roughness packed
-    with `encoding`; with `holes` the RELAX hit distance zeroed on a seeded HOLE_FRACTION of
-    the geometry pixels; with `materials` the materials striped (`_striped`); the motion
-    vectors as `motion` of MOTIONS says."""
+    with `encoding`; with `holes` the hit distance zeroed on a seeded HOLE_FRACTION of the
+    geometry pixels (REBLUR's also on every geometry pixel of the image border); with
+    `materials` the materials striped (`_striped`); the motion vectors as `motion` of MOTIONS
+    says."""
     gen = SceneGenerator(SceneSpec(size=SIZE, noise=0.4), camera_mode="orbit")
     rng = np.random.default_rng(11)
     relax = kind == "relax"
@@ -258,6 +282,8 @@ def _pools(kind, encoding=RoughnessEncoding.LINEAR, holes=False, materials=False
                 RT.IN_NORMAL_ROUGHNESS: gen.packed_normal_roughness(fd, re_=encoding)}
         punched = ((np.random.default_rng((17, i)).random(fd.view_z.shape) < HOLE_FRACTION)
                    & (fd.hit_mask > 0))
+        border = np.ones(fd.view_z.shape, bool)
+        border[1:-1, 1:-1] = False
         if kind == "sigma":
             dist = torch.from_numpy(fd.dist_to_occluder)
             pool[RT.IN_PENUMBRA] = fe.sigma_pack_penumbra_directional(
@@ -283,6 +309,8 @@ def _pools(kind, encoding=RoughnessEncoding.LINEAR, holes=False, materials=False
                 nhd = fe.reblur_get_norm_hit_dist(torch.from_numpy(hit),
                                                   torch.from_numpy(fd.view_z), HDP, rough)
                 pool[rt] = fe.reblur_pack_radiance_hitdist(torch.from_numpy(noisy), nhd).numpy()
+                if holes:
+                    pool[rt][..., 3][punched | (border & (fd.hit_mask > 0))] = 0.0
         yield fd.common_settings, pool
 
 
@@ -732,5 +760,106 @@ def test_ts_prelude_rehearsal(library, ts_calls, case):
     if variant == "strand":
         assert any(bool((a[7][..., 3] * 3.0 == 2.0).any()) for a, _ in calls)
     over, count, worst = _hold(library, "ts_prelude", calls)
+    assert over <= FLIP_FRACTION * count, (f"{case}: {over} of {count} values out of "
+                                           f"tolerance, max |d| {worst:.3g}")
+
+
+@pytest.fixture(scope="module")
+def sf_calls():
+    """H2's and H3's calls of each SF_CASES case over the frames, which have hit-distance holes
+    (where the PrePass radius falls to its minimum)."""
+    cache = {}
+
+    def get(case):
+        if case not in cache:
+            denoiser, settings, striped = SF_CASES[case]
+            cache[case] = {name: _record(denoiser, name, holes=True, materials=striped,
+                                         **settings)
+                           for name in ("spatial_filter", "history_fix")}
+        return cache[case]
+    return get
+
+
+@pytest.mark.parametrize("stage", SF_STAGES)
+@pytest.mark.parametrize("case", list(SF_CASES))
+def test_spatial_filter_rehearsal(library, sf_calls, case, stage):
+    """H2 (the centre's geometry and parameters in the kernel, then the tap loop) against the
+    plain version (`params.filter_geometry`, the glue's parameter functions and the XLA tap
+    loop) by stage on frames with hit-distance holes: the specular PrePass with
+    hitDistForTracking and its PCG draws (with usePrepassOnlyForSpecularMotionEstimation its
+    taps weigh 0), Blur and PostBlur with the taps on H3's geometry plane, performance mode's
+    6 taps, and both min materials 0 on striped materials."""
+    denoiser, settings, striped = SF_CASES[case]
+    calls = sf_calls(case)["spatial_filter"]
+    assert len(calls) == FRAMES * len(SF_STAGES)
+    calls = calls[SF_STAGES.index(stage)::len(SF_STAGES)]
+    spec = denoiser == Denoiser.REBLUR_SPECULAR
+    assert all(k["mode"] == SF_STAGES.index(stage) and k["spec"] == spec for _, k in calls)
+    assert all(k["perf_mode"] == ("perf" in case) for _, k in calls)
+    assert all(float(k["dc"]["use_prepass_not_only_for_specular_motion_estimation"])
+               == (0.0 if "prepass_only" in case else 1.0) for _, k in calls)
+    assert all(float(k["dc"]["spec_min_material" if spec else "diff_min_material"])
+               == (0.0 if striped else 4.0) for _, k in calls)
+    assert len(_materials(calls, 2)) == (4 if striped else 2)
+    assert all(bool((a[0][..., 3] == 0.0).any()) for a, _ in calls)  # holes or dead pixels
+    assert all((k["geometry"] is None) == (stage == "prepass") for _, k in calls)
+    over, count, worst = _hold(library, "spatial_filter", calls)
+    assert over <= FLIP_FRACTION * count, (f"{case} {stage}: {over} of {count} values out of "
+                                           f"tolerance, max |d| {worst:.3g}")
+
+
+@pytest.mark.parametrize("case", ["diffuse", "specular"])
+def test_history_fix_plane_chain_rehearsal(library, sf_calls, case):
+    """H3's kernel writes the tap-geometry plane that H2's Blur kernel then reads: the chain of
+    the two kernels against the plain versions."""
+    hf, sf = KM.MODULES["history_fix"], KM.MODULES["spatial_filter"]
+    calls = sf_calls(case)
+    blur = calls["spatial_filter"][1::len(SF_STAGES)]
+    assert len(calls["history_fix"]) == len(blur) == FRAMES
+    worst = 0.0
+    for (fa, fk), (ba, bk) in zip(calls["history_fix"], blur):
+        with kernels_on_cpu(library):
+            plane = hf.history_fix(*fa, **fk)["geometry"]
+            got = sf.spatial_filter(*ba, **dict(bk, geometry=plane))
+        want = sf.spatial_filter_ref(*ba, **bk)
+        assert torch.equal(plane, hf.history_fix_ref(*fa, **fk)["geometry"])
+        d = (got - want).abs()
+        assert int((d > ATOL + RTOL * want.abs()).sum()) <= FLIP_FRACTION * d.numel()
+        worst = max(worst, float(d.max()))
+    assert worst < 1e-3
+
+
+@pytest.mark.parametrize("case", list(HD_CASES))
+def test_hitdist_recon_rehearsal(library, case):
+    """K12 (the staged window of derived texels, the centre's parameters in the kernel, whole
+    float4 signals written) against the plain version on REBLUR's calls, on frames with
+    hit-distance holes: the holes are refilled, the image border's too, and .xyz pass
+    through; and with a roughness texture."""
+    denoiser, mode = HD_CASES[case]
+    calls = _record(denoiser, "hitdist_recon", holes=True, hitDistanceReconstructionMode=mode)
+    assert len(calls) == FRAMES
+    names = [n for n, present in (("diff", "DIFFUSE" in denoiser.name),
+                                  ("spec", "SPECULAR" in denoiser.name)) if present]
+    ref = KM.hitdist_recon.hitdist_recon_ref
+    for a, k in calls:
+        assert k["radius"] == (2 if mode == HM.AREA_5X5 else 1)
+        assert [a[2] is not None, a[3] is not None] == [n in names for n in ("diff", "spec")]
+        want = ref(*a, **k)
+        for n in names:
+            src = a[2 if n == "diff" else 3]
+            holes = src[..., 3] == 0.0
+            assert bool(holes[0].any() or holes[-1].any() or holes[:, 0].any()
+                        or holes[:, -1].any())
+            assert bool((want[n][..., 3][holes] > 0.0).any())
+            assert torch.equal(want[n][..., :3], src[..., :3])
+    # the scene's roughness is constant on each surface, where the roughness weight is 1 at any
+    # parameter: the calls again with a seeded roughness texture
+    rng = np.random.default_rng(31)
+    textured = []
+    for a, k in calls:
+        nr = a[1].clone()
+        nr[..., 2] = torch.from_numpy(rng.random(tuple(nr.shape[:2]), dtype=np.float32))
+        textured.append(((a[0], nr, *a[2:]), k))
+    over, count, worst = _hold(library, "hitdist_recon", calls + textured)
     assert over <= FLIP_FRACTION * count, (f"{case}: {over} of {count} values out of "
                                            f"tolerance, max |d| {worst:.3g}")

@@ -13,6 +13,7 @@ import torch
 
 from nrdtpu_torch import frontend as fe
 from nrdtpu_torch.engine import Engine
+from nrdtpu_torch.kernels import history_fix as k_hf
 from nrdtpu_torch.passes.reblur import kernels as K
 from nrdtpu_torch.settings import CommonSettings, Denoiser
 
@@ -91,8 +92,10 @@ def test_spatial_filter_matches_oracle(mode):
     s = _scene(sc)
     data1 = RNG.uniform(0.0, 30.0, (H_, W)).astype(np.float32)
     ref = O.diffuse_spatial_filter(sc, dc, mode, s["signal"], s["view_z"], s["nr"], data1)
+    plane = k_hf.tap_geometry_ref(t(s["nr"]), t(s["view_z"]), float(sc["view_z_scale"]))
     got = K.diffuse_spatial_filter(sc, dc, K.BLUR if mode == "blur" else K.POST_BLUR,
-                                   t(s["signal"]), t(s["view_z"]), t(s["nr"]), t(data1), cfg)
+                                   t(s["signal"]), t(s["view_z"]), t(s["nr"]), t(data1), cfg,
+                                   tap_geometry=plane)
     p = psnr(ref, got.numpy())
     assert p >= BAR_DB, f"{mode}: PSNR vs HLSL oracle = {p:.1f} dB"
 
@@ -106,8 +109,8 @@ def test_history_fix_matches_oracle():
     fast = RNG.uniform(0.0, 1.0, (H_, W)).astype(np.float32)
     ref_sig, ref_fast = O.history_fix_diffuse(sc, dc, s["view_z"], s["nr"], data1,
                                               s["signal"], fast)
-    got_sig, got_fast = K.history_fix(sc, dc, t(s["view_z"]), t(s["nr"]), t(data1),
-                                      t(s["signal"]), t(fast), cfg)
+    got_sig, got_fast, _ = K.history_fix(sc, dc, t(s["view_z"]), t(s["nr"]), t(data1),
+                                         t(s["signal"]), t(fast), cfg)
     assert psnr(ref_sig, got_sig.numpy()) >= BAR_DB
     assert psnr(ref_fast, got_fast.numpy()) >= BAR_DB
 

@@ -25,6 +25,7 @@ from nrdtpu.settings import Denoiser, ResourceType as RT
 from nrdtpu.utils.scene import SceneGenerator, SceneSpec
 
 from nrdtpu_torch import interop
+from nrdtpu_torch.kernels import history_fix as k_hf
 from nrdtpu_torch.passes.reblur import kernels as TK
 
 # the tensors here are small: one intra-op thread, so that test workers do not contend
@@ -138,13 +139,15 @@ def test_pre_pass(ctx):
 
 @pytest.mark.parametrize("mode", ["blur", "post_blur"])
 def test_spatial_filter(ctx, mode):
-    """H2 in Blur / PostBlur mode vs diffuse_spatial_filter."""
+    """H2 in Blur / PostBlur mode (its taps on the history fix's tap-geometry plane) vs
+    diffuse_spatial_filter."""
     vz, nr, _ = _geom(ctx)
     j = ctx["j"]
     src, want, m = ((j["hf"][0], j["blur"], TK.BLUR) if mode == "blur"
                     else (j["blur"], j["post"], TK.POST_BLUR))
+    plane = k_hf.tap_geometry_ref(nr, vz, float(ctx["sc"]["view_z_scale"]))
     got = TK.diffuse_spatial_filter(ctx["sc"], ctx["dc"], m, t(src), vz, nr, t(j["ta"][2]),
-                                    ctx["cfg"])
+                                    ctx["cfg"], tap_geometry=plane)
     close(mode, got, want)
 
 
@@ -152,8 +155,8 @@ def test_history_fix(ctx):
     """H3 + the fast-history clamp glue vs history_fix."""
     vz, nr, _ = _geom(ctx)
     diff1, fast1, data1, _ = ctx["j"]["ta"]
-    sig, fast = TK.history_fix(ctx["sc"], ctx["dc"], vz, nr, t(data1), t(diff1), t(fast1),
-                               ctx["cfg"])
+    sig, fast, _ = TK.history_fix(ctx["sc"], ctx["dc"], vz, nr, t(data1), t(diff1), t(fast1),
+                                  ctx["cfg"])
     close("history fix signal", sig, ctx["j"]["hf"][0])
     close("history fix fast", fast, ctx["j"]["hf"][1])
 

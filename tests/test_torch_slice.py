@@ -94,12 +94,19 @@ def test_state_dtypes_preserved(runs):
             assert str(v.dtype).split(".")[-1] == r["jstate"][k].dtype.name, k
 
 
-@pytest.mark.parametrize("settings", [dict(enablePerformanceMode=True),
-                                      dict(diffusePrepassBlurRadius=0.0),
-                                      dict(maxStabilizedFrameNum=0)],
-                         ids=["performance_mode", "no_prepass", "no_stabilization"])
-def test_settings_paths_match_jax(settings):
-    """The other settings paths the port runs: 6-tap spatial filters, PrePass off, TS off."""
-    for frame, r in enumerate(_run((64, 48), 3, **settings)):
+@pytest.mark.parametrize("settings,frames", [
+    (dict(enablePerformanceMode=True), 3),
+    (dict(diffusePrepassBlurRadius=0.0), 3),
+    (dict(maxStabilizedFrameNum=0), 3),
+    (dict(historyFixFrameNum=0), 4),
+    (dict(minMaterialForDiffuse=0.0, minMaterialForSpecular=0.0), 4),
+    (dict(maxAccumulatedFrameNum=10, maxFastAccumulatedFrameNum=2), 4),
+], ids=["performance_mode", "no_prepass", "no_stabilization", "history_fix_frame_num_0",
+        "min_material_0", "max_accumulated_10_2"])
+def test_settings_paths_match_jax(settings, frames):
+    """The other settings paths the port runs: 6-tap spatial filters, PrePass off, TS off (3
+    frames); and the settings whose math H2 and H3 take in (4 frames; ROADMAP.md, Queue 3's
+    probe table): historyFixFrameNum 0, both min materials 0, max accumulated frames 10 / 2."""
+    for frame, r in enumerate(_run((64, 48), frames, **settings)):
         p = psnr(r["torch"], r["jax"])
         assert p >= PSNR_BAR_DB, f"frame {frame}: {p:.2f} dB"

@@ -28,6 +28,7 @@ from nrdtpu.settings import Denoiser, ResourceType as RT
 from nrdtpu.utils.scene import SceneGenerator, SceneSpec
 
 from nrdtpu_torch import interop
+from nrdtpu_torch.kernels import history_fix as k_hf
 from nrdtpu_torch.passes.reblur import kernels as TK
 
 # the tensors here are small: one intra-op thread, so that test workers do not contend
@@ -179,8 +180,11 @@ def test_specular_spatial_filter(ctx, mode):
                     "blur": (j["hf"][0], j["blur"], TK.BLUR),
                     "post_blur": (j["blur"], j["post"], TK.POST_BLUR)}[mode]
     dc = ctx["dc_off" if mode == "pre_blur_off" else "dc"]
+    plane = (None if m == TK.PRE_BLUR  # Blur and PostBlur read the history fix's plane
+             else k_hf.tap_geometry_ref(nr, vz, float(ctx["sc"]["view_z_scale"])))
     got, hdt = TK.specular_spatial_filter(ctx["sc"], dc, m, t(src), vz, nr,
-                                          None if m == TK.PRE_BLUR else data1, ctx["cfg"])
+                                          None if m == TK.PRE_BLUR else data1, ctx["cfg"],
+                                          tap_geometry=plane)
     close(mode, got, want)
     if m == TK.PRE_BLUR:
         want_hdt = j["pre_off_hdt" if mode == "pre_blur_off" else "pre_hdt"]
@@ -193,8 +197,8 @@ def test_history_fix_specular(ctx):
     """H3 in specular mode + the fast-history clamp glue vs history_fix(is_diffuse=False)."""
     vz, nr, _ = _geom(ctx)
     ta = ctx["j"]["ta"]
-    sig, fast = TK.history_fix(ctx["sc"], ctx["dc"], vz, nr, t(ta["accum_speed"]), t(ta["spec"]),
-                               t(ta["fast"]), ctx["cfg"], is_diffuse=False)
+    sig, fast, _ = TK.history_fix(ctx["sc"], ctx["dc"], vz, nr, t(ta["accum_speed"]),
+                                  t(ta["spec"]), t(ta["fast"]), ctx["cfg"], is_diffuse=False)
     close("history fix signal", sig, ctx["j"]["hf"][0])
     close("history fix fast", fast, ctx["j"]["hf"][1])
 
