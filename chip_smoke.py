@@ -10,9 +10,10 @@ AREA_3X3 on the same frames with
 holes punched into the hit distance (.w = 0 on a seeded 30 % of the geometry pixels, as a
 renderer that traces some pixels and not others sends them); SIGMA_SHADOW and
 SIGMA_SHADOW_TRANSLUCENCY with the penumbra packed from the scene's distance to the occluder;
-RELAX_DIFFUSE and RELAX_SPECULAR with the radiance and the raw hit distance packed by
-`relax_pack_radiance_hitdist`, and RELAX_SPECULAR with `enableAntiFirefly=True` on the same
-frames (the anti-firefly pass, off by default, on a main path of its own).
+RELAX_DIFFUSE, RELAX_SPECULAR and RELAX_DIFFUSE_SPECULAR with the radiance and the raw hit
+distance packed by `relax_pack_radiance_hitdist`, and RELAX_SPECULAR with
+`enableAntiFirefly=True` on the same frames (the anti-firefly pass, off by default, on a main
+path of its own).
 
 Phases, each of which raises on failure (exit code != 0):
   1. build the hand-written kernels from `nrdtpu_torch/kernels/csrc/` with nvcc, one process
@@ -32,12 +33,13 @@ Phases, each of which raises on failure (exit code != 0):
      materials 0 and REBLUR_SPECULAR with usePrepassOnlyForSpecularMotionEstimation (H2 only,
      held), and with hit-distance reconstruction at radius 1 and 2 on the
      punched frames (hitdist_recon only); then each SIGMA variant (K13 `sigma_blur` by
-     pass, Blur and PostBlur: with the variant, its four modes); then RELAX_DIFFUSE and
-     RELAX_SPECULAR (every kernel of each, all five à-trous calls; the share of pixels that
-     run K19 `relax_history_fix`'s taps is printed), both with
-     `enableAntiFirefly=True` (relax_antifirefly timed, the rest held only), both with
+     pass, Blur and PostBlur: with the variant, its four modes); then RELAX_DIFFUSE,
+     RELAX_SPECULAR and RELAX_DIFFUSE_SPECULAR (every kernel of each, all five à-trous calls,
+     the last one's K16, K19, K20 and K22 in their two-signal modes; the share of pixels that
+     run K19 `relax_history_fix`'s taps is printed), each with
+     `enableAntiFirefly=True` (relax_antifirefly timed, the rest held only), each with
      AREA_3X3 on RELAX-packed punched frames (hitdist_recon on RELAX's constants, not
-     timed) and both with the history clamp's colour box off (relax_clamp_moments, held);
+     timed) and each with the history clamp's colour box off (relax_clamp_moments, held);
      REBLUR_DIFFUSE and REBLUR_DIFFUSE_SPECULAR with maxBlurRadius 0 (ts_prelude in each TS
      half without the RCRS clamp, held); then RELAX_SPECULAR with IN_NORMAL_ROUGHNESS packed
      as SQ_LINEAR and as
@@ -58,7 +60,9 @@ Phases, each of which raises on failure (exit code != 0):
      and dark (< 0.15) in the umbra core; prints the median ms/frame (CUDA events), the host
      ms/frame and the peak allocator bytes;
   4. lit scene: both SIGMA variants on a scene without occluders at 256x160 keep every lit
-     pixel above 0.99;
+     pixel above 0.99; RELAX pair: RELAX_DIFFUSE_SPECULAR's two outputs on the card hold to
+     RELAX_DIFFUSE's and RELAX_SPECULAR's on the card on every frame of the slices (the JAX
+     package gives them bit for bit), within the kernels' tolerance;
   5. card vs CPU: the same 4 frames at 256x160 on the card and on the CPU plain path must
      agree to >= 50 dB PSNR, for every output of every path, of RELAX_SPECULAR at SQ_LINEAR
      (AREA_3X3 on the punched frames), and of REFERENCE on a static camera (plain torch ops on
@@ -148,6 +152,8 @@ SIGMA_LAUNCHES = {"sigma_blur": 2, "sigma_ts": 1}
 RS_LAUNCHES = {"relax_prepass": 1, "relax_smb_resolve": 1, "relax_vmb_resolve": 1,
                "nearest_multi": 1, "bilinear_resolve": 1, "relax_history_fix": 1,
                "relax_clamp_moments": 1, "relax_atrous": 5}
+# RELAX_DIFFUSE_SPECULAR: K15 once a signal, every other kernel once for both signals
+RDS_LAUNCHES = {**RS_LAUNCHES, "relax_prepass": 2}
 # per path: its denoiser, its signals (outputs), settings changed from the defaults, whether
 # its frames have hit-distance holes, the environment its engines run in, and its launches
 # per frame
@@ -171,11 +177,12 @@ PATHS = {
         "relax_prepass": 1, "relax_smb_resolve": 1, "relax_history_fix": 1,
         "relax_clamp_moments": 1, "relax_atrous": 5}),
     "RELAX_SPECULAR": dict(signals=("spec",), relax=True, launches=RS_LAUNCHES),
+    "RELAX_DIFFUSE_SPECULAR": dict(signals=("diff", "spec"), relax=True, launches=RDS_LAUNCHES),
     "RELAX_SPECULAR+ANTI_FIREFLY": dict(
         denoiser="RELAX_SPECULAR", signals=("spec",), relax=True,
         settings=dict(enableAntiFirefly=True), launches={**RS_LAUNCHES, "relax_antifirefly": 1}),
 }
-RELAX_VARIANTS = ("RELAX_DIFFUSE", "RELAX_SPECULAR")
+RELAX_VARIANTS = ("RELAX_DIFFUSE", "RELAX_SPECULAR", "RELAX_DIFFUSE_SPECULAR")
 # RELAX_SPECULAR with IN_NORMAL_ROUGHNESS packed at the roughness encodings other than LINEAR,
 # with AREA_3X3 on the frames with hit-distance holes, so that every kernel that unpacks the
 # roughness (ENCODED_KERNELS) runs in the encoding's mode: held and timed in the kernel phase,
@@ -231,9 +238,15 @@ RH_TAP_OPS, RH_RECORD_OPS = 40, 43          # relax_history_fix.cu: one stride t
                                             # one texel's tap record (the prologue)
 RA_TAP_OPS, RA_SVE_TAP_OPS = 90, 45         # relax_atrous.cu: an à-trous tap, a 5x5 tap
 RA_SPEC_OPS, RA_SPEC_TAP_OPS = 60, 50       # the specular mode's parameters, + a tap
+RA_PAIR_OPS = 40                            # relax_atrous.cu with both signals: the second
+RA_PAIR_TAP_OPS, RA_PAIR_SVE_TAP_OPS = 35, 12  # signal's centre, + its part of a tap (normal,
+                                            # material and luminance weights, exp, the sums)
+                                            # and of a 5x5 tap (material test, the sums)
 RP_SPEC_OPS, RP_SPEC_TAP_OPS = 120, 30      # relax_prepass.cu's specular mode, + a tap
 RS_SPEC_OPS = 40                            # relax_smb_resolve.cu's specular planes
 RH_SPEC_TAP_OPS = 40                        # relax_history_fix.cu's specular tap weight
+RH_PAIR_TAP_OPS = 15                        # relax_history_fix.cu with both signals: the
+                                            # second one's material test and sums a tap
 RV_HISTORY_OPS = 100                        # relax_vmb_resolve.cu: the same, one history
 AF_SIGNAL_OPS = 8 * 12 + 10                 # relax_antifirefly.cu: 8 taps of one signal
 BR_SET_OPS = 30                             # bilinear_resolve.cu: one bilinear sample
@@ -307,12 +320,12 @@ class Scene:
             punched[sig][..., 3][holes] = 0.0
         # RELAX takes the radiance and the raw hit distance
         relax, relax_punched = {}, {}
-        for v, noisy, hit in (("RELAX_DIFFUSE", fd.diff_noisy, fd.diff_hit_dist),
-                              ("RELAX_SPECULAR", fd.spec_noisy, fd.spec_hit_dist)):
-            relax[v] = fe.relax_pack_radiance_hitdist(torch.from_numpy(noisy),
-                                                      torch.from_numpy(hit)).numpy()
-            relax_punched[v] = relax[v].copy()
-            relax_punched[v][..., 3][holes] = 0.0
+        for sig, noisy, hit in (("diff", fd.diff_noisy, fd.diff_hit_dist),
+                                ("spec", fd.spec_noisy, fd.spec_hit_dist)):
+            relax[sig] = fe.relax_pack_radiance_hitdist(torch.from_numpy(noisy),
+                                                        torch.from_numpy(hit)).numpy()
+            relax_punched[sig] = relax[sig].copy()
+            relax_punched[sig][..., 3][holes] = 0.0
         dist = torch.from_numpy(fd.dist_to_occluder)
         penumbra = fe.sigma_pack_penumbra_directional(
             dist, self.gen.spec.light_tan_angular_radius).numpy()
@@ -326,16 +339,16 @@ class Scene:
                 if name == "SIGMA_SHADOW_TRANSLUCENCY":
                     pools[name][RT.IN_TRANSLUCENCY] = fe.sigma_pack_translucency(dist, rgb).numpy()
             elif v.get("relax"):
-                pools[name] = {**base, in_rt(v["signals"][0]): relax[v.get("denoiser", name)]}
+                pools[name] = {**base, **{in_rt(sig): relax[sig] for sig in v["signals"]}}
             else:
                 src = punched if v.get("holes") else packed
                 pools[name] = {**base, **{in_rt(sig): src[sig] for sig in v["signals"]}}
         for name, holes_name in RELAX_HOLES.items():
-            pools[holes_name] = {**base, in_rt(PATHS[name]["signals"][0]): relax_punched[name]}
+            pools[holes_name] = {**base, **{in_rt(sig): relax_punched[sig]
+                                            for sig in PATHS[name]["signals"]}}
         for name, v in ENCODED.items():
             nr = self.gen.packed_normal_roughness(fd, re_=RoughnessEncoding[v["encoding"]])
-            pools[name] = {**base, RT.IN_NORMAL_ROUGHNESS: nr,
-                           in_rt("spec"): relax_punched[v["denoiser"]]}
+            pools[name] = {**base, RT.IN_NORMAL_ROUGHNESS: nr, in_rt("spec"): relax_punched["spec"]}
         t = None
         if truth:
             t = dict(mask=fd.hit_mask > 0, diff=(fd.diff_clean, fd.diff_noisy),
@@ -438,9 +451,14 @@ def _ops(name, a, k):
     if name == "halo_call":  # box: (2 halo + 1)^2 adds and a division a channel
         body, images, out_channels, halo = a[:4]
         return sum(t.numel() for t in images) * ((2 * halo + 1) ** 2 + 1)
-    h, w = a[0].shape[:2]  # every other kernel's first argument is a (h, w, ...) plane
+    # every other kernel's first argument is a (h, w, ...) plane, or the pair of the two
+    # RELAX signals in a two-signal mode
+    pair = isinstance(a[0], tuple)
+    h, w = (a[0][0] if pair else a[0]).shape[:2]
     px = h * w
     ops = FIXED_OPS[name] * px
+    if name == "relax_clamp_moments" and isinstance(a[1], tuple):  # the pass of each signal
+        ops *= len(a[1])
     ntaps = len(sf.tap_table(bool(k.get("perf_mode", False))))
     if name == "smb_resolve":
         ops += SMB_SIGNAL_OPS * px * (2 if k.get("second") is not None else 1)
@@ -497,13 +515,16 @@ def _ops(name, a, k):
     elif name == "relax_history_fix":  # the taps run only where the fix applies
         live = history_fix_live(a, k)
         spec = k.get("specular") is not None
-        ops += (RH_TAP_OPS + (RH_SPEC_TAP_OPS if spec else 0)) * 24 * live
+        tap = RH_TAP_OPS + (RH_SPEC_TAP_OPS if spec else 0) + (RH_PAIR_TAP_OPS if pair else 0)
+        ops += tap * 24 * live
         ops += RH_RECORD_OPS * px if k["frame_num"] != 1.0 else 0
     elif name == "relax_atrous":  # iteration 0: the 5x5 estimation in place of short histories
         short = int((a[3] < k["history_threshold"]).sum()) if k["is_first"] else 0
         spec = k.get("specular") is not None and not k["is_first"]
-        ops += (RA_TAP_OPS + (RA_SPEC_TAP_OPS if spec else 0)) * 8 * (px - short)
-        ops += RA_SVE_TAP_OPS * 25 * short + (RA_SPEC_OPS * px if spec else 0)
+        tap = RA_TAP_OPS + (RA_SPEC_TAP_OPS if spec else 0) + (RA_PAIR_TAP_OPS if pair else 0)
+        ops += tap * 8 * (px - short)
+        ops += (RA_SVE_TAP_OPS + (RA_PAIR_SVE_TAP_OPS if pair else 0)) * 25 * short
+        ops += (RA_SPEC_OPS if spec else 0) * px + (RA_PAIR_OPS if pair else 0) * px
     elif name == "relax_vmb_resolve":
         ops += RV_HISTORY_OPS * 2 * px
     elif name == "relax_antifirefly":
@@ -680,8 +701,8 @@ def ctas_per_sm(registers, shared_bytes, threads=CTA_THREADS):
 
 def _dynamic_smem(name, a, k):
     """{device kernel: dynamic shared memory} of one launch, as the entry sizes it: K22 stages
-    the tile's window (three float4 a texel) at iteration 0; K24 the windows of one strip of
-    output rows."""
+    the tile's window (three float4 a texel, four with both signals) at iteration 0; K24 the
+    windows of one strip of output rows."""
     from nrdtpu_torch.kernels import build
     from nrdtpu_torch.settings import RoughnessEncoding
 
@@ -692,7 +713,9 @@ def _dynamic_smem(name, a, k):
             return {}
         halo = max(k["step_size"], 2)
         mode = build.ROUGHNESS_MODE[k.get("roughness_encoding", RoughnessEncoding.LINEAR)]
-        return {f"relax_atrous_kernel<true, {mode}>": (tx + 2 * halo) * (ty + 2 * halo) * 48}
+        both = isinstance(a[0], tuple)
+        return {f"relax_atrous_kernel<true, {mode}, {str(both).lower()}>":
+                (tx + 2 * halo) * (ty + 2 * halo) * (64 if both else 48)}
     if name == "halo_call":
         _, images, _, halo, (bh, bw) = a[:5]
         channels = sum(1 if t.dim() == 2 else t.shape[-1] for t in images)
@@ -1126,6 +1149,40 @@ def slice_phase(path, w, h, frames, warmup):
     return counts, float(np.median(ms))
 
 
+def relax_pair_check(w, h, frames):
+    """RELAX_DIFFUSE_SPECULAR shares only the TA's head between its signals, and its history
+    length is RELAX_DIFFUSE's and RELAX_SPECULAR's (the larger max frame num, the smaller min
+    material, the same defaults for both): the JAX package gives its two outputs bit for bit as
+    the one-signal variants' on every frame. On the card the two-signal kernel modes must give
+    them within the kernels' tolerance, on every frame."""
+    from nrdtpu_torch.settings import ResourceType as RT
+
+    pair = "RELAX_DIFFUSE_SPECULAR"
+    engs = {p: path_engine(p, w, h, "cuda") for p in (pair, "RELAX_DIFFUSE", "RELAX_SPECULAR")}
+    worst = {sig: [0.0, 0, 0] for sig in ("diff", "spec")}  # max abs, values out, values
+    for cs, pools, _ in frames:
+        outs = {}
+        for p, eng in engs.items():
+            eng.set_common_settings(cs)
+            pool = {k: torch.from_numpy(v).cuda() for k, v in pools[p].items()}
+            outs[p] = eng.denoise([0], pool)
+        for sig, single in (("diff", "RELAX_DIFFUSE"), ("spec", "RELAX_SPECULAR")):
+            got, want = outs[pair][out_rt(sig)], outs[single][out_rt(sig)]
+            d = (got - want).abs()
+            r = worst[sig]
+            r[0] = max(r[0], float(d.max()))
+            r[1] += int((d > ATOL + RTOL * want.abs()).sum())
+            r[2] += d.numel()
+    for sig, (mx, over, count) in worst.items():
+        log(f"relax pair {sig}: RELAX_DIFFUSE_SPECULAR vs the one-signal variant over "
+            f"{len(frames)} frames: max abs {mx:.3g}, {over} of {count} values outside "
+            f"atol={ATOL}, rtol={RTOL}")
+        if over > FLIP_FRACTION * count:
+            raise AssertionError(f"RELAX_DIFFUSE_SPECULAR {sig} disagrees with the one-signal "
+                                 f"variant on the card: {over} of {count} values")
+    return {sig: dict(max_abs=v[0], over=v[1], count=v[2]) for sig, v in worst.items()}
+
+
 def profile_phase(path, w, h, frames, slice_ms, warmup=4, n=3):
     """Device time a frame by kernel name over n traced frames after `warmup` frames."""
     from torch.profiler import ProfilerActivity, profile
@@ -1269,6 +1326,8 @@ def main():
     for path in PATHS:
         counts[path], slice_ms[path] = slice_phase(path, args.width, args.height, frames, warmup)
         log(f"phase slice {path}: done at {time.perf_counter() - t_start:.1f} s")
+    relax_pair_check(args.width, args.height, frames)
+    log(f"phase relax pair: done at {time.perf_counter() - t_start:.1f} s")
     if args.profile:
         for path in PATHS:
             profile_phase(path, args.width, args.height, frames, slice_ms[path])

@@ -1,4 +1,4 @@
-// K22: one RELAX à-trous iteration, diffuse or specular. Iteration 0: the 3x3 Gaussian
+// K22: one RELAX à-trous iteration, diffuse, specular or both. Iteration 0: the 3x3 Gaussian
 // prefilter of the centre's variance, the 3x3 taps accumulating (rgb, 2nd moment) with the
 // variance taken at the end, and where history length < threshold the 5x5 spatial variance
 // estimation in its place. Later iterations: variance propagated with w^2, the lobe fraction
@@ -10,26 +10,32 @@
 // diffuse lobe fraction and luminance weight, IN_SPEC_CONFIDENCE and the TA's reprojection
 // confidence the specular ones. The specular mode weights its later iterations' taps by the
 // specular normal weight x the roughness weight (or the simplified normal weight); its
-// iteration 0 keeps the diffuse normal weight, as XLA does (use_variance_estimation).
+// iteration 0 keeps the diffuse normal weight, as XLA does (use_variance_estimation). With
+// both signals (kBoth, the TPU function's has_diff and has_spec) a tap's geometry serves both:
+// its plane distance, Gaussian, in-screen test, denoising range and normal angle; each signal
+// then takes its own normal weight (the specular one x roughness after iteration 0), material
+// test at its own min material and luminance weight at its own phi and max difference.
 // Replaces nrdtpu/kernels/relax_pallas.py:338 relax_atrous_pallas; computes
 // nrdtpu/passes/relax/kernels.py:1349-1598 per pixel. The plain version is
 // nrdtpu_torch/kernels/relax_atrous.py:relax_atrous_ref.
 //
-// Design for the H100: one thread per pixel in kTileX x kTileY CTAs, at most kMinCtas'
-// register budget (four 256-thread CTAs an SM). A pixel's 8 taps (iteration 0: also the 3x3
-// prefilter and the 5x5 estimation) gather signal, packed normal and viewZ, and each texel is
-// read as one float4 of signal, one float4 of nr (nx, ny, roughness, material / 3) and one
-// float of viewZ through the read-only path, its index clamped once. What a tap derives from
-// the texel alone (derive: the unpacked normal, viewZ, material, luminance) is the same for
-// every pixel that taps it. Iteration 0, whose prefilter, taps and 5x5 estimation read 8-33
-// texels of a 5x5 neighbourhood, first stages the tile's window (halo 2) into shared memory
-// with those values derived once a texel, and reads it there. The later strides read each
-// texel from global memory and derive it at the tap: staging their windows (halo = step) was
-// slower at steps 2 and 4 on the H100 (PERF.md), and steps 8 and 16 jitter their taps. A tap keeps
-// XLA's float uv + duv and finds its texel by floor(us w) as before; the window is indexed by
-// that texel, and a texel outside it is read and derived from global memory. The roughness
-// that derive keeps follows the roughness encoding, the template parameter kRough
-// (common.cuh:decode_roughness), as the TPU kernel's rough_sq.
+// Design for the H100: one thread per pixel in kTileX x kTileY CTAs, at most kMinCtas' register
+// budget (four 256-thread CTAs an SM; with both signals too: it spills 92-124 B there, and at 3
+// CTAs, 80 registers and 0-36 B, the ladder ran 2 % slower, PERF.md). A pixel's 8 taps (iteration
+// 0: also the 3x3 prefilter and the 5x5 estimation) gather signal, packed normal and viewZ, and
+// each texel is read as one float4 of signal, one float4 of nr (nx, ny, roughness, material / 3)
+// and one float of viewZ through the read-only path, its index clamped once. What a tap derives
+// from the texel alone (derive: the unpacked normal, viewZ, material, luminance) is the same for
+// every pixel that taps it; with both signals a texel is one float4 more (the specular signal,
+// its luminance in the third float4's spare lane). Iteration 0, whose prefilter, taps and 5x5
+// estimation read 8-33 texels of a 5x5 neighbourhood, first stages the tile's window (halo 2:
+// 19.2 KB, 25.6 KB with both signals) into shared memory with those values derived once a texel,
+// and reads it there. The later strides read each texel from global memory and derive it at the
+// tap: staging their windows (halo = step) was slower at steps 2 and 4 on the H100 (PERF.md), and
+// steps 8 and 16 jitter their taps. A tap keeps XLA's float uv + duv and finds its texel by
+// floor(us w) as before; the window is indexed by that texel, and a texel outside it is read and
+// derived from global memory. The roughness that derive keeps follows the roughness encoding, the
+// template parameter kRough (common.cuh:decode_roughness), as the TPU kernel's rough_sq.
 #include "relax_common.cuh"
 
 namespace {
@@ -39,20 +45,25 @@ using nrd::V3;
 
 constexpr int kTileX = 16, kTileY = 16, kMinCtas = 4;
 
-struct AtrousArgs {
+// one signal's planes and constants
+struct AtrousSignal {
   const float* signal;  // (h, w, 4) (rgb, 2nd moment) at iteration 0, else (rgb, variance)
+  float* out;           // (h, w, 4) (rgb, variance)
+  float phi, max_rel, min_material;
+};
+
+struct AtrousArgs {
+  AtrousSignal sig[2];  // the one signal, or the diffuse and the specular signal
   const float* view_z;  // (h, w) raw
   const float* nr;      // (h, w, 4)
   const float* hl;      // (h, w) history length
-  float* out;           // (h, w, 4) (rgb, variance)
   const float* diff_conf;  // (h, w) IN_DIFF_CONFIDENCE or null
   const float* spec_conf;  // (h, w) IN_SPEC_CONFIDENCE or null
   const float* reproj;     // (h, w) the TA's specular reprojection confidence or null
   relax::Frame f;
-  float denoising_range, depth_threshold, lobe_fraction, nwp_sve, phi, max_rel, min_material,
-      history_threshold;
+  float denoising_range, depth_threshold, lobe_fraction, nwp_sve, history_threshold;
   int step, halo;  // halo: the staged window's margin (iteration 0)
-  bool is_first, spec;
+  bool is_first, spec;  // spec: the one signal is specular (both signals: the second one is)
   uint32_t frame_index;
   float w0, w0_sq, k01, k11;  // Gaussian 3x3: centre, centre squared, edge, corner
   float conf_mult, conf_normal, conf_lum;  // confidence-driven relaxations
@@ -65,73 +76,111 @@ struct AtrousArgs {
 // 3x3 Gaussian prefilter of the centre's variance, [|dx|][|dy|]
 __constant__ float kPrefilter[2][2] = {{0.25f, 0.125f}, {0.125f, 0.0625f}};
 
-// one texel of the three tapped images, with what every tap derives from it alone
+// one texel of the tapped images, with what every tap derives from it alone; kN signals
+template <int kN>
 struct Texel {
-  float4 g;  // the unpacked normal (x, y, z), viewZ (relax::view_z)
-  float4 s;  // the signal
-  float4 m;  // the signal's luminance, material (nr.w x 3), roughness, unused
+  float4 g;      // the unpacked normal (x, y, z), viewZ (relax::view_z)
+  float4 m;      // signal 0's luminance, material (nr.w x 3), roughness, signal 1's luminance
+  float4 s[kN];  // the signals
 };
 
-template <int kRough>
-__device__ __forceinline__ Texel derive(const relax::Frame& f, float4 s, float4 nr, float raw_z) {
-  const V3 n = nrd::unpack_normal(nr.x, nr.y);
-  return Texel{make_float4(n.x, n.y, n.z, relax::view_z(f, raw_z)), s,
-               make_float4(relax::luminance(s.x, s.y, s.z), nr.w * 3.0f,
-                           nrd::decode_roughness<kRough>(nr.z), 0.0f)};
+// signal k's luminance of a texel
+template <int kN>
+__device__ __forceinline__ float lum(const Texel<kN>& t, int k) { return k == 0 ? t.m.x : t.m.w; }
+
+// whether signal k takes the specular weights
+template <int kN>
+__device__ __forceinline__ bool is_spec(const AtrousArgs& a, int k) {
+  return kN == 2 ? k == 1 : a.spec;
 }
 
-template <int kRough>
-__device__ __forceinline__ Texel load_texel(const AtrousArgs& a, int tx, int ty) {
-  const size_t k = Image<float, 4>{a.signal, a.f.w, a.f.h}.index(tx, ty);
-  return derive<kRough>(a.f, __ldg(reinterpret_cast<const float4*>(a.signal) + k),
-                __ldg(reinterpret_cast<const float4*>(a.nr) + k), __ldg(a.view_z + k));
+template <int kN, int kRough>
+__device__ __forceinline__ Texel<kN> derive(const relax::Frame& f, const float4 s[kN],
+                                            float4 nr, float raw_z) {
+  const V3 n = nrd::unpack_normal(nr.x, nr.y);
+  Texel<kN> t;
+  t.g = make_float4(n.x, n.y, n.z, relax::view_z(f, raw_z));
+  t.m = make_float4(relax::luminance(s[0].x, s[0].y, s[0].z), nr.w * 3.0f,
+                    nrd::decode_roughness<kRough>(nr.z),
+                    kN == 2 ? relax::luminance(s[kN - 1].x, s[kN - 1].y, s[kN - 1].z) : 0.0f);
+#pragma unroll
+  for (int k = 0; k < kN; ++k) t.s[k] = s[k];
+  return t;
+}
+
+template <int kN, int kRough>
+__device__ __forceinline__ Texel<kN> load_texel(const AtrousArgs& a, int tx, int ty) {
+  const size_t i = Image<float, 4>{a.sig[0].signal, a.f.w, a.f.h}.index(tx, ty);
+  float4 s[kN];
+#pragma unroll
+  for (int k = 0; k < kN; ++k) s[k] = __ldg(reinterpret_cast<const float4*>(a.sig[k].signal) + i);
+  return derive<kN, kRough>(a.f, s, __ldg(reinterpret_cast<const float4*>(a.nr) + i),
+                            __ldg(a.view_z + i));
 }
 
 // The tile's window of texels, clamp-to-edge: wh rows of ww texels from (ox, oy), in shared
-// memory, or nothing (g null) where the stride is not staged.
+// memory (planes g, m, then one a signal), or nothing (g null) where the stride is not staged.
+template <int kN>
 struct Window {
   const float4* g;
-  const float4* s;
   const float4* m;
+  const float4* s[kN];
   int ox, oy, ww, wh;
 };
 
-template <int kRough>
-__device__ __forceinline__ Texel fetch(const AtrousArgs& a, const Window& wnd, int tx, int ty) {
+template <int kN, int kRough>
+__device__ __forceinline__ Texel<kN> fetch(const AtrousArgs& a, const Window<kN>& wnd, int tx,
+                                           int ty) {
   const int i = tx - wnd.ox, j = ty - wnd.oy;
   if (wnd.g != nullptr && (unsigned)i < (unsigned)wnd.ww && (unsigned)j < (unsigned)wnd.wh) {
     const int k = j * wnd.ww + i;
-    return Texel{wnd.g[k], wnd.s[k], wnd.m[k]};
+    Texel<kN> t;
+    t.g = wnd.g[k];
+    t.m = wnd.m[k];
+#pragma unroll
+    for (int c = 0; c < kN; ++c) t.s[c] = wnd.s[c][k];
+    return t;
   }
-  return load_texel<kRough>(a, tx, ty);
+  return load_texel<kN, kRough>(a, tx, ty);
 }
 
-// the 5x5 spatial variance estimation of a short history (clamp-to-edge)
-template <int kRough>
-__device__ __forceinline__ void variance_estimation(const AtrousArgs& a, const Window& wnd,
-                                                    int x, int y, V3 n, float mat_c, float hl,
-                                                    float out[4]) {
-  float swsum = 0.0f, s_rgb[3] = {0.0f, 0.0f, 0.0f}, s_m1 = 0.0f, s_m2 = 0.0f;
+// the 5x5 spatial variance estimation of a short history (clamp-to-edge), for each signal
+template <int kN, int kRough>
+__device__ __forceinline__ void variance_estimation(const AtrousArgs& a, const Window<kN>& wnd,
+                                                    int x, int y, V3 n, const float mat_c[kN],
+                                                    float hl, float out[kN][4]) {
+  float swsum[kN], s_rgb[kN][3], s_m1[kN], s_m2[kN];
+#pragma unroll
+  for (int k = 0; k < kN; ++k) {
+    swsum[k] = s_m1[k] = s_m2[k] = 0.0f;
+    s_rgb[k][0] = s_rgb[k][1] = s_rgb[k][2] = 0.0f;
+  }
   for (int dy = -2; dy <= 2; ++dy)
     for (int dx = -2; dx <= 2; ++dx) {
-      const Texel t = fetch<kRough>(a, wnd, x + dx, y + dy);
+      const Texel<kN> t = fetch<kN, kRough>(a, wnd, x + dx, y + dy);
       const V3 ns{t.g.x, t.g.y, t.g.z};
-      float w_ = nrd::compute_weight(nrd::acos_approx(nrd::dot3(n, ns)), a.nwp_sve, 0.0f);
-      w_ = w_ * (fmaxf(t.m.y, a.min_material) == mat_c ? 1.0f : 0.0f);
-      const float s[4] = {t.s.x, t.s.y, t.s.z, t.s.w};
-      swsum = swsum + w_;
+      const float wn = nrd::compute_weight(nrd::acos_approx(nrd::dot3(n, ns)), a.nwp_sve, 0.0f);
 #pragma unroll
-      for (int c = 0; c < 3; ++c) s_rgb[c] = s_rgb[c] + s[c] * w_;
-      s_m1 = s_m1 + t.m.x * w_;
-      s_m2 = s_m2 + s[3] * w_;
+      for (int k = 0; k < kN; ++k) {
+        const float w_ = wn * (fmaxf(t.m.y, a.sig[k].min_material) == mat_c[k] ? 1.0f : 0.0f);
+        const float s[4] = {t.s[k].x, t.s[k].y, t.s[k].z, t.s[k].w};
+        swsum[k] = swsum[k] + w_;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) s_rgb[k][c] = s_rgb[k][c] + s[c] * w_;
+        s_m1[k] = s_m1[k] + lum(t, k) * w_;
+        s_m2[k] = s_m2[k] + s[3] * w_;
+      }
     }
-  swsum = fmaxf(swsum, 1e-6f);
-#pragma unroll
-  for (int c = 0; c < 3; ++c) out[c] = s_rgb[c] / swsum;
-  s_m1 = s_m1 / swsum;
-  s_m2 = s_m2 / swsum;
   const float boost = fmaxf(4.0f / (hl + 1.0f), 1.0f);
-  out[3] = fmaxf(s_m2 - s_m1 * s_m1, 0.0f) * boost;
+#pragma unroll
+  for (int k = 0; k < kN; ++k) {
+    swsum[k] = fmaxf(swsum[k], 1e-6f);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) out[k][c] = s_rgb[k][c] / swsum[k];
+    s_m1[k] = s_m1[k] / swsum[k];
+    s_m2[k] = s_m2[k] / swsum[k];
+    out[k][3] = fmaxf(s_m2[k] - s_m1[k] * s_m1[k], 0.0f) * boost;
+  }
 }
 
 // saturate(multiplier (1 - confidence)) x a relaxation, saturated
@@ -139,11 +188,20 @@ __device__ __forceinline__ float relaxation(const AtrousArgs& a, float conf, flo
   return nrd::saturate(nrd::saturate(a.conf_mult * (1.0f - conf)) * r);
 }
 
-template <bool kStaged, int kRough>
-__global__ void __launch_bounds__(kTileX * kTileY, kMinCtas) relax_atrous_kernel(AtrousArgs a) {
+__device__ __forceinline__ void store(const AtrousSignal& g, size_t i, const float out[4]) {
+#pragma unroll
+  for (int ch = 0; ch < 4; ++ch) g.out[4 * i + ch] = out[ch];
+}
+
+// kStaged: iteration 0's staged window; kRough: the roughness encoding; kBoth: the diffuse and
+// the specular signal (else one, a.spec saying which)
+template <bool kStaged, int kRough, bool kBoth>
+__global__ void __launch_bounds__(kTileX * kTileY, kMinCtas)
+    relax_atrous_kernel(AtrousArgs a) {
+  constexpr int kN = kBoth ? 2 : 1;
   const int x = blockIdx.x * kTileX + threadIdx.x;
   const int y = blockIdx.y * kTileY + threadIdx.y;
-  Window wnd{nullptr, nullptr, nullptr, 0, 0, 0, 0};
+  Window<kN> wnd{};
   if constexpr (kStaged) {  // every thread of the CTA stages, then the ones outside the image leave
     extern __shared__ float4 window[];
     wnd.ox = blockIdx.x * kTileX - a.halo;
@@ -152,31 +210,37 @@ __global__ void __launch_bounds__(kTileX * kTileY, kMinCtas) relax_atrous_kernel
     wnd.wh = kTileY + 2 * a.halo;
     const int n = wnd.ww * wnd.wh;
     float4* g = window;
-    float4* s = window + n;
-    float4* m = window + 2 * n;
+    float4* m = window + n;
+    float4* s[kN];
+#pragma unroll
+    for (int k = 0; k < kN; ++k) s[k] = window + (2 + k) * n;
     for (int j = threadIdx.y; j < wnd.wh; j += kTileY)
       for (int i = threadIdx.x; i < wnd.ww; i += kTileX) {
-        const Texel t = load_texel<kRough>(a, wnd.ox + i, wnd.oy + j);
+        const Texel<kN> t = load_texel<kN, kRough>(a, wnd.ox + i, wnd.oy + j);
         g[j * wnd.ww + i] = t.g;
-        s[j * wnd.ww + i] = t.s;
         m[j * wnd.ww + i] = t.m;
+#pragma unroll
+        for (int k = 0; k < kN; ++k) s[k][j * wnd.ww + i] = t.s[k];
       }
     wnd.g = g;
-    wnd.s = s;
     wnd.m = m;
+#pragma unroll
+    for (int k = 0; k < kN; ++k) wnd.s[k] = s[k];
     __syncthreads();
   }
   if (x >= a.f.w || y >= a.f.h) return;
   const size_t i = (size_t)y * a.f.w + x;
-  const Texel ct = fetch<kRough>(a, wnd, x, y);
+  const Texel<kN> ct = fetch<kN, kRough>(a, wnd, x, y);
   const float hl = __ldg(a.hl + i);
   const V3 n{ct.g.x, ct.g.y, ct.g.z};
-  const float mat_c = fmaxf(ct.m.y, a.min_material);
-  float out[4];
-  if (a.is_first && !(hl >= a.history_threshold)) {
-    variance_estimation<kRough>(a, wnd, x, y, n, mat_c, hl, out);
+  float mat_c[kN];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) a.out[4 * i + c] = out[c];
+  for (int k = 0; k < kN; ++k) mat_c[k] = fmaxf(ct.m.y, a.sig[k].min_material);
+  float out[kN][4];
+  if (a.is_first && !(hl >= a.history_threshold)) {
+    variance_estimation<kN, kRough>(a, wnd, x, y, n, mat_c, hl, out);
+#pragma unroll
+    for (int k = 0; k < kN; ++k) store(a.sig[k], i, out[k]);
     return;
   }
 
@@ -185,35 +249,38 @@ __global__ void __launch_bounds__(kTileX * kTileY, kMinCtas) relax_atrous_kernel
   const float z = ct.g.w;
   const V3 xc = relax::world_pos(a.f, u, v, z);
   const float thr = a.depth_threshold * (a.f.ortho == 0.0f ? z : 1.0f);
-  const float c[4] = {ct.s.x, ct.s.y, ct.s.z, ct.s.w};
 
   // the diffuse lobe fraction, relaxed by IN_DIFF_CONFIDENCE
   const float dlf0 =
       a.is_first ? a.lobe_fraction : 0.99f + (a.lobe_fraction - 0.99f) * nrd::saturate(hl / 5.0f);
-  float dlf = dlf0, lum_relax = 1.0f;
+  // each signal's luminance relaxation: the diffuse one's first
+  float dlf = dlf0, lum_relax[kN];
+  lum_relax[0] = 1.0f;
   if (a.diff_conf != nullptr) {
     const float conf = __ldg(a.diff_conf + i);
     dlf = dlf0 + (1.0f - dlf0) * relaxation(a, conf, a.conf_normal);
-    lum_relax = 1.0f - relaxation(a, conf, a.conf_lum);
+    lum_relax[0] = 1.0f - relaxation(a, conf, a.conf_lum);
   }
   const float nwp = relax::normal_weight_param2(dlf);
 
   // the specular relaxations and, after iteration 0, the specular weights' parameters
-  const bool spec_taps = a.spec && !a.is_first;
+  const bool has_spec = kBoth || a.spec;
+  const bool spec_taps = has_spec && !a.is_first;
   float nwp_simpl = 0.0f, ra = 0.0f, rb = 0.0f, angle0 = 0.0f, f0 = 0.0f;
   V3 cv{0.0f, 0.0f, 0.0f};
-  if (a.spec) {
+  if (has_spec) {
+    float& spec_lum_relax = lum_relax[kN - 1];  // the second signal's, or the one's
     const float reproj = a.reproj != nullptr ? __ldg(a.reproj + i) : 1.0f;
-    lum_relax = 1.0f;
+    spec_lum_relax = 1.0f;
     if ((a.step <= 4 || a.is_first) && a.reproj != nullptr)
-      lum_relax = 1.0f + (reproj - 1.0f) * a.lesr;
+      spec_lum_relax = 1.0f + (reproj - 1.0f) * a.lesr;
     float spec_lobe = a.laf, dlf_simpl = dlf0;
     if (a.spec_conf != nullptr) {
       const float conf = __ldg(a.spec_conf + i);
       const float rr = relaxation(a, conf, a.conf_normal);
       dlf_simpl = dlf0 + (1.0f - dlf0) * rr;
       spec_lobe = a.laf + (1.0f - a.laf) * rr;
-      lum_relax = lum_relax * (1.0f - relaxation(a, conf, a.conf_lum));
+      spec_lum_relax = spec_lum_relax * (1.0f - relaxation(a, conf, a.conf_lum));
     }
     if (spec_taps) {
       nwp_simpl = relax::normal_weight_param2(dlf_simpl);
@@ -236,29 +303,44 @@ __global__ void __launch_bounds__(kTileX * kTileY, kMinCtas) relax_atrous_kernel
     offy = floorf(half * (r1 - 0.5f));
   }
 
-  float var;
+  float var[kN];
   if (a.is_first) {
-    float pre[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float pre[kN][4];
+#pragma unroll
+    for (int k = 0; k < kN; ++k) pre[k][0] = pre[k][1] = pre[k][2] = pre[k][3] = 0.0f;
     for (int dy = -1; dy <= 1; ++dy)
       for (int dx = -1; dx <= 1; ++dx) {
-        const float k = kPrefilter[abs(dx)][abs(dy)];
-        const float4 s = fetch<kRough>(a, wnd, x + dx, y + dy).s;
-        pre[0] = pre[0] + s.x * k;
-        pre[1] = pre[1] + s.y * k;
-        pre[2] = pre[2] + s.z * k;
-        pre[3] = pre[3] + s.w * k;
+        const float c = kPrefilter[abs(dx)][abs(dy)];
+        const Texel<kN> t = fetch<kN, kRough>(a, wnd, x + dx, y + dy);
+#pragma unroll
+        for (int k = 0; k < kN; ++k) {
+          pre[k][0] = pre[k][0] + t.s[k].x * c;
+          pre[k][1] = pre[k][1] + t.s[k].y * c;
+          pre[k][2] = pre[k][2] + t.s[k].z * c;
+          pre[k][3] = pre[k][3] + t.s[k].w * c;
+        }
       }
-    const float m1 = relax::luminance(pre[0], pre[1], pre[2]);
-    var = fmaxf(pre[3] - m1 * m1, 0.0f);
+#pragma unroll
+    for (int k = 0; k < kN; ++k) {
+      const float m1 = relax::luminance(pre[k][0], pre[k][1], pre[k][2]);
+      var[k] = fmaxf(pre[k][3] - m1 * m1, 0.0f);
+    }
   } else {
-    var = c[3];
+#pragma unroll
+    for (int k = 0; k < kN; ++k) var[k] = ct.s[k].w;
   }
 
-  const float phi_inv = 1.0f / fmaxf(a.phi * sqrtf(var), 1e-4f);
-  const float center_l = ct.m.x;
+  float phi_inv[kN], wsum[kN], acc[kN][4];
+#pragma unroll
+  for (int k = 0; k < kN; ++k) {
+    phi_inv[k] = 1.0f / fmaxf(a.sig[k].phi * sqrtf(var[k]), 1e-4f);
+    wsum[k] = a.w0;
+    acc[k][0] = ct.s[k].x * a.w0;
+    acc[k][1] = ct.s[k].y * a.w0;
+    acc[k][2] = ct.s[k].z * a.w0;
+    acc[k][3] = ct.s[k].w * (a.is_first ? a.w0 : a.w0_sq);
+  }
   const float rinv_x = 1.0f / fw, rinv_y = 1.0f / fh;
-  float wsum = a.w0;
-  float acc[4] = {c[0] * a.w0, c[1] * a.w0, c[2] * a.w0, c[3] * (a.is_first ? a.w0 : a.w0_sq)};
   for (int yy = -1; yy <= 1; ++yy)
     for (int xx = -1; xx <= 1; ++xx) {
       if (xx == 0 && yy == 0) continue;
@@ -267,7 +349,7 @@ __global__ void __launch_bounds__(kTileX * kTileY, kMinCtas) relax_atrous_kernel
       const float vs = v + ((float)(yy * a.step) + offy) * rinv_y;
       const float inside = nrd::in_screen_nearest(us, vs);
       const int tx = nrd::to_index(floorf(us * fw)), ty = nrd::to_index(floorf(vs * fh));
-      const Texel t = fetch<kRough>(a, wnd, tx, ty);
+      const Texel<kN> t = fetch<kN, kRough>(a, wnd, tx, ty);
       const float zs = t.g.w;
       const V3 ns{t.g.x, t.g.y, t.g.z};
       const float ms = t.m.y;
@@ -275,61 +357,91 @@ __global__ void __launch_bounds__(kTileX * kTileY, kMinCtas) relax_atrous_kernel
       float gw = (relax::plane_dist(xs, xc, n) < thr ? 1.0f : 0.0f) * kern;
       gw = gw * inside * (zs < a.denoising_range ? 1.0f : 0.0f);
       const float angle = nrd::acos_approx(nrd::dot3(n, ns));
-      float w_;
-      if (spec_taps) {
-        if (a.roughness_edge_stopping) {
-          const V3 sv = relax::neg_normalize(
-              V3{xs.x + a.resr * xc.x, xs.y + a.resr * xc.y, xs.z + a.resr * xc.z});
-          const float nw = relax::specular_normal_weight_atrous(angle0, f0, n, ns, cv, sv);
-          w_ = gw * (nw * nrd::compute_weight(t.m.z, ra, rb));
+#pragma unroll
+      for (int k = 0; k < kN; ++k) {
+        float w_;
+        if (spec_taps && is_spec<kN>(a, k)) {
+          if (a.roughness_edge_stopping) {
+            const V3 sv = relax::neg_normalize(
+                V3{xs.x + a.resr * xc.x, xs.y + a.resr * xc.y, xs.z + a.resr * xc.z});
+            const float nw = relax::specular_normal_weight_atrous(angle0, f0, n, ns, cv, sv);
+            w_ = gw * (nw * nrd::compute_weight(t.m.z, ra, rb));
+          } else {
+            w_ = gw * nrd::compute_weight(angle, nwp_simpl, 0.0f);
+          }
         } else {
-          w_ = gw * nrd::compute_weight(angle, nwp_simpl, 0.0f);
+          w_ = gw * nrd::compute_weight(angle, nwp, 0.0f);
         }
-      } else {
-        w_ = gw * nrd::compute_weight(angle, nwp, 0.0f);
+        w_ = w_ * (fmaxf(ms, a.sig[k].min_material) == mat_c[k] ? 1.0f : 0.0f);
+        const float s[4] = {t.s[k].x, t.s[k].y, t.s[k].z, t.s[k].w};
+        const float lw =
+            fminf(fabsf(lum(ct, k) - lum(t, k)) * phi_inv[k], a.sig[k].max_rel) * lum_relax[k];
+        w_ = w_ * expf(-lw);
+        wsum[k] = wsum[k] + w_;
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) acc[k][ch] = acc[k][ch] + s[ch] * w_;
+        acc[k][3] = acc[k][3] + s[3] * (a.is_first ? w_ : w_ * w_);
       }
-      w_ = w_ * (fmaxf(ms, a.min_material) == mat_c ? 1.0f : 0.0f);
-      const float s[4] = {t.s.x, t.s.y, t.s.z, t.s.w};
-      const float sl = t.m.x;
-      const float lw = fminf(fabsf(center_l - sl) * phi_inv, a.max_rel) * lum_relax;
-      w_ = w_ * expf(-lw);
-      wsum = wsum + w_;
-#pragma unroll
-      for (int ch = 0; ch < 3; ++ch) acc[ch] = acc[ch] + s[ch] * w_;
-      acc[3] = acc[3] + s[3] * (a.is_first ? w_ : w_ * w_);
     }
-  if (a.is_first) {
 #pragma unroll
-    for (int ch = 0; ch < 4; ++ch) out[ch] = acc[ch] / wsum;
-    const float m1 = relax::luminance(out[0], out[1], out[2]);
-    out[3] = fmaxf(out[3] - m1 * m1, 0.0f);
-  } else {
+  for (int k = 0; k < kN; ++k) {
+    if (a.is_first) {
 #pragma unroll
-    for (int ch = 0; ch < 3; ++ch) out[ch] = acc[ch] / wsum;
-    out[3] = acc[3] / (wsum * wsum);
+      for (int ch = 0; ch < 4; ++ch) out[k][ch] = acc[k][ch] / wsum[k];
+      const float m1 = relax::luminance(out[k][0], out[k][1], out[k][2]);
+      out[k][3] = fmaxf(out[k][3] - m1 * m1, 0.0f);
+    } else {
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) out[k][ch] = acc[k][ch] / wsum[k];
+      out[k][3] = acc[k][3] / (wsum[k] * wsum[k]);
+    }
+    store(a.sig[k], i, out[k]);
   }
-#pragma unroll
-  for (int ch = 0; ch < 4; ++ch) a.out[4 * i + ch] = out[ch];
+}
+
+template <bool kBoth>
+int launch(const AtrousArgs& a, int rough, dim3 grid, dim3 block, cudaStream_t stream) {
+  // iteration 0 stages its window: the planes g and m, and one a signal
+  const size_t smem = a.is_first ? (size_t)(kTileX + 2 * a.halo) * (kTileY + 2 * a.halo) *
+                                       (kBoth ? 4 : 3) * sizeof(float4)
+                                 : 0;
+  if (a.is_first && rough == 0)
+    relax_atrous_kernel<true, 0, kBoth><<<grid, block, smem, stream>>>(a);
+  else if (a.is_first && rough == 1)
+    relax_atrous_kernel<true, 1, kBoth><<<grid, block, smem, stream>>>(a);
+  else if (a.is_first && rough == 2)
+    relax_atrous_kernel<true, 2, kBoth><<<grid, block, smem, stream>>>(a);
+  else if (rough == 0)
+    relax_atrous_kernel<false, 0, kBoth><<<grid, block, 0, stream>>>(a);
+  else if (rough == 1)
+    relax_atrous_kernel<false, 1, kBoth><<<grid, block, 0, stream>>>(a);
+  else if (rough == 2)
+    relax_atrous_kernel<false, 2, kBoth><<<grid, block, 0, stream>>>(a);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // ptrs: signal, view_z, nr, history_length, out, then diff_conf, spec_conf, reproj (each may
-//       be null)
+//       be null), then with both signals the specular signal and its out (the first being the
+//       diffuse one)
 // consts: frame geometry (relax::load_frame), denoising_range, depth_threshold,
 //         lobe_fraction, nwp_sve, phi, max_rel, min_material, history_threshold, step,
 //         is_first (0 or 1), frame index low 16 bits, high 16 bits, w0, w0^2, k01, k11,
 //         confidence multiplier, normal and luminance relaxations, specular (0 or 1), the
 //         settings' lobe fraction, roughness fraction, normal edge-stopping relaxation, lobe
 //         slack, luminance and roughness edge-stopping relaxations, roughness edge stopping
-//         (0 or 1), roughness mode (0 LINEAR, 1 SQRT_LINEAR, 2 SQ_LINEAR)
+//         (0 or 1), roughness mode (0 LINEAR, 1 SQRT_LINEAR, 2 SQ_LINEAR), signals (1 or 2),
+//         the specular signal's phi, max_rel, min_material
 extern "C" int nrd_relax_atrous(void* const* p, const float* c, int w, int h, void* stream) {
   AtrousArgs a;
-  a.signal = (const float*)p[0];
+  a.sig[0].signal = (const float*)p[0];
   a.view_z = (const float*)p[1];
   a.nr = (const float*)p[2];
   a.hl = (const float*)p[3];
-  a.out = (float*)p[4];
+  a.sig[0].out = (float*)p[4];
   a.diff_conf = (const float*)p[5];
   a.spec_conf = (const float*)p[6];
   a.reproj = (const float*)p[7];
@@ -339,9 +451,9 @@ extern "C" int nrd_relax_atrous(void* const* p, const float* c, int w, int h, vo
   a.depth_threshold = q[1];
   a.lobe_fraction = q[2];
   a.nwp_sve = q[3];
-  a.phi = q[4];
-  a.max_rel = q[5];
-  a.min_material = q[6];
+  a.sig[0].phi = q[4];
+  a.sig[0].max_rel = q[5];
+  a.sig[0].min_material = q[6];
   a.history_threshold = q[7];
   a.step = (int)q[8];
   a.is_first = q[9] != 0.0f;
@@ -362,25 +474,16 @@ extern "C" int nrd_relax_atrous(void* const* p, const float* c, int w, int h, vo
   a.resr = q[25];
   a.roughness_edge_stopping = q[26] != 0.0f;
   const int rough = (int)q[27];
+  const int signals = (int)q[28];
+  a.sig[1] = AtrousSignal{(const float*)p[8], (float*)p[9], q[29], q[30], q[31]};
+  if (signals < 1 || signals > 2) return (int)cudaErrorInvalidValue;
+  // both signals: the diffuse one first, then the specular one
+  if (signals == 2 && (!a.spec || a.sig[1].signal == nullptr || a.sig[1].out == nullptr))
+    return (int)cudaErrorInvalidValue;
   // iteration 0 reads the 5x5 estimation's neighbours and its taps'
   a.halo = a.step > 2 ? a.step : 2;
   const dim3 block(kTileX, kTileY);
   const dim3 grid((w + kTileX - 1) / kTileX, (h + kTileY - 1) / kTileY);
-  const size_t smem =
-      a.is_first ? (size_t)(kTileX + 2 * a.halo) * (kTileY + 2 * a.halo) * 3 * sizeof(float4) : 0;
-  if (a.is_first && rough == 0)
-    relax_atrous_kernel<true, 0><<<grid, block, smem, (cudaStream_t)stream>>>(a);
-  else if (a.is_first && rough == 1)
-    relax_atrous_kernel<true, 1><<<grid, block, smem, (cudaStream_t)stream>>>(a);
-  else if (a.is_first && rough == 2)
-    relax_atrous_kernel<true, 2><<<grid, block, smem, (cudaStream_t)stream>>>(a);
-  else if (rough == 0)
-    relax_atrous_kernel<false, 0><<<grid, block, 0, (cudaStream_t)stream>>>(a);
-  else if (rough == 1)
-    relax_atrous_kernel<false, 1><<<grid, block, 0, (cudaStream_t)stream>>>(a);
-  else if (rough == 2)
-    relax_atrous_kernel<false, 2><<<grid, block, 0, (cudaStream_t)stream>>>(a);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  return signals == 2 ? launch<true>(a, rough, grid, block, (cudaStream_t)stream)
+                      : launch<false>(a, rough, grid, block, (cudaStream_t)stream);
 }

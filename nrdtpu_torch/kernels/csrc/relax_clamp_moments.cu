@@ -1,4 +1,5 @@
-// K20: RELAX HistoryClamping of one signal in one launch: the responsive history picked per
+// K20: RELAX HistoryClamping of one signal, or of both, in one launch: for each signal the
+// responsive history picked per
 // texel (HistoryFix's output where the history is short, the TA's fast history elsewhere),
 // the 5x5 moments over the clamp-to-edge window (each tap weighted by its validity, viewZ <
 // denoisingRange: the mean and second moment of the responsive history in YCoCg, the mean of
@@ -6,18 +7,23 @@
 // the rest of the pass per pixel: the sigma colour box and the clamp of the slow history in
 // YCoCg, the clamping factor, the antilag acceleration and reset, the second-moment
 // correction (nrdtpu/passes/relax/kernels.py:1140-1271). Replaces
-// nrdtpu/kernels/relax_pallas.py:479 relax_clamp_moments_pallas. The plain version is
+// nrdtpu/kernels/relax_pallas.py:479 relax_clamp_moments_pallas (its `n_sig` signals in one
+// launch). The plain version is
 // nrdtpu_torch/kernels/relax_clamp_moments.py:relax_clamp_moments_ref.
 //
-// Design for the H100: one thread per pixel in 16x16 CTAs, 40 registers and 6 CTAs an SM, no
-// spill (PERF.md: 6 % faster than 4 CTAs at 44 registers).
+// Design for the H100: one thread per pixel in 16x16 CTAs, `relax_clamp_moments_kernel<kNSig>`
+// for 1 or 2 signals, each at 40 registers and 6 CTAs an SM, no spill (PERF.md: one signal 6 %
+// faster than at 4 CTAs; two 5 % faster than at 5 CTAs and 10 % faster than at 4).
 //   - Every texel is a tap of 25 pixels: each CTA first stages its 20x20 window (halo 2,
 //     clamp-to-edge) in shared memory, once a texel, as derived values: the validity and the
 //     responsive history in YCoCg (one float4), the noisy rgb and its luminance (another).
 //     Each thread stages two texels with one float4 load a plane, all loads of both issued
 //     before the first is used, the fast and the fixed history both read so that none waits
-//     on the history length that picks one (3 % faster than a loop of dependent loads). A
-//     second signal would add its two planes to `Window`.
+//     on the history length that picks one (3 % faster than a loop of dependent loads). With
+//     both signals the window holds each signal's two planes (the validity in each), and a
+//     thread's loads of both signals' texels are all issued before the first is staged.
+//   - Each signal has its own constants (the clamp flag, acceleration and reset amount) and
+//     runs the per-pixel part after the other, so that the second adds no registers there.
 //   - The taps sum in the plain version's order (dy outer, dx inner) with its operations, so
 //     the moments are the plain version's bit for bit: m2 - m1^2 cancels.
 //   - The pass glue that read the moments back (~60 full-resolution torch launches, and the
@@ -34,78 +40,85 @@ constexpr int kWin = kTile + 2 * kBorder;  // its 20x20 window of texels
 constexpr int kMinCtas = 6;
 static_assert(kWin * kWin <= 2 * kTile * kTile, "two window texels a thread");
 
-struct ClampArgs {
-  const float* view_z;          // (h, w) raw
-  const float* fast;            // (h, w, 4) the TA's responsive history
-  const float* fixed;           // (h, w, 4) HistoryFix's output (rgb)
-  const float* history_length;  // (h, w)
-  const float* noisy;           // (h, w, 4) the PrePass output (rgb)
-  const float* slow;            // (h, w, 4) the TA's slow history (rgb, second moment)
-  float* out_slow;              // (h, w, 4)
-  float* out_resp;              // (h, w, 4)
-  int w, h;
-  float view_z_scale, denoising_range, fix_frame_num, color_box_sigma_scale;
-  float acceleration, reset_temporal_sigma_scale, reset_spatial_sigma_scale, reset_amount;
+// One signal's planes and constants.
+struct ClampSignal {
+  const float* fast;   // (h, w, 4) the TA's responsive history
+  const float* fixed;  // (h, w, 4) HistoryFix's output (rgb)
+  const float* noisy;  // (h, w, 4) the PrePass output (rgb)
+  const float* slow;   // (h, w, 4) the TA's slow history (rgb, second moment)
+  float* out_slow;     // (h, w, 4)
+  float* out_resp;     // (h, w, 4)
+  float acceleration, reset_amount;
   bool clamp;  // maxFastAccumulatedFrameNum < maxAccumulatedFrameNum
 };
 
-// The staged window: each texel's (validity, responsive history in YCoCg) and (noisy rgb, its
-// luminance).
+struct ClampArgs {
+  const float* view_z;          // (h, w) raw
+  const float* history_length;  // (h, w)
+  ClampSignal sig[2];           // the diffuse signal first where there are two
+  int w, h;
+  float view_z_scale, denoising_range, fix_frame_num, color_box_sigma_scale;
+  float reset_temporal_sigma_scale, reset_spatial_sigma_scale;
+};
+
+// The staged window of one signal: each texel's (validity, responsive history in YCoCg) and
+// (noisy rgb, its luminance).
 struct Window {
   float4 resp[kWin * kWin];
   float4 noisy[kWin * kWin];
 };
 
-// What the window stages of a texel, as loaded: both histories, so that no load waits on the
-// history length that selects one.
+// What the window stages of a texel, as loaded: each signal's both histories, so that no load
+// waits on the history length that selects one.
+template <int kNSig>
 struct Texel {
   float view_z, history_length;
-  float4 fast, fixed, noisy;
+  float4 fast[kNSig], fixed[kNSig], noisy[kNSig];
 };
 
-__device__ __forceinline__ Texel load_texel(const ClampArgs& a, int ox, int oy, int k) {
+template <int kNSig>
+__device__ __forceinline__ Texel<kNSig> load_texel(const ClampArgs& a, int ox, int oy, int k) {
   const int tx = nrd::clampi(ox + k % kWin, 0, a.w - 1);
   const int ty = nrd::clampi(oy + k / kWin, 0, a.h - 1);
   const size_t j = (size_t)ty * a.w + tx;
-  return Texel{__ldg(a.view_z + j), __ldg(a.history_length + j),
-               __ldg(reinterpret_cast<const float4*>(a.fast) + j),
-               __ldg(reinterpret_cast<const float4*>(a.fixed) + j),
-               __ldg(reinterpret_cast<const float4*>(a.noisy) + j)};
+  Texel<kNSig> t;
+  t.view_z = __ldg(a.view_z + j);
+  t.history_length = __ldg(a.history_length + j);
+#pragma unroll
+  for (int s = 0; s < kNSig; ++s) {
+    t.fast[s] = __ldg(reinterpret_cast<const float4*>(a.sig[s].fast) + j);
+    t.fixed[s] = __ldg(reinterpret_cast<const float4*>(a.sig[s].fixed) + j);
+    t.noisy[s] = __ldg(reinterpret_cast<const float4*>(a.sig[s].noisy) + j);
+  }
+  return t;
 }
 
-// Window texel k: its validity and responsive history in YCoCg, its noisy rgb and luminance.
-__device__ __forceinline__ void stage(const ClampArgs& a, Window& wnd, int k, const Texel& t) {
+// Window texel k of each signal: its validity and responsive history in YCoCg, its noisy rgb
+// and luminance.
+template <int kNSig>
+__device__ __forceinline__ void stage(const ClampArgs& a, Window* wnd, int k,
+                                      const Texel<kNSig>& t) {
   const float valid = fabsf(t.view_z) * a.view_z_scale < a.denoising_range ? 1.0f : 0.0f;
-  const float4 r = t.history_length <= a.fix_frame_num ? t.fixed : t.fast;
-  float ry[3];
-  relax::linear_to_ycocg(r.x, r.y, r.z, ry);
-  wnd.resp[k] = make_float4(valid, ry[0], ry[1], ry[2]);
-  wnd.noisy[k] = make_float4(t.noisy.x, t.noisy.y, t.noisy.z,
-                             relax::luminance(t.noisy.x, t.noisy.y, t.noisy.z));
+  const bool in_fix = t.history_length <= a.fix_frame_num;
+#pragma unroll
+  for (int s = 0; s < kNSig; ++s) {
+    const float4 r = in_fix ? t.fixed[s] : t.fast[s];
+    float ry[3];
+    relax::linear_to_ycocg(r.x, r.y, r.z, ry);
+    wnd[s].resp[k] = make_float4(valid, ry[0], ry[1], ry[2]);
+    const float4 n = t.noisy[s];
+    wnd[s].noisy[k] = make_float4(n.x, n.y, n.z, relax::luminance(n.x, n.y, n.z));
+  }
 }
 
 __device__ __forceinline__ float luminance_abs(float r, float g, float b) {
   return relax::luminance(fabsf(r), fabsf(g), fabsf(b));
 }
 
-__global__ void __launch_bounds__(kTile * kTile, kMinCtas) relax_clamp_moments_kernel(
-    ClampArgs a) {
-  __shared__ Window wnd;
-  const int ox = (int)blockIdx.x * kTile - kBorder, oy = (int)blockIdx.y * kTile - kBorder;
-  // each thread stages texels t0 and t1 of the window, every load of both issued first
-  const int t0 = threadIdx.y * kTile + threadIdx.x, t1 = t0 + kTile * kTile;
-  const bool two = t1 < kWin * kWin;
-  const Texel s0 = load_texel(a, ox, oy, t0);
-  const Texel s1 = load_texel(a, ox, oy, two ? t1 : t0);
-  stage(a, wnd, t0, s0);
-  if (two) stage(a, wnd, t1, s1);
-  __syncthreads();
-  const int x = ox + kBorder + (int)threadIdx.x, y = oy + kBorder + (int)threadIdx.y;
-  if (x >= a.w || y >= a.h) return;
-  const size_t i = (size_t)y * a.w + x;
-  // the window index of the pixel's own texel
-  const int wc = ((int)threadIdx.y + kBorder) * kWin + (int)threadIdx.x + kBorder;
-
+// The whole pass of one signal at pixel i, its window staged in wnd; wc: the window index of
+// the pixel's own texel.
+__device__ __forceinline__ void clamp_pixel(const ClampArgs& a, const ClampSignal& g,
+                                            const Window& wnd, size_t i, int wc) {
   // the 5x5 moments (:1169-1192)
   float m1[3] = {0.0f, 0.0f, 0.0f}, m2[3] = {0.0f, 0.0f, 0.0f}, nm1[3] = {0.0f, 0.0f, 0.0f};
   float nm2 = 0.0f, wsum = 0.0f;
@@ -138,7 +151,7 @@ __global__ void __launch_bounds__(kTile * kTile, kMinCtas) relax_clamp_moments_k
   // the colour box and the clamp of the slow history (:1193-1210)
   const float4 centre = wnd.resp[wc];
   const float resp_ycocg[3] = {centre.y, centre.z, centre.w};
-  const float4 slow = __ldg(reinterpret_cast<const float4*>(a.slow) + i);
+  const float4 slow = __ldg(reinterpret_cast<const float4*>(g.slow) + i);
   float slow_ycocg[3], clamped_ycocg[3], sigma[3];
   relax::linear_to_ycocg(slow.x, slow.y, slow.z, slow_ycocg);
 #pragma unroll
@@ -146,14 +159,14 @@ __global__ void __launch_bounds__(kTile * kTile, kMinCtas) relax_clamp_moments_k
     sigma[c] = sqrtf(fmaxf(m2[c] - m1[c] * m1[c], 0.0f));
     const float cmin = fminf(m1[c] - a.color_box_sigma_scale * sigma[c], resp_ycocg[c]);
     const float cmax = fmaxf(m1[c] + a.color_box_sigma_scale * sigma[c], resp_ycocg[c]);
-    clamped_ycocg[c] = a.clamp ? fminf(fmaxf(slow_ycocg[c], cmin), cmax) : slow_ycocg[c];
+    clamped_ycocg[c] = g.clamp ? fminf(fmaxf(slow_ycocg[c], cmin), cmax) : slow_ycocg[c];
   }
   float clamped[3];
   relax::ycocg_to_linear(clamped_ycocg, clamped);
 
   const bool in_fix = __ldg(a.history_length + i) <= a.fix_frame_num;
-  const float4 fast = __ldg(reinterpret_cast<const float4*>(a.fast) + i);
-  const float4 resp = in_fix ? __ldg(reinterpret_cast<const float4*>(a.fixed) + i) : fast;
+  const float4 fast = __ldg(reinterpret_cast<const float4*>(g.fast) + i);
+  const float4 resp = in_fix ? __ldg(reinterpret_cast<const float4*>(g.fixed) + i) : fast;
   float out_slow[3] = {in_fix ? resp.x : clamped[0], in_fix ? resp.y : clamped[1],
                        in_fix ? resp.z : clamped[2]};
   float out_resp[3] = {resp.x, resp.y, resp.z};
@@ -165,7 +178,7 @@ __global__ void __launch_bounds__(kTile * kTile, kMinCtas) relax_clamp_moments_k
       dy_clamp == 0.0f ? 0.0f
                        : nrd::saturate(dy_clamp / (fabsf(denom) < 1e-15f ? 1e-15f : denom));
   clamping_factor = in_fix ? 1.0f : clamping_factor;
-  float hist_diff_l = a.acceleration * luminance_abs(out_resp[0] - slow.x,
+  float hist_diff_l = g.acceleration * luminance_abs(out_resp[0] - slow.x,
                                                      out_resp[1] - slow.y,
                                                      out_resp[2] - slow.z);
   hist_diff_l = hist_diff_l * clamping_factor;
@@ -192,7 +205,7 @@ __global__ void __launch_bounds__(kTile * kTile, kMinCtas) relax_clamp_moments_k
   const float noisy_l = relax::luminance(nm1[0], nm1[1], nm1[2]);
   const float t_sigma = a.reset_temporal_sigma_scale * sqrtf(fmaxf(nm2 - noisy_l * noisy_l, 0.0f));
   const float s_sigma = a.reset_spatial_sigma_scale * sigma[0];
-  float reset = a.reset_amount * fmaxf(fabsf(slow_l - noisy_l) - s_sigma - t_sigma, 0.0f) /
+  float reset = g.reset_amount * fmaxf(fabsf(slow_l - noisy_l) - s_sigma - t_sigma, 0.0f) /
                 (1e-6f + fmaxf(slow_l, noisy_l) + s_sigma + t_sigma);
   reset = nrd::saturate(reset);
   const float nz[3] = {noisy.x, noisy.y, noisy.z};
@@ -205,41 +218,77 @@ __global__ void __launch_bounds__(kTile * kTile, kMinCtas) relax_clamp_moments_k
   // the second-moment correction (:1264-1271)
   const float out_l = relax::luminance(out_slow[0], out_slow[1], out_slow[2]);
   const float out_m2 = fmaxf(slow.w + (out_l * out_l - slow_l * slow_l), 0.0f);
-  reinterpret_cast<float4*>(a.out_slow)[i] = make_float4(out_slow[0], out_slow[1], out_slow[2],
+  reinterpret_cast<float4*>(g.out_slow)[i] = make_float4(out_slow[0], out_slow[1], out_slow[2],
                                                          out_m2);
-  reinterpret_cast<float4*>(a.out_resp)[i] = make_float4(out_resp[0], out_resp[1], out_resp[2],
+  reinterpret_cast<float4*>(g.out_resp)[i] = make_float4(out_resp[0], out_resp[1], out_resp[2],
                                                          fast.w);
+}
+
+template <int kNSig>
+__global__ void __launch_bounds__(kTile * kTile, kMinCtas)
+    relax_clamp_moments_kernel(ClampArgs a) {
+  __shared__ Window wnd[kNSig];
+  const int ox = (int)blockIdx.x * kTile - kBorder, oy = (int)blockIdx.y * kTile - kBorder;
+  // each thread stages texels t0 and t1 of the window, every load of both issued first
+  const int t0 = threadIdx.y * kTile + threadIdx.x, t1 = t0 + kTile * kTile;
+  const bool two = t1 < kWin * kWin;
+  const Texel<kNSig> s0 = load_texel<kNSig>(a, ox, oy, t0);
+  const Texel<kNSig> s1 = load_texel<kNSig>(a, ox, oy, two ? t1 : t0);
+  stage<kNSig>(a, wnd, t0, s0);
+  if (two) stage<kNSig>(a, wnd, t1, s1);
+  __syncthreads();
+  const int x = ox + kBorder + (int)threadIdx.x, y = oy + kBorder + (int)threadIdx.y;
+  if (x >= a.w || y >= a.h) return;
+  const size_t i = (size_t)y * a.w + x;
+  // the window index of the pixel's own texel
+  const int wc = ((int)threadIdx.y + kBorder) * kWin + (int)threadIdx.x + kBorder;
+#pragma unroll
+  for (int s = 0; s < kNSig; ++s) clamp_pixel(a, a.sig[s], wnd[s], i, wc);
 }
 
 }  // namespace
 
-// ptrs: view_z, fast, fixed, history_length, noisy, slow, out_slow, out_resp
+// ptrs: view_z, fast, fixed, history_length, noisy, slow, out_slow, out_resp, then with two
+//       signals the second's fast, fixed, noisy, slow, out_slow, out_resp
 // consts: view_z_scale, denoising_range, history_fix_frame_num, color_box_sigma_scale, clamp,
-//         acceleration, reset_temporal_sigma_scale, reset_spatial_sigma_scale, reset_amount
+//         acceleration, reset_temporal_sigma_scale, reset_spatial_sigma_scale, reset_amount,
+//         signals (1 or 2), then the second signal's clamp, acceleration, reset_amount
 extern "C" int nrd_relax_clamp_moments(void* const* p, const float* c, int w, int h,
                                        void* stream) {
   ClampArgs a;
   a.view_z = (const float*)p[0];
-  a.fast = (const float*)p[1];
-  a.fixed = (const float*)p[2];
   a.history_length = (const float*)p[3];
-  a.noisy = (const float*)p[4];
-  a.slow = (const float*)p[5];
-  a.out_slow = (float*)p[6];
-  a.out_resp = (float*)p[7];
   a.w = w;
   a.h = h;
   a.view_z_scale = c[0];
   a.denoising_range = c[1];
   a.fix_frame_num = c[2];
   a.color_box_sigma_scale = c[3];
-  a.clamp = c[4] != 0.0f;
-  a.acceleration = c[5];
   a.reset_temporal_sigma_scale = c[6];
   a.reset_spatial_sigma_scale = c[7];
-  a.reset_amount = c[8];
+  const int n = (int)c[9];
+  if (n < 1 || n > 2) return (int)cudaErrorInvalidValue;
+  // where each signal's fast, fixed, noisy, slow, out_slow, out_resp sit among the ptrs, and
+  // its clamp, acceleration, reset amount among the consts
+  constexpr int kPtr[2][6] = {{1, 2, 4, 5, 6, 7}, {8, 9, 10, 11, 12, 13}};
+  constexpr int kConst[2][3] = {{4, 5, 8}, {10, 11, 12}};
+  for (int s = 0; s < n; ++s) {
+    ClampSignal& g = a.sig[s];
+    g.fast = (const float*)p[kPtr[s][0]];
+    g.fixed = (const float*)p[kPtr[s][1]];
+    g.noisy = (const float*)p[kPtr[s][2]];
+    g.slow = (const float*)p[kPtr[s][3]];
+    g.out_slow = (float*)p[kPtr[s][4]];
+    g.out_resp = (float*)p[kPtr[s][5]];
+    g.clamp = c[kConst[s][0]] != 0.0f;
+    g.acceleration = c[kConst[s][1]];
+    g.reset_amount = c[kConst[s][2]];
+  }
   const dim3 block(kTile, kTile);
   const dim3 grid((w + kTile - 1) / kTile, (h + kTile - 1) / kTile);
-  relax_clamp_moments_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  if (n == 1)
+    relax_clamp_moments_kernel<1><<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  else
+    relax_clamp_moments_kernel<2><<<grid, block, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

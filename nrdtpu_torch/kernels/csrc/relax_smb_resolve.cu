@@ -12,8 +12,9 @@
 //
 // Design for the H100: one thread per pixel in 16x16 CTAs, one instance per mode
 // <kSpec, kNHist> (the specular planes, the number of histories), so that each holds only
-// its own state, at most kMinCtas' register budget (2 CTAs an SM for 3 or 4 histories, which
-// no path samples yet). Bound by its gathers:
+// its own state, at most kMinCtas' register budget (2 CTAs an SM for 3 or 4 histories:
+// RELAX_DIFFUSE_SPECULAR's <true, 4>, both signals' slow and responsive histories). Bound by
+// its gathers:
 //   - the 3x3 neighbourhood reads each current texel 9 times: each CTA first stages its
 //     18x18 window (halo 1) in shared memory, each texel's octahedral normal decoded once
 //     and, with the specular signal, its hitT as the min counts it (0 -> NRD_INF);

@@ -1,7 +1,9 @@
 """RELAX à-trous iteration - kernel `csrc/relax_atrous.cu` (K22).
 
 Replaces `nrdtpu/kernels/relax_pallas.py:338` (`relax_atrous_pallas`). Computes `atrous`
-(`nrdtpu/passes/relax/kernels.py:1340-1606`) for one signal per pixel, in two modes:
+(`nrdtpu/passes/relax/kernels.py:1340-1606`) for one signal, or for the diffuse and the
+specular signal in one launch (the TPU function's `has_diff` / `has_spec`), per pixel, in two
+modes:
 
   - iteration 0 (`is_first`): the 3x3 Gaussian prefilter of the centre's variance
     (`:1456-1463`), the 3x3 à-trous taps accumulating (rgb, 2nd moment) with the variance
@@ -24,14 +26,17 @@ TA's reprojection confidence at strides <= 4 (`:1368-1373`) and by IN_SPEC_CONFI
 weight, or by the simplified normal weight without roughness edge stopping (`:1513-1519`);
 iteration 0 keeps the diffuse normal weight, as XLA does (`use_variance_estimation`). Every
 texel's roughness is unpacked with the roughness encoding (`:1352`, `:1507`), a template
-parameter of the kernel.
+parameter of the kernel. With both signals each tap's geometry (plane distance, Gaussian,
+in-screen test, denoising range, normal angle) serves both, and each signal keeps its own
+normal weight, phi, max luminance difference, min material and confidence relaxation, as
+the XLA function's per-signal `taps_loop` does.
 
 Bound on the H100: gathers. Per pixel it reads the centre's signal, viewZ, packed normal and
 history length (40 B) and 8 taps of viewZ, packed normal and signal (8 x 36 B, `step` px
 away: 1 to 16 at the default 5 iterations); iteration 0 reads 8 more signal taps of the 3x3
 and, where the history is short, the 25 taps of the 5x5 (L1 neighbours); it writes 16 B. A
 tap is three loads (a float4 of signal, a float4 of `nr`, a float of viewZ); iteration 0 reads
-the tile's window staged in shared memory.
+the tile's window staged in shared memory. With both signals a tap reads one float4 more.
 """
 
 from __future__ import annotations
@@ -85,14 +90,14 @@ def _toward_one(fraction, t):
     return fraction + float(F32(1.0) - F32(fraction)) * t
 
 
-def relax_atrous_ref(signal, view_z_in, normal_roughness, history_length, diff_confidence=None,
-                     spec_confidence=None, reprojection_confidence=None, *, step_size, is_first,
-                     frame_index, frustum, ortho_mode, view_z_scale, denoising_range,
-                     depth_threshold, lobe_fraction, lobe_angle_fraction, phi_luminance,
-                     max_luminance_relative_difference, min_material, history_threshold,
-                     confidence_relaxation, specular=None,
-                     roughness_encoding=RoughnessEncoding.LINEAR):
-    """Plain PyTorch version of the kernel (the XLA iteration, op for op). lobe_fraction is
+def _atrous_one(signal, view_z_in, normal_roughness, history_length, diff_confidence=None,
+                spec_confidence=None, reprojection_confidence=None, *, step_size, is_first,
+                frame_index, frustum, ortho_mode, view_z_scale, denoising_range, depth_threshold,
+                lobe_fraction, lobe_angle_fraction, phi_luminance,
+                max_luminance_relative_difference, min_material, history_threshold,
+                confidence_relaxation, specular=None,
+                roughness_encoding=RoughnessEncoding.LINEAR):
+    """The plain version of one signal (the XLA iteration, op for op). lobe_fraction is
     `lobe_fraction(...)` of this iteration, lobe_angle_fraction the settings' (the 5x5
     estimation's normal weight and the specular lobe)."""
     h, w = view_z_in.shape
@@ -250,6 +255,21 @@ def _frame_halves(frame_index):
     return float(f & 0xFFFF), float(f >> 16)
 
 
+# the constants each signal has its own of; the others are shared
+SIGNAL_CONSTS = ("phi_luminance", "max_luminance_relative_difference", "min_material")
+
+
+def relax_atrous_ref(signal, *planes, specular=None, **kw):
+    """Plain PyTorch version of the kernel: `_atrous_one` of the signal, or with both signals
+    (`signal` the pair (diffuse, specular), SIGNAL_CONSTS pairs) of each signal with its own
+    constants, the diffuse one without `specular`."""
+    if not isinstance(signal, (tuple, list)):
+        return _atrous_one(signal, *planes, specular=specular, **kw)
+    return tuple(_atrous_one(sig, *planes, specular=sp,
+                             **{n: (v[k] if n in SIGNAL_CONSTS else v) for n, v in kw.items()})
+                 for k, (sig, sp) in enumerate(zip(signal, (None, specular))))
+
+
 def relax_atrous(signal, view_z_in, normal_roughness, history_length, diff_confidence=None,
                  spec_confidence=None, reprojection_confidence=None, *, step_size, is_first,
                  frame_index, frustum, ortho_mode, view_z_scale, denoising_range,
@@ -265,7 +285,9 @@ def relax_atrous(signal, view_z_in, normal_roughness, history_length, diff_confi
     (roughness_fraction, normal_edge_stopping_relaxation, lobe_angle_slack,
     luminance_edge_stopping_relaxation, roughness_edge_stopping_relaxation,
     roughness_edge_stopping_enabled); roughness_encoding: how the packed roughness is
-    unpacked. Returns (h, w, 4) = (rgb, variance)."""
+    unpacked. Returns (h, w, 4) = (rgb, variance). With both signals `signal` and the
+    constants of SIGNAL_CONSTS are (diffuse, specular) pairs, `specular` is given, and it
+    returns the pair of outputs."""
     global launches
     kw = dict(step_size=step_size, is_first=is_first, frame_index=frame_index, frustum=frustum,
               ortho_mode=ortho_mode, view_z_scale=view_z_scale,
@@ -277,31 +299,39 @@ def relax_atrous(signal, view_z_in, normal_roughness, history_length, diff_confi
               confidence_relaxation=confidence_relaxation, specular=specular,
               roughness_encoding=roughness_encoding)
     planes = (diff_confidence, spec_confidence, reprojection_confidence)
-    dev = build.kernel_device(signal)
+    pair = isinstance(signal, (tuple, list))
+    if pair and (len(signal) != 2 or specular is None
+                 or any(len(kw[n]) != 2 for n in SIGNAL_CONSTS)):
+        raise ValueError("both signals: (diffuse, specular), a pair of each of "
+                         f"{SIGNAL_CONSTS}, and `specular`")
+    signals = tuple(signal) if pair else (signal,)
+    dev = build.kernel_device(signals[0])
     if dev is None:
         return relax_atrous_ref(signal, view_z_in, normal_roughness, history_length, *planes,
                                 **kw)
     h, w = view_z_in.shape
     f32 = torch.float32
-    ins = [("signal", signal, (h, w, 4)), ("view_z_in", view_z_in, (h, w)),
-           ("normal_roughness", normal_roughness, (h, w, 4)),
+    ins = [("view_z_in", view_z_in, (h, w)), ("normal_roughness", normal_roughness, (h, w, 4)),
            ("history_length", history_length, (h, w))]
+    ins += [(f"signal[{k}]", t, (h, w, 4)) for k, t in enumerate(signals)]
     ins += [(name, t, (h, w)) for name, t in zip(
         ("diff_confidence", "spec_confidence", "reprojection_confidence"), planes)
         if t is not None]
     for name, t, shape in ins:
         build.check(name, t, dev, f32, shape)
-    out = torch.empty((h, w, 4), dtype=f32, device=dev)
+    out = torch.empty((len(signals), h, w, 4), dtype=f32, device=dev)
+    per = [tuple(kw[n]) if pair else (kw[n], 0.0) for n in SIGNAL_CONSTS]
     w0 = G3[0] * G3[0]
     sp = specular or {}
     consts = [*frustum, ortho_mode, view_z_scale, denoising_range, depth_threshold,
-              lobe_fraction, float(normal_weight_param2(lobe_angle_fraction)), phi_luminance,
-              max_luminance_relative_difference, min_material, history_threshold,
-              step_size, is_first, *_frame_halves(frame_index), w0, w0 * w0,
-              G3[0] * G3[1], G3[1] * G3[1], *confidence_relaxation,
-              specular is not None, lobe_angle_fraction, *[sp.get(k, 0.0) for k in SPECULAR_CONSTS],
-              build.ROUGHNESS_MODE[roughness_encoding]]
-    build.launch("nrd_relax_atrous", [signal, view_z_in, normal_roughness, history_length, out,
-                                      *planes], consts, w, h)
+              lobe_fraction, float(normal_weight_param2(lobe_angle_fraction)), per[0][0],
+              per[1][0], per[2][0], history_threshold, step_size, is_first,
+              *_frame_halves(frame_index), w0, w0 * w0, G3[0] * G3[1], G3[1] * G3[1],
+              *confidence_relaxation, specular is not None, lobe_angle_fraction,
+              *[sp.get(k, 0.0) for k in SPECULAR_CONSTS],
+              build.ROUGHNESS_MODE[roughness_encoding], len(signals), *[v[1] for v in per]]
+    second = [signals[1], out[1]] if pair else [None, None]
+    build.launch("nrd_relax_atrous", [signals[0], view_z_in, normal_roughness, history_length,
+                                      out[0], *planes, *second], consts, w, h)
     launches += 1
-    return out
+    return (out[0], out[1]) if pair else out[0]

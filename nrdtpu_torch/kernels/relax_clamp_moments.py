@@ -1,9 +1,10 @@
 """RELAX HistoryClamping - kernel `csrc/relax_clamp_moments.cu` (K20).
 
 Replaces `nrdtpu/kernels/relax_pallas.py:479` (`relax_clamp_moments_pallas`) and computes the
-whole pass of one signal around it (`nrdtpu/passes/relax/kernels.py:1140-1271`, with the
+whole pass of one signal, or of the diffuse and the specular signal in one launch as the TPU
+function's `n_sig` does, around it (`nrdtpu/passes/relax/kernels.py:1140-1271`, with the
 responsive history's select of `nrdtpu/passes/relax/denoiser.py:278-286` before it), per
-pixel:
+pixel and signal:
 
   - the responsive history: HistoryFix's rgb where the history is short
     (`history_length <= historyFixFrameNum`), the TA's fast history elsewhere;
@@ -18,8 +19,10 @@ pixel:
 
 Bound on the H100: bytes. Per pixel it reads viewZ, the fast and fixed histories, the history
 length, the noisy signal and the slow history (72 B, every tap an L1 neighbour) and writes the
-slow and responsive histories (32 B): 104 B/px, 0.114 ms at 2560x1440 at 3.35 TB/s. The
-design for that card is in the source's header.
+slow and responsive histories (32 B): 104 B/px, 0.114 ms at 2560x1440 at 3.35 TB/s; with
+both signals viewZ and the history length are read once (200 B/px). The design for that card
+is in the source's header. Each signal has its own clamp flag, acceleration and reset amount
+(the specular one's scaled by 0.33 and 0.5, `:1219`, `:1244`).
 """
 
 from __future__ import annotations
@@ -64,12 +67,12 @@ def _moments(view_z_in, responsive, noisy, view_z_scale, denoising_range):
     return m1 / wsum[..., None], m2 / wsum[..., None], nm1 / wsum[..., None], nm2 / wsum
 
 
-def relax_clamp_moments_ref(view_z_in, fast, fixed, history_length, noisy, slow, *,
-                            view_z_scale, denoising_range, history_fix_frame_num,
-                            color_box_sigma_scale, clamp, acceleration,
-                            reset_temporal_sigma_scale, reset_spatial_sigma_scale, reset_amount):
-    """Plain PyTorch version of the kernel (the XLA pass, op for op). Returns (slow,
-    responsive) histories, (h, w, 4) each."""
+def _clamp_one(view_z_in, fast, fixed, history_length, noisy, slow, *, view_z_scale,
+               denoising_range, history_fix_frame_num, color_box_sigma_scale, clamp,
+               acceleration, reset_temporal_sigma_scale, reset_spatial_sigma_scale,
+               reset_amount):
+    """The plain version of one signal (the XLA pass, op for op). Returns (slow, responsive)
+    histories, (h, w, 4) each."""
     resp = responsive_history(fast, fixed, history_length,
                               history_fix_frame_num=history_fix_frame_num)
     m1, m2, nm1, nm2 = _moments(view_z_in, resp, noisy, view_z_scale, denoising_range)
@@ -127,6 +130,23 @@ def relax_clamp_moments_ref(view_z_in, fast, fixed, history_length, noisy, slow,
             torch.cat([out_resp_rgb, resp[..., 3:]], -1))
 
 
+# the constants each signal has its own of; the others are shared
+SIGNAL_CONSTS = ("clamp", "acceleration", "reset_amount")
+
+
+def relax_clamp_moments_ref(view_z_in, fast, fixed, history_length, noisy, slow, **kw):
+    """Plain PyTorch version of the kernel: `_clamp_one` of the signal, or with both signals
+    (the planes and SIGNAL_CONSTS pairs) of each signal with its own constants, returning
+    (diffuse slow, diffuse responsive, specular slow, specular responsive)."""
+    if not isinstance(fast, (tuple, list)):
+        return _clamp_one(view_z_in, fast, fixed, history_length, noisy, slow, **kw)
+    out = ()
+    for k in range(2):
+        kk = {n: (v[k] if n in SIGNAL_CONSTS else v) for n, v in kw.items()}
+        out += _clamp_one(view_z_in, fast[k], fixed[k], history_length, noisy[k], slow[k], **kk)
+    return out
+
+
 def relax_clamp_moments(view_z_in, fast, fixed, history_length, noisy, slow, *, view_z_scale,
                         denoising_range, history_fix_frame_num, color_box_sigma_scale, clamp,
                         acceleration, reset_temporal_sigma_scale, reset_spatial_sigma_scale,
@@ -134,25 +154,42 @@ def relax_clamp_moments(view_z_in, fast, fixed, history_length, noisy, slow, *, 
     """fast (h, w, 4) the TA's responsive history, fixed (h, w, 4) HistoryFix's output (rgb),
     noisy (h, w, 4) the PrePass output (rgb), slow (h, w, 4) the TA's slow history (rgb, second
     moment); the constants float32 host values as the pass computes them. Returns (slow,
-    responsive) histories, (h, w, 4) each."""
+    responsive) histories, (h, w, 4) each. With both signals fast, fixed, noisy, slow and the
+    constants of SIGNAL_CONSTS are (diffuse, specular) pairs, and it returns (diffuse slow,
+    diffuse responsive, specular slow, specular responsive)."""
     global launches
     kw = dict(view_z_scale=view_z_scale, denoising_range=denoising_range,
               history_fix_frame_num=history_fix_frame_num,
               color_box_sigma_scale=color_box_sigma_scale, clamp=clamp, acceleration=acceleration,
               reset_temporal_sigma_scale=reset_temporal_sigma_scale,
               reset_spatial_sigma_scale=reset_spatial_sigma_scale, reset_amount=reset_amount)
-    dev = build.kernel_device(fast)
+    pair = isinstance(fast, (tuple, list))
+    sigs = [tuple(x) if pair else (x,) for x in (fast, fixed, noisy, slow)]
+    per = [tuple(kw[n]) if pair else (kw[n],) for n in SIGNAL_CONSTS]
+    n = len(sigs[0])
+    if any(len(x) != n for x in sigs + per) or not 1 <= n <= 2:
+        raise ValueError("one signal, or the pair (diffuse, specular) of each plane and "
+                         "of clamp, acceleration, reset_amount")
+    dev = build.kernel_device(sigs[0][0])
     if dev is None:
         return relax_clamp_moments_ref(view_z_in, fast, fixed, history_length, noisy, slow, **kw)
     h, w = view_z_in.shape
     f32 = torch.float32
-    ins = [("view_z_in", view_z_in, (h, w)), ("fast", fast, (h, w, 4)),
-           ("fixed", fixed, (h, w, 4)), ("history_length", history_length, (h, w)),
-           ("noisy", noisy, (h, w, 4)), ("slow", slow, (h, w, 4))]
-    for name, t, shape in ins:
-        build.check(name, t, dev, f32, shape)
-    out = torch.empty((2, h, w, 4), dtype=f32, device=dev)
-    build.launch("nrd_relax_clamp_moments", [t for _, t, _ in ins] + [out[0], out[1]],
-                 list(kw.values()), w, h)
+    build.check("view_z_in", view_z_in, dev, f32, (h, w))
+    build.check("history_length", history_length, dev, f32, (h, w))
+    for name, planes in zip(("fast", "fixed", "noisy", "slow"), sigs):
+        for k, t in enumerate(planes):
+            build.check(f"{name}[{k}]", t, dev, f32, (h, w, 4))
+    out = torch.empty((n, 2, h, w, 4), dtype=f32, device=dev)
+    fa, fi, no, sl = sigs
+    ptrs = [view_z_in, fa[0], fi[0], history_length, no[0], sl[0], out[0, 0], out[0, 1]]
+    if n == 2:
+        ptrs += [fa[1], fi[1], no[1], sl[1], out[1, 0], out[1, 1]]
+    consts = [view_z_scale, denoising_range, history_fix_frame_num, color_box_sigma_scale,
+              per[0][0], per[1][0], reset_temporal_sigma_scale, reset_spatial_sigma_scale,
+              per[2][0], n]
+    if n == 2:
+        consts += [per[0][1], per[1][1], per[2][1]]
+    build.launch("nrd_relax_clamp_moments", ptrs, consts, w, h)
     launches += 1
-    return out[0], out[1]
+    return tuple(out.reshape(2 * n, h, w, 4))

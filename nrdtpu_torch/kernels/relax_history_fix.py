@@ -1,7 +1,8 @@
 """RELAX history fix - kernel `csrc/relax_history_fix.cu` (K19).
 
 Replaces `nrdtpu/kernels/relax_pallas.py:1499` (`relax_history_fix_pallas`). Computes
-`history_fix` (`nrdtpu/passes/relax/kernels.py:1017-1131`) for one signal per pixel: where
+`history_fix` (`nrdtpu/passes/relax/kernels.py:1017-1131`) for one signal, or for the diffuse
+and the specular signal in one launch, per pixel: where
 the history is short (`history_length <= history_fix_frame_num`, and the frame number is not
 1), the 24 taps of the 5x5 grid at the pixel's own stride `floor(14 / (1 + hl) + 0.5)`
 (`:1034`), clamp addressing with the in-screen test (`:1069-1077`), each weighted by plane
@@ -13,11 +14,14 @@ vector relaxed by `roughness_edge_stopping_relaxation`. The stride is continuous
 in XLA: the TPU kernel's hat-blended stride levels (`relax_pallas.py:1502-1503`) are not
 carried over. Pixels whose history is long skip the taps. The centre's roughness, which the
 specular weight reads, is unpacked with the roughness encoding (`:1024`), a template
-parameter of the specular kernel.
+parameter of the specular kernel. With both signals each tap's plane distance and in-screen
+test serve both, and each signal has its own normal weight, min material and accumulator
+(`:1083-1114`).
 
 Bound on the H100: gathers. Per pixel it reads the centre's signal, viewZ, packed normal and
 history length (40 B) and, where the fix applies, 24 taps up to 2 x 14 px away; it writes
-16 B. The entry makes two launches on the caller's stream and counts one: a prologue writes
+16 B (with both signals 16 B more read a tap and written). The entry makes two launches on
+the caller's stream and counts one: a prologue writes
 each texel's tap record (world position and material, unpacked normal and viewZ: 32 B) into
 a (h, w, 8) scratch plane that the wrapper allocates and drops after the call (118 MB at
 2560x1440), then each tap reads its record and signal as three float4 (48 B) in place of
@@ -41,11 +45,11 @@ SPECULAR_CONSTS = ("lobe_angle_fraction", "lobe_angle_slack",
                    "roughness_edge_stopping_relaxation")
 
 
-def relax_history_fix_ref(signal, view_z_in, normal_roughness, history_length, *, frustum,
-                          ortho_mode, view_z_scale, depth_threshold, base_stride, frame_num,
-                          normal_power, min_material, specular=None,
-                          roughness_encoding=RoughnessEncoding.LINEAR):
-    """Plain PyTorch version of the kernel (the XLA stride-tap loop and the select)."""
+def _history_fix_one(signal, view_z_in, normal_roughness, history_length, *, frustum,
+                     ortho_mode, view_z_scale, depth_threshold, base_stride, frame_num,
+                     normal_power, min_material, specular=None,
+                     roughness_encoding=RoughnessEncoding.LINEAR):
+    """The plain version of one signal (the XLA stride-tap loop and the select)."""
     h, w = view_z_in.shape
     dev = signal.device
     uv = resample.pixel_uv_grid(h, w, dev)
@@ -97,40 +101,57 @@ def relax_history_fix_ref(signal, view_z_in, normal_roughness, history_length, *
     return torch.where(apply_fix[..., None], acc / wsum[..., None], signal)
 
 
+def relax_history_fix_ref(signal, *planes, min_material, specular=None, **kw):
+    """Plain PyTorch version of the kernel: `_history_fix_one` of the signal, or with both
+    signals (`signal` and `min_material` the pairs of the diffuse and the specular one's) of
+    each signal at its own min material, the diffuse one without `specular`."""
+    if not isinstance(signal, (tuple, list)):
+        return _history_fix_one(signal, *planes, min_material=min_material, specular=specular,
+                                **kw)
+    return tuple(_history_fix_one(sig, *planes, min_material=m, specular=sp, **kw)
+                 for sig, m, sp in zip(signal, min_material, (None, specular)))
+
+
 def relax_history_fix(signal, view_z_in, normal_roughness, history_length, *, frustum,
                       ortho_mode, view_z_scale, depth_threshold, base_stride, frame_num,
                       normal_power, min_material, specular=None,
                       roughness_encoding=RoughnessEncoding.LINEAR):
-    """signal (h, w, 4) = the accumulated history (rgb, 2nd moment); history_length (h, w)
-    after TA; frustum = the 9 floats right, up, forward; base_stride =
+    """signal (h, w, 4) = the accumulated history (rgb, 2nd moment), or the pair (diffuse,
+    specular) of them with min_material the pair of their min materials and `specular` given;
+    history_length (h, w) after TA; frustum = the 9 floats right, up, forward; base_stride =
     historyFixBasePixelStride, frame_num = historyFixFrameNum + 1; specular = None for the
     diffuse signal, else dict(lobe_angle_fraction, lobe_angle_slack,
     roughness_edge_stopping_relaxation); roughness_encoding: how the packed roughness is
-    unpacked. Returns (h, w, 4): the reconstruction where the fix applies, the signal
-    elsewhere."""
+    unpacked. Returns (h, w, 4), or the pair of them: the reconstruction where the fix
+    applies, the signal elsewhere."""
     global launches
     kw = dict(frustum=frustum, ortho_mode=ortho_mode, view_z_scale=view_z_scale,
               depth_threshold=depth_threshold, base_stride=base_stride, frame_num=frame_num,
               normal_power=normal_power, min_material=min_material, specular=specular,
               roughness_encoding=roughness_encoding)
-    dev = build.kernel_device(signal)
+    pair = isinstance(signal, (tuple, list))
+    if pair and (len(signal) != 2 or len(min_material) != 2 or specular is None):
+        raise ValueError("both signals: (diffuse, specular), a min material each, `specular`")
+    signals = tuple(signal) if pair else (signal,)
+    dev = build.kernel_device(signals[0])
     if dev is None:
         return relax_history_fix_ref(signal, view_z_in, normal_roughness, history_length, **kw)
     h, w = view_z_in.shape
     f32 = torch.float32
-    ins = [("signal", signal, (h, w, 4)), ("view_z_in", view_z_in, (h, w)),
-           ("normal_roughness", normal_roughness, (h, w, 4)),
+    ins = [("view_z_in", view_z_in, (h, w)), ("normal_roughness", normal_roughness, (h, w, 4)),
            ("history_length", history_length, (h, w))]
-    for name, t, shape in ins:
+    for name, t, shape in ins + [(f"signal[{k}]", t, (h, w, 4)) for k, t in enumerate(signals)]:
         build.check(name, t, dev, f32, shape)
-    out = torch.empty((h, w, 4), dtype=f32, device=dev)
+    out = torch.empty((len(signals), h, w, 4), dtype=f32, device=dev)
     records = (torch.empty((h, w, 8), dtype=f32, device=dev) if frame_num != 1.0 else None)
     sp = specular or {}
+    mats = tuple(min_material) if pair else (min_material, 0.0)
     consts = [*frustum, ortho_mode, view_z_scale, depth_threshold, base_stride, frame_num,
-              max(normal_power, 0.01), min_material, specular is not None,
+              max(normal_power, 0.01), mats[0], specular is not None,
               *[sp.get(k, 0.0) for k in SPECULAR_CONSTS],
-              build.ROUGHNESS_MODE[roughness_encoding]]
-    build.launch("nrd_relax_history_fix", [t for _, t, _ in ins] + [out, records], consts, w,
-                 h)
+              build.ROUGHNESS_MODE[roughness_encoding], len(signals), mats[1]]
+    second = [signals[1], out[1]] if pair else [None, None]
+    build.launch("nrd_relax_history_fix", [signals[0]] + [t for _, t, _ in ins]
+                 + [out[0], records] + second, consts, w, h)
     launches += 1
-    return out
+    return (out[0], out[1]) if pair else out[0]

@@ -14,8 +14,9 @@ gathers of `temporal_accumulation`'s loadSurfaceMotionBasedPrevData
   - the footprint quality before its refinements (1 for bicubic, else the custom weights'
     sum; 0 where no tap is valid) and smb_found (2 bicubic, 1 bilinear, 0 none);
   - `sample_catrom(history, uv_smb x rect_prev, use_bicubic, custom_w)` of every history
-    plane set given (`:580-583`, `:805-808`): the slow and the responsive history of the
-    signal;
+    plane set given (`:580-583`, `:805-808`): the slow and the responsive history of each
+    signal, four histories with both signals (JAX's `hist_planes` order: diffuse, then
+    specular);
   - with the specular signal (`spec_hit` and `prev_reflection_hit_t` given, `:376-394`,
     `:809-814`): the un-normalised 3x3 normal average (h, w, 3), the 3x3 min of the current
     specular hitT (0 counts as NRD_INF) and the previous reflection hitT, bilinear with the

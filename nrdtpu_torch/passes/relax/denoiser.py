@@ -1,18 +1,23 @@
 """RELAX pass graph for the PyTorch port - counterpart of `nrdtpu/passes/relax/denoiser.py`.
 
-This port runs RELAX_DIFFUSE and RELAX_SPECULAR (`denoiser.py:166-392`, one signal each):
+This port runs RELAX_DIFFUSE, RELAX_SPECULAR and RELAX_DIFFUSE_SPECULAR (`denoiser.py:166-392`):
 hit-distance reconstruction (AREA_3X3 / AREA_5X5 through REBLUR's kernel, off under
 checkerboard, `:249-255`), PrePass, TemporalAccumulation, HistoryFix (into the responsive
 history), HistoryClamping, the optional anti-firefly pass, the à-trous ladder (2 to 8
 iterations, 5 by default) with IN_DIFF_CONFIDENCE / IN_SPEC_CONFIDENCE and the TA's specular
-reprojection confidence in every iteration, and SplitScreen. The other RELAX variants and
-the checkerboard resolve raise NotImplementedError; ROADMAP.md lists them.
+reprojection confidence in every iteration, and SplitScreen. With both signals each pass runs
+once for both where JAX runs it so: the reconstruction, the TA's head, the history fix, the
+history clamp, the anti-firefly pass and each à-trous iteration take both signals in one
+launch; the PrePass runs once a signal, and the TA accumulates each signal on the shared
+head. The SH variants and the checkerboard resolve raise NotImplementedError; ROADMAP.md
+lists them.
 
 State (the permanent pool, all float32 as the JAX package keeps it for RELAX):
   history_length (h, w) 0..255, rounded to whole frames; normal_roughness_prev (h, w, 4) the
-  RGBA8-quantized 0.5 n + 0.5 and roughness; material_id_prev, view_z_prev (h, w);
-  <diff|spec>_illum_prev (h, w, 4) slow history (rgb + 2nd moment) after the anti-firefly
-  pass, <diff|spec>_responsive_prev (h, w, 4); RELAX_SPECULAR also reflection_hit_t (h, w).
+  RGBA8-quantized 0.5 n + 0.5 and roughness; material_id_prev, view_z_prev (h, w); for each
+  signal present <diff|spec>_illum_prev (h, w, 4) slow history (rgb + 2nd moment) after the
+  anti-firefly pass, <diff|spec>_responsive_prev (h, w, 4); with the specular signal also
+  reflection_hit_t (h, w).
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ from . import frustum_vectors, pack_prev_normal_roughness, unpack_nr
 from . import kernels as K
 
 RT = ResourceType
-PORTED = (Denoiser.RELAX_DIFFUSE, Denoiser.RELAX_SPECULAR)
+PORTED = (Denoiser.RELAX_DIFFUSE, Denoiser.RELAX_SPECULAR, Denoiser.RELAX_DIFFUSE_SPECULAR)
 # per signal: its input and output resources and its confidence input
 SIGNAL_RESOURCES = {
     "diff": (RT.IN_DIFF_RADIANCE_HITDIST, RT.OUT_DIFF_RADIANCE_HITDIST, RT.IN_DIFF_CONFIDENCE),
@@ -51,7 +56,9 @@ class RelaxDenoiser:
                 "slices)")
         self.config = config
         self.device = torch.device(device)
-        self.which = "spec" if config.denoiser == Denoiser.RELAX_SPECULAR else "diff"
+        # the signals present, as `has_diffuse` / `has_specular` in JAX (`denoiser.py:42-43`)
+        self.signals = tuple(sig for sig, part in (("diff", "DIFFUSE"), ("spec", "SPECULAR"))
+                             if part in config.denoiser.name)
         self._s = RelaxSettings()
 
     def static_key(self, s: RelaxSettings):
@@ -71,10 +78,11 @@ class RelaxDenoiser:
             "normal_roughness_prev": torch.full((h, w, 4), 1.0 / 255.0, **kw),
             "material_id_prev": torch.zeros((h, w), **kw),
             "view_z_prev": torch.full((h, w), 1e7, **kw),
-            f"{self.which}_illum_prev": torch.zeros((h, w, 4), **kw),
-            f"{self.which}_responsive_prev": torch.zeros((h, w, 4), **kw),
         }
-        if self.which == "spec":
+        for sig in self.signals:
+            state[f"{sig}_illum_prev"] = torch.zeros((h, w, 4), **kw)
+            state[f"{sig}_responsive_prev"] = torch.zeros((h, w, 4), **kw)
+        if "spec" in self.signals:
             state["reflection_hit_t"] = torch.zeros((h, w), **kw)
         return state
 
@@ -154,47 +162,61 @@ class RelaxDenoiser:
     def frame(self, sc: dict, dc: dict, state: dict, inputs: dict):
         cfg = self.config
         s = self._s
-        which = self.which
-        rt_in, rt_out, rt_conf = SIGNAL_RESOURCES[which]
+        sigs = self.signals
+        both = len(sigs) == 2
+        # a pass of both signals takes the pair and the names; of one, the signal and its name
+        which = sigs if both else sigs[0]
+
+        def one_or_pair(d):
+            return tuple(d[sig] for sig in sigs) if both else d[sigs[0]]
+
         sc = self._relax_sc(sc)
         view_z = inputs[RT.IN_VIEWZ]
         normal_roughness = inputs[RT.IN_NORMAL_ROUGHNESS]
         mv = inputs[RT.IN_MV]
-        raw = inputs[rt_in]
+        raw = {sig: inputs[SIGNAL_RESOURCES[sig][0]] for sig in sigs}
+        conf = {sig: inputs.get(SIGNAL_RESOURCES[sig][2]) for sig in sigs}
         dt_mix = inputs.get(RT.IN_DISOCCLUSION_THRESHOLD_MIX)
         if mv.shape[-1] == 2:
             mv = torch.cat([mv, torch.zeros_like(mv[..., :1])], -1)
 
         dead = K.dead_mask(sc, K.classify_tiles(sc, view_z), view_z)
 
-        sig = raw
+        sig = dict(raw)
         if s.hitDistanceReconstructionMode != HitDistanceReconstructionMode.OFF:
             radius = (2 if s.hitDistanceReconstructionMode
                       == HitDistanceReconstructionMode.AREA_5X5 else 1)
-            pair = (sig, None) if which == "diff" else (None, sig)
-            rec = RK.hit_dist_reconstruction(sc, dc, view_z, normal_roughness, *pair, cfg,
-                                             radius=radius)
-            sig = rec[0] if which == "diff" else rec[1]
+            rec = RK.hit_dist_reconstruction(sc, dc, view_z, normal_roughness, sig.get("diff"),
+                                             sig.get("spec"), cfg, radius=radius)
+            sig = {name: rec[0 if name == "diff" else 1] for name in sigs}
 
-        pre = K.pre_pass(sc, dc, sig, view_z, normal_roughness, cfg, which)
-        if which == "diff":
-            ta = K.temporal_accumulation(sc, dc, view_z, normal_roughness, mv, pre, state, cfg,
-                                         diff_confidence=inputs.get(rt_conf), dt_mix=dt_mix)
+        # the PrePass once a signal (`relax_prepass_taps_pallas(is_spec)`)
+        pre = {name: K.pre_pass(sc, dc, sig[name], view_z, normal_roughness, cfg, name)
+               for name in sigs}
+        if both:
+            ta = K.temporal_accumulation_diffuse_specular(
+                sc, dc, view_z, normal_roughness, mv, pre["diff"], pre["spec"], state, cfg,
+                diff_confidence=conf["diff"], spec_confidence=conf["spec"], dt_mix=dt_mix)
+        elif which == "diff":
+            ta = K.temporal_accumulation(sc, dc, view_z, normal_roughness, mv, pre["diff"],
+                                         state, cfg, diff_confidence=conf["diff"], dt_mix=dt_mix)
         else:
-            ta = K.temporal_accumulation_specular(sc, dc, view_z, normal_roughness, mv, pre,
-                                                  state, cfg, spec_confidence=inputs.get(rt_conf),
-                                                  dt_mix=dt_mix)
+            ta = K.temporal_accumulation_specular(sc, dc, view_z, normal_roughness, mv,
+                                                  pre["spec"], state, cfg,
+                                                  spec_confidence=conf["spec"], dt_mix=dt_mix)
         history_length = ta["history_length"]
-        fixed = K.history_fix(sc, dc, view_z, normal_roughness, history_length, ta[which], cfg,
-                              which)
-        hc = K.history_clamping(sc, dc, view_z, pre, ta[which], ta[which + "_fast"], fixed,
-                                history_length, which)
+        fixed = K.history_fix(sc, dc, view_z, normal_roughness, history_length, one_or_pair(ta),
+                              cfg, which)
+        hc = K.history_clamping(sc, dc, view_z, one_or_pair(pre), one_or_pair(ta),
+                                tuple(ta[name + "_fast"] for name in sigs) if both
+                                else ta[which + "_fast"], fixed, history_length, which)
         del fixed, pre
 
-        slow = hc[which + "_slow"]
+        slow = {name: hc[name + "_slow"] for name in sigs}
         if s.enableAntiFirefly:
-            (slow,) = K.anti_firefly(dc, normal_roughness, (slow,), (which,))
-        cur = slow
+            slow = dict(zip(sigs, K.anti_firefly(dc, normal_roughness,
+                                                 tuple(slow[name] for name in sigs), sigs)))
+        cur = one_or_pair(slow)
         iterations = int(np.clip(s.atrousIterationNum, 2, 8))
         for i in range(iterations):
             cur = K.atrous(sc, dc, view_z, normal_roughness, history_length, cur, cfg,
@@ -202,6 +224,7 @@ class RelaxDenoiser:
                            diff_confidence=inputs.get(RT.IN_DIFF_CONFIDENCE),
                            spec_confidence=inputs.get(RT.IN_SPEC_CONFIDENCE),
                            reprojection_confidence=ta.get("spec_reprojection_confidence"))
+        cur = dict(zip(sigs, cur if both else (cur,)))
 
         keep = dead
         n, rough, mat = unpack_nr(normal_roughness, cfg)
@@ -214,13 +237,16 @@ class RelaxDenoiser:
             torch.where(dead[..., None], 1.0 / 255.0, n), torch.where(dead, 1.0 / 255.0, rough))
         new_state["material_id_prev"] = mat
         new_state["view_z_prev"] = view_z.clone()  # the caller may reuse its input buffer
-        # the slow history after the anti-firefly pass (`denoiser.py:299-304`, `:358-362`)
-        new_state[which + "_illum_prev"] = torch.where(keep[..., None],
-                                                       state[which + "_illum_prev"], slow)
-        new_state[which + "_responsive_prev"] = torch.where(
-            keep[..., None], state[which + "_responsive_prev"], hc[which + "_resp"])
-        if which == "spec":
+        outs = {}
+        for name in sigs:  # the dead pass-through, SplitScreen and the state (`:345-378`)
+            # the slow history after the anti-firefly pass (`denoiser.py:299-304`, `:358-362`)
+            new_state[name + "_illum_prev"] = torch.where(
+                keep[..., None], state[name + "_illum_prev"], slow[name])
+            new_state[name + "_responsive_prev"] = torch.where(
+                keep[..., None], state[name + "_responsive_prev"], hc[name + "_resp"])
+            outs[SIGNAL_RESOURCES[name][1]] = K.split_screen(
+                sc, view_z, raw[name], torch.where(dead[..., None], raw[name], cur[name]))
+        if "spec" in sigs:
             new_state["reflection_hit_t"] = torch.where(keep, state["reflection_hit_t"],
                                                         ta["reflection_hit_t"])
-        out = K.split_screen(sc, view_z, raw, torch.where(dead[..., None], raw, cur))
-        return {rt_out: out}, requantize_state(state, new_state)
+        return outs, requantize_state(state, new_state)

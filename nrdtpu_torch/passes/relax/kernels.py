@@ -22,10 +22,14 @@ Each pass is elementwise torch glue around hand-written kernels of `nrdtpu_torch
 
 Signals are (h, w, 4): radiance and, depending on the stage, raw hitT, the luminance's second
 moment or its variance. The glue keeps the op order of the XLA functions; the kernels compute
-the per-pixel formulas of the XLA gathers, not the TPU kernels' workarounds. Each pass takes
-one signal, named by `which` ("diff" / "spec"); the TA has one function a signal around a
-shared head (`_surface_motion`), so that the two-signal frame adds its own beside them. The
-SH and checkerboard branches are not ported. Frame constants (`sc`, `dc`) are host values.
+the per-pixel formulas of the XLA gathers, not the TPU kernels' workarounds. A pass takes one
+signal, named by `which` ("diff" / "spec"), or both in one launch where the XLA function runs
+them together (`which` = ("diff", "spec") and the signals a pair: history_fix,
+history_clamping, atrous); the PrePass runs once a signal, as `relax_prepass_taps_pallas`
+does. The TA has one accumulation a signal (`_diffuse_accumulation`,
+`_specular_accumulation`) after one shared head (`_surface_motion`), which samples every
+history of the signals present in one `relax_smb_resolve` launch. The SH and checkerboard
+branches are not ported. Frame constants (`sc`, `dc`) are host values.
 """
 
 from __future__ import annotations
@@ -89,7 +93,7 @@ def dead_mask(sc, tile_map, view_z):
 
 
 # ---------------------------------------------------------------------------
-# PrePass (RELAX_PrePass.hlsli), diffuse
+# PrePass (RELAX_PrePass.hlsli)
 # ---------------------------------------------------------------------------
 
 
@@ -121,7 +125,7 @@ def pre_pass(sc, dc, signal, view_z_in, normal_roughness, config, which: str = "
 
 
 # ---------------------------------------------------------------------------
-# TemporalAccumulation (RELAX_TemporalAccumulation.hlsli), diffuse
+# TemporalAccumulation (RELAX_TemporalAccumulation.hlsli)
 # ---------------------------------------------------------------------------
 
 
@@ -129,9 +133,10 @@ def _surface_motion(sc, dc, view_z_in, normal_roughness, mv_in, state, config, h
                     spec_hit=None, dt_mix=None):
     """The TA's head, shared by both signals (`kernels.py:331-567`): surface-motion uv,
     parallax, disocclusion threshold, the footprint (one `relax_smb_resolve` launch that
-    also samples the signal's two histories and, with `spec_hit`, gathers the specular 3x3
-    planes), the footprint-quality refinements and the history length. Returns the planes
-    the accumulations read."""
+    also samples the histories, in `hist_planes` order the slow and responsive history of
+    each signal present, and, with `spec_hit`, gathers the specular 3x3 planes), the
+    footprint-quality refinements and the history length. Returns the planes the
+    accumulations read."""
     h, w = view_z_in.shape
     dev = view_z_in.device
     view_z = unpack_view_z(sc, view_z_in)
@@ -243,16 +248,43 @@ def _surface_motion(sc, dc, view_z_in, normal_roughness, mv_in, state, config, h
                 disocclusion_threshold=disocclusion_threshold)
 
 
+def _histories(state, which):
+    """The slow and the responsive history of each signal of `which`, in `hist_planes` order."""
+    return tuple(state[f"{wh}_{kind}_prev"] for wh in which for kind in ("illum", "responsive"))
+
+
 def temporal_accumulation(sc, dc, view_z_in, normal_roughness, mv_in, diff, state, config,
                           diff_confidence=None, dt_mix=None):
     """The RELAX TA for the diffuse signal (`kernels.py:319-612`): the shared head
     (`_surface_motion`, one `relax_smb_resolve` launch that also samples both diffuse
     histories) and the accumulation. Returns dict(history_length, diff, diff_fast)."""
     g = _surface_motion(sc, dc, view_z_in, normal_roughness, mv_in, state, config,
-                        (state["diff_illum_prev"], state["diff_responsive_prev"]), dt_mix=dt_mix)
-    smb, history_length = g["smb"], g["history_length"]
+                        _histories(state, ("diff",)), dt_mix=dt_mix)
+    return dict(history_length=g["history_length"], **_diffuse_accumulation(
+        dc, g, diff, g["smb"]["histories"][0:2], diff_confidence))
 
-    # diffuse accumulation (lines 580-621)
+
+def temporal_accumulation_diffuse_specular(sc, dc, view_z_in, normal_roughness, mv_in, diff,
+                                           spec, state, config, diff_confidence=None,
+                                           spec_confidence=None, dt_mix=None):
+    """The RELAX TA for both signals (`kernels.py:319-979`): one shared head (one
+    `relax_smb_resolve` launch of four histories, diffuse then specular, with the specular
+    planes), then each signal's accumulation. Returns the union of `temporal_accumulation`'s
+    and `temporal_accumulation_specular`'s dicts."""
+    g = _surface_motion(sc, dc, view_z_in, normal_roughness, mv_in, state, config,
+                        _histories(state, ("diff", "spec")),
+                        spec_hit=spec[..., 3].contiguous(), dt_mix=dt_mix)
+    hist = g["smb"]["histories"]
+    return dict(history_length=g["history_length"],
+                **_diffuse_accumulation(dc, g, diff, hist[0:2], diff_confidence),
+                **_specular_accumulation(sc, dc, g, normal_roughness, view_z_in, spec, state,
+                                         hist[2:4], spec_confidence))
+
+
+def _diffuse_accumulation(dc, g, diff, histories, diff_confidence=None):
+    """The diffuse accumulation (lines 580-621) of the head's planes `g` and the diffuse slow
+    and responsive histories it sampled. Returns dict(diff, diff_fast)."""
+    smb, history_length = g["smb"], g["history_length"]
     dmax = F32(dc["diff_max_accumulated_frame_num"])
     dmax_fast = F32(dc["diff_max_fast_accumulated_frame_num"])
     inv_hl = 1.0 / history_length
@@ -265,14 +297,14 @@ def temporal_accumulation(sc, dc, view_z_in, normal_roughness, mv_in, diff, stat
     found = smb["smb_found"] > 0.0
     alpha = torch.where(found, alpha, 1.0)
     alpha_resp = torch.where(found, alpha_resp, 1.0)
-    prev_diff = torch.clamp_min(smb["histories"][0], 0.0)
-    prev_diff_resp = torch.clamp_min(smb["histories"][1], 0.0)
+    prev_diff = torch.clamp_min(histories[0], 0.0)
+    prev_diff_resp = torch.clamp_min(histories[1], 0.0)
     m1 = nm.luminance(diff[..., :3])
     diff_and_m2 = torch.cat([diff[..., :3], (m1 * m1)[..., None]], -1)
     out_diff = nm.lerp(prev_diff, diff_and_m2, alpha[..., None])
     out_fast = torch.cat([nm.lerp(prev_diff_resp[..., :3], diff[..., :3], alpha_resp[..., None]),
                           torch.zeros_like(m1)[..., None]], -1)
-    return dict(history_length=history_length, diff=out_diff, diff_fast=out_fast)
+    return dict(diff=out_diff, diff_fast=out_fast)
 
 
 def _curvature(sc, g, normal_roughness, view_z_in):
@@ -352,15 +384,24 @@ def temporal_accumulation_specular(sc, dc, view_z_in, normal_roughness, mv_in, s
                                    config, spec_confidence=None, dt_mix=None):
     """The RELAX TA for the specular signal (`kernels.py:614-979`, without the SH and
     checkerboard branches): the shared head (one `relax_smb_resolve` launch with the
-    specular planes), the curvature (one `nearest_multi` launch), thin lens and the
-    virtual-motion uv, the virtual-motion footprint (one `relax_vmb_resolve` launch), the
-    virtual amount and its look-back 1 and 2 steps (one `bilinear_resolve` launch), the
-    hit-distance and surface-motion confidences, both accumulations and the variance boost.
-    Returns dict(history_length, spec, spec_fast, reflection_hit_t,
-    spec_reprojection_confidence)."""
+    specular planes) and the specular accumulation (`_specular_accumulation`). Returns
+    dict(history_length, spec, spec_fast, reflection_hit_t, spec_reprojection_confidence)."""
     g = _surface_motion(sc, dc, view_z_in, normal_roughness, mv_in, state, config,
-                        (state["spec_illum_prev"], state["spec_responsive_prev"]),
-                        spec_hit=spec[..., 3].contiguous(), dt_mix=dt_mix)
+                        _histories(state, ("spec",)), spec_hit=spec[..., 3].contiguous(),
+                        dt_mix=dt_mix)
+    return dict(history_length=g["history_length"],
+                **_specular_accumulation(sc, dc, g, normal_roughness, view_z_in, spec, state,
+                                         g["smb"]["histories"][0:2], spec_confidence))
+
+
+def _specular_accumulation(sc, dc, g, normal_roughness, view_z_in, spec, state, histories,
+                           spec_confidence=None):
+    """The specular accumulation (lines 625-979) of the head's planes `g` and the specular slow
+    and responsive histories it sampled: the curvature (one `nearest_multi` launch), thin lens
+    and the virtual-motion uv, the virtual-motion footprint (one `relax_vmb_resolve` launch),
+    the virtual amount and its look-back 1 and 2 steps (one `bilinear_resolve` launch), the
+    hit-distance and surface-motion confidences, both accumulations and the variance boost.
+    Returns dict(spec, spec_fast, reflection_hit_t, spec_reprojection_confidence)."""
     smb, history_length = g["smb"], g["history_length"]
     ortho = float(sc["ortho_mode"])
     is_persp = ortho == 0.0
@@ -422,8 +463,8 @@ def temporal_accumulation_specular(sc, dc, view_z_in, normal_roughness, mv_in, s
                                      torch.clamp_min(vmb["spec_vmb_resp"], 0.0), 0.0)
 
     # the surface-motion specular history (from the smb loader)
-    prev_spec_smb = torch.clamp_min(smb["histories"][0], 0.0)
-    prev_spec_smb_resp = torch.clamp_min(smb["histories"][1], 0.0)
+    prev_spec_smb = torch.clamp_min(histories[0], 0.0)
+    prev_spec_smb_resp = torch.clamp_min(histories[1], 0.0)
     prev_hit_t_smb = torch.clamp_min(smb["reflection_hit_t"], 0.001)
 
     # virtual history amount (lines 819-845)
@@ -540,67 +581,84 @@ def temporal_accumulation_specular(sc, dc, view_z_in, normal_roughness, mv_in, s
     confidence = nm.lerp(spec_smb_confidence, spec_vmb_confidence, virtual_amount)
     acc_m2 = torch.where(acc_m2 == 0.0,
                          float(dc["spec_variance_boost"]) * (1.0 - confidence), acc_m2)
-    return dict(history_length=history_length,
-                spec=torch.cat([acc_rgb, acc_m2[..., None]], -1),
+    return dict(spec=torch.cat([acc_rgb, acc_m2[..., None]], -1),
                 spec_fast=torch.cat([acc_resp, hit_dist[..., None]], -1),
                 reflection_hit_t=acc_hit_t, spec_reprojection_confidence=confidence)
 
 
 # ---------------------------------------------------------------------------
-# HistoryFix (RELAX_HistoryFix.hlsli), diffuse
+# HistoryFix (RELAX_HistoryFix.hlsli)
 # ---------------------------------------------------------------------------
 
 
 def history_fix(sc, dc, view_z_in, normal_roughness, history_length, signal, config,
-                which: str = "diff"):
+                which="diff"):
     """Sparse 5x5 cross-bilateral reconstruction of short histories (`kernels.py:1017-1131`)
-    of one signal: one `relax_history_fix` launch. Returns (h, w, 4)."""
+    of one signal, or of both (`which` = ("diff", "spec"), `signal` the pair): one
+    `relax_history_fix` launch. Returns (h, w, 4), or the pair."""
+    both = not isinstance(which, str)
     specular = None
-    if which == "spec":
+    if both or which == "spec":
         specular = dict(lobe_angle_fraction=float(dc["lobe_angle_fraction"]),
                         lobe_angle_slack=float(dc["spec_lobe_angle_slack"]),
                         roughness_edge_stopping_relaxation=float(
                             dc["roughness_edge_stopping_relaxation"]))
+    min_material = (tuple(float(dc[wh + "_min_material"]) for wh in which) if both
+                    else float(dc[which + "_min_material"]))
     return k_history_fix.relax_history_fix(
         signal, view_z_in, normal_roughness, history_length, **_frame_geometry(sc),
         depth_threshold=float(dc["depth_threshold"]),
         base_stride=float(dc["history_fix_base_pixel_stride"]),
         frame_num=float(dc["history_fix_frame_num"]),
         normal_power=float(dc["history_fix_edge_stopping_normal_power"]),
-        min_material=float(dc[which + "_min_material"]), specular=specular,
+        min_material=min_material, specular=specular,
         roughness_encoding=config.roughness_encoding)
 
 
 # ---------------------------------------------------------------------------
-# HistoryClamping (RELAX_HistoryClamping.hlsli), diffuse
+# HistoryClamping (RELAX_HistoryClamping.hlsli)
 # ---------------------------------------------------------------------------
 
 
+def _clamp_consts(dc, which):
+    """One signal's constants of the history clamp: the clamp flag, the acceleration (the
+    specular one scaled by 0.33, `:1219`) and the reset amount (x 0.5, `:1244`)."""
+    spec = which == "spec"
+    accel = F32((0.33 if spec else 1.0) * RELAX_ANTILAG_ACCELERATION_AMOUNT_SCALE) * F32(
+        dc["history_acceleration_amount"])
+    reset_amount = F32(0.5 if spec else 1.0) * F32(dc["history_reset_amount"])
+    clamp = bool(F32(dc[which + "_max_fast_accumulated_frame_num"])
+                 < F32(dc[which + "_max_accumulated_frame_num"]))
+    return clamp, float(accel), float(reset_amount)
+
+
 def history_clamping(sc, dc, view_z_in, noisy, slow, fast, fixed, history_length,
-                     which: str = "diff"):
+                     which="diff"):
     """Sigma colour-box clamp of the slow history to the responsive one + antilag
     acceleration and reset + 2nd-moment correction (`kernels.py:1140-1271`) of one signal,
     the responsive history being HistoryFix's output `fixed` where the history is short and
-    the TA's `fast` elsewhere (`denoiser.py:278-286`): one `relax_clamp_moments` launch. The
-    specular signal scales the acceleration by 0.33 and the reset by 0.5 (`:1219`, `:1244`).
-    Returns dict(history_length, <which>_slow, <which>_resp)."""
-    spec = which == "spec"
-    accel_scale = F32((0.33 if spec else 1.0) * RELAX_ANTILAG_ACCELERATION_AMOUNT_SCALE) * F32(
-        dc["history_acceleration_amount"])
-    reset_amount = F32(0.5 if spec else 1.0) * F32(dc["history_reset_amount"])
-    out_slow, out_resp = k_clamp_moments.relax_clamp_moments(
+    the TA's `fast` elsewhere (`denoiser.py:278-286`): one `relax_clamp_moments` launch; with
+    `which` = ("diff", "spec") and the planes pairs, both signals in that one launch. Each
+    signal has its own clamp flag, acceleration and reset amount (`_clamp_consts`). Returns
+    dict(history_length, <which>_slow, <which>_resp) for each signal."""
+    both = not isinstance(which, str)
+    names = tuple(which) if both else (which,)
+    per = list(zip(*[_clamp_consts(dc, wh) for wh in names]))
+    if not both:
+        per = [v[0] for v in per]
+    outs = k_clamp_moments.relax_clamp_moments(
         view_z_in, fast, fixed, history_length, noisy, slow,
         view_z_scale=float(sc["view_z_scale"]), denoising_range=float(sc["denoising_range"]),
         history_fix_frame_num=float(dc["history_fix_frame_num"]),
-        color_box_sigma_scale=float(dc["color_box_sigma_scale"]),
-        clamp=bool(F32(dc[which + "_max_fast_accumulated_frame_num"])
-                   < F32(dc[which + "_max_accumulated_frame_num"])),
-        acceleration=float(accel_scale),
+        color_box_sigma_scale=float(dc["color_box_sigma_scale"]), clamp=per[0],
+        acceleration=per[1],
         reset_temporal_sigma_scale=float(dc["history_reset_temporal_sigma_scale"]),
         reset_spatial_sigma_scale=float(dc["history_reset_spatial_sigma_scale"]),
-        reset_amount=float(reset_amount))
-    return {"history_length": history_length, which + "_slow": out_slow,
-            which + "_resp": out_resp}
+        reset_amount=per[2])
+    out = {"history_length": history_length}
+    for k, wh in enumerate(names):
+        out[wh + "_slow"], out[wh + "_resp"] = outs[2 * k], outs[2 * k + 1]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -618,19 +676,22 @@ def anti_firefly(dc, normal_roughness, signals, which):
 
 
 # ---------------------------------------------------------------------------
-# A-trous (RELAX_AtrousSmem.hlsli + RELAX_Atrous.hlsli), diffuse
+# A-trous (RELAX_AtrousSmem.hlsli + RELAX_Atrous.hlsli)
 # ---------------------------------------------------------------------------
 
 
 def atrous(sc, dc, view_z_in, normal_roughness, history_length, signal, config, *,
-           step_size: int, is_first: bool, which: str = "diff", diff_confidence=None,
+           step_size: int, is_first: bool, which="diff", diff_confidence=None,
            spec_confidence=None, reprojection_confidence=None):
-    """One à-trous iteration of the diffuse or the specular signal (`kernels.py:1340-1606`):
-    one `relax_atrous` launch. IN_DIFF_CONFIDENCE / IN_SPEC_CONFIDENCE and the TA's specular
-    reprojection confidence relax the edge stopping per pixel (`:1368-1391`). Returns
-    (h, w, 4) = (rgb, variance)."""
+    """One à-trous iteration of the diffuse or the specular signal, or of both (`which` =
+    ("diff", "spec"), `signal` the pair) (`kernels.py:1340-1606`): one `relax_atrous` launch.
+    IN_DIFF_CONFIDENCE / IN_SPEC_CONFIDENCE and the TA's specular reprojection confidence
+    relax the edge stopping per pixel (`:1368-1391`). Returns (h, w, 4) = (rgb, variance), or
+    the pair."""
+    both = not isinstance(which, str)
+    names = tuple(which) if both else (which,)
     specular = None
-    if which == "spec":
+    if "spec" in names:
         specular = dict(
             roughness_fraction=float(dc["roughness_fraction"]),
             normal_edge_stopping_relaxation=float(dc["normal_edge_stopping_relaxation"]),
@@ -638,6 +699,10 @@ def atrous(sc, dc, view_z_in, normal_roughness, history_length, signal, config, 
             luminance_edge_stopping_relaxation=float(dc["luminance_edge_stopping_relaxation"]),
             roughness_edge_stopping_relaxation=float(dc["roughness_edge_stopping_relaxation"]),
             roughness_edge_stopping_enabled=float(dc["roughness_edge_stopping_enabled"]))
+
+    def per(key):
+        vals = tuple(float(dc[wh + key]) for wh in names)
+        return vals if both else vals[0]
     return k_atrous.relax_atrous(
         signal, view_z_in, normal_roughness, history_length, diff_confidence, spec_confidence,
         reprojection_confidence, step_size=step_size, is_first=is_first,
@@ -646,10 +711,9 @@ def atrous(sc, dc, view_z_in, normal_roughness, history_length, signal, config, 
         depth_threshold=float(dc["depth_threshold"]),
         lobe_fraction=k_atrous.lobe_fraction(dc["lobe_angle_fraction"], step_size, is_first),
         lobe_angle_fraction=float(dc["lobe_angle_fraction"]),
-        phi_luminance=float(dc[which + "_phi_luminance"]),
-        max_luminance_relative_difference=float(
-            dc[which + "_max_luminance_relative_difference"]),
-        min_material=float(dc[which + "_min_material"]),
+        phi_luminance=per("_phi_luminance"),
+        max_luminance_relative_difference=per("_max_luminance_relative_difference"),
+        min_material=per("_min_material"),
         history_threshold=float(dc["history_threshold"]),
         confidence_relaxation=(
             float(dc["confidence_driven_relaxation_multiplier"]),

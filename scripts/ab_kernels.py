@@ -21,12 +21,14 @@ launch, on a tree whose kernel leaves the clamp to the glue the clamp glue inclu
 blur and post_blur: SIGMA_SHADOW and SIGMA_SHADOW_TRANSLUCENCY, Blur and PostBlur); K14
 `sigma_ts` and its pass (`pass temporal_stabilization`: on a tree whose kernel takes the
 reprojected planes, the glue that makes them included) on SS and ST; K19 `relax_history_fix`, K16
-`relax_smb_resolve` and K15 `relax_prepass` by signal (RD, RS: RELAX_DIFFUSE, RELAX_SPECULAR;
-frame 4 runs K19's taps on every pixel); K17 `relax_vmb_resolve` (RS); K15 on RELAX_SPECULAR
-at the roughness encodings SQ_LINEAR and SQRT_LINEAR (`RS SQ_LINEAR`, `RS SQRT_LINEAR`:
-`chip_smoke.ENCODED`'s pools and settings); K20 `relax_clamp_moments` and its pass (`pass
-history_clamping`: on a tree whose kernel computes the moments only, the clamp glue included;
-the responsive history's select before it is not) on RD and RS; H4 `ts_prelude` by TS half
+`relax_smb_resolve`, K20 and K22 `relax_atrous` (by stride) by signal (RD, RS: RELAX_DIFFUSE,
+RELAX_SPECULAR; frame 4 runs K19's taps on every pixel) and, on a tree that runs it,
+RELAX_DIFFUSE_SPECULAR's two-signal modes of K16, K19, K20 and K22 (RDS); K17
+`relax_vmb_resolve` (RS); K15 on RELAX_SPECULAR at the roughness encodings SQ_LINEAR and
+SQRT_LINEAR (`RS SQ_LINEAR`, `RS SQRT_LINEAR`: `chip_smoke.ENCODED`'s pools and settings);
+K20 `relax_clamp_moments` and its pass (`pass history_clamping`: on a tree whose kernel
+computes the moments only, the clamp glue included; the responsive history's select before it
+is not) on RD and RS; H4 `ts_prelude` by TS half
 (`D ts_prelude diffuse`, `S ts_prelude specular`, `DS ts_prelude diffuse` / `specular`) and
 REBLUR's TS passes (`pass temporal_stabilization`, `pass temporal_stabilization_specular`: on
 a tree whose kernel is the prelude only, the glue around it included) on D, S and DS; H2 by
@@ -84,10 +86,10 @@ VARIANT_SOURCES = ("history_fix_fused.cu", "spatial_filter_fused.cu", "reblur_ba
                    "spatial_filter.cu", "history_fix.cu", "smb_resolve.cu", "sigma_blur.cu",
                    "sigma_ts.cu", "relax_history_fix.cu", "relax_smb_resolve.cu",
                    "relax_vmb_resolve.cu", "relax_prepass.cu", "relax_clamp_moments.cu",
-                   "ts_prelude.cu", "hitdist_recon.cu")
+                   "ts_prelude.cu", "hitdist_recon.cu", "relax_atrous.cu")
 SASS_KERNELS = re.compile(
     r"history_fix|spatial_filter|reblur_band|sigma_blur|sigma_ts|smb_resolve|relax_vmb_resolve|"
-    r"relax_prepass|relax_clamp_moments|ts_prelude|hitdist_recon")
+    r"relax_prepass|relax_clamp_moments|ts_prelude|hitdist_recon|relax_atrous")
 DS = "REBLUR_DIFFUSE_SPECULAR"
 BAND = DS + "+BAND"  # chip_smoke.PATHS: the pool and environment (the band's switch)
 # the pass functions whose calls are timed beside the kernels' (glue and launch), by the
@@ -135,10 +137,13 @@ RUNS = (
      ("sigma_blur", "sigma_ts", "pass temporal_stabilization")),
     ("RD", "RELAX_DIFFUSE", "RELAX_DIFFUSE", {},
      ("relax_history_fix", "relax_smb_resolve", "relax_prepass", "relax_clamp_moments",
-      "pass history_clamping")),
+      "relax_atrous", "pass history_clamping")),
     ("RS", "RELAX_SPECULAR", "RELAX_SPECULAR", {},
      ("relax_history_fix", "relax_smb_resolve", "relax_vmb_resolve", "relax_prepass",
-      "relax_clamp_moments", "pass history_clamping")),
+      "relax_clamp_moments", "relax_atrous", "pass history_clamping")),
+    # the two-signal modes: a tree without RELAX_DIFFUSE_SPECULAR records none of these
+    ("RDS", "RELAX_DIFFUSE_SPECULAR", "RELAX_DIFFUSE_SPECULAR", {},
+     ("relax_history_fix", "relax_smb_resolve", "relax_clamp_moments", "relax_atrous")),
 ) + tuple((f"RS {v['encoding']}", v["denoiser"], pool,
            dict(v["settings"], roughness_encoding=v["encoding"]),
            ("relax_prepass", "hitdist_recon", "pass hit_dist_reconstruction"))
@@ -199,6 +204,14 @@ class Side:
 
     def pool(self, pool):
         return {getattr(self.S.ResourceType, k.name): v for k, v in pool.items()}
+
+    def ported(self, denoiser):
+        """Whether this side's Engine runs the denoiser (an older tree may not)."""
+        try:
+            self.Engine({0: self.S.Denoiser[denoiser]}, resource_size=(16, 16), device="cpu")
+        except NotImplementedError:
+            return False
+        return True
 
 
 def build_variant(flags, out_dir):
@@ -274,6 +287,8 @@ def labelled(prefix, calls):
             out[f"{prefix} {name} {next(stages[name])}"] = call
         elif name == "sigma_blur":
             out[f"{prefix} {name} {'blur' if k['first_pass'] else 'post_blur'}"] = call
+        elif name == "relax_atrous":  # the ladder's calls by stride
+            out[f"{prefix} {name} step {k['step_size']}"] = call
         elif name == "ts_prelude":  # the prelude-only wrapper took the vmb uv by keyword
             spec = len(a) > 5 or k.get("vmb_uv") is not None
             out[f"{prefix} {name} {'specular' if spec else 'diffuse'}"] = call
@@ -459,6 +474,8 @@ def main():
     for s in sides[:2]:
         calls[s.name] = {}
         for prefix, denoiser, pool, settings, names in RUNS:
+            if not s.ported(denoiser):
+                continue
             calls[s.name].update(labelled(prefix, record(s, denoiser, pool, settings, names,
                                                          frames, w, h)))
 

@@ -5,12 +5,14 @@ REBLUR_DIFFUSE, REBLUR_SPECULAR and REBLUR_DIFFUSE_SPECULAR, each with and witho
 anti-firefly ring and with AREA_3X3 and AREA_5X5 hit-distance reconstruction on inputs with
 hit-distance holes; REBLUR_DIFFUSE and REBLUR_SPECULAR in performance mode and with both min
 materials 0, REBLUR_SPECULAR with usePrepassOnlyForSpecularMotionEstimation; REBLUR_DIFFUSE_SPECULAR under NRDTPU_REBLUR_BAND=1, by default, with the anti-firefly ring
-and in performance mode; SIGMA_SHADOW and SIGMA_SHADOW_TRANSLUCENCY; RELAX_DIFFUSE and
-RELAX_SPECULAR, each also with the anti-firefly pass and with AREA_3X3: their kernels, the
-à-trous at iteration 0 and at the jittered strides; the halo launcher's `box` body on 1 and 4
-channels at two blocks) and is held against its plain PyTorch version on the same card; the
-Engine on the card is held against the Engine on the CPU, for every path and output. Run on a
-machine with an H100:
+and in performance mode; SIGMA_SHADOW and SIGMA_SHADOW_TRANSLUCENCY; RELAX_DIFFUSE,
+RELAX_SPECULAR and RELAX_DIFFUSE_SPECULAR (the two-signal modes of K16, K19, K20 and K22), each
+also with the anti-firefly pass and with AREA_3X3: their kernels, the à-trous at iteration 0
+and at the jittered strides; the halo launcher's `box` body on 1 and 4 channels at two blocks)
+and is held against its plain PyTorch version on the same card; the Engine on the card is held
+against the Engine on the CPU, for every path and output, and RELAX_DIFFUSE_SPECULAR's outputs
+on the card against RELAX_DIFFUSE's and RELAX_SPECULAR's on the card. Run on a machine with an
+H100:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 
@@ -48,7 +50,7 @@ def cuda():
 
 VARIANTS = (Denoiser.REBLUR_DIFFUSE, Denoiser.REBLUR_SPECULAR, Denoiser.REBLUR_DIFFUSE_SPECULAR)
 SIGMA = (Denoiser.SIGMA_SHADOW, Denoiser.SIGMA_SHADOW_TRANSLUCENCY)
-RELAX = (Denoiser.RELAX_DIFFUSE, Denoiser.RELAX_SPECULAR)
+RELAX = (Denoiser.RELAX_DIFFUSE, Denoiser.RELAX_SPECULAR, Denoiser.RELAX_DIFFUSE_SPECULAR)
 AREA_3X3 = dict(hitDistanceReconstructionMode=HitDistanceReconstructionMode.AREA_3X3)
 AREA_5X5 = dict(hitDistanceReconstructionMode=HitDistanceReconstructionMode.AREA_5X5)
 # H2's other modes on the one-signal REBLUR paths: performance mode's 6 taps, both min
@@ -239,3 +241,21 @@ def test_engine_card_matches_cpu_new_paths(cuda, denoiser, settings, holes):
             mse = float(((a - b) ** 2).mean())
             peak = float(b.abs().max())
             assert mse == 0.0 or 10.0 * np.log10(peak * peak / mse) >= 50.0, rt
+
+
+def test_relax_pair_matches_one_signal_variants(cuda):
+    """RELAX_DIFFUSE_SPECULAR's outputs on the card against RELAX_DIFFUSE's and RELAX_SPECULAR's
+    on the card, frame by frame (the JAX package gives them bit for bit): the two-signal
+    kernel modes compute each signal as the one-signal modes do."""
+    pair = _engine(Denoiser.RELAX_DIFFUSE_SPECULAR, cuda)
+    singles = {rt: _engine(d, cuda) for rt, d in (
+        (RT.OUT_DIFF_RADIANCE_HITDIST, Denoiser.RELAX_DIFFUSE),
+        (RT.OUT_SPEC_RADIANCE_HITDIST, Denoiser.RELAX_SPECULAR))}
+    for cs, pool in _pools(Denoiser.RELAX_DIFFUSE_SPECULAR, 4):
+        pair.set_common_settings(cs)
+        outs = pair.denoise([0], pool)
+        for rt, eng in singles.items():
+            eng.set_common_settings(cs)
+            w = eng.denoise([0], pool)[rt].float()
+            over = ((outs[rt].float() - w).abs() > ATOL + RTOL * w.abs()).float().mean().item()
+            assert over <= FLIP_FRACTION, f"{rt.name}: {over:.3g} of values out of tolerance"

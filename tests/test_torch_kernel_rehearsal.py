@@ -34,7 +34,10 @@ with the taps on H3's geometry plane; performance mode,
 usePrepassOnlyForSpecularMotionEstimation and both min materials 0 on striped materials),
 and H3's kernel chained into H2's Blur; K12 on REBLUR_DIFFUSE, REBLUR_SPECULAR and
 REBLUR_DIFFUSE_SPECULAR at radius 1 and 2 (`HD_CASES`) on frames with hit-distance holes,
-the image border's included.
+the image border's included; and the two-signal modes on RELAX_DIFFUSE_SPECULAR's calls: K16
+`<true, 4>`, K22 at every stride with both confidences (`RDS_ATROUS_CASES`), K19
+(`RDS_FIX_CASES`) and K20 (`RDS_CLAMP_CASES`), each also on inputs where the two signals'
+constants differ, so that a kernel that swapped them fails.
 
 Run alone: python -m pytest tests/test_torch_kernel_rehearsal.py -q
 
@@ -154,6 +157,24 @@ CLAMP_CASES = {f"{sig}{suffix}": (d, settings)
                    ("_no_clamp", dict(historyFixFrameNum=1, historyClampingColorBoxSigmaScale=0.25,
                                       diffuseMaxFastAccumulatedFrameNum=30,
                                       specularMaxFastAccumulatedFrameNum=30)))}
+# The two-signal modes of K19, K20 and K22 on RELAX_DIFFUSE_SPECULAR's calls: (settings, striped
+# materials) of each case. The signals' phi (2 and 1 by default), acceleration and reset
+# amount (the specular ones scaled by 0.33 and 0.5) differ in every case; "min_material_split"
+# gives them different min materials on striped materials and "clamp_split" different clamp
+# flags, so that a kernel that swapped a constant of the two signals fails; "min_material_0"
+# lets the material test bite for both.
+RDS = Denoiser.RELAX_DIFFUSE_SPECULAR
+SPLIT_MIN_MATERIAL = dict(minMaterialForDiffuse=0.0, minMaterialForSpecular=2.0)
+RDS_FIX_CASES = {"default": ({}, False), "min_material_0": (NO_MIN_MATERIAL, True),
+                 "min_material_split": (SPLIT_MIN_MATERIAL, True),
+                 "taps_off": (dict(historyFixFrameNum=0), False)}
+RDS_CLAMP_CASES = {"default": {}, "fix_mix": CLAMP_CASES["diffuse_fix_mix"][1],
+                   "no_clamp": CLAMP_CASES["diffuse_no_clamp"][1],
+                   "clamp_split": dict(historyFixFrameNum=1, historyClampingColorBoxSigmaScale=0.25,
+                                       diffuseMaxFastAccumulatedFrameNum=30)}
+RDS_ATROUS_CASES = {"confidence": (CONFIDENCE_DRIVEN, False),
+                    "min_material_split": ({**CONFIDENCE_DRIVEN, **SPLIT_MIN_MATERIAL}, True)}
+
 # H4's calls: (denoiser, the call's index in a frame, calls a frame) of each TS half
 TS_HALVES = {"diffuse": (Denoiser.REBLUR_DIFFUSE, 0, 1),
              "specular": (Denoiser.REBLUR_SPECULAR, 0, 1),
@@ -511,14 +532,17 @@ def test_relax_history_fix_rehearsal(library, case):
         assert worst == 0.0
 
 
-@pytest.mark.parametrize("denoiser", ["RELAX_DIFFUSE", "RELAX_SPECULAR"])
+@pytest.mark.parametrize("denoiser", ["RELAX_DIFFUSE", "RELAX_SPECULAR",
+                                      "RELAX_DIFFUSE_SPECULAR"])
 def test_relax_smb_resolve_rehearsal(library, denoiser):
     """K16 (the staged 3x3 window, the 12 occlusion taps, the histories through one CatRom-12
     footprint) against the plain version, smb_found equal; the frames give both bicubic
-    (smb_found 2) and bilinear-fallback (1) footprints."""
+    (smb_found 2) and bilinear-fallback (1) footprints. RELAX_DIFFUSE_SPECULAR runs its
+    `<true, 4>` instance: the specular planes and four histories."""
     calls = _record(Denoiser[denoiser], "relax_smb_resolve")
     assert len(calls) == FRAMES
-    assert all((a[9] is not None) == (denoiser == "RELAX_SPECULAR") for a, _ in calls)
+    assert all((a[9] is not None) == (denoiser != "RELAX_DIFFUSE") for a, _ in calls)
+    assert all(len(a[8]) == (4 if denoiser == "RELAX_DIFFUSE_SPECULAR" else 2) for a, _ in calls)
     found = torch.cat([KM.relax_smb_resolve.relax_smb_resolve_ref(*a, **k)["smb_found"]
                        .flatten() for a, k in calls])
     assert bool((found == 2.0).any()) and bool((found == 1.0).any())
@@ -861,5 +885,80 @@ def test_hitdist_recon_rehearsal(library, case):
         nr[..., 2] = torch.from_numpy(rng.random(tuple(nr.shape[:2]), dtype=np.float32))
         textured.append(((a[0], nr, *a[2:]), k))
     over, count, worst = _hold(library, "hitdist_recon", calls + textured)
+    assert over <= FLIP_FRACTION * count, (f"{case}: {over} of {count} values out of "
+                                           f"tolerance, max |d| {worst:.3g}")
+
+
+@pytest.fixture(scope="module")
+def rds_atrous_calls():
+    return {case: _record(RDS, "relax_atrous", materials=striped, **settings)
+            for case, (settings, striped) in RDS_ATROUS_CASES.items()}
+
+
+@pytest.mark.parametrize("step", STEPS)
+@pytest.mark.parametrize("case", list(RDS_ATROUS_CASES))
+def test_relax_atrous_pair_rehearsal(library, rds_atrous_calls, case, step):
+    """K22's two-signal instance (one launch for the diffuse and the specular signal, the tap
+    geometry shared, each signal's own weights and constants) against the plain version, at
+    every stride of RELAX_DIFFUSE_SPECULAR's ladder with both confidences, and with the
+    signals' min materials apart on striped materials."""
+    calls = [(a, k) for a, k in rds_atrous_calls[case] if k["step_size"] == step]
+    assert len(calls) == FRAMES
+    assert all(isinstance(a[0], tuple) and a[4] is not None and a[5] is not None
+               for a, _ in calls)
+    assert all(k["phi_luminance"][0] != k["phi_luminance"][1] for _, k in calls)
+    if case == "min_material_split":
+        assert all(k["min_material"] == (0.0, 2.0) for _, k in calls)
+        assert len(_materials(calls, 2)) == 4
+    over, count, worst = _hold(library, "relax_atrous", calls)
+    assert over <= FLIP_FRACTION * count, (f"{case} step {step}: {over} of {count} values out "
+                                           f"of tolerance, max |d| {worst:.3g}")
+
+
+@pytest.mark.parametrize("case", list(RDS_FIX_CASES))
+def test_relax_history_fix_pair_rehearsal(library, case):
+    """K19's phase for both signals (one record prologue, each tap's records read once, a
+    weight, min material and accumulator a signal) against the plain version on
+    RELAX_DIFFUSE_SPECULAR: by default, with both min materials 0 and with them apart on
+    striped materials, and with historyFixFrameNum = 0 (no taps, no prologue)."""
+    settings, striped = RDS_FIX_CASES[case]
+    calls = _record(RDS, "relax_history_fix", materials=striped, **settings)
+    assert len(calls) == FRAMES
+    assert all(isinstance(a[0], tuple) and k["specular"] is not None for a, k in calls)
+    assert all((k["frame_num"] == 1.0) == (case == "taps_off") for _, k in calls)
+    if striped:
+        assert len(_materials(calls, 2)) == 4
+        assert all(k["min_material"] == (0.0, 2.0 if case == "min_material_split" else 0.0)
+                   for _, k in calls)
+    if case != "taps_off":
+        assert all(bool((a[3] <= k["frame_num"]).any()) for a, k in calls)
+    over, count, worst = _hold(library, "relax_history_fix", calls)
+    assert over <= FLIP_FRACTION * count, (f"{case}: {over} of {count} values out of "
+                                           f"tolerance, max |d| {worst:.3g}")
+    if case == "taps_off":
+        assert worst == 0.0
+
+
+@pytest.mark.parametrize("case", list(RDS_CLAMP_CASES))
+def test_relax_clamp_moments_pair_rehearsal(library, case):
+    """K20 with both signals in one launch (each signal's window, constants and outputs)
+    against the plain version on RELAX_DIFFUSE_SPECULAR: by default, with the strong antilag
+    and the histories on both sides of the fix, with the colour box off for both signals
+    (NO_FAST_CLAMP's frame nums) and off for the diffuse one only."""
+    settings = RDS_CLAMP_CASES[case]
+    calls = _record(RDS, "relax_clamp_moments", **settings)
+    assert len(calls) == FRAMES
+    clamp = {"default": (True, True), "fix_mix": (True, True), "no_clamp": (False, False),
+             "clamp_split": (False, True)}[case]
+    # the first frame resets the history: its max frame nums are 0, the clamp off
+    assert all(k["clamp"] == (clamp if i > 0 else (False, False))
+               for i, (_, k) in enumerate(calls))
+    # each signal's acceleration and reset amount: the specular ones scaled by 0.33 and 0.5
+    assert all(k["acceleration"][0] != k["acceleration"][1]
+               and k["reset_amount"][0] != k["reset_amount"][1] for _, k in calls)
+    if case != "default":
+        in_fix = torch.cat([(a[3] <= k["history_fix_frame_num"]).flatten() for a, k in calls])
+        assert bool(in_fix.any()) and not bool(in_fix.all())
+    over, count, worst = _hold(library, "relax_clamp_moments", calls)
     assert over <= FLIP_FRACTION * count, (f"{case}: {over} of {count} values out of "
                                            f"tolerance, max |d| {worst:.3g}")

@@ -136,8 +136,8 @@ def test_atrous_iterations(iterations, calls):
     assert c.counts["relax_atrous"] == calls and bool(out.isfinite().all())
 
 
-@pytest.mark.parametrize("denoiser", ["RELAX_DIFFUSE_SPECULAR", "RELAX_DIFFUSE_SH",
-                                      "RELAX_SPECULAR_SH", "RELAX_DIFFUSE_SPECULAR_SH"])
+@pytest.mark.parametrize("denoiser", ["RELAX_DIFFUSE_SH", "RELAX_SPECULAR_SH",
+                                      "RELAX_DIFFUSE_SPECULAR_SH"])
 def test_unported_variants_raise(denoiser):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TEngine({0: Denoiser[denoiser]}, resource_size=(48, 32), device="cpu")

@@ -113,7 +113,7 @@ def test_kernel_calls_a_frame(runs):
         assert r["calls"] == {n: launches.get(n, 0) for n in r["calls"]}
 
 
-@pytest.mark.parametrize("denoiser", ["RELAX_DIFFUSE_SPECULAR", "RELAX_SPECULAR_SH"])
+@pytest.mark.parametrize("denoiser", ["RELAX_DIFFUSE_SPECULAR_SH", "RELAX_SPECULAR_SH"])
 def test_unported_variants_raise(denoiser):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TEngine({0: Denoiser[denoiser]}, resource_size=(48, 32), device="cpu")
