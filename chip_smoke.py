@@ -13,7 +13,9 @@ SIGMA_SHADOW_TRANSLUCENCY with the penumbra packed from the scene's distance to 
 RELAX_DIFFUSE, RELAX_SPECULAR and RELAX_DIFFUSE_SPECULAR with the radiance and the raw hit
 distance packed by `relax_pack_radiance_hitdist`, and RELAX_SPECULAR with
 `enableAntiFirefly=True` on the same frames (the anti-firefly pass, off by default, on a main
-path of its own).
+path of its own); RELAX_DIFFUSE_SH, RELAX_SPECULAR_SH and RELAX_DIFFUSE_SPECULAR_SH with each
+signal's SH0 / SH1 packed by `relax_pack_sh` from the same radiance and raw hit distance along
+the scene's normal (the SH planes ride the non-SH variant's launches).
 
 Phases, each of which raises on failure (exit code != 0):
   1. build the hand-written kernels from `nrdtpu_torch/kernels/csrc/` with nvcc, one process
@@ -40,6 +42,8 @@ Phases, each of which raises on failure (exit code != 0):
      `enableAntiFirefly=True` (relax_antifirefly timed, the rest held only), each with
      AREA_3X3 on RELAX-packed punched frames (hitdist_recon on RELAX's constants, not
      timed) and each with the history clamp's colour box off (relax_clamp_moments, held);
+     then the three SH variants (every kernel of each in its SH mode, timed by path beside
+     the non-SH variant's);
      REBLUR_DIFFUSE and REBLUR_DIFFUSE_SPECULAR with maxBlurRadius 0 (ts_prelude in each TS
      half without the RCRS clamp, held); then RELAX_SPECULAR with IN_NORMAL_ROUGHNESS packed
      as SQ_LINEAR and as
@@ -54,15 +58,17 @@ Phases, each of which raises on failure (exit code != 0):
   3. slices: for each path a fresh `Engine(device="cuda")` runs 3 warm-up + 24 frames with
      the launch counts set to 0 just before and read just after; every output must be
      finite and every kernel of the path launched exactly its count a frame; each REBLUR
-     and RELAX output must beat its noisy input by >= 3 dB against the scene's clean image,
-     each SIGMA
+     and RELAX output (SH0 taken from YCoCg to linear) must beat its noisy input by >= 3 dB
+     against the scene's clean image, each SIGMA
      output must lie in [0, 1], be lit on average (> 0.99) where the 9x9 neighbourhood is lit
      and dark (< 0.15) in the umbra core; prints the median ms/frame (CUDA events), the host
      ms/frame and the peak allocator bytes;
   4. lit scene: both SIGMA variants on a scene without occluders at 256x160 keep every lit
      pixel above 0.99; RELAX pair: RELAX_DIFFUSE_SPECULAR's two outputs on the card hold to
      RELAX_DIFFUSE's and RELAX_SPECULAR's on the card on every frame of the slices (the JAX
-     package gives them bit for bit), within the kernels' tolerance;
+     package gives them bit for bit), within the kernels' tolerance, and
+     RELAX_DIFFUSE_SPECULAR_SH's four outputs to RELAX_DIFFUSE_SH's and RELAX_SPECULAR_SH's
+     exactly (max abs 0);
   5. card vs CPU: the same 4 frames at 256x160 on the card and on the CPU plain path must
      agree to >= 50 dB PSNR, for every output of every path, of RELAX_SPECULAR at SQ_LINEAR
      (AREA_3X3 on the punched frames), and of REFERENCE on a static camera (plain torch ops on
@@ -154,6 +160,8 @@ RS_LAUNCHES = {"relax_prepass": 1, "relax_smb_resolve": 1, "relax_vmb_resolve": 
                "relax_clamp_moments": 1, "relax_atrous": 5}
 # RELAX_DIFFUSE_SPECULAR: K15 once a signal, every other kernel once for both signals
 RDS_LAUNCHES = {**RS_LAUNCHES, "relax_prepass": 2}
+RD_LAUNCHES = {"relax_prepass": 1, "relax_smb_resolve": 1, "relax_history_fix": 1,
+               "relax_clamp_moments": 1, "relax_atrous": 5}
 # per path: its denoiser, its signals (outputs), settings changed from the defaults, whether
 # its frames have hit-distance holes, the environment its engines run in, and its launches
 # per frame
@@ -173,16 +181,20 @@ PATHS = {
         launches={**DS_LAUNCHES, "hitdist_recon": 1}),
     "SIGMA_SHADOW": dict(signals=("shadow",), launches=SIGMA_LAUNCHES),
     "SIGMA_SHADOW_TRANSLUCENCY": dict(signals=("shadow",), launches=SIGMA_LAUNCHES),
-    "RELAX_DIFFUSE": dict(signals=("diff",), relax=True, launches={
-        "relax_prepass": 1, "relax_smb_resolve": 1, "relax_history_fix": 1,
-        "relax_clamp_moments": 1, "relax_atrous": 5}),
+    "RELAX_DIFFUSE": dict(signals=("diff",), relax=True, launches=RD_LAUNCHES),
     "RELAX_SPECULAR": dict(signals=("spec",), relax=True, launches=RS_LAUNCHES),
     "RELAX_DIFFUSE_SPECULAR": dict(signals=("diff", "spec"), relax=True, launches=RDS_LAUNCHES),
     "RELAX_SPECULAR+ANTI_FIREFLY": dict(
         denoiser="RELAX_SPECULAR", signals=("spec",), relax=True,
         settings=dict(enableAntiFirefly=True), launches={**RS_LAUNCHES, "relax_antifirefly": 1}),
+    # the SH variants: SH0 / SH1 a signal, the non-SH variant's launches
+    "RELAX_DIFFUSE_SH": dict(signals=("diff",), relax=True, sh=True, launches=RD_LAUNCHES),
+    "RELAX_SPECULAR_SH": dict(signals=("spec",), relax=True, sh=True, launches=RS_LAUNCHES),
+    "RELAX_DIFFUSE_SPECULAR_SH": dict(signals=("diff", "spec"), relax=True, sh=True,
+                                      launches=RDS_LAUNCHES),
 }
 RELAX_VARIANTS = ("RELAX_DIFFUSE", "RELAX_SPECULAR", "RELAX_DIFFUSE_SPECULAR")
+RELAX_SH_VARIANTS = ("RELAX_DIFFUSE_SH", "RELAX_SPECULAR_SH", "RELAX_DIFFUSE_SPECULAR_SH")
 # RELAX_SPECULAR with IN_NORMAL_ROUGHNESS packed at the roughness encodings other than LINEAR,
 # with AREA_3X3 on the frames with hit-distance holes, so that every kernel that unpacks the
 # roughness (ENCODED_KERNELS) runs in the encoding's mode: held and timed in the kernel phase,
@@ -232,6 +244,11 @@ ST_TAP_OPS, ST_CHANNEL_OPS = 5, 80          # sigma_ts.cu: a moment tap (+ 4 a c
                                             # and the CatRom sample + clamp of a channel
 ST_REPROJECT_OPS = 76                       # common.cuh:surface_motion, screen-space branch
 RP_TAP_OPS = 100                            # relax_prepass.cu: one Poisson tap
+# the SH modes' extra operations: a tap's SH select and its 4 multiply-adds (K15, K19, K22 and
+# K22's 5x5 estimation), an SH history's custom-weight bilinear (K16, K17: 4 texels x 4
+# channels, the weight sum and 4 divisions), the SH lerp of K20 (3 a channel) and each
+# SH output's 4 divisions (K15, K19, K22)
+SH_TAP_OPS, SH_HISTORY_OPS, SH_LERP_OPS, SH_OUT_OPS = 9, 39, 12, 4
 RS_HISTORY_OPS = 100                        # relax_smb_resolve.cu: one history through the
                                             # CatRom footprint (12 texels x 4 channels)
 RH_TAP_OPS, RH_RECORD_OPS = 40, 43          # relax_history_fix.cu: one stride tap, and
@@ -286,6 +303,23 @@ def out_rt(sig):
             "shadow": RT.OUT_SHADOW_TRANSLUCENCY}[sig]
 
 
+def sh_rts(sig):
+    """The SH variants' (SH0 in, SH0 out, SH1 in, SH1 out) of a signal."""
+    from nrdtpu_torch.passes.relax.denoiser import SH_RESOURCES
+
+    return SH_RESOURCES[sig]
+
+
+def outputs_of(path):
+    """(label, signal, resource) of every output of a path: a signal's output, or with SH its
+    SH0 and SH1."""
+    v = PATHS[path] if path in PATHS else ENCODED[path]
+    if not v.get("sh"):
+        return [(sig, sig, out_rt(sig)) for sig in v["signals"]]
+    return [(f"{sig} {n}", sig, sh_rts(sig)[k]) for sig in v["signals"]
+            for n, k in (("SH0", 1), ("SH1", 3))]
+
+
 class Scene:
     """Frames of the port's orbit scene as input pools (numpy) for every path."""
 
@@ -318,14 +352,18 @@ class Scene:
             packed[sig] = fe.reblur_pack_radiance_hitdist(torch.from_numpy(noisy), nhd).numpy()
             punched[sig] = packed[sig].copy()
             punched[sig][..., 3][holes] = 0.0
-        # RELAX takes the radiance and the raw hit distance
-        relax, relax_punched = {}, {}
+        # RELAX takes the radiance and the raw hit distance; its SH variants SH0 and SH1 (along
+        # the normal)
+        relax, relax_punched, relax_sh = {}, {}, {}
+        normal = torch.from_numpy(fd.normal.astype(np.float32))
         for sig, noisy, hit in (("diff", fd.diff_noisy, fd.diff_hit_dist),
                                 ("spec", fd.spec_noisy, fd.spec_hit_dist)):
             relax[sig] = fe.relax_pack_radiance_hitdist(torch.from_numpy(noisy),
                                                         torch.from_numpy(hit)).numpy()
             relax_punched[sig] = relax[sig].copy()
             relax_punched[sig][..., 3][holes] = 0.0
+            sh0, sh1 = fe.relax_pack_sh(torch.from_numpy(noisy), torch.from_numpy(hit), normal)
+            relax_sh[sh_rts(sig)[0]], relax_sh[sh_rts(sig)[2]] = sh0.numpy(), sh1.numpy()
         dist = torch.from_numpy(fd.dist_to_occluder)
         penumbra = fe.sigma_pack_penumbra_directional(
             dist, self.gen.spec.light_tan_angular_radius).numpy()
@@ -338,6 +376,9 @@ class Scene:
                 pools[name] = dict(sigma)
                 if name == "SIGMA_SHADOW_TRANSLUCENCY":
                     pools[name][RT.IN_TRANSLUCENCY] = fe.sigma_pack_translucency(dist, rgb).numpy()
+            elif v.get("sh"):
+                pools[name] = {**base, **{rt: relax_sh[rt] for sig in v["signals"]
+                                          for rt in sh_rts(sig)[::2]}}
             elif v.get("relax"):
                 pools[name] = {**base, **{in_rt(sig): relax[sig] for sig in v["signals"]}}
             else:
@@ -506,27 +547,36 @@ def _ops(name, a, k):
             sigma_ts_live(a, k)
     elif name == "relax_prepass":
         spec = k.get("specular") is not None
+        nsh = 1 if k.get("sh") is not None else 0
         if k["blur_radius"] > 0.0:
-            ops += (RP_TAP_OPS + (RP_SPEC_TAP_OPS if spec else 0)) * 8 * px
-            ops += RP_SPEC_OPS * px if spec else 0
+            ops += (RP_TAP_OPS + (RP_SPEC_TAP_OPS if spec else 0) + SH_TAP_OPS * nsh) * 8 * px
+            ops += (RP_SPEC_OPS if spec else 0) * px + SH_OUT_OPS * nsh * px
     elif name == "relax_smb_resolve":
         ops += RS_HISTORY_OPS * len(a[8]) * px
         ops += RS_SPEC_OPS * px if len(a) > 9 and a[9] is not None else 0
+        ops += SH_HISTORY_OPS * len(a[11]) * px if len(a) > 11 else 0
     elif name == "relax_history_fix":  # the taps run only where the fix applies
         live = history_fix_live(a, k)
         spec = k.get("specular") is not None
+        nsh = 0 if k.get("sh") is None else 2 if pair else 1
         tap = RH_TAP_OPS + (RH_SPEC_TAP_OPS if spec else 0) + (RH_PAIR_TAP_OPS if pair else 0)
-        ops += tap * 24 * live
+        ops += (tap + SH_TAP_OPS * nsh) * 24 * live + SH_OUT_OPS * nsh * live
         ops += RH_RECORD_OPS * px if k["frame_num"] != 1.0 else 0
+    elif name == "relax_clamp_moments":
+        ops += SH_LERP_OPS * px * (0 if k.get("sh") is None else len(a[1]) if pair else 1)
     elif name == "relax_atrous":  # iteration 0: the 5x5 estimation in place of short histories
         short = int((a[3] < k["history_threshold"]).sum()) if k["is_first"] else 0
         spec = k.get("specular") is not None and not k["is_first"]
+        nsh = 0 if k.get("sh") is None else 2 if pair else 1
         tap = RA_TAP_OPS + (RA_SPEC_TAP_OPS if spec else 0) + (RA_PAIR_TAP_OPS if pair else 0)
-        ops += tap * 8 * (px - short)
-        ops += (RA_SVE_TAP_OPS + (RA_PAIR_SVE_TAP_OPS if pair else 0)) * 25 * short
+        ops += (tap + SH_TAP_OPS * nsh) * 8 * (px - short)
+        ops += (RA_SVE_TAP_OPS + (RA_PAIR_SVE_TAP_OPS if pair else 0)
+                + SH_TAP_OPS * nsh) * 25 * short
         ops += (RA_SPEC_OPS if spec else 0) * px + (RA_PAIR_OPS if pair else 0) * px
+        ops += SH_OUT_OPS * nsh * px
     elif name == "relax_vmb_resolve":
         ops += RV_HISTORY_OPS * 2 * px
+        ops += SH_HISTORY_OPS * 2 * px if len(a) > 12 and a[12] is not None else 0
     elif name == "relax_antifirefly":
         ops += AF_SIGNAL_OPS * len(a[1]) * px
     elif name == "bilinear_resolve":
@@ -702,7 +752,7 @@ def ctas_per_sm(registers, shared_bytes, threads=CTA_THREADS):
 def _dynamic_smem(name, a, k):
     """{device kernel: dynamic shared memory} of one launch, as the entry sizes it: K22 stages
     the tile's window (three float4 a texel, four with both signals) at iteration 0; K24 the
-    windows of one strip of output rows."""
+    windows of one strip of output rows. With SH K22's texel holds each signal's SH too."""
     from nrdtpu_torch.kernels import build
     from nrdtpu_torch.settings import RoughnessEncoding
 
@@ -714,8 +764,10 @@ def _dynamic_smem(name, a, k):
         halo = max(k["step_size"], 2)
         mode = build.ROUGHNESS_MODE[k.get("roughness_encoding", RoughnessEncoding.LINEAR)]
         both = isinstance(a[0], tuple)
-        return {f"relax_atrous_kernel<true, {mode}, {str(both).lower()}>":
-                (tx + 2 * halo) * (ty + 2 * halo) * (64 if both else 48)}
+        sh = k.get("sh") is not None
+        planes = 2 + (2 if both else 1) * (2 if sh else 1)
+        return {f"relax_atrous_kernel<true, {mode}, {str(both).lower()}, {str(sh).lower()}>":
+                (tx + 2 * halo) * (ty + 2 * halo) * 16 * planes}
     if name == "halo_call":
         _, images, _, halo, (bh, bw) = a[:5]
         channels = sum(1 if t.dim() == 2 else t.shape[-1] for t in images)
@@ -810,7 +862,8 @@ def kernel_runs():
     history clamp's colour box off (relax_clamp_moments only); REBLUR_DIFFUSE and
     REBLUR_DIFFUSE_SPECULAR with maxBlurRadius 0 (ts_prelude without the RCRS clamp, each half,
     held only); then the kernels that unpack the roughness on RELAX_SPECULAR at each encoding of
-    ENCODED, timed."""
+    ENCODED, timed; then the three RELAX SH variants (every call of their kernels in the SH
+    modes, timed)."""
     runs = []
     for v in REBLUR_VARIANTS:
         runs.append((v, v, v, {}, None, True))
@@ -839,6 +892,8 @@ def kernel_runs():
         runs.append((f"{v} AREA_3X3", v, RELAX_HOLES[v],
                      dict(hitDistanceReconstructionMode="AREA_3X3"), {"hitdist_recon"}, False))
         runs.append((f"{v} no clamp", v, v, NO_FAST_CLAMP, {"relax_clamp_moments"}, False))
+    for v in RELAX_SH_VARIANTS:
+        runs.append((v, v, v, {}, None, True))
     for v in ("REBLUR_DIFFUSE", "REBLUR_DIFFUSE_SPECULAR"):
         runs.append((f"{v} maxBlurRadius 0", v, v, dict(maxBlurRadius=0.0, minBlurRadius=0.0),
                      {"ts_prelude"}, False))
@@ -1090,9 +1145,10 @@ def slice_phase(path, w, h, frames, warmup):
     """One main path through the Engine, with its own launch counts."""
     from nrdtpu_torch import frontend as fe
     from nrdtpu_torch import kernels as KM
+    from nrdtpu_torch import math as nm
 
     n = len(frames)
-    signals = PATHS[path]["signals"]
+    sh = PATHS[path].get("sh", False)
     eng = path_engine(path, w, h, "cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1111,21 +1167,26 @@ def slice_phase(path, w, h, frames, warmup):
         e1.record()
         torch.cuda.synchronize()
         host = (time.perf_counter() - t0) * 1e3
-        for sig in signals:
-            out = outs[out_rt(sig)]
+        for label, sig, rt in outputs_of(path):
+            out = outs[rt]
             c = 1 if path == "SIGMA_SHADOW" else 4
             if tuple(out.shape) != (h, w, c) or not bool(torch.isfinite(out).all()):
-                raise AssertionError(f"{path} frame {i} {sig}: output not finite or of "
+                raise AssertionError(f"{path} frame {i} {label}: output not finite or of "
                                      f"shape {tuple(out.shape)}")
-            if truth is not None and sig == "shadow":
+            if truth is None or label.endswith("SH1"):  # SH1: finite and of its shape
+                continue
+            if sig == "shadow":
                 check_shadow(path, out, truth)
-            elif truth is not None:
+                continue
+            if sh:  # SH0 leaves the last à-trous iteration in YCoCg
+                rgb = nm.ycocg_to_linear(out[..., :3]).cpu().numpy()
+            else:
                 unpack = (fe.relax_unpack_radiance if PATHS[path].get("relax")
                           else fe.reblur_unpack_radiance_hitdist)
                 rgb = unpack(out)[..., :3].cpu().numpy()
-                clean, noisy = truth[sig]
-                m = truth["mask"]
-                gains[sig] = (psnr(noisy[m], clean[m]), psnr(rgb[m], clean[m]))
+            clean, noisy = truth[sig]
+            m = truth["mask"]
+            gains[label] = (psnr(noisy[m], clean[m]), psnr(rgb[m], clean[m]))
         if i >= warmup:
             ms.append(e0.elapsed_time(e1))
             host_ms.append(host)
@@ -1149,38 +1210,40 @@ def slice_phase(path, w, h, frames, warmup):
     return counts, float(np.median(ms))
 
 
-def relax_pair_check(w, h, frames):
+def relax_pair_check(w, h, frames, sh=False):
     """RELAX_DIFFUSE_SPECULAR shares only the TA's head between its signals, and its history
     length is RELAX_DIFFUSE's and RELAX_SPECULAR's (the larger max frame num, the smaller min
     material, the same defaults for both): the JAX package gives its two outputs bit for bit as
     the one-signal variants' on every frame. On the card the two-signal kernel modes must give
-    them within the kernels' tolerance, on every frame."""
-    from nrdtpu_torch.settings import ResourceType as RT
-
-    pair = "RELAX_DIFFUSE_SPECULAR"
-    engs = {p: path_engine(p, w, h, "cuda") for p in (pair, "RELAX_DIFFUSE", "RELAX_SPECULAR")}
-    worst = {sig: [0.0, 0, 0] for sig in ("diff", "spec")}  # max abs, values out, values
+    them within the kernels' tolerance, on every frame. With `sh` the same of
+    RELAX_DIFFUSE_SPECULAR_SH's four outputs (SH0 and SH1 a signal) against RELAX_DIFFUSE_SH's
+    and RELAX_SPECULAR_SH's, which must agree exactly (max abs 0)."""
+    suffix = "_SH" if sh else ""
+    pair = "RELAX_DIFFUSE_SPECULAR" + suffix
+    singles = {"diff": "RELAX_DIFFUSE" + suffix, "spec": "RELAX_SPECULAR" + suffix}
+    engs = {p: path_engine(p, w, h, "cuda") for p in (pair, *singles.values())}
+    worst = {}  # label: [max abs, values out, values]
     for cs, pools, _ in frames:
         outs = {}
         for p, eng in engs.items():
             eng.set_common_settings(cs)
             pool = {k: torch.from_numpy(v).cuda() for k, v in pools[p].items()}
             outs[p] = eng.denoise([0], pool)
-        for sig, single in (("diff", "RELAX_DIFFUSE"), ("spec", "RELAX_SPECULAR")):
-            got, want = outs[pair][out_rt(sig)], outs[single][out_rt(sig)]
+        for label, sig, rt in outputs_of(pair):
+            got, want = outs[pair][rt], outs[singles[sig]][rt]
             d = (got - want).abs()
-            r = worst[sig]
+            r = worst.setdefault(label, [0.0, 0, 0])
             r[0] = max(r[0], float(d.max()))
             r[1] += int((d > ATOL + RTOL * want.abs()).sum())
             r[2] += d.numel()
-    for sig, (mx, over, count) in worst.items():
-        log(f"relax pair {sig}: RELAX_DIFFUSE_SPECULAR vs the one-signal variant over "
+    for label, (mx, over, count) in worst.items():
+        log(f"relax pair {label}: {pair} vs the one-signal variant over "
             f"{len(frames)} frames: max abs {mx:.3g}, {over} of {count} values outside "
             f"atol={ATOL}, rtol={RTOL}")
-        if over > FLIP_FRACTION * count:
-            raise AssertionError(f"RELAX_DIFFUSE_SPECULAR {sig} disagrees with the one-signal "
-                                 f"variant on the card: {over} of {count} values")
-    return {sig: dict(max_abs=v[0], over=v[1], count=v[2]) for sig, v in worst.items()}
+        if over > FLIP_FRACTION * count or (sh and mx != 0.0):
+            raise AssertionError(f"{pair} {label} disagrees with the one-signal variant on the "
+                                 f"card: max abs {mx:.3g}, {over} of {count} values")
+    return {label: dict(max_abs=v[0], over=v[1], count=v[2]) for label, v in worst.items()}
 
 
 def profile_phase(path, w, h, frames, slice_ms, warmup=4, n=3):
@@ -1245,22 +1308,22 @@ def profile_phase(path, w, h, frames, slice_ms, warmup=4, n=3):
 def card_vs_cpu_phase(w=256, h=160, frames=4):
     frames = list(Scene(w, h).frames(frames, workers=1))
     sq = "RELAX_SPECULAR+SQ_LINEAR"
-    for path, v in {**PATHS, sq: ENCODED[sq]}.items():
+    for path in (*PATHS, sq):
         cuda, cpu = path_engine(path, w, h, "cuda"), path_engine(path, w, h, "cpu")
-        worst = {sig: float("inf") for sig in v["signals"]}
+        worst = {label: float("inf") for label, _, _ in outputs_of(path)}
         for i, (cs, pools, _) in enumerate(frames):
             outs = []
             for eng in (cuda, cpu):
                 eng.set_common_settings(cs)
                 with path_env(path):
                     outs.append(eng.denoise([0], pools[path]))
-            for sig in v["signals"]:
-                p = psnr(outs[0][out_rt(sig)].cpu().numpy(), outs[1][out_rt(sig)].cpu().numpy())
-                worst[sig] = min(worst[sig], p)
-                log(f"card vs cpu {path} {sig} frame {i}: {p:.2f} dB")
-        for sig, p in worst.items():
+            for label, _, rt in outputs_of(path):
+                p = psnr(outs[0][rt].cpu().numpy(), outs[1][rt].cpu().numpy())
+                worst[label] = min(worst[label], p)
+                log(f"card vs cpu {path} {label} frame {i}: {p:.2f} dB")
+        for label, p in worst.items():
             if p < 50.0:
-                raise AssertionError(f"{path} {sig}: card and CPU disagree: {p:.2f} dB < 50 dB")
+                raise AssertionError(f"{path} {label}: card and CPU disagree: {p:.2f} dB < 50 dB")
     reference_card_vs_cpu(w, h, len(frames))
 
 
@@ -1327,6 +1390,7 @@ def main():
         counts[path], slice_ms[path] = slice_phase(path, args.width, args.height, frames, warmup)
         log(f"phase slice {path}: done at {time.perf_counter() - t_start:.1f} s")
     relax_pair_check(args.width, args.height, frames)
+    relax_pair_check(args.width, args.height, frames, sh=True)
     log(f"phase relax pair: done at {time.perf_counter() - t_start:.1f} s")
     if args.profile:
         for path in PATHS:

@@ -90,6 +90,18 @@ def relax_pack_radiance_hitdist(radiance, hit_dist, sanitize=True):
     return torch.cat([radiance, hit_dist[..., None]], -1)
 
 
+def relax_pack_sh(radiance, hit_dist, direction, sanitize=True):
+    """RELAX_FrontEnd_PackSh (NRD.hlsli:802-818): sh0 = (radiance, raw hitT), sh1 = (direction x
+    the radiance's luminance, 0). Returns (sh0, sh1), (..., 4) each."""
+    if sanitize:
+        radiance = _sanitize(radiance, 0.0, NRD_FP16_MAX)
+        hit_dist = _sanitize(hit_dist, 0.0, NRD_FP16_MAX)
+        direction = _sanitize(direction, -1.0, 1.0)
+    sh0 = torch.cat([radiance, hit_dist[..., None]], -1)
+    c1 = direction * nm.luminance(radiance)[..., None]
+    return sh0, torch.cat([c1, torch.zeros_like(c1[..., :1])], -1)
+
+
 def relax_unpack_radiance(color):
     """RELAX_BackEnd_UnpackRadiance (NRD.hlsli:903-906): the identity."""
     return color

@@ -331,6 +331,20 @@ __device__ __forceinline__ void catrom_apply4(const T* const img[N], int w, int 
   for (int s = 0; s < N; ++s) out[s] = small ? zero : divide(acc[s], div);
 }
 
+// bilinear_custom of a bf16 (h, w, 4) image (its records read as uint2, each channel widened
+// exactly to float) over the 2x2 at integer origin (x0, y0) with clamp addressing: the four
+// texels weighted in the order (00, 10, 01, 11), renormalised by the weights' sum, 0 where
+// the sum is ~0 (RELAX's SH histories, K16 and K17)
+__device__ __forceinline__ float4 bilinear_custom4(const uint2* img, int w, int h, int x0,
+                                                   int y0, const float cw[4]) {
+  const size_t r0 = (size_t)clampi(y0, 0, h - 1) * w, r1 = (size_t)clampi(y0 + 1, 0, h - 1) * w;
+  const int c0 = clampi(x0, 0, w - 1), c1 = clampi(x0 + 1, 0, w - 1);
+  const float4 v[4] = {texel4(img, r0 + c0), texel4(img, r0 + c1), texel4(img, r1 + c0),
+                       texel4(img, r1 + c1)};
+  const float wsum = cw[0] + cw[1] + cw[2] + cw[3];
+  return wsum < 0.0001f ? make_float4(0.0f, 0.0f, 0.0f, 0.0f) : divide(bilinear_sum(v, cw), wsum);
+}
+
 // sample_bilinear of a float (h, w, 4) image: four float4 reads through the read-only path,
 // the same arithmetic per channel
 __device__ __forceinline__ float4 sample_bilinear4(const Image<float, 4>& img, float u,

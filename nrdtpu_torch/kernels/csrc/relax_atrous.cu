@@ -15,7 +15,11 @@
 // its plane distance, Gaussian, in-screen test, denoising range and normal angle; each signal
 // then takes its own normal weight (the specular one x roughness after iteration 0), material
 // test at its own min material and luminance weight at its own phi and max difference.
-// Replaces nrdtpu/kernels/relax_pallas.py:338 relax_atrous_pallas; computes
+// With the SH variants (kSh) each signal's SH plane is filtered with the signal's weights, not
+// squared after iteration 0 (kernels.py:1494, :1535-1537, :1545), and at iteration 0 the 5x5
+// estimation's SH in its place where the history is short (:1568, :1585-1586, :1596-1598); the
+// diffuse lobe fraction's base after iteration 0 is 1.0 (:1363), which the host's `lobe_span`
+// carries. Replaces nrdtpu/kernels/relax_pallas.py:338 relax_atrous_pallas; computes
 // nrdtpu/passes/relax/kernels.py:1349-1598 per pixel. The plain version is
 // nrdtpu_torch/kernels/relax_atrous.py:relax_atrous_ref.
 //
@@ -35,7 +39,8 @@
 // steps 8 and 16 jitter their taps. A tap keeps XLA's float uv + duv and finds its texel by
 // floor(us w) as before; the window is indexed by that texel, and a texel outside it is read and
 // derived from global memory. The roughness that derive keeps follows the roughness encoding, the
-// template parameter kRough (common.cuh:decode_roughness), as the TPU kernel's rough_sq.
+// template parameter kRough (common.cuh:decode_roughness), as the TPU kernel's rough_sq. With SH
+// a texel is one float4 more a signal (its SH), staged at iteration 0 as well.
 #include "relax_common.cuh"
 
 namespace {
@@ -50,6 +55,8 @@ struct AtrousSignal {
   const float* signal;  // (h, w, 4) (rgb, 2nd moment) at iteration 0, else (rgb, variance)
   float* out;           // (h, w, 4) (rgb, variance)
   float phi, max_rel, min_material;
+  const float* sh;      // (h, w, 4) the signal's SH (kSh only)
+  float* out_sh;        // (h, w, 4) (kSh only)
 };
 
 struct AtrousArgs {
@@ -62,6 +69,7 @@ struct AtrousArgs {
   const float* reproj;     // (h, w) the TA's specular reprojection confidence or null
   relax::Frame f;
   float denoising_range, depth_threshold, lobe_fraction, nwp_sve, history_threshold;
+  float lobe_span;  // after iteration 0: the diffuse lobe fraction's lerp(0.99, ., t) span
   int step, halo;  // halo: the staged window's margin (iteration 0)
   bool is_first, spec;  // spec: the one signal is specular (both signals: the second one is)
   uint32_t frame_index;
@@ -79,9 +87,10 @@ __constant__ float kPrefilter[2][2] = {{0.25f, 0.125f}, {0.125f, 0.0625f}};
 // one texel of the tapped images, with what every tap derives from it alone; kN signals
 template <int kN>
 struct Texel {
-  float4 g;      // the unpacked normal (x, y, z), viewZ (relax::view_z)
-  float4 m;      // signal 0's luminance, material (nr.w x 3), roughness, signal 1's luminance
-  float4 s[kN];  // the signals
+  float4 g;       // the unpacked normal (x, y, z), viewZ (relax::view_z)
+  float4 m;       // signal 0's luminance, material (nr.w x 3), roughness, signal 1's luminance
+  float4 s[kN];   // the signals
+  float4 sh[kN];  // the signals' SH (kSh; zero without)
 };
 
 // signal k's luminance of a texel
@@ -96,7 +105,7 @@ __device__ __forceinline__ bool is_spec(const AtrousArgs& a, int k) {
 
 template <int kN, int kRough>
 __device__ __forceinline__ Texel<kN> derive(const relax::Frame& f, const float4 s[kN],
-                                            float4 nr, float raw_z) {
+                                            const float4 sh[kN], float4 nr, float raw_z) {
   const V3 n = nrd::unpack_normal(nr.x, nr.y);
   Texel<kN> t;
   t.g = make_float4(n.x, n.y, n.z, relax::view_z(f, raw_z));
@@ -104,31 +113,40 @@ __device__ __forceinline__ Texel<kN> derive(const relax::Frame& f, const float4 
                     nrd::decode_roughness<kRough>(nr.z),
                     kN == 2 ? relax::luminance(s[kN - 1].x, s[kN - 1].y, s[kN - 1].z) : 0.0f);
 #pragma unroll
-  for (int k = 0; k < kN; ++k) t.s[k] = s[k];
+  for (int k = 0; k < kN; ++k) {
+    t.s[k] = s[k];
+    t.sh[k] = sh[k];
+  }
   return t;
 }
 
-template <int kN, int kRough>
+template <int kN, int kRough, bool kSh>
 __device__ __forceinline__ Texel<kN> load_texel(const AtrousArgs& a, int tx, int ty) {
   const size_t i = Image<float, 4>{a.sig[0].signal, a.f.w, a.f.h}.index(tx, ty);
-  float4 s[kN];
+  float4 s[kN], sh[kN];
 #pragma unroll
-  for (int k = 0; k < kN; ++k) s[k] = __ldg(reinterpret_cast<const float4*>(a.sig[k].signal) + i);
-  return derive<kN, kRough>(a.f, s, __ldg(reinterpret_cast<const float4*>(a.nr) + i),
+  for (int k = 0; k < kN; ++k) {
+    s[k] = __ldg(reinterpret_cast<const float4*>(a.sig[k].signal) + i);
+    sh[k] = kSh ? __ldg(reinterpret_cast<const float4*>(a.sig[k].sh) + i)
+                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  return derive<kN, kRough>(a.f, s, sh, __ldg(reinterpret_cast<const float4*>(a.nr) + i),
                             __ldg(a.view_z + i));
 }
 
 // The tile's window of texels, clamp-to-edge: wh rows of ww texels from (ox, oy), in shared
-// memory (planes g, m, then one a signal), or nothing (g null) where the stride is not staged.
+// memory (planes g, m, then one a signal, then with SH one a signal's SH), or nothing (g null)
+// where the stride is not staged.
 template <int kN>
 struct Window {
   const float4* g;
   const float4* m;
   const float4* s[kN];
+  const float4* sh[kN];
   int ox, oy, ww, wh;
 };
 
-template <int kN, int kRough>
+template <int kN, int kRough, bool kSh>
 __device__ __forceinline__ Texel<kN> fetch(const AtrousArgs& a, const Window<kN>& wnd, int tx,
                                            int ty) {
   const int i = tx - wnd.ox, j = ty - wnd.oy;
@@ -138,26 +156,33 @@ __device__ __forceinline__ Texel<kN> fetch(const AtrousArgs& a, const Window<kN>
     t.g = wnd.g[k];
     t.m = wnd.m[k];
 #pragma unroll
-    for (int c = 0; c < kN; ++c) t.s[c] = wnd.s[c][k];
+    for (int c = 0; c < kN; ++c) {
+      t.s[c] = wnd.s[c][k];
+      t.sh[c] = kSh ? wnd.sh[c][k] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
     return t;
   }
-  return load_texel<kN, kRough>(a, tx, ty);
+  return load_texel<kN, kRough, kSh>(a, tx, ty);
 }
 
-// the 5x5 spatial variance estimation of a short history (clamp-to-edge), for each signal
-template <int kN, int kRough>
+// the 5x5 spatial variance estimation of a short history (clamp-to-edge), for each signal, and
+// with SH of each signal's SH (out_sh)
+template <int kN, int kRough, bool kSh>
 __device__ __forceinline__ void variance_estimation(const AtrousArgs& a, const Window<kN>& wnd,
                                                     int x, int y, V3 n, const float mat_c[kN],
-                                                    float hl, float out[kN][4]) {
+                                                    float hl, float out[kN][4],
+                                                    float4 out_sh[kN]) {
   float swsum[kN], s_rgb[kN][3], s_m1[kN], s_m2[kN];
+  float4 s_sh[kN];
 #pragma unroll
   for (int k = 0; k < kN; ++k) {
     swsum[k] = s_m1[k] = s_m2[k] = 0.0f;
     s_rgb[k][0] = s_rgb[k][1] = s_rgb[k][2] = 0.0f;
+    s_sh[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
   for (int dy = -2; dy <= 2; ++dy)
     for (int dx = -2; dx <= 2; ++dx) {
-      const Texel<kN> t = fetch<kN, kRough>(a, wnd, x + dx, y + dy);
+      const Texel<kN> t = fetch<kN, kRough, kSh>(a, wnd, x + dx, y + dy);
       const V3 ns{t.g.x, t.g.y, t.g.z};
       const float wn = nrd::compute_weight(nrd::acos_approx(nrd::dot3(n, ns)), a.nwp_sve, 0.0f);
 #pragma unroll
@@ -169,6 +194,7 @@ __device__ __forceinline__ void variance_estimation(const AtrousArgs& a, const W
         for (int c = 0; c < 3; ++c) s_rgb[k][c] = s_rgb[k][c] + s[c] * w_;
         s_m1[k] = s_m1[k] + lum(t, k) * w_;
         s_m2[k] = s_m2[k] + s[3] * w_;
+        if constexpr (kSh) s_sh[k] = nrd::add_weighted(s_sh[k], t.sh[k], w_);
       }
     }
   const float boost = fmaxf(4.0f / (hl + 1.0f), 1.0f);
@@ -180,6 +206,7 @@ __device__ __forceinline__ void variance_estimation(const AtrousArgs& a, const W
     s_m1[k] = s_m1[k] / swsum[k];
     s_m2[k] = s_m2[k] / swsum[k];
     out[k][3] = fmaxf(s_m2[k] - s_m1[k] * s_m1[k], 0.0f) * boost;
+    if constexpr (kSh) out_sh[k] = nrd::divide(s_sh[k], swsum[k]);
   }
 }
 
@@ -188,14 +215,17 @@ __device__ __forceinline__ float relaxation(const AtrousArgs& a, float conf, flo
   return nrd::saturate(nrd::saturate(a.conf_mult * (1.0f - conf)) * r);
 }
 
-__device__ __forceinline__ void store(const AtrousSignal& g, size_t i, const float out[4]) {
+template <bool kSh>
+__device__ __forceinline__ void store(const AtrousSignal& g, size_t i, const float out[4],
+                                      float4 out_sh) {
 #pragma unroll
   for (int ch = 0; ch < 4; ++ch) g.out[4 * i + ch] = out[ch];
+  if constexpr (kSh) reinterpret_cast<float4*>(g.out_sh)[i] = out_sh;
 }
 
 // kStaged: iteration 0's staged window; kRough: the roughness encoding; kBoth: the diffuse and
-// the specular signal (else one, a.spec saying which)
-template <bool kStaged, int kRough, bool kBoth>
+// the specular signal (else one, a.spec saying which); kSh: each signal's SH too
+template <bool kStaged, int kRough, bool kBoth, bool kSh>
 __global__ void __launch_bounds__(kTileX * kTileY, kMinCtas)
     relax_atrous_kernel(AtrousArgs a) {
   constexpr int kN = kBoth ? 2 : 1;
@@ -212,35 +242,46 @@ __global__ void __launch_bounds__(kTileX * kTileY, kMinCtas)
     float4* g = window;
     float4* m = window + n;
     float4* s[kN];
+    float4* sh[kN];
 #pragma unroll
-    for (int k = 0; k < kN; ++k) s[k] = window + (2 + k) * n;
+    for (int k = 0; k < kN; ++k) {
+      s[k] = window + (2 + k) * n;
+      sh[k] = window + (2 + kN + k) * n;  // with SH only: the window holds them
+    }
     for (int j = threadIdx.y; j < wnd.wh; j += kTileY)
       for (int i = threadIdx.x; i < wnd.ww; i += kTileX) {
-        const Texel<kN> t = load_texel<kN, kRough>(a, wnd.ox + i, wnd.oy + j);
+        const Texel<kN> t = load_texel<kN, kRough, kSh>(a, wnd.ox + i, wnd.oy + j);
         g[j * wnd.ww + i] = t.g;
         m[j * wnd.ww + i] = t.m;
 #pragma unroll
-        for (int k = 0; k < kN; ++k) s[k][j * wnd.ww + i] = t.s[k];
+        for (int k = 0; k < kN; ++k) {
+          s[k][j * wnd.ww + i] = t.s[k];
+          if constexpr (kSh) sh[k][j * wnd.ww + i] = t.sh[k];
+        }
       }
     wnd.g = g;
     wnd.m = m;
 #pragma unroll
-    for (int k = 0; k < kN; ++k) wnd.s[k] = s[k];
+    for (int k = 0; k < kN; ++k) {
+      wnd.s[k] = s[k];
+      wnd.sh[k] = sh[k];
+    }
     __syncthreads();
   }
   if (x >= a.f.w || y >= a.f.h) return;
   const size_t i = (size_t)y * a.f.w + x;
-  const Texel<kN> ct = fetch<kN, kRough>(a, wnd, x, y);
+  const Texel<kN> ct = fetch<kN, kRough, kSh>(a, wnd, x, y);
   const float hl = __ldg(a.hl + i);
   const V3 n{ct.g.x, ct.g.y, ct.g.z};
   float mat_c[kN];
 #pragma unroll
   for (int k = 0; k < kN; ++k) mat_c[k] = fmaxf(ct.m.y, a.sig[k].min_material);
   float out[kN][4];
+  float4 out_sh[kN] = {};
   if (a.is_first && !(hl >= a.history_threshold)) {
-    variance_estimation<kN, kRough>(a, wnd, x, y, n, mat_c, hl, out);
+    variance_estimation<kN, kRough, kSh>(a, wnd, x, y, n, mat_c, hl, out, out_sh);
 #pragma unroll
-    for (int k = 0; k < kN; ++k) store(a.sig[k], i, out[k]);
+    for (int k = 0; k < kN; ++k) store<kSh>(a.sig[k], i, out[k], out_sh[k]);
     return;
   }
 
@@ -252,7 +293,7 @@ __global__ void __launch_bounds__(kTileX * kTileY, kMinCtas)
 
   // the diffuse lobe fraction, relaxed by IN_DIFF_CONFIDENCE
   const float dlf0 =
-      a.is_first ? a.lobe_fraction : 0.99f + (a.lobe_fraction - 0.99f) * nrd::saturate(hl / 5.0f);
+      a.is_first ? a.lobe_fraction : 0.99f + a.lobe_span * nrd::saturate(hl / 5.0f);
   // each signal's luminance relaxation: the diffuse one's first
   float dlf = dlf0, lum_relax[kN];
   lum_relax[0] = 1.0f;
@@ -311,7 +352,7 @@ __global__ void __launch_bounds__(kTileX * kTileY, kMinCtas)
     for (int dy = -1; dy <= 1; ++dy)
       for (int dx = -1; dx <= 1; ++dx) {
         const float c = kPrefilter[abs(dx)][abs(dy)];
-        const Texel<kN> t = fetch<kN, kRough>(a, wnd, x + dx, y + dy);
+        const Texel<kN> t = fetch<kN, kRough, kSh>(a, wnd, x + dx, y + dy);
 #pragma unroll
         for (int k = 0; k < kN; ++k) {
           pre[k][0] = pre[k][0] + t.s[k].x * c;
@@ -331,10 +372,13 @@ __global__ void __launch_bounds__(kTileX * kTileY, kMinCtas)
   }
 
   float phi_inv[kN], wsum[kN], acc[kN][4];
+  float4 acc_sh[kN];
 #pragma unroll
   for (int k = 0; k < kN; ++k) {
     phi_inv[k] = 1.0f / fmaxf(a.sig[k].phi * sqrtf(var[k]), 1e-4f);
     wsum[k] = a.w0;
+    acc_sh[k] = make_float4(ct.sh[k].x * a.w0, ct.sh[k].y * a.w0, ct.sh[k].z * a.w0,
+                            ct.sh[k].w * a.w0);
     acc[k][0] = ct.s[k].x * a.w0;
     acc[k][1] = ct.s[k].y * a.w0;
     acc[k][2] = ct.s[k].z * a.w0;
@@ -349,7 +393,7 @@ __global__ void __launch_bounds__(kTileX * kTileY, kMinCtas)
       const float vs = v + ((float)(yy * a.step) + offy) * rinv_y;
       const float inside = nrd::in_screen_nearest(us, vs);
       const int tx = nrd::to_index(floorf(us * fw)), ty = nrd::to_index(floorf(vs * fh));
-      const Texel<kN> t = fetch<kN, kRough>(a, wnd, tx, ty);
+      const Texel<kN> t = fetch<kN, kRough, kSh>(a, wnd, tx, ty);
       const float zs = t.g.w;
       const V3 ns{t.g.x, t.g.y, t.g.z};
       const float ms = t.m.y;
@@ -381,6 +425,7 @@ __global__ void __launch_bounds__(kTileX * kTileY, kMinCtas)
 #pragma unroll
         for (int ch = 0; ch < 3; ++ch) acc[k][ch] = acc[k][ch] + s[ch] * w_;
         acc[k][3] = acc[k][3] + s[3] * (a.is_first ? w_ : w_ * w_);
+        if constexpr (kSh) acc_sh[k] = nrd::add_weighted(acc_sh[k], t.sh[k], w_);
       }
     }
 #pragma unroll
@@ -395,28 +440,30 @@ __global__ void __launch_bounds__(kTileX * kTileY, kMinCtas)
       for (int ch = 0; ch < 3; ++ch) out[k][ch] = acc[k][ch] / wsum[k];
       out[k][3] = acc[k][3] / (wsum[k] * wsum[k]);
     }
-    store(a.sig[k], i, out[k]);
+    store<kSh>(a.sig[k], i, out[k], nrd::divide(acc_sh[k], wsum[k]));
   }
 }
 
-template <bool kBoth>
+template <bool kBoth, bool kSh>
 int launch(const AtrousArgs& a, int rough, dim3 grid, dim3 block, cudaStream_t stream) {
-  // iteration 0 stages its window: the planes g and m, and one a signal
+  // iteration 0 stages its window: the planes g and m, one a signal and with SH one a
+  // signal's SH
+  const int planes = 2 + (kBoth ? 2 : 1) * (kSh ? 2 : 1);
   const size_t smem = a.is_first ? (size_t)(kTileX + 2 * a.halo) * (kTileY + 2 * a.halo) *
-                                       (kBoth ? 4 : 3) * sizeof(float4)
+                                       planes * sizeof(float4)
                                  : 0;
   if (a.is_first && rough == 0)
-    relax_atrous_kernel<true, 0, kBoth><<<grid, block, smem, stream>>>(a);
+    relax_atrous_kernel<true, 0, kBoth, kSh><<<grid, block, smem, stream>>>(a);
   else if (a.is_first && rough == 1)
-    relax_atrous_kernel<true, 1, kBoth><<<grid, block, smem, stream>>>(a);
+    relax_atrous_kernel<true, 1, kBoth, kSh><<<grid, block, smem, stream>>>(a);
   else if (a.is_first && rough == 2)
-    relax_atrous_kernel<true, 2, kBoth><<<grid, block, smem, stream>>>(a);
+    relax_atrous_kernel<true, 2, kBoth, kSh><<<grid, block, smem, stream>>>(a);
   else if (rough == 0)
-    relax_atrous_kernel<false, 0, kBoth><<<grid, block, 0, stream>>>(a);
+    relax_atrous_kernel<false, 0, kBoth, kSh><<<grid, block, 0, stream>>>(a);
   else if (rough == 1)
-    relax_atrous_kernel<false, 1, kBoth><<<grid, block, 0, stream>>>(a);
+    relax_atrous_kernel<false, 1, kBoth, kSh><<<grid, block, 0, stream>>>(a);
   else if (rough == 2)
-    relax_atrous_kernel<false, 2, kBoth><<<grid, block, 0, stream>>>(a);
+    relax_atrous_kernel<false, 2, kBoth, kSh><<<grid, block, 0, stream>>>(a);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
@@ -426,7 +473,7 @@ int launch(const AtrousArgs& a, int rough, dim3 grid, dim3 block, cudaStream_t s
 
 // ptrs: signal, view_z, nr, history_length, out, then diff_conf, spec_conf, reproj (each may
 //       be null), then with both signals the specular signal and its out (the first being the
-//       diffuse one)
+//       diffuse one), then the first signal's SH and its out, the second's (null without SH)
 // consts: frame geometry (relax::load_frame), denoising_range, depth_threshold,
 //         lobe_fraction, nwp_sve, phi, max_rel, min_material, history_threshold, step,
 //         is_first (0 or 1), frame index low 16 bits, high 16 bits, w0, w0^2, k01, k11,
@@ -434,7 +481,8 @@ int launch(const AtrousArgs& a, int rough, dim3 grid, dim3 block, cudaStream_t s
 //         settings' lobe fraction, roughness fraction, normal edge-stopping relaxation, lobe
 //         slack, luminance and roughness edge-stopping relaxations, roughness edge stopping
 //         (0 or 1), roughness mode (0 LINEAR, 1 SQRT_LINEAR, 2 SQ_LINEAR), signals (1 or 2),
-//         the specular signal's phi, max_rel, min_material
+//         the specular signal's phi, max_rel, min_material, the lobe span (after iteration 0
+//         the diffuse lobe fraction is 0.99 + span x saturate(hl / 5))
 extern "C" int nrd_relax_atrous(void* const* p, const float* c, int w, int h, void* stream) {
   AtrousArgs a;
   a.sig[0].signal = (const float*)p[0];
@@ -476,7 +524,16 @@ extern "C" int nrd_relax_atrous(void* const* p, const float* c, int w, int h, vo
   const int rough = (int)q[27];
   const int signals = (int)q[28];
   a.sig[1] = AtrousSignal{(const float*)p[8], (float*)p[9], q[29], q[30], q[31]};
+  a.lobe_span = q[32];
+  for (int k = 0; k < 2; ++k) {
+    a.sig[k].sh = (const float*)p[10 + 2 * k];
+    a.sig[k].out_sh = (float*)p[11 + 2 * k];
+  }
   if (signals < 1 || signals > 2) return (int)cudaErrorInvalidValue;
+  const bool sh = a.sig[0].sh != nullptr;
+  for (int k = 0; k < signals; ++k)  // with SH, an SH plane and its out for every signal
+    if ((a.sig[k].sh != nullptr) != sh || (a.sig[k].out_sh != nullptr) != sh)
+      return (int)cudaErrorInvalidValue;
   // both signals: the diffuse one first, then the specular one
   if (signals == 2 && (!a.spec || a.sig[1].signal == nullptr || a.sig[1].out == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -484,6 +541,10 @@ extern "C" int nrd_relax_atrous(void* const* p, const float* c, int w, int h, vo
   a.halo = a.step > 2 ? a.step : 2;
   const dim3 block(kTileX, kTileY);
   const dim3 grid((w + kTileX - 1) / kTileX, (h + kTileY - 1) / kTileY);
-  return signals == 2 ? launch<true>(a, rough, grid, block, (cudaStream_t)stream)
-                      : launch<false>(a, rough, grid, block, (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (signals == 2)
+    return sh ? launch<true, true>(a, rough, grid, block, st)
+              : launch<true, false>(a, rough, grid, block, st);
+  return sh ? launch<false, true>(a, rough, grid, block, st)
+            : launch<false, false>(a, rough, grid, block, st);
 }

@@ -6,7 +6,9 @@
 // the noisy radiance and the second moment of its luminance, over max(weight sum, 1)), then
 // the rest of the pass per pixel: the sigma colour box and the clamp of the slow history in
 // YCoCg, the clamping factor, the antilag acceleration and reset, the second-moment
-// correction (nrdtpu/passes/relax/kernels.py:1140-1271). Replaces
+// correction (nrdtpu/passes/relax/kernels.py:1140-1271); with the SH variants (kSh) also each
+// signal's SH, lerp(sh, sh_fast, clamping factor) (kernels.py:1260-1262: glue beside the TPU
+// kernel, here in the launch, where the clamping factor exists). Replaces
 // nrdtpu/kernels/relax_pallas.py:479 relax_clamp_moments_pallas (its `n_sig` signals in one
 // launch). The plain version is
 // nrdtpu_torch/kernels/relax_clamp_moments.py:relax_clamp_moments_ref.
@@ -48,6 +50,9 @@ struct ClampSignal {
   const float* slow;   // (h, w, 4) the TA's slow history (rgb, second moment)
   float* out_slow;     // (h, w, 4)
   float* out_resp;     // (h, w, 4)
+  const float* sh;       // (h, w, 4) the TA's slow SH (kSh only)
+  const float* sh_fast;  // (h, w, 4) the TA's responsive SH (kSh only)
+  float* out_sh;         // (h, w, 4) (kSh only)
   float acceleration, reset_amount;
   bool clamp;  // maxFastAccumulatedFrameNum < maxAccumulatedFrameNum
 };
@@ -116,7 +121,8 @@ __device__ __forceinline__ float luminance_abs(float r, float g, float b) {
 }
 
 // The whole pass of one signal at pixel i, its window staged in wnd; wc: the window index of
-// the pixel's own texel.
+// the pixel's own texel; kSh: the SH lerp too.
+template <bool kSh>
 __device__ __forceinline__ void clamp_pixel(const ClampArgs& a, const ClampSignal& g,
                                             const Window& wnd, size_t i, int wc) {
   // the 5x5 moments (:1169-1192)
@@ -178,6 +184,13 @@ __device__ __forceinline__ void clamp_pixel(const ClampArgs& a, const ClampSigna
       dy_clamp == 0.0f ? 0.0f
                        : nrd::saturate(dy_clamp / (fabsf(denom) < 1e-15f ? 1e-15f : denom));
   clamping_factor = in_fix ? 1.0f : clamping_factor;
+  if constexpr (kSh) {  // lerp(sh, sh_fast, clamping factor)
+    const float4 sh = __ldg(reinterpret_cast<const float4*>(g.sh) + i);
+    const float4 shf = __ldg(reinterpret_cast<const float4*>(g.sh_fast) + i);
+    reinterpret_cast<float4*>(g.out_sh)[i] = make_float4(
+        sh.x + (shf.x - sh.x) * clamping_factor, sh.y + (shf.y - sh.y) * clamping_factor,
+        sh.z + (shf.z - sh.z) * clamping_factor, sh.w + (shf.w - sh.w) * clamping_factor);
+  }
   float hist_diff_l = g.acceleration * luminance_abs(out_resp[0] - slow.x,
                                                      out_resp[1] - slow.y,
                                                      out_resp[2] - slow.z);
@@ -224,7 +237,7 @@ __device__ __forceinline__ void clamp_pixel(const ClampArgs& a, const ClampSigna
                                                          fast.w);
 }
 
-template <int kNSig>
+template <int kNSig, bool kSh>
 __global__ void __launch_bounds__(kTile * kTile, kMinCtas)
     relax_clamp_moments_kernel(ClampArgs a) {
   __shared__ Window wnd[kNSig];
@@ -243,13 +256,14 @@ __global__ void __launch_bounds__(kTile * kTile, kMinCtas)
   // the window index of the pixel's own texel
   const int wc = ((int)threadIdx.y + kBorder) * kWin + (int)threadIdx.x + kBorder;
 #pragma unroll
-  for (int s = 0; s < kNSig; ++s) clamp_pixel(a, a.sig[s], wnd[s], i, wc);
+  for (int s = 0; s < kNSig; ++s) clamp_pixel<kSh>(a, a.sig[s], wnd[s], i, wc);
 }
 
 }  // namespace
 
 // ptrs: view_z, fast, fixed, history_length, noisy, slow, out_slow, out_resp, then with two
-//       signals the second's fast, fixed, noisy, slow, out_slow, out_resp
+//       signals the second's fast, fixed, noisy, slow, out_slow, out_resp, then each
+//       signal's sh, sh_fast, out_sh (null without SH)
 // consts: view_z_scale, denoising_range, history_fix_frame_num, color_box_sigma_scale, clamp,
 //         acceleration, reset_temporal_sigma_scale, reset_spatial_sigma_scale, reset_amount,
 //         signals (1 or 2), then the second signal's clamp, acceleration, reset_amount
@@ -283,12 +297,25 @@ extern "C" int nrd_relax_clamp_moments(void* const* p, const float* c, int w, in
     g.clamp = c[kConst[s][0]] != 0.0f;
     g.acceleration = c[kConst[s][1]];
     g.reset_amount = c[kConst[s][2]];
+    g.sh = (const float*)p[14 + 3 * s];
+    g.sh_fast = (const float*)p[15 + 3 * s];
+    g.out_sh = (float*)p[16 + 3 * s];
   }
+  const bool sh = a.sig[0].sh != nullptr;
+  for (int s = 0; s < n; ++s)  // with SH, every signal's three planes
+    if ((a.sig[s].sh != nullptr) != sh || (a.sig[s].sh_fast != nullptr) != sh ||
+        (a.sig[s].out_sh != nullptr) != sh)
+      return (int)cudaErrorInvalidValue;
   const dim3 block(kTile, kTile);
   const dim3 grid((w + kTile - 1) / kTile, (h + kTile - 1) / kTile);
-  if (n == 1)
-    relax_clamp_moments_kernel<1><<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (n == 1 && !sh)
+    relax_clamp_moments_kernel<1, false><<<grid, block, 0, st>>>(a);
+  else if (n == 1)
+    relax_clamp_moments_kernel<1, true><<<grid, block, 0, st>>>(a);
+  else if (!sh)
+    relax_clamp_moments_kernel<2, false><<<grid, block, 0, st>>>(a);
   else
-    relax_clamp_moments_kernel<2><<<grid, block, 0, (cudaStream_t)stream>>>(a);
+    relax_clamp_moments_kernel<2, true><<<grid, block, 0, st>>>(a);
   return (int)cudaGetLastError();
 }

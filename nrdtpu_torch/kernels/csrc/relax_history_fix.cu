@@ -4,7 +4,11 @@
 // pow(max(0.01, n . ns), power); specular: the specular normal weight at the angle0 / f0 of
 // history length 5 and the tap's view vector relaxed by roughness_edge_stopping_relaxation)
 // and material, counted where the weight is above 1e-4; elsewhere the signal passes through
-// (and the taps are skipped). Replaces nrdtpu/kernels/relax_pallas.py:1499
+// (and the taps are skipped). With the SH variants (kSh) each signal's SH plane accumulates
+// with the signal's tap weight where it is above 1e-4, over the same weight sum, and passes
+// through where the fix does not apply (kernels.py:1095-1098, :1111-1114, :1124-1130; the TPU
+// kernel's d_sh / s_sh, relax_pallas.py:1290, :1297-1298). Replaces
+// nrdtpu/kernels/relax_pallas.py:1499
 // relax_history_fix_pallas; computes nrdtpu/passes/relax/kernels.py:1021-1131 per pixel for
 // one signal or for both. The plain version is
 // nrdtpu_torch/kernels/relax_history_fix.py:relax_history_fix_ref.
@@ -24,7 +28,8 @@
 //      the taps, and the diffuse weight at the default power 8 is three squarings. The
 //      record does not depend on the signal: with both signals a tap reads it once, takes its
 //      plane distance and in-screen test once, and weighs each signal with its own normal
-//      weight and min material into its own accumulator.
+//      weight and min material into its own accumulator. With SH a tap reads each signal's SH
+//      texel as one float4 more, into an accumulator of its own.
 // The specular weight's centre roughness follows the roughness encoding, the template
 // parameter kRough (common.cuh:decode_roughness); the diffuse taps read no roughness.
 // kMinCtas: the CTAs an SM that ptxas is asked to fit (chosen by A/B timing, PERF.md).
@@ -43,6 +48,8 @@ struct RelaxHfArgs {
   const float* nr;         // (h, w, 4)
   const float* hl;         // (h, w) history length
   float* out[2];           // (h, w, 4) each, one a signal
+  const float* sh[2];      // (h, w, 4) each: the signals' SH planes (kSh only)
+  float* sh_out[2];        // (h, w, 4) each (kSh only)
   float4* rec;             // (h, w, 2) the taps' records: (world position, material x 3),
                            // (unpacked normal, viewZ)
   relax::Frame f;
@@ -84,12 +91,13 @@ __device__ __forceinline__ float diffuse_weight(float c, float power, bool pow8)
 }
 
 // phases 1-3: the history fix of one pixel, for each signal of the phase
-template <int kPhase, int kRough>
+template <int kPhase, int kRough, bool kSh>
 __device__ __forceinline__ void history_fix_pixel(const RelaxHfArgs& a, int x, int y) {
   constexpr int kN = kSignals<kPhase>;
   constexpr bool kSpec = kPhase != 1;  // some signal takes the specular weight
   const size_t i = (size_t)y * a.f.w + x;
   float acc[kN][4];
+  float4 acc_sh[kN];
 #pragma unroll
   for (int k = 0; k < kN; ++k) {
     const float4 sc = __ldg(reinterpret_cast<const float4*>(a.signal[k]) + i);
@@ -97,6 +105,7 @@ __device__ __forceinline__ void history_fix_pixel(const RelaxHfArgs& a, int x, i
     acc[k][1] = sc.y;
     acc[k][2] = sc.z;
     acc[k][3] = sc.w;
+    if constexpr (kSh) acc_sh[k] = __ldg(reinterpret_cast<const float4*>(a.sh[k]) + i);
   }
   const float hl = a.hl[i];
   if (hl <= a.frame_num && a.frame_num != 1.0f) {
@@ -133,9 +142,12 @@ __device__ __forceinline__ void history_fix_pixel(const RelaxHfArgs& a, int x, i
         const int px = x + kx * step;
         const float inside = (inside_y && px >= 0 && px < a.f.w) ? 1.0f : 0.0f;
         const size_t t = row + nrd::clampi(px, 0, a.f.w - 1);
-        float4 s[kN];
+        float4 s[kN], sh[kN];
 #pragma unroll
-        for (int k = 0; k < kN; ++k) s[k] = __ldg(reinterpret_cast<const float4*>(a.signal[k]) + t);
+        for (int k = 0; k < kN; ++k) {
+          s[k] = __ldg(reinterpret_cast<const float4*>(a.signal[k]) + t);
+          if constexpr (kSh) sh[k] = __ldg(reinterpret_cast<const float4*>(a.sh[k]) + t);
+        }
         const float4 q0 = __ldg(rec + 2 * t), q1 = __ldg(rec + 2 * t + 1);
         const V3 xs = xyz(q0), ns = xyz(q1);
         const float gw = relax::plane_dist(xs, xc, n) < thr ? 1.0f : 0.0f;
@@ -158,23 +170,29 @@ __device__ __forceinline__ void history_fix_pixel(const RelaxHfArgs& a, int x, i
           acc[k][2] = live ? acc[k][2] + s[k].z * dw : acc[k][2];
           acc[k][3] = live ? acc[k][3] + s[k].w * dw : acc[k][3];
           wsum[k] = live ? wsum[k] + dw : wsum[k];
+          if constexpr (kSh)
+            acc_sh[k] = live ? nrd::add_weighted(acc_sh[k], sh[k], dw) : acc_sh[k];
         }
       }
     }
 #pragma unroll
-    for (int k = 0; k < kN; ++k)
+    for (int k = 0; k < kN; ++k) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[k][c] = acc[k][c] / wsum[k];
+      if constexpr (kSh) acc_sh[k] = nrd::divide(acc_sh[k], wsum[k]);
+    }
   }
 #pragma unroll
-  for (int k = 0; k < kN; ++k)
+  for (int k = 0; k < kN; ++k) {
     reinterpret_cast<float4*>(a.out[k])[i] = make_float4(acc[k][0], acc[k][1], acc[k][2],
                                                          acc[k][3]);
+    if constexpr (kSh) reinterpret_cast<float4*>(a.sh_out[k])[i] = acc_sh[k];
+  }
 }
 
 // phase 0: the records; 1, 2, 3: the history fix, diffuse, specular or both (roughness mode
-// kRough)
-template <int kPhase, int kRough = 0>
+// kRough), with the SH planes (kSh)
+template <int kPhase, int kRough = 0, bool kSh = false>
 __global__ void __launch_bounds__(256, kPhase == 0 ? 1 : kMinCtas)
     relax_history_fix_kernel(RelaxHfArgs a) {
   const int x = blockIdx.x * nrd::kBlock + threadIdx.x;
@@ -183,24 +201,36 @@ __global__ void __launch_bounds__(256, kPhase == 0 ? 1 : kMinCtas)
   if constexpr (kPhase == 0)
     write_records(a, x, y);
   else
-    history_fix_pixel<kPhase, kRough>(a, x, y);
+    history_fix_pixel<kPhase, kRough, kSh>(a, x, y);
 }
 
-template <int kPhase>
+template <int kPhase, bool kSh>
 void launch_fix(const RelaxHfArgs& a, int rough, dim3 grid, dim3 block, cudaStream_t stream) {
   if (rough == 0)
-    relax_history_fix_kernel<kPhase, 0><<<grid, block, 0, stream>>>(a);
+    relax_history_fix_kernel<kPhase, 0, kSh><<<grid, block, 0, stream>>>(a);
   else if (rough == 1)
-    relax_history_fix_kernel<kPhase, 1><<<grid, block, 0, stream>>>(a);
+    relax_history_fix_kernel<kPhase, 1, kSh><<<grid, block, 0, stream>>>(a);
   else
-    relax_history_fix_kernel<kPhase, 2><<<grid, block, 0, stream>>>(a);
+    relax_history_fix_kernel<kPhase, 2, kSh><<<grid, block, 0, stream>>>(a);
+}
+
+template <bool kSh>
+void launch_phase(const RelaxHfArgs& a, int signals, bool spec, int rough, dim3 grid,
+                  dim3 block, cudaStream_t stream) {
+  if (signals == 2)
+    launch_fix<3, kSh>(a, rough, grid, block, stream);
+  else if (spec)
+    launch_fix<2, kSh>(a, rough, grid, block, stream);
+  else
+    relax_history_fix_kernel<1, 0, kSh><<<grid, block, 0, stream>>>(a);
 }
 
 }  // namespace
 
 // ptrs: signal, view_z, nr, history_length, out, records ((h, w, 8) float scratch, 16-byte
 //       aligned; may be null where frame_num is 1), then with both signals the specular
-//       signal and its out (the first pair being the diffuse one)
+//       signal and its out (the first pair being the diffuse one), then the SH plane and its
+//       out of the first signal and of the second (null without SH, or without a second)
 // consts: frame geometry (relax::load_frame), depth_threshold, base_stride, frame_num,
 //         normal_power (already max(power, 0.01)), min_material, specular (0 or 1), lobe
 //         fraction, lobe slack, roughness edge-stopping relaxation, roughness mode (0 LINEAR,
@@ -230,12 +260,20 @@ extern "C" int nrd_relax_history_fix(void* const* p, const float* c, int w, int 
   a.min_material[1] = q[11];
   a.signal[1] = (const float*)p[6];
   a.out[1] = (float*)p[7];
+  for (int k = 0; k < 2; ++k) {
+    a.sh[k] = (const float*)p[8 + 2 * k];
+    a.sh_out[k] = (float*)p[9 + 2 * k];
+  }
+  const bool sh = a.sh[0] != nullptr;
   if (rough < 0 || rough > 2 || signals < 1 || signals > 2) return (int)cudaErrorInvalidValue;
   // both signals: the diffuse one first, the specular one's weight
   if (signals == 2 && (!spec || a.signal[1] == nullptr || a.out[1] == nullptr))
     return (int)cudaErrorInvalidValue;
   const bool taps = a.frame_num != 1.0f;
   if (taps && a.rec == nullptr) return (int)cudaErrorInvalidValue;
+  for (int k = 0; k < signals; ++k)  // with SH, an SH plane and its out for every signal
+    if ((a.sh[k] != nullptr) != sh || (a.sh_out[k] != nullptr) != sh)
+      return (int)cudaErrorInvalidValue;
   const dim3 block(nrd::kBlock, nrd::kBlock);
   const dim3 grid((w + nrd::kBlock - 1) / nrd::kBlock, (h + nrd::kBlock - 1) / nrd::kBlock);
   const cudaStream_t s = (cudaStream_t)stream;
@@ -244,11 +282,9 @@ extern "C" int nrd_relax_history_fix(void* const* p, const float* c, int w, int 
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  if (signals == 2)
-    launch_fix<3>(a, rough, grid, block, s);
-  else if (spec)
-    launch_fix<2>(a, rough, grid, block, s);
+  if (sh)
+    launch_phase<true>(a, signals, spec, rough, grid, block, s);
   else
-    relax_history_fix_kernel<1><<<grid, block, 0, s>>>(a);
+    launch_phase<false>(a, signals, spec, rough, grid, block, s);
   return (int)cudaGetLastError();
 }

@@ -6,16 +6,19 @@
 // from the dominant direction, the hit-distance factor and the spec magic curve capped by the
 // lobe radius, the normal weight at half the lobe fraction with the pixel's roughness, the
 // roughness weight, the tap weight lerp(saturate(t), 1, linearstep(0.5, 1, roughness)), and
-// the min hitT of the kept taps in .w. Replaces nrdtpu/kernels/relax_pallas.py:751
+// the min hitT of the kept taps in .w. With SH (the SH variants' second plane, sh1) the SH
+// plane accumulates with each tap's final weight, over the same weight sum, passes through
+// where the radius is disabled, and is clipped to +-FP16_MAX (not at 0: its components are
+// signed). Replaces nrdtpu/kernels/relax_pallas.py:751
 // relax_prepass_taps_pallas (without its 32-px radius cap); computes
 // nrdtpu/passes/relax/kernels.py:160-306 per pixel. The plain version is
 // nrdtpu_torch/kernels/relax_prepass.py:relax_prepass_ref.
 //
 // Design for the H100: one thread per pixel in 16x16 CTAs, one instance per mode
-// <kSpec, kRough> (the specular signal, the roughness encoding of common.cuh:
+// <kSpec, kRough, kSh> (the specular signal, the roughness encoding of common.cuh:
 // decode_roughness, applied to the centre's roughness and to each tap's, as the TPU kernel's
-// rough_sq), at most kMinCtas' register budget. Bound by its 8 gathers a pixel, each of a
-// texel up to 30 px x the hit-distance factor away:
+// rough_sq, the SH plane), at most kMinCtas' register budget. Bound by its 8 gathers
+// a pixel, each of a texel up to 30 px x the hit-distance factor away:
 //   - the taps in a rolled loop (an unrolled one holds every tap's code; the offsets and
 //     Gaussians are read from the parameter block by the tap's index);
 //   - each tap's packed normal and signal as one float4 each, issued with its viewZ before
@@ -26,7 +29,8 @@
 //     the reciprocal of its per-pixel scale, and the specular t by __fdividef. Each moves a
 //     value by an ulp or two, which can flip a threshold only at a tap that sits on it; the
 //     A/B on the H100 found them faster with no value more outside the tolerance (PERF.md);
-//   - the centre's signal read, and the output written, as one float4.
+//   - the centre's signal read, and the output written, as one float4; with SH the tap's SH
+//     texel is one more float4, issued with the signal's.
 #include "relax_common.cuh"
 
 namespace {
@@ -41,6 +45,8 @@ struct PrepassArgs {
   const float* view_z;  // (h, w) raw
   const float* nr;      // (h, w, 4)
   float* out;           // (h, w, 4)
+  const float* sh;      // (h, w, 4) the SH plane (kSh only)
+  float* out_sh;        // (h, w, 4) (kSh only)
   relax::Frame f;
   float denoising_range, frustum_size_scale, blur_radius, nwp, ha, min_hd_weight,
       depth_threshold, min_material;
@@ -48,12 +54,12 @@ struct PrepassArgs {
   float unproject, normal_lobe_fraction, rf, lobe_tan_scale;  // specular only
 };
 
-__device__ __forceinline__ float4 clip(float4 v) {  // [0, FP16_MAX]
-  return make_float4(fminf(fmaxf(v.x, 0.0f), 65504.0f), fminf(fmaxf(v.y, 0.0f), 65504.0f),
-                     fminf(fmaxf(v.z, 0.0f), 65504.0f), fminf(fmaxf(v.w, 0.0f), 65504.0f));
+__device__ __forceinline__ float4 clip(float4 v, float lo) {  // [lo, FP16_MAX]
+  return make_float4(fminf(fmaxf(v.x, lo), 65504.0f), fminf(fmaxf(v.y, lo), 65504.0f),
+                     fminf(fmaxf(v.z, lo), 65504.0f), fminf(fmaxf(v.w, lo), 65504.0f));
 }
 
-template <bool kSpec, int kRough>
+template <bool kSpec, int kRough, bool kSh>
 __global__ void __launch_bounds__(256, kMinCtas) relax_prepass_kernel(PrepassArgs a) {
   const int x = blockIdx.x * nrd::kBlock + threadIdx.x;
   const int y = blockIdx.y * nrd::kBlock + threadIdx.y;
@@ -63,12 +69,16 @@ __global__ void __launch_bounds__(256, kMinCtas) relax_prepass_kernel(PrepassArg
   const float4* sig = reinterpret_cast<const float4*>(a.signal);
   const float4* nr = reinterpret_cast<const float4*>(a.nr);
   float4* out = reinterpret_cast<float4*>(a.out);
+  const float4* shp = reinterpret_cast<const float4*>(a.sh);
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 
   const float4 c = __ldg(sig + i);
+  const float4 sh_c = kSh ? __ldg(shp + i) : zero;
   if (a.blur_radius <= 0.0f) {  // the pass is off: the signal passes through
     float4 o = c;
     if constexpr (kSpec) o.w = fmaxf(fminf(c.w, a.denoising_range), 0.0f);
-    out[i] = clip(o);
+    out[i] = clip(o, 0.0f);
+    if constexpr (kSh) reinterpret_cast<float4*>(a.out_sh)[i] = clip(sh_c, -65504.0f);
     return;
   }
   const float fw = (float)a.f.w, fh = (float)a.f.h;
@@ -121,6 +131,7 @@ __global__ void __launch_bounds__(256, kMinCtas) relax_prepass_kernel(PrepassArg
   const float uw = u * fw, vh = v * fh;
 
   float acc[4] = {c.x, c.y, c.z, kSpec ? hit : c.w};
+  float4 acc_sh = sh_c;
   float wsum = 1.0f;
 #pragma unroll 1
   for (int k = 0; k < kTaps; ++k) {
@@ -129,6 +140,7 @@ __global__ void __launch_bounds__(256, kMinCtas) relax_prepass_kernel(PrepassArg
     const size_t t = img.index(nrd::to_index(floorf(us * fw)), nrd::to_index(floorf(vs * fh)));
     const float4 s_tap = __ldg(sig + t);  // issued before the weights, used where w_ != 0
     const float4 ns4 = __ldg(nr + t);
+    const float4 sh_tap = kSh ? __ldg(shp + t) : zero;
     const float zs = relax::view_z(a.f, __ldg(a.view_z + t));
     const V3 ns = nrd::unpack_normal(ns4.x, ns4.y);
     const V3 xs = relax::world_pos(a.f, us, vs, zs);
@@ -155,21 +167,24 @@ __global__ void __launch_bounds__(256, kMinCtas) relax_prepass_kernel(PrepassArg
     acc[1] = acc[1] + s.y * w_;
     acc[2] = acc[2] + s.z * w_;
     if constexpr (!kSpec) acc[3] = acc[3] + s3 * w_;
+    if constexpr (kSh) acc_sh = nrd::add_weighted(acc_sh, w_ == 0.0f ? zero : sh_tap, w_);
   }
   float4 o = make_float4(acc[0] / wsum, acc[1] / wsum, acc[2] / wsum, 0.0f);
   if constexpr (kSpec)
     o.w = min_hit == 1e6f ? 0.0f : min_hit;
   else
     o.w = acc[3] / wsum;
-  out[i] = clip(o);
+  out[i] = clip(o, 0.0f);
+  if constexpr (kSh)
+    reinterpret_cast<float4*>(a.out_sh)[i] = clip(nrd::divide(acc_sh, wsum), -65504.0f);
 }
 
-template <bool kSpec>
+template <bool kSpec, bool kSh>
 cudaError_t launch(const PrepassArgs& a, int rough, dim3 grid, dim3 block, cudaStream_t stream) {
   switch (rough) {
-    case 0: relax_prepass_kernel<kSpec, 0><<<grid, block, 0, stream>>>(a); break;
-    case 1: relax_prepass_kernel<kSpec, 1><<<grid, block, 0, stream>>>(a); break;
-    case 2: relax_prepass_kernel<kSpec, 2><<<grid, block, 0, stream>>>(a); break;
+    case 0: relax_prepass_kernel<kSpec, 0, kSh><<<grid, block, 0, stream>>>(a); break;
+    case 1: relax_prepass_kernel<kSpec, 1, kSh><<<grid, block, 0, stream>>>(a); break;
+    case 2: relax_prepass_kernel<kSpec, 2, kSh><<<grid, block, 0, stream>>>(a); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
@@ -177,7 +192,7 @@ cudaError_t launch(const PrepassArgs& a, int rough, dim3 grid, dim3 block, cudaS
 
 }  // namespace
 
-// ptrs: signal, view_z, nr, out
+// ptrs: signal, view_z, nr, out, sh, out_sh (both null without SH)
 // consts: frame geometry (relax::load_frame), denoising_range, frustum_size_scale,
 //         blur_radius, nwp, ha, min_hd_weight, depth_threshold, min_material,
 //         offsets[16] (x, y per tap), gaussian weights[8], specular (0 or 1), unproject,
@@ -189,6 +204,8 @@ extern "C" int nrd_relax_prepass(void* const* p, const float* c, int w, int h, v
   a.view_z = (const float*)p[1];
   a.nr = (const float*)p[2];
   a.out = (float*)p[3];
+  a.sh = (const float*)p[4];
+  a.out_sh = (float*)p[5];
   a.f = relax::load_frame(c, w, h);
   const float* q = c + relax::kFrameConsts;
   a.denoising_range = q[0];
@@ -208,9 +225,17 @@ extern "C" int nrd_relax_prepass(void* const* p, const float* c, int w, int h, v
   a.lobe_tan_scale = q[36];
   const int rough = (int)q[37];
   if ((spec != 0.0f && spec != 1.0f) || (float)rough != q[37]) return (int)cudaErrorInvalidValue;
+  const bool sh = a.sh != nullptr;
+  if (sh != (a.out_sh != nullptr)) return (int)cudaErrorInvalidValue;
   const dim3 block(nrd::kBlock, nrd::kBlock);
   const dim3 grid((w + nrd::kBlock - 1) / nrd::kBlock, (h + nrd::kBlock - 1) / nrd::kBlock);
-  const cudaError_t err = spec != 0.0f ? launch<true>(a, rough, grid, block, (cudaStream_t)stream)
-                                       : launch<false>(a, rough, grid, block, (cudaStream_t)stream);
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
+  if (spec != 0.0f)
+    err = sh ? launch<true, true>(a, rough, grid, block, s)
+             : launch<true, false>(a, rough, grid, block, s);
+  else
+    err = sh ? launch<false, true>(a, rough, grid, block, s)
+             : launch<false, false>(a, rough, grid, block, s);
   return (int)err;
 }

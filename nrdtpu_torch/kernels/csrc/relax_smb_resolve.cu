@@ -5,16 +5,20 @@
 // quality and smb_found, and the CatRom-12 / bilinear-custom samples of 1 to 4 (h, w, 4)
 // histories. With the specular signal also the un-normalised 3x3 normal average, the 3x3 min
 // of the current specular hitT (0 counts as NRD_INF) and the previous reflection hitT,
-// bilinear with the custom weights. Replaces nrdtpu/kernels/relax_pallas.py:1000
+// bilinear with the custom weights. With the SH variants also the bf16 SH histories (the slow
+// and the responsive one of each signal), bilinear with the custom weights at the footprint's
+// 2x2 only, never through the CatRom: JAX's bil_planes (relax_pallas.py:1003, :1028-1035;
+// resample.bilinear_custom at kernels.py:607-610, :988-991). Replaces
+// nrdtpu/kernels/relax_pallas.py:1000
 // relax_smb_resolve; computes nrdtpu/passes/relax/kernels.py:376-394, :426, :485-549,
 // :580-583 and :805-814 per pixel. The plain
 // version is nrdtpu_torch/kernels/relax_smb_resolve.py:relax_smb_resolve_ref.
 //
 // Design for the H100: one thread per pixel in 16x16 CTAs, one instance per mode
-// <kSpec, kNHist> (the specular planes, the number of histories), so that each holds only
-// its own state, at most kMinCtas' register budget (2 CTAs an SM for 3 or 4 histories:
-// RELAX_DIFFUSE_SPECULAR's <true, 4>, both signals' slow and responsive histories). Bound by
-// its gathers:
+// <kSpec, kNHist, kNSh> (the specular planes, the number of histories, the number of SH
+// histories: 0, or as many as histories), so that each holds only its own state, at most
+// kMinCtas' register budget (2 CTAs an SM for 3 or 4 histories: RELAX_DIFFUSE_SPECULAR's
+// <true, 4, .>, both signals' slow and responsive histories). Bound by its gathers:
 //   - the 3x3 neighbourhood reads each current texel 9 times: each CTA first stages its
 //     18x18 window (halo 1) in shared memory, each texel's octahedral normal decoded once
 //     and, with the specular signal, its hitT as the min counts it (0 -> NRD_INF);
@@ -28,7 +32,9 @@
 //     texels). The 5 samples keep their order: summing the 12 texels directly, with the
 //     CatRom weights' products, moved values outside the tolerance where the history's
 //     second moment cancels (PERF.md);
-//   - each history written as one float4.
+//   - each history written as one float4;
+//   - each SH history's 2x2 as four 8-byte loads (uint2), widened to float, written as one
+//     float4.
 #include "relax_common.cuh"
 
 namespace {
@@ -55,12 +61,14 @@ struct RelaxSmbArgs {
   const float* hist[kMaxHistories];  // (h, w, 4) each
   const float* spec_hit;   // (h, w) current specular hitT (PrePass output), spec only
   const float* prev_ht;    // (h, w) previous reflection hitT, spec only
-  int w, h, nhist;
+  const uint2* sh[kMaxHistories];  // (h, w, 4) bf16 each: the SH histories
+  float* sh_out;           // (nsh, h, w, 4)
+  int w, h, nhist, nsh;
   float view_z_scale, rect_prev_w, rect_prev_h, res_w, res_h, min_material;
   float m[9];              // world_prev_to_world rotation, row-major
 };
 
-template <bool kSpec, int kNHist>
+template <bool kSpec, int kNHist, int kNSh>
 __global__ void __launch_bounds__(256, kNHist <= 2 ? kMinCtas : 2)
     relax_smb_resolve_kernel(RelaxSmbArgs a) {
   // every thread of the CTA stages, then the ones outside the image leave
@@ -200,15 +208,25 @@ __global__ void __launch_bounds__(256, kNHist <= 2 ? kMinCtas : 2)
   float4* hist_out = reinterpret_cast<float4*>(a.hist_out);
 #pragma unroll
   for (int s = 0; s < kNHist; ++s) hist_out[s * plane + i] = out[s];
+
+  // the SH histories: the custom-weight bilinear at the footprint's 2x2
+  float4* sh_out = reinterpret_cast<float4*>(a.sh_out);
+#pragma unroll
+  for (int s = 0; s < kNSh; ++s)
+    sh_out[s * plane + i] = nrd::bilinear_custom4(a.sh[s], a.w, a.h, bx, by, cw);
 }
 
 template <bool kSpec>
 cudaError_t launch(const RelaxSmbArgs& a, dim3 grid, dim3 block, cudaStream_t stream) {
-  switch (a.nhist) {
-    case 1: relax_smb_resolve_kernel<kSpec, 1><<<grid, block, 0, stream>>>(a); break;
-    case 2: relax_smb_resolve_kernel<kSpec, 2><<<grid, block, 0, stream>>>(a); break;
-    case 3: relax_smb_resolve_kernel<kSpec, 3><<<grid, block, 0, stream>>>(a); break;
-    case 4: relax_smb_resolve_kernel<kSpec, 4><<<grid, block, 0, stream>>>(a); break;
+  // the SH histories ride the 2- and 4-history instances, as many as histories
+  if (a.nsh != 0 && a.nsh != a.nhist) return cudaErrorInvalidValue;
+  switch (a.nhist * 8 + a.nsh) {
+    case 8: relax_smb_resolve_kernel<kSpec, 1, 0><<<grid, block, 0, stream>>>(a); break;
+    case 16: relax_smb_resolve_kernel<kSpec, 2, 0><<<grid, block, 0, stream>>>(a); break;
+    case 24: relax_smb_resolve_kernel<kSpec, 3, 0><<<grid, block, 0, stream>>>(a); break;
+    case 32: relax_smb_resolve_kernel<kSpec, 4, 0><<<grid, block, 0, stream>>>(a); break;
+    case 18: relax_smb_resolve_kernel<kSpec, 2, 2><<<grid, block, 0, stream>>>(a); break;
+    case 36: relax_smb_resolve_kernel<kSpec, 4, 4><<<grid, block, 0, stream>>>(a); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
@@ -218,9 +236,9 @@ cudaError_t launch(const RelaxSmbArgs& a, dim3 grid, dim3 block, cudaStream_t st
 
 // ptrs: smb_uv, xv_prev_z, base_thr, nr, prev_vz, prev_mat, prev_hl, prev_nr, planes,
 //       hist_out, 4 history slots (the first nhist used), spec_hit, prev_ht (null without
-//       spec)
+//       spec), sh_out, 4 SH history slots (the first nsh used; bf16, null without SH)
 // consts: view_z_scale, rect_prev_w, rect_prev_h, res_w, res_h, min_material, m[9], nhist,
-//         spec (0 or 1)
+//         spec (0 or 1), nsh (0, or nhist: 2 or 4)
 extern "C" int nrd_relax_smb_resolve(void* const* p, const float* c, int w, int h,
                                      void* stream) {
   RelaxSmbArgs a;
@@ -242,6 +260,11 @@ extern "C" int nrd_relax_smb_resolve(void* const* p, const float* c, int w, int 
   const bool spec = c[16] != 0.0f;
   a.spec_hit = (const float*)p[14];
   a.prev_ht = (const float*)p[15];
+  a.nsh = (int)c[17];
+  a.sh_out = (float*)p[16];
+  if (a.nsh < 0 || a.nsh > kMaxHistories || (a.nsh > 0 && a.sh_out == nullptr))
+    return (int)cudaErrorInvalidValue;
+  for (int s = 0; s < kMaxHistories; ++s) a.sh[s] = (const uint2*)p[17 + (s < a.nsh ? s : 0)];
   if (spec && (a.spec_hit == nullptr || a.prev_ht == nullptr)) return (int)cudaErrorInvalidValue;
   a.view_z_scale = c[0];
   a.rect_prev_w = c[1];

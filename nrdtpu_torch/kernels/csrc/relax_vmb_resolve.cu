@@ -4,7 +4,10 @@
 // per-tap in-screen threshold and by material; any / all of the four; the specular slow and
 // responsive histories through the CatRom footprint where the surface-motion footprint was
 // bicubic and all four pass, else with the custom bilinear weights; the previous reflection
-// hitT and packed normal/roughness, plain bilinear at uv x resolution_scale_prev. Replaces
+// hitT and packed normal/roughness, plain bilinear at uv x resolution_scale_prev. With the SH
+// variants (kSh) also the bf16 specular SH slow and responsive histories, bilinear with the
+// custom weights at the 2x2 only (kernels.py:992-995; the TPU kernel's sh_prev /
+// sh_resp_prev, relax_pallas.py:1222, :1246-1249). Replaces
 // nrdtpu/kernels/relax_pallas.py:1219 relax_vmb_resolve (without its block-base capture);
 // computes nrdtpu/passes/relax/kernels.py:742-796 per pixel. The plain version is
 // nrdtpu_torch/kernels/relax_vmb_resolve.py:relax_vmb_resolve_ref.
@@ -15,7 +18,7 @@
 // only where its weight is non-zero, the 12 texels of the footprint each once where the
 // samples land on their texels), in place of 5 bilinear samples of 16 scalar reads per
 // history; the previous packed normal is read as four float4; every (h, w, 4) output is
-// written as one float4.
+// written as one float4; an SH history's 2x2 is four 8-byte loads (uint2) widened to float.
 #include "relax_common.cuh"
 
 namespace {
@@ -40,10 +43,14 @@ struct RelaxVmbArgs {
   const float* resp;      // (h, w, 4) specular responsive history
   float* sig;             // (3, h, w, 4): spec_vmb, spec_vmb_resp, nr_packed
   float* planes;          // (3, h, w): hit_t, any, all
+  const uint2* sh;        // (h, w, 4) bf16 specular SH slow history (kSh only)
+  const uint2* sh_resp;   // (h, w, 4) bf16 specular SH responsive history (kSh only)
+  float* sh_out;          // (2, h, w, 4): sh_vmb, sh_vmb_resp (kSh only)
   relax::Frame pf;        // the previous camera's frustum vectors
   float rect_prev_w, rect_prev_h, res_scale_x, res_scale_y, min_material;
 };
 
+template <bool kSh>
 __global__ void __launch_bounds__(256, kMinCtas) relax_vmb_resolve_kernel(RelaxVmbArgs a) {
   const int x = blockIdx.x * nrd::kBlock + threadIdx.x;
   const int y = blockIdx.y * nrd::kBlock + threadIdx.y;
@@ -110,12 +117,17 @@ __global__ void __launch_bounds__(256, kMinCtas) relax_vmb_resolve_kernel(RelaxV
   a.planes[i] = ht;
   a.planes[plane + i] = any ? 1.0f : 0.0f;
   a.planes[2 * plane + i] = all ? 1.0f : 0.0f;
+  if constexpr (kSh) {  // the SH histories: the custom-weight bilinear at the 2x2
+    float4* sh_out = reinterpret_cast<float4*>(a.sh_out);
+    sh_out[i] = nrd::bilinear_custom4(a.sh, w, h, bx, by, cw);
+    sh_out[plane + i] = nrd::bilinear_custom4(a.sh_resp, w, h, bx, by, cw);
+  }
 }
 
 }  // namespace
 
 // ptrs: uv, n, xm, thr_base, nr, smb_found, prev_vz, prev_mat, prev_ht, prev_nr, hist, resp,
-//       sig, planes
+//       sig, planes, then sh, sh_resp (bf16) and sh_out (all three null without SH)
 // consts: the previous camera's geometry (relax::load_frame), rect_prev_w, rect_prev_h,
 //         res_scale_x, res_scale_y, min_material
 extern "C" int nrd_relax_vmb_resolve(void* const* p, const float* c, int w, int h,
@@ -135,6 +147,12 @@ extern "C" int nrd_relax_vmb_resolve(void* const* p, const float* c, int w, int 
   a.resp = (const float*)p[11];
   a.sig = (float*)p[12];
   a.planes = (float*)p[13];
+  a.sh = (const uint2*)p[14];
+  a.sh_resp = (const uint2*)p[15];
+  a.sh_out = (float*)p[16];
+  const bool sh = a.sh != nullptr;
+  if (sh != (a.sh_resp != nullptr) || sh != (a.sh_out != nullptr))
+    return (int)cudaErrorInvalidValue;
   a.pf = relax::load_frame(c, w, h);
   const float* q = c + relax::kFrameConsts;
   a.rect_prev_w = q[0];
@@ -144,6 +162,9 @@ extern "C" int nrd_relax_vmb_resolve(void* const* p, const float* c, int w, int 
   a.min_material = q[4];
   dim3 block(nrd::kBlock, nrd::kBlock);
   dim3 grid((w + nrd::kBlock - 1) / nrd::kBlock, (h + nrd::kBlock - 1) / nrd::kBlock);
-  relax_vmb_resolve_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  if (sh)
+    relax_vmb_resolve_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  else
+    relax_vmb_resolve_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

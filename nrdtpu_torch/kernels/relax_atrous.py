@@ -29,14 +29,22 @@ texel's roughness is unpacked with the roughness encoding (`:1352`, `:1507`), a 
 parameter of the kernel. With both signals each tap's geometry (plane distance, Gaussian,
 in-screen test, denoising range, normal angle) serves both, and each signal keeps its own
 normal weight, phi, max luminance difference, min material and confidence relaxation, as
-the XLA function's per-signal `taps_loop` does.
+the XLA function's per-signal `taps_loop` does. With the SH variants (`sh`) each signal's SH
+plane is filtered with the signal's weights (not squared after iteration 0, `:1494`,
+`:1535-1537`, `:1545`), at iteration 0 with the 5x5 estimation's SH in its place where the
+history is short (`:1568`, `:1585-1586`, `:1596-1598`), and after iteration 0 the diffuse lobe
+fraction's base is 1.0 in place of the settings' fraction (`:1363`, `lobe_fraction(sh=True)`),
+in the same launch: the counterpart of the TPU kernel's `d_sh` / `s_sh` (`relax_pallas.py:
+350-351`). The last iteration's YCoCg of the SH variants' signal (`:1600-1602`) stays in the
+pass glue.
 
 Bound on the H100: gathers. Per pixel it reads the centre's signal, viewZ, packed normal and
 history length (40 B) and 8 taps of viewZ, packed normal and signal (8 x 36 B, `step` px
 away: 1 to 16 at the default 5 iterations); iteration 0 reads 8 more signal taps of the 3x3
 and, where the history is short, the 25 taps of the 5x5 (L1 neighbours); it writes 16 B. A
 tap is three loads (a float4 of signal, a float4 of `nr`, a float of viewZ); iteration 0 reads
-the tile's window staged in shared memory. With both signals a tap reads one float4 more.
+the tile's window staged in shared memory. With both signals a tap reads one float4 more, and
+with SH one float4 more a signal (its SH, staged at iteration 0 too).
 """
 
 from __future__ import annotations
@@ -67,12 +75,24 @@ def normal_weight_param2(angle_fraction):
     return RC.get_normal_weight_param2(torch.ones(()), angle_fraction)
 
 
-def lobe_fraction(lobe_angle_fraction, step_size, is_first):
-    """The diffuse lobe fraction before its history-length relaxation, float32 (`:1360-1364`):
-    the settings' fraction at iteration 0, else fraction / sqrt(step)."""
+def lobe_fraction(lobe_angle_fraction, step_size, is_first, sh=False):
+    """The diffuse lobe fraction before its history-length relaxation (`:1360-1364`): the
+    settings' fraction at iteration 0, else base / sqrt(step), the base the settings' fraction
+    (float32), or with the SH variants 1.0 (`:1363`: a Python double in XLA, as the result)."""
     if is_first:
         return float(F32(lobe_angle_fraction))
+    if sh:
+        return 1.0 / step_size ** 0.5
     return float(F32(lobe_angle_fraction) / F32(step_size ** 0.5))
+
+
+def lobe_span(lobe_fraction, sh=False):
+    """The span (fraction - 0.99) of the relaxation lerp(0.99, fraction, saturate(hl / 5))
+    after iteration 0, as XLA takes it: float32 minus float32, or with the SH variants the
+    Python double's difference rounded to float32 once."""
+    if sh:
+        return float(F32(lobe_fraction - 0.99))
+    return float(F32(lobe_fraction) - F32(0.99))
 
 
 def _relaxation(confidence, relaxation):
@@ -96,10 +116,10 @@ def _atrous_one(signal, view_z_in, normal_roughness, history_length, diff_confid
                 lobe_fraction, lobe_angle_fraction, phi_luminance,
                 max_luminance_relative_difference, min_material, history_threshold,
                 confidence_relaxation, specular=None,
-                roughness_encoding=RoughnessEncoding.LINEAR):
+                roughness_encoding=RoughnessEncoding.LINEAR, sh=None):
     """The plain version of one signal (the XLA iteration, op for op). lobe_fraction is
     `lobe_fraction(...)` of this iteration, lobe_angle_fraction the settings' (the 5x5
-    estimation's normal weight and the specular lobe)."""
+    estimation's normal weight and the specular lobe). With `sh` it returns (signal, SH)."""
     h, w = view_z_in.shape
     dev = signal.device
     uv = resample.pixel_uv_grid(h, w, dev)
@@ -115,9 +135,9 @@ def _atrous_one(signal, view_z_in, normal_roughness, history_length, diff_confid
     if is_first:
         dlf0 = float(F32(lobe_fraction))
     else:
-        # lerp(0.99, fraction, saturate(hl / 5)) with XLA's float32 (fraction - 0.99)
-        span = float(F32(lobe_fraction) - F32(0.99))
-        dlf0 = 0.99 + span * nm.saturate(history_length / 5.0)
+        # lerp(0.99, fraction, saturate(hl / 5)) with XLA's (fraction - 0.99)
+        dlf0 = 0.99 + lobe_span(lobe_fraction, sh is not None) * nm.saturate(
+            history_length / 5.0)
     dlf, lum_relax = dlf0, ones
     if diff_confidence is not None:
         rr, rl = _relaxation(diff_confidence, confidence_relaxation)
@@ -175,6 +195,7 @@ def _atrous_one(signal, view_z_in, normal_roughness, history_length, diff_confid
         acc = signal * w0
     else:
         acc = signal * torch.tensor([w0, w0, w0, w0 * w0], dtype=torch.float32, device=dev)
+    acc_sh = None if sh is None else sh * w0
     rinv_x, rinv_y = float(F32(1.0) / F32(w)), float(F32(1.0) / F32(h))
     for yy in range(-1, 2):
         for xx in range(-1, 2):
@@ -212,25 +233,34 @@ def _atrous_one(signal, view_z_in, normal_roughness, history_length, diff_confid
                 acc = acc + s * w_[..., None]
             else:
                 acc = acc + s * torch.stack([w_, w_, w_, w_ * w_], -1)
+            if sh is not None:
+                acc_sh = acc_sh + resample.sample_nearest(sh, uv_s) * w_[..., None]
+    out_sh = None if sh is None else acc_sh / wsum[..., None]
     if is_first:
         out = acc / wsum[..., None]
         m1 = nm.luminance(out[..., :3])
         out = torch.cat([out[..., :3], torch.clamp_min(out[..., 3] - m1 * m1, 0.0)[..., None]], -1)
-        return torch.where((history_length >= history_threshold)[..., None], out,
-                           _variance_estimation(signal, normal_roughness, history_length, n,
-                                                mat_c, lobe_angle_fraction, min_material,
-                                                roughness_encoding))
-    return acc / torch.stack([wsum, wsum, wsum, wsum * wsum], -1)
+        sve = _variance_estimation(signal, normal_roughness, history_length, n, mat_c,
+                                   lobe_angle_fraction, min_material, roughness_encoding, sh)
+        use_atrous = (history_length >= history_threshold)[..., None]
+        out = torch.where(use_atrous, out, sve[0])
+        if sh is not None:
+            out_sh = torch.where(use_atrous, out_sh, sve[1])
+    else:
+        out = acc / torch.stack([wsum, wsum, wsum, wsum * wsum], -1)
+    return out if sh is None else (out, out_sh)
 
 
 def _variance_estimation(signal, normal_roughness, history_length, n, mat_c,
-                         lobe_angle_fraction, min_material, roughness_encoding):
-    """The 5x5 spatial variance estimation of short histories (`:1560-1598`)."""
+                         lobe_angle_fraction, min_material, roughness_encoding, sh=None):
+    """The 5x5 spatial variance estimation of short histories (`:1560-1598`): (signal, SH or
+    None)."""
     nwp = normal_weight_param2(lobe_angle_fraction)
     swsum = torch.zeros_like(history_length)
     s_rgb = torch.zeros_like(signal[..., :3])
     s_m1 = torch.zeros_like(history_length)
     s_m2 = torch.zeros_like(history_length)
+    s_sh = None if sh is None else torch.zeros_like(sh)
     for dy, dx in stencil.offsets_square(2):
         ns, _, ms = fe.unpack_normal_roughness(stencil.shifted(normal_roughness, dy, dx),
                                                roughness_encoding=roughness_encoding)
@@ -241,13 +271,16 @@ def _variance_estimation(signal, normal_roughness, history_length, n, mat_c,
         s_rgb = s_rgb + s[..., :3] * w_[..., None]
         s_m1 = s_m1 + nm.luminance(s[..., :3]) * w_
         s_m2 = s_m2 + s[..., 3] * w_
+        if sh is not None:
+            s_sh = s_sh + stencil.shifted(sh, dy, dx) * w_[..., None]
     swsum = torch.clamp_min(swsum, 1e-6)
     s_rgb = s_rgb / swsum[..., None]
     s_m1 = s_m1 / swsum
     s_m2 = s_m2 / swsum
     boost = torch.clamp_min(torch.full_like(history_length, 4.0) / (history_length + 1.0), 1.0)
     s_var = torch.clamp_min(s_m2 - s_m1 * s_m1, 0.0) * boost
-    return torch.cat([s_rgb, s_var[..., None]], -1)
+    return torch.cat([s_rgb, s_var[..., None]], -1), (None if sh is None
+                                                      else s_sh / swsum[..., None])
 
 
 def _frame_halves(frame_index):
@@ -259,15 +292,19 @@ def _frame_halves(frame_index):
 SIGNAL_CONSTS = ("phi_luminance", "max_luminance_relative_difference", "min_material")
 
 
-def relax_atrous_ref(signal, *planes, specular=None, **kw):
+def relax_atrous_ref(signal, *planes, specular=None, sh=None, **kw):
     """Plain PyTorch version of the kernel: `_atrous_one` of the signal, or with both signals
-    (`signal` the pair (diffuse, specular), SIGNAL_CONSTS pairs) of each signal with its own
-    constants, the diffuse one without `specular`."""
+    (`signal` the pair (diffuse, specular), SIGNAL_CONSTS pairs, `sh` a pair) of each signal
+    with its own constants, the diffuse one without `specular`; the outputs as the wrapper
+    returns them."""
     if not isinstance(signal, (tuple, list)):
-        return _atrous_one(signal, *planes, specular=specular, **kw)
-    return tuple(_atrous_one(sig, *planes, specular=sp,
-                             **{n: (v[k] if n in SIGNAL_CONSTS else v) for n, v in kw.items()})
-                 for k, (sig, sp) in enumerate(zip(signal, (None, specular))))
+        return _atrous_one(signal, *planes, specular=specular, sh=sh, **kw)
+    outs = [_atrous_one(sig, *planes, specular=sp, sh=None if sh is None else sh[k],
+                        **{n: (v[k] if n in SIGNAL_CONSTS else v) for n, v in kw.items()})
+            for k, (sig, sp) in enumerate(zip(signal, (None, specular)))]
+    if sh is None:
+        return tuple(outs)
+    return tuple(o[0] for o in outs) + tuple(o[1] for o in outs)
 
 
 def relax_atrous(signal, view_z_in, normal_roughness, history_length, diff_confidence=None,
@@ -276,7 +313,7 @@ def relax_atrous(signal, view_z_in, normal_roughness, history_length, diff_confi
                  depth_threshold, lobe_fraction, lobe_angle_fraction, phi_luminance,
                  max_luminance_relative_difference, min_material, history_threshold,
                  confidence_relaxation, specular=None,
-                 roughness_encoding=RoughnessEncoding.LINEAR):
+                 roughness_encoding=RoughnessEncoding.LINEAR, sh=None):
     """signal (h, w, 4): at iteration 0 (rgb, 2nd moment), later (rgb, variance);
     history_length (h, w); the optional (h, w) planes IN_DIFF_CONFIDENCE, IN_SPEC_CONFIDENCE
     and the TA's specular reprojection confidence; frustum = the 9 floats right, up, forward;
@@ -287,7 +324,9 @@ def relax_atrous(signal, view_z_in, normal_roughness, history_length, diff_confi
     roughness_edge_stopping_enabled); roughness_encoding: how the packed roughness is
     unpacked. Returns (h, w, 4) = (rgb, variance). With both signals `signal` and the
     constants of SIGNAL_CONSTS are (diffuse, specular) pairs, `specular` is given, and it
-    returns the pair of outputs."""
+    returns the pair of outputs. With the SH variants sh is the signal's (h, w, 4) SH (a pair
+    with both signals, and lobe_fraction `lobe_fraction(..., sh=True)`), and the SH outputs
+    follow the signals': (signal, SH), or (diffuse, specular, diffuse SH, specular SH)."""
     global launches
     kw = dict(step_size=step_size, is_first=is_first, frame_index=frame_index, frustum=frustum,
               ortho_mode=ortho_mode, view_z_scale=view_z_scale,
@@ -297,14 +336,16 @@ def relax_atrous(signal, view_z_in, normal_roughness, history_length, diff_confi
               max_luminance_relative_difference=max_luminance_relative_difference,
               min_material=min_material, history_threshold=history_threshold,
               confidence_relaxation=confidence_relaxation, specular=specular,
-              roughness_encoding=roughness_encoding)
+              roughness_encoding=roughness_encoding, sh=sh)
     planes = (diff_confidence, spec_confidence, reprojection_confidence)
     pair = isinstance(signal, (tuple, list))
     if pair and (len(signal) != 2 or specular is None
-                 or any(len(kw[n]) != 2 for n in SIGNAL_CONSTS)):
+                 or any(len(kw[n]) != 2 for n in SIGNAL_CONSTS)
+                 or (sh is not None and len(sh) != 2)):
         raise ValueError("both signals: (diffuse, specular), a pair of each of "
-                         f"{SIGNAL_CONSTS}, and `specular`")
+                         f"{SIGNAL_CONSTS}, `specular`, and an SH plane each or none")
     signals = tuple(signal) if pair else (signal,)
+    shs = () if sh is None else tuple(sh) if pair else (sh,)
     dev = build.kernel_device(signals[0])
     if dev is None:
         return relax_atrous_ref(signal, view_z_in, normal_roughness, history_length, *planes,
@@ -317,9 +358,11 @@ def relax_atrous(signal, view_z_in, normal_roughness, history_length, diff_confi
     ins += [(name, t, (h, w)) for name, t in zip(
         ("diff_confidence", "spec_confidence", "reprojection_confidence"), planes)
         if t is not None]
+    ins += [(f"sh[{k}]", t, (h, w, 4)) for k, t in enumerate(shs)]
     for name, t, shape in ins:
         build.check(name, t, dev, f32, shape)
     out = torch.empty((len(signals), h, w, 4), dtype=f32, device=dev)
+    out_sh = torch.empty((len(shs), h, w, 4), dtype=f32, device=dev) if shs else None
     per = [tuple(kw[n]) if pair else (kw[n], 0.0) for n in SIGNAL_CONSTS]
     w0 = G3[0] * G3[0]
     sp = specular or {}
@@ -329,9 +372,14 @@ def relax_atrous(signal, view_z_in, normal_roughness, history_length, diff_confi
               *_frame_halves(frame_index), w0, w0 * w0, G3[0] * G3[1], G3[1] * G3[1],
               *confidence_relaxation, specular is not None, lobe_angle_fraction,
               *[sp.get(k, 0.0) for k in SPECULAR_CONSTS],
-              build.ROUGHNESS_MODE[roughness_encoding], len(signals), *[v[1] for v in per]]
+              build.ROUGHNESS_MODE[roughness_encoding], len(signals), *[v[1] for v in per],
+              lobe_span(lobe_fraction, bool(shs))]
     second = [signals[1], out[1]] if pair else [None, None]
+    sh_ptrs = [t for k in range(2) for t in ((shs[k], out_sh[k]) if k < len(shs)
+                                             else (None, None))]
     build.launch("nrd_relax_atrous", [signals[0], view_z_in, normal_roughness, history_length,
-                                      out[0], *planes, *second], consts, w, h)
+                                      out[0], *planes, *second, *sh_ptrs], consts, w, h)
     launches += 1
-    return (out[0], out[1]) if pair else out[0]
+    if not (pair or shs):
+        return out[0]
+    return tuple(out) + (tuple(out_sh) if shs else ())

@@ -15,12 +15,16 @@ pixel and signal:
   - the sigma colour box and the clamp of the slow history in YCoCg (where
     `maxFastAccumulatedFrameNum < maxAccumulatedFrameNum`), the clamping factor, the antilag
     acceleration and reset towards the noisy signal, and the slow history's second-moment
-    correction.
+    correction;
+  - with the SH variants (`sh`, `sh_fast`), the SH: `lerp(sh, sh_fast, clamping_factor)`
+    (`:1260-1262`). In JAX this is glue beside the TPU kernel; the clamping factor exists only
+    inside this pass, so the launch takes each signal's two SH planes and writes the lerp.
 
 Bound on the H100: bytes. Per pixel it reads viewZ, the fast and fixed histories, the history
 length, the noisy signal and the slow history (72 B, every tap an L1 neighbour) and writes the
 slow and responsive histories (32 B): 104 B/px, 0.114 ms at 2560x1440 at 3.35 TB/s; with
-both signals viewZ and the history length are read once (200 B/px). The design for that card
+both signals viewZ and the history length are read once (200 B/px); SH adds 32 B read and
+16 B written a signal. The design for that card
 is in the source's header. Each signal has its own clamp flag, acceleration and reset amount
 (the specular one's scaled by 0.33 and 0.5, `:1219`, `:1244`).
 """
@@ -70,9 +74,9 @@ def _moments(view_z_in, responsive, noisy, view_z_scale, denoising_range):
 def _clamp_one(view_z_in, fast, fixed, history_length, noisy, slow, *, view_z_scale,
                denoising_range, history_fix_frame_num, color_box_sigma_scale, clamp,
                acceleration, reset_temporal_sigma_scale, reset_spatial_sigma_scale,
-               reset_amount):
+               reset_amount, sh=None, sh_fast=None):
     """The plain version of one signal (the XLA pass, op for op). Returns (slow, responsive)
-    histories, (h, w, 4) each."""
+    histories, (h, w, 4) each, and with `sh` the lerped SH third."""
     resp = responsive_history(fast, fixed, history_length,
                               history_fix_frame_num=history_fix_frame_num)
     m1, m2, nm1, nm2 = _moments(view_z_in, resp, noisy, view_z_scale, denoising_range)
@@ -94,6 +98,7 @@ def _clamp_one(view_z_in, fast, fixed, history_length, noisy, slow, *, view_z_sc
         dy_clamp == 0.0, 0.0,
         nm.saturate(dy_clamp / torch.where(torch.abs(denom) < 1e-15, 1e-15, denom)))
     clamping_factor = torch.where(in_fix, 1.0, clamping_factor)
+    sh_out = () if sh is None else (nm.lerp(sh, sh_fast, clamping_factor[..., None]),)
 
     hist_diff_l = acceleration * nm.luminance(torch.abs(out_resp_rgb - slow[..., :3]))
     hist_diff_l = hist_diff_l * clamping_factor
@@ -127,36 +132,44 @@ def _clamp_one(view_z_in, fast, fixed, history_length, noisy, slow, *, view_z_sc
     out_l = nm.luminance(out_slow_rgb)
     out_m2 = torch.clamp_min(slow[..., 3] + (out_l * out_l - slow_l * slow_l), 0.0)
     return (torch.cat([out_slow_rgb, out_m2[..., None]], -1),
-            torch.cat([out_resp_rgb, resp[..., 3:]], -1))
+            torch.cat([out_resp_rgb, resp[..., 3:]], -1)) + sh_out
 
 
 # the constants each signal has its own of; the others are shared
 SIGNAL_CONSTS = ("clamp", "acceleration", "reset_amount")
 
 
-def relax_clamp_moments_ref(view_z_in, fast, fixed, history_length, noisy, slow, **kw):
+def relax_clamp_moments_ref(view_z_in, fast, fixed, history_length, noisy, slow, sh=None,
+                            sh_fast=None, **kw):
     """Plain PyTorch version of the kernel: `_clamp_one` of the signal, or with both signals
     (the planes and SIGNAL_CONSTS pairs) of each signal with its own constants, returning
-    (diffuse slow, diffuse responsive, specular slow, specular responsive)."""
+    (diffuse slow, diffuse responsive, specular slow, specular responsive), and with `sh`
+    each signal's lerped SH after them."""
     if not isinstance(fast, (tuple, list)):
-        return _clamp_one(view_z_in, fast, fixed, history_length, noisy, slow, **kw)
-    out = ()
+        return _clamp_one(view_z_in, fast, fixed, history_length, noisy, slow, sh=sh,
+                          sh_fast=sh_fast, **kw)
+    out, shs = (), ()
     for k in range(2):
         kk = {n: (v[k] if n in SIGNAL_CONSTS else v) for n, v in kw.items()}
-        out += _clamp_one(view_z_in, fast[k], fixed[k], history_length, noisy[k], slow[k], **kk)
-    return out
+        r = _clamp_one(view_z_in, fast[k], fixed[k], history_length, noisy[k], slow[k],
+                       sh=None if sh is None else sh[k],
+                       sh_fast=None if sh is None else sh_fast[k], **kk)
+        out, shs = out + r[:2], shs + r[2:]
+    return out + shs
 
 
 def relax_clamp_moments(view_z_in, fast, fixed, history_length, noisy, slow, *, view_z_scale,
                         denoising_range, history_fix_frame_num, color_box_sigma_scale, clamp,
                         acceleration, reset_temporal_sigma_scale, reset_spatial_sigma_scale,
-                        reset_amount):
+                        reset_amount, sh=None, sh_fast=None):
     """fast (h, w, 4) the TA's responsive history, fixed (h, w, 4) HistoryFix's output (rgb),
     noisy (h, w, 4) the PrePass output (rgb), slow (h, w, 4) the TA's slow history (rgb, second
     moment); the constants float32 host values as the pass computes them. Returns (slow,
     responsive) histories, (h, w, 4) each. With both signals fast, fixed, noisy, slow and the
     constants of SIGNAL_CONSTS are (diffuse, specular) pairs, and it returns (diffuse slow,
-    diffuse responsive, specular slow, specular responsive)."""
+    diffuse responsive, specular slow, specular responsive). With the SH variants sh and
+    sh_fast are the TA's slow and responsive SH (h, w, 4) of the signal (pairs with both), and
+    each signal's lerp(sh, sh_fast, clamping factor) follows the histories in the result."""
     global launches
     kw = dict(view_z_scale=view_z_scale, denoising_range=denoising_range,
               history_fix_frame_num=history_fix_frame_num,
@@ -164,27 +177,33 @@ def relax_clamp_moments(view_z_in, fast, fixed, history_length, noisy, slow, *, 
               reset_temporal_sigma_scale=reset_temporal_sigma_scale,
               reset_spatial_sigma_scale=reset_spatial_sigma_scale, reset_amount=reset_amount)
     pair = isinstance(fast, (tuple, list))
+    if (sh is None) != (sh_fast is None):
+        raise ValueError("sh and sh_fast come together")
     sigs = [tuple(x) if pair else (x,) for x in (fast, fixed, noisy, slow)]
+    shs = [] if sh is None else [tuple(x) if pair else (x,) for x in (sh, sh_fast)]
     per = [tuple(kw[n]) if pair else (kw[n],) for n in SIGNAL_CONSTS]
     n = len(sigs[0])
-    if any(len(x) != n for x in sigs + per) or not 1 <= n <= 2:
+    if any(len(x) != n for x in sigs + per + shs) or not 1 <= n <= 2:
         raise ValueError("one signal, or the pair (diffuse, specular) of each plane and "
                          "of clamp, acceleration, reset_amount")
     dev = build.kernel_device(sigs[0][0])
     if dev is None:
-        return relax_clamp_moments_ref(view_z_in, fast, fixed, history_length, noisy, slow, **kw)
+        return relax_clamp_moments_ref(view_z_in, fast, fixed, history_length, noisy, slow, sh,
+                                       sh_fast, **kw)
     h, w = view_z_in.shape
     f32 = torch.float32
     build.check("view_z_in", view_z_in, dev, f32, (h, w))
     build.check("history_length", history_length, dev, f32, (h, w))
-    for name, planes in zip(("fast", "fixed", "noisy", "slow"), sigs):
+    for name, planes in zip(("fast", "fixed", "noisy", "slow", "sh", "sh_fast"), sigs + shs):
         for k, t in enumerate(planes):
             build.check(f"{name}[{k}]", t, dev, f32, (h, w, 4))
     out = torch.empty((n, 2, h, w, 4), dtype=f32, device=dev)
+    out_sh = torch.empty((n, h, w, 4), dtype=f32, device=dev) if shs else None
     fa, fi, no, sl = sigs
     ptrs = [view_z_in, fa[0], fi[0], history_length, no[0], sl[0], out[0, 0], out[0, 1]]
-    if n == 2:
-        ptrs += [fa[1], fi[1], no[1], sl[1], out[1, 0], out[1, 1]]
+    ptrs += [fa[1], fi[1], no[1], sl[1], out[1, 0], out[1, 1]] if n == 2 else [None] * 6
+    ptrs += [t for k in range(2) for t in ((shs[0][k], shs[1][k], out_sh[k])
+                                           if shs and k < n else (None,) * 3)]
     consts = [view_z_scale, denoising_range, history_fix_frame_num, color_box_sigma_scale,
               per[0][0], per[1][0], reset_temporal_sigma_scale, reset_spatial_sigma_scale,
               per[2][0], n]
@@ -192,4 +211,4 @@ def relax_clamp_moments(view_z_in, fast, fixed, history_length, noisy, slow, *, 
         consts += [per[0][1], per[1][1], per[2][1]]
     build.launch("nrd_relax_clamp_moments", ptrs, consts, w, h)
     launches += 1
-    return tuple(out.reshape(2 * n, h, w, 4))
+    return tuple(out.reshape(2 * n, h, w, 4)) + (tuple(out_sh) if shs else ())

@@ -16,11 +16,15 @@ carried over. Pixels whose history is long skip the taps. The centre's roughness
 specular weight reads, is unpacked with the roughness encoding (`:1024`), a template
 parameter of the specular kernel. With both signals each tap's plane distance and in-screen
 test serve both, and each signal has its own normal weight, min material and accumulator
-(`:1083-1114`).
+(`:1083-1114`). With the SH variants (`sh`) each signal's SH plane accumulates with its
+signal's tap weight where it is above 1e-4, over the same weight sum, and passes through where
+the fix does not apply (`:1095-1098`, `:1111-1114`, `:1124-1130`), in the same launch: the
+counterpart of the TPU kernel's `d_sh` / `s_sh` (`relax_pallas.py:1290`, `:1297-1298`).
 
 Bound on the H100: gathers. Per pixel it reads the centre's signal, viewZ, packed normal and
 history length (40 B) and, where the fix applies, 24 taps up to 2 x 14 px away; it writes
-16 B (with both signals 16 B more read a tap and written). The entry makes two launches on
+16 B (with both signals 16 B more read a tap and written; with SH 16 B more a tap and 32 B
+at the centre a signal). The entry makes two launches on
 the caller's stream and counts one: a prologue writes
 each texel's tap record (world position and material, unpacked normal and viewZ: 32 B) into
 a (h, w, 8) scratch plane that the wrapper allocates and drops after the call (118 MB at
@@ -48,8 +52,9 @@ SPECULAR_CONSTS = ("lobe_angle_fraction", "lobe_angle_slack",
 def _history_fix_one(signal, view_z_in, normal_roughness, history_length, *, frustum,
                      ortho_mode, view_z_scale, depth_threshold, base_stride, frame_num,
                      normal_power, min_material, specular=None,
-                     roughness_encoding=RoughnessEncoding.LINEAR):
-    """The plain version of one signal (the XLA stride-tap loop and the select)."""
+                     roughness_encoding=RoughnessEncoding.LINEAR, sh=None):
+    """The plain version of one signal (the XLA stride-tap loop and the select); with `sh`
+    also its SH plane, returning the pair."""
     h, w = view_z_in.shape
     dev = signal.device
     uv = resample.pixel_uv_grid(h, w, dev)
@@ -71,6 +76,7 @@ def _history_fix_one(signal, view_z_in, normal_roughness, history_length, *, fru
     ys_grid = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
 
     acc = signal
+    acc_sh = sh
     wsum = torch.ones_like(view_z)
     for j in range(-2, 3):
         for i in range(-2, 3):
@@ -98,41 +104,56 @@ def _history_fix_one(signal, view_z_in, normal_roughness, history_length, *, fru
             s = resample.texel_fetch(signal, px, py)
             acc = acc + torch.where((dw > 1e-4)[..., None], s * dw[..., None], 0.0)
             wsum = wsum + torch.where(dw > 1e-4, dw, 0.0)
-    return torch.where(apply_fix[..., None], acc / wsum[..., None], signal)
+            if sh is not None:
+                acc_sh = acc_sh + torch.where((dw > 1e-4)[..., None],
+                                              resample.texel_fetch(sh, px, py) * dw[..., None], 0.0)
+    fixed = torch.where(apply_fix[..., None], acc / wsum[..., None], signal)
+    if sh is None:
+        return fixed
+    return fixed, torch.where(apply_fix[..., None], acc_sh / wsum[..., None], sh)
 
 
-def relax_history_fix_ref(signal, *planes, min_material, specular=None, **kw):
+def relax_history_fix_ref(signal, *planes, min_material, specular=None, sh=None, **kw):
     """Plain PyTorch version of the kernel: `_history_fix_one` of the signal, or with both
-    signals (`signal` and `min_material` the pairs of the diffuse and the specular one's) of
-    each signal at its own min material, the diffuse one without `specular`."""
+    signals (`signal`, `min_material` and `sh` the pairs of the diffuse and the specular
+    one's) of each signal at its own min material, the diffuse one without `specular`; the
+    outputs as the wrapper returns them."""
     if not isinstance(signal, (tuple, list)):
         return _history_fix_one(signal, *planes, min_material=min_material, specular=specular,
-                                **kw)
-    return tuple(_history_fix_one(sig, *planes, min_material=m, specular=sp, **kw)
-                 for sig, m, sp in zip(signal, min_material, (None, specular)))
+                                sh=sh, **kw)
+    outs = [_history_fix_one(sig, *planes, min_material=m, specular=sp, sh=h_, **kw)
+            for sig, m, sp, h_ in zip(signal, min_material, (None, specular), sh or (None,) * 2)]
+    if sh is None:
+        return tuple(outs)
+    return tuple(o[0] for o in outs) + tuple(o[1] for o in outs)
 
 
 def relax_history_fix(signal, view_z_in, normal_roughness, history_length, *, frustum,
                       ortho_mode, view_z_scale, depth_threshold, base_stride, frame_num,
                       normal_power, min_material, specular=None,
-                      roughness_encoding=RoughnessEncoding.LINEAR):
+                      roughness_encoding=RoughnessEncoding.LINEAR, sh=None):
     """signal (h, w, 4) = the accumulated history (rgb, 2nd moment), or the pair (diffuse,
     specular) of them with min_material the pair of their min materials and `specular` given;
     history_length (h, w) after TA; frustum = the 9 floats right, up, forward; base_stride =
     historyFixBasePixelStride, frame_num = historyFixFrameNum + 1; specular = None for the
     diffuse signal, else dict(lobe_angle_fraction, lobe_angle_slack,
     roughness_edge_stopping_relaxation); roughness_encoding: how the packed roughness is
-    unpacked. Returns (h, w, 4), or the pair of them: the reconstruction where the fix
-    applies, the signal elsewhere."""
+    unpacked; sh: None, or the signal's (h, w, 4) SH plane (the pair with both signals).
+    Returns (h, w, 4), or the pair of them: the reconstruction where the fix applies, the
+    signal elsewhere; with `sh` (signal, SH), or with both signals (diffuse, specular,
+    diffuse SH, specular SH)."""
     global launches
     kw = dict(frustum=frustum, ortho_mode=ortho_mode, view_z_scale=view_z_scale,
               depth_threshold=depth_threshold, base_stride=base_stride, frame_num=frame_num,
               normal_power=normal_power, min_material=min_material, specular=specular,
-              roughness_encoding=roughness_encoding)
+              roughness_encoding=roughness_encoding, sh=sh)
     pair = isinstance(signal, (tuple, list))
-    if pair and (len(signal) != 2 or len(min_material) != 2 or specular is None):
-        raise ValueError("both signals: (diffuse, specular), a min material each, `specular`")
+    if pair and (len(signal) != 2 or len(min_material) != 2 or specular is None
+                 or (sh is not None and len(sh) != 2)):
+        raise ValueError("both signals: (diffuse, specular), a min material each, `specular`, "
+                         "an SH plane each or none")
     signals = tuple(signal) if pair else (signal,)
+    shs = () if sh is None else tuple(sh) if pair else (sh,)
     dev = build.kernel_device(signals[0])
     if dev is None:
         return relax_history_fix_ref(signal, view_z_in, normal_roughness, history_length, **kw)
@@ -142,7 +163,10 @@ def relax_history_fix(signal, view_z_in, normal_roughness, history_length, *, fr
            ("history_length", history_length, (h, w))]
     for name, t, shape in ins + [(f"signal[{k}]", t, (h, w, 4)) for k, t in enumerate(signals)]:
         build.check(name, t, dev, f32, shape)
+    for k, t in enumerate(shs):
+        build.check(f"sh[{k}]", t, dev, f32, (h, w, 4))
     out = torch.empty((len(signals), h, w, 4), dtype=f32, device=dev)
+    out_sh = torch.empty((len(shs), h, w, 4), dtype=f32, device=dev) if shs else None
     records = (torch.empty((h, w, 8), dtype=f32, device=dev) if frame_num != 1.0 else None)
     sp = specular or {}
     mats = tuple(min_material) if pair else (min_material, 0.0)
@@ -151,7 +175,11 @@ def relax_history_fix(signal, view_z_in, normal_roughness, history_length, *, fr
               *[sp.get(k, 0.0) for k in SPECULAR_CONSTS],
               build.ROUGHNESS_MODE[roughness_encoding], len(signals), mats[1]]
     second = [signals[1], out[1]] if pair else [None, None]
+    sh_ptrs = [t for k in range(2) for t in ((shs[k], out_sh[k]) if k < len(shs)
+                                             else (None, None))]
     build.launch("nrd_relax_history_fix", [signals[0]] + [t for _, t, _ in ins]
-                 + [out[0], records] + second, consts, w, h)
+                 + [out[0], records] + second + sh_ptrs, consts, w, h)
     launches += 1
-    return (out[0], out[1]) if pair else out[0]
+    if not (pair or shs):
+        return out[0]
+    return tuple(out) + (tuple(out_sh) if shs else ())

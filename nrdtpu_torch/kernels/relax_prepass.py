@@ -14,13 +14,17 @@ curve, capped by the lobe radius, weights each tap also by roughness, by the nor
 half the lobe fraction with the pixel's roughness and by lerp(saturate(t), 1,
 linearstep(0.5, 1, roughness)), and writes the min hitT of the kept taps. The centre's and
 every tap's roughness are unpacked with the roughness encoding (`:169`, `:243`), a template
-parameter of the kernel.
+parameter of the kernel. With `sh` (the SH variants' second plane) the SH plane accumulates
+with each tap's final weight over the same weight sum (`:281-284`, `:292`), passes through
+where the radius is disabled and is clipped to +-FP16_MAX (`:294-298`), in the same launch:
+the counterpart of the TPU kernel's `n_sh` (`relax_pallas.py:576-747`).
 
 Bound on the H100: gathers. Per pixel it reads the centre's signal, viewZ and packed normal
 (36 B) and 8 taps of the same (8 x 36 B, neighbours up to 30 px x the hit-distance factor
-away) and writes 16 B. The kernel is one instance per mode (specular, roughness encoding), one
-thread per pixel in 16x16 CTAs, a rolled tap loop reading each tap's signal and packed normal
-as one float4 each, ahead of its weights (`csrc/relax_prepass.cu`).
+away) and writes 16 B; with SH 16 B more a tap and 32 B more at the centre. The kernel is one
+instance per mode (specular, roughness encoding, SH), one thread per pixel in 16x16 CTAs, a
+rolled tap loop reading each tap's signal, packed normal and SH as one float4 each, ahead of
+its weights (`csrc/relax_prepass.cu`).
 """
 
 from __future__ import annotations
@@ -101,7 +105,7 @@ def relax_prepass_ref(signal, view_z_in, normal_roughness, *, frustum, ortho_mod
                       denoising_range, frustum_size_scale, blur_radius, normal_weight_param,
                       hit_dist_a, min_hit_dist_weight, depth_threshold, min_material,
                       offsets, gaussian_weights, specular=None,
-                      roughness_encoding=RoughnessEncoding.LINEAR):
+                      roughness_encoding=RoughnessEncoding.LINEAR, sh=None):
     """Plain PyTorch version of the kernel (the XLA tap loop, op for op, then the
     radius-disabled select and the FP16_MAX clip)."""
     h, w = view_z_in.shape
@@ -128,6 +132,7 @@ def relax_prepass_ref(signal, view_z_in, normal_roughness, *, frustum, ortho_mod
     mat_c = torch.clamp_min(material_id, min_material)
 
     acc = signal
+    acc_sh = sh
     wsum = torch.ones_like(view_z)
     for k in range(OFFSETS):
         ox, oy = float(offsets[k][0]), float(offsets[k][1])
@@ -153,27 +158,35 @@ def relax_prepass_ref(signal, view_z_in, normal_roughness, *, frustum, ortho_mod
         if specular is None:
             wsum = wsum + w_
             acc = acc + s * w_[..., None]
-            continue
-        t = s[..., 3] / (hit + nm.length(xs - x) + fe.NRD_EPS)
-        w_ = w_ * nm.lerp(nm.saturate(t), 1.0, nm.linearstep(0.5, 1.0, roughness))
-        min_hit = torch.where((w_ != 0.0) & (s[..., 3] != 0.0),
-                              torch.minimum(min_hit, torch.where(s[..., 3] == 0.0, fe.NRD_INF,
-                                                                 s[..., 3])), min_hit)
-        wsum = wsum + w_
-        acc = acc + torch.cat([s[..., :3] * w_[..., None], torch.zeros_like(s[..., 3:])], -1)
+        else:
+            t = s[..., 3] / (hit + nm.length(xs - x) + fe.NRD_EPS)
+            w_ = w_ * nm.lerp(nm.saturate(t), 1.0, nm.linearstep(0.5, 1.0, roughness))
+            min_hit = torch.where((w_ != 0.0) & (s[..., 3] != 0.0),
+                                  torch.minimum(min_hit, torch.where(s[..., 3] == 0.0, fe.NRD_INF,
+                                                                     s[..., 3])), min_hit)
+            wsum = wsum + w_
+            acc = acc + torch.cat([s[..., :3] * w_[..., None], torch.zeros_like(s[..., 3:])], -1)
+        if sh is not None:
+            sh_s = torch.where((w_ == 0.0)[..., None], 0.0, resample.sample_nearest(sh, uv_s))
+            acc_sh = acc_sh + sh_s * w_[..., None]
     if specular is None:
         out = acc / wsum[..., None]
     else:
         out = torch.cat([acc[..., :3] / wsum[..., None],
                          torch.where(min_hit == fe.NRD_INF, 0.0, min_hit)[..., None]], -1)
     out = signal if blur_radius <= 0.0 else out
-    return torch.clamp(out, 0.0, fe.NRD_FP16_MAX)
+    out = torch.clamp(out, 0.0, fe.NRD_FP16_MAX)
+    if sh is None:
+        return out
+    out_sh = sh if blur_radius <= 0.0 else acc_sh / wsum[..., None]
+    return out, torch.clamp(out_sh, -fe.NRD_FP16_MAX, fe.NRD_FP16_MAX)
 
 
 def relax_prepass(signal, view_z_in, normal_roughness, *, frustum, ortho_mode, view_z_scale,
                   denoising_range, frustum_size_scale, blur_radius, normal_weight_param,
                   hit_dist_a, min_hit_dist_weight, depth_threshold, min_material, offsets,
-                  gaussian_weights, specular=None, roughness_encoding=RoughnessEncoding.LINEAR):
+                  gaussian_weights, specular=None, roughness_encoding=RoughnessEncoding.LINEAR,
+                  sh=None):
     """signal (h, w, 4) = (radiance, raw hitT); frustum = the 9 floats right, up, forward;
     frustum_size_scale = min(rect) x unproject (float32); blur_radius = the settings' radius
     (<= 0 disables the pass); normal_weight_param and hit_dist_a are the diffuse frame
@@ -181,7 +194,8 @@ def relax_prepass(signal, view_z_in, normal_roughness, *, frustum, ortho_mode, v
     for the diffuse signal, else dict(unproject, normal_lobe_fraction (0.5 x the settings'
     lobe fraction), roughness_fraction): the specular branch with its per-pixel radius and
     weights and the min hitT of the kept taps; roughness_encoding: how the packed roughness
-    is unpacked. Returns (h, w, 4)."""
+    is unpacked; sh: None, or the (h, w, 4) SH plane filtered with the signal's weights.
+    Returns (h, w, 4), or with `sh` the pair (signal, SH)."""
     global launches
     kw = dict(frustum=frustum, ortho_mode=ortho_mode, view_z_scale=view_z_scale,
               denoising_range=denoising_range, frustum_size_scale=frustum_size_scale,
@@ -189,7 +203,7 @@ def relax_prepass(signal, view_z_in, normal_roughness, *, frustum, ortho_mode, v
               hit_dist_a=hit_dist_a, min_hit_dist_weight=min_hit_dist_weight,
               depth_threshold=depth_threshold, min_material=min_material, offsets=offsets,
               gaussian_weights=gaussian_weights, specular=specular,
-              roughness_encoding=roughness_encoding)
+              roughness_encoding=roughness_encoding, sh=sh)
     dev = build.kernel_device(signal)
     if dev is None:
         return relax_prepass_ref(signal, view_z_in, normal_roughness, **kw)
@@ -197,9 +211,12 @@ def relax_prepass(signal, view_z_in, normal_roughness, *, frustum, ortho_mode, v
     f32 = torch.float32
     ins = [("signal", signal, (h, w, 4)), ("view_z_in", view_z_in, (h, w)),
            ("normal_roughness", normal_roughness, (h, w, 4))]
+    if sh is not None:
+        ins.append(("sh", sh, (h, w, 4)))
     for name, t, shape in ins:
         build.check(name, t, dev, f32, shape)
     out = torch.empty((h, w, 4), dtype=f32, device=dev)
+    out_sh = None if sh is None else torch.empty((h, w, 4), dtype=f32, device=dev)
     sp = specular or {}
     consts = [*frustum, ortho_mode, view_z_scale, denoising_range, frustum_size_scale,
               blur_radius, normal_weight_param, hit_dist_a, min_hit_dist_weight,
@@ -208,6 +225,7 @@ def relax_prepass(signal, view_z_in, normal_roughness, *, frustum, ortho_mode, v
               specular is not None, sp.get("unproject", 0.0), sp.get("normal_lobe_fraction", 0.0),
               sp.get("roughness_fraction", 0.0), LOBE_TAN_SCALE,
               build.ROUGHNESS_MODE[roughness_encoding]]
-    build.launch("nrd_relax_prepass", [t for _, t, _ in ins] + [out], consts, w, h)
+    build.launch("nrd_relax_prepass", [signal, view_z_in, normal_roughness, out, sh, out_sh],
+                 consts, w, h)
     launches += 1
-    return out
+    return out if sh is None else (out, out_sh)

@@ -20,7 +20,11 @@ gathers of `temporal_accumulation`'s loadSurfaceMotionBasedPrevData
   - with the specular signal (`spec_hit` and `prev_reflection_hit_t` given, `:376-394`,
     `:809-814`): the un-normalised 3x3 normal average (h, w, 3), the 3x3 min of the current
     specular hitT (0 counts as NRD_INF) and the previous reflection hitT, bilinear with the
-    custom weights at the footprint's 2x2.
+    custom weights at the footprint's 2x2;
+  - with the SH variants (`sh_histories`), the bf16 SH histories, the slow and the responsive
+    one of each signal: `resample.bilinear_custom(sh, bilinear_origin, custom_w)` (`:607-610`,
+    `:988-991`), the custom-weight bilinear even where the footprint is bicubic, never the
+    CatRom (the TPU kernel's `bil_planes`, `relax_pallas.py:1003`, `:1028-1035`).
 
 The TPU kernel's block-base + tent-residual capture (`relax_pallas.py:1020-1022`,
 `:847-851`) is not carried over: the footprint is each pixel's own.
@@ -29,7 +33,8 @@ Bound on the H100: gathers. Per pixel it reads the current packed normal (and wi
 specular signal the hitT) of a 3x3 neighbourhood, 12 previous viewZ and 12 material taps
 around the footprint, 4 previous packed normals and 4 history lengths, and the 12 texels of
 the CatRom-12 footprint of each (h, w, 4) history (mostly shared with the neighbours); it
-writes 3 planes (8 with the specular signal) and 16 B per history. One kernel instance per
+writes 3 planes (8 with the specular signal) and 16 B per history; each SH history adds its
+2x2 (4 x 8 B of bf16) read and 16 B written. One kernel instance per
 mode (the specular planes, the number of histories); each CTA decodes its 18x18 window of
 current normals once into shared memory, and all histories go through one loop over the
 footprint's 5 bilinear samples, each texel read as one float4 and only where its weight is
@@ -56,8 +61,8 @@ CORNERS = ((0, 0), (3, 0), (0, 3), (3, 3))  # (x, y) inside the 4x4
 
 def relax_smb_resolve_ref(smb_uv, xv_prev_z, base_threshold, normal_roughness, prev_view_z,
                           prev_material_id, prev_history_length, prev_normal_roughness,
-                          histories, spec_hit=None, prev_reflection_hit_t=None, *,
-                          view_z_scale, rect_size_prev, resource_size, min_material,
+                          histories, spec_hit=None, prev_reflection_hit_t=None, sh_histories=(),
+                          *, view_z_scale, rect_size_prev, resource_size, min_material,
                           world_prev_to_world):
     """Plain PyTorch version of the kernel (the XLA formulas, gather by gather)."""
     n_avg = torch.zeros_like(normal_roughness[..., :3])
@@ -116,6 +121,9 @@ def relax_smb_resolve_ref(smb_uv, xv_prev_z, base_threshold, normal_roughness, p
                         for img in histories])
     out = dict(history_length=history_length, footprint_quality=quality, smb_found=smb_found,
                histories=hist)
+    if sh_histories:
+        out["sh"] = torch.stack([resample.bilinear_custom(img, origin, custom_w)
+                                 for img in sh_histories])
     if spec_hit is not None:
         taps = [resample.texel_fetch(prev_reflection_hit_t, x0 + 1 + dx, y0 + 1 + dy)[..., None]
                 for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1))]
@@ -126,26 +134,31 @@ def relax_smb_resolve_ref(smb_uv, xv_prev_z, base_threshold, normal_roughness, p
 
 def relax_smb_resolve(smb_uv, xv_prev_z, base_threshold, normal_roughness, prev_view_z,
                       prev_material_id, prev_history_length, prev_normal_roughness, histories,
-                      spec_hit=None, prev_reflection_hit_t=None, *, view_z_scale,
-                      rect_size_prev, resource_size, min_material, world_prev_to_world):
+                      spec_hit=None, prev_reflection_hit_t=None, sh_histories=(), *,
+                      view_z_scale, rect_size_prev, resource_size, min_material,
+                      world_prev_to_world):
     """smb_uv (h, w, 2) surface-motion uv; xv_prev_z, base_threshold (h, w) from the glue;
     normal_roughness (h, w, 4) current; the previous frame's raw viewZ, material id, history
     length (h, w) and 8-bit packed normal/roughness (h, w, 4); histories: a sequence of
     (h, w, 4) float32 history planes sampled with the same footprint; for the specular
-    signal, spec_hit (h, w) the PrePass's hitT and prev_reflection_hit_t (h, w). Returns
-    dict(history_length, footprint_quality, smb_found (h, w), histories (k, h, w, 4)), and
-    with the specular signal n_avg (h, w, 3), min_hit and reflection_hit_t (h, w)."""
+    signal, spec_hit (h, w) the PrePass's hitT and prev_reflection_hit_t (h, w); with the SH
+    variants sh_histories: as many (h, w, 4) bfloat16 SH histories as histories (2 or 4), in
+    the same order. Returns dict(history_length, footprint_quality, smb_found (h, w),
+    histories (k, h, w, 4)), with the specular signal n_avg (h, w, 3), min_hit and
+    reflection_hit_t (h, w), and with SH histories sh (k, h, w, 4) float32."""
     global launches
     kw = dict(view_z_scale=view_z_scale, rect_size_prev=rect_size_prev,
               resource_size=resource_size, min_material=min_material,
               world_prev_to_world=world_prev_to_world)
-    histories = tuple(histories)
+    histories, sh_histories = tuple(histories), tuple(sh_histories)
+    if sh_histories and (len(sh_histories) != len(histories) or len(histories) not in (2, 4)):
+        raise ValueError(f"sh_histories: {len(sh_histories)} planes, one a history of 2 or 4")
     dev = build.kernel_device(normal_roughness)
     if dev is None:
         return relax_smb_resolve_ref(smb_uv, xv_prev_z, base_threshold, normal_roughness,
                                      prev_view_z, prev_material_id, prev_history_length,
                                      prev_normal_roughness, histories, spec_hit,
-                                     prev_reflection_hit_t, **kw)
+                                     prev_reflection_hit_t, sh_histories, **kw)
     h, w = xv_prev_z.shape
     if not 1 <= len(histories) <= 4:
         raise ValueError(f"histories: {len(histories)} planes, 1 to 4 supported")
@@ -165,19 +178,26 @@ def relax_smb_resolve(smb_uv, xv_prev_z, base_threshold, normal_roughness, prev_
     hist_ins = [(f"histories[{k}]", t, (h, w, 4)) for k, t in enumerate(histories)]
     for name, t, shape in ins + hist_ins:
         build.check(name, t, dev, f32, shape)
+    for k, t in enumerate(sh_histories):
+        build.check(f"sh_histories[{k}]", t, dev, torch.bfloat16, (h, w, 4))
+    nsh = len(sh_histories)
+    sh = torch.empty((nsh, h, w, 4), dtype=f32, device=dev) if nsh else None
     names = PLANES + (SPEC_PLANES if spec else ())
     planes = torch.empty((len(names), h, w), dtype=f32, device=dev)
     hist = torch.empty((len(histories), h, w, 4), dtype=f32, device=dev)
     m = np.asarray(world_prev_to_world, np.float32)[:3, :3].reshape(-1)
     consts = [view_z_scale, rect_size_prev[0], rect_size_prev[1], resource_size[0],
-              resource_size[1], min_material, *m, len(histories), spec]
+              resource_size[1], min_material, *m, len(histories), spec, nsh]
     build.launch("nrd_relax_smb_resolve",
                  [t for _, t, _ in ins[:8]] + [planes, hist]
                  + [t for _, t, _ in hist_ins] + [None] * (4 - len(histories))
-                 + ([spec_hit, prev_reflection_hit_t] if spec else [None, None]),
+                 + ([spec_hit, prev_reflection_hit_t] if spec else [None, None])
+                 + [sh, *sh_histories] + [None] * (4 - nsh),
                  consts, w, h)
     launches += 1
     out = dict(zip(PLANES, planes), histories=hist)
+    if nsh:
+        out["sh"] = sh
     if spec:
         out.update(n_avg=planes[3:6].permute(1, 2, 0), min_hit=planes[6],
                    reflection_hit_t=planes[7])

@@ -1,6 +1,7 @@
 """RELAX pass graph for the PyTorch port - counterpart of `nrdtpu/passes/relax/denoiser.py`.
 
-This port runs RELAX_DIFFUSE, RELAX_SPECULAR and RELAX_DIFFUSE_SPECULAR (`denoiser.py:166-392`):
+This port runs RELAX_DIFFUSE, RELAX_SPECULAR and RELAX_DIFFUSE_SPECULAR and their SH variants
+RELAX_DIFFUSE_SH, RELAX_SPECULAR_SH and RELAX_DIFFUSE_SPECULAR_SH (`denoiser.py:166-392`):
 hit-distance reconstruction (AREA_3X3 / AREA_5X5 through REBLUR's kernel, off under
 checkerboard, `:249-255`), PrePass, TemporalAccumulation, HistoryFix (into the responsive
 history), HistoryClamping, the optional anti-firefly pass, the à-trous ladder (2 to 8
@@ -9,15 +10,20 @@ reprojection confidence in every iteration, and SplitScreen. With both signals e
 once for both where JAX runs it so: the reconstruction, the TA's head, the history fix, the
 history clamp, the anti-firefly pass and each à-trous iteration take both signals in one
 launch; the PrePass runs once a signal, and the TA accumulates each signal on the shared
-head. The SH variants and the checkerboard resolve raise NotImplementedError; ROADMAP.md
-lists them.
+head. The SH variants (`denoiser.py:41`, `:181-195`, `:345-378`) take IN_*_SH0 in place of the
+radiance input and IN_*_SH1 as a second plane a signal, which rides the launches the variant
+already makes; the last à-trous iteration's signal and the split screen's noisy side are
+YCoCg, and dead pixels pass the raw SH0 (linear, as in JAX) and SH1 through. The checkerboard
+resolve raises NotImplementedError; ROADMAP.md lists it.
 
 State (the permanent pool, all float32 as the JAX package keeps it for RELAX):
   history_length (h, w) 0..255, rounded to whole frames; normal_roughness_prev (h, w, 4) the
   RGBA8-quantized 0.5 n + 0.5 and roughness; material_id_prev, view_z_prev (h, w); for each
   signal present <diff|spec>_illum_prev (h, w, 4) slow history (rgb + 2nd moment) after the
   anti-firefly pass, <diff|spec>_responsive_prev (h, w, 4); with the specular signal also
-  reflection_hit_t (h, w).
+  reflection_hit_t (h, w); with the SH variants <diff|spec>_sh_prev and
+  <diff|spec>_sh_responsive_prev (h, w, 4) bfloat16, as JAX keeps them (`denoiser.py:70-73`):
+  every pass reads them in float32, and `requantize_state` rounds them back each frame.
 """
 
 from __future__ import annotations
@@ -39,11 +45,18 @@ from . import frustum_vectors, pack_prev_normal_roughness, unpack_nr
 from . import kernels as K
 
 RT = ResourceType
-PORTED = (Denoiser.RELAX_DIFFUSE, Denoiser.RELAX_SPECULAR, Denoiser.RELAX_DIFFUSE_SPECULAR)
+PORTED = (Denoiser.RELAX_DIFFUSE, Denoiser.RELAX_SPECULAR, Denoiser.RELAX_DIFFUSE_SPECULAR,
+          Denoiser.RELAX_DIFFUSE_SH, Denoiser.RELAX_SPECULAR_SH,
+          Denoiser.RELAX_DIFFUSE_SPECULAR_SH)
 # per signal: its input and output resources and its confidence input
 SIGNAL_RESOURCES = {
     "diff": (RT.IN_DIFF_RADIANCE_HITDIST, RT.OUT_DIFF_RADIANCE_HITDIST, RT.IN_DIFF_CONFIDENCE),
     "spec": (RT.IN_SPEC_RADIANCE_HITDIST, RT.OUT_SPEC_RADIANCE_HITDIST, RT.IN_SPEC_CONFIDENCE),
+}
+# the SH variants' per signal: SH0 in and out (in place of the radiance), SH1 in and out
+SH_RESOURCES = {
+    "diff": (RT.IN_DIFF_SH0, RT.OUT_DIFF_SH0, RT.IN_DIFF_SH1, RT.OUT_DIFF_SH1),
+    "spec": (RT.IN_SPEC_SH0, RT.OUT_SPEC_SH0, RT.IN_SPEC_SH1, RT.OUT_SPEC_SH1),
 }
 
 
@@ -59,6 +72,7 @@ class RelaxDenoiser:
         # the signals present, as `has_diffuse` / `has_specular` in JAX (`denoiser.py:42-43`)
         self.signals = tuple(sig for sig, part in (("diff", "DIFFUSE"), ("spec", "SPECULAR"))
                              if part in config.denoiser.name)
+        self.sh = config.denoiser.name.endswith("_SH")  # `denoiser.py:41`
         self._s = RelaxSettings()
 
     def static_key(self, s: RelaxSettings):
@@ -82,6 +96,10 @@ class RelaxDenoiser:
         for sig in self.signals:
             state[f"{sig}_illum_prev"] = torch.zeros((h, w, 4), **kw)
             state[f"{sig}_responsive_prev"] = torch.zeros((h, w, 4), **kw)
+            if self.sh:
+                for kind in ("sh", "sh_responsive"):
+                    state[f"{sig}_{kind}_prev"] = torch.zeros(
+                        (h, w, 4), dtype=torch.bfloat16, device=self.device)
         if "spec" in self.signals:
             state["reflection_hit_t"] = torch.zeros((h, w), **kw)
         return state
@@ -174,7 +192,10 @@ class RelaxDenoiser:
         view_z = inputs[RT.IN_VIEWZ]
         normal_roughness = inputs[RT.IN_NORMAL_ROUGHNESS]
         mv = inputs[RT.IN_MV]
-        raw = {sig: inputs[SIGNAL_RESOURCES[sig][0]] for sig in sigs}
+        # the signal: the radiance input, or SH0; with SH also SH1 (`denoiser.py:181-195`)
+        raw = {sig: inputs[(SH_RESOURCES if self.sh else SIGNAL_RESOURCES)[sig][0]]
+               for sig in sigs}
+        raw_sh = {sig: inputs[SH_RESOURCES[sig][2]] if self.sh else None for sig in sigs}
         conf = {sig: inputs.get(SIGNAL_RESOURCES[sig][2]) for sig in sigs}
         dt_mix = inputs.get(RT.IN_DISOCCLUSION_THRESHOLD_MIX)
         if mv.shape[-1] == 2:
@@ -190,41 +211,59 @@ class RelaxDenoiser:
                                              sig.get("spec"), cfg, radius=radius)
             sig = {name: rec[0 if name == "diff" else 1] for name in sigs}
 
-        # the PrePass once a signal (`relax_prepass_taps_pallas(is_spec)`)
-        pre = {name: K.pre_pass(sc, dc, sig[name], view_z, normal_roughness, cfg, name)
-               for name in sigs}
+        # the PrePass once a signal (`relax_prepass_taps_pallas(is_spec)`), with SH1 beside it
+        pre, pre_sh = {}, {}
+        for name in sigs:
+            r = K.pre_pass(sc, dc, sig[name], view_z, normal_roughness, cfg, name,
+                           sh=raw_sh[name])
+            pre[name], pre_sh[name] = r if self.sh else (r, None)
         if both:
             ta = K.temporal_accumulation_diffuse_specular(
                 sc, dc, view_z, normal_roughness, mv, pre["diff"], pre["spec"], state, cfg,
-                diff_confidence=conf["diff"], spec_confidence=conf["spec"], dt_mix=dt_mix)
+                diff_confidence=conf["diff"], spec_confidence=conf["spec"], dt_mix=dt_mix,
+                diff_sh=pre_sh["diff"], spec_sh=pre_sh["spec"])
         elif which == "diff":
             ta = K.temporal_accumulation(sc, dc, view_z, normal_roughness, mv, pre["diff"],
-                                         state, cfg, diff_confidence=conf["diff"], dt_mix=dt_mix)
+                                         state, cfg, diff_confidence=conf["diff"], dt_mix=dt_mix,
+                                         diff_sh=pre_sh["diff"])
         else:
             ta = K.temporal_accumulation_specular(sc, dc, view_z, normal_roughness, mv,
                                                   pre["spec"], state, cfg,
-                                                  spec_confidence=conf["spec"], dt_mix=dt_mix)
+                                                  spec_confidence=conf["spec"], dt_mix=dt_mix,
+                                                  spec_sh=pre_sh["spec"])
         history_length = ta["history_length"]
+        ta_sh = {kind: one_or_pair({name: ta[f"{name}_{kind}"] for name in sigs})
+                 if self.sh else None for kind in ("sh", "sh_fast")}
+        # with SH the fix reconstructs the TA's slow SH too, and, as in JAX, HistoryClamping
+        # then reads the TA's SH, not the fixed one (`denoiser.py:262-292`)
         fixed = K.history_fix(sc, dc, view_z, normal_roughness, history_length, one_or_pair(ta),
-                              cfg, which)
+                              cfg, which, sh=ta_sh["sh"])
+        if self.sh:
+            fixed = fixed[:len(sigs)] if both else fixed[0]
         hc = K.history_clamping(sc, dc, view_z, one_or_pair(pre), one_or_pair(ta),
                                 tuple(ta[name + "_fast"] for name in sigs) if both
-                                else ta[which + "_fast"], fixed, history_length, which)
-        del fixed, pre
+                                else ta[which + "_fast"], fixed, history_length, which,
+                                sh=ta_sh["sh"], sh_fast=ta_sh["sh_fast"])
+        del fixed, pre, pre_sh
 
         slow = {name: hc[name + "_slow"] for name in sigs}
         if s.enableAntiFirefly:
             slow = dict(zip(sigs, K.anti_firefly(dc, normal_roughness,
                                                  tuple(slow[name] for name in sigs), sigs)))
         cur = one_or_pair(slow)
+        cur_sh = one_or_pair({name: hc[name + "_sh"] for name in sigs}) if self.sh else None
         iterations = int(np.clip(s.atrousIterationNum, 2, 8))
         for i in range(iterations):
             cur = K.atrous(sc, dc, view_z, normal_roughness, history_length, cur, cfg,
                            step_size=1 << i, is_first=i == 0, which=which,
                            diff_confidence=inputs.get(RT.IN_DIFF_CONFIDENCE),
                            spec_confidence=inputs.get(RT.IN_SPEC_CONFIDENCE),
-                           reprojection_confidence=ta.get("spec_reprojection_confidence"))
+                           reprojection_confidence=ta.get("spec_reprojection_confidence"),
+                           sh=cur_sh, is_last=i == iterations - 1)
+            if self.sh:
+                cur, cur_sh = cur
         cur = dict(zip(sigs, cur if both else (cur,)))
+        cur_sh = dict(zip(sigs, cur_sh if both else (cur_sh,))) if self.sh else None
 
         keep = dead
         n, rough, mat = unpack_nr(normal_roughness, cfg)
@@ -244,8 +283,16 @@ class RelaxDenoiser:
                 keep[..., None], state[name + "_illum_prev"], slow[name])
             new_state[name + "_responsive_prev"] = torch.where(
                 keep[..., None], state[name + "_responsive_prev"], hc[name + "_resp"])
-            outs[SIGNAL_RESOURCES[name][1]] = K.split_screen(
-                sc, view_z, raw[name], torch.where(dead[..., None], raw[name], cur[name]))
+            out_rt = (SH_RESOURCES if self.sh else SIGNAL_RESOURCES)[name][1]
+            outs[out_rt] = K.split_screen(
+                sc, view_z, raw[name], torch.where(dead[..., None], raw[name], cur[name]),
+                sh_mode=self.sh)
+            if self.sh:  # SH1 out, and the SH histories (`:365-372`)
+                outs[SH_RESOURCES[name][3]] = torch.where(dead[..., None], raw_sh[name],
+                                                          cur_sh[name])
+                for kind, key in (("sh", "_sh"), ("sh_responsive", "_sh_fast")):
+                    new_state[f"{name}_{kind}_prev"] = torch.where(
+                        keep[..., None], state[f"{name}_{kind}_prev"], hc[name + key])
         if "spec" in sigs:
             new_state["reflection_hit_t"] = torch.where(keep, state["reflection_hit_t"],
                                                         ta["reflection_hit_t"])

@@ -28,8 +28,11 @@ them together (`which` = ("diff", "spec") and the signals a pair: history_fix,
 history_clamping, atrous); the PrePass runs once a signal, as `relax_prepass_taps_pallas`
 does. The TA has one accumulation a signal (`_diffuse_accumulation`,
 `_specular_accumulation`) after one shared head (`_surface_motion`), which samples every
-history of the signals present in one `relax_smb_resolve` launch. The SH and checkerboard
-branches are not ported. Frame constants (`sc`, `dc`) are host values.
+history of the signals present in one `relax_smb_resolve` launch. The SH variants' second
+plane (SH1, "sh") rides the same launches: every pass that filters or resamples the signal
+takes the signal's SH plane too (`sh=`; in pairs with both signals) and the kernel returns
+it beside the signal; the SH lerps of the TA stay glue, as in XLA. The checkerboard branch is
+not ported. Frame constants (`sc`, `dc`) are host values.
 """
 
 from __future__ import annotations
@@ -97,10 +100,12 @@ def dead_mask(sc, tile_map, view_z):
 # ---------------------------------------------------------------------------
 
 
-def pre_pass(sc, dc, signal, view_z_in, normal_roughness, config, which: str = "diff"):
+def pre_pass(sc, dc, signal, view_z_in, normal_roughness, config, which: str = "diff",
+             sh=None):
     """Poisson spatial reuse of one signal (`kernels.py:160-306`), checkerboard off: one
     `relax_prepass` launch. The specular signal also re-estimates its hitT as the min over
-    the kept taps. Returns (h, w, 4)."""
+    the kept taps. With `sh` (the SH variants' SH1) the SH plane is filtered with the same
+    weights in that launch. Returns (h, w, 4), or with `sh` (signal, SH)."""
     offsets, gauss = k_prepass.poisson_taps(sc["rotator_pre"])
     # get_normal_weight_param2(1, 0.25 lobe fraction) and the hit-distance weight's scale
     # (get_hit_distance_weight_params(hitT, 1/9), roughness 1): frame constants in float32
@@ -121,7 +126,7 @@ def pre_pass(sc, dc, signal, view_z_in, normal_roughness, config, which: str = "
         depth_threshold=float(dc["depth_threshold"]),
         min_material=float(dc[which + "_min_material"]), offsets=offsets,
         gaussian_weights=gauss, specular=specular,
-        roughness_encoding=config.roughness_encoding)
+        roughness_encoding=config.roughness_encoding, sh=sh)
 
 
 # ---------------------------------------------------------------------------
@@ -130,13 +135,13 @@ def pre_pass(sc, dc, signal, view_z_in, normal_roughness, config, which: str = "
 
 
 def _surface_motion(sc, dc, view_z_in, normal_roughness, mv_in, state, config, histories,
-                    spec_hit=None, dt_mix=None):
+                    spec_hit=None, dt_mix=None, sh_histories=()):
     """The TA's head, shared by both signals (`kernels.py:331-567`): surface-motion uv,
     parallax, disocclusion threshold, the footprint (one `relax_smb_resolve` launch that
     also samples the histories, in `hist_planes` order the slow and responsive history of
-    each signal present, and, with `spec_hit`, gathers the specular 3x3 planes), the
-    footprint-quality refinements and the history length. Returns the planes the
-    accumulations read."""
+    each signal present, with the SH variants the SH histories in `bil_planes` order, and,
+    with `spec_hit`, gathers the specular 3x3 planes), the footprint-quality refinements and
+    the history length. Returns the planes the accumulations read."""
     h, w = view_z_in.shape
     dev = view_z_in.device
     view_z = unpack_view_z(sc, view_z_in)
@@ -212,7 +217,7 @@ def _surface_motion(sc, dc, view_z_in, normal_roughness, mv_in, state, config, h
         uv_smb, xv_prev_z, base_thr, normal_roughness, state["view_z_prev"],
         state["material_id_prev"], state["history_length"], state["normal_roughness_prev"],
         histories, spec_hit, state["reflection_hit_t"] if spec_hit is not None else None,
-        view_z_scale=float(sc["view_z_scale"]), rect_size_prev=rect_prev,
+        sh_histories, view_z_scale=float(sc["view_z_scale"]), rect_size_prev=rect_prev,
         resource_size=_v(sc["resource_size"]),
         min_material=float(min(F32(dc["spec_min_material"]), F32(dc["diff_min_material"]))),
         world_prev_to_world=sc["world_prev_to_world"])
@@ -253,37 +258,57 @@ def _histories(state, which):
     return tuple(state[f"{wh}_{kind}_prev"] for wh in which for kind in ("illum", "responsive"))
 
 
+def _sh_histories(state, which, sh):
+    """With the SH variants (`sh`), the slow and the responsive SH history (bfloat16) of each
+    signal of `which`, in `bil_planes` order; else none."""
+    if not sh:
+        return ()
+    return tuple(state[f"{wh}_{kind}_prev"] for wh in which
+                 for kind in ("sh", "sh_responsive"))
+
+
 def temporal_accumulation(sc, dc, view_z_in, normal_roughness, mv_in, diff, state, config,
-                          diff_confidence=None, dt_mix=None):
+                          diff_confidence=None, dt_mix=None, diff_sh=None):
     """The RELAX TA for the diffuse signal (`kernels.py:319-612`): the shared head
     (`_surface_motion`, one `relax_smb_resolve` launch that also samples both diffuse
-    histories) and the accumulation. Returns dict(history_length, diff, diff_fast)."""
+    histories, and both SH histories with `diff_sh`) and the accumulation. Returns
+    dict(history_length, diff, diff_fast), and with `diff_sh` diff_sh, diff_sh_fast."""
     g = _surface_motion(sc, dc, view_z_in, normal_roughness, mv_in, state, config,
-                        _histories(state, ("diff",)), dt_mix=dt_mix)
+                        _histories(state, ("diff",)), dt_mix=dt_mix,
+                        sh_histories=_sh_histories(state, ("diff",), diff_sh is not None))
     return dict(history_length=g["history_length"], **_diffuse_accumulation(
-        dc, g, diff, g["smb"]["histories"][0:2], diff_confidence))
+        dc, g, diff, g["smb"]["histories"][0:2], diff_confidence, diff_sh,
+        g["smb"].get("sh", ())[0:2]))
 
 
 def temporal_accumulation_diffuse_specular(sc, dc, view_z_in, normal_roughness, mv_in, diff,
                                            spec, state, config, diff_confidence=None,
-                                           spec_confidence=None, dt_mix=None):
+                                           spec_confidence=None, dt_mix=None, diff_sh=None,
+                                           spec_sh=None):
     """The RELAX TA for both signals (`kernels.py:319-979`): one shared head (one
     `relax_smb_resolve` launch of four histories, diffuse then specular, with the specular
-    planes), then each signal's accumulation. Returns the union of `temporal_accumulation`'s
-    and `temporal_accumulation_specular`'s dicts."""
+    planes, and with the SH variants the four SH histories), then each signal's
+    accumulation. Returns the union of `temporal_accumulation`'s and
+    `temporal_accumulation_specular`'s dicts."""
     g = _surface_motion(sc, dc, view_z_in, normal_roughness, mv_in, state, config,
                         _histories(state, ("diff", "spec")),
-                        spec_hit=spec[..., 3].contiguous(), dt_mix=dt_mix)
+                        spec_hit=spec[..., 3].contiguous(), dt_mix=dt_mix,
+                        sh_histories=_sh_histories(state, ("diff", "spec"), diff_sh is not None))
     hist = g["smb"]["histories"]
+    sh_hist = g["smb"].get("sh", ())
     return dict(history_length=g["history_length"],
-                **_diffuse_accumulation(dc, g, diff, hist[0:2], diff_confidence),
+                **_diffuse_accumulation(dc, g, diff, hist[0:2], diff_confidence, diff_sh,
+                                        sh_hist[0:2]),
                 **_specular_accumulation(sc, dc, g, normal_roughness, view_z_in, spec, state,
-                                         hist[2:4], spec_confidence))
+                                         hist[2:4], spec_confidence, spec_sh, sh_hist[2:4]))
 
 
-def _diffuse_accumulation(dc, g, diff, histories, diff_confidence=None):
+def _diffuse_accumulation(dc, g, diff, histories, diff_confidence=None, sh=None, sh_hist=()):
     """The diffuse accumulation (lines 580-621) of the head's planes `g` and the diffuse slow
-    and responsive histories it sampled. Returns dict(diff, diff_fast)."""
+    and responsive histories it sampled; with the SH variants also the SH (`sh`, the PrePass's
+    SH) against the SH histories `sh_hist` the head sampled, lerped with the same alphas and not
+    clamped at 0 (`:602-612`). Returns dict(diff, diff_fast), and with `sh` diff_sh,
+    diff_sh_fast."""
     smb, history_length = g["smb"], g["history_length"]
     dmax = F32(dc["diff_max_accumulated_frame_num"])
     dmax_fast = F32(dc["diff_max_fast_accumulated_frame_num"])
@@ -304,7 +329,11 @@ def _diffuse_accumulation(dc, g, diff, histories, diff_confidence=None):
     out_diff = nm.lerp(prev_diff, diff_and_m2, alpha[..., None])
     out_fast = torch.cat([nm.lerp(prev_diff_resp[..., :3], diff[..., :3], alpha_resp[..., None]),
                           torch.zeros_like(m1)[..., None]], -1)
-    return dict(diff=out_diff, diff_fast=out_fast)
+    out = dict(diff=out_diff, diff_fast=out_fast)
+    if sh is not None:
+        out.update(diff_sh=nm.lerp(sh_hist[0], sh, alpha[..., None]),
+                   diff_sh_fast=nm.lerp(sh_hist[1], sh, alpha_resp[..., None]))
+    return out
 
 
 def _curvature(sc, g, normal_roughness, view_z_in):
@@ -381,27 +410,35 @@ def _normal_to_this_frame(sc, packed):
 
 
 def temporal_accumulation_specular(sc, dc, view_z_in, normal_roughness, mv_in, spec, state,
-                                   config, spec_confidence=None, dt_mix=None):
-    """The RELAX TA for the specular signal (`kernels.py:614-979`, without the SH and
-    checkerboard branches): the shared head (one `relax_smb_resolve` launch with the
-    specular planes) and the specular accumulation (`_specular_accumulation`). Returns
-    dict(history_length, spec, spec_fast, reflection_hit_t, spec_reprojection_confidence)."""
+                                   config, spec_confidence=None, dt_mix=None, spec_sh=None):
+    """The RELAX TA for the specular signal (`kernels.py:614-1006`, without the checkerboard
+    branch): the shared head (one `relax_smb_resolve` launch with the specular planes, and
+    both SH histories with `spec_sh`) and the specular accumulation
+    (`_specular_accumulation`). Returns dict(history_length, spec, spec_fast,
+    reflection_hit_t, spec_reprojection_confidence), and with `spec_sh` spec_sh,
+    spec_sh_fast."""
     g = _surface_motion(sc, dc, view_z_in, normal_roughness, mv_in, state, config,
                         _histories(state, ("spec",)), spec_hit=spec[..., 3].contiguous(),
-                        dt_mix=dt_mix)
+                        dt_mix=dt_mix,
+                        sh_histories=_sh_histories(state, ("spec",), spec_sh is not None))
     return dict(history_length=g["history_length"],
                 **_specular_accumulation(sc, dc, g, normal_roughness, view_z_in, spec, state,
-                                         g["smb"]["histories"][0:2], spec_confidence))
+                                         g["smb"]["histories"][0:2], spec_confidence, spec_sh,
+                                         g["smb"].get("sh", ())[0:2]))
 
 
 def _specular_accumulation(sc, dc, g, normal_roughness, view_z_in, spec, state, histories,
-                           spec_confidence=None):
-    """The specular accumulation (lines 625-979) of the head's planes `g` and the specular slow
-    and responsive histories it sampled: the curvature (one `nearest_multi` launch), thin lens
-    and the virtual-motion uv, the virtual-motion footprint (one `relax_vmb_resolve` launch),
-    the virtual amount and its look-back 1 and 2 steps (one `bilinear_resolve` launch), the
-    hit-distance and surface-motion confidences, both accumulations and the variance boost.
-    Returns dict(spec, spec_fast, reflection_hit_t, spec_reprojection_confidence)."""
+                           spec_confidence=None, sh=None, sh_hist=()):
+    """The specular accumulation (lines 625-1006) of the head's planes `g` and the specular
+    slow and responsive histories it sampled: the curvature (one `nearest_multi` launch), thin
+    lens and the virtual-motion uv, the virtual-motion footprint (one `relax_vmb_resolve`
+    launch, which with `sh` also samples both SH histories), the virtual amount and its
+    look-back 1 and 2 steps (one `bilinear_resolve` launch), the hit-distance and
+    surface-motion confidences, both accumulations and the variance boost; with the SH
+    variants also the SH (`sh`, the PrePass's SH, against the surface-motion SH histories
+    `sh_hist`): both motions' lerps, then the lerp by the virtual amount, the slow SH's .w
+    the modified roughness (`:980-1006`). Returns dict(spec, spec_fast, reflection_hit_t,
+    spec_reprojection_confidence), and with `sh` spec_sh, spec_sh_fast."""
     smb, history_length = g["smb"], g["history_length"]
     ortho = float(sc["ortho_mode"])
     is_persp = ortho == 0.0
@@ -448,6 +485,7 @@ def _specular_accumulation(sc, dc, g, normal_roughness, view_z_in, spec, state, 
         uv_vmb, n, x_minus_delta, vmb_thr_base, normal_roughness, smb["smb_found"],
         state["view_z_prev"], state["material_id_prev"], state["reflection_hit_t"],
         state["normal_roughness_prev"], state["spec_illum_prev"], state["spec_responsive_prev"],
+        *_sh_histories(state, ("spec",), sh is not None),
         prev_frustum=frustum_consts(sc, prev=True), ortho_mode=ortho,
         view_z_scale=float(sc["view_z_scale"]), rect_size_prev=rect_prev,
         resolution_scale_prev=res_prev, min_material=float(dc["spec_min_material"]))
@@ -581,9 +619,19 @@ def _specular_accumulation(sc, dc, g, normal_roughness, view_z_in, spec, state, 
     confidence = nm.lerp(spec_smb_confidence, spec_vmb_confidence, virtual_amount)
     acc_m2 = torch.where(acc_m2 == 0.0,
                          float(dc["spec_variance_boost"]) * (1.0 - confidence), acc_m2)
-    return dict(spec=torch.cat([acc_rgb, acc_m2[..., None]], -1),
-                spec_fast=torch.cat([acc_resp, hit_dist[..., None]], -1),
-                reflection_hit_t=acc_hit_t, spec_reprojection_confidence=confidence)
+    out = dict(spec=torch.cat([acc_rgb, acc_m2[..., None]], -1),
+               spec_fast=torch.cat([acc_resp, hit_dist[..., None]], -1),
+               reflection_hit_t=acc_hit_t, spec_reprojection_confidence=confidence)
+    if sh is not None:  # the SH of both motions, not clamped at 0 (`:980-1006`)
+        acc_sh_smb = nm.lerp(sh_hist[0], sh, spec_smb_alpha[..., None])
+        acc_sh_smb_resp = nm.lerp(sh_hist[1], sh, spec_smb_resp_alpha[..., None])
+        acc_sh_vmb = nm.lerp(vmb["sh_vmb"], sh, spec_vmb_alpha[..., None])
+        acc_sh_vmb_resp = nm.lerp(vmb["sh_vmb_resp"], sh, spec_vmb_resp_alpha[..., None])
+        sh_acc = nm.lerp(acc_sh_smb, acc_sh_vmb, virtual_amount[..., None])
+        out.update(spec_sh=torch.cat([sh_acc[..., :3], roughness_modified[..., None]], -1),
+                   spec_sh_fast=nm.lerp(acc_sh_smb_resp, acc_sh_vmb_resp,
+                                        virtual_amount[..., None]))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -592,10 +640,12 @@ def _specular_accumulation(sc, dc, g, normal_roughness, view_z_in, spec, state, 
 
 
 def history_fix(sc, dc, view_z_in, normal_roughness, history_length, signal, config,
-                which="diff"):
+                which="diff", sh=None):
     """Sparse 5x5 cross-bilateral reconstruction of short histories (`kernels.py:1017-1131`)
     of one signal, or of both (`which` = ("diff", "spec"), `signal` the pair): one
-    `relax_history_fix` launch. Returns (h, w, 4), or the pair."""
+    `relax_history_fix` launch, which with `sh` (the signal's SH, or the pair) reconstructs the
+    SH too. Returns (h, w, 4), or the pair; with `sh` (signal, SH), or (diffuse, specular,
+    diffuse SH, specular SH)."""
     both = not isinstance(which, str)
     specular = None
     if both or which == "spec":
@@ -612,7 +662,7 @@ def history_fix(sc, dc, view_z_in, normal_roughness, history_length, signal, con
         frame_num=float(dc["history_fix_frame_num"]),
         normal_power=float(dc["history_fix_edge_stopping_normal_power"]),
         min_material=min_material, specular=specular,
-        roughness_encoding=config.roughness_encoding)
+        roughness_encoding=config.roughness_encoding, sh=sh)
 
 
 # ---------------------------------------------------------------------------
@@ -633,14 +683,17 @@ def _clamp_consts(dc, which):
 
 
 def history_clamping(sc, dc, view_z_in, noisy, slow, fast, fixed, history_length,
-                     which="diff"):
+                     which="diff", sh=None, sh_fast=None):
     """Sigma colour-box clamp of the slow history to the responsive one + antilag
     acceleration and reset + 2nd-moment correction (`kernels.py:1140-1271`) of one signal,
     the responsive history being HistoryFix's output `fixed` where the history is short and
     the TA's `fast` elsewhere (`denoiser.py:278-286`): one `relax_clamp_moments` launch; with
     `which` = ("diff", "spec") and the planes pairs, both signals in that one launch. Each
-    signal has its own clamp flag, acceleration and reset amount (`_clamp_consts`). Returns
-    dict(history_length, <which>_slow, <which>_resp) for each signal."""
+    signal has its own clamp flag, acceleration and reset amount (`_clamp_consts`). With the
+    SH variants (`sh`, `sh_fast`: the TA's slow and responsive SH, pairs with both signals) the
+    launch also lerps the SH by the clamping factor (`:1260-1262`). Returns
+    dict(history_length, <which>_slow, <which>_resp) for each signal, and with `sh`
+    <which>_sh (the lerp) and <which>_sh_fast (`sh_fast` as it came)."""
     both = not isinstance(which, str)
     names = tuple(which) if both else (which,)
     per = list(zip(*[_clamp_consts(dc, wh) for wh in names]))
@@ -654,10 +707,13 @@ def history_clamping(sc, dc, view_z_in, noisy, slow, fast, fixed, history_length
         acceleration=per[1],
         reset_temporal_sigma_scale=float(dc["history_reset_temporal_sigma_scale"]),
         reset_spatial_sigma_scale=float(dc["history_reset_spatial_sigma_scale"]),
-        reset_amount=per[2])
+        reset_amount=per[2], sh=sh, sh_fast=sh_fast)
     out = {"history_length": history_length}
     for k, wh in enumerate(names):
         out[wh + "_slow"], out[wh + "_resp"] = outs[2 * k], outs[2 * k + 1]
+        if sh is not None:
+            out[wh + "_sh"] = outs[2 * len(names) + k]
+            out[wh + "_sh_fast"] = sh_fast[k] if both else sh_fast
     return out
 
 
@@ -682,12 +738,15 @@ def anti_firefly(dc, normal_roughness, signals, which):
 
 def atrous(sc, dc, view_z_in, normal_roughness, history_length, signal, config, *,
            step_size: int, is_first: bool, which="diff", diff_confidence=None,
-           spec_confidence=None, reprojection_confidence=None):
+           spec_confidence=None, reprojection_confidence=None, sh=None, is_last=False):
     """One à-trous iteration of the diffuse or the specular signal, or of both (`which` =
     ("diff", "spec"), `signal` the pair) (`kernels.py:1340-1606`): one `relax_atrous` launch.
     IN_DIFF_CONFIDENCE / IN_SPEC_CONFIDENCE and the TA's specular reprojection confidence
-    relax the edge stopping per pixel (`:1368-1391`). Returns (h, w, 4) = (rgb, variance), or
-    the pair."""
+    relax the edge stopping per pixel (`:1368-1391`). With the SH variants (`sh`: the signal's
+    SH, or the pair) the launch filters the SH too, the diffuse lobe fraction's base is 1.0
+    after iteration 0 (`:1363`), and on the last iteration (`is_last`) the signal's rgb is
+    converted to YCoCg after the launch (`:1600-1602`; the SH is not). Returns (h, w, 4) =
+    (rgb, variance), or the pair; with `sh` (that, SH or the SH pair)."""
     both = not isinstance(which, str)
     names = tuple(which) if both else (which,)
     specular = None
@@ -703,13 +762,14 @@ def atrous(sc, dc, view_z_in, normal_roughness, history_length, signal, config, 
     def per(key):
         vals = tuple(float(dc[wh + key]) for wh in names)
         return vals if both else vals[0]
-    return k_atrous.relax_atrous(
+    out = k_atrous.relax_atrous(
         signal, view_z_in, normal_roughness, history_length, diff_confidence, spec_confidence,
         reprojection_confidence, step_size=step_size, is_first=is_first,
         frame_index=int(sc["frame_index"]), **_frame_geometry(sc),
         denoising_range=float(sc["denoising_range"]),
         depth_threshold=float(dc["depth_threshold"]),
-        lobe_fraction=k_atrous.lobe_fraction(dc["lobe_angle_fraction"], step_size, is_first),
+        lobe_fraction=k_atrous.lobe_fraction(dc["lobe_angle_fraction"], step_size, is_first,
+                                             sh=sh is not None),
         lobe_angle_fraction=float(dc["lobe_angle_fraction"]),
         phi_luminance=per("_phi_luminance"),
         max_luminance_relative_difference=per("_max_luminance_relative_difference"),
@@ -719,13 +779,26 @@ def atrous(sc, dc, view_z_in, normal_roughness, history_length, signal, config, 
             float(dc["confidence_driven_relaxation_multiplier"]),
             float(dc["confidence_driven_normal_edge_stopping_relaxation"]),
             float(dc["confidence_driven_luminance_edge_stopping_relaxation"])),
-        specular=specular, roughness_encoding=config.roughness_encoding)
+        specular=specular, roughness_encoding=config.roughness_encoding, sh=sh)
+    if sh is None:
+        return out
+    n = len(names)
+    cur, cur_sh = (out[:n], out[n:]) if both else out
+    if is_last:
+        cur = tuple(_to_ycocg(c) for c in cur) if both else _to_ycocg(cur)
+    return cur, cur_sh
 
 
-def split_screen(sc, view_z_in, noisy, out_signal):
-    """SplitScreen: the noisy input (0 beyond the denoising range) left of the split."""
+def _to_ycocg(signal):
+    return torch.cat([nm.linear_to_ycocg(signal[..., :3]), signal[..., 3:]], -1)
+
+
+def split_screen(sc, view_z_in, noisy, out_signal, sh_mode=False):
+    """SplitScreen: the noisy input (0 beyond the denoising range) left of the split; with the
+    SH variants (`sh_mode`) the noisy rgb in YCoCg, as the denoised SH0 is."""
     h, w = view_z_in.shape
     view_z = unpack_view_z(sc, view_z_in)
     u = nm.div(torch.arange(w, dtype=torch.float32, device=view_z_in.device) + 0.5, w)
-    s = noisy * (view_z < float(sc["denoising_range"])).to(torch.float32)[..., None]
+    s = _to_ycocg(noisy) if sh_mode else noisy
+    s = s * (view_z < float(sc["denoising_range"])).to(torch.float32)[..., None]
     return torch.where(u[None, :, None] <= float(sc["split_screen"]), s, out_signal)

@@ -8,11 +8,13 @@ materials 0, REBLUR_SPECULAR with usePrepassOnlyForSpecularMotionEstimation; REB
 and in performance mode; SIGMA_SHADOW and SIGMA_SHADOW_TRANSLUCENCY; RELAX_DIFFUSE,
 RELAX_SPECULAR and RELAX_DIFFUSE_SPECULAR (the two-signal modes of K16, K19, K20 and K22), each
 also with the anti-firefly pass and with AREA_3X3: their kernels, the à-trous at iteration 0
-and at the jittered strides; the halo launcher's `box` body on 1 and 4 channels at two blocks)
+and at the jittered strides; RELAX_DIFFUSE_SH, RELAX_SPECULAR_SH and RELAX_DIFFUSE_SPECULAR_SH,
+the SH modes of K15, K16, K17, K19, K20 and K22; the halo launcher's `box` body on 1 and 4
+channels at two blocks)
 and is held against its plain PyTorch version on the same card; the Engine on the card is held
 against the Engine on the CPU, for every path and output, and RELAX_DIFFUSE_SPECULAR's outputs
-on the card against RELAX_DIFFUSE's and RELAX_SPECULAR's on the card. Run on a machine with an
-H100:
+on the card against RELAX_DIFFUSE's and RELAX_SPECULAR's on the card (with SH likewise). Run on
+a machine with an H100:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 
@@ -51,6 +53,10 @@ def cuda():
 VARIANTS = (Denoiser.REBLUR_DIFFUSE, Denoiser.REBLUR_SPECULAR, Denoiser.REBLUR_DIFFUSE_SPECULAR)
 SIGMA = (Denoiser.SIGMA_SHADOW, Denoiser.SIGMA_SHADOW_TRANSLUCENCY)
 RELAX = (Denoiser.RELAX_DIFFUSE, Denoiser.RELAX_SPECULAR, Denoiser.RELAX_DIFFUSE_SPECULAR)
+RELAX_SH = (Denoiser.RELAX_DIFFUSE_SH, Denoiser.RELAX_SPECULAR_SH,
+            Denoiser.RELAX_DIFFUSE_SPECULAR_SH)
+SH_RESOURCES = {"DIFFUSE": (RT.IN_DIFF_SH0, RT.IN_DIFF_SH1, RT.OUT_DIFF_SH0, RT.OUT_DIFF_SH1),
+                "SPECULAR": (RT.IN_SPEC_SH0, RT.IN_SPEC_SH1, RT.OUT_SPEC_SH0, RT.OUT_SPEC_SH1)}
 AREA_3X3 = dict(hitDistanceReconstructionMode=HitDistanceReconstructionMode.AREA_3X3)
 AREA_5X5 = dict(hitDistanceReconstructionMode=HitDistanceReconstructionMode.AREA_5X5)
 # H2's other modes on the one-signal REBLUR paths: performance mode's 6 taps, both min
@@ -73,7 +79,14 @@ def _pools(denoiser, n, holes=False):
         fd.common_settings.timeDeltaBetweenFrames = 16.66
         pool = {RT.IN_VIEWZ: fd.view_z, RT.IN_NORMAL_ROUGHNESS: gen.packed_normal_roughness(fd),
                 RT.IN_MV: fd.mv}
-        if denoiser in RELAX:  # raw radiance and raw hit distance
+        if denoiser in RELAX_SH:  # SH0 / SH1 along the normal
+            normal = torch.from_numpy(fd.normal.astype(np.float32))
+            for part, noisy, hit in (("DIFFUSE", fd.diff_noisy, fd.diff_hit_dist),
+                                     ("SPECULAR", fd.spec_noisy, fd.spec_hit_dist)):
+                sh0, sh1 = fe.relax_pack_sh(torch.from_numpy(noisy), torch.from_numpy(hit),
+                                            normal)
+                pool[SH_RESOURCES[part][0]], pool[SH_RESOURCES[part][1]] = sh0.numpy(), sh1.numpy()
+        elif denoiser in RELAX:  # raw radiance and raw hit distance
             pool[RT.IN_DIFF_RADIANCE_HITDIST] = fe.relax_pack_radiance_hitdist(
                 torch.from_numpy(fd.diff_noisy), torch.from_numpy(fd.diff_hit_dist)).numpy()
             pool[RT.IN_SPEC_RADIANCE_HITDIST] = fe.relax_pack_radiance_hitdist(
@@ -102,6 +115,9 @@ def _pools(denoiser, n, holes=False):
 def _outs(denoiser):
     if denoiser in SIGMA:
         return [RT.OUT_SHADOW_TRANSLUCENCY]
+    if denoiser in RELAX_SH:
+        return [rt for part, rts in SH_RESOURCES.items() if part in denoiser.name
+                for rt in rts[2:]]
     return [rt for rt, present in ((RT.OUT_DIFF_RADIANCE_HITDIST, "DIFFUSE" in denoiser.name),
                                    (RT.OUT_SPEC_RADIANCE_HITDIST, "SPECULAR" in denoiser.name))
             if present]
@@ -123,6 +139,7 @@ PATHS = ([(d, af, {}, False, False) for d in VARIANTS for af in (False, True)]
          + [(d, False, {}, False, False) for d in SIGMA]
          + [(d, af, s, h, False) for d in RELAX
             for af, s, h in ((False, {}, False), (True, {}, False), (False, AREA_3X3, True))]
+         + [(d, False, {}, False, False) for d in RELAX_SH]
          + [(Denoiser.REBLUR_DIFFUSE_SPECULAR, af, s, False, True)
             for af, s in ((False, {}), (True, {}), (False, dict(enablePerformanceMode=True)))])
 
@@ -223,12 +240,12 @@ def test_engine_card_matches_cpu_band(cuda, anti_firefly, settings, monkeypatch)
 
 @pytest.mark.parametrize("denoiser,settings,holes",
                          [(d, AREA_3X3, True) for d in VARIANTS + RELAX]
-                         + [(d, {}, False) for d in SIGMA + RELAX],
+                         + [(d, {}, False) for d in SIGMA + RELAX + RELAX_SH],
                          ids=[f"{d.name}-AREA_3X3" for d in VARIANTS + RELAX]
-                         + [d.name for d in SIGMA + RELAX])
+                         + [d.name for d in SIGMA + RELAX + RELAX_SH])
 def test_engine_card_matches_cpu_new_paths(cuda, denoiser, settings, holes):
     """Hit-distance reconstruction on inputs with holes, the SIGMA variants and the RELAX
-    variants."""
+    variants, with and without SH."""
     card = _engine(denoiser, cuda, **settings)
     cpu = _engine(denoiser, "cpu", **settings)
     for cs, pool in _pools(denoiser, 4, holes):
@@ -243,15 +260,17 @@ def test_engine_card_matches_cpu_new_paths(cuda, denoiser, settings, holes):
             assert mse == 0.0 or 10.0 * np.log10(peak * peak / mse) >= 50.0, rt
 
 
-def test_relax_pair_matches_one_signal_variants(cuda):
+@pytest.mark.parametrize("sh", [False, True], ids=["default", "sh"])
+def test_relax_pair_matches_one_signal_variants(cuda, sh):
     """RELAX_DIFFUSE_SPECULAR's outputs on the card against RELAX_DIFFUSE's and RELAX_SPECULAR's
     on the card, frame by frame (the JAX package gives them bit for bit): the two-signal
-    kernel modes compute each signal as the one-signal modes do."""
-    pair = _engine(Denoiser.RELAX_DIFFUSE_SPECULAR, cuda)
-    singles = {rt: _engine(d, cuda) for rt, d in (
-        (RT.OUT_DIFF_RADIANCE_HITDIST, Denoiser.RELAX_DIFFUSE),
-        (RT.OUT_SPEC_RADIANCE_HITDIST, Denoiser.RELAX_SPECULAR))}
-    for cs, pool in _pools(Denoiser.RELAX_DIFFUSE_SPECULAR, 4):
+    kernel modes compute each signal as the one-signal modes do; with `sh` the same of the SH
+    variants' four outputs."""
+    pair_d = RELAX_SH[2] if sh else Denoiser.RELAX_DIFFUSE_SPECULAR
+    pair = _engine(pair_d, cuda)
+    singles = {rt: _engine(d, cuda) for d in ((RELAX_SH[:2]) if sh else RELAX[:2])
+               for rt in _outs(d)}
+    for cs, pool in _pools(pair_d, 4):
         pair.set_common_settings(cs)
         outs = pair.denoise([0], pool)
         for rt, eng in singles.items():

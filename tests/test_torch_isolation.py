@@ -237,7 +237,7 @@ def test_unported_variants_raise():
     from nrdtpu_torch.settings import Denoiser
 
     for d in (Denoiser.REBLUR_DIFFUSE_SPECULAR_SH, Denoiser.REBLUR_DIFFUSE_OCCLUSION,
-              Denoiser.RELAX_DIFFUSE_SH):
+              Denoiser.REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Engine({0: d}, resource_size=(64, 48), device="cpu")
 

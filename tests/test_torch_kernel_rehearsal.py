@@ -37,7 +37,11 @@ REBLUR_DIFFUSE_SPECULAR at radius 1 and 2 (`HD_CASES`) on frames with hit-distan
 the image border's included; and the two-signal modes on RELAX_DIFFUSE_SPECULAR's calls: K16
 `<true, 4>`, K22 at every stride with both confidences (`RDS_ATROUS_CASES`), K19
 (`RDS_FIX_CASES`) and K20 (`RDS_CLAMP_CASES`), each also on inputs where the two signals'
-constants differ, so that a kernel that swapped them fails.
+constants differ, so that a kernel that swapped them fails; and the SH modes of K15, K16, K17,
+K19, K20 and K22 on the calls of RELAX_DIFFUSE_SH, RELAX_SPECULAR_SH and
+RELAX_DIFFUSE_SPECULAR_SH (`SH_CASES`), whose SH planes differ between the two signals and
+whose SH1 is negative where the radiance is positive (`SH_DIRECTIONS`), on frames that give
+K16 and K17 both footprints.
 
 Run alone: python -m pytest tests/test_torch_kernel_rehearsal.py -q
 
@@ -174,6 +178,23 @@ RDS_CLAMP_CASES = {"default": {}, "fix_mix": CLAMP_CASES["diffuse_fix_mix"][1],
                                        diffuseMaxFastAccumulatedFrameNum=30)}
 RDS_ATROUS_CASES = {"confidence": (CONFIDENCE_DRIVEN, False),
                     "min_material_split": ({**CONFIDENCE_DRIVEN, **SPLIT_MIN_MATERIAL}, True)}
+# The SH modes on the SH variants' calls: SH1 packed from the scene's radiance along a direction
+# a signal (the diffuse one against the normal, the specular one along the normal with x and z
+# swapped), so that the two signals' SH differ and SH1 has components of the sign opposite to
+# the radiance's; the settings of each kernel's calls: the confidences for the à-trous (its
+# relaxations), and for K20 `fix_mix` (histories on both sides of the fix and a clamping
+# factor strictly between 0 and 1, where the SH lerp bites) with the max fast frame nums at 1,
+# so that the TA's slow and responsive SH differ on these short histories (at the defaults
+# both alphas are 1 / history length, and the two SH stay equal).
+SH_DIRECTIONS = {"diff": lambda n: -n, "spec": lambda n: n[..., [2, 1, 0]]}
+SH_VARIANTS = ("RELAX_DIFFUSE_SH", "RELAX_SPECULAR_SH", "RELAX_DIFFUSE_SPECULAR_SH")
+SH_KERNELS = ("relax_prepass", "relax_smb_resolve", "relax_vmb_resolve", "relax_history_fix",
+              "relax_clamp_moments", "relax_atrous")
+SH_SETTINGS = {"default": CONFIDENCE_DRIVEN,
+               "fix_mix": dict(RDS_CLAMP_CASES["fix_mix"], diffuseMaxFastAccumulatedFrameNum=1,
+                               specularMaxFastAccumulatedFrameNum=1)}
+SH_CASES = {f"{name}-{v}": (name, v) for name in SH_KERNELS if name != "relax_atrous"
+            for v in SH_VARIANTS if name != "relax_vmb_resolve" or "SPECULAR" in v}
 
 # H4's calls: (denoiser, the call's index in a frame, calls a frame) of each TS half
 TS_HALVES = {"diffuse": (Denoiser.REBLUR_DIFFUSE, 0, 1),
@@ -277,13 +298,13 @@ def _striped(fd):
 
 
 def _pools(kind, encoding=RoughnessEncoding.LINEAR, holes=False, materials=False,
-           motion="mv_z_given"):
+           motion="mv_z_given", sh=False):
     """The inputs of each frame for "reblur", "relax" or "sigma" (the penumbra from the
     scene's distance to the occluder, and a constant translucency), the roughness packed
     with `encoding`; with `holes` the hit distance zeroed on a seeded HOLE_FRACTION of the
     geometry pixels (REBLUR's also on every geometry pixel of the image border); with
     `materials` the materials striped (`_striped`); the motion vectors as `motion` of MOTIONS
-    says."""
+    says; with `sh` RELAX's SH0 / SH1 too (`relax_pack_sh`, SH1 along SH_DIRECTIONS)."""
     gen = SceneGenerator(SceneSpec(size=SIZE, noise=0.4), camera_mode="orbit")
     rng = np.random.default_rng(11)
     relax = kind == "relax"
@@ -318,7 +339,16 @@ def _pools(kind, encoding=RoughnessEncoding.LINEAR, holes=False, materials=False
                  RT.IN_DIFF_CONFIDENCE),
                 (RT.IN_SPEC_RADIANCE_HITDIST, fd.spec_noisy, fd.spec_hit_dist,
                  RT.IN_SPEC_CONFIDENCE)):
-            if relax:
+            if relax and sh:
+                sig = "diff" if rt == RT.IN_DIFF_RADIANCE_HITDIST else "spec"
+                sh0, sh1 = fe.relax_pack_sh(
+                    torch.from_numpy(noisy), torch.from_numpy(hit),
+                    SH_DIRECTIONS[sig](torch.from_numpy(fd.normal.astype(np.float32))))
+                sh_rt = ((RT.IN_DIFF_SH0, RT.IN_DIFF_SH1) if sig == "diff"
+                         else (RT.IN_SPEC_SH0, RT.IN_SPEC_SH1))
+                pool[sh_rt[0]], pool[sh_rt[1]] = sh0.numpy(), sh1.numpy()
+                pool[conf] = _ramp(rng, SIZE[1], SIZE[0])
+            elif relax:
                 pool[rt] = fe.relax_pack_radiance_hitdist(torch.from_numpy(noisy),
                                                           torch.from_numpy(hit)).numpy()
                 if holes:
@@ -340,24 +370,31 @@ def _record(denoiser, name, env=None, encoding=RoughnessEncoding.LINEAR, holes=F
     """Every call of the wrapper `name` over the frames, through the port's Engine on the
     CPU (where the wrappers run their plain versions), at the roughness encoding
     `encoding`, on frames with hit-distance holes if `holes`, striped materials if
-    `materials` and the motion vectors of `motion`."""
-    mod = KM.MODULES[name]
-    wrapper, calls = getattr(mod, name), []
+    `materials` and the motion vectors of `motion` (an SH variant's frames with SH0 and SH1).
+    With a tuple of names, a dict of each one's calls, from the one run."""
+    names = name if isinstance(name, tuple) else (name,)
+    calls = {n: [] for n in names}
     eng = Engine({0: denoiser}, resource_size=SIZE, roughness_encoding=encoding, device="cpu")
     eng.set_denoiser_settings(0, replace(eng._settings[0], **settings))
 
-    def rec(*a, **k):
-        calls.append((a, k))
-        return wrapper(*a, **k)
+    def recorder(n):
+        wrapper = getattr(KM.MODULES[n], n)
+
+        def rec(*a, **k):
+            calls[n].append((a, k))
+            return wrapper(*a, **k)
+        return rec
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(mod, name, rec)
+        for n in names:
+            mp.setattr(KM.MODULES[n], n, recorder(n))
         for key, value in (env or {}).items():
             mp.setenv(key, value)
         kind = denoiser.name.split("_")[0].lower()
-        for cs, pool in _pools(kind, encoding, holes, materials, motion):
+        for cs, pool in _pools(kind, encoding, holes, materials, motion,
+                               sh=denoiser.name.endswith("_SH")):
             eng.set_common_settings(cs)
             eng.denoise([0], pool)
-    return calls
+    return calls if isinstance(name, tuple) else calls[name]
 
 
 @pytest.fixture(scope="module")
@@ -962,3 +999,82 @@ def test_relax_clamp_moments_pair_rehearsal(library, case):
     over, count, worst = _hold(library, "relax_clamp_moments", calls)
     assert over <= FLIP_FRACTION * count, (f"{case}: {over} of {count} values out of "
                                            f"tolerance, max |d| {worst:.3g}")
+
+
+@pytest.fixture(scope="module")
+def sh_calls():
+    """Every call of the RELAX kernels of each SH variant over the frames, one Engine run a
+    variant and SH_SETTINGS entry."""
+    return {(v, case): _record(Denoiser[v], SH_KERNELS, **settings)
+            for v in SH_VARIANTS for case, settings in SH_SETTINGS.items()}
+
+
+def _sh_planes(name, a, k):
+    """The SH planes a recorded call passes its kernel: K16's SH histories, K17's two, the
+    others' `sh` (a pair with both signals)."""
+    if name == "relax_smb_resolve":
+        return a[11]
+    if name == "relax_vmb_resolve":
+        return a[12:14]
+    return k["sh"] if isinstance(k["sh"], tuple) else (k["sh"],)
+
+
+@pytest.mark.parametrize("case", list(SH_CASES))
+def test_relax_sh_rehearsal(library, sh_calls, case):
+    """The SH mode of K15, K16, K17, K19 and K20 against its plain version on an SH variant's
+    calls: the SH planes ride the signal's launch. K16 and K17 sample the SH histories with
+    the custom-weight bilinear, never the CatRom, on frames with both footprints (smb_found,
+    any and all equal); K20 lerps the SH by its clamping factor, held on `fix_mix` calls."""
+    name, variant = SH_CASES[case]
+    calls = sh_calls[(variant, "fix_mix" if name == "relax_clamp_moments" else "default")][name]
+    both = variant == "RELAX_DIFFUSE_SPECULAR_SH"
+    per_frame = 2 if both and name == "relax_prepass" else 1
+    assert len(calls) == FRAMES * per_frame
+    planes = [_sh_planes(name, a, k) for a, k in calls]
+    assert all(p is not None and all(t is not None for t in p) for p in planes)
+    if name in ("relax_smb_resolve", "relax_vmb_resolve"):  # the bf16 SH histories
+        assert all(t.dtype == torch.bfloat16 for p in planes for t in p)
+    if name == "relax_prepass":  # SH1 as packed: negative components, one plane a signal
+        assert all(bool((p[0] < 0.0).any()) for p in planes)
+        if both:
+            assert not torch.equal(planes[0][0], planes[1][0])
+    elif both and name != "relax_vmb_resolve":  # the signals' SH differ
+        assert all(not torch.equal(p[0], p[-1]) for p in planes[1:])
+    exact = ()
+    if name == "relax_smb_resolve":
+        found = torch.cat([KM.relax_smb_resolve.relax_smb_resolve_ref(*a, **k)["smb_found"]
+                           .flatten() for a, k in calls[1:]])
+        assert bool((found == 2.0).any()) and bool((found == 1.0).any())
+        exact = ("smb_found",)
+    if name == "relax_vmb_resolve":
+        r = [KM.relax_vmb_resolve.relax_vmb_resolve_ref(*a, **k) for a, k in calls[1:]]
+        assert any(bool(((a[5] == 2.0) & (x["all"] > 0.0)).any())
+                   for (a, _), x in zip(calls[1:], r))
+        assert any(bool(((x["any"] > 0.0) & (x["all"] == 0.0)).any()) for x in r)
+        exact = ("any", "all")
+    if name == "relax_clamp_moments":
+        in_fix = torch.cat([(a[3] <= k["history_fix_frame_num"]).flatten() for a, k in calls])
+        assert bool(in_fix.any()) and not bool(in_fix.all())
+    over, count, worst = _hold(library, name, calls, exact=exact)
+    assert over <= FLIP_FRACTION * count, (f"{case}: {over} of {count} values out of "
+                                           f"tolerance, max |d| {worst:.3g}")
+
+
+@pytest.mark.parametrize("step", STEPS)
+@pytest.mark.parametrize("variant", SH_VARIANTS)
+def test_relax_atrous_sh_rehearsal(library, sh_calls, variant, step):
+    """K22's SH mode against its plain version at every stride of an SH variant's ladder, with
+    both confidences: the SH filtered with the signal's weights (the 5x5 estimation's SH at
+    iteration 0 where the history is short), the lobe fraction's base 1.0 after iteration 0."""
+    calls = [(a, k) for a, k in sh_calls[(variant, "default")]["relax_atrous"]
+             if k["step_size"] == step]
+    assert len(calls) == FRAMES
+    assert all(k["sh"] is not None for _, k in calls)
+    if step > 1:  # the SH base: 1 / sqrt(step), not the settings' fraction / sqrt(step)
+        assert all(k["lobe_fraction"] == 1.0 / step ** 0.5 for _, k in calls)
+    else:  # iteration 0: some histories short (the estimation), some not
+        short = torch.cat([(a[3] < k["history_threshold"]).flatten() for a, k in calls])
+        assert bool(short.any()) and not bool(short.all())
+    over, count, worst = _hold(library, "relax_atrous", calls)
+    assert over <= FLIP_FRACTION * count, (f"{variant} step {step}: {over} of {count} values "
+                                           f"out of tolerance, max |d| {worst:.3g}")

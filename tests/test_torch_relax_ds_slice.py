@@ -158,14 +158,13 @@ def test_outputs_match_one_signal_variants(pairs):
 # the variants the port does not run yet (ROADMAP.md Queue 1)
 UNPORTED = ("REBLUR_DIFFUSE_OCCLUSION", "REBLUR_DIFFUSE_SH", "REBLUR_SPECULAR_OCCLUSION",
             "REBLUR_SPECULAR_SH", "REBLUR_DIFFUSE_SPECULAR_OCCLUSION",
-            "REBLUR_DIFFUSE_SPECULAR_SH", "REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION",
-            "RELAX_DIFFUSE_SH", "RELAX_SPECULAR_SH", "RELAX_DIFFUSE_SPECULAR_SH")
+            "REBLUR_DIFFUSE_SPECULAR_SH", "REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION")
 
 
 def test_ported_variants():
-    """The port runs 9 of the 19 variants; UNPORTED lists the other 10."""
+    """The port runs 12 of the 19 variants; UNPORTED lists the other 7."""
     assert len(Denoiser) == 19 and set(UNPORTED) < {d.name for d in Denoiser}
-    assert len(UNPORTED) == 10
+    assert len(UNPORTED) == 7
 
 
 @pytest.mark.parametrize("denoiser", UNPORTED)

@@ -136,11 +136,46 @@ def test_atrous_iterations(iterations, calls):
     assert c.counts["relax_atrous"] == calls and bool(out.isfinite().all())
 
 
+def sh_pool_of(gen, fd):
+    """Both signals' SH0 / SH1 (`relax_pack_sh`, SH1 along the normal) beside the geometry."""
+    pool = {RT.IN_VIEWZ: fd.view_z, RT.IN_NORMAL_ROUGHNESS: gen.packed_normal_roughness(fd),
+            RT.IN_MV: fd.mv}
+    normal = torch.from_numpy(fd.normal.astype(np.float32))
+    for (rt0, rt1), noisy, hit in (((RT.IN_DIFF_SH0, RT.IN_DIFF_SH1), fd.diff_noisy,
+                                    fd.diff_hit_dist),
+                                   ((RT.IN_SPEC_SH0, RT.IN_SPEC_SH1), fd.spec_noisy,
+                                    fd.spec_hit_dist)):
+        sh0, sh1 = tfe.relax_pack_sh(torch.from_numpy(noisy), torch.from_numpy(hit), normal)
+        pool[rt0], pool[rt1] = sh0.numpy(), sh1.numpy()
+    return pool
+
+
+SH_OUTPUTS = {"DIFFUSE": (RT.OUT_DIFF_SH0, RT.OUT_DIFF_SH1),
+              "SPECULAR": (RT.OUT_SPEC_SH0, RT.OUT_SPEC_SH1)}
+
+
+def run_sh_variant(denoiser, size=(48, 32)):
+    """One frame of an SH variant through the port's Engine on the CPU: every output of its
+    signals is finite and of the resource's shape, and no other is returned."""
+    gen = SceneGenerator(SceneSpec(size=size), camera_mode="orbit")
+    fd = gen.frame(0)
+    eng = TEngine({0: Denoiser[denoiser]}, resource_size=size, device="cpu")
+    eng.set_common_settings(fd.common_settings)
+    outs = eng.denoise([0], sh_pool_of(gen, fd))
+    expected = {rt for part, rts in SH_OUTPUTS.items() if part in denoiser for rt in rts}
+    assert set(outs) == expected
+    for rt in expected:
+        assert tuple(outs[rt].shape) == (size[1], size[0], 4), rt
+        assert bool(outs[rt].isfinite().all()), rt
+
+
 @pytest.mark.parametrize("denoiser", ["RELAX_DIFFUSE_SH", "RELAX_SPECULAR_SH",
                                       "RELAX_DIFFUSE_SPECULAR_SH"])
 def test_unported_variants_raise(denoiser):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TEngine({0: Denoiser[denoiser]}, resource_size=(48, 32), device="cpu")
+    """The SH variants raised NotImplementedError until the port ran them; now each runs a
+    frame with finite outputs of the right shape (`tests/test_torch_relax_sh_slice.py` holds
+    them against the JAX Engine)."""
+    run_sh_variant(denoiser)
 
 
 @pytest.mark.parametrize("settings", [dict(checkerboardMode=CheckerboardMode.BLACK),
