@@ -15,7 +15,11 @@ distance packed by `relax_pack_radiance_hitdist`, and RELAX_SPECULAR with
 `enableAntiFirefly=True` on the same frames (the anti-firefly pass, off by default, on a main
 path of its own); RELAX_DIFFUSE_SH, RELAX_SPECULAR_SH and RELAX_DIFFUSE_SPECULAR_SH with each
 signal's SH0 / SH1 packed by `relax_pack_sh` from the same radiance and raw hit distance along
-the scene's normal (the SH planes ride the non-SH variant's launches).
+the scene's normal (the SH planes ride the non-SH variant's launches); and under checkerboard,
+with each signal input at half width (the has-data pixel of each horizontal pair, as a
+renderer that traces half the pixels sends it): REBLUR_DIFFUSE_SPECULAR in BLACK (also with
+NRDTPU_REBLUR_BAND=1), REBLUR_DIFFUSE in WHITE, REBLUR_SPECULAR in BLACK and
+RELAX_DIFFUSE_SPECULAR in BLACK (`CB_PATHS`).
 
 Phases, each of which raises on failure (exit code != 0):
   1. build the hand-written kernels from `nrdtpu_torch/kernels/csrc/` with nvcc, one process
@@ -44,6 +48,13 @@ Phases, each of which raises on failure (exit code != 0):
      timed) and each with the history clamp's colour box off (relax_clamp_moments, held);
      then the three SH variants (every kernel of each in its SH mode, timed by path beside
      the non-SH variant's);
+     the checkerboard PrePass of H2 (REBLUR_DIFFUSE in WHITE and BLACK, REBLUR_SPECULAR in
+     BLACK and WHITE) and N4 (REBLUR_DIFFUSE_SPECULAR in BLACK and WHITE) on the half-width
+     frames, one run of each kernel on frames whose fallback fires (`CB_FALLBACK`: a material
+     drawn per pixel, both min materials 0 and minBlurRadius 3; and
+     usePrepassOnlyForSpecularMotionEstimation), timed and listed apart from the kernel's other
+     modes as `spatial_filter_cb` and `spatial_filter_fused_cb`, with the share of pixels that
+     fall back;
      REBLUR_DIFFUSE and REBLUR_DIFFUSE_SPECULAR with maxBlurRadius 0 (ts_prelude in each TS
      half without the RCRS clamp, held); then RELAX_SPECULAR with IN_NORMAL_ROUGHNESS packed
      as SQ_LINEAR and as
@@ -57,7 +68,8 @@ Phases, each of which raises on failure (exit code != 0):
      path calls (as in the JAX package), by the halo phase;
   3. slices: for each path a fresh `Engine(device="cuda")` runs 3 warm-up + 24 frames with
      the launch counts set to 0 just before and read just after; every output must be
-     finite and every kernel of the path launched exactly its count a frame; each REBLUR
+     finite and every kernel of the path launched exactly its count a frame (the checkerboard
+     PrePass instances counted apart); each REBLUR
      and RELAX output (SH0 taken from YCoCg to linear) must beat its noisy input by >= 3 dB
      against the scene's clean image, each SIGMA
      output must lie in [0, 1], be lit on average (> 0.99) where the 9x9 neighbourhood is lit
@@ -70,7 +82,8 @@ Phases, each of which raises on failure (exit code != 0):
      RELAX_DIFFUSE_SPECULAR_SH's four outputs to RELAX_DIFFUSE_SH's and RELAX_SPECULAR_SH's
      exactly (max abs 0);
   5. card vs CPU: the same 4 frames at 256x160 on the card and on the CPU plain path must
-     agree to >= 50 dB PSNR, for every output of every path, of RELAX_SPECULAR at SQ_LINEAR
+     agree to >= 50 dB PSNR, for every output of every path (the checkerboard ones included),
+     of RELAX_SPECULAR at SQ_LINEAR
      (AREA_3X3 on the punched frames), and of REFERENCE on a static camera (plain torch ops on
      both, no kernel).
 
@@ -146,6 +159,11 @@ SOURCES = {
     "reblur_band": ("nrdtpu_torch/kernels/csrc/reblur_band.cu",
                     "nrdtpu/kernels/reblur_band.py:496", None),
     "halo_call": ("nrdtpu_torch/kernels/csrc/halo.cu", "nrdtpu/kernels/halo.py:30", None),
+    # the checkerboard PrePass instances of H2 and N4 (their `has_cb` modes), listed apart
+    "spatial_filter_cb": ("nrdtpu_torch/kernels/csrc/spatial_filter.cu",
+                          "nrdtpu/kernels/reblur_blur2.py:270", f"{P}:1207"),
+    "spatial_filter_fused_cb": ("nrdtpu_torch/kernels/csrc/spatial_filter_fused.cu",
+                                f"{F}:796", f"{F}:153"),
 }
 # the kernels that no main path launches (as in the JAX package); a phase of their own
 # holds them
@@ -193,6 +211,28 @@ PATHS = {
     "RELAX_DIFFUSE_SPECULAR_SH": dict(signals=("diff", "spec"), relax=True, sh=True,
                                       launches=RDS_LAUNCHES),
 }
+# the checkerboard paths: half-width signal inputs in the mode `cb`, the non-cb path's launches
+# with the PrePass in its checkerboard instance (counted apart as well)
+CB_PATHS = {
+    "REBLUR_DIFFUSE_SPECULAR+CB": dict(denoiser="REBLUR_DIFFUSE_SPECULAR", cb="BLACK",
+                                       launches={**DS_LAUNCHES, "spatial_filter_fused_cb": 1}),
+    "REBLUR_DIFFUSE+CB": dict(denoiser="REBLUR_DIFFUSE", cb="WHITE",
+                              launches={**PATHS["REBLUR_DIFFUSE"]["launches"],
+                                        "spatial_filter_cb": 1}),
+    "REBLUR_SPECULAR+CB": dict(denoiser="REBLUR_SPECULAR", cb="BLACK",
+                               launches={**PATHS["REBLUR_SPECULAR"]["launches"],
+                                         "spatial_filter_cb": 1}),
+    "REBLUR_DIFFUSE_SPECULAR+BAND+CB": dict(denoiser="REBLUR_DIFFUSE_SPECULAR", cb="BLACK",
+                                            env={"NRDTPU_REBLUR_BAND": "1"},
+                                            launches={**BAND_LAUNCHES,
+                                                      "spatial_filter_fused_cb": 1}),
+    "RELAX_DIFFUSE_SPECULAR+CB": dict(denoiser="RELAX_DIFFUSE_SPECULAR", relax=True, cb="BLACK",
+                                      launches=RDS_LAUNCHES),
+}
+for _name, _v in CB_PATHS.items():
+    _v.update(signals=PATHS[_v["denoiser"]]["signals"],
+              settings=dict(checkerboardMode=_v["cb"]))
+    PATHS[_name] = _v
 RELAX_VARIANTS = ("RELAX_DIFFUSE", "RELAX_SPECULAR", "RELAX_DIFFUSE_SPECULAR")
 RELAX_SH_VARIANTS = ("RELAX_DIFFUSE_SH", "RELAX_SPECULAR_SH", "RELAX_DIFFUSE_SPECULAR_SH")
 # RELAX_SPECULAR with IN_NORMAL_ROUGHNESS packed at the roughness encodings other than LINEAR,
@@ -214,6 +254,17 @@ REBLUR_VARIANTS = ("REBLUR_DIFFUSE", "REBLUR_SPECULAR", "REBLUR_DIFFUSE_SPECULAR
 # `mode` indexes them
 SF_STAGES = ("prepass", "blur", "post_blur")
 HOLE_FRACTION = 0.3  # of the geometry pixels whose hit distance the frames with holes zero
+# the checkerboard PrePass's runs of the kernel phase on frames whose fallback fires: at the
+# minimum radius of 1 px, which a pixel without data takes (its hit distance is zeroed), some
+# tap lands on its own expanded texel; a 3 px minimum and a material drawn per pixel (both
+# min materials 0) make every tap fail at about a tenth of those pixels, and
+# usePrepassOnlyForSpecularMotionEstimation weighs every specular tap 0
+CB_FALLBACK = dict(minBlurRadius=3.0, minMaterialForDiffuse=0.0, minMaterialForSpecular=0.0)
+CB_SPLIT = ("spatial_filter", "spatial_filter_cb", "spatial_filter_fused",
+            "spatial_filter_fused_cb")
+CB_STATE_OPS, CB_RESOLVE_OPS = 6, 30        # reblur_filters.cuh: has_data and the centre's
+                                            # zeroing and weight a pixel; cb_neighbor_resolve
+                                            # (+ N4's cb_centre) a pixel that falls back
 TRANSLUCENCY_RGB = (0.3, 0.6, 0.2)
 # Float operations a pixel, counted from the kernel sources (transcendentals count as one):
 # the fixed part of each kernel, and the parts that depend on the call (taps, signals)
@@ -372,7 +423,12 @@ class Scene:
                  RT.IN_NORMAL_ROUGHNESS: base[RT.IN_NORMAL_ROUGHNESS]}
         pools = {}
         for name, v in PATHS.items():
-            if name.startswith("SIGMA"):
+            if v.get("cb"):  # half width: the has-data pixel of each pair
+                src = relax if v.get("relax") else packed
+                pools[name] = {**base, **{in_rt(sig): half_width(src[sig], cs.frameIndex,
+                                                                  v["cb"])
+                                          for sig in v["signals"]}}
+            elif name.startswith("SIGMA"):
                 pools[name] = dict(sigma)
                 if name == "SIGMA_SHADOW_TRANSLUCENCY":
                     pools[name][RT.IN_TRANSLUCENCY] = fe.sigma_pack_translucency(dist, rgb).numpy()
@@ -409,6 +465,30 @@ class Scene:
                 yield pending.pop(i).result()
 
 
+def half_width(plane, frame_index, mode):
+    """The half-width checkerboard input of a full-width plane in `mode` ("BLACK" or "WHITE"):
+    half texel x holds the pixel of the pair (2x, 2x + 1) that has data in this frame, where
+    (x + y + frame index) & 1 is the mode's parity (tests/test_reblur_full.py:244-250)."""
+    from nrdtpu_torch.settings import CheckerboardMode
+
+    h, w = plane.shape[:2]
+    has = (((np.arange(w)[None, :] + np.arange(h)[:, None] + int(frame_index)) & 1)
+           == int(CheckerboardMode[mode]) - 1)
+    sel = np.where(has[:, ::2], 0, 1) + np.arange(0, w, 2)[None, :]
+    return np.ascontiguousarray(plane[np.arange(h)[:, None], sel])
+
+
+def scattered_materials(pool, seed):
+    """The pool with a material 0-3 drawn per pixel from `seed` in IN_NORMAL_ROUGHNESS (its .w
+    is material / 3), so that any tap may fail the material test."""
+    from nrdtpu_torch.settings import ResourceType as RT
+
+    nr = pool[RT.IN_NORMAL_ROUGHNESS].copy()
+    m = np.random.default_rng(seed).integers(0, 4, nr.shape[:2]).astype(np.float32)
+    nr[..., 3] = m / np.float32(3.0)
+    return {**pool, RT.IN_NORMAL_ROUGHNESS: nr}
+
+
 def engine(denoiser, w, h, device, roughness_encoding="LINEAR", **settings):
     """A fresh Engine of the denoiser on the device at the roughness encoding, with
     `settings` changed from the defaults (enum fields by name)."""
@@ -421,6 +501,8 @@ def engine(denoiser, w, h, device, roughness_encoding="LINEAR", **settings):
         if "hitDistanceReconstructionMode" in settings:
             settings["hitDistanceReconstructionMode"] = S.HitDistanceReconstructionMode[
                 settings["hitDistanceReconstructionMode"]]
+        if "checkerboardMode" in settings:
+            settings["checkerboardMode"] = S.CheckerboardMode[settings["checkerboardMode"]]
         eng.set_denoiser_settings(0, S.replace(eng._settings[0], **settings))
     return eng
 
@@ -513,10 +595,12 @@ def _ops(name, a, k):
         params = SF_PREPASS_PARAM_OPS[k["spec"]] if prepass else BAND_PARAM_OPS
         ops += (SF_GEOM_OPS + params) * px
         ops += (SF_TAP_OPS + (SF_PREPASS_TAP_OPS if prepass and k["spec"] else 0)) * ntaps * px
+        ops += CB_STATE_OPS * px if k.get("cb") is not None else 0
     elif name == "spatial_filter_fused":
         for params in (a[5], a[6]):
             extra = SF_PREPASS_TAP_OPS if sf.MODES[params.shape[0]] == "spec_prepass" else 0
             ops += (SF_TAP_OPS + extra) * ntaps * px
+        ops += 2 * CB_STATE_OPS * px if k.get("cb") is not None else 0
     elif name == "history_fix":
         live = int((a[6][0] != 0.0).sum())
         ops += HF_MOMENT_OPS * px + (HF_RING_OPS * px if k.get("anti_firefly") else 0)
@@ -600,16 +684,17 @@ def history_fix_live(a, k):
     return int((a[3] <= k["frame_num"]).sum()) if k["frame_num"] != 1.0 else 0
 
 
-def _bound(name, a, k, outputs, extra_bytes=0):
+def _bound(name, a, k, outputs, extra_bytes=0, extra_ops=0):
     """(bound ms, "bytes" or "operations"): each input read once and each output written
-    once (plus `extra_bytes`) at the memory rate, against the operations at the float32
-    rate. The tap-geometry plane that N5 writes and N4's Blur and PostBlur read is left out:
-    it holds only what the packed normal and viewZ, counted as inputs, hold."""
+    once (plus `extra_bytes`) at the memory rate, against the operations (plus `extra_ops`)
+    at the float32 rate. The tap-geometry plane that N5 writes and N4's Blur and PostBlur
+    read is left out: it holds only what the packed normal and viewZ, counted as inputs,
+    hold."""
     k = {x: v for x, v in k.items() if x != "geometry"}
     outputs = {x: v for x, v in outputs.items() if x != "geometry"}
     nbytes = sum(t.nbytes for t in _tensors(a) + _tensors(k) + _tensors(outputs)) + extra_bytes
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = _ops(name, a, k) / F32_OPS_PER_S * 1e3
+    t_ops = (_ops(name, a, k) + extra_ops) / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -787,6 +872,10 @@ def occupancy(name, dynamic_smem, sass):
     usage = ptxas_usage((build.BUILD_DIR / "build.log").read_text())
     out = []
     for u in usage.get(os.path.basename(SOURCES[name][0]), []):
+        # H2's and N4's checkerboard instances (their last template argument, kCb) go under
+        # the `_cb` entry, the others under the kernel's own
+        if name in CB_SPLIT and u["kernel"].endswith(", true>") != name.endswith("_cb"):
+            continue
         smem = u["static_smem"] + dynamic_smem.get(u["kernel"], 0)
         out.append(dict(kernel=u["kernel"], registers=u["registers"],
                         spill_bytes=u["spill_bytes"], shared_bytes=smem,
@@ -901,6 +990,30 @@ def kernel_runs():
         runs.append((f"{v['denoiser']} {v['encoding']}", v["denoiser"], pool,
                      dict(v["settings"], roughness_encoding=v["encoding"]),
                      set(ENCODED_KERNELS), set(ENCODED_KERNELS)))
+    # the checkerboard PrePass of H2 and N4, timed: (label, path, the pool's suffix, settings)
+    # of each run; "+fallback" pools have a material drawn per pixel (`scattered_materials`)
+    for label, path, suffix, settings in (
+            ("REBLUR_DIFFUSE cb WHITE", "REBLUR_DIFFUSE+CB", "", {}),
+            ("REBLUR_DIFFUSE cb WHITE fallback", "REBLUR_DIFFUSE+CB", "+fallback", CB_FALLBACK),
+            ("REBLUR_SPECULAR cb BLACK", "REBLUR_SPECULAR+CB", "", {}),
+            ("REBLUR_SPECULAR cb BLACK fallback", "REBLUR_SPECULAR+CB", "+fallback",
+             CB_FALLBACK),
+            ("REBLUR_SPECULAR cb BLACK prepass only", "REBLUR_SPECULAR+CB", "",
+             dict(usePrepassOnlyForSpecularMotionEstimation=True)),
+            ("REBLUR_DIFFUSE_SPECULAR cb BLACK", "REBLUR_DIFFUSE_SPECULAR+CB", "", {}),
+            ("REBLUR_DIFFUSE_SPECULAR cb BLACK fallback", "REBLUR_DIFFUSE_SPECULAR+CB",
+             "+fallback", CB_FALLBACK)):
+        v = PATHS[path]
+        runs.append((label, v["denoiser"], path + suffix, dict(v["settings"], **settings),
+                     {"spatial_filter_cb", "spatial_filter_fused_cb"}, True))
+    # and the other parity of each signal, held
+    for label, path in (("REBLUR_DIFFUSE cb BLACK", "REBLUR_DIFFUSE+CB"),
+                        ("REBLUR_SPECULAR cb WHITE", "REBLUR_SPECULAR+CB"),
+                        ("REBLUR_DIFFUSE_SPECULAR cb WHITE", "REBLUR_DIFFUSE_SPECULAR+CB")):
+        other = "WHITE" if PATHS[path]["cb"] == "BLACK" else "BLACK"
+        runs.append((label, PATHS[path]["denoiser"], f"{path}+{other}",
+                     dict(checkerboardMode=other),
+                     {"spatial_filter_cb", "spatial_filter_fused_cb"}, False))
     band = "REBLUR_DIFFUSE_SPECULAR+BAND"
     for label, settings in (("", {}), (" anti-firefly", dict(enableAntiFirefly=True)),
                             (" perf", dict(enablePerformanceMode=True))):
@@ -922,9 +1035,27 @@ def disagreement(got, want):
     return out
 
 
-def _hold(results, name, lab, a, k, timed, extra_bytes=0):
+def cb_fallback_pixels(name, a, k):
+    """The pixels of one checkerboard PrePass call (of kernel module `name`) where a signal's
+    weight sum is 0, which take the neighbour resolve: the plain version with a NaN resolve
+    marks them."""
+    from nrdtpu_torch import kernels as KM
+
+    sf = KM.MODULES["spatial_filter"]
+    orig = sf.cb_neighbor_resolve
+    sf.cb_neighbor_resolve = lambda signal, *r: torch.full_like(signal, float("nan"))
+    try:
+        out = _outputs(getattr(KM.MODULES[name], name + "_ref")(*a, **k))
+    finally:
+        sf.cb_neighbor_resolve = orig
+    return sum(int(torch.isnan(v[..., 0]).sum()) for key, v in out.items() if v.dim() == 3)
+
+
+def _hold(results, name, lab, a, k, timed, extra_bytes=0, key=None):
     """Hold one call of a kernel against its plain version on the same inputs and add it to
-    `results`; when `timed`, time both, with the call's bound and library time."""
+    `results` under `key` (the kernel module's name by default); when `timed`, time both, with
+    the call's bound and library time. A checkerboard PrePass call also counts the pixels that
+    fall back, whose resolve enters the bound's operations."""
     from nrdtpu_torch import kernels as KM
 
     m = KM.MODULES[name]
@@ -932,10 +1063,15 @@ def _hold(results, name, lab, a, k, timed, extra_bytes=0):
     got = _outputs(kern(*a, **k))
     diffs = disagreement(got, ref(*a, **k))
     torch.cuda.synchronize()
-    r = results.setdefault(name, dict(max_abs_err=0.0, max_rel_err=0.0, over=0, count=0, ms={},
-                                      plain_ms={}, bound_ms={}, bound_by=set(), library_ms={},
-                                      ms_anti_firefly={}, outputs={}, scratch_bound_ms={},
-                                      dynamic_smem={}))
+    fallback = cb_fallback_pixels(name, a, k) if k.get("cb") is not None else 0
+    r = results.setdefault(key or name, dict(
+        max_abs_err=0.0, max_rel_err=0.0, over=0, count=0, ms={}, plain_ms={}, bound_ms={},
+        bound_by=set(), library_ms={}, ms_anti_firefly={}, outputs={}, scratch_bound_ms={},
+        dynamic_smem={}, fallback={}))
+    if k.get("cb") is not None:  # the pixels that fall back, of the signals' pixels
+        fell, px = r["fallback"].get(lab, (0, 0))
+        r["fallback"][lab] = (fell + fallback, px + a[0].shape[0] * a[0].shape[1]
+                              * (2 if name == "spatial_filter_fused" else 1))
     for kernel, nbytes in _dynamic_smem(name, a, k).items():
         r["dynamic_smem"][kernel] = max(r["dynamic_smem"].get(kernel, 0), nbytes)
     for key, (mx, rel, over, count) in diffs.items():
@@ -953,7 +1089,7 @@ def _hold(results, name, lab, a, k, timed, extra_bytes=0):
         return
     r["ms"].setdefault(lab, []).append(time_ms(lambda: kern(*a, **k), 20))
     r["plain_ms"].setdefault(lab, []).append(time_ms(lambda: ref(*a, **k), 3))
-    b, by = _bound(name, a, k, got)
+    b, by = _bound(name, a, k, got, extra_ops=CB_RESOLVE_OPS * fallback)
     r["bound_ms"].setdefault(lab, []).append(b)
     r["bound_by"].add(by)
     if extra_bytes:
@@ -1003,6 +1139,17 @@ def kernel_phase(w, h, frames):
     from nrdtpu_torch import kernels as KM
     from nrdtpu_torch.kernels import build
 
+    # the checkerboard runs' pools: materials drawn per pixel, and the other parity
+    frames = [(cs, dict(pools), t) for cs, pools, t in frames]
+    for cs, pools, _ in frames:
+        for path, v in CB_PATHS.items():
+            if v.get("relax"):
+                continue
+            pools[path + "+fallback"] = scattered_materials(pools[path], cs.frameIndex)
+            other = "WHITE" if v["cb"] == "BLACK" else "BLACK"
+            full = {in_rt(sig): pools[v["denoiser"]][in_rt(sig)] for sig in v["signals"]}
+            pools[f"{path}+{other}"] = {**pools[path], **{
+                rt: half_width(p, cs.frameIndex, other) for rt, p in full.items()}}
     results, chain = {}, {}
     for label, denoiser, pool, settings, only, timed in kernel_runs():
         stages = iter(SF_STAGES)
@@ -1015,6 +1162,7 @@ def kernel_phase(w, h, frames):
                 lab = f"{label} {next(stages)}"
             if name == "spatial_filter":
                 lab = f"{label} {SF_STAGES[k['mode']]}"
+            key = name + "_cb" if k.get("cb") is not None else name
             if name == "sigma_blur":  # a frame's calls: Blur, then PostBlur
                 lab = f"{label} {'blur' if k['first_pass'] else 'post_blur'}"
             if name == "relax_history_fix" and timed is True:
@@ -1022,7 +1170,7 @@ def kernel_phase(w, h, frames):
                 live = history_fix_live(a, k)
                 log(f"kernel relax_history_fix {label}: {live} of {px} pixels run the taps "
                     f"({live / px:.4f}) on frame {len(frames)}")
-            if only is not None and name not in only:
+            if only is not None and key not in only:
                 continue
             # the à-trous ladder's calls are kept apart by stride
             if name == "relax_atrous":
@@ -1030,14 +1178,17 @@ def kernel_phase(w, h, frames):
             scratch = (BAND_SCRATCH_BYTES_PER_PX * a[0].shape[0] * a[0].shape[1]
                        if name == "reblur_band" else 0)
             _hold(results, name, lab, a, k, timed is True or bool(timed and name in timed),
-                  scratch)
-    missing = set(KM.MODULES) - set(results)
+                  scratch, key)
+    missing = (set(KM.MODULES) | set(KM.CB_INSTANCES)) - set(results)
     if missing != set(NO_MAIN_PATH):
         raise AssertionError(f"kernels called by no main path: {sorted(missing)}; only "
                              f"{list(NO_MAIN_PATH)} may be")
     halo_phase(w, h, results)
     sass = sass_instructions(build.library_path())
     for name, r in results.items():
+        for lab, (fell, px) in r.pop("fallback").items():
+            log(f"kernel {name} {lab}: {fell} of {px} pixels fall back to the neighbour "
+                f"resolve ({fell / px:.4f})")
         frac = r["over"] / max(r["count"], 1)
         r["over_fraction"] = frac
         for key in ("ms", "plain_ms", "bound_ms", "library_ms", "ms_anti_firefly",
@@ -1192,7 +1343,7 @@ def slice_phase(path, w, h, frames, warmup):
             host_ms.append(host)
     counts = KM.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    expected = {k: n * PATHS[path]["launches"].get(k, 0) for k in KM.MODULES}
+    expected = {k: n * PATHS[path]["launches"].get(k, 0) for k in KM.launch_counts()}
     log(f"slice {path}: {n} frames at {w}x{h}, launches {counts} (expected {expected})")
     if counts != expected:
         raise AssertionError(f"{path} launch counts {counts} != {expected}")

@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels (sm_90a) of the REBLUR_DIFFUSE, REBLUR_SPECULAR,
 REBLUR_DIFFUSE_SPECULAR (also under NRDTPU_REBLUR_BAND=1), SIGMA_SHADOW,
 SIGMA_SHADOW_TRANSLUCENCY, RELAX_DIFFUSE, RELAX_SPECULAR and RELAX_DIFFUSE_SPECULAR paths (the
-RELAX ones also with SH), one module each, and the halo-window launcher, which no path calls (as
+RELAX ones also with SH; the REBLUR and the non-SH RELAX ones also under checkerboard), one
+module each, and the halo-window launcher, which no path calls (as
 in the JAX package).
 
 Every module holds the kernel's wrapper, its plain PyTorch version (`*_ref`) and a launch
@@ -11,7 +12,8 @@ kernel that `nrdtpu/kernels/__init__.py` selects for the same pass under NRDTPU_
 
   smb_resolve    <- nrdtpu/kernels/reblur_pallas.py:577 reblur_smb_resolve
   spatial_filter <- nrdtpu/kernels/reblur_blur2.py:264 spatial_filter_taps_pallas2
-                    (and its v1 twin nrdtpu/kernels/reblur_pallas.py:1207)
+                    (and its v1 twin nrdtpu/kernels/reblur_pallas.py:1207), with its
+                    checkerboard PrePass (`has_cb`, :270)
   history_fix    <- nrdtpu/kernels/reblur_hfix2.py:222 history_fix_taps_pallas2
                     (and its v1 twin nrdtpu/kernels/reblur_pallas.py:1446)
   ts_prelude     <- nrdtpu/kernels/reblur_pallas.py:1754 moments_minmax_pallas
@@ -20,7 +22,8 @@ kernel that `nrdtpu/kernels/__init__.py` selects for the same pass under NRDTPU_
                     (= :882 spec_prelude + :847 shift_planes + :171 nearest_resolve)
   nearest_multi  <- nrdtpu/kernels/reblur_pallas.py:219 nearest_resolve_multi
   vmb_resolve    <- nrdtpu/kernels/reblur_pallas.py:779 reblur_vmb_resolve
-  spatial_filter_fused <- nrdtpu/kernels/reblur_fused.py:787 spatial_filter_fused_pallas
+  spatial_filter_fused <- nrdtpu/kernels/reblur_fused.py:787 spatial_filter_fused_pallas,
+                          with its checkerboard PrePass (`FSig.has_cb`, :153-158)
   history_fix_fused    <- nrdtpu/kernels/reblur_fused.py:668 history_fix_fused_pallas
   hitdist_recon  <- nrdtpu/kernels/reblur_pallas.py:1596 hitdist_recon_pallas
   sigma_blur     <- nrdtpu/kernels/sigma_blur2.py:281 sigma_blur_pallas2
@@ -70,10 +73,20 @@ MODULES = {
 }
 
 
+# the checkerboard PrePass instances of H2 and N4: their launches are also counted apart
+# (`cb_launches`), under these names
+CB_INSTANCES = {"spatial_filter_cb": spatial_filter,
+                "spatial_filter_fused_cb": spatial_filter_fused}
+
+
 def reset_launch_counts():
     for m in MODULES.values():
         m.launches = 0
+    for m in CB_INSTANCES.values():
+        m.cb_launches = 0
 
 
 def launch_counts() -> dict:
-    return {name: m.launches for name, m in MODULES.items()}
+    """{module: its launches}, and {CB_INSTANCES name: its checkerboard launches}."""
+    return ({name: m.launches for name, m in MODULES.items()}
+            | {name: m.cb_launches for name, m in CB_INSTANCES.items()})

@@ -43,6 +43,9 @@ struct PackedTaps {
     return TapGeometry{unpack_normal(nr.at(x, y, 0), nr.at(x, y, 1)), nr.at(x, y, 3) * 3.0f,
                        nr.at(x, y, 2), fabsf(vz.at(x, y, 0)) * view_z_scale};
   }
+  __device__ __forceinline__ float view_z(int x, int y) const {
+    return fabsf(vz.at(x, y, 0)) * view_z_scale;
+  }
 };
 
 // from a (h, w, 4) plane unpacked once a frame, (n.x, n.y, n.z, scaled viewZ), and nr for the
@@ -155,12 +158,15 @@ __device__ __forceinline__ Centre sf_centre(const float* P, size_t plane,
 // (nparams, h, w) planes, whose count is the mode's: diffuse, specular (roughness weight) or
 // specular PrePass (also the stochastic minimum of the taps' hit distances,
 // hitDistForTracking, written to *hdt_out, with one PCG draw per tap from hash_init(pixel,
-// frame index), dead taps included).
-template <int kTaps, SfMode kMode, typename Taps>
-__device__ __forceinline__ void sf_filter(const SfFrame& f, const Centre& c, const float* P,
-                                          size_t plane, float min_material,
-                                          const Image<float, 4>& sig, const Taps& taps,
-                                          float out[4], float* hdt_out) {
+// frame index), dead taps included). kCb, the checkerboard PrePass: the centre weighs
+// centre_weight (1 where the pixel has data, else 0) in the sum and in the accumulator; the
+// taps read the expanded signal. Returns the weight sum.
+template <int kTaps, SfMode kMode, bool kCb = false, typename Taps>
+__device__ __forceinline__ float sf_filter(const SfFrame& f, const Centre& c, const float* P,
+                                           size_t plane, float min_material,
+                                           const Image<float, 4>& sig, const Taps& taps,
+                                           float out[4], float* hdt_out,
+                                           float centre_weight = 1.0f) {
   constexpr bool spec = kMode != SfMode::kDiffuse, prepass = kMode == SfMode::kPrepass;
   const float r0 = P[SF_ROT0 * plane], r1 = P[SF_ROT1 * plane], r2 = P[SF_ROT2 * plane],
               r3 = P[SF_ROT3 * plane];
@@ -179,9 +185,13 @@ __device__ __forceinline__ void sf_filter(const SfFrame& f, const Centre& c, con
     rng = hash_init((uint32_t)c.x, (uint32_t)c.y, f.frame_index);
   }
 
-  float sum = 1.0f;
+  float sum = kCb ? centre_weight : 1.0f;
   const float4 cs = sig.at4(c.x, c.y);
   float acc[4] = {cs.x, cs.y, cs.z, cs.w};
+  if constexpr (kCb) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[k] = acc[k] * centre_weight;
+  }
 
 #pragma unroll 1
   for (int t = 0; t < kTaps; ++t) {
@@ -232,6 +242,49 @@ __device__ __forceinline__ void sf_filter(const SfFrame& f, const Centre& c, con
 #pragma unroll
   for (int k = 0; k < 4; ++k) out[k] = acc[k] * inv;
   if constexpr (prepass) *hdt_out = hdt == 1e6f ? 0.0f : hdt;
+  return sum;
+}
+
+// ---------------------------------------------------------------------------------------
+// Checkerboard PrePass (REBLUR_PrePass.hlsli:45-78; nrdtpu/passes/reblur/kernels.py:743-762,
+// :1607-1608, :2100-2128): the signal arrives expanded from half width; a pixel has data
+// where (x + y + frame index) & 1 is the mode's parity (Sequence::CheckerBoard). Its centre
+// weighs has_data, and where no weight is left the pass writes the horizontal neighbour
+// resolve below. Only the cb instances of H2 and N4 reach this code.
+// ---------------------------------------------------------------------------------------
+
+struct CbConsts {
+  int parity;             // has-data value of the checkerboard: int(mode) - 1
+  float denoising_range;
+};
+
+__device__ __forceinline__ float cb_has_data(int x, int y, uint32_t frame_index, int parity) {
+  return (int)(((uint32_t)x + (uint32_t)y + frame_index) & 1u) == parity ? 1.0f : 0.0f;
+}
+
+// cb_neighbor_resolve: the expanded signal at x - 1 and x + 1, each weighed 1 where its scaled
+// viewZ lies within the disocclusion threshold of the centre's (z, frustum size fsz, nov), 0
+// beyond the denoising range or off the image's edge columns, normalized by the weights' sum
+// (0 where both are 0). vz: any view with view_z(x, y), the scaled viewZ of a texel.
+template <typename Vz>
+__device__ __forceinline__ void cb_neighbor_resolve(const Image<float, 4>& sig, const Vz& vz,
+                                                    int x, int y, float z, float fsz,
+                                                    float nov, float denoising_range,
+                                                    float out[4]) {
+  const float thr = fsz * saturate((float)0.02 / fmaxf(nov, (float)0.01));
+  const float z0 = vz.view_z(x - 1, y), z1 = vz.view_z(x + 1, y);
+  float w0 = fabsf(z0 - z) <= thr ? 1.0f : 0.0f;
+  float w1 = fabsf(z1 - z) <= thr ? 1.0f : 0.0f;
+  if (z0 > denoising_range || x < 1) w0 = 0.0f;
+  if (z1 > denoising_range || x >= sig.w - 1) w1 = 0.0f;
+  const float wsum = w0 + w1;
+  const float inv = wsum == 0.0f ? 0.0f : 1.0f / fmaxf(wsum, (float)1e-15);
+  const float a = w0 * inv, b = w1 * inv;
+  const float4 s0 = sig.at4(x - 1, y), s1 = sig.at4(x + 1, y);
+  out[0] = s0.x * a + s1.x * b;
+  out[1] = s0.y * a + s1.y * b;
+  out[2] = s0.z * a + s1.z * b;
+  out[3] = s0.w * a + s1.w * b;
 }
 
 // ---------------------------------------------------------------------------------------

@@ -16,6 +16,14 @@
 // (UnpackedTaps: 8-9 % faster than PackedTaps there on frame 4 at 2560x1440, PERF.md).
 // kMinCtas: the CTAs an SM that ptxas is asked to fit (4: 50-59 registers, no spill; at 5 the
 // specular instances spilled 8-24 B and ran no faster, PERF.md).
+// The checkerboard PrePass is a fourth template parameter (kCb, PrePass instances only): the
+// pixel's has_data comes from (x, y), the frame index and the mode's parity, host integers, not
+// from a mask plane; the centre's hit distance is zeroed where it has none before the
+// parameters are computed (the radius, ha / hb and the lobe radius read it), its weight is
+// has_data, and where the weight sum is 0 the epilogue writes reblur_filters.cuh's
+// cb_neighbor_resolve, as NRD's PrePass shader does (the JAX package does it as glue after the
+// TPU kernel, nrdtpu/passes/reblur/kernels.py:1682-1684, :2122-2128). The non-cb instances
+// compile as before.
 #include "reblur_filters.cuh"
 
 namespace {
@@ -33,14 +41,16 @@ struct SfArgs {
   float* out;              // (h, w, 4)
   float* hdt;              // (h, w) hitDistForTracking, specular PrePass only
   float min_material, prepass_radius;
+  nrd::CbConsts cb;  // the checkerboard PrePass only
   nrd::SfFrame f;
   nrd::GeometryConsts geo;
   nrd::BlurConsts blur;
   nrd::StageConsts stage;
 };
 
-template <int kTaps, bool kSpec, bool kPrepass>
+template <int kTaps, bool kSpec, bool kPrepass, bool kCb>
 __global__ void __launch_bounds__(256, kMinCtas) spatial_filter_kernel(SfArgs a) {
+  static_assert(!kCb || kPrepass, "the checkerboard mode is the PrePass's");
   constexpr nrd::SfMode mode = !kSpec ? nrd::SfMode::kDiffuse
                                : kPrepass ? nrd::SfMode::kPrepass : nrd::SfMode::kSpec;
   const int x = blockIdx.x * nrd::kBlock + threadIdx.x;
@@ -50,7 +60,12 @@ __global__ void __launch_bounds__(256, kMinCtas) spatial_filter_kernel(SfArgs a)
   const Image<float, 4> nr{a.nr, a.f.w, a.f.h};
   const Image<float, 4> sig{a.signal, a.f.w, a.f.h};
   const float4 nrc = __ldg(reinterpret_cast<const float4*>(a.nr) + i);
-  const float hit_dist = __ldg(a.signal + 4 * i + 3);
+  float hit_dist = __ldg(a.signal + 4 * i + 3);
+  float has_data = 1.0f;
+  if constexpr (kCb) {  // the centre's signal zeroed where it has no data, as signal * cb_mask
+    has_data = nrd::cb_has_data(x, y, a.f.frame_index, a.cb.parity);
+    hit_dist = hit_dist * has_data;
+  }
   const float data1 = kPrepass ? 0.0f : __ldg(a.data1 + i);
   const float u = nrd::pixel_u(x, a.f.w), v = nrd::pixel_u(y, a.f.h);
   const nrd::FilterGeometry g =
@@ -82,12 +97,16 @@ __global__ void __launch_bounds__(256, kMinCtas) spatial_filter_kernel(SfArgs a)
   c.nv = g.nv;
   float out[4];
   float* const hdt = kSpec && kPrepass ? a.hdt + i : nullptr;
-  if constexpr (kPrepass)
-    nrd::sf_filter<kTaps, mode>(a.f, c, prm, 1, a.min_material, sig,
-                                nrd::PackedTaps{nr, Image<float, 1>{a.view_z, a.f.w, a.f.h},
-                                                a.f.view_z_scale},
-                                out, hdt);
-  else
+  if constexpr (kPrepass) {
+    const nrd::PackedTaps taps{nr, Image<float, 1>{a.view_z, a.f.w, a.f.h}, a.f.view_z_scale};
+    const float sum =
+        nrd::sf_filter<kTaps, mode, kCb>(a.f, c, prm, 1, a.min_material, sig, taps, out, hdt,
+                                         has_data);
+    if constexpr (kCb)
+      if (sum == 0.0f)
+        nrd::cb_neighbor_resolve(sig, taps, x, y, g.view_z, g.fsz, g.nov, a.cb.denoising_range,
+                                 out);
+  } else
     nrd::sf_filter<kTaps, mode>(a.f, c, prm, 1, a.min_material, sig,
                                 nrd::UnpackedTaps{a.geometry, nr}, out, hdt);
   reinterpret_cast<float4*>(a.out)[i] = make_float4(out[0], out[1], out[2], out[3]);
@@ -96,12 +115,15 @@ __global__ void __launch_bounds__(256, kMinCtas) spatial_filter_kernel(SfArgs a)
 using Kernel = void (*)(SfArgs);
 
 template <int kTaps>
-Kernel pick(bool spec, bool prepass) {
+Kernel pick(bool spec, bool prepass, bool cb) {
+  if (prepass && cb)
+    return spec ? spatial_filter_kernel<kTaps, true, true, true>
+                : spatial_filter_kernel<kTaps, false, true, true>;
   if (prepass)
-    return spec ? spatial_filter_kernel<kTaps, true, true>
-                : spatial_filter_kernel<kTaps, false, true>;
-  return spec ? spatial_filter_kernel<kTaps, true, false>
-              : spatial_filter_kernel<kTaps, false, false>;
+    return spec ? spatial_filter_kernel<kTaps, true, true, false>
+                : spatial_filter_kernel<kTaps, false, true, false>;
+  return spec ? spatial_filter_kernel<kTaps, true, false, false>
+              : spatial_filter_kernel<kTaps, false, false, false>;
 }
 
 }  // namespace
@@ -115,7 +137,8 @@ Kernel pick(bool spec, bool prepass) {
 //         fade's a and b - a, the stage's rotator[4], fraction scale, radius scale, min
 //         hit-distance weight scale and scaled roughness fraction, min material, ntaps (8 or
 //         6), stage (0 PrePass, 1 Blur, 2 PostBlur), specular (0 or 1),
-//         use_prepass_not_only, frame index low 16 bits, high 16 bits
+//         use_prepass_not_only, frame index low 16 bits, high 16 bits, the checkerboard's
+//         has-data parity (-1: off; PrePass only), denoising range
 extern "C" int nrd_spatial_filter(void* const* p, const float* c, int w, int h, void* stream) {
   SfArgs a;
   a.signal = (const float*)p[0];
@@ -159,13 +182,17 @@ extern "C" int nrd_spatial_filter(void* const* p, const float* c, int w, int h, 
   const bool spec = c[45] != 0.0f, prepass = stage == 0;
   a.f.use_prepass_not_only = c[46];
   a.f.frame_index = (uint32_t)c[47] | ((uint32_t)c[48] << 16);
-  if ((ntaps != 8 && ntaps != 6) || stage < 0 || stage > 2 ||
+  a.cb.parity = (int)c[49];
+  a.cb.denoising_range = c[50];
+  const bool cb = a.cb.parity >= 0;
+  if ((ntaps != 8 && ntaps != 6) || stage < 0 || stage > 2 || a.cb.parity > 1 ||
+      (cb && !prepass) ||
       (!prepass && (a.data1 == nullptr || a.geometry == nullptr)) ||
       (spec && prepass && a.hdt == nullptr))
     return (int)cudaErrorInvalidValue;
   const dim3 block(nrd::kBlock, nrd::kBlock);
   const dim3 grid((w + nrd::kBlock - 1) / nrd::kBlock, (h + nrd::kBlock - 1) / nrd::kBlock);
-  const Kernel kernel = ntaps == 8 ? pick<8>(spec, prepass) : pick<6>(spec, prepass);
+  const Kernel kernel = ntaps == 8 ? pick<8>(spec, prepass, cb) : pick<6>(spec, prepass, cb);
   kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -17,6 +17,12 @@
 // scaled viewZ from the frame's tap-geometry plane that N5 writes (UnpackedTaps); the PrePass,
 // which runs before N5, unpacks each texel (PackedTaps: a plane and its prologue there
 // measured no faster).
+// The checkerboard PrePass (kCb, PrePass kernels only) gives each signal's centre the weight
+// has_data, computed from (x, y), the frame index and the mode's parity (host integers); the
+// glue's parameter planes already read the zeroed centre signal. Where a signal's weight sum is
+// 0 the kernel writes reblur_filters.cuh's cb_neighbor_resolve of that signal, computing the
+// centre's scaled viewZ, frustum size and nov as filter_geometry does, from the shared
+// view-space normal (JAX does this as glue after K2, nrdtpu/passes/reblur/kernels.py:1977-1986).
 #include "reblur_filters.cuh"
 
 namespace {
@@ -36,49 +42,80 @@ struct SffArgs {
   float* out;                // (2, h, w, 4): diffuse, specular
   float* hdt;                // (h, w) hitDistForTracking, PrePass only
   float min_material[2];
+  float min_rect_dim_mul_unproject;  // the checkerboard PrePass's fallback only
+  nrd::CbConsts cb;
   nrd::SfFrame f;
 };
 
-template <int kTaps, SfMode kSpecMode, typename Taps>
+// the centre's scaled viewZ, frustum size and nov of reblur_filters.cuh:filter_geometry, from
+// the shared view-space normal: what the checkerboard fallback reads
+__device__ __forceinline__ void cb_centre(const SffArgs& a, const nrd::Centre& c, float raw_z,
+                                          float* z, float* fsz, float* nov) {
+  *z = fabsf(raw_z) * a.f.view_z_scale;
+  const nrd::V3 xv = nrd::reconstruct_view_position(c.u, c.v, a.f.fr, *z, a.f.ortho);
+  nrd::V3 vv{0.0f, 0.0f, -1.0f};
+  if (a.f.ortho == 0.0f) {
+    const nrd::V3 m{-xv.x, -xv.y, -xv.z};
+    const float inv = rsqrtf(fmaxf(nrd::dot3(m, m), (float)1e-15));
+    vv = nrd::V3{m.x * inv, m.y * inv, m.z * inv};
+  }
+  *nov = fabsf(nrd::dot3(c.nv, vv));
+  *fsz = a.min_rect_dim_mul_unproject * (*z + (1.0f - *z) * fabsf(a.f.ortho));
+}
+
+template <int kTaps, SfMode kSpecMode, bool kCb, typename Taps>
 __device__ __forceinline__ void filter_pixel(const SffArgs& a, const Taps& taps, int s, int x,
                                              int y) {
   const size_t i = (size_t)y * a.f.w + x;
   const size_t plane = (size_t)a.f.w * a.f.h;
   const Image<float, 4> nr{a.nr, a.f.w, a.f.h};
   const nrd::Centre c = nrd::sf_centre(a.shared + i, plane, nr, x, y);
+  const Image<float, 4> sig{a.signal[s], a.f.w, a.f.h};
+  const float has_data = kCb ? nrd::cb_has_data(x, y, a.f.frame_index, a.cb.parity) : 1.0f;
   float out[4];
+  float sum;
   if (s == 0)
-    nrd::sf_filter<kTaps, SfMode::kDiffuse>(a.f, c, a.params[0] + i, plane, a.min_material[0],
-                                            Image<float, 4>{a.signal[0], a.f.w, a.f.h}, taps, out,
-                                            nullptr);
+    sum = nrd::sf_filter<kTaps, SfMode::kDiffuse, kCb>(a.f, c, a.params[0] + i, plane,
+                                                       a.min_material[0], sig, taps, out,
+                                                       nullptr, has_data);
   else
-    nrd::sf_filter<kTaps, kSpecMode>(a.f, c, a.params[1] + i, plane, a.min_material[1],
-                                     Image<float, 4>{a.signal[1], a.f.w, a.f.h}, taps, out,
-                                     a.hdt + i);
+    sum = nrd::sf_filter<kTaps, kSpecMode, kCb>(a.f, c, a.params[1] + i, plane,
+                                                a.min_material[1], sig, taps, out, a.hdt + i,
+                                                has_data);
+  if constexpr (kCb) {
+    if (sum == 0.0f) {
+      float z, fsz, nov;
+      cb_centre(a, c, __ldg(a.view_z + i), &z, &fsz, &nov);
+      nrd::cb_neighbor_resolve(sig, taps, x, y, z, fsz, nov, a.cb.denoising_range, out);
+    }
+  }
   reinterpret_cast<float4*>(a.out)[s * plane + i] = make_float4(out[0], out[1], out[2], out[3]);
 }
 
-template <int kTaps, bool kPrepass>
+template <int kTaps, bool kPrepass, bool kCb>
 __global__ void __launch_bounds__(256, kSfCtas) spatial_filter_fused_kernel(SffArgs a) {
+  static_assert(!kCb || kPrepass, "the checkerboard mode is the PrePass's");
   const int s = (int)(blockIdx.x & 1u);
   const int x = (int)(blockIdx.x >> 1) * nrd::kBlock + (int)threadIdx.x;
   const int y = (int)blockIdx.y * nrd::kBlock + (int)threadIdx.y;
   if (x >= a.f.w || y >= a.f.h) return;
   const Image<float, 4> nr{a.nr, a.f.w, a.f.h};
   if constexpr (kPrepass)
-    filter_pixel<kTaps, SfMode::kPrepass>(
+    filter_pixel<kTaps, SfMode::kPrepass, kCb>(
         a, nrd::PackedTaps{nr, Image<float, 1>{a.view_z, a.f.w, a.f.h}, a.f.view_z_scale}, s, x,
         y);
   else
-    filter_pixel<kTaps, SfMode::kSpec>(a, nrd::UnpackedTaps{a.geometry, nr}, s, x, y);
+    filter_pixel<kTaps, SfMode::kSpec, false>(a, nrd::UnpackedTaps{a.geometry, nr}, s, x, y);
 }
 
 using Kernel = void (*)(SffArgs);
 
 template <int kTaps>
-Kernel pick(bool prepass) {
-  return prepass ? spatial_filter_fused_kernel<kTaps, true>
-                 : spatial_filter_fused_kernel<kTaps, false>;
+Kernel pick(bool prepass, bool cb) {
+  if (prepass)
+    return cb ? spatial_filter_fused_kernel<kTaps, true, true>
+              : spatial_filter_fused_kernel<kTaps, true, false>;
+  return spatial_filter_fused_kernel<kTaps, false, false>;
 }
 
 }  // namespace
@@ -87,7 +124,9 @@ Kernel pick(bool prepass) {
 //       mode, required otherwise), out, hdt
 // consts: frustum[4], rect_w, rect_h, view_z_scale, ortho_mode, diff_min_material,
 //         spec_min_material, ntaps (8 or 6), spec nparams; in PrePass mode also hit-distance
-//         params[4], use_prepass_not_only, frame index low 16 bits, high 16 bits
+//         params[4], use_prepass_not_only, frame index low 16 bits, high 16 bits, the
+//         checkerboard's has-data parity (-1: off), denoising range,
+//         min_rect_dim_mul_unproject
 extern "C" int nrd_spatial_filter_fused(void* const* p, const float* c, int w, int h,
                                         void* stream) {
   SffArgs a;
@@ -121,12 +160,18 @@ extern "C" int nrd_spatial_filter_fused(void* const* p, const float* c, int w, i
   for (int k = 0; k < 4; ++k) a.f.hdp[k] = 0.0f;
   a.f.use_prepass_not_only = 0.0f;
   a.f.frame_index = 0;
+  a.cb = nrd::CbConsts{-1, 0.0f};
+  a.min_rect_dim_mul_unproject = 0.0f;
   if (prepass) {
     for (int k = 0; k < 4; ++k) a.f.hdp[k] = c[12 + k];
     a.f.use_prepass_not_only = c[16];
     a.f.frame_index = (uint32_t)c[17] | ((uint32_t)c[18] << 16);
+    a.cb = nrd::CbConsts{(int)c[19], c[20]};
+    a.min_rect_dim_mul_unproject = c[21];
   }
-  const Kernel kernel = ntaps == 8 ? pick<8>(prepass) : pick<6>(prepass);
+  if (a.cb.parity > 1) return (int)cudaErrorInvalidValue;
+  const bool cb = a.cb.parity >= 0;
+  const Kernel kernel = ntaps == 8 ? pick<8>(prepass, cb) : pick<6>(prepass, cb);
   const dim3 block(nrd::kBlock, nrd::kBlock);
   const dim3 tiles((w + nrd::kBlock - 1) / nrd::kBlock, (h + nrd::kBlock - 1) / nrd::kBlock);
   const dim3 grid(2 * tiles.x, tiles.y);  // one CTA per (tile, signal)

@@ -16,6 +16,15 @@ specular PrePass also takes the stochastic minimum of the taps' hit distances,
 hitDistForTracking (`:1732-1743`), with 8 (6) random numbers drawn per pixel from
 `hash_init(pixel, frame_index)` in tap order, as the XLA loop draws them.
 
+The checkerboard PrePass (`cb`, the mode's has-data parity; `reblur_blur2.py:270` `has_cb`)
+takes the signal expanded from half width. The kernel computes each pixel's has_data from its
+position, the frame index and the parity; the centre's hit distance is zeroed where it has no
+data before its parameters are computed, the centre weighs has_data in the sum, the taps read
+the expanded signal, and where the weight sum is 0 the kernel writes the horizontal neighbour
+resolve (`cb_neighbor_resolve`, `nrdtpu/passes/reblur/kernels.py:743-762`). This is what
+`diffuse_pre_pass(cb_mask=)` and `specular_spatial_filter(PRE_BLUR, cb_mask=)` compute, with the
+fallback that JAX applies as glue after the TPU kernel.
+
 The kernel takes the raw planes (the signal, viewZ, the packed normal and, for Blur and
 PostBlur, the accumulation speed and `geometry`, the (unpacked normal, scaled viewZ) plane that
 H3 (`history_fix`) returns) and the frame constants (`sc`, `dc`); no parameter plane. The
@@ -37,12 +46,14 @@ import torch
 
 from .. import frontend as fe
 from .. import math as nm
-from ..ops import resample
+from ..ops import resample, stencil
 from ..passes.reblur import common as C
 from ..passes.reblur import params as P
 from . import build
 
 launches = 0
+cb_launches = 0  # of them, the checkerboard PrePass instances
+NRD_DISOCCLUSION_THRESHOLD = 0.02  # `nrdtpu/passes/reblur/common.py:42`
 
 # per-pixel planes of the tap loop, in order (`taps_ref`; N4's and K23's glue stacks them):
 # shared by the signals of a pixel, and the signal's own
@@ -68,12 +79,41 @@ def ntaps(perf_mode: bool) -> int:
     return len(nm.SPECIAL_6 if perf_mode else nm.SPECIAL_8)
 
 
+def cb_mask(h, w, frame_index, parity, device=None):
+    """(h, w) float32: 1 where a pixel has data under the checkerboard of has-data parity
+    `parity` (int(mode) - 1), else 0 (`nrdtpu/passes/reblur/denoiser.py:189-195`)."""
+    return nm.checkerboard_has_data(h, w, frame_index, parity + 1, device).to(torch.float32)
+
+
+def cb_neighbor_resolve(signal, view_z, frustum_size, nov, denoising_range):
+    """The checkerboard fallback (`nrdtpu/passes/reblur/kernels.py:743-762`,
+    REBLUR_PrePass.hlsli:45-57): the expanded signal (h, w, 4) at x - 1 and x + 1, each weighed
+    1 where its scaled viewZ lies within the disocclusion threshold of the centre's, 0 beyond
+    the denoising range or off the edge columns, normalized by the weights' sum (0 where both
+    are 0)."""
+    w = view_z.shape[1]
+    thr = nm.get_disocclusion_threshold(NRD_DISOCCLUSION_THRESHOLD, frustum_size, nov)
+    z0 = stencil.shifted(view_z, 0, -1)
+    z1 = stencil.shifted(view_z, 0, 1)
+    col = torch.arange(w, device=view_z.device)[None, :]
+    w0 = (torch.abs(z0 - view_z) <= thr).to(torch.float32)
+    w1 = (torch.abs(z1 - view_z) <= thr).to(torch.float32)
+    w0 = torch.where((z0 > denoising_range) | (col < 1), 0.0, w0)
+    w1 = torch.where((z1 > denoising_range) | (col >= w - 1), 0.0, w1)
+    wsum = w0 + w1
+    inv = torch.where(wsum == 0.0, 0.0, 1.0 / torch.clamp_min(wsum, 1e-15))
+    return (stencil.shifted(signal, 0, -1) * (w0 * inv)[..., None]
+            + stencil.shifted(signal, 0, 1) * (w1 * inv)[..., None])
+
+
 def taps_ref(signal, view_z_in, normal_roughness, shared, params, *, frustum, rect_size,
-             view_z_scale, ortho_mode, min_material, perf_mode, prepass=None):
+             view_z_scale, ortho_mode, min_material, perf_mode, prepass=None, cb=None):
     """The XLA tap loop on the centre's planes: shared named by SHARED (8, h, w), params by
     PARAMS (+ SPEC_PARAMS (+ PREPASS_PARAMS)); the specular PrePass mode takes `prepass` =
-    dict(hit_dist_params (A, B, C, D), use_prepass_not_only, frame_index). Returns the
-    filtered signal (h, w, 4), and in the PrePass mode also hitDistForTracking (h, w)."""
+    dict(hit_dist_params (A, B, C, D), use_prepass_not_only, frame_index); the checkerboard
+    PrePass `cb` = dict(mask: the (h, w) has-data plane, the centre's weight; resolve: the
+    (h, w, 4) fallback written where the weight sum is 0). Returns the filtered signal (h, w,
+    4), and in the PrePass mode also hitDistForTracking (h, w)."""
     h, w = view_z_in.shape
     mode = MODES[params.shape[0]]
     p = dict(zip(SHARED, shared))
@@ -85,8 +125,8 @@ def taps_ref(signal, view_z_in, normal_roughness, shared, params, *, frustum, re
     material_id = normal_roughness[..., 3] * 3.0
     rw, rh = float(rect_size[0]), float(rect_size[1])
 
-    sum_ = torch.ones_like(view_z_in)
-    acc = signal
+    sum_ = torch.ones_like(view_z_in) if cb is None else cb["mask"]
+    acc = signal if cb is None else signal * cb["mask"][..., None]
     if mode == "spec_prepass":
         hit_dist = p["hit_dist"]
         hdt = torch.where(hit_dist == 0.0, fe.NRD_INF, hit_dist)
@@ -132,6 +172,8 @@ def taps_ref(signal, view_z_in, normal_roughness, shared, params, *, frustum, re
         sum_ = sum_ + w_
         acc = acc + s * w_[..., None]
     out = acc * (1.0 / torch.clamp_min(sum_, 1e-15))[..., None]
+    if cb is not None:
+        out = torch.where((sum_ == 0.0)[..., None], cb["resolve"], out)
     if mode == "spec_prepass":
         return out, torch.where(hdt == fe.NRD_INF, 0.0, hdt)
     return out
@@ -170,26 +212,40 @@ def min_material(dc, spec):
     return float(dc["spec_min_material" if spec else "diff_min_material"])
 
 
+def cb_ref(signal, view_z, frustum_size, nov, *, frame_index, parity, denoising_range):
+    """`taps_ref`'s `cb` of a checkerboard PrePass: the has-data plane and the fallback."""
+    h, w = view_z.shape
+    return dict(mask=cb_mask(h, w, frame_index, parity, signal.device),
+                resolve=cb_neighbor_resolve(signal, view_z, frustum_size, nov, denoising_range))
+
+
 def spatial_filter_ref(signal, view_z_in, normal_roughness, data1=None, *, sc, dc, mode, spec,
-                       enc_err, perf_mode, geometry=None):
+                       enc_err, perf_mode, geometry=None, cb=None):
     """Plain PyTorch version of the kernel: the centre's planes that the kernel computes per
     pixel, from the pass glue's torch functions (`params.filter_geometry`,
-    `diff_spatial_params`, `spec_spatial_params`), then the XLA tap loop (`taps_ref`); the
-    taps unpack their geometry from normal_roughness and view_z_in, the values of
-    `geometry`."""
+    `diff_spatial_params`, `spec_spatial_params`; under checkerboard on the centre signal
+    zeroed where it has no data), then the XLA tap loop (`taps_ref`); the taps unpack their
+    geometry from normal_roughness and view_z_in, the values of `geometry`."""
     geom = P.filter_geometry(sc, dc, view_z_in, normal_roughness, enc_err,
                              ("spec",) if spec else ("diff",))
     shared = torch.stack([geom["ga"], geom["gb"], *geom["n3"], *geom["nv3"]])
+    centre, cbd = signal, None
+    if cb is not None:
+        cbd = cb_ref(signal, geom["view_z"], geom["frustum_size"], geom["nov"],
+                     frame_index=int(sc["frame_index"]), parity=cb,
+                     denoising_range=float(sc["denoising_range"]))
+        centre = signal * cbd["mask"][..., None]
     params = (P.spec_spatial_params if spec else P.diff_spatial_params)(sc, dc, mode, geom,
-                                                                        signal, data1)
+                                                                        centre, data1)
     prepass = prepass_inputs(sc, dc) if spec and mode == P.PRE_BLUR else None
     return taps_ref(signal, view_z_in, normal_roughness, shared, params,
                     frustum=_v(sc["frustum"]), rect_size=_v(sc["rect_size"]),
                     view_z_scale=float(sc["view_z_scale"]), ortho_mode=float(sc["ortho_mode"]),
-                    min_material=min_material(dc, spec), perf_mode=perf_mode, prepass=prepass)
+                    min_material=min_material(dc, spec), perf_mode=perf_mode, prepass=prepass,
+                    cb=cbd)
 
 
-def launch_consts(sc, dc, mode, spec, enc_err, perf_mode):
+def launch_consts(sc, dc, mode, spec, enc_err, perf_mode, cb=None):
     """The kernel's host constants, each the float32 value that the plain version's torch ops
     see (`csrc/spatial_filter.cu:nrd_spatial_filter` lists them)."""
     fraction_scale, radius_scale = P.STAGE_SCALES[mode]
@@ -206,24 +262,29 @@ def launch_consts(sc, dc, mode, spec, enc_err, perf_mode):
             fade_a, fade_ba, *_v(sc[ROTATORS[mode]]), fraction_scale, radius_scale,
             P.min_hit_dist_weight_scale(dc, fraction_scale),
             P.roughness_fraction_scaled(dc, fraction_scale), min_material(dc, spec),
-            ntaps(perf_mode), mode, spec, *prepass_consts(prepass)[4:]]
+            ntaps(perf_mode), mode, spec, *prepass_consts(prepass)[4:],
+            -1 if cb is None else int(cb), float(sc["denoising_range"])]
 
 
 def spatial_filter(signal, view_z_in, normal_roughness, data1=None, *, sc, dc, mode, spec,
-                   enc_err, perf_mode, geometry=None):
+                   enc_err, perf_mode, geometry=None, cb=None):
     """signal (h, w, 4), view_z_in (h, w), normal_roughness (h, w, 4) with linear roughness,
     data1 (h, w) the accumulation speed (Blur and PostBlur; None in the PrePass); sc, dc: the
     frame constants; mode: params.PRE_BLUR, BLUR or POST_BLUR; spec: the specular filter;
     enc_err: the normal encoding's error; geometry: in Blur and PostBlur the tap geometry (h, w,
-    4) that `history_fix` returns, None in the PrePass. Returns the filtered signal (h, w, 4),
-    and in the specular PrePass also hitDistForTracking (h, w)."""
-    global launches
+    4) that `history_fix` returns, None in the PrePass; cb: in a checkerboard PrePass the
+    mode's has-data parity (int(CheckerboardMode) - 1, 0 or 1), the signal expanded from half
+    width; else None. Returns the filtered signal (h, w, 4), and in the specular PrePass also
+    hitDistForTracking (h, w)."""
+    global launches, cb_launches
     kw = dict(sc=sc, dc=dc, mode=mode, spec=bool(spec), enc_err=enc_err, perf_mode=perf_mode,
-              geometry=geometry)
+              geometry=geometry, cb=cb)
     prepass = mode == P.PRE_BLUR
     if prepass != (data1 is None) or prepass != (geometry is None):
         raise ValueError("data1 and geometry (the history fix's tap-geometry plane) go with "
                          "Blur and PostBlur, not with the PrePass")
+    if cb not in (None, 0, 1) or (cb is not None and not prepass):
+        raise ValueError(f"cb: {cb!r}; the checkerboard parity (0 or 1) goes with the PrePass")
     dev = build.kernel_device(signal)
     if dev is None:
         return spatial_filter_ref(signal, view_z_in, normal_roughness, data1, **kw)
@@ -238,8 +299,9 @@ def spatial_filter(signal, view_z_in, normal_roughness, data1=None, *, sc, dc, m
     hdt = torch.empty((h, w), dtype=torch.float32, device=dev) if spec and prepass else None
     build.launch("nrd_spatial_filter", [signal, view_z_in, normal_roughness, data1, geometry,
                                         out, hdt],
-                 launch_consts(sc, dc, mode, bool(spec), enc_err, perf_mode), w, h)
+                 launch_consts(sc, dc, mode, bool(spec), enc_err, perf_mode, cb), w, h)
     launches += 1
+    cb_launches += cb is not None
     return (out, hdt) if spec and prepass else out
 
 

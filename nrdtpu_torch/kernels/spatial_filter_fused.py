@@ -14,6 +14,14 @@ Poisson table. The Blur and PostBlur take the frame's tap geometry (`geometry`, 
 plane that N5 returns) and read each texel's unpacked normal and viewZ from it; the PrePass,
 which runs before N5, takes none and unpacks the packed normal at every tap.
 
+The checkerboard PrePass (`cb`; `FSig.has_cb`, `reblur_fused.py:153-158`) gives each signal's
+centre the weight has_data, which the kernel computes from the pixel's position, the frame
+index and the mode's parity; the parameter planes already read the centre signal zeroed where
+it has no data (`params.diff_spatial_params` / `spec_spatial_params` on the zeroed signal, as
+JAX's `_fused_diff_params` / `_fused_spec_params`). Where a signal's weight sum is 0 the kernel
+writes that signal's horizontal neighbour resolve (`spatial_filter.cb_neighbor_resolve`), which
+JAX applies as glue after K2 (`nrdtpu/passes/reblur/kernels.py:1977-1986`).
+
 Not carried over from the TPU kernel: the shared static tap lattice and hat-blended radius
 levels (`reblur_fused.py:17-20`), bf16 windows, and the zeroed radius of sky pixels.
 
@@ -27,24 +35,53 @@ from __future__ import annotations
 
 import torch
 
+from .. import math as nm
+from .. import vec3 as v3
+from ..ops import resample
 from . import build
 from . import spatial_filter as sf
 
 launches = 0
+cb_launches = 0  # of them, the checkerboard PrePass instance
+
+
+def cb_centre(view_z_in, nv3, *, frustum, view_z_scale, ortho_mode,
+              min_rect_dim_mul_unproject):
+    """(scaled viewZ, frustum size, nov) of each pixel from its view-space normal nv3, as
+    `params.filter_geometry` computes them: what the checkerboard fallback reads, as the
+    kernel's `cb_centre` computes it where a weight sum is 0."""
+    h, w = view_z_in.shape
+    uv = resample.pixel_uv_grid(h, w, view_z_in.device)
+    view_z = torch.abs(view_z_in) * view_z_scale
+    xv3 = v3.reconstruct_view_position(uv[..., 0], uv[..., 1], frustum, view_z, ortho_mode)
+    vv3 = (v3.normalize(v3.V3(-xv3.x, -xv3.y, -xv3.z)) if ortho_mode == 0.0
+           else v3.V3.full_like(view_z, 0.0, 0.0, -1.0))
+    return (view_z, nm.get_frustum_size(min_rect_dim_mul_unproject, ortho_mode, view_z),
+            torch.abs(v3.dot(nv3, vv3)))
 
 
 def spatial_filter_fused_ref(diff, spec, view_z_in, normal_roughness, shared, diff_params,
                              spec_params, *, frustum, rect_size, view_z_scale, ortho_mode,
                              diff_min_material, spec_min_material, perf_mode, prepass=None,
-                             geometry=None):
+                             geometry=None, cb=None):
     """Plain version: H2's tap loop (`spatial_filter.taps_ref`) run once per signal (the tap
-    geometry it computes from normal_roughness and view_z_in, the values of `geometry`)."""
+    geometry it computes from normal_roughness and view_z_in, the values of `geometry`); under
+    checkerboard with each signal's has-data plane and fallback (`spatial_filter.cb_ref`)."""
     kw = dict(frustum=frustum, rect_size=rect_size, view_z_scale=view_z_scale,
               ortho_mode=ortho_mode, perf_mode=perf_mode)
+    cbs = dict(diff=None, spec=None)
+    if cb is not None:
+        centre = cb_centre(view_z_in, v3.V3(shared[5], shared[6], shared[7]),
+                              frustum=frustum, view_z_scale=view_z_scale,
+                              ortho_mode=ortho_mode,
+                              min_rect_dim_mul_unproject=cb["min_rect_dim_mul_unproject"])
+        cbs = {name: sf.cb_ref(sig, *centre, frame_index=prepass["frame_index"],
+                               parity=cb["parity"], denoising_range=cb["denoising_range"])
+               for name, sig in (("diff", diff), ("spec", spec))}
     out = dict(diff=sf.taps_ref(diff, view_z_in, normal_roughness, shared, diff_params,
-                                min_material=diff_min_material, **kw))
+                                min_material=diff_min_material, cb=cbs["diff"], **kw))
     res = sf.taps_ref(spec, view_z_in, normal_roughness, shared, spec_params,
-                      min_material=spec_min_material, prepass=prepass, **kw)
+                      min_material=spec_min_material, prepass=prepass, cb=cbs["spec"], **kw)
     if prepass is None:
         out["spec"] = res
     else:
@@ -55,17 +92,20 @@ def spatial_filter_fused_ref(diff, spec, view_z_in, normal_roughness, shared, di
 def spatial_filter_fused(diff, spec, view_z_in, normal_roughness, shared, diff_params,
                          spec_params, *, frustum, rect_size, view_z_scale, ortho_mode,
                          diff_min_material, spec_min_material, perf_mode, prepass=None,
-                         geometry=None):
+                         geometry=None, cb=None):
     """diff, spec (h, w, 4); shared (8, h, w) planes named by spatial_filter.SHARED;
     diff_params (8, h, w) named by spatial_filter.PARAMS; spec_params (10 | 15, h, w) named by
     PARAMS + SPEC_PARAMS (+ PREPASS_PARAMS, with `prepass` as for spatial_filter); geometry:
     the frame's tap geometry (h, w, 4) from history_fix_fused, required in Blur and PostBlur
-    mode, None in PrePass mode. Returns dict(diff, spec[, hdt])."""
-    global launches
+    mode, None in PrePass mode; cb: in a checkerboard PrePass dict(parity: the mode's has-data
+    parity, int(CheckerboardMode) - 1; denoising_range; min_rect_dim_mul_unproject), the
+    signals expanded from half width and the parameter planes computed on the centre signals
+    zeroed where they have no data; else None. Returns dict(diff, spec[, hdt])."""
+    global launches, cb_launches
     kw = dict(frustum=frustum, rect_size=rect_size, view_z_scale=view_z_scale,
               ortho_mode=ortho_mode, diff_min_material=diff_min_material,
               spec_min_material=spec_min_material, perf_mode=perf_mode, prepass=prepass,
-              geometry=geometry)
+              geometry=geometry, cb=cb)
     if sf.MODES.get(diff_params.shape[0]) != "diffuse":
         raise ValueError(f"diff_params: {diff_params.shape[0]} planes")
     if sf.MODES.get(spec_params.shape[0]) not in ("spec", "spec_prepass"):
@@ -74,6 +114,8 @@ def spatial_filter_fused(diff, spec, view_z_in, normal_roughness, shared, diff_p
     if prepass_mode != (geometry is None):
         raise ValueError("geometry: the tap-geometry plane goes with Blur and PostBlur, not "
                          "with the PrePass")
+    if cb is not None and (not prepass_mode or cb["parity"] not in (0, 1)):
+        raise ValueError(f"cb: {cb!r}; the checkerboard parity (0 or 1) goes with the PrePass")
     dev = build.kernel_device(diff)
     if dev is None:
         return spatial_filter_fused_ref(diff, spec, view_z_in, normal_roughness, shared,
@@ -94,9 +136,12 @@ def spatial_filter_fused(diff, spec, view_z_in, normal_roughness, shared, diff_p
               spec_min_material, sf.ntaps(perf_mode), spec_params.shape[0]]
     if prepass_mode:
         consts += sf.prepass_consts(prepass)
+        consts += ([-1, 0.0, 0.0] if cb is None else
+                   [cb["parity"], cb["denoising_range"], cb["min_rect_dim_mul_unproject"]])
     build.launch("nrd_spatial_filter_fused",
                  [t for _, t, _ in ins[:7]] + [geometry, out, hdt], consts, w, h)
     launches += 1
+    cb_launches += cb is not None
     res = dict(diff=out[0], spec=out[1])
     if prepass_mode:
         res["hdt"] = hdt

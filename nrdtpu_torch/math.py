@@ -50,6 +50,21 @@ def bayer4x4_planes(h: int, w: int, frame_index, device=None):
     return ((base + _reverse_bits_4(frame_index)) & 15).to(torch.float32) / 16.0
 
 
+def checkerboard(px, py, frame_index):
+    """Sequence::CheckerBoard (`nrdtpu/math.py:189`): the 0 / 1 checker pattern that flips
+    every frame, (px + py + frame_index) & 1; px, py integer tensors, frame_index a host
+    integer. A pixel has data under checkerboard mode m where this equals int(m) - 1."""
+    return (px + py + int(frame_index)) & 1
+
+
+def checkerboard_has_data(h: int, w: int, frame_index, mode: int, device=None):
+    """(h, w) bool: the pixels that carry data this frame under checkerboard mode `mode`
+    (1 BLACK, 2 WHITE), `nrdtpu/passes/reblur/denoiser.py:189-195`."""
+    px = torch.arange(w, device=device)[None, :]
+    py = torch.arange(h, device=device)[:, None]
+    return checkerboard(px, py, frame_index) == int(mode) - 1
+
+
 # ---------------------------------------------------------------------------
 # Hash RNG (Rng::Hash, PCG) - uint32 arithmetic emulated in int64
 # ---------------------------------------------------------------------------

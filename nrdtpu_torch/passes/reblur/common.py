@@ -87,11 +87,28 @@ def get_fade_based_on_accumulated_frames(dc, accum_speed):
     return nm.saturate((accum_speed - a) / ba)
 
 
-def get_non_linear_accum_speed(accum_speed, max_accum_speed, confidence):
-    """GetNonLinearAccumSpeed (REBLUR_Common.hlsli:112-124), confidence variant, with
-    data on every pixel (no checkerboard)."""
-    return torch.maximum(1.0 - confidence,
+def get_non_linear_accum_speed(sc, accum_speed, max_accum_speed, confidence, has_data=None):
+    """GetNonLinearAccumSpeed (REBLUR_Common.hlsli:112-124), confidence variant; has_data:
+    the (h, w) bool plane of the pixels with data under checkerboard, None without it."""
+    nlas = torch.maximum(1.0 - confidence,
                          1.0 / (1.0 + torch.clamp_max(accum_speed, max_accum_speed)))
+    if has_data is None:
+        return nlas
+    return torch.where(has_data, nlas, nlas * no_data_scale(sc, nlas))
+
+
+def no_data_scale(sc, nlas):
+    """lerp(1 - checkerboardResolveAccumSpeed, 1, nlas): the slower accumulation of a pixel
+    without data under checkerboard (REBLUR_TemporalAccumulation.hlsli:731-735, :878-880)."""
+    a = f32(1.0) - f32(sc["checkerboard_resolve_accum_speed"])
+    return float(a) + float(f32(1.0) - a) * nlas
+
+
+def cb_expand(sig_half, w_full):
+    """Expand a half-width checkerboard input to full resolution: full-res pixel x reads
+    half-res texel x >> 1, as the reference's `pos.x >>= 1` reads (REBLUR_PrePass.hlsli:62-64).
+    Works for (h, w/2) and (h, w/2, c)."""
+    return torch.repeat_interleave(sig_half, 2, dim=1)[:, :w_full].contiguous()
 
 
 def remap_roughness_to_responsive_factor(dc, roughness):

@@ -8,8 +8,12 @@ the spatial stages and HistoryFix run one fused launch for the two (`fused_spati
 `fused_history_fix`) on the card and on the CPU alike, and TA samples both histories in one
 launch; the reconstruction refills both signals in one launch. With NRDTPU_REBLUR_BAND=1 (the
 JAX package's switch, off by default) HistoryFix, Blur and PostBlur of both signals run as one
-band launch (`spatial_band`). Every other variant, and the
-settings path not ported yet (checkerboard), raise NotImplementedError; ROADMAP.md lists them.
+band launch (`spatial_band`). Under checkerboard (`checkerboardMode` BLACK or WHITE,
+`denoiser.py:169-195`) each signal input is half width: it is expanded with `cb_expand`, the
+PrePass runs at any radius in its checkerboard mode (the centre weighs the pixel's has_data and
+where no weight is left the kernel writes the horizontal neighbour resolve), and TA accumulates
+slower on the pixels without data; the dead pass-through and SplitScreen show the expanded
+input. Every other variant raises NotImplementedError; ROADMAP.md lists them.
 
 State (the permanent pool; histories in bf16, the RGBA16f-history analogue):
   prev_view_z (h, w), prev_normal_roughness (h, w, 4), diff_accum / spec_accum / material_id
@@ -34,6 +38,7 @@ from ...settings import (
     ResourceType,
     RoughnessEncoding,
 )
+from ... import math as nm
 from . import common as C
 from . import kernels as K
 
@@ -73,8 +78,6 @@ class ReblurDenoiser:
                 and s.checkerboardMode == CheckerboardMode.OFF)
 
     def specialize(self, s: ReblurSettings):
-        if s.checkerboardMode != CheckerboardMode.OFF:
-            raise NotImplementedError("REBLUR checkerboard is not ported yet (ROADMAP.md)")
         self._s = s
 
     def init_state(self):
@@ -146,7 +149,15 @@ class ReblurDenoiser:
         view_z = inputs[RT.IN_VIEWZ]
         normal_roughness = inputs[RT.IN_NORMAL_ROUGHNESS]
         mv = inputs[RT.IN_MV]
-        raw_in = {sig: inputs[IN_RT[sig]] for sig in self.signals}
+        h, w = view_z.shape
+        # checkerboard: half-width inputs expanded to full width (`denoiser.py:169-176`), the
+        # has-data parity of the mode, and the pixels with data this frame (`:189-195`)
+        cb = (None if s.checkerboardMode == CheckerboardMode.OFF
+              else int(s.checkerboardMode) - 1)
+        raw_in = {sig: inputs[IN_RT[sig]] if cb is None else C.cb_expand(inputs[IN_RT[sig]], w)
+                  for sig in self.signals}
+        has_data = (None if cb is None else nm.checkerboard_has_data(
+            h, w, sc["frame_index"], cb + 1, view_z.device))
         perf = s.enablePerformanceMode
         skip_prepass = self._skip_prepass(s)
         # both signals: the spatial stages and HistoryFix run fused (denoiser.py:245-246)
@@ -169,20 +180,20 @@ class ReblurDenoiser:
                 radius=radius)
             signal = {sig: signal[sig] for sig in self.signals}
 
-        # PREPASS
+        # PREPASS (always under checkerboard, `_skip_prepass`)
         hdt_prepass = None
         if not skip_prepass:
             if fused:
                 signal["diff"], signal["spec"], hdt_prepass = K.fused_spatial_filter(
                     sc, dc, K.PRE_BLUR, geom, view_z, normal_roughness, signal["diff"],
-                    signal["spec"], perf_mode=perf)
+                    signal["spec"], perf_mode=perf, cb=cb)
             elif self.has_specular:
                 signal["spec"], hdt_prepass = K.specular_spatial_filter(
                     sc, dc, K.PRE_BLUR, signal["spec"], view_z, normal_roughness, None, cfg,
-                    perf_mode=perf)
+                    perf_mode=perf, cb=cb)
             else:
                 signal["diff"] = K.diffuse_pre_pass(sc, dc, signal["diff"], view_z,
-                                                    normal_roughness, cfg, perf_mode=perf)
+                                                    normal_roughness, cfg, perf_mode=perf, cb=cb)
 
         # TEMPORAL ACCUMULATION: one surface-motion footprint, both signals' samples
         prev_internal = {k: state[k] for k in ("diff_accum", "spec_accum", "material_id")}
@@ -197,7 +208,7 @@ class ReblurDenoiser:
         ta = None
         if self.has_diffuse:
             sig1["diff"], fast1["diff"], data1["diff"] = K.temporal_accumulation_diffuse(
-                sc, dc, sm, signal["diff"], inputs.get(RT.IN_DIFF_CONFIDENCE))
+                sc, dc, sm, signal["diff"], inputs.get(RT.IN_DIFF_CONFIDENCE), has_data)
         if self.has_specular:
             ta = K.temporal_accumulation_specular(
                 sc, dc, sm, signal["spec"], state["spec_history"], state["spec_fast_history"],
@@ -205,7 +216,7 @@ class ReblurDenoiser:
                 prev_internal,
                 C.extract_hit_dist(signal["spec"]) if skip_prepass else hdt_prepass,
                 state["prev_spec_hitdist_for_tracking"], cfg, inputs.get(RT.IN_SPEC_CONFIDENCE),
-                has_prepass_hitdist=not skip_prepass)
+                has_prepass_hitdist=not skip_prepass, has_data=has_data)
             sig1["spec"], fast1["spec"], data1["spec"] = ta["spec"], ta["fast"], ta["accum_speed"]
             fbits = fbits + ta["fbits_vmb"]
         material_id = sm["material_id"]

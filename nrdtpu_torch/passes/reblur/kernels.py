@@ -197,8 +197,10 @@ def surface_motion_reprojection(sc, dc, view_z_in, normal_roughness, mv_in, prev
     return sm
 
 
-def temporal_accumulation_diffuse(sc, dc, sm, diff_input, diff_confidence=None):
-    """Diffuse half of TA (lines 826-930) for the radiance signal.
+def temporal_accumulation_diffuse(sc, dc, sm, diff_input, diff_confidence=None, has_data=None):
+    """Diffuse half of TA (lines 826-930) for the radiance signal; has_data: under
+    checkerboard the (h, w) bool plane of the pixels with data, whose neighbours accumulate
+    slower (`nrdtpu/passes/reblur/kernels.py:459-464`, `:499-503`), else None.
     Returns (diff_out, fast_out, accum_speed_out)."""
     diff_accum_speed = sm["diff_accum_speed"]
     confidence = sm["footprint_quality"]
@@ -212,6 +214,8 @@ def temporal_accumulation_diffuse(sc, dc, sm, diff_input, diff_confidence=None):
     smb_diff_fast = sm["diff_fast"]
 
     diff_nlas = 1.0 / (1.0 + diff_accum_speed)
+    if has_data is not None:
+        diff_nlas = torch.where(has_data, diff_nlas, diff_nlas * C.no_data_scale(sc, diff_nlas))
     diff_result = C.mix_history_and_current(dc, smb_diff_history, diff_input, diff_nlas,
                                             torch.ones_like(diff_nlas))
 
@@ -230,6 +234,8 @@ def temporal_accumulation_diffuse(sc, dc, sm, diff_input, diff_confidence=None):
     fast_accum_speed = torch.clamp_max(diff_accum_speed,
                                        float(dc["max_fast_accumulated_frame_num"]))
     fast_nlas = 1.0 / (1.0 + fast_accum_speed)
+    if has_data is not None:
+        fast_nlas = torch.where(has_data, fast_nlas, fast_nlas * C.no_data_scale(sc, fast_nlas))
     fast_result = nm.lerp(smb_diff_fast, C.get_luma(diff_input), fast_nlas)
     fast_clamped = torch.minimum(fast_result, C.get_luma(smb_diff_history) * max_rel
                                  * C.REBLUR_FIREFLY_SUPPRESSOR_FAST_RELATIVE_INTENSITY)
@@ -299,13 +305,15 @@ def temporal_accumulation_specular(sc, dc, sm, spec_input, spec_history, spec_fa
                                    view_z_in, normal_roughness, prev_view_z,
                                    prev_normal_roughness, prev_internal,
                                    hit_dist_for_tracking_in, prev_spec_hitdist_for_tracking,
-                                   config, spec_confidence=None, *, has_prepass_hitdist):
+                                   config, spec_confidence=None, *, has_prepass_hitdist,
+                                   has_data=None):
     """Specular half of TA (`nrdtpu/passes/reblur/kernels.py:978-1548`, XLA path) for the
     radiance signal; `sm` is surface_motion_reprojection with the "spec" signal. The gathers run
     in three kernels: spec_ta_head (3x3 stencils, curvature neighbours, high-parallax
     nearest), nearest_multi (stochastic nearest previous normals) and vmb_resolve (the
-    virtual-motion footprint and history samples). Returns dict(spec, fast, accum_speed,
-    fbits_vmb, curvature, virtual_history_amount, hit_dist_for_tracking)."""
+    virtual-motion footprint and history samples); has_data as for
+    temporal_accumulation_diffuse (`:1466-1474`, `:1524-1529`). Returns dict(spec, fast,
+    accum_speed, fbits_vmb, curvature, virtual_history_amount, hit_dist_for_tracking)."""
     h, w = view_z_in.shape
     uv, view_z = sm["uv"], sm["view_z"]
     n, roughness, nov = sm["n"], sm["roughness"], sm["nov"]
@@ -564,6 +572,9 @@ def temporal_accumulation_specular(sc, dc, sm, spec_input, spec_history, spec_fa
     vmb_history = C.clamp_negative_to_zero(vmb["history"])
     smb_nlas = 1.0 / (1.0 + smb_accum)
     vmb_nlas = 1.0 / (1.0 + vmb_accum)
+    if has_data is not None:  # checkerboard: slower on the pixels without data (:1469-1474)
+        smb_nlas = torch.where(has_data, smb_nlas, smb_nlas * C.no_data_scale(sc, smb_nlas))
+        vmb_nlas = torch.where(has_data, vmb_nlas, vmb_nlas * C.no_data_scale(sc, vmb_nlas))
     smb_spec = C.mix_history_and_current(dc, smb_history, spec, smb_nlas, roughness_modified)
     vmb_spec = C.mix_history_and_current(dc, vmb_history, spec, vmb_nlas, roughness_modified)
     vha4 = virtual_history_amount[..., None]
@@ -583,8 +594,10 @@ def temporal_accumulation_specular(sc, dc, sm, spec_input, spec_history, spec_fa
 
     # fast history (lines 779-794)
     mfafn = float(dc["max_fast_accumulated_frame_num"])
-    smb_fast_nlas = C.get_non_linear_accum_speed(smb_accum, mfafn, surface_history_confidence)
-    vmb_fast_nlas = C.get_non_linear_accum_speed(vmb_accum, mfafn, virtual_confidence)
+    smb_fast_nlas = C.get_non_linear_accum_speed(sc, smb_accum, mfafn,
+                                                 surface_history_confidence, has_data)
+    vmb_fast_nlas = C.get_non_linear_accum_speed(sc, vmb_accum, mfafn, virtual_confidence,
+                                                 has_data)
     smb_fast = nm.lerp(sm["spec_fast"], C.get_luma(spec), smb_fast_nlas)
     vmb_fast = nm.lerp(vmb["fast"], C.get_luma(spec), vmb_fast_nlas)
     fast_result = nm.lerp(smb_fast, vmb_fast, virtual_history_amount)
@@ -739,50 +752,68 @@ def diffuse_spatial_filter(sc, dc, mode, signal, view_z_in, normal_roughness, da
 
 
 def diffuse_pre_pass(sc, dc, signal, view_z_in, normal_roughness, config, *,
-                     perf_mode: bool = False):
-    """Diffuse PrePass: the spatial filter with pre-pass constants and no skew."""
-    out = diffuse_spatial_filter(sc, dc, PRE_BLUR, signal, view_z_in, normal_roughness, None,
-                                 config, perf_mode=perf_mode)
-    return signal if float(dc["diff_prepass_blur_radius"]) == 0.0 else out
+                     perf_mode: bool = False, cb=None):
+    """Diffuse PrePass: the spatial filter with pre-pass constants and no skew. cb: under
+    checkerboard the mode's has-data parity (the signal expanded from half width), else None.
+    A PrePass whose radius is 0 passes the signal through, but not under checkerboard, whose
+    PrePass runs at any radius (`kernels.py:2145-2150`)."""
+    if cb is None and float(dc["diff_prepass_blur_radius"]) == 0.0:
+        return signal
+    return k_spatial_filter.spatial_filter(
+        signal, view_z_in, normal_roughness, None, sc=sc, dc=dc, mode=PRE_BLUR, spec=False,
+        enc_err=_enc_err(config), perf_mode=perf_mode, geometry=None, cb=cb)
 
 
 def specular_spatial_filter(sc, dc, mode, spec, view_z_in, normal_roughness, data1, config, *,
-                            perf_mode: bool = False, tap_geometry=None):
+                            perf_mode: bool = False, tap_geometry=None, cb=None):
     """Adaptive Poisson specular blur (REBLUR_Common_SpecularSpatialFilter.hlsli), one
     `spatial_filter` launch. mode: PRE_BLUR, BLUR or POST_BLUR; tap_geometry as for
-    diffuse_spatial_filter. Returns (spec_out, hit_dist_for_tracking); the second is the
+    diffuse_spatial_filter; cb as for diffuse_pre_pass (the PrePass only; under checkerboard
+    the PrePass runs at any radius and its hitDistForTracking comes from the kernel,
+    `kernels.py:1688-1694`). Returns (spec_out, hit_dist_for_tracking); the second is the
     PrePass's stochastic hitDist minimum, None in the other modes."""
     prepass = mode == PRE_BLUR
-    if prepass and float(dc["spec_prepass_blur_radius"]) == 0.0:
+    if prepass and cb is None and float(dc["spec_prepass_blur_radius"]) == 0.0:
         return spec, _prepass_off_hit_dist(spec)
     res = k_spatial_filter.spatial_filter(
         spec, view_z_in, normal_roughness, None if prepass else data1, sc=sc, dc=dc, mode=mode,
-        spec=True, enc_err=_enc_err(config), perf_mode=perf_mode, geometry=tap_geometry)
+        spec=True, enc_err=_enc_err(config), perf_mode=perf_mode, geometry=tap_geometry, cb=cb)
     return res if prepass else (res, None)
 
 
 def fused_spatial_filter(sc, dc, mode, geom, view_z_in, normal_roughness, diff, spec, *,
                          data1_diff=None, data1_spec=None, tap_geometry=None,
-                         perf_mode: bool = False):
+                         perf_mode: bool = False, cb=None):
     """PrePass, Blur or PostBlur of both signals in one `spatial_filter_fused` launch
     (`kernels.py:1916-2000`), computing what diffuse_pre_pass / diffuse_spatial_filter and
     specular_spatial_filter compute per signal, each at its own tap positions. Blur and
     PostBlur take `tap_geometry`, the frame's tap geometry that `fused_history_fix` returns. A
-    PrePass whose radius is 0 passes its signal through (and, for specular, its hit distance).
+    PrePass whose radius is 0 passes its signal through (and, for specular, its hit distance),
+    but not under checkerboard (cb: the PrePass's has-data parity, as for diffuse_pre_pass),
+    whose parameters read the centre signals zeroed where they have no data
+    (`_fused_diff_params` / `_fused_spec_params`, `kernels.py:1819-1862`).
     Returns (diff_out, spec_out, hit_dist_for_tracking or None)."""
     prepass = mode == PRE_BLUR
+    centre = dict(diff=diff, spec=spec)
+    kcb = None
+    if cb is not None:
+        h, w = view_z_in.shape
+        mask = k_spatial_filter.cb_mask(h, w, sc["frame_index"], cb, view_z_in.device)
+        centre = {name: sig * mask[..., None] for name, sig in centre.items()}
+        kcb = dict(parity=cb, denoising_range=float(sc["denoising_range"]),
+                   min_rect_dim_mul_unproject=float(sc["min_rect_dim_mul_unproject"]))
     res = k_spatial_filter_fused.spatial_filter_fused(
         diff, spec, view_z_in, normal_roughness, _sf_shared(geom),
-        diff_spatial_params(sc, dc, mode, geom, diff, data1_diff),
-        spec_spatial_params(sc, dc, mode, geom, spec, data1_spec),
+        diff_spatial_params(sc, dc, mode, geom, centre["diff"], data1_diff),
+        spec_spatial_params(sc, dc, mode, geom, centre["spec"], data1_spec),
         diff_min_material=float(dc["diff_min_material"]),
         spec_min_material=float(dc["spec_min_material"]), perf_mode=perf_mode,
         prepass=k_spatial_filter.prepass_inputs(sc, dc) if prepass else None,
-        geometry=tap_geometry, **_sf_consts(sc))
+        geometry=tap_geometry, cb=kcb, **_sf_consts(sc))
     diff_out, spec_out, hdt = res["diff"], res["spec"], res.get("hdt")
-    if prepass and float(dc["diff_prepass_blur_radius"]) == 0.0:
+    if prepass and cb is None and float(dc["diff_prepass_blur_radius"]) == 0.0:
         diff_out = diff
-    if prepass and float(dc["spec_prepass_blur_radius"]) == 0.0:
+    if prepass and cb is None and float(dc["spec_prepass_blur_radius"]) == 0.0:
         spec_out, hdt = spec, _prepass_off_hit_dist(spec)
     return diff_out, spec_out, hdt
 

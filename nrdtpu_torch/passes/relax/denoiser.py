@@ -13,8 +13,15 @@ launch; the PrePass runs once a signal, and the TA accumulates each signal on th
 head. The SH variants (`denoiser.py:41`, `:181-195`, `:345-378`) take IN_*_SH0 in place of the
 radiance input and IN_*_SH1 as a second plane a signal, which rides the launches the variant
 already makes; the last à-trous iteration's signal and the split screen's noisy side are
-YCoCg, and dead pixels pass the raw SH0 (linear, as in JAX) and SH1 through. The checkerboard
-resolve raises NotImplementedError; ROADMAP.md lists it.
+YCoCg, and dead pixels pass the raw SH0 (linear, as in JAX) and SH1 through. Under
+checkerboard (`checkerboardMode` BLACK or WHITE) each signal input is half width: it is expanded
+with `cb_expand` and `checkerboard_resolve` fills the pixels without data from their
+horizontal neighbours (`denoiser.py:176-239`), hit-distance reconstruction is off, the TA
+accumulates slower on the pixels without data, and the dead pass-through and SplitScreen show
+the expanded input. The SH variants under checkerboard raise NotImplementedError: the JAX
+reference passes the half-width SH1 through its dead pixels unexpanded
+(`nrdtpu/passes/relax/denoiser.py:367-369`) and fails on frame 0, so the port has nothing to
+hold them against (ROADMAP.md).
 
 State (the permanent pool, all float32 as the JAX package keeps it for RELAX):
   history_length (h, w) 0..255, rounded to whole frames; normal_roughness_prev (h, w, 4) the
@@ -40,6 +47,8 @@ from ...settings import (
     RelaxSettings,
     ResourceType,
 )
+from ... import math as nm
+from ..reblur import common as RC  # cb_expand, as the JAX package shares it
 from ..reblur import kernels as RK  # hit-distance reconstruction is shared machinery
 from . import frustum_vectors, pack_prev_normal_roughness, unpack_nr
 from . import kernels as K
@@ -80,8 +89,12 @@ class RelaxDenoiser:
                 min(max(s.atrousIterationNum, 2), 8), s.enableRoughnessEdgeStopping)
 
     def specialize(self, s: RelaxSettings):
-        if s.checkerboardMode != CheckerboardMode.OFF:
-            raise NotImplementedError("RELAX checkerboard is not ported yet (ROADMAP.md)")
+        if self.sh and s.checkerboardMode != CheckerboardMode.OFF:
+            raise NotImplementedError(
+                f"{self.config.denoiser.name} with checkerboard is not ported: the JAX "
+                "reference passes the half-width IN_*_SH1 through its dead pixels unexpanded "
+                "(nrdtpu/passes/relax/denoiser.py:367-369) and fails on frame 0, so there is "
+                "nothing to hold the port against (ROADMAP.md)")
         self._s = s
 
     def init_state(self):
@@ -192,9 +205,14 @@ class RelaxDenoiser:
         view_z = inputs[RT.IN_VIEWZ]
         normal_roughness = inputs[RT.IN_NORMAL_ROUGHNESS]
         mv = inputs[RT.IN_MV]
+        h, w = view_z.shape
+        # checkerboard (never with SH, `specialize`): the half-width input at full width
+        cb_on = s.checkerboardMode != CheckerboardMode.OFF
         # the signal: the radiance input, or SH0; with SH also SH1 (`denoiser.py:181-195`)
         raw = {sig: inputs[(SH_RESOURCES if self.sh else SIGNAL_RESOURCES)[sig][0]]
                for sig in sigs}
+        if cb_on:
+            raw = {name: RC.cb_expand(t, w) for name, t in raw.items()}
         raw_sh = {sig: inputs[SH_RESOURCES[sig][2]] if self.sh else None for sig in sigs}
         conf = {sig: inputs.get(SIGNAL_RESOURCES[sig][2]) for sig in sigs}
         dt_mix = inputs.get(RT.IN_DISOCCLUSION_THRESHOLD_MIX)
@@ -204,7 +222,15 @@ class RelaxDenoiser:
         dead = K.dead_mask(sc, K.classify_tiles(sc, view_z), view_z)
 
         sig = dict(raw)
-        if s.hitDistanceReconstructionMode != HitDistanceReconstructionMode.OFF:
+        has_data = None
+        if cb_on:  # the checkerboard resolve at the front (`denoiser.py:196-239`)
+            has_data = nm.checkerboard_has_data(h, w, sc["frame_index"], int(s.checkerboardMode),
+                                                view_z.device)
+            sig = dict(zip(sigs, K.checkerboard_resolve(
+                sc, dc, view_z, normal_roughness, has_data, [sig[name] for name in sigs], cfg)))
+        # off under checkerboard (`denoiser.py:249-250`)
+        if (s.hitDistanceReconstructionMode != HitDistanceReconstructionMode.OFF
+                and not cb_on):
             radius = (2 if s.hitDistanceReconstructionMode
                       == HitDistanceReconstructionMode.AREA_5X5 else 1)
             rec = RK.hit_dist_reconstruction(sc, dc, view_z, normal_roughness, sig.get("diff"),
@@ -221,16 +247,16 @@ class RelaxDenoiser:
             ta = K.temporal_accumulation_diffuse_specular(
                 sc, dc, view_z, normal_roughness, mv, pre["diff"], pre["spec"], state, cfg,
                 diff_confidence=conf["diff"], spec_confidence=conf["spec"], dt_mix=dt_mix,
-                diff_sh=pre_sh["diff"], spec_sh=pre_sh["spec"])
+                diff_sh=pre_sh["diff"], spec_sh=pre_sh["spec"], has_data=has_data)
         elif which == "diff":
             ta = K.temporal_accumulation(sc, dc, view_z, normal_roughness, mv, pre["diff"],
                                          state, cfg, diff_confidence=conf["diff"], dt_mix=dt_mix,
-                                         diff_sh=pre_sh["diff"])
+                                         diff_sh=pre_sh["diff"], has_data=has_data)
         else:
             ta = K.temporal_accumulation_specular(sc, dc, view_z, normal_roughness, mv,
                                                   pre["spec"], state, cfg,
                                                   spec_confidence=conf["spec"], dt_mix=dt_mix,
-                                                  spec_sh=pre_sh["spec"])
+                                                  spec_sh=pre_sh["spec"], has_data=has_data)
         history_length = ta["history_length"]
         ta_sh = {kind: one_or_pair({name: ta[f"{name}_{kind}"] for name in sigs})
                  if self.sh else None for kind in ("sh", "sh_fast")}

@@ -31,8 +31,10 @@ does. The TA has one accumulation a signal (`_diffuse_accumulation`,
 history of the signals present in one `relax_smb_resolve` launch. The SH variants' second
 plane (SH1, "sh") rides the same launches: every pass that filters or resamples the signal
 takes the signal's SH plane too (`sh=`; in pairs with both signals) and the kernel returns
-it beside the signal; the SH lerps of the TA stay glue, as in XLA. The checkerboard branch is
-not ported. Frame constants (`sc`, `dc`) are host values.
+it beside the signal; the SH lerps of the TA stay glue, as in XLA. Under checkerboard the
+signals arrive expanded from half width and `checkerboard_resolve` fills the pixels without data
+before the PrePass, torch glue as in JAX; the TA takes the plane of the pixels with data
+(`has_data`) and accumulates slower on the others. Frame constants (`sc`, `dc`) are host values.
 """
 
 from __future__ import annotations
@@ -59,8 +61,10 @@ from . import (
     RELAX_ANTILAG_ACCELERATION_AMOUNT_SCALE,
     RELAX_NORMAL_ULP,
     frustum_consts,
+    get_bilateral_weight,
     get_normal_weight_param2,
     get_spec_lobe_tan_half_angle,
+    unpack_nr,
     unpack_prev_normal_roughness,
     unpack_view_z,
     world_pos_from_uv3,
@@ -93,6 +97,46 @@ def dead_mask(sc, tile_map, view_z):
     h, w = view_z.shape
     sky = tiles.tile_upsample_nearest(tile_map, h, w)
     return (sky > 0.0) | (unpack_view_z(sc, view_z) > float(sc["denoising_range"]))
+
+
+# ---------------------------------------------------------------------------
+# Checkerboard resolve (RELAX_PrePass.hlsli:28-110)
+# ---------------------------------------------------------------------------
+
+
+def checkerboard_resolve(sc, dc, view_z_in, normal_roughness, has_data, signals, config):
+    """The checkerboard resolve at the pipeline's front (`nrdtpu/passes/relax/denoiser.py:
+    198-239`): each pixel without data takes its horizontal neighbours' expanded signal, each
+    weighed by its bilateral viewZ weight and its material test against the centre's (the
+    smaller of the two min materials), none beyond the denoising range or off the edge
+    columns, normalized by the weights' sum (0 where both are 0). signals: (h, w, c) planes
+    expanded from half width (`reblur.common.cb_expand`), or None; each is resolved with the
+    same weights. Returns them in order."""
+    w = view_z_in.shape[1]
+    vz = unpack_view_z(sc, view_z_in)
+    _, _, mat = unpack_nr(normal_roughness, config)
+    z0 = stencil.shifted(vz, 0, -1)
+    z1 = stencil.shifted(vz, 0, 1)
+    m0 = stencil.shifted(mat, 0, -1)
+    m1 = stencil.shifted(mat, 0, 1)
+    w0 = get_bilateral_weight(z0, vz)
+    w1 = get_bilateral_weight(z1, vz)
+    col = torch.arange(w, device=vz.device)[None, :]
+    dr = float(sc["denoising_range"])
+    w0 = torch.where((z0 > dr) | (col < 1), 0.0, w0)
+    w1 = torch.where((z1 > dr) | (col > w - 2), 0.0, w1)
+    min_mat = float(min(F32(dc["diff_min_material"]), F32(dc["spec_min_material"])))
+    mc = torch.clamp_min(mat, min_mat)
+    w0 = w0 * (mc == torch.clamp_min(m0, min_mat)).to(torch.float32)
+    w1 = w1 * (mc == torch.clamp_min(m1, min_mat)).to(torch.float32)
+    wsum = w0 + w1
+    winv = torch.where(wsum == 0.0, 0.0, 1.0 / torch.clamp_min(wsum, 1e-15))
+    w0 = w0 * winv
+    w1 = w1 * winv
+    return tuple(None if t is None else torch.where(
+        has_data[..., None], t,
+        stencil.shifted(t, 0, -1) * w0[..., None] + stencil.shifted(t, 0, 1) * w1[..., None])
+        for t in signals)
 
 
 # ---------------------------------------------------------------------------
@@ -135,13 +179,14 @@ def pre_pass(sc, dc, signal, view_z_in, normal_roughness, config, which: str = "
 
 
 def _surface_motion(sc, dc, view_z_in, normal_roughness, mv_in, state, config, histories,
-                    spec_hit=None, dt_mix=None, sh_histories=()):
+                    spec_hit=None, dt_mix=None, sh_histories=(), has_data=None):
     """The TA's head, shared by both signals (`kernels.py:331-567`): surface-motion uv,
     parallax, disocclusion threshold, the footprint (one `relax_smb_resolve` launch that
     also samples the histories, in `hist_planes` order the slow and responsive history of
     each signal present, with the SH variants the SH histories in `bil_planes` order, and,
     with `spec_hit`, gathers the specular 3x3 planes), the footprint-quality refinements and
-    the history length. Returns the planes the accumulations read."""
+    the history length. Returns the planes the accumulations read, with `has_data` (the
+    pixels with data under checkerboard, or None) and the checkerboard's accumulation speed."""
     h, w = view_z_in.shape
     dev = view_z_in.device
     view_z = unpack_view_z(sc, view_z_in)
@@ -245,7 +290,9 @@ def _surface_motion(sc, dc, view_z_in, normal_roughness, mv_in, state, config, h
     max_frames = F32(1.0) + max(F32(dc["diff_max_accumulated_frame_num"]),
                                 F32(dc["spec_max_accumulated_frame_num"]))
     history_length = torch.clamp_max(history_length, float(max_frames))
-    return dict(smb=smb, history_length=history_length, view_z=view_z, n3=n3, x3=x3, xp3=xp3,
+    return dict(smb=smb, history_length=history_length, has_data=has_data,
+                cbra=F32(sc["checkerboard_resolve_accum_speed"]), parallax_max=parallax_max,
+                view_z=view_z, n3=n3, x3=x3, xp3=xp3,
                 cd3=cd3, v_3=v_3, v_prev=v_prev, view_vec3=view_vec3, nov=nov,
                 material_id=material_id, u_p=u_p, v_p=v_p, smb_u=smb_u, smb_v=smb_v,
                 uv_smb=uv_smb, p1u=p1u, p1v=p1v, parallax1=parallax1,
@@ -268,14 +315,16 @@ def _sh_histories(state, which, sh):
 
 
 def temporal_accumulation(sc, dc, view_z_in, normal_roughness, mv_in, diff, state, config,
-                          diff_confidence=None, dt_mix=None, diff_sh=None):
+                          diff_confidence=None, dt_mix=None, diff_sh=None, has_data=None):
     """The RELAX TA for the diffuse signal (`kernels.py:319-612`): the shared head
     (`_surface_motion`, one `relax_smb_resolve` launch that also samples both diffuse
-    histories, and both SH histories with `diff_sh`) and the accumulation. Returns
+    histories, and both SH histories with `diff_sh`) and the accumulation. has_data: under
+    checkerboard the (h, w) bool plane of the pixels with data, else None. Returns
     dict(history_length, diff, diff_fast), and with `diff_sh` diff_sh, diff_sh_fast."""
     g = _surface_motion(sc, dc, view_z_in, normal_roughness, mv_in, state, config,
                         _histories(state, ("diff",)), dt_mix=dt_mix,
-                        sh_histories=_sh_histories(state, ("diff",), diff_sh is not None))
+                        sh_histories=_sh_histories(state, ("diff",), diff_sh is not None),
+                        has_data=has_data)
     return dict(history_length=g["history_length"], **_diffuse_accumulation(
         dc, g, diff, g["smb"]["histories"][0:2], diff_confidence, diff_sh,
         g["smb"].get("sh", ())[0:2]))
@@ -284,16 +333,17 @@ def temporal_accumulation(sc, dc, view_z_in, normal_roughness, mv_in, diff, stat
 def temporal_accumulation_diffuse_specular(sc, dc, view_z_in, normal_roughness, mv_in, diff,
                                            spec, state, config, diff_confidence=None,
                                            spec_confidence=None, dt_mix=None, diff_sh=None,
-                                           spec_sh=None):
+                                           spec_sh=None, has_data=None):
     """The RELAX TA for both signals (`kernels.py:319-979`): one shared head (one
     `relax_smb_resolve` launch of four histories, diffuse then specular, with the specular
     planes, and with the SH variants the four SH histories), then each signal's
-    accumulation. Returns the union of `temporal_accumulation`'s and
-    `temporal_accumulation_specular`'s dicts."""
+    accumulation; has_data as for `temporal_accumulation`. Returns the union of
+    `temporal_accumulation`'s and `temporal_accumulation_specular`'s dicts."""
     g = _surface_motion(sc, dc, view_z_in, normal_roughness, mv_in, state, config,
                         _histories(state, ("diff", "spec")),
                         spec_hit=spec[..., 3].contiguous(), dt_mix=dt_mix,
-                        sh_histories=_sh_histories(state, ("diff", "spec"), diff_sh is not None))
+                        sh_histories=_sh_histories(state, ("diff", "spec"), diff_sh is not None),
+                        has_data=has_data)
     hist = g["smb"]["histories"]
     sh_hist = g["smb"].get("sh", ())
     return dict(history_length=g["history_length"],
@@ -322,6 +372,11 @@ def _diffuse_accumulation(dc, g, diff, histories, diff_confidence=None, sh=None,
     found = smb["smb_found"] > 0.0
     alpha = torch.where(found, alpha, 1.0)
     alpha_resp = torch.where(found, alpha_resp, 1.0)
+    if g["has_data"] is not None:  # checkerboard: slower where no data (`:590-595`)
+        nd = ~g["has_data"] & (history_length > 1.0)
+        cb_f = float(F32(1.0) - g["cbra"])
+        alpha = torch.where(nd, alpha * cb_f, alpha)
+        alpha_resp = torch.where(nd, alpha_resp * cb_f, alpha_resp)
     prev_diff = torch.clamp_min(histories[0], 0.0)
     prev_diff_resp = torch.clamp_min(histories[1], 0.0)
     m1 = nm.luminance(diff[..., :3])
@@ -410,17 +465,18 @@ def _normal_to_this_frame(sc, packed):
 
 
 def temporal_accumulation_specular(sc, dc, view_z_in, normal_roughness, mv_in, spec, state,
-                                   config, spec_confidence=None, dt_mix=None, spec_sh=None):
-    """The RELAX TA for the specular signal (`kernels.py:614-1006`, without the checkerboard
-    branch): the shared head (one `relax_smb_resolve` launch with the specular planes, and
-    both SH histories with `spec_sh`) and the specular accumulation
-    (`_specular_accumulation`). Returns dict(history_length, spec, spec_fast,
-    reflection_hit_t, spec_reprojection_confidence), and with `spec_sh` spec_sh,
-    spec_sh_fast."""
+                                   config, spec_confidence=None, dt_mix=None, spec_sh=None,
+                                   has_data=None):
+    """The RELAX TA for the specular signal (`kernels.py:614-1006`): the shared head (one
+    `relax_smb_resolve` launch with the specular planes, and both SH histories with
+    `spec_sh`) and the specular accumulation (`_specular_accumulation`); has_data as for
+    `temporal_accumulation`. Returns dict(history_length, spec, spec_fast, reflection_hit_t,
+    spec_reprojection_confidence), and with `spec_sh` spec_sh, spec_sh_fast."""
     g = _surface_motion(sc, dc, view_z_in, normal_roughness, mv_in, state, config,
                         _histories(state, ("spec",)), spec_hit=spec[..., 3].contiguous(),
                         dt_mix=dt_mix,
-                        sh_histories=_sh_histories(state, ("spec",), spec_sh is not None))
+                        sh_histories=_sh_histories(state, ("spec",), spec_sh is not None),
+                        has_data=has_data)
     return dict(history_length=g["history_length"],
                 **_specular_accumulation(sc, dc, g, normal_roughness, view_z_in, spec, state,
                                          g["smb"]["histories"][0:2], spec_confidence, spec_sh,
@@ -592,6 +648,13 @@ def _specular_accumulation(sc, dc, g, normal_roughness, view_z_in, spec, state, 
             torch.zeros_like(nov), 0.0)
     spec_smb_alpha = torch.maximum(1.0 - spec_smb_confidence, 1.0 / (1.0 + spec_frames))
     spec_smb_resp_alpha = torch.maximum(spec_smb_alpha, 1.0 / (1.0 + spec_resp_frames))
+    no_data = None
+    if g["has_data"] is not None:  # checkerboard: slower where no data, smb half (`:919-925`)
+        no_data = ~g["has_data"] & (g["parallax_max"] < 0.5)
+        f_smb = 1.0 - float(g["cbra"]) * (smb["smb_found"] > 0).to(torch.float32)
+        spec_smb_alpha = torch.where(no_data, spec_smb_alpha * f_smb, spec_smb_alpha)
+        spec_smb_resp_alpha = torch.where(no_data, spec_smb_resp_alpha * f_smb,
+                                          spec_smb_resp_alpha)
 
     # both accumulations (lines 928-979)
     m1s = nm.luminance(spec[..., :3])
@@ -605,6 +668,12 @@ def _specular_accumulation(sc, dc, g, normal_roughness, view_z_in, spec, state, 
     spec_vmb_alpha = torch.maximum(1.0 - spec_vmb_confidence, 1.0 / (1.0 + spec_frames))
     spec_vmb_resp_alpha = torch.maximum(1.0 - vmb_conf_hd, 1.0 / (1.0 + spec_resp_frames))
     spec_vmb_hit_alpha = torch.maximum(1.0 - vmb_conf_hd, 1.0 / (1.0 + spec_frames))
+    if no_data is not None:  # the virtual-motion half (`:944-952`)
+        f_vmb = 1.0 - float(g["cbra"]) * vmb_found
+        spec_vmb_alpha = torch.where(no_data, spec_vmb_alpha * f_vmb, spec_vmb_alpha)
+        spec_vmb_resp_alpha = torch.where(no_data, spec_vmb_resp_alpha * f_vmb,
+                                          spec_vmb_resp_alpha)
+        spec_vmb_hit_alpha = torch.where(no_data, spec_vmb_hit_alpha * f_vmb, spec_vmb_hit_alpha)
     acc_vmb_rgb = nm.lerp(prev_spec_vmb[..., :3], spec[..., :3], spec_vmb_alpha[..., None])
     acc_vmb_hit = nm.lerp(prev_hit_t_vmb, spec[..., 3], torch.clamp_min(spec_vmb_hit_alpha, 0.1))
     acc_vmb_m2 = nm.lerp(prev_spec_vmb[..., 3], spec_m2, spec_vmb_alpha)

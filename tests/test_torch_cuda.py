@@ -9,10 +9,13 @@ and in performance mode; SIGMA_SHADOW and SIGMA_SHADOW_TRANSLUCENCY; RELAX_DIFFU
 RELAX_SPECULAR and RELAX_DIFFUSE_SPECULAR (the two-signal modes of K16, K19, K20 and K22), each
 also with the anti-firefly pass and with AREA_3X3: their kernels, the à-trous at iteration 0
 and at the jittered strides; RELAX_DIFFUSE_SH, RELAX_SPECULAR_SH and RELAX_DIFFUSE_SPECULAR_SH,
-the SH modes of K15, K16, K17, K19, K20 and K22; the halo launcher's `box` body on 1 and 4
-channels at two blocks)
+the SH modes of K15, K16, K17, K19, K20 and K22; the checkerboard PrePass of H2 and N4 on
+half-width inputs, BLACK and WHITE, REBLUR_SPECULAR also with
+usePrepassOnlyForSpecularMotionEstimation (its fallback at every pixel without data); the halo
+launcher's `box` body on 1 and 4 channels at two blocks)
 and is held against its plain PyTorch version on the same card; the Engine on the card is held
-against the Engine on the CPU, for every path and output, and RELAX_DIFFUSE_SPECULAR's outputs
+against the Engine on the CPU, for every path and output (the checkerboard paths of REBLUR,
+under NRDTPU_REBLUR_BAND=1 too, and of RELAX included), and RELAX_DIFFUSE_SPECULAR's outputs
 on the card against RELAX_DIFFUSE's and RELAX_SPECULAR's on the card (with SH likewise). Run on
 a machine with an H100:
 
@@ -31,6 +34,7 @@ import torch
 from nrdtpu_torch import frontend as fe
 from nrdtpu_torch import kernels as KM
 from nrdtpu_torch.engine import Engine
+from nrdtpu_torch.settings import CheckerboardMode as CB
 from nrdtpu_torch.settings import Denoiser, HitDistanceReconstructionMode, ResourceType as RT
 from nrdtpu_torch.settings import replace
 from nrdtpu_torch.utils.scene import SceneGenerator, SceneSpec
@@ -66,11 +70,22 @@ SF_SETTINGS = (dict(enablePerformanceMode=True),
 PREPASS_ONLY = dict(usePrepassOnlyForSpecularMotionEstimation=True)
 # the band's switch, set only while its engines run
 BAND = ("NRDTPU_REBLUR_BAND", "1")
+BLACK, WHITE = dict(checkerboardMode=CB.BLACK), dict(checkerboardMode=CB.WHITE)
 
 
-def _pools(denoiser, n, holes=False):
+def _half_width(plane, frame, mode):
+    """The checkerboard's half-width input of a full-width plane: half texel x holds the pixel
+    of the pair (2x, 2x + 1) that has data in this frame under `mode`."""
+    h, w = plane.shape[:2]
+    has = ((np.arange(w)[None, :] + np.arange(h)[:, None] + frame) & 1) == int(mode) - 1
+    sel = np.where(has[:, ::2], 0, 1) + np.arange(0, w, 2)[None, :]
+    return np.ascontiguousarray(plane[np.arange(h)[:, None], sel])
+
+
+def _pools(denoiser, n, holes=False, checkerboard=CB.OFF):
     """Both signals' inputs (with holes: the hit distance zeroed on a seeded 30 % of the
-    geometry pixels) and SIGMA's; each path reads its own."""
+    geometry pixels; under a `checkerboard` mode at half width) and SIGMA's; each path reads
+    its own."""
     gen = SceneGenerator(SceneSpec(size=SIZE, noise=0.4), camera_mode="orbit")
     hdp = np.array([3.0, 0.1, 20.0, -25.0], np.float32)
     rng = np.random.default_rng(7)
@@ -104,6 +119,9 @@ def _pools(denoiser, n, holes=False):
             for rt in (RT.IN_DIFF_RADIANCE_HITDIST, RT.IN_SPEC_RADIANCE_HITDIST):
                 pool[rt] = pool[rt].copy()
                 pool[rt][..., 3][hole] = 0.0
+        if checkerboard != CB.OFF:
+            for rt in (RT.IN_DIFF_RADIANCE_HITDIST, RT.IN_SPEC_RADIANCE_HITDIST):
+                pool[rt] = _half_width(pool[rt], i, checkerboard)
         dist = torch.from_numpy(fd.dist_to_occluder)
         pool[RT.IN_PENUMBRA] = fe.sigma_pack_penumbra_directional(
             dist, gen.spec.light_tan_angular_radius).numpy()
@@ -141,7 +159,9 @@ PATHS = ([(d, af, {}, False, False) for d in VARIANTS for af in (False, True)]
             for af, s, h in ((False, {}, False), (True, {}, False), (False, AREA_3X3, True))]
          + [(d, False, {}, False, False) for d in RELAX_SH]
          + [(Denoiser.REBLUR_DIFFUSE_SPECULAR, af, s, False, True)
-            for af, s in ((False, {}), (True, {}), (False, dict(enablePerformanceMode=True)))])
+            for af, s in ((False, {}), (True, {}), (False, dict(enablePerformanceMode=True)))]
+         + [(d, False, cb, False, False) for d in VARIANTS for cb in (BLACK, WHITE)]
+         + [(Denoiser.REBLUR_SPECULAR, False, dict(WHITE, **PREPASS_ONLY), False, False)])
 
 
 @pytest.fixture(scope="module")
@@ -150,7 +170,7 @@ def recorded(cuda):
     originals = {n: getattr(m, n) for n, m in KM.MODULES.items()}
     for denoiser, anti_firefly, settings, holes, band in PATHS:
         eng = _engine(denoiser, cuda, anti_firefly, **settings)
-        pools = list(_pools(denoiser, 4, holes))
+        pools = list(_pools(denoiser, 4, holes, settings.get("checkerboardMode", CB.OFF)))
         try:
             with pytest.MonkeyPatch.context() as mp:
                 if band:
@@ -278,3 +298,27 @@ def test_relax_pair_matches_one_signal_variants(cuda, sh):
             w = eng.denoise([0], pool)[rt].float()
             over = ((outs[rt].float() - w).abs() > ATOL + RTOL * w.abs()).float().mean().item()
             assert over <= FLIP_FRACTION, f"{rt.name}: {over:.3g} of values out of tolerance"
+
+
+@pytest.mark.parametrize("denoiser,settings,band",
+                         [(d, cb, False) for d in VARIANTS + RELAX for cb in (BLACK, WHITE)]
+                         + [(Denoiser.REBLUR_DIFFUSE_SPECULAR, BLACK, True)],
+                         ids=[f"{d.name}-{cb['checkerboardMode'].name}" for d in VARIANTS + RELAX
+                              for cb in (BLACK, WHITE)] + ["REBLUR_DIFFUSE_SPECULAR-BLACK-band"])
+def test_engine_card_matches_cpu_checkerboard(cuda, denoiser, settings, band, monkeypatch):
+    """The checkerboard paths on half-width inputs: H2's and N4's checkerboard PrePass, the
+    RELAX front resolve and the TA's slower accumulation where a pixel has no data."""
+    if band:
+        monkeypatch.setenv(*BAND)
+    card = _engine(denoiser, cuda, **settings)
+    cpu = _engine(denoiser, "cpu", **settings)
+    for cs, pool in _pools(denoiser, 4, checkerboard=settings["checkerboardMode"]):
+        outs = []
+        for eng in (card, cpu):
+            eng.set_common_settings(cs)
+            outs.append(eng.denoise([0], pool))
+        for rt in _outs(denoiser):
+            a, b = outs[0][rt].cpu().double(), outs[1][rt].cpu().double()
+            mse = float(((a - b) ** 2).mean())
+            peak = float(b.abs().max())
+            assert mse == 0.0 or 10.0 * np.log10(peak * peak / mse) >= 50.0, rt

@@ -41,7 +41,11 @@ constants differ, so that a kernel that swapped them fails; and the SH modes of 
 K19, K20 and K22 on the calls of RELAX_DIFFUSE_SH, RELAX_SPECULAR_SH and
 RELAX_DIFFUSE_SPECULAR_SH (`SH_CASES`), whose SH planes differ between the two signals and
 whose SH1 is negative where the radiance is positive (`SH_DIRECTIONS`), on frames that give
-K16 and K17 both footprints.
+K16 and K17 both footprints; and the checkerboard PrePass of H2 (REBLUR_DIFFUSE and
+REBLUR_SPECULAR, `CB_CASES`) and N4 (REBLUR_DIFFUSE_SPECULAR, `CB_DS_CASES`) in BLACK and
+WHITE on half-width inputs, with the PrePass radius 0 (which still runs under checkerboard),
+with usePrepassOnlyForSpecularMotionEstimation (every pixel without data falls back to its
+neighbours) and on frames where the fallback fires at some pixels (`CB_FALLBACK`).
 
 Run alone: python -m pytest tests/test_torch_kernel_rehearsal.py -q
 
@@ -65,6 +69,7 @@ from nrdtpu_torch import frontend as fe
 from nrdtpu_torch import kernels as KM
 from nrdtpu_torch.engine import Engine
 from nrdtpu_torch.kernels import build
+from nrdtpu_torch.settings import CheckerboardMode as CB
 from nrdtpu_torch.settings import Denoiser, HitDistanceReconstructionMode as HM
 from nrdtpu_torch.settings import RelaxAntilagSettings
 from nrdtpu_torch.settings import ResourceType as RT, RoughnessEncoding, replace
@@ -228,6 +233,29 @@ HD_CASES = {f"{sig}_{mode.name.lower()}": (d, mode)
                            ("diffuse_specular", DS))
             for mode in (HM.AREA_3X3, HM.AREA_5X5)}
 
+# The checkerboard PrePass of H2 and N4: (denoiser, mode, settings, materials) of each case.
+# On the orbit frames no pixel without data loses every tap: its zeroed hit distance gives it
+# the minimum radius of 1 px, where some tap lands on its own expanded texel. CB_FALLBACK
+# widens the minimum radius to 3 px and draws a material per geometry pixel (both min
+# materials 0), so that the fallback fires at about a tenth of the pixels without data;
+# usePrepassOnlyForSpecularMotionEstimation weighs every specular tap 0, so that it fires at
+# all of them.
+CB_FALLBACK = dict(minBlurRadius=3.0, **NO_MIN_MATERIAL)
+CB_CASES = {"diffuse_black": (Denoiser.REBLUR_DIFFUSE, CB.BLACK, {}, False),
+            "diffuse_white": (Denoiser.REBLUR_DIFFUSE, CB.WHITE, {}, False),
+            "diffuse_radius_0": (Denoiser.REBLUR_DIFFUSE, CB.BLACK,
+                                 dict(diffusePrepassBlurRadius=0.0), False),
+            "diffuse_fallback": (Denoiser.REBLUR_DIFFUSE, CB.WHITE, CB_FALLBACK, "scattered"),
+            "specular_black": (Denoiser.REBLUR_SPECULAR, CB.BLACK, {}, False),
+            "specular_white": (Denoiser.REBLUR_SPECULAR, CB.WHITE, {}, False),
+            "specular_fallback": (Denoiser.REBLUR_SPECULAR, CB.BLACK, CB_FALLBACK, "scattered"),
+            "specular_prepass_only": (Denoiser.REBLUR_SPECULAR, CB.WHITE,
+                                      dict(usePrepassOnlyForSpecularMotionEstimation=True),
+                                      False)}
+CB_DS_CASES = {"black": (CB.BLACK, {}, False), "white": (CB.WHITE, {}, False),
+               "fallback": (CB.WHITE, CB_FALLBACK, "scattered"),
+               "perf": (CB.BLACK, dict(enablePerformanceMode=True), False)}
+
 LAUNCH = re.compile(r"([A-Za-z_]\w*(?:<[^<>;]*>)?)\s*<<<([^;]*?)>>>\s*\(([^;]*)\);")
 DYNAMIC_SHARED = re.compile(r"extern\s+__shared__\s+(\w+)\s+(\w+)\s*\[\s*\]\s*;")
 
@@ -297,21 +325,40 @@ def _striped(fd):
         np.float32)
 
 
+def _scattered(fd, i):
+    """Materials 0-3 drawn per geometry pixel from a seed, so that any tap may fail the
+    material test."""
+    rng = np.random.default_rng((23, i))
+    return np.where(fd.hit_mask > 0, rng.integers(0, 4, fd.view_z.shape), 0).astype(np.float32)
+
+
+def _half_width(plane, frame, mode):
+    """The checkerboard's half-width input of a full-width plane: half texel x holds the pixel
+    of the pair (2x, 2x + 1) that has data in this frame under `mode`
+    (tests/test_reblur_full.py:244-250)."""
+    h, w = plane.shape[:2]
+    has = ((np.arange(w)[None, :] + np.arange(h)[:, None] + frame) & 1) == int(mode) - 1
+    sel = np.where(has[:, ::2], 0, 1) + np.arange(0, w, 2)[None, :]
+    return np.ascontiguousarray(plane[np.arange(h)[:, None], sel])
+
+
 def _pools(kind, encoding=RoughnessEncoding.LINEAR, holes=False, materials=False,
-           motion="mv_z_given", sh=False):
+           motion="mv_z_given", sh=False, checkerboard=CB.OFF):
     """The inputs of each frame for "reblur", "relax" or "sigma" (the penumbra from the
     scene's distance to the occluder, and a constant translucency), the roughness packed
     with `encoding`; with `holes` the hit distance zeroed on a seeded HOLE_FRACTION of the
     geometry pixels (REBLUR's also on every geometry pixel of the image border); with
     `materials` the materials striped (`_striped`); the motion vectors as `motion` of MOTIONS
-    says; with `sh` RELAX's SH0 / SH1 too (`relax_pack_sh`, SH1 along SH_DIRECTIONS)."""
+    says; with `sh` RELAX's SH0 / SH1 too (`relax_pack_sh`, SH1 along SH_DIRECTIONS); under
+    a `checkerboard` mode REBLUR's signals at half width (`_half_width`). `materials`
+    "scattered" draws them per pixel (`_scattered`)."""
     gen = SceneGenerator(SceneSpec(size=SIZE, noise=0.4), camera_mode="orbit")
     rng = np.random.default_rng(11)
     relax = kind == "relax"
     for i in range(FRAMES):
         fd = gen.frame(i)
         if materials:
-            fd.material_id = _striped(fd)
+            fd.material_id = _scattered(fd, i) if materials == "scattered" else _striped(fd)
         fd.common_settings.timeDeltaBetweenFrames = 16.66
         if motion == "mv_z_scaled":
             fd.common_settings.motionVectorScale = (1.0, 1.0, MV_Z_SCALE)
@@ -362,6 +409,8 @@ def _pools(kind, encoding=RoughnessEncoding.LINEAR, holes=False, materials=False
                 pool[rt] = fe.reblur_pack_radiance_hitdist(torch.from_numpy(noisy), nhd).numpy()
                 if holes:
                     pool[rt][..., 3][punched | (border & (fd.hit_mask > 0))] = 0.0
+                if checkerboard != CB.OFF:
+                    pool[rt] = _half_width(pool[rt], i, checkerboard)
         yield fd.common_settings, pool
 
 
@@ -391,7 +440,8 @@ def _record(denoiser, name, env=None, encoding=RoughnessEncoding.LINEAR, holes=F
             mp.setenv(key, value)
         kind = denoiser.name.split("_")[0].lower()
         for cs, pool in _pools(kind, encoding, holes, materials, motion,
-                               sh=denoiser.name.endswith("_SH")):
+                               sh=denoiser.name.endswith("_SH"),
+                               checkerboard=settings.get("checkerboardMode", CB.OFF)):
             eng.set_common_settings(cs)
             eng.denoise([0], pool)
     return calls if isinstance(name, tuple) else calls[name]
@@ -1078,3 +1128,88 @@ def test_relax_atrous_sh_rehearsal(library, sh_calls, variant, step):
     over, count, worst = _hold(library, "relax_atrous", calls)
     assert over <= FLIP_FRACTION * count, (f"{variant} step {step}: {over} of {count} values "
                                            f"out of tolerance, max |d| {worst:.3g}")
+
+
+def _cb_prepass_calls(calls, per_frame):
+    """The PrePass calls of a frame's `per_frame` calls of a spatial filter (the first)."""
+    assert len(calls) == FRAMES * per_frame
+    return calls[::per_frame]
+
+
+def _cb_fallback_pixels(name, a, k):
+    """Pixels of one checkerboard PrePass call where a signal's weight sum is 0: the plain
+    version with a NaN fallback marks them."""
+    mod = KM.MODULES[name]
+    sf = KM.MODULES["spatial_filter"]
+    orig = sf.cb_neighbor_resolve
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(sf, "cb_neighbor_resolve",
+                   lambda signal, *r: torch.full_like(orig(signal, *r), float("nan")))
+        out = _flat(getattr(mod, name + "_ref")(*a, **k))
+    return sum(int(torch.isnan(out[key][..., 0]).sum()) for key in out if key != "hdt")
+
+
+@pytest.mark.parametrize("case", list(CB_CASES))
+def test_spatial_filter_cb_rehearsal(library, case):
+    """H2's checkerboard PrePass (diffuse and specular, BLACK and WHITE) against its plain
+    version on half-width inputs: has_data from the pixel and the frame index, the centre's
+    hit distance zeroed for its parameters and weighed by has_data, the taps on the expanded
+    signal, and where no weight is left the horizontal neighbour resolve; with the PrePass
+    radius 0 the kernel still runs (`diffuse_radius_0`), and the fallback fires on the
+    CB_FALLBACK frames and everywhere without data with usePrepassOnly..."""
+    denoiser, mode, settings, materials = CB_CASES[case]
+    calls = _cb_prepass_calls(_record(denoiser, "spatial_filter", materials=materials,
+                                      checkerboardMode=mode, **settings), len(SF_STAGES))
+    assert all(k["mode"] == 0 and k["cb"] == int(mode) - 1 for _, k in calls)
+    assert all(a[0].shape[1] == SIZE[0] for a, _ in calls)  # expanded to full width
+    fired = sum(_cb_fallback_pixels("spatial_filter", a, k) for a, k in calls)
+    if "fallback" in case or "prepass_only" in case:
+        assert fired > 0, f"{case}: the fallback never fires"
+    over, count, worst = _hold(library, "spatial_filter", calls)
+    assert over <= FLIP_FRACTION * count, (f"{case}: {over} of {count} values out of "
+                                           f"tolerance, max |d| {worst:.3g}")
+
+
+@pytest.mark.parametrize("case", list(CB_DS_CASES))
+def test_spatial_filter_fused_cb_rehearsal(library, case):
+    """N4's checkerboard PrePass against its plain version on REBLUR_DIFFUSE_SPECULAR's
+    half-width inputs: each signal's centre weighed by has_data, and each signal's own
+    fallback where its weight sum is 0 (the CB_FALLBACK frames); in performance mode too."""
+    mode, settings, materials = CB_DS_CASES[case]
+    calls = _cb_prepass_calls(_record(DS, "spatial_filter_fused", materials=materials,
+                                      checkerboardMode=mode, **settings), len(SF_STAGES))
+    assert all(k["cb"]["parity"] == int(mode) - 1 and k["prepass"] is not None
+               for _, k in calls)
+    if case == "fallback":
+        assert sum(_cb_fallback_pixels("spatial_filter_fused", a, k) for a, k in calls) > 0
+    over, count, worst = _hold(library, "spatial_filter_fused", calls)
+    assert over <= FLIP_FRACTION * count, (f"{case}: {over} of {count} values out of "
+                                           f"tolerance, max |d| {worst:.3g}")
+
+
+def test_spatial_filter_cb_edge_rehearsal(library):
+    """The fallback at the image's edge columns: on the diffuse CB_FALLBACK calls, viewZ one
+    column in from each edge set to half its value (a near object's silhouette), so that the
+    edge pixels' inner neighbours fail the depth test. An edge pixel then has no neighbour to
+    take (0), where a fallback without the edge test would take its own expanded texel: the
+    pixels at x = 0 and x = w - 1 that fall back must be held."""
+    denoiser, mode, settings, materials = CB_CASES["diffuse_fallback"]
+    calls = []
+    for a, k in _cb_prepass_calls(_record(denoiser, "spatial_filter", materials=materials,
+                                          checkerboardMode=mode, **settings), len(SF_STAGES)):
+        view_z = a[1].clone()
+        view_z[:, 1] = view_z[:, 1] * 0.5
+        view_z[:, -2] = view_z[:, -2] * 0.5
+        calls.append(((a[0], view_z, *a[2:]), k))
+    sf = KM.MODULES["spatial_filter"]
+    edge = 0
+    for a, k in calls:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(sf, "cb_neighbor_resolve", lambda signal, *r: torch.full_like(
+                signal, float("nan")))
+            out = sf.spatial_filter_ref(*a, **k)
+        edge += int(torch.isnan(out[:, [0, -1], 0]).sum())
+    assert edge > 0, "no edge pixel falls back"
+    over, count, worst = _hold(library, "spatial_filter", calls)
+    assert over <= FLIP_FRACTION * count, (f"{over} of {count} values out of tolerance, max "
+                                           f"|d| {worst:.3g}")
