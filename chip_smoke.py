@@ -15,7 +15,11 @@ distance packed by `relax_pack_radiance_hitdist`, and RELAX_SPECULAR with
 `enableAntiFirefly=True` on the same frames (the anti-firefly pass, off by default, on a main
 path of its own); RELAX_DIFFUSE_SH, RELAX_SPECULAR_SH and RELAX_DIFFUSE_SPECULAR_SH with each
 signal's SH0 / SH1 packed by `relax_pack_sh` from the same radiance and raw hit distance along
-the scene's normal (the SH planes ride the non-SH variant's launches); and under checkerboard,
+the scene's normal (the SH planes ride the non-SH variant's launches); REBLUR_DIFFUSE_SH,
+REBLUR_SPECULAR_SH and REBLUR_DIFFUSE_SPECULAR_SH (also with NRDTPU_REBLUR_BAND=1) with each
+signal's SH0 / SH1 packed by `reblur_pack_sh` from the same radiance and normalized hit
+distance along the scene's normal (the SH planes ride the REBLUR kernels' SH modes in the
+non-SH variant's launches); and under checkerboard,
 with each signal input at half width (the has-data pixel of each horizontal pair, as a
 renderer that traces half the pixels sends it): REBLUR_DIFFUSE_SPECULAR in BLACK (also with
 NRDTPU_REBLUR_BAND=1), REBLUR_DIFFUSE in WHITE, REBLUR_SPECULAR in BLACK and
@@ -46,8 +50,12 @@ Phases, each of which raises on failure (exit code != 0):
      `enableAntiFirefly=True` (relax_antifirefly timed, the rest held only), each with
      AREA_3X3 on RELAX-packed punched frames (hitdist_recon on RELAX's constants, not
      timed) and each with the history clamp's colour box off (relax_clamp_moments, held);
-     then the three SH variants (every kernel of each in its SH mode, timed by path beside
-     the non-SH variant's);
+     then the three RELAX SH variants (every kernel of each in its SH mode, timed by path
+     beside the non-SH variant's); the three REBLUR SH variants (every kernel of each in its
+     SH mode, timed by path), each with the anti-firefly ring (the history fixes, held), in
+     performance mode (the spatial filters, held), REBLUR_DIFFUSE_SPECULAR_SH with AREA_3X3 on
+     the punched frames (every kernel, held), and the band in its SH mode (default, with the
+     ring and in performance mode, each beside the chain it replaces);
      the checkerboard PrePass of H2 (REBLUR_DIFFUSE in WHITE and BLACK, REBLUR_SPECULAR in
      BLACK and WHITE) and N4 (REBLUR_DIFFUSE_SPECULAR in BLACK and WHITE) on the half-width
      frames, one run of each kernel on frames whose fallback fires (`CB_FALLBACK`: a material
@@ -70,7 +78,8 @@ Phases, each of which raises on failure (exit code != 0):
      the launch counts set to 0 just before and read just after; every output must be
      finite and every kernel of the path launched exactly its count a frame (the checkerboard
      PrePass instances counted apart); each REBLUR
-     and RELAX output (SH0 taken from YCoCg to linear) must beat its noisy input by >= 3 dB
+     and RELAX output (SH0 taken from YCoCg to linear; REBLUR's with `sg_extract_color`)
+     must beat its noisy input by >= 3 dB
      against the scene's clean image, each SIGMA
      output must lie in [0, 1], be lit on average (> 0.99) where the 9x9 neighbourhood is lit
      and dark (< 0.15) in the umbra core; prints the median ms/frame (CUDA events), the host
@@ -168,6 +177,8 @@ SOURCES = {
 # the kernels that no main path launches (as in the JAX package); a phase of their own
 # holds them
 NO_MAIN_PATH = ("halo_call",)
+D_LAUNCHES = {"smb_resolve": 1, "spatial_filter": 3, "history_fix": 1, "ts_prelude": 1}
+S_LAUNCHES = {**D_LAUNCHES, "spec_ta_head": 1, "nearest_multi": 1, "vmb_resolve": 1}
 DS_LAUNCHES = {"smb_resolve": 1, "spec_ta_head": 1, "nearest_multi": 1, "vmb_resolve": 1,
                "spatial_filter_fused": 3, "history_fix_fused": 1, "ts_prelude": 2}
 BAND_LAUNCHES = {"smb_resolve": 1, "spec_ta_head": 1, "nearest_multi": 1, "vmb_resolve": 1,
@@ -184,11 +195,8 @@ RD_LAUNCHES = {"relax_prepass": 1, "relax_smb_resolve": 1, "relax_history_fix": 
 # its frames have hit-distance holes, the environment its engines run in, and its launches
 # per frame
 PATHS = {
-    "REBLUR_DIFFUSE": dict(signals=("diff",), launches={
-        "smb_resolve": 1, "spatial_filter": 3, "history_fix": 1, "ts_prelude": 1}),
-    "REBLUR_SPECULAR": dict(signals=("spec",), launches={
-        "smb_resolve": 1, "spatial_filter": 3, "history_fix": 1, "ts_prelude": 1,
-        "spec_ta_head": 1, "nearest_multi": 1, "vmb_resolve": 1}),
+    "REBLUR_DIFFUSE": dict(signals=("diff",), launches=D_LAUNCHES),
+    "REBLUR_SPECULAR": dict(signals=("spec",), launches=S_LAUNCHES),
     "REBLUR_DIFFUSE_SPECULAR": dict(signals=("diff", "spec"), launches=DS_LAUNCHES),
     "REBLUR_DIFFUSE_SPECULAR+BAND": dict(
         denoiser="REBLUR_DIFFUSE_SPECULAR", signals=("diff", "spec"),
@@ -210,6 +218,13 @@ PATHS = {
     "RELAX_SPECULAR_SH": dict(signals=("spec",), relax=True, sh=True, launches=RS_LAUNCHES),
     "RELAX_DIFFUSE_SPECULAR_SH": dict(signals=("diff", "spec"), relax=True, sh=True,
                                       launches=RDS_LAUNCHES),
+    # REBLUR's SH variants: SH0 / SH1 a signal from `reblur_pack_sh`, the non-SH launches
+    "REBLUR_DIFFUSE_SH": dict(signals=("diff",), sh=True, launches=D_LAUNCHES),
+    "REBLUR_SPECULAR_SH": dict(signals=("spec",), sh=True, launches=S_LAUNCHES),
+    "REBLUR_DIFFUSE_SPECULAR_SH": dict(signals=("diff", "spec"), sh=True, launches=DS_LAUNCHES),
+    "REBLUR_DIFFUSE_SPECULAR_SH+BAND": dict(
+        denoiser="REBLUR_DIFFUSE_SPECULAR_SH", signals=("diff", "spec"), sh=True,
+        env={"NRDTPU_REBLUR_BAND": "1"}, launches=BAND_LAUNCHES),
 }
 # the checkerboard paths: half-width signal inputs in the mode `cb`, the non-cb path's launches
 # with the PrePass in its checkerboard instance (counted apart as well)
@@ -235,6 +250,12 @@ for _name, _v in CB_PATHS.items():
     PATHS[_name] = _v
 RELAX_VARIANTS = ("RELAX_DIFFUSE", "RELAX_SPECULAR", "RELAX_DIFFUSE_SPECULAR")
 RELAX_SH_VARIANTS = ("RELAX_DIFFUSE_SH", "RELAX_SPECULAR_SH", "RELAX_DIFFUSE_SPECULAR_SH")
+REBLUR_SH_VARIANTS = ("REBLUR_DIFFUSE_SH", "REBLUR_SPECULAR_SH", "REBLUR_DIFFUSE_SPECULAR_SH")
+# REBLUR_DIFFUSE_SPECULAR_SH's frames with hit-distance holes (SH0's .w zeroed): the kernel
+# phase's AREA_3X3 run of the SH variants
+REBLUR_SH_HOLES = "REBLUR_DIFFUSE_SPECULAR_SH+holes"
+# the band's paths, whose kernel-phase runs also time the chain it replaces
+BAND_PATHS = ("REBLUR_DIFFUSE_SPECULAR+BAND", "REBLUR_DIFFUSE_SPECULAR_SH+BAND")
 # RELAX_SPECULAR with IN_NORMAL_ROUGHNESS packed at the roughness encodings other than LINEAR,
 # with AREA_3X3 on the frames with hit-distance holes, so that every kernel that unpacks the
 # roughness (ENCODED_KERNELS) runs in the encoding's mode: held and timed in the kernel phase,
@@ -300,6 +321,8 @@ RP_TAP_OPS = 100                            # relax_prepass.cu: one Poisson tap
 # channels, the weight sum and 4 divisions), the SH lerp of K20 (3 a channel) and each
 # SH output's 4 divisions (K15, K19, K22)
 SH_TAP_OPS, SH_HISTORY_OPS, SH_LERP_OPS, SH_OUT_OPS = 9, 39, 12, 4
+SH_SCALE_OPS = 9                            # reblur_filters.cuh:sh_luma_scale: the length
+                                            # and the scale of SH1.xyz
 RS_HISTORY_OPS = 100                        # relax_smb_resolve.cu: one history through the
                                             # CatRom footprint (12 texels x 4 channels)
 RH_TAP_OPS, RH_RECORD_OPS = 40, 43          # relax_history_fix.cu: one stride tap, and
@@ -396,6 +419,8 @@ class Scene:
         holes = ((np.random.default_rng((self.seed, i)).random(fd.view_z.shape) < HOLE_FRACTION)
                  & (fd.hit_mask > 0))
         packed, punched = {}, {}
+        normal = torch.from_numpy(fd.normal.astype(np.float32))
+        reblur_sh, reblur_sh_punched = {}, {}  # the REBLUR SH variants' SH0 / SH1 (the normal)
         for sig, noisy, hit, rough in (
                 ("diff", fd.diff_noisy, fd.diff_hit_dist, torch.ones(self.h, self.w)),
                 ("spec", fd.spec_noisy, fd.spec_hit_dist, torch.from_numpy(fd.roughness))):
@@ -403,10 +428,15 @@ class Scene:
             packed[sig] = fe.reblur_pack_radiance_hitdist(torch.from_numpy(noisy), nhd).numpy()
             punched[sig] = packed[sig].copy()
             punched[sig][..., 3][holes] = 0.0
+            sh0, sh1 = fe.reblur_pack_sh(torch.from_numpy(noisy), nhd, normal)
+            sh0, sh1 = sh0.numpy(), sh1.numpy()
+            reblur_sh[sh_rts(sig)[0]], reblur_sh[sh_rts(sig)[2]] = sh0, sh1
+            reblur_sh_punched[sh_rts(sig)[0]] = sh0.copy()
+            reblur_sh_punched[sh_rts(sig)[0]][..., 3][holes] = 0.0
+            reblur_sh_punched[sh_rts(sig)[2]] = sh1
         # RELAX takes the radiance and the raw hit distance; its SH variants SH0 and SH1 (along
         # the normal)
         relax, relax_punched, relax_sh = {}, {}, {}
-        normal = torch.from_numpy(fd.normal.astype(np.float32))
         for sig, noisy, hit in (("diff", fd.diff_noisy, fd.diff_hit_dist),
                                 ("spec", fd.spec_noisy, fd.spec_hit_dist)):
             relax[sig] = fe.relax_pack_radiance_hitdist(torch.from_numpy(noisy),
@@ -433,7 +463,8 @@ class Scene:
                 if name == "SIGMA_SHADOW_TRANSLUCENCY":
                     pools[name][RT.IN_TRANSLUCENCY] = fe.sigma_pack_translucency(dist, rgb).numpy()
             elif v.get("sh"):
-                pools[name] = {**base, **{rt: relax_sh[rt] for sig in v["signals"]
+                src = relax_sh if v.get("relax") else reblur_sh
+                pools[name] = {**base, **{rt: src[rt] for sig in v["signals"]
                                           for rt in sh_rts(sig)[::2]}}
             elif v.get("relax"):
                 pools[name] = {**base, **{in_rt(sig): relax[sig] for sig in v["signals"]}}
@@ -443,6 +474,7 @@ class Scene:
         for name, holes_name in RELAX_HOLES.items():
             pools[holes_name] = {**base, **{in_rt(sig): relax_punched[sig]
                                             for sig in PATHS[name]["signals"]}}
+        pools[REBLUR_SH_HOLES] = {**base, **reblur_sh_punched}
         for name, v in ENCODED.items():
             nr = self.gen.packed_normal_roughness(fd, re_=RoughnessEncoding[v["encoding"]])
             pools[name] = {**base, RT.IN_NORMAL_ROUGHNESS: nr, in_rt("spec"): relax_punched["spec"]}
@@ -583,8 +615,15 @@ def _ops(name, a, k):
     if name == "relax_clamp_moments" and isinstance(a[1], tuple):  # the pass of each signal
         ops *= len(a[1])
     ntaps = len(sf.tap_table(bool(k.get("perf_mode", False))))
+    # REBLUR's SH modes: the SH a tap (H2, H3, N4, N5, K23), an SH history's bilinear (H1, N3),
+    # the SH luma scale after the clamp (H3, N5, K23)
+    nsh = 0 if k.get("sh") is None and k.get("sh_history") is None else (
+        len(k["sh"]) if isinstance(k.get("sh"), (tuple, list)) else 1)
     if name == "smb_resolve":
         ops += SMB_SIGNAL_OPS * px * (2 if k.get("second") is not None else 1)
+        ops += SH_HISTORY_OPS * nsh * px
+    elif name == "vmb_resolve":
+        ops += SH_HISTORY_OPS * nsh * px
     elif name == "ts_prelude":  # the specular half samples both motions
         spec = len(a) > 5 and a[5] is not None
         ops += (TS_SAMPLE_OPS * 2 + TS_SPEC_OPS if spec else TS_SAMPLE_OPS) * px
@@ -596,24 +635,29 @@ def _ops(name, a, k):
         ops += (SF_GEOM_OPS + params) * px
         ops += (SF_TAP_OPS + (SF_PREPASS_TAP_OPS if prepass and k["spec"] else 0)) * ntaps * px
         ops += CB_STATE_OPS * px if k.get("cb") is not None else 0
+        ops += (SH_TAP_OPS * ntaps + SH_OUT_OPS) * nsh * px
     elif name == "spatial_filter_fused":
         for params in (a[5], a[6]):
             extra = SF_PREPASS_TAP_OPS if sf.MODES[params.shape[0]] == "spec_prepass" else 0
             ops += (SF_TAP_OPS + extra) * ntaps * px
         ops += 2 * CB_STATE_OPS * px if k.get("cb") is not None else 0
+        ops += (SH_TAP_OPS * ntaps + SH_OUT_OPS) * nsh * px
     elif name == "history_fix":
         live = int((a[6][0] != 0.0).sum())
         ops += HF_MOMENT_OPS * px + (HF_RING_OPS * px if k.get("anti_firefly") else 0)
         ops += HF_TAP_OPS * 20 * live + BAND_CLAMP_OPS * px
+        ops += (SH_TAP_OPS * 20 * live + (SH_OUT_OPS + SH_SCALE_OPS) * px) * nsh
     elif name in ("history_fix_fused", "reblur_band"):
         af = k["anti_firefly"]
         per = [(a[9], af[0]), (a[10], af[1])]
         ops += 2 * BAND_CLAMP_OPS * px  # the clamp of each signal
         if name == "reblur_band":  # then the Blur and PostBlur of each signal
             ops += 2 * 2 * (BAND_PARAM_OPS + SF_TAP_OPS * ntaps) * px
+            ops += 2 * (SH_TAP_OPS * ntaps + SH_OUT_OPS) * nsh * px
         for params, ring in per:
             live = int((params[0] != 0.0).sum())
             ops += HF_MOMENT_OPS * px + (HF_RING_OPS * px if ring else 0) + HF_TAP_OPS * 20 * live
+            ops += (SH_TAP_OPS * 20 * live + (SH_OUT_OPS + SH_SCALE_OPS) * px) * (nsh // 2)
     elif name == "hitdist_recon":
         taps = (2 * k["radius"] + 1) ** 2 - 1
         nsig = sum(x is not None for x in a[2:4])
@@ -952,7 +996,10 @@ def kernel_runs():
     REBLUR_DIFFUSE_SPECULAR with maxBlurRadius 0 (ts_prelude without the RCRS clamp, each half,
     held only); then the kernels that unpack the roughness on RELAX_SPECULAR at each encoding of
     ENCODED, timed; then the three RELAX SH variants (every call of their kernels in the SH
-    modes, timed)."""
+    modes, timed); then the three REBLUR SH variants (every call in the SH modes, timed),
+    each with the anti-firefly ring (the history fixes, held) and in performance mode (the
+    spatial filters, held), REBLUR_DIFFUSE_SPECULAR_SH with AREA_3X3 on its frames with
+    holes (every call, held), and the band's SH mode with the band's runs."""
     runs = []
     for v in REBLUR_VARIANTS:
         runs.append((v, v, v, {}, None, True))
@@ -983,6 +1030,15 @@ def kernel_runs():
         runs.append((f"{v} no clamp", v, v, NO_FAST_CLAMP, {"relax_clamp_moments"}, False))
     for v in RELAX_SH_VARIANTS:
         runs.append((v, v, v, {}, None, True))
+    for v in REBLUR_SH_VARIANTS:
+        runs.append((v, v, v, {}, None, True))
+        runs.append((f"{v} anti-firefly", v, v, dict(enableAntiFirefly=True),
+                     {"history_fix", "history_fix_fused"}, False))
+        runs.append((f"{v} perf", v, v, dict(enablePerformanceMode=True),
+                     {"spatial_filter", "spatial_filter_fused"}, False))
+    ds_sh = "REBLUR_DIFFUSE_SPECULAR_SH"
+    runs.append((f"{ds_sh} AREA_3X3", ds_sh, REBLUR_SH_HOLES,
+                 dict(hitDistanceReconstructionMode="AREA_3X3"), None, False))
     for v in ("REBLUR_DIFFUSE", "REBLUR_DIFFUSE_SPECULAR"):
         runs.append((f"{v} maxBlurRadius 0", v, v, dict(maxBlurRadius=0.0, minBlurRadius=0.0),
                      {"ts_prelude"}, False))
@@ -1014,11 +1070,11 @@ def kernel_runs():
         runs.append((label, PATHS[path]["denoiser"], f"{path}+{other}",
                      dict(checkerboardMode=other),
                      {"spatial_filter_cb", "spatial_filter_fused_cb"}, False))
-    band = "REBLUR_DIFFUSE_SPECULAR+BAND"
-    for label, settings in (("", {}), (" anti-firefly", dict(enableAntiFirefly=True)),
-                            (" perf", dict(enablePerformanceMode=True))):
-        runs.append((band + label, "REBLUR_DIFFUSE_SPECULAR", band, settings, {"reblur_band"},
-                     {"reblur_band"}))
+    for band in BAND_PATHS:
+        for label, settings in (("", {}), (" anti-firefly", dict(enableAntiFirefly=True)),
+                                (" perf", dict(enablePerformanceMode=True))):
+            runs.append((band + label, PATHS[band]["denoiser"], band, settings,
+                         {"reblur_band"}, {"reblur_band"}))
     return runs
 
 
@@ -1107,10 +1163,9 @@ def band_chain(label, a, k):
 
     runs = {fn.__name__: (lambda fn=fn: fn(*copied(a), **k))
             for fn in (RK.spatial_band, RK.spatial_chain)}
-    (bd, bf), (bs, bsf) = runs["spatial_band"]()
-    (cd, cf), (cs, csf) = runs["spatial_chain"]()
+    band, chain = runs["spatial_band"](), runs["spatial_chain"]()  # with SH a third pair
     torch.cuda.synchronize()
-    err = max(float((x - y).abs().max()) for x, y in ((bd, cd), (bf, cf), (bs, cs), (bsf, csf)))
+    err = max(float((x - y).abs().max()) for p, q in zip(band, chain) for x, y in zip(p, q))
     res = {name: time_ms(fn, 20) for name, fn in runs.items()}
     log(f"band {label}: spatial_band (glue + 1 launch) {res['spatial_band']:.4f} ms, "
         f"spatial_chain (glue + 3 launches) {res['spatial_chain']:.4f} ms, max |band - chain| "
@@ -1224,8 +1279,9 @@ def kernel_phase(w, h, frames):
                                  f"values outside atol={ATOL}, rtol={RTOL}")
     if not set(NO_MAIN_PATH) <= set(results):
         raise AssertionError(f"the halo phase did not run {list(NO_MAIN_PATH)}")
-    if len(chain) != 3:
-        raise AssertionError(f"the band's pass ran in {sorted(chain)}, not in its three runs")
+    if len(chain) != 3 * len(BAND_PATHS):
+        raise AssertionError(f"the band's pass ran in {sorted(chain)}, not in its "
+                             f"{3 * len(BAND_PATHS)} runs")
     return results
 
 
@@ -1329,7 +1385,10 @@ def slice_phase(path, w, h, frames, warmup):
             if sig == "shadow":
                 check_shadow(path, out, truth)
                 continue
-            if sh:  # SH0 leaves the last à-trous iteration in YCoCg
+            if sh and not PATHS[path].get("relax"):  # REBLUR's SH0: YCoCg and normHitDist
+                rgb = fe.sg_extract_color(fe.reblur_unpack_sh(
+                    out, outs[sh_rts(sig)[3]])).cpu().numpy()
+            elif sh:  # RELAX's SH0 leaves the last à-trous iteration in YCoCg
                 rgb = nm.ycocg_to_linear(out[..., :3]).cpu().numpy()
             else:
                 unpack = (fe.relax_unpack_radiance if PATHS[path].get("relax")

@@ -3,6 +3,8 @@ slices need, counterpart of `nrdtpu/frontend.py`."""
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from . import math as nm
@@ -11,6 +13,7 @@ from .settings import NormalEncoding, RoughnessEncoding
 NRD_FP16_MAX = 65504.0
 NRD_EPS = 1e-6
 NRD_INF = 1e6
+NRD_ROUGHNESS_EPS = float(torch.sqrt(torch.sqrt(torch.tensor(NRD_EPS, dtype=torch.float32))))
 
 
 def pack_normal_roughness(n, roughness, material_id=0.0,
@@ -79,6 +82,19 @@ def reblur_pack_radiance_hitdist(radiance, norm_hit_dist, sanitize=True):
 def reblur_unpack_radiance_hitdist(data):
     """REBLUR_BackEnd_UnpackRadianceAndNormHitDist (NRD.hlsli:863-868)."""
     return torch.cat([nm.ycocg_to_linear(data[..., :3]), data[..., 3:4]], -1)
+
+
+def reblur_pack_sh(radiance, norm_hit_dist, direction, sanitize=True):
+    """REBLUR_FrontEnd_PackSh (NRD.hlsli:748-766): sh0 = (YCoCg, normHitDist), sh1 =
+    (direction x the luma Y, 0). Returns (sh0, sh1), (..., 4) each."""
+    if sanitize:
+        radiance = _sanitize(radiance, 0.0, NRD_FP16_MAX)
+        norm_hit_dist = _sanitize(norm_hit_dist, 0.0, 1.0)
+        direction = _sanitize(direction, -1.0, 1.0)
+    ycocg = nm.linear_to_ycocg(radiance)
+    c1 = direction * ycocg[..., 0:1]
+    return (torch.cat([ycocg, norm_hit_dist[..., None]], -1),
+            torch.cat([c1, torch.zeros_like(c1[..., :1])], -1))
 
 
 def relax_pack_radiance_hitdist(radiance, hit_dist, sanitize=True):
@@ -165,3 +181,126 @@ def environment_term_rtg(rf0, nov, roughness):
 def get_normalized_strand_thickness(strand_thickness, pixel_size):
     """NRD_GetNormalizedStrandThickness (NRD.hlsli:1158-1161)."""
     return pixel_size / (pixel_size + strand_thickness)
+
+
+# ---------------------------------------------------------------------------
+# SG / SH resolve suite (NRD.hlsli:536-592, 933-1133): what a renderer reads REBLUR's SH
+# outputs with
+# ---------------------------------------------------------------------------
+
+
+class SG(NamedTuple):
+    """NRD_SG (NRD.hlsli:541-549)."""
+
+    c0: torch.Tensor         # (...,)
+    chroma: torch.Tensor     # (..., 2)
+    norm_hit_dist: torch.Tensor
+    c1: torch.Tensor         # (..., 3)
+    sharpness: torch.Tensor
+
+
+def sg_create(radiance, direction, norm_hit_dist) -> SG:
+    """_NRD_SG_Create (NRD.hlsli:551-563)."""
+    ycocg = nm.linear_to_ycocg(radiance)
+    c0 = ycocg[..., 0]
+    return SG(c0=c0, chroma=ycocg[..., 1:3], norm_hit_dist=norm_hit_dist,
+              c1=direction * c0[..., None], sharpness=torch.zeros_like(c0))
+
+
+def reblur_unpack_sh(sh0, sh1) -> SG:
+    """REBLUR_BackEnd_UnpackSh (NRD.hlsli:872-882)."""
+    return SG(c0=sh0[..., 0], chroma=sh0[..., 1:3], norm_hit_dist=sh0[..., 3],
+              c1=sh1[..., :3], sharpness=sh1[..., 3])
+
+
+def _sg_extract_direction(sg: SG):
+    return sg.c1 / torch.clamp_min(nm.length(sg.c1)[..., None], NRD_EPS)
+
+
+def _sg_integral_approx(c0, sharpness):
+    return 2.0 * nm.PI * (c0 / sharpness)
+
+
+def _sg_inner_product(a_c0, a_dir, a_sharp, b_c0, b_dir, b_sharp):
+    """_NRD_SG_InnerProduct (NRD.hlsli:582-592)."""
+    d = nm.length(a_sharp[..., None] * a_dir + b_sharp[..., None] * b_dir)
+    c = torch.exp(d - a_sharp - b_sharp)
+    c = c * (1.0 - torch.exp(-2.0 * d))
+    c = c / torch.clamp_min(d, NRD_EPS)
+    return nm.PI * nm.saturate(2.0 * c * a_c0) * b_c0
+
+
+def _geometry_term(roughness, nol, nov):
+    m = roughness * roughness
+    m2 = m * m
+    a = nol + torch.sqrt(nm.saturate((nol - m2 * nol) * nol + m2))
+    b = nov + torch.sqrt(nm.saturate((nov - m2 * nov) * nov + m2))
+    return 1.0 / torch.clamp_min(a * b, NRD_EPS)
+
+
+def _ycocg_to_linear_corrected(y, y0, cocg):
+    """_NRD_YCoCgToLinear_Corrected (NRD.hlsli:377-383)."""
+    y = torch.clamp_min(y, 0.0)
+    cocg = cocg * ((y + nm.EPS) / (y0 + nm.EPS))[..., None]
+    return nm.ycocg_to_linear(torch.cat([y[..., None], cocg], -1))
+
+
+def sg_extract_color(sg: SG):
+    """NRD_SG_ExtractColor (NRD.hlsli:937-940): the linear colour of SH0."""
+    return nm.ycocg_to_linear(torch.cat([sg.c0[..., None], sg.chroma], -1))
+
+
+def sg_resolve_diffuse(sg: SG, n):
+    """NRD_SG_ResolveDiffuse (NRD.hlsli:957-1007), the numeric-integration fit."""
+    sharpness = 4.0
+    c0k = 0.36
+    c1k = 1.0 / (4.0 * c0k)
+    e = float(torch.exp(torch.tensor(-sharpness, dtype=torch.float32)))
+    e2 = e * e
+    r = 1.0 / sharpness
+    scale = 1.0 + 2.0 * e2 - r
+    bias = (e - e2) * r - e2
+    nol = nm.dot(n, _sg_extract_direction(sg))
+    x = float(torch.sqrt(torch.clamp(torch.tensor(1.0 - scale, dtype=torch.float32), 0.0, 1.0)))
+    x0 = c0k * nol
+    x1 = c1k * x
+    nn = x0 + x1
+    y = torch.where(torch.abs(x0) <= x1, nn * nn / max(x, NRD_EPS), nm.saturate(nol))
+    yy = scale * y + bias
+    yy = yy * _sg_integral_approx(sg.c0, torch.full_like(sg.c0, sharpness))
+    return _ycocg_to_linear_corrected(yy, sg.c0, sg.chroma)
+
+
+def sg_resolve_specular(sg: SG, n, v, roughness):
+    """NRD_SG_ResolveSpecular (NRD.hlsli:1009-1055)."""
+    roughness = torch.clamp_min(roughness, NRD_ROUGHNESS_EPS)
+    sg_sharp = torch.full_like(sg.c0, 2.0)
+    h = nm.normalize(_sg_extract_direction(sg) + v)
+    h = nm.normalize(nm.lerp(n, h, roughness[..., None]))
+    m = roughness * roughness
+    m2 = m * m
+    ndf_c0 = 1.0 / (nm.PI * m2) * nm.lerp(1.0, 0.75 * 2.0 * nm.PI, m2)
+    ndf_sharp = 2.0 / torch.clamp_min(m2, NRD_EPS)
+    warped_dir = nm.reflect(-v, h)
+    warped_sharp = ndf_sharp / torch.clamp_min(4.0 * torch.abs(nm.dot(h, v)), NRD_EPS)
+    nov = torch.abs(nm.dot(n, v))
+    nol = nm.saturate(nm.dot(n, warped_dir))
+    warped_c0 = ndf_c0 * nol * _geometry_term(roughness, nol, nov)
+    y = _sg_inner_product(warped_c0, warped_dir, warped_sharp, sg.c0, _sg_extract_direction(sg),
+                          sg_sharp)
+    return _ycocg_to_linear_corrected(y, sg.c0, sg.chroma)
+
+
+def sh_resolve_diffuse(sh: SG, n):
+    """NRD_SH_ResolveDiffuse (NRD.hlsli:1117-1122)."""
+    y = nm.dot(n, sh.c1) + 0.5 * sh.c0
+    return _ycocg_to_linear_corrected(y, sh.c0, sh.chroma)
+
+
+def sh_resolve_specular(sh: SG, n, v, roughness):
+    """NRD_SH_ResolveSpecular (NRD.hlsli:1124-1133)."""
+    nov = torch.abs(nm.dot(n, v))
+    f = nm.get_specular_dominant_factor(nov, roughness)
+    d = nm.normalize(nm.lerp(n, nm.reflect(-v, n), f[..., None]))
+    y = nm.dot(d, sh.c1) + 0.5 * sh.c0
+    return _ycocg_to_linear_corrected(y, sh.c0, sh.chroma)

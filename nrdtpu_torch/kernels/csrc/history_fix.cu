@@ -16,6 +16,8 @@
 //      writes the clamped signal and the fast history, and no moment plane leaves the kernel.
 // kFixCtas: the CTAs an SM that ptxas is asked to fit (4: 56 / 64 registers and no spill; 5
 // spilled 32 / 76 B and ran 4 % slower on REBLUR_SPECULAR, PERF.md).
+// The SH variants (kSh): the signal's SH1 rides the taps and is scaled to the clamped luma
+// (reblur_filters.cuh:hf_filter, sh_luma_scale); the non-SH instances compile as before.
 #include "reblur_filters.cuh"
 
 namespace {
@@ -24,7 +26,7 @@ constexpr int kFixCtas = 4;
 
 // phase 0: the tap geometry, one thread a pixel; 1: the history fix and the clamp of signal
 // kSig
-template <int kPhase, int kSig>
+template <int kPhase, int kSig, bool kSh>
 __global__ void __launch_bounds__(256, kPhase == 1 ? kFixCtas : 1)
     history_fix_kernel(nrd::HistoryFixArgs a) {
   if constexpr (kPhase == 0) {
@@ -34,17 +36,17 @@ __global__ void __launch_bounds__(256, kPhase == 1 ? kFixCtas : 1)
     nrd::write_tap_geometry(const_cast<float4*>(a.geometry), a.nr, a.view_z, a.f.view_z_scale,
                             (size_t)y * a.f.w + x);
   } else {
-    nrd::history_fix_cta<kSig>(a);
+    nrd::history_fix_cta<kSig, kSh>(a);
   }
 }
 
 }  // namespace
 
 // ptrs: signal, view_z, nr, data1, fast, shared, params, smc (specular only), out, fast_out,
-//       geometry (scratch)
+//       geometry (scratch), sh and sh_out (SH only)
 // consts: frustum[4], rect_inv_w, rect_inv_h, view_z_scale, ortho_mode, min_material,
 //         specular mode (0 or 1), anti-firefly ring (0 or 1), the clamp's frame divisor and
-//         fast-history flag
+//         fast-history flag, SH (0 or 1)
 extern "C" int nrd_history_fix(void* const* p, const float* c, int w, int h, void* stream) {
   const int s = c[9] != 0.0f ? 1 : 0;  // the signal's slot: 0 diffuse, 1 specular
   nrd::HistoryFixArgs a{};
@@ -59,6 +61,9 @@ extern "C" int nrd_history_fix(void* const* p, const float* c, int w, int h, voi
   a.out[s] = (float*)p[8];
   a.fast_out[s] = (float*)p[9];
   a.geometry = (const float4*)p[10];
+  a.sh[s] = (const float*)p[11];
+  a.sh_out[s] = (float*)p[12];
+  const bool sh = c[13] != 0.0f;
   a.f.w = w;
   a.f.h = h;
   for (int k = 0; k < 4; ++k) a.f.fr[k] = c[k];
@@ -70,16 +75,20 @@ extern "C" int nrd_history_fix(void* const* p, const float* c, int w, int h, voi
   a.anti_firefly[s] = c[10] != 0.0f;
   a.clamp.frame_div = c[11];
   a.clamp.fast_enabled = c[12];
-  if (s == 1 && a.smc == nullptr) return (int)cudaErrorInvalidValue;
+  if ((s == 1 && a.smc == nullptr) || (sh && (a.sh[s] == nullptr || a.sh_out[s] == nullptr)))
+    return (int)cudaErrorInvalidValue;
   const dim3 block(nrd::kFixTile, nrd::kFixTile);
   const dim3 tiles((w + nrd::kFixTile - 1) / nrd::kFixTile,
                    (h + nrd::kFixTile - 1) / nrd::kFixTile);
-  history_fix_kernel<0, 0><<<tiles, block, 0, (cudaStream_t)stream>>>(a);
+  const cudaStream_t st = (cudaStream_t)stream;
+  history_fix_kernel<0, 0, false><<<tiles, block, 0, st>>>(a);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  if (s == 0)
-    history_fix_kernel<1, 0><<<tiles, block, 0, (cudaStream_t)stream>>>(a);
-  else
-    history_fix_kernel<1, 1><<<tiles, block, 0, (cudaStream_t)stream>>>(a);
+  switch (s * 2 + (sh ? 1 : 0)) {
+    case 0: history_fix_kernel<1, 0, false><<<tiles, block, 0, st>>>(a); break;
+    case 1: history_fix_kernel<1, 0, true><<<tiles, block, 0, st>>>(a); break;
+    case 2: history_fix_kernel<1, 1, false><<<tiles, block, 0, st>>>(a); break;
+    default: history_fix_kernel<1, 1, true><<<tiles, block, 0, st>>>(a); break;
+  }
   return (int)cudaGetLastError();
 }

@@ -16,6 +16,9 @@
 //      ring's margin in shared memory, the taps, the clamp; it writes the clamped signal and
 //      the fast history. No moment plane leaves the kernel.
 // kFixCtas: the CTAs an SM that ptxas is asked to fit (5: 4 and 6 measured no faster, PERF.md).
+// The SH variants (kSh): each signal's SH1 rides its taps and is scaled to its clamped luma
+// (reblur_filters.cuh:hf_filter, sh_luma_scale; TPU reblur_fused.py:683, :721-722); the non-SH
+// instance compiles as before.
 #include "reblur_filters.cuh"
 
 namespace {
@@ -23,7 +26,7 @@ namespace {
 constexpr int kFixCtas = 5;
 
 // phase 0: the tap geometry, one thread a pixel; 1: the history fix and the clamp
-template <int kPhase>
+template <int kPhase, bool kSh>
 __global__ void __launch_bounds__(256, kPhase == 1 ? kFixCtas : 1)
     history_fix_fused_kernel(nrd::HistoryFixArgs a) {
   if constexpr (kPhase == 0) {
@@ -33,17 +36,18 @@ __global__ void __launch_bounds__(256, kPhase == 1 ? kFixCtas : 1)
     nrd::write_tap_geometry(const_cast<float4*>(a.geometry), a.nr, a.view_z, a.f.view_z_scale,
                             (size_t)y * a.f.w + x);
   } else {
-    nrd::history_fix_cta<nrd::kBothSignals>(a);
+    nrd::history_fix_cta<nrd::kBothSignals, kSh>(a);
   }
 }
 
 }  // namespace
 
 // ptrs: diff, spec, diff_data1, spec_data1, diff_fast, spec_fast, diff_params, spec_params,
-//       view_z, nr, shared, smc, out, fast, geometry
+//       view_z, nr, shared, smc, out, fast, geometry, diff_sh, spec_sh, out_sh (the last three
+//       SH only)
 // consts: frustum[4], rect_inv_w, rect_inv_h, view_z_scale, ortho_mode, diff_min_material,
 //         spec_min_material, diffuse anti-firefly ring (0 or 1), specular ring (0 or 1), the
-//         clamp's frame divisor and fast-history flag
+//         clamp's frame divisor and fast-history flag, SH (0 or 1)
 extern "C" int nrd_history_fix_fused(void* const* p, const float* c, int w, int h,
                                      void* stream) {
   nrd::HistoryFixArgs x;
@@ -54,7 +58,12 @@ extern "C" int nrd_history_fix_fused(void* const* p, const float* c, int w, int 
     x.params[s] = (const float*)p[6 + s];
     x.out[s] = (float*)p[12] + (size_t)s * w * h * 4;
     x.fast_out[s] = (float*)p[13] + (size_t)s * w * h;
+    x.sh[s] = (const float*)p[15 + s];
+    x.sh_out[s] = p[17] == nullptr ? nullptr : (float*)p[17] + (size_t)s * w * h * 4;
   }
+  const bool sh = c[14] != 0.0f;
+  if (sh && (x.sh[0] == nullptr || x.sh[1] == nullptr || p[17] == nullptr))
+    return (int)cudaErrorInvalidValue;
   x.view_z = (const float*)p[8];
   x.nr = (const float*)p[9];
   x.shared = (const float*)p[10];
@@ -76,10 +85,13 @@ extern "C" int nrd_history_fix_fused(void* const* p, const float* c, int w, int 
   const dim3 block(nrd::kFixTile, nrd::kFixTile);
   const dim3 tiles((w + nrd::kFixTile - 1) / nrd::kFixTile,
                    (h + nrd::kFixTile - 1) / nrd::kFixTile);
-  history_fix_fused_kernel<0><<<tiles, block, 0, (cudaStream_t)stream>>>(x);
+  history_fix_fused_kernel<0, false><<<tiles, block, 0, (cudaStream_t)stream>>>(x);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(2 * tiles.x, tiles.y);  // one CTA per (tile, signal)
-  history_fix_fused_kernel<1><<<grid, block, 0, (cudaStream_t)stream>>>(x);
+  if (sh)
+    history_fix_fused_kernel<1, true><<<grid, block, 0, (cudaStream_t)stream>>>(x);
+  else
+    history_fix_fused_kernel<1, false><<<grid, block, 0, (cudaStream_t)stream>>>(x);
   return (int)cudaGetLastError();
 }

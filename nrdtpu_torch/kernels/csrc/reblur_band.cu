@@ -26,6 +26,10 @@
 // (24x24 floats, clamp-to-edge) in shared memory, where the 3x3 and the 72-tap ring read it.
 // sig2, sig3 and the geometry stay in float32 scratch (the wrapper's), so every phase sees the
 // plain version's float32 values.
+// The SH variants (kSh; TPU reblur_band.py:512, :546, :631-634): each phase carries its
+// signal's SH1 as N5's and N4's SH modes do (reblur_filters.cuh:hf_filter, sh_luma_scale,
+// sf_filter), sh2 and sh3 in two more float32 scratch planes; the non-SH instances compile as
+// before.
 #include "reblur_filters.cuh"
 
 namespace {
@@ -46,6 +50,8 @@ struct BandArgs {
   const float* planes;     // (kBandPlanes, h, w)
   float* sig3;             // (2, h, w, 4) scratch: Blur output
   float* out;              // (2, h, w, 4) PostBlur output
+  float* sh3;              // (2, h, w, 4) scratch: the Blur's SH (kSh; sh2 is fix.sh_out)
+  float* out_sh;           // (2, h, w, 4) the PostBlur's SH (kSh)
   nrd::SfFrame sf;
   nrd::BlurConsts blur;
   nrd::StageConsts stage[2];  // Blur, PostBlur
@@ -61,8 +67,9 @@ __device__ __forceinline__ Cta cta() {
              (int)blockIdx.y * kTileY + (int)threadIdx.y};
 }
 
-// Blur (stage 0: sig2 -> sig3) or PostBlur (stage 1: sig3 -> out) of one signal
-template <int kTaps, bool kSpec>
+// Blur (stage 0: sig2 -> sig3) or PostBlur (stage 1: sig3 -> out) of one signal; kSh: its SH
+// too (sh2 -> sh3, sh3 -> out_sh)
+template <int kTaps, bool kSpec, bool kSh>
 __device__ __forceinline__ void blur_pixel(const BandArgs& a, int stage, int x, int y) {
   constexpr int s = kSpec ? 1 : 0;
   const nrd::HistoryFixArgs& fx = a.fix;
@@ -87,15 +94,22 @@ __device__ __forceinline__ void blur_pixel(const BandArgs& a, int stage, int x, 
   else
     nrd::diff_blur_params(a.blur, k, hit_dist, data1, __ldg(P + BP_HDS_DIFF * plane), c.fsz,
                           nov, c.nv.x, c.nv.y, prm);
-  float out[4];
-  nrd::sf_filter<kTaps, mode>(a.sf, c, prm, 1, fx.min_material[s], Image<float, 4>{src, w, h},
-                              nrd::UnpackedTaps{fx.geometry, nr}, out, nullptr);
+  float out[4], sh_out[4];
+  const float* sh_src = stage == 0 ? fx.sh_out[s] : a.sh3 + 4 * s * plane;
+  nrd::sf_filter<kTaps, mode, false, kSh>(a.sf, c, prm, 1, fx.min_material[s],
+                                          Image<float, 4>{src, w, h},
+                                          nrd::UnpackedTaps{fx.geometry, nr}, out, nullptr, 1.0f,
+                                          sh_src, sh_out);
   reinterpret_cast<float4*>(dst)[i] = make_float4(out[0], out[1], out[2], out[3]);
+  if constexpr (kSh) {
+    float* sh_dst = (stage == 0 ? a.sh3 : a.out_sh) + 4 * s * plane;
+    reinterpret_cast<float4*>(sh_dst)[i] = make_float4(sh_out[0], sh_out[1], sh_out[2], sh_out[3]);
+  }
 }
 
 // phase 0: the geometry; 1: the history fix and the clamp; 2: Blur; 3: PostBlur. kTaps: the
 // Poisson taps of phases 2 and 3 (8, or 6 in performance mode)
-template <int kPhase, int kTaps>
+template <int kPhase, int kTaps, bool kSh>
 __global__ void __launch_bounds__(kThreads, kPhase == 1 ? kFixCtas : kBlurCtas)
     reblur_band_kernel(BandArgs a) {
   const int w = a.fix.f.w, h = a.fix.f.h;
@@ -105,30 +119,50 @@ __global__ void __launch_bounds__(kThreads, kPhase == 1 ? kFixCtas : kBlurCtas)
     nrd::write_tap_geometry(const_cast<float4*>(a.fix.geometry), a.fix.nr, a.fix.view_z,
                             a.fix.f.view_z_scale, (size_t)y * w + x);
   } else if constexpr (kPhase == 1) {
-    nrd::history_fix_cta<nrd::kBothSignals>(a.fix);
+    nrd::history_fix_cta<nrd::kBothSignals, kSh>(a.fix);
   } else {
     const Cta t = cta();
     if (t.x >= w || t.y >= h) return;
     if (t.s == 0)
-      blur_pixel<kTaps, false>(a, kPhase - 2, t.x, t.y);
+      blur_pixel<kTaps, false, kSh>(a, kPhase - 2, t.x, t.y);
     else
-      blur_pixel<kTaps, true>(a, kPhase - 2, t.x, t.y);
+      blur_pixel<kTaps, true, kSh>(a, kPhase - 2, t.x, t.y);
   }
 }
 
 using Kernel = void (*)(BandArgs);
 
+// the four launches of one mode, in stream order
+template <bool kSh>
+cudaError_t launch(const BandArgs& a, int ntaps, dim3 tiles, dim3 grid, dim3 block,
+                   cudaStream_t st) {
+  const Kernel blur = ntaps == 8 ? reblur_band_kernel<2, 8, kSh> : reblur_band_kernel<2, 6, kSh>;
+  const Kernel post = ntaps == 8 ? reblur_band_kernel<3, 8, kSh> : reblur_band_kernel<3, 6, kSh>;
+  reblur_band_kernel<0, 8, false><<<tiles, block, 0, st>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  reblur_band_kernel<1, 8, kSh><<<grid, block, 0, st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  blur<<<grid, block, 0, st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  post<<<grid, block, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // ptrs: diff, spec, diff_data1, spec_data1, diff_fast, spec_fast, diff_params, spec_params,
-//       view_z, nr, planes, scratch (sig2, sig3, geometry), fast2, out
+//       view_z, nr, planes, scratch (sig2, sig3, geometry, and with SH sh2, sh3), fast2, out,
+//       diff_sh, spec_sh, out_sh (the last three SH only)
 // consts: frustum[4], rect_w, rect_h, rect_inv_w, rect_inv_h, view_z_scale, ortho_mode,
 //         diff_min_material, spec_min_material, diffuse ring (0 or 1), specular ring (0 or 1),
 //         ntaps (8 or 6), then reblur_band.py:band_consts: the clamp's frame divisor and
 //         fast-history flag, the fade's a and b - a, max and min blur radius, lobe angle
 //         fraction and 1 - it, encoding error, the Blur and PostBlur rotators, and per stage
 //         (Blur, PostBlur) fraction scale, radius scale, min hit-distance weight scale, scaled
-//         roughness fraction
+//         roughness fraction; then SH (0 or 1)
 extern "C" int nrd_reblur_band(void* const* p, const float* c, int w, int h, void* stream) {
   BandArgs a;
   nrd::HistoryFixArgs& x = a.fix;
@@ -151,6 +185,16 @@ extern "C" int nrd_reblur_band(void* const* p, const float* c, int w, int h, voi
     x.fast_out[s] = (float*)p[12] + (size_t)s * w * h;
   }
   a.out = (float*)p[13];
+  const bool sh = c[40] != 0.0f;
+  float* sh2 = sig2 + (size_t)5 * w * h * 4;  // after sig2, sig3 and the geometry
+  a.sh3 = sh2 + (size_t)2 * w * h * 4;
+  a.out_sh = (float*)p[16];
+  for (int s = 0; s < 2; ++s) {
+    x.sh[s] = (const float*)p[14 + s];
+    x.sh_out[s] = sh2 + (size_t)s * w * h * 4;
+  }
+  if (sh && (x.sh[0] == nullptr || x.sh[1] == nullptr || a.out_sh == nullptr))
+    return (int)cudaErrorInvalidValue;
 
   x.f.w = a.sf.w = w;
   x.f.h = a.sf.h = h;
@@ -194,17 +238,7 @@ extern "C" int nrd_reblur_band(void* const* p, const float* c, int w, int h, voi
   const dim3 block(kTileX, kTileY);
   const dim3 tiles((w + kTileX - 1) / kTileX, (h + kTileY - 1) / kTileY);
   const dim3 grid(2 * tiles.x, tiles.y);
-  const Kernel blur = ntaps == 8 ? reblur_band_kernel<2, 8> : reblur_band_kernel<2, 6>;
-  const Kernel post = ntaps == 8 ? reblur_band_kernel<3, 8> : reblur_band_kernel<3, 6>;
-  reblur_band_kernel<0, 8><<<tiles, block, 0, (cudaStream_t)stream>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  reblur_band_kernel<1, 8><<<grid, block, 0, (cudaStream_t)stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  blur<<<grid, block, 0, (cudaStream_t)stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  post<<<grid, block, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  return (int)(sh ? launch<true>(a, ntaps, tiles, grid, block, st)
+                  : launch<false>(a, ntaps, tiles, grid, block, st));
 }

@@ -160,13 +160,19 @@ __device__ __forceinline__ Centre sf_centre(const float* P, size_t plane,
 // hitDistForTracking, written to *hdt_out, with one PCG draw per tap from hash_init(pixel,
 // frame index), dead taps included). kCb, the checkerboard PrePass: the centre weighs
 // centre_weight (1 where the pixel has data, else 0) in the sum and in the accumulator; the
-// taps read the expanded signal. Returns the weight sum.
-template <int kTaps, SfMode kMode, bool kCb = false, typename Taps>
+// taps read the expanded signal. kSh, the SH variants: the signal's SH1 (sh, (h, w, 4)) rides
+// the taps, each tap's SH weighed by the tap's final weight and the centre by 1; the diffuse
+// mode sums all four channels, the specular modes three and keep the centre's .w
+// (nrdtpu/passes/reblur/kernels.py:870-877, :1751-1761, :2186-2193); written to sh_out. Returns
+// the weight sum.
+template <int kTaps, SfMode kMode, bool kCb = false, bool kSh = false, typename Taps>
 __device__ __forceinline__ float sf_filter(const SfFrame& f, const Centre& c, const float* P,
                                            size_t plane, float min_material,
                                            const Image<float, 4>& sig, const Taps& taps,
                                            float out[4], float* hdt_out,
-                                           float centre_weight = 1.0f) {
+                                           float centre_weight = 1.0f,
+                                           const float* sh = nullptr, float* sh_out = nullptr) {
+  static_assert(!(kCb && kSh), "the checkerboard PrePass takes no SH");
   constexpr bool spec = kMode != SfMode::kDiffuse, prepass = kMode == SfMode::kPrepass;
   const float r0 = P[SF_ROT0 * plane], r1 = P[SF_ROT1 * plane], r2 = P[SF_ROT2 * plane],
               r3 = P[SF_ROT3 * plane];
@@ -192,6 +198,15 @@ __device__ __forceinline__ float sf_filter(const SfFrame& f, const Centre& c, co
 #pragma unroll
     for (int k = 0; k < 4; ++k) acc[k] = acc[k] * centre_weight;
   }
+  const Image<float, 4> shi{sh, sig.w, sig.h};
+  float sacc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if constexpr (kSh) {
+    const float4 cs4 = shi.at4(c.x, c.y);
+    sacc[0] = cs4.x;
+    sacc[1] = cs4.y;
+    sacc[2] = cs4.z;
+    sacc[3] = cs4.w;
+  }
 
 #pragma unroll 1
   for (int t = 0; t < kTaps; ++t) {
@@ -207,6 +222,8 @@ __device__ __forceinline__ float sf_filter(const SfFrame& f, const Centre& c, co
     const float zs = g.z;
     const V3 xvs = reconstruct_view_position(us, vs, f.fr, zs, f.ortho);
     const float4 s_tap = sig.at4(sx, sy);  // issued before the weights, used where w_ != 0
+    float4 sh_tap = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if constexpr (kSh) sh_tap = shi.at4(sx, sy);
     float w_ = in_screen_nearest(us, vs);
     w_ = w_ * compute_weight(dot3(c.nv, xvs), c.ga, c.gb);
     w_ = w_ * (mat_c == fmaxf(g.material, min_material) ? 1.0f : 0.0f);
@@ -237,10 +254,22 @@ __device__ __forceinline__ float sf_filter(const SfFrame& f, const Centre& c, co
     sum = sum + w_;
 #pragma unroll
     for (int k = 0; k < 4; ++k) acc[k] = acc[k] + s[k] * w_;
+    if constexpr (kSh) {  // the SH where the final weight is non-zero, as the XLA loop selects
+      const float4 h4 = w_ != 0.0f ? sh_tap : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      sacc[0] = sacc[0] + h4.x * w_;
+      sacc[1] = sacc[1] + h4.y * w_;
+      sacc[2] = sacc[2] + h4.z * w_;
+      if constexpr (!spec) sacc[3] = sacc[3] + h4.w * w_;
+    }
   }
   const float inv = 1.0f / fmaxf(sum, 1e-15f);
 #pragma unroll
   for (int k = 0; k < 4; ++k) out[k] = acc[k] * inv;
+  if constexpr (kSh) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) sh_out[k] = sacc[k] * inv;
+    sh_out[3] = spec ? sacc[3] : sacc[3] * inv;  // specular: the centre's .w
+  }
   if constexpr (prepass) *hdt_out = hdt == 1e6f ? 0.0f : hdt;
   return sum;
 }
@@ -361,19 +390,33 @@ __device__ __forceinline__ void anti_firefly_moments(const Img& fast, int x, int
 
 // One signal's 20 stride taps (5x5 without centre and corners). P points at the pixel in the
 // signal's (5 | 9, h, w) planes; kSpec adds the relaxed roughness weight and the low-roughness
-// hitT guide. Writes the reconstructed signal, or the centre where the stride is 0.
-template <bool kSpec, typename Taps>
+// hitT guide. Writes the reconstructed signal, or the centre where the stride is 0. kSh, the SH
+// variants: the signal's SH1 (sh, (h, w, 4)) rides the taps, all four channels weighed by each
+// tap's final weight and the centre by 1 + its accumulation speed
+// (nrdtpu/passes/reblur/kernels.py:622, :671-675, :680-683: on the specular signal this
+// averages the TA's roughness in .w too), written to sh_out; where the stride is 0 it passes.
+template <bool kSpec, bool kSh = false, typename Taps>
 __device__ __forceinline__ void hf_filter(const HfFrame& f, const Centre& c, const float* P,
                                           size_t plane, float min_material,
                                           const Image<float, 4>& sig,
                                           const Image<float, 1>& data1, const Taps& taps,
-                                          float out[4]) {
+                                          float out[4], const float* sh = nullptr,
+                                          float* sh_out = nullptr) {
   const float stride = P[HF_STRIDE * plane];
   const float4 cs = sig.at4(c.x, c.y);
   const float center[4] = {cs.x, cs.y, cs.z, cs.w};
+  const Image<float, 4> shi{sh, sig.w, sig.h};
+  float4 shc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if constexpr (kSh) shc = shi.at4(c.x, c.y);
   if (stride == 0.0f) {  // converged history: the signal passes through
 #pragma unroll
     for (int k = 0; k < 4; ++k) out[k] = center[k];
+    if constexpr (kSh) {
+      sh_out[0] = shc.x;
+      sh_out[1] = shc.y;
+      sh_out[2] = shc.z;
+      sh_out[3] = shc.w;
+    }
     return;
   }
   const float nwp = P[HF_NWP * plane], ha = P[HF_HA * plane], hb = P[HF_HB * plane];
@@ -392,6 +435,7 @@ __device__ __forceinline__ void hf_filter(const HfFrame& f, const Centre& c, con
   float acc[4];
 #pragma unroll
   for (int k = 0; k < 4; ++k) acc[k] = center[k] * sum;
+  float sacc[4] = {shc.x * sum, shc.y * sum, shc.z * sum, shc.w * sum};
 
   for (int j = -2; j <= 2; ++j)
     for (int k = -2; k <= 2; ++k) {
@@ -404,6 +448,8 @@ __device__ __forceinline__ void hf_filter(const HfFrame& f, const Centre& c, con
       const TapGeometry g = taps.at(px, py);
       const V3 xvs = reconstruct_view_position(us, vs, f.fr, g.z, f.ortho);
       const float4 s_tap = sig.at4(px, py);  // issued before the weights
+      float4 sh_tap = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if constexpr (kSh) sh_tap = shi.at4(px, py);
       float w_ = in_screen_nearest(us, vs);
       w_ = w_ * compute_weight(dot3(c.nv, xvs), c.ga, c.gb);
       w_ = w_ * (mat_c == fmaxf(g.material, min_material) ? 1.0f : 0.0f);
@@ -426,10 +472,21 @@ __device__ __forceinline__ void hf_filter(const HfFrame& f, const Centre& c, con
       sum = sum + w_;
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[q] = acc[q] + s[q] * w_;
+      if constexpr (kSh) {  // where the final weight is non-zero, as the XLA loop selects
+        const float4 h4 = w_ != 0.0f ? sh_tap : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        sacc[0] = sacc[0] + h4.x * w_;
+        sacc[1] = sacc[1] + h4.y * w_;
+        sacc[2] = sacc[2] + h4.z * w_;
+        sacc[3] = sacc[3] + h4.w * w_;
+      }
     }
   const float inv = 1.0f / fmaxf(sum, 1e-15f);
 #pragma unroll
   for (int q = 0; q < 4; ++q) out[q] = acc[q] * inv;
+  if constexpr (kSh) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) sh_out[q] = sacc[q] * inv;
+  }
 }
 
 // ---------------------------------------------------------------------------------------
@@ -482,14 +539,15 @@ __device__ __forceinline__ void roughness_weight_params(float roughness, float f
 
 // the history fix's clamp (params.py:history_fix_clamp) of one signal, in place: the
 // fast-history mix, the anti-firefly clamp to the ring's moments (ring), the clamp to the
-// 3x3 moments, ChangeLuma. smc: the specular magic curve (spec only).
+// 3x3 moments, ChangeLuma. smc: the specular magic curve (spec only). Returns the clamped
+// luma, which the SH variants' SH1 is scaled to (sh_luma_scale).
 struct HfClampConsts {
   float frame_div, fast_enabled;  // historyFixFrameNum + NRD_EPS; 1 if the fast history is on
 };
 
-__device__ __forceinline__ void hf_clamp(const HfClampConsts& k, float sig[4], float frame_num,
-                                         float fast, float m1, float m2, bool ring, float am1,
-                                         float am2, bool spec, float smc, float* fast_out) {
+__device__ __forceinline__ float hf_clamp(const HfClampConsts& k, float sig[4], float frame_num,
+                                          float fast, float m1, float m2, bool ring, float am1,
+                                          float am2, bool spec, float smc, float* fast_out) {
   float f = saturate(frame_num / k.frame_div);
   if (spec) f = 1.0f + (f - 1.0f) * smc;
   float luma = sig[0];
@@ -504,6 +562,16 @@ __device__ __forceinline__ void hf_clamp(const HfClampConsts& k, float sig[4], f
   const float scale = (luma + (float)1e-6) / (sig[0] + (float)1e-6);
 #pragma unroll
   for (int q = 0; q < 3; ++q) sig[q] = sig[q] * scale;
+  return luma;
+}
+
+// the SH variants' luma rule (nrdtpu/passes/reblur/kernels.py:493-495, :729-731): SH1's .xyz
+// scaled by get_luma_scale(length(.xyz), luma), .w kept
+__device__ __forceinline__ void sh_luma_scale(float sh[4], float luma) {
+  const float len = sqrtf(fmaxf(sh[0] * sh[0] + sh[1] * sh[1] + sh[2] * sh[2], 0.0f));
+  const float scale = (luma + (float)1e-6) / (len + (float)1e-6);
+#pragma unroll
+  for (int q = 0; q < 3; ++q) sh[q] = sh[q] * scale;
 }
 
 // The Blur / PostBlur parameters of one signal (params.py:diff_spatial_params,
@@ -751,6 +819,8 @@ struct HistoryFixArgs {
   const float4* geometry;  // (h, w) the taps' unpacked normal and scaled viewZ
   float* out[2];           // (h, w, 4) the clamped signals
   float* fast_out[2];      // (h, w) the fast histories after the mix
+  const float* sh[2];      // (h, w, 4) the signals' SH1 (the SH variants)
+  float* sh_out[2];        // (h, w, 4) their history fix, scaled to the clamped luma
   float min_material[2];
   bool anti_firefly[2];
   HfFrame f;
@@ -768,8 +838,8 @@ struct FastWindow {
 };
 
 // one pixel: the 3x3 (and ring) moments from the window, the stride taps (their geometry from
-// the plane), the clamp
-template <bool kSpec>
+// the plane), the clamp; kSh: the SH1 through the taps and scaled to the clamped luma
+template <bool kSpec, bool kSh>
 __device__ __forceinline__ void history_fix_pixel(const HistoryFixArgs& a, const FastWindow& win,
                                                   int x, int y) {
   constexpr int s = kSpec ? 1 : 0;
@@ -780,22 +850,26 @@ __device__ __forceinline__ void history_fix_pixel(const HistoryFixArgs& a, const
   float m1, m2, am1 = 0.0f, am2 = 0.0f;
   fast_moments(win, x, y, &m1, &m2);
   if (a.anti_firefly[s]) anti_firefly_moments(win, x, y, &am1, &am2);
-  float sig[4];
-  hf_filter<kSpec>(a.f, c, a.params[s] + i, plane, a.min_material[s],
-                   Image<float, 4>{a.signal[s], w, h}, Image<float, 1>{a.data1[s], w, h},
-                   UnpackedTaps{a.geometry, nr}, sig);
+  float sig[4], sh[4];
+  hf_filter<kSpec, kSh>(a.f, c, a.params[s] + i, plane, a.min_material[s],
+                        Image<float, 4>{a.signal[s], w, h}, Image<float, 1>{a.data1[s], w, h},
+                        UnpackedTaps{a.geometry, nr}, sig, a.sh[s], sh);
   const float smc = kSpec ? __ldg(a.smc + i) : 0.0f;
   float fast_out;
-  hf_clamp(a.clamp, sig, __ldg(a.data1[s] + i), win.at(x, y, 0), m1, m2, a.anti_firefly[s], am1,
-           am2, kSpec, smc, &fast_out);
+  const float luma = hf_clamp(a.clamp, sig, __ldg(a.data1[s] + i), win.at(x, y, 0), m1, m2,
+                              a.anti_firefly[s], am1, am2, kSpec, smc, &fast_out);
   reinterpret_cast<float4*>(a.out[s])[i] = make_float4(sig[0], sig[1], sig[2], sig[3]);
   a.fast_out[s][i] = fast_out;
+  if constexpr (kSh) {
+    sh_luma_scale(sh, luma);
+    reinterpret_cast<float4*>(a.sh_out[s])[i] = make_float4(sh[0], sh[1], sh[2], sh[3]);
+  }
 }
 
 // kSig: the CTA's signal (0 diffuse, 1 specular), or kBothSignals: the low bit of blockIdx.x,
 // so that the two CTAs of a tile run side by side and share the centre's planes in L2. Every
-// thread stages the window, then the threads outside the image leave.
-template <int kSig>
+// thread stages the window, then the threads outside the image leave. kSh: the SH variants.
+template <int kSig, bool kSh = false>
 __device__ __forceinline__ void history_fix_cta(const HistoryFixArgs& a) {
   static_assert(kSig == kBothSignals || kSig == 0 || kSig == 1, "a signal, or both");
   constexpr bool kBoth = kSig == kBothSignals;
@@ -812,9 +886,9 @@ __device__ __forceinline__ void history_fix_cta(const HistoryFixArgs& a) {
   const int x = x0 + (int)threadIdx.x, y = y0 + (int)threadIdx.y;
   if (x >= a.f.w || y >= a.f.h) return;
   if (s == 0)
-    history_fix_pixel<false>(a, win, x, y);
+    history_fix_pixel<false, kSh>(a, win, x, y);
   else
-    history_fix_pixel<true>(a, win, x, y);
+    history_fix_pixel<true, kSh>(a, win, x, y);
 }
 
 }  // namespace nrd

@@ -2,11 +2,15 @@
 // Replaces nrdtpu/kernels/reblur_pallas.py:577 reblur_smb_resolve; computes the gathers of
 // nrdtpu/passes/reblur/kernels.py:142-249 and :451-456 per pixel. With two signals
 // (REBLUR_DIFFUSE_SPECULAR) one launch resolves the footprint once and samples both signals'
-// histories, fast histories and accumulation planes with the same weights. The plain version
-// is nrdtpu_torch/kernels/smb_resolve.py:smb_resolve_ref.
+// histories, fast histories and accumulation planes with the same weights. With the SH
+// variants (kSh) each signal's bf16 SH history is sampled as its fast history is: the
+// occlusion-weighted custom bilinear at the footprint's 2x2, never the CatRom (JAX's
+// sample_history_bilinear, nrdtpu/passes/reblur/kernels.py:473-476, :1489-1491; the TPU
+// kernel's bil_planes, nrdtpu/kernels/reblur_pallas.py:580, :605). The plain version is
+// nrdtpu_torch/kernels/smb_resolve.py:smb_resolve_ref.
 //
 // Design for the H100: one thread per pixel in 16x16 CTAs, one instance per signal count
-// <kNSig>, at most kMinCtas' register budget. Bound by its gathers:
+// <kNSig, kSh>, at most kMinCtas' register budget. Bound by its gathers:
 //   - the current 2x2 normal average reads each current texel 4 times: each CTA first stages
 //     its 17x17 window (the tile, the row above and the column to its left) in shared memory,
 //     each texel's packed normal read as one float4 and decoded once;
@@ -20,7 +24,9 @@
 //     where its bilinear weight is non-zero. The 5 samples keep their order (summing the 12
 //     texels directly moves values outside the tolerance where the history's second moment
 //     cancels, PERF.md);
-//   - each history written as one float4.
+//   - each history written as one float4;
+//   - kSh: each SH history's 2x2 as four 8-byte loads (common.cuh:bilinear_custom4, K16's),
+//     widened to float, written as one float4. The non-SH instances compile as before.
 #include "common.cuh"
 
 namespace {
@@ -47,12 +53,14 @@ struct SmbArgs {
   float* out_planes;        // (3 + 2 nsig, h, w): fbits, allow_catrom, footprint_raw,
                             // accum, fast [, accum and fast of the second signal]
   float* out_navg;          // (2, h, w, 3): current n_avg, previous smb_navg (rotated)
+  const uint2* sh[2];       // (h, w, 4) bf16 SH history of each signal (kSh)
+  float* out_sh;            // (nsig, h, w, 4) (kSh)
   int w, h;
   float view_z_scale, denoising_range, rect_prev_w, rect_prev_h, min_material;
   float m[9];               // world_prev_to_world rotation, row-major
 };
 
-template <int kNSig>
+template <int kNSig, bool kSh>
 __global__ void __launch_bounds__(256, kMinCtas) smb_resolve_kernel(SmbArgs a) {
   // every thread of the CTA stages, then the ones outside the image leave
   __shared__ float4 win[kWin * kWin];  // (unpacked normal, packed material)
@@ -180,6 +188,9 @@ __global__ void __launch_bounds__(256, kMinCtas) smb_resolve_kernel(SmbArgs a) {
     out_hist[s * plane + i] = hist[s];
     a.out_planes[(3 + 2 * s) * plane + i] = das;
     a.out_planes[(4 + 2 * s) * plane + i] = fast;
+    if constexpr (kSh)
+      reinterpret_cast<float4*>(a.out_sh)[s * plane + i] =
+          nrd::bilinear_custom4(a.sh[s], a.w, a.h, fx0, fy0, ow);
   }
   float* nv = a.out_navg + 3 * i;
   nv[0] = n_avg.x;
@@ -198,9 +209,10 @@ extern "C" const char* nrd_error_string(int err) {
 }
 
 // ptrs: smb_uv, xv_prev_z, base_thr, navg_thr, nr, prev_vz, prev_nr, prev_mat, accum,
-//       hist, fast, out_hist, out_planes, out_navg [, accum, hist, fast of a second signal]
+//       hist, fast, out_hist, out_planes, out_navg, accum, hist, fast of a second signal (null
+//       with one), out_sh, the SH history of each signal (bf16; null without SH)
 // consts: view_z_scale, denoising_range, rect_prev_w, rect_prev_h, min_material, m[9],
-//         signal count (1 or 2)
+//         signal count (1 or 2), SH (0 or 1)
 extern "C" int nrd_smb_resolve(void* const* p, const float* c, int w, int h, void* stream) {
   SmbArgs a;
   a.smb_uv = (const float*)p[0];
@@ -230,11 +242,19 @@ extern "C" int nrd_smb_resolve(void* const* p, const float* c, int w, int h, voi
   a.rect_prev_h = c[3];
   a.min_material = c[4];
   for (int k = 0; k < 9; ++k) a.m[k] = c[5 + k];
+  const bool sh = c[15] != 0.0f;
+  a.out_sh = (float*)p[17];
+  for (int s = 0; s < 2; ++s) a.sh[s] = (const uint2*)p[18 + (s < nsig ? s : 0)];
+  if (sh && (a.out_sh == nullptr || a.sh[0] == nullptr || a.sh[nsig - 1] == nullptr))
+    return (int)cudaErrorInvalidValue;
   const dim3 block(nrd::kBlock, nrd::kBlock);
   const dim3 grid((w + nrd::kBlock - 1) / nrd::kBlock, (h + nrd::kBlock - 1) / nrd::kBlock);
-  if (nsig == 1)
-    smb_resolve_kernel<1><<<grid, block, 0, (cudaStream_t)stream>>>(a);
-  else
-    smb_resolve_kernel<2><<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (nsig * 2 + (sh ? 1 : 0)) {
+    case 2: smb_resolve_kernel<1, false><<<grid, block, 0, st>>>(a); break;
+    case 4: smb_resolve_kernel<2, false><<<grid, block, 0, st>>>(a); break;
+    case 3: smb_resolve_kernel<1, true><<<grid, block, 0, st>>>(a); break;
+    default: smb_resolve_kernel<2, true><<<grid, block, 0, st>>>(a); break;
+  }
   return (int)cudaGetLastError();
 }

@@ -24,6 +24,9 @@
 // cb_neighbor_resolve, as NRD's PrePass shader does (the JAX package does it as glue after the
 // TPU kernel, nrdtpu/passes/reblur/kernels.py:1682-1684, :2122-2128). The non-cb instances
 // compile as before.
+// The SH variants are a template parameter before kCb (kSh, every stage, no checkerboard): the
+// signal's SH1 rides sf_filter's taps with each tap's final weight (reblur_filters.cuh); the
+// non-SH instances compile as before.
 #include "reblur_filters.cuh"
 
 namespace {
@@ -40,6 +43,8 @@ struct SfArgs {
   const float4* geometry;  // (h, w) the taps' unpacked normal and scaled viewZ (not PrePass)
   float* out;              // (h, w, 4)
   float* hdt;              // (h, w) hitDistForTracking, specular PrePass only
+  const float* sh;         // (h, w, 4) the signal's SH1 (kSh)
+  float* out_sh;           // (h, w, 4) (kSh)
   float min_material, prepass_radius;
   nrd::CbConsts cb;  // the checkerboard PrePass only
   nrd::SfFrame f;
@@ -48,7 +53,7 @@ struct SfArgs {
   nrd::StageConsts stage;
 };
 
-template <int kTaps, bool kSpec, bool kPrepass, bool kCb>
+template <int kTaps, bool kSpec, bool kPrepass, bool kSh, bool kCb>
 __global__ void __launch_bounds__(256, kMinCtas) spatial_filter_kernel(SfArgs a) {
   static_assert(!kCb || kPrepass, "the checkerboard mode is the PrePass's");
   constexpr nrd::SfMode mode = !kSpec ? nrd::SfMode::kDiffuse
@@ -95,41 +100,50 @@ __global__ void __launch_bounds__(256, kMinCtas) spatial_filter_kernel(SfArgs a)
   c.fsz = g.fsz;
   c.n = g.n;
   c.nv = g.nv;
-  float out[4];
+  float out[4], sh_out[4];
   float* const hdt = kSpec && kPrepass ? a.hdt + i : nullptr;
   if constexpr (kPrepass) {
     const nrd::PackedTaps taps{nr, Image<float, 1>{a.view_z, a.f.w, a.f.h}, a.f.view_z_scale};
     const float sum =
-        nrd::sf_filter<kTaps, mode, kCb>(a.f, c, prm, 1, a.min_material, sig, taps, out, hdt,
-                                         has_data);
+        nrd::sf_filter<kTaps, mode, kCb, kSh>(a.f, c, prm, 1, a.min_material, sig, taps, out,
+                                              hdt, has_data, a.sh, sh_out);
     if constexpr (kCb)
       if (sum == 0.0f)
         nrd::cb_neighbor_resolve(sig, taps, x, y, g.view_z, g.fsz, g.nov, a.cb.denoising_range,
                                  out);
   } else
-    nrd::sf_filter<kTaps, mode>(a.f, c, prm, 1, a.min_material, sig,
-                                nrd::UnpackedTaps{a.geometry, nr}, out, hdt);
+    nrd::sf_filter<kTaps, mode, false, kSh>(a.f, c, prm, 1, a.min_material, sig,
+                                            nrd::UnpackedTaps{a.geometry, nr}, out, hdt, 1.0f,
+                                            a.sh, sh_out);
   reinterpret_cast<float4*>(a.out)[i] = make_float4(out[0], out[1], out[2], out[3]);
+  if constexpr (kSh)
+    reinterpret_cast<float4*>(a.out_sh)[i] =
+        make_float4(sh_out[0], sh_out[1], sh_out[2], sh_out[3]);
 }
 
 using Kernel = void (*)(SfArgs);
 
-template <int kTaps>
-Kernel pick(bool spec, bool prepass, bool cb) {
-  if (prepass && cb)
-    return spec ? spatial_filter_kernel<kTaps, true, true, true>
-                : spatial_filter_kernel<kTaps, false, true, true>;
+template <int kTaps, bool kSh>
+Kernel pick_stage(bool spec, bool prepass) {
   if (prepass)
-    return spec ? spatial_filter_kernel<kTaps, true, true, false>
-                : spatial_filter_kernel<kTaps, false, true, false>;
-  return spec ? spatial_filter_kernel<kTaps, true, false, false>
-              : spatial_filter_kernel<kTaps, false, false, false>;
+    return spec ? spatial_filter_kernel<kTaps, true, true, kSh, false>
+                : spatial_filter_kernel<kTaps, false, true, kSh, false>;
+  return spec ? spatial_filter_kernel<kTaps, true, false, kSh, false>
+              : spatial_filter_kernel<kTaps, false, false, kSh, false>;
+}
+
+template <int kTaps>
+Kernel pick(bool spec, bool prepass, bool cb, bool sh) {
+  if (prepass && cb)
+    return spec ? spatial_filter_kernel<kTaps, true, true, false, true>
+                : spatial_filter_kernel<kTaps, false, true, false, true>;
+  return sh ? pick_stage<kTaps, true>(spec, prepass) : pick_stage<kTaps, false>(spec, prepass);
 }
 
 }  // namespace
 
 // ptrs: signal, view_z, nr, data1 and geometry (null in the PrePass), out, hdt (specular
-//       PrePass only)
+//       PrePass only), sh and out_sh (SH only)
 // consts (spatial_filter.py:launch_consts): frustum[4], rect_w, rect_h, rect_inv_w,
 //         rect_inv_h, view_z_scale, ortho_mode, world_to_view[3][3], min_rect_dim_mul_unproject,
 //         unproject, plane_dist_sensitivity, hit-distance params[4], lobe angle fraction and
@@ -138,7 +152,8 @@ Kernel pick(bool spec, bool prepass, bool cb) {
 //         hit-distance weight scale and scaled roughness fraction, min material, ntaps (8 or
 //         6), stage (0 PrePass, 1 Blur, 2 PostBlur), specular (0 or 1),
 //         use_prepass_not_only, frame index low 16 bits, high 16 bits, the checkerboard's
-//         has-data parity (-1: off; PrePass only), denoising range
+//         has-data parity (-1: off; PrePass only), denoising range, SH (0 or 1; not with the
+//         checkerboard)
 extern "C" int nrd_spatial_filter(void* const* p, const float* c, int w, int h, void* stream) {
   SfArgs a;
   a.signal = (const float*)p[0];
@@ -148,6 +163,8 @@ extern "C" int nrd_spatial_filter(void* const* p, const float* c, int w, int h, 
   a.geometry = (const float4*)p[4];
   a.out = (float*)p[5];
   a.hdt = (float*)p[6];
+  a.sh = (const float*)p[7];
+  a.out_sh = (float*)p[8];
   a.f.w = w;
   a.f.h = h;
   for (int k = 0; k < 4; ++k) a.f.fr[k] = c[k];
@@ -185,14 +202,16 @@ extern "C" int nrd_spatial_filter(void* const* p, const float* c, int w, int h, 
   a.cb.parity = (int)c[49];
   a.cb.denoising_range = c[50];
   const bool cb = a.cb.parity >= 0;
+  const bool sh = c[51] != 0.0f;
   if ((ntaps != 8 && ntaps != 6) || stage < 0 || stage > 2 || a.cb.parity > 1 ||
-      (cb && !prepass) ||
+      (cb && !prepass) || (sh && (cb || a.sh == nullptr || a.out_sh == nullptr)) ||
       (!prepass && (a.data1 == nullptr || a.geometry == nullptr)) ||
       (spec && prepass && a.hdt == nullptr))
     return (int)cudaErrorInvalidValue;
   const dim3 block(nrd::kBlock, nrd::kBlock);
   const dim3 grid((w + nrd::kBlock - 1) / nrd::kBlock, (h + nrd::kBlock - 1) / nrd::kBlock);
-  const Kernel kernel = ntaps == 8 ? pick<8>(spec, prepass, cb) : pick<6>(spec, prepass, cb);
+  const Kernel kernel =
+      ntaps == 8 ? pick<8>(spec, prepass, cb, sh) : pick<6>(spec, prepass, cb, sh);
   kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

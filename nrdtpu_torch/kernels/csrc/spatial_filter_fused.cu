@@ -23,6 +23,9 @@
 // 0 the kernel writes reblur_filters.cuh's cb_neighbor_resolve of that signal, computing the
 // centre's scaled viewZ, frustum size and nov as filter_geometry does, from the shared
 // view-space normal (JAX does this as glue after K2, nrdtpu/passes/reblur/kernels.py:1977-1986).
+// The SH variants (kSh, no checkerboard): each signal's SH1 rides its taps with each tap's final
+// weight (reblur_filters.cuh:sf_filter; TPU reblur_fused.py:775-777, :804); the non-SH
+// instances compile as before.
 #include "reblur_filters.cuh"
 
 namespace {
@@ -41,6 +44,8 @@ struct SffArgs {
   const float4* geometry;    // (h, w) the taps' unpacked normal and scaled viewZ; null in PrePass
   float* out;                // (2, h, w, 4): diffuse, specular
   float* hdt;                // (h, w) hitDistForTracking, PrePass only
+  const float* sh[2];        // (h, w, 4) each signal's SH1 (kSh)
+  float* out_sh;             // (2, h, w, 4) (kSh)
   float min_material[2];
   float min_rect_dim_mul_unproject;  // the checkerboard PrePass's fallback only
   nrd::CbConsts cb;
@@ -63,7 +68,7 @@ __device__ __forceinline__ void cb_centre(const SffArgs& a, const nrd::Centre& c
   *fsz = a.min_rect_dim_mul_unproject * (*z + (1.0f - *z) * fabsf(a.f.ortho));
 }
 
-template <int kTaps, SfMode kSpecMode, bool kCb, typename Taps>
+template <int kTaps, SfMode kSpecMode, bool kCb, bool kSh, typename Taps>
 __device__ __forceinline__ void filter_pixel(const SffArgs& a, const Taps& taps, int s, int x,
                                              int y) {
   const size_t i = (size_t)y * a.f.w + x;
@@ -72,16 +77,16 @@ __device__ __forceinline__ void filter_pixel(const SffArgs& a, const Taps& taps,
   const nrd::Centre c = nrd::sf_centre(a.shared + i, plane, nr, x, y);
   const Image<float, 4> sig{a.signal[s], a.f.w, a.f.h};
   const float has_data = kCb ? nrd::cb_has_data(x, y, a.f.frame_index, a.cb.parity) : 1.0f;
-  float out[4];
+  float out[4], sh_out[4];
   float sum;
   if (s == 0)
-    sum = nrd::sf_filter<kTaps, SfMode::kDiffuse, kCb>(a.f, c, a.params[0] + i, plane,
-                                                       a.min_material[0], sig, taps, out,
-                                                       nullptr, has_data);
+    sum = nrd::sf_filter<kTaps, SfMode::kDiffuse, kCb, kSh>(a.f, c, a.params[0] + i, plane,
+                                                            a.min_material[0], sig, taps, out,
+                                                            nullptr, has_data, a.sh[0], sh_out);
   else
-    sum = nrd::sf_filter<kTaps, kSpecMode, kCb>(a.f, c, a.params[1] + i, plane,
-                                                a.min_material[1], sig, taps, out, a.hdt + i,
-                                                has_data);
+    sum = nrd::sf_filter<kTaps, kSpecMode, kCb, kSh>(a.f, c, a.params[1] + i, plane,
+                                                     a.min_material[1], sig, taps, out,
+                                                     a.hdt + i, has_data, a.sh[1], sh_out);
   if constexpr (kCb) {
     if (sum == 0.0f) {
       float z, fsz, nov;
@@ -90,9 +95,12 @@ __device__ __forceinline__ void filter_pixel(const SffArgs& a, const Taps& taps,
     }
   }
   reinterpret_cast<float4*>(a.out)[s * plane + i] = make_float4(out[0], out[1], out[2], out[3]);
+  if constexpr (kSh)
+    reinterpret_cast<float4*>(a.out_sh)[s * plane + i] =
+        make_float4(sh_out[0], sh_out[1], sh_out[2], sh_out[3]);
 }
 
-template <int kTaps, bool kPrepass, bool kCb>
+template <int kTaps, bool kPrepass, bool kSh, bool kCb>
 __global__ void __launch_bounds__(256, kSfCtas) spatial_filter_fused_kernel(SffArgs a) {
   static_assert(!kCb || kPrepass, "the checkerboard mode is the PrePass's");
   const int s = (int)(blockIdx.x & 1u);
@@ -101,29 +109,33 @@ __global__ void __launch_bounds__(256, kSfCtas) spatial_filter_fused_kernel(SffA
   if (x >= a.f.w || y >= a.f.h) return;
   const Image<float, 4> nr{a.nr, a.f.w, a.f.h};
   if constexpr (kPrepass)
-    filter_pixel<kTaps, SfMode::kPrepass, kCb>(
+    filter_pixel<kTaps, SfMode::kPrepass, kCb, kSh>(
         a, nrd::PackedTaps{nr, Image<float, 1>{a.view_z, a.f.w, a.f.h}, a.f.view_z_scale}, s, x,
         y);
   else
-    filter_pixel<kTaps, SfMode::kSpec, false>(a, nrd::UnpackedTaps{a.geometry, nr}, s, x, y);
+    filter_pixel<kTaps, SfMode::kSpec, false, kSh>(a, nrd::UnpackedTaps{a.geometry, nr}, s, x,
+                                                    y);
 }
 
 using Kernel = void (*)(SffArgs);
 
 template <int kTaps>
-Kernel pick(bool prepass, bool cb) {
-  if (prepass)
-    return cb ? spatial_filter_fused_kernel<kTaps, true, true>
-              : spatial_filter_fused_kernel<kTaps, true, false>;
-  return spatial_filter_fused_kernel<kTaps, false, false>;
+Kernel pick(bool prepass, bool cb, bool sh) {
+  if (prepass && cb) return spatial_filter_fused_kernel<kTaps, true, false, true>;
+  if (sh)
+    return prepass ? spatial_filter_fused_kernel<kTaps, true, true, false>
+                   : spatial_filter_fused_kernel<kTaps, false, true, false>;
+  return prepass ? spatial_filter_fused_kernel<kTaps, true, false, false>
+                 : spatial_filter_fused_kernel<kTaps, false, false, false>;
 }
 
 }  // namespace
 
 // ptrs: diff, spec, view_z, nr, shared, diff_params, spec_params, geometry (null in PrePass
-//       mode, required otherwise), out, hdt
+//       mode, required otherwise), out, hdt, diff_sh, spec_sh, out_sh (the last three SH only)
 // consts: frustum[4], rect_w, rect_h, view_z_scale, ortho_mode, diff_min_material,
-//         spec_min_material, ntaps (8 or 6), spec nparams; in PrePass mode also hit-distance
+//         spec_min_material, ntaps (8 or 6), spec nparams, SH (0 or 1); in PrePass mode also
+//         hit-distance
 //         params[4], use_prepass_not_only, frame index low 16 bits, high 16 bits, the
 //         checkerboard's has-data parity (-1: off), denoising range,
 //         min_rect_dim_mul_unproject
@@ -140,6 +152,9 @@ extern "C" int nrd_spatial_filter_fused(void* const* p, const float* c, int w, i
   a.geometry = (const float4*)p[7];
   a.out = (float*)p[8];
   a.hdt = (float*)p[9];
+  a.sh[0] = (const float*)p[10];
+  a.sh[1] = (const float*)p[11];
+  a.out_sh = (float*)p[12];
   a.f.w = w;
   a.f.h = h;
   for (int k = 0; k < 4; ++k) a.f.fr[k] = c[k];
@@ -156,22 +171,26 @@ extern "C" int nrd_spatial_filter_fused(void* const* p, const float* c, int w, i
       (spec_nparams != nrd::kSfSpecParams && spec_nparams != nrd::kSfPrepassParams))
     return (int)cudaErrorInvalidValue;
   const bool prepass = spec_nparams == nrd::kSfPrepassParams;
-  if (prepass != (a.geometry == nullptr)) return (int)cudaErrorInvalidValue;
+  const bool sh = c[12] != 0.0f;
+  if (prepass != (a.geometry == nullptr) ||
+      (sh && (a.sh[0] == nullptr || a.sh[1] == nullptr || a.out_sh == nullptr)))
+    return (int)cudaErrorInvalidValue;
   for (int k = 0; k < 4; ++k) a.f.hdp[k] = 0.0f;
   a.f.use_prepass_not_only = 0.0f;
   a.f.frame_index = 0;
   a.cb = nrd::CbConsts{-1, 0.0f};
   a.min_rect_dim_mul_unproject = 0.0f;
   if (prepass) {
-    for (int k = 0; k < 4; ++k) a.f.hdp[k] = c[12 + k];
-    a.f.use_prepass_not_only = c[16];
-    a.f.frame_index = (uint32_t)c[17] | ((uint32_t)c[18] << 16);
-    a.cb = nrd::CbConsts{(int)c[19], c[20]};
-    a.min_rect_dim_mul_unproject = c[21];
+    for (int k = 0; k < 4; ++k) a.f.hdp[k] = c[13 + k];
+    a.f.use_prepass_not_only = c[17];
+    a.f.frame_index = (uint32_t)c[18] | ((uint32_t)c[19] << 16);
+    a.cb = nrd::CbConsts{(int)c[20], c[21]};
+    a.min_rect_dim_mul_unproject = c[22];
   }
   if (a.cb.parity > 1) return (int)cudaErrorInvalidValue;
   const bool cb = a.cb.parity >= 0;
-  const Kernel kernel = ntaps == 8 ? pick<8>(prepass, cb) : pick<6>(prepass, cb);
+  if (cb && sh) return (int)cudaErrorInvalidValue;
+  const Kernel kernel = ntaps == 8 ? pick<8>(prepass, cb, sh) : pick<6>(prepass, cb, sh);
   const dim3 block(nrd::kBlock, nrd::kBlock);
   const dim3 tiles((w + nrd::kBlock - 1) / nrd::kBlock, (h + nrd::kBlock - 1) / nrd::kBlock);
   const dim3 grid(2 * tiles.x, tiles.y);  // one CTA per (tile, signal)

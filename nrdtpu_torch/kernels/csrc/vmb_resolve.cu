@@ -1,8 +1,17 @@
 // N3: virtual-motion footprint resolve + specular history sampling (REBLUR specular TA).
 // Replaces nrdtpu/kernels/reblur_pallas.py:779 reblur_vmb_resolve; computes the gathers of
 // nrdtpu/passes/reblur/kernels.py:1163-1174, :1272-1310, :1338-1340 and :1457-1462 per
-// pixel. The plain version is nrdtpu_torch/kernels/vmb_resolve.py:vmb_resolve_ref.
-// One thread per pixel.
+// pixel. With the SH variants (kSh) also the bf16 specular SH history, bilinear with the
+// virtual-motion occlusion weights at the footprint's 2x2, as the fast history, never the
+// CatRom (nrdtpu/passes/reblur/kernels.py:1491-1494; the TPU kernel's n_sh,
+// nrdtpu/kernels/reblur_pallas.py:800, :829-830). The plain version is
+// nrdtpu_torch/kernels/vmb_resolve.py:vmb_resolve_ref.
+// One thread per pixel. The body is a device template <kSh> under two kernels: the SH kernel
+// takes the SH history and its output as kernel parameters beside VmbArgs, not as fields of it
+// (two more fields in VmbArgs moved the non-SH kernel from 63 to 71 registers, 3 CTAs an SM,
+// and from 1620 to 1441 SASS instructions: ptxas on the H100, PERF.md), so that the non-SH
+// kernel compiles as before. The SH history's 2x2 is four 8-byte loads
+// (common.cuh:bilinear_custom4), written as one float4.
 #include "common.cuh"
 
 namespace {
@@ -28,7 +37,9 @@ struct VmbArgs {
   float view_z_scale, ortho, rect_prev_w, rect_prev_h, min_material, res_scale_x, res_scale_y;
 };
 
-__global__ void __launch_bounds__(256) vmb_resolve_kernel(VmbArgs a) {
+template <bool kSh>
+__device__ __forceinline__ void vmb_resolve_body(const VmbArgs& a, const uint2* sh,
+                                                 float* out_sh) {
   const int x = blockIdx.x * nrd::kBlock + threadIdx.x;
   const int y = blockIdx.y * nrd::kBlock + threadIdx.y;
   if (x >= a.w || y >= a.h) return;
@@ -85,8 +96,10 @@ __global__ void __launch_bounds__(256) vmb_resolve_kernel(VmbArgs a) {
   float hist[4];
   nrd::sample_catrom(Image<__nv_bfloat16, 4>{a.hist, a.w, a.h}, spx, spy, allow_catrom, ow, hist);
   float fast;
-  nrd::bilinear_custom(Image<__nv_bfloat16, 1>{a.fast, a.w, a.h}, nrd::to_index(floorf(spx - 0.5f)),
-                       nrd::to_index(floorf(spy - 0.5f)), ow, &fast);
+  const int fx0 = nrd::to_index(floorf(spx - 0.5f)), fy0 = nrd::to_index(floorf(spy - 0.5f));
+  nrd::bilinear_custom(Image<__nv_bfloat16, 1>{a.fast, a.w, a.h}, fx0, fy0, ow, &fast);
+  if constexpr (kSh)
+    reinterpret_cast<float4*>(out_sh)[i] = nrd::bilinear_custom4(sh, a.w, a.h, fx0, fy0, ow);
   float hdt_prev;
   nrd::sample_bilinear(Image<float, 1>{a.prev_hdt, a.w, a.h}, u * a.res_scale_x, v * a.res_scale_y,
                        &hdt_prev);
@@ -103,12 +116,20 @@ __global__ void __launch_bounds__(256) vmb_resolve_kernel(VmbArgs a) {
   o[6 * plane] = hdt_prev;
 }
 
+__global__ void __launch_bounds__(256) vmb_resolve_kernel(VmbArgs a) {
+  vmb_resolve_body<false>(a, nullptr, nullptr);
+}
+__global__ void __launch_bounds__(256) vmb_resolve_sh_kernel(VmbArgs a, const uint2* sh,
+                                                             float* out_sh) {
+  vmb_resolve_body<true>(a, sh, out_sh);
+}
+
 }  // namespace
 
 // ptrs: uv, params, prev_vz, prev_nr, prev_mat, accum, hist, fast, prev_hdt, out_hist,
-//       out_planes
+//       out_planes, sh (bf16), out_sh (both null without SH)
 // consts: view_z_scale, ortho_mode, rect_prev_w, rect_prev_h, min_material,
-//         resolution_scale_prev x, y
+//         resolution_scale_prev x, y, SH (0 or 1)
 extern "C" int nrd_vmb_resolve(void* const* p, const float* c, int w, int h, void* stream) {
   VmbArgs a;
   a.uv = (const float*)p[0];
@@ -131,8 +152,15 @@ extern "C" int nrd_vmb_resolve(void* const* p, const float* c, int w, int h, voi
   a.min_material = c[4];
   a.res_scale_x = c[5];
   a.res_scale_y = c[6];
+  const bool sh = c[7] != 0.0f;
+  const uint2* sh_in = (const uint2*)p[11];
+  float* sh_out = (float*)p[12];
+  if (sh && (sh_in == nullptr || sh_out == nullptr)) return (int)cudaErrorInvalidValue;
   dim3 block(nrd::kBlock, nrd::kBlock);
   dim3 grid((w + nrd::kBlock - 1) / nrd::kBlock, (h + nrd::kBlock - 1) / nrd::kBlock);
-  vmb_resolve_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  if (sh)
+    vmb_resolve_sh_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a, sh_in, sh_out);
+  else
+    vmb_resolve_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -15,6 +15,12 @@ kernel's ring is `reblur_hfix2.py:209-212`). It returns the clamped signal, the 
 and the tap-geometry plane (each pixel's unpacked normal and scaled viewZ) that the kernel
 writes for its taps, which H2's Blur and PostBlur then read; the moments stay in the kernel.
 
+With the SH variants (`sh`, the signal's SH1 after TA) the SH rides the same taps: all four
+channels weighed by each tap's final weight and the centre by 1 + its accumulation speed, passed
+through where the stride is 0, then .xyz scaled to the clamped luma (`:622`, `:671-675`,
+`:680-683`, `:729-731`; on the specular signal .w, the TA's modified roughness, is averaged
+too, as XLA does).
+
 The kernel is the one-signal instance of the body that N5 and K23 run for two signals
 (`csrc/reblur_filters.cuh:history_fix_cta`).
 
@@ -72,9 +78,10 @@ def tap_geometry_ref(normal_roughness, view_z_in, view_z_scale):
 
 def taps_and_clamp_ref(signal, view_z_in, normal_roughness, data1, fast_history, shared, params,
                     smc, *, frustum, rect_size_inv, view_z_scale, ortho_mode, min_material, dc,
-                    anti_firefly=False):
+                    anti_firefly=False, sh=None):
     """The XLA stride-tap loop, the 3x3 moments and the ring, then
-    `params.history_fix_clamp`. Returns (signal_out, fast_out)."""
+    `params.history_fix_clamp`. Returns (signal_out, fast_out), and with `sh` (the signal's
+    SH1) also its history fix, scaled to the clamped luma."""
     h, w = view_z_in.shape
     spec = params.shape[0] == len(PARAMS) + len(SPEC_PARAMS)
     p = dict(zip(SHARED, shared))
@@ -89,6 +96,7 @@ def taps_and_clamp_ref(signal, view_z_in, normal_roughness, data1, fast_history,
 
     sum_ = 1.0 + data1
     acc = signal * sum_[..., None]
+    acc_sh = sh * sum_[..., None] if sh is not None else None
     for j in range(-2, 3):
         for i in range(-2, 3):
             if (i == 0 and j == 0) or abs(i) + abs(j) == 4:
@@ -121,26 +129,36 @@ def taps_and_clamp_ref(signal, view_z_in, normal_roughness, data1, fast_history,
                 w_ = w_ * nm.smoothstep(0.2 + b, 0.05 + b, d)
             sum_ = sum_ + w_
             acc = acc + s * w_[..., None]
-    reconstructed = acc * (1.0 / torch.clamp_min(sum_, 1e-15))[..., None]
-    out = torch.where((stride != 0.0)[..., None], reconstructed, signal)
+            if sh is not None:
+                sh_s = resample.texel_fetch(sh, px, py)
+                sh_s = torch.where((w_ == 0.0)[..., None], 0.0, sh_s)
+                acc_sh = acc_sh + sh_s * w_[..., None]
+    inv = (1.0 / torch.clamp_min(sum_, 1e-15))[..., None]
+    use_fix = (stride != 0.0)[..., None]
+    out = torch.where(use_fix, acc * inv, signal)
+    sh_out = torch.where(use_fix, acc_sh * inv, sh) if sh is not None else None
     m1, m2 = _moments(fast_history, stencil.offsets_square(1))
     ring = _moments(fast_history, anti_firefly_offsets()) if anti_firefly else None
     return P.history_fix_clamp(dc, dict(smc=smc), data1, out, fast_history, m1, m2, ring,
-                               not spec)
+                               not spec, sh=sh_out)
 
 
 def history_fix_ref(signal, view_z_in, normal_roughness, data1, fast_history, shared, params,
                     smc, *, frustum, rect_size_inv, view_z_scale, ortho_mode, min_material, dc,
-                    anti_firefly=False):
+                    anti_firefly=False, sh=None):
     """Plain PyTorch version of the kernel: the XLA stride-tap loop, the 3x3 moments and the
     ring, then `params.history_fix_clamp`; and the tap geometry. Returns dict(signal, fast,
-    geometry)."""
-    out, fast = taps_and_clamp_ref(
+    geometry[, sh])."""
+    res = taps_and_clamp_ref(
         signal, view_z_in, normal_roughness, data1, fast_history, shared, params, smc,
         frustum=frustum, rect_size_inv=rect_size_inv, view_z_scale=view_z_scale,
-        ortho_mode=ortho_mode, min_material=min_material, dc=dc, anti_firefly=anti_firefly)
-    return dict(signal=out, fast=fast,
-                geometry=tap_geometry_ref(normal_roughness, view_z_in, view_z_scale))
+        ortho_mode=ortho_mode, min_material=min_material, dc=dc, anti_firefly=anti_firefly,
+        sh=sh)
+    out = dict(signal=res[0], fast=res[1],
+               geometry=tap_geometry_ref(normal_roughness, view_z_in, view_z_scale))
+    if sh is not None:
+        out["sh"] = res[2]
+    return out
 
 
 def check_params(shared, params):
@@ -152,17 +170,17 @@ def check_params(shared, params):
 
 def history_fix(signal, view_z_in, normal_roughness, data1, fast_history, shared, params, smc,
                 *, frustum, rect_size_inv, view_z_scale, ortho_mode, min_material, dc,
-                anti_firefly=False):
+                anti_firefly=False, sh=None):
     """signal (h, w, 4), data1 = accumulated frames (h, w), fast_history (h, w), shared float32
     planes named by SHARED (9, h, w), params named by PARAMS (5, h, w; diffuse) or PARAMS +
     SPEC_PARAMS (9, h, w; specular); smc (h, w): the specular magic curve of the roughness,
     None for diffuse; dc: the REBLUR frame constants (the clamp's). Returns dict(signal (h, w,
     4), fast (h, w), geometry (h, w, 4)): the clamped signal, the fast history and the tap
-    geometry."""
+    geometry; with the SH variants' `sh` (the signal's SH1, (h, w, 4)) also sh (h, w, 4)."""
     global launches
     kw = dict(frustum=frustum, rect_size_inv=rect_size_inv, view_z_scale=view_z_scale,
               ortho_mode=ortho_mode, min_material=min_material, dc=dc,
-              anti_firefly=anti_firefly)
+              anti_firefly=anti_firefly, sh=sh)
     check_params(shared, params)
     spec = params.shape[0] != len(PARAMS)
     if (smc is None) == spec:
@@ -179,15 +197,22 @@ def history_fix(signal, view_z_in, normal_roughness, data1, fast_history, shared
            ("params", params, (params.shape[0], h, w))]
     if spec:
         ins.append(("smc", smc, (h, w)))
+    if sh is not None:
+        ins.append(("sh", sh, (h, w, 4)))
     for name, t, shape in ins:
         build.check(name, t, dev, f32, shape)
     out = torch.empty((h, w, 4), dtype=f32, device=dev)
     fast = torch.empty((h, w), dtype=f32, device=dev)
     geometry = torch.empty((h, w, 4), dtype=f32, device=dev)  # the taps' geometry
+    out_sh = None if sh is None else torch.empty((h, w, 4), dtype=f32, device=dev)
     consts = [*frustum, rect_size_inv[0], rect_size_inv[1], view_z_scale, ortho_mode,
               min_material, spec, anti_firefly, P.history_fix_frame_div(dc),
-              P.fast_history_enabled(dc)]
-    build.launch("nrd_history_fix", [t for _, t, _ in ins[:7]] + [smc, out, fast, geometry],
+              P.fast_history_enabled(dc), sh is not None]
+    build.launch("nrd_history_fix", [t for _, t, _ in ins[:7]] + [smc, out, fast, geometry,
+                                                                 sh, out_sh],
                  consts, w, h)
     launches += 1
-    return dict(signal=out, fast=fast, geometry=geometry)
+    res = dict(signal=out, fast=fast, geometry=geometry)
+    if sh is not None:
+        res["sh"] = out_sh
+    return res

@@ -29,8 +29,13 @@ chain give identical results.
 Not carried over from the TPU kernel: the bf16 band windows and buffers
 (`reblur_band.py:537-553`, `:595-597`), the zeroed stride and radius of sky pixels (`:128`,
 `:182`), the 40-row bands, 8-row chunks and column splits (`:48-56`, `:520-528`), the two-band
-delay of fast2 (`:491-493`), the performance-mode ring radius of 3 (`:517`), and the SH and
-occlusion modes, which the port does not run yet.
+delay of fast2 (`:491-493`), the performance-mode ring radius of 3 (`:517`), and the occlusion
+and directional modes, which the port does not run yet.
+
+With the SH variants (`sh`, both signals' SH1 after TA; TPU `reblur_band.py:512`, `:546`,
+`:631-634`) each phase carries each signal's SH as N5's and N4's SH modes do: the history fix's
+taps and luma scale, then the Blur and PostBlur taps; sh2 and sh3 take two more (2, h, w, 4)
+float32 scratch planes.
 
 Bound on the H100: per pixel at 2560x1440 it reads the two TA signals (32 B), their
 accumulation speeds and fast histories (16 B), viewZ and the packed normal (20 B), 14 shared
@@ -73,7 +78,7 @@ def reblur_band_ref(diff, spec, view_z_in, normal_roughness, diff_data1, spec_da
                     spec_fast, planes, diff_params, spec_params, *, frustum, rect_size,
                     rect_size_inv, view_z_scale, ortho_mode, diff_min_material,
                     spec_min_material, rotator, rotator_post, enc_err, dc, perf_mode,
-                    anti_firefly=(False, False)):
+                    anti_firefly=(False, False), sh=None):
     """Plain version: N5's plain version (the history fix and its clamp), and for Blur and
     PostBlur the parameters and N4's plain version."""
     p = dict(zip(PLANES, planes))
@@ -82,9 +87,11 @@ def reblur_band_ref(diff, spec, view_z_in, normal_roughness, diff_data1, spec_da
         planes[:len(hf.SHARED)], diff_params, spec_params, p["smc"], frustum=frustum,
         rect_size_inv=rect_size_inv, view_z_scale=view_z_scale, ortho_mode=ortho_mode,
         diff_min_material=diff_min_material, spec_min_material=spec_min_material, dc=dc,
-        anti_firefly=anti_firefly)
+        anti_firefly=anti_firefly, sh=sh)
     geom = _geometry(planes, view_z_in, view_z_scale, enc_err)
     sig = dict(diff=res["diff"], spec=res["spec"])
+    if sh is not None:
+        sig.update(diff_sh=res["diff_sh"], spec_sh=res["spec_sh"])
     out = dict(diff_fast=res["diff_fast"], spec_fast=res["spec_fast"])
     sc = dict(rect_size_inv=rect_size_inv, rotator=rotator, rotator_post=rotator_post)
     shared = torch.stack([p[k] for k in sf.SHARED])
@@ -95,8 +102,9 @@ def reblur_band_ref(diff, spec, view_z_in, normal_roughness, diff_data1, spec_da
             P.spec_spatial_params(sc, dc, mode, geom, sig["spec"], spec_data1),
             frustum=frustum, rect_size=rect_size, view_z_scale=view_z_scale,
             ortho_mode=ortho_mode, diff_min_material=diff_min_material,
-            spec_min_material=spec_min_material, perf_mode=perf_mode)
-    out.update(diff=sig["diff"], spec=sig["spec"])
+            spec_min_material=spec_min_material, perf_mode=perf_mode,
+            sh=None if sh is None else (sig["diff_sh"], sig["spec_sh"]))
+    out.update(sig)
     return out
 
 
@@ -118,18 +126,24 @@ def band_consts(dc, *, rotator, rotator_post, enc_err):
 def reblur_band(diff, spec, view_z_in, normal_roughness, diff_data1, spec_data1, diff_fast,
                 spec_fast, planes, diff_params, spec_params, *, frustum, rect_size,
                 rect_size_inv, view_z_scale, ortho_mode, diff_min_material, spec_min_material,
-                rotator, rotator_post, enc_err, dc, perf_mode, anti_firefly=(False, False)):
+                rotator, rotator_post, enc_err, dc, perf_mode, anti_firefly=(False, False),
+                sh=None):
     """diff, spec (h, w, 4): the TA outputs; *_data1, *_fast (h, w); planes (14, h, w) named by
     PLANES; diff_params (5, h, w) named by history_fix.PARAMS, spec_params (9, h, w) by PARAMS
     + SPEC_PARAMS; rotator, rotator_post: the Blur and PostBlur rotators; dc: the REBLUR frame
-    constants; anti_firefly: (diffuse, specular) ring flags. Returns dict(diff, spec,
-    diff_fast, spec_fast): the PostBlur signals and the history fix's fast histories."""
+    constants; anti_firefly: (diffuse, specular) ring flags; sh: with the SH variants the
+    (diffuse, specular) SH1 after TA, (h, w, 4) each. Returns dict(diff, spec, diff_fast,
+    spec_fast[, diff_sh, spec_sh]): the PostBlur signals, the history fix's fast histories and
+    the PostBlur SH."""
     global launches
+    sh = None if sh is None else tuple(sh)
     kw = dict(frustum=frustum, rect_size=rect_size, rect_size_inv=rect_size_inv,
               view_z_scale=view_z_scale, ortho_mode=ortho_mode,
               diff_min_material=diff_min_material, spec_min_material=spec_min_material,
               rotator=rotator, rotator_post=rotator_post, enc_err=enc_err, dc=dc,
-              perf_mode=perf_mode, anti_firefly=tuple(anti_firefly))
+              perf_mode=perf_mode, anti_firefly=tuple(anti_firefly), sh=sh)
+    if sh is not None and (len(sh) != 2 or any(t is None for t in sh)):
+        raise ValueError("sh: the SH1 of both signals")
     if planes.shape[0] != len(PLANES):
         raise ValueError(f"planes: {planes.shape[0]} planes, expected {len(PLANES)}")
     if (diff_params.shape[0] != len(hf.PARAMS)
@@ -148,15 +162,24 @@ def reblur_band(diff, spec, view_z_in, normal_roughness, diff_data1, spec_data1,
            ("spec_params", spec_params, (spec_params.shape[0], h, w)),
            ("view_z_in", view_z_in, (h, w)), ("normal_roughness", normal_roughness, (h, w, 4)),
            ("planes", planes, (len(PLANES), h, w))]
+    if sh is not None:
+        ins += [("diff_sh", sh[0], (h, w, 4)), ("spec_sh", sh[1], (h, w, 4))]
     for name, t, shape in ins:
         build.check(name, t, dev, f32, shape)
     out = torch.empty((2, h, w, 4), dtype=f32, device=dev)
     fast = torch.empty((2, h, w), dtype=f32, device=dev)
-    scratch = torch.empty((5, h, w, 4), dtype=f32, device=dev)  # sig2, sig3, tap geometry
+    # sig2, sig3, the tap geometry, and with SH sh2, sh3
+    scratch = torch.empty((5 if sh is None else 9, h, w, 4), dtype=f32, device=dev)
+    out_sh = None if sh is None else torch.empty((2, h, w, 4), dtype=f32, device=dev)
     consts = [*frustum, rect_size[0], rect_size[1], rect_size_inv[0], rect_size_inv[1],
               view_z_scale, ortho_mode, diff_min_material, spec_min_material,
               *map(bool, anti_firefly), sf.ntaps(perf_mode),
-              *band_consts(dc, rotator=rotator, rotator_post=rotator_post, enc_err=enc_err)]
-    build.launch("nrd_reblur_band", [t for _, t, _ in ins] + [scratch, fast, out], consts, w, h)
+              *band_consts(dc, rotator=rotator, rotator_post=rotator_post, enc_err=enc_err),
+              sh is not None]
+    build.launch("nrd_reblur_band", [t for _, t, _ in ins[:11]] + [scratch, fast, out]
+                 + list(sh or (None, None)) + [out_sh], consts, w, h)
     launches += 1
-    return dict(diff=out[0], spec=out[1], diff_fast=fast[0], spec_fast=fast[1])
+    res = dict(diff=out[0], spec=out[1], diff_fast=fast[0], spec_fast=fast[1])
+    if sh is not None:
+        res.update(diff_sh=out_sh[0], spec_sh=out_sh[1])
+    return res

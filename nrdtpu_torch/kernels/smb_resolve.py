@@ -16,13 +16,18 @@ the history (bilinear-custom fallback) and the bilinear-custom sample of the fas
 
 With a second signal (`second=`, REBLUR_DIFFUSE_SPECULAR) the same launch samples both
 signals' histories, fast histories and accumulation planes, the CatRom taps and bilinear
-weights computed once; the footprint's outputs are written once.
+weights computed once; the footprint's outputs are written once. With the SH variants (`sh=`,
+one bf16 SH history a signal) the same launch also samples each SH history as it samples the
+fast history: bilinear with the occlusion-weighted custom weights at the footprint's 2x2,
+never through the CatRom (`sample_history_bilinear`, `:473-476`; the TPU kernel's `bil_planes`,
+`nrdtpu/kernels/reblur_pallas.py:580`, `:605`).
 
 Bound on the H100: gathers. Per pixel at 2560x1440 it reads 12 viewZ + 12 material taps
 (96 B), 4 current (staged once a CTA) and 4 previous packed normals, 4 accumulation taps (16 B),
 the history's CatRom footprint (12 bf16 records of 8 B where the samples land on their texels)
 and 4 fast-history taps, mostly L1/L2-resident neighbourhood, for 68 B of output;
-device-memory traffic is near the compulsory ~125 B/px (a second signal adds ~30 B/px). The
+device-memory traffic is near the compulsory ~125 B/px (a second signal adds ~30 B/px, an SH
+history the 2x2 of 8-byte bf16 texels and 16 B written). The
 kernel is one instance per signal count, one thread per pixel in 16x16 CTAs, with the current
 normals decoded once into a shared-memory window and every signal's history read through one
 loop over the CatRom's 5 samples (`csrc/smb_resolve.cu`).
@@ -57,7 +62,7 @@ def _pack(history, planes, navg):
 def smb_resolve_ref(smb_uv, xv_prev_z, base_threshold, navg_thr, normal_roughness,
                     prev_view_z, prev_normal_roughness, prev_material_id, prev_accum,
                     history, fast_history, *, view_z_scale, denoising_range,
-                    rect_size_prev, min_material, world_prev_to_world, second=None):
+                    rect_size_prev, min_material, world_prev_to_world, second=None, sh=None):
     """Plain PyTorch version of the kernel (the XLA formulas, gather by gather); with a
     second signal, the one-signal version run per signal."""
     kw = dict(view_z_scale=view_z_scale, denoising_range=denoising_range,
@@ -66,9 +71,10 @@ def smb_resolve_ref(smb_uv, xv_prev_z, base_threshold, navg_thr, normal_roughnes
     if second is not None:
         args = (smb_uv, xv_prev_z, base_threshold, navg_thr, normal_roughness, prev_view_z,
                 prev_normal_roughness, prev_material_id)
-        out = smb_resolve_ref(*args, prev_accum, history, fast_history, **kw)
-        two = smb_resolve_ref(*args, *second, **kw)
-        out.update({k + "_2": two[k] for k in PER_SIGNAL})
+        out = smb_resolve_ref(*args, prev_accum, history, fast_history,
+                              sh=None if sh is None else sh[:1], **kw)
+        two = smb_resolve_ref(*args, *second, sh=None if sh is None else sh[1:], **kw)
+        out.update({k + "_2": two[k] for k in PER_SIGNAL + (("sh",) if sh is not None else ())})
         return out
 
     def unpack(p):
@@ -129,29 +135,43 @@ def smb_resolve_ref(smb_uv, xv_prev_z, base_threshold, navg_thr, normal_roughnes
     accum_speed = resample.bilinear_custom(prev_accum, origin, weights)
     planes = torch.stack([fbits, allow_catrom.to(torch.float32), footprint_raw, accum_speed,
                           fast])
-    return _pack(hist, planes, torch.stack([n_avg, smb_navg]))
+    out = _pack(hist, planes, torch.stack([n_avg, smb_navg]))
+    if sh is not None:
+        (sh_history,) = sh
+        out["sh"] = resample.bilinear_custom(sh_history.float(), torch.floor(sample_pos - 0.5),
+                                             weights)
+    return out
+
+
+def _check_sh(sh, nsig):
+    if sh is not None and len(sh) != nsig:
+        raise ValueError(f"sh: {len(sh)} SH histories for {nsig} signal(s); one a signal")
 
 
 def smb_resolve(smb_uv, xv_prev_z, base_threshold, navg_thr, normal_roughness, prev_view_z,
                 prev_normal_roughness, prev_material_id, prev_accum, history, fast_history,
                 *, view_z_scale, denoising_range, rect_size_prev, min_material,
-                world_prev_to_world, second=None):
+                world_prev_to_world, second=None, sh=None):
     """prev_accum: the previous accumulation speed of the signal whose history is sampled.
     Returns dict(history (h, w, 4), fast, fbits, allow_catrom (bool), footprint_raw,
     accum_speed, n_avg (h, w, 3), smb_navg (h, w, 3)). All planes share the (h, w) of the
     current frame;
     the previous-frame planes and the histories have the same size (rect = resource).
     second: (prev_accum, history, fast_history) of a second signal, sampled in the same
-    launch; its results come as history_2, fast_2 and accum_speed_2."""
+    launch; its results come as history_2, fast_2 and accum_speed_2. sh: with the SH variants
+    the (h, w, 4) bf16 SH history of each signal (one or two), sampled in the same launch: sh
+    (h, w, 4) float32, and sh_2 for the second signal."""
     global launches
     kw = dict(view_z_scale=view_z_scale, denoising_range=denoising_range,
               rect_size_prev=rect_size_prev, min_material=min_material,
               world_prev_to_world=world_prev_to_world)
+    sh = None if sh is None else tuple(sh)
+    _check_sh(sh, 1 if second is None else 2)
     dev = build.kernel_device(normal_roughness)
     if dev is None:
         return smb_resolve_ref(smb_uv, xv_prev_z, base_threshold, navg_thr, normal_roughness,
                                prev_view_z, prev_normal_roughness, prev_material_id,
-                               prev_accum, history, fast_history, second=second, **kw)
+                               prev_accum, history, fast_history, second=second, sh=sh, **kw)
     h, w = xv_prev_z.shape
     f32, bf16 = torch.float32, torch.bfloat16
     ins = [("smb_uv", smb_uv, f32, (h, w, 2)), ("xv_prev_z", xv_prev_z, f32, (h, w)),
@@ -167,21 +187,29 @@ def smb_resolve(smb_uv, xv_prev_z, base_threshold, navg_thr, normal_roughness, p
         extra = [("prev_accum_2", second[0], f32, (h, w)),
                  ("history_2", second[1], bf16, (h, w, 4)),
                  ("fast_history_2", second[2], bf16, (h, w))]
-    for name, t, dt, shape in ins + extra:
+    sh_ins = [(f"sh[{k}]", t, bf16, (h, w, 4)) for k, t in enumerate(sh or ())]
+    for name, t, dt, shape in ins + extra + sh_ins:
         build.check(name, t, dev, dt, shape)
     nsig = 1 + len(extra) // 3
     out_hist = torch.empty((nsig, h, w, 4), dtype=f32, device=dev)
     planes = torch.empty((len(PLANES) + 2 * (nsig - 1), h, w), dtype=f32, device=dev)
     navg = torch.empty((2, h, w, 3), dtype=f32, device=dev)
     m = np.asarray(world_prev_to_world, np.float32)[:3, :3].reshape(-1)
+    out_sh = torch.empty((nsig, h, w, 4), dtype=f32, device=dev) if sh else None
     consts = [view_z_scale, denoising_range, rect_size_prev[0], rect_size_prev[1],
-              min_material, *m, nsig]
+              min_material, *m, nsig, sh is not None]
+    extra_ptrs = [t for _, t, _, _ in extra] + [None] * (3 - len(extra))
     build.launch("nrd_smb_resolve",
-                 [t for _, t, _, _ in ins] + [out_hist, planes, navg] + [t for _, t, _, _ in extra],
+                 [t for _, t, _, _ in ins] + [out_hist, planes, navg] + extra_ptrs
+                 + [out_sh] + [t for _, t, _, _ in sh_ins] + [None] * (2 - len(sh_ins)),
                  consts, w, h)
     launches += 1
     out = _pack(out_hist[0], planes, navg)
     if second is not None:
         out.update(history_2=out_hist[1], accum_speed_2=planes[len(PLANES)],
                    fast_2=planes[len(PLANES) + 1])
+    if sh:
+        out["sh"] = out_sh[0]
+        if second is not None:
+            out["sh_2"] = out_sh[1]
     return out

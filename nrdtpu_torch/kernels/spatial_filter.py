@@ -25,6 +25,12 @@ resolve (`cb_neighbor_resolve`, `nrdtpu/passes/reblur/kernels.py:743-762`). This
 `diffuse_pre_pass(cb_mask=)` and `specular_spatial_filter(PRE_BLUR, cb_mask=)` compute, with the
 fallback that JAX applies as glue after the TPU kernel.
 
+With the SH variants (`sh`, the signal's SH1, (h, w, 4)) the SH rides the same taps: each
+tap's SH weighed by the tap's final weight (`nrdtpu/passes/reblur/kernels.py:870-877`,
+`:1751-1761`, `:2186-2193`). The diffuse filter sums all four channels; the specular filter
+sums three and keeps the centre's `.w`, as the XLA functions do. The checkerboard PrePass takes
+no SH (the SH variants raise under checkerboard).
+
 The kernel takes the raw planes (the signal, viewZ, the packed normal and, for Blur and
 PostBlur, the accumulation speed and `geometry`, the (unpacked normal, scaled viewZ) plane that
 H3 (`history_fix`) returns) and the frame constants (`sc`, `dc`); no parameter plane. The
@@ -107,13 +113,15 @@ def cb_neighbor_resolve(signal, view_z, frustum_size, nov, denoising_range):
 
 
 def taps_ref(signal, view_z_in, normal_roughness, shared, params, *, frustum, rect_size,
-             view_z_scale, ortho_mode, min_material, perf_mode, prepass=None, cb=None):
+             view_z_scale, ortho_mode, min_material, perf_mode, prepass=None, cb=None, sh=None):
     """The XLA tap loop on the centre's planes: shared named by SHARED (8, h, w), params by
     PARAMS (+ SPEC_PARAMS (+ PREPASS_PARAMS)); the specular PrePass mode takes `prepass` =
     dict(hit_dist_params (A, B, C, D), use_prepass_not_only, frame_index); the checkerboard
     PrePass `cb` = dict(mask: the (h, w) has-data plane, the centre's weight; resolve: the
-    (h, w, 4) fallback written where the weight sum is 0). Returns the filtered signal (h, w,
-    4), and in the PrePass mode also hitDistForTracking (h, w)."""
+    (h, w, 4) fallback written where the weight sum is 0); `sh`: the signal's SH1 (h, w, 4),
+    filtered with the taps' final weights (all four channels in the diffuse mode; three, the
+    centre's `.w` kept, in the specular modes). Returns the filtered signal (h, w, 4), in the
+    PrePass mode also hitDistForTracking (h, w), and with `sh` last the filtered SH."""
     h, w = view_z_in.shape
     mode = MODES[params.shape[0]]
     p = dict(zip(SHARED, shared))
@@ -125,8 +133,11 @@ def taps_ref(signal, view_z_in, normal_roughness, shared, params, *, frustum, re
     material_id = normal_roughness[..., 3] * 3.0
     rw, rh = float(rect_size[0]), float(rect_size[1])
 
+    if sh is not None and cb is not None:
+        raise ValueError("the checkerboard PrePass takes no SH")
     sum_ = torch.ones_like(view_z_in) if cb is None else cb["mask"]
     acc = signal if cb is None else signal * cb["mask"][..., None]
+    acc_sh = sh
     if mode == "spec_prepass":
         hit_dist = p["hit_dist"]
         hdt = torch.where(hit_dist == 0.0, fe.NRD_INF, hit_dist)
@@ -171,12 +182,23 @@ def taps_ref(signal, view_z_in, normal_roughness, shared, params, *, frustum, re
         w_ = w_ * float(gw)
         sum_ = sum_ + w_
         acc = acc + s * w_[..., None]
-    out = acc * (1.0 / torch.clamp_min(sum_, 1e-15))[..., None]
+        if sh is not None:
+            sh_s = resample.sample_nearest(sh, uv_s)
+            sh_s = torch.where((w_ == 0.0)[..., None], 0.0, sh_s)
+            if mode == "diffuse":
+                acc_sh = acc_sh + sh_s * w_[..., None]
+            else:
+                acc_sh = torch.cat([acc_sh[..., :3] + sh_s[..., :3] * w_[..., None],
+                                    acc_sh[..., 3:]], -1)
+    inv = (1.0 / torch.clamp_min(sum_, 1e-15))[..., None]
+    out = acc * inv
     if cb is not None:
         out = torch.where((sum_ == 0.0)[..., None], cb["resolve"], out)
-    if mode == "spec_prepass":
-        return out, torch.where(hdt == fe.NRD_INF, 0.0, hdt)
-    return out
+    res = (out, torch.where(hdt == fe.NRD_INF, 0.0, hdt)) if mode == "spec_prepass" else (out,)
+    if sh is not None:
+        res += (acc_sh * inv if mode == "diffuse"
+                else torch.cat([acc_sh[..., :3] * inv, acc_sh[..., 3:]], -1),)
+    return res if len(res) > 1 else out
 
 
 def check_params(params, prepass):
@@ -220,7 +242,7 @@ def cb_ref(signal, view_z, frustum_size, nov, *, frame_index, parity, denoising_
 
 
 def spatial_filter_ref(signal, view_z_in, normal_roughness, data1=None, *, sc, dc, mode, spec,
-                       enc_err, perf_mode, geometry=None, cb=None):
+                       enc_err, perf_mode, geometry=None, cb=None, sh=None):
     """Plain PyTorch version of the kernel: the centre's planes that the kernel computes per
     pixel, from the pass glue's torch functions (`params.filter_geometry`,
     `diff_spatial_params`, `spec_spatial_params`; under checkerboard on the centre signal
@@ -242,10 +264,10 @@ def spatial_filter_ref(signal, view_z_in, normal_roughness, data1=None, *, sc, d
                     frustum=_v(sc["frustum"]), rect_size=_v(sc["rect_size"]),
                     view_z_scale=float(sc["view_z_scale"]), ortho_mode=float(sc["ortho_mode"]),
                     min_material=min_material(dc, spec), perf_mode=perf_mode, prepass=prepass,
-                    cb=cbd)
+                    cb=cbd, sh=sh)
 
 
-def launch_consts(sc, dc, mode, spec, enc_err, perf_mode, cb=None):
+def launch_consts(sc, dc, mode, spec, enc_err, perf_mode, cb=None, sh=False):
     """The kernel's host constants, each the float32 value that the plain version's torch ops
     see (`csrc/spatial_filter.cu:nrd_spatial_filter` lists them)."""
     fraction_scale, radius_scale = P.STAGE_SCALES[mode]
@@ -263,28 +285,31 @@ def launch_consts(sc, dc, mode, spec, enc_err, perf_mode, cb=None):
             P.min_hit_dist_weight_scale(dc, fraction_scale),
             P.roughness_fraction_scaled(dc, fraction_scale), min_material(dc, spec),
             ntaps(perf_mode), mode, spec, *prepass_consts(prepass)[4:],
-            -1 if cb is None else int(cb), float(sc["denoising_range"])]
+            -1 if cb is None else int(cb), float(sc["denoising_range"]), bool(sh)]
 
 
 def spatial_filter(signal, view_z_in, normal_roughness, data1=None, *, sc, dc, mode, spec,
-                   enc_err, perf_mode, geometry=None, cb=None):
+                   enc_err, perf_mode, geometry=None, cb=None, sh=None):
     """signal (h, w, 4), view_z_in (h, w), normal_roughness (h, w, 4) with linear roughness,
     data1 (h, w) the accumulation speed (Blur and PostBlur; None in the PrePass); sc, dc: the
     frame constants; mode: params.PRE_BLUR, BLUR or POST_BLUR; spec: the specular filter;
     enc_err: the normal encoding's error; geometry: in Blur and PostBlur the tap geometry (h, w,
     4) that `history_fix` returns, None in the PrePass; cb: in a checkerboard PrePass the
     mode's has-data parity (int(CheckerboardMode) - 1, 0 or 1), the signal expanded from half
-    width; else None. Returns the filtered signal (h, w, 4), and in the specular PrePass also
-    hitDistForTracking (h, w)."""
+    width; else None; sh: with the SH variants the signal's SH1 (h, w, 4), not under
+    checkerboard. Returns the filtered signal (h, w, 4), in the specular PrePass also
+    hitDistForTracking (h, w), and with `sh` last the filtered SH (h, w, 4)."""
     global launches, cb_launches
     kw = dict(sc=sc, dc=dc, mode=mode, spec=bool(spec), enc_err=enc_err, perf_mode=perf_mode,
-              geometry=geometry, cb=cb)
+              geometry=geometry, cb=cb, sh=sh)
     prepass = mode == P.PRE_BLUR
     if prepass != (data1 is None) or prepass != (geometry is None):
         raise ValueError("data1 and geometry (the history fix's tap-geometry plane) go with "
                          "Blur and PostBlur, not with the PrePass")
     if cb not in (None, 0, 1) or (cb is not None and not prepass):
         raise ValueError(f"cb: {cb!r}; the checkerboard parity (0 or 1) goes with the PrePass")
+    if cb is not None and sh is not None:
+        raise ValueError("the checkerboard PrePass takes no SH")
     dev = build.kernel_device(signal)
     if dev is None:
         return spatial_filter_ref(signal, view_z_in, normal_roughness, data1, **kw)
@@ -293,16 +318,23 @@ def spatial_filter(signal, view_z_in, normal_roughness, data1=None, *, sc, dc, m
            ("normal_roughness", normal_roughness, (h, w, 4))]
     if not prepass:
         ins += [("data1", data1, (h, w)), ("geometry", geometry, (h, w, 4))]
+    if sh is not None:
+        ins.append(("sh", sh, (h, w, 4)))
     for name, t, shape in ins:
         build.check(name, t, dev, torch.float32, shape)
     out = torch.empty((h, w, 4), dtype=torch.float32, device=dev)
     hdt = torch.empty((h, w), dtype=torch.float32, device=dev) if spec and prepass else None
+    out_sh = None if sh is None else torch.empty((h, w, 4), dtype=torch.float32, device=dev)
     build.launch("nrd_spatial_filter", [signal, view_z_in, normal_roughness, data1, geometry,
-                                        out, hdt],
-                 launch_consts(sc, dc, mode, bool(spec), enc_err, perf_mode, cb), w, h)
+                                        out, hdt, sh, out_sh],
+                 launch_consts(sc, dc, mode, bool(spec), enc_err, perf_mode, cb, sh is not None),
+                 w, h)
     launches += 1
     cb_launches += cb is not None
-    return (out, hdt) if spec and prepass else out
+    res = (out, hdt) if spec and prepass else (out,)
+    if sh is not None:
+        res += (out_sh,)
+    return res if len(res) > 1 else out
 
 
 def _v(x):

@@ -22,6 +22,10 @@ JAX's `_fused_diff_params` / `_fused_spec_params`). Where a signal's weight sum 
 writes that signal's horizontal neighbour resolve (`spatial_filter.cb_neighbor_resolve`), which
 JAX applies as glue after K2 (`nrdtpu/passes/reblur/kernels.py:1977-1986`).
 
+With the SH variants (`sh`, both signals' SH1) each signal's SH rides its taps as in H2's SH
+mode (TPU `FSig.has_sh`, `reblur_fused.py:775-777`, `:804`): the diffuse sum of all four
+channels, the specular sum of three with the centre's .w kept.
+
 Not carried over from the TPU kernel: the shared static tap lattice and hat-blended radius
 levels (`reblur_fused.py:17-20`), bf16 windows, and the zeroed radius of sky pixels.
 
@@ -63,10 +67,11 @@ def cb_centre(view_z_in, nv3, *, frustum, view_z_scale, ortho_mode,
 def spatial_filter_fused_ref(diff, spec, view_z_in, normal_roughness, shared, diff_params,
                              spec_params, *, frustum, rect_size, view_z_scale, ortho_mode,
                              diff_min_material, spec_min_material, perf_mode, prepass=None,
-                             geometry=None, cb=None):
+                             geometry=None, cb=None, sh=None):
     """Plain version: H2's tap loop (`spatial_filter.taps_ref`) run once per signal (the tap
     geometry it computes from normal_roughness and view_z_in, the values of `geometry`); under
     checkerboard with each signal's has-data plane and fallback (`spatial_filter.cb_ref`)."""
+    sh = (None, None) if sh is None else sh
     kw = dict(frustum=frustum, rect_size=rect_size, view_z_scale=view_z_scale,
               ortho_mode=ortho_mode, perf_mode=perf_mode)
     cbs = dict(diff=None, spec=None)
@@ -78,21 +83,29 @@ def spatial_filter_fused_ref(diff, spec, view_z_in, normal_roughness, shared, di
         cbs = {name: sf.cb_ref(sig, *centre, frame_index=prepass["frame_index"],
                                parity=cb["parity"], denoising_range=cb["denoising_range"])
                for name, sig in (("diff", diff), ("spec", spec))}
-    out = dict(diff=sf.taps_ref(diff, view_z_in, normal_roughness, shared, diff_params,
-                                min_material=diff_min_material, cb=cbs["diff"], **kw))
-    res = sf.taps_ref(spec, view_z_in, normal_roughness, shared, spec_params,
-                      min_material=spec_min_material, prepass=prepass, cb=cbs["spec"], **kw)
-    if prepass is None:
-        out["spec"] = res
+    out = {}
+    res = sf.taps_ref(diff, view_z_in, normal_roughness, shared, diff_params,
+                      min_material=diff_min_material, cb=cbs["diff"], sh=sh[0], **kw)
+    if sh[0] is None:
+        out["diff"] = res
     else:
-        out["spec"], out["hdt"] = res
+        out["diff"], out["diff_sh"] = res
+    res = sf.taps_ref(spec, view_z_in, normal_roughness, shared, spec_params,
+                      min_material=spec_min_material, prepass=prepass, cb=cbs["spec"], sh=sh[1],
+                      **kw)
+    res = res if isinstance(res, tuple) else (res,)
+    out["spec"] = res[0]
+    if prepass is not None:
+        out["hdt"] = res[1]
+    if sh[1] is not None:
+        out["spec_sh"] = res[-1]
     return out
 
 
 def spatial_filter_fused(diff, spec, view_z_in, normal_roughness, shared, diff_params,
                          spec_params, *, frustum, rect_size, view_z_scale, ortho_mode,
                          diff_min_material, spec_min_material, perf_mode, prepass=None,
-                         geometry=None, cb=None):
+                         geometry=None, cb=None, sh=None):
     """diff, spec (h, w, 4); shared (8, h, w) planes named by spatial_filter.SHARED;
     diff_params (8, h, w) named by spatial_filter.PARAMS; spec_params (10 | 15, h, w) named by
     PARAMS + SPEC_PARAMS (+ PREPASS_PARAMS, with `prepass` as for spatial_filter); geometry:
@@ -100,12 +113,17 @@ def spatial_filter_fused(diff, spec, view_z_in, normal_roughness, shared, diff_p
     mode, None in PrePass mode; cb: in a checkerboard PrePass dict(parity: the mode's has-data
     parity, int(CheckerboardMode) - 1; denoising_range; min_rect_dim_mul_unproject), the
     signals expanded from half width and the parameter planes computed on the centre signals
-    zeroed where they have no data; else None. Returns dict(diff, spec[, hdt])."""
+    zeroed where they have no data; else None; sh: with the SH variants the (diffuse,
+    specular) SH1, (h, w, 4) each, not under checkerboard. Returns dict(diff, spec[, hdt][,
+    diff_sh, spec_sh])."""
     global launches, cb_launches
+    sh = None if sh is None else tuple(sh)
     kw = dict(frustum=frustum, rect_size=rect_size, view_z_scale=view_z_scale,
               ortho_mode=ortho_mode, diff_min_material=diff_min_material,
               spec_min_material=spec_min_material, perf_mode=perf_mode, prepass=prepass,
-              geometry=geometry, cb=cb)
+              geometry=geometry, cb=cb, sh=sh)
+    if sh is not None and (len(sh) != 2 or any(t is None for t in sh) or cb is not None):
+        raise ValueError("sh: the SH1 of both signals, and not under checkerboard")
     if sf.MODES.get(diff_params.shape[0]) != "diffuse":
         raise ValueError(f"diff_params: {diff_params.shape[0]} planes")
     if sf.MODES.get(spec_params.shape[0]) not in ("spec", "spec_prepass"):
@@ -128,21 +146,27 @@ def spatial_filter_fused(diff, spec, view_z_in, normal_roughness, shared, diff_p
            ("spec_params", spec_params, (spec_params.shape[0], h, w))]
     if not prepass_mode:
         ins.append(("geometry", geometry, (h, w, 4)))
+    if sh is not None:
+        ins += [("diff_sh", sh[0], (h, w, 4)), ("spec_sh", sh[1], (h, w, 4))]
     for name, t, shape in ins:
         build.check(name, t, dev, torch.float32, shape)
     out = torch.empty((2, h, w, 4), dtype=torch.float32, device=dev)
     hdt = torch.empty((h, w) if prepass_mode else (1,), dtype=torch.float32, device=dev)
+    out_sh = None if sh is None else torch.empty((2, h, w, 4), dtype=torch.float32, device=dev)
     consts = [*frustum, rect_size[0], rect_size[1], view_z_scale, ortho_mode, diff_min_material,
-              spec_min_material, sf.ntaps(perf_mode), spec_params.shape[0]]
+              spec_min_material, sf.ntaps(perf_mode), spec_params.shape[0], sh is not None]
     if prepass_mode:
         consts += sf.prepass_consts(prepass)
         consts += ([-1, 0.0, 0.0] if cb is None else
                    [cb["parity"], cb["denoising_range"], cb["min_rect_dim_mul_unproject"]])
     build.launch("nrd_spatial_filter_fused",
-                 [t for _, t, _ in ins[:7]] + [geometry, out, hdt], consts, w, h)
+                 [t for _, t, _ in ins[:7]] + [geometry, out, hdt] + list(sh or (None, None))
+                 + [out_sh], consts, w, h)
     launches += 1
     cb_launches += cb is not None
     res = dict(diff=out[0], spec=out[1])
     if prepass_mode:
         res["hdt"] = hdt
+    if sh is not None:
+        res.update(diff_sh=out_sh[0], spec_sh=out_sh[1])
     return res

@@ -13,7 +13,10 @@ XLA semantics (`nrdtpu/passes/reblur/kernels.py:1163-1174`, `:1272-1310`, `:1338
     and the bilinear-custom specular accumulation speed;
   - allow-CatRom (all four taps and the surface-motion footprint), the CatRom-13 /
     bilinear-custom specular history, the bilinear-custom fast history, and the plain
-    bilinear previous hitDistForTracking.
+    bilinear previous hitDistForTracking;
+  - with the SH variants (`sh_history`, bf16), the specular SH history as the fast history:
+    bilinear with the virtual-motion occlusion weights, never the CatRom (`:1491-1494`; the
+    TPU kernel's `n_sh`, `reblur_pallas.py:800`, `:829-830`).
 
 The TPU kernel's block-base residual and its `valid` mask are not carried over.
 
@@ -50,7 +53,7 @@ def _pack(history, planes):
 
 def vmb_resolve_ref(vmb_uv, params, prev_view_z, prev_normal_roughness, prev_material_id,
                     prev_accum, history, fast_history, prev_hdt, *, view_z_scale, ortho_mode,
-                    rect_size_prev, min_material, resolution_scale_prev):
+                    rect_size_prev, min_material, resolution_scale_prev, sh_history=None):
     """Plain PyTorch version of the kernel (the XLA formulas, gather by gather)."""
     p = dict(zip(PARAMS, params))
     origin, frac = nm.bilinear_filter(vmb_uv, rect_size_prev)
@@ -92,19 +95,25 @@ def vmb_resolve_ref(vmb_uv, params, prev_view_z, prev_normal_roughness, prev_mat
                                                             resolution_scale_prev[1]))
     planes = torch.stack([rough_conf, fbits_vmb, footprint_raw, accum_raw,
                           allow_catrom.to(torch.float32), fast, hdt_prev])
-    return _pack(hist, planes)
+    out = _pack(hist, planes)
+    if sh_history is not None:
+        out["sh"] = resample.bilinear_custom(sh_history.float(), torch.floor(sample_pos - 0.5),
+                                             weights)
+    return out
 
 
 def vmb_resolve(vmb_uv, params, prev_view_z, prev_normal_roughness, prev_material_id,
                 prev_accum, history, fast_history, prev_hdt, *, view_z_scale, ortho_mode,
-                rect_size_prev, min_material, resolution_scale_prev):
+                rect_size_prev, min_material, resolution_scale_prev, sh_history=None):
     """vmb_uv (h, w, 2), params (14, h, w) float32 planes named by PARAMS; the previous
     frame's viewZ, packed normals, material, specular accumulation speed, bf16 specular
-    history (h, w, 4) and fast history, and hitDistForTracking. Returns dict(history
-    (h, w, 4), allow_catrom (bool), and the (h, w) planes named by PLANES)."""
+    history (h, w, 4) and fast history, and hitDistForTracking; sh_history: with the SH
+    variants the bf16 specular SH history (h, w, 4). Returns dict(history (h, w, 4),
+    allow_catrom (bool), the (h, w) planes named by PLANES, and with sh_history sh (h, w, 4))."""
     global launches
     kw = dict(view_z_scale=view_z_scale, ortho_mode=ortho_mode, rect_size_prev=rect_size_prev,
-              min_material=min_material, resolution_scale_prev=resolution_scale_prev)
+              min_material=min_material, resolution_scale_prev=resolution_scale_prev,
+              sh_history=sh_history)
     dev = build.kernel_device(vmb_uv)
     if dev is None:
         return vmb_resolve_ref(vmb_uv, params, prev_view_z, prev_normal_roughness,
@@ -118,13 +127,19 @@ def vmb_resolve(vmb_uv, params, prev_view_z, prev_normal_roughness, prev_materia
            ("prev_material_id", prev_material_id, f32, (h, w)),
            ("prev_accum", prev_accum, f32, (h, w)), ("history", history, bf16, (h, w, 4)),
            ("fast_history", fast_history, bf16, (h, w)), ("prev_hdt", prev_hdt, f32, (h, w))]
+    if sh_history is not None:
+        ins.append(("sh_history", sh_history, bf16, (h, w, 4)))
     for name, t, dt, shape in ins:
         build.check(name, t, dev, dt, shape)
     out_hist = torch.empty((h, w, 4), dtype=f32, device=dev)
     planes = torch.empty((len(PLANES), h, w), dtype=f32, device=dev)
+    out_sh = None if sh_history is None else torch.empty((h, w, 4), dtype=f32, device=dev)
     consts = [view_z_scale, ortho_mode, rect_size_prev[0], rect_size_prev[1], min_material,
-              resolution_scale_prev[0], resolution_scale_prev[1]]
-    build.launch("nrd_vmb_resolve", [t for _, t, _, _ in ins] + [out_hist, planes], consts,
-                 w, h)
+              resolution_scale_prev[0], resolution_scale_prev[1], sh_history is not None]
+    build.launch("nrd_vmb_resolve", [t for _, t, _, _ in ins[:9]] + [out_hist, planes]
+                 + [sh_history, out_sh], consts, w, h)
     launches += 1
-    return _pack(out_hist, planes)
+    out = _pack(out_hist, planes)
+    if sh_history is not None:
+        out["sh"] = out_sh
+    return out

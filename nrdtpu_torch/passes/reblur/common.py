@@ -144,6 +144,13 @@ def change_luma(signal, new_luma):
     return torch.cat([signal[..., :3] * scale[..., None], signal[..., 3:]], -1)
 
 
+def sh_luma_scale(sh, new_luma):
+    """The SH variants' luma rule (`nrdtpu/passes/reblur/kernels.py:493-495`, `:729-731`,
+    `:2407-2410`): SH1's .xyz scaled by get_luma_scale(length(.xyz), new_luma), .w kept."""
+    scale = get_luma_scale(nm.length(sh[..., :3]), new_luma)
+    return torch.cat([sh[..., :3] * scale[..., None], sh[..., 3:]], -1)
+
+
 def clamp_negative_to_zero(signal):
     """ClampNegativeToZero (REBLUR_Common.hlsli:168-240) for radiance."""
     hit = nm.saturate(signal[..., -1:])

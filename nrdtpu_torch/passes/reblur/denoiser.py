@@ -13,12 +13,21 @@ band launch (`spatial_band`). Under checkerboard (`checkerboardMode` BLACK or WH
 PrePass runs at any radius in its checkerboard mode (the centre weighs the pixel's has_data and
 where no weight is left the kernel writes the horizontal neighbour resolve), and TA accumulates
 slower on the pixels without data; the dead pass-through and SplitScreen show the expanded
-input. Every other variant raises NotImplementedError; ROADMAP.md lists them.
+input. The SH variants (REBLUR_DIFFUSE_SH, REBLUR_SPECULAR_SH, REBLUR_DIFFUSE_SPECULAR_SH)
+take IN_*_SH0 in place of the radiance and IN_*_SH1 as each signal's second plane, which rides
+every pass of its signal (the kernels' SH modes); OUT_*_SH0 takes the radiance's path through
+TS, the dead pass-through and SplitScreen, OUT_*_SH1 passes the raw IN_*_SH1 in dead pixels
+and no SplitScreen (`denoiser.py:581-589`). Under checkerboard they raise NotImplementedError:
+the JAX reference passes the half-width IN_*_SH1 through its dead pixels unexpanded
+(`nrdtpu/passes/reblur/denoiser.py:585-587`) and fails on frame 0, so there is nothing to hold
+the port against (ROADMAP.md). Every other variant raises NotImplementedError; ROADMAP.md
+lists them.
 
 State (the permanent pool; histories in bf16, the RGBA16f-history analogue):
   prev_view_z (h, w), prev_normal_roughness (h, w, 4), diff_accum / spec_accum / material_id
   (h, w); per signal s present in {diff, spec}: s_history (h, w, 4), s_fast_history (h, w),
-  s_luma_stab (h, w); with specular also prev_spec_hitdist_for_tracking (h, w) float32.
+  s_luma_stab (h, w), and with SH s_sh_history (h, w, 4); with specular also
+  prev_spec_hitdist_for_tracking (h, w) float32.
 """
 
 from __future__ import annotations
@@ -43,9 +52,15 @@ from . import common as C
 from . import kernels as K
 
 RT = ResourceType
-PORTED = (Denoiser.REBLUR_DIFFUSE, Denoiser.REBLUR_SPECULAR, Denoiser.REBLUR_DIFFUSE_SPECULAR)
+PORTED = (Denoiser.REBLUR_DIFFUSE, Denoiser.REBLUR_SPECULAR, Denoiser.REBLUR_DIFFUSE_SPECULAR,
+          Denoiser.REBLUR_DIFFUSE_SH, Denoiser.REBLUR_SPECULAR_SH,
+          Denoiser.REBLUR_DIFFUSE_SPECULAR_SH)
 IN_RT = {"diff": RT.IN_DIFF_RADIANCE_HITDIST, "spec": RT.IN_SPEC_RADIANCE_HITDIST}
 OUT_RT = {"diff": RT.OUT_DIFF_RADIANCE_HITDIST, "spec": RT.OUT_SPEC_RADIANCE_HITDIST}
+# the SH variants: (SH0, SH1) of each signal (`denoiser.py:146-159`, `:181-182`, `:584`)
+SH_IN_RT = {"diff": (RT.IN_DIFF_SH0, RT.IN_DIFF_SH1), "spec": (RT.IN_SPEC_SH0, RT.IN_SPEC_SH1)}
+SH_OUT_RT = {"diff": (RT.OUT_DIFF_SH0, RT.OUT_DIFF_SH1),
+             "spec": (RT.OUT_SPEC_SH0, RT.OUT_SPEC_SH1)}
 
 
 class ReblurDenoiser:
@@ -58,6 +73,7 @@ class ReblurDenoiser:
         self.device = torch.device(device)
         self.has_diffuse = "DIFFUSE" in config.denoiser.name
         self.has_specular = "SPECULAR" in config.denoiser.name
+        self.sh = config.denoiser.name.endswith("_SH")
         self.signals = tuple(sig for sig, present in (("diff", self.has_diffuse),
                                                       ("spec", self.has_specular)) if present)
         if self.has_specular and config.roughness_encoding != RoughnessEncoding.LINEAR:
@@ -78,6 +94,12 @@ class ReblurDenoiser:
                 and s.checkerboardMode == CheckerboardMode.OFF)
 
     def specialize(self, s: ReblurSettings):
+        if self.sh and s.checkerboardMode != CheckerboardMode.OFF:
+            raise NotImplementedError(
+                f"{self.config.denoiser.name} with checkerboard is not ported: the JAX "
+                "reference passes the half-width IN_*_SH1 through its dead pixels unexpanded "
+                "(nrdtpu/passes/reblur/denoiser.py:585-587) and fails on frame 0, so there is "
+                "nothing to hold the port against (ROADMAP.md)")
         self._s = s
 
     def init_state(self):
@@ -95,6 +117,8 @@ class ReblurDenoiser:
             state[f"{sig}_history"] = torch.zeros((h, w, 4), dtype=bf16, **kw)
             state[f"{sig}_fast_history"] = torch.zeros((h, w), dtype=bf16, **kw)
             state[f"{sig}_luma_stab"] = torch.zeros((h, w), dtype=bf16, **kw)
+            if self.sh:
+                state[f"{sig}_sh_history"] = torch.zeros((h, w, 4), dtype=bf16, **kw)
         if self.has_specular:
             state["prev_spec_hitdist_for_tracking"] = torch.zeros((h, w), dtype=f32, **kw)
         return state
@@ -154,8 +178,12 @@ class ReblurDenoiser:
         # has-data parity of the mode, and the pixels with data this frame (`:189-195`)
         cb = (None if s.checkerboardMode == CheckerboardMode.OFF
               else int(s.checkerboardMode) - 1)
-        raw_in = {sig: inputs[IN_RT[sig]] if cb is None else C.cb_expand(inputs[IN_RT[sig]], w)
+        in_rt = {sig: SH_IN_RT[sig][0] if self.sh else IN_RT[sig] for sig in self.signals}
+        raw_in = {sig: inputs[in_rt[sig]] if cb is None else C.cb_expand(inputs[in_rt[sig]], w)
                   for sig in self.signals}
+        # the SH variants' SH1 of each signal, none without SH (no checkerboard: `specialize`
+        # raises)
+        sh = {sig: inputs[SH_IN_RT[sig][1]] for sig in self.signals} if self.sh else {}
         has_data = (None if cb is None else nm.checkerboard_has_data(
             h, w, sc["frame_index"], cb + 1, view_z.device))
         perf = s.enablePerformanceMode
@@ -182,18 +210,30 @@ class ReblurDenoiser:
 
         # PREPASS (always under checkerboard, `_skip_prepass`)
         hdt_prepass = None
+        sh1 = dict(sh)
         if not skip_prepass:
             if fused:
-                signal["diff"], signal["spec"], hdt_prepass = K.fused_spatial_filter(
+                res = K.fused_spatial_filter(
                     sc, dc, K.PRE_BLUR, geom, view_z, normal_roughness, signal["diff"],
-                    signal["spec"], perf_mode=perf, cb=cb)
+                    signal["spec"], perf_mode=perf, cb=cb,
+                    sh=(sh["diff"], sh["spec"]) if self.sh else None)
+                signal["diff"], signal["spec"], hdt_prepass = res[:3]
+                if self.sh:
+                    sh1["diff"], sh1["spec"] = res[3]
             elif self.has_specular:
-                signal["spec"], hdt_prepass = K.specular_spatial_filter(
+                res = K.specular_spatial_filter(
                     sc, dc, K.PRE_BLUR, signal["spec"], view_z, normal_roughness, None, cfg,
-                    perf_mode=perf, cb=cb)
+                    perf_mode=perf, cb=cb, sh=sh.get("spec"))
+                signal["spec"], hdt_prepass = res[:2]
+                if self.sh:
+                    sh1["spec"] = res[2]
             else:
-                signal["diff"] = K.diffuse_pre_pass(sc, dc, signal["diff"], view_z,
-                                                    normal_roughness, cfg, perf_mode=perf, cb=cb)
+                res = K.diffuse_pre_pass(sc, dc, signal["diff"], view_z, normal_roughness, cfg,
+                                         perf_mode=perf, cb=cb, sh=sh.get("diff"))
+                if self.sh:
+                    signal["diff"], sh1["diff"] = res
+                else:
+                    signal["diff"] = res
 
         # TEMPORAL ACCUMULATION: one surface-motion footprint, both signals' samples
         prev_internal = {k: state[k] for k in ("diff_accum", "spec_accum", "material_id")}
@@ -202,13 +242,19 @@ class ReblurDenoiser:
             state["prev_normal_roughness"], prev_internal, cfg,
             {sig: (state[f"{sig}_history"], state[f"{sig}_fast_history"])
              for sig in self.signals},
-            disocclusion_threshold_mix=inputs.get(RT.IN_DISOCCLUSION_THRESHOLD_MIX))
+            disocclusion_threshold_mix=inputs.get(RT.IN_DISOCCLUSION_THRESHOLD_MIX),
+            sh_histories={sig: state[f"{sig}_sh_history"] for sig in self.signals}
+            if self.sh else None)
         fbits = sm["fbits"]
-        sig1, fast1, data1 = {}, {}, {}
+        sig1, fast1, data1, sh2 = {}, {}, {}, {}
         ta = None
         if self.has_diffuse:
-            sig1["diff"], fast1["diff"], data1["diff"] = K.temporal_accumulation_diffuse(
-                sc, dc, sm, signal["diff"], inputs.get(RT.IN_DIFF_CONFIDENCE), has_data)
+            res = K.temporal_accumulation_diffuse(
+                sc, dc, sm, signal["diff"], inputs.get(RT.IN_DIFF_CONFIDENCE), has_data,
+                sh_input=sh1.get("diff"))
+            sig1["diff"], fast1["diff"], data1["diff"] = res[:3]
+            if self.sh:
+                sh2["diff"] = res[3]
         if self.has_specular:
             ta = K.temporal_accumulation_specular(
                 sc, dc, sm, signal["spec"], state["spec_history"], state["spec_fast_history"],
@@ -216,41 +262,54 @@ class ReblurDenoiser:
                 prev_internal,
                 C.extract_hit_dist(signal["spec"]) if skip_prepass else hdt_prepass,
                 state["prev_spec_hitdist_for_tracking"], cfg, inputs.get(RT.IN_SPEC_CONFIDENCE),
-                has_prepass_hitdist=not skip_prepass, has_data=has_data)
+                has_prepass_hitdist=not skip_prepass, has_data=has_data,
+                sh_input=sh1.get("spec"), sh_history=state.get("spec_sh_history"))
             sig1["spec"], fast1["spec"], data1["spec"] = ta["spec"], ta["fast"], ta["accum_speed"]
+            if self.sh:
+                sh2["spec"] = ta["sh"]
             fbits = fbits + ta["fbits_vmb"]
         material_id = sm["material_id"]
         del sm  # its full-resolution planes are dead after TA: free them for the later passes
 
         # HISTORY FIX, BLUR, POST BLUR: with both signals, in one band launch under
         # NRDTPU_REBLUR_BAND=1 (`denoiser.py:403-428`), else three launches
-        sig4, fast2 = {}, {}
+        sig4, fast2, sh4 = {}, {}, {}
         if fused:
             band = os.environ.get("NRDTPU_REBLUR_BAND", "0") == "1"
-            (sig4["diff"], fast2["diff"]), (sig4["spec"], fast2["spec"]) = (
-                K.spatial_band if band else K.spatial_chain)(
+            res = (K.spatial_band if band else K.spatial_chain)(
                 sc, dc, geom, view_z, normal_roughness,
                 (sig1["diff"], data1["diff"], fast1["diff"]),
                 (sig1["spec"], data1["spec"], fast1["spec"]),
-                anti_firefly=(anti_firefly["diff"], anti_firefly["spec"]), perf_mode=perf)
+                anti_firefly=(anti_firefly["diff"], anti_firefly["spec"]), perf_mode=perf,
+                sh=(sh2["diff"], sh2["spec"]) if self.sh else None)
+            (sig4["diff"], fast2["diff"]), (sig4["spec"], fast2["spec"]) = res[:2]
+            if self.sh:
+                sh4["diff"], sh4["spec"] = res[2]
         else:
             (sig,) = self.signals
             spec_path = sig == "spec"
-            sig2, fast2[sig], tap_geometry = K.history_fix(
+            res = K.history_fix(
                 sc, dc, view_z, normal_roughness, data1[sig], sig1[sig], fast1[sig], cfg,
-                is_diffuse=not spec_path, anti_firefly=anti_firefly[sig])
+                is_diffuse=not spec_path, anti_firefly=anti_firefly[sig], sh=sh2.get(sig))
+            sig2, fast2[sig], tap_geometry = res[:3]
+            sh3 = res[3] if self.sh else None
             # Blur and PostBlur read the tap geometry that the history fix wrote
             kw = dict(perf_mode=perf, tap_geometry=tap_geometry)
-            if spec_path:
-                sig3, _ = K.specular_spatial_filter(sc, dc, K.BLUR, sig2, view_z,
-                                                    normal_roughness, data1[sig], cfg, **kw)
-                sig4[sig], _ = K.specular_spatial_filter(sc, dc, K.POST_BLUR, sig3, view_z,
-                                                         normal_roughness, data1[sig], cfg, **kw)
-            else:
-                sig3 = K.diffuse_spatial_filter(sc, dc, K.BLUR, sig2, view_z, normal_roughness,
-                                                data1[sig], cfg, **kw)
-                sig4[sig] = K.diffuse_spatial_filter(sc, dc, K.POST_BLUR, sig3, view_z,
-                                                     normal_roughness, data1[sig], cfg, **kw)
+            sig3 = sig2
+            for stage in (K.BLUR, K.POST_BLUR):
+                if spec_path:
+                    res = K.specular_spatial_filter(sc, dc, stage, sig3, view_z,
+                                                    normal_roughness, data1[sig], cfg, sh=sh3,
+                                                    **kw)
+                    sig3, sh3 = res[0], res[2] if self.sh else None
+                else:
+                    res = K.diffuse_spatial_filter(sc, dc, stage, sig3, view_z,
+                                                   normal_roughness, data1[sig], cfg, sh=sh3,
+                                                   **kw)
+                    sig3, sh3 = res if self.sh else (res, None)
+            sig4[sig] = sig3
+            if self.sh:
+                sh4[sig] = sh3
             del tap_geometry
         del geom
 
@@ -260,6 +319,7 @@ class ReblurDenoiser:
         # TEMPORAL STABILIZATION or direct output
         if s.maxStabilizedFrameNum == 0:
             out_sig = dict(sig4)
+            out_sh = dict(sh4)
             inc = {sig: data1[sig] + 1.0 for sig in self.signals}
         else:
             ts_sm = K.ts_surface_motion(sc, view_z, mv)
@@ -267,16 +327,17 @@ class ReblurDenoiser:
             if self.has_diffuse:
                 ts["diff"] = K.temporal_stabilization(
                     sc, dc, view_z, normal_roughness, mv, data1["diff"], fbits, sig4["diff"],
-                    state["diff_luma_stab"], cfg, surface_motion=ts_sm)
+                    state["diff_luma_stab"], cfg, surface_motion=ts_sm, sh=sh4.get("diff"))
             if self.has_specular:
                 ts["spec"] = K.temporal_stabilization_specular(
                     sc, dc, view_z, normal_roughness, mv, data1["spec"], fbits, ta["curvature"],
                     ta["virtual_history_amount"], sig4["spec"], state["spec_luma_stab"],
                     ta["hit_dist_for_tracking"], inputs.get(RT.IN_BASECOLOR_METALNESS), cfg,
-                    has_prepass=not skip_prepass, surface_motion=ts_sm)
+                    has_prepass=not skip_prepass, surface_motion=ts_sm, sh=sh4.get("spec"))
                 if RT.IN_BASECOLOR_METALNESS in inputs:
                     outs[RT.IN_MV] = ts["spec"]["mv_out"]  # patched MV, as the reference writes it
             out_sig = {sig: ts[sig][sig] for sig in self.signals}
+            out_sh = {sig: ts[sig][f"{sig}_sh"] for sig in self.signals} if self.sh else {}
             inc = {sig: ts[sig][f"data1_{sig}"] for sig in self.signals}
             for sig in self.signals:
                 new_state[f"{sig}_luma_stab"] = torch.where(keep, state[f"{sig}_luma_stab"],
@@ -294,10 +355,15 @@ class ReblurDenoiser:
             new_state[f"{sig}_accum"] = torch.where(keep, state[f"{sig}_accum"],
                                                     C.quantize_accum_speed(inc[sig]))
             out = torch.where(dead[..., None], raw_in[sig], out_sig[sig])
-            outs[OUT_RT[sig]] = K.split_screen(sc, raw_in[sig], view_z, out)
+            out_rt = SH_OUT_RT[sig][0] if self.sh else OUT_RT[sig]
+            outs[out_rt] = K.split_screen(sc, raw_in[sig], view_z, out)
             # history for the next frame = PostBlur output (PostBlur writes the history)
             new_state[f"{sig}_history"] = torch.where(keep[..., None], state[f"{sig}_history"],
                                                       sig4[sig])
             new_state[f"{sig}_fast_history"] = torch.where(keep, state[f"{sig}_fast_history"],
                                                            fast2[sig])
+            if self.sh:  # SH1: the raw input in dead pixels, no SplitScreen (`:581-589`)
+                outs[SH_OUT_RT[sig][1]] = torch.where(dead[..., None], sh[sig], out_sh[sig])
+                new_state[f"{sig}_sh_history"] = torch.where(
+                    keep[..., None], state[f"{sig}_sh_history"], sh4[sig])
         return outs, requantize_state(state, new_state)

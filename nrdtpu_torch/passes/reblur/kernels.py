@@ -21,6 +21,10 @@ Each pass is elementwise torch glue around hand-written kernels of `nrdtpu_torch
                                                       the rest of the half, one launch each)
   hit_dist_reconstruction         -> hitdist_recon   (3x3 / 5x5 refill of hitT == 0)
 
+With the SH variants (REBLUR_*_SH) each pass also carries each signal's SH1 (`sh=`): its SH
+rides the same launches (the kernels' SH modes), and its lerps and luma scales are glue here,
+as in the XLA functions; a pass given `sh` returns the SH last.
+
 The glue keeps the op order of the XLA functions; the kernels compute the per-pixel formula
 of the XLA gathers, not the TPU kernels' workarounds. Frame constants (`sc`, `dc`) are host
 values, so nothing but pixel planes lives on the device.
@@ -104,7 +108,7 @@ def surface_motion_position(sc, uv, view_z, x, mv_in):
 
 def surface_motion_reprojection(sc, dc, view_z_in, normal_roughness, mv_in, prev_view_z,
                                 prev_normal_roughness, prev_internal, config, histories,
-                                disocclusion_threshold_mix=None):
+                                disocclusion_threshold_mix=None, sh_histories=None):
     """The surface-motion machinery of TA (lines 131-305) plus the history samples at the
     reprojected position (`sample_history` / `sample_history_bilinear`, lines 451-456).
 
@@ -113,7 +117,8 @@ def surface_motion_reprojection(sc, dc, view_z_in, normal_roughness, mv_in, prev
     histories and accumulation speeds are sampled. The footprint gathers and the history
     sampling run in one `kernels.smb_resolve` launch; the rest is elementwise here. Returns
     the `sm` dict both TA halves read, with `{signal}_history`, `{signal}_fast` and
-    `{signal}_accum_speed` per signal."""
+    `{signal}_accum_speed` per signal; with the SH variants' `sh_histories` ({signal: bf16 SH
+    history}) also `{signal}_sh`, each sampled as the fast history is (`:473-476`)."""
     h, w = view_z_in.shape
     uv = resample.pixel_uv_grid(h, w, view_z_in.device)
     view_z = unpack_view_z(sc, view_z_in)
@@ -173,7 +178,8 @@ def surface_motion_reprojection(sc, dc, view_z_in, normal_roughness, mv_in, prev
         view_z_scale=float(sc["view_z_scale"]), denoising_range=float(sc["denoising_range"]),
         rect_size_prev=_v(sc["rect_size_prev"]), min_material=min_material,
         world_prev_to_world=np.asarray(sc["world_prev_to_world"], np.float32)[:3, :3],
-        second=per_signal[1] if len(signals) == 2 else None)
+        second=per_signal[1] if len(signals) == 2 else None,
+        sh=None if sh_histories is None else [sh_histories[sig] for sig in signals])
 
     # footprint quality (lines 296-305)
     smb_vprev = C.get_view_vector_prev(sc, x_prev)
@@ -194,14 +200,19 @@ def surface_motion_reprojection(sc, dc, view_z_in, normal_roughness, mv_in, prev
         sm[f"{sig}_accum_speed"] = res["accum_speed" + suffix]
         sm[f"{sig}_history"] = res["history" + suffix]
         sm[f"{sig}_fast"] = res["fast" + suffix]
+        if sh_histories is not None:
+            sm[f"{sig}_sh"] = res["sh" + suffix]
     return sm
 
 
-def temporal_accumulation_diffuse(sc, dc, sm, diff_input, diff_confidence=None, has_data=None):
+def temporal_accumulation_diffuse(sc, dc, sm, diff_input, diff_confidence=None, has_data=None,
+                                  sh_input=None):
     """Diffuse half of TA (lines 826-930) for the radiance signal; has_data: under
     checkerboard the (h, w) bool plane of the pixels with data, whose neighbours accumulate
-    slower (`nrdtpu/passes/reblur/kernels.py:459-464`, `:499-503`), else None.
-    Returns (diff_out, fast_out, accum_speed_out)."""
+    slower (`nrdtpu/passes/reblur/kernels.py:459-464`, `:499-503`), else None; sh_input: with
+    the SH variants the SH1 input, mixed with `sm["diff_sh"]` over all four channels and
+    scaled by the anti-firefly luma (`:469-478`, `:492-495`).
+    Returns (diff_out, fast_out, accum_speed_out[, sh_out])."""
     diff_accum_speed = sm["diff_accum_speed"]
     confidence = sm["footprint_quality"]
     if diff_confidence is not None:
@@ -229,6 +240,11 @@ def temporal_accumulation_diffuse(sc, dc, sm, diff_input, diff_confidence=None, 
     luma_clamped = torch.minimum(luma, C.get_luma(smb_diff_history) * max_rel)
     luma_clamped = nm.lerp(luma, luma_clamped, antifirefly)
     diff_result = C.change_luma(diff_result, luma_clamped)
+    sh_result = None
+    if sh_input is not None:
+        sh_result = C.mix_history_and_current(dc, sm["diff_sh"], sh_input, diff_nlas,
+                                              torch.ones_like(diff_nlas))
+        sh_result = C.sh_luma_scale(sh_result, luma_clamped)
 
     # fast history (lines 911-924)
     fast_accum_speed = torch.clamp_max(diff_accum_speed,
@@ -240,6 +256,8 @@ def temporal_accumulation_diffuse(sc, dc, sm, diff_input, diff_confidence=None, 
     fast_clamped = torch.minimum(fast_result, C.get_luma(smb_diff_history) * max_rel
                                  * C.REBLUR_FIREFLY_SUPPRESSOR_FAST_RELATIVE_INTENSITY)
     fast_result = nm.lerp(fast_result, fast_clamped, antifirefly)
+    if sh_input is not None:
+        return diff_result, fast_result, diff_accum_speed, sh_result
     return diff_result, fast_result, diff_accum_speed
 
 
@@ -306,14 +324,18 @@ def temporal_accumulation_specular(sc, dc, sm, spec_input, spec_history, spec_fa
                                    prev_normal_roughness, prev_internal,
                                    hit_dist_for_tracking_in, prev_spec_hitdist_for_tracking,
                                    config, spec_confidence=None, *, has_prepass_hitdist,
-                                   has_data=None):
+                                   has_data=None, sh_input=None, sh_history=None):
     """Specular half of TA (`nrdtpu/passes/reblur/kernels.py:978-1548`, XLA path) for the
     radiance signal; `sm` is surface_motion_reprojection with the "spec" signal. The gathers run
     in three kernels: spec_ta_head (3x3 stencils, curvature neighbours, high-parallax
     nearest), nearest_multi (stochastic nearest previous normals) and vmb_resolve (the
     virtual-motion footprint and history samples); has_data as for
-    temporal_accumulation_diffuse (`:1466-1474`, `:1524-1529`). Returns dict(spec, fast,
-    accum_speed, fbits_vmb, curvature, virtual_history_amount, hit_dist_for_tracking)."""
+    temporal_accumulation_diffuse (`:1466-1474`, `:1524-1529`); sh_input, sh_history: with the
+    SH variants the SH1 input and the bf16 SH history, sampled at the virtual-motion position
+    in vmb_resolve's launch, its surface-motion sample `sm["spec_sh"]`; the two SH lerps, .w
+    set to the modified roughness, and the anti-firefly scale (`:1483-1500`, `:1516-1521`).
+    Returns dict(spec, fast, accum_speed, fbits_vmb, curvature, virtual_history_amount,
+    hit_dist_for_tracking[, sh])."""
     h, w = view_z_in.shape
     uv, view_z = sm["uv"], sm["view_z"]
     n, roughness, nov = sm["n"], sm["roughness"], sm["nov"]
@@ -470,7 +492,8 @@ def temporal_accumulation_specular(sc, dc, sm, spec_input, spec_history, spec_fa
         prev_internal["spec_accum"], spec_history, spec_fast_history,
         prev_spec_hitdist_for_tracking, view_z_scale=float(sc["view_z_scale"]),
         ortho_mode=ortho, rect_size_prev=rect_prev, min_material=float(dc["spec_min_material"]),
-        resolution_scale_prev=_v(sc["resolution_scale_prev"]))
+        resolution_scale_prev=_v(sc["resolution_scale_prev"]),
+        sh_history=sh_history if sh_input is not None else None)
     virtual_roughness_confidence = vmb["rough_conf"]
     vmb_footprint_quality = torch.sqrt(nm.saturate(vmb["footprint_raw"]))
     vmb_accum = vmb["accum_raw"]
@@ -581,6 +604,12 @@ def temporal_accumulation_specular(sc, dc, sm, spec_input, spec_history, spec_fa
     spec_result = nm.lerp(smb_spec, vmb_spec, vha4)
     spec_accum_speed = nm.lerp(smb_accum_boosted, vmb_accum, virtual_history_amount)
     history_mixed = nm.lerp(smb_history, vmb_history, vha4)
+    sh_result = None
+    if sh_input is not None:
+        smb_sh = nm.lerp(sm["spec_sh"], sh_input, smb_nlas[..., None])
+        vmb_sh = nm.lerp(vmb["sh"], sh_input, vmb_nlas[..., None])
+        sh_result = nm.lerp(smb_sh, vmb_sh, vha4)
+        sh_result = torch.cat([sh_result[..., :3], roughness_modified[..., None]], -1)
 
     # firefly suppressor (lines 756-771)
     max_rel = (float(dc["firefly_suppressor_min_relative_scale"])
@@ -590,7 +619,10 @@ def temporal_accumulation_specular(sc, dc, sm, spec_input, spec_history, spec_fa
     antifirefly = antifirefly / (1.0 + antifirefly)
     luma = C.get_luma(spec_result)
     luma_clamped = torch.minimum(luma, C.get_luma(history_mixed) * max_rel)
-    spec_result = C.change_luma(spec_result, nm.lerp(luma, luma_clamped, antifirefly))
+    luma_clamped = nm.lerp(luma, luma_clamped, antifirefly)
+    spec_result = C.change_luma(spec_result, luma_clamped)
+    if sh_result is not None:
+        sh_result = C.sh_luma_scale(sh_result, luma_clamped)
 
     # fast history (lines 779-794)
     mfafn = float(dc["max_fast_accumulated_frame_num"])
@@ -604,10 +636,13 @@ def temporal_accumulation_specular(sc, dc, sm, spec_input, spec_history, spec_fa
     fast_clamped = torch.minimum(fast_result, C.get_luma(history_mixed) * max_rel
                                  * C.REBLUR_FIREFLY_SUPPRESSOR_FAST_RELATIVE_INTENSITY)
     fast_result = nm.lerp(fast_result, fast_clamped, antifirefly)
-    return dict(spec=spec_result, fast=fast_result, accum_speed=spec_accum_speed,
-                fbits_vmb=vmb["fbits_vmb"], curvature=curvature,
-                virtual_history_amount=virtual_history_amount,
-                hit_dist_for_tracking=hit_dist_for_tracking)
+    out = dict(spec=spec_result, fast=fast_result, accum_speed=spec_accum_speed,
+               fbits_vmb=vmb["fbits_vmb"], curvature=curvature,
+               virtual_history_amount=virtual_history_amount,
+               hit_dist_for_tracking=hit_dist_for_tracking)
+    if sh_result is not None:
+        out["sh"] = sh_result
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -681,40 +716,46 @@ def _hfix_consts(sc):
 
 
 def history_fix(sc, dc, view_z_in, normal_roughness, data1, signal, fast_history, config, *,
-                is_diffuse: bool = True, anti_firefly: bool = False):
+                is_diffuse: bool = True, anti_firefly: bool = False, sh=None):
     """Sparse 5x5-no-corners history reconstruction + fast-history color clamping, with the
     9x9 anti-firefly clamp when `anti_firefly`, in one `history_fix` launch.
 
     data1: accumulated frames of the signal (data1_diff or data1_spec); signal: (h, w, 4)
     output of TA; fast_history: (h, w). Returns (signal_out, fast_out, tap_geometry): the last
     is the frame's tap geometry (h, w, 4) that the launch writes, for the Blur and PostBlur of
-    `diffuse_spatial_filter` / `specular_spatial_filter`."""
+    `diffuse_spatial_filter` / `specular_spatial_filter`; with the SH variants' `sh` (the
+    signal's SH1) the SH after the history fix comes fourth."""
     geom = make_filter_geometry(sc, dc, view_z_in, normal_roughness, config,
                                 ("diff",) if is_diffuse else ("spec",))
     min_material = dc["diff_min_material"] if is_diffuse else dc["spec_min_material"]
     res = k_history_fix.history_fix(
         signal, view_z_in, normal_roughness, data1, fast_history, _hfix_shared(geom),
         _hfix_params(dc, geom, signal, data1, is_diffuse), None if is_diffuse else geom["smc"],
-        min_material=float(min_material), dc=dc, anti_firefly=anti_firefly, **_hfix_consts(sc))
+        min_material=float(min_material), dc=dc, anti_firefly=anti_firefly, sh=sh,
+        **_hfix_consts(sc))
+    if sh is not None:
+        return res["signal"], res["fast"], res["geometry"], res["sh"]
     return res["signal"], res["fast"], res["geometry"]
 
 
 def fused_history_fix(sc, dc, geom, view_z_in, normal_roughness, diff, spec, *,
-                      anti_firefly=(False, False)):
+                      anti_firefly=(False, False), sh=None):
     """HistoryFix of both signals, the clamp included, in one `history_fix_fused` launch
     (`kernels.py:2035-2071`), computing what `history_fix` computes per signal. diff, spec:
     (signal, data1, fast_history); anti_firefly: the (diffuse, specular) flags. Returns
     ((diff_out, diff_fast), (spec_out, spec_fast), tap_geometry): the last is the frame's tap
     geometry (h, w, 4) that the launch writes, for the Blur and PostBlur of
-    `fused_spatial_filter`."""
+    `fused_spatial_filter`; with the SH variants' `sh` (the diffuse and specular SH1) the pair
+    of SH after the history fix comes fourth."""
     res = k_history_fix_fused.history_fix_fused(
         diff[0], spec[0], view_z_in, normal_roughness, diff[1], spec[1], diff[2], spec[2],
         _hfix_shared(geom), _hfix_params(dc, geom, diff[0], diff[1], True),
         _hfix_params(dc, geom, spec[0], spec[1], False), geom["smc"],
         diff_min_material=float(dc["diff_min_material"]),
         spec_min_material=float(dc["spec_min_material"]), dc=dc, anti_firefly=anti_firefly,
-        **_hfix_consts(sc))
-    return (res["diff"], res["diff_fast"]), (res["spec"], res["spec_fast"]), res["geometry"]
+        sh=sh, **_hfix_consts(sc))
+    out = (res["diff"], res["diff_fast"]), (res["spec"], res["spec_fast"]), res["geometry"]
+    return out if sh is None else out + ((res["diff_sh"], res["spec_sh"]),)
 
 
 # ---------------------------------------------------------------------------
@@ -740,50 +781,56 @@ def _prepass_off_hit_dist(spec):
 
 
 def diffuse_spatial_filter(sc, dc, mode, signal, view_z_in, normal_roughness, data1, config,
-                           *, perf_mode: bool = False, tap_geometry=None):
+                           *, perf_mode: bool = False, tap_geometry=None, sh=None):
     """Adaptive-radius 8-tap Poisson blur, screen-space sampling: one `spatial_filter` launch
     that computes the geometry and the parameters itself. mode: PRE_BLUR (see
     diffuse_pre_pass), BLUR or POST_BLUR; tap_geometry: the plane that `history_fix` returns,
-    which Blur and PostBlur require."""
+    which Blur and PostBlur require; sh: with the SH variants the signal's SH1, then
+    (signal, sh) is returned."""
     return k_spatial_filter.spatial_filter(
         signal, view_z_in, normal_roughness, None if mode == PRE_BLUR else data1, sc=sc, dc=dc,
         mode=mode, spec=False, enc_err=_enc_err(config), perf_mode=perf_mode,
-        geometry=tap_geometry)
+        geometry=tap_geometry, sh=sh)
 
 
 def diffuse_pre_pass(sc, dc, signal, view_z_in, normal_roughness, config, *,
-                     perf_mode: bool = False, cb=None):
+                     perf_mode: bool = False, cb=None, sh=None):
     """Diffuse PrePass: the spatial filter with pre-pass constants and no skew. cb: under
     checkerboard the mode's has-data parity (the signal expanded from half width), else None.
     A PrePass whose radius is 0 passes the signal through, but not under checkerboard, whose
-    PrePass runs at any radius (`kernels.py:2145-2150`)."""
+    PrePass runs at any radius (`kernels.py:2145-2150`). sh: as for diffuse_spatial_filter."""
     if cb is None and float(dc["diff_prepass_blur_radius"]) == 0.0:
-        return signal
+        return signal if sh is None else (signal, sh)
     return k_spatial_filter.spatial_filter(
         signal, view_z_in, normal_roughness, None, sc=sc, dc=dc, mode=PRE_BLUR, spec=False,
-        enc_err=_enc_err(config), perf_mode=perf_mode, geometry=None, cb=cb)
+        enc_err=_enc_err(config), perf_mode=perf_mode, geometry=None, cb=cb, sh=sh)
 
 
 def specular_spatial_filter(sc, dc, mode, spec, view_z_in, normal_roughness, data1, config, *,
-                            perf_mode: bool = False, tap_geometry=None, cb=None):
+                            perf_mode: bool = False, tap_geometry=None, cb=None, sh=None):
     """Adaptive Poisson specular blur (REBLUR_Common_SpecularSpatialFilter.hlsli), one
     `spatial_filter` launch. mode: PRE_BLUR, BLUR or POST_BLUR; tap_geometry as for
     diffuse_spatial_filter; cb as for diffuse_pre_pass (the PrePass only; under checkerboard
     the PrePass runs at any radius and its hitDistForTracking comes from the kernel,
     `kernels.py:1688-1694`). Returns (spec_out, hit_dist_for_tracking); the second is the
-    PrePass's stochastic hitDist minimum, None in the other modes."""
+    PrePass's stochastic hitDist minimum, None in the other modes; with the SH variants' `sh`
+    (the signal's SH1) the filtered SH comes third."""
     prepass = mode == PRE_BLUR
     if prepass and cb is None and float(dc["spec_prepass_blur_radius"]) == 0.0:
-        return spec, _prepass_off_hit_dist(spec)
+        out = spec, _prepass_off_hit_dist(spec)
+        return out if sh is None else out + (sh,)
     res = k_spatial_filter.spatial_filter(
         spec, view_z_in, normal_roughness, None if prepass else data1, sc=sc, dc=dc, mode=mode,
-        spec=True, enc_err=_enc_err(config), perf_mode=perf_mode, geometry=tap_geometry, cb=cb)
+        spec=True, enc_err=_enc_err(config), perf_mode=perf_mode, geometry=tap_geometry, cb=cb,
+        sh=sh)
+    if sh is not None:
+        return res if prepass else (res[0], None, res[1])
     return res if prepass else (res, None)
 
 
 def fused_spatial_filter(sc, dc, mode, geom, view_z_in, normal_roughness, diff, spec, *,
                          data1_diff=None, data1_spec=None, tap_geometry=None,
-                         perf_mode: bool = False, cb=None):
+                         perf_mode: bool = False, cb=None, sh=None):
     """PrePass, Blur or PostBlur of both signals in one `spatial_filter_fused` launch
     (`kernels.py:1916-2000`), computing what diffuse_pre_pass / diffuse_spatial_filter and
     specular_spatial_filter compute per signal, each at its own tap positions. Blur and
@@ -792,7 +839,8 @@ def fused_spatial_filter(sc, dc, mode, geom, view_z_in, normal_roughness, diff, 
     but not under checkerboard (cb: the PrePass's has-data parity, as for diffuse_pre_pass),
     whose parameters read the centre signals zeroed where they have no data
     (`_fused_diff_params` / `_fused_spec_params`, `kernels.py:1819-1862`).
-    Returns (diff_out, spec_out, hit_dist_for_tracking or None)."""
+    Returns (diff_out, spec_out, hit_dist_for_tracking or None), and with the SH variants' `sh`
+    (the diffuse and specular SH1) the pair of filtered SH fourth."""
     prepass = mode == PRE_BLUR
     centre = dict(diff=diff, spec=spec)
     kcb = None
@@ -809,30 +857,41 @@ def fused_spatial_filter(sc, dc, mode, geom, view_z_in, normal_roughness, diff, 
         diff_min_material=float(dc["diff_min_material"]),
         spec_min_material=float(dc["spec_min_material"]), perf_mode=perf_mode,
         prepass=k_spatial_filter.prepass_inputs(sc, dc) if prepass else None,
-        geometry=tap_geometry, cb=kcb, **_sf_consts(sc))
+        geometry=tap_geometry, cb=kcb, sh=sh, **_sf_consts(sc))
     diff_out, spec_out, hdt = res["diff"], res["spec"], res.get("hdt")
+    sh_out = None if sh is None else [res["diff_sh"], res["spec_sh"]]
     if prepass and cb is None and float(dc["diff_prepass_blur_radius"]) == 0.0:
         diff_out = diff
+        if sh is not None:
+            sh_out[0] = sh[0]
     if prepass and cb is None and float(dc["spec_prepass_blur_radius"]) == 0.0:
         spec_out, hdt = spec, _prepass_off_hit_dist(spec)
+        if sh is not None:
+            sh_out[1] = sh[1]
+    if sh is not None:
+        return diff_out, spec_out, hdt, tuple(sh_out)
     return diff_out, spec_out, hdt
 
 
 def spatial_chain(sc, dc, geom, view_z_in, normal_roughness, diff, spec, *, anti_firefly,
-                  perf_mode):
+                  perf_mode, sh=None):
     """HistoryFix, Blur and PostBlur of both signals as three launches with the glue between
     them (`fused_history_fix`, then `fused_spatial_filter` in BLUR and POST_BLUR mode). diff,
-    spec: (TA output, data1, fast history); anti_firefly: the (diffuse, specular) flags.
-    Returns ((diff4, diff_fast2), (spec4, spec_fast2))."""
-    (d2, d_fast), (s2, s_fast), tap_geometry = fused_history_fix(
-        sc, dc, geom, view_z_in, normal_roughness, diff, spec, anti_firefly=anti_firefly)
+    spec: (TA output, data1, fast history); anti_firefly: the (diffuse, specular) flags; sh:
+    with the SH variants the (diffuse, specular) SH1 after TA.
+    Returns ((diff4, diff_fast2), (spec4, spec_fast2)[, (diff_sh4, spec_sh4)])."""
+    res = fused_history_fix(sc, dc, geom, view_z_in, normal_roughness, diff, spec,
+                            anti_firefly=anti_firefly, sh=sh)
+    (d2, d_fast), (s2, s_fast), tap_geometry = res[:3]
     kw = dict(data1_diff=diff[1], data1_spec=spec[1], tap_geometry=tap_geometry,
               perf_mode=perf_mode)
-    d3, s3, _ = fused_spatial_filter(sc, dc, BLUR, geom, view_z_in, normal_roughness, d2, s2,
-                                     **kw)
-    d4, s4, _ = fused_spatial_filter(sc, dc, POST_BLUR, geom, view_z_in, normal_roughness, d3,
-                                     s3, **kw)
-    return (d4, d_fast), (s4, s_fast)
+    res = fused_spatial_filter(sc, dc, BLUR, geom, view_z_in, normal_roughness, d2, s2,
+                               sh=None if sh is None else res[3], **kw)
+    d3, s3 = res[:2]
+    res = fused_spatial_filter(sc, dc, POST_BLUR, geom, view_z_in, normal_roughness, d3, s3,
+                               sh=None if sh is None else res[3], **kw)
+    out = (res[0], d_fast), (res[1], s_fast)
+    return out if sh is None else out + (res[3],)
 
 
 def _band_planes(geom):
@@ -841,7 +900,7 @@ def _band_planes(geom):
 
 
 def spatial_band(sc, dc, geom, view_z_in, normal_roughness, diff, spec, *, anti_firefly,
-                 perf_mode):
+                 perf_mode, sh=None):
     """What `spatial_chain` computes, in one `reblur_band` launch: the history fix, its clamp
     and both spatial stages with their parameters computed in the kernel (the band pipeline,
     `nrdtpu/passes/reblur/denoiser.py:403-428`). Only the history fix's parameter planes are
@@ -853,8 +912,9 @@ def spatial_band(sc, dc, geom, view_z_in, normal_roughness, diff, spec, *, anti_
         rect_size=_v(sc["rect_size"]), diff_min_material=float(dc["diff_min_material"]),
         spec_min_material=float(dc["spec_min_material"]), rotator=sc["rotator"],
         rotator_post=sc["rotator_post"], enc_err=geom["enc_err"], dc=dc, perf_mode=perf_mode,
-        anti_firefly=anti_firefly, **_hfix_consts(sc))
-    return (res["diff"], res["diff_fast"]), (res["spec"], res["spec_fast"])
+        anti_firefly=anti_firefly, sh=sh, **_hfix_consts(sc))
+    out = (res["diff"], res["diff_fast"]), (res["spec"], res["spec_fast"])
+    return out if sh is None else out + ((res["diff_sh"], res["spec_sh"]),)
 
 
 # ---------------------------------------------------------------------------
@@ -923,27 +983,32 @@ def _ts_consts(sc, dc):
 
 
 def temporal_stabilization(sc, dc, view_z_in, normal_roughness, mv_in, data1_diff, fbits, diff,
-                           diff_luma_stab_history, config, *, surface_motion=None):
+                           diff_luma_stab_history, config, *, surface_motion=None, sh=None):
     """Anti-lag output filter, diffuse half: one `ts_prelude` launch. surface_motion:
-    ts_surface_motion(...) when the specular half shares it. Returns dict(diff,
-    diff_luma_stab, data1_diff, mv_out)."""
+    ts_surface_motion(...) when the specular half shares it; sh: with the SH variants the
+    PostBlur SH1, scaled to the stabilized luma (`kernels.py:2407-2410`). Returns dict(diff,
+    diff_luma_stab, data1_diff, mv_out[, diff_sh])."""
     smb_pixel_uv = (surface_motion or ts_surface_motion(sc, view_z_in, mv_in))[4]
     ts = k_ts_prelude.ts_prelude(diff, diff_luma_stab_history, smb_pixel_uv, fbits, data1_diff,
                                  **_ts_consts(sc, dc))
-    return dict(diff=ts["signal"], diff_luma_stab=ts["luma_stab"], data1_diff=ts["data1"],
-                mv_out=mv_in)
+    out = dict(diff=ts["signal"], diff_luma_stab=ts["luma_stab"], data1_diff=ts["data1"],
+               mv_out=mv_in)
+    if sh is not None:
+        out["diff_sh"] = C.sh_luma_scale(sh, ts["luma_stab"])
+    return out
 
 
 def temporal_stabilization_specular(sc, dc, view_z_in, normal_roughness, mv_in, data1_spec,
                                     fbits, curvature, virtual_history_amount, spec,
                                     spec_luma_stab_history, spec_hitdist_for_tracking,
                                     base_color_metalness, config, *, has_prepass,
-                                    surface_motion=None):
+                                    surface_motion=None, sh=None):
     """Anti-lag output filter, specular half (TS lines 233-343): the surface- and
     virtual-motion histories (fbits bits 0-3 and 4-7) combined by the virtual history
     amount, and the MV patching under IN_BASECOLOR_METALNESS (lines 250-285).
-    surface_motion: ts_surface_motion(...) when the diffuse half shares it.
-    Returns dict(spec, spec_luma_stab, data1_spec, mv_out)."""
+    surface_motion: ts_surface_motion(...) when the diffuse half shares it; sh: as for
+    temporal_stabilization (`kernels.py:2540-2543`).
+    Returns dict(spec, spec_luma_stab, data1_spec, mv_out[, spec_sh])."""
     uv, view_z, x, x_prev, smb_pixel_uv = (surface_motion
                                             or ts_surface_motion(sc, view_z_in, mv_in))
     n, roughness, material_id = unpack_nr(normal_roughness, config)
@@ -991,5 +1056,8 @@ def temporal_stabilization_specular(sc, dc, view_z_in, normal_roughness, mv_in, 
         virtual_history_amount, normal_roughness, **_ts_consts(sc, dc),
         responsive_roughness_threshold=float(dc["responsive_accumulation_roughness_threshold"]),
         strand_material_id=float(sc["strand_material_id"]))
-    return dict(spec=ts["signal"], spec_luma_stab=ts["luma_stab"], data1_spec=ts["data1"],
-                mv_out=mv_out)
+    out = dict(spec=ts["signal"], spec_luma_stab=ts["luma_stab"], data1_spec=ts["data1"],
+               mv_out=mv_out)
+    if sh is not None:
+        out["spec_sh"] = C.sh_luma_scale(sh, ts["luma_stab"])
+    return out

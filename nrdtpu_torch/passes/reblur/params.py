@@ -97,10 +97,12 @@ def filter_geometry(sc, dc, view_z_in, normal_roughness, enc_err, signals=("diff
 # ---------------------------------------------------------------------------
 
 
-def history_fix_clamp(dc, geom, frame_num, signal_out, fast_history, m1, m2, ring, is_diffuse):
+def history_fix_clamp(dc, geom, frame_num, signal_out, fast_history, m1, m2, ring, is_diffuse,
+                      sh=None):
     """The fast-history adjustments after the taps (lines 169-244; `kernels.py:685-732`): the
     anti-firefly clamp to the ring's moments where `ring` = (m1, m2) is given, then the clamp
-    to the 3x3 moments. Returns (signal_out, fast_out)."""
+    to the 3x3 moments. Returns (signal_out, fast_out), and with the SH variants' `sh` (the
+    taps' SH1) also the SH scaled to the clamped luma (`:729-731`)."""
     f = nm.saturate(frame_num / history_fix_frame_div(dc))
     if not is_diffuse:
         f = nm.lerp(1.0, f, geom["smc"])
@@ -114,6 +116,8 @@ def history_fix_clamp(dc, geom, frame_num, signal_out, fast_history, m1, m2, rin
     luma_clamped = torch.clamp(luma, m1 - sigma, m1 + sigma)
     luma = nm.lerp(luma_clamped, luma,
                    1.0 / (1.0 + fast_history_enabled(dc) * frame_num * 2.0))
+    if sh is not None:
+        return C.change_luma(signal_out, luma), fast_out, C.sh_luma_scale(sh, luma)
     return C.change_luma(signal_out, luma), fast_out
 
 

@@ -9,7 +9,11 @@ and in performance mode; SIGMA_SHADOW and SIGMA_SHADOW_TRANSLUCENCY; RELAX_DIFFU
 RELAX_SPECULAR and RELAX_DIFFUSE_SPECULAR (the two-signal modes of K16, K19, K20 and K22), each
 also with the anti-firefly pass and with AREA_3X3: their kernels, the à-trous at iteration 0
 and at the jittered strides; RELAX_DIFFUSE_SH, RELAX_SPECULAR_SH and RELAX_DIFFUSE_SPECULAR_SH,
-the SH modes of K15, K16, K17, K19, K20 and K22; the checkerboard PrePass of H2 and N4 on
+the SH modes of K15, K16, K17, K19, K20 and K22; REBLUR_DIFFUSE_SH, REBLUR_SPECULAR_SH and
+REBLUR_DIFFUSE_SPECULAR_SH, each with and without the anti-firefly ring, the last also in
+performance mode, with AREA_3X3 on inputs with holes and under NRDTPU_REBLUR_BAND=1 (default,
+the ring, performance mode): the SH modes of H1, N3, H2, H3, N4, N5 and K23; the checkerboard
+PrePass of H2 and N4 on
 half-width inputs, BLACK and WHITE, REBLUR_SPECULAR also with
 usePrepassOnlyForSpecularMotionEstimation (its fallback at every pixel without data); the halo
 launcher's `box` body on 1 and 4 channels at two blocks)
@@ -59,6 +63,8 @@ SIGMA = (Denoiser.SIGMA_SHADOW, Denoiser.SIGMA_SHADOW_TRANSLUCENCY)
 RELAX = (Denoiser.RELAX_DIFFUSE, Denoiser.RELAX_SPECULAR, Denoiser.RELAX_DIFFUSE_SPECULAR)
 RELAX_SH = (Denoiser.RELAX_DIFFUSE_SH, Denoiser.RELAX_SPECULAR_SH,
             Denoiser.RELAX_DIFFUSE_SPECULAR_SH)
+REBLUR_SH = (Denoiser.REBLUR_DIFFUSE_SH, Denoiser.REBLUR_SPECULAR_SH,
+             Denoiser.REBLUR_DIFFUSE_SPECULAR_SH)
 SH_RESOURCES = {"DIFFUSE": (RT.IN_DIFF_SH0, RT.IN_DIFF_SH1, RT.OUT_DIFF_SH0, RT.OUT_DIFF_SH1),
                 "SPECULAR": (RT.IN_SPEC_SH0, RT.IN_SPEC_SH1, RT.OUT_SPEC_SH0, RT.OUT_SPEC_SH1)}
 AREA_3X3 = dict(hitDistanceReconstructionMode=HitDistanceReconstructionMode.AREA_3X3)
@@ -101,6 +107,17 @@ def _pools(denoiser, n, holes=False, checkerboard=CB.OFF):
                 sh0, sh1 = fe.relax_pack_sh(torch.from_numpy(noisy), torch.from_numpy(hit),
                                             normal)
                 pool[SH_RESOURCES[part][0]], pool[SH_RESOURCES[part][1]] = sh0.numpy(), sh1.numpy()
+        elif denoiser in REBLUR_SH:  # SH0 / SH1 along the normal, SH1's .w drawn per pixel
+            normal = torch.from_numpy(fd.normal.astype(np.float32))
+            for part, noisy, hit, rough in (
+                    ("DIFFUSE", fd.diff_noisy, fd.diff_hit_dist, np.ones_like(fd.roughness)),
+                    ("SPECULAR", fd.spec_noisy, fd.spec_hit_dist, fd.roughness)):
+                nhd = fe.reblur_get_norm_hit_dist(torch.from_numpy(hit),
+                                                  torch.from_numpy(fd.view_z), hdp,
+                                                  torch.from_numpy(rough))
+                sh0, sh1 = fe.reblur_pack_sh(torch.from_numpy(noisy), nhd, normal)
+                sh1[..., 3] = torch.from_numpy(rng.random(fd.view_z.shape, dtype=np.float32))
+                pool[SH_RESOURCES[part][0]], pool[SH_RESOURCES[part][1]] = sh0.numpy(), sh1.numpy()
         elif denoiser in RELAX:  # raw radiance and raw hit distance
             pool[RT.IN_DIFF_RADIANCE_HITDIST] = fe.relax_pack_radiance_hitdist(
                 torch.from_numpy(fd.diff_noisy), torch.from_numpy(fd.diff_hit_dist)).numpy()
@@ -116,7 +133,8 @@ def _pools(denoiser, n, holes=False, checkerboard=CB.OFF):
                 torch.from_numpy(fd.spec_noisy), nhd).numpy()
         if holes:
             hole = (rng.random(fd.view_z.shape) < 0.3) & (fd.hit_mask > 0)
-            for rt in (RT.IN_DIFF_RADIANCE_HITDIST, RT.IN_SPEC_RADIANCE_HITDIST):
+            for rt in ((RT.IN_DIFF_SH0, RT.IN_SPEC_SH0) if denoiser in REBLUR_SH
+                       else (RT.IN_DIFF_RADIANCE_HITDIST, RT.IN_SPEC_RADIANCE_HITDIST)):
                 pool[rt] = pool[rt].copy()
                 pool[rt][..., 3][hole] = 0.0
         if checkerboard != CB.OFF:
@@ -133,7 +151,7 @@ def _pools(denoiser, n, holes=False, checkerboard=CB.OFF):
 def _outs(denoiser):
     if denoiser in SIGMA:
         return [RT.OUT_SHADOW_TRANSLUCENCY]
-    if denoiser in RELAX_SH:
+    if denoiser in RELAX_SH + REBLUR_SH:
         return [rt for part, rts in SH_RESOURCES.items() if part in denoiser.name
                 for rt in rts[2:]]
     return [rt for rt, present in ((RT.OUT_DIFF_RADIANCE_HITDIST, "DIFFUSE" in denoiser.name),
@@ -161,7 +179,12 @@ PATHS = ([(d, af, {}, False, False) for d in VARIANTS for af in (False, True)]
          + [(Denoiser.REBLUR_DIFFUSE_SPECULAR, af, s, False, True)
             for af, s in ((False, {}), (True, {}), (False, dict(enablePerformanceMode=True)))]
          + [(d, False, cb, False, False) for d in VARIANTS for cb in (BLACK, WHITE)]
-         + [(Denoiser.REBLUR_SPECULAR, False, dict(WHITE, **PREPASS_ONLY), False, False)])
+         + [(Denoiser.REBLUR_SPECULAR, False, dict(WHITE, **PREPASS_ONLY), False, False)]
+         + [(d, af, {}, False, False) for d in REBLUR_SH for af in (False, True)]
+         + [(REBLUR_SH[2], False, dict(enablePerformanceMode=True), False, False),
+            (REBLUR_SH[2], False, AREA_3X3, True, False)]
+         + [(REBLUR_SH[2], af, s, False, True)
+            for af, s in ((False, {}), (True, {}), (False, dict(enablePerformanceMode=True)))])
 
 
 @pytest.fixture(scope="module")
@@ -258,14 +281,18 @@ def test_engine_card_matches_cpu_band(cuda, anti_firefly, settings, monkeypatch)
             assert mse == 0.0 or 10.0 * np.log10(peak * peak / mse) >= 50.0, rt
 
 
-@pytest.mark.parametrize("denoiser,settings,holes",
-                         [(d, AREA_3X3, True) for d in VARIANTS + RELAX]
-                         + [(d, {}, False) for d in SIGMA + RELAX + RELAX_SH],
-                         ids=[f"{d.name}-AREA_3X3" for d in VARIANTS + RELAX]
-                         + [d.name for d in SIGMA + RELAX + RELAX_SH])
-def test_engine_card_matches_cpu_new_paths(cuda, denoiser, settings, holes):
-    """Hit-distance reconstruction on inputs with holes, the SIGMA variants and the RELAX
-    variants, with and without SH."""
+@pytest.mark.parametrize("denoiser,settings,holes,band",
+                         [(d, AREA_3X3, True, False) for d in VARIANTS + RELAX + REBLUR_SH[2:]]
+                         + [(d, {}, False, False) for d in SIGMA + RELAX + RELAX_SH + REBLUR_SH]
+                         + [(REBLUR_SH[2], {}, False, True)],
+                         ids=[f"{d.name}-AREA_3X3" for d in VARIANTS + RELAX + REBLUR_SH[2:]]
+                         + [d.name for d in SIGMA + RELAX + RELAX_SH + REBLUR_SH]
+                         + [f"{REBLUR_SH[2].name}-BAND"])
+def test_engine_card_matches_cpu_new_paths(cuda, denoiser, settings, holes, band, monkeypatch):
+    """Hit-distance reconstruction on inputs with holes, the SIGMA variants, and the RELAX and
+    REBLUR variants with and without SH (REBLUR_DIFFUSE_SPECULAR_SH also under the band)."""
+    if band:
+        monkeypatch.setenv(*BAND)
     card = _engine(denoiser, cuda, **settings)
     cpu = _engine(denoiser, "cpu", **settings)
     for cs, pool in _pools(denoiser, 4, holes):

@@ -236,7 +236,7 @@ def test_unported_variants_raise():
     from nrdtpu_torch.engine import Engine
     from nrdtpu_torch.settings import Denoiser
 
-    for d in (Denoiser.REBLUR_DIFFUSE_SPECULAR_SH, Denoiser.REBLUR_DIFFUSE_OCCLUSION,
+    for d in (Denoiser.REBLUR_SPECULAR_OCCLUSION, Denoiser.REBLUR_DIFFUSE_OCCLUSION,
               Denoiser.REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Engine({0: d}, resource_size=(64, 48), device="cpu")

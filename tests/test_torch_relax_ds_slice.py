@@ -156,15 +156,14 @@ def test_outputs_match_one_signal_variants(pairs):
 
 
 # the variants the port does not run yet (ROADMAP.md Queue 1)
-UNPORTED = ("REBLUR_DIFFUSE_OCCLUSION", "REBLUR_DIFFUSE_SH", "REBLUR_SPECULAR_OCCLUSION",
-            "REBLUR_SPECULAR_SH", "REBLUR_DIFFUSE_SPECULAR_OCCLUSION",
-            "REBLUR_DIFFUSE_SPECULAR_SH", "REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION")
+UNPORTED = ("REBLUR_DIFFUSE_OCCLUSION", "REBLUR_SPECULAR_OCCLUSION",
+            "REBLUR_DIFFUSE_SPECULAR_OCCLUSION", "REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION")
 
 
 def test_ported_variants():
-    """The port runs 12 of the 19 variants; UNPORTED lists the other 7."""
+    """The port runs 15 of the 19 variants; UNPORTED lists the other 4."""
     assert len(Denoiser) == 19 and set(UNPORTED) < {d.name for d in Denoiser}
-    assert len(UNPORTED) == 7
+    assert len(UNPORTED) == 4
 
 
 @pytest.mark.parametrize("denoiser", UNPORTED)
