@@ -19,7 +19,10 @@ the scene's normal (the SH planes ride the non-SH variant's launches); REBLUR_DI
 REBLUR_SPECULAR_SH and REBLUR_DIFFUSE_SPECULAR_SH (also with NRDTPU_REBLUR_BAND=1) with each
 signal's SH0 / SH1 packed by `reblur_pack_sh` from the same radiance and normalized hit
 distance along the scene's normal (the SH planes ride the REBLUR kernels' SH modes in the
-non-SH variant's launches); and under checkerboard,
+non-SH variant's launches); REBLUR_DIFFUSE_OCCLUSION, REBLUR_SPECULAR_OCCLUSION and
+REBLUR_DIFFUSE_SPECULAR_OCCLUSION (also with NRDTPU_REBLUR_BAND=1) on a binary one-sample AO
+estimate a signal (the scene's `ao_noisy`, and a second draw from the clean AO for the specular
+signal), one channel through the kernels' one-channel modes; and under checkerboard,
 with each signal input at half width (the has-data pixel of each horizontal pair, as a
 renderer that traces half the pixels sends it): REBLUR_DIFFUSE_SPECULAR in BLACK (also with
 NRDTPU_REBLUR_BAND=1), REBLUR_DIFFUSE in WHITE, REBLUR_SPECULAR in BLACK and
@@ -56,6 +59,10 @@ Phases, each of which raises on failure (exit code != 0):
      performance mode (the spatial filters, held), REBLUR_DIFFUSE_SPECULAR_SH with AREA_3X3 on
      the punched frames (every kernel, held), and the band in its SH mode (default, with the
      ring and in performance mode, each beside the chain it replaces);
+     the three REBLUR occlusion variants (every kernel of each in its one-channel mode, timed
+     by path), REBLUR_DIFFUSE_SPECULAR_OCCLUSION with AREA_3X3 on AO frames with holes (a
+     seeded 30 % of the geometry pixels zeroed; hitdist_recon's one-channel mode, timed) and
+     the band's one-channel mode with the band's runs;
      the checkerboard PrePass of H2 (REBLUR_DIFFUSE in WHITE and BLACK, REBLUR_SPECULAR in
      BLACK and WHITE) and N4 (REBLUR_DIFFUSE_SPECULAR in BLACK and WHITE) on the half-width
      frames, one run of each kernel on frames whose fallback fires (`CB_FALLBACK`: a material
@@ -80,7 +87,9 @@ Phases, each of which raises on failure (exit code != 0):
      PrePass instances counted apart); each REBLUR
      and RELAX output (SH0 taken from YCoCg to linear; REBLUR's with `sg_extract_color`)
      must beat its noisy input by >= 3 dB
-     against the scene's clean image, each SIGMA
+     against the scene's clean image, each occlusion output must lie in [0, 1] and, on the last
+     frame, lie closer to the scene's clean AO on the geometry (mean absolute error) than its
+     binary input, each SIGMA
      output must lie in [0, 1], be lit on average (> 0.99) where the 9x9 neighbourhood is lit
      and dark (< 0.15) in the umbra core; prints the median ms/frame (CUDA events), the host
      ms/frame and the peak allocator bytes;
@@ -93,8 +102,9 @@ Phases, each of which raises on failure (exit code != 0):
   5. card vs CPU: the same 4 frames at 256x160 on the card and on the CPU plain path must
      agree to >= 50 dB PSNR, for every output of every path (the checkerboard ones included),
      of RELAX_SPECULAR at SQ_LINEAR
-     (AREA_3X3 on the punched frames), and of REFERENCE on a static camera (plain torch ops on
-     both, no kernel).
+     (AREA_3X3 on the punched frames), of REBLUR_DIFFUSE_SPECULAR_OCCLUSION under checkerboard
+     BLACK (`OCC_CB`), and of REFERENCE on a static camera (plain torch ops on both, no
+     kernel).
 
 With `--profile` it also traces 3 frames of each path (after 4 warm-up) with
 torch.profiler and prints the device time a frame, the device's idle share against the
@@ -181,6 +191,13 @@ D_LAUNCHES = {"smb_resolve": 1, "spatial_filter": 3, "history_fix": 1, "ts_prelu
 S_LAUNCHES = {**D_LAUNCHES, "spec_ta_head": 1, "nearest_multi": 1, "vmb_resolve": 1}
 DS_LAUNCHES = {"smb_resolve": 1, "spec_ta_head": 1, "nearest_multi": 1, "vmb_resolve": 1,
                "spatial_filter_fused": 3, "history_fix_fused": 1, "ts_prelude": 2}
+# the occlusion variants: no PrePass, no TS
+D_OCC_LAUNCHES = {"smb_resolve": 1, "history_fix": 1, "spatial_filter": 2}
+S_OCC_LAUNCHES = {**D_OCC_LAUNCHES, "spec_ta_head": 1, "nearest_multi": 1, "vmb_resolve": 1}
+DS_OCC_LAUNCHES = {"smb_resolve": 1, "spec_ta_head": 1, "nearest_multi": 1, "vmb_resolve": 1,
+                   "history_fix_fused": 1, "spatial_filter_fused": 2}
+BAND_OCC_LAUNCHES = {"smb_resolve": 1, "spec_ta_head": 1, "nearest_multi": 1, "vmb_resolve": 1,
+                     "reblur_band": 1}
 BAND_LAUNCHES = {"smb_resolve": 1, "spec_ta_head": 1, "nearest_multi": 1, "vmb_resolve": 1,
                  "spatial_filter_fused": 1, "reblur_band": 1, "ts_prelude": 2}
 SIGMA_LAUNCHES = {"sigma_blur": 2, "sigma_ts": 1}
@@ -225,6 +242,14 @@ PATHS = {
     "REBLUR_DIFFUSE_SPECULAR_SH+BAND": dict(
         denoiser="REBLUR_DIFFUSE_SPECULAR_SH", signals=("diff", "spec"), sh=True,
         env={"NRDTPU_REBLUR_BAND": "1"}, launches=BAND_LAUNCHES),
+    # the occlusion variants: a binary AO a signal (IN_*_HITDIST), one channel
+    "REBLUR_DIFFUSE_OCCLUSION": dict(signals=("diff",), occ=True, launches=D_OCC_LAUNCHES),
+    "REBLUR_SPECULAR_OCCLUSION": dict(signals=("spec",), occ=True, launches=S_OCC_LAUNCHES),
+    "REBLUR_DIFFUSE_SPECULAR_OCCLUSION": dict(signals=("diff", "spec"), occ=True,
+                                              launches=DS_OCC_LAUNCHES),
+    "REBLUR_DIFFUSE_SPECULAR_OCCLUSION+BAND": dict(
+        denoiser="REBLUR_DIFFUSE_SPECULAR_OCCLUSION", signals=("diff", "spec"), occ=True,
+        env={"NRDTPU_REBLUR_BAND": "1"}, launches=BAND_OCC_LAUNCHES),
 }
 # the checkerboard paths: half-width signal inputs in the mode `cb`, the non-cb path's launches
 # with the PrePass in its checkerboard instance (counted apart as well)
@@ -251,11 +276,16 @@ for _name, _v in CB_PATHS.items():
 RELAX_VARIANTS = ("RELAX_DIFFUSE", "RELAX_SPECULAR", "RELAX_DIFFUSE_SPECULAR")
 RELAX_SH_VARIANTS = ("RELAX_DIFFUSE_SH", "RELAX_SPECULAR_SH", "RELAX_DIFFUSE_SPECULAR_SH")
 REBLUR_SH_VARIANTS = ("REBLUR_DIFFUSE_SH", "REBLUR_SPECULAR_SH", "REBLUR_DIFFUSE_SPECULAR_SH")
+REBLUR_OCC_VARIANTS = ("REBLUR_DIFFUSE_OCCLUSION", "REBLUR_SPECULAR_OCCLUSION",
+                       "REBLUR_DIFFUSE_SPECULAR_OCCLUSION")
+# REBLUR_DIFFUSE_SPECULAR_OCCLUSION's AO frames with holes: the kernel phase's AREA_3X3 run
+REBLUR_OCC_HOLES = "REBLUR_DIFFUSE_SPECULAR_OCCLUSION+holes"
 # REBLUR_DIFFUSE_SPECULAR_SH's frames with hit-distance holes (SH0's .w zeroed): the kernel
 # phase's AREA_3X3 run of the SH variants
 REBLUR_SH_HOLES = "REBLUR_DIFFUSE_SPECULAR_SH+holes"
 # the band's paths, whose kernel-phase runs also time the chain it replaces
-BAND_PATHS = ("REBLUR_DIFFUSE_SPECULAR+BAND", "REBLUR_DIFFUSE_SPECULAR_SH+BAND")
+BAND_PATHS = ("REBLUR_DIFFUSE_SPECULAR+BAND", "REBLUR_DIFFUSE_SPECULAR_SH+BAND",
+              "REBLUR_DIFFUSE_SPECULAR_OCCLUSION+BAND")
 # RELAX_SPECULAR with IN_NORMAL_ROUGHNESS packed at the roughness encodings other than LINEAR,
 # with AREA_3X3 on the frames with hit-distance holes, so that every kernel that unpacks the
 # roughness (ENCODED_KERNELS) runs in the encoding's mode: held and timed in the kernel phase,
@@ -265,6 +295,11 @@ ENCODED = {f"RELAX_SPECULAR+{e}": dict(denoiser="RELAX_SPECULAR", signals=("spec
                                        encoding=e,
                                        settings=dict(hitDistanceReconstructionMode="AREA_3X3"))
            for e in ("SQ_LINEAR", "SQRT_LINEAR")}
+# REBLUR_DIFFUSE_SPECULAR_OCCLUSION under checkerboard BLACK, the AO at half width: card
+# against CPU only, not sliced
+OCC_CB = {"REBLUR_DIFFUSE_SPECULAR_OCCLUSION+CB": dict(
+    denoiser="REBLUR_DIFFUSE_SPECULAR_OCCLUSION", signals=("diff", "spec"), occ=True,
+    cb="BLACK", settings=dict(checkerboardMode="BLACK"))}
 NO_MIN_MATERIAL = dict(minMaterialForDiffuse=0.0, minMaterialForSpecular=0.0)
 # RELAX's fast history at the slow one's frame num: the history clamp's colour box off
 NO_FAST_CLAMP = dict(diffuseMaxFastAccumulatedFrameNum=30, specularMaxFastAccumulatedFrameNum=30)
@@ -344,6 +379,11 @@ BR_SET_OPS = 30                             # bilinear_resolve.cu: one bilinear 
 BAND_CLAMP_OPS, BAND_PARAM_OPS = 30, 90     # reblur_filters.cuh: hf_clamp (N5 and K23),
                                             # and the Blur/PostBlur parameters of one signal
 BAND_SCRATCH_BYTES_PER_PX = 128             # reblur_band.cu: sig2 and sig3 written and read
+                                            # (32 with one channel)
+# the one-channel (occlusion) instances do the weights of the four-channel ones, without the
+# other three channels' work: a multiply-add a channel a tap, and in H1 / N3 a history's
+# CatRom (5 bilinear samples of 4 texels, a multiply-add each) a channel
+TAP_CHANNEL_OPS, CATROM_CHANNEL_OPS = 2, 40
 # the H100's limits an SM (NVIDIA's data sheet), against which each kernel's CTAs an SM
 # are worked out from its registers, its shared memory and its block size; the runtime keeps
 # 1 KB of shared memory per CTA
@@ -364,17 +404,26 @@ def psnr(a, b):
     return float("inf") if mse == 0 else 10.0 * np.log10(peak * peak / mse)
 
 
-def in_rt(sig):
+def in_rt(sig, occ=False):
     from nrdtpu_torch.settings import ResourceType as RT
 
+    if occ:
+        return RT.IN_DIFF_HITDIST if sig == "diff" else RT.IN_SPEC_HITDIST
     return RT.IN_DIFF_RADIANCE_HITDIST if sig == "diff" else RT.IN_SPEC_RADIANCE_HITDIST
 
 
-def out_rt(sig):
+def out_rt(sig, occ=False):
     from nrdtpu_torch.settings import ResourceType as RT
 
+    if occ:
+        return RT.OUT_DIFF_HITDIST if sig == "diff" else RT.OUT_SPEC_HITDIST
     return {"diff": RT.OUT_DIFF_RADIANCE_HITDIST, "spec": RT.OUT_SPEC_RADIANCE_HITDIST,
             "shadow": RT.OUT_SHADOW_TRANSLUCENCY}[sig]
+
+
+def path_spec(path):
+    """A path's entry: of PATHS, ENCODED or OCC_CB."""
+    return {**PATHS, **ENCODED, **OCC_CB}[path]
 
 
 def sh_rts(sig):
@@ -387,9 +436,9 @@ def sh_rts(sig):
 def outputs_of(path):
     """(label, signal, resource) of every output of a path: a signal's output, or with SH its
     SH0 and SH1."""
-    v = PATHS[path] if path in PATHS else ENCODED[path]
+    v = path_spec(path)
     if not v.get("sh"):
-        return [(sig, sig, out_rt(sig)) for sig in v["signals"]]
+        return [(sig, sig, out_rt(sig, v.get("occ", False))) for sig in v["signals"]]
     return [(f"{sig} {n}", sig, sh_rts(sig)[k]) for sig in v["signals"]
             for n, k in (("SH0", 1), ("SH1", 3))]
 
@@ -445,6 +494,12 @@ class Scene:
             relax_punched[sig][..., 3][holes] = 0.0
             sh0, sh1 = fe.relax_pack_sh(torch.from_numpy(noisy), torch.from_numpy(hit), normal)
             relax_sh[sh_rts(sig)[0]], relax_sh[sh_rts(sig)[2]] = sh0.numpy(), sh1.numpy()
+        # the occlusion variants' binary AO: the scene's draw (diffuse) and a second one from
+        # the clean AO (specular); with holes on the punched pixels
+        rng = np.random.default_rng((self.seed, i, 1))
+        ao = {"diff": fd.ao_noisy,
+              "spec": (rng.random(fd.ao_clean.shape) < fd.ao_clean).astype(np.float32)}
+        ao_punched = {sig: np.where(holes, 0.0, a).astype(np.float32) for sig, a in ao.items()}
         dist = torch.from_numpy(fd.dist_to_occluder)
         penumbra = fe.sigma_pack_penumbra_directional(
             dist, self.gen.spec.light_tan_angular_radius).numpy()
@@ -452,8 +507,12 @@ class Scene:
         sigma = {RT.IN_VIEWZ: fd.view_z, RT.IN_MV: fd.mv, RT.IN_PENUMBRA: penumbra,
                  RT.IN_NORMAL_ROUGHNESS: base[RT.IN_NORMAL_ROUGHNESS]}
         pools = {}
-        for name, v in PATHS.items():
-            if v.get("cb"):  # half width: the has-data pixel of each pair
+        for name, v in {**PATHS, **OCC_CB}.items():
+            if v.get("occ"):
+                pools[name] = {**base, **{in_rt(sig, True): ao[sig] if not v.get("cb") else
+                                          half_width(ao[sig], cs.frameIndex, v["cb"])
+                                          for sig in v["signals"]}}
+            elif v.get("cb"):  # half width: the has-data pixel of each pair
                 src = relax if v.get("relax") else packed
                 pools[name] = {**base, **{in_rt(sig): half_width(src[sig], cs.frameIndex,
                                                                   v["cb"])
@@ -475,13 +534,16 @@ class Scene:
             pools[holes_name] = {**base, **{in_rt(sig): relax_punched[sig]
                                             for sig in PATHS[name]["signals"]}}
         pools[REBLUR_SH_HOLES] = {**base, **reblur_sh_punched}
+        pools[REBLUR_OCC_HOLES] = {**base, **{in_rt(sig, True): ao_punched[sig]
+                                              for sig in ("diff", "spec")}}
         for name, v in ENCODED.items():
             nr = self.gen.packed_normal_roughness(fd, re_=RoughnessEncoding[v["encoding"]])
             pools[name] = {**base, RT.IN_NORMAL_ROUGHNESS: nr, in_rt("spec"): relax_punched["spec"]}
         t = None
         if truth:
             t = dict(mask=fd.hit_mask > 0, diff=(fd.diff_clean, fd.diff_noisy),
-                     spec=(fd.spec_clean, fd.spec_noisy), shadow_clean=fd.shadow_clean)
+                     spec=(fd.spec_clean, fd.spec_noisy), shadow_clean=fd.shadow_clean,
+                     ao_clean=fd.ao_clean, ao=ao)
         return cs, pools, t
 
     def frames(self, n, workers=4):
@@ -556,7 +618,7 @@ def path_env(path):
 
 
 def path_engine(path, w, h, device):
-    v = PATHS[path] if path in PATHS else ENCODED[path]
+    v = path_spec(path)
     return engine(v.get("denoiser", path), w, h, device, v.get("encoding", "LINEAR"),
                   **v.get("settings", {}))
 
@@ -619,11 +681,18 @@ def _ops(name, a, k):
     # the SH luma scale after the clamp (H3, N5, K23)
     nsh = 0 if k.get("sh") is None and k.get("sh_history") is None else (
         len(k["sh"]) if isinstance(k.get("sh"), (tuple, list)) else 1)
+    # the one-channel (occlusion) instances: three channels' multiply-adds fewer a tap
+    occ = name in ("spatial_filter", "spatial_filter_fused", "history_fix", "history_fix_fused",
+                   "reblur_band") and a[0].shape[-1] == 1
+    tap_saved = 3 * TAP_CHANNEL_OPS if occ else 0
     if name == "smb_resolve":
-        ops += SMB_SIGNAL_OPS * px * (2 if k.get("second") is not None else 1)
+        nsig = 2 if k.get("second") is not None else 1
+        ops += SMB_SIGNAL_OPS * px * nsig
         ops += SH_HISTORY_OPS * nsh * px
+        ops -= 3 * CATROM_CHANNEL_OPS * px * nsig if a[9].shape[-1] == 1 else 0
     elif name == "vmb_resolve":
         ops += SH_HISTORY_OPS * nsh * px
+        ops -= 3 * CATROM_CHANNEL_OPS * px if a[6].shape[-1] == 1 else 0
     elif name == "ts_prelude":  # the specular half samples both motions
         spec = len(a) > 5 and a[5] is not None
         ops += (TS_SAMPLE_OPS * 2 + TS_SPEC_OPS if spec else TS_SAMPLE_OPS) * px
@@ -633,30 +702,32 @@ def _ops(name, a, k):
         prepass = k["mode"] == 0
         params = SF_PREPASS_PARAM_OPS[k["spec"]] if prepass else BAND_PARAM_OPS
         ops += (SF_GEOM_OPS + params) * px
-        ops += (SF_TAP_OPS + (SF_PREPASS_TAP_OPS if prepass and k["spec"] else 0)) * ntaps * px
+        ops += (SF_TAP_OPS + (SF_PREPASS_TAP_OPS if prepass and k["spec"] else 0)
+                - tap_saved) * ntaps * px
         ops += CB_STATE_OPS * px if k.get("cb") is not None else 0
         ops += (SH_TAP_OPS * ntaps + SH_OUT_OPS) * nsh * px
     elif name == "spatial_filter_fused":
         for params in (a[5], a[6]):
             extra = SF_PREPASS_TAP_OPS if sf.MODES[params.shape[0]] == "spec_prepass" else 0
-            ops += (SF_TAP_OPS + extra) * ntaps * px
+            ops += (SF_TAP_OPS + extra - tap_saved) * ntaps * px
         ops += 2 * CB_STATE_OPS * px if k.get("cb") is not None else 0
         ops += (SH_TAP_OPS * ntaps + SH_OUT_OPS) * nsh * px
     elif name == "history_fix":
         live = int((a[6][0] != 0.0).sum())
         ops += HF_MOMENT_OPS * px + (HF_RING_OPS * px if k.get("anti_firefly") else 0)
-        ops += HF_TAP_OPS * 20 * live + BAND_CLAMP_OPS * px
+        ops += (HF_TAP_OPS - tap_saved) * 20 * live + BAND_CLAMP_OPS * px
         ops += (SH_TAP_OPS * 20 * live + (SH_OUT_OPS + SH_SCALE_OPS) * px) * nsh
     elif name in ("history_fix_fused", "reblur_band"):
         af = k["anti_firefly"]
         per = [(a[9], af[0]), (a[10], af[1])]
         ops += 2 * BAND_CLAMP_OPS * px  # the clamp of each signal
         if name == "reblur_band":  # then the Blur and PostBlur of each signal
-            ops += 2 * 2 * (BAND_PARAM_OPS + SF_TAP_OPS * ntaps) * px
+            ops += 2 * 2 * (BAND_PARAM_OPS + (SF_TAP_OPS - tap_saved) * ntaps) * px
             ops += 2 * (SH_TAP_OPS * ntaps + SH_OUT_OPS) * nsh * px
         for params, ring in per:
             live = int((params[0] != 0.0).sum())
-            ops += HF_MOMENT_OPS * px + (HF_RING_OPS * px if ring else 0) + HF_TAP_OPS * 20 * live
+            ops += (HF_MOMENT_OPS * px + (HF_RING_OPS * px if ring else 0)
+                    + (HF_TAP_OPS - tap_saved) * 20 * live)
             ops += (SH_TAP_OPS * 20 * live + (SH_OUT_OPS + SH_SCALE_OPS) * px) * (nsh // 2)
     elif name == "hitdist_recon":
         taps = (2 * k["radius"] + 1) ** 2 - 1
@@ -999,7 +1070,10 @@ def kernel_runs():
     modes, timed); then the three REBLUR SH variants (every call in the SH modes, timed),
     each with the anti-firefly ring (the history fixes, held) and in performance mode (the
     spatial filters, held), REBLUR_DIFFUSE_SPECULAR_SH with AREA_3X3 on its frames with
-    holes (every call, held), and the band's SH mode with the band's runs."""
+    holes (every call, held), the three REBLUR occlusion variants (every call in the
+    one-channel modes, timed), REBLUR_DIFFUSE_SPECULAR_OCCLUSION with AREA_3X3 on its AO frames
+    with holes (hitdist_recon, timed), and the band's SH and one-channel modes with the band's
+    runs."""
     runs = []
     for v in REBLUR_VARIANTS:
         runs.append((v, v, v, {}, None, True))
@@ -1039,6 +1113,13 @@ def kernel_runs():
     ds_sh = "REBLUR_DIFFUSE_SPECULAR_SH"
     runs.append((f"{ds_sh} AREA_3X3", ds_sh, REBLUR_SH_HOLES,
                  dict(hitDistanceReconstructionMode="AREA_3X3"), None, False))
+    # the occlusion variants: every kernel in its one-channel mode, timed; hitdist_recon's
+    # one-channel mode on the AO frames with holes, timed
+    for v in REBLUR_OCC_VARIANTS:
+        runs.append((v, v, v, {}, None, True))
+    ds_occ = "REBLUR_DIFFUSE_SPECULAR_OCCLUSION"
+    runs.append((f"{ds_occ} AREA_3X3", ds_occ, REBLUR_OCC_HOLES,
+                 dict(hitDistanceReconstructionMode="AREA_3X3"), {"hitdist_recon"}, True))
     for v in ("REBLUR_DIFFUSE", "REBLUR_DIFFUSE_SPECULAR"):
         runs.append((f"{v} maxBlurRadius 0", v, v, dict(maxBlurRadius=0.0, minBlurRadius=0.0),
                      {"ts_prelude"}, False))
@@ -1214,7 +1295,10 @@ def kernel_phase(w, h, frames):
                 continue
             lab = label
             if name == "spatial_filter_fused":  # a frame's calls: PrePass, Blur, PostBlur
-                lab = f"{label} {next(stages)}"
+                stage = next(stages)  # the occlusion variants run no PrePass
+                if stage == "prepass" and k.get("prepass") is None:
+                    stage = next(stages)
+                lab = f"{label} {stage}"
             if name == "spatial_filter":
                 lab = f"{label} {SF_STAGES[k['mode']]}"
             key = name + "_cb" if k.get("cb") is not None else name
@@ -1230,8 +1314,8 @@ def kernel_phase(w, h, frames):
             # the à-trous ladder's calls are kept apart by stride
             if name == "relax_atrous":
                 lab = f"{label} step {k['step_size']}"
-            scratch = (BAND_SCRATCH_BYTES_PER_PX * a[0].shape[0] * a[0].shape[1]
-                       if name == "reblur_band" else 0)
+            scratch = (BAND_SCRATCH_BYTES_PER_PX * a[0].shape[-1] // 4 * a[0].shape[0]
+                       * a[0].shape[1] if name == "reblur_band" else 0)
             _hold(results, name, lab, a, k, timed is True or bool(timed and name in timed),
                   scratch, key)
     missing = (set(KM.MODULES) | set(KM.CB_INSTANCES)) - set(results)
@@ -1360,7 +1444,7 @@ def slice_phase(path, w, h, frames, warmup):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ms, host_ms = [], []
-    gains = {}
+    gains, ao_err = {}, {}
     KM.reset_launch_counts()
     for i, (cs, pools, truth) in enumerate(frames):
         pool = {k: torch.from_numpy(v).cuda() for k, v in pools[path].items()}
@@ -1374,13 +1458,23 @@ def slice_phase(path, w, h, frames, warmup):
         e1.record()
         torch.cuda.synchronize()
         host = (time.perf_counter() - t0) * 1e3
+        occ = PATHS[path].get("occ", False)
         for label, sig, rt in outputs_of(path):
             out = outs[rt]
-            c = 1 if path == "SIGMA_SHADOW" else 4
+            c = 1 if path == "SIGMA_SHADOW" or occ else 4
             if tuple(out.shape) != (h, w, c) or not bool(torch.isfinite(out).all()):
                 raise AssertionError(f"{path} frame {i} {label}: output not finite or of "
                                      f"shape {tuple(out.shape)}")
+            if occ and not (float(out.min()) >= 0.0 and float(out.max()) <= 1.0):
+                raise AssertionError(f"{path} frame {i} {label}: output outside [0, 1]: "
+                                     f"[{float(out.min())}, {float(out.max())}]")
             if truth is None or label.endswith("SH1"):  # SH1: finite and of its shape
+                continue
+            if occ:  # the mean absolute error to the clean AO on the geometry
+                m = truth["mask"]
+                ao_err[label] = (float(np.abs(truth["ao"][sig] - truth["ao_clean"])[m].mean()),
+                                 float(np.abs(out[..., 0].cpu().numpy()
+                                              - truth["ao_clean"])[m].mean()))
                 continue
             if sig == "shadow":
                 check_shadow(path, out, truth)
@@ -1417,6 +1511,12 @@ def slice_phase(path, w, h, frames, warmup):
         if not out_db >= noisy_db + 3.0:
             raise AssertionError(f"{path} {sig}: denoised output does not beat the noisy "
                                  f"input by 3 dB: {gains[sig]}")
+    for sig, (noisy_err, out_err) in ao_err.items():
+        log(f"slice {path} {sig}: mean absolute error to the clean AO on geometry: binary "
+            f"input {noisy_err:.4f}, denoised {out_err:.4f}")
+        if not out_err < noisy_err:
+            raise AssertionError(f"{path} {sig}: denoised AO is no closer to the clean AO than "
+                                 f"its binary input: {ao_err[sig]}")
     return counts, float(np.median(ms))
 
 
@@ -1518,7 +1618,7 @@ def profile_phase(path, w, h, frames, slice_ms, warmup=4, n=3):
 def card_vs_cpu_phase(w=256, h=160, frames=4):
     frames = list(Scene(w, h).frames(frames, workers=1))
     sq = "RELAX_SPECULAR+SQ_LINEAR"
-    for path in (*PATHS, sq):
+    for path in (*PATHS, sq, *OCC_CB):
         cuda, cpu = path_engine(path, w, h, "cuda"), path_engine(path, w, h, "cpu")
         worst = {label: float("inf") for label, _, _ in outputs_of(path)}
         for i, (cs, pools, _) in enumerate(frames):

@@ -1,9 +1,9 @@
 """Hand-written CUDA kernels (sm_90a) of the REBLUR_DIFFUSE, REBLUR_SPECULAR,
 REBLUR_DIFFUSE_SPECULAR (also under NRDTPU_REBLUR_BAND=1), SIGMA_SHADOW,
 SIGMA_SHADOW_TRANSLUCENCY, RELAX_DIFFUSE, RELAX_SPECULAR and RELAX_DIFFUSE_SPECULAR paths (the
-RELAX ones also with SH; the REBLUR and the non-SH RELAX ones also under checkerboard), one
-module each, and the halo-window launcher, which no path calls (as
-in the JAX package).
+REBLUR and RELAX ones also with SH, the REBLUR ones also on one channel for the occlusion
+variants; the REBLUR and the non-SH RELAX ones also under checkerboard), one module each, and
+the halo-window launcher, which no path calls (as in the JAX package).
 
 Every module holds the kernel's wrapper, its plain PyTorch version (`*_ref`) and a launch
 count (`launches`). The wrapper takes the plain version for CPU tensors and launches the

@@ -144,6 +144,15 @@ def check(name: str, t, device, dtype, shape):
         raise ValueError(f"{name}: not {record}-byte aligned")
 
 
+def channels(name: str, t, sh=None) -> int:
+    """A REBLUR signal's or history's channels: 4 (radiance), or 1 (the occlusion variants'
+    normalized hit distance, which has no SH: `sh` must be None). Raises on any other shape."""
+    c = t.shape[-1] if t.dim() == 3 else 0
+    if c not in (1, 4) or (c == 1 and sh is not None):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}; (h, w, 4), or (h, w, 1) without SH")
+    return c
+
+
 def kernel_device(t):
     """The device a wrapper runs on: None for CPU (plain version), else a CUDA device."""
     if t.device.type == "cpu":

@@ -18,6 +18,11 @@
 // spilled 32 / 76 B and ran 4 % slower on REBLUR_SPECULAR, PERF.md).
 // The SH variants (kSh): the signal's SH1 rides the taps and is scaled to the clamped luma
 // (reblur_filters.cuh:hf_filter, sh_luma_scale); the non-SH instances compile as before.
+// The occlusion variants (kOcc): the signal is the (h, w, 1) hit distance, one float a tap, and
+// the clamp takes it as the luma with sigma scale 1 and writes the clamped luma (reblur_filters.
+// cuh:hf_clamp; TPU reblur_hfix2.py:229 at c = 1, the XLA clamp kernels.py:685-728 with
+// occlusion); no ring (the occlusion variants force anti-firefly off). The four-channel
+// instances compile as before.
 #include "reblur_filters.cuh"
 
 namespace {
@@ -26,7 +31,7 @@ constexpr int kFixCtas = 4;
 
 // phase 0: the tap geometry, one thread a pixel; 1: the history fix and the clamp of signal
 // kSig
-template <int kPhase, int kSig, bool kSh>
+template <int kPhase, int kSig, bool kSh, bool kOcc = false>
 __global__ void __launch_bounds__(256, kPhase == 1 ? kFixCtas : 1)
     history_fix_kernel(nrd::HistoryFixArgs a) {
   if constexpr (kPhase == 0) {
@@ -36,7 +41,7 @@ __global__ void __launch_bounds__(256, kPhase == 1 ? kFixCtas : 1)
     nrd::write_tap_geometry(const_cast<float4*>(a.geometry), a.nr, a.view_z, a.f.view_z_scale,
                             (size_t)y * a.f.w + x);
   } else {
-    nrd::history_fix_cta<kSig, kSh>(a);
+    nrd::history_fix_cta<kSig, kSh, kOcc>(a);
   }
 }
 
@@ -46,7 +51,7 @@ __global__ void __launch_bounds__(256, kPhase == 1 ? kFixCtas : 1)
 //       geometry (scratch), sh and sh_out (SH only)
 // consts: frustum[4], rect_inv_w, rect_inv_h, view_z_scale, ortho_mode, min_material,
 //         specular mode (0 or 1), anti-firefly ring (0 or 1), the clamp's frame divisor and
-//         fast-history flag, SH (0 or 1)
+//         fast-history flag, SH (0 or 1), one-channel occlusion signal (0 or 1; not with SH)
 extern "C" int nrd_history_fix(void* const* p, const float* c, int w, int h, void* stream) {
   const int s = c[9] != 0.0f ? 1 : 0;  // the signal's slot: 0 diffuse, 1 specular
   nrd::HistoryFixArgs a{};
@@ -75,7 +80,9 @@ extern "C" int nrd_history_fix(void* const* p, const float* c, int w, int h, voi
   a.anti_firefly[s] = c[10] != 0.0f;
   a.clamp.frame_div = c[11];
   a.clamp.fast_enabled = c[12];
-  if ((s == 1 && a.smc == nullptr) || (sh && (a.sh[s] == nullptr || a.sh_out[s] == nullptr)))
+  const bool occ = c[14] != 0.0f;
+  if ((s == 1 && a.smc == nullptr) || (sh && (a.sh[s] == nullptr || a.sh_out[s] == nullptr)) ||
+      (sh && occ))
     return (int)cudaErrorInvalidValue;
   const dim3 block(nrd::kFixTile, nrd::kFixTile);
   const dim3 tiles((w + nrd::kFixTile - 1) / nrd::kFixTile,
@@ -84,6 +91,13 @@ extern "C" int nrd_history_fix(void* const* p, const float* c, int w, int h, voi
   history_fix_kernel<0, 0, false><<<tiles, block, 0, st>>>(a);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  if (occ) {
+    if (s == 0)
+      history_fix_kernel<1, 0, false, true><<<tiles, block, 0, st>>>(a);
+    else
+      history_fix_kernel<1, 1, false, true><<<tiles, block, 0, st>>>(a);
+    return (int)cudaGetLastError();
+  }
   switch (s * 2 + (sh ? 1 : 0)) {
     case 0: history_fix_kernel<1, 0, false><<<tiles, block, 0, st>>>(a); break;
     case 1: history_fix_kernel<1, 0, true><<<tiles, block, 0, st>>>(a); break;

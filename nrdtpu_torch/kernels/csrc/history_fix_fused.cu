@@ -19,6 +19,10 @@
 // The SH variants (kSh): each signal's SH1 rides its taps and is scaled to its clamped luma
 // (reblur_filters.cuh:hf_filter, sh_luma_scale; TPU reblur_fused.py:683, :721-722); the non-SH
 // instance compiles as before.
+// The occlusion variants (kOcc; TPU `occlusion`, reblur_fused.py:671, _hfix_post :76-108):
+// both signals are (h, w, 1) hit distances, one float a tap, each clamped as its own luma with
+// sigma scale 1 (reblur_filters.cuh:hf_clamp), written as one float a pixel; the four-channel
+// instances compile as before.
 #include "reblur_filters.cuh"
 
 namespace {
@@ -26,7 +30,7 @@ namespace {
 constexpr int kFixCtas = 5;
 
 // phase 0: the tap geometry, one thread a pixel; 1: the history fix and the clamp
-template <int kPhase, bool kSh>
+template <int kPhase, bool kSh, bool kOcc = false>
 __global__ void __launch_bounds__(256, kPhase == 1 ? kFixCtas : 1)
     history_fix_fused_kernel(nrd::HistoryFixArgs a) {
   if constexpr (kPhase == 0) {
@@ -36,7 +40,7 @@ __global__ void __launch_bounds__(256, kPhase == 1 ? kFixCtas : 1)
     nrd::write_tap_geometry(const_cast<float4*>(a.geometry), a.nr, a.view_z, a.f.view_z_scale,
                             (size_t)y * a.f.w + x);
   } else {
-    nrd::history_fix_cta<nrd::kBothSignals, kSh>(a);
+    nrd::history_fix_cta<nrd::kBothSignals, kSh, kOcc>(a);
   }
 }
 
@@ -47,22 +51,25 @@ __global__ void __launch_bounds__(256, kPhase == 1 ? kFixCtas : 1)
 //       SH only)
 // consts: frustum[4], rect_inv_w, rect_inv_h, view_z_scale, ortho_mode, diff_min_material,
 //         spec_min_material, diffuse anti-firefly ring (0 or 1), specular ring (0 or 1), the
-//         clamp's frame divisor and fast-history flag, SH (0 or 1)
+//         clamp's frame divisor and fast-history flag, SH (0 or 1), one-channel occlusion
+//         signals (0 or 1; not with SH: then diff, spec, out are (h, w, 1) a signal)
 extern "C" int nrd_history_fix_fused(void* const* p, const float* c, int w, int h,
                                      void* stream) {
   nrd::HistoryFixArgs x;
+  const bool occ = c[15] != 0.0f;
+  const size_t channels = occ ? 1 : 4;
   for (int s = 0; s < 2; ++s) {
     x.signal[s] = (const float*)p[s];
     x.data1[s] = (const float*)p[2 + s];
     x.fast[s] = (const float*)p[4 + s];
     x.params[s] = (const float*)p[6 + s];
-    x.out[s] = (float*)p[12] + (size_t)s * w * h * 4;
+    x.out[s] = (float*)p[12] + (size_t)s * w * h * channels;
     x.fast_out[s] = (float*)p[13] + (size_t)s * w * h;
     x.sh[s] = (const float*)p[15 + s];
     x.sh_out[s] = p[17] == nullptr ? nullptr : (float*)p[17] + (size_t)s * w * h * 4;
   }
   const bool sh = c[14] != 0.0f;
-  if (sh && (x.sh[0] == nullptr || x.sh[1] == nullptr || p[17] == nullptr))
+  if ((sh && (x.sh[0] == nullptr || x.sh[1] == nullptr || p[17] == nullptr)) || (sh && occ))
     return (int)cudaErrorInvalidValue;
   x.view_z = (const float*)p[8];
   x.nr = (const float*)p[9];
@@ -89,7 +96,9 @@ extern "C" int nrd_history_fix_fused(void* const* p, const float* c, int w, int 
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(2 * tiles.x, tiles.y);  // one CTA per (tile, signal)
-  if (sh)
+  if (occ)
+    history_fix_fused_kernel<1, false, true><<<grid, block, 0, (cudaStream_t)stream>>>(x);
+  else if (sh)
     history_fix_fused_kernel<1, true><<<grid, block, 0, (cudaStream_t)stream>>>(x);
   else
     history_fix_fused_kernel<1, false><<<grid, block, 0, (cudaStream_t)stream>>>(x);

@@ -6,7 +6,7 @@
 // nrdtpu_torch/kernels/hitdist_recon.py:hitdist_recon_ref.
 //
 // Design for the H100: one thread a pixel, 16x16 CTAs, a kernel per (radius, signals,
-// roughness encoding): hitdist_recon_kernel<kRadius, kSig, kRough>.
+// roughness encoding, channels): hitdist_recon_kernel<kRadius, kSig, kRough, kOcc>.
 //   - Every texel is a tap of up to 24 pixels. Each CTA stages its (16 + 2r)^2 window of derived
 //     texels in shared memory: the unpacked normal and the scaled |viewZ| (one float4), the
 //     roughness decoded by the encoding (common.cuh:decode_roughness) and each signal's hit
@@ -22,6 +22,9 @@
 //     tap texel's own uv, as the plain version takes it (the two differ in the last bit), so
 //     the window holds the scaled z and not view positions.
 //   - Each signal is written whole: .xyz copied, .w reconstructed (the glue concatenated them).
+//   - kOcc, the occlusion variants: each signal is its (h, w, 1) hit distance, read and written
+//     as one float a pixel (the TPU kernel at c = 1); the four-channel instances compile as
+//     before.
 #include "reblur_filters.cuh"
 
 namespace {
@@ -37,7 +40,9 @@ struct HdArgs {
   const float* view_z;  // (h, w) raw viewZ
   const float* nr;      // (h, w, 4) packed normal/roughness/material
   const float* sig[2];  // (h, w, 4) diffuse and specular signals; .w is the hit distance
-  float* out[2];        // (h, w, 4) the signals with the reconstructed hit distance
+                        // (kOcc: (h, w, 1), the hit distance)
+  float* out[2];        // (h, w, 4) the signals with the reconstructed hit distance (kOcc:
+                        // (h, w, 1))
   int w, h;
   float view_z_scale, fr[4], ortho, rinv_x, rinv_y;
   float m[9];           // world_to_view rotation, row-major
@@ -61,17 +66,18 @@ struct Texel {
   float hit[2];
 };
 
-template <int kRadius, int kSig>
+template <int kRadius, int kSig, bool kOcc>
 __device__ __forceinline__ Texel load_texel(const HdArgs& a, int ox, int oy, int k) {
   constexpr int side = Window<kRadius, kSig>::kSide;
+  constexpr int kC = kOcc ? 1 : 4;  // the signal's channels; the hit distance is the last
   const int tx = nrd::clampi(ox + k % side, 0, a.w - 1);
   const int ty = nrd::clampi(oy + k / side, 0, a.h - 1);
   const size_t j = (size_t)ty * a.w + tx;
   Texel t;
   t.z = __ldg(a.view_z + j);
   t.nr = __ldg(reinterpret_cast<const float4*>(a.nr) + j);
-  t.hit[0] = kSig & kDiff ? __ldg(a.sig[0] + 4 * j + 3) : 0.0f;
-  t.hit[1] = kSig & kSpec ? __ldg(a.sig[1] + 4 * j + 3) : 0.0f;
+  t.hit[0] = kSig & kDiff ? __ldg(a.sig[0] + kC * j + (kC - 1)) : 0.0f;
+  t.hit[1] = kSig & kSpec ? __ldg(a.sig[1] + kC * j + (kC - 1)) : 0.0f;
   return t;
 }
 
@@ -86,7 +92,7 @@ __device__ __forceinline__ void stage(const HdArgs& a, Window<kRadius, kSig>& wn
   if constexpr ((kSig & kSpec) != 0) wnd.hit[s][k] = t.hit[1];
 }
 
-template <int kRadius, int kSig, int kRough>
+template <int kRadius, int kSig, int kRough, bool kOcc = false>
 __global__ void __launch_bounds__(kThreads, kMinCtas) hitdist_recon_kernel(HdArgs a) {
   using Wnd = Window<kRadius, kSig>;
   constexpr int side = Wnd::kSide;
@@ -96,17 +102,18 @@ __global__ void __launch_bounds__(kThreads, kMinCtas) hitdist_recon_kernel(HdArg
   const int x = ox + kRadius + (int)threadIdx.x, y = oy + kRadius + (int)threadIdx.y;
   const bool inside = x < a.w && y < a.h;
   const size_t i = inside ? (size_t)y * a.w + x : 0;
-  // the pixel's own signals, then its two window texels: every load issued first
+  // the pixel's own signals (kOcc: nothing beside the hit distance), then its two window
+  // texels: every load issued first
   float4 centre[2];
 #pragma unroll
   for (int s = 0; s < 2; ++s)
-    centre[s] = (s == 0 ? kSig & kDiff : kSig & kSpec) && inside
+    centre[s] = (s == 0 ? kSig & kDiff : kSig & kSpec) && inside && !kOcc
                     ? __ldg(reinterpret_cast<const float4*>(a.sig[s]) + i)
                     : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   const int t0 = threadIdx.y * kTile + threadIdx.x, t1 = t0 + kThreads;
   const bool two = t1 < Wnd::kTexels;
-  const Texel s0 = load_texel<kRadius, kSig>(a, ox, oy, t0);
-  const Texel s1 = load_texel<kRadius, kSig>(a, ox, oy, two ? t1 : t0);
+  const Texel s0 = load_texel<kRadius, kSig, kOcc>(a, ox, oy, t0);
+  const Texel s1 = load_texel<kRadius, kSig, kOcc>(a, ox, oy, two ? t1 : t0);
   stage<kRadius, kSig, kRough>(a, wnd, t0, s0);
   if (two) stage<kRadius, kSig, kRough>(a, wnd, t1, s1);
   __syncthreads();
@@ -176,25 +183,34 @@ __global__ void __launch_bounds__(kThreads, kMinCtas) hitdist_recon_kernel(HdArg
 
 #pragma unroll
   for (int s = 0; s < 2; ++s)
-    if (s == 0 ? kSig & kDiff : kSig & kSpec)
-      reinterpret_cast<float4*>(a.out[s])[i] =
-          make_float4(centre[s].x, centre[s].y, centre[s].z, acc[s] / fmaxf(sum[s], 1e-6f));
+    if (s == 0 ? kSig & kDiff : kSig & kSpec) {
+      if constexpr (kOcc)
+        a.out[s][i] = acc[s] / fmaxf(sum[s], 1e-6f);
+      else
+        reinterpret_cast<float4*>(a.out[s])[i] =
+            make_float4(centre[s].x, centre[s].y, centre[s].z, acc[s] / fmaxf(sum[s], 1e-6f));
+    }
 }
 
 using Kernel = void (*)(HdArgs);
 
-template <int kRadius, int kSig>
+template <int kRadius, int kSig, bool kOcc>
 Kernel pick_rough(int rough) {
-  return rough == 0   ? hitdist_recon_kernel<kRadius, kSig, 0>
-         : rough == 1 ? hitdist_recon_kernel<kRadius, kSig, 1>
-                      : hitdist_recon_kernel<kRadius, kSig, 2>;
+  return rough == 0   ? hitdist_recon_kernel<kRadius, kSig, 0, kOcc>
+         : rough == 1 ? hitdist_recon_kernel<kRadius, kSig, 1, kOcc>
+                      : hitdist_recon_kernel<kRadius, kSig, 2, kOcc>;
+}
+
+template <int kRadius, bool kOcc>
+Kernel pick_sig(int sig, int rough) {
+  return sig == kDiff   ? pick_rough<kRadius, kDiff, kOcc>(rough)
+         : sig == kSpec ? pick_rough<kRadius, kSpec, kOcc>(rough)
+                        : pick_rough<kRadius, kDiff | kSpec, kOcc>(rough);
 }
 
 template <int kRadius>
-Kernel pick(int sig, int rough) {
-  return sig == kDiff   ? pick_rough<kRadius, kDiff>(rough)
-         : sig == kSpec ? pick_rough<kRadius, kSpec>(rough)
-                        : pick_rough<kRadius, kDiff | kSpec>(rough);
+Kernel pick(int sig, int rough, bool occ) {
+  return occ ? pick_sig<kRadius, true>(sig, rough) : pick_sig<kRadius, false>(sig, rough);
 }
 
 }  // namespace
@@ -202,7 +218,8 @@ Kernel pick(int sig, int rough) {
 // ptrs: view_z, nr, diff signal, spec signal, diff out, spec out (an absent signal's: null)
 // consts: radius, has_diff, has_spec, view_z_scale, frustum[4], ortho, rinv[2], m[9],
 //         roughness mode (0 LINEAR, 1 SQRT_LINEAR, 2 SQ_LINEAR), min_rect_dim_mul_unproject,
-//         plane_dist_sensitivity, normal encoding error, the Gaussian weight of each tap
+//         plane_dist_sensitivity, normal encoding error, one-channel signals (0 or 1), the
+//         Gaussian weight of each tap
 extern "C" int nrd_hitdist_recon(void* const* p, const float* c, int w, int h, void* stream) {
   HdArgs a;
   a.view_z = (const float*)p[0];
@@ -229,11 +246,12 @@ extern "C" int nrd_hitdist_recon(void* const* p, const float* c, int w, int h, v
       ((sig & kDiff) && (a.sig[0] == nullptr || a.out[0] == nullptr)) ||
       ((sig & kSpec) && (a.sig[1] == nullptr || a.out[1] == nullptr)))
     return (int)cudaErrorInvalidValue;
+  const bool occ = c[24] != 0.0f;
   const int taps = (2 * radius + 1) * (2 * radius + 1) - 1;
-  for (int k = 0; k < kMaxTaps; ++k) a.gauss[k] = k < taps ? c[24 + k] : 0.0f;
+  for (int k = 0; k < kMaxTaps; ++k) a.gauss[k] = k < taps ? c[25 + k] : 0.0f;
   const dim3 block(kTile, kTile);
   const dim3 grid((w + kTile - 1) / kTile, (h + kTile - 1) / kTile);
-  const Kernel kernel = radius == 1 ? pick<1>(sig, rough) : pick<2>(sig, rough);
+  const Kernel kernel = radius == 1 ? pick<1>(sig, rough, occ) : pick<2>(sig, rough, occ);
   kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

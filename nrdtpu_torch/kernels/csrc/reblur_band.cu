@@ -30,6 +30,11 @@
 // signal's SH1 as N5's and N4's SH modes do (reblur_filters.cuh:hf_filter, sh_luma_scale,
 // sf_filter), sh2 and sh3 in two more float32 scratch planes; the non-SH instances compile as
 // before.
+// The occlusion variants (kOcc; TPU `occlusion`, reblur_band.py:497, _blur_params :192): both
+// signals are (h, w, 1) hit distances, one float a tap, in phases 1-3: N5's one-channel body,
+// then H2's rule in the Blur / PostBlur parameters (the min hit-distance weight without its
+// sqrt(nlas)); sig2, sig3 and the output are one float a pixel a signal. The four-channel
+// instances compile as before.
 #include "reblur_filters.cuh"
 
 namespace {
@@ -48,8 +53,8 @@ struct BandArgs {
   // `shared`), the tap geometry (scratch), sig2 (scratch) and fast2
   nrd::HistoryFixArgs fix;
   const float* planes;     // (kBandPlanes, h, w)
-  float* sig3;             // (2, h, w, 4) scratch: Blur output
-  float* out;              // (2, h, w, 4) PostBlur output
+  float* sig3;             // (2, h, w, 4) scratch: Blur output ((2, h, w, 1) with kOcc)
+  float* out;              // (2, h, w, 4) PostBlur output ((2, h, w, 1) with kOcc)
   float* sh3;              // (2, h, w, 4) scratch: the Blur's SH (kSh; sh2 is fix.sh_out)
   float* out_sh;           // (2, h, w, 4) the PostBlur's SH (kSh)
   nrd::SfFrame sf;
@@ -68,39 +73,44 @@ __device__ __forceinline__ Cta cta() {
 }
 
 // Blur (stage 0: sig2 -> sig3) or PostBlur (stage 1: sig3 -> out) of one signal; kSh: its SH
-// too (sh2 -> sh3, sh3 -> out_sh)
-template <int kTaps, bool kSpec, bool kSh>
+// too (sh2 -> sh3, sh3 -> out_sh); kOcc: the one-channel signal
+template <int kTaps, bool kSpec, bool kSh, bool kOcc>
 __device__ __forceinline__ void blur_pixel(const BandArgs& a, int stage, int x, int y) {
   constexpr int s = kSpec ? 1 : 0;
+  constexpr int kC = kOcc ? 1 : 4;  // the signal's channels, the hit distance the last
   const nrd::HistoryFixArgs& fx = a.fix;
   const int w = fx.f.w, h = fx.f.h;
   const size_t i = (size_t)y * w + x, plane = (size_t)w * h;
   const Image<float, 4> nr{fx.nr, w, h};
-  const float* src = stage == 0 ? fx.out[s] : a.sig3 + 4 * s * plane;
-  float* dst = (stage == 0 ? a.sig3 : a.out) + 4 * s * plane;
+  const float* src = stage == 0 ? fx.out[s] : a.sig3 + kC * s * plane;
+  float* dst = (stage == 0 ? a.sig3 : a.out) + kC * s * plane;
   const nrd::StageConsts& k = a.stage[stage];
   // the centre's geometry: sf_filter reads what hf_centre loads but the frustum size
   const nrd::Centre c = nrd::hf_centre(a.planes + i, plane, nr, x, y);
   const float* P = a.planes + i;
   const float nov = __ldg(P + BP_NOV * plane);
-  const float hit_dist = __ldg(src + 4 * i + 3);
+  const float hit_dist = __ldg(src + kC * i + (kC - 1));
   const float data1 = __ldg(fx.data1[s] + i);
   constexpr int nparams = kSpec ? nrd::kSfSpecParams : nrd::kSfDiffParams;
   constexpr nrd::SfMode mode = kSpec ? nrd::SfMode::kSpec : nrd::SfMode::kDiffuse;
   float prm[nparams];
   if constexpr (kSpec)
-    nrd::spec_blur_params(a.blur, k, hit_dist, data1, __ldg(P + BP_HDS_SPEC * plane), c.fsz,
-                          nov, __ldg(P + BP_ROUGH * plane), __ldg(P + BP_SMC * plane), prm);
+    nrd::spec_blur_params<kOcc>(a.blur, k, hit_dist, data1, __ldg(P + BP_HDS_SPEC * plane),
+                                c.fsz, nov, __ldg(P + BP_ROUGH * plane),
+                                __ldg(P + BP_SMC * plane), prm);
   else
-    nrd::diff_blur_params(a.blur, k, hit_dist, data1, __ldg(P + BP_HDS_DIFF * plane), c.fsz,
-                          nov, c.nv.x, c.nv.y, prm);
+    nrd::diff_blur_params<kOcc>(a.blur, k, hit_dist, data1, __ldg(P + BP_HDS_DIFF * plane),
+                                c.fsz, nov, c.nv.x, c.nv.y, prm);
   float out[4], sh_out[4];
   const float* sh_src = stage == 0 ? fx.sh_out[s] : a.sh3 + 4 * s * plane;
-  nrd::sf_filter<kTaps, mode, false, kSh>(a.sf, c, prm, 1, fx.min_material[s],
-                                          Image<float, 4>{src, w, h},
-                                          nrd::UnpackedTaps{fx.geometry, nr}, out, nullptr, 1.0f,
-                                          sh_src, sh_out);
-  reinterpret_cast<float4*>(dst)[i] = make_float4(out[0], out[1], out[2], out[3]);
+  nrd::sf_filter<kTaps, mode, false, kSh, kOcc>(a.sf, c, prm, 1, fx.min_material[s],
+                                                Image<float, 4>{src, w, h},
+                                                nrd::UnpackedTaps{fx.geometry, nr}, out, nullptr,
+                                                1.0f, sh_src, sh_out);
+  if constexpr (kOcc)
+    dst[i] = out[3];
+  else
+    reinterpret_cast<float4*>(dst)[i] = make_float4(out[0], out[1], out[2], out[3]);
   if constexpr (kSh) {
     float* sh_dst = (stage == 0 ? a.sh3 : a.out_sh) + 4 * s * plane;
     reinterpret_cast<float4*>(sh_dst)[i] = make_float4(sh_out[0], sh_out[1], sh_out[2], sh_out[3]);
@@ -108,8 +118,8 @@ __device__ __forceinline__ void blur_pixel(const BandArgs& a, int stage, int x, 
 }
 
 // phase 0: the geometry; 1: the history fix and the clamp; 2: Blur; 3: PostBlur. kTaps: the
-// Poisson taps of phases 2 and 3 (8, or 6 in performance mode)
-template <int kPhase, int kTaps, bool kSh>
+// Poisson taps of phases 2 and 3 (8, or 6 in performance mode); kOcc: the one-channel signals
+template <int kPhase, int kTaps, bool kSh, bool kOcc = false>
 __global__ void __launch_bounds__(kThreads, kPhase == 1 ? kFixCtas : kBlurCtas)
     reblur_band_kernel(BandArgs a) {
   const int w = a.fix.f.w, h = a.fix.f.h;
@@ -119,29 +129,31 @@ __global__ void __launch_bounds__(kThreads, kPhase == 1 ? kFixCtas : kBlurCtas)
     nrd::write_tap_geometry(const_cast<float4*>(a.fix.geometry), a.fix.nr, a.fix.view_z,
                             a.fix.f.view_z_scale, (size_t)y * w + x);
   } else if constexpr (kPhase == 1) {
-    nrd::history_fix_cta<nrd::kBothSignals, kSh>(a.fix);
+    nrd::history_fix_cta<nrd::kBothSignals, kSh, kOcc>(a.fix);
   } else {
     const Cta t = cta();
     if (t.x >= w || t.y >= h) return;
     if (t.s == 0)
-      blur_pixel<kTaps, false, kSh>(a, kPhase - 2, t.x, t.y);
+      blur_pixel<kTaps, false, kSh, kOcc>(a, kPhase - 2, t.x, t.y);
     else
-      blur_pixel<kTaps, true, kSh>(a, kPhase - 2, t.x, t.y);
+      blur_pixel<kTaps, true, kSh, kOcc>(a, kPhase - 2, t.x, t.y);
   }
 }
 
 using Kernel = void (*)(BandArgs);
 
 // the four launches of one mode, in stream order
-template <bool kSh>
+template <bool kSh, bool kOcc = false>
 cudaError_t launch(const BandArgs& a, int ntaps, dim3 tiles, dim3 grid, dim3 block,
                    cudaStream_t st) {
-  const Kernel blur = ntaps == 8 ? reblur_band_kernel<2, 8, kSh> : reblur_band_kernel<2, 6, kSh>;
-  const Kernel post = ntaps == 8 ? reblur_band_kernel<3, 8, kSh> : reblur_band_kernel<3, 6, kSh>;
+  const Kernel blur =
+      ntaps == 8 ? reblur_band_kernel<2, 8, kSh, kOcc> : reblur_band_kernel<2, 6, kSh, kOcc>;
+  const Kernel post =
+      ntaps == 8 ? reblur_band_kernel<3, 8, kSh, kOcc> : reblur_band_kernel<3, 6, kSh, kOcc>;
   reblur_band_kernel<0, 8, false><<<tiles, block, 0, st>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  reblur_band_kernel<1, 8, kSh><<<grid, block, 0, st>>>(a);
+  reblur_band_kernel<1, 8, kSh, kOcc><<<grid, block, 0, st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   blur<<<grid, block, 0, st>>>(a);
@@ -162,10 +174,13 @@ cudaError_t launch(const BandArgs& a, int ntaps, dim3 tiles, dim3 grid, dim3 blo
 //         fast-history flag, the fade's a and b - a, max and min blur radius, lobe angle
 //         fraction and 1 - it, encoding error, the Blur and PostBlur rotators, and per stage
 //         (Blur, PostBlur) fraction scale, radius scale, min hit-distance weight scale, scaled
-//         roughness fraction; then SH (0 or 1)
+//         roughness fraction; then SH (0 or 1), one-channel occlusion signals (0 or 1; not with
+//         SH: diff, spec, sig2, sig3 and out one float a pixel a signal)
 extern "C" int nrd_reblur_band(void* const* p, const float* c, int w, int h, void* stream) {
   BandArgs a;
   nrd::HistoryFixArgs& x = a.fix;
+  const bool occ = c[41] != 0.0f;
+  const size_t channels = occ ? 1 : 4;
   for (int s = 0; s < 2; ++s) {
     x.signal[s] = (const float*)p[s];
     x.data1[s] = (const float*)p[2 + s];
@@ -178,10 +193,10 @@ extern "C" int nrd_reblur_band(void* const* p, const float* c, int w, int h, voi
   x.shared = a.planes;
   x.smc = a.planes + (size_t)BP_SMC * w * h;
   float* sig2 = (float*)p[11];
-  a.sig3 = sig2 + (size_t)2 * w * h * 4;
-  x.geometry = reinterpret_cast<const float4*>(a.sig3 + (size_t)2 * w * h * 4);
+  a.sig3 = sig2 + (size_t)2 * w * h * channels;
+  x.geometry = reinterpret_cast<const float4*>(a.sig3 + (size_t)2 * w * h * channels);
   for (int s = 0; s < 2; ++s) {
-    x.out[s] = sig2 + (size_t)s * w * h * 4;
+    x.out[s] = sig2 + (size_t)s * w * h * channels;
     x.fast_out[s] = (float*)p[12] + (size_t)s * w * h;
   }
   a.out = (float*)p[13];
@@ -193,7 +208,7 @@ extern "C" int nrd_reblur_band(void* const* p, const float* c, int w, int h, voi
     x.sh[s] = (const float*)p[14 + s];
     x.sh_out[s] = sh2 + (size_t)s * w * h * 4;
   }
-  if (sh && (x.sh[0] == nullptr || x.sh[1] == nullptr || a.out_sh == nullptr))
+  if ((sh && (x.sh[0] == nullptr || x.sh[1] == nullptr || a.out_sh == nullptr)) || (sh && occ))
     return (int)cudaErrorInvalidValue;
 
   x.f.w = a.sf.w = w;
@@ -239,6 +254,7 @@ extern "C" int nrd_reblur_band(void* const* p, const float* c, int w, int h, voi
   const dim3 tiles((w + kTileX - 1) / kTileX, (h + kTileY - 1) / kTileY);
   const dim3 grid(2 * tiles.x, tiles.y);
   const cudaStream_t st = (cudaStream_t)stream;
-  return (int)(sh ? launch<true>(a, ntaps, tiles, grid, block, st)
-                  : launch<false>(a, ntaps, tiles, grid, block, st));
+  return (int)(occ  ? launch<false, true>(a, ntaps, tiles, grid, block, st)
+               : sh ? launch<true>(a, ntaps, tiles, grid, block, st)
+                    : launch<false>(a, ntaps, tiles, grid, block, st));
 }

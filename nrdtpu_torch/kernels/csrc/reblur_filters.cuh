@@ -20,6 +20,13 @@
 // plain version's division in the last bit (measured: no value of frame 4 at 2560x1440 moves
 // outside the tolerance that chip_smoke.py holds, PERF.md); every other step is the plain
 // version's float32 op, in its order.
+//
+// The occlusion variants (kOcc, a template parameter of the tap loops, the clamp and the
+// Blur / PostBlur parameters) filter one channel, the (h, w, 1) normalized hit distance: a
+// tap reads it as one float into the .w lane of the radiance code's float4 (signal_texel), the
+// lane that every weight reads as the hit distance, so the loops run the radiance code
+// unchanged and the sums of .xyz, zeros that no output reads, are dead code. The callers then
+// write .w alone. The four-channel instances compile as before.
 #pragma once
 
 #include "common.cuh"
@@ -65,6 +72,16 @@ struct UnpackedTaps {
 __device__ __forceinline__ float4 unpacked_geometry(float4 nr, float raw_z, float view_z_scale) {
   const V3 n = unpack_normal(nr.x, nr.y);
   return make_float4(n.x, n.y, n.z, fabsf(raw_z) * view_z_scale);
+}
+
+// A signal's texel through the read-only path: the (h, w, 4) record as one float4, or with kOcc
+// the (h, w, 1) hit distance as one float, in .w (the index is sig's pixel index either way)
+template <bool kOcc>
+__device__ __forceinline__ float4 signal_texel(const Image<float, 4>& sig, int x, int y) {
+  if constexpr (kOcc)
+    return make_float4(0.0f, 0.0f, 0.0f, __ldg(sig.p + sig.index(x, y)));
+  else
+    return sig.at4(x, y);
 }
 
 // the record of pixel i, written by the prologue of N5 and K23 (one thread a pixel)
@@ -163,9 +180,10 @@ __device__ __forceinline__ Centre sf_centre(const float* P, size_t plane,
 // taps read the expanded signal. kSh, the SH variants: the signal's SH1 (sh, (h, w, 4)) rides
 // the taps, each tap's SH weighed by the tap's final weight and the centre by 1; the diffuse
 // mode sums all four channels, the specular modes three and keep the centre's .w
-// (nrdtpu/passes/reblur/kernels.py:870-877, :1751-1761, :2186-2193); written to sh_out. Returns
-// the weight sum.
-template <int kTaps, SfMode kMode, bool kCb = false, bool kSh = false, typename Taps>
+// (nrdtpu/passes/reblur/kernels.py:870-877, :1751-1761, :2186-2193); written to sh_out. kOcc:
+// the one-channel signal (signal_texel), its result in out[3]. Returns the weight sum.
+template <int kTaps, SfMode kMode, bool kCb = false, bool kSh = false, bool kOcc = false,
+          typename Taps>
 __device__ __forceinline__ float sf_filter(const SfFrame& f, const Centre& c, const float* P,
                                            size_t plane, float min_material,
                                            const Image<float, 4>& sig, const Taps& taps,
@@ -173,6 +191,8 @@ __device__ __forceinline__ float sf_filter(const SfFrame& f, const Centre& c, co
                                            float centre_weight = 1.0f,
                                            const float* sh = nullptr, float* sh_out = nullptr) {
   static_assert(!(kCb && kSh), "the checkerboard PrePass takes no SH");
+  static_assert(!(kOcc && (kCb || kSh || kMode == SfMode::kPrepass)),
+                "the occlusion variants run Blur and PostBlur only, without SH");
   constexpr bool spec = kMode != SfMode::kDiffuse, prepass = kMode == SfMode::kPrepass;
   const float r0 = P[SF_ROT0 * plane], r1 = P[SF_ROT1 * plane], r2 = P[SF_ROT2 * plane],
               r3 = P[SF_ROT3 * plane];
@@ -192,7 +212,7 @@ __device__ __forceinline__ float sf_filter(const SfFrame& f, const Centre& c, co
   }
 
   float sum = kCb ? centre_weight : 1.0f;
-  const float4 cs = sig.at4(c.x, c.y);
+  const float4 cs = signal_texel<kOcc>(sig, c.x, c.y);
   float acc[4] = {cs.x, cs.y, cs.z, cs.w};
   if constexpr (kCb) {
 #pragma unroll
@@ -221,7 +241,8 @@ __device__ __forceinline__ float sf_filter(const SfFrame& f, const Centre& c, co
     const TapGeometry g = taps.at(sx, sy);
     const float zs = g.z;
     const V3 xvs = reconstruct_view_position(us, vs, f.fr, zs, f.ortho);
-    const float4 s_tap = sig.at4(sx, sy);  // issued before the weights, used where w_ != 0
+    const float4 s_tap = signal_texel<kOcc>(sig, sx, sy);  // issued before the weights, used
+                                                           // where w_ != 0
     float4 sh_tap = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     if constexpr (kSh) sh_tap = shi.at4(sx, sy);
     float w_ = in_screen_nearest(us, vs);
@@ -390,20 +411,22 @@ __device__ __forceinline__ void anti_firefly_moments(const Img& fast, int x, int
 
 // One signal's 20 stride taps (5x5 without centre and corners). P points at the pixel in the
 // signal's (5 | 9, h, w) planes; kSpec adds the relaxed roughness weight and the low-roughness
-// hitT guide. Writes the reconstructed signal, or the centre where the stride is 0. kSh, the SH
+// hitT guide. Writes the reconstructed signal, or the centre where the stride is 0 (kOcc: the
+// one-channel signal, in out[3]). kSh, the SH
 // variants: the signal's SH1 (sh, (h, w, 4)) rides the taps, all four channels weighed by each
 // tap's final weight and the centre by 1 + its accumulation speed
 // (nrdtpu/passes/reblur/kernels.py:622, :671-675, :680-683: on the specular signal this
 // averages the TA's roughness in .w too), written to sh_out; where the stride is 0 it passes.
-template <bool kSpec, bool kSh = false, typename Taps>
+template <bool kSpec, bool kSh = false, bool kOcc = false, typename Taps>
 __device__ __forceinline__ void hf_filter(const HfFrame& f, const Centre& c, const float* P,
                                           size_t plane, float min_material,
                                           const Image<float, 4>& sig,
                                           const Image<float, 1>& data1, const Taps& taps,
                                           float out[4], const float* sh = nullptr,
                                           float* sh_out = nullptr) {
+  static_assert(!(kOcc && kSh), "the occlusion variants have no SH");
   const float stride = P[HF_STRIDE * plane];
-  const float4 cs = sig.at4(c.x, c.y);
+  const float4 cs = signal_texel<kOcc>(sig, c.x, c.y);
   const float center[4] = {cs.x, cs.y, cs.z, cs.w};
   const Image<float, 4> shi{sh, sig.w, sig.h};
   float4 shc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -447,7 +470,7 @@ __device__ __forceinline__ void hf_filter(const HfFrame& f, const Centre& c, con
 
       const TapGeometry g = taps.at(px, py);
       const V3 xvs = reconstruct_view_position(us, vs, f.fr, g.z, f.ortho);
-      const float4 s_tap = sig.at4(px, py);  // issued before the weights
+      const float4 s_tap = signal_texel<kOcc>(sig, px, py);  // issued before the weights
       float4 sh_tap = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       if constexpr (kSh) sh_tap = shi.at4(px, py);
       float w_ = in_screen_nearest(us, vs);
@@ -540,25 +563,31 @@ __device__ __forceinline__ void roughness_weight_params(float roughness, float f
 // the history fix's clamp (params.py:history_fix_clamp) of one signal, in place: the
 // fast-history mix, the anti-firefly clamp to the ring's moments (ring), the clamp to the
 // 3x3 moments, ChangeLuma. smc: the specular magic curve (spec only). Returns the clamped
-// luma, which the SH variants' SH1 is scaled to (sh_luma_scale).
+// luma, which the SH variants' SH1 is scaled to (sh_luma_scale). kOcc: the luma is the hit
+// distance in sig[3], the sigma scale 1, and the clamped luma replaces it.
 struct HfClampConsts {
   float frame_div, fast_enabled;  // historyFixFrameNum + NRD_EPS; 1 if the fast history is on
 };
 
+template <bool kOcc = false>
 __device__ __forceinline__ float hf_clamp(const HfClampConsts& k, float sig[4], float frame_num,
                                           float fast, float m1, float m2, bool ring, float am1,
                                           float am2, bool spec, float smc, float* fast_out) {
   float f = saturate(frame_num / k.frame_div);
   if (spec) f = 1.0f + (f - 1.0f) * smc;
-  float luma = sig[0];
+  float luma = kOcc ? sig[3] : sig[0];
   *fast_out = luma + (fast - luma) * f;
-  const float sigma = sqrtf(fabsf(m2 - m1 * m1)) * 2.0f;
+  const float sigma = kOcc ? sqrtf(fabsf(m2 - m1 * m1)) : sqrtf(fabsf(m2 - m1 * m1)) * 2.0f;
   if (ring) {
     const float asig = sqrtf(fabsf(am2 - am1 * am1)) * 2.0f;
     luma = fminf(fmaxf(luma, am1 - asig), am1 + asig);
   }
   const float clamped = fminf(fmaxf(luma, m1 - sigma), m1 + sigma);
   luma = clamped + (luma - clamped) * (1.0f / (1.0f + k.fast_enabled * frame_num * 2.0f));
+  if constexpr (kOcc) {
+    sig[3] = luma;
+    return luma;
+  }
   const float scale = (luma + (float)1e-6) / (sig[0] + (float)1e-6);
 #pragma unroll
   for (int q = 0; q < 3; ++q) sig[q] = sig[q] * scale;
@@ -600,7 +629,9 @@ __device__ __forceinline__ float blur_nlas(const BlurConsts& k, float data1, flo
 }
 
 // diffuse: hit_dist the signal's normalized hit distance; hds, fsz the hit-distance scale
-// and the frustum size; nvx, nvy the view-space normal (screen-space skew)
+// and the frustum size; nvx, nvy the view-space normal (screen-space skew). kOcc: the min
+// hit-distance weight without its sqrt(nlas) (params.py, nrdtpu/passes/reblur/kernels.py:814)
+template <bool kOcc = false>
 __device__ __forceinline__ void diff_blur_params(const BlurConsts& k, const StageConsts& s,
                                                  float hit_dist, float data1, float hds,
                                                  float fsz, float nov, float nvx, float nvy,
@@ -610,7 +641,7 @@ __device__ __forceinline__ void diff_blur_params(const BlurConsts& k, const Stag
   float blur_radius = k.max_blur_radius * sqrtf(saturate(hit_dist_factor * nlas));
   blur_radius = blur_radius * s.radius_scale;
   blur_radius = fmaxf(blur_radius, k.min_blur_radius);
-  const float mhdw = s.mhdw_scale * sqrtf(nlas);
+  const float mhdw = kOcc ? s.mhdw_scale : s.mhdw_scale * sqrtf(nlas);
   const float ax = 1.0f - fabsf(nvx), ay = 1.0f - fabsf(nvy);
   float skew_x = ax + (1.0f - ax) * nov;
   float skew_y = ay + (1.0f - ay) * nov;
@@ -628,7 +659,8 @@ __device__ __forceinline__ void diff_blur_params(const BlurConsts& k, const Stag
 }
 
 // specular: as diffuse, with the roughness, its magic curve and the roughness weight; no
-// skew
+// skew. kOcc: as diffuse (nrdtpu/passes/reblur/kernels.py:1655)
+template <bool kOcc = false>
 __device__ __forceinline__ void spec_blur_params(const BlurConsts& k, const StageConsts& s,
                                                  float hit_dist, float data1, float hds,
                                                  float fsz, float nov, float roughness,
@@ -646,7 +678,7 @@ __device__ __forceinline__ void spec_blur_params(const BlurConsts& k, const Stag
   prm[SF_NWP] = normal_weight_param(nlas, k.laf, k.one_minus_laf, roughness, k.enc_err) /
                 s.fraction_scale;
   hit_distance_weight_params(hit_dist, nlas, smc, &prm[SF_HA], &prm[SF_HB]);
-  prm[SF_MHDW] = s.mhdw_scale * smc * sqrtf(nlas);
+  prm[SF_MHDW] = kOcc ? s.mhdw_scale * smc : s.mhdw_scale * smc * sqrtf(nlas);
   roughness_weight_params(roughness, s.rf_scaled, &prm[SF_WR_A], &prm[SF_WR_B]);
 }
 
@@ -808,7 +840,7 @@ constexpr int kFixWin = kFixTile + 2 * kAntiFireflyRadius;  // the tile and the 
 constexpr int kBothSignals = -1;  // history_fix_cta: one CTA per (tile, signal), both signals
 
 struct HistoryFixArgs {
-  const float* signal[2];  // (h, w, 4) TA outputs: diffuse, specular
+  const float* signal[2];  // (h, w, 4) TA outputs: diffuse, specular ((h, w, 1) with kOcc)
   const float* data1[2];   // (h, w) accumulation speeds
   const float* fast[2];    // (h, w) fast histories
   const float* params[2];  // (kHfDiffParams | kHfSpecParams, h, w)
@@ -817,7 +849,7 @@ struct HistoryFixArgs {
   const float* nr;         // (h, w, 4)
   const float* view_z;     // (h, w) raw: the prologue's input
   const float4* geometry;  // (h, w) the taps' unpacked normal and scaled viewZ
-  float* out[2];           // (h, w, 4) the clamped signals
+  float* out[2];           // (h, w, 4) the clamped signals ((h, w, 1) with kOcc)
   float* fast_out[2];      // (h, w) the fast histories after the mix
   const float* sh[2];      // (h, w, 4) the signals' SH1 (the SH variants)
   float* sh_out[2];        // (h, w, 4) their history fix, scaled to the clamped luma
@@ -838,8 +870,9 @@ struct FastWindow {
 };
 
 // one pixel: the 3x3 (and ring) moments from the window, the stride taps (their geometry from
-// the plane), the clamp; kSh: the SH1 through the taps and scaled to the clamped luma
-template <bool kSpec, bool kSh>
+// the plane), the clamp; kSh: the SH1 through the taps and scaled to the clamped luma; kOcc:
+// the one-channel signal
+template <bool kSpec, bool kSh, bool kOcc>
 __device__ __forceinline__ void history_fix_pixel(const HistoryFixArgs& a, const FastWindow& win,
                                                   int x, int y) {
   constexpr int s = kSpec ? 1 : 0;
@@ -851,14 +884,17 @@ __device__ __forceinline__ void history_fix_pixel(const HistoryFixArgs& a, const
   fast_moments(win, x, y, &m1, &m2);
   if (a.anti_firefly[s]) anti_firefly_moments(win, x, y, &am1, &am2);
   float sig[4], sh[4];
-  hf_filter<kSpec, kSh>(a.f, c, a.params[s] + i, plane, a.min_material[s],
+  hf_filter<kSpec, kSh, kOcc>(a.f, c, a.params[s] + i, plane, a.min_material[s],
                         Image<float, 4>{a.signal[s], w, h}, Image<float, 1>{a.data1[s], w, h},
                         UnpackedTaps{a.geometry, nr}, sig, a.sh[s], sh);
   const float smc = kSpec ? __ldg(a.smc + i) : 0.0f;
   float fast_out;
-  const float luma = hf_clamp(a.clamp, sig, __ldg(a.data1[s] + i), win.at(x, y, 0), m1, m2,
-                              a.anti_firefly[s], am1, am2, kSpec, smc, &fast_out);
-  reinterpret_cast<float4*>(a.out[s])[i] = make_float4(sig[0], sig[1], sig[2], sig[3]);
+  const float luma = hf_clamp<kOcc>(a.clamp, sig, __ldg(a.data1[s] + i), win.at(x, y, 0), m1,
+                                    m2, a.anti_firefly[s], am1, am2, kSpec, smc, &fast_out);
+  if constexpr (kOcc)
+    a.out[s][i] = sig[3];
+  else
+    reinterpret_cast<float4*>(a.out[s])[i] = make_float4(sig[0], sig[1], sig[2], sig[3]);
   a.fast_out[s][i] = fast_out;
   if constexpr (kSh) {
     sh_luma_scale(sh, luma);
@@ -868,8 +904,9 @@ __device__ __forceinline__ void history_fix_pixel(const HistoryFixArgs& a, const
 
 // kSig: the CTA's signal (0 diffuse, 1 specular), or kBothSignals: the low bit of blockIdx.x,
 // so that the two CTAs of a tile run side by side and share the centre's planes in L2. Every
-// thread stages the window, then the threads outside the image leave. kSh: the SH variants.
-template <int kSig, bool kSh = false>
+// thread stages the window, then the threads outside the image leave. kSh: the SH variants;
+// kOcc: the occlusion variants.
+template <int kSig, bool kSh = false, bool kOcc = false>
 __device__ __forceinline__ void history_fix_cta(const HistoryFixArgs& a) {
   static_assert(kSig == kBothSignals || kSig == 0 || kSig == 1, "a signal, or both");
   constexpr bool kBoth = kSig == kBothSignals;
@@ -886,9 +923,9 @@ __device__ __forceinline__ void history_fix_cta(const HistoryFixArgs& a) {
   const int x = x0 + (int)threadIdx.x, y = y0 + (int)threadIdx.y;
   if (x >= a.f.w || y >= a.f.h) return;
   if (s == 0)
-    history_fix_pixel<false, kSh>(a, win, x, y);
+    history_fix_pixel<false, kSh, kOcc>(a, win, x, y);
   else
-    history_fix_pixel<true, kSh>(a, win, x, y);
+    history_fix_pixel<true, kSh, kOcc>(a, win, x, y);
 }
 
 }  // namespace nrd

@@ -27,6 +27,11 @@
 //   - each history written as one float4;
 //   - kSh: each SH history's 2x2 as four 8-byte loads (common.cuh:bilinear_custom4, K16's),
 //     widened to float, written as one float4. The non-SH instances compile as before.
+//   - kOcc, the occlusion variants (one-channel signals): each signal's (h, w, 1) bf16 history
+//     through the same CatRom footprint, a texel one 2-byte load (common.cuh:texel4 of an
+//     unsigned short) widened to float, written as one float (the TPU kernel's n_hist planes
+//     at c = 1, nrdtpu/passes/reblur/denoiser.py:311-320). The four-channel instances compile
+//     as before.
 #include "common.cuh"
 
 namespace {
@@ -47,9 +52,9 @@ struct SmbArgs {
   const float* prev_nr;     // (h, w, 4)
   const float* prev_mat;    // (h, w)
   const float* accum[2];    // (h, w) accumulation speed of each signal being denoised
-  const __nv_bfloat16* hist[2];  // (h, w, 4)
+  const __nv_bfloat16* hist[2];  // (h, w, 4), or (h, w, 1) with kOcc
   const __nv_bfloat16* fast[2];  // (h, w)
-  float* out_hist;          // (nsig, h, w, 4)
+  float* out_hist;          // (nsig, h, w, 4), or (nsig, h, w, 1) with kOcc
   float* out_planes;        // (3 + 2 nsig, h, w): fbits, allow_catrom, footprint_raw,
                             // accum, fast [, accum and fast of the second signal]
   float* out_navg;          // (2, h, w, 3): current n_avg, previous smb_navg (rotated)
@@ -60,8 +65,9 @@ struct SmbArgs {
   float m[9];               // world_prev_to_world rotation, row-major
 };
 
-template <int kNSig, bool kSh>
+template <int kNSig, bool kSh, bool kOcc = false>
 __global__ void __launch_bounds__(256, kMinCtas) smb_resolve_kernel(SmbArgs a) {
+  static_assert(!(kSh && kOcc), "the occlusion variants have no SH");
   // every thread of the CTA stages, then the ones outside the image leave
   __shared__ float4 win[kWin * kWin];  // (unpacked normal, packed material)
   const int ox0 = blockIdx.x * nrd::kBlock - 1, oy0 = blockIdx.y * nrd::kBlock - 1;
@@ -173,11 +179,19 @@ __global__ void __launch_bounds__(256, kMinCtas) smb_resolve_kernel(SmbArgs a) {
   // position; the accumulation speed and the fast history bilinear with the custom weights
   const float spx = nrd::saturate(u) * a.rect_prev_w, spy = nrd::saturate(v) * a.rect_prev_h;
   const nrd::CatromTaps taps = nrd::catrom_taps(spx, spy, allow_catrom, ow);
-  const uint2* img[kNSig];
-#pragma unroll
-  for (int s = 0; s < kNSig; ++s) img[s] = reinterpret_cast<const uint2*>(a.hist[s]);
   float4 hist[kNSig];
-  nrd::catrom_apply4<kNSig>(img, a.w, a.h, taps, hist);
+  float hist1[kNSig];  // kOcc: the one-channel histories
+  if constexpr (kOcc) {
+    const unsigned short* img[kNSig];
+#pragma unroll
+    for (int s = 0; s < kNSig; ++s) img[s] = reinterpret_cast<const unsigned short*>(a.hist[s]);
+    nrd::catrom_apply4<kNSig>(img, a.w, a.h, taps, hist1);
+  } else {
+    const uint2* img[kNSig];
+#pragma unroll
+    for (int s = 0; s < kNSig; ++s) img[s] = reinterpret_cast<const uint2*>(a.hist[s]);
+    nrd::catrom_apply4<kNSig>(img, a.w, a.h, taps, hist);
+  }
   const int fx0 = nrd::to_index(floorf(spx - 0.5f)), fy0 = nrd::to_index(floorf(spy - 0.5f));
   float4* out_hist = reinterpret_cast<float4*>(a.out_hist);
 #pragma unroll
@@ -185,7 +199,10 @@ __global__ void __launch_bounds__(256, kMinCtas) smb_resolve_kernel(SmbArgs a) {
     float das, fast;
     nrd::bilinear_custom(Image<float, 1>{a.accum[s], a.w, a.h}, bx, by, ow, &das);
     nrd::bilinear_custom(Image<__nv_bfloat16, 1>{a.fast[s], a.w, a.h}, fx0, fy0, ow, &fast);
-    out_hist[s * plane + i] = hist[s];
+    if constexpr (kOcc)
+      a.out_hist[s * plane + i] = hist1[s];
+    else
+      out_hist[s * plane + i] = hist[s];
     a.out_planes[(3 + 2 * s) * plane + i] = das;
     a.out_planes[(4 + 2 * s) * plane + i] = fast;
     if constexpr (kSh)
@@ -212,7 +229,7 @@ extern "C" const char* nrd_error_string(int err) {
 //       hist, fast, out_hist, out_planes, out_navg, accum, hist, fast of a second signal (null
 //       with one), out_sh, the SH history of each signal (bf16; null without SH)
 // consts: view_z_scale, denoising_range, rect_prev_w, rect_prev_h, min_material, m[9],
-//         signal count (1 or 2), SH (0 or 1)
+//         signal count (1 or 2), SH (0 or 1), one-channel histories (0 or 1; not with SH)
 extern "C" int nrd_smb_resolve(void* const* p, const float* c, int w, int h, void* stream) {
   SmbArgs a;
   a.smb_uv = (const float*)p[0];
@@ -245,11 +262,20 @@ extern "C" int nrd_smb_resolve(void* const* p, const float* c, int w, int h, voi
   const bool sh = c[15] != 0.0f;
   a.out_sh = (float*)p[17];
   for (int s = 0; s < 2; ++s) a.sh[s] = (const uint2*)p[18 + (s < nsig ? s : 0)];
-  if (sh && (a.out_sh == nullptr || a.sh[0] == nullptr || a.sh[nsig - 1] == nullptr))
+  const bool occ = c[16] != 0.0f;
+  if ((sh && (a.out_sh == nullptr || a.sh[0] == nullptr || a.sh[nsig - 1] == nullptr)) ||
+      (sh && occ))
     return (int)cudaErrorInvalidValue;
   const dim3 block(nrd::kBlock, nrd::kBlock);
   const dim3 grid((w + nrd::kBlock - 1) / nrd::kBlock, (h + nrd::kBlock - 1) / nrd::kBlock);
   const cudaStream_t st = (cudaStream_t)stream;
+  if (occ) {
+    if (nsig == 1)
+      smb_resolve_kernel<1, false, true><<<grid, block, 0, st>>>(a);
+    else
+      smb_resolve_kernel<2, false, true><<<grid, block, 0, st>>>(a);
+    return (int)cudaGetLastError();
+  }
   switch (nsig * 2 + (sh ? 1 : 0)) {
     case 2: smb_resolve_kernel<1, false><<<grid, block, 0, st>>>(a); break;
     case 4: smb_resolve_kernel<2, false><<<grid, block, 0, st>>>(a); break;

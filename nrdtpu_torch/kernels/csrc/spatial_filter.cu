@@ -27,6 +27,11 @@
 // The SH variants are a template parameter before kCb (kSh, every stage, no checkerboard): the
 // signal's SH1 rides sf_filter's taps with each tap's final weight (reblur_filters.cuh); the
 // non-SH instances compile as before.
+// The occlusion variants are a template parameter after kSh (kOcc, Blur and PostBlur only, no
+// SH, no checkerboard: the occlusion path has no PrePass): the signal is the (h, w, 1) hit
+// distance, read and written as one float a pixel, and the min hit-distance weight of its
+// parameters drops sqrt(nlas) (reblur_filters.cuh:diff_blur_params / spec_blur_params; TPU
+// reblur_blur2.py:276 at c = 1). The four-channel instances compile as before.
 #include "reblur_filters.cuh"
 
 namespace {
@@ -36,12 +41,12 @@ using nrd::Image;
 constexpr int kMinCtas = 4;
 
 struct SfArgs {
-  const float* signal;     // (h, w, 4)
+  const float* signal;     // (h, w, 4), or (h, w, 1) with kOcc
   const float* view_z;     // (h, w) raw
   const float* nr;         // (h, w, 4)
   const float* data1;      // (h, w) accumulation speed: Blur and PostBlur only
   const float4* geometry;  // (h, w) the taps' unpacked normal and scaled viewZ (not PrePass)
-  float* out;              // (h, w, 4)
+  float* out;              // (h, w, 4), or (h, w, 1) with kOcc
   float* hdt;              // (h, w) hitDistForTracking, specular PrePass only
   const float* sh;         // (h, w, 4) the signal's SH1 (kSh)
   float* out_sh;           // (h, w, 4) (kSh)
@@ -53,9 +58,10 @@ struct SfArgs {
   nrd::StageConsts stage;
 };
 
-template <int kTaps, bool kSpec, bool kPrepass, bool kSh, bool kCb>
+template <int kTaps, bool kSpec, bool kPrepass, bool kSh, bool kOcc, bool kCb>
 __global__ void __launch_bounds__(256, kMinCtas) spatial_filter_kernel(SfArgs a) {
   static_assert(!kCb || kPrepass, "the checkerboard mode is the PrePass's");
+  static_assert(!kOcc || (!kPrepass && !kSh), "the occlusion mode is Blur's and PostBlur's");
   constexpr nrd::SfMode mode = !kSpec ? nrd::SfMode::kDiffuse
                                : kPrepass ? nrd::SfMode::kPrepass : nrd::SfMode::kSpec;
   const int x = blockIdx.x * nrd::kBlock + threadIdx.x;
@@ -65,7 +71,7 @@ __global__ void __launch_bounds__(256, kMinCtas) spatial_filter_kernel(SfArgs a)
   const Image<float, 4> nr{a.nr, a.f.w, a.f.h};
   const Image<float, 4> sig{a.signal, a.f.w, a.f.h};
   const float4 nrc = __ldg(reinterpret_cast<const float4*>(a.nr) + i);
-  float hit_dist = __ldg(a.signal + 4 * i + 3);
+  float hit_dist = kOcc ? __ldg(a.signal + i) : __ldg(a.signal + 4 * i + 3);
   float has_data = 1.0f;
   if constexpr (kCb) {  // the centre's signal zeroed where it has no data, as signal * cb_mask
     has_data = nrd::cb_has_data(x, y, a.f.frame_index, a.cb.parity);
@@ -83,11 +89,11 @@ __global__ void __launch_bounds__(256, kMinCtas) spatial_filter_kernel(SfArgs a)
   else if constexpr (kPrepass)
     nrd::diff_prepass_params(a.blur, a.stage, a.prepass_radius, hit_dist, g, prm);
   else if constexpr (kSpec)
-    nrd::spec_blur_params(a.blur, a.stage, hit_dist, data1, g.hds, g.fsz, g.nov, g.roughness,
-                          g.smc, prm);
+    nrd::spec_blur_params<kOcc>(a.blur, a.stage, hit_dist, data1, g.hds, g.fsz, g.nov,
+                                g.roughness, g.smc, prm);
   else
-    nrd::diff_blur_params(a.blur, a.stage, hit_dist, data1, g.hds, g.fsz, g.nov, g.nv.x, g.nv.y,
-                          prm);
+    nrd::diff_blur_params<kOcc>(a.blur, a.stage, hit_dist, data1, g.hds, g.fsz, g.nov, g.nv.x,
+                                g.nv.y, prm);
 
   nrd::Centre c;
   c.x = x;
@@ -112,10 +118,13 @@ __global__ void __launch_bounds__(256, kMinCtas) spatial_filter_kernel(SfArgs a)
         nrd::cb_neighbor_resolve(sig, taps, x, y, g.view_z, g.fsz, g.nov, a.cb.denoising_range,
                                  out);
   } else
-    nrd::sf_filter<kTaps, mode, false, kSh>(a.f, c, prm, 1, a.min_material, sig,
-                                            nrd::UnpackedTaps{a.geometry, nr}, out, hdt, 1.0f,
-                                            a.sh, sh_out);
-  reinterpret_cast<float4*>(a.out)[i] = make_float4(out[0], out[1], out[2], out[3]);
+    nrd::sf_filter<kTaps, mode, false, kSh, kOcc>(a.f, c, prm, 1, a.min_material, sig,
+                                                  nrd::UnpackedTaps{a.geometry, nr}, out, hdt,
+                                                  1.0f, a.sh, sh_out);
+  if constexpr (kOcc)
+    a.out[i] = out[3];
+  else
+    reinterpret_cast<float4*>(a.out)[i] = make_float4(out[0], out[1], out[2], out[3]);
   if constexpr (kSh)
     reinterpret_cast<float4*>(a.out_sh)[i] =
         make_float4(sh_out[0], sh_out[1], sh_out[2], sh_out[3]);
@@ -126,17 +135,20 @@ using Kernel = void (*)(SfArgs);
 template <int kTaps, bool kSh>
 Kernel pick_stage(bool spec, bool prepass) {
   if (prepass)
-    return spec ? spatial_filter_kernel<kTaps, true, true, kSh, false>
-                : spatial_filter_kernel<kTaps, false, true, kSh, false>;
-  return spec ? spatial_filter_kernel<kTaps, true, false, kSh, false>
-              : spatial_filter_kernel<kTaps, false, false, kSh, false>;
+    return spec ? spatial_filter_kernel<kTaps, true, true, kSh, false, false>
+                : spatial_filter_kernel<kTaps, false, true, kSh, false, false>;
+  return spec ? spatial_filter_kernel<kTaps, true, false, kSh, false, false>
+              : spatial_filter_kernel<kTaps, false, false, kSh, false, false>;
 }
 
 template <int kTaps>
-Kernel pick(bool spec, bool prepass, bool cb, bool sh) {
+Kernel pick(bool spec, bool prepass, bool cb, bool sh, bool occ) {
   if (prepass && cb)
-    return spec ? spatial_filter_kernel<kTaps, true, true, false, true>
-                : spatial_filter_kernel<kTaps, false, true, false, true>;
+    return spec ? spatial_filter_kernel<kTaps, true, true, false, false, true>
+                : spatial_filter_kernel<kTaps, false, true, false, false, true>;
+  if (occ)  // Blur and PostBlur
+    return spec ? spatial_filter_kernel<kTaps, true, false, false, true, false>
+                : spatial_filter_kernel<kTaps, false, false, false, true, false>;
   return sh ? pick_stage<kTaps, true>(spec, prepass) : pick_stage<kTaps, false>(spec, prepass);
 }
 
@@ -153,7 +165,7 @@ Kernel pick(bool spec, bool prepass, bool cb, bool sh) {
 //         6), stage (0 PrePass, 1 Blur, 2 PostBlur), specular (0 or 1),
 //         use_prepass_not_only, frame index low 16 bits, high 16 bits, the checkerboard's
 //         has-data parity (-1: off; PrePass only), denoising range, SH (0 or 1; not with the
-//         checkerboard)
+//         checkerboard), one-channel occlusion signal (0 or 1; Blur and PostBlur only, no SH)
 extern "C" int nrd_spatial_filter(void* const* p, const float* c, int w, int h, void* stream) {
   SfArgs a;
   a.signal = (const float*)p[0];
@@ -203,7 +215,9 @@ extern "C" int nrd_spatial_filter(void* const* p, const float* c, int w, int h, 
   a.cb.denoising_range = c[50];
   const bool cb = a.cb.parity >= 0;
   const bool sh = c[51] != 0.0f;
+  const bool occ = c[52] != 0.0f;
   if ((ntaps != 8 && ntaps != 6) || stage < 0 || stage > 2 || a.cb.parity > 1 ||
+      (occ && (prepass || sh)) ||
       (cb && !prepass) || (sh && (cb || a.sh == nullptr || a.out_sh == nullptr)) ||
       (!prepass && (a.data1 == nullptr || a.geometry == nullptr)) ||
       (spec && prepass && a.hdt == nullptr))
@@ -211,7 +225,7 @@ extern "C" int nrd_spatial_filter(void* const* p, const float* c, int w, int h, 
   const dim3 block(nrd::kBlock, nrd::kBlock);
   const dim3 grid((w + nrd::kBlock - 1) / nrd::kBlock, (h + nrd::kBlock - 1) / nrd::kBlock);
   const Kernel kernel =
-      ntaps == 8 ? pick<8>(spec, prepass, cb, sh) : pick<6>(spec, prepass, cb, sh);
+      ntaps == 8 ? pick<8>(spec, prepass, cb, sh, occ) : pick<6>(spec, prepass, cb, sh, occ);
   kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

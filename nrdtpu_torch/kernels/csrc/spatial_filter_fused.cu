@@ -26,6 +26,10 @@
 // The SH variants (kSh, no checkerboard): each signal's SH1 rides its taps with each tap's final
 // weight (reblur_filters.cuh:sf_filter; TPU reblur_fused.py:775-777, :804); the non-SH
 // instances compile as before.
+// The occlusion variants (kOcc, after kSh; Blur and PostBlur only: their path has no PrePass):
+// each signal is the (h, w, 1) hit distance, one float a tap, written as one float a pixel (TPU
+// reblur_fused.py:787 at c = 1); the glue's planes carry the occlusion rule of the min
+// hit-distance weight. The four-channel instances compile as before.
 #include "reblur_filters.cuh"
 
 namespace {
@@ -36,13 +40,13 @@ using nrd::SfMode;
 constexpr int kSfCtas = 5;
 
 struct SffArgs {
-  const float* signal[2];    // (h, w, 4) diffuse, specular
+  const float* signal[2];    // (h, w, 4) diffuse, specular ((h, w, 1) with kOcc)
   const float* params[2];    // (kSfDiffParams, h, w), (kSfSpecParams | kSfPrepassParams, h, w)
   const float* view_z;       // (h, w) raw
   const float* nr;           // (h, w, 4)
   const float* shared;       // (kSfShared, h, w)
   const float4* geometry;    // (h, w) the taps' unpacked normal and scaled viewZ; null in PrePass
-  float* out;                // (2, h, w, 4): diffuse, specular
+  float* out;                // (2, h, w, 4): diffuse, specular ((2, h, w, 1) with kOcc)
   float* hdt;                // (h, w) hitDistForTracking, PrePass only
   const float* sh[2];        // (h, w, 4) each signal's SH1 (kSh)
   float* out_sh;             // (2, h, w, 4) (kSh)
@@ -68,7 +72,7 @@ __device__ __forceinline__ void cb_centre(const SffArgs& a, const nrd::Centre& c
   *fsz = a.min_rect_dim_mul_unproject * (*z + (1.0f - *z) * fabsf(a.f.ortho));
 }
 
-template <int kTaps, SfMode kSpecMode, bool kCb, bool kSh, typename Taps>
+template <int kTaps, SfMode kSpecMode, bool kCb, bool kSh, bool kOcc, typename Taps>
 __device__ __forceinline__ void filter_pixel(const SffArgs& a, const Taps& taps, int s, int x,
                                              int y) {
   const size_t i = (size_t)y * a.f.w + x;
@@ -80,13 +84,13 @@ __device__ __forceinline__ void filter_pixel(const SffArgs& a, const Taps& taps,
   float out[4], sh_out[4];
   float sum;
   if (s == 0)
-    sum = nrd::sf_filter<kTaps, SfMode::kDiffuse, kCb, kSh>(a.f, c, a.params[0] + i, plane,
-                                                            a.min_material[0], sig, taps, out,
-                                                            nullptr, has_data, a.sh[0], sh_out);
+    sum = nrd::sf_filter<kTaps, SfMode::kDiffuse, kCb, kSh, kOcc>(
+        a.f, c, a.params[0] + i, plane, a.min_material[0], sig, taps, out, nullptr, has_data,
+        a.sh[0], sh_out);
   else
-    sum = nrd::sf_filter<kTaps, kSpecMode, kCb, kSh>(a.f, c, a.params[1] + i, plane,
-                                                     a.min_material[1], sig, taps, out,
-                                                     a.hdt + i, has_data, a.sh[1], sh_out);
+    sum = nrd::sf_filter<kTaps, kSpecMode, kCb, kSh, kOcc>(a.f, c, a.params[1] + i, plane,
+                                                           a.min_material[1], sig, taps, out,
+                                                           a.hdt + i, has_data, a.sh[1], sh_out);
   if constexpr (kCb) {
     if (sum == 0.0f) {
       float z, fsz, nov;
@@ -94,39 +98,45 @@ __device__ __forceinline__ void filter_pixel(const SffArgs& a, const Taps& taps,
       nrd::cb_neighbor_resolve(sig, taps, x, y, z, fsz, nov, a.cb.denoising_range, out);
     }
   }
-  reinterpret_cast<float4*>(a.out)[s * plane + i] = make_float4(out[0], out[1], out[2], out[3]);
+  if constexpr (kOcc)
+    a.out[s * plane + i] = out[3];
+  else
+    reinterpret_cast<float4*>(a.out)[s * plane + i] =
+        make_float4(out[0], out[1], out[2], out[3]);
   if constexpr (kSh)
     reinterpret_cast<float4*>(a.out_sh)[s * plane + i] =
         make_float4(sh_out[0], sh_out[1], sh_out[2], sh_out[3]);
 }
 
-template <int kTaps, bool kPrepass, bool kSh, bool kCb>
+template <int kTaps, bool kPrepass, bool kSh, bool kOcc, bool kCb>
 __global__ void __launch_bounds__(256, kSfCtas) spatial_filter_fused_kernel(SffArgs a) {
   static_assert(!kCb || kPrepass, "the checkerboard mode is the PrePass's");
+  static_assert(!kOcc || (!kPrepass && !kSh), "the occlusion mode is Blur's and PostBlur's");
   const int s = (int)(blockIdx.x & 1u);
   const int x = (int)(blockIdx.x >> 1) * nrd::kBlock + (int)threadIdx.x;
   const int y = (int)blockIdx.y * nrd::kBlock + (int)threadIdx.y;
   if (x >= a.f.w || y >= a.f.h) return;
   const Image<float, 4> nr{a.nr, a.f.w, a.f.h};
   if constexpr (kPrepass)
-    filter_pixel<kTaps, SfMode::kPrepass, kCb, kSh>(
+    filter_pixel<kTaps, SfMode::kPrepass, kCb, kSh, false>(
         a, nrd::PackedTaps{nr, Image<float, 1>{a.view_z, a.f.w, a.f.h}, a.f.view_z_scale}, s, x,
         y);
   else
-    filter_pixel<kTaps, SfMode::kSpec, false, kSh>(a, nrd::UnpackedTaps{a.geometry, nr}, s, x,
-                                                    y);
+    filter_pixel<kTaps, SfMode::kSpec, false, kSh, kOcc>(a, nrd::UnpackedTaps{a.geometry, nr},
+                                                          s, x, y);
 }
 
 using Kernel = void (*)(SffArgs);
 
 template <int kTaps>
-Kernel pick(bool prepass, bool cb, bool sh) {
-  if (prepass && cb) return spatial_filter_fused_kernel<kTaps, true, false, true>;
+Kernel pick(bool prepass, bool cb, bool sh, bool occ) {
+  if (prepass && cb) return spatial_filter_fused_kernel<kTaps, true, false, false, true>;
+  if (occ) return spatial_filter_fused_kernel<kTaps, false, false, true, false>;
   if (sh)
-    return prepass ? spatial_filter_fused_kernel<kTaps, true, true, false>
-                   : spatial_filter_fused_kernel<kTaps, false, true, false>;
-  return prepass ? spatial_filter_fused_kernel<kTaps, true, false, false>
-                 : spatial_filter_fused_kernel<kTaps, false, false, false>;
+    return prepass ? spatial_filter_fused_kernel<kTaps, true, true, false, false>
+                   : spatial_filter_fused_kernel<kTaps, false, true, false, false>;
+  return prepass ? spatial_filter_fused_kernel<kTaps, true, false, false, false>
+                 : spatial_filter_fused_kernel<kTaps, false, false, false, false>;
 }
 
 }  // namespace
@@ -134,7 +144,8 @@ Kernel pick(bool prepass, bool cb, bool sh) {
 // ptrs: diff, spec, view_z, nr, shared, diff_params, spec_params, geometry (null in PrePass
 //       mode, required otherwise), out, hdt, diff_sh, spec_sh, out_sh (the last three SH only)
 // consts: frustum[4], rect_w, rect_h, view_z_scale, ortho_mode, diff_min_material,
-//         spec_min_material, ntaps (8 or 6), spec nparams, SH (0 or 1); in PrePass mode also
+//         spec_min_material, ntaps (8 or 6), spec nparams, SH (0 or 1), one-channel occlusion
+//         signals (0 or 1; Blur and PostBlur only, no SH); in PrePass mode also
 //         hit-distance
 //         params[4], use_prepass_not_only, frame index low 16 bits, high 16 bits, the
 //         checkerboard's has-data parity (-1: off), denoising range,
@@ -172,7 +183,8 @@ extern "C" int nrd_spatial_filter_fused(void* const* p, const float* c, int w, i
     return (int)cudaErrorInvalidValue;
   const bool prepass = spec_nparams == nrd::kSfPrepassParams;
   const bool sh = c[12] != 0.0f;
-  if (prepass != (a.geometry == nullptr) ||
+  const bool occ = c[13] != 0.0f;
+  if (prepass != (a.geometry == nullptr) || (occ && (prepass || sh)) ||
       (sh && (a.sh[0] == nullptr || a.sh[1] == nullptr || a.out_sh == nullptr)))
     return (int)cudaErrorInvalidValue;
   for (int k = 0; k < 4; ++k) a.f.hdp[k] = 0.0f;
@@ -181,16 +193,17 @@ extern "C" int nrd_spatial_filter_fused(void* const* p, const float* c, int w, i
   a.cb = nrd::CbConsts{-1, 0.0f};
   a.min_rect_dim_mul_unproject = 0.0f;
   if (prepass) {
-    for (int k = 0; k < 4; ++k) a.f.hdp[k] = c[13 + k];
-    a.f.use_prepass_not_only = c[17];
-    a.f.frame_index = (uint32_t)c[18] | ((uint32_t)c[19] << 16);
-    a.cb = nrd::CbConsts{(int)c[20], c[21]};
-    a.min_rect_dim_mul_unproject = c[22];
+    for (int k = 0; k < 4; ++k) a.f.hdp[k] = c[14 + k];
+    a.f.use_prepass_not_only = c[18];
+    a.f.frame_index = (uint32_t)c[19] | ((uint32_t)c[20] << 16);
+    a.cb = nrd::CbConsts{(int)c[21], c[22]};
+    a.min_rect_dim_mul_unproject = c[23];
   }
   if (a.cb.parity > 1) return (int)cudaErrorInvalidValue;
   const bool cb = a.cb.parity >= 0;
   if (cb && sh) return (int)cudaErrorInvalidValue;
-  const Kernel kernel = ntaps == 8 ? pick<8>(prepass, cb, sh) : pick<6>(prepass, cb, sh);
+  const Kernel kernel =
+      ntaps == 8 ? pick<8>(prepass, cb, sh, occ) : pick<6>(prepass, cb, sh, occ);
   const dim3 block(nrd::kBlock, nrd::kBlock);
   const dim3 tiles((w + nrd::kBlock - 1) / nrd::kBlock, (h + nrd::kBlock - 1) / nrd::kBlock);
   const dim3 grid(2 * tiles.x, tiles.y);  // one CTA per (tile, signal)

@@ -11,7 +11,10 @@
 // (two more fields in VmbArgs moved the non-SH kernel from 63 to 71 registers, 3 CTAs an SM,
 // and from 1620 to 1441 SASS instructions: ptxas on the H100, PERF.md), so that the non-SH
 // kernel compiles as before. The SH history's 2x2 is four 8-byte loads
-// (common.cuh:bilinear_custom4), written as one float4.
+// (common.cuh:bilinear_custom4), written as one float4. The occlusion variants' kernel
+// (vmb_resolve_occ_kernel, the body's kOcc) samples the (h, w, 1) bf16 hit-distance history
+// through the same CatRom, one channel, and writes one float a pixel (the TPU kernel at c = 1,
+// nrdtpu/passes/reblur/denoiser.py:317-318); VmbArgs is unchanged.
 #include "common.cuh"
 
 namespace {
@@ -27,17 +30,17 @@ struct VmbArgs {
   const float* prev_nr;         // (h, w, 4)
   const float* prev_mat;        // (h, w)
   const float* accum;           // (h, w) previous specular accumulation speed
-  const __nv_bfloat16* hist;    // (h, w, 4)
+  const __nv_bfloat16* hist;    // (h, w, 4), or (h, w, 1) with kOcc
   const __nv_bfloat16* fast;    // (h, w)
   const float* prev_hdt;        // (h, w) previous hitDistForTracking
-  float* out_hist;              // (h, w, 4)
+  float* out_hist;              // (h, w, 4), or (h, w, 1) with kOcc
   float* out_planes;            // (7, h, w): rough_conf, fbits_vmb, footprint_raw,
                                 //   accum_raw, allow_catrom, fast, hdt_prev
   int w, h;
   float view_z_scale, ortho, rect_prev_w, rect_prev_h, min_material, res_scale_x, res_scale_y;
 };
 
-template <bool kSh>
+template <bool kSh, bool kOcc = false>
 __device__ __forceinline__ void vmb_resolve_body(const VmbArgs& a, const uint2* sh,
                                                  float* out_sh) {
   const int x = blockIdx.x * nrd::kBlock + threadIdx.x;
@@ -93,8 +96,10 @@ __device__ __forceinline__ void vmb_resolve_body(const VmbArgs& a, const uint2* 
   nrd::bilinear_custom(Image<float, 1>{a.accum, a.w, a.h}, bx, by, ow, &accum);
 
   const float spx = nrd::saturate(u) * a.rect_prev_w, spy = nrd::saturate(v) * a.rect_prev_h;
-  float hist[4];
-  nrd::sample_catrom(Image<__nv_bfloat16, 4>{a.hist, a.w, a.h}, spx, spy, allow_catrom, ow, hist);
+  constexpr int kC = kOcc ? 1 : 4;
+  float hist[kC];
+  nrd::sample_catrom(Image<__nv_bfloat16, kC>{a.hist, a.w, a.h}, spx, spy, allow_catrom, ow,
+                     hist);
   float fast;
   const int fx0 = nrd::to_index(floorf(spx - 0.5f)), fy0 = nrd::to_index(floorf(spy - 0.5f));
   nrd::bilinear_custom(Image<__nv_bfloat16, 1>{a.fast, a.w, a.h}, fx0, fy0, ow, &fast);
@@ -105,7 +110,7 @@ __device__ __forceinline__ void vmb_resolve_body(const VmbArgs& a, const uint2* 
                        &hdt_prev);
 
 #pragma unroll
-  for (int c = 0; c < 4; ++c) a.out_hist[4 * i + c] = hist[c];
+  for (int c = 0; c < kC; ++c) a.out_hist[kC * i + c] = hist[c];
   float* o = a.out_planes + i;
   o[0] = rough_conf;
   o[plane] = fbits;
@@ -123,13 +128,16 @@ __global__ void __launch_bounds__(256) vmb_resolve_sh_kernel(VmbArgs a, const ui
                                                              float* out_sh) {
   vmb_resolve_body<true>(a, sh, out_sh);
 }
+__global__ void __launch_bounds__(256) vmb_resolve_occ_kernel(VmbArgs a) {
+  vmb_resolve_body<false, true>(a, nullptr, nullptr);
+}
 
 }  // namespace
 
 // ptrs: uv, params, prev_vz, prev_nr, prev_mat, accum, hist, fast, prev_hdt, out_hist,
 //       out_planes, sh (bf16), out_sh (both null without SH)
 // consts: view_z_scale, ortho_mode, rect_prev_w, rect_prev_h, min_material,
-//         resolution_scale_prev x, y, SH (0 or 1)
+//         resolution_scale_prev x, y, SH (0 or 1), one-channel history (0 or 1; not with SH)
 extern "C" int nrd_vmb_resolve(void* const* p, const float* c, int w, int h, void* stream) {
   VmbArgs a;
   a.uv = (const float*)p[0];
@@ -155,10 +163,14 @@ extern "C" int nrd_vmb_resolve(void* const* p, const float* c, int w, int h, voi
   const bool sh = c[7] != 0.0f;
   const uint2* sh_in = (const uint2*)p[11];
   float* sh_out = (float*)p[12];
-  if (sh && (sh_in == nullptr || sh_out == nullptr)) return (int)cudaErrorInvalidValue;
+  const bool occ = c[8] != 0.0f;
+  if ((sh && (sh_in == nullptr || sh_out == nullptr)) || (sh && occ))
+    return (int)cudaErrorInvalidValue;
   dim3 block(nrd::kBlock, nrd::kBlock);
   dim3 grid((w + nrd::kBlock - 1) / nrd::kBlock, (h + nrd::kBlock - 1) / nrd::kBlock);
-  if (sh)
+  if (occ)
+    vmb_resolve_occ_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  else if (sh)
     vmb_resolve_sh_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a, sh_in, sh_out);
   else
     vmb_resolve_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);

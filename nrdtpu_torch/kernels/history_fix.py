@@ -21,6 +21,10 @@ through where the stride is 0, then .xyz scaled to the clamped luma (`:622`, `:6
 `:680-683`, `:729-731`; on the specular signal .w, the TA's modified roughness, is averaged
 too, as XLA does).
 
+With the occlusion variants the signal is the (h, w, 1) hit distance: the one-channel
+instances take it through the taps and clamp it as its own luma with sigma scale 1
+(`params.history_fix_clamp(occlusion=True)`, `:685-728`).
+
 The kernel is the one-signal instance of the body that N5 and K23 run for two signals
 (`csrc/reblur_filters.cuh:history_fix_cta`).
 
@@ -54,13 +58,17 @@ ANTI_FIREFLY_RADIUS = 4  # REBLUR_ANTI_FIREFLY_FILTER_RADIUS, in every mode (ker
 
 
 def _moments(fast_history, offsets):
+    """Mean and second moment over the offsets; the divisions are true divisions on every
+    device (`math.div`), as in XLA and the kernels: on the card a division by a Python scalar is
+    a multiplication by its reciprocal, and where the window is flat (the occlusion variants'
+    binary AO) sqrt(|m2 - m1^2|) turns that last bit into 3e-4 of the clamp."""
     m1 = torch.zeros_like(fast_history)
     m2 = torch.zeros_like(fast_history)
     for dy, dx in offsets:
         t = stencil.shifted(fast_history, dy, dx)
         m1 = m1 + t
         m2 = m2 + t * t
-    return m1 / float(len(offsets)), m2 / float(len(offsets))
+    return nm.div(m1, float(len(offsets))), nm.div(m2, float(len(offsets)))
 
 
 def anti_firefly_offsets():
@@ -140,7 +148,7 @@ def taps_and_clamp_ref(signal, view_z_in, normal_roughness, data1, fast_history,
     m1, m2 = _moments(fast_history, stencil.offsets_square(1))
     ring = _moments(fast_history, anti_firefly_offsets()) if anti_firefly else None
     return P.history_fix_clamp(dc, dict(smc=smc), data1, out, fast_history, m1, m2, ring,
-                               not spec, sh=sh_out)
+                               not spec, sh=sh_out, occlusion=signal.shape[-1] == 1)
 
 
 def history_fix_ref(signal, view_z_in, normal_roughness, data1, fast_history, shared, params,
@@ -171,12 +179,14 @@ def check_params(shared, params):
 def history_fix(signal, view_z_in, normal_roughness, data1, fast_history, shared, params, smc,
                 *, frustum, rect_size_inv, view_z_scale, ortho_mode, min_material, dc,
                 anti_firefly=False, sh=None):
-    """signal (h, w, 4), data1 = accumulated frames (h, w), fast_history (h, w), shared float32
+    """signal (h, w, 4), or (h, w, 1) with the occlusion variants (no SH), data1 = accumulated
+    frames (h, w), fast_history (h, w), shared float32
     planes named by SHARED (9, h, w), params named by PARAMS (5, h, w; diffuse) or PARAMS +
     SPEC_PARAMS (9, h, w; specular); smc (h, w): the specular magic curve of the roughness,
-    None for diffuse; dc: the REBLUR frame constants (the clamp's). Returns dict(signal (h, w,
-    4), fast (h, w), geometry (h, w, 4)): the clamped signal, the fast history and the tap
-    geometry; with the SH variants' `sh` (the signal's SH1, (h, w, 4)) also sh (h, w, 4)."""
+    None for diffuse; dc: the REBLUR frame constants (the clamp's). Returns dict(signal (of
+    the input's shape), fast (h, w), geometry (h, w, 4)): the clamped signal, the fast history
+    and the tap geometry; with the SH variants' `sh` (the signal's SH1, (h, w, 4)) also sh (h,
+    w, 4)."""
     global launches
     kw = dict(frustum=frustum, rect_size_inv=rect_size_inv, view_z_scale=view_z_scale,
               ortho_mode=ortho_mode, min_material=min_material, dc=dc,
@@ -185,13 +195,14 @@ def history_fix(signal, view_z_in, normal_roughness, data1, fast_history, shared
     spec = params.shape[0] != len(PARAMS)
     if (smc is None) == spec:
         raise ValueError("smc: the specular magic curve for the specular mode, None for diffuse")
+    c = build.channels("signal", signal, sh)
     dev = build.kernel_device(signal)
     if dev is None:
         return history_fix_ref(signal, view_z_in, normal_roughness, data1, fast_history, shared,
                                params, smc, **kw)
     h, w = view_z_in.shape
     f32 = torch.float32
-    ins = [("signal", signal, (h, w, 4)), ("view_z_in", view_z_in, (h, w)),
+    ins = [("signal", signal, (h, w, c)), ("view_z_in", view_z_in, (h, w)),
            ("normal_roughness", normal_roughness, (h, w, 4)), ("data1", data1, (h, w)),
            ("fast_history", fast_history, (h, w)), ("shared", shared, (len(SHARED), h, w)),
            ("params", params, (params.shape[0], h, w))]
@@ -201,13 +212,13 @@ def history_fix(signal, view_z_in, normal_roughness, data1, fast_history, shared
         ins.append(("sh", sh, (h, w, 4)))
     for name, t, shape in ins:
         build.check(name, t, dev, f32, shape)
-    out = torch.empty((h, w, 4), dtype=f32, device=dev)
+    out = torch.empty((h, w, c), dtype=f32, device=dev)
     fast = torch.empty((h, w), dtype=f32, device=dev)
     geometry = torch.empty((h, w, 4), dtype=f32, device=dev)  # the taps' geometry
     out_sh = None if sh is None else torch.empty((h, w, 4), dtype=f32, device=dev)
     consts = [*frustum, rect_size_inv[0], rect_size_inv[1], view_z_scale, ortho_mode,
               min_material, spec, anti_firefly, P.history_fix_frame_div(dc),
-              P.fast_history_enabled(dc), sh is not None]
+              P.fast_history_enabled(dc), sh is not None, c == 1]
     build.launch("nrd_history_fix", [t for _, t, _ in ins[:7]] + [smc, out, fast, geometry,
                                                                  sh, out_sh],
                  consts, w, h)

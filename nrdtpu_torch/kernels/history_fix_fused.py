@@ -11,7 +11,9 @@ anti-firefly ring, then the clamp (`passes/reblur/params.py:history_fix_clamp`: 
 fast-history mix, the ring's and the 3x3's luminance clamps). It returns the clamped signals
 and the fast histories; the moments stay in the kernel. With the SH variants (`sh`, both
 signals' SH1) each signal's SH rides its taps and is scaled to its clamped luma, as H3's SH
-mode (TPU `reblur_fused.py:683`, `:721-722`).
+mode (TPU `reblur_fused.py:683`, `:721-722`). With the occlusion variants both signals are
+(h, w, 1) hit distances, each clamped as its own luma with sigma scale 1, as H3's one-channel
+mode (TPU `occlusion`, `reblur_fused.py:671`, `_hfix_post :76-108`).
 
 The entry makes two launches on the caller's stream and counts one: a prologue that writes
 each pixel's tap geometry (unpacked normal, scaled viewZ) into a (h, w, 4) plane, which the
@@ -69,9 +71,9 @@ def history_fix_fused(diff, spec, view_z_in, normal_roughness, diff_data1, spec_
                       diff_fast, spec_fast, shared, diff_params, spec_params, smc, *, frustum,
                       rect_size_inv, view_z_scale, ortho_mode, diff_min_material,
                       spec_min_material, dc, anti_firefly=(False, False), sh=None):
-    """diff, spec (h, w, 4); *_data1, *_fast (h, w); shared (9, h, w) named by
-    history_fix.SHARED; diff_params (5, h, w) named by history_fix.PARAMS, spec_params (9, h,
-    w) by PARAMS + SPEC_PARAMS; smc (h, w) the specular magic curve; dc: the REBLUR frame
+    """diff, spec (h, w, 4), or (h, w, 1) each with the occlusion variants (no SH); *_data1,
+    *_fast (h, w); shared (9, h, w) named by history_fix.SHARED; diff_params (5, h, w) named
+    by history_fix.PARAMS, spec_params (9, h, w) by PARAMS + SPEC_PARAMS; smc (h, w) the specular magic curve; dc: the REBLUR frame
     constants (the clamp's); anti_firefly: (diffuse, specular) ring flags; sh: with the SH
     variants the (diffuse, specular) SH1, (h, w, 4) each. Returns dict(diff, spec, diff_fast,
     spec_fast, geometry[, diff_sh, spec_sh]): the clamped signals, the fast histories, the
@@ -88,6 +90,7 @@ def history_fix_fused(diff, spec, view_z_in, normal_roughness, diff_data1, spec_
     hf.check_params(shared, spec_params)
     if diff_params.shape[0] != len(hf.PARAMS) or spec_params.shape[0] == len(hf.PARAMS):
         raise ValueError("diff_params takes the diffuse planes, spec_params the specular ones")
+    c = build.channels("diff", diff, sh)
     dev = build.kernel_device(diff)
     if dev is None:
         return history_fix_fused_ref(diff, spec, view_z_in, normal_roughness, diff_data1,
@@ -95,7 +98,7 @@ def history_fix_fused(diff, spec, view_z_in, normal_roughness, diff_data1, spec_
                                      spec_params, smc, **kw)
     h, w = view_z_in.shape
     f32 = torch.float32
-    ins = [("diff", diff, (h, w, 4)), ("spec", spec, (h, w, 4)), ("diff_data1", diff_data1, (h, w)),
+    ins = [("diff", diff, (h, w, c)), ("spec", spec, (h, w, c)), ("diff_data1", diff_data1, (h, w)),
            ("spec_data1", spec_data1, (h, w)), ("diff_fast", diff_fast, (h, w)),
            ("spec_fast", spec_fast, (h, w)),
            ("diff_params", diff_params, (diff_params.shape[0], h, w)),
@@ -105,13 +108,13 @@ def history_fix_fused(diff, spec, view_z_in, normal_roughness, diff_data1, spec_
     sh_ins = [] if sh is None else [("diff_sh", sh[0], (h, w, 4)), ("spec_sh", sh[1], (h, w, 4))]
     for name, t, shape in ins + sh_ins:
         build.check(name, t, dev, f32, shape)
-    out = torch.empty((2, h, w, 4), dtype=f32, device=dev)
+    out = torch.empty((2, h, w, c), dtype=f32, device=dev)
     fast = torch.empty((2, h, w), dtype=f32, device=dev)
     geometry = torch.empty((h, w, 4), dtype=f32, device=dev)
     out_sh = None if sh is None else torch.empty((2, h, w, 4), dtype=f32, device=dev)
     consts = [*frustum, rect_size_inv[0], rect_size_inv[1], view_z_scale, ortho_mode,
               diff_min_material, spec_min_material, *map(bool, anti_firefly),
-              P.history_fix_frame_div(dc), P.fast_history_enabled(dc), sh is not None]
+              P.history_fix_frame_div(dc), P.fast_history_enabled(dc), sh is not None, c == 1]
     build.launch("nrd_history_fix_fused", [t for _, t, _ in ins] + [out, fast, geometry]
                  + list(sh or (None, None)) + [out_sh], consts, w, h)
     launches += 1

@@ -10,8 +10,10 @@ the plane distance to the centre's plane, the normal angle (the signal's normal-
 parameter) and, for specular, the roughness^2 weight; zero taps weigh 0. Diffuse, specular or
 both in one launch. The kernel computes the centre's parameters (`centre_params`) from viewZ,
 the packed normal and the frame constants, and writes each signal whole: .xyz copied, .w
-reconstructed. The roughness is unpacked with the roughness encoding, a template parameter of
-the kernel. REBLUR and RELAX (its raw hit distance) both call it.
+reconstructed. The occlusion variants' signals are (h, w, 1), the hit distance alone: the
+kernel's one-channel instances read and write one float a pixel. The roughness is unpacked
+with the roughness encoding, a template parameter of the kernel. REBLUR and RELAX (its raw hit
+distance) both call it.
 
 Bound on the H100: memory. Per pixel at 2560x1440 it reads viewZ (4 B), the packed normal
 (16 B) and each signal (16 B), and writes each signal (16 B): 52 B/px with one signal, 84 B/px
@@ -66,7 +68,8 @@ def hitdist_recon_ref(view_z_in, normal_roughness, diff, spec, *, radius, view_z
                       roughness_encoding=RoughnessEncoding.LINEAR):
     """Plain PyTorch version of the kernel: the centre's parameters (`centre_params`), the tap
     loop of the XLA function, and each signal with its reconstructed hit distance. diff, spec:
-    (h, w, 4) signals or None. Returns {signal: (h, w, 4)}."""
+    (h, w, 4) or (h, w, 1) signals or None, the hit distance the last channel. Returns
+    {signal: its shape}."""
     h, w = view_z_in.shape
     params = centre_params(
         view_z_in, normal_roughness, diff is not None, spec is not None,
@@ -82,9 +85,9 @@ def hitdist_recon_ref(view_z_in, normal_roughness, diff, spec, *, radius, view_z
     ga, gb = params[0], params[1]
     sig = {}
     if diff is not None:
-        sig["diff"] = dict(src=diff, hd=diff[..., 3], nwp=next(rest))
+        sig["diff"] = dict(src=diff, hd=diff[..., -1], nwp=next(rest))
     if spec is not None:
-        sig["spec"] = dict(src=spec, hd=spec[..., 3], nwp=next(rest), ra=next(rest),
+        sig["spec"] = dict(src=spec, hd=spec[..., -1], nwp=next(rest), ra=next(rest),
                            rb=next(rest))
     for s in sig.values():
         s["sum"] = 1000.0 * (s["hd"] != 0.0).to(torch.float32)
@@ -116,10 +119,11 @@ def hitdist_recon_ref(view_z_in, normal_roughness, diff, spec, *, radius, view_z
 def hitdist_recon(view_z_in, normal_roughness, diff, spec, *, radius, view_z_scale, frustum,
                   ortho_mode, rect_size_inv, world_to_view, min_rect_dim_mul_unproject,
                   plane_dist_sensitivity, enc_err, roughness_encoding=RoughnessEncoding.LINEAR):
-    """view_z_in (h, w), normal_roughness (h, w, 4), diff / spec (h, w, 4) or None (at least
-    one given); radius 1 or 2; the frame constants of `centre_params`; roughness_encoding: how
-    the packed roughness is unpacked. Returns {"diff": (h, w, 4), "spec": (h, w, 4)} for the
-    signals given: each with its reconstructed hit distance."""
+    """view_z_in (h, w), normal_roughness (h, w, 4), diff / spec (h, w, 4), or (h, w, 1) with
+    the occlusion variants, or None (at least one given, both of one shape); radius 1 or 2; the
+    frame constants of `centre_params`; roughness_encoding: how the packed roughness is
+    unpacked. Returns {"diff": ..., "spec": ...} for the signals given, each of its input's
+    shape with its reconstructed hit distance."""
     global launches
     kw = dict(radius=radius, view_z_scale=view_z_scale, frustum=frustum, ortho_mode=ortho_mode,
               rect_size_inv=rect_size_inv, world_to_view=world_to_view,
@@ -135,17 +139,18 @@ def hitdist_recon(view_z_in, normal_roughness, diff, spec, *, radius, view_z_sca
         raise ValueError(f"radius {radius}: the kernel takes 1 (3x3) or 2 (5x5)")
     h, w = view_z_in.shape
     f32 = torch.float32
+    given = [(name, s) for name, s in (("diff", diff), ("spec", spec)) if s is not None]
+    c = build.channels(*given[0])
     ins = [("view_z_in", view_z_in, (h, w)), ("normal_roughness", normal_roughness, (h, w, 4))]
-    ins += [(name, s, (h, w, 4)) for name, s in (("diff", diff), ("spec", spec)) if s is not None]
+    ins += [(name, s, (h, w, c)) for name, s in given]
     for name, t, shape in ins:
         build.check(name, t, dev, f32, shape)
-    out = {name: torch.empty((h, w, 4), dtype=f32, device=dev)
-           for name, s in (("diff", diff), ("spec", spec)) if s is not None}
+    out = {name: torch.empty((h, w, c), dtype=f32, device=dev) for name, _ in given}
     gauss = [g for _, _, g in TAPS[radius]]
     m = np.asarray(world_to_view, np.float32)[:3, :3].reshape(-1)
     consts = [radius, diff is not None, spec is not None, view_z_scale, *_v(frustum),
               ortho_mode, *_v(rect_size_inv), *m, build.ROUGHNESS_MODE[roughness_encoding],
-              min_rect_dim_mul_unproject, plane_dist_sensitivity, enc_err, *gauss]
+              min_rect_dim_mul_unproject, plane_dist_sensitivity, enc_err, c == 1, *gauss]
     build.launch("nrd_hitdist_recon", [view_z_in, normal_roughness, diff, spec, out.get("diff"),
                                        out.get("spec")], consts, w, h)
     launches += 1

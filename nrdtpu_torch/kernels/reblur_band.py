@@ -29,8 +29,13 @@ chain give identical results.
 Not carried over from the TPU kernel: the bf16 band windows and buffers
 (`reblur_band.py:537-553`, `:595-597`), the zeroed stride and radius of sky pixels (`:128`,
 `:182`), the 40-row bands, 8-row chunks and column splits (`:48-56`, `:520-528`), the two-band
-delay of fast2 (`:491-493`), the performance-mode ring radius of 3 (`:517`), and the occlusion
-and directional modes, which the port does not run yet.
+delay of fast2 (`:491-493`), the performance-mode ring radius of 3 (`:517`), and the
+directional mode, which the port does not run yet.
+
+With the occlusion variants (the TPU kernel's `occlusion`, `reblur_band.py:497`) both signals are
+(h, w, 1) hit distances: N5's one-channel body, then the Blur and PostBlur parameters with the
+min hit-distance weight without its sqrt(nlas) (`_blur_params`, `:192`), one float a pixel a
+signal in sig2, sig3 and the output.
 
 With the SH variants (`sh`, both signals' SH1 after TA; TPU `reblur_band.py:512`, `:546`,
 `:631-634`) each phase carries each signal's SH as N5's and N4's SH modes do: the history fix's
@@ -95,11 +100,12 @@ def reblur_band_ref(diff, spec, view_z_in, normal_roughness, diff_data1, spec_da
     out = dict(diff_fast=res["diff_fast"], spec_fast=res["spec_fast"])
     sc = dict(rect_size_inv=rect_size_inv, rotator=rotator, rotator_post=rotator_post)
     shared = torch.stack([p[k] for k in sf.SHARED])
+    occ = diff.shape[-1] == 1
     for mode in STAGES:
         sig = sff.spatial_filter_fused_ref(
             sig["diff"], sig["spec"], view_z_in, normal_roughness, shared,
-            P.diff_spatial_params(sc, dc, mode, geom, sig["diff"], diff_data1),
-            P.spec_spatial_params(sc, dc, mode, geom, sig["spec"], spec_data1),
+            P.diff_spatial_params(sc, dc, mode, geom, sig["diff"], diff_data1, occlusion=occ),
+            P.spec_spatial_params(sc, dc, mode, geom, sig["spec"], spec_data1, occlusion=occ),
             frustum=frustum, rect_size=rect_size, view_z_scale=view_z_scale,
             ortho_mode=ortho_mode, diff_min_material=diff_min_material,
             spec_min_material=spec_min_material, perf_mode=perf_mode,
@@ -128,7 +134,8 @@ def reblur_band(diff, spec, view_z_in, normal_roughness, diff_data1, spec_data1,
                 rect_size_inv, view_z_scale, ortho_mode, diff_min_material, spec_min_material,
                 rotator, rotator_post, enc_err, dc, perf_mode, anti_firefly=(False, False),
                 sh=None):
-    """diff, spec (h, w, 4): the TA outputs; *_data1, *_fast (h, w); planes (14, h, w) named by
+    """diff, spec (h, w, 4), or (h, w, 1) each with the occlusion variants (no SH): the TA
+    outputs; *_data1, *_fast (h, w); planes (14, h, w) named by
     PLANES; diff_params (5, h, w) named by history_fix.PARAMS, spec_params (9, h, w) by PARAMS
     + SPEC_PARAMS; rotator, rotator_post: the Blur and PostBlur rotators; dc: the REBLUR frame
     constants; anti_firefly: (diffuse, specular) ring flags; sh: with the SH variants the
@@ -149,13 +156,14 @@ def reblur_band(diff, spec, view_z_in, normal_roughness, diff_data1, spec_data1,
     if (diff_params.shape[0] != len(hf.PARAMS)
             or spec_params.shape[0] != len(hf.PARAMS + hf.SPEC_PARAMS)):
         raise ValueError("diff_params takes the diffuse planes, spec_params the specular ones")
+    c = build.channels("diff", diff, sh)
     dev = build.kernel_device(diff)
     if dev is None:
         return reblur_band_ref(diff, spec, view_z_in, normal_roughness, diff_data1, spec_data1,
                                diff_fast, spec_fast, planes, diff_params, spec_params, **kw)
     h, w = view_z_in.shape
     f32 = torch.float32
-    ins = [("diff", diff, (h, w, 4)), ("spec", spec, (h, w, 4)), ("diff_data1", diff_data1, (h, w)),
+    ins = [("diff", diff, (h, w, c)), ("spec", spec, (h, w, c)), ("diff_data1", diff_data1, (h, w)),
            ("spec_data1", spec_data1, (h, w)), ("diff_fast", diff_fast, (h, w)),
            ("spec_fast", spec_fast, (h, w)),
            ("diff_params", diff_params, (diff_params.shape[0], h, w)),
@@ -166,16 +174,17 @@ def reblur_band(diff, spec, view_z_in, normal_roughness, diff_data1, spec_data1,
         ins += [("diff_sh", sh[0], (h, w, 4)), ("spec_sh", sh[1], (h, w, 4))]
     for name, t, shape in ins:
         build.check(name, t, dev, f32, shape)
-    out = torch.empty((2, h, w, 4), dtype=f32, device=dev)
+    out = torch.empty((2, h, w, c), dtype=f32, device=dev)
     fast = torch.empty((2, h, w), dtype=f32, device=dev)
-    # sig2, sig3, the tap geometry, and with SH sh2, sh3
-    scratch = torch.empty((5 if sh is None else 9, h, w, 4), dtype=f32, device=dev)
+    # sig2 and sig3 ((2, h, w, c) each: c planes of (h, w, 4)), the tap geometry, and with SH
+    # sh2, sh3
+    scratch = torch.empty((c + 1 + (0 if sh is None else 4), h, w, 4), dtype=f32, device=dev)
     out_sh = None if sh is None else torch.empty((2, h, w, 4), dtype=f32, device=dev)
     consts = [*frustum, rect_size[0], rect_size[1], rect_size_inv[0], rect_size_inv[1],
               view_z_scale, ortho_mode, diff_min_material, spec_min_material,
               *map(bool, anti_firefly), sf.ntaps(perf_mode),
               *band_consts(dc, rotator=rotator, rotator_post=rotator_post, enc_err=enc_err),
-              sh is not None]
+              sh is not None, c == 1]
     build.launch("nrd_reblur_band", [t for _, t, _ in ins[:11]] + [scratch, fast, out]
                  + list(sh or (None, None)) + [out_sh], consts, w, h)
     launches += 1

@@ -20,7 +20,10 @@ weights computed once; the footprint's outputs are written once. With the SH var
 one bf16 SH history a signal) the same launch also samples each SH history as it samples the
 fast history: bilinear with the occlusion-weighted custom weights at the footprint's 2x2,
 never through the CatRom (`sample_history_bilinear`, `:473-476`; the TPU kernel's `bil_planes`,
-`nrdtpu/kernels/reblur_pallas.py:580`, `:605`).
+`nrdtpu/kernels/reblur_pallas.py:580`, `:605`). With the occlusion variants each history is the
+(h, w, 1) bf16 hit distance: the one-channel instances sample it through the same CatRom
+footprint and write (nsig, h, w, 1) (the TPU kernel's `n_hist` planes at c = 1,
+`nrdtpu/passes/reblur/denoiser.py:311-320`).
 
 Bound on the H100: gathers. Per pixel at 2560x1440 it reads 12 viewZ + 12 material taps
 (96 B), 4 current (staged once a CTA) and 4 previous packed normals, 4 accumulation taps (16 B),
@@ -152,8 +155,9 @@ def smb_resolve(smb_uv, xv_prev_z, base_threshold, navg_thr, normal_roughness, p
                 prev_normal_roughness, prev_material_id, prev_accum, history, fast_history,
                 *, view_z_scale, denoising_range, rect_size_prev, min_material,
                 world_prev_to_world, second=None, sh=None):
-    """prev_accum: the previous accumulation speed of the signal whose history is sampled.
-    Returns dict(history (h, w, 4), fast, fbits, allow_catrom (bool), footprint_raw,
+    """prev_accum: the previous accumulation speed of the signal whose history is sampled;
+    history: its bf16 history, (h, w, 4), or (h, w, 1) with the occlusion variants.
+    Returns dict(history (h, w, 4) or (h, w, 1), fast, fbits, allow_catrom (bool), footprint_raw,
     accum_speed, n_avg (h, w, 3), smb_navg (h, w, 3)). All planes share the (h, w) of the
     current frame;
     the previous-frame planes and the histories have the same size (rect = resource).
@@ -167,6 +171,7 @@ def smb_resolve(smb_uv, xv_prev_z, base_threshold, navg_thr, normal_roughness, p
               world_prev_to_world=world_prev_to_world)
     sh = None if sh is None else tuple(sh)
     _check_sh(sh, 1 if second is None else 2)
+    c = build.channels("history", history, sh)
     dev = build.kernel_device(normal_roughness)
     if dev is None:
         return smb_resolve_ref(smb_uv, xv_prev_z, base_threshold, navg_thr, normal_roughness,
@@ -181,23 +186,23 @@ def smb_resolve(smb_uv, xv_prev_z, base_threshold, navg_thr, normal_roughness, p
            ("prev_normal_roughness", prev_normal_roughness, f32, (h, w, 4)),
            ("prev_material_id", prev_material_id, f32, (h, w)),
            ("prev_accum", prev_accum, f32, (h, w)),
-           ("history", history, bf16, (h, w, 4)), ("fast_history", fast_history, bf16, (h, w))]
+           ("history", history, bf16, (h, w, c)), ("fast_history", fast_history, bf16, (h, w))]
     extra = []
     if second is not None:
         extra = [("prev_accum_2", second[0], f32, (h, w)),
-                 ("history_2", second[1], bf16, (h, w, 4)),
+                 ("history_2", second[1], bf16, (h, w, c)),
                  ("fast_history_2", second[2], bf16, (h, w))]
     sh_ins = [(f"sh[{k}]", t, bf16, (h, w, 4)) for k, t in enumerate(sh or ())]
     for name, t, dt, shape in ins + extra + sh_ins:
         build.check(name, t, dev, dt, shape)
     nsig = 1 + len(extra) // 3
-    out_hist = torch.empty((nsig, h, w, 4), dtype=f32, device=dev)
+    out_hist = torch.empty((nsig, h, w, c), dtype=f32, device=dev)
     planes = torch.empty((len(PLANES) + 2 * (nsig - 1), h, w), dtype=f32, device=dev)
     navg = torch.empty((2, h, w, 3), dtype=f32, device=dev)
     m = np.asarray(world_prev_to_world, np.float32)[:3, :3].reshape(-1)
     out_sh = torch.empty((nsig, h, w, 4), dtype=f32, device=dev) if sh else None
     consts = [view_z_scale, denoising_range, rect_size_prev[0], rect_size_prev[1],
-              min_material, *m, nsig, sh is not None]
+              min_material, *m, nsig, sh is not None, c == 1]
     extra_ptrs = [t for _, t, _, _ in extra] + [None] * (3 - len(extra))
     build.launch("nrd_smb_resolve",
                  [t for _, t, _, _ in ins] + [out_hist, planes, navg] + extra_ptrs

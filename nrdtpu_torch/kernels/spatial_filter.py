@@ -31,6 +31,12 @@ tap's SH weighed by the tap's final weight (`nrdtpu/passes/reblur/kernels.py:870
 sums three and keeps the centre's `.w`, as the XLA functions do. The checkerboard PrePass takes
 no SH (the SH variants raise under checkerboard).
 
+The occlusion variants' signal is the (h, w, 1) normalized hit distance, which their Blur and
+PostBlur filter (they run no PrePass): the kernel's one-channel instances (`kOcc`) read and
+write one float a pixel, and the min hit-distance weight of their parameters drops its
+sqrt(nlas) (`params.diff_spatial_params(occlusion=True)`, `nrdtpu/passes/reblur/kernels.py:814`,
+`:1655`).
+
 The kernel takes the raw planes (the signal, viewZ, the packed normal and, for Blur and
 PostBlur, the accumulation speed and `geometry`, the (unpacked normal, scaled viewZ) plane that
 H3 (`history_fix`) returns) and the frame constants (`sc`, `dc`); no parameter plane. The
@@ -257,8 +263,8 @@ def spatial_filter_ref(signal, view_z_in, normal_roughness, data1=None, *, sc, d
                      frame_index=int(sc["frame_index"]), parity=cb,
                      denoising_range=float(sc["denoising_range"]))
         centre = signal * cbd["mask"][..., None]
-    params = (P.spec_spatial_params if spec else P.diff_spatial_params)(sc, dc, mode, geom,
-                                                                        centre, data1)
+    params = (P.spec_spatial_params if spec else P.diff_spatial_params)(
+        sc, dc, mode, geom, centre, data1, occlusion=signal.shape[-1] == 1)
     prepass = prepass_inputs(sc, dc) if spec and mode == P.PRE_BLUR else None
     return taps_ref(signal, view_z_in, normal_roughness, shared, params,
                     frustum=_v(sc["frustum"]), rect_size=_v(sc["rect_size"]),
@@ -267,7 +273,7 @@ def spatial_filter_ref(signal, view_z_in, normal_roughness, data1=None, *, sc, d
                     cb=cbd, sh=sh)
 
 
-def launch_consts(sc, dc, mode, spec, enc_err, perf_mode, cb=None, sh=False):
+def launch_consts(sc, dc, mode, spec, enc_err, perf_mode, cb=None, sh=False, occlusion=False):
     """The kernel's host constants, each the float32 value that the plain version's torch ops
     see (`csrc/spatial_filter.cu:nrd_spatial_filter` lists them)."""
     fraction_scale, radius_scale = P.STAGE_SCALES[mode]
@@ -285,20 +291,22 @@ def launch_consts(sc, dc, mode, spec, enc_err, perf_mode, cb=None, sh=False):
             P.min_hit_dist_weight_scale(dc, fraction_scale),
             P.roughness_fraction_scaled(dc, fraction_scale), min_material(dc, spec),
             ntaps(perf_mode), mode, spec, *prepass_consts(prepass)[4:],
-            -1 if cb is None else int(cb), float(sc["denoising_range"]), bool(sh)]
+            -1 if cb is None else int(cb), float(sc["denoising_range"]), bool(sh),
+            bool(occlusion)]
 
 
 def spatial_filter(signal, view_z_in, normal_roughness, data1=None, *, sc, dc, mode, spec,
                    enc_err, perf_mode, geometry=None, cb=None, sh=None):
-    """signal (h, w, 4), view_z_in (h, w), normal_roughness (h, w, 4) with linear roughness,
+    """signal (h, w, 4), or with the occlusion variants (h, w, 1) (Blur and PostBlur only, no
+    SH), view_z_in (h, w), normal_roughness (h, w, 4) with linear roughness,
     data1 (h, w) the accumulation speed (Blur and PostBlur; None in the PrePass); sc, dc: the
     frame constants; mode: params.PRE_BLUR, BLUR or POST_BLUR; spec: the specular filter;
     enc_err: the normal encoding's error; geometry: in Blur and PostBlur the tap geometry (h, w,
     4) that `history_fix` returns, None in the PrePass; cb: in a checkerboard PrePass the
     mode's has-data parity (int(CheckerboardMode) - 1, 0 or 1), the signal expanded from half
     width; else None; sh: with the SH variants the signal's SH1 (h, w, 4), not under
-    checkerboard. Returns the filtered signal (h, w, 4), in the specular PrePass also
-    hitDistForTracking (h, w), and with `sh` last the filtered SH (h, w, 4)."""
+    checkerboard. Returns the filtered signal (of the input's shape), in the specular PrePass
+    also hitDistForTracking (h, w), and with `sh` last the filtered SH (h, w, 4)."""
     global launches, cb_launches
     kw = dict(sc=sc, dc=dc, mode=mode, spec=bool(spec), enc_err=enc_err, perf_mode=perf_mode,
               geometry=geometry, cb=cb, sh=sh)
@@ -310,11 +318,14 @@ def spatial_filter(signal, view_z_in, normal_roughness, data1=None, *, sc, dc, m
         raise ValueError(f"cb: {cb!r}; the checkerboard parity (0 or 1) goes with the PrePass")
     if cb is not None and sh is not None:
         raise ValueError("the checkerboard PrePass takes no SH")
+    c = build.channels("signal", signal, sh)
+    if c == 1 and prepass:
+        raise ValueError("the one-channel (occlusion) signal goes with Blur and PostBlur")
     dev = build.kernel_device(signal)
     if dev is None:
         return spatial_filter_ref(signal, view_z_in, normal_roughness, data1, **kw)
     h, w = view_z_in.shape
-    ins = [("signal", signal, (h, w, 4)), ("view_z_in", view_z_in, (h, w)),
+    ins = [("signal", signal, (h, w, c)), ("view_z_in", view_z_in, (h, w)),
            ("normal_roughness", normal_roughness, (h, w, 4))]
     if not prepass:
         ins += [("data1", data1, (h, w)), ("geometry", geometry, (h, w, 4))]
@@ -322,13 +333,13 @@ def spatial_filter(signal, view_z_in, normal_roughness, data1=None, *, sc, dc, m
         ins.append(("sh", sh, (h, w, 4)))
     for name, t, shape in ins:
         build.check(name, t, dev, torch.float32, shape)
-    out = torch.empty((h, w, 4), dtype=torch.float32, device=dev)
+    out = torch.empty((h, w, c), dtype=torch.float32, device=dev)
     hdt = torch.empty((h, w), dtype=torch.float32, device=dev) if spec and prepass else None
     out_sh = None if sh is None else torch.empty((h, w, 4), dtype=torch.float32, device=dev)
     build.launch("nrd_spatial_filter", [signal, view_z_in, normal_roughness, data1, geometry,
                                         out, hdt, sh, out_sh],
-                 launch_consts(sc, dc, mode, bool(spec), enc_err, perf_mode, cb, sh is not None),
-                 w, h)
+                 launch_consts(sc, dc, mode, bool(spec), enc_err, perf_mode, cb, sh is not None,
+                               c == 1), w, h)
     launches += 1
     cb_launches += cb is not None
     res = (out, hdt) if spec and prepass else (out,)

@@ -26,6 +26,11 @@ With the SH variants (`sh`, both signals' SH1) each signal's SH rides its taps a
 mode (TPU `FSig.has_sh`, `reblur_fused.py:775-777`, `:804`): the diffuse sum of all four
 channels, the specular sum of three with the centre's .w kept.
 
+With the occlusion variants (Blur and PostBlur; they run no PrePass) each signal is the (h, w,
+1) hit distance: the one-channel instance reads and writes one float a pixel a signal, and the
+parameter planes (`params.diff_spatial_params(occlusion=True)`) carry the min hit-distance
+weight without its sqrt(nlas).
+
 Not carried over from the TPU kernel: the shared static tap lattice and hat-blended radius
 levels (`reblur_fused.py:17-20`), bf16 windows, and the zeroed radius of sky pixels.
 
@@ -106,7 +111,8 @@ def spatial_filter_fused(diff, spec, view_z_in, normal_roughness, shared, diff_p
                          spec_params, *, frustum, rect_size, view_z_scale, ortho_mode,
                          diff_min_material, spec_min_material, perf_mode, prepass=None,
                          geometry=None, cb=None, sh=None):
-    """diff, spec (h, w, 4); shared (8, h, w) planes named by spatial_filter.SHARED;
+    """diff, spec (h, w, 4), or (h, w, 1) each with the occlusion variants (Blur and PostBlur,
+    no SH); shared (8, h, w) planes named by spatial_filter.SHARED;
     diff_params (8, h, w) named by spatial_filter.PARAMS; spec_params (10 | 15, h, w) named by
     PARAMS + SPEC_PARAMS (+ PREPASS_PARAMS, with `prepass` as for spatial_filter); geometry:
     the frame's tap geometry (h, w, 4) from history_fix_fused, required in Blur and PostBlur
@@ -134,12 +140,15 @@ def spatial_filter_fused(diff, spec, view_z_in, normal_roughness, shared, diff_p
                          "with the PrePass")
     if cb is not None and (not prepass_mode or cb["parity"] not in (0, 1)):
         raise ValueError(f"cb: {cb!r}; the checkerboard parity (0 or 1) goes with the PrePass")
+    c = build.channels("diff", diff, sh)
+    if c == 1 and prepass_mode:
+        raise ValueError("the one-channel (occlusion) signals go with Blur and PostBlur")
     dev = build.kernel_device(diff)
     if dev is None:
         return spatial_filter_fused_ref(diff, spec, view_z_in, normal_roughness, shared,
                                         diff_params, spec_params, **kw)
     h, w = view_z_in.shape
-    ins = [("diff", diff, (h, w, 4)), ("spec", spec, (h, w, 4)), ("view_z_in", view_z_in, (h, w)),
+    ins = [("diff", diff, (h, w, c)), ("spec", spec, (h, w, c)), ("view_z_in", view_z_in, (h, w)),
            ("normal_roughness", normal_roughness, (h, w, 4)),
            ("shared", shared, (len(sf.SHARED), h, w)),
            ("diff_params", diff_params, (diff_params.shape[0], h, w)),
@@ -150,11 +159,11 @@ def spatial_filter_fused(diff, spec, view_z_in, normal_roughness, shared, diff_p
         ins += [("diff_sh", sh[0], (h, w, 4)), ("spec_sh", sh[1], (h, w, 4))]
     for name, t, shape in ins:
         build.check(name, t, dev, torch.float32, shape)
-    out = torch.empty((2, h, w, 4), dtype=torch.float32, device=dev)
+    out = torch.empty((2, h, w, c), dtype=torch.float32, device=dev)
     hdt = torch.empty((h, w) if prepass_mode else (1,), dtype=torch.float32, device=dev)
     out_sh = None if sh is None else torch.empty((2, h, w, 4), dtype=torch.float32, device=dev)
     consts = [*frustum, rect_size[0], rect_size[1], view_z_scale, ortho_mode, diff_min_material,
-              spec_min_material, sf.ntaps(perf_mode), spec_params.shape[0], sh is not None]
+              spec_min_material, sf.ntaps(perf_mode), spec_params.shape[0], sh is not None, c == 1]
     if prepass_mode:
         consts += sf.prepass_consts(prepass)
         consts += ([-1, 0.0, 0.0] if cb is None else

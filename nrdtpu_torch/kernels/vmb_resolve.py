@@ -16,7 +16,9 @@ XLA semantics (`nrdtpu/passes/reblur/kernels.py:1163-1174`, `:1272-1310`, `:1338
     bilinear previous hitDistForTracking;
   - with the SH variants (`sh_history`, bf16), the specular SH history as the fast history:
     bilinear with the virtual-motion occlusion weights, never the CatRom (`:1491-1494`; the
-    TPU kernel's `n_sh`, `reblur_pallas.py:800`, `:829-830`).
+    TPU kernel's `n_sh`, `reblur_pallas.py:800`, `:829-830`);
+  - with the occlusion variants, the (h, w, 1) bf16 hit-distance history through the same
+    CatRom in one channel (the kernel's one-channel instance, `vmb_resolve_occ_kernel`).
 
 The TPU kernel's block-base residual and its `valid` mask are not carried over.
 
@@ -107,8 +109,9 @@ def vmb_resolve(vmb_uv, params, prev_view_z, prev_normal_roughness, prev_materia
                 rect_size_prev, min_material, resolution_scale_prev, sh_history=None):
     """vmb_uv (h, w, 2), params (14, h, w) float32 planes named by PARAMS; the previous
     frame's viewZ, packed normals, material, specular accumulation speed, bf16 specular
-    history (h, w, 4) and fast history, and hitDistForTracking; sh_history: with the SH
-    variants the bf16 specular SH history (h, w, 4). Returns dict(history (h, w, 4),
+    history (h, w, 4), or (h, w, 1) with the occlusion variants, and fast history, and
+    hitDistForTracking; sh_history: with the SH variants the bf16 specular SH history (h, w,
+    4). Returns dict(history (h, w, 4) or (h, w, 1),
     allow_catrom (bool), the (h, w) planes named by PLANES, and with sh_history sh (h, w, 4))."""
     global launches
     kw = dict(view_z_scale=view_z_scale, ortho_mode=ortho_mode, rect_size_prev=rect_size_prev,
@@ -121,21 +124,22 @@ def vmb_resolve(vmb_uv, params, prev_view_z, prev_normal_roughness, prev_materia
                                **kw)
     h, w = prev_view_z.shape
     f32, bf16 = torch.float32, torch.bfloat16
+    c = build.channels("history", history, sh_history)
     ins = [("vmb_uv", vmb_uv, f32, (h, w, 2)), ("params", params, f32, (len(PARAMS), h, w)),
            ("prev_view_z", prev_view_z, f32, (h, w)),
            ("prev_normal_roughness", prev_normal_roughness, f32, (h, w, 4)),
            ("prev_material_id", prev_material_id, f32, (h, w)),
-           ("prev_accum", prev_accum, f32, (h, w)), ("history", history, bf16, (h, w, 4)),
+           ("prev_accum", prev_accum, f32, (h, w)), ("history", history, bf16, (h, w, c)),
            ("fast_history", fast_history, bf16, (h, w)), ("prev_hdt", prev_hdt, f32, (h, w))]
     if sh_history is not None:
         ins.append(("sh_history", sh_history, bf16, (h, w, 4)))
     for name, t, dt, shape in ins:
         build.check(name, t, dev, dt, shape)
-    out_hist = torch.empty((h, w, 4), dtype=f32, device=dev)
+    out_hist = torch.empty((h, w, c), dtype=f32, device=dev)
     planes = torch.empty((len(PLANES), h, w), dtype=f32, device=dev)
     out_sh = None if sh_history is None else torch.empty((h, w, 4), dtype=f32, device=dev)
     consts = [view_z_scale, ortho_mode, rect_size_prev[0], rect_size_prev[1], min_material,
-              resolution_scale_prev[0], resolution_scale_prev[1], sh_history is not None]
+              resolution_scale_prev[0], resolution_scale_prev[1], sh_history is not None, c == 1]
     build.launch("nrd_vmb_resolve", [t for _, t, _, _ in ins[:9]] + [out_hist, planes]
                  + [sh_history, out_sh], consts, w, h)
     launches += 1

@@ -1,7 +1,9 @@
-"""REBLUR shared helpers (REBLUR_Common.hlsli + REBLUR_Config.hlsli) - the part the diffuse
-path uses; counterpart of `nrdtpu/passes/reblur/common.py`.
+"""REBLUR shared helpers (REBLUR_Common.hlsli + REBLUR_Config.hlsli); counterpart of
+`nrdtpu/passes/reblur/common.py`.
 
-Signals are (h, w, 4): YCoCg + normalized hit distance, hit distance the last channel.
+Signals are (h, w, 4): YCoCg + normalized hit distance, for the radiance variants, or (h, w,
+1): the normalized hit distance, for the occlusion variants (`occlusion=True` below); the hit
+distance is the last channel.
 Frame constants (`sc`, `dc`) are host values: Python floats or small numpy arrays.
 """
 
@@ -130,16 +132,19 @@ def extract_hit_dist(signal):
     return signal[..., -1]
 
 
-def get_luma(signal):
-    """GetLuma: YCoCg .x for radiance signals."""
-    return signal[..., 0]
+def get_luma(signal, occlusion: bool = False):
+    """GetLuma: YCoCg .x for radiance signals, the hit distance for occlusion."""
+    return signal[..., -1] if occlusion else signal[..., 0]
 
 
 def get_luma_scale(curr_luma, new_luma):
     return (new_luma + nm.EPS) / (curr_luma + nm.EPS)
 
 
-def change_luma(signal, new_luma):
+def change_luma(signal, new_luma, occlusion: bool = False):
+    """ChangeLuma: the YCoCg scaled to the new luma; for occlusion the new luma itself."""
+    if occlusion:
+        return new_luma[..., None]
     scale = get_luma_scale(get_luma(signal), new_luma)
     return torch.cat([signal[..., :3] * scale[..., None], signal[..., 3:]], -1)
 
@@ -151,16 +156,22 @@ def sh_luma_scale(sh, new_luma):
     return torch.cat([sh[..., :3] * scale[..., None], sh[..., 3:]], -1)
 
 
-def clamp_negative_to_zero(signal):
-    """ClampNegativeToZero (REBLUR_Common.hlsli:168-240) for radiance."""
+def clamp_negative_to_zero(signal, occlusion: bool = False):
+    """ClampNegativeToZero (REBLUR_Common.hlsli:168-240): for occlusion the saturated hit
+    distance."""
     hit = nm.saturate(signal[..., -1:])
+    if occlusion:
+        return hit
     return torch.cat([nm.linear_to_ycocg(nm.ycocg_to_linear(signal[..., :3])), hit], -1)
 
 
-def mix_history_and_current(dc, history, current, f, roughness):
-    """MixHistoryAndCurrent (REBLUR_Common.hlsli:152-207) for radiance."""
+def mix_history_and_current(dc, history, current, f, roughness, occlusion: bool = False):
+    """MixHistoryAndCurrent (REBLUR_Common.hlsli:152-207): for occlusion the hit distance
+    lerped by f_hit alone."""
     min_limit = get_min_allowed_limit_for_hit_dist_non_linear_accum_speed(dc, roughness)
     f_hit = torch.maximum(f, min_limit)
+    if occlusion:
+        return nm.lerp(history, current, f_hit[..., None])
     out_rgb = nm.lerp(history[..., :3], current[..., :3], f[..., None])
     out_hit = nm.lerp(history[..., 3], current[..., 3], f_hit)
     return torch.cat([out_rgb, out_hit[..., None]], -1)

@@ -20,14 +20,20 @@ TS, the dead pass-through and SplitScreen, OUT_*_SH1 passes the raw IN_*_SH1 in 
 and no SplitScreen (`denoiser.py:581-589`). Under checkerboard they raise NotImplementedError:
 the JAX reference passes the half-width IN_*_SH1 through its dead pixels unexpanded
 (`nrdtpu/passes/reblur/denoiser.py:585-587`) and fails on frame 0, so there is nothing to hold
-the port against (ROADMAP.md). Every other variant raises NotImplementedError; ROADMAP.md
-lists them.
+the port against (ROADMAP.md). The occlusion variants (REBLUR_DIFFUSE_OCCLUSION,
+REBLUR_SPECULAR_OCCLUSION, REBLUR_DIFFUSE_SPECULAR_OCCLUSION, `denoiser.py:49`, `:58-60`,
+`:229`) denoise IN_DIFF_HITDIST / IN_SPEC_HITDIST, the (h, w) normalized hit distance (half
+width under checkerboard), into OUT_DIFF_HITDIST / OUT_SPEC_HITDIST (h, w, 1): one channel
+through every pass (the kernels' one-channel modes), never a PrePass or TS, anti-firefly forced
+off; under checkerboard the expanded input takes the horizontal neighbour resolve on the pixels
+without data (`cb_resolve`, `:278-298`), also under the band. REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION
+raises NotImplementedError; ROADMAP.md lists it.
 
 State (the permanent pool; histories in bf16, the RGBA16f-history analogue):
   prev_view_z (h, w), prev_normal_roughness (h, w, 4), diff_accum / spec_accum / material_id
-  (h, w); per signal s present in {diff, spec}: s_history (h, w, 4), s_fast_history (h, w),
-  s_luma_stab (h, w), and with SH s_sh_history (h, w, 4); with specular also
-  prev_spec_hitdist_for_tracking (h, w) float32.
+  (h, w); per signal s present in {diff, spec}: s_history (h, w, 4) ((h, w, 1) with
+  occlusion), s_fast_history (h, w), s_luma_stab (h, w) (none with occlusion: no TS), and with
+  SH s_sh_history (h, w, 4); with specular also prev_spec_hitdist_for_tracking (h, w) float32.
 """
 
 from __future__ import annotations
@@ -52,11 +58,16 @@ from . import common as C
 from . import kernels as K
 
 RT = ResourceType
+OCCLUSION = (Denoiser.REBLUR_DIFFUSE_OCCLUSION, Denoiser.REBLUR_SPECULAR_OCCLUSION,
+             Denoiser.REBLUR_DIFFUSE_SPECULAR_OCCLUSION)
 PORTED = (Denoiser.REBLUR_DIFFUSE, Denoiser.REBLUR_SPECULAR, Denoiser.REBLUR_DIFFUSE_SPECULAR,
           Denoiser.REBLUR_DIFFUSE_SH, Denoiser.REBLUR_SPECULAR_SH,
-          Denoiser.REBLUR_DIFFUSE_SPECULAR_SH)
+          Denoiser.REBLUR_DIFFUSE_SPECULAR_SH) + OCCLUSION
 IN_RT = {"diff": RT.IN_DIFF_RADIANCE_HITDIST, "spec": RT.IN_SPEC_RADIANCE_HITDIST}
 OUT_RT = {"diff": RT.OUT_DIFF_RADIANCE_HITDIST, "spec": RT.OUT_SPEC_RADIANCE_HITDIST}
+# the occlusion variants: the normalized hit distance in and out (`denoiser.py:141-159`)
+OCC_IN_RT = {"diff": RT.IN_DIFF_HITDIST, "spec": RT.IN_SPEC_HITDIST}
+OCC_OUT_RT = {"diff": RT.OUT_DIFF_HITDIST, "spec": RT.OUT_SPEC_HITDIST}
 # the SH variants: (SH0, SH1) of each signal (`denoiser.py:146-159`, `:181-182`, `:584`)
 SH_IN_RT = {"diff": (RT.IN_DIFF_SH0, RT.IN_DIFF_SH1), "spec": (RT.IN_SPEC_SH0, RT.IN_SPEC_SH1)}
 SH_OUT_RT = {"diff": (RT.OUT_DIFF_SH0, RT.OUT_DIFF_SH1),
@@ -74,6 +85,8 @@ class ReblurDenoiser:
         self.has_diffuse = "DIFFUSE" in config.denoiser.name
         self.has_specular = "SPECULAR" in config.denoiser.name
         self.sh = config.denoiser.name.endswith("_SH")
+        self.occlusion = config.denoiser in OCCLUSION
+        self.channels = 1 if self.occlusion else 4
         self.signals = tuple(sig for sig, present in (("diff", self.has_diffuse),
                                                       ("spec", self.has_specular)) if present)
         if self.has_specular and config.roughness_encoding != RoughnessEncoding.LINEAR:
@@ -87,8 +100,10 @@ class ReblurDenoiser:
                 self._skip_prepass(s))
 
     def _skip_prepass(self, s: ReblurSettings):
-        """`nrdtpu/passes/reblur/denoiser.py:58-63`: no PrePass only if every signal's
-        radius is 0."""
+        """`nrdtpu/passes/reblur/denoiser.py:58-63`: no PrePass for occlusion, else only if
+        every signal's radius is 0."""
+        if self.occlusion:
+            return True
         radius = {"diff": s.diffusePrepassBlurRadius, "spec": s.specularPrepassBlurRadius}
         return (all(radius[sig] == 0.0 for sig in self.signals)
                 and s.checkerboardMode == CheckerboardMode.OFF)
@@ -114,9 +129,10 @@ class ReblurDenoiser:
             "material_id": torch.zeros((h, w), dtype=f32, **kw),
         }
         for sig in self.signals:
-            state[f"{sig}_history"] = torch.zeros((h, w, 4), dtype=bf16, **kw)
+            state[f"{sig}_history"] = torch.zeros((h, w, self.channels), dtype=bf16, **kw)
             state[f"{sig}_fast_history"] = torch.zeros((h, w), dtype=bf16, **kw)
-            state[f"{sig}_luma_stab"] = torch.zeros((h, w), dtype=bf16, **kw)
+            if not self.occlusion:  # no TS
+                state[f"{sig}_luma_stab"] = torch.zeros((h, w), dtype=bf16, **kw)
             if self.sh:
                 state[f"{sig}_sh_history"] = torch.zeros((h, w, 4), dtype=bf16, **kw)
         if self.has_specular:
@@ -178,8 +194,12 @@ class ReblurDenoiser:
         # has-data parity of the mode, and the pixels with data this frame (`:189-195`)
         cb = (None if s.checkerboardMode == CheckerboardMode.OFF
               else int(s.checkerboardMode) - 1)
-        in_rt = {sig: SH_IN_RT[sig][0] if self.sh else IN_RT[sig] for sig in self.signals}
-        raw_in = {sig: inputs[in_rt[sig]] if cb is None else C.cb_expand(inputs[in_rt[sig]], w)
+        in_rt = {sig: SH_IN_RT[sig][0] if self.sh else OCC_IN_RT[sig] if self.occlusion
+                 else IN_RT[sig] for sig in self.signals}
+        # the occlusion variants' (h, w) input gains its channel (`denoiser.py:173-176`)
+        given = {sig: inputs[in_rt[sig]][..., None] if self.occlusion else inputs[in_rt[sig]]
+                 for sig in self.signals}
+        raw_in = {sig: given[sig] if cb is None else C.cb_expand(given[sig], w)
                   for sig in self.signals}
         # the SH variants' SH1 of each signal, none without SH (no checkerboard: `specialize`
         # raises)
@@ -190,7 +210,9 @@ class ReblurDenoiser:
         skip_prepass = self._skip_prepass(s)
         # both signals: the spatial stages and HistoryFix run fused (denoiser.py:245-246)
         fused = self.has_diffuse and self.has_specular
-        anti_firefly = {sig: s.enableAntiFirefly for sig in self.signals}
+        # anti-firefly: forced off for occlusion (`denoiser.py:416-418`, `:434-438`, `:448`)
+        anti_firefly = {sig: s.enableAntiFirefly and not self.occlusion
+                        for sig in self.signals}
 
         tile_map = K.classify_tiles(sc, view_z)
         dead = K.sky_pixel_mask(sc, tile_map, view_z)
@@ -235,6 +257,11 @@ class ReblurDenoiser:
                 else:
                     signal["diff"] = res
 
+        # the occlusion variants under checkerboard: no PrePass, so the neighbour resolve fills
+        # the pixels without data (`denoiser.py:278-298`)
+        if cb is not None and self.occlusion:
+            signal = K.cb_resolve(sc, view_z, normal_roughness, signal, has_data)
+
         # TEMPORAL ACCUMULATION: one surface-motion footprint, both signals' samples
         prev_internal = {k: state[k] for k in ("diff_accum", "spec_accum", "material_id")}
         sm = K.surface_motion_reprojection(
@@ -251,7 +278,7 @@ class ReblurDenoiser:
         if self.has_diffuse:
             res = K.temporal_accumulation_diffuse(
                 sc, dc, sm, signal["diff"], inputs.get(RT.IN_DIFF_CONFIDENCE), has_data,
-                sh_input=sh1.get("diff"))
+                sh_input=sh1.get("diff"), occlusion=self.occlusion)
             sig1["diff"], fast1["diff"], data1["diff"] = res[:3]
             if self.sh:
                 sh2["diff"] = res[3]
@@ -263,7 +290,8 @@ class ReblurDenoiser:
                 C.extract_hit_dist(signal["spec"]) if skip_prepass else hdt_prepass,
                 state["prev_spec_hitdist_for_tracking"], cfg, inputs.get(RT.IN_SPEC_CONFIDENCE),
                 has_prepass_hitdist=not skip_prepass, has_data=has_data,
-                sh_input=sh1.get("spec"), sh_history=state.get("spec_sh_history"))
+                sh_input=sh1.get("spec"), sh_history=state.get("spec_sh_history"),
+                occlusion=self.occlusion)
             sig1["spec"], fast1["spec"], data1["spec"] = ta["spec"], ta["fast"], ta["accum_speed"]
             if self.sh:
                 sh2["spec"] = ta["sh"]
@@ -316,8 +344,8 @@ class ReblurDenoiser:
         new_state = dict(state)
         keep = dead
         outs = {}
-        # TEMPORAL STABILIZATION or direct output
-        if s.maxStabilizedFrameNum == 0:
+        # TEMPORAL STABILIZATION or direct output; never TS for occlusion (`denoiser.py:229`)
+        if self.occlusion or s.maxStabilizedFrameNum == 0:
             out_sig = dict(sig4)
             out_sh = dict(sh4)
             inc = {sig: data1[sig] + 1.0 for sig in self.signals}
@@ -355,7 +383,8 @@ class ReblurDenoiser:
             new_state[f"{sig}_accum"] = torch.where(keep, state[f"{sig}_accum"],
                                                     C.quantize_accum_speed(inc[sig]))
             out = torch.where(dead[..., None], raw_in[sig], out_sig[sig])
-            out_rt = SH_OUT_RT[sig][0] if self.sh else OUT_RT[sig]
+            out_rt = (SH_OUT_RT[sig][0] if self.sh else OCC_OUT_RT[sig] if self.occlusion
+                      else OUT_RT[sig])
             outs[out_rt] = K.split_screen(sc, raw_in[sig], view_z, out)
             # history for the next frame = PostBlur output (PostBlur writes the history)
             new_state[f"{sig}_history"] = torch.where(keep[..., None], state[f"{sig}_history"],

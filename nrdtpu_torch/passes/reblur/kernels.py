@@ -25,6 +25,11 @@ With the SH variants (REBLUR_*_SH) each pass also carries each signal's SH1 (`sh
 rides the same launches (the kernels' SH modes), and its lerps and luma scales are glue here,
 as in the XLA functions; a pass given `sh` returns the SH last.
 
+With the occlusion variants (REBLUR_*_OCCLUSION) every signal and history is (h, w, 1), the
+normalized hit distance: the kernels take their one-channel modes from the signal's shape,
+the TA halves take `occlusion=True` (the one-channel mixes, no firefly suppressor), and under
+checkerboard `cb_resolve` fills the pixels without data (glue, as in JAX).
+
 The glue keeps the op order of the XLA functions; the kernels compute the per-pixel formula
 of the XLA gathers, not the TPU kernels' workarounds. Frame constants (`sc`, `dc`) are host
 values, so nothing but pixel planes lives on the device.
@@ -206,12 +211,13 @@ def surface_motion_reprojection(sc, dc, view_z_in, normal_roughness, mv_in, prev
 
 
 def temporal_accumulation_diffuse(sc, dc, sm, diff_input, diff_confidence=None, has_data=None,
-                                  sh_input=None):
+                                  sh_input=None, occlusion=False):
     """Diffuse half of TA (lines 826-930) for the radiance signal; has_data: under
     checkerboard the (h, w) bool plane of the pixels with data, whose neighbours accumulate
     slower (`nrdtpu/passes/reblur/kernels.py:459-464`, `:499-503`), else None; sh_input: with
     the SH variants the SH1 input, mixed with `sm["diff_sh"]` over all four channels and
-    scaled by the anti-firefly luma (`:469-478`, `:492-495`).
+    scaled by the anti-firefly luma (`:469-478`, `:492-495`); occlusion: the (h, w, 1) hit
+    distance, mixed by f_hit alone, no firefly suppressor (`:457`, `:465-468`, `:481`, `:506`).
     Returns (diff_out, fast_out, accum_speed_out[, sh_out])."""
     diff_accum_speed = sm["diff_accum_speed"]
     confidence = sm["footprint_quality"]
@@ -221,30 +227,32 @@ def temporal_accumulation_diffuse(sc, dc, sm, diff_input, diff_confidence=None, 
                                                   1.0 / (1.0 + diff_accum_speed))
     diff_accum_speed = torch.clamp_max(diff_accum_speed, float(dc["max_accumulated_frame_num"]))
 
-    smb_diff_history = C.clamp_negative_to_zero(sm["diff_history"])
+    smb_diff_history = C.clamp_negative_to_zero(sm["diff_history"], occlusion)
     smb_diff_fast = sm["diff_fast"]
 
     diff_nlas = 1.0 / (1.0 + diff_accum_speed)
     if has_data is not None:
         diff_nlas = torch.where(has_data, diff_nlas, diff_nlas * C.no_data_scale(sc, diff_nlas))
     diff_result = C.mix_history_and_current(dc, smb_diff_history, diff_input, diff_nlas,
-                                            torch.ones_like(diff_nlas))
+                                            torch.ones_like(diff_nlas), occlusion)
 
-    # firefly suppressor (lines 888-903)
-    max_rel = (float(dc["firefly_suppressor_min_relative_scale"])
-               + C.REBLUR_FIREFLY_SUPPRESSOR_MAX_RELATIVE_INTENSITY / (diff_accum_speed + 1.0))
-    antifirefly = diff_accum_speed * float(dc["max_blur_radius"]) \
-        * C.REBLUR_FIREFLY_SUPPRESSOR_RADIUS_SCALE
-    antifirefly = antifirefly / (1.0 + antifirefly)
-    luma = C.get_luma(diff_result)
-    luma_clamped = torch.minimum(luma, C.get_luma(smb_diff_history) * max_rel)
-    luma_clamped = nm.lerp(luma, luma_clamped, antifirefly)
-    diff_result = C.change_luma(diff_result, luma_clamped)
+    # firefly suppressor (lines 888-903), not for occlusion
     sh_result = None
-    if sh_input is not None:
-        sh_result = C.mix_history_and_current(dc, sm["diff_sh"], sh_input, diff_nlas,
-                                              torch.ones_like(diff_nlas))
-        sh_result = C.sh_luma_scale(sh_result, luma_clamped)
+    if not occlusion:
+        max_rel = (float(dc["firefly_suppressor_min_relative_scale"])
+                   + C.REBLUR_FIREFLY_SUPPRESSOR_MAX_RELATIVE_INTENSITY
+                   / (diff_accum_speed + 1.0))
+        antifirefly = diff_accum_speed * float(dc["max_blur_radius"]) \
+            * C.REBLUR_FIREFLY_SUPPRESSOR_RADIUS_SCALE
+        antifirefly = antifirefly / (1.0 + antifirefly)
+        luma = C.get_luma(diff_result)
+        luma_clamped = torch.minimum(luma, C.get_luma(smb_diff_history) * max_rel)
+        luma_clamped = nm.lerp(luma, luma_clamped, antifirefly)
+        diff_result = C.change_luma(diff_result, luma_clamped)
+        if sh_input is not None:
+            sh_result = C.mix_history_and_current(dc, sm["diff_sh"], sh_input, diff_nlas,
+                                                  torch.ones_like(diff_nlas))
+            sh_result = C.sh_luma_scale(sh_result, luma_clamped)
 
     # fast history (lines 911-924)
     fast_accum_speed = torch.clamp_max(diff_accum_speed,
@@ -252,10 +260,11 @@ def temporal_accumulation_diffuse(sc, dc, sm, diff_input, diff_confidence=None, 
     fast_nlas = 1.0 / (1.0 + fast_accum_speed)
     if has_data is not None:
         fast_nlas = torch.where(has_data, fast_nlas, fast_nlas * C.no_data_scale(sc, fast_nlas))
-    fast_result = nm.lerp(smb_diff_fast, C.get_luma(diff_input), fast_nlas)
-    fast_clamped = torch.minimum(fast_result, C.get_luma(smb_diff_history) * max_rel
-                                 * C.REBLUR_FIREFLY_SUPPRESSOR_FAST_RELATIVE_INTENSITY)
-    fast_result = nm.lerp(fast_result, fast_clamped, antifirefly)
+    fast_result = nm.lerp(smb_diff_fast, C.get_luma(diff_input, occlusion), fast_nlas)
+    if not occlusion:
+        fast_clamped = torch.minimum(fast_result, C.get_luma(smb_diff_history) * max_rel
+                                     * C.REBLUR_FIREFLY_SUPPRESSOR_FAST_RELATIVE_INTENSITY)
+        fast_result = nm.lerp(fast_result, fast_clamped, antifirefly)
     if sh_input is not None:
         return diff_result, fast_result, diff_accum_speed, sh_result
     return diff_result, fast_result, diff_accum_speed
@@ -324,7 +333,8 @@ def temporal_accumulation_specular(sc, dc, sm, spec_input, spec_history, spec_fa
                                    prev_normal_roughness, prev_internal,
                                    hit_dist_for_tracking_in, prev_spec_hitdist_for_tracking,
                                    config, spec_confidence=None, *, has_prepass_hitdist,
-                                   has_data=None, sh_input=None, sh_history=None):
+                                   has_data=None, sh_input=None, sh_history=None,
+                                   occlusion=False):
     """Specular half of TA (`nrdtpu/passes/reblur/kernels.py:978-1548`, XLA path) for the
     radiance signal; `sm` is surface_motion_reprojection with the "spec" signal. The gathers run
     in three kernels: spec_ta_head (3x3 stencils, curvature neighbours, high-parallax
@@ -333,7 +343,9 @@ def temporal_accumulation_specular(sc, dc, sm, spec_input, spec_history, spec_fa
     temporal_accumulation_diffuse (`:1466-1474`, `:1524-1529`); sh_input, sh_history: with the
     SH variants the SH1 input and the bf16 SH history, sampled at the virtual-motion position
     in vmb_resolve's launch, its surface-motion sample `sm["spec_sh"]`; the two SH lerps, .w
-    set to the modified roughness, and the anti-firefly scale (`:1483-1500`, `:1516-1521`).
+    set to the modified roughness, and the anti-firefly scale (`:1483-1500`, `:1516-1521`);
+    occlusion: the (h, w, 1) hit distance and history (vmb_resolve's one-channel mode), mixed
+    by f_hit alone, no firefly suppressor (`:1464-1480`, `:1507`, `:1533`).
     Returns dict(spec, fast, accum_speed, fbits_vmb, curvature, virtual_history_amount,
     hit_dist_for_tracking[, sh])."""
     h, w = view_z_in.shape
@@ -591,15 +603,17 @@ def temporal_accumulation_specular(sc, dc, sm, spec_input, spec_history, spec_fa
     virtual_history_amount = nm.saturate(virtual_history_amount)
 
     # virtual history + accumulation (lines 708-754)
-    smb_history = C.clamp_negative_to_zero(smb_history)
-    vmb_history = C.clamp_negative_to_zero(vmb["history"])
+    smb_history = C.clamp_negative_to_zero(smb_history, occlusion)
+    vmb_history = C.clamp_negative_to_zero(vmb["history"], occlusion)
     smb_nlas = 1.0 / (1.0 + smb_accum)
     vmb_nlas = 1.0 / (1.0 + vmb_accum)
     if has_data is not None:  # checkerboard: slower on the pixels without data (:1469-1474)
         smb_nlas = torch.where(has_data, smb_nlas, smb_nlas * C.no_data_scale(sc, smb_nlas))
         vmb_nlas = torch.where(has_data, vmb_nlas, vmb_nlas * C.no_data_scale(sc, vmb_nlas))
-    smb_spec = C.mix_history_and_current(dc, smb_history, spec, smb_nlas, roughness_modified)
-    vmb_spec = C.mix_history_and_current(dc, vmb_history, spec, vmb_nlas, roughness_modified)
+    smb_spec = C.mix_history_and_current(dc, smb_history, spec, smb_nlas, roughness_modified,
+                                         occlusion)
+    vmb_spec = C.mix_history_and_current(dc, vmb_history, spec, vmb_nlas, roughness_modified,
+                                         occlusion)
     vha4 = virtual_history_amount[..., None]
     spec_result = nm.lerp(smb_spec, vmb_spec, vha4)
     spec_accum_speed = nm.lerp(smb_accum_boosted, vmb_accum, virtual_history_amount)
@@ -611,18 +625,20 @@ def temporal_accumulation_specular(sc, dc, sm, spec_input, spec_history, spec_fa
         sh_result = nm.lerp(smb_sh, vmb_sh, vha4)
         sh_result = torch.cat([sh_result[..., :3], roughness_modified[..., None]], -1)
 
-    # firefly suppressor (lines 756-771)
-    max_rel = (float(dc["firefly_suppressor_min_relative_scale"])
-               + C.REBLUR_FIREFLY_SUPPRESSOR_MAX_RELATIVE_INTENSITY / (spec_accum_speed + 1.0))
-    antifirefly = spec_accum_speed * float(dc["max_blur_radius"]) \
-        * C.REBLUR_FIREFLY_SUPPRESSOR_RADIUS_SCALE
-    antifirefly = antifirefly / (1.0 + antifirefly)
-    luma = C.get_luma(spec_result)
-    luma_clamped = torch.minimum(luma, C.get_luma(history_mixed) * max_rel)
-    luma_clamped = nm.lerp(luma, luma_clamped, antifirefly)
-    spec_result = C.change_luma(spec_result, luma_clamped)
-    if sh_result is not None:
-        sh_result = C.sh_luma_scale(sh_result, luma_clamped)
+    # firefly suppressor (lines 756-771), not for occlusion
+    if not occlusion:
+        max_rel = (float(dc["firefly_suppressor_min_relative_scale"])
+                   + C.REBLUR_FIREFLY_SUPPRESSOR_MAX_RELATIVE_INTENSITY
+                   / (spec_accum_speed + 1.0))
+        antifirefly = spec_accum_speed * float(dc["max_blur_radius"]) \
+            * C.REBLUR_FIREFLY_SUPPRESSOR_RADIUS_SCALE
+        antifirefly = antifirefly / (1.0 + antifirefly)
+        luma = C.get_luma(spec_result)
+        luma_clamped = torch.minimum(luma, C.get_luma(history_mixed) * max_rel)
+        luma_clamped = nm.lerp(luma, luma_clamped, antifirefly)
+        spec_result = C.change_luma(spec_result, luma_clamped)
+        if sh_result is not None:
+            sh_result = C.sh_luma_scale(sh_result, luma_clamped)
 
     # fast history (lines 779-794)
     mfafn = float(dc["max_fast_accumulated_frame_num"])
@@ -630,12 +646,13 @@ def temporal_accumulation_specular(sc, dc, sm, spec_input, spec_history, spec_fa
                                                  surface_history_confidence, has_data)
     vmb_fast_nlas = C.get_non_linear_accum_speed(sc, vmb_accum, mfafn, virtual_confidence,
                                                  has_data)
-    smb_fast = nm.lerp(sm["spec_fast"], C.get_luma(spec), smb_fast_nlas)
-    vmb_fast = nm.lerp(vmb["fast"], C.get_luma(spec), vmb_fast_nlas)
+    smb_fast = nm.lerp(sm["spec_fast"], C.get_luma(spec, occlusion), smb_fast_nlas)
+    vmb_fast = nm.lerp(vmb["fast"], C.get_luma(spec, occlusion), vmb_fast_nlas)
     fast_result = nm.lerp(smb_fast, vmb_fast, virtual_history_amount)
-    fast_clamped = torch.minimum(fast_result, C.get_luma(history_mixed) * max_rel
-                                 * C.REBLUR_FIREFLY_SUPPRESSOR_FAST_RELATIVE_INTENSITY)
-    fast_result = nm.lerp(fast_result, fast_clamped, antifirefly)
+    if not occlusion:
+        fast_clamped = torch.minimum(fast_result, C.get_luma(history_mixed) * max_rel
+                                     * C.REBLUR_FIREFLY_SUPPRESSOR_FAST_RELATIVE_INTENSITY)
+        fast_result = nm.lerp(fast_result, fast_clamped, antifirefly)
     out = dict(spec=spec_result, fast=fast_result, accum_speed=spec_accum_speed,
                fbits_vmb=vmb["fbits_vmb"], curvature=curvature,
                virtual_history_amount=virtual_history_amount,
@@ -850,10 +867,11 @@ def fused_spatial_filter(sc, dc, mode, geom, view_z_in, normal_roughness, diff, 
         centre = {name: sig * mask[..., None] for name, sig in centre.items()}
         kcb = dict(parity=cb, denoising_range=float(sc["denoising_range"]),
                    min_rect_dim_mul_unproject=float(sc["min_rect_dim_mul_unproject"]))
+    occ = diff.shape[-1] == 1  # the occlusion variants' rule of the min hit-distance weight
     res = k_spatial_filter_fused.spatial_filter_fused(
         diff, spec, view_z_in, normal_roughness, _sf_shared(geom),
-        diff_spatial_params(sc, dc, mode, geom, centre["diff"], data1_diff),
-        spec_spatial_params(sc, dc, mode, geom, centre["spec"], data1_spec),
+        diff_spatial_params(sc, dc, mode, geom, centre["diff"], data1_diff, occlusion=occ),
+        spec_spatial_params(sc, dc, mode, geom, centre["spec"], data1_spec, occlusion=occ),
         diff_min_material=float(dc["diff_min_material"]),
         spec_min_material=float(dc["spec_min_material"]), perf_mode=perf_mode,
         prepass=k_spatial_filter.prepass_inputs(sc, dc) if prepass else None,
@@ -926,8 +944,8 @@ def hit_dist_reconstruction(sc, dc, view_z_in, normal_roughness, diff, spec, con
                             radius: int):
     """Refill hitT == 0 holes from the 3x3 (radius 1) or 5x5 (radius 2) neighbourhood
     (`kernels.py:2212-2293`) in one `hitdist_recon` launch, which computes the centre's
-    parameters itself. diff / spec: (h, w, 4) signals or None; only the hit-distance channel
-    changes. Returns (diff_out, spec_out)."""
+    parameters itself. diff / spec: (h, w, 4) signals, (h, w, 1) with the occlusion variants,
+    or None; only the hit-distance channel changes. Returns (diff_out, spec_out)."""
     out = k_hitdist_recon.hitdist_recon(
         view_z_in, normal_roughness, diff, spec, radius=radius,
         view_z_scale=float(sc["view_z_scale"]), frustum=sc["frustum"],
@@ -937,6 +955,36 @@ def hit_dist_reconstruction(sc, dc, view_z_in, normal_roughness, diff, spec, con
         plane_dist_sensitivity=float(dc["plane_dist_sensitivity"]), enc_err=_enc_err(config),
         roughness_encoding=config.roughness_encoding)
     return out.get("diff"), out.get("spec")
+
+
+# ---------------------------------------------------------------------------
+# Checkerboard resolve of the occlusion variants (REBLUR_TemporalAccumulation.hlsli:309-320)
+# ---------------------------------------------------------------------------
+
+
+def cb_resolve(sc, view_z_in, normal_roughness, signals, has_data):
+    """The occlusion variants under checkerboard (`nrdtpu/passes/reblur/denoiser.py:278-298`):
+    they run no PrePass, so each expanded signal takes on the pixels without data the
+    horizontal neighbour resolve (`kernels.py:743-762`, the plain helper
+    `kernels.spatial_filter.cb_neighbor_resolve`), from the centre's scaled viewZ, frustum size
+    and nov. Torch glue, as in JAX. signals: {name: (h, w, c)}; has_data: the (h, w) bool plane
+    of the pixels with data. Returns the signals resolved."""
+    h, w = view_z_in.shape
+    ortho = float(sc["ortho_mode"])
+    view_z = unpack_view_z(sc, view_z_in)
+    frustum_size = nm.get_frustum_size(float(sc["min_rect_dim_mul_unproject"]), ortho, view_z)
+    n, _, _ = fe.unpack_normal_roughness(normal_roughness)
+    uv = resample.pixel_uv_grid(h, w, view_z_in.device)
+    xv = nm.reconstruct_view_position(uv, sc["frustum"], view_z, ortho)
+    nv = nm.rotate_vector(sc["world_to_view"], n)
+    if ortho == 0.0:
+        vv = nm.normalize(-xv)
+    else:
+        vv = torch.tensor([0.0, 0.0, -1.0], device=view_z_in.device).expand_as(xv)
+    nov = torch.abs(nm.dot(nv, vv))
+    return {name: torch.where(has_data[..., None], sig, k_spatial_filter.cb_neighbor_resolve(
+        sig, view_z, frustum_size, nov, float(sc["denoising_range"])))
+        for name, sig in signals.items()}
 
 
 # ---------------------------------------------------------------------------

@@ -98,17 +98,18 @@ def filter_geometry(sc, dc, view_z_in, normal_roughness, enc_err, signals=("diff
 
 
 def history_fix_clamp(dc, geom, frame_num, signal_out, fast_history, m1, m2, ring, is_diffuse,
-                      sh=None):
+                      sh=None, occlusion=False):
     """The fast-history adjustments after the taps (lines 169-244; `kernels.py:685-732`): the
     anti-firefly clamp to the ring's moments where `ring` = (m1, m2) is given, then the clamp
     to the 3x3 moments. Returns (signal_out, fast_out), and with the SH variants' `sh` (the
-    taps' SH1) also the SH scaled to the clamped luma (`:729-731`)."""
+    taps' SH1) also the SH scaled to the clamped luma (`:729-731`). occlusion: the (h, w, 1)
+    hit distance is the luma, the sigma scale 1, and the clamped luma the signal."""
     f = nm.saturate(frame_num / history_fix_frame_div(dc))
     if not is_diffuse:
         f = nm.lerp(1.0, f, geom["smc"])
-    luma = C.get_luma(signal_out)
+    luma = C.get_luma(signal_out, occlusion)
     fast_out = nm.lerp(luma, fast_history, f)
-    sigma = nm.get_std_dev(m1, m2) * C.color_clamping_sigma_scale(False)
+    sigma = nm.get_std_dev(m1, m2) * C.color_clamping_sigma_scale(occlusion)
     if ring is not None:
         am1, am2 = ring
         asig = nm.get_std_dev(am1, am2) * C.REBLUR_ANTI_FIREFLY_SIGMA_SCALE
@@ -118,7 +119,7 @@ def history_fix_clamp(dc, geom, frame_num, signal_out, fast_history, m1, m2, rin
                    1.0 / (1.0 + fast_history_enabled(dc) * frame_num * 2.0))
     if sh is not None:
         return C.change_luma(signal_out, luma), fast_out, C.sh_luma_scale(sh, luma)
-    return C.change_luma(signal_out, luma), fast_out
+    return C.change_luma(signal_out, luma, occlusion), fast_out
 
 
 # ---------------------------------------------------------------------------
@@ -133,12 +134,13 @@ def scaled_rotator(rotator, skew_x, skew_y):
     return [r[0] * skew_x, r[1] * skew_y, r[2] * skew_x, r[3] * skew_y]
 
 
-def diff_spatial_params(sc, dc, mode, geom, signal, data1):
+def diff_spatial_params(sc, dc, mode, geom, signal, data1, occlusion=False):
     """The diffuse planes of PrePass, Blur or PostBlur (`diffuse_pre_pass`,
     `kernels.py:2104-2120`; `diffuse_spatial_filter`, `:763-843`; the fused
     `_fused_diff_params`, `:1819-1854`), in the order of `kernels.spatial_filter.PARAMS`.
     Blur and PostBlur sample in screen space: the radius is skewed by the view-space normal
-    (REBLUR_USE_SCREEN_SPACE_SAMPLING_FOR_DIFFUSE == 1)."""
+    (REBLUR_USE_SCREEN_SPACE_SAMPLING_FOR_DIFFUSE == 1). occlusion: the min hit-distance weight
+    of Blur and PostBlur without its sqrt(nlas) (`:814`, `:1844`)."""
     view_z = geom["view_z"]
     ones = torch.ones_like(view_z)
     hit_dist = C.extract_hit_dist(signal) * geom["hd_scale_diff"]
@@ -164,7 +166,9 @@ def diff_spatial_params(sc, dc, mode, geom, signal, data1):
             nm.saturate(hit_dist_factor * nlas))
         blur_radius = blur_radius * radius_scale
         blur_radius = torch.clamp_min(blur_radius, float(dc["min_blur_radius"]))
-        min_hit_dist_weight = min_hit_dist_weight_scale(dc, fraction_scale) * torch.sqrt(nlas)
+        min_hit_dist_weight = torch.full_like(view_z, min_hit_dist_weight_scale(dc, fraction_scale))
+        if not occlusion:
+            min_hit_dist_weight = min_hit_dist_weight * torch.sqrt(nlas)
         nv3 = geom["nv3"]
         skew_x = nm.lerp(1.0 - torch.abs(nv3.x), 1.0, nov)
         skew_y = nm.lerp(1.0 - torch.abs(nv3.y), 1.0, nov)
@@ -178,11 +182,12 @@ def diff_spatial_params(sc, dc, mode, geom, signal, data1):
                        + [normal_weight_param, ha, hb, min_hit_dist_weight])
 
 
-def spec_spatial_params(sc, dc, mode, geom, spec, data1):
+def spec_spatial_params(sc, dc, mode, geom, spec, data1, occlusion=False):
     """The specular planes of PrePass, Blur or PostBlur (`specular_spatial_filter`,
     `kernels.py:1592-1656`; the fused `_fused_spec_params`, `:1857-1912`), in the order of
     `kernels.spatial_filter.PARAMS + SPEC_PARAMS` (+ PREPASS_PARAMS in the PrePass, whose
-    radius is bound by the specular lobe, REBLUR_PrePass.hlsli:71-80)."""
+    radius is bound by the specular lobe, REBLUR_PrePass.hlsli:71-80). occlusion: as for
+    diff_spatial_params (`:1655`, `:1903`)."""
     prepass = mode == PRE_BLUR
     view_z, roughness, smc = geom["view_z"], geom["roughness"], geom["smc"]
     nv3, nov = geom["nv3"], geom["nov"]
@@ -222,7 +227,7 @@ def spec_spatial_params(sc, dc, mode, geom, spec, data1):
                                                 roughness_fraction_scaled(dc, fraction_scale))
     ha, hb = nm.get_hit_distance_weight_params(C.extract_hit_dist(spec), nlas, roughness)
     min_hit_dist_weight = min_hit_dist_weight_scale(dc, fraction_scale) * smc
-    if not prepass:
+    if not prepass and not occlusion:
         min_hit_dist_weight = min_hit_dist_weight * torch.sqrt(nlas)
 
     rinv = _v(sc["rect_size_inv"])

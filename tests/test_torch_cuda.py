@@ -65,6 +65,10 @@ RELAX_SH = (Denoiser.RELAX_DIFFUSE_SH, Denoiser.RELAX_SPECULAR_SH,
             Denoiser.RELAX_DIFFUSE_SPECULAR_SH)
 REBLUR_SH = (Denoiser.REBLUR_DIFFUSE_SH, Denoiser.REBLUR_SPECULAR_SH,
              Denoiser.REBLUR_DIFFUSE_SPECULAR_SH)
+REBLUR_OCC = (Denoiser.REBLUR_DIFFUSE_OCCLUSION, Denoiser.REBLUR_SPECULAR_OCCLUSION,
+              Denoiser.REBLUR_DIFFUSE_SPECULAR_OCCLUSION)
+OCC_RESOURCES = {"DIFFUSE": (RT.IN_DIFF_HITDIST, RT.OUT_DIFF_HITDIST),
+                 "SPECULAR": (RT.IN_SPEC_HITDIST, RT.OUT_SPEC_HITDIST)}
 SH_RESOURCES = {"DIFFUSE": (RT.IN_DIFF_SH0, RT.IN_DIFF_SH1, RT.OUT_DIFF_SH0, RT.OUT_DIFF_SH1),
                 "SPECULAR": (RT.IN_SPEC_SH0, RT.IN_SPEC_SH1, RT.OUT_SPEC_SH0, RT.OUT_SPEC_SH1)}
 AREA_3X3 = dict(hitDistanceReconstructionMode=HitDistanceReconstructionMode.AREA_3X3)
@@ -100,7 +104,11 @@ def _pools(denoiser, n, holes=False, checkerboard=CB.OFF):
         fd.common_settings.timeDeltaBetweenFrames = 16.66
         pool = {RT.IN_VIEWZ: fd.view_z, RT.IN_NORMAL_ROUGHNESS: gen.packed_normal_roughness(fd),
                 RT.IN_MV: fd.mv}
-        if denoiser in RELAX_SH:  # SH0 / SH1 along the normal
+        if denoiser in REBLUR_OCC:  # a binary AO a signal: the scene's, and a second draw
+            pool[RT.IN_DIFF_HITDIST] = fd.ao_noisy
+            pool[RT.IN_SPEC_HITDIST] = (rng.random(fd.ao_clean.shape) < fd.ao_clean).astype(
+                np.float32)
+        elif denoiser in RELAX_SH:  # SH0 / SH1 along the normal
             normal = torch.from_numpy(fd.normal.astype(np.float32))
             for part, noisy, hit in (("DIFFUSE", fd.diff_noisy, fd.diff_hit_dist),
                                      ("SPECULAR", fd.spec_noisy, fd.spec_hit_dist)):
@@ -133,12 +141,17 @@ def _pools(denoiser, n, holes=False, checkerboard=CB.OFF):
                 torch.from_numpy(fd.spec_noisy), nhd).numpy()
         if holes:
             hole = (rng.random(fd.view_z.shape) < 0.3) & (fd.hit_mask > 0)
+            if denoiser in REBLUR_OCC:
+                for rt in (RT.IN_DIFF_HITDIST, RT.IN_SPEC_HITDIST):
+                    pool[rt] = np.where(hole, 0.0, pool[rt]).astype(np.float32)
             for rt in ((RT.IN_DIFF_SH0, RT.IN_SPEC_SH0) if denoiser in REBLUR_SH
+                       else () if denoiser in REBLUR_OCC
                        else (RT.IN_DIFF_RADIANCE_HITDIST, RT.IN_SPEC_RADIANCE_HITDIST)):
                 pool[rt] = pool[rt].copy()
                 pool[rt][..., 3][hole] = 0.0
         if checkerboard != CB.OFF:
-            for rt in (RT.IN_DIFF_RADIANCE_HITDIST, RT.IN_SPEC_RADIANCE_HITDIST):
+            for rt in ((RT.IN_DIFF_HITDIST, RT.IN_SPEC_HITDIST) if denoiser in REBLUR_OCC
+                       else (RT.IN_DIFF_RADIANCE_HITDIST, RT.IN_SPEC_RADIANCE_HITDIST)):
                 pool[rt] = _half_width(pool[rt], i, checkerboard)
         dist = torch.from_numpy(fd.dist_to_occluder)
         pool[RT.IN_PENUMBRA] = fe.sigma_pack_penumbra_directional(
@@ -151,6 +164,8 @@ def _pools(denoiser, n, holes=False, checkerboard=CB.OFF):
 def _outs(denoiser):
     if denoiser in SIGMA:
         return [RT.OUT_SHADOW_TRANSLUCENCY]
+    if denoiser in REBLUR_OCC:
+        return [rts[1] for part, rts in OCC_RESOURCES.items() if part in denoiser.name]
     if denoiser in RELAX_SH + REBLUR_SH:
         return [rt for part, rts in SH_RESOURCES.items() if part in denoiser.name
                 for rt in rts[2:]]
@@ -184,7 +199,14 @@ PATHS = ([(d, af, {}, False, False) for d in VARIANTS for af in (False, True)]
          + [(REBLUR_SH[2], False, dict(enablePerformanceMode=True), False, False),
             (REBLUR_SH[2], False, AREA_3X3, True, False)]
          + [(REBLUR_SH[2], af, s, False, True)
-            for af, s in ((False, {}), (True, {}), (False, dict(enablePerformanceMode=True)))])
+            for af, s in ((False, {}), (True, {}), (False, dict(enablePerformanceMode=True)))]
+         # the occlusion variants: every kernel's one-channel mode
+         + [(d, False, {}, False, False) for d in REBLUR_OCC]
+         + [(REBLUR_OCC[2], False, s, h, False)
+            for s, h in ((AREA_3X3, True), (AREA_5X5, True), (dict(enablePerformanceMode=True),
+                                                              False))]
+         + [(REBLUR_OCC[2], False, s, False, True)
+            for s in ({}, dict(enablePerformanceMode=True))])
 
 
 @pytest.fixture(scope="module")
@@ -346,6 +368,34 @@ def test_engine_card_matches_cpu_checkerboard(cuda, denoiser, settings, band, mo
             outs.append(eng.denoise([0], pool))
         for rt in _outs(denoiser):
             a, b = outs[0][rt].cpu().double(), outs[1][rt].cpu().double()
+            mse = float(((a - b) ** 2).mean())
+            peak = float(b.abs().max())
+            assert mse == 0.0 or 10.0 * np.log10(peak * peak / mse) >= 50.0, rt
+
+
+@pytest.mark.parametrize("denoiser,settings,band",
+                         [(d, {}, False) for d in REBLUR_OCC]
+                         + [(REBLUR_OCC[2], {}, True), (REBLUR_OCC[2], BLACK, False),
+                            (REBLUR_OCC[2], BLACK, True)],
+                         ids=[d.name for d in REBLUR_OCC]
+                         + ["REBLUR_DIFFUSE_SPECULAR_OCCLUSION-band",
+                            "REBLUR_DIFFUSE_SPECULAR_OCCLUSION-BLACK",
+                            "REBLUR_DIFFUSE_SPECULAR_OCCLUSION-BLACK-band"])
+def test_engine_card_matches_cpu_occlusion(cuda, denoiser, settings, band, monkeypatch):
+    """The occlusion variants on the binary AO: the kernels' one-channel modes, also under the
+    band and under checkerboard (the neighbour resolve as glue)."""
+    if band:
+        monkeypatch.setenv(*BAND)
+    card = _engine(denoiser, cuda, **settings)
+    cpu = _engine(denoiser, "cpu", **settings)
+    for cs, pool in _pools(denoiser, 4, checkerboard=settings.get("checkerboardMode", CB.OFF)):
+        outs = []
+        for eng in (card, cpu):
+            eng.set_common_settings(cs)
+            outs.append(eng.denoise([0], pool))
+        for rt in _outs(denoiser):
+            a, b = outs[0][rt].cpu().double(), outs[1][rt].cpu().double()
+            assert a.shape == (SIZE[1], SIZE[0], 1)
             mse = float(((a - b) ** 2).mean())
             peak = float(b.abs().max())
             assert mse == 0.0 or 10.0 * np.log10(peak * peak / mse) >= 50.0, rt

@@ -156,17 +156,29 @@ def test_outputs_match_one_signal_variants(pairs):
 
 
 # the variants the port does not run yet (ROADMAP.md Queue 1)
-UNPORTED = ("REBLUR_DIFFUSE_OCCLUSION", "REBLUR_SPECULAR_OCCLUSION",
-            "REBLUR_DIFFUSE_SPECULAR_OCCLUSION", "REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION")
+UNPORTED = ("REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION",)
+# the variants that the port runs since they left UNPORTED
+OCCLUSION = ("REBLUR_DIFFUSE_OCCLUSION", "REBLUR_SPECULAR_OCCLUSION",
+             "REBLUR_DIFFUSE_SPECULAR_OCCLUSION")
 
 
 def test_ported_variants():
-    """The port runs 15 of the 19 variants; UNPORTED lists the other 4."""
-    assert len(Denoiser) == 19 and set(UNPORTED) < {d.name for d in Denoiser}
-    assert len(UNPORTED) == 4
+    """The port runs 18 of the 19 variants; UNPORTED lists the other."""
+    assert len(Denoiser) == 19 and set(UNPORTED + OCCLUSION) < {d.name for d in Denoiser}
+    assert len(UNPORTED) == 1
 
 
 @pytest.mark.parametrize("denoiser", UNPORTED)
 def test_unported_variants_raise(denoiser):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TEngine({0: Denoiser[denoiser]}, resource_size=(48, 32), device="cpu")
+
+
+@pytest.mark.parametrize("denoiser", OCCLUSION)
+def test_occlusion_variants_are_ported(denoiser):
+    """The occlusion variants build on the CPU with one-channel (h, w, 1) histories (their
+    slice: `tests/test_torch_reblur_occ_slice.py`)."""
+    eng = TEngine({0: Denoiser[denoiser]}, resource_size=(48, 32), device="cpu")
+    state = eng._instances[0].init_state()
+    histories = [v for k, v in state.items() if k in ("diff_history", "spec_history")]
+    assert histories and {tuple(v.shape) for v in histories} == {(32, 48, 1)}
