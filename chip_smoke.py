@@ -26,7 +26,12 @@ signal), one channel through the kernels' one-channel modes; and under checkerbo
 with each signal input at half width (the has-data pixel of each horizontal pair, as a
 renderer that traces half the pixels sends it): REBLUR_DIFFUSE_SPECULAR in BLACK (also with
 NRDTPU_REBLUR_BAND=1), REBLUR_DIFFUSE in WHITE, REBLUR_SPECULAR in BLACK and
-RELAX_DIFFUSE_SPECULAR in BLACK (`CB_PATHS`).
+RELAX_DIFFUSE_SPECULAR in BLACK (`CB_PATHS`); REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION on the
+scene's binary AO with the surface normal as the direction (`reblur_pack_directional_occlusion`;
+the history fix and TS in their directional modes); and REBLUR_SPECULAR at SQ_LINEAR and
+REBLUR_DIFFUSE_SPECULAR at SQRT_LINEAR roughness (IN_NORMAL_ROUGHNESS packed with the encoding:
+the denoiser decodes it once a frame, and H2's specular instances decode at their taps, counted
+apart as `spatial_filter_rough`).
 
 Phases, each of which raises on failure (exit code != 0):
   1. build the hand-written kernels from `nrdtpu_torch/kernels/csrc/` with nvcc, one process
@@ -74,7 +79,10 @@ Phases, each of which raises on failure (exit code != 0):
      half without the RCRS clamp, held); then RELAX_SPECULAR with IN_NORMAL_ROUGHNESS packed
      as SQ_LINEAR and as
      SQRT_LINEAR, AREA_3X3 on the punched frames (`ENCODED`: K15, K19, K22 and K12 in each
-     roughness mode, timed); then the band of REBLUR_DIFFUSE_SPECULAR+BAND, by default, with the anti-firefly
+     roughness mode, timed); REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION (every kernel, timed: H3 and
+     H4 in their `kDir` modes) and with AREA_3X3 on AO frames with holes (held); REBLUR_SPECULAR
+     and REBLUR_DIFFUSE_SPECULAR at SQ_LINEAR and SQRT_LINEAR (every kernel held, H2's `kRough`
+     instances timed on REBLUR_SPECULAR, `spatial_filter_rough`); then the band of REBLUR_DIFFUSE_SPECULAR+BAND, by default, with the anti-firefly
      ring and in performance mode, each timed beside the three-launch chain it replaces (the
      history fix, its clamp, the Blur and PostBlur parameters and two spatial-filter
      launches, glue included) on the same inputs; then the halo launcher (its `box` body on 1
@@ -84,12 +92,12 @@ Phases, each of which raises on failure (exit code != 0):
   3. slices: for each path a fresh `Engine(device="cuda")` runs 3 warm-up + 24 frames with
      the launch counts set to 0 just before and read just after; every output must be
      finite and every kernel of the path launched exactly its count a frame (the checkerboard
-     PrePass instances counted apart); each REBLUR
+     PrePass instances and H2's `kRough` instances counted apart); each REBLUR
      and RELAX output (SH0 taken from YCoCg to linear; REBLUR's with `sg_extract_color`)
      must beat its noisy input by >= 3 dB
      against the scene's clean image, each occlusion output must lie in [0, 1] and, on the last
      frame, lie closer to the scene's clean AO on the geometry (mean absolute error) than its
-     binary input, each SIGMA
+     binary input (directional occlusion: its .w), each SIGMA
      output must lie in [0, 1], be lit on average (> 0.99) where the 9x9 neighbourhood is lit
      and dark (< 0.15) in the umbra core; prints the median ms/frame (CUDA events), the host
      ms/frame and the peak allocator bytes;
@@ -99,11 +107,13 @@ Phases, each of which raises on failure (exit code != 0):
      package gives them bit for bit), within the kernels' tolerance, and
      RELAX_DIFFUSE_SPECULAR_SH's four outputs to RELAX_DIFFUSE_SH's and RELAX_SPECULAR_SH's
      exactly (max abs 0);
-  5. card vs CPU: the same 4 frames at 256x160 on the card and on the CPU plain path must
+  5. card vs CPU: the same 3 frames at 256x160 on the card and on the CPU plain path must
      agree to >= 50 dB PSNR, for every output of every path (the checkerboard ones included),
      of RELAX_SPECULAR at SQ_LINEAR
      (AREA_3X3 on the punched frames), of REBLUR_DIFFUSE_SPECULAR_OCCLUSION under checkerboard
-     BLACK (`OCC_CB`), and of REFERENCE on a static camera (plain torch ops on both, no
+     BLACK (`OCC_CB`), of REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION under checkerboard BLACK and with
+     AREA_3X3 on the AO with holes (`DIR_EXTRA`), of REBLUR_SPECULAR and REBLUR_DIFFUSE_SPECULAR
+     at both encodings, and of REFERENCE on a static camera (plain torch ops on both, no
      kernel).
 
 With `--profile` it also traces 3 frames of each path (after 4 warm-up) with
@@ -183,6 +193,10 @@ SOURCES = {
                           "nrdtpu/kernels/reblur_blur2.py:270", f"{P}:1207"),
     "spatial_filter_fused_cb": ("nrdtpu_torch/kernels/csrc/spatial_filter_fused.cu",
                                 f"{F}:796", f"{F}:153"),
+    # H2's specular instances that decode the taps' roughness (the v1 kernel's `rough_sq`
+    # mode; the v2 kernel takes a roughness plane the glue decoded), listed apart
+    "spatial_filter_rough": ("nrdtpu_torch/kernels/csrc/spatial_filter.cu", f"{P}:1224",
+                             "nrdtpu/kernels/reblur_blur2.py:303"),
 }
 # the kernels that no main path launches (as in the JAX package); a phase of their own
 # holds them
@@ -200,6 +214,9 @@ BAND_OCC_LAUNCHES = {"smb_resolve": 1, "spec_ta_head": 1, "nearest_multi": 1, "v
                      "reblur_band": 1}
 BAND_LAUNCHES = {"smb_resolve": 1, "spec_ta_head": 1, "nearest_multi": 1, "vmb_resolve": 1,
                  "spatial_filter_fused": 1, "reblur_band": 1, "ts_prelude": 2}
+# directional occlusion: no PrePass, TS's diffuse half
+DIR_LAUNCHES = {"smb_resolve": 1, "spatial_filter": 2, "history_fix": 1, "ts_prelude": 1}
+DIR = "REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION"
 SIGMA_LAUNCHES = {"sigma_blur": 2, "sigma_ts": 1}
 RS_LAUNCHES = {"relax_prepass": 1, "relax_smb_resolve": 1, "relax_vmb_resolve": 1,
                "nearest_multi": 1, "bilinear_resolve": 1, "relax_history_fix": 1,
@@ -250,6 +267,15 @@ PATHS = {
     "REBLUR_DIFFUSE_SPECULAR_OCCLUSION+BAND": dict(
         denoiser="REBLUR_DIFFUSE_SPECULAR_OCCLUSION", signals=("diff", "spec"), occ=True,
         env={"NRDTPU_REBLUR_BAND": "1"}, launches=BAND_OCC_LAUNCHES),
+    # directional occlusion: the binary AO times the surface normal, and the AO
+    DIR: dict(signals=("diff",), dir=True, launches=DIR_LAUNCHES),
+    # the specular path at a roughness encoding other than LINEAR: H2's kRough instances
+    "REBLUR_SPECULAR+SQ_LINEAR": dict(denoiser="REBLUR_SPECULAR", signals=("spec",),
+                                      encoding="SQ_LINEAR",
+                                      launches={**S_LAUNCHES, "spatial_filter_rough": 3}),
+    "REBLUR_DIFFUSE_SPECULAR+SQRT_LINEAR": dict(denoiser="REBLUR_DIFFUSE_SPECULAR",
+                                                signals=("diff", "spec"), encoding="SQRT_LINEAR",
+                                                launches=DS_LAUNCHES),
 }
 # the checkerboard paths: half-width signal inputs in the mode `cb`, the non-cb path's launches
 # with the PrePass in its checkerboard instance (counted apart as well)
@@ -295,11 +321,25 @@ ENCODED = {f"RELAX_SPECULAR+{e}": dict(denoiser="RELAX_SPECULAR", signals=("spec
                                        encoding=e,
                                        settings=dict(hitDistanceReconstructionMode="AREA_3X3"))
            for e in ("SQ_LINEAR", "SQRT_LINEAR")}
+# REBLUR_SPECULAR and REBLUR_DIFFUSE_SPECULAR at the two encodings: every kernel held in the
+# kernel phase (H2's kRough instances timed on REBLUR_SPECULAR), card against CPU; the two that
+# PATHS slices (REBLUR_SPECULAR+SQ_LINEAR, REBLUR_DIFFUSE_SPECULAR+SQRT_LINEAR) are its entries
+REBLUR_ENCODED = {f"{d}+{e}": dict(denoiser=d, signals=PATHS[d]["signals"], encoding=e)
+                  for d in ("REBLUR_SPECULAR", "REBLUR_DIFFUSE_SPECULAR")
+                  for e in ("SQ_LINEAR", "SQRT_LINEAR")}
+ENCODED.update({k: v for k, v in REBLUR_ENCODED.items() if k not in PATHS})
 # REBLUR_DIFFUSE_SPECULAR_OCCLUSION under checkerboard BLACK, the AO at half width: card
 # against CPU only, not sliced
 OCC_CB = {"REBLUR_DIFFUSE_SPECULAR_OCCLUSION+CB": dict(
     denoiser="REBLUR_DIFFUSE_SPECULAR_OCCLUSION", signals=("diff", "spec"), occ=True,
     cb="BLACK", settings=dict(checkerboardMode="BLACK"))}
+# directional occlusion under checkerboard BLACK (the input at half width: no PrePass, no
+# neighbour resolve) and with AREA_3X3 on the AO with holes: card against CPU only, the
+# second also held in the kernel phase; not sliced
+DIR_EXTRA = {f"{DIR}+CB": dict(denoiser=DIR, signals=("diff",), dir=True, cb="BLACK",
+                               settings=dict(checkerboardMode="BLACK")),
+             f"{DIR}+AREA_3X3": dict(denoiser=DIR, signals=("diff",), dir=True, holes=True,
+                                     settings=dict(hitDistanceReconstructionMode="AREA_3X3"))}
 NO_MIN_MATERIAL = dict(minMaterialForDiffuse=0.0, minMaterialForSpecular=0.0)
 # RELAX's fast history at the slow one's frame num: the history clamp's colour box off
 NO_FAST_CLAMP = dict(diffuseMaxFastAccumulatedFrameNum=30, specularMaxFastAccumulatedFrameNum=30)
@@ -326,6 +366,7 @@ TRANSLUCENCY_RGB = (0.3, 0.6, 0.2)
 # the fixed part of each kernel, and the parts that depend on the call (taps, signals)
 SF_TAP_OPS, SF_PREPASS_TAP_OPS = 110, 40   # reblur_filters.cuh:sf_filter, one tap
 SF_GEOM_OPS = 90                            # reblur_filters.cuh:filter_geometry (H2's centre)
+ROUGH_DECODE_OPS = 2                        # common.cuh:decode_roughness at a tap (kRough)
 # H2's parameters of one signal (reblur_filters.cuh): the PrePass's by signal
 # (diff_prepass_params, spec_prepass_params); Blur and PostBlur take BAND_PARAM_OPS
 SF_PREPASS_PARAM_OPS = {False: 50, True: 120}
@@ -404,17 +445,21 @@ def psnr(a, b):
     return float("inf") if mse == 0 else 10.0 * np.log10(peak * peak / mse)
 
 
-def in_rt(sig, occ=False):
+def in_rt(sig, occ=False, dirocc=False):
     from nrdtpu_torch.settings import ResourceType as RT
 
+    if dirocc:
+        return RT.IN_DIFF_DIRECTION_HITDIST
     if occ:
         return RT.IN_DIFF_HITDIST if sig == "diff" else RT.IN_SPEC_HITDIST
     return RT.IN_DIFF_RADIANCE_HITDIST if sig == "diff" else RT.IN_SPEC_RADIANCE_HITDIST
 
 
-def out_rt(sig, occ=False):
+def out_rt(sig, occ=False, dirocc=False):
     from nrdtpu_torch.settings import ResourceType as RT
 
+    if dirocc:
+        return RT.OUT_DIFF_DIRECTION_HITDIST
     if occ:
         return RT.OUT_DIFF_HITDIST if sig == "diff" else RT.OUT_SPEC_HITDIST
     return {"diff": RT.OUT_DIFF_RADIANCE_HITDIST, "spec": RT.OUT_SPEC_RADIANCE_HITDIST,
@@ -422,8 +467,8 @@ def out_rt(sig, occ=False):
 
 
 def path_spec(path):
-    """A path's entry: of PATHS, ENCODED or OCC_CB."""
-    return {**PATHS, **ENCODED, **OCC_CB}[path]
+    """A path's entry: of PATHS, ENCODED, OCC_CB or DIR_EXTRA."""
+    return {**PATHS, **ENCODED, **OCC_CB, **DIR_EXTRA}[path]
 
 
 def sh_rts(sig):
@@ -438,7 +483,8 @@ def outputs_of(path):
     SH0 and SH1."""
     v = path_spec(path)
     if not v.get("sh"):
-        return [(sig, sig, out_rt(sig, v.get("occ", False))) for sig in v["signals"]]
+        return [(sig, sig, out_rt(sig, v.get("occ", False), v.get("dir", False)))
+                for sig in v["signals"]]
     return [(f"{sig} {n}", sig, sh_rts(sig)[k]) for sig in v["signals"]
             for n, k in (("SH0", 1), ("SH1", 3))]
 
@@ -506,9 +552,18 @@ class Scene:
         rgb = torch.tensor(TRANSLUCENCY_RGB).expand(self.h, self.w, 3)
         sigma = {RT.IN_VIEWZ: fd.view_z, RT.IN_MV: fd.mv, RT.IN_PENUMBRA: penumbra,
                  RT.IN_NORMAL_ROUGHNESS: base[RT.IN_NORMAL_ROUGHNESS]}
+        # directional occlusion: the AO times the surface normal, and the AO (with holes: zeroed on
+        # the punched pixels)
+        dirocc = {holed: fe.reblur_pack_directional_occlusion(
+            normal, torch.from_numpy(ao_punched["diff"] if holed else ao["diff"])).numpy()
+            for holed in (False, True)}
         pools = {}
-        for name, v in {**PATHS, **OCC_CB}.items():
-            if v.get("occ"):
+        for name, v in {**PATHS, **OCC_CB, **DIR_EXTRA}.items():
+            if v.get("dir"):
+                sig = dirocc[bool(v.get("holes"))]
+                pools[name] = {**base, in_rt("diff", dirocc=True): (
+                    sig if not v.get("cb") else half_width(sig, cs.frameIndex, v["cb"]))}
+            elif v.get("occ"):
                 pools[name] = {**base, **{in_rt(sig, True): ao[sig] if not v.get("cb") else
                                           half_width(ao[sig], cs.frameIndex, v["cb"])
                                           for sig in v["signals"]}}
@@ -530,6 +585,9 @@ class Scene:
             else:
                 src = punched if v.get("holes") else packed
                 pools[name] = {**base, **{in_rt(sig): src[sig] for sig in v["signals"]}}
+            if v.get("encoding"):  # IN_NORMAL_ROUGHNESS packed with the path's encoding
+                pools[name][RT.IN_NORMAL_ROUGHNESS] = self.gen.packed_normal_roughness(
+                    fd, re_=RoughnessEncoding[v["encoding"]])
         for name, holes_name in RELAX_HOLES.items():
             pools[holes_name] = {**base, **{in_rt(sig): relax_punched[sig]
                                             for sig in PATHS[name]["signals"]}}
@@ -538,7 +596,9 @@ class Scene:
                                               for sig in ("diff", "spec")}}
         for name, v in ENCODED.items():
             nr = self.gen.packed_normal_roughness(fd, re_=RoughnessEncoding[v["encoding"]])
-            pools[name] = {**base, RT.IN_NORMAL_ROUGHNESS: nr, in_rt("spec"): relax_punched["spec"]}
+            pools[name] = {**base, RT.IN_NORMAL_ROUGHNESS: nr, **(
+                {in_rt("spec"): relax_punched["spec"]} if v.get("relax")
+                else {in_rt(sig): packed[sig] for sig in v["signals"]})}
         t = None
         if truth:
             t = dict(mask=fd.hit_mask > 0, diff=(fd.diff_clean, fd.diff_noisy),
@@ -663,7 +723,9 @@ def time_ms(fn, reps):
 def _ops(name, a, k):
     """Float operations of one call on its inputs, counted as FIXED_OPS says; the history
     fixes count the taps only of the pixels whose stride is non-zero in this call."""
+    from nrdtpu_torch.kernels import build
     from nrdtpu_torch.kernels import spatial_filter as sf
+    from nrdtpu_torch.settings import RoughnessEncoding
 
     if name == "halo_call":  # box: (2 halo + 1)^2 adds and a division a channel
         body, images, out_channels, halo = a[:4]
@@ -706,6 +768,8 @@ def _ops(name, a, k):
                 - tap_saved) * ntaps * px
         ops += CB_STATE_OPS * px if k.get("cb") is not None else 0
         ops += (SH_TAP_OPS * ntaps + SH_OUT_OPS) * nsh * px
+        rough = build.ROUGHNESS_MODE[k.get("roughness_encoding", RoughnessEncoding.LINEAR)]
+        ops += ROUGH_DECODE_OPS * ntaps * px if rough else 0
     elif name == "spatial_filter_fused":
         for params in (a[5], a[6]):
             extra = SF_PREPASS_TAP_OPS if sf.MODES[params.shape[0]] == "spec_prepass" else 0
@@ -987,9 +1051,15 @@ def occupancy(name, dynamic_smem, sass):
     usage = ptxas_usage((build.BUILD_DIR / "build.log").read_text())
     out = []
     for u in usage.get(os.path.basename(SOURCES[name][0]), []):
-        # H2's and N4's checkerboard instances (their last template argument, kCb) go under
-        # the `_cb` entry, the others under the kernel's own
-        if name in CB_SPLIT and u["kernel"].endswith(", true>") != name.endswith("_cb"):
+        # H2's and N4's checkerboard instances (their template argument kCb) go under the `_cb`
+        # entry, H2's kRough instances (its last template argument, 1 or 2) under the `_rough`
+        # entry, the others under the kernel's own
+        args = u["kernel"][u["kernel"].find("<") + 1:-1].split(", ")
+        h2 = os.path.basename(SOURCES[name][0]) == "spatial_filter.cu"
+        cb = args[5] == "true" if h2 else args[-1] == "true"
+        if name in CB_SPLIT and cb != name.endswith("_cb"):
+            continue
+        if h2 and (args[6] != "0") != name.endswith("_rough"):
             continue
         smem = u["static_smem"] + dynamic_smem.get(u["kernel"], 0)
         out.append(dict(kernel=u["kernel"], registers=u["registers"],
@@ -1066,8 +1136,10 @@ def kernel_runs():
     history clamp's colour box off (relax_clamp_moments only); REBLUR_DIFFUSE and
     REBLUR_DIFFUSE_SPECULAR with maxBlurRadius 0 (ts_prelude without the RCRS clamp, each half,
     held only); then the kernels that unpack the roughness on RELAX_SPECULAR at each encoding of
-    ENCODED, timed; then the three RELAX SH variants (every call of their kernels in the SH
-    modes, timed); then the three REBLUR SH variants (every call in the SH modes, timed),
+    ENCODED, timed; directional occlusion (every call timed) and with AREA_3X3 on the AO with
+    holes (held); REBLUR_SPECULAR and REBLUR_DIFFUSE_SPECULAR at SQ_LINEAR and SQRT_LINEAR
+    (every call held, H2's timed on REBLUR_SPECULAR); then the three RELAX SH variants (every
+    call of their kernels in the SH modes, timed); then the three REBLUR SH variants (every call in the SH modes, timed),
     each with the anti-firefly ring (the history fixes, held) and in performance mode (the
     spatial filters, held), REBLUR_DIFFUSE_SPECULAR_SH with AREA_3X3 on its frames with
     holes (every call, held), the three REBLUR occlusion variants (every call in the
@@ -1124,9 +1196,20 @@ def kernel_runs():
         runs.append((f"{v} maxBlurRadius 0", v, v, dict(maxBlurRadius=0.0, minBlurRadius=0.0),
                      {"ts_prelude"}, False))
     for pool, v in ENCODED.items():
+        if v.get("relax"):
+            runs.append((f"{v['denoiser']} {v['encoding']}", v["denoiser"], pool,
+                         dict(v["settings"], roughness_encoding=v["encoding"]),
+                         set(ENCODED_KERNELS), set(ENCODED_KERNELS)))
+    # directional occlusion: every kernel timed (H3's and H4's kDir), and with AREA_3X3 on the
+    # AO with holes, held; REBLUR's specular paths at the encodings: every kernel held, H2's
+    # kRough instances timed on REBLUR_SPECULAR
+    runs.append((DIR, DIR, DIR, {}, None, True))
+    runs.append((f"{DIR} AREA_3X3", DIR, f"{DIR}+AREA_3X3",
+                 dict(hitDistanceReconstructionMode="AREA_3X3"), None, False))
+    for pool, v in REBLUR_ENCODED.items():
         runs.append((f"{v['denoiser']} {v['encoding']}", v["denoiser"], pool,
-                     dict(v["settings"], roughness_encoding=v["encoding"]),
-                     set(ENCODED_KERNELS), set(ENCODED_KERNELS)))
+                     dict(roughness_encoding=v["encoding"]), None,
+                     {"spatial_filter"} if v["denoiser"] == "REBLUR_SPECULAR" else False))
     # the checkerboard PrePass of H2 and N4, timed: (label, path, the pool's suffix, settings)
     # of each run; "+fallback" pools have a material drawn per pixel (`scattered_materials`)
     for label, path, suffix, settings in (
@@ -1274,7 +1357,9 @@ def kernel_phase(w, h, frames):
     are kept apart by stage (PrePass, Blur, PostBlur)."""
     from nrdtpu_torch import kernels as KM
     from nrdtpu_torch.kernels import build
+    from nrdtpu_torch.settings import RoughnessEncoding
 
+    LINEAR = RoughnessEncoding.LINEAR
     # the checkerboard runs' pools: materials drawn per pixel, and the other parity
     frames = [(cs, dict(pools), t) for cs, pools, t in frames]
     for cs, pools, _ in frames:
@@ -1302,6 +1387,8 @@ def kernel_phase(w, h, frames):
             if name == "spatial_filter":
                 lab = f"{label} {SF_STAGES[k['mode']]}"
             key = name + "_cb" if k.get("cb") is not None else name
+            if name == "spatial_filter" and k.get("roughness_encoding", LINEAR) != LINEAR:
+                key = name + "_rough"  # H2's kRough instances
             if name == "sigma_blur":  # a frame's calls: Blur, then PostBlur
                 lab = f"{label} {'blur' if k['first_pass'] else 'post_blur'}"
             if name == "relax_history_fix" and timed is True:
@@ -1318,7 +1405,7 @@ def kernel_phase(w, h, frames):
                        * a[0].shape[1] if name == "reblur_band" else 0)
             _hold(results, name, lab, a, k, timed is True or bool(timed and name in timed),
                   scratch, key)
-    missing = (set(KM.MODULES) | set(KM.CB_INSTANCES)) - set(results)
+    missing = (set(KM.MODULES) | set(KM.CB_INSTANCES) | set(KM.ROUGH_INSTANCES)) - set(results)
     if missing != set(NO_MAIN_PATH):
         raise AssertionError(f"kernels called by no main path: {sorted(missing)}; only "
                              f"{list(NO_MAIN_PATH)} may be")
@@ -1459,6 +1546,7 @@ def slice_phase(path, w, h, frames, warmup):
         torch.cuda.synchronize()
         host = (time.perf_counter() - t0) * 1e3
         occ = PATHS[path].get("occ", False)
+        dirocc = PATHS[path].get("dir", False)
         for label, sig, rt in outputs_of(path):
             out = outs[rt]
             c = 1 if path == "SIGMA_SHADOW" or occ else 4
@@ -1470,10 +1558,10 @@ def slice_phase(path, w, h, frames, warmup):
                                      f"[{float(out.min())}, {float(out.max())}]")
             if truth is None or label.endswith("SH1"):  # SH1: finite and of its shape
                 continue
-            if occ:  # the mean absolute error to the clean AO on the geometry
+            if occ or dirocc:  # the mean absolute error to the clean AO on the geometry (.w)
                 m = truth["mask"]
                 ao_err[label] = (float(np.abs(truth["ao"][sig] - truth["ao_clean"])[m].mean()),
-                                 float(np.abs(out[..., 0].cpu().numpy()
+                                 float(np.abs(out[..., c - 1].cpu().numpy()
                                               - truth["ao_clean"])[m].mean()))
                 continue
             if sig == "shadow":
@@ -1615,10 +1703,11 @@ def profile_phase(path, w, h, frames, slice_ms, warmup=4, n=3):
             log(f"profile {path}: hand kernel {t:8.3f} ms/frame  {c / n:5.0f} x  {name[:90]}")
 
 
-def card_vs_cpu_phase(w=256, h=160, frames=4):
+def card_vs_cpu_phase(w=256, h=160, frames=3):
     frames = list(Scene(w, h).frames(frames, workers=1))
     sq = "RELAX_SPECULAR+SQ_LINEAR"
-    for path in (*PATHS, sq, *OCC_CB):
+    encoded = [p for p in ENCODED if not ENCODED[p].get("relax")]
+    for path in (*PATHS, sq, *encoded, *OCC_CB, *DIR_EXTRA):
         cuda, cpu = path_engine(path, w, h, "cuda"), path_engine(path, w, h, "cpu")
         worst = {label: float("inf") for label, _, _ in outputs_of(path)}
         for i, (cs, pools, _) in enumerate(frames):

@@ -54,6 +54,17 @@ def unpack_normal_roughness(p, normal_encoding=NormalEncoding.R10_G10_B10_A2_UNO
     return n, roughness, p[..., 3] * 3.0
 
 
+def decode_roughness_plane(p, roughness_encoding):
+    """A copy of the packed normal-roughness plane (..., 4) with .z decoded as
+    unpack_normal_roughness decodes it (SQRT_LINEAR r * r, SQ_LINEAR sqrt(saturate(r))), so that
+    a reader at LINEAR sees the same values; at LINEAR the plane itself."""
+    if roughness_encoding == RoughnessEncoding.LINEAR:
+        return p
+    r = p[..., 2:3]
+    r = r * r if roughness_encoding == RoughnessEncoding.SQRT_LINEAR else torch.sqrt(nm.saturate(r))
+    return torch.cat([p[..., :2], r, p[..., 3:]], -1)
+
+
 def get_hit_distance_normalization(view_z, hit_dist_params, roughness):
     """_REBLUR_GetHitDistanceNormalization (NRD.hlsli:520-523); params are host (A, B, C, D)."""
     a, b, c, d = (float(v) for v in hit_dist_params)
@@ -95,6 +106,15 @@ def reblur_pack_sh(radiance, norm_hit_dist, direction, sanitize=True):
     c1 = direction * ycocg[..., 0:1]
     return (torch.cat([ycocg, norm_hit_dist[..., None]], -1),
             torch.cat([c1, torch.zeros_like(c1[..., :1])], -1))
+
+
+def reblur_pack_directional_occlusion(direction, norm_hit_dist, sanitize=True):
+    """REBLUR_FrontEnd_PackDirectionalOcclusion (NRD.hlsli:770-781): (direction x the
+    normalized hit distance, the normalized hit distance), (..., 4)."""
+    if sanitize:
+        direction = _sanitize(direction, -1.0, 1.0)
+        norm_hit_dist = _sanitize(norm_hit_dist, 0.0, 1.0)
+    return torch.cat([direction * norm_hit_dist[..., None], norm_hit_dist[..., None]], -1)
 
 
 def relax_pack_radiance_hitdist(radiance, hit_dist, sanitize=True):
@@ -211,6 +231,15 @@ def reblur_unpack_sh(sh0, sh1) -> SG:
     """REBLUR_BackEnd_UnpackSh (NRD.hlsli:872-882)."""
     return SG(c0=sh0[..., 0], chroma=sh0[..., 1:3], norm_hit_dist=sh0[..., 3],
               c1=sh1[..., :3], sharpness=sh1[..., 3])
+
+
+def reblur_unpack_directional_occlusion(data) -> SG:
+    """REBLUR_BackEnd_UnpackDirectionalOcclusion (NRD.hlsli:885-895): c0 and the normalized
+    hit distance are .w, c1 is .xyz, no chroma and no sharpness."""
+    c0 = data[..., 3]
+    return SG(c0=c0, chroma=torch.zeros(data.shape[:-1] + (2,), dtype=data.dtype,
+                                        device=data.device),
+              norm_hit_dist=c0, c1=data[..., :3], sharpness=torch.zeros_like(c0))
 
 
 def _sg_extract_direction(sg: SG):

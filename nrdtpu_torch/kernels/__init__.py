@@ -2,7 +2,8 @@
 REBLUR_DIFFUSE_SPECULAR (also under NRDTPU_REBLUR_BAND=1), SIGMA_SHADOW,
 SIGMA_SHADOW_TRANSLUCENCY, RELAX_DIFFUSE, RELAX_SPECULAR and RELAX_DIFFUSE_SPECULAR paths (the
 REBLUR and RELAX ones also with SH, the REBLUR ones also on one channel for the occlusion
-variants; the REBLUR and the non-SH RELAX ones also under checkerboard), one module each, and
+variants and for REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION; the REBLUR and the non-SH RELAX ones also
+under checkerboard and at every roughness encoding), one module each, and
 the halo-window launcher, which no path calls (as in the JAX package).
 
 Every module holds the kernel's wrapper, its plain PyTorch version (`*_ref`) and a launch
@@ -77,6 +78,9 @@ MODULES = {
 # (`cb_launches`), under these names
 CB_INSTANCES = {"spatial_filter_cb": spatial_filter,
                 "spatial_filter_fused_cb": spatial_filter_fused}
+# H2's specular instances that decode the taps' roughness at SQRT_LINEAR / SQ_LINEAR (`kRough`):
+# their launches are also counted apart (`rough_launches`), under this name
+ROUGH_INSTANCES = {"spatial_filter_rough": spatial_filter}
 
 
 def reset_launch_counts():
@@ -84,9 +88,13 @@ def reset_launch_counts():
         m.launches = 0
     for m in CB_INSTANCES.values():
         m.cb_launches = 0
+    for m in ROUGH_INSTANCES.values():
+        m.rough_launches = 0
 
 
 def launch_counts() -> dict:
-    """{module: its launches}, and {CB_INSTANCES name: its checkerboard launches}."""
+    """{module: its launches}, {CB_INSTANCES name: its checkerboard launches} and
+    {ROUGH_INSTANCES name: its launches at a non-linear roughness encoding}."""
     return ({name: m.launches for name, m in MODULES.items()}
-            | {name: m.cb_launches for name, m in CB_INSTANCES.items()})
+            | {name: m.cb_launches for name, m in CB_INSTANCES.items()}
+            | {name: m.rough_launches for name, m in ROUGH_INSTANCES.items()})

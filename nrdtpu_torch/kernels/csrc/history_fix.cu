@@ -23,6 +23,12 @@
 // cuh:hf_clamp; TPU reblur_hfix2.py:229 at c = 1, the XLA clamp kernels.py:685-728 with
 // occlusion); no ring (the occlusion variants force anti-firefly off). The four-channel
 // instances compile as before.
+// REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION (kDir, diffuse only, one instance <1, 0, false, false,
+// true>): the (h, w, 4) signal (direction x normalized hit distance, the hit distance) takes the
+// radiance taps; the clamp takes .w as the luma with sigma scale 1 and its ChangeLuma scales
+// .xyz by the luma change of .w and sets .w (reblur_filters.cuh:hf_clamp; the XLA clamp
+// nrdtpu/passes/reblur/kernels.py:686-728 with directional; anti-firefly forced off). The other
+// instances compile as before.
 #include "reblur_filters.cuh"
 
 namespace {
@@ -31,7 +37,7 @@ constexpr int kFixCtas = 4;
 
 // phase 0: the tap geometry, one thread a pixel; 1: the history fix and the clamp of signal
 // kSig
-template <int kPhase, int kSig, bool kSh, bool kOcc = false>
+template <int kPhase, int kSig, bool kSh, bool kOcc = false, bool kDir = false>
 __global__ void __launch_bounds__(256, kPhase == 1 ? kFixCtas : 1)
     history_fix_kernel(nrd::HistoryFixArgs a) {
   if constexpr (kPhase == 0) {
@@ -41,7 +47,7 @@ __global__ void __launch_bounds__(256, kPhase == 1 ? kFixCtas : 1)
     nrd::write_tap_geometry(const_cast<float4*>(a.geometry), a.nr, a.view_z, a.f.view_z_scale,
                             (size_t)y * a.f.w + x);
   } else {
-    nrd::history_fix_cta<kSig, kSh, kOcc>(a);
+    nrd::history_fix_cta<kSig, kSh, kOcc, kDir>(a);
   }
 }
 
@@ -51,7 +57,8 @@ __global__ void __launch_bounds__(256, kPhase == 1 ? kFixCtas : 1)
 //       geometry (scratch), sh and sh_out (SH only)
 // consts: frustum[4], rect_inv_w, rect_inv_h, view_z_scale, ortho_mode, min_material,
 //         specular mode (0 or 1), anti-firefly ring (0 or 1), the clamp's frame divisor and
-//         fast-history flag, SH (0 or 1), one-channel occlusion signal (0 or 1; not with SH)
+//         fast-history flag, SH (0 or 1), one-channel occlusion signal (0 or 1; not with SH),
+//         directional occlusion (0 or 1; diffuse only, not with SH or one channel)
 extern "C" int nrd_history_fix(void* const* p, const float* c, int w, int h, void* stream) {
   const int s = c[9] != 0.0f ? 1 : 0;  // the signal's slot: 0 diffuse, 1 specular
   nrd::HistoryFixArgs a{};
@@ -81,8 +88,9 @@ extern "C" int nrd_history_fix(void* const* p, const float* c, int w, int h, voi
   a.clamp.frame_div = c[11];
   a.clamp.fast_enabled = c[12];
   const bool occ = c[14] != 0.0f;
+  const bool dir = c[15] != 0.0f;
   if ((s == 1 && a.smc == nullptr) || (sh && (a.sh[s] == nullptr || a.sh_out[s] == nullptr)) ||
-      (sh && occ))
+      (sh && occ) || (dir && (s != 0 || sh || occ)))
     return (int)cudaErrorInvalidValue;
   const dim3 block(nrd::kFixTile, nrd::kFixTile);
   const dim3 tiles((w + nrd::kFixTile - 1) / nrd::kFixTile,
@@ -96,6 +104,10 @@ extern "C" int nrd_history_fix(void* const* p, const float* c, int w, int h, voi
       history_fix_kernel<1, 0, false, true><<<tiles, block, 0, st>>>(a);
     else
       history_fix_kernel<1, 1, false, true><<<tiles, block, 0, st>>>(a);
+    return (int)cudaGetLastError();
+  }
+  if (dir) {
+    history_fix_kernel<1, 0, false, false, true><<<tiles, block, 0, st>>>(a);
     return (int)cudaGetLastError();
   }
   switch (s * 2 + (sh ? 1 : 0)) {

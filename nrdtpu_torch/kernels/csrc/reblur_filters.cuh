@@ -41,32 +41,42 @@ struct TapGeometry {
 };
 
 // from the frame's packed planes, unpacked at every tap: nr (h, w, 4) and raw viewZ, read a
-// channel at a time (H2, N4 and N5 measured no faster with one float4 on the H100: PERF.md)
-struct PackedTaps {
+// channel at a time (H2, N4 and N5 measured no faster with one float4 on the H100: PERF.md).
+// kRough: the roughness encoding of nr (common.cuh:decode_roughness), decoded at the tap; H2's
+// specular instances at SQRT_LINEAR / SQ_LINEAR take the packed plane, whose centre the
+// reference reads as packed and whose taps it decodes (nrdtpu/passes/reblur/kernels.py:37-42,
+// :1716); every other reader gets a plane decoded once a frame, at kRough 0.
+template <int kRough = 0>
+struct PackedTapsT {
   Image<float, 4> nr;
   Image<float, 1> vz;
   float view_z_scale;
   __device__ __forceinline__ TapGeometry at(int x, int y) const {
     return TapGeometry{unpack_normal(nr.at(x, y, 0), nr.at(x, y, 1)), nr.at(x, y, 3) * 3.0f,
-                       nr.at(x, y, 2), fabsf(vz.at(x, y, 0)) * view_z_scale};
+                       decode_roughness<kRough>(nr.at(x, y, 2)),
+                       fabsf(vz.at(x, y, 0)) * view_z_scale};
   }
   __device__ __forceinline__ float view_z(int x, int y) const {
     return fabsf(vz.at(x, y, 0)) * view_z_scale;
   }
 };
 
+using PackedTaps = PackedTapsT<0>;
+
 // from a (h, w, 4) plane unpacked once a frame, (n.x, n.y, n.z, scaled viewZ), and nr for the
-// material and the roughness: the same values as PackedTaps
-struct UnpackedTaps {
+// material and the roughness: the same values as PackedTaps; kRough as for PackedTapsT
+template <int kRough = 0>
+struct UnpackedTapsT {
   const float4* geometry;
   Image<float, 4> nr;
   __device__ __forceinline__ TapGeometry at(int x, int y) const {
     const size_t k = nr.index(x, y);
     const float4 g = __ldg(geometry + k);
     const float4 p = __ldg(reinterpret_cast<const float4*>(nr.p) + k);
-    return TapGeometry{V3{g.x, g.y, g.z}, p.w * 3.0f, p.z, g.w};
+    return TapGeometry{V3{g.x, g.y, g.z}, p.w * 3.0f, decode_roughness<kRough>(p.z), g.w};
   }
 };
+using UnpackedTaps = UnpackedTapsT<0>;
 
 // the (n.x, n.y, n.z, scaled viewZ) record of UnpackedTaps, as PackedTaps computes it
 __device__ __forceinline__ float4 unpacked_geometry(float4 nr, float raw_z, float view_z_scale) {
@@ -564,20 +574,25 @@ __device__ __forceinline__ void roughness_weight_params(float roughness, float f
 // fast-history mix, the anti-firefly clamp to the ring's moments (ring), the clamp to the
 // 3x3 moments, ChangeLuma. smc: the specular magic curve (spec only). Returns the clamped
 // luma, which the SH variants' SH1 is scaled to (sh_luma_scale). kOcc: the luma is the hit
-// distance in sig[3], the sigma scale 1, and the clamped luma replaces it.
+// distance in sig[3], the sigma scale 1, and the clamped luma replaces it. kDir, directional
+// occlusion: the luma is sig[3] with the sigma scale 1, as for kOcc, and ChangeLuma scales the
+// direction in sig[0..2] by (luma + 1e-6) / (sig[3] + 1e-6) and sets sig[3] to the luma
+// (nrdtpu/passes/reblur/common.py:139-147).
 struct HfClampConsts {
   float frame_div, fast_enabled;  // historyFixFrameNum + NRD_EPS; 1 if the fast history is on
 };
 
-template <bool kOcc = false>
+template <bool kOcc = false, bool kDir = false>
 __device__ __forceinline__ float hf_clamp(const HfClampConsts& k, float sig[4], float frame_num,
                                           float fast, float m1, float m2, bool ring, float am1,
                                           float am2, bool spec, float smc, float* fast_out) {
+  static_assert(!(kOcc && kDir), "one-channel occlusion, or directional occlusion");
+  constexpr bool kLumaW = kOcc || kDir;  // the luma is the hit distance in sig[3]
   float f = saturate(frame_num / k.frame_div);
   if (spec) f = 1.0f + (f - 1.0f) * smc;
-  float luma = kOcc ? sig[3] : sig[0];
+  float luma = kLumaW ? sig[3] : sig[0];
   *fast_out = luma + (fast - luma) * f;
-  const float sigma = kOcc ? sqrtf(fabsf(m2 - m1 * m1)) : sqrtf(fabsf(m2 - m1 * m1)) * 2.0f;
+  const float sigma = kLumaW ? sqrtf(fabsf(m2 - m1 * m1)) : sqrtf(fabsf(m2 - m1 * m1)) * 2.0f;
   if (ring) {
     const float asig = sqrtf(fabsf(am2 - am1 * am1)) * 2.0f;
     luma = fminf(fmaxf(luma, am1 - asig), am1 + asig);
@@ -585,6 +600,13 @@ __device__ __forceinline__ float hf_clamp(const HfClampConsts& k, float sig[4], 
   const float clamped = fminf(fmaxf(luma, m1 - sigma), m1 + sigma);
   luma = clamped + (luma - clamped) * (1.0f / (1.0f + k.fast_enabled * frame_num * 2.0f));
   if constexpr (kOcc) {
+    sig[3] = luma;
+    return luma;
+  }
+  if constexpr (kDir) {
+    const float dscale = (luma + (float)1e-6) / (sig[3] + (float)1e-6);
+#pragma unroll
+    for (int q = 0; q < 3; ++q) sig[q] = sig[q] * dscale;
     sig[3] = luma;
     return luma;
   }
@@ -871,8 +893,9 @@ struct FastWindow {
 
 // one pixel: the 3x3 (and ring) moments from the window, the stride taps (their geometry from
 // the plane), the clamp; kSh: the SH1 through the taps and scaled to the clamped luma; kOcc:
-// the one-channel signal
-template <bool kSpec, bool kSh, bool kOcc>
+// the one-channel signal; kDir: the directional-occlusion clamp (hf_clamp), the taps those of
+// the radiance signal
+template <bool kSpec, bool kSh, bool kOcc, bool kDir = false>
 __device__ __forceinline__ void history_fix_pixel(const HistoryFixArgs& a, const FastWindow& win,
                                                   int x, int y) {
   constexpr int s = kSpec ? 1 : 0;
@@ -889,8 +912,9 @@ __device__ __forceinline__ void history_fix_pixel(const HistoryFixArgs& a, const
                         UnpackedTaps{a.geometry, nr}, sig, a.sh[s], sh);
   const float smc = kSpec ? __ldg(a.smc + i) : 0.0f;
   float fast_out;
-  const float luma = hf_clamp<kOcc>(a.clamp, sig, __ldg(a.data1[s] + i), win.at(x, y, 0), m1,
-                                    m2, a.anti_firefly[s], am1, am2, kSpec, smc, &fast_out);
+  const float luma = hf_clamp<kOcc, kDir>(a.clamp, sig, __ldg(a.data1[s] + i), win.at(x, y, 0),
+                                          m1, m2, a.anti_firefly[s], am1, am2, kSpec, smc,
+                                          &fast_out);
   if constexpr (kOcc)
     a.out[s][i] = sig[3];
   else
@@ -905,10 +929,11 @@ __device__ __forceinline__ void history_fix_pixel(const HistoryFixArgs& a, const
 // kSig: the CTA's signal (0 diffuse, 1 specular), or kBothSignals: the low bit of blockIdx.x,
 // so that the two CTAs of a tile run side by side and share the centre's planes in L2. Every
 // thread stages the window, then the threads outside the image leave. kSh: the SH variants;
-// kOcc: the occlusion variants.
-template <int kSig, bool kSh = false, bool kOcc = false>
+// kOcc: the occlusion variants; kDir: REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION (diffuse only).
+template <int kSig, bool kSh = false, bool kOcc = false, bool kDir = false>
 __device__ __forceinline__ void history_fix_cta(const HistoryFixArgs& a) {
   static_assert(kSig == kBothSignals || kSig == 0 || kSig == 1, "a signal, or both");
+  static_assert(!kDir || (kSig == 0 && !kSh && !kOcc), "directional occlusion: diffuse only");
   constexpr bool kBoth = kSig == kBothSignals;
   __shared__ float window[kFixWin * kFixWin];
   const int s = kBoth ? (int)(blockIdx.x & 1u) : kSig;
@@ -923,7 +948,7 @@ __device__ __forceinline__ void history_fix_cta(const HistoryFixArgs& a) {
   const int x = x0 + (int)threadIdx.x, y = y0 + (int)threadIdx.y;
   if (x >= a.f.w || y >= a.f.h) return;
   if (s == 0)
-    history_fix_pixel<false, kSh, kOcc>(a, win, x, y);
+    history_fix_pixel<false, kSh, kOcc, kDir>(a, win, x, y);
   else
     history_fix_pixel<true, kSh, kOcc>(a, win, x, y);
 }

@@ -32,6 +32,12 @@
 // distance, read and written as one float a pixel, and the min hit-distance weight of its
 // parameters drops sqrt(nlas) (reblur_filters.cuh:diff_blur_params / spec_blur_params; TPU
 // reblur_blur2.py:276 at c = 1). The four-channel instances compile as before.
+// The roughness encodings are a template parameter after kCb (kRough, specular instances only:
+// 1 SQRT_LINEAR, 2 SQ_LINEAR; build.ROUGHNESS_MODE): the reference reads the centre's roughness
+// as packed (unpack_nr3, nrdtpu/passes/reblur/kernels.py:37-42, :1576) and decodes each tap's
+// (:1716), so these instances take the packed plane, compute the centre from it as before and
+// decode at the taps (reblur_filters.cuh:PackedTapsT / UnpackedTapsT). The diffuse filter reads
+// no roughness, and the kRough 0 instances compile as before.
 #include "reblur_filters.cuh"
 
 namespace {
@@ -58,9 +64,10 @@ struct SfArgs {
   nrd::StageConsts stage;
 };
 
-template <int kTaps, bool kSpec, bool kPrepass, bool kSh, bool kOcc, bool kCb>
+template <int kTaps, bool kSpec, bool kPrepass, bool kSh, bool kOcc, bool kCb, int kRough = 0>
 __global__ void __launch_bounds__(256, kMinCtas) spatial_filter_kernel(SfArgs a) {
   static_assert(!kCb || kPrepass, "the checkerboard mode is the PrePass's");
+  static_assert(kRough == 0 || kSpec, "the diffuse filter reads no roughness");
   static_assert(!kOcc || (!kPrepass && !kSh), "the occlusion mode is Blur's and PostBlur's");
   constexpr nrd::SfMode mode = !kSpec ? nrd::SfMode::kDiffuse
                                : kPrepass ? nrd::SfMode::kPrepass : nrd::SfMode::kSpec;
@@ -109,7 +116,8 @@ __global__ void __launch_bounds__(256, kMinCtas) spatial_filter_kernel(SfArgs a)
   float out[4], sh_out[4];
   float* const hdt = kSpec && kPrepass ? a.hdt + i : nullptr;
   if constexpr (kPrepass) {
-    const nrd::PackedTaps taps{nr, Image<float, 1>{a.view_z, a.f.w, a.f.h}, a.f.view_z_scale};
+    const nrd::PackedTapsT<kRough> taps{nr, Image<float, 1>{a.view_z, a.f.w, a.f.h},
+                                        a.f.view_z_scale};
     const float sum =
         nrd::sf_filter<kTaps, mode, kCb, kSh>(a.f, c, prm, 1, a.min_material, sig, taps, out,
                                               hdt, has_data, a.sh, sh_out);
@@ -119,8 +127,8 @@ __global__ void __launch_bounds__(256, kMinCtas) spatial_filter_kernel(SfArgs a)
                                  out);
   } else
     nrd::sf_filter<kTaps, mode, false, kSh, kOcc>(a.f, c, prm, 1, a.min_material, sig,
-                                                  nrd::UnpackedTaps{a.geometry, nr}, out, hdt,
-                                                  1.0f, a.sh, sh_out);
+                                                  nrd::UnpackedTapsT<kRough>{a.geometry, nr},
+                                                  out, hdt, 1.0f, a.sh, sh_out);
   if constexpr (kOcc)
     a.out[i] = out[3];
   else
@@ -141,8 +149,22 @@ Kernel pick_stage(bool spec, bool prepass) {
               : spatial_filter_kernel<kTaps, false, false, kSh, false, false>;
 }
 
+// the specular instances that decode the taps' roughness (kRough 1 or 2)
+template <int kTaps, int kRough>
+Kernel pick_rough(bool prepass, bool cb, bool sh, bool occ) {
+  if (prepass && cb) return spatial_filter_kernel<kTaps, true, true, false, false, true, kRough>;
+  if (occ) return spatial_filter_kernel<kTaps, true, false, false, true, false, kRough>;
+  if (sh)
+    return prepass ? spatial_filter_kernel<kTaps, true, true, true, false, false, kRough>
+                   : spatial_filter_kernel<kTaps, true, false, true, false, false, kRough>;
+  return prepass ? spatial_filter_kernel<kTaps, true, true, false, false, false, kRough>
+                 : spatial_filter_kernel<kTaps, true, false, false, false, false, kRough>;
+}
+
 template <int kTaps>
-Kernel pick(bool spec, bool prepass, bool cb, bool sh, bool occ) {
+Kernel pick(bool spec, bool prepass, bool cb, bool sh, bool occ, int rough) {
+  if (spec && rough == 1) return pick_rough<kTaps, 1>(prepass, cb, sh, occ);
+  if (spec && rough == 2) return pick_rough<kTaps, 2>(prepass, cb, sh, occ);
   if (prepass && cb)
     return spec ? spatial_filter_kernel<kTaps, true, true, false, false, true>
                 : spatial_filter_kernel<kTaps, false, true, false, false, true>;
@@ -165,7 +187,8 @@ Kernel pick(bool spec, bool prepass, bool cb, bool sh, bool occ) {
 //         6), stage (0 PrePass, 1 Blur, 2 PostBlur), specular (0 or 1),
 //         use_prepass_not_only, frame index low 16 bits, high 16 bits, the checkerboard's
 //         has-data parity (-1: off; PrePass only), denoising range, SH (0 or 1; not with the
-//         checkerboard), one-channel occlusion signal (0 or 1; Blur and PostBlur only, no SH)
+//         checkerboard), one-channel occlusion signal (0 or 1; Blur and PostBlur only, no SH),
+//         the roughness encoding of nr (0 LINEAR, 1 SQRT_LINEAR, 2 SQ_LINEAR; specular only)
 extern "C" int nrd_spatial_filter(void* const* p, const float* c, int w, int h, void* stream) {
   SfArgs a;
   a.signal = (const float*)p[0];
@@ -216,7 +239,9 @@ extern "C" int nrd_spatial_filter(void* const* p, const float* c, int w, int h, 
   const bool cb = a.cb.parity >= 0;
   const bool sh = c[51] != 0.0f;
   const bool occ = c[52] != 0.0f;
+  const int rough = (int)c[53];
   if ((ntaps != 8 && ntaps != 6) || stage < 0 || stage > 2 || a.cb.parity > 1 ||
+      rough < 0 || rough > 2 || (rough != 0 && !spec) ||
       (occ && (prepass || sh)) ||
       (cb && !prepass) || (sh && (cb || a.sh == nullptr || a.out_sh == nullptr)) ||
       (!prepass && (a.data1 == nullptr || a.geometry == nullptr)) ||
@@ -225,7 +250,8 @@ extern "C" int nrd_spatial_filter(void* const* p, const float* c, int w, int h, 
   const dim3 block(nrd::kBlock, nrd::kBlock);
   const dim3 grid((w + nrd::kBlock - 1) / nrd::kBlock, (h + nrd::kBlock - 1) / nrd::kBlock);
   const Kernel kernel =
-      ntaps == 8 ? pick<8>(spec, prepass, cb, sh, occ) : pick<6>(spec, prepass, cb, sh, occ);
+      ntaps == 8 ? pick<8>(spec, prepass, cb, sh, occ, rough)
+                 : pick<6>(spec, prepass, cb, sh, occ, rough);
   kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -25,6 +25,11 @@
 //     constants: it runs here term by term, true divisions kept (the pixel uv feeds the
 //     split-screen test, the accumulation speed is next frame's history length), and writes the
 //     stabilized signal (float4), its luma and the new accumulation speed.
+// REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION (kDir, the diffuse half only, <false, true>): the luma
+// is the signal's .w (TS with luma_is_last, nrdtpu/passes/reblur/kernels.py:2400-2404), so the
+// window stages .w, and the luma change scales .xyz by (luma_stab + 1e-6) / (.w + 1e-6) and
+// sets .w to luma_stab (nrdtpu/passes/reblur/common.py:139-147). The other instances compile as
+// before.
 #include "common.cuh"
 
 namespace {
@@ -83,15 +88,17 @@ __device__ __forceinline__ Sample sample_history(const TsArgs& a, float u, float
                 sqrtf(nrd::saturate(ow[0] + ow[1] + ow[2] + ow[3]))};
 }
 
-// Window texel k: the signal's .x
+// Window texel k: the signal's .x (kDir: its .w)
+template <bool kDir = false>
 __device__ __forceinline__ float luma_texel(const TsArgs& a, int ox, int oy, int k) {
   const int tx = nrd::clampi(ox + k % kWin, 0, a.w - 1);
   const int ty = nrd::clampi(oy + k / kWin, 0, a.h - 1);
-  return __ldg(a.signal + 4 * ((size_t)ty * a.w + tx));
+  return __ldg(a.signal + 4 * ((size_t)ty * a.w + tx) + (kDir ? 3 : 0));
 }
 
-template <bool kSpec>
+template <bool kSpec, bool kDir = false>
 __global__ void __launch_bounds__(kTile * kTile, kMinCtas) ts_prelude_kernel(TsArgs a) {
+  static_assert(!(kSpec && kDir), "directional occlusion: the diffuse half only");
   __shared__ float luma_wnd[kWin * kWin];
   const int ox = (int)blockIdx.x * kTile - kBorder, oy = (int)blockIdx.y * kTile - kBorder;
   // the pixel's own inputs, then its two texels of the window, every load issued before the
@@ -103,7 +110,8 @@ __global__ void __launch_bounds__(kTile * kTile, kMinCtas) ts_prelude_kernel(TsA
   const float data1 = __ldg(a.data1 + i);
   const int t0 = threadIdx.y * kTile + threadIdx.x, t1 = t0 + kTile * kTile;
   const bool two = t1 < kWin * kWin;
-  const float l0 = luma_texel(a, ox, oy, t0), l1 = luma_texel(a, ox, oy, two ? t1 : t0);
+  const float l0 = luma_texel<kDir>(a, ox, oy, t0);
+  const float l1 = luma_texel<kDir>(a, ox, oy, two ? t1 : t0);
   luma_wnd[t0] = l0;
   if (two) luma_wnd[t1] = l1;
   __syncthreads();
@@ -182,7 +190,7 @@ __global__ void __launch_bounds__(kTile * kTile, kMinCtas) ts_prelude_kernel(TsA
   const float4 sig = __ldg(reinterpret_cast<const float4*>(a.signal) + i);
   const float scale = (luma_stab + kEps) / (luma + kEps);
   reinterpret_cast<float4*>(a.out)[i] =
-      make_float4(sig.x * scale, sig.y * scale, sig.z * scale, sig.w);
+      make_float4(sig.x * scale, sig.y * scale, sig.z * scale, kDir ? luma_stab : sig.w);
   a.planes[i] = luma_stab;
   a.planes[plane + i] = dmin + (d1 - dmin) * antilag;
 }
@@ -194,7 +202,7 @@ __global__ void __launch_bounds__(kTile * kTile, kMinCtas) ts_prelude_kernel(TsA
 // consts: rect_prev_w, rect_prev_h, max_blur_radius != 0, split_screen, split_screen_prev,
 //         antilag sigma scale, antilag magic, 3 x framerate scale, stabilization strength,
 //         history fix frame num, specular (0 / 1), responsive roughness threshold + eps,
-//         strand material id
+//         strand material id, directional occlusion (0 / 1; diffuse only)
 extern "C" int nrd_ts_prelude(void* const* p, const float* c, int w, int h, void* stream) {
   TsArgs a;
   a.signal = (const float*)p[0];
@@ -222,11 +230,14 @@ extern "C" int nrd_ts_prelude(void* const* p, const float* c, int w, int h, void
   const bool spec = c[10] != 0.0f;
   a.responsive_threshold = c[11];
   a.strand_material_id = c[12];
-  if (spec && (a.vmb_uv == nullptr || a.vha == nullptr || a.nr == nullptr))
+  const bool dir = c[13] != 0.0f;
+  if ((spec && (a.vmb_uv == nullptr || a.vha == nullptr || a.nr == nullptr)) || (spec && dir))
     return (int)cudaErrorInvalidValue;
   const dim3 block(kTile, kTile);
   const dim3 grid((w + kTile - 1) / kTile, (h + kTile - 1) / kTile);
-  if (spec)
+  if (dir)
+    ts_prelude_kernel<false, true><<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  else if (spec)
     ts_prelude_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(a);
   else
     ts_prelude_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(a);

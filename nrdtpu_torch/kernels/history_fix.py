@@ -25,6 +25,12 @@ With the occlusion variants the signal is the (h, w, 1) hit distance: the one-ch
 instances take it through the taps and clamp it as its own luma with sigma scale 1
 (`params.history_fix_clamp(occlusion=True)`, `:685-728`).
 
+With REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION (`directional=True`, diffuse only) the (h, w, 4)
+signal, the direction times the normalized hit distance and the hit distance, takes the
+radiance taps; the clamp takes .w as the luma with sigma scale 1, and its ChangeLuma scales
+.xyz by (luma + 1e-6) / (.w + 1e-6) and sets .w to the luma
+(`params.history_fix_clamp(directional=True)`, `:686-728`; the kernel's `kDir` instance).
+
 The kernel is the one-signal instance of the body that N5 and K23 run for two signals
 (`csrc/reblur_filters.cuh:history_fix_cta`).
 
@@ -86,7 +92,7 @@ def tap_geometry_ref(normal_roughness, view_z_in, view_z_scale):
 
 def taps_and_clamp_ref(signal, view_z_in, normal_roughness, data1, fast_history, shared, params,
                     smc, *, frustum, rect_size_inv, view_z_scale, ortho_mode, min_material, dc,
-                    anti_firefly=False, sh=None):
+                    anti_firefly=False, sh=None, directional=False):
     """The XLA stride-tap loop, the 3x3 moments and the ring, then
     `params.history_fix_clamp`. Returns (signal_out, fast_out), and with `sh` (the signal's
     SH1) also its history fix, scaled to the clamped luma."""
@@ -148,12 +154,13 @@ def taps_and_clamp_ref(signal, view_z_in, normal_roughness, data1, fast_history,
     m1, m2 = _moments(fast_history, stencil.offsets_square(1))
     ring = _moments(fast_history, anti_firefly_offsets()) if anti_firefly else None
     return P.history_fix_clamp(dc, dict(smc=smc), data1, out, fast_history, m1, m2, ring,
-                               not spec, sh=sh_out, occlusion=signal.shape[-1] == 1)
+                               not spec, sh=sh_out, occlusion=signal.shape[-1] == 1,
+                               directional=directional)
 
 
 def history_fix_ref(signal, view_z_in, normal_roughness, data1, fast_history, shared, params,
                     smc, *, frustum, rect_size_inv, view_z_scale, ortho_mode, min_material, dc,
-                    anti_firefly=False, sh=None):
+                    anti_firefly=False, sh=None, directional=False):
     """Plain PyTorch version of the kernel: the XLA stride-tap loop, the 3x3 moments and the
     ring, then `params.history_fix_clamp`; and the tap geometry. Returns dict(signal, fast,
     geometry[, sh])."""
@@ -161,7 +168,7 @@ def history_fix_ref(signal, view_z_in, normal_roughness, data1, fast_history, sh
         signal, view_z_in, normal_roughness, data1, fast_history, shared, params, smc,
         frustum=frustum, rect_size_inv=rect_size_inv, view_z_scale=view_z_scale,
         ortho_mode=ortho_mode, min_material=min_material, dc=dc, anti_firefly=anti_firefly,
-        sh=sh)
+        sh=sh, directional=directional)
     out = dict(signal=res[0], fast=res[1],
                geometry=tap_geometry_ref(normal_roughness, view_z_in, view_z_scale))
     if sh is not None:
@@ -178,7 +185,7 @@ def check_params(shared, params):
 
 def history_fix(signal, view_z_in, normal_roughness, data1, fast_history, shared, params, smc,
                 *, frustum, rect_size_inv, view_z_scale, ortho_mode, min_material, dc,
-                anti_firefly=False, sh=None):
+                anti_firefly=False, sh=None, directional=False):
     """signal (h, w, 4), or (h, w, 1) with the occlusion variants (no SH), data1 = accumulated
     frames (h, w), fast_history (h, w), shared float32
     planes named by SHARED (9, h, w), params named by PARAMS (5, h, w; diffuse) or PARAMS +
@@ -186,16 +193,19 @@ def history_fix(signal, view_z_in, normal_roughness, data1, fast_history, shared
     None for diffuse; dc: the REBLUR frame constants (the clamp's). Returns dict(signal (of
     the input's shape), fast (h, w), geometry (h, w, 4)): the clamped signal, the fast history
     and the tap geometry; with the SH variants' `sh` (the signal's SH1, (h, w, 4)) also sh (h,
-    w, 4)."""
+    w, 4); directional: REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION's clamp (diffuse, four channels,
+    no SH)."""
     global launches
     kw = dict(frustum=frustum, rect_size_inv=rect_size_inv, view_z_scale=view_z_scale,
               ortho_mode=ortho_mode, min_material=min_material, dc=dc,
-              anti_firefly=anti_firefly, sh=sh)
+              anti_firefly=anti_firefly, sh=sh, directional=directional)
     check_params(shared, params)
     spec = params.shape[0] != len(PARAMS)
     if (smc is None) == spec:
         raise ValueError("smc: the specular magic curve for the specular mode, None for diffuse")
     c = build.channels("signal", signal, sh)
+    if directional and (spec or c != 4 or sh is not None):
+        raise ValueError("directional: the diffuse four-channel signal, without SH")
     dev = build.kernel_device(signal)
     if dev is None:
         return history_fix_ref(signal, view_z_in, normal_roughness, data1, fast_history, shared,
@@ -218,7 +228,7 @@ def history_fix(signal, view_z_in, normal_roughness, data1, fast_history, shared
     out_sh = None if sh is None else torch.empty((h, w, 4), dtype=f32, device=dev)
     consts = [*frustum, rect_size_inv[0], rect_size_inv[1], view_z_scale, ortho_mode,
               min_material, spec, anti_firefly, P.history_fix_frame_div(dc),
-              P.fast_history_enabled(dc), sh is not None, c == 1]
+              P.fast_history_enabled(dc), sh is not None, c == 1, directional]
     build.launch("nrd_history_fix", [t for _, t, _ in ins[:7]] + [smc, out, fast, geometry,
                                                                  sh, out_sh],
                  consts, w, h)

@@ -37,6 +37,11 @@ write one float a pixel, and the min hit-distance weight of their parameters dro
 sqrt(nlas) (`params.diff_spatial_params(occlusion=True)`, `nrdtpu/passes/reblur/kernels.py:814`,
 `:1655`).
 
+At SQRT_LINEAR and SQ_LINEAR roughness (`roughness_encoding`, the specular filter) the kernel
+takes IN_NORMAL_ROUGHNESS as packed: the reference computes the centre's geometry and
+parameters from the packed roughness (`unpack_nr3`, `nrdtpu/passes/reblur/kernels.py:37-42`,
+`:1576`) and decodes each tap's (`:1716`), so the `kRough` instances decode at the taps only.
+
 The kernel takes the raw planes (the signal, viewZ, the packed normal and, for Blur and
 PostBlur, the accumulation speed and `geometry`, the (unpacked normal, scaled viewZ) plane that
 H3 (`history_fix`) returns) and the frame constants (`sc`, `dc`); no parameter plane. The
@@ -61,10 +66,12 @@ from .. import math as nm
 from ..ops import resample, stencil
 from ..passes.reblur import common as C
 from ..passes.reblur import params as P
+from ..settings import RoughnessEncoding
 from . import build
 
 launches = 0
 cb_launches = 0  # of them, the checkerboard PrePass instances
+rough_launches = 0  # of them, the specular instances that decode the taps' roughness (kRough)
 NRD_DISOCCLUSION_THRESHOLD = 0.02  # `nrdtpu/passes/reblur/common.py:42`
 
 # per-pixel planes of the tap loop, in order (`taps_ref`; N4's and K23's glue stacks them):
@@ -119,15 +126,17 @@ def cb_neighbor_resolve(signal, view_z, frustum_size, nov, denoising_range):
 
 
 def taps_ref(signal, view_z_in, normal_roughness, shared, params, *, frustum, rect_size,
-             view_z_scale, ortho_mode, min_material, perf_mode, prepass=None, cb=None, sh=None):
+             view_z_scale, ortho_mode, min_material, perf_mode, prepass=None, cb=None, sh=None,
+             roughness_encoding=RoughnessEncoding.LINEAR):
     """The XLA tap loop on the centre's planes: shared named by SHARED (8, h, w), params by
     PARAMS (+ SPEC_PARAMS (+ PREPASS_PARAMS)); the specular PrePass mode takes `prepass` =
     dict(hit_dist_params (A, B, C, D), use_prepass_not_only, frame_index); the checkerboard
     PrePass `cb` = dict(mask: the (h, w) has-data plane, the centre's weight; resolve: the
     (h, w, 4) fallback written where the weight sum is 0); `sh`: the signal's SH1 (h, w, 4),
     filtered with the taps' final weights (all four channels in the diffuse mode; three, the
-    centre's `.w` kept, in the specular modes). Returns the filtered signal (h, w, 4), in the
-    PrePass mode also hitDistForTracking (h, w), and with `sh` last the filtered SH."""
+    centre's `.w` kept, in the specular modes); roughness_encoding: how the taps' roughness
+    in normal_roughness is packed. Returns the filtered signal (h, w, 4), in the PrePass mode
+    also hitDistForTracking (h, w), and with `sh` last the filtered SH."""
     h, w = view_z_in.shape
     mode = MODES[params.shape[0]]
     p = dict(zip(SHARED, shared))
@@ -160,7 +169,7 @@ def taps_ref(signal, view_z_in, normal_roughness, shared, params, *, frustum, re
                             nm.div(torch.floor(vs * rh) + 0.5, rh)], -1)
         zs = torch.abs(resample.sample_nearest(view_z_in, uv_s)) * view_z_scale
         nr_s = resample.sample_nearest(normal_roughness, uv_s)
-        ns, _, ms = fe.unpack_normal_roughness(nr_s)
+        ns, rs, ms = fe.unpack_normal_roughness(nr_s, roughness_encoding=roughness_encoding)
         angle = nm.acos_approx(nm.dot(n, ns))
         xvs = nm.reconstruct_view_position(uv_s, frustum, zs, ortho_mode)
         w_ = resample.is_in_screen_nearest(uv_s)
@@ -169,12 +178,12 @@ def taps_ref(signal, view_z_in, normal_roughness, shared, params, *, frustum, re
                    == torch.clamp_min(ms, min_material)).to(torch.float32)
         w_ = w_ * nm.compute_weight(angle, p["normal_weight_param"], 0.0)
         if mode != "diffuse":
-            w_ = w_ * nm.compute_weight(nr_s[..., 2], p["wr_a"], p["wr_b"])
+            w_ = w_ * nm.compute_weight(rs, p["wr_a"], p["wr_b"])
         s = resample.sample_nearest(signal, uv_s)
         s = torch.where((w_ == 0.0)[..., None], 0.0, s)
         if mode == "spec_prepass":
             hs = s[..., -1] * fe.get_hit_distance_normalization(zs, prepass["hit_dist_params"],
-                                                                nr_s[..., 2])
+                                                                rs)
             d = nm.length(xvs - xv) + fe.NRD_EPS
             geometry_weight = w_ * nm.saturate(hs / d)
             state, rnd = nm.hash_float(state)
@@ -248,12 +257,14 @@ def cb_ref(signal, view_z, frustum_size, nov, *, frame_index, parity, denoising_
 
 
 def spatial_filter_ref(signal, view_z_in, normal_roughness, data1=None, *, sc, dc, mode, spec,
-                       enc_err, perf_mode, geometry=None, cb=None, sh=None):
+                       enc_err, perf_mode, geometry=None, cb=None, sh=None,
+                       roughness_encoding=RoughnessEncoding.LINEAR):
     """Plain PyTorch version of the kernel: the centre's planes that the kernel computes per
     pixel, from the pass glue's torch functions (`params.filter_geometry`,
     `diff_spatial_params`, `spec_spatial_params`; under checkerboard on the centre signal
     zeroed where it has no data), then the XLA tap loop (`taps_ref`); the taps unpack their
-    geometry from normal_roughness and view_z_in, the values of `geometry`."""
+    geometry from normal_roughness and view_z_in, the values of `geometry`, and decode their
+    roughness by `roughness_encoding` (the centre's stays as packed)."""
     geom = P.filter_geometry(sc, dc, view_z_in, normal_roughness, enc_err,
                              ("spec",) if spec else ("diff",))
     shared = torch.stack([geom["ga"], geom["gb"], *geom["n3"], *geom["nv3"]])
@@ -270,10 +281,11 @@ def spatial_filter_ref(signal, view_z_in, normal_roughness, data1=None, *, sc, d
                     frustum=_v(sc["frustum"]), rect_size=_v(sc["rect_size"]),
                     view_z_scale=float(sc["view_z_scale"]), ortho_mode=float(sc["ortho_mode"]),
                     min_material=min_material(dc, spec), perf_mode=perf_mode, prepass=prepass,
-                    cb=cbd, sh=sh)
+                    cb=cbd, sh=sh, roughness_encoding=roughness_encoding)
 
 
-def launch_consts(sc, dc, mode, spec, enc_err, perf_mode, cb=None, sh=False, occlusion=False):
+def launch_consts(sc, dc, mode, spec, enc_err, perf_mode, cb=None, sh=False, occlusion=False,
+                  roughness_encoding=RoughnessEncoding.LINEAR):
     """The kernel's host constants, each the float32 value that the plain version's torch ops
     see (`csrc/spatial_filter.cu:nrd_spatial_filter` lists them)."""
     fraction_scale, radius_scale = P.STAGE_SCALES[mode]
@@ -292,13 +304,15 @@ def launch_consts(sc, dc, mode, spec, enc_err, perf_mode, cb=None, sh=False, occ
             P.roughness_fraction_scaled(dc, fraction_scale), min_material(dc, spec),
             ntaps(perf_mode), mode, spec, *prepass_consts(prepass)[4:],
             -1 if cb is None else int(cb), float(sc["denoising_range"]), bool(sh),
-            bool(occlusion)]
+            bool(occlusion), build.ROUGHNESS_MODE[roughness_encoding]]
 
 
 def spatial_filter(signal, view_z_in, normal_roughness, data1=None, *, sc, dc, mode, spec,
-                   enc_err, perf_mode, geometry=None, cb=None, sh=None):
+                   enc_err, perf_mode, geometry=None, cb=None, sh=None,
+                   roughness_encoding=RoughnessEncoding.LINEAR):
     """signal (h, w, 4), or with the occlusion variants (h, w, 1) (Blur and PostBlur only, no
-    SH), view_z_in (h, w), normal_roughness (h, w, 4) with linear roughness,
+    SH), view_z_in (h, w), normal_roughness (h, w, 4), its roughness packed by
+    `roughness_encoding` (only the specular filter reads it; the diffuse filter takes LINEAR),
     data1 (h, w) the accumulation speed (Blur and PostBlur; None in the PrePass); sc, dc: the
     frame constants; mode: params.PRE_BLUR, BLUR or POST_BLUR; spec: the specular filter;
     enc_err: the normal encoding's error; geometry: in Blur and PostBlur the tap geometry (h, w,
@@ -307,9 +321,11 @@ def spatial_filter(signal, view_z_in, normal_roughness, data1=None, *, sc, dc, m
     width; else None; sh: with the SH variants the signal's SH1 (h, w, 4), not under
     checkerboard. Returns the filtered signal (of the input's shape), in the specular PrePass
     also hitDistForTracking (h, w), and with `sh` last the filtered SH (h, w, 4)."""
-    global launches, cb_launches
+    global launches, cb_launches, rough_launches
+    if not spec and roughness_encoding != RoughnessEncoding.LINEAR:
+        raise ValueError("the diffuse filter reads no roughness: it takes LINEAR")
     kw = dict(sc=sc, dc=dc, mode=mode, spec=bool(spec), enc_err=enc_err, perf_mode=perf_mode,
-              geometry=geometry, cb=cb, sh=sh)
+              geometry=geometry, cb=cb, sh=sh, roughness_encoding=roughness_encoding)
     prepass = mode == P.PRE_BLUR
     if prepass != (data1 is None) or prepass != (geometry is None):
         raise ValueError("data1 and geometry (the history fix's tap-geometry plane) go with "
@@ -339,9 +355,10 @@ def spatial_filter(signal, view_z_in, normal_roughness, data1=None, *, sc, dc, m
     build.launch("nrd_spatial_filter", [signal, view_z_in, normal_roughness, data1, geometry,
                                         out, hdt, sh, out_sh],
                  launch_consts(sc, dc, mode, bool(spec), enc_err, perf_mode, cb, sh is not None,
-                               c == 1), w, h)
+                               c == 1, roughness_encoding), w, h)
     launches += 1
     cb_launches += cb is not None
+    rough_launches += roughness_encoding != RoughnessEncoding.LINEAR
     res = (out, hdt) if spec and prepass else (out,)
     if sh is not None:
         res += (out_sh,)

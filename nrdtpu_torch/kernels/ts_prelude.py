@@ -14,6 +14,10 @@ history clamp and the blend capped by the stabilization strength, for specular t
 and qualities' lerps by the virtual history amount, the responsive factor, the spec magic
 curve and the strand material; then the new accumulation speed and ChangeLuma.
 
+With REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION (`directional=True`, the diffuse half) the luma is the
+signal's .w (`luma_is_last`, `:2400-2404`) and the luma change the directional one: .xyz scaled
+by (luma_stab + 1e-6) / (.w + 1e-6), .w set to luma_stab (the kernel's `kDir` instance).
+
 Bound on the H100: memory. Per pixel the diffuse half reads the signal (16 B), the bf16 history
 near the reprojected position (~2-4 B from device memory), the uv, fbits and accumulation
 speed (16 B), and writes the signal, its luma and the accumulation speed (24 B): ~58 B/px,
@@ -55,11 +59,12 @@ def ts_prelude_ref(signal, history, smb_uv, fbits, data1, vmb_uv=None,
                    virtual_history_amount=None, normal_roughness=None, *, rect_size_prev,
                    max_blur_radius, split_screen, split_screen_prev, antilag_params,
                    framerate_scale, stabilization_strength, history_fix_frame_num,
-                   responsive_roughness_threshold=None, strand_material_id=None):
+                   responsive_roughness_threshold=None, strand_material_id=None,
+                   directional=False):
     """Plain PyTorch version of the kernel (the XLA half, op for op). Returns dict(signal,
     luma_stab, data1)."""
     h, w = data1.shape
-    luma = signal[..., 0]
+    luma = C.get_luma(signal, directional=directional)
     m1 = torch.zeros_like(luma)
     m2 = torch.zeros_like(luma)
     lmin = torch.full_like(luma, fe.NRD_INF)
@@ -107,7 +112,7 @@ def ts_prelude_ref(signal, history, smb_uv, fbits, data1, vmb_uv=None,
         vmb_ok = (vmb_uv[..., 0] >= split_screen_prev).to(torch.float32)
         history_weight = history_weight * torch.where(virtual_history_amount != 1.0, smb_ok, 1.0)
         history_weight = history_weight * torch.where(virtual_history_amount != 0.0, vmb_ok, 1.0)
-        roughness = normal_roughness[..., 2]  # LINEAR: REBLUR's specular path takes no other
+        roughness = normal_roughness[..., 2]  # LINEAR: the glue passes the decoded plane
         material_id = normal_roughness[..., 3] * 3.0
         # RemapRoughnessToResponsiveFactor (REBLUR_Common.hlsli:126-131)
         responsive_factor = nm.smoothstep01(nm.div(roughness + nm.EPS, float(
@@ -122,7 +127,8 @@ def ts_prelude_ref(signal, history, smb_uv, fbits, data1, vmb_uv=None,
                         torch.clamp_max(history_weight, stabilization_strength))
     d1 = data1 + 1.0
     dmin = torch.clamp_max(d1, history_fix_frame_num)
-    return dict(signal=C.change_luma(signal, luma_stab), luma_stab=luma_stab,
+    return dict(signal=C.change_luma(signal, luma_stab, directional=directional),
+                luma_stab=luma_stab,
                 data1=nm.lerp(dmin, d1, antilag))
 
 
@@ -130,8 +136,9 @@ def ts_prelude(signal, history, smb_uv, fbits, data1, vmb_uv=None, virtual_histo
                normal_roughness=None, *, rect_size_prev, max_blur_radius, split_screen,
                split_screen_prev, antilag_params, framerate_scale, stabilization_strength,
                history_fix_frame_num, responsive_roughness_threshold=None,
-               strand_material_id=None):
-    """signal (h, w, 4) float32 (its .x the luma), history (h, w) bf16, smb_uv (h, w, 2), fbits
+               strand_material_id=None, directional=False):
+    """signal (h, w, 4) float32 (its .x the luma; .w with `directional`, the diffuse half of
+    REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION), history (h, w) bf16, smb_uv (h, w, 2), fbits
     and data1 (h, w) float32; for the specular half also vmb_uv (h, w, 2), the virtual history
     amount (h, w) and IN_NORMAL_ROUGHNESS (h, w, 4) at LINEAR roughness, with the responsive
     roughness threshold and the strand material id. The constants are host values as the pass
@@ -143,8 +150,10 @@ def ts_prelude(signal, history, smb_uv, fbits, data1, vmb_uv=None, virtual_histo
               stabilization_strength=stabilization_strength,
               history_fix_frame_num=history_fix_frame_num,
               responsive_roughness_threshold=responsive_roughness_threshold,
-              strand_material_id=strand_material_id)
+              strand_material_id=strand_material_id, directional=directional)
     spec = vmb_uv is not None
+    if spec and directional:
+        raise ValueError("directional: the diffuse half only")
     dev = build.kernel_device(signal)
     if dev is None:
         return ts_prelude_ref(signal, history, smb_uv, fbits, data1, vmb_uv,
@@ -167,7 +176,7 @@ def ts_prelude(signal, history, smb_uv, fbits, data1, vmb_uv=None, virtual_histo
               float(f(antilag_params[1]) * f(framerate_scale) * f(framerate_scale)),
               3.0 * float(framerate_scale), stabilization_strength, history_fix_frame_num, spec,
               float(f(responsive_roughness_threshold) + f(nm.EPS)) if spec else 0.0,
-              strand_material_id if spec else 0.0]
+              strand_material_id if spec else 0.0, directional]
     build.launch("nrd_ts_prelude", [t for _, t, _, _ in ins]
                  + [t if spec else None for _, t, _, _ in spec_ins] + [out, planes], consts, w, h)
     launches += 1

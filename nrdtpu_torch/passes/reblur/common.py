@@ -132,19 +132,25 @@ def extract_hit_dist(signal):
     return signal[..., -1]
 
 
-def get_luma(signal, occlusion: bool = False):
-    """GetLuma: YCoCg .x for radiance signals, the hit distance for occlusion."""
-    return signal[..., -1] if occlusion else signal[..., 0]
+def get_luma(signal, occlusion: bool = False, directional: bool = False):
+    """GetLuma: YCoCg .x for radiance signals, the hit distance for occlusion and for
+    directional occlusion (its .w)."""
+    return signal[..., -1] if occlusion or directional else signal[..., 0]
 
 
 def get_luma_scale(curr_luma, new_luma):
     return (new_luma + nm.EPS) / (curr_luma + nm.EPS)
 
 
-def change_luma(signal, new_luma, occlusion: bool = False):
-    """ChangeLuma: the YCoCg scaled to the new luma; for occlusion the new luma itself."""
+def change_luma(signal, new_luma, occlusion: bool = False, directional: bool = False):
+    """ChangeLuma: the YCoCg scaled to the new luma; for occlusion the new luma itself; for
+    directional occlusion .xyz scaled by the luma change of .w, and .w the new luma
+    (`nrdtpu/passes/reblur/common.py:139-147`)."""
     if occlusion:
         return new_luma[..., None]
+    if directional:
+        scale = get_luma_scale(signal[..., 3], new_luma)
+        return torch.cat([signal[..., :3] * scale[..., None], new_luma[..., None]], -1)
     scale = get_luma_scale(get_luma(signal), new_luma)
     return torch.cat([signal[..., :3] * scale[..., None], signal[..., 3:]], -1)
 
@@ -156,12 +162,15 @@ def sh_luma_scale(sh, new_luma):
     return torch.cat([sh[..., :3] * scale[..., None], sh[..., 3:]], -1)
 
 
-def clamp_negative_to_zero(signal, occlusion: bool = False):
+def clamp_negative_to_zero(signal, occlusion: bool = False, directional: bool = False):
     """ClampNegativeToZero (REBLUR_Common.hlsli:168-240): for occlusion the saturated hit
-    distance."""
+    distance; for directional occlusion the saturated .w, .xyz scaled by its change
+    (`nrdtpu/passes/reblur/common.py:149-158`)."""
     hit = nm.saturate(signal[..., -1:])
     if occlusion:
         return hit
+    if directional:
+        return torch.cat([signal[..., :3] * get_luma_scale(signal[..., 3:4], hit), hit], -1)
     return torch.cat([nm.linear_to_ycocg(nm.ycocg_to_linear(signal[..., :3])), hit], -1)
 
 

@@ -27,7 +27,22 @@ width under checkerboard), into OUT_DIFF_HITDIST / OUT_SPEC_HITDIST (h, w, 1): o
 through every pass (the kernels' one-channel modes), never a PrePass or TS, anti-firefly forced
 off; under checkerboard the expanded input takes the horizontal neighbour resolve on the pixels
 without data (`cb_resolve`, `:278-298`), also under the band. REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION
-raises NotImplementedError; ROADMAP.md lists it.
+(`denoiser.py:45`, `:141-159`) denoises IN_DIFF_DIRECTION_HITDIST, (h, w, 4): the direction times
+the normalized hit distance and the hit distance (`frontend.reblur_pack_directional_occlusion`),
+into OUT_DIFF_DIRECTION_HITDIST. Its state is REBLUR_DIFFUSE's; it runs no PrePass, ever
+(`:267`), and so under checkerboard no neighbour resolve either (`:278`: the expanded input
+goes to TA, which accumulates slower on the pixels without data); TA, the history fix and TS
+take its luma from .w and scale .xyz by the luma's change (the kernels' `kDir` modes of the
+history fix and TS), its Blur and PostBlur are the radiance diffuse filter's, and anti-firefly
+is forced off (`:434-435`, `:448-449`).
+
+Every variant runs at the three roughness encodings of IN_NORMAL_ROUGHNESS. At SQRT_LINEAR and
+SQ_LINEAR the frame decodes the input and the previous frame's copy once (`frontend.
+decode_roughness_plane`): every reader of the roughness takes the decoded planes at LINEAR,
+but for the centre pixel of HistoryFix, PrePass, Blur and PostBlur, which the reference reads
+as packed (`unpack_nr3`, `nrdtpu/passes/reblur/kernels.py:37-42`): their centre geometry comes
+from the packed plane and their taps read the decoded one (`tap_normal_roughness`; H2 decodes
+at its taps itself). The state keeps the packed input, as the reference does (`:548-550`).
 
 State (the permanent pool; histories in bf16, the RGBA16f-history analogue):
   prev_view_z (h, w), prev_normal_roughness (h, w, 4), diff_accum / spec_accum / material_id
@@ -39,6 +54,7 @@ State (the permanent pool; histories in bf16, the RGBA16f-history analogue):
 from __future__ import annotations
 
 import os
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -53,6 +69,7 @@ from ...settings import (
     ResourceType,
     RoughnessEncoding,
 )
+from ... import frontend as fe
 from ... import math as nm
 from . import common as C
 from . import kernels as K
@@ -60,14 +77,18 @@ from . import kernels as K
 RT = ResourceType
 OCCLUSION = (Denoiser.REBLUR_DIFFUSE_OCCLUSION, Denoiser.REBLUR_SPECULAR_OCCLUSION,
              Denoiser.REBLUR_DIFFUSE_SPECULAR_OCCLUSION)
+DIRECTIONAL = Denoiser.REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION
 PORTED = (Denoiser.REBLUR_DIFFUSE, Denoiser.REBLUR_SPECULAR, Denoiser.REBLUR_DIFFUSE_SPECULAR,
           Denoiser.REBLUR_DIFFUSE_SH, Denoiser.REBLUR_SPECULAR_SH,
-          Denoiser.REBLUR_DIFFUSE_SPECULAR_SH) + OCCLUSION
+          Denoiser.REBLUR_DIFFUSE_SPECULAR_SH) + OCCLUSION + (DIRECTIONAL,)
 IN_RT = {"diff": RT.IN_DIFF_RADIANCE_HITDIST, "spec": RT.IN_SPEC_RADIANCE_HITDIST}
 OUT_RT = {"diff": RT.OUT_DIFF_RADIANCE_HITDIST, "spec": RT.OUT_SPEC_RADIANCE_HITDIST}
 # the occlusion variants: the normalized hit distance in and out (`denoiser.py:141-159`)
 OCC_IN_RT = {"diff": RT.IN_DIFF_HITDIST, "spec": RT.IN_SPEC_HITDIST}
 OCC_OUT_RT = {"diff": RT.OUT_DIFF_HITDIST, "spec": RT.OUT_SPEC_HITDIST}
+# directional occlusion: (direction x normHitDist, normHitDist) in and out (`denoiser.py:141-159`)
+DIR_IN_RT = {"diff": RT.IN_DIFF_DIRECTION_HITDIST}
+DIR_OUT_RT = {"diff": RT.OUT_DIFF_DIRECTION_HITDIST}
 # the SH variants: (SH0, SH1) of each signal (`denoiser.py:146-159`, `:181-182`, `:584`)
 SH_IN_RT = {"diff": (RT.IN_DIFF_SH0, RT.IN_DIFF_SH1), "spec": (RT.IN_SPEC_SH0, RT.IN_SPEC_SH1)}
 SH_OUT_RT = {"diff": (RT.OUT_DIFF_SH0, RT.OUT_DIFF_SH1),
@@ -86,12 +107,12 @@ class ReblurDenoiser:
         self.has_specular = "SPECULAR" in config.denoiser.name
         self.sh = config.denoiser.name.endswith("_SH")
         self.occlusion = config.denoiser in OCCLUSION
+        self.directional = config.denoiser == DIRECTIONAL
         self.channels = 1 if self.occlusion else 4
         self.signals = tuple(sig for sig, present in (("diff", self.has_diffuse),
                                                       ("spec", self.has_specular)) if present)
-        if self.has_specular and config.roughness_encoding != RoughnessEncoding.LINEAR:
-            raise NotImplementedError(
-                "the port's specular path takes linear roughness only (ROADMAP.md)")
+        # the frame's readers of a decoded roughness plane take it at LINEAR
+        self.linear_config = replace(config, roughness_encoding=RoughnessEncoding.LINEAR)
         self._s = ReblurSettings()
 
     def static_key(self, s: ReblurSettings):
@@ -187,7 +208,15 @@ class ReblurDenoiser:
         cfg = self.config
         s = self._s
         view_z = inputs[RT.IN_VIEWZ]
+        # IN_NORMAL_ROUGHNESS as packed: the state and the filters' centre geometry read it
+        # (`unpack_nr3`); every other reader takes `nr` / `prev_nr`, the roughness decoded once
+        # a frame, with `lin` (the config at LINEAR); the filters' taps read `taps_nr`
         normal_roughness = inputs[RT.IN_NORMAL_ROUGHNESS]
+        nr = fe.decode_roughness_plane(normal_roughness, cfg.roughness_encoding)
+        prev_nr = fe.decode_roughness_plane(state["prev_normal_roughness"],
+                                            cfg.roughness_encoding)
+        taps_nr = None if nr is normal_roughness else nr
+        lin = self.linear_config
         mv = inputs[RT.IN_MV]
         h, w = view_z.shape
         # checkerboard: half-width inputs expanded to full width (`denoiser.py:169-176`), the
@@ -195,7 +224,8 @@ class ReblurDenoiser:
         cb = (None if s.checkerboardMode == CheckerboardMode.OFF
               else int(s.checkerboardMode) - 1)
         in_rt = {sig: SH_IN_RT[sig][0] if self.sh else OCC_IN_RT[sig] if self.occlusion
-                 else IN_RT[sig] for sig in self.signals}
+                 else DIR_IN_RT[sig] if self.directional else IN_RT[sig]
+                 for sig in self.signals}
         # the occlusion variants' (h, w) input gains its channel (`denoiser.py:173-176`)
         given = {sig: inputs[in_rt[sig]][..., None] if self.occlusion else inputs[in_rt[sig]]
                  for sig in self.signals}
@@ -210,8 +240,9 @@ class ReblurDenoiser:
         skip_prepass = self._skip_prepass(s)
         # both signals: the spatial stages and HistoryFix run fused (denoiser.py:245-246)
         fused = self.has_diffuse and self.has_specular
-        # anti-firefly: forced off for occlusion (`denoiser.py:416-418`, `:434-438`, `:448`)
-        anti_firefly = {sig: s.enableAntiFirefly and not self.occlusion
+        # anti-firefly: forced off for occlusion (`denoiser.py:416-418`, `:434-438`, `:448`) and
+        # for directional occlusion (`:434-435`, `:448-449`)
+        anti_firefly = {sig: s.enableAntiFirefly and not self.occlusion and not self.directional
                         for sig in self.signals}
 
         tile_map = K.classify_tiles(sc, view_z)
@@ -226,19 +257,20 @@ class ReblurDenoiser:
             radius = (2 if s.hitDistanceReconstructionMode
                       == HitDistanceReconstructionMode.AREA_5X5 else 1)
             signal["diff"], signal["spec"] = K.hit_dist_reconstruction(
-                sc, dc, view_z, normal_roughness, signal.get("diff"), signal.get("spec"), cfg,
-                radius=radius)
+                sc, dc, view_z, nr, signal.get("diff"), signal.get("spec"), lin, radius=radius)
             signal = {sig: signal[sig] for sig in self.signals}
 
-        # PREPASS (always under checkerboard, `_skip_prepass`)
+        # PREPASS (always under checkerboard, `_skip_prepass`; never for directional occlusion,
+        # `denoiser.py:267`)
         hdt_prepass = None
         sh1 = dict(sh)
-        if not skip_prepass:
+        if not skip_prepass and not self.directional:
             if fused:
                 res = K.fused_spatial_filter(
                     sc, dc, K.PRE_BLUR, geom, view_z, normal_roughness, signal["diff"],
                     signal["spec"], perf_mode=perf, cb=cb,
-                    sh=(sh["diff"], sh["spec"]) if self.sh else None)
+                    sh=(sh["diff"], sh["spec"]) if self.sh else None,
+                    tap_normal_roughness=taps_nr)
                 signal["diff"], signal["spec"], hdt_prepass = res[:3]
                 if self.sh:
                     sh1["diff"], sh1["spec"] = res[3]
@@ -265,8 +297,7 @@ class ReblurDenoiser:
         # TEMPORAL ACCUMULATION: one surface-motion footprint, both signals' samples
         prev_internal = {k: state[k] for k in ("diff_accum", "spec_accum", "material_id")}
         sm = K.surface_motion_reprojection(
-            sc, dc, view_z, normal_roughness, mv, state["prev_view_z"],
-            state["prev_normal_roughness"], prev_internal, cfg,
+            sc, dc, view_z, nr, mv, state["prev_view_z"], prev_nr, prev_internal, lin,
             {sig: (state[f"{sig}_history"], state[f"{sig}_fast_history"])
              for sig in self.signals},
             disocclusion_threshold_mix=inputs.get(RT.IN_DISOCCLUSION_THRESHOLD_MIX),
@@ -278,17 +309,16 @@ class ReblurDenoiser:
         if self.has_diffuse:
             res = K.temporal_accumulation_diffuse(
                 sc, dc, sm, signal["diff"], inputs.get(RT.IN_DIFF_CONFIDENCE), has_data,
-                sh_input=sh1.get("diff"), occlusion=self.occlusion)
+                sh_input=sh1.get("diff"), occlusion=self.occlusion, directional=self.directional)
             sig1["diff"], fast1["diff"], data1["diff"] = res[:3]
             if self.sh:
                 sh2["diff"] = res[3]
         if self.has_specular:
             ta = K.temporal_accumulation_specular(
                 sc, dc, sm, signal["spec"], state["spec_history"], state["spec_fast_history"],
-                view_z, normal_roughness, state["prev_view_z"], state["prev_normal_roughness"],
-                prev_internal,
+                view_z, nr, state["prev_view_z"], prev_nr, prev_internal,
                 C.extract_hit_dist(signal["spec"]) if skip_prepass else hdt_prepass,
-                state["prev_spec_hitdist_for_tracking"], cfg, inputs.get(RT.IN_SPEC_CONFIDENCE),
+                state["prev_spec_hitdist_for_tracking"], lin, inputs.get(RT.IN_SPEC_CONFIDENCE),
                 has_prepass_hitdist=not skip_prepass, has_data=has_data,
                 sh_input=sh1.get("spec"), sh_history=state.get("spec_sh_history"),
                 occlusion=self.occlusion)
@@ -309,7 +339,7 @@ class ReblurDenoiser:
                 (sig1["diff"], data1["diff"], fast1["diff"]),
                 (sig1["spec"], data1["spec"], fast1["spec"]),
                 anti_firefly=(anti_firefly["diff"], anti_firefly["spec"]), perf_mode=perf,
-                sh=(sh2["diff"], sh2["spec"]) if self.sh else None)
+                sh=(sh2["diff"], sh2["spec"]) if self.sh else None, tap_normal_roughness=taps_nr)
             (sig4["diff"], fast2["diff"]), (sig4["spec"], fast2["spec"]) = res[:2]
             if self.sh:
                 sh4["diff"], sh4["spec"] = res[2]
@@ -318,7 +348,8 @@ class ReblurDenoiser:
             spec_path = sig == "spec"
             res = K.history_fix(
                 sc, dc, view_z, normal_roughness, data1[sig], sig1[sig], fast1[sig], cfg,
-                is_diffuse=not spec_path, anti_firefly=anti_firefly[sig], sh=sh2.get(sig))
+                is_diffuse=not spec_path, anti_firefly=anti_firefly[sig], sh=sh2.get(sig),
+                directional=self.directional, tap_normal_roughness=taps_nr)
             sig2, fast2[sig], tap_geometry = res[:3]
             sh3 = res[3] if self.sh else None
             # Blur and PostBlur read the tap geometry that the history fix wrote
@@ -354,13 +385,14 @@ class ReblurDenoiser:
             ts = {}
             if self.has_diffuse:
                 ts["diff"] = K.temporal_stabilization(
-                    sc, dc, view_z, normal_roughness, mv, data1["diff"], fbits, sig4["diff"],
-                    state["diff_luma_stab"], cfg, surface_motion=ts_sm, sh=sh4.get("diff"))
+                    sc, dc, view_z, nr, mv, data1["diff"], fbits, sig4["diff"],
+                    state["diff_luma_stab"], lin, surface_motion=ts_sm, sh=sh4.get("diff"),
+                    directional=self.directional)
             if self.has_specular:
                 ts["spec"] = K.temporal_stabilization_specular(
-                    sc, dc, view_z, normal_roughness, mv, data1["spec"], fbits, ta["curvature"],
+                    sc, dc, view_z, nr, mv, data1["spec"], fbits, ta["curvature"],
                     ta["virtual_history_amount"], sig4["spec"], state["spec_luma_stab"],
-                    ta["hit_dist_for_tracking"], inputs.get(RT.IN_BASECOLOR_METALNESS), cfg,
+                    ta["hit_dist_for_tracking"], inputs.get(RT.IN_BASECOLOR_METALNESS), lin,
                     has_prepass=not skip_prepass, surface_motion=ts_sm, sh=sh4.get("spec"))
                 if RT.IN_BASECOLOR_METALNESS in inputs:
                     outs[RT.IN_MV] = ts["spec"]["mv_out"]  # patched MV, as the reference writes it
@@ -384,7 +416,7 @@ class ReblurDenoiser:
                                                     C.quantize_accum_speed(inc[sig]))
             out = torch.where(dead[..., None], raw_in[sig], out_sig[sig])
             out_rt = (SH_OUT_RT[sig][0] if self.sh else OCC_OUT_RT[sig] if self.occlusion
-                      else OUT_RT[sig])
+                      else DIR_OUT_RT[sig] if self.directional else OUT_RT[sig])
             outs[out_rt] = K.split_screen(sc, raw_in[sig], view_z, out)
             # history for the next frame = PostBlur output (PostBlur writes the history)
             new_state[f"{sig}_history"] = torch.where(keep[..., None], state[f"{sig}_history"],

@@ -30,6 +30,21 @@ normalized hit distance: the kernels take their one-channel modes from the signa
 the TA halves take `occlusion=True` (the one-channel mixes, no firefly suppressor), and under
 checkerboard `cb_resolve` fills the pixels without data (glue, as in JAX).
 
+With REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION (`directional=True` on the diffuse TA, the history fix
+and TS) the (h, w, 4) signal is the direction times the normalized hit distance and the hit
+distance: the luma is .w, the luma changes scale .xyz by the change of .w, and the radiance
+mixes, taps and spatial filters serve unchanged (`nrdtpu/passes/reblur/common.py:139-158`).
+
+At SQ_LINEAR and SQRT_LINEAR roughness the denoiser decodes IN_NORMAL_ROUGHNESS and the
+previous frame's copy once a frame (`frontend.decode_roughness_plane`) and hands the decoded
+planes to every reader of the roughness, as the reference's `unpack_nr` decodes at each read,
+with one exception that the reference makes: HistoryFix, PrePass, Blur and PostBlur take their
+centre pixel's roughness as packed (`unpack_nr3`, `nrdtpu/passes/reblur/kernels.py:37-42`)
+and only their taps' decoded (`:642`, `:850`, `:1716`, `:2169`). So their centre geometry is
+built from the packed plane and their taps read `tap_normal_roughness`, the decoded copy; H2,
+which computes its centre itself, takes the packed plane and decodes at its taps (its
+`kRough` instances, `roughness_encoding=`).
+
 The glue keeps the op order of the XLA functions; the kernels compute the per-pixel formula
 of the XLA gathers, not the TPU kernels' workarounds. Frame constants (`sc`, `dc`) are host
 values, so nothing but pixel planes lives on the device.
@@ -211,13 +226,15 @@ def surface_motion_reprojection(sc, dc, view_z_in, normal_roughness, mv_in, prev
 
 
 def temporal_accumulation_diffuse(sc, dc, sm, diff_input, diff_confidence=None, has_data=None,
-                                  sh_input=None, occlusion=False):
+                                  sh_input=None, occlusion=False, directional=False):
     """Diffuse half of TA (lines 826-930) for the radiance signal; has_data: under
     checkerboard the (h, w) bool plane of the pixels with data, whose neighbours accumulate
     slower (`nrdtpu/passes/reblur/kernels.py:459-464`, `:499-503`), else None; sh_input: with
     the SH variants the SH1 input, mixed with `sm["diff_sh"]` over all four channels and
     scaled by the anti-firefly luma (`:469-478`, `:492-495`); occlusion: the (h, w, 1) hit
-    distance, mixed by f_hit alone, no firefly suppressor (`:457`, `:465-468`, `:481`, `:506`).
+    distance, mixed by f_hit alone, no firefly suppressor (`:457`, `:465-468`, `:481`, `:506`);
+    directional: the (h, w, 4) directional occlusion, its history's .xyz scaled with the
+    saturated .w, the radiance mix, no firefly suppressor, the fast history from .w.
     Returns (diff_out, fast_out, accum_speed_out[, sh_out])."""
     diff_accum_speed = sm["diff_accum_speed"]
     confidence = sm["footprint_quality"]
@@ -227,7 +244,7 @@ def temporal_accumulation_diffuse(sc, dc, sm, diff_input, diff_confidence=None, 
                                                   1.0 / (1.0 + diff_accum_speed))
     diff_accum_speed = torch.clamp_max(diff_accum_speed, float(dc["max_accumulated_frame_num"]))
 
-    smb_diff_history = C.clamp_negative_to_zero(sm["diff_history"], occlusion)
+    smb_diff_history = C.clamp_negative_to_zero(sm["diff_history"], occlusion, directional)
     smb_diff_fast = sm["diff_fast"]
 
     diff_nlas = 1.0 / (1.0 + diff_accum_speed)
@@ -238,7 +255,7 @@ def temporal_accumulation_diffuse(sc, dc, sm, diff_input, diff_confidence=None, 
 
     # firefly suppressor (lines 888-903), not for occlusion
     sh_result = None
-    if not occlusion:
+    if not occlusion and not directional:
         max_rel = (float(dc["firefly_suppressor_min_relative_scale"])
                    + C.REBLUR_FIREFLY_SUPPRESSOR_MAX_RELATIVE_INTENSITY
                    / (diff_accum_speed + 1.0))
@@ -260,8 +277,9 @@ def temporal_accumulation_diffuse(sc, dc, sm, diff_input, diff_confidence=None, 
     fast_nlas = 1.0 / (1.0 + fast_accum_speed)
     if has_data is not None:
         fast_nlas = torch.where(has_data, fast_nlas, fast_nlas * C.no_data_scale(sc, fast_nlas))
-    fast_result = nm.lerp(smb_diff_fast, C.get_luma(diff_input, occlusion), fast_nlas)
-    if not occlusion:
+    fast_result = nm.lerp(smb_diff_fast, C.get_luma(diff_input, occlusion, directional),
+                          fast_nlas)
+    if not occlusion and not directional:
         fast_clamped = torch.minimum(fast_result, C.get_luma(smb_diff_history) * max_rel
                                      * C.REBLUR_FIREFLY_SUPPRESSOR_FAST_RELATIVE_INTENSITY)
         fast_result = nm.lerp(fast_result, fast_clamped, antifirefly)
@@ -727,13 +745,19 @@ def _hfix_params(dc, geom, signal, data1, is_diffuse):
     return torch.stack(planes)
 
 
+def _taps_nr(normal_roughness, tap_normal_roughness):
+    """The plane a filter's taps read: the decoded copy where the denoiser made one."""
+    return normal_roughness if tap_normal_roughness is None else tap_normal_roughness
+
+
 def _hfix_consts(sc):
     return dict(frustum=_v(sc["frustum"]), rect_size_inv=_v(sc["rect_size_inv"]),
                 view_z_scale=float(sc["view_z_scale"]), ortho_mode=float(sc["ortho_mode"]))
 
 
 def history_fix(sc, dc, view_z_in, normal_roughness, data1, signal, fast_history, config, *,
-                is_diffuse: bool = True, anti_firefly: bool = False, sh=None):
+                is_diffuse: bool = True, anti_firefly: bool = False, sh=None,
+                directional: bool = False, tap_normal_roughness=None):
     """Sparse 5x5-no-corners history reconstruction + fast-history color clamping, with the
     9x9 anti-firefly clamp when `anti_firefly`, in one `history_fix` launch.
 
@@ -741,31 +765,36 @@ def history_fix(sc, dc, view_z_in, normal_roughness, data1, signal, fast_history
     output of TA; fast_history: (h, w). Returns (signal_out, fast_out, tap_geometry): the last
     is the frame's tap geometry (h, w, 4) that the launch writes, for the Blur and PostBlur of
     `diffuse_spatial_filter` / `specular_spatial_filter`; with the SH variants' `sh` (the
-    signal's SH1) the SH after the history fix comes fourth."""
+    signal's SH1) the SH after the history fix comes fourth. directional: the clamp of
+    REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION (diffuse). tap_normal_roughness: the plane the taps
+    read, the decoded copy at a non-linear roughness encoding (the centre's geometry is built
+    from `normal_roughness` as packed); None: `normal_roughness`."""
     geom = make_filter_geometry(sc, dc, view_z_in, normal_roughness, config,
                                 ("diff",) if is_diffuse else ("spec",))
     min_material = dc["diff_min_material"] if is_diffuse else dc["spec_min_material"]
     res = k_history_fix.history_fix(
-        signal, view_z_in, normal_roughness, data1, fast_history, _hfix_shared(geom),
-        _hfix_params(dc, geom, signal, data1, is_diffuse), None if is_diffuse else geom["smc"],
-        min_material=float(min_material), dc=dc, anti_firefly=anti_firefly, sh=sh,
-        **_hfix_consts(sc))
+        signal, view_z_in, _taps_nr(normal_roughness, tap_normal_roughness), data1,
+        fast_history, _hfix_shared(geom), _hfix_params(dc, geom, signal, data1, is_diffuse),
+        None if is_diffuse else geom["smc"], min_material=float(min_material), dc=dc,
+        anti_firefly=anti_firefly, sh=sh, directional=directional, **_hfix_consts(sc))
     if sh is not None:
         return res["signal"], res["fast"], res["geometry"], res["sh"]
     return res["signal"], res["fast"], res["geometry"]
 
 
 def fused_history_fix(sc, dc, geom, view_z_in, normal_roughness, diff, spec, *,
-                      anti_firefly=(False, False), sh=None):
+                      anti_firefly=(False, False), sh=None, tap_normal_roughness=None):
     """HistoryFix of both signals, the clamp included, in one `history_fix_fused` launch
     (`kernels.py:2035-2071`), computing what `history_fix` computes per signal. diff, spec:
     (signal, data1, fast_history); anti_firefly: the (diffuse, specular) flags. Returns
     ((diff_out, diff_fast), (spec_out, spec_fast), tap_geometry): the last is the frame's tap
     geometry (h, w, 4) that the launch writes, for the Blur and PostBlur of
     `fused_spatial_filter`; with the SH variants' `sh` (the diffuse and specular SH1) the pair
-    of SH after the history fix comes fourth."""
+    of SH after the history fix comes fourth; tap_normal_roughness as for history_fix (`geom`
+    from the packed plane)."""
     res = k_history_fix_fused.history_fix_fused(
-        diff[0], spec[0], view_z_in, normal_roughness, diff[1], spec[1], diff[2], spec[2],
+        diff[0], spec[0], view_z_in, _taps_nr(normal_roughness, tap_normal_roughness), diff[1],
+        spec[1], diff[2], spec[2],
         _hfix_shared(geom), _hfix_params(dc, geom, diff[0], diff[1], True),
         _hfix_params(dc, geom, spec[0], spec[1], False), geom["smc"],
         diff_min_material=float(dc["diff_min_material"]),
@@ -826,8 +855,10 @@ def diffuse_pre_pass(sc, dc, signal, view_z_in, normal_roughness, config, *,
 def specular_spatial_filter(sc, dc, mode, spec, view_z_in, normal_roughness, data1, config, *,
                             perf_mode: bool = False, tap_geometry=None, cb=None, sh=None):
     """Adaptive Poisson specular blur (REBLUR_Common_SpecularSpatialFilter.hlsli), one
-    `spatial_filter` launch. mode: PRE_BLUR, BLUR or POST_BLUR; tap_geometry as for
-    diffuse_spatial_filter; cb as for diffuse_pre_pass (the PrePass only; under checkerboard
+    `spatial_filter` launch. mode: PRE_BLUR, BLUR or POST_BLUR; normal_roughness as packed,
+    with `config.roughness_encoding` (the kernel decodes its taps' roughness, the reference's
+    centre reads it as packed); tap_geometry as for diffuse_spatial_filter; cb as for
+    diffuse_pre_pass (the PrePass only; under checkerboard
     the PrePass runs at any radius and its hitDistForTracking comes from the kernel,
     `kernels.py:1688-1694`). Returns (spec_out, hit_dist_for_tracking); the second is the
     PrePass's stochastic hitDist minimum, None in the other modes; with the SH variants' `sh`
@@ -839,7 +870,7 @@ def specular_spatial_filter(sc, dc, mode, spec, view_z_in, normal_roughness, dat
     res = k_spatial_filter.spatial_filter(
         spec, view_z_in, normal_roughness, None if prepass else data1, sc=sc, dc=dc, mode=mode,
         spec=True, enc_err=_enc_err(config), perf_mode=perf_mode, geometry=tap_geometry, cb=cb,
-        sh=sh)
+        sh=sh, roughness_encoding=config.roughness_encoding)
     if sh is not None:
         return res if prepass else (res[0], None, res[1])
     return res if prepass else (res, None)
@@ -847,7 +878,7 @@ def specular_spatial_filter(sc, dc, mode, spec, view_z_in, normal_roughness, dat
 
 def fused_spatial_filter(sc, dc, mode, geom, view_z_in, normal_roughness, diff, spec, *,
                          data1_diff=None, data1_spec=None, tap_geometry=None,
-                         perf_mode: bool = False, cb=None, sh=None):
+                         perf_mode: bool = False, cb=None, sh=None, tap_normal_roughness=None):
     """PrePass, Blur or PostBlur of both signals in one `spatial_filter_fused` launch
     (`kernels.py:1916-2000`), computing what diffuse_pre_pass / diffuse_spatial_filter and
     specular_spatial_filter compute per signal, each at its own tap positions. Blur and
@@ -856,6 +887,7 @@ def fused_spatial_filter(sc, dc, mode, geom, view_z_in, normal_roughness, diff, 
     but not under checkerboard (cb: the PrePass's has-data parity, as for diffuse_pre_pass),
     whose parameters read the centre signals zeroed where they have no data
     (`_fused_diff_params` / `_fused_spec_params`, `kernels.py:1819-1862`).
+    tap_normal_roughness as for history_fix (`geom` from the packed plane).
     Returns (diff_out, spec_out, hit_dist_for_tracking or None), and with the SH variants' `sh`
     (the diffuse and specular SH1) the pair of filtered SH fourth."""
     prepass = mode == PRE_BLUR
@@ -869,7 +901,8 @@ def fused_spatial_filter(sc, dc, mode, geom, view_z_in, normal_roughness, diff, 
                    min_rect_dim_mul_unproject=float(sc["min_rect_dim_mul_unproject"]))
     occ = diff.shape[-1] == 1  # the occlusion variants' rule of the min hit-distance weight
     res = k_spatial_filter_fused.spatial_filter_fused(
-        diff, spec, view_z_in, normal_roughness, _sf_shared(geom),
+        diff, spec, view_z_in, _taps_nr(normal_roughness, tap_normal_roughness),
+        _sf_shared(geom),
         diff_spatial_params(sc, dc, mode, geom, centre["diff"], data1_diff, occlusion=occ),
         spec_spatial_params(sc, dc, mode, geom, centre["spec"], data1_spec, occlusion=occ),
         diff_min_material=float(dc["diff_min_material"]),
@@ -892,17 +925,19 @@ def fused_spatial_filter(sc, dc, mode, geom, view_z_in, normal_roughness, diff, 
 
 
 def spatial_chain(sc, dc, geom, view_z_in, normal_roughness, diff, spec, *, anti_firefly,
-                  perf_mode, sh=None):
+                  perf_mode, sh=None, tap_normal_roughness=None):
     """HistoryFix, Blur and PostBlur of both signals as three launches with the glue between
     them (`fused_history_fix`, then `fused_spatial_filter` in BLUR and POST_BLUR mode). diff,
     spec: (TA output, data1, fast history); anti_firefly: the (diffuse, specular) flags; sh:
-    with the SH variants the (diffuse, specular) SH1 after TA.
+    with the SH variants the (diffuse, specular) SH1 after TA; tap_normal_roughness as for
+    history_fix.
     Returns ((diff4, diff_fast2), (spec4, spec_fast2)[, (diff_sh4, spec_sh4)])."""
     res = fused_history_fix(sc, dc, geom, view_z_in, normal_roughness, diff, spec,
-                            anti_firefly=anti_firefly, sh=sh)
+                            anti_firefly=anti_firefly, sh=sh,
+                            tap_normal_roughness=tap_normal_roughness)
     (d2, d_fast), (s2, s_fast), tap_geometry = res[:3]
     kw = dict(data1_diff=diff[1], data1_spec=spec[1], tap_geometry=tap_geometry,
-              perf_mode=perf_mode)
+              perf_mode=perf_mode, tap_normal_roughness=tap_normal_roughness)
     res = fused_spatial_filter(sc, dc, BLUR, geom, view_z_in, normal_roughness, d2, s2,
                                sh=None if sh is None else res[3], **kw)
     d3, s3 = res[:2]
@@ -918,13 +953,14 @@ def _band_planes(geom):
 
 
 def spatial_band(sc, dc, geom, view_z_in, normal_roughness, diff, spec, *, anti_firefly,
-                 perf_mode, sh=None):
+                 perf_mode, sh=None, tap_normal_roughness=None):
     """What `spatial_chain` computes, in one `reblur_band` launch: the history fix, its clamp
     and both spatial stages with their parameters computed in the kernel (the band pipeline,
     `nrdtpu/passes/reblur/denoiser.py:403-428`). Only the history fix's parameter planes are
     computed here, from the TA outputs. Same arguments and result as `spatial_chain`."""
     res = k_reblur_band.reblur_band(
-        diff[0], spec[0], view_z_in, normal_roughness, diff[1], spec[1], diff[2], spec[2],
+        diff[0], spec[0], view_z_in, _taps_nr(normal_roughness, tap_normal_roughness), diff[1],
+        spec[1], diff[2], spec[2],
         _band_planes(geom), _hfix_params(dc, geom, diff[0], diff[1], True),
         _hfix_params(dc, geom, spec[0], spec[1], False),
         rect_size=_v(sc["rect_size"]), diff_min_material=float(dc["diff_min_material"]),
@@ -1031,14 +1067,16 @@ def _ts_consts(sc, dc):
 
 
 def temporal_stabilization(sc, dc, view_z_in, normal_roughness, mv_in, data1_diff, fbits, diff,
-                           diff_luma_stab_history, config, *, surface_motion=None, sh=None):
+                           diff_luma_stab_history, config, *, surface_motion=None, sh=None,
+                           directional=False):
     """Anti-lag output filter, diffuse half: one `ts_prelude` launch. surface_motion:
     ts_surface_motion(...) when the specular half shares it; sh: with the SH variants the
-    PostBlur SH1, scaled to the stabilized luma (`kernels.py:2407-2410`). Returns dict(diff,
-    diff_luma_stab, data1_diff, mv_out[, diff_sh])."""
+    PostBlur SH1, scaled to the stabilized luma (`kernels.py:2407-2410`); directional:
+    REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION, the luma .w and the directional luma change
+    (`:2400-2404`). Returns dict(diff, diff_luma_stab, data1_diff, mv_out[, diff_sh])."""
     smb_pixel_uv = (surface_motion or ts_surface_motion(sc, view_z_in, mv_in))[4]
     ts = k_ts_prelude.ts_prelude(diff, diff_luma_stab_history, smb_pixel_uv, fbits, data1_diff,
-                                 **_ts_consts(sc, dc))
+                                 directional=directional, **_ts_consts(sc, dc))
     out = dict(diff=ts["signal"], diff_luma_stab=ts["luma_stab"], data1_diff=ts["data1"],
                mv_out=mv_in)
     if sh is not None:

@@ -98,18 +98,20 @@ def filter_geometry(sc, dc, view_z_in, normal_roughness, enc_err, signals=("diff
 
 
 def history_fix_clamp(dc, geom, frame_num, signal_out, fast_history, m1, m2, ring, is_diffuse,
-                      sh=None, occlusion=False):
+                      sh=None, occlusion=False, directional=False):
     """The fast-history adjustments after the taps (lines 169-244; `kernels.py:685-732`): the
     anti-firefly clamp to the ring's moments where `ring` = (m1, m2) is given, then the clamp
     to the 3x3 moments. Returns (signal_out, fast_out), and with the SH variants' `sh` (the
     taps' SH1) also the SH scaled to the clamped luma (`:729-731`). occlusion: the (h, w, 1)
-    hit distance is the luma, the sigma scale 1, and the clamped luma the signal."""
+    hit distance is the luma, the sigma scale 1, and the clamped luma the signal. directional
+    (REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION): .w is the luma, the sigma scale 1, and the
+    directional ChangeLuma (`kernels.py:686-728` with `directional`)."""
     f = nm.saturate(frame_num / history_fix_frame_div(dc))
     if not is_diffuse:
         f = nm.lerp(1.0, f, geom["smc"])
-    luma = C.get_luma(signal_out, occlusion)
+    luma = C.get_luma(signal_out, occlusion, directional)
     fast_out = nm.lerp(luma, fast_history, f)
-    sigma = nm.get_std_dev(m1, m2) * C.color_clamping_sigma_scale(occlusion)
+    sigma = nm.get_std_dev(m1, m2) * C.color_clamping_sigma_scale(occlusion or directional)
     if ring is not None:
         am1, am2 = ring
         asig = nm.get_std_dev(am1, am2) * C.REBLUR_ANTI_FIREFLY_SIGMA_SCALE
@@ -119,7 +121,7 @@ def history_fix_clamp(dc, geom, frame_num, signal_out, fast_history, m1, m2, rin
                    1.0 / (1.0 + fast_history_enabled(dc) * frame_num * 2.0))
     if sh is not None:
         return C.change_luma(signal_out, luma), fast_out, C.sh_luma_scale(sh, luma)
-    return C.change_luma(signal_out, luma, occlusion), fast_out
+    return C.change_luma(signal_out, luma, occlusion, directional), fast_out
 
 
 # ---------------------------------------------------------------------------

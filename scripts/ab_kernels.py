@@ -147,7 +147,7 @@ RUNS = (
 ) + tuple((f"RS {v['encoding']}", v["denoiser"], pool,
            dict(v["settings"], roughness_encoding=v["encoding"]),
            ("relax_prepass", "hitdist_recon", "pass hit_dist_reconstruction"))
-          for pool, v in CS.ENCODED.items())
+          for pool, v in CS.ENCODED.items() if v.get("relax"))
 # the paths that --slices runs on both sides (chip_smoke.PATHS): those that launch H4 or K20
 SLICES = ("REBLUR_DIFFUSE", "REBLUR_SPECULAR", DS, BAND, DS + "+AREA_3X3", "RELAX_DIFFUSE",
           "RELAX_SPECULAR", "RELAX_SPECULAR+ANTI_FIREFLY")

@@ -233,14 +233,21 @@ def test_engine_default_device_raises_without_cuda():
 
 
 def test_unported_variants_raise():
-    """REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION, the one variant not ported yet, raises naming
-    ROADMAP.md."""
+    """No variant raises any more: REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION, the last to be ported,
+    builds on the CPU with REBLUR_DIFFUSE's state (a (h, w, 4) history, a diff_luma_stab), and
+    every REBLUR variant with a specular signal builds at SQ_LINEAR and SQRT_LINEAR roughness."""
     from nrdtpu_torch.engine import Engine
-    from nrdtpu_torch.settings import Denoiser
+    from nrdtpu_torch.settings import Denoiser, RoughnessEncoding
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine({0: Denoiser.REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION}, resource_size=(64, 48),
-               device="cpu")
+    eng = Engine({0: Denoiser.REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION}, resource_size=(64, 48),
+                 device="cpu")
+    state = eng._instances[0].init_state()
+    assert tuple(state["diff_history"].shape) == (48, 64, 4)
+    assert tuple(state["diff_luma_stab"].shape) == (48, 64)
+    for d in Denoiser:
+        if d.name.startswith("REBLUR") and "SPECULAR" in d.name:
+            for enc in (RoughnessEncoding.SQ_LINEAR, RoughnessEncoding.SQRT_LINEAR):
+                Engine({0: d}, resource_size=(64, 48), roughness_encoding=enc, device="cpu")
 
 
 def test_denoise_before_common_settings_raises():

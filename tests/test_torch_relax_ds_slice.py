@@ -155,7 +155,8 @@ def test_outputs_match_one_signal_variants(pairs):
             assert d <= PAIR_ATOL, f"{name} frame {i} {rt.name}: max |d| {d:.3g}"
 
 
-# the variants the port does not run yet (ROADMAP.md Queue 1)
+# the variants that the port ran last: REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION raised until the port
+# ran every variant (ROADMAP.md Queue 1)
 UNPORTED = ("REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION",)
 # the variants that the port runs since they left UNPORTED
 OCCLUSION = ("REBLUR_DIFFUSE_OCCLUSION", "REBLUR_SPECULAR_OCCLUSION",
@@ -163,15 +164,22 @@ OCCLUSION = ("REBLUR_DIFFUSE_OCCLUSION", "REBLUR_SPECULAR_OCCLUSION",
 
 
 def test_ported_variants():
-    """The port runs 18 of the 19 variants; UNPORTED lists the other."""
+    """The port runs all 19 variants: each builds an Engine on the CPU."""
     assert len(Denoiser) == 19 and set(UNPORTED + OCCLUSION) < {d.name for d in Denoiser}
-    assert len(UNPORTED) == 1
+    for d in Denoiser:
+        TEngine({0: d}, resource_size=(48, 32), device="cpu")
 
 
 @pytest.mark.parametrize("denoiser", UNPORTED)
 def test_unported_variants_raise(denoiser):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TEngine({0: Denoiser[denoiser]}, resource_size=(48, 32), device="cpu")
+    """No variant raises any more: the one that did, REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION, builds
+    on the CPU with REBLUR_DIFFUSE's state, a (h, w, 4) history and a diff_luma_stab (its slice:
+    `tests/test_torch_reblur_dir_slice.py`)."""
+    eng = TEngine({0: Denoiser[denoiser]}, resource_size=(48, 32), device="cpu")
+    state = eng._instances[0].init_state()
+    assert tuple(state["diff_history"].shape) == (32, 48, 4)
+    assert tuple(state["diff_luma_stab"].shape) == (32, 48)
+    assert "spec_history" not in state
 
 
 @pytest.mark.parametrize("denoiser", OCCLUSION)
