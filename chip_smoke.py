@@ -31,7 +31,15 @@ scene's binary AO with the surface normal as the direction (`reblur_pack_directi
 the history fix and TS in their directional modes); and REBLUR_SPECULAR at SQ_LINEAR and
 REBLUR_DIFFUSE_SPECULAR at SQRT_LINEAR roughness (IN_NORMAL_ROUGHNESS packed with the encoding:
 the denoiser decodes it once a frame, and H2's specular instances decode at their taps, counted
-apart as `spatial_filter_rough`).
+apart as `spatial_filter_rough`); and at the RGBA normal encodings (`NORMAL_ENCODED`):
+RELAX_DIFFUSE_SPECULAR at RGBA8_UNORM with AREA_3X3 on frames with hit-distance holes and at
+RGBA16_SNORM with the anti-firefly pass, RELAX_SPECULAR_SH at RGBA8_SNORM and
+SIGMA_SHADOW_TRANSLUCENCY at RGBA8_UNORM, IN_NORMAL_ROUGHNESS packed with
+`pack_normal_roughness(..., quantized=True)` at the encoding (the SNORM ones with the sky's
+normal (0, 0, 1): with the scene's own sky normal of 0 RELAX's specular TA divides 0 by 0 there,
+in the port as in the JAX reference, `snorm_sky_fault`); the denoisers decode it once a frame
+and the kernels read it in their decoded modes (`kDec`), counted apart as `<kernel>_dec`
+(`kernels.DEC_INSTANCES`).
 
 Phases, each of which raises on failure (exit code != 0):
   1. build the hand-written kernels from `nrdtpu_torch/kernels/csrc/` with nvcc, one process
@@ -82,11 +90,18 @@ Phases, each of which raises on failure (exit code != 0):
      roughness mode, timed); REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION (every kernel, timed: H3 and
      H4 in their `kDir` modes) and with AREA_3X3 on AO frames with holes (held); REBLUR_SPECULAR
      and REBLUR_DIFFUSE_SPECULAR at SQ_LINEAR and SQRT_LINEAR (every kernel held, H2's `kRough`
-     instances timed on REBLUR_SPECULAR, `spatial_filter_rough`); then the band of REBLUR_DIFFUSE_SPECULAR+BAND, by default, with the anti-firefly
-     ring and in performance mode, each timed beside the three-launch chain it replaces (the
-     history fix, its clamp, the Blur and PostBlur parameters and two spatial-filter
-     launches, glue included) on the same inputs; then the halo launcher (its `box` body on 1
-     and 4 channels, halo 4, blocks 64x256 and 16x16, at the slice's size). Every kernel
+     instances timed on REBLUR_SPECULAR, `spatial_filter_rough`); the decoded-plane instances
+     of K12, K13, K15, K16, K17, K19, K21 and K22 on NORMAL_ENCODED's paths (timed) and on
+     `DEC_RUNS` (SIGMA_SHADOW, RELAX_DIFFUSE, RELAX_SPECULAR, RELAX_DIFFUSE_SH and
+     RELAX_DIFFUSE_SPECULAR_SH at an RGBA encoding each, held), each recorded call of K12,
+     K15, K19 and K22 also held at the two other roughness encodings and K12's at the other
+     radius and on each signal alone (`dec_variants`), so that every kDec instance is held,
+     listed apart as `<kernel>_dec`; then the band of REBLUR_DIFFUSE_SPECULAR+BAND, by
+     default, with the anti-firefly ring and in performance mode, each timed beside the
+     three-launch chain it replaces (the history fix, its clamp, the Blur and PostBlur
+     parameters and two spatial-filter launches, glue included) on the same inputs; then the
+     halo launcher (its `box` body on 1 and 4 channels, halo 4, blocks 64x256 and 16x16, at the
+     slice's size). Every kernel
      module but `halo_call` must be called by one of the paths, and `halo_call`, which no
      path calls (as in the JAX package), by the halo phase;
   3. slices: for each path a fresh `Engine(device="cuda")` runs 3 warm-up + 24 frames with
@@ -114,7 +129,8 @@ Phases, each of which raises on failure (exit code != 0):
      BLACK (`OCC_CB`), of REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION under checkerboard BLACK and with
      AREA_3X3 on the AO with holes (`DIR_EXTRA`), of REBLUR_SPECULAR and REBLUR_DIFFUSE_SPECULAR
      at both encodings, and of REFERENCE on a static camera (plain torch ops on both, no
-     kernel).
+     kernel); and RELAX_SPECULAR at RGBA8_SNORM on the scene's own sky normal of 0 on both,
+     with the non-finite values each gives printed (`snorm_sky_fault`, no bar).
 
 With `--profile` it also traces 3 frames of each path (after 4 warm-up) with
 torch.profiler and prints the device time a frame, the device's idle share against the
@@ -130,6 +146,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import inspect
 import json
 import os
 import re
@@ -197,6 +214,25 @@ SOURCES = {
     # mode; the v2 kernel takes a roughness plane the glue decoded), listed apart
     "spatial_filter_rough": ("nrdtpu_torch/kernels/csrc/spatial_filter.cu", f"{P}:1224",
                              "nrdtpu/kernels/reblur_blur2.py:303"),
+    # the decoded-plane instances (`kDec`) of the RGBA normal encodings, listed apart: the
+    # RELAX kernels' mat_occ=False modes (which the TPU path leaves to XLA at these encodings,
+    # nrdtpu/passes/relax/denoiser.py:245-247), K12 and K13 on the decoded plane (the XLA
+    # functions nrdtpu/passes/reblur/kernels.py:2212 and nrdtpu/passes/sigma/kernels.py:133:
+    # the TPU kernels read the packed plane at every encoding)
+    "relax_prepass_dec": ("nrdtpu_torch/kernels/csrc/relax_prepass.cu", f"{RP}:759", None),
+    "relax_smb_resolve_dec": ("nrdtpu_torch/kernels/csrc/relax_smb_resolve.cu", f"{RP}:1011",
+                              None),
+    "relax_vmb_resolve_dec": ("nrdtpu_torch/kernels/csrc/relax_vmb_resolve.cu", f"{RP}:1228",
+                              None),
+    "relax_history_fix_dec": ("nrdtpu_torch/kernels/csrc/relax_history_fix.cu", f"{RP}:1506",
+                              None),
+    "relax_antifirefly_dec": ("nrdtpu_torch/kernels/csrc/relax_antifirefly.cu", f"{RP}:540",
+                              None),
+    "relax_atrous_dec": ("nrdtpu_torch/kernels/csrc/relax_atrous.cu", f"{RP}:352", None),
+    "hitdist_recon_dec": ("nrdtpu_torch/kernels/csrc/hitdist_recon.cu", f"{P}:1596",
+                          "nrdtpu/passes/reblur/kernels.py:2212"),
+    "sigma_blur_dec": ("nrdtpu_torch/kernels/csrc/sigma_blur.cu",
+                       "nrdtpu/kernels/sigma_blur2.py:281", "nrdtpu/passes/sigma/kernels.py:133"),
 }
 # the kernels that no main path launches (as in the JAX package); a phase of their own
 # holds them
@@ -279,6 +315,49 @@ PATHS = {
 }
 # the checkerboard paths: half-width signal inputs in the mode `cb`, the non-cb path's launches
 # with the PrePass in its checkerboard instance (counted apart as well)
+# the RGBA normal encodings (`kDec`): per path its normal encoding; the kernels of the
+# non-RGBA path, and the decoded-plane instances counted apart as `<kernel>_dec`
+RS_DEC = {"relax_prepass_dec": 1, "relax_smb_resolve_dec": 1, "relax_vmb_resolve_dec": 1,
+          "relax_history_fix_dec": 1, "relax_atrous_dec": 5}
+RDS_DEC = {**RS_DEC, "relax_prepass_dec": 2}
+NORMAL_ENCODED = {
+    "RELAX_DIFFUSE_SPECULAR+RGBA8_UNORM": dict(
+        denoiser="RELAX_DIFFUSE_SPECULAR", signals=("diff", "spec"), relax=True, holes=True,
+        normal_encoding="RGBA8_UNORM", settings=dict(hitDistanceReconstructionMode="AREA_3X3"),
+        launches={**RDS_LAUNCHES, **RDS_DEC, "hitdist_recon": 1, "hitdist_recon_dec": 1}),
+    "RELAX_DIFFUSE_SPECULAR+RGBA16_SNORM": dict(
+        denoiser="RELAX_DIFFUSE_SPECULAR", signals=("diff", "spec"), relax=True,
+        normal_encoding="RGBA16_SNORM", settings=dict(enableAntiFirefly=True),
+        launches={**RDS_LAUNCHES, **RDS_DEC, "relax_antifirefly": 1,
+                  "relax_antifirefly_dec": 1}),
+    "RELAX_SPECULAR_SH+RGBA8_SNORM": dict(
+        denoiser="RELAX_SPECULAR_SH", signals=("spec",), relax=True, sh=True,
+        normal_encoding="RGBA8_SNORM", launches={**RS_LAUNCHES, **RS_DEC}),
+    "SIGMA_SHADOW_TRANSLUCENCY+RGBA8_UNORM": dict(
+        denoiser="SIGMA_SHADOW_TRANSLUCENCY", signals=("shadow",), normal_encoding="RGBA8_UNORM",
+        launches={**SIGMA_LAUNCHES, "sigma_blur_dec": 2}),
+}
+PATHS.update(NORMAL_ENCODED)
+SNORM = ("RGBA8_SNORM", "RGBA16_SNORM")
+# the kernel phase's other decoded-plane runs, each on frames of its own pool: with
+# NORMAL_ENCODED's they reach every kDec instance's structure (one or two signals, SH, the
+# history fix's three phases, K16's four modes, K13's four); each recorded call of the kernels
+# that decode the roughness is also held at the two other roughness encodings, and K12's at
+# the other radius and each signal alone (`dec_variants`)
+DEC_RUNS = {
+    "SIGMA_SHADOW+RGBA8_SNORM": dict(denoiser="SIGMA_SHADOW", signals=("shadow",),
+                                     normal_encoding="RGBA8_SNORM"),
+    "RELAX_DIFFUSE+RGBA16_UNORM": dict(denoiser="RELAX_DIFFUSE", signals=("diff",), relax=True,
+                                       normal_encoding="RGBA16_UNORM"),
+    "RELAX_SPECULAR+RGBA8_SNORM": dict(denoiser="RELAX_SPECULAR", signals=("spec",), relax=True,
+                                       normal_encoding="RGBA8_SNORM"),
+    "RELAX_DIFFUSE_SH+RGBA8_UNORM": dict(denoiser="RELAX_DIFFUSE_SH", signals=("diff",),
+                                         relax=True, sh=True, normal_encoding="RGBA8_UNORM"),
+    "RELAX_DIFFUSE_SPECULAR_SH+RGBA16_UNORM": dict(
+        denoiser="RELAX_DIFFUSE_SPECULAR_SH", signals=("diff", "spec"), relax=True, sh=True,
+        normal_encoding="RGBA16_UNORM"),
+}
+
 CB_PATHS = {
     "REBLUR_DIFFUSE_SPECULAR+CB": dict(denoiser="REBLUR_DIFFUSE_SPECULAR", cb="BLACK",
                                        launches={**DS_LAUNCHES, "spatial_filter_fused_cb": 1}),
@@ -467,8 +546,8 @@ def out_rt(sig, occ=False, dirocc=False):
 
 
 def path_spec(path):
-    """A path's entry: of PATHS, ENCODED, OCC_CB or DIR_EXTRA."""
-    return {**PATHS, **ENCODED, **OCC_CB, **DIR_EXTRA}[path]
+    """A path's entry: of PATHS, ENCODED, OCC_CB, DIR_EXTRA or DEC_RUNS."""
+    return {**PATHS, **ENCODED, **OCC_CB, **DIR_EXTRA, **DEC_RUNS}[path]
 
 
 def sh_rts(sig):
@@ -559,6 +638,8 @@ class Scene:
             for holed in (False, True)}
         pools = {}
         for name, v in {**PATHS, **OCC_CB, **DIR_EXTRA}.items():
+            if v.get("normal_encoding"):  # below
+                continue
             if v.get("dir"):
                 sig = dirocc[bool(v.get("holes"))]
                 pools[name] = {**base, in_rt("diff", dirocc=True): (
@@ -594,6 +675,25 @@ class Scene:
         pools[REBLUR_SH_HOLES] = {**base, **reblur_sh_punched}
         pools[REBLUR_OCC_HOLES] = {**base, **{in_rt(sig, True): ao_punched[sig]
                                               for sig in ("diff", "spec")}}
+        # the RGBA normal encodings: IN_NORMAL_ROUGHNESS packed at the path's encoding, the
+        # SNORM ones with the sky's normal (0, 0, 1)
+        nr_enc = {}
+        for name, v in {**NORMAL_ENCODED, **DEC_RUNS}.items():
+            enc = v["normal_encoding"]
+            if enc not in nr_enc:
+                nr_enc[enc] = self.gen.packed_normal_roughness(
+                    fd, enc, sky_normal=(0.0, 0.0, 1.0) if enc in SNORM else None)
+            if name.startswith("SIGMA"):
+                pools[name] = dict(sigma)
+                if v["denoiser"] == "SIGMA_SHADOW_TRANSLUCENCY":
+                    pools[name][RT.IN_TRANSLUCENCY] = fe.sigma_pack_translucency(dist, rgb).numpy()
+            elif v.get("sh"):
+                pools[name] = {**base, **{rt: relax_sh[rt] for sig in v["signals"]
+                                          for rt in sh_rts(sig)[::2]}}
+            else:
+                src = relax_punched if v.get("holes") else relax
+                pools[name] = {**base, **{in_rt(sig): src[sig] for sig in v["signals"]}}
+            pools[name][RT.IN_NORMAL_ROUGHNESS] = nr_enc[enc]
         for name, v in ENCODED.items():
             nr = self.gen.packed_normal_roughness(fd, re_=RoughnessEncoding[v["encoding"]])
             pools[name] = {**base, RT.IN_NORMAL_ROUGHNESS: nr, **(
@@ -643,14 +743,16 @@ def scattered_materials(pool, seed):
     return {**pool, RT.IN_NORMAL_ROUGHNESS: nr}
 
 
-def engine(denoiser, w, h, device, roughness_encoding="LINEAR", **settings):
-    """A fresh Engine of the denoiser on the device at the roughness encoding, with
-    `settings` changed from the defaults (enum fields by name)."""
+def engine(denoiser, w, h, device, roughness_encoding="LINEAR",
+           normal_encoding="R10_G10_B10_A2_UNORM", **settings):
+    """A fresh Engine of the denoiser on the device at the roughness and normal encodings,
+    with `settings` changed from the defaults (enum fields by name)."""
     from nrdtpu_torch import settings as S
     from nrdtpu_torch.engine import Engine
 
     eng = Engine({0: S.Denoiser[denoiser]}, resource_size=(w, h), device=device,
-                 roughness_encoding=S.RoughnessEncoding[roughness_encoding])
+                 roughness_encoding=S.RoughnessEncoding[roughness_encoding],
+                 normal_encoding=S.NormalEncoding[normal_encoding])
     if settings:
         if "hitDistanceReconstructionMode" in settings:
             settings["hitDistanceReconstructionMode"] = S.HitDistanceReconstructionMode[
@@ -680,7 +782,7 @@ def path_env(path):
 def path_engine(path, w, h, device):
     v = path_spec(path)
     return engine(v.get("denoiser", path), w, h, device, v.get("encoding", "LINEAR"),
-                  **v.get("settings", {}))
+                  v.get("normal_encoding", "R10_G10_B10_A2_UNORM"), **v.get("settings", {}))
 
 
 def card_line():
@@ -863,15 +965,38 @@ def history_fix_live(a, k):
     return int((a[3] <= k["frame_num"]).sum()) if k["frame_num"] != 1.0 else 0
 
 
+# the inputs that a decoded-plane call (kDec) never reads: the decoded plane has no material,
+# so no tap reads the previous material, and K21 and K17 read the current plane only for its
+# material
+DEC_UNREAD = {"relax_antifirefly": ("normal_roughness",),
+              "relax_vmb_resolve": ("normal_roughness", "prev_material_id"),
+              "relax_smb_resolve": ("prev_material_id",)}
+
+
+def read_inputs(name, a, k):
+    """(args, kwargs) of one call with the inputs that its instance does not read set to
+    None (`DEC_UNREAD`)."""
+    if not k.get("decoded") or name not in DEC_UNREAD:
+        return a, k
+    from nrdtpu_torch import kernels as KM
+
+    ref = getattr(KM.MODULES[name], f"{name}_ref")
+    bound = inspect.signature(ref).bind(*a, **k)
+    for p in DEC_UNREAD[name]:
+        bound.arguments[p] = None
+    return bound.args, bound.kwargs
+
+
 def _bound(name, a, k, outputs, extra_bytes=0, extra_ops=0):
-    """(bound ms, "bytes" or "operations"): each input read once and each output written
-    once (plus `extra_bytes`) at the memory rate, against the operations (plus `extra_ops`)
-    at the float32 rate. The tap-geometry plane that N5 writes and N4's Blur and PostBlur
-    read is left out: it holds only what the packed normal and viewZ, counted as inputs,
-    hold."""
-    k = {x: v for x, v in k.items() if x != "geometry"}
+    """(bound ms, "bytes" or "operations"): each input that the call's instance reads read
+    once (`read_inputs`) and each output written once (plus `extra_bytes`) at the memory
+    rate, against the operations (plus `extra_ops`) at the float32 rate. The tap-geometry
+    plane that N5 writes and N4's Blur and PostBlur read is left out: it holds only what the
+    packed normal and viewZ, counted as inputs, hold."""
+    ra, rk = read_inputs(name, a, k)
+    rk = {x: v for x, v in rk.items() if x != "geometry"}
     outputs = {x: v for x, v in outputs.items() if x != "geometry"}
-    nbytes = sum(t.nbytes for t in _tensors(a) + _tensors(k) + _tensors(outputs)) + extra_bytes
+    nbytes = sum(t.nbytes for t in _tensors(ra) + _tensors(rk) + _tensors(outputs)) + extra_bytes
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = (_ops(name, a, k) + extra_ops) / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -1029,9 +1154,10 @@ def _dynamic_smem(name, a, k):
         mode = build.ROUGHNESS_MODE[k.get("roughness_encoding", RoughnessEncoding.LINEAR)]
         both = isinstance(a[0], tuple)
         sh = k.get("sh") is not None
+        dec = bool(k.get("decoded", False))
         planes = 2 + (2 if both else 1) * (2 if sh else 1)
-        return {f"relax_atrous_kernel<true, {mode}, {str(both).lower()}, {str(sh).lower()}>":
-                (tx + 2 * halo) * (ty + 2 * halo) * 16 * planes}
+        return {f"relax_atrous_kernel<true, {mode}, {str(both).lower()}, {str(sh).lower()}, "
+                f"{str(dec).lower()}>": (tx + 2 * halo) * (ty + 2 * halo) * 16 * planes}
     if name == "halo_call":
         _, images, _, halo, (bh, bw) = a[:5]
         channels = sum(1 if t.dim() == 2 else t.shape[-1] for t in images)
@@ -1046,9 +1172,11 @@ def occupancy(name, dynamic_smem, sass):
     """Registers, spill bytes, CTAs an SM and SASS instructions (None without cuobjdump) of
     each device kernel of a kernel module; dynamic_smem: the largest dynamic shared memory of
     each device kernel in this run; sass: `sass_instructions` of the library."""
+    from nrdtpu_torch import kernels as KM
     from nrdtpu_torch.kernels import build
 
     usage = ptxas_usage((build.BUILD_DIR / "build.log").read_text())
+    dec_split = {n.removesuffix("_dec") for n in KM.DEC_INSTANCES}
     out = []
     for u in usage.get(os.path.basename(SOURCES[name][0]), []):
         # H2's and N4's checkerboard instances (their template argument kCb) go under the `_cb`
@@ -1060,6 +1188,10 @@ def occupancy(name, dynamic_smem, sass):
         if name in CB_SPLIT and cb != name.endswith("_cb"):
             continue
         if h2 and (args[6] != "0") != name.endswith("_rough"):
+            continue
+        # the decoded-plane instances (their last template argument kDec) go under `_dec`
+        if name.removesuffix("_dec") in dec_split and (args[-1] == "true") != name.endswith(
+                "_dec"):
             continue
         smem = u["static_smem"] + dynamic_smem.get(u["kernel"], 0)
         out.append(dict(kernel=u["kernel"], registers=u["registers"],
@@ -1234,6 +1366,12 @@ def kernel_runs():
         runs.append((label, PATHS[path]["denoiser"], f"{path}+{other}",
                      dict(checkerboardMode=other),
                      {"spatial_filter_cb", "spatial_filter_fused_cb"}, False))
+    # the decoded-plane instances: NORMAL_ENCODED's paths, every call timed; DEC_RUNS, every
+    # call held (`dec_variants` adds the other roughness encodings and K12's other modes)
+    for pool, v in {**NORMAL_ENCODED, **DEC_RUNS}.items():
+        runs.append((pool, v["denoiser"], pool,
+                     dict(v.get("settings", {}), normal_encoding=v["normal_encoding"]), None,
+                     pool in NORMAL_ENCODED))
     for band in BAND_PATHS:
         for label, settings in (("", {}), (" anti-firefly", dict(enableAntiFirefly=True)),
                                 (" perf", dict(enablePerformanceMode=True))):
@@ -1389,6 +1527,8 @@ def kernel_phase(w, h, frames):
             key = name + "_cb" if k.get("cb") is not None else name
             if name == "spatial_filter" and k.get("roughness_encoding", LINEAR) != LINEAR:
                 key = name + "_rough"  # H2's kRough instances
+            if k.get("decoded"):  # the decoded-plane instances (kDec)
+                key = name + "_dec"
             if name == "sigma_blur":  # a frame's calls: Blur, then PostBlur
                 lab = f"{label} {'blur' if k['first_pass'] else 'post_blur'}"
             if name == "relax_history_fix" and timed is True:
@@ -1405,7 +1545,11 @@ def kernel_phase(w, h, frames):
                        * a[0].shape[1] if name == "reblur_band" else 0)
             _hold(results, name, lab, a, k, timed is True or bool(timed and name in timed),
                   scratch, key)
-    missing = (set(KM.MODULES) | set(KM.CB_INSTANCES) | set(KM.ROUGH_INSTANCES)) - set(results)
+            if k.get("decoded"):
+                for suffix, a2, k2 in dec_variants(name, a, k):
+                    _hold(results, name, f"{lab} {suffix}", a2, k2, False, 0, key)
+    missing = ((set(KM.MODULES) | set(KM.CB_INSTANCES) | set(KM.ROUGH_INSTANCES)
+                | set(KM.DEC_INSTANCES)) - set(results))
     if missing != set(NO_MAIN_PATH):
         raise AssertionError(f"kernels called by no main path: {sorted(missing)}; only "
                              f"{list(NO_MAIN_PATH)} may be")
@@ -1454,6 +1598,38 @@ def kernel_phase(w, h, frames):
         raise AssertionError(f"the band's pass ran in {sorted(chain)}, not in its "
                              f"{3 * len(BAND_PATHS)} runs")
     return results
+
+
+def dec_variants(name, a, k):
+    """(label suffix, args, kwargs) of the other instances that one decoded-plane call of a
+    kernel can be held in on the same inputs: the two other roughness encodings of the kernels
+    that decode the roughness (ENCODED_KERNELS), and K12 also at the other radius and, with both
+    signals, on each signal alone, at every roughness encoding."""
+    from nrdtpu_torch.settings import RoughnessEncoding
+
+    if name not in ENCODED_KERNELS:
+        return []
+    own = k.get("roughness_encoding", RoughnessEncoding.LINEAR)
+    argsets = [("", a)]
+    radii = [k.get("radius")]
+    if name == "hitdist_recon":
+        radii = [1, 2]
+        if a[2] is not None and a[3] is not None:
+            argsets += [("diffuse alone", (*a[:3], None)), ("specular alone", (*a[:2], None,
+                                                                                a[3]))]
+    out = []
+    for label, args in argsets:
+        for radius in radii:
+            for enc in RoughnessEncoding:
+                if label == "" and radius == k.get("radius") and enc == own:
+                    continue  # the call itself
+                k2 = dict(k, roughness_encoding=enc)
+                if name == "hitdist_recon":
+                    k2["radius"] = radius
+                suffix = " ".join(x for x in (label, f"radius {radius}" if name ==
+                                              "hitdist_recon" else "", enc.name) if x)
+                out.append((suffix, args, k2))
+    return out
 
 
 def _min_filter(x, size=9):
@@ -1724,6 +1900,80 @@ def card_vs_cpu_phase(w=256, h=160, frames=3):
             if p < 50.0:
                 raise AssertionError(f"{path} {label}: card and CPU disagree: {p:.2f} dB < 50 dB")
     reference_card_vs_cpu(w, h, len(frames))
+    snorm_sky_fault(w, h, len(frames))
+
+
+def snorm_sky_fault(w, h, n):
+    """RELAX_SPECULAR at RGBA8_SNORM on the scene's own sky normal of 0, which SNORM packs as
+    0 and decodes to 0: N.V is 0 there, and the specular TA's surface-motion confidence divides
+    0 by 0 (the JAX reference's fault, ROADMAP.md Queue 3, which the port does not guard). The
+    non-finite output pixels of the card's kernels and of the CPU's plain versions on each
+    frame, on geometry and in all; printed, no bar. Every kernel call of the card's engine is
+    also held against its plain version on the same inputs (`finiteness_split`), and the calls
+    whose outputs hold another number of non-finite values than the plain version's are
+    printed: they name the kernels that turn the NaN finite or keep it."""
+    from nrdtpu_torch import frontend as fe
+    from nrdtpu_torch.settings import ResourceType as RT
+
+    scene = Scene(w, h)
+    engs = {d: engine("RELAX_SPECULAR", w, h, d, normal_encoding="RGBA8_SNORM")
+            for d in ("cuda", "cpu")}
+    for i in range(n):
+        fd = scene.gen.frame(i)
+        cs = fd.common_settings
+        cs.timeDeltaBetweenFrames = 16.66
+        pool = {RT.IN_VIEWZ: fd.view_z, RT.IN_MV: fd.mv,
+                RT.IN_NORMAL_ROUGHNESS: scene.gen.packed_normal_roughness(fd, "RGBA8_SNORM"),
+                RT.IN_SPEC_RADIANCE_HITDIST: fe.relax_pack_radiance_hitdist(
+                    torch.from_numpy(fd.spec_noisy), torch.from_numpy(fd.spec_hit_dist)).numpy()}
+        geometry = torch.from_numpy(fd.hit_mask > 0)
+        counts, split = [], []
+        for d, eng in engs.items():
+            eng.set_common_settings(cs)
+            with finiteness_split() if d == "cuda" else contextlib.nullcontext(split) as got:
+                out = eng.denoise([0], pool)[RT.OUT_SPEC_RADIANCE_HITDIST].cpu()
+            split = got
+            bad = ~torch.isfinite(out).all(-1)
+            counts.append(f"{d} {int((bad & geometry).sum())} on geometry, {int(bad.sum())} "
+                          f"in all")
+        log(f"snorm sky fault RELAX_SPECULAR RGBA8_SNORM frame {i}, sky normal 0: non-finite "
+            f"pixels of {w * h}: " + "; ".join(counts))
+        for c, (name, dec, key, n_in, n_kern, n_plain) in split:
+            log(f"snorm sky fault frame {i} call {c} {name}{'_dec' if dec else ''} output "
+                f"{key}: non-finite values: inputs {n_in}, kernel {n_kern}, plain {n_plain}")
+
+
+@contextlib.contextmanager
+def finiteness_split():
+    """While open, every kernel call (`kernels.MODULES`) also runs its plain version on the
+    same inputs; the list it yields gets (call index, (kernel, decoded, output, non-finite
+    input values, non-finite values of the kernel's output, of the plain version's)) for each
+    output whose counts differ."""
+    from nrdtpu_torch import kernels as KM
+
+    split, index = [], [0]
+    saved = [(m, name, getattr(m, name)) for name, m in KM.MODULES.items()]
+
+    def check(name, f, ref):
+        def call(*a, **k):
+            r = f(*a, **k)
+            got, want = _outputs(r), _outputs(ref(*a, **k))
+            n_in = sum(int((~torch.isfinite(t)).sum()) for t in _tensors((a, k))
+                       if t.is_floating_point())
+            for key in want:
+                nk, npl = (int((~torch.isfinite(o[key].float())).sum()) for o in (got, want))
+                if nk != npl:
+                    split.append((index[0], (name, bool(k.get("decoded")), key, n_in, nk, npl)))
+            index[0] += 1
+            return r
+        return call
+    try:
+        for m, name, f in saved:
+            setattr(m, name, check(name, f, getattr(m, name + "_ref")))
+        yield split
+    finally:
+        for m, name, f in saved:
+            setattr(m, name, f)
 
 
 def reference_card_vs_cpu(w, h, n):

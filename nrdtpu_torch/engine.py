@@ -84,8 +84,6 @@ class Engine:
         rect_size = tuple(rect_size or resource_size)
         if rect_size != tuple(resource_size):
             raise NotImplementedError("rect_size != resource_size is not ported yet (ROADMAP.md)")
-        if normal_encoding != NormalEncoding.R10_G10_B10_A2_UNORM:
-            raise NotImplementedError("the port takes R10G10B10A2 normals only (ROADMAP.md)")
         self._frame_math = camera.FrameMath()
         self._consts: Optional[dict] = None
         self._cs: Optional[CommonSettings] = None

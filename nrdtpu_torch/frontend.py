@@ -1,5 +1,5 @@
-"""Application-facing pack/unpack contract (`NRD.hlsli`) - the part the REBLUR and SIGMA
-slices need, counterpart of `nrdtpu/frontend.py`."""
+"""Application-facing pack/unpack contract (`NRD.hlsli`) - the part the ported slices need,
+counterpart of `nrdtpu/frontend.py`."""
 
 from __future__ import annotations
 
@@ -20,14 +20,25 @@ def pack_normal_roughness(n, roughness, material_id=0.0,
                           normal_encoding=NormalEncoding.R10_G10_B10_A2_UNORM,
                           roughness_encoding=RoughnessEncoding.LINEAR,
                           quantized=False):
-    """NRD_FrontEnd_PackNormalAndRoughness (NRD.hlsli:640-667) for R10G10B10A2 normals.
-    Returns (..., 4)."""
-    if normal_encoding != NormalEncoding.R10_G10_B10_A2_UNORM:
-        raise NotImplementedError("the port packs R10G10B10A2 normals only (ROADMAP.md)")
+    """NRD_FrontEnd_PackNormalAndRoughness (NRD.hlsli:640-667). Returns (..., 4): R10G10B10A2
+    the octahedral normal, roughness and material / 3; the RGBA formats the best-fit scaled
+    normal (0.5 n + 0.5 for UNORM) and roughness, no material. `quantized` rounds to the
+    format's bits."""
     if roughness_encoding == RoughnessEncoding.SQRT_LINEAR:
         roughness = torch.sqrt(nm.saturate(roughness))
     elif roughness_encoding == RoughnessEncoding.SQ_LINEAR:
         roughness = roughness * roughness
+    if normal_encoding != NormalEncoding.R10_G10_B10_A2_UNORM:
+        # best-fit scaling (NRD.hlsli:656); NaN-safe for garbage (sky) inputs
+        n = n / torch.clamp_min(torch.amax(torch.abs(n), -1, keepdim=True), 1e-15)
+        signed = normal_encoding in SNORM_ENCODINGS
+        if not signed:
+            n = n * 0.5 + 0.5
+        p = torch.cat([n, roughness[..., None]], -1)
+        if quantized:
+            bits = 8 if normal_encoding in RGBA8_ENCODINGS else 16
+            p = nm.quantize_snorm(p, bits) if signed else nm.quantize_unorm(p, bits)
+        return p
     material_id = torch.broadcast_to(torch.as_tensor(material_id, dtype=torch.float32,
                                                      device=roughness.device),
                                      roughness.shape)
@@ -39,30 +50,71 @@ def pack_normal_roughness(n, roughness, material_id=0.0,
     return p
 
 
+SNORM_ENCODINGS = (NormalEncoding.RGBA8_SNORM, NormalEncoding.RGBA16_SNORM)
+RGBA8_ENCODINGS = (NormalEncoding.RGBA8_UNORM, NormalEncoding.RGBA8_SNORM)
+
+
+def _decode_roughness(r, roughness_encoding):
+    if roughness_encoding == RoughnessEncoding.SQRT_LINEAR:
+        return r * r
+    if roughness_encoding == RoughnessEncoding.SQ_LINEAR:
+        return torch.sqrt(nm.saturate(r))
+    return r
+
+
 def unpack_normal_roughness(p, normal_encoding=NormalEncoding.R10_G10_B10_A2_UNORM,
                             roughness_encoding=RoughnessEncoding.LINEAR):
     """NRD_FrontEnd_UnpackNormalAndRoughness (NRD.hlsli:600-628).
-    Returns (normal (..., 3), roughness (...,), material_id (...,))."""
-    if normal_encoding != NormalEncoding.R10_G10_B10_A2_UNORM:
-        raise NotImplementedError("the port unpacks R10G10B10A2 normals only (ROADMAP.md)")
-    n = nm.safe_normalize(nm.decode_unit_vector(p[..., :2], signed=False, do_normalize=False))
-    roughness = p[..., 2]
-    if roughness_encoding == RoughnessEncoding.SQRT_LINEAR:
-        roughness = roughness * roughness
-    elif roughness_encoding == RoughnessEncoding.SQ_LINEAR:
-        roughness = torch.sqrt(nm.saturate(roughness))
-    return n, roughness, p[..., 3] * 3.0
+    Returns (normal (..., 3), roughness (...,), material_id (...,)); the RGBA formats carry no
+    material (0)."""
+    if normal_encoding == NormalEncoding.R10_G10_B10_A2_UNORM:
+        n = nm.decode_unit_vector(p[..., :2], signed=False, do_normalize=False)
+        roughness, material_id = p[..., 2], p[..., 3] * 3.0
+    else:
+        n = p[..., :3]
+        if normal_encoding not in SNORM_ENCODINGS:
+            n = n * 2.0 - 1.0
+        roughness, material_id = p[..., 3], torch.zeros_like(p[..., 3])
+    return (nm.safe_normalize(n), _decode_roughness(roughness, roughness_encoding),
+            material_id)
 
 
-def decode_roughness_plane(p, roughness_encoding):
-    """A copy of the packed normal-roughness plane (..., 4) with .z decoded as
-    unpack_normal_roughness decodes it (SQRT_LINEAR r * r, SQ_LINEAR sqrt(saturate(r))), so that
-    a reader at LINEAR sees the same values; at LINEAR the plane itself."""
+def decoded_normals(normal_encoding) -> bool:
+    """Whether the kernels and the pass glue read IN_NORMAL_ROUGHNESS through
+    `decode_normal_plane` (the four RGBA formats) or as packed (R10G10B10A2)."""
+    return normal_encoding != NormalEncoding.R10_G10_B10_A2_UNORM
+
+
+def decode_normal_plane(p, normal_encoding):
+    """The normal-roughness plane (..., 4) that the kernels and the glue read: at R10G10B10A2
+    the packed input itself; at the RGBA formats (.xyz the unpacked normal, .w the roughness
+    as packed), the normal of `unpack_normal_roughness` decoded once a frame, the same values
+    that unpacking at every read gives. The kernels' decoded mode (`kDec`) reads it, the
+    roughness decoded by the roughness encoding as before and the material 0."""
+    if not decoded_normals(normal_encoding):
+        return p
+    return torch.cat([unpack_normal_roughness(p, normal_encoding)[0], p[..., 3:4]], -1)
+
+
+def unpack_normal_plane(p, decoded=False, roughness_encoding=RoughnessEncoding.LINEAR):
+    """(normal, roughness, material id) of a plane of `decode_normal_plane`: packed
+    R10G10B10A2 (`decoded` False), or decoded, its material 0."""
+    if not decoded:
+        return unpack_normal_roughness(p, roughness_encoding=roughness_encoding)
+    return p[..., :3], _decode_roughness(p[..., 3], roughness_encoding), torch.zeros_like(
+        p[..., 3])
+
+
+def decode_roughness_plane(p, roughness_encoding, decoded=False):
+    """A copy of the normal-roughness plane (..., 4) with its roughness lane (.z packed, .w
+    decoded, `decode_normal_plane`) decoded as unpack_normal_roughness decodes it (SQRT_LINEAR
+    r * r, SQ_LINEAR sqrt(saturate(r))), so that a reader at LINEAR sees the same values; at
+    LINEAR the plane itself."""
     if roughness_encoding == RoughnessEncoding.LINEAR:
         return p
-    r = p[..., 2:3]
-    r = r * r if roughness_encoding == RoughnessEncoding.SQRT_LINEAR else torch.sqrt(nm.saturate(r))
-    return torch.cat([p[..., :2], r, p[..., 3:]], -1)
+    lane = 3 if decoded else 2
+    r = _decode_roughness(p[..., lane:lane + 1], roughness_encoding)
+    return torch.cat([p[..., :lane], r, p[..., lane + 1:]], -1)
 
 
 def get_hit_distance_normalization(view_z, hit_dist_params, roughness):

@@ -3,7 +3,8 @@ REBLUR_DIFFUSE_SPECULAR (also under NRDTPU_REBLUR_BAND=1), SIGMA_SHADOW,
 SIGMA_SHADOW_TRANSLUCENCY, RELAX_DIFFUSE, RELAX_SPECULAR and RELAX_DIFFUSE_SPECULAR paths (the
 REBLUR and RELAX ones also with SH, the REBLUR ones also on one channel for the occlusion
 variants and for REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION; the REBLUR and the non-SH RELAX ones also
-under checkerboard and at every roughness encoding), one module each, and
+under checkerboard and at every roughness encoding; the RELAX and SIGMA ones also at the RGBA
+normal encodings, on the decoded normal plane), one module each, and
 the halo-window launcher, which no path calls (as in the JAX package).
 
 Every module holds the kernel's wrapper, its plain PyTorch version (`*_ref`) and a launch
@@ -81,6 +82,14 @@ CB_INSTANCES = {"spatial_filter_cb": spatial_filter,
 # H2's specular instances that decode the taps' roughness at SQRT_LINEAR / SQ_LINEAR (`kRough`):
 # their launches are also counted apart (`rough_launches`), under this name
 ROUGH_INSTANCES = {"spatial_filter_rough": spatial_filter}
+# the instances that read the RGBA normal encodings' decoded plane (`kDec`,
+# `frontend.decode_normal_plane`): their launches are also counted apart (`dec_launches`), under
+# these names
+DEC_INSTANCES = {"relax_prepass_dec": relax_prepass, "relax_smb_resolve_dec": relax_smb_resolve,
+                 "relax_vmb_resolve_dec": relax_vmb_resolve,
+                 "relax_history_fix_dec": relax_history_fix,
+                 "relax_antifirefly_dec": relax_antifirefly, "relax_atrous_dec": relax_atrous,
+                 "hitdist_recon_dec": hitdist_recon, "sigma_blur_dec": sigma_blur}
 
 
 def reset_launch_counts():
@@ -90,11 +99,15 @@ def reset_launch_counts():
         m.cb_launches = 0
     for m in ROUGH_INSTANCES.values():
         m.rough_launches = 0
+    for m in DEC_INSTANCES.values():
+        m.dec_launches = 0
 
 
 def launch_counts() -> dict:
-    """{module: its launches}, {CB_INSTANCES name: its checkerboard launches} and
-    {ROUGH_INSTANCES name: its launches at a non-linear roughness encoding}."""
+    """{module: its launches}, {CB_INSTANCES name: its checkerboard launches},
+    {ROUGH_INSTANCES name: its launches at a non-linear roughness encoding} and
+    {DEC_INSTANCES name: its launches on the decoded normal plane}."""
     return ({name: m.launches for name, m in MODULES.items()}
             | {name: m.cb_launches for name, m in CB_INSTANCES.items()}
-            | {name: m.rough_launches for name, m in ROUGH_INSTANCES.items()})
+            | {name: m.rough_launches for name, m in ROUGH_INSTANCES.items()}
+            | {name: m.dec_launches for name, m in DEC_INSTANCES.items()})

@@ -77,6 +77,30 @@ __device__ __forceinline__ float decode_roughness(float r) {
   return r;
 }
 
+// One texel of the normal-roughness plane that a kernel reads (frontend.py:
+// decode_normal_plane), a kernel's template mode kDec:
+//   - false, R10G10B10A2 as packed: the octahedral normal of .xy (unpack_normal), the
+//     roughness .z, the material .w x 3;
+//   - true, the four RGBA formats decoded once a frame: the normal .xyz as it is (already unit
+//     length, not normalized again), the roughness .w, the material 0. The RGBA formats carry
+//     no material, and the kernels compile their material tests out in this mode (the TPU
+//     kernels' mat_occ=False): with the material 0 everywhere every such test passes.
+// The roughness is as packed either way: decode_roughness<kRough> decodes it.
+struct NormalRoughness {
+  V3 n;
+  float rough, mat;
+};
+
+template <bool kDec>
+__device__ __forceinline__ NormalRoughness unpack_nr(float4 p) {
+  if constexpr (kDec) return NormalRoughness{V3{p.x, p.y, p.z}, p.w, 0.0f};
+  return NormalRoughness{unpack_normal(p.x, p.y), p.z, p.w * 3.0f};
+}
+
+// the channel of the packed roughness in a texel of the plane
+template <bool kDec>
+constexpr int kRoughLane = kDec ? 3 : 2;
+
 // GetSpecMagicCurve, power 0.25 (math.py:get_spec_magic_curve)
 __device__ __forceinline__ float spec_magic_curve(float roughness) {
   const float f = 1.0f - exp2f(-200.0f * roughness * roughness);

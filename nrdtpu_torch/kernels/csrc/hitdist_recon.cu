@@ -6,7 +6,9 @@
 // nrdtpu_torch/kernels/hitdist_recon.py:hitdist_recon_ref.
 //
 // Design for the H100: one thread a pixel, 16x16 CTAs, a kernel per (radius, signals,
-// roughness encoding, channels): hitdist_recon_kernel<kRadius, kSig, kRough, kOcc>.
+// roughness encoding, channels, normal plane): hitdist_recon_kernel<kRadius, kSig, kRough,
+// kOcc, kDec> (kDec: the RGBA formats' decoded normal plane, common.cuh:unpack_nr; the
+// kernel tests no material in either mode).
 //   - Every texel is a tap of up to 24 pixels. Each CTA stages its (16 + 2r)^2 window of derived
 //     texels in shared memory: the unpacked normal and the scaled |viewZ| (one float4), the
 //     roughness decoded by the encoding (common.cuh:decode_roughness) and each signal's hit
@@ -81,18 +83,19 @@ __device__ __forceinline__ Texel load_texel(const HdArgs& a, int ox, int oy, int
   return t;
 }
 
-template <int kRadius, int kSig, int kRough>
+template <int kRadius, int kSig, int kRough, bool kDec>
 __device__ __forceinline__ void stage(const HdArgs& a, Window<kRadius, kSig>& wnd, int k,
                                       const Texel& t) {
-  const V3 n = nrd::unpack_normal(t.nr.x, t.nr.y);
+  const nrd::NormalRoughness u = nrd::unpack_nr<kDec>(t.nr);
+  const V3 n = u.n;
   wnd.geometry[k] = make_float4(n.x, n.y, n.z, fabsf(t.z) * a.view_z_scale);
-  wnd.rough[k] = nrd::decode_roughness<kRough>(t.nr.z);
+  wnd.rough[k] = nrd::decode_roughness<kRough>(u.rough);
   int s = 0;
   if constexpr ((kSig & kDiff) != 0) wnd.hit[s++][k] = t.hit[0];
   if constexpr ((kSig & kSpec) != 0) wnd.hit[s][k] = t.hit[1];
 }
 
-template <int kRadius, int kSig, int kRough, bool kOcc = false>
+template <int kRadius, int kSig, int kRough, bool kOcc = false, bool kDec = false>
 __global__ void __launch_bounds__(kThreads, kMinCtas) hitdist_recon_kernel(HdArgs a) {
   using Wnd = Window<kRadius, kSig>;
   constexpr int side = Wnd::kSide;
@@ -114,8 +117,8 @@ __global__ void __launch_bounds__(kThreads, kMinCtas) hitdist_recon_kernel(HdArg
   const bool two = t1 < Wnd::kTexels;
   const Texel s0 = load_texel<kRadius, kSig, kOcc>(a, ox, oy, t0);
   const Texel s1 = load_texel<kRadius, kSig, kOcc>(a, ox, oy, two ? t1 : t0);
-  stage<kRadius, kSig, kRough>(a, wnd, t0, s0);
-  if (two) stage<kRadius, kSig, kRough>(a, wnd, t1, s1);
+  stage<kRadius, kSig, kRough, kDec>(a, wnd, t0, s0);
+  if (two) stage<kRadius, kSig, kRough, kDec>(a, wnd, t1, s1);
   __syncthreads();
   if (!inside) return;
 
@@ -194,23 +197,27 @@ __global__ void __launch_bounds__(kThreads, kMinCtas) hitdist_recon_kernel(HdArg
 
 using Kernel = void (*)(HdArgs);
 
-template <int kRadius, int kSig, bool kOcc>
+template <int kRadius, int kSig, bool kOcc, bool kDec>
 Kernel pick_rough(int rough) {
-  return rough == 0   ? hitdist_recon_kernel<kRadius, kSig, 0, kOcc>
-         : rough == 1 ? hitdist_recon_kernel<kRadius, kSig, 1, kOcc>
-                      : hitdist_recon_kernel<kRadius, kSig, 2, kOcc>;
+  return rough == 0   ? hitdist_recon_kernel<kRadius, kSig, 0, kOcc, kDec>
+         : rough == 1 ? hitdist_recon_kernel<kRadius, kSig, 1, kOcc, kDec>
+                      : hitdist_recon_kernel<kRadius, kSig, 2, kOcc, kDec>;
 }
 
-template <int kRadius, bool kOcc>
+template <int kRadius, bool kOcc, bool kDec>
 Kernel pick_sig(int sig, int rough) {
-  return sig == kDiff   ? pick_rough<kRadius, kDiff, kOcc>(rough)
-         : sig == kSpec ? pick_rough<kRadius, kSpec, kOcc>(rough)
-                        : pick_rough<kRadius, kDiff | kSpec, kOcc>(rough);
+  return sig == kDiff   ? pick_rough<kRadius, kDiff, kOcc, kDec>(rough)
+         : sig == kSpec ? pick_rough<kRadius, kSpec, kOcc, kDec>(rough)
+                        : pick_rough<kRadius, kDiff | kSpec, kOcc, kDec>(rough);
 }
 
+// the decoded plane (kDec) only on four channels: RELAX's calls at the RGBA formats (the
+// occlusion variants are REBLUR's)
 template <int kRadius>
-Kernel pick(int sig, int rough, bool occ) {
-  return occ ? pick_sig<kRadius, true>(sig, rough) : pick_sig<kRadius, false>(sig, rough);
+Kernel pick(int sig, int rough, bool occ, bool dec) {
+  if (dec) return occ ? nullptr : pick_sig<kRadius, false, true>(sig, rough);
+  return occ ? pick_sig<kRadius, true, false>(sig, rough)
+             : pick_sig<kRadius, false, false>(sig, rough);
 }
 
 }  // namespace
@@ -219,7 +226,8 @@ Kernel pick(int sig, int rough, bool occ) {
 // consts: radius, has_diff, has_spec, view_z_scale, frustum[4], ortho, rinv[2], m[9],
 //         roughness mode (0 LINEAR, 1 SQRT_LINEAR, 2 SQ_LINEAR), min_rect_dim_mul_unproject,
 //         plane_dist_sensitivity, normal encoding error, one-channel signals (0 or 1), the
-//         Gaussian weight of each tap
+//         Gaussian weight of each tap (kMaxTaps slots, the first taps used), the plane
+//         decoded (kDec: 0 or 1)
 extern "C" int nrd_hitdist_recon(void* const* p, const float* c, int w, int h, void* stream) {
   HdArgs a;
   a.view_z = (const float*)p[0];
@@ -251,7 +259,10 @@ extern "C" int nrd_hitdist_recon(void* const* p, const float* c, int w, int h, v
   for (int k = 0; k < kMaxTaps; ++k) a.gauss[k] = k < taps ? c[25 + k] : 0.0f;
   const dim3 block(kTile, kTile);
   const dim3 grid((w + kTile - 1) / kTile, (h + kTile - 1) / kTile);
-  const Kernel kernel = radius == 1 ? pick<1>(sig, rough, occ) : pick<2>(sig, rough, occ);
+  const bool dec = c[25 + kMaxTaps] != 0.0f;
+  const Kernel kernel =
+      radius == 1 ? pick<1>(sig, rough, occ, dec) : pick<2>(sig, rough, occ, dec);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

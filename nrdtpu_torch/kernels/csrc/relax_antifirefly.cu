@@ -4,7 +4,10 @@
 // the brightest where it is brighter than all, then the darkest where it is darker than all;
 // .w passes through. Replaces nrdtpu/kernels/relax_pallas.py:537 relax_antifirefly_pallas;
 // computes nrdtpu/passes/relax/kernels.py:1302-1326 per pixel. The plain version is
-// nrdtpu_torch/kernels/relax_antifirefly.py:relax_antifirefly_ref. One thread per pixel.
+// nrdtpu_torch/kernels/relax_antifirefly.py:relax_antifirefly_ref. One thread per pixel, one
+// instance per mode <kDec>: R10G10B10A2, the material of the packed plane's .w; the RGBA
+// formats (kDec), no material and no material test (the TPU kernel's mat_occ=False), so
+// the instance reads no normal plane.
 #include "relax_common.cuh"
 
 namespace {
@@ -21,6 +24,7 @@ struct RelaxAfArgs {
   int w, h, nsig;
 };
 
+template <bool kDec = false>
 __global__ void __launch_bounds__(256) relax_antifirefly_kernel(RelaxAfArgs a) {
   const int x = blockIdx.x * nrd::kBlock + threadIdx.x;
   const int y = blockIdx.y * nrd::kBlock + threadIdx.y;
@@ -28,7 +32,7 @@ __global__ void __launch_bounds__(256) relax_antifirefly_kernel(RelaxAfArgs a) {
   const size_t i = (size_t)y * a.w + x;
   const size_t plane = (size_t)a.w * a.h;
   const Image<float, 4> nr{a.nr, a.w, a.h};
-  const float mat = nr.at(x, y, 3) * 3.0f;
+  const float mat = kDec ? 0.0f : nr.at(x, y, 3) * 3.0f;
 #pragma unroll
   for (int k = 0; k < kMaxSignals; ++k) {  // unrolled: the pointers stay in registers
     if (k >= a.nsig) break;
@@ -47,7 +51,7 @@ __global__ void __launch_bounds__(256) relax_antifirefly_kernel(RelaxAfArgs a) {
         const float s[3] = {sig.at(x + dx, y + dy, 0), sig.at(x + dx, y + dy, 1),
                             sig.at(x + dx, y + dy, 2)};
         const float sl = relax::luminance(s[0], s[1], s[2]);
-        const bool ok = fmaxf(nr.at(x + dx, y + dy, 3) * 3.0f, mm) == mat_c;
+        const bool ok = kDec || fmaxf(nr.at(x + dx, y + dy, 3) * 3.0f, mm) == mat_c;
         if (ok && sl > max_l) {
           max_l = sl;
 #pragma unroll
@@ -76,7 +80,7 @@ __global__ void __launch_bounds__(256) relax_antifirefly_kernel(RelaxAfArgs a) {
 }  // namespace
 
 // ptrs: nr, out, then kMaxSignals signal slots (the first nsig used)
-// consts: nsig, then kMaxSignals min materials
+// consts: nsig, then kMaxSignals min materials, then the plane decoded (kDec: 0 or 1)
 extern "C" int nrd_relax_antifirefly(void* const* p, const float* c, int w, int h,
                                      void* stream) {
   RelaxAfArgs a;
@@ -92,6 +96,9 @@ extern "C" int nrd_relax_antifirefly(void* const* p, const float* c, int w, int 
   }
   dim3 block(nrd::kBlock, nrd::kBlock);
   dim3 grid((w + nrd::kBlock - 1) / nrd::kBlock, (h + nrd::kBlock - 1) / nrd::kBlock);
-  relax_antifirefly_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  if (c[1 + kMaxSignals] != 0.0f)
+    relax_antifirefly_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  else
+    relax_antifirefly_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

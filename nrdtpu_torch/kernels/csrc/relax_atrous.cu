@@ -40,7 +40,9 @@
 // floor(us w) as before; the window is indexed by that texel, and a texel outside it is read and
 // derived from global memory. The roughness that derive keeps follows the roughness encoding, the
 // template parameter kRough (common.cuh:decode_roughness), as the TPU kernel's rough_sq. With SH
-// a texel is one float4 more a signal (its SH), staged at iteration 0 as well.
+// a texel is one float4 more a signal (its SH), staged at iteration 0 as well. At the RGBA
+// normal encodings derive reads the decoded plane (kDec: normal .xyz, roughness .w, material 0)
+// and no tap tests the material.
 #include "relax_common.cuh"
 
 namespace {
@@ -103,14 +105,15 @@ __device__ __forceinline__ bool is_spec(const AtrousArgs& a, int k) {
   return kN == 2 ? k == 1 : a.spec;
 }
 
-template <int kN, int kRough>
+template <int kN, int kRough, bool kDec>
 __device__ __forceinline__ Texel<kN> derive(const relax::Frame& f, const float4 s[kN],
                                             const float4 sh[kN], float4 nr, float raw_z) {
-  const V3 n = nrd::unpack_normal(nr.x, nr.y);
+  const nrd::NormalRoughness u = nrd::unpack_nr<kDec>(nr);
+  const V3 n = u.n;
   Texel<kN> t;
   t.g = make_float4(n.x, n.y, n.z, relax::view_z(f, raw_z));
-  t.m = make_float4(relax::luminance(s[0].x, s[0].y, s[0].z), nr.w * 3.0f,
-                    nrd::decode_roughness<kRough>(nr.z),
+  t.m = make_float4(relax::luminance(s[0].x, s[0].y, s[0].z), u.mat,
+                    nrd::decode_roughness<kRough>(u.rough),
                     kN == 2 ? relax::luminance(s[kN - 1].x, s[kN - 1].y, s[kN - 1].z) : 0.0f);
 #pragma unroll
   for (int k = 0; k < kN; ++k) {
@@ -120,7 +123,7 @@ __device__ __forceinline__ Texel<kN> derive(const relax::Frame& f, const float4 
   return t;
 }
 
-template <int kN, int kRough, bool kSh>
+template <int kN, int kRough, bool kSh, bool kDec>
 __device__ __forceinline__ Texel<kN> load_texel(const AtrousArgs& a, int tx, int ty) {
   const size_t i = Image<float, 4>{a.sig[0].signal, a.f.w, a.f.h}.index(tx, ty);
   float4 s[kN], sh[kN];
@@ -130,8 +133,9 @@ __device__ __forceinline__ Texel<kN> load_texel(const AtrousArgs& a, int tx, int
     sh[k] = kSh ? __ldg(reinterpret_cast<const float4*>(a.sig[k].sh) + i)
                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
-  return derive<kN, kRough>(a.f, s, sh, __ldg(reinterpret_cast<const float4*>(a.nr) + i),
-                            __ldg(a.view_z + i));
+  return derive<kN, kRough, kDec>(a.f, s, sh,
+                                  __ldg(reinterpret_cast<const float4*>(a.nr) + i),
+                                  __ldg(a.view_z + i));
 }
 
 // The tile's window of texels, clamp-to-edge: wh rows of ww texels from (ox, oy), in shared
@@ -146,7 +150,7 @@ struct Window {
   int ox, oy, ww, wh;
 };
 
-template <int kN, int kRough, bool kSh>
+template <int kN, int kRough, bool kSh, bool kDec>
 __device__ __forceinline__ Texel<kN> fetch(const AtrousArgs& a, const Window<kN>& wnd, int tx,
                                            int ty) {
   const int i = tx - wnd.ox, j = ty - wnd.oy;
@@ -162,12 +166,12 @@ __device__ __forceinline__ Texel<kN> fetch(const AtrousArgs& a, const Window<kN>
     }
     return t;
   }
-  return load_texel<kN, kRough, kSh>(a, tx, ty);
+  return load_texel<kN, kRough, kSh, kDec>(a, tx, ty);
 }
 
 // the 5x5 spatial variance estimation of a short history (clamp-to-edge), for each signal, and
 // with SH of each signal's SH (out_sh)
-template <int kN, int kRough, bool kSh>
+template <int kN, int kRough, bool kSh, bool kDec>
 __device__ __forceinline__ void variance_estimation(const AtrousArgs& a, const Window<kN>& wnd,
                                                     int x, int y, V3 n, const float mat_c[kN],
                                                     float hl, float out[kN][4],
@@ -182,12 +186,13 @@ __device__ __forceinline__ void variance_estimation(const AtrousArgs& a, const W
   }
   for (int dy = -2; dy <= 2; ++dy)
     for (int dx = -2; dx <= 2; ++dx) {
-      const Texel<kN> t = fetch<kN, kRough, kSh>(a, wnd, x + dx, y + dy);
+      const Texel<kN> t = fetch<kN, kRough, kSh, kDec>(a, wnd, x + dx, y + dy);
       const V3 ns{t.g.x, t.g.y, t.g.z};
       const float wn = nrd::compute_weight(nrd::acos_approx(nrd::dot3(n, ns)), a.nwp_sve, 0.0f);
 #pragma unroll
       for (int k = 0; k < kN; ++k) {
-        const float w_ = wn * (fmaxf(t.m.y, a.sig[k].min_material) == mat_c[k] ? 1.0f : 0.0f);
+        const float w_ =
+            kDec ? wn : wn * (fmaxf(t.m.y, a.sig[k].min_material) == mat_c[k] ? 1.0f : 0.0f);
         const float s[4] = {t.s[k].x, t.s[k].y, t.s[k].z, t.s[k].w};
         swsum[k] = swsum[k] + w_;
 #pragma unroll
@@ -224,8 +229,10 @@ __device__ __forceinline__ void store(const AtrousSignal& g, size_t i, const flo
 }
 
 // kStaged: iteration 0's staged window; kRough: the roughness encoding; kBoth: the diffuse and
-// the specular signal (else one, a.spec saying which); kSh: each signal's SH too
-template <bool kStaged, int kRough, bool kBoth, bool kSh>
+// the specular signal (else one, a.spec saying which); kSh: each signal's SH too; kDec: the
+// RGBA formats' decoded normal plane (common.cuh:unpack_nr), no material test (the TPU
+// kernel's mat_occ=False)
+template <bool kStaged, int kRough, bool kBoth, bool kSh, bool kDec = false>
 __global__ void __launch_bounds__(kTileX * kTileY, kMinCtas)
     relax_atrous_kernel(AtrousArgs a) {
   constexpr int kN = kBoth ? 2 : 1;
@@ -250,7 +257,7 @@ __global__ void __launch_bounds__(kTileX * kTileY, kMinCtas)
     }
     for (int j = threadIdx.y; j < wnd.wh; j += kTileY)
       for (int i = threadIdx.x; i < wnd.ww; i += kTileX) {
-        const Texel<kN> t = load_texel<kN, kRough, kSh>(a, wnd.ox + i, wnd.oy + j);
+        const Texel<kN> t = load_texel<kN, kRough, kSh, kDec>(a, wnd.ox + i, wnd.oy + j);
         g[j * wnd.ww + i] = t.g;
         m[j * wnd.ww + i] = t.m;
 #pragma unroll
@@ -270,7 +277,7 @@ __global__ void __launch_bounds__(kTileX * kTileY, kMinCtas)
   }
   if (x >= a.f.w || y >= a.f.h) return;
   const size_t i = (size_t)y * a.f.w + x;
-  const Texel<kN> ct = fetch<kN, kRough, kSh>(a, wnd, x, y);
+  const Texel<kN> ct = fetch<kN, kRough, kSh, kDec>(a, wnd, x, y);
   const float hl = __ldg(a.hl + i);
   const V3 n{ct.g.x, ct.g.y, ct.g.z};
   float mat_c[kN];
@@ -279,7 +286,7 @@ __global__ void __launch_bounds__(kTileX * kTileY, kMinCtas)
   float out[kN][4];
   float4 out_sh[kN] = {};
   if (a.is_first && !(hl >= a.history_threshold)) {
-    variance_estimation<kN, kRough, kSh>(a, wnd, x, y, n, mat_c, hl, out, out_sh);
+    variance_estimation<kN, kRough, kSh, kDec>(a, wnd, x, y, n, mat_c, hl, out, out_sh);
 #pragma unroll
     for (int k = 0; k < kN; ++k) store<kSh>(a.sig[k], i, out[k], out_sh[k]);
     return;
@@ -352,7 +359,7 @@ __global__ void __launch_bounds__(kTileX * kTileY, kMinCtas)
     for (int dy = -1; dy <= 1; ++dy)
       for (int dx = -1; dx <= 1; ++dx) {
         const float c = kPrefilter[abs(dx)][abs(dy)];
-        const Texel<kN> t = fetch<kN, kRough, kSh>(a, wnd, x + dx, y + dy);
+        const Texel<kN> t = fetch<kN, kRough, kSh, kDec>(a, wnd, x + dx, y + dy);
 #pragma unroll
         for (int k = 0; k < kN; ++k) {
           pre[k][0] = pre[k][0] + t.s[k].x * c;
@@ -393,7 +400,7 @@ __global__ void __launch_bounds__(kTileX * kTileY, kMinCtas)
       const float vs = v + ((float)(yy * a.step) + offy) * rinv_y;
       const float inside = nrd::in_screen_nearest(us, vs);
       const int tx = nrd::to_index(floorf(us * fw)), ty = nrd::to_index(floorf(vs * fh));
-      const Texel<kN> t = fetch<kN, kRough, kSh>(a, wnd, tx, ty);
+      const Texel<kN> t = fetch<kN, kRough, kSh, kDec>(a, wnd, tx, ty);
       const float zs = t.g.w;
       const V3 ns{t.g.x, t.g.y, t.g.z};
       const float ms = t.m.y;
@@ -416,7 +423,8 @@ __global__ void __launch_bounds__(kTileX * kTileY, kMinCtas)
         } else {
           w_ = gw * nrd::compute_weight(angle, nwp, 0.0f);
         }
-        w_ = w_ * (fmaxf(ms, a.sig[k].min_material) == mat_c[k] ? 1.0f : 0.0f);
+        if constexpr (!kDec)
+          w_ = w_ * (fmaxf(ms, a.sig[k].min_material) == mat_c[k] ? 1.0f : 0.0f);
         const float s[4] = {t.s[k].x, t.s[k].y, t.s[k].z, t.s[k].w};
         const float lw =
             fminf(fabsf(lum(ct, k) - lum(t, k)) * phi_inv[k], a.sig[k].max_rel) * lum_relax[k];
@@ -444,7 +452,7 @@ __global__ void __launch_bounds__(kTileX * kTileY, kMinCtas)
   }
 }
 
-template <bool kBoth, bool kSh>
+template <bool kBoth, bool kSh, bool kDec>
 int launch(const AtrousArgs& a, int rough, dim3 grid, dim3 block, cudaStream_t stream) {
   // iteration 0 stages its window: the planes g and m, one a signal and with SH one a
   // signal's SH
@@ -453,17 +461,17 @@ int launch(const AtrousArgs& a, int rough, dim3 grid, dim3 block, cudaStream_t s
                                        planes * sizeof(float4)
                                  : 0;
   if (a.is_first && rough == 0)
-    relax_atrous_kernel<true, 0, kBoth, kSh><<<grid, block, smem, stream>>>(a);
+    relax_atrous_kernel<true, 0, kBoth, kSh, kDec><<<grid, block, smem, stream>>>(a);
   else if (a.is_first && rough == 1)
-    relax_atrous_kernel<true, 1, kBoth, kSh><<<grid, block, smem, stream>>>(a);
+    relax_atrous_kernel<true, 1, kBoth, kSh, kDec><<<grid, block, smem, stream>>>(a);
   else if (a.is_first && rough == 2)
-    relax_atrous_kernel<true, 2, kBoth, kSh><<<grid, block, smem, stream>>>(a);
+    relax_atrous_kernel<true, 2, kBoth, kSh, kDec><<<grid, block, smem, stream>>>(a);
   else if (rough == 0)
-    relax_atrous_kernel<false, 0, kBoth, kSh><<<grid, block, 0, stream>>>(a);
+    relax_atrous_kernel<false, 0, kBoth, kSh, kDec><<<grid, block, 0, stream>>>(a);
   else if (rough == 1)
-    relax_atrous_kernel<false, 1, kBoth, kSh><<<grid, block, 0, stream>>>(a);
+    relax_atrous_kernel<false, 1, kBoth, kSh, kDec><<<grid, block, 0, stream>>>(a);
   else if (rough == 2)
-    relax_atrous_kernel<false, 2, kBoth, kSh><<<grid, block, 0, stream>>>(a);
+    relax_atrous_kernel<false, 2, kBoth, kSh, kDec><<<grid, block, 0, stream>>>(a);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
@@ -482,7 +490,8 @@ int launch(const AtrousArgs& a, int rough, dim3 grid, dim3 block, cudaStream_t s
 //         slack, luminance and roughness edge-stopping relaxations, roughness edge stopping
 //         (0 or 1), roughness mode (0 LINEAR, 1 SQRT_LINEAR, 2 SQ_LINEAR), signals (1 or 2),
 //         the specular signal's phi, max_rel, min_material, the lobe span (after iteration 0
-//         the diffuse lobe fraction is 0.99 + span x saturate(hl / 5))
+//         the diffuse lobe fraction is 0.99 + span x saturate(hl / 5)), the plane decoded
+//         (kDec: 0 or 1)
 extern "C" int nrd_relax_atrous(void* const* p, const float* c, int w, int h, void* stream) {
   AtrousArgs a;
   a.sig[0].signal = (const float*)p[0];
@@ -525,6 +534,7 @@ extern "C" int nrd_relax_atrous(void* const* p, const float* c, int w, int h, vo
   const int signals = (int)q[28];
   a.sig[1] = AtrousSignal{(const float*)p[8], (float*)p[9], q[29], q[30], q[31]};
   a.lobe_span = q[32];
+  const bool dec = q[33] != 0.0f;
   for (int k = 0; k < 2; ++k) {
     a.sig[k].sh = (const float*)p[10 + 2 * k];
     a.sig[k].out_sh = (float*)p[11 + 2 * k];
@@ -542,9 +552,16 @@ extern "C" int nrd_relax_atrous(void* const* p, const float* c, int w, int h, vo
   const dim3 block(kTileX, kTileY);
   const dim3 grid((w + kTileX - 1) / kTileX, (h + kTileY - 1) / kTileY);
   const cudaStream_t st = (cudaStream_t)stream;
+  if (dec) {
+    if (signals == 2)
+      return sh ? launch<true, true, true>(a, rough, grid, block, st)
+                : launch<true, false, true>(a, rough, grid, block, st);
+    return sh ? launch<false, true, true>(a, rough, grid, block, st)
+              : launch<false, false, true>(a, rough, grid, block, st);
+  }
   if (signals == 2)
-    return sh ? launch<true, true>(a, rough, grid, block, st)
-              : launch<true, false>(a, rough, grid, block, st);
-  return sh ? launch<false, true>(a, rough, grid, block, st)
-            : launch<false, false>(a, rough, grid, block, st);
+    return sh ? launch<true, true, false>(a, rough, grid, block, st)
+              : launch<true, false, false>(a, rough, grid, block, st);
+  return sh ? launch<false, true, false>(a, rough, grid, block, st)
+            : launch<false, false, false>(a, rough, grid, block, st);
 }

@@ -31,7 +31,10 @@
 //      weight and min material into its own accumulator. With SH a tap reads each signal's SH
 //      texel as one float4 more, into an accumulator of its own.
 // The specular weight's centre roughness follows the roughness encoding, the template
-// parameter kRough (common.cuh:decode_roughness); the diffuse taps read no roughness.
+// parameter kRough (common.cuh:decode_roughness); the diffuse taps read no roughness. At the
+// RGBA normal encodings every phase reads the decoded plane, the template parameter kDec
+// (common.cuh:unpack_nr): the records' material lane holds 0 (the 32 B record kept) and the
+// taps test no material (the TPU kernel's mat_occ=False).
 // kMinCtas: the CTAs an SM that ptxas is asked to fit (chosen by A/B timing, PERF.md).
 #include "relax_common.cuh"
 
@@ -68,15 +71,17 @@ __device__ __forceinline__ constexpr bool is_specular(int k) {
 
 __device__ __forceinline__ V3 xyz(float4 v) { return V3{v.x, v.y, v.z}; }
 
-// phase 0: one texel's records
+// phase 0: one texel's records (kDec: the material lane 0, the record's layout kept)
+template <bool kDec>
 __device__ __forceinline__ void write_records(const RelaxHfArgs& a, int x, int y) {
   const size_t i = (size_t)y * a.f.w + x;
   const float4 nr = __ldg(reinterpret_cast<const float4*>(a.nr) + i);
   const float z = relax::view_z(a.f, __ldg(a.view_z + i));
-  const V3 n = nrd::unpack_normal(nr.x, nr.y);
+  const nrd::NormalRoughness u = nrd::unpack_nr<kDec>(nr);
+  const V3 n = u.n;
   const V3 p = relax::world_pos(a.f, ((float)x + 0.5f) / (float)a.f.w,
                                 ((float)y + 0.5f) / (float)a.f.h, z);
-  a.rec[2 * i] = make_float4(p.x, p.y, p.z, nr.w * 3.0f);
+  a.rec[2 * i] = make_float4(p.x, p.y, p.z, u.mat);
   a.rec[2 * i + 1] = make_float4(n.x, n.y, n.z, z);
 }
 
@@ -90,8 +95,9 @@ __device__ __forceinline__ float diffuse_weight(float c, float power, bool pow8)
   return powf(p, power);
 }
 
-// phases 1-3: the history fix of one pixel, for each signal of the phase
-template <int kPhase, int kRough, bool kSh>
+// phases 1-3: the history fix of one pixel, for each signal of the phase (kDec: no material
+// test)
+template <int kPhase, int kRough, bool kSh, bool kDec>
 __device__ __forceinline__ void history_fix_pixel(const RelaxHfArgs& a, int x, int y) {
   constexpr int kN = kSignals<kPhase>;
   constexpr bool kSpec = kPhase != 1;  // some signal takes the specular weight
@@ -123,8 +129,9 @@ __device__ __forceinline__ void history_fix_pixel(const RelaxHfArgs& a, int x, i
     float angle0 = 0.0f, f0 = 0.0f, inv_angle0 = 0.0f;
     V3 cv{0.0f, 0.0f, 0.0f}, rx{0.0f, 0.0f, 0.0f};
     if constexpr (kSpec) {
-      relax::normal_weight_params_atrous(nrd::decode_roughness<kRough>(__ldg(a.nr + 4 * i + 2)),
-                                         5.0f, 1.0f, 0.0f, a.laf, a.slack, &angle0, &f0);
+      relax::normal_weight_params_atrous(
+          nrd::decode_roughness<kRough>(__ldg(a.nr + 4 * i + nrd::kRoughLane<kDec>)), 5.0f,
+          1.0f, 0.0f, a.laf, a.slack, &angle0, &f0);
       inv_angle0 = 1.0f / angle0;
       cv = relax::neg_normalize(xc);
       rx = V3{a.resr * xc.x, a.resr * xc.y, a.resr * xc.z};
@@ -163,7 +170,8 @@ __device__ __forceinline__ void history_fix_pixel(const RelaxHfArgs& a, int x, i
             dw = gw * nrd::saturate(1.0f - tt * tt * (3.0f - 2.0f * tt) * f0);
           }
           dw = dw * inside;
-          dw = dw * (fmaxf(q0.w, a.min_material[k]) == mat_c[k] ? 1.0f : 0.0f);
+          if constexpr (!kDec)
+            dw = dw * (fmaxf(q0.w, a.min_material[k]) == mat_c[k] ? 1.0f : 0.0f);
           const bool live = dw > 1e-4f;
           acc[k][0] = live ? acc[k][0] + s[k].x * dw : acc[k][0];
           acc[k][1] = live ? acc[k][1] + s[k].y * dw : acc[k][1];
@@ -191,38 +199,39 @@ __device__ __forceinline__ void history_fix_pixel(const RelaxHfArgs& a, int x, i
 }
 
 // phase 0: the records; 1, 2, 3: the history fix, diffuse, specular or both (roughness mode
-// kRough), with the SH planes (kSh)
-template <int kPhase, int kRough = 0, bool kSh = false>
+// kRough), with the SH planes (kSh); kDec: the RGBA formats' decoded normal plane
+// (common.cuh:unpack_nr), no material test (the TPU kernel's mat_occ=False)
+template <int kPhase, int kRough = 0, bool kSh = false, bool kDec = false>
 __global__ void __launch_bounds__(256, kPhase == 0 ? 1 : kMinCtas)
     relax_history_fix_kernel(RelaxHfArgs a) {
   const int x = blockIdx.x * nrd::kBlock + threadIdx.x;
   const int y = blockIdx.y * nrd::kBlock + threadIdx.y;
   if (x >= a.f.w || y >= a.f.h) return;
   if constexpr (kPhase == 0)
-    write_records(a, x, y);
+    write_records<kDec>(a, x, y);
   else
-    history_fix_pixel<kPhase, kRough, kSh>(a, x, y);
+    history_fix_pixel<kPhase, kRough, kSh, kDec>(a, x, y);
 }
 
-template <int kPhase, bool kSh>
+template <int kPhase, bool kSh, bool kDec>
 void launch_fix(const RelaxHfArgs& a, int rough, dim3 grid, dim3 block, cudaStream_t stream) {
   if (rough == 0)
-    relax_history_fix_kernel<kPhase, 0, kSh><<<grid, block, 0, stream>>>(a);
+    relax_history_fix_kernel<kPhase, 0, kSh, kDec><<<grid, block, 0, stream>>>(a);
   else if (rough == 1)
-    relax_history_fix_kernel<kPhase, 1, kSh><<<grid, block, 0, stream>>>(a);
+    relax_history_fix_kernel<kPhase, 1, kSh, kDec><<<grid, block, 0, stream>>>(a);
   else
-    relax_history_fix_kernel<kPhase, 2, kSh><<<grid, block, 0, stream>>>(a);
+    relax_history_fix_kernel<kPhase, 2, kSh, kDec><<<grid, block, 0, stream>>>(a);
 }
 
-template <bool kSh>
+template <bool kSh, bool kDec>
 void launch_phase(const RelaxHfArgs& a, int signals, bool spec, int rough, dim3 grid,
                   dim3 block, cudaStream_t stream) {
   if (signals == 2)
-    launch_fix<3, kSh>(a, rough, grid, block, stream);
+    launch_fix<3, kSh, kDec>(a, rough, grid, block, stream);
   else if (spec)
-    launch_fix<2, kSh>(a, rough, grid, block, stream);
+    launch_fix<2, kSh, kDec>(a, rough, grid, block, stream);
   else
-    relax_history_fix_kernel<1, 0, kSh><<<grid, block, 0, stream>>>(a);
+    relax_history_fix_kernel<1, 0, kSh, kDec><<<grid, block, 0, stream>>>(a);
 }
 
 }  // namespace
@@ -234,7 +243,8 @@ void launch_phase(const RelaxHfArgs& a, int signals, bool spec, int rough, dim3 
 // consts: frame geometry (relax::load_frame), depth_threshold, base_stride, frame_num,
 //         normal_power (already max(power, 0.01)), min_material, specular (0 or 1), lobe
 //         fraction, lobe slack, roughness edge-stopping relaxation, roughness mode (0 LINEAR,
-//         1 SQRT_LINEAR, 2 SQ_LINEAR), signals (1 or 2), the specular signal's min material
+//         1 SQRT_LINEAR, 2 SQ_LINEAR), signals (1 or 2), the specular signal's min material,
+//         the plane decoded (kDec: 0 or 1)
 extern "C" int nrd_relax_history_fix(void* const* p, const float* c, int w, int h,
                                      void* stream) {
   RelaxHfArgs a;
@@ -258,6 +268,7 @@ extern "C" int nrd_relax_history_fix(void* const* p, const float* c, int w, int 
   const int rough = (int)q[9];
   const int signals = (int)q[10];
   a.min_material[1] = q[11];
+  const bool dec = q[12] != 0.0f;
   a.signal[1] = (const float*)p[6];
   a.out[1] = (float*)p[7];
   for (int k = 0; k < 2; ++k) {
@@ -278,13 +289,20 @@ extern "C" int nrd_relax_history_fix(void* const* p, const float* c, int w, int 
   const dim3 grid((w + nrd::kBlock - 1) / nrd::kBlock, (h + nrd::kBlock - 1) / nrd::kBlock);
   const cudaStream_t s = (cudaStream_t)stream;
   if (taps) {
-    relax_history_fix_kernel<0><<<grid, block, 0, s>>>(a);
+    if (dec)
+      relax_history_fix_kernel<0, 0, false, true><<<grid, block, 0, s>>>(a);
+    else
+      relax_history_fix_kernel<0><<<grid, block, 0, s>>>(a);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  if (sh)
-    launch_phase<true>(a, signals, spec, rough, grid, block, s);
+  if (dec && sh)
+    launch_phase<true, true>(a, signals, spec, rough, grid, block, s);
+  else if (dec)
+    launch_phase<false, true>(a, signals, spec, rough, grid, block, s);
+  else if (sh)
+    launch_phase<true, false>(a, signals, spec, rough, grid, block, s);
   else
-    launch_phase<false>(a, signals, spec, rough, grid, block, s);
+    launch_phase<false, false>(a, signals, spec, rough, grid, block, s);
   return (int)cudaGetLastError();
 }

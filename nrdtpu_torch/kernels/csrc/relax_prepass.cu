@@ -15,9 +15,11 @@
 // nrdtpu_torch/kernels/relax_prepass.py:relax_prepass_ref.
 //
 // Design for the H100: one thread per pixel in 16x16 CTAs, one instance per mode
-// <kSpec, kRough, kSh> (the specular signal, the roughness encoding of common.cuh:
+// <kSpec, kRough, kSh, kDec> (the specular signal, the roughness encoding of common.cuh:
 // decode_roughness, applied to the centre's roughness and to each tap's, as the TPU kernel's
-// rough_sq, the SH plane), at most kMinCtas' register budget. Bound by its 8 gathers
+// rough_sq, the SH plane, the RGBA formats' decoded normal plane of common.cuh:unpack_nr, whose
+// instances test no material, as the TPU kernel's mat_occ=False), at most kMinCtas' register
+// budget. Bound by its 8 gathers
 // a pixel, each of a texel up to 30 px x the hit-distance factor away:
 //   - the taps in a rolled loop (an unrolled one holds every tap's code; the offsets and
 //     Gaussians are read from the parameter block by the tap's index);
@@ -59,7 +61,7 @@ __device__ __forceinline__ float4 clip(float4 v, float lo) {  // [lo, FP16_MAX]
                      fminf(fmaxf(v.z, lo), 65504.0f), fminf(fmaxf(v.w, lo), 65504.0f));
 }
 
-template <bool kSpec, int kRough, bool kSh>
+template <bool kSpec, int kRough, bool kSh, bool kDec = false>
 __global__ void __launch_bounds__(256, kMinCtas) relax_prepass_kernel(PrepassArgs a) {
   const int x = blockIdx.x * nrd::kBlock + threadIdx.x;
   const int y = blockIdx.y * nrd::kBlock + threadIdx.y;
@@ -85,9 +87,9 @@ __global__ void __launch_bounds__(256, kMinCtas) relax_prepass_kernel(PrepassArg
   const float inv_fw = 1.0f / fw, inv_fh = 1.0f / fh;
   const float u = nrd::pixel_u(x, a.f.w), v = nrd::pixel_u(y, a.f.h);
   const float z = relax::view_z(a.f, __ldg(a.view_z + i));
-  const float4 nc = __ldg(nr + i);
-  const V3 n = nrd::unpack_normal(nc.x, nc.y);
-  const float mat_c = fmaxf(nc.w * 3.0f, a.min_material);
+  const nrd::NormalRoughness cn = nrd::unpack_nr<kDec>(__ldg(nr + i));
+  const V3 n = cn.n;
+  const float mat_c = fmaxf(cn.mat, a.min_material);
   const V3 xc = relax::world_pos(a.f, u, v, z);
   const float frustum_size = a.frustum_size_scale * (z + (1.0f - z) * fabsf(a.f.ortho));
   float hit, radius, nwp, ha, hb, min_hd_weight, ra = 0.0f, rb = 0.0f, rough = 0.0f;
@@ -102,7 +104,7 @@ __global__ void __launch_bounds__(256, kMinCtas) relax_prepass_kernel(PrepassArg
     min_hd_weight = a.min_hd_weight;
   } else {
     hit = fmaxf(fminf(c.w, a.denoising_range), 0.0f);
-    rough = nrd::decode_roughness<kRough>(nc.z);
+    rough = nrd::decode_roughness<kRough>(cn.rough);
     const V3 view = a.f.ortho == 0.0f ? relax::neg_normalize(xc)
                                       : V3{a.f.fwd[0], a.f.fwd[1], a.f.fwd[2]};
     float dfac;
@@ -139,16 +141,16 @@ __global__ void __launch_bounds__(256, kMinCtas) relax_prepass_kernel(PrepassArg
     const float vs = (floorf(vh + a.off[2 * k + 1] * radius) + 0.5f) * inv_fh;
     const size_t t = img.index(nrd::to_index(floorf(us * fw)), nrd::to_index(floorf(vs * fh)));
     const float4 s_tap = __ldg(sig + t);  // issued before the weights, used where w_ != 0
-    const float4 ns4 = __ldg(nr + t);
+    const nrd::NormalRoughness tn = nrd::unpack_nr<kDec>(__ldg(nr + t));
     const float4 sh_tap = kSh ? __ldg(shp + t) : zero;
     const float zs = relax::view_z(a.f, __ldg(a.view_z + t));
-    const V3 ns = nrd::unpack_normal(ns4.x, ns4.y);
+    const V3 ns = tn.n;
     const V3 xs = relax::world_pos(a.f, us, vs, zs);
     float w_ = nrd::in_screen_nearest(us, vs);
     w_ = w_ * (zs < a.denoising_range ? 1.0f : 0.0f);
-    w_ = w_ * (mat_c == fmaxf(ns4.w * 3.0f, a.min_material) ? 1.0f : 0.0f);
+    if constexpr (!kDec) w_ = w_ * (mat_c == fmaxf(tn.mat, a.min_material) ? 1.0f : 0.0f);
     if constexpr (kSpec)
-      w_ = w_ * nrd::compute_weight(nrd::decode_roughness<kRough>(ns4.z), ra, rb);
+      w_ = w_ * nrd::compute_weight(nrd::decode_roughness<kRough>(tn.rough), ra, rb);
     w_ = w_ * nrd::compute_weight(nrd::acos_approx(nrd::dot3(n, ns)), nwp, 0.0f);
     w_ = w_ * (relax::plane_dist(xs, xc, n) * inv_dts <= a.depth_threshold ? 1.0f : 0.0f);
     const float4 s = w_ == 0.0f ? make_float4(0.0f, 0.0f, 0.0f, 0.0f) : s_tap;
@@ -179,15 +181,25 @@ __global__ void __launch_bounds__(256, kMinCtas) relax_prepass_kernel(PrepassArg
     reinterpret_cast<float4*>(a.out_sh)[i] = clip(nrd::divide(acc_sh, wsum), -65504.0f);
 }
 
-template <bool kSpec, bool kSh>
+template <bool kSpec, bool kSh, bool kDec>
 cudaError_t launch(const PrepassArgs& a, int rough, dim3 grid, dim3 block, cudaStream_t stream) {
   switch (rough) {
-    case 0: relax_prepass_kernel<kSpec, 0, kSh><<<grid, block, 0, stream>>>(a); break;
-    case 1: relax_prepass_kernel<kSpec, 1, kSh><<<grid, block, 0, stream>>>(a); break;
-    case 2: relax_prepass_kernel<kSpec, 2, kSh><<<grid, block, 0, stream>>>(a); break;
+    case 0: relax_prepass_kernel<kSpec, 0, kSh, kDec><<<grid, block, 0, stream>>>(a); break;
+    case 1: relax_prepass_kernel<kSpec, 1, kSh, kDec><<<grid, block, 0, stream>>>(a); break;
+    case 2: relax_prepass_kernel<kSpec, 2, kSh, kDec><<<grid, block, 0, stream>>>(a); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
+}
+
+template <bool kDec>
+cudaError_t launch_mode(const PrepassArgs& a, bool spec, bool sh, int rough, dim3 grid,
+                        dim3 block, cudaStream_t s) {
+  if (spec)
+    return sh ? launch<true, true, kDec>(a, rough, grid, block, s)
+              : launch<true, false, kDec>(a, rough, grid, block, s);
+  return sh ? launch<false, true, kDec>(a, rough, grid, block, s)
+            : launch<false, false, kDec>(a, rough, grid, block, s);
 }
 
 }  // namespace
@@ -197,7 +209,8 @@ cudaError_t launch(const PrepassArgs& a, int rough, dim3 grid, dim3 block, cudaS
 //         blur_radius, nwp, ha, min_hd_weight, depth_threshold, min_material,
 //         offsets[16] (x, y per tap), gaussian weights[8], specular (0 or 1), unproject,
 //         normal lobe fraction, roughness fraction, lobe tan scale sqrt(0.75 / 0.25),
-//         roughness mode (0 LINEAR, 1 SQRT_LINEAR, 2 SQ_LINEAR)
+//         roughness mode (0 LINEAR, 1 SQRT_LINEAR, 2 SQ_LINEAR), the plane decoded (kDec: 0
+//         or 1)
 extern "C" int nrd_relax_prepass(void* const* p, const float* c, int w, int h, void* stream) {
   PrepassArgs a;
   a.signal = (const float*)p[0];
@@ -224,18 +237,14 @@ extern "C" int nrd_relax_prepass(void* const* p, const float* c, int w, int h, v
   a.rf = q[35];
   a.lobe_tan_scale = q[36];
   const int rough = (int)q[37];
-  if ((spec != 0.0f && spec != 1.0f) || (float)rough != q[37]) return (int)cudaErrorInvalidValue;
+  const float dec = q[38];
+  if ((spec != 0.0f && spec != 1.0f) || (float)rough != q[37] || (dec != 0.0f && dec != 1.0f))
+    return (int)cudaErrorInvalidValue;
   const bool sh = a.sh != nullptr;
   if (sh != (a.out_sh != nullptr)) return (int)cudaErrorInvalidValue;
   const dim3 block(nrd::kBlock, nrd::kBlock);
   const dim3 grid((w + nrd::kBlock - 1) / nrd::kBlock, (h + nrd::kBlock - 1) / nrd::kBlock);
   const cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err;
-  if (spec != 0.0f)
-    err = sh ? launch<true, true>(a, rough, grid, block, s)
-             : launch<true, false>(a, rough, grid, block, s);
-  else
-    err = sh ? launch<false, true>(a, rough, grid, block, s)
-             : launch<false, false>(a, rough, grid, block, s);
-  return (int)err;
+  return (int)(dec != 0.0f ? launch_mode<true>(a, spec != 0.0f, sh, rough, grid, block, s)
+                           : launch_mode<false>(a, spec != 0.0f, sh, rough, grid, block, s));
 }

@@ -15,8 +15,10 @@
 // version is nrdtpu_torch/kernels/relax_smb_resolve.py:relax_smb_resolve_ref.
 //
 // Design for the H100: one thread per pixel in 16x16 CTAs, one instance per mode
-// <kSpec, kNHist, kNSh> (the specular planes, the number of histories, the number of SH
-// histories: 0, or as many as histories), so that each holds only its own state, at most
+// <kSpec, kNHist, kNSh, kDec> (the specular planes, the number of histories, the number of SH
+// histories: 0, or as many as histories; the RGBA formats' decoded normal plane of
+// common.cuh:unpack_nr, whose instances test no material, as the TPU kernel's
+// mat_occ=False), so that each holds only its own state, at most
 // kMinCtas' register budget (2 CTAs an SM for 3 or 4 histories: RELAX_DIFFUSE_SPECULAR's
 // <true, 4, .>, both signals' slow and responsive histories). Bound by its gathers:
 //   - the 3x3 neighbourhood reads each current texel 9 times: each CTA first stages its
@@ -68,7 +70,7 @@ struct RelaxSmbArgs {
   float m[9];              // world_prev_to_world rotation, row-major
 };
 
-template <bool kSpec, int kNHist, int kNSh>
+template <bool kSpec, int kNHist, int kNSh, bool kDec = false>
 __global__ void __launch_bounds__(256, kNHist <= 2 ? kMinCtas : 2)
     relax_smb_resolve_kernel(RelaxSmbArgs a) {
   // every thread of the CTA stages, then the ones outside the image leave
@@ -79,7 +81,7 @@ __global__ void __launch_bounds__(256, kNHist <= 2 ? kMinCtas : 2)
        k += nrd::kBlock * nrd::kBlock) {
     const size_t t = nr.index(ox0 + k % kWin, oy0 + k / kWin);
     const float4 p = __ldg(reinterpret_cast<const float4*>(a.nr) + t);
-    const V3 n = nrd::unpack_normal(p.x, p.y);
+    const V3 n = nrd::unpack_nr<kDec>(p).n;
     float ht = 0.0f;
     if constexpr (kSpec) {
       ht = __ldg(a.spec_hit + t);
@@ -136,7 +138,8 @@ __global__ void __launch_bounds__(256, kNHist <= 2 ? kMinCtas : 2)
 
   // plane-distance and material occlusion of the 12 non-corner taps of the 4x4
   const float xvz = __ldg(a.xv_prev_z + i);
-  const float mat_c = fmaxf(__ldg(a.nr + 4 * i + 3) * 3.0f, a.min_material);
+  float mat_c = 0.0f;  // kDec: no material test
+  if constexpr (!kDec) mat_c = fmaxf(__ldg(a.nr + 4 * i + 3) * 3.0f, a.min_material);
   int col[4];
   size_t row[4];
 #pragma unroll
@@ -155,8 +158,12 @@ __global__ void __launch_bounds__(256, kNHist <= 2 ? kMinCtas : 2)
       const size_t t = row[j] + col[k];
       const float z = fabsf(__ldg(a.prev_vz + t)) * a.view_z_scale;
       const float o = fabsf(z - xvz) <= qthr[q] ? 1.0f : 0.0f;
-      const float mt = fmaxf(__ldg(a.prev_mat + t), a.min_material);
-      occ[j][k] = o * (mat_c == mt ? 1.0f : 0.0f);
+      if constexpr (kDec) {
+        occ[j][k] = o;
+      } else {
+        const float mt = fmaxf(__ldg(a.prev_mat + t), a.min_material);
+        occ[j][k] = o * (mat_c == mt ? 1.0f : 0.0f);
+      }
       occ12 = occ12 + occ[j][k];
     }
   bool bicubic = occ12 > 11.5f;
@@ -216,10 +223,33 @@ __global__ void __launch_bounds__(256, kNHist <= 2 ? kMinCtas : 2)
     sh_out[s * plane + i] = nrd::bilinear_custom4(a.sh[s], a.w, a.h, bx, by, cw);
 }
 
+// the decoded plane's instances (kDec): those that RELAX's variants reach at the RGBA
+// formats, two histories a signal (four with both signals, which are specular) and as many SH
+// histories or none
 template <bool kSpec>
-cudaError_t launch(const RelaxSmbArgs& a, dim3 grid, dim3 block, cudaStream_t stream) {
+cudaError_t launch_dec(const RelaxSmbArgs& a, dim3 grid, dim3 block, cudaStream_t stream) {
+  switch (a.nhist * 8 + a.nsh) {
+    case 16: relax_smb_resolve_kernel<kSpec, 2, 0, true><<<grid, block, 0, stream>>>(a); break;
+    case 18: relax_smb_resolve_kernel<kSpec, 2, 2, true><<<grid, block, 0, stream>>>(a); break;
+    case 32:
+      if constexpr (!kSpec) return cudaErrorInvalidValue;
+      relax_smb_resolve_kernel<true, 4, 0, true><<<grid, block, 0, stream>>>(a);
+      break;
+    case 36:
+      if constexpr (!kSpec) return cudaErrorInvalidValue;
+      relax_smb_resolve_kernel<true, 4, 4, true><<<grid, block, 0, stream>>>(a);
+      break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+template <bool kSpec>
+cudaError_t launch(const RelaxSmbArgs& a, bool dec, dim3 grid, dim3 block,
+                   cudaStream_t stream) {
   // the SH histories ride the 2- and 4-history instances, as many as histories
   if (a.nsh != 0 && a.nsh != a.nhist) return cudaErrorInvalidValue;
+  if (dec) return launch_dec<kSpec>(a, grid, block, stream);
   switch (a.nhist * 8 + a.nsh) {
     case 8: relax_smb_resolve_kernel<kSpec, 1, 0><<<grid, block, 0, stream>>>(a); break;
     case 16: relax_smb_resolve_kernel<kSpec, 2, 0><<<grid, block, 0, stream>>>(a); break;
@@ -238,7 +268,7 @@ cudaError_t launch(const RelaxSmbArgs& a, dim3 grid, dim3 block, cudaStream_t st
 //       hist_out, 4 history slots (the first nhist used), spec_hit, prev_ht (null without
 //       spec), sh_out, 4 SH history slots (the first nsh used; bf16, null without SH)
 // consts: view_z_scale, rect_prev_w, rect_prev_h, res_w, res_h, min_material, m[9], nhist,
-//         spec (0 or 1), nsh (0, or nhist: 2 or 4)
+//         spec (0 or 1), nsh (0, or nhist: 2 or 4), the plane decoded (kDec: 0 or 1)
 extern "C" int nrd_relax_smb_resolve(void* const* p, const float* c, int w, int h,
                                      void* stream) {
   RelaxSmbArgs a;
@@ -275,7 +305,8 @@ extern "C" int nrd_relax_smb_resolve(void* const* p, const float* c, int w, int 
   for (int k = 0; k < 9; ++k) a.m[k] = c[6 + k];
   const dim3 block(nrd::kBlock, nrd::kBlock);
   const dim3 grid((w + nrd::kBlock - 1) / nrd::kBlock, (h + nrd::kBlock - 1) / nrd::kBlock);
-  const cudaError_t err = spec ? launch<true>(a, grid, block, (cudaStream_t)stream)
-                               : launch<false>(a, grid, block, (cudaStream_t)stream);
+  const bool dec = c[18] != 0.0f;
+  const cudaError_t err = spec ? launch<true>(a, dec, grid, block, (cudaStream_t)stream)
+                               : launch<false>(a, dec, grid, block, (cudaStream_t)stream);
   return (int)err;
 }

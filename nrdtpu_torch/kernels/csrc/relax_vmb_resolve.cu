@@ -12,9 +12,11 @@
 // computes nrdtpu/passes/relax/kernels.py:742-796 per pixel. The plain version is
 // nrdtpu_torch/kernels/relax_vmb_resolve.py:relax_vmb_resolve_ref.
 //
-// Design for the H100: one thread per pixel in 16x16 CTAs, at most kMinCtas' register
-// budget. Bound by its gathers: both histories go through one CatRom footprint in one loop
-// over its 5 bilinear samples (common.cuh:catrom_apply4: each texel read as one float4 and
+// Design for the H100: one thread per pixel in 16x16 CTAs, one instance per mode <kSh, kDec>
+// (kDec: the current plane is the RGBA formats' decoded one, and the taps test no material,
+// as the TPU kernel's mat_occ=False), at most kMinCtas' register budget. Bound by its
+// gathers: both histories go through one CatRom footprint in one loop over its 5 bilinear
+// samples (common.cuh:catrom_apply4: each texel read as one float4 and
 // only where its weight is non-zero, the 12 texels of the footprint each once where the
 // samples land on their texels), in place of 5 bilinear samples of 16 scalar reads per
 // history; the previous packed normal is read as four float4; every (h, w, 4) output is
@@ -50,7 +52,7 @@ struct RelaxVmbArgs {
   float rect_prev_w, rect_prev_h, res_scale_x, res_scale_y, min_material;
 };
 
-template <bool kSh>
+template <bool kSh, bool kDec = false>
 __global__ void __launch_bounds__(256, kMinCtas) relax_vmb_resolve_kernel(RelaxVmbArgs a) {
   const int x = blockIdx.x * nrd::kBlock + threadIdx.x;
   const int y = blockIdx.y * nrd::kBlock + threadIdx.y;
@@ -76,7 +78,8 @@ __global__ void __launch_bounds__(256, kMinCtas) relax_vmb_resolve_kernel(RelaxV
   const V3 n{__ldg(a.n + 3 * i), __ldg(a.n + 3 * i + 1), __ldg(a.n + 3 * i + 2)};
   const V3 xm{__ldg(a.xm + 3 * i), __ldg(a.xm + 3 * i + 1), __ldg(a.xm + 3 * i + 2)};
   const float tb = __ldg(a.thr_base + i);
-  const float mat_c = fmaxf(__ldg(a.nr + 4 * i + 3) * 3.0f, a.min_material);
+  float mat_c = 0.0f;  // kDec: no material test
+  if constexpr (!kDec) mat_c = fmaxf(__ldg(a.nr + 4 * i + 3) * 3.0f, a.min_material);
   float valid[4];
   bool any = false, all = true;
 #pragma unroll
@@ -87,7 +90,8 @@ __global__ void __launch_bounds__(256, kMinCtas) relax_vmb_resolve_kernel(RelaxV
                                    ((float)ty + 0.5f) / a.rect_prev_h, zp);
     const float thr = tb * in4[k] - 1e-6f;
     float ok = relax::plane_dist(xm, xp, n) <= thr ? 1.0f : 0.0f;
-    ok = ok * (mat_c == fmaxf(prev_mat.ldg(tx, ty), a.min_material) ? 1.0f : 0.0f);
+    if constexpr (!kDec)
+      ok = ok * (mat_c == fmaxf(prev_mat.ldg(tx, ty), a.min_material) ? 1.0f : 0.0f);
     valid[k] = ok;
     any = any || ok > 0.0f;
     all = all && ok > 0.0f;
@@ -129,7 +133,7 @@ __global__ void __launch_bounds__(256, kMinCtas) relax_vmb_resolve_kernel(RelaxV
 // ptrs: uv, n, xm, thr_base, nr, smb_found, prev_vz, prev_mat, prev_ht, prev_nr, hist, resp,
 //       sig, planes, then sh, sh_resp (bf16) and sh_out (all three null without SH)
 // consts: the previous camera's geometry (relax::load_frame), rect_prev_w, rect_prev_h,
-//         res_scale_x, res_scale_y, min_material
+//         res_scale_x, res_scale_y, min_material, the plane decoded (kDec: 0 or 1)
 extern "C" int nrd_relax_vmb_resolve(void* const* p, const float* c, int w, int h,
                                      void* stream) {
   RelaxVmbArgs a;
@@ -160,11 +164,17 @@ extern "C" int nrd_relax_vmb_resolve(void* const* p, const float* c, int w, int 
   a.res_scale_x = q[2];
   a.res_scale_y = q[3];
   a.min_material = q[4];
+  const bool dec = q[5] != 0.0f;
   dim3 block(nrd::kBlock, nrd::kBlock);
   dim3 grid((w + nrd::kBlock - 1) / nrd::kBlock, (h + nrd::kBlock - 1) / nrd::kBlock);
-  if (sh)
-    relax_vmb_resolve_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (dec && sh)
+    relax_vmb_resolve_kernel<true, true><<<grid, block, 0, s>>>(a);
+  else if (dec)
+    relax_vmb_resolve_kernel<false, true><<<grid, block, 0, s>>>(a);
+  else if (sh)
+    relax_vmb_resolve_kernel<true><<<grid, block, 0, s>>>(a);
   else
-    relax_vmb_resolve_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(a);
+    relax_vmb_resolve_kernel<false><<<grid, block, 0, s>>>(a);
   return (int)cudaGetLastError();
 }

@@ -5,9 +5,12 @@
 // nrdtpu_torch/kernels/sigma_blur.py:sigma_blur_ref.
 //
 // Design for the H100: one thread per pixel in 16x16 CTAs, templated on the launch's modes
-// <C, kFirst, kShadow>: the shadow's channels (1: SIGMA_SHADOW, 4: SIGMA_SHADOW_TRANSLUCENCY),
-// the first pass (Blur) or PostBlur (which unpacks its input, p * p), and whether there is
-// a shadow input at all (not on SIGMA_SHADOW's Blur, where the shadow is IsLit(penumbra)).
+// <C, kFirst, kShadow, kDec>: the shadow's channels (1: SIGMA_SHADOW, 4:
+// SIGMA_SHADOW_TRANSLUCENCY), the first pass (Blur) or PostBlur (which unpacks its input,
+// p * p), whether there is a shadow input at all (not on SIGMA_SHADOW's Blur, where the shadow
+// is IsLit(penumbra)), and the normal plane (kDec: the RGBA formats' decoded one,
+// common.cuh:unpack_nr, the normal .xyz; the TPU kernel decodes .xy as octahedral at every
+// encoding, sigma_blur2.py:122, where the XLA reference unpacks the encoding's normal).
 // What a tap derives from its texel alone (the penumbra, the scaled |viewZ|, the view
 // position's scale and the unpacked shadow) is the same for every pixel that taps it: the
 // CTA first stages its tile's window (halo 2, clamp-to-edge) with those values, once a
@@ -134,7 +137,7 @@ __device__ __forceinline__ void accumulate(Sums<C>& acc, const Texel<C>& t, floa
   acc.sum_y = acc.sum_y + w_;
 }
 
-template <int C, bool kFirst, bool kShadow>
+template <int C, bool kFirst, bool kShadow, bool kDec = false>
 __global__ void __launch_bounds__(kTile * kTile, kMinCtas<C>) sigma_blur_kernel(BlurArgs a) {
   __shared__ Window<C> wnd;
   const int ox = (int)blockIdx.x * kTile - kBorder, oy = (int)blockIdx.y * kTile - kBorder;
@@ -159,8 +162,7 @@ __global__ void __launch_bounds__(kTile * kTile, kMinCtas<C>) sigma_blur_kernel(
 
   // the centre's geometry (:163-176)
   const V3 xv = nrd::reconstruct_view_position(u, v, a.fr, view_z, a.ortho);
-  const float4 nrc = __ldg(reinterpret_cast<const float4*>(a.nr) + i);
-  const V3 n = nrd::unpack_normal(nrc.x, nrc.y);
+  const V3 n = nrd::unpack_nr<kDec>(__ldg(reinterpret_cast<const float4*>(a.nr) + i)).n;
   const V3 nv{a.m[0] * n.x + a.m[1] * n.y + a.m[2] * n.z,
               a.m[3] * n.x + a.m[4] * n.y + a.m[5] * n.z,
               a.m[6] * n.x + a.m[7] * n.y + a.m[8] * n.z};
@@ -269,7 +271,7 @@ using Kernel = void (*)(BlurArgs);
 // consts: channels, first_pass, has_shadow, view_z_scale, frustum[4], ortho, unproject,
 //         min_rect_dim_mul_unproject, plane_dist_sensitivity, m[9], rotator[4],
 //         rect_size[2], rect_size_inv[2], denoising_range, 25 dense Gaussian weights,
-//         8 x (x, y, Gaussian weight) Poisson taps
+//         8 x (x, y, Gaussian weight) Poisson taps, the plane decoded (kDec: 0 or 1)
 extern "C" int nrd_sigma_blur(void* const* p, const float* c, int w, int h, void* stream) {
   BlurArgs a;
   a.penumbra = (const float*)p[0];
@@ -301,12 +303,20 @@ extern "C" int nrd_sigma_blur(void* const* p, const float* c, int w, int h, void
   for (int k = 0; k < kDenseTaps; ++k) a.dense_gauss[k] = c[30 + k];
   for (int k = 0; k < kPoissonTaps; ++k)
     for (int j = 0; j < 3; ++j) a.poisson[k][j] = c[30 + kDenseTaps + 3 * k + j];
-  // without a shadow input the pass reads no shadow, so the first-pass flag does not matter
-  const Kernel kernel = !has_shadow             ? sigma_blur_kernel<1, true, false>
+  const bool dec = c[30 + kDenseTaps + 3 * kPoissonTaps] != 0.0f;
+  // without a shadow input the pass reads no shadow, so the first-pass flag does not matter;
+  // the decoded plane (kDec) in the modes that the two SIGMA variants launch
+  const Kernel kernel = dec ? (!has_shadow      ? sigma_blur_kernel<1, true, false, true>
+                               : channels == 1 && first_pass ? nullptr
+                               : channels == 1  ? sigma_blur_kernel<1, false, true, true>
+                               : first_pass     ? sigma_blur_kernel<4, true, true, true>
+                                                : sigma_blur_kernel<4, false, true, true>)
+                        : !has_shadow                 ? sigma_blur_kernel<1, true, false>
                         : channels == 1 && first_pass ? sigma_blur_kernel<1, true, true>
                         : channels == 1               ? sigma_blur_kernel<1, false, true>
                         : first_pass                  ? sigma_blur_kernel<4, true, true>
                                                       : sigma_blur_kernel<4, false, true>;
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   const dim3 block(kTile, kTile);
   const dim3 grid((w + kTile - 1) / kTile, (h + kTile - 1) / kTile);
   kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);

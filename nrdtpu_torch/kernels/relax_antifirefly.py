@@ -4,29 +4,33 @@ Replaces `nrdtpu/kernels/relax_pallas.py:537` (`relax_antifirefly_pallas`). Comp
 `anti_firefly` (`nrdtpu/passes/relax/kernels.py:1279-1330`, the XLA branch `:1302-1326`) per
 pixel for every signal given, in one launch: over the 8 neighbours of the clamp-to-edge 3x3
 (row by row, centre excluded) whose material matches the centre's (max with the signal's
-min material, R10G10B10A2 normals), the brightest and the darkest rgb by luminance (the
+min material; the RGBA normal encodings carry no material and test none, `:1312`, the
+kernel's kDec instance), the brightest and the darkest rgb by luminance (the
 first one wins a tie); the centre's rgb becomes the brightest where it is brighter than all,
 then the darkest where it is darker than all (RCRS). The signal's .w passes through.
 
 Bound on the H100: bytes. Per pixel it reads the packed normal's material (every tap an L1
-neighbour) and each signal once (16 B) and writes 16 B a signal.
+neighbour; the kDec instance reads none) and each signal once (16 B) and writes 16 B a
+signal.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import frontend as fe
 from .. import math as nm
 from ..ops import stencil
 from . import build
 
 launches = 0
+dec_launches = 0  # of the launches, those of the decoded-plane instance (kDec)
 MAX_SIGNALS = 2
 
 
-def relax_antifirefly_ref(normal_roughness, signals, *, min_materials):
+def relax_antifirefly_ref(normal_roughness, signals, *, min_materials, decoded=False):
     """Plain PyTorch version of the kernel (the XLA 3x3 loop), one output per signal."""
-    material_id = normal_roughness[..., 3] * 3.0
+    material_id = fe.unpack_normal_plane(normal_roughness, decoded)[2]
     outs = []
     for signal, min_material in zip(signals, min_materials):
         luma = nm.luminance(signal[..., :3])
@@ -52,15 +56,17 @@ def relax_antifirefly_ref(normal_roughness, signals, *, min_materials):
     return tuple(outs)
 
 
-def relax_antifirefly(normal_roughness, signals, *, min_materials):
-    """normal_roughness (h, w, 4) current (material in .w); signals: the (h, w, 4) slow
-    histories (1 or 2); min_materials: each signal's min material. Returns a tuple of
-    (h, w, 4), one per signal."""
-    global launches
+def relax_antifirefly(normal_roughness, signals, *, min_materials, decoded=False):
+    """normal_roughness (h, w, 4) current (material in .w), or with `decoded` the RGBA
+    formats' decoded plane (`frontend.decode_normal_plane`, no material); signals: the
+    (h, w, 4) slow histories (1 or 2); min_materials: each signal's min material. Returns a
+    tuple of (h, w, 4), one per signal."""
+    global launches, dec_launches
     signals = tuple(signals)
     dev = build.kernel_device(normal_roughness)
     if dev is None:
-        return relax_antifirefly_ref(normal_roughness, signals, min_materials=min_materials)
+        return relax_antifirefly_ref(normal_roughness, signals, min_materials=min_materials,
+                                     decoded=decoded)
     h, w = normal_roughness.shape[:2]
     if not 1 <= len(signals) <= MAX_SIGNALS or len(min_materials) != len(signals):
         raise ValueError(f"signals: {len(signals)}, 1 to {MAX_SIGNALS} with a min material each")
@@ -70,6 +76,7 @@ def relax_antifirefly(normal_roughness, signals, *, min_materials):
     out = torch.empty((len(signals), h, w, 4), dtype=torch.float32, device=dev)
     pad = [None] * (MAX_SIGNALS - len(signals))
     build.launch("nrd_relax_antifirefly", [normal_roughness, out, *signals, *pad],
-                 [len(signals), *min_materials, *[0.0] * len(pad)], w, h)
+                 [len(signals), *min_materials, *[0.0] * len(pad), decoded], w, h)
     launches += 1
+    dec_launches += bool(decoded)
     return tuple(out)

@@ -26,7 +26,9 @@ TA's reprojection confidence at strides <= 4 (`:1368-1373`) and by IN_SPEC_CONFI
 weight, or by the simplified normal weight without roughness edge stopping (`:1513-1519`);
 iteration 0 keeps the diffuse normal weight, as XLA does (`use_variance_estimation`). Every
 texel's roughness is unpacked with the roughness encoding (`:1352`, `:1507`), a template
-parameter of the kernel. With both signals each tap's geometry (plane distance, Gaussian,
+parameter of the kernel. At the RGBA normal encodings every texel comes from the decoded plane
+(`decoded=`, the kDec instances) and no tap tests the material (`:1522`, `:1575`). With both
+signals each tap's geometry (plane distance, Gaussian,
 in-screen test, denoising range, normal angle) serves both, and each signal keeps its own
 normal weight, phi, max luminance difference, min material and confidence relaxation, as
 the XLA function's per-signal `taps_loop` does. With the SH variants (`sh`) each signal's SH
@@ -60,6 +62,7 @@ from ..settings import RoughnessEncoding
 from . import build
 
 launches = 0
+dec_launches = 0  # of the launches, those of the decoded-plane instances (kDec)
 G3 = (0.44198, 0.27901)                    # kernelWeightGaussian3x3, RELAX_Atrous.hlsli:120
 PREFILTER = ((0.25, 0.125), (0.125, 0.0625))  # the 3x3 variance prefilter, [|dx|][|dy|]
 F32 = np.float32
@@ -116,7 +119,7 @@ def _atrous_one(signal, view_z_in, normal_roughness, history_length, diff_confid
                 lobe_fraction, lobe_angle_fraction, phi_luminance,
                 max_luminance_relative_difference, min_material, history_threshold,
                 confidence_relaxation, specular=None,
-                roughness_encoding=RoughnessEncoding.LINEAR, sh=None):
+                roughness_encoding=RoughnessEncoding.LINEAR, sh=None, decoded=False):
     """The plain version of one signal (the XLA iteration, op for op). lobe_fraction is
     `lobe_fraction(...)` of this iteration, lobe_angle_fraction the settings' (the 5x5
     estimation's normal weight and the specular lobe). With `sh` it returns (signal, SH)."""
@@ -124,8 +127,8 @@ def _atrous_one(signal, view_z_in, normal_roughness, history_length, diff_confid
     dev = signal.device
     uv = resample.pixel_uv_grid(h, w, dev)
     view_z = torch.abs(view_z_in) * view_z_scale
-    n, roughness, material_id = fe.unpack_normal_roughness(
-        normal_roughness, roughness_encoding=roughness_encoding)
+    n, roughness, material_id = fe.unpack_normal_plane(normal_roughness, decoded,
+                                                       roughness_encoding)
     x = RC.world_pos(frustum, ortho_mode, uv, view_z)
     thr = depth_threshold * (view_z if ortho_mode == 0.0 else torch.ones_like(view_z))
     mat_c = torch.clamp_min(material_id, min_material)
@@ -206,9 +209,8 @@ def _atrous_one(signal, view_z_in, normal_roughness, history_length, diff_confid
                                 uv[..., 1] + (float(yy * step_size) + off_y) * rinv_y], -1)
             inside = resample.is_in_screen_nearest(uv_s)
             zs = torch.abs(resample.sample_nearest(view_z_in, uv_s)) * view_z_scale
-            ns, rs, ms = fe.unpack_normal_roughness(
-                resample.sample_nearest(normal_roughness, uv_s),
-                roughness_encoding=roughness_encoding)
+            ns, rs, ms = fe.unpack_normal_plane(
+                resample.sample_nearest(normal_roughness, uv_s), decoded, roughness_encoding)
             xs = RC.world_pos(frustum, ortho_mode, uv_s, zs)
             gw = RC.get_plane_distance_weight_atrous(x, n, xs, thr) * kern
             gw = gw * inside * (zs < denoising_range).to(torch.float32)
@@ -241,7 +243,8 @@ def _atrous_one(signal, view_z_in, normal_roughness, history_length, diff_confid
         m1 = nm.luminance(out[..., :3])
         out = torch.cat([out[..., :3], torch.clamp_min(out[..., 3] - m1 * m1, 0.0)[..., None]], -1)
         sve = _variance_estimation(signal, normal_roughness, history_length, n, mat_c,
-                                   lobe_angle_fraction, min_material, roughness_encoding, sh)
+                                   lobe_angle_fraction, min_material, roughness_encoding, sh,
+                                   decoded)
         use_atrous = (history_length >= history_threshold)[..., None]
         out = torch.where(use_atrous, out, sve[0])
         if sh is not None:
@@ -252,7 +255,8 @@ def _atrous_one(signal, view_z_in, normal_roughness, history_length, diff_confid
 
 
 def _variance_estimation(signal, normal_roughness, history_length, n, mat_c,
-                         lobe_angle_fraction, min_material, roughness_encoding, sh=None):
+                         lobe_angle_fraction, min_material, roughness_encoding, sh=None,
+                         decoded=False):
     """The 5x5 spatial variance estimation of short histories (`:1560-1598`): (signal, SH or
     None)."""
     nwp = normal_weight_param2(lobe_angle_fraction)
@@ -262,8 +266,8 @@ def _variance_estimation(signal, normal_roughness, history_length, n, mat_c,
     s_m2 = torch.zeros_like(history_length)
     s_sh = None if sh is None else torch.zeros_like(sh)
     for dy, dx in stencil.offsets_square(2):
-        ns, _, ms = fe.unpack_normal_roughness(stencil.shifted(normal_roughness, dy, dx),
-                                               roughness_encoding=roughness_encoding)
+        ns, _, ms = fe.unpack_normal_plane(stencil.shifted(normal_roughness, dy, dx), decoded,
+                                           roughness_encoding)
         w_ = nm.compute_weight(nm.acos_approx(nm.dot(n, ns)), nwp, 0.0)
         w_ = w_ * (torch.clamp_min(ms, min_material) == mat_c).to(torch.float32)
         s = stencil.shifted(signal, dy, dx)
@@ -313,7 +317,7 @@ def relax_atrous(signal, view_z_in, normal_roughness, history_length, diff_confi
                  depth_threshold, lobe_fraction, lobe_angle_fraction, phi_luminance,
                  max_luminance_relative_difference, min_material, history_threshold,
                  confidence_relaxation, specular=None,
-                 roughness_encoding=RoughnessEncoding.LINEAR, sh=None):
+                 roughness_encoding=RoughnessEncoding.LINEAR, sh=None, decoded=False):
     """signal (h, w, 4): at iteration 0 (rgb, 2nd moment), later (rgb, variance);
     history_length (h, w); the optional (h, w) planes IN_DIFF_CONFIDENCE, IN_SPEC_CONFIDENCE
     and the TA's specular reprojection confidence; frustum = the 9 floats right, up, forward;
@@ -322,12 +326,14 @@ def relax_atrous(signal, view_z_in, normal_roughness, history_length, diff_confi
     (roughness_fraction, normal_edge_stopping_relaxation, lobe_angle_slack,
     luminance_edge_stopping_relaxation, roughness_edge_stopping_relaxation,
     roughness_edge_stopping_enabled); roughness_encoding: how the packed roughness is
-    unpacked. Returns (h, w, 4) = (rgb, variance). With both signals `signal` and the
+    unpacked; decoded: normal_roughness is the RGBA formats' decoded plane
+    (`frontend.decode_normal_plane`, the kernel's kDec instances: no material test), else
+    packed R10G10B10A2. Returns (h, w, 4) = (rgb, variance). With both signals `signal` and the
     constants of SIGNAL_CONSTS are (diffuse, specular) pairs, `specular` is given, and it
     returns the pair of outputs. With the SH variants sh is the signal's (h, w, 4) SH (a pair
     with both signals, and lobe_fraction `lobe_fraction(..., sh=True)`), and the SH outputs
     follow the signals': (signal, SH), or (diffuse, specular, diffuse SH, specular SH)."""
-    global launches
+    global launches, dec_launches
     kw = dict(step_size=step_size, is_first=is_first, frame_index=frame_index, frustum=frustum,
               ortho_mode=ortho_mode, view_z_scale=view_z_scale,
               denoising_range=denoising_range, depth_threshold=depth_threshold,
@@ -336,7 +342,7 @@ def relax_atrous(signal, view_z_in, normal_roughness, history_length, diff_confi
               max_luminance_relative_difference=max_luminance_relative_difference,
               min_material=min_material, history_threshold=history_threshold,
               confidence_relaxation=confidence_relaxation, specular=specular,
-              roughness_encoding=roughness_encoding, sh=sh)
+              roughness_encoding=roughness_encoding, sh=sh, decoded=decoded)
     planes = (diff_confidence, spec_confidence, reprojection_confidence)
     pair = isinstance(signal, (tuple, list))
     if pair and (len(signal) != 2 or specular is None
@@ -373,13 +379,14 @@ def relax_atrous(signal, view_z_in, normal_roughness, history_length, diff_confi
               *confidence_relaxation, specular is not None, lobe_angle_fraction,
               *[sp.get(k, 0.0) for k in SPECULAR_CONSTS],
               build.ROUGHNESS_MODE[roughness_encoding], len(signals), *[v[1] for v in per],
-              lobe_span(lobe_fraction, bool(shs))]
+              lobe_span(lobe_fraction, bool(shs)), decoded]
     second = [signals[1], out[1]] if pair else [None, None]
     sh_ptrs = [t for k in range(2) for t in ((shs[k], out_sh[k]) if k < len(shs)
                                              else (None, None))]
     build.launch("nrd_relax_atrous", [signals[0], view_z_in, normal_roughness, history_length,
                                       out[0], *planes, *second, *sh_ptrs], consts, w, h)
     launches += 1
+    dec_launches += bool(decoded)
     if not (pair or shs):
         return out[0]
     return tuple(out) + (tuple(out_sh) if shs else ())

@@ -14,9 +14,11 @@ vector relaxed by `roughness_edge_stopping_relaxation`. The stride is continuous
 in XLA: the TPU kernel's hat-blended stride levels (`relax_pallas.py:1502-1503`) are not
 carried over. Pixels whose history is long skip the taps. The centre's roughness, which the
 specular weight reads, is unpacked with the roughness encoding (`:1024`), a template
-parameter of the specular kernel. With both signals each tap's plane distance and in-screen
-test serve both, and each signal has its own normal weight, min material and accumulator
-(`:1083-1114`). With the SH variants (`sh`) each signal's SH plane accumulates with its
+parameter of the specular kernel. At the RGBA normal encodings it reads the decoded plane
+(`decoded=`, the kDec instances: the normal .xyz, the roughness .w) and tests no material
+(`:1087`, `:1103`; the record's material lane is 0). With both signals each tap's plane
+distance and in-screen test serve both, and each signal has its own normal weight, min
+material and accumulator (`:1083-1114`). With the SH variants (`sh`) each signal's SH plane accumulates with its
 signal's tap weight where it is above 1e-4, over the same weight sum, and passes through where
 the fix does not apply (`:1095-1098`, `:1111-1114`, `:1124-1130`), in the same launch: the
 counterpart of the TPU kernel's `d_sh` / `s_sh` (`relax_pallas.py:1290`, `:1297-1298`).
@@ -44,6 +46,7 @@ from ..settings import RoughnessEncoding
 from . import build
 
 launches = 0
+dec_launches = 0  # of the launches, those of the decoded-plane instances (kDec)
 # the constants of `specular`, in the order the kernel reads them
 SPECULAR_CONSTS = ("lobe_angle_fraction", "lobe_angle_slack",
                    "roughness_edge_stopping_relaxation")
@@ -52,15 +55,15 @@ SPECULAR_CONSTS = ("lobe_angle_fraction", "lobe_angle_slack",
 def _history_fix_one(signal, view_z_in, normal_roughness, history_length, *, frustum,
                      ortho_mode, view_z_scale, depth_threshold, base_stride, frame_num,
                      normal_power, min_material, specular=None,
-                     roughness_encoding=RoughnessEncoding.LINEAR, sh=None):
+                     roughness_encoding=RoughnessEncoding.LINEAR, sh=None, decoded=False):
     """The plain version of one signal (the XLA stride-tap loop and the select); with `sh`
     also its SH plane, returning the pair."""
     h, w = view_z_in.shape
     dev = signal.device
     uv = resample.pixel_uv_grid(h, w, dev)
     view_z = torch.abs(view_z_in) * view_z_scale
-    n, roughness, material_id = fe.unpack_normal_roughness(
-        normal_roughness, roughness_encoding=roughness_encoding)
+    n, roughness, material_id = fe.unpack_normal_plane(normal_roughness, decoded,
+                                                       roughness_encoding)
     x = RC.world_pos(frustum, ortho_mode, uv, view_z)
     if specular is not None:
         cv = -nm.normalize(x)
@@ -87,7 +90,8 @@ def _history_fix_one(signal, view_z_in, normal_roughness, history_length, *, fru
             inside = ((pos_x >= 0) & (pos_x < w) & (pos_y >= 0) & (pos_y < h)).to(torch.float32)
             px = torch.clamp(pos_x, 0, w - 1).long()
             py = torch.clamp(pos_y, 0, h - 1).long()
-            ns, _, ms = fe.unpack_normal_roughness(resample.texel_fetch(normal_roughness, px, py))
+            ns, _, ms = fe.unpack_normal_plane(resample.texel_fetch(normal_roughness, px, py),
+                                               decoded)
             zs = torch.abs(resample.texel_fetch(view_z_in, px, py)) * view_z_scale
             uv_s = torch.stack([nm.div(px.to(torch.float32) + 0.5, w),
                                 nm.div(py.to(torch.float32) + 0.5, h)], -1)
@@ -131,22 +135,23 @@ def relax_history_fix_ref(signal, *planes, min_material, specular=None, sh=None,
 def relax_history_fix(signal, view_z_in, normal_roughness, history_length, *, frustum,
                       ortho_mode, view_z_scale, depth_threshold, base_stride, frame_num,
                       normal_power, min_material, specular=None,
-                      roughness_encoding=RoughnessEncoding.LINEAR, sh=None):
+                      roughness_encoding=RoughnessEncoding.LINEAR, sh=None, decoded=False):
     """signal (h, w, 4) = the accumulated history (rgb, 2nd moment), or the pair (diffuse,
     specular) of them with min_material the pair of their min materials and `specular` given;
     history_length (h, w) after TA; frustum = the 9 floats right, up, forward; base_stride =
     historyFixBasePixelStride, frame_num = historyFixFrameNum + 1; specular = None for the
     diffuse signal, else dict(lobe_angle_fraction, lobe_angle_slack,
     roughness_edge_stopping_relaxation); roughness_encoding: how the packed roughness is
-    unpacked; sh: None, or the signal's (h, w, 4) SH plane (the pair with both signals).
-    Returns (h, w, 4), or the pair of them: the reconstruction where the fix applies, the
-    signal elsewhere; with `sh` (signal, SH), or with both signals (diffuse, specular,
-    diffuse SH, specular SH)."""
-    global launches
+    unpacked; sh: None, or the signal's (h, w, 4) SH plane (the pair with both signals);
+    decoded: normal_roughness is the RGBA formats' decoded plane (`frontend.decode_normal_plane`,
+    the kernel's kDec instances: no material test), else packed R10G10B10A2. Returns (h, w, 4),
+    or the pair of them: the reconstruction where the fix applies, the signal elsewhere; with
+    `sh` (signal, SH), or with both signals (diffuse, specular, diffuse SH, specular SH)."""
+    global launches, dec_launches
     kw = dict(frustum=frustum, ortho_mode=ortho_mode, view_z_scale=view_z_scale,
               depth_threshold=depth_threshold, base_stride=base_stride, frame_num=frame_num,
               normal_power=normal_power, min_material=min_material, specular=specular,
-              roughness_encoding=roughness_encoding, sh=sh)
+              roughness_encoding=roughness_encoding, sh=sh, decoded=decoded)
     pair = isinstance(signal, (tuple, list))
     if pair and (len(signal) != 2 or len(min_material) != 2 or specular is None
                  or (sh is not None and len(sh) != 2)):
@@ -173,13 +178,14 @@ def relax_history_fix(signal, view_z_in, normal_roughness, history_length, *, fr
     consts = [*frustum, ortho_mode, view_z_scale, depth_threshold, base_stride, frame_num,
               max(normal_power, 0.01), mats[0], specular is not None,
               *[sp.get(k, 0.0) for k in SPECULAR_CONSTS],
-              build.ROUGHNESS_MODE[roughness_encoding], len(signals), mats[1]]
+              build.ROUGHNESS_MODE[roughness_encoding], len(signals), mats[1], decoded]
     second = [signals[1], out[1]] if pair else [None, None]
     sh_ptrs = [t for k in range(2) for t in ((shs[k], out_sh[k]) if k < len(shs)
                                              else (None, None))]
     build.launch("nrd_relax_history_fix", [signals[0]] + [t for _, t, _ in ins]
                  + [out[0], records] + second + sh_ptrs, consts, w, h)
     launches += 1
+    dec_launches += bool(decoded)
     if not (pair or shs):
         return out[0]
     return tuple(out) + (tuple(out_sh) if shs else ())

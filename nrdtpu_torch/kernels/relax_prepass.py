@@ -14,8 +14,10 @@ curve, capped by the lobe radius, weights each tap also by roughness, by the nor
 half the lobe fraction with the pixel's roughness and by lerp(saturate(t), 1,
 linearstep(0.5, 1, roughness)), and writes the min hitT of the kept taps. The centre's and
 every tap's roughness are unpacked with the roughness encoding (`:169`, `:243`), a template
-parameter of the kernel. With `sh` (the SH variants' second plane) the SH plane accumulates
-with each tap's final weight over the same weight sum (`:281-284`, `:292`), passes through
+parameter of the kernel. At the RGBA normal encodings the kernel reads the decoded plane
+(`decoded=`, its kDec instances: normal .xyz, roughness .w) and tests no material (`:249`).
+With `sh` (the SH variants' second plane) the SH plane accumulates with each tap's final
+weight over the same weight sum (`:281-284`, `:292`), passes through
 where the radius is disabled and is clipped to +-FP16_MAX (`:294-298`), in the same launch:
 the counterpart of the TPU kernel's `n_sh` (`relax_pallas.py:576-747`).
 
@@ -40,6 +42,7 @@ from ..settings import RoughnessEncoding
 from . import build
 
 launches = 0
+dec_launches = 0  # of the launches, those of the decoded-plane instances (kDec)
 OFFSETS = 8  # g_Poisson8 taps
 # sqrt(0.75 / 0.25) in float32: GetSpecularLobeTanHalfAngle(roughness) = roughness^2 x this
 LOBE_TAN_SCALE = float(np.sqrt(np.float32(0.75) / np.float32(0.25)))
@@ -105,15 +108,15 @@ def relax_prepass_ref(signal, view_z_in, normal_roughness, *, frustum, ortho_mod
                       denoising_range, frustum_size_scale, blur_radius, normal_weight_param,
                       hit_dist_a, min_hit_dist_weight, depth_threshold, min_material,
                       offsets, gaussian_weights, specular=None,
-                      roughness_encoding=RoughnessEncoding.LINEAR, sh=None):
+                      roughness_encoding=RoughnessEncoding.LINEAR, sh=None, decoded=False):
     """Plain PyTorch version of the kernel (the XLA tap loop, op for op, then the
     radius-disabled select and the FP16_MAX clip)."""
     h, w = view_z_in.shape
     dev = signal.device
     uv = resample.pixel_uv_grid(h, w, dev)
     view_z = torch.abs(view_z_in) * view_z_scale
-    n, roughness, material_id = fe.unpack_normal_roughness(
-        normal_roughness, roughness_encoding=roughness_encoding)
+    n, roughness, material_id = fe.unpack_normal_plane(normal_roughness, decoded,
+                                                       roughness_encoding)
     x = RC.world_pos(frustum, ortho_mode, uv, view_z)
     frustum_size = frustum_size_scale * nm.lerp(view_z, 1.0, abs(ortho_mode))
     if specular is None:
@@ -139,8 +142,8 @@ def relax_prepass_ref(signal, view_z_in, normal_roughness, *, frustum, ortho_mod
         # the snap of :241; a true division after the floor on every device (math.div)
         uv_s = torch.stack([nm.div(torch.floor(uv[..., 0] * w + ox * radius) + 0.5, w),
                             nm.div(torch.floor(uv[..., 1] * h + oy * radius) + 0.5, h)], -1)
-        ns, rs, ms = fe.unpack_normal_roughness(resample.sample_nearest(normal_roughness, uv_s),
-                                                roughness_encoding=roughness_encoding)
+        ns, rs, ms = fe.unpack_normal_plane(resample.sample_nearest(normal_roughness, uv_s),
+                                            decoded, roughness_encoding)
         zs = torch.abs(resample.sample_nearest(view_z_in, uv_s)) * view_z_scale
         xs = RC.world_pos(frustum, ortho_mode, uv_s, zs)
         w_ = resample.is_in_screen_nearest(uv_s)
@@ -186,7 +189,7 @@ def relax_prepass(signal, view_z_in, normal_roughness, *, frustum, ortho_mode, v
                   denoising_range, frustum_size_scale, blur_radius, normal_weight_param,
                   hit_dist_a, min_hit_dist_weight, depth_threshold, min_material, offsets,
                   gaussian_weights, specular=None, roughness_encoding=RoughnessEncoding.LINEAR,
-                  sh=None):
+                  sh=None, decoded=False):
     """signal (h, w, 4) = (radiance, raw hitT); frustum = the 9 floats right, up, forward;
     frustum_size_scale = min(rect) x unproject (float32); blur_radius = the settings' radius
     (<= 0 disables the pass); normal_weight_param and hit_dist_a are the diffuse frame
@@ -194,16 +197,18 @@ def relax_prepass(signal, view_z_in, normal_roughness, *, frustum, ortho_mode, v
     for the diffuse signal, else dict(unproject, normal_lobe_fraction (0.5 x the settings'
     lobe fraction), roughness_fraction): the specular branch with its per-pixel radius and
     weights and the min hitT of the kept taps; roughness_encoding: how the packed roughness
-    is unpacked; sh: None, or the (h, w, 4) SH plane filtered with the signal's weights.
-    Returns (h, w, 4), or with `sh` the pair (signal, SH)."""
-    global launches
+    is unpacked; sh: None, or the (h, w, 4) SH plane filtered with the signal's weights;
+    decoded: normal_roughness is the RGBA formats' decoded plane (`frontend.decode_normal_plane`,
+    the kernel's kDec instances), else packed R10G10B10A2. Returns (h, w, 4), or with `sh` the
+    pair (signal, SH)."""
+    global launches, dec_launches
     kw = dict(frustum=frustum, ortho_mode=ortho_mode, view_z_scale=view_z_scale,
               denoising_range=denoising_range, frustum_size_scale=frustum_size_scale,
               blur_radius=blur_radius, normal_weight_param=normal_weight_param,
               hit_dist_a=hit_dist_a, min_hit_dist_weight=min_hit_dist_weight,
               depth_threshold=depth_threshold, min_material=min_material, offsets=offsets,
               gaussian_weights=gaussian_weights, specular=specular,
-              roughness_encoding=roughness_encoding, sh=sh)
+              roughness_encoding=roughness_encoding, sh=sh, decoded=decoded)
     dev = build.kernel_device(signal)
     if dev is None:
         return relax_prepass_ref(signal, view_z_in, normal_roughness, **kw)
@@ -224,8 +229,9 @@ def relax_prepass(signal, view_z_in, normal_roughness, *, frustum, ortho_mode, v
               *np.asarray(offsets, np.float32).reshape(-1), *np.asarray(gaussian_weights),
               specular is not None, sp.get("unproject", 0.0), sp.get("normal_lobe_fraction", 0.0),
               sp.get("roughness_fraction", 0.0), LOBE_TAN_SCALE,
-              build.ROUGHNESS_MODE[roughness_encoding]]
+              build.ROUGHNESS_MODE[roughness_encoding], decoded]
     build.launch("nrd_relax_prepass", [signal, view_z_in, normal_roughness, out, sh, out_sh],
                  consts, w, h)
     launches += 1
+    dec_launches += bool(decoded)
     return out if sh is None else (out, out_sh)

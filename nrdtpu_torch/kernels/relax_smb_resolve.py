@@ -54,6 +54,7 @@ from ..passes import relax as RC
 from . import build
 
 launches = 0
+dec_launches = 0  # of the launches, those of the decoded-plane instances (kDec)
 PLANES = ("history_length", "footprint_quality", "smb_found")
 SPEC_PLANES = ("n_avg_x", "n_avg_y", "n_avg_z", "min_hit", "reflection_hit_t")
 CORNERS = ((0, 0), (3, 0), (0, 3), (3, 3))  # (x, y) inside the 4x4
@@ -63,13 +64,14 @@ def relax_smb_resolve_ref(smb_uv, xv_prev_z, base_threshold, normal_roughness, p
                           prev_material_id, prev_history_length, prev_normal_roughness,
                           histories, spec_hit=None, prev_reflection_hit_t=None, sh_histories=(),
                           *, view_z_scale, rect_size_prev, resource_size, min_material,
-                          world_prev_to_world):
+                          world_prev_to_world, decoded=False):
     """Plain PyTorch version of the kernel (the XLA formulas, gather by gather)."""
     n_avg = torch.zeros_like(normal_roughness[..., :3])
     if spec_hit is not None:
         min_hit = torch.where(spec_hit == 0.0, fe.NRD_INF, spec_hit)
     for dy, dx in stencil.offsets_square(1):
-        n_avg = n_avg + fe.unpack_normal_roughness(stencil.shifted(normal_roughness, dy, dx))[0]
+        n_avg = n_avg + fe.unpack_normal_plane(stencil.shifted(normal_roughness, dy, dx),
+                                               decoded)[0]
         if spec_hit is not None and (dy, dx) != (0, 0):
             h_ = stencil.shifted(spec_hit, dy, dx)
             min_hit = torch.minimum(min_hit, torch.where(h_ == 0.0, fe.NRD_INF, h_))
@@ -81,7 +83,7 @@ def relax_smb_resolve_ref(smb_uv, xv_prev_z, base_threshold, normal_roughness, p
     quad_thr = [base_threshold * in_screen4[..., q] - fe.NRD_EPS for q in range(4)]
     x0 = resample.to_index(origin[..., 0]) - 1
     y0 = resample.to_index(origin[..., 1]) - 1
-    mat_c = torch.clamp_min(normal_roughness[..., 3] * 3.0, min_material)
+    mat_c = torch.clamp_min(fe.unpack_normal_plane(normal_roughness, decoded)[2], min_material)
     occ = [[None] * 4 for _ in range(4)]
     for j in range(4):
         for i in range(4):
@@ -136,20 +138,22 @@ def relax_smb_resolve(smb_uv, xv_prev_z, base_threshold, normal_roughness, prev_
                       prev_material_id, prev_history_length, prev_normal_roughness, histories,
                       spec_hit=None, prev_reflection_hit_t=None, sh_histories=(), *,
                       view_z_scale, rect_size_prev, resource_size, min_material,
-                      world_prev_to_world):
+                      world_prev_to_world, decoded=False):
     """smb_uv (h, w, 2) surface-motion uv; xv_prev_z, base_threshold (h, w) from the glue;
     normal_roughness (h, w, 4) current; the previous frame's raw viewZ, material id, history
     length (h, w) and 8-bit packed normal/roughness (h, w, 4); histories: a sequence of
     (h, w, 4) float32 history planes sampled with the same footprint; for the specular
     signal, spec_hit (h, w) the PrePass's hitT and prev_reflection_hit_t (h, w); with the SH
     variants sh_histories: as many (h, w, 4) bfloat16 SH histories as histories (2 or 4), in
-    the same order. Returns dict(history_length, footprint_quality, smb_found (h, w),
+    the same order; decoded: normal_roughness is the RGBA formats' decoded plane
+    (`frontend.decode_normal_plane`, the kernel's kDec instances: no material test), else
+    packed R10G10B10A2. Returns dict(history_length, footprint_quality, smb_found (h, w),
     histories (k, h, w, 4)), with the specular signal n_avg (h, w, 3), min_hit and
     reflection_hit_t (h, w), and with SH histories sh (k, h, w, 4) float32."""
-    global launches
+    global launches, dec_launches
     kw = dict(view_z_scale=view_z_scale, rect_size_prev=rect_size_prev,
               resource_size=resource_size, min_material=min_material,
-              world_prev_to_world=world_prev_to_world)
+              world_prev_to_world=world_prev_to_world, decoded=decoded)
     histories, sh_histories = tuple(histories), tuple(sh_histories)
     if sh_histories and (len(sh_histories) != len(histories) or len(histories) not in (2, 4)):
         raise ValueError(f"sh_histories: {len(sh_histories)} planes, one a history of 2 or 4")
@@ -187,7 +191,7 @@ def relax_smb_resolve(smb_uv, xv_prev_z, base_threshold, normal_roughness, prev_
     hist = torch.empty((len(histories), h, w, 4), dtype=f32, device=dev)
     m = np.asarray(world_prev_to_world, np.float32)[:3, :3].reshape(-1)
     consts = [view_z_scale, rect_size_prev[0], rect_size_prev[1], resource_size[0],
-              resource_size[1], min_material, *m, len(histories), spec, nsh]
+              resource_size[1], min_material, *m, len(histories), spec, nsh, decoded]
     build.launch("nrd_relax_smb_resolve",
                  [t for _, t, _ in ins[:8]] + [planes, hist]
                  + [t for _, t, _ in hist_ins] + [None] * (4 - len(histories))
@@ -195,6 +199,7 @@ def relax_smb_resolve(smb_uv, xv_prev_z, base_threshold, normal_roughness, prev_
                  + [sh, *sh_histories] + [None] * (4 - nsh),
                  consts, w, h)
     launches += 1
+    dec_launches += bool(decoded)
     out = dict(zip(PLANES, planes), histories=hist)
     if nsh:
         out["sh"] = sh

@@ -7,7 +7,8 @@ the gathers of `temporal_accumulation`'s loadVirtualMotionBasedPrevData as XLA d
   - the 2x2 footprint at the virtual-motion uv: each previous texel's world position in the
     previous camera (its texel-centre uv, the previous frustum vectors), tested by plane
     distance |(x - camera_delta - x_prev) . n| against the per-tap in-screen threshold, and
-    its material against `spec_min_material`; `any` and `all` of the four;
+    its material against `spec_min_material` (at R10G10B10A2: the RGBA formats carry no
+    material, `decoded=`); `any` and `all` of the four;
   - the specular slow and responsive histories at uv_vmb x rect_prev through the CatRom
     footprint where the surface-motion footprint was bicubic and all four taps pass, else
     with the custom bilinear weights (`sample_catrom`, the code K16 uses);
@@ -43,6 +44,7 @@ from ..passes import relax as RC
 from . import build
 
 launches = 0
+dec_launches = 0  # of the launches, those of the decoded-plane instances (kDec)
 SIGNALS = ("spec_vmb", "spec_vmb_resp", "nr_packed")
 PLANES = ("hit_t", "any", "all")
 TAPS = ((0, 0), (0, 1), (1, 0), (1, 1))  # (dy, dx) of the 2x2
@@ -53,14 +55,14 @@ def relax_vmb_resolve_ref(uv_vmb, n, x_minus_delta, threshold_base, normal_rough
                           prev_normal_roughness, spec_history, spec_responsive_history,
                           sh_history=None, sh_responsive_history=None, *, prev_frustum,
                           ortho_mode, view_z_scale, rect_size_prev, resolution_scale_prev,
-                          min_material):
+                          min_material, decoded=False):
     """Plain PyTorch version of the kernel (the XLA formulas, gather by gather)."""
     rw, rh = (float(v) for v in rect_size_prev)
     origin, frac = nm.bilinear_filter(uv_vmb, rect_size_prev)
     in_screen = resample.is_in_screen_bilinear(origin, rect_size_prev)
     vx0 = resample.to_index(origin[..., 0])
     vy0 = resample.to_index(origin[..., 1])
-    mat_c = torch.clamp_min(normal_roughness[..., 3] * 3.0, min_material)
+    mat_c = torch.clamp_min(fe.unpack_normal_plane(normal_roughness, decoded)[2], min_material)
     valid = []
     for k, (dy, dx) in enumerate(TAPS):
         zp = torch.abs(resample.texel_fetch(prev_view_z, vx0 + dx, vy0 + dy)) * view_z_scale
@@ -95,7 +97,8 @@ def relax_vmb_resolve(uv_vmb, n, x_minus_delta, threshold_base, normal_roughness
                       prev_view_z, prev_material_id, prev_reflection_hit_t,
                       prev_normal_roughness, spec_history, spec_responsive_history,
                       sh_history=None, sh_responsive_history=None, *, prev_frustum, ortho_mode,
-                      view_z_scale, rect_size_prev, resolution_scale_prev, min_material):
+                      view_z_scale, rect_size_prev, resolution_scale_prev, min_material,
+                      decoded=False):
     """uv_vmb (h, w, 2) virtual-motion uv; n and x_minus_delta (h, w, 3) the TA's normal and
     world position minus the camera delta; threshold_base (h, w) the disocclusion threshold
     x viewZ (x 1 in ortho); normal_roughness (h, w, 4) current (material in .w);
@@ -103,13 +106,15 @@ def relax_vmb_resolve(uv_vmb, n, x_minus_delta, threshold_base, normal_roughness
     material id, reflection hitT (h, w), packed normal/roughness (h, w, 4) and the specular
     slow and responsive histories (h, w, 4); prev_frustum = the previous camera's 9 floats
     right, up, forward; with the SH variants sh_history and sh_responsive_history, the
-    specular SH histories (h, w, 4) bfloat16. Returns dict(spec_vmb, spec_vmb_resp, nr_packed
+    specular SH histories (h, w, 4) bfloat16; decoded: normal_roughness is the RGBA formats'
+    decoded plane (`frontend.decode_normal_plane`, the kernel's kDec instances: no material
+    test). Returns dict(spec_vmb, spec_vmb_resp, nr_packed
     (h, w, 4), hit_t, any, all (h, w), any / all as 0 or 1), and with the SH histories
     sh_vmb, sh_vmb_resp (h, w, 4) float32."""
-    global launches
+    global launches, dec_launches
     kw = dict(prev_frustum=prev_frustum, ortho_mode=ortho_mode, view_z_scale=view_z_scale,
               rect_size_prev=rect_size_prev, resolution_scale_prev=resolution_scale_prev,
-              min_material=min_material)
+              min_material=min_material, decoded=decoded)
     args = (uv_vmb, n, x_minus_delta, threshold_base, normal_roughness, smb_found, prev_view_z,
             prev_material_id, prev_reflection_hit_t, prev_normal_roughness, spec_history,
             spec_responsive_history)
@@ -135,9 +140,10 @@ def relax_vmb_resolve(uv_vmb, n, x_minus_delta, threshold_base, normal_roughness
             build.check(name, t, dev, torch.bfloat16, (h, w, 4))
         sh_out = torch.empty((2, h, w, 4), dtype=torch.float32, device=dev)
     consts = [*prev_frustum, ortho_mode, view_z_scale, rect_size_prev[0], rect_size_prev[1],
-              resolution_scale_prev[0], resolution_scale_prev[1], min_material]
+              resolution_scale_prev[0], resolution_scale_prev[1], min_material, decoded]
     build.launch("nrd_relax_vmb_resolve", [*args, sig, planes, *sh, sh_out], consts, w, h)
     launches += 1
+    dec_launches += bool(decoded)
     out = dict(zip(SIGNALS, sig), **dict(zip(PLANES, planes)))
     if sh_out is not None:
         out.update(sh_vmb=sh_out[0], sh_vmb_resp=sh_out[1])

@@ -19,7 +19,10 @@ Replaces `nrdtpu/kernels/sigma_blur2.py:281` (`sigma_blur_pallas2`) and its v1 t
 The TPU kernels' quantised radius levels, static tap lattice, per-block predication and bf16
 windows are not carried over. Modes: first pass or PostBlur (which unpacks its input), 1 or
 4 shadow channels (SIGMA_SHADOW, SIGMA_SHADOW_TRANSLUCENCY), and, on the first pass of
-SIGMA_SHADOW, no shadow input at all (it is IsLit(penumbra)).
+SIGMA_SHADOW, no shadow input at all (it is IsLit(penumbra)); and at the RGBA normal
+encodings the decoded normal plane (`decoded=`, the kDec instances: the normal .xyz, as the
+XLA function unpacks it, `:166`; the TPU kernels decode .xy as octahedral at every
+encoding).
 
 Bound on the H100: memory. Per pixel it reads penumbra, viewZ (4 B each), the packed normal
 (16 B), the shadow (4 or 16 B) and the tile value and sky planes (8 B), and writes the
@@ -43,6 +46,7 @@ from ..ops import resample, stencil
 from . import build
 
 launches = 0
+dec_launches = 0  # of the launches, those of the decoded-plane instances (kDec)
 BORDER = 2  # the dense estimation's 5x5
 # (dy, dx, Gaussian weight of |o| / BORDER) of the 5x5, row by row
 DENSE_TAPS = [(dy, dx, nm.get_gaussian_weight(float((dx * dx + dy * dy) ** 0.5) / BORDER))
@@ -59,7 +63,7 @@ def _unpacked(shadow, first_pass):
 def sigma_blur_ref(penumbra_in, shadow_in, view_z_in, normal_roughness, tile, *, first_pass,
                    rotator, view_z_scale, frustum, ortho_mode, unproject,
                    min_rect_dim_mul_unproject, plane_dist_sensitivity, world_to_view, rect_size,
-                   rect_size_inv, denoising_range):
+                   rect_size_inv, denoising_range, decoded=False):
     """Plain PyTorch version of the kernel (the XLA `blur`, op for op). shadow_in: (h, w, c)
     or None; tile: (2, h, w) = the tile value and the sky-tile mask per pixel. Returns
     (penumbra (h, w), packed shadow (h, w, c))."""
@@ -74,7 +78,7 @@ def sigma_blur_ref(penumbra_in, shadow_in, view_z_in, normal_roughness, tile, *,
     tile_value, sky_tile = tile[0], tile[1]
 
     xv = nm.reconstruct_view_position(uv, frustum, view_z, ortho)
-    n, _, _ = fe.unpack_normal_roughness(normal_roughness)
+    n, _, _ = fe.unpack_normal_plane(normal_roughness, decoded)
     nv = nm.rotate_vector(world_to_view, n)
     pixel_size = nm.pixel_radius_to_world(float(unproject), ortho, 1.0, view_z)
     frustum_size = nm.get_frustum_size(float(min_rect_dim_mul_unproject), ortho, view_z)
@@ -165,16 +169,19 @@ def sigma_blur_ref(penumbra_in, shadow_in, view_z_in, normal_roughness, tile, *,
 def sigma_blur(penumbra_in, shadow_in, view_z_in, normal_roughness, tile, *, first_pass,
                rotator, view_z_scale, frustum, ortho_mode, unproject,
                min_rect_dim_mul_unproject, plane_dist_sensitivity, world_to_view, rect_size,
-               rect_size_inv, denoising_range):
+               rect_size_inv, denoising_range, decoded=False):
     """penumbra_in, view_z_in (h, w), normal_roughness (h, w, 4), shadow_in (h, w, c) with
-    c = 1 or 4, or None (then c = 1), tile (2, h, w) = tile value and sky mask. Returns
-    (penumbra (h, w), packed shadow (h, w, c))."""
-    global launches
+    c = 1 or 4, or None (then c = 1), tile (2, h, w) = tile value and sky mask; decoded:
+    normal_roughness is the RGBA formats' decoded plane (`frontend.decode_normal_plane`, the
+    kernel's kDec instances), else packed R10G10B10A2. Returns (penumbra (h, w), packed shadow
+    (h, w, c))."""
+    global launches, dec_launches
     kw = dict(first_pass=first_pass, rotator=rotator, view_z_scale=view_z_scale,
               frustum=frustum, ortho_mode=ortho_mode, unproject=unproject,
               min_rect_dim_mul_unproject=min_rect_dim_mul_unproject,
               plane_dist_sensitivity=plane_dist_sensitivity, world_to_view=world_to_view,
-              rect_size=rect_size, rect_size_inv=rect_size_inv, denoising_range=denoising_range)
+              rect_size=rect_size, rect_size_inv=rect_size_inv, denoising_range=denoising_range,
+              decoded=decoded)
     dev = build.kernel_device(penumbra_in)
     if dev is None:
         return sigma_blur_ref(penumbra_in, shadow_in, view_z_in, normal_roughness, tile, **kw)
@@ -195,12 +202,13 @@ def sigma_blur(penumbra_in, shadow_in, view_z_in, normal_roughness, tile, *, fir
               unproject, min_rect_dim_mul_unproject, plane_dist_sensitivity,
               *np.asarray(world_to_view, np.float32)[:3, :3].reshape(-1), *_v(rotator),
               *_v(rect_size), *_v(rect_size_inv), denoising_range,
-              *[g for _, _, g in DENSE_TAPS], *[v for tap in POISSON_TAPS for v in tap]]
+              *[g for _, _, g in DENSE_TAPS], *[v for tap in POISSON_TAPS for v in tap], decoded]
     # without a shadow input the kernel gets the penumbra in its place and does not read it
     shadow = shadow_in if shadow_in is not None else penumbra_in
     build.launch("nrd_sigma_blur", [penumbra_in, shadow, view_z_in, normal_roughness, tile,
                                     penumbra_out, shadow_out], consts, w, h)
     launches += 1
+    dec_launches += bool(decoded)
     return penumbra_out, shadow_out
 
 

@@ -277,6 +277,11 @@ def quantize_unorm(x, bits: int):
     return torch.round(saturate(x) * scale) / scale
 
 
+def quantize_snorm(x, bits: int):
+    scale = float((1 << (bits - 1)) - 1)
+    return torch.round(torch.clamp(x, -1.0, 1.0) * scale) / scale
+
+
 # ---------------------------------------------------------------------------
 # Filtering weights (MathLib Filtering::*)
 # ---------------------------------------------------------------------------

@@ -65,6 +65,7 @@ from ...settings import (
     CheckerboardMode,
     Denoiser,
     HitDistanceReconstructionMode,
+    NormalEncoding,
     ReblurSettings,
     ResourceType,
     RoughnessEncoding,
@@ -101,6 +102,12 @@ class ReblurDenoiser:
             raise NotImplementedError(
                 f"{config.denoiser.name} is not ported yet; the port runs "
                 + ", ".join(d.name for d in PORTED) + " (ROADMAP.md lists the next slices)")
+        if config.normal_encoding != NormalEncoding.R10_G10_B10_A2_UNORM:
+            raise NotImplementedError(
+                f"{config.denoiser.name} at {config.normal_encoding.name}: REBLUR takes "
+                "R10G10B10A2 normals only; REBLUR at the RGBA normal encodings is the next "
+                "slice (ROADMAP.md Queue 1.5: its nine kernels, K12's REBLUR calls and the TA's "
+                "bilinear previous-normal sample)")
         self.config = config
         self.device = torch.device(device)
         self.has_diffuse = "DIFFUSE" in config.denoiser.name

@@ -692,9 +692,7 @@ def make_filter_geometry(sc, dc, view_z_in, normal_roughness, config, signals=("
 
 
 def _enc_err(config):
-    """The normal encoding's error; the port takes R10G10B10A2 normals only."""
-    if config.normal_encoding.name != "R10_G10_B10_A2_UNORM":
-        raise NotImplementedError("the port takes R10G10B10A2 normals only (ROADMAP.md)")
+    """The normal encoding's error (NRD_NORMAL_ENCODING_ERROR), a host constant."""
     return nm.normal_encoding_error(int(config.normal_encoding))
 
 
@@ -981,7 +979,9 @@ def hit_dist_reconstruction(sc, dc, view_z_in, normal_roughness, diff, spec, con
     """Refill hitT == 0 holes from the 3x3 (radius 1) or 5x5 (radius 2) neighbourhood
     (`kernels.py:2212-2293`) in one `hitdist_recon` launch, which computes the centre's
     parameters itself. diff / spec: (h, w, 4) signals, (h, w, 1) with the occlusion variants,
-    or None; only the hit-distance channel changes. Returns (diff_out, spec_out)."""
+    or None; only the hit-distance channel changes. normal_roughness: the plane of
+    `frontend.decode_normal_plane` for the config's normal encoding (RELAX's calls at the RGBA
+    formats read it decoded). Returns (diff_out, spec_out)."""
     out = k_hitdist_recon.hitdist_recon(
         view_z_in, normal_roughness, diff, spec, radius=radius,
         view_z_scale=float(sc["view_z_scale"]), frustum=sc["frustum"],
@@ -989,7 +989,8 @@ def hit_dist_reconstruction(sc, dc, view_z_in, normal_roughness, diff, spec, con
         world_to_view=sc["world_to_view"],
         min_rect_dim_mul_unproject=float(sc["min_rect_dim_mul_unproject"]),
         plane_dist_sensitivity=float(dc["plane_dist_sensitivity"]), enc_err=_enc_err(config),
-        roughness_encoding=config.roughness_encoding)
+        roughness_encoding=config.roughness_encoding,
+        decoded=fe.decoded_normals(config.normal_encoding))
     return out.get("diff"), out.get("spec")
 
 

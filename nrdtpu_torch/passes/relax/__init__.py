@@ -26,12 +26,12 @@ def unpack_view_z(sc, z):
     return torch.abs(z) * float(sc["view_z_scale"])
 
 
-def unpack_nr(normal_roughness, config=None):
-    """(normal (..., 3), roughness, material id) of R10G10B10A2-packed normals."""
-    if config is None:
-        return fe.unpack_normal_roughness(normal_roughness)
-    return fe.unpack_normal_roughness(normal_roughness, config.normal_encoding,
-                                      config.roughness_encoding)
+def unpack_nr(normal_roughness, config):
+    """(normal (..., 3), roughness, material id) of the normal-roughness plane that the passes
+    read (`frontend.decode_normal_plane`): packed R10G10B10A2, or the RGBA normal encodings
+    decoded (material 0)."""
+    return fe.unpack_normal_plane(normal_roughness, fe.decoded_normals(config.normal_encoding),
+                                  config.roughness_encoding)
 
 
 def pack_prev_normal_roughness(normal, roughness):

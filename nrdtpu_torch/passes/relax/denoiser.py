@@ -21,7 +21,10 @@ accumulates slower on the pixels without data, and the dead pass-through and Spl
 the expanded input. The SH variants under checkerboard raise NotImplementedError: the JAX
 reference passes the half-width SH1 through its dead pixels unexpanded
 (`nrdtpu/passes/relax/denoiser.py:367-369`) and fails on frame 0, so the port has nothing to
-hold them against (ROADMAP.md).
+hold them against (ROADMAP.md). Every variant runs at the five normal encodings: the frame
+decodes IN_NORMAL_ROUGHNESS once (`frontend.decode_normal_plane`; at R10G10B10A2 the packed
+input itself) and every pass reads that plane, the kernels in their decoded mode at the RGBA
+encodings, with no material test (`denoiser.py:218`, `:245-247`).
 
 State (the permanent pool, all float32 as the JAX package keeps it for RELAX):
   history_length (h, w) 0..255, rounded to whole frames; normal_roughness_prev (h, w, 4) the
@@ -47,6 +50,7 @@ from ...settings import (
     RelaxSettings,
     ResourceType,
 )
+from ... import frontend as fe
 from ... import math as nm
 from ..reblur import common as RC  # cb_expand, as the JAX package shares it
 from ..reblur import kernels as RK  # hit-distance reconstruction is shared machinery
@@ -203,7 +207,9 @@ class RelaxDenoiser:
 
         sc = self._relax_sc(sc)
         view_z = inputs[RT.IN_VIEWZ]
-        normal_roughness = inputs[RT.IN_NORMAL_ROUGHNESS]
+        # the plane every pass reads: packed R10G10B10A2, or the RGBA formats decoded
+        normal_roughness = fe.decode_normal_plane(inputs[RT.IN_NORMAL_ROUGHNESS],
+                                                  cfg.normal_encoding)
         mv = inputs[RT.IN_MV]
         h, w = view_z.shape
         # checkerboard (never with SH, `specialize`): the half-width input at full width
@@ -275,7 +281,8 @@ class RelaxDenoiser:
         slow = {name: hc[name + "_slow"] for name in sigs}
         if s.enableAntiFirefly:
             slow = dict(zip(sigs, K.anti_firefly(dc, normal_roughness,
-                                                 tuple(slow[name] for name in sigs), sigs)))
+                                                 tuple(slow[name] for name in sigs), sigs,
+                                                 cfg)))
         cur = one_or_pair(slow)
         cur_sh = one_or_pair({name: hc[name + "_sh"] for name in sigs}) if self.sh else None
         iterations = int(np.clip(s.atrousIterationNum, 2, 8))

@@ -35,6 +35,14 @@ it beside the signal; the SH lerps of the TA stay glue, as in XLA. Under checker
 signals arrive expanded from half width and `checkerboard_resolve` fills the pixels without data
 before the PrePass, torch glue as in JAX; the TA takes the plane of the pixels with data
 (`has_data`) and accumulates slower on the others. Frame constants (`sc`, `dc`) are host values.
+
+`normal_roughness` is the plane of `frontend.decode_normal_plane`: the packed input at
+R10G10B10A2, or at the four RGBA normal encodings the normal decoded once a frame (.xyz) with
+the packed roughness (.w). There every pass and kernel reads the decoded plane (`decoded=` on
+the wrappers, the kernels' kDec instances), and no material test applies: the RGBA formats
+carry no material (0), and the reference's material tests are off at these encodings
+(`kernels.py:249`, `:509`, `:759`, `:1087`, `:1103`, `:1312`, `:1522`, `:1575`,
+`denoiser.py:218`).
 """
 
 from __future__ import annotations
@@ -77,6 +85,14 @@ def _v(x):
     return [float(c) for c in np.asarray(x, np.float32).reshape(-1)]
 
 
+def _normal3(p, decoded_plane):
+    """The normal of a (..., >= 3) plane as a V3: the decoded plane's .xyz as it is, or the
+    packed plane's octahedral .xy (`unpack_nr3`, `nrdtpu/passes/reblur/kernels.py:37-43`)."""
+    if decoded_plane:
+        return v3.V3(p[..., 0], p[..., 1], p[..., 2])
+    return v3.decode_oct_raw(p[..., 0], p[..., 1])
+
+
 def _frame_geometry(sc):
     """The constants every RELAX kernel reads: frustum vectors, ortho mode, viewZ scale."""
     return dict(frustum=frustum_consts(sc), ortho_mode=float(sc["ortho_mode"]),
@@ -108,7 +124,8 @@ def checkerboard_resolve(sc, dc, view_z_in, normal_roughness, has_data, signals,
     """The checkerboard resolve at the pipeline's front (`nrdtpu/passes/relax/denoiser.py:
     198-239`): each pixel without data takes its horizontal neighbours' expanded signal, each
     weighed by its bilateral viewZ weight and its material test against the centre's (the
-    smaller of the two min materials), none beyond the denoising range or off the edge
+    smaller of the two min materials; at the RGBA normal encodings every material is 0 and
+    the test passes, as the reference skips it), none beyond the denoising range or off the edge
     columns, normalized by the weights' sum (0 where both are 0). signals: (h, w, c) planes
     expanded from half width (`reblur.common.cb_expand`), or None; each is resolved with the
     same weights. Returns them in order."""
@@ -170,7 +187,8 @@ def pre_pass(sc, dc, signal, view_z_in, normal_roughness, config, which: str = "
         depth_threshold=float(dc["depth_threshold"]),
         min_material=float(dc[which + "_min_material"]), offsets=offsets,
         gaussian_weights=gauss, specular=specular,
-        roughness_encoding=config.roughness_encoding, sh=sh)
+        roughness_encoding=config.roughness_encoding, sh=sh,
+        decoded=fe.decoded_normals(config.normal_encoding))
 
 
 # ---------------------------------------------------------------------------
@@ -191,8 +209,13 @@ def _surface_motion(sc, dc, view_z_in, normal_roughness, mv_in, state, config, h
     dev = view_z_in.device
     view_z = unpack_view_z(sc, view_z_in)
     uv = resample.pixel_uv_grid(h, w, dev)
-    n3 = v3.decode_oct_raw(normal_roughness[..., 0], normal_roughness[..., 1])
-    material_id = normal_roughness[..., 3] * 3.0
+    # unpack_nr3: packed, the roughness as packed; decoded, the roughness decoded
+    dec = fe.decoded_normals(config.normal_encoding)
+    n3 = _normal3(normal_roughness, dec)
+    if dec:
+        _, roughness, material_id = unpack_nr(normal_roughness, config)
+    else:
+        roughness, material_id = normal_roughness[..., 2], normal_roughness[..., 3] * 3.0
     u_p, v_p = uv[..., 0], uv[..., 1]
     x3 = world_pos_from_uv3(sc, u_p, v_p, view_z)
     ortho = float(sc["ortho_mode"])
@@ -265,7 +288,7 @@ def _surface_motion(sc, dc, view_z_in, normal_roughness, mv_in, state, config, h
         sh_histories, view_z_scale=float(sc["view_z_scale"]), rect_size_prev=rect_prev,
         resource_size=_v(sc["resource_size"]),
         min_material=float(min(F32(dc["spec_min_material"]), F32(dc["diff_min_material"]))),
-        world_prev_to_world=sc["world_prev_to_world"])
+        world_prev_to_world=sc["world_prev_to_world"], decoded=dec)
     history_length = smb["history_length"]
     footprint_quality = smb["footprint_quality"]
 
@@ -292,7 +315,7 @@ def _surface_motion(sc, dc, view_z_in, normal_roughness, mv_in, state, config, h
     history_length = torch.clamp_max(history_length, float(max_frames))
     return dict(smb=smb, history_length=history_length, has_data=has_data,
                 cbra=F32(sc["checkerboard_resolve_accum_speed"]), parallax_max=parallax_max,
-                view_z=view_z, n3=n3, x3=x3, xp3=xp3,
+                view_z=view_z, n3=n3, x3=x3, xp3=xp3, decoded=dec, roughness=roughness,
                 cd3=cd3, v_3=v_3, v_prev=v_prev, view_vec3=view_vec3, nov=nov,
                 material_id=material_id, u_p=u_p, v_p=v_p, smb_u=smb_u, smb_v=smb_v,
                 uv_smb=uv_smb, p1u=p1u, p1v=p1v, parallax1=parallax1,
@@ -395,7 +418,8 @@ def _curvature(sc, g, normal_roughness, view_z_in):
     """The curvature along the predicted motion (`kernels.py:626-700`): the edge points of
     the pixel's plane at the next texels, or where the parallax is high the texel dulf pixels
     along the motion, fetched nearest in one `nearest_multi` launch (S = 1) from a (h, w, 4)
-    plane of (raw viewZ, packed normal x, y, 0)."""
+    plane of raw viewZ and the plane's .xyz, whose normal is read as `_normal3` reads it (the
+    decoded one as it is, `nrdtpu/passes/relax/kernels.py:650-656`, `:686-690`)."""
     h, w = view_z_in.shape
     ortho = float(sc["ortho_mode"])
     is_persp = ortho == 0.0
@@ -423,8 +447,8 @@ def _curvature(sc, g, normal_roughness, view_z_in):
     x01 = edge_point(0.0, 1.0)
     nr01 = stencil.shifted(normal_roughness, 0, 1)
     nr10 = stencil.shifted(normal_roughness, 1, 0)
-    n10 = v3.decode_oct_raw(nr01[..., 0], nr01[..., 1])
-    n01 = v3.decode_oct_raw(nr10[..., 0], nr10[..., 1])
+    n10 = _normal3(nr01, g["decoded"])
+    n01 = _normal3(nr10, g["decoded"])
     wmx = torch.abs(dux) + 1.0 / 256.0
     wmy = torch.abs(duy) + 1.0 / 256.0
     wnorm = 1.0 / (wmx + wmy)
@@ -438,11 +462,10 @@ def _curvature(sc, g, normal_roughness, view_z_in):
     mu = (torch.floor((u_p + dulf * dux * riw_) * rw_) + 0.5) * riw_
     mv_ = (torch.floor((v_p + dulf * duy * rih_) * rh_) + 0.5) * rih_
     in_screen_high = (mu > 0.0) & (mu < 1.0) & (mv_ > 0.0) & (mv_ < 1.0)
-    zn = torch.stack([view_z_in, normal_roughness[..., 0], normal_roughness[..., 1],
-                      torch.zeros_like(view_z_in)], -1)
+    zn = torch.cat([view_z_in[..., None], normal_roughness[..., :3]], -1)
     high = k_nearest_multi.nearest_multi(zn, torch.stack([mu, mv_], -1)[None])[0]
     z_high = unpack_view_z(sc, high[..., 0])
-    n_high = v3.decode_oct_raw(high[..., 1], high[..., 2])
+    n_high = _normal3(high[..., 1:], g["decoded"])
     x_high = world_pos_from_uv3(sc, mu, mv_, z_high)
     z_err = torch.abs(z_high - view_z) / torch.clamp_min(torch.maximum(z_high, view_z), 1e-15)
     rep = (z_err < NRD_CURVATURE_Z_THRESHOLD) & (dulf > 1.0) & in_screen_high
@@ -502,7 +525,7 @@ def _specular_accumulation(sc, dc, g, normal_roughness, view_z_in, spec, state, 
     rect = _v(sc["rect_size"])
     rect_prev = _v(sc["rect_size_prev"])
     res_prev = _v(sc["resolution_scale_prev"])
-    roughness = normal_roughness[..., 2]
+    roughness = g["roughness"]
     n, x, x_prev, v = _arr(g["n3"]), _arr(g["x3"]), _arr(g["xp3"]), _arr(g["v_3"])
     uv_smb = g["uv_smb"]
 
@@ -544,7 +567,8 @@ def _specular_accumulation(sc, dc, g, normal_roughness, view_z_in, spec, state, 
         *_sh_histories(state, ("spec",), sh is not None),
         prev_frustum=frustum_consts(sc, prev=True), ortho_mode=ortho,
         view_z_scale=float(sc["view_z_scale"]), rect_size_prev=rect_prev,
-        resolution_scale_prev=res_prev, min_material=float(dc["spec_min_material"]))
+        resolution_scale_prev=res_prev, min_material=float(dc["spec_min_material"]),
+        decoded=g["decoded"])
     vmb_any = vmb["any"] > 0.0
     vmb_found = vmb["all"]
     prev_normal_vmb, prev_roughness_vmb = _normal_to_this_frame(sc, vmb["nr_packed"])
@@ -731,7 +755,8 @@ def history_fix(sc, dc, view_z_in, normal_roughness, history_length, signal, con
         frame_num=float(dc["history_fix_frame_num"]),
         normal_power=float(dc["history_fix_edge_stopping_normal_power"]),
         min_material=min_material, specular=specular,
-        roughness_encoding=config.roughness_encoding, sh=sh)
+        roughness_encoding=config.roughness_encoding, sh=sh,
+        decoded=fe.decoded_normals(config.normal_encoding))
 
 
 # ---------------------------------------------------------------------------
@@ -791,13 +816,16 @@ def history_clamping(sc, dc, view_z_in, noisy, slow, fast, fixed, history_length
 # ---------------------------------------------------------------------------
 
 
-def anti_firefly(dc, normal_roughness, signals, which):
+def anti_firefly(dc, normal_roughness, signals, which, config=None):
     """RCRS of each slow history over its material-matched 3x3 (`kernels.py:1279-1330`): one
     `relax_antifirefly` launch for every signal; `which` names each signal ("diff" /
-    "spec"). Returns a tuple of (h, w, 4)."""
+    "spec"); at the RGBA normal encodings of `config` (R10G10B10A2 where None)
+    normal_roughness is the decoded plane (no material test). Returns a tuple of
+    (h, w, 4)."""
     return k_antifirefly.relax_antifirefly(
         normal_roughness, signals,
-        min_materials=[float(dc[wh + "_min_material"]) for wh in which])
+        min_materials=[float(dc[wh + "_min_material"]) for wh in which],
+        decoded=config is not None and fe.decoded_normals(config.normal_encoding))
 
 
 # ---------------------------------------------------------------------------
@@ -848,7 +876,8 @@ def atrous(sc, dc, view_z_in, normal_roughness, history_length, signal, config, 
             float(dc["confidence_driven_relaxation_multiplier"]),
             float(dc["confidence_driven_normal_edge_stopping_relaxation"]),
             float(dc["confidence_driven_luminance_edge_stopping_relaxation"])),
-        specular=specular, roughness_encoding=config.roughness_encoding, sh=sh)
+        specular=specular, roughness_encoding=config.roughness_encoding, sh=sh,
+        decoded=fe.decoded_normals(config.normal_encoding))
     if sh is None:
         return out
     n = len(names)

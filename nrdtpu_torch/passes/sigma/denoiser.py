@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ... import frontend as fe
 from ...config import requantize_state
 from ...settings import SIGMA_MAX_HISTORY_FRAME_NUM, Denoiser, ResourceType, SigmaSettings
 from . import kernels as K
@@ -59,7 +60,10 @@ class SigmaDenoiser:
     def frame(self, sc: dict, dc: dict, state: dict, inputs: dict):
         penumbra = inputs[RT.IN_PENUMBRA]
         view_z = inputs[RT.IN_VIEWZ]
-        normal_roughness = inputs[RT.IN_NORMAL_ROUGHNESS]
+        # the normal plane Blur and PostBlur read: packed R10G10B10A2, or the RGBA formats
+        # decoded (`frontend.decode_normal_plane`)
+        enc = self.config.normal_encoding
+        normal_roughness = fe.decode_normal_plane(inputs[RT.IN_NORMAL_ROUGHNESS], enc)
         mv = inputs.get(RT.IN_MV)
         translucency = inputs.get(RT.IN_TRANSLUCENCY) if self.translucent else None
         h, w = view_z.shape
@@ -67,9 +71,9 @@ class SigmaDenoiser:
         tiles_smoothed = K.smooth_tiles(K.classify_tiles(sc, penumbra, view_z, translucency))
         tile = K.tile_planes(sc, tiles_smoothed, h, w)
         penum1, shadow1 = K.blur(sc, dc, penumbra, translucency, view_z, normal_roughness, tile,
-                                 first_pass=True)
+                                 first_pass=True, decoded=fe.decoded_normals(enc))
         penum2, shadow2 = K.blur(sc, dc, penum1, shadow1, view_z, normal_roughness, tile,
-                                 first_pass=False)
+                                 first_pass=False, decoded=fe.decoded_normals(enc))
         if self._stabilization and mv is not None:
             if mv.shape[-1] == 2:
                 mv = torch.cat([mv, torch.zeros_like(mv[..., :1])], -1)

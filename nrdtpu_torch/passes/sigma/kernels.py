@@ -82,14 +82,16 @@ def _blur_consts(sc, dc, first_pass):
                 rect_size_inv=sc["rect_size_inv"], denoising_range=float(sc["denoising_range"]))
 
 
-def blur(sc, dc, penumbra_in, shadow_in, view_z_in, normal_roughness, tile, *, first_pass):
+def blur(sc, dc, penumbra_in, shadow_in, view_z_in, normal_roughness, tile, *, first_pass,
+         decoded=False):
     """Dense 5x5 penumbra estimation + sparse 8-tap Poisson shadow filter (`kernels.py:133`),
     one `sigma_blur` launch. shadow_in: None on the first pass of SIGMA_SHADOW (then
     IsLit(penumbra)), the packed translucency on the first pass of
-    SIGMA_SHADOW_TRANSLUCENCY, the sqrt-packed Blur output on PostBlur. Returns
-    (penumbra_out, shadow_packed_out)."""
+    SIGMA_SHADOW_TRANSLUCENCY, the sqrt-packed Blur output on PostBlur. decoded:
+    normal_roughness is the RGBA formats' decoded plane (`frontend.decode_normal_plane`).
+    Returns (penumbra_out, shadow_packed_out)."""
     return k_sigma_blur.sigma_blur(penumbra_in, shadow_in, view_z_in, normal_roughness, tile,
-                                   **_blur_consts(sc, dc, first_pass))
+                                   **_blur_consts(sc, dc, first_pass), decoded=decoded)
 
 
 def temporal_stabilization(sc, dc, view_z_in, mv_in, penumbra, shadow_packed, history_packed,

@@ -260,14 +260,22 @@ class SceneGenerator:
             spec_clean=spec_clean, spec_noisy=spec_noisy, spec_hit_dist=spec_hit_dist,
             common_settings=cs, view_to_clip=view_to_clip, world_to_view=world_to_view)
 
-    def packed_normal_roughness(self, fd: FrameData,
-                                ne=NormalEncoding.R10_G10_B10_A2_UNORM,
-                                re_=RoughnessEncoding.LINEAR):
+    @staticmethod
+    def packed_normal_roughness(fd: FrameData, ne=NormalEncoding.R10_G10_B10_A2_UNORM,
+                                re_=RoughnessEncoding.LINEAR, sky_normal=None):
+        """IN_NORMAL_ROUGHNESS of a frame at the encodings (members or their names),
+        quantized; `sky_normal` replaces the scene's normal of 0 where no geometry was hit
+        (the SNORM encodings pack a zero normal as 0, which decodes to 0)."""
         import torch
 
         from .. import frontend as fe
 
+        ne = NormalEncoding[ne] if isinstance(ne, str) else ne
+        re_ = RoughnessEncoding[re_] if isinstance(re_, str) else re_
+        n = np.asarray(fd.normal, np.float32)
+        if sky_normal is not None:
+            n = np.where(fd.hit_mask[..., None] == 0, np.float32(sky_normal), n)
         return fe.pack_normal_roughness(
-            torch.from_numpy(fd.normal), torch.from_numpy(fd.roughness),
-            torch.from_numpy(fd.material_id), normal_encoding=ne, roughness_encoding=re_,
-            quantized=True).numpy()
+            torch.from_numpy(n), torch.from_numpy(np.asarray(fd.roughness, np.float32)),
+            torch.from_numpy(np.asarray(fd.material_id, np.float32)), normal_encoding=ne,
+            roughness_encoding=re_, quantized=True).numpy()

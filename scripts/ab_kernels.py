@@ -53,7 +53,8 @@ change are compared on the same measure.
 Per side it prints each device kernel's registers and spill bytes (ptxas) and SASS
 instruction count (cuobjdump), the largest loop of each (its instructions between a
 backward branch and its target), and writes the SASS of the filter kernels (REBLUR's, H1's,
-H4's, N3's, K12's, K13's, K14's, K15's, K16's, K17's, K19's and K20's: `SASS_KERNELS`) and a JSON
+H4's, N3's, K12's, K13's, K14's, K15's, K16's, K17's, K19's, K20's, K21's and K22's:
+`SASS_KERNELS`) and a JSON
 of every number to `--out`. Recording the calls, holding a kernel to its plain version,
 timing, the build log's ptxas lines and the SASS listing are `chip_smoke.py`'s own
 (`recording`, `disagreement`, `time_ms`, `ptxas_usage`, `sass_listing`), so that both
@@ -89,7 +90,7 @@ VARIANT_SOURCES = ("history_fix_fused.cu", "spatial_filter_fused.cu", "reblur_ba
                    "ts_prelude.cu", "hitdist_recon.cu", "relax_atrous.cu")
 SASS_KERNELS = re.compile(
     r"history_fix|spatial_filter|reblur_band|sigma_blur|sigma_ts|smb_resolve|vmb_resolve|"
-    r"relax_prepass|relax_clamp_moments|ts_prelude|hitdist_recon|relax_atrous")
+    r"relax_prepass|relax_clamp_moments|ts_prelude|hitdist_recon|relax_atrous|relax_antifirefly")
 DS = "REBLUR_DIFFUSE_SPECULAR"
 BAND = DS + "+BAND"  # chip_smoke.PATHS: the pool and environment (the band's switch)
 # the pass functions whose calls are timed beside the kernels' (glue and launch), by the

@@ -7,7 +7,8 @@ and the change (registers, spill bytes, CTAs an SM, SASS instructions, loop bodi
 A change that appends a template parameter with a default to a kernel gives its existing
 instances one more template argument; `KERNEL=N` names such a kernel and the number of
 arguments it gained, so that a change instance whose trailing N arguments are all `false` or
-`0` is matched to the parent instance without them. Prints every parent instance whose usage
+`0` is matched to the parent instance without them (to the plain name where the parent's kernel
+was no template). Prints every parent instance whose usage
 moved, every instance the change adds, and a summary line; exits 1 if a parent instance moved
 or is missing."""
 
@@ -33,7 +34,8 @@ def main():
         if n and args:
             vals = args[:-1].split(", ")
             if all(v in ("false", "0") for v in vals[-n:]):
-                name = f"{base}<{', '.join(vals[:-n])}>"
+                # a kernel that was no template before: its name alone
+                name = f"{base}<{', '.join(vals[:-n])}>" if vals[:-n] else base
         mapped.setdefault(name, usage)
     moved = [k for k in parent if k in mapped and mapped[k] != parent[k]]
     missing = [k for k in parent if k not in mapped]

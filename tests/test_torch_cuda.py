@@ -20,8 +20,11 @@ launcher's `box` body on 1 and 4 channels at two blocks)
 and is held against its plain PyTorch version on the same card; the Engine on the card is held
 against the Engine on the CPU, for every path and output (the checkerboard paths of REBLUR,
 under NRDTPU_REBLUR_BAND=1 too, and of RELAX included), and RELAX_DIFFUSE_SPECULAR's outputs
-on the card against RELAX_DIFFUSE's and RELAX_SPECULAR's on the card (with SH likewise). Run on
-a machine with an H100:
+on the card against RELAX_DIFFUSE's and RELAX_SPECULAR's on the card (with SH likewise). At the
+RGBA normal encodings (`RGBA_PATHS`: RELAX_DIFFUSE, RELAX_SPECULAR, RELAX_DIFFUSE_SPECULAR, two
+SH variants and both SIGMA variants, with AREA_3X3 / AREA_5X5 and the anti-firefly pass) each
+kernel's decoded-plane instances are held against the plain versions, and the Engine on the card
+against the Engine on the CPU. Run on a machine with an H100:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 
@@ -40,7 +43,7 @@ from nrdtpu_torch import kernels as KM
 from nrdtpu_torch.engine import Engine
 from nrdtpu_torch.settings import CheckerboardMode as CB
 from nrdtpu_torch.settings import Denoiser, HitDistanceReconstructionMode, ResourceType as RT
-from nrdtpu_torch.settings import replace
+from nrdtpu_torch.settings import NormalEncoding, replace
 from nrdtpu_torch.utils.scene import SceneGenerator, SceneSpec
 
 # the tensors here are small: one intra-op thread, so that test workers do not contend
@@ -396,6 +399,101 @@ def test_engine_card_matches_cpu_occlusion(cuda, denoiser, settings, band, monke
         for rt in _outs(denoiser):
             a, b = outs[0][rt].cpu().double(), outs[1][rt].cpu().double()
             assert a.shape == (SIZE[1], SIZE[0], 1)
+            mse = float(((a - b) ** 2).mean())
+            peak = float(b.abs().max())
+            assert mse == 0.0 or 10.0 * np.log10(peak * peak / mse) >= 50.0, rt
+
+
+# The RGBA normal encodings: (denoiser, normal encoding, settings, inputs with holes) of the
+# paths whose kernels read the decoded plane (`kDec`), the SNORM ones with the sky's normal
+# (0, 0, 1) (`tests/test_torch_relax_enc_slice.py` says why)
+RGBA_PATHS = [(Denoiser.RELAX_DIFFUSE_SPECULAR, NormalEncoding.RGBA8_UNORM, AREA_3X3, True),
+              (Denoiser.RELAX_DIFFUSE_SPECULAR, NormalEncoding.RGBA16_SNORM,
+               dict(enableAntiFirefly=True), False),
+              (Denoiser.RELAX_SPECULAR, NormalEncoding.RGBA8_SNORM, AREA_5X5, True),
+              (Denoiser.RELAX_DIFFUSE, NormalEncoding.RGBA16_UNORM, {}, False),
+              (Denoiser.RELAX_SPECULAR_SH, NormalEncoding.RGBA8_SNORM, {}, False),
+              (Denoiser.RELAX_DIFFUSE_SPECULAR_SH, NormalEncoding.RGBA16_UNORM, {}, False),
+              (Denoiser.SIGMA_SHADOW, NormalEncoding.RGBA8_SNORM, {}, False),
+              (Denoiser.SIGMA_SHADOW_TRANSLUCENCY, NormalEncoding.RGBA8_UNORM, {}, False)]
+
+
+def _rgba_pools(denoiser, encoding, n, holes=False):
+    """`_pools` with IN_NORMAL_ROUGHNESS packed at the RGBA encoding (quantized)."""
+    gen = SceneGenerator(SceneSpec(size=SIZE, noise=0.4), camera_mode="orbit")
+    for i, (cs, pool) in enumerate(_pools(denoiser, n, holes)):
+        sky = (0.0, 0.0, 1.0) if encoding in fe.SNORM_ENCODINGS else None
+        pool[RT.IN_NORMAL_ROUGHNESS] = gen.packed_normal_roughness(gen.frame(i), encoding,
+                                                                   sky_normal=sky)
+        yield cs, pool
+
+
+def _rgba_engine(denoiser, encoding, device, settings):
+    eng = Engine({0: denoiser}, resource_size=SIZE, device=device, normal_encoding=encoding)
+    if denoiser not in SIGMA:
+        eng.set_denoiser_settings(0, replace(eng._settings[0], **settings))
+    return eng
+
+
+@pytest.fixture(scope="module")
+def recorded_dec(cuda):
+    """The last frame's calls of the kernels with a decoded mode on every RGBA path."""
+    calls = []
+    names = [name.removesuffix("_dec") for name in KM.DEC_INSTANCES]
+    originals = {n: getattr(KM.MODULES[n], n) for n in names}
+    for denoiser, encoding, settings, holes in RGBA_PATHS:
+        eng = _rgba_engine(denoiser, encoding, cuda, settings)
+        pools = list(_rgba_pools(denoiser, encoding, 4, holes))
+        try:
+            for i, (cs, pool) in enumerate(pools):
+                if i == len(pools) - 1:
+                    for n in names:
+                        def rec(*a, _n=n, _f=originals[n], **k):
+                            calls.append((_n, a, k))
+                            return _f(*a, **k)
+                        setattr(KM.MODULES[n], n, rec)
+                eng.set_common_settings(cs)
+                eng.denoise([0], pool)
+        finally:
+            for n in names:
+                setattr(KM.MODULES[n], n, originals[n])
+    return calls
+
+
+@pytest.mark.parametrize("name", sorted(KM.DEC_INSTANCES))
+def test_dec_instance_matches_plain_version(recorded_dec, name):
+    """Each kernel's decoded-plane instances (`kDec`) on the RGBA paths' inputs."""
+    kernel = name.removesuffix("_dec")
+    calls = [(a, k) for n, a, k in recorded_dec if n == kernel]
+    assert calls and all(k["decoded"] for _, k in calls)
+    mod = KM.MODULES[kernel]
+    for a, k in calls:
+        before = mod.dec_launches
+        got = _flat(getattr(mod, kernel)(*a, **k))
+        assert mod.dec_launches == before + 1
+        want = _flat(getattr(mod, kernel + "_ref")(*a, **k))
+        torch.cuda.synchronize()
+        for key, w in want.items():
+            g, w = got[key].float(), w.float()
+            over = ((g - w).abs() > ATOL + RTOL * w.abs()).float().mean().item()
+            assert over <= FLIP_FRACTION, f"{name}.{key}: {over:.3g} of values out of tolerance"
+
+
+@pytest.mark.parametrize("denoiser,encoding,settings,holes", RGBA_PATHS,
+                         ids=[f"{d.name}-{e.name}" for d, e, _, _ in RGBA_PATHS])
+def test_engine_card_matches_cpu_rgba(cuda, denoiser, encoding, settings, holes):
+    """RELAX and SIGMA at the RGBA normal encodings: the Engine on the card against the Engine
+    on the CPU, every output >= 50 dB."""
+    card = _rgba_engine(denoiser, encoding, cuda, settings)
+    cpu = _rgba_engine(denoiser, encoding, "cpu", settings)
+    for cs, pool in _rgba_pools(denoiser, encoding, 4, holes):
+        outs = []
+        for eng in (card, cpu):
+            eng.set_common_settings(cs)
+            outs.append(eng.denoise([0], pool))
+        for rt in _outs(denoiser):
+            a, b = outs[0][rt].cpu().double(), outs[1][rt].cpu().double()
+            assert bool(torch.isfinite(a).all())
             mse = float(((a - b) ** 2).mean())
             peak = float(b.abs().max())
             assert mse == 0.0 or 10.0 * np.log10(peak * peak / mse) >= 50.0, rt
