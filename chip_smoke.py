@@ -37,8 +37,14 @@ RGBA16_SNORM with the anti-firefly pass, RELAX_SPECULAR_SH at RGBA8_SNORM and
 SIGMA_SHADOW_TRANSLUCENCY at RGBA8_UNORM, IN_NORMAL_ROUGHNESS packed with
 `pack_normal_roughness(..., quantized=True)` at the encoding (the SNORM ones with the sky's
 normal (0, 0, 1): with the scene's own sky normal of 0 RELAX's specular TA divides 0 by 0 there,
-in the port as in the JAX reference, `snorm_sky_fault`); the denoisers decode it once a frame
-and the kernels read it in their decoded modes (`kDec`), counted apart as `<kernel>_dec`
+in the port as in the JAX reference, `snorm_sky_fault`), and REBLUR_DIFFUSE_SPECULAR at
+RGBA8_UNORM and at RGBA16_SNORM, REBLUR_DIFFUSE_SPECULAR_SH at RGBA8_SNORM and
+REBLUR_DIFFUSE_SPECULAR_OCCLUSION with AREA_3X3 on AO frames with holes at RGBA16_UNORM (the
+specular TA's previous normals bilinear from the packed previous plane, `bilinear_resolve`, in
+place of nearest_multi's stochastic fetch), REBLUR_DIFFUSE at RGBA16_UNORM, REBLUR_SPECULAR at
+RGBA8_SNORM and REBLUR_DIFFUSE_SPECULAR with NRDTPU_REBLUR_BAND=1 at RGBA8_SNORM (H2's, H3's and
+K23's decoded instances); the denoisers decode it once a frame and the kernels
+read it in their decoded modes (`kDec`), counted apart as `<kernel>_dec`
 (`kernels.DEC_INSTANCES`).
 
 Phases, each of which raises on failure (exit code != 0):
@@ -96,8 +102,11 @@ Phases, each of which raises on failure (exit code != 0):
      RELAX_DIFFUSE_SPECULAR_SH at an RGBA encoding each, held), each recorded call of K12,
      K15, K19 and K22 also held at the two other roughness encodings and K12's at the other
      radius and on each signal alone (`dec_variants`), so that every kDec instance is held,
-     listed apart as `<kernel>_dec`; then the band of REBLUR_DIFFUSE_SPECULAR+BAND, by
-     default, with the anti-firefly ring and in performance mode, each timed beside the
+     listed apart as `<kernel>_dec`; the same for REBLUR's kDec instances (H1, N1, N3, H2, H3,
+     H4, N4, N5, K23 and K12's one-channel ones) on NORMAL_ENCODED's seven REBLUR paths (timed)
+     and on DEC_RUNS' REBLUR runs (every variant, checkerboard, the band, held), each call of
+     H2, N4 and K23 also held at the other tap count (`dec_variants`); then the band of
+     REBLUR_DIFFUSE_SPECULAR+BAND, by default, with the anti-firefly ring and in performance mode, each timed beside the
      three-launch chain it replaces (the history fix, its clamp, the Blur and PostBlur
      parameters and two spatial-filter launches, glue included) on the same inputs; then the
      halo launcher (its `box` body on 1 and 4 channels, halo 4, blocks 64x256 and 16x16, at the
@@ -130,7 +139,9 @@ Phases, each of which raises on failure (exit code != 0):
      AREA_3X3 on the AO with holes (`DIR_EXTRA`), of REBLUR_SPECULAR and REBLUR_DIFFUSE_SPECULAR
      at both encodings, and of REFERENCE on a static camera (plain torch ops on both, no
      kernel); and RELAX_SPECULAR at RGBA8_SNORM on the scene's own sky normal of 0 on both,
-     with the non-finite values each gives printed (`snorm_sky_fault`, no bar).
+     with the non-finite values each gives printed (`snorm_sky_fault`, no bar on the
+     reference's fault), every card call held against its plain version there: K20
+     `relax_clamp_moments` must give non-finite values exactly where its plain version does.
 
 With `--profile` it also traces 3 frames of each path (after 4 warm-up) with
 torch.profiler and prints the device time a frame, the device's idle share against the
@@ -233,6 +244,25 @@ SOURCES = {
                           "nrdtpu/passes/reblur/kernels.py:2212"),
     "sigma_blur_dec": ("nrdtpu_torch/kernels/csrc/sigma_blur.cu",
                        "nrdtpu/kernels/sigma_blur2.py:281", "nrdtpu/passes/sigma/kernels.py:133"),
+    # REBLUR's kDec instances: the TPU kernels' mat_occ=False modes (which the TPU path leaves
+    # to XLA at these encodings, nrdtpu/passes/reblur/denoiser.py:204-207); N1 and H4 read the
+    # roughness from .w (the XLA functions nrdtpu/passes/reblur/kernels.py:1017, :2314)
+    "smb_resolve_dec": ("nrdtpu_torch/kernels/csrc/smb_resolve.cu", f"{P}:603", None),
+    "spec_ta_head_dec": ("nrdtpu_torch/kernels/csrc/spec_ta_head.cu", f"{P}:942",
+                         "nrdtpu/passes/reblur/kernels.py:1017"),
+    "vmb_resolve_dec": ("nrdtpu_torch/kernels/csrc/vmb_resolve.cu", f"{P}:798", None),
+    "spatial_filter_dec": ("nrdtpu_torch/kernels/csrc/spatial_filter.cu", f"{P}:1223",
+                           "nrdtpu/kernels/reblur_blur2.py:264"),
+    "history_fix_dec": ("nrdtpu_torch/kernels/csrc/history_fix.cu", f"{P}:1459",
+                        "nrdtpu/kernels/reblur_hfix2.py:222"),
+    "ts_prelude_dec": ("nrdtpu_torch/kernels/csrc/ts_prelude.cu", f"{P}:1754",
+                       "nrdtpu/passes/reblur/kernels.py:2314"),
+    "spatial_filter_fused_dec": ("nrdtpu_torch/kernels/csrc/spatial_filter_fused.cu", f"{F}:161",
+                                 None),
+    "history_fix_fused_dec": ("nrdtpu_torch/kernels/csrc/history_fix_fused.cu", f"{F}:389",
+                              None),
+    "reblur_band_dec": ("nrdtpu_torch/kernels/csrc/reblur_band.cu",
+                        "nrdtpu/kernels/reblur_band.py:203", "nrdtpu/kernels/reblur_band.py:299"),
 }
 # the kernels that no main path launches (as in the JAX package); a phase of their own
 # holds them
@@ -320,6 +350,13 @@ PATHS = {
 RS_DEC = {"relax_prepass_dec": 1, "relax_smb_resolve_dec": 1, "relax_vmb_resolve_dec": 1,
           "relax_history_fix_dec": 1, "relax_atrous_dec": 5}
 RDS_DEC = {**RS_DEC, "relax_prepass_dec": 2}
+# REBLUR at the RGBA formats: the specular TA's previous normals from bilinear_resolve in place
+# of nearest_multi; ts_prelude_dec counts TS's specular half (the diffuse half reads no normal)
+REBLUR_RGBA = {"nearest_multi": 0, "bilinear_resolve": 1, "smb_resolve_dec": 1,
+               "spec_ta_head_dec": 1, "vmb_resolve_dec": 1}
+DS_DEC = {**REBLUR_RGBA, "spatial_filter_fused_dec": 3, "history_fix_fused_dec": 1,
+          "ts_prelude_dec": 1}
+DS_OCC_DEC = {**REBLUR_RGBA, "spatial_filter_fused_dec": 2, "history_fix_fused_dec": 1}
 NORMAL_ENCODED = {
     "RELAX_DIFFUSE_SPECULAR+RGBA8_UNORM": dict(
         denoiser="RELAX_DIFFUSE_SPECULAR", signals=("diff", "spec"), relax=True, holes=True,
@@ -336,6 +373,37 @@ NORMAL_ENCODED = {
     "SIGMA_SHADOW_TRANSLUCENCY+RGBA8_UNORM": dict(
         denoiser="SIGMA_SHADOW_TRANSLUCENCY", signals=("shadow",), normal_encoding="RGBA8_UNORM",
         launches={**SIGMA_LAUNCHES, "sigma_blur_dec": 2}),
+    "REBLUR_DIFFUSE_SPECULAR+RGBA8_UNORM": dict(
+        denoiser="REBLUR_DIFFUSE_SPECULAR", signals=("diff", "spec"),
+        normal_encoding="RGBA8_UNORM", launches={**DS_LAUNCHES, **DS_DEC}),
+    "REBLUR_DIFFUSE_SPECULAR+RGBA16_SNORM": dict(
+        denoiser="REBLUR_DIFFUSE_SPECULAR", signals=("diff", "spec"),
+        normal_encoding="RGBA16_SNORM", launches={**DS_LAUNCHES, **DS_DEC}),
+    "REBLUR_DIFFUSE_SPECULAR_SH+RGBA8_SNORM": dict(
+        denoiser="REBLUR_DIFFUSE_SPECULAR_SH", signals=("diff", "spec"), sh=True,
+        normal_encoding="RGBA8_SNORM", launches={**DS_LAUNCHES, **DS_DEC}),
+    "REBLUR_DIFFUSE_SPECULAR_OCCLUSION+AREA_3X3+RGBA16_UNORM": dict(
+        denoiser="REBLUR_DIFFUSE_SPECULAR_OCCLUSION", signals=("diff", "spec"), occ=True,
+        holes=True, normal_encoding="RGBA16_UNORM",
+        settings=dict(hitDistanceReconstructionMode="AREA_3X3"),
+        launches={**DS_OCC_LAUNCHES, **DS_OCC_DEC, "hitdist_recon": 1,
+                  "hitdist_recon_dec": 1}),
+    # the one-signal paths (H2's and H3's kDec instances) and the band (K23's); TS's specular
+    # half with a responsive threshold, so that its roughness read matters
+    "REBLUR_DIFFUSE+RGBA16_UNORM": dict(
+        denoiser="REBLUR_DIFFUSE", signals=("diff",), normal_encoding="RGBA16_UNORM",
+        launches={**D_LAUNCHES, "smb_resolve_dec": 1, "spatial_filter_dec": 3,
+                  "history_fix_dec": 1}),
+    "REBLUR_SPECULAR+RGBA8_SNORM": dict(
+        denoiser="REBLUR_SPECULAR", signals=("spec",), normal_encoding="RGBA8_SNORM",
+        settings=dict(responsiveAccumulationRoughnessThreshold=0.5),
+        launches={**S_LAUNCHES, **REBLUR_RGBA, "spatial_filter_dec": 3, "history_fix_dec": 1,
+                  "ts_prelude_dec": 1}),
+    "REBLUR_DIFFUSE_SPECULAR+BAND+RGBA8_SNORM": dict(
+        denoiser="REBLUR_DIFFUSE_SPECULAR", signals=("diff", "spec"),
+        normal_encoding="RGBA8_SNORM", env={"NRDTPU_REBLUR_BAND": "1"},
+        launches={**BAND_LAUNCHES, **REBLUR_RGBA, "spatial_filter_fused_dec": 1,
+                  "reblur_band_dec": 1, "ts_prelude_dec": 1}),
 }
 PATHS.update(NORMAL_ENCODED)
 SNORM = ("RGBA8_SNORM", "RGBA16_SNORM")
@@ -356,6 +424,41 @@ DEC_RUNS = {
     "RELAX_DIFFUSE_SPECULAR_SH+RGBA16_UNORM": dict(
         denoiser="RELAX_DIFFUSE_SPECULAR_SH", signals=("diff", "spec"), relax=True, sh=True,
         normal_encoding="RGBA16_UNORM"),
+    # REBLUR: with NORMAL_ENCODED's seven REBLUR paths every kDec instance's structure: H1
+    # with one and two signals, SH and one channel; N3 plain, SH and one channel; H2's stages
+    # on each signal plain, SH, checkerboard and one channel (and at the other tap count,
+    # `dec_variants`); H3 on each signal plain, with the ring, SH, one channel and the
+    # directional clamp; N4, N5 and K23 plain, SH, checkerboard (N4) and one channel
+    "REBLUR_DIFFUSE+RING+RGBA8_SNORM": dict(denoiser="REBLUR_DIFFUSE", signals=("diff",),
+                                            normal_encoding="RGBA8_SNORM",
+                                            settings=dict(enableAntiFirefly=True)),
+    "REBLUR_DIFFUSE_SH+RGBA16_SNORM": dict(denoiser="REBLUR_DIFFUSE_SH", signals=("diff",),
+                                           sh=True, normal_encoding="RGBA16_SNORM"),
+    "REBLUR_SPECULAR_SH+RGBA8_UNORM": dict(denoiser="REBLUR_SPECULAR_SH", signals=("spec",),
+                                           sh=True, normal_encoding="RGBA8_UNORM"),
+    "REBLUR_DIFFUSE+CB+RGBA8_UNORM": dict(denoiser="REBLUR_DIFFUSE", signals=("diff",),
+                                          cb="WHITE", normal_encoding="RGBA8_UNORM",
+                                          settings=dict(checkerboardMode="WHITE")),
+    "REBLUR_SPECULAR+CB+RGBA16_SNORM": dict(denoiser="REBLUR_SPECULAR", signals=("spec",),
+                                            cb="BLACK", normal_encoding="RGBA16_SNORM",
+                                            settings=dict(checkerboardMode="BLACK")),
+    "REBLUR_DIFFUSE_SPECULAR+CB+RGBA16_UNORM": dict(
+        denoiser="REBLUR_DIFFUSE_SPECULAR", signals=("diff", "spec"), cb="BLACK",
+        normal_encoding="RGBA16_UNORM", settings=dict(checkerboardMode="BLACK")),
+    "REBLUR_DIFFUSE_OCCLUSION+RGBA8_SNORM": dict(denoiser="REBLUR_DIFFUSE_OCCLUSION",
+                                                 signals=("diff",), occ=True,
+                                                 normal_encoding="RGBA8_SNORM"),
+    "REBLUR_SPECULAR_OCCLUSION+RGBA16_UNORM": dict(denoiser="REBLUR_SPECULAR_OCCLUSION",
+                                                   signals=("spec",), occ=True,
+                                                   normal_encoding="RGBA16_UNORM"),
+    f"{DIR}+RGBA8_UNORM": dict(denoiser=DIR, signals=("diff",), dir=True,
+                               normal_encoding="RGBA8_UNORM"),
+    "REBLUR_DIFFUSE_SPECULAR_SH+BAND+RGBA16_UNORM": dict(
+        denoiser="REBLUR_DIFFUSE_SPECULAR_SH", signals=("diff", "spec"), sh=True,
+        normal_encoding="RGBA16_UNORM", env={"NRDTPU_REBLUR_BAND": "1"}),
+    "REBLUR_DIFFUSE_SPECULAR_OCCLUSION+BAND+RGBA8_SNORM": dict(
+        denoiser="REBLUR_DIFFUSE_SPECULAR_OCCLUSION", signals=("diff", "spec"), occ=True,
+        normal_encoding="RGBA8_SNORM", env={"NRDTPU_REBLUR_BAND": "1"}),
 }
 
 CB_PATHS = {
@@ -676,7 +779,8 @@ class Scene:
         pools[REBLUR_OCC_HOLES] = {**base, **{in_rt(sig, True): ao_punched[sig]
                                               for sig in ("diff", "spec")}}
         # the RGBA normal encodings: IN_NORMAL_ROUGHNESS packed at the path's encoding, the
-        # SNORM ones with the sky's normal (0, 0, 1)
+        # SNORM ones with the sky's normal (0, 0, 1); the signals as the R10G10B10A2 paths'
+        # (REBLUR's, RELAX's, SIGMA's; with holes, one channel, SH, directional, half width)
         nr_enc = {}
         for name, v in {**NORMAL_ENCODED, **DEC_RUNS}.items():
             enc = v["normal_encoding"]
@@ -687,12 +791,24 @@ class Scene:
                 pools[name] = dict(sigma)
                 if v["denoiser"] == "SIGMA_SHADOW_TRANSLUCENCY":
                     pools[name][RT.IN_TRANSLUCENCY] = fe.sigma_pack_translucency(dist, rgb).numpy()
+            elif v.get("dir"):
+                pools[name] = {**base, in_rt("diff", dirocc=True): dirocc[bool(v.get("holes"))]}
+            elif v.get("occ"):
+                src = ao_punched if v.get("holes") else ao
+                pools[name] = {**base, **{in_rt(sig, True): src[sig] for sig in v["signals"]}}
             elif v.get("sh"):
-                pools[name] = {**base, **{rt: relax_sh[rt] for sig in v["signals"]
+                src = relax_sh if v.get("relax") else reblur_sh
+                pools[name] = {**base, **{rt: src[rt] for sig in v["signals"]
                                           for rt in sh_rts(sig)[::2]}}
-            else:
+            elif v.get("relax"):
                 src = relax_punched if v.get("holes") else relax
                 pools[name] = {**base, **{in_rt(sig): src[sig] for sig in v["signals"]}}
+            else:  # REBLUR's radiance and normalized hit distance
+                src = punched if v.get("holes") else packed
+                pools[name] = {**base, **{in_rt(sig): src[sig] for sig in v["signals"]}}
+            if v.get("cb"):  # half width: the has-data pixel of each pair
+                pools[name] = {rt: half_width(p, cs.frameIndex, v["cb"]) if rt not in base
+                               else p for rt, p in pools[name].items()}
             pools[name][RT.IN_NORMAL_ROUGHNESS] = nr_enc[enc]
         for name, v in ENCODED.items():
             nr = self.gen.packed_normal_roughness(fd, re_=RoughnessEncoding[v["encoding"]])
@@ -703,7 +819,7 @@ class Scene:
         if truth:
             t = dict(mask=fd.hit_mask > 0, diff=(fd.diff_clean, fd.diff_noisy),
                      spec=(fd.spec_clean, fd.spec_noisy), shadow_clean=fd.shadow_clean,
-                     ao_clean=fd.ao_clean, ao=ao)
+                     ao_clean=fd.ao_clean, ao=ao, ao_punched=ao_punched)
         return cs, pools, t
 
     def frames(self, n, workers=4):
@@ -766,7 +882,7 @@ def engine(denoiser, w, h, device, roughness_encoding="LINEAR",
 @contextlib.contextmanager
 def path_env(path):
     """The environment a path's engines run in (the band's switch), set only while they do."""
-    env = PATHS.get(path, {}).get("env", {})
+    env = {**PATHS, **DEC_RUNS}.get(path, {}).get("env", {})
     old = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:
@@ -970,7 +1086,8 @@ def history_fix_live(a, k):
 # material
 DEC_UNREAD = {"relax_antifirefly": ("normal_roughness",),
               "relax_vmb_resolve": ("normal_roughness", "prev_material_id"),
-              "relax_smb_resolve": ("prev_material_id",)}
+              "relax_smb_resolve": ("prev_material_id",),
+              "smb_resolve": ("prev_material_id",), "vmb_resolve": ("prev_material_id",)}
 
 
 def read_inputs(name, a, k):
@@ -1168,6 +1285,27 @@ def _dynamic_smem(name, a, k):
     return {}
 
 
+def owns(name, kernel):
+    """Whether the device kernel `kernel` (its demangled name) of a SOURCES entry's source goes
+    under that entry: H2's and N4's checkerboard instances (their template argument kCb) under
+    the `_cb` entry, H2's kRough instances (its seventh template argument, 1 or 2) under the
+    `_rough` entry, the decoded-plane instances (their last template argument kDec, or N3's
+    kernels named `*_dec_kernel`) under the `_dec` entry and no other, the rest under the
+    kernel's own."""
+    from nrdtpu_torch import kernels as KM
+
+    args = kernel[kernel.find("<") + 1:-1].split(", ") if "<" in kernel else []
+    h2 = os.path.basename(SOURCES[name][0]) == "spatial_filter.cu"
+    if name in CB_SPLIT and (args[5 if h2 else 4] == "true") != name.endswith("_cb"):
+        return False
+    if h2 and (args[6] != "0") != name.endswith("_rough"):
+        return False
+    dec = args[-1] == "true" if args else "_dec_" in kernel
+    base = re.sub(r"_(dec|cb|rough)$", "", name)
+    dec_split = {n.removesuffix("_dec") for n in KM.DEC_INSTANCES}
+    return base not in dec_split or dec == name.endswith("_dec")
+
+
 def occupancy(name, dynamic_smem, sass):
     """Registers, spill bytes, CTAs an SM and SASS instructions (None without cuobjdump) of
     each device kernel of a kernel module; dynamic_smem: the largest dynamic shared memory of
@@ -1176,22 +1314,9 @@ def occupancy(name, dynamic_smem, sass):
     from nrdtpu_torch.kernels import build
 
     usage = ptxas_usage((build.BUILD_DIR / "build.log").read_text())
-    dec_split = {n.removesuffix("_dec") for n in KM.DEC_INSTANCES}
     out = []
     for u in usage.get(os.path.basename(SOURCES[name][0]), []):
-        # H2's and N4's checkerboard instances (their template argument kCb) go under the `_cb`
-        # entry, H2's kRough instances (its last template argument, 1 or 2) under the `_rough`
-        # entry, the others under the kernel's own
-        args = u["kernel"][u["kernel"].find("<") + 1:-1].split(", ")
-        h2 = os.path.basename(SOURCES[name][0]) == "spatial_filter.cu"
-        cb = args[5] == "true" if h2 else args[-1] == "true"
-        if name in CB_SPLIT and cb != name.endswith("_cb"):
-            continue
-        if h2 and (args[6] != "0") != name.endswith("_rough"):
-            continue
-        # the decoded-plane instances (their last template argument kDec) go under `_dec`
-        if name.removesuffix("_dec") in dec_split and (args[-1] == "true") != name.endswith(
-                "_dec"):
+        if not owns(name, u["kernel"]):
             continue
         smem = u["static_smem"] + dynamic_smem.get(u["kernel"], 0)
         out.append(dict(kernel=u["kernel"], registers=u["registers"],
@@ -1367,7 +1492,8 @@ def kernel_runs():
                      dict(checkerboardMode=other),
                      {"spatial_filter_cb", "spatial_filter_fused_cb"}, False))
     # the decoded-plane instances: NORMAL_ENCODED's paths, every call timed; DEC_RUNS, every
-    # call held (`dec_variants` adds the other roughness encodings and K12's other modes)
+    # call held (`dec_variants` adds the other roughness encodings, K12's other modes and H2's,
+    # N4's and K23's other tap count)
     for pool, v in {**NORMAL_ENCODED, **DEC_RUNS}.items():
         runs.append((pool, v["denoiser"], pool,
                      dict(v.get("settings", {}), normal_encoding=v["normal_encoding"]), None,
@@ -1513,8 +1639,9 @@ def kernel_phase(w, h, frames):
     for label, denoiser, pool, settings, only, timed in kernel_runs():
         stages = iter(SF_STAGES)
         for name, a, k in record_calls(denoiser, pool, w, h, frames, **settings):
-            if name == "pass spatial_band":
-                chain[label] = band_chain(label, a, k)
+            if name == "pass spatial_band":  # timed on the band's own runs
+                if pool in BAND_PATHS:
+                    chain[label] = band_chain(label, a, k)
                 continue
             lab = label
             if name == "spatial_filter_fused":  # a frame's calls: PrePass, Blur, PostBlur
@@ -1604,12 +1731,19 @@ def dec_variants(name, a, k):
     """(label suffix, args, kwargs) of the other instances that one decoded-plane call of a
     kernel can be held in on the same inputs: the two other roughness encodings of the kernels
     that decode the roughness (ENCODED_KERNELS), and K12 also at the other radius and, with both
-    signals, on each signal alone, at every roughness encoding."""
+    signals, on each signal alone, at every roughness encoding (its one-channel calls at
+    LINEAR); H2, N4 and K23 at the other tap count (performance mode's 6, or 8)."""
     from nrdtpu_torch.settings import RoughnessEncoding
 
+    if name in ("spatial_filter", "spatial_filter_fused", "reblur_band"):
+        perf = not k.get("perf_mode", False)  # the other tap count
+        return [(f"{'6' if perf else '8'} taps", a, dict(k, perf_mode=perf))]
     if name not in ENCODED_KERNELS:
         return []
     own = k.get("roughness_encoding", RoughnessEncoding.LINEAR)
+    # REBLUR's one-channel calls read a plane whose roughness is decoded: LINEAR only
+    encodings = ([RoughnessEncoding.LINEAR] if name == "hitdist_recon"
+                 and (a[2] if a[2] is not None else a[3]).shape[-1] == 1 else RoughnessEncoding)
     argsets = [("", a)]
     radii = [k.get("radius")]
     if name == "hitdist_recon":
@@ -1620,7 +1754,7 @@ def dec_variants(name, a, k):
     out = []
     for label, args in argsets:
         for radius in radii:
-            for enc in RoughnessEncoding:
+            for enc in encodings:
                 if label == "" and radius == k.get("radius") and enc == own:
                     continue  # the call itself
                 k2 = dict(k, roughness_encoding=enc)
@@ -1734,9 +1868,10 @@ def slice_phase(path, w, h, frames, warmup):
                                      f"[{float(out.min())}, {float(out.max())}]")
             if truth is None or label.endswith("SH1"):  # SH1: finite and of its shape
                 continue
-            if occ or dirocc:  # the mean absolute error to the clean AO on the geometry (.w)
-                m = truth["mask"]
-                ao_err[label] = (float(np.abs(truth["ao"][sig] - truth["ao_clean"])[m].mean()),
+            if occ or dirocc:  # the mean absolute error to the clean AO on the geometry (.w),
+                m = truth["mask"]  # against the input's (with its holes where it has them)
+                given = truth["ao_punched" if PATHS[path].get("holes") else "ao"][sig]
+                ao_err[label] = (float(np.abs(given - truth["ao_clean"])[m].mean()),
                                  float(np.abs(out[..., c - 1].cpu().numpy()
                                               - truth["ao_clean"])[m].mean()))
                 continue
@@ -1910,14 +2045,16 @@ def snorm_sky_fault(w, h, n):
     non-finite output pixels of the card's kernels and of the CPU's plain versions on each
     frame, on geometry and in all; printed, no bar. Every kernel call of the card's engine is
     also held against its plain version on the same inputs (`finiteness_split`), and the calls
-    whose outputs hold another number of non-finite values than the plain version's are
-    printed: they name the kernels that turn the NaN finite or keep it."""
+    whose outputs hold non-finite values elsewhere than the plain version's are printed: they
+    name the kernels that turn the NaN finite or keep it. K20 `relax_clamp_moments` must be
+    none of them (its min, max and saturate keep NaN as the plain version's do)."""
     from nrdtpu_torch import frontend as fe
     from nrdtpu_torch.settings import ResourceType as RT
 
     scene = Scene(w, h)
     engs = {d: engine("RELAX_SPECULAR", w, h, d, normal_encoding="RGBA8_SNORM")
             for d in ("cuda", "cpu")}
+    k20_calls, k20_split = 0, []
     for i in range(n):
         fd = scene.gen.frame(i)
         cs = fd.common_settings
@@ -1938,20 +2075,34 @@ def snorm_sky_fault(w, h, n):
                           f"in all")
         log(f"snorm sky fault RELAX_SPECULAR RGBA8_SNORM frame {i}, sky normal 0: non-finite "
             f"pixels of {w * h}: " + "; ".join(counts))
-        for c, (name, dec, key, n_in, n_kern, n_plain) in split:
+        for c, (name, dec, key, n_in, n_kern, n_plain) in split.entries:
             log(f"snorm sky fault frame {i} call {c} {name}{'_dec' if dec else ''} output "
                 f"{key}: non-finite values: inputs {n_in}, kernel {n_kern}, plain {n_plain}")
+            if name == "relax_clamp_moments":
+                k20_split.append((i, c, key, n_in, n_kern, n_plain))
+        k20_calls += split.calls.get("relax_clamp_moments", 0)
+        log(f"snorm sky fault frame {i}: {len(split.entries)} card outputs hold non-finite "
+            f"values elsewhere than their plain versions'; relax_clamp_moments "
+            f"{split.non_finite.get('relax_clamp_moments', (0, 0))} non-finite values (kernel, "
+            f"plain) in its {split.calls.get('relax_clamp_moments', 0)} call(s)")
+    if not k20_calls or k20_split:
+        raise AssertionError(f"relax_clamp_moments on NaN inputs: {k20_calls} calls, the "
+                             f"kernel's non-finite values differ from the plain version's in "
+                             f"{k20_split}")
 
 
 @contextlib.contextmanager
 def finiteness_split():
     """While open, every kernel call (`kernels.MODULES`) also runs its plain version on the
-    same inputs; the list it yields gets (call index, (kernel, decoded, output, non-finite
-    input values, non-finite values of the kernel's output, of the plain version's)) for each
-    output whose counts differ."""
+    same inputs. It yields a namespace: `entries` gets (call index, (kernel, decoded, output,
+    non-finite input values, non-finite values of the kernel's output, of the plain
+    version's)) for each output whose non-finite values lie elsewhere than the plain
+    version's; `calls` counts each kernel's calls and `non_finite` sums, per kernel, the
+    non-finite values of its outputs (kernel, plain)."""
     from nrdtpu_torch import kernels as KM
 
-    split, index = [], [0]
+    split = types.SimpleNamespace(entries=[], calls={}, non_finite={})
+    index = [0]
     saved = [(m, name, getattr(m, name)) for name, m in KM.MODULES.items()]
 
     def check(name, f, ref):
@@ -1960,10 +2111,15 @@ def finiteness_split():
             got, want = _outputs(r), _outputs(ref(*a, **k))
             n_in = sum(int((~torch.isfinite(t)).sum()) for t in _tensors((a, k))
                        if t.is_floating_point())
+            split.calls[name] = split.calls.get(name, 0) + 1
             for key in want:
-                nk, npl = (int((~torch.isfinite(o[key].float())).sum()) for o in (got, want))
-                if nk != npl:
-                    split.append((index[0], (name, bool(k.get("decoded")), key, n_in, nk, npl)))
+                bad = [~torch.isfinite(o[key].float()) for o in (got, want)]
+                nk, npl = (int(b.sum()) for b in bad)
+                tk, tp = split.non_finite.get(name, (0, 0))
+                split.non_finite[name] = (tk + nk, tp + npl)
+                if not torch.equal(*bad):
+                    split.entries.append(
+                        (index[0], (name, bool(k.get("decoded")), key, n_in, nk, npl)))
             index[0] += 1
             return r
         return call

@@ -3,8 +3,8 @@ REBLUR_DIFFUSE_SPECULAR (also under NRDTPU_REBLUR_BAND=1), SIGMA_SHADOW,
 SIGMA_SHADOW_TRANSLUCENCY, RELAX_DIFFUSE, RELAX_SPECULAR and RELAX_DIFFUSE_SPECULAR paths (the
 REBLUR and RELAX ones also with SH, the REBLUR ones also on one channel for the occlusion
 variants and for REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION; the REBLUR and the non-SH RELAX ones also
-under checkerboard and at every roughness encoding; the RELAX and SIGMA ones also at the RGBA
-normal encodings, on the decoded normal plane), one module each, and
+under checkerboard and at every roughness encoding; all of them also at the RGBA normal
+encodings, on the decoded normal plane), one module each, and
 the halo-window launcher, which no path calls (as in the JAX package).
 
 Every module holds the kernel's wrapper, its plain PyTorch version (`*_ref`) and a launch
@@ -89,7 +89,12 @@ DEC_INSTANCES = {"relax_prepass_dec": relax_prepass, "relax_smb_resolve_dec": re
                  "relax_vmb_resolve_dec": relax_vmb_resolve,
                  "relax_history_fix_dec": relax_history_fix,
                  "relax_antifirefly_dec": relax_antifirefly, "relax_atrous_dec": relax_atrous,
-                 "hitdist_recon_dec": hitdist_recon, "sigma_blur_dec": sigma_blur}
+                 "hitdist_recon_dec": hitdist_recon, "sigma_blur_dec": sigma_blur,
+                 "smb_resolve_dec": smb_resolve, "spec_ta_head_dec": spec_ta_head,
+                 "vmb_resolve_dec": vmb_resolve, "spatial_filter_dec": spatial_filter,
+                 "history_fix_dec": history_fix, "ts_prelude_dec": ts_prelude,
+                 "spatial_filter_fused_dec": spatial_filter_fused,
+                 "history_fix_fused_dec": history_fix_fused, "reblur_band_dec": reblur_band}
 
 
 def reset_launch_counts():

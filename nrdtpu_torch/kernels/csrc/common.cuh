@@ -19,6 +19,16 @@ __device__ __forceinline__ float saturate(float x) { return fminf(fmaxf(x, 0.0f)
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) { return min(max(v, lo), hi); }
 
+// min / max that return NaN where either operand is NaN, as torch.minimum / torch.maximum
+// and clamp_min do (fminf / fmaxf return the other operand)
+__device__ __forceinline__ float min_nan(float a, float b) {
+  return a != a ? a : b != b ? b : fminf(a, b);
+}
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return a != a ? a : b != b ? b : fmaxf(a, b);
+}
+__device__ __forceinline__ float saturate_nan(float x) { return min_nan(max_nan(x, 0.0f), 1.0f); }
+
 // float texel coordinate -> int, bounded first (any coordinate beyond +-2^20 clamps to the
 // same edge texel)
 __device__ __forceinline__ int to_index(float v) {

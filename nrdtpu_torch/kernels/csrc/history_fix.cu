@@ -29,6 +29,11 @@
 // .xyz by the luma change of .w and sets .w (reblur_filters.cuh:hf_clamp; the XLA clamp
 // nrdtpu/passes/reblur/kernels.py:686-728 with directional; anti-firefly forced off). The other
 // instances compile as before.
+// The RGBA normal encodings (kDec, the last template parameter, every mode above and the
+// prologue): nr is the plane that the frame decodes once (its normal .xyz, its roughness .w
+// decoded), which the reference's centre and taps read decoded at these formats; the prologue
+// copies its normal, and the centre and the taps test no material (reblur_filters.cuh). The
+// R10G10B10A2 instances compile as before.
 #include "reblur_filters.cuh"
 
 namespace {
@@ -37,18 +42,42 @@ constexpr int kFixCtas = 4;
 
 // phase 0: the tap geometry, one thread a pixel; 1: the history fix and the clamp of signal
 // kSig
-template <int kPhase, int kSig, bool kSh, bool kOcc = false, bool kDir = false>
+template <int kPhase, int kSig, bool kSh, bool kOcc = false, bool kDir = false, bool kDec = false>
 __global__ void __launch_bounds__(256, kPhase == 1 ? kFixCtas : 1)
     history_fix_kernel(nrd::HistoryFixArgs a) {
   if constexpr (kPhase == 0) {
     const int x = blockIdx.x * nrd::kBlock + threadIdx.x;
     const int y = blockIdx.y * nrd::kBlock + threadIdx.y;
     if (x >= a.f.w || y >= a.f.h) return;
-    nrd::write_tap_geometry(const_cast<float4*>(a.geometry), a.nr, a.view_z, a.f.view_z_scale,
-                            (size_t)y * a.f.w + x);
+    nrd::write_tap_geometry<kDec>(const_cast<float4*>(a.geometry), a.nr, a.view_z,
+                                  a.f.view_z_scale, (size_t)y * a.f.w + x);
   } else {
-    nrd::history_fix_cta<kSig, kSh, kOcc, kDir>(a);
+    nrd::history_fix_cta<kSig, kSh, kOcc, kDir, kDec>(a);
   }
+}
+
+// phase 1 of the signal's mode (kSig the slot: 0 diffuse, 1 specular)
+template <bool kDec>
+cudaError_t launch_fix(const nrd::HistoryFixArgs& a, int s, bool sh, bool occ, bool dir,
+                       dim3 tiles, dim3 block, cudaStream_t st) {
+  if (occ) {
+    if (s == 0)
+      history_fix_kernel<1, 0, false, true, false, kDec><<<tiles, block, 0, st>>>(a);
+    else
+      history_fix_kernel<1, 1, false, true, false, kDec><<<tiles, block, 0, st>>>(a);
+    return cudaGetLastError();
+  }
+  if (dir) {
+    history_fix_kernel<1, 0, false, false, true, kDec><<<tiles, block, 0, st>>>(a);
+    return cudaGetLastError();
+  }
+  switch (s * 2 + (sh ? 1 : 0)) {
+    case 0: history_fix_kernel<1, 0, false, false, false, kDec><<<tiles, block, 0, st>>>(a); break;
+    case 1: history_fix_kernel<1, 0, true, false, false, kDec><<<tiles, block, 0, st>>>(a); break;
+    case 2: history_fix_kernel<1, 1, false, false, false, kDec><<<tiles, block, 0, st>>>(a); break;
+    default: history_fix_kernel<1, 1, true, false, false, kDec><<<tiles, block, 0, st>>>(a); break;
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -58,7 +87,8 @@ __global__ void __launch_bounds__(256, kPhase == 1 ? kFixCtas : 1)
 // consts: frustum[4], rect_inv_w, rect_inv_h, view_z_scale, ortho_mode, min_material,
 //         specular mode (0 or 1), anti-firefly ring (0 or 1), the clamp's frame divisor and
 //         fast-history flag, SH (0 or 1), one-channel occlusion signal (0 or 1; not with SH),
-//         directional occlusion (0 or 1; diffuse only, not with SH or one channel)
+//         directional occlusion (0 or 1; diffuse only, not with SH or one channel), nr the RGBA
+//         formats' decoded plane (0 or 1)
 extern "C" int nrd_history_fix(void* const* p, const float* c, int w, int h, void* stream) {
   const int s = c[9] != 0.0f ? 1 : 0;  // the signal's slot: 0 diffuse, 1 specular
   nrd::HistoryFixArgs a{};
@@ -92,29 +122,17 @@ extern "C" int nrd_history_fix(void* const* p, const float* c, int w, int h, voi
   if ((s == 1 && a.smc == nullptr) || (sh && (a.sh[s] == nullptr || a.sh_out[s] == nullptr)) ||
       (sh && occ) || (dir && (s != 0 || sh || occ)))
     return (int)cudaErrorInvalidValue;
+  const bool dec = c[16] != 0.0f;
   const dim3 block(nrd::kFixTile, nrd::kFixTile);
   const dim3 tiles((w + nrd::kFixTile - 1) / nrd::kFixTile,
                    (h + nrd::kFixTile - 1) / nrd::kFixTile);
   const cudaStream_t st = (cudaStream_t)stream;
-  history_fix_kernel<0, 0, false><<<tiles, block, 0, st>>>(a);
+  if (dec)
+    history_fix_kernel<0, 0, false, false, false, true><<<tiles, block, 0, st>>>(a);
+  else
+    history_fix_kernel<0, 0, false><<<tiles, block, 0, st>>>(a);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  if (occ) {
-    if (s == 0)
-      history_fix_kernel<1, 0, false, true><<<tiles, block, 0, st>>>(a);
-    else
-      history_fix_kernel<1, 1, false, true><<<tiles, block, 0, st>>>(a);
-    return (int)cudaGetLastError();
-  }
-  if (dir) {
-    history_fix_kernel<1, 0, false, false, true><<<tiles, block, 0, st>>>(a);
-    return (int)cudaGetLastError();
-  }
-  switch (s * 2 + (sh ? 1 : 0)) {
-    case 0: history_fix_kernel<1, 0, false><<<tiles, block, 0, st>>>(a); break;
-    case 1: history_fix_kernel<1, 0, true><<<tiles, block, 0, st>>>(a); break;
-    case 2: history_fix_kernel<1, 1, false><<<tiles, block, 0, st>>>(a); break;
-    default: history_fix_kernel<1, 1, true><<<tiles, block, 0, st>>>(a); break;
-  }
-  return (int)cudaGetLastError();
+  return (int)(dec ? launch_fix<true>(a, s, sh, occ, dir, tiles, block, st)
+                   : launch_fix<false>(a, s, sh, occ, dir, tiles, block, st));
 }

@@ -23,6 +23,10 @@
 // both signals are (h, w, 1) hit distances, one float a tap, each clamped as its own luma with
 // sigma scale 1 (reblur_filters.cuh:hf_clamp), written as one float a pixel; the four-channel
 // instances compile as before.
+// The RGBA normal encodings (kDec, the last template parameter, both phases): nr is the plane
+// that the frame decodes once (its normal .xyz, its roughness .w decoded); the prologue copies
+// its normal, and the centres and the taps test no material (reblur_filters.cuh). The
+// R10G10B10A2 instances compile as before.
 #include "reblur_filters.cuh"
 
 namespace {
@@ -30,18 +34,34 @@ namespace {
 constexpr int kFixCtas = 5;
 
 // phase 0: the tap geometry, one thread a pixel; 1: the history fix and the clamp
-template <int kPhase, bool kSh, bool kOcc = false>
+template <int kPhase, bool kSh, bool kOcc = false, bool kDec = false>
 __global__ void __launch_bounds__(256, kPhase == 1 ? kFixCtas : 1)
     history_fix_fused_kernel(nrd::HistoryFixArgs a) {
   if constexpr (kPhase == 0) {
     const int x = blockIdx.x * nrd::kBlock + threadIdx.x;
     const int y = blockIdx.y * nrd::kBlock + threadIdx.y;
     if (x >= a.f.w || y >= a.f.h) return;
-    nrd::write_tap_geometry(const_cast<float4*>(a.geometry), a.nr, a.view_z, a.f.view_z_scale,
-                            (size_t)y * a.f.w + x);
+    nrd::write_tap_geometry<kDec>(const_cast<float4*>(a.geometry), a.nr, a.view_z,
+                                  a.f.view_z_scale, (size_t)y * a.f.w + x);
   } else {
-    nrd::history_fix_cta<nrd::kBothSignals, kSh, kOcc>(a);
+    nrd::history_fix_cta<nrd::kBothSignals, kSh, kOcc, false, kDec>(a);
   }
+}
+
+template <bool kDec>
+cudaError_t launch(const nrd::HistoryFixArgs& x, bool sh, bool occ, dim3 tiles, dim3 block,
+                   cudaStream_t st) {
+  history_fix_fused_kernel<0, false, false, kDec><<<tiles, block, 0, st>>>(x);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid(2 * tiles.x, tiles.y);  // one CTA per (tile, signal)
+  if (occ)
+    history_fix_fused_kernel<1, false, true, kDec><<<grid, block, 0, st>>>(x);
+  else if (sh)
+    history_fix_fused_kernel<1, true, false, kDec><<<grid, block, 0, st>>>(x);
+  else
+    history_fix_fused_kernel<1, false, false, kDec><<<grid, block, 0, st>>>(x);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -52,7 +72,8 @@ __global__ void __launch_bounds__(256, kPhase == 1 ? kFixCtas : 1)
 // consts: frustum[4], rect_inv_w, rect_inv_h, view_z_scale, ortho_mode, diff_min_material,
 //         spec_min_material, diffuse anti-firefly ring (0 or 1), specular ring (0 or 1), the
 //         clamp's frame divisor and fast-history flag, SH (0 or 1), one-channel occlusion
-//         signals (0 or 1; not with SH: then diff, spec, out are (h, w, 1) a signal)
+//         signals (0 or 1; not with SH: then diff, spec, out are (h, w, 1) a signal), nr the
+//         RGBA formats' decoded plane (0 or 1)
 extern "C" int nrd_history_fix_fused(void* const* p, const float* c, int w, int h,
                                      void* stream) {
   nrd::HistoryFixArgs x;
@@ -89,18 +110,11 @@ extern "C" int nrd_history_fix_fused(void* const* p, const float* c, int w, int 
   x.anti_firefly[1] = c[11] != 0.0f;
   x.clamp.frame_div = c[12];
   x.clamp.fast_enabled = c[13];
+  const bool dec = c[16] != 0.0f;
   const dim3 block(nrd::kFixTile, nrd::kFixTile);
   const dim3 tiles((w + nrd::kFixTile - 1) / nrd::kFixTile,
                    (h + nrd::kFixTile - 1) / nrd::kFixTile);
-  history_fix_fused_kernel<0, false><<<tiles, block, 0, (cudaStream_t)stream>>>(x);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(2 * tiles.x, tiles.y);  // one CTA per (tile, signal)
-  if (occ)
-    history_fix_fused_kernel<1, false, true><<<grid, block, 0, (cudaStream_t)stream>>>(x);
-  else if (sh)
-    history_fix_fused_kernel<1, true><<<grid, block, 0, (cudaStream_t)stream>>>(x);
-  else
-    history_fix_fused_kernel<1, false><<<grid, block, 0, (cudaStream_t)stream>>>(x);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  return (int)(dec ? launch<true>(x, sh, occ, tiles, block, st)
+                   : launch<false>(x, sh, occ, tiles, block, st));
 }

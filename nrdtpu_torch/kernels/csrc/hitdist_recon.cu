@@ -211,11 +211,17 @@ Kernel pick_sig(int sig, int rough) {
                         : pick_rough<kRadius, kDiff | kSpec, kOcc, kDec>(rough);
 }
 
-// the decoded plane (kDec) only on four channels: RELAX's calls at the RGBA formats (the
-// occlusion variants are REBLUR's)
+// the decoded plane (kDec) on four channels (RELAX's and REBLUR's calls at the RGBA formats)
+// and on one (REBLUR's occlusion variants there, whose plane has its roughness decoded: LINEAR
+// only)
 template <int kRadius>
 Kernel pick(int sig, int rough, bool occ, bool dec) {
-  if (dec) return occ ? nullptr : pick_sig<kRadius, false, true>(sig, rough);
+  if (dec && occ)
+    return rough != 0       ? nullptr
+           : sig == kDiff   ? hitdist_recon_kernel<kRadius, kDiff, 0, true, true>
+           : sig == kSpec   ? hitdist_recon_kernel<kRadius, kSpec, 0, true, true>
+                            : hitdist_recon_kernel<kRadius, kDiff | kSpec, 0, true, true>;
+  if (dec) return pick_sig<kRadius, false, true>(sig, rough);
   return occ ? pick_sig<kRadius, true, false>(sig, rough)
              : pick_sig<kRadius, false, false>(sig, rough);
 }

@@ -35,6 +35,10 @@
 // then H2's rule in the Blur / PostBlur parameters (the min hit-distance weight without its
 // sqrt(nlas)); sig2, sig3 and the output are one float a pixel a signal. The four-channel
 // instances compile as before.
+// The RGBA normal encodings (kDec, the last template parameter, every phase): nr is the plane
+// that the frame decodes once (its normal .xyz, its roughness .w decoded); phase 0 copies its
+// normal, and the centres and the taps test no material (reblur_filters.cuh; TPU
+// reblur_band.py:203, :299 with mat_occ=False). The R10G10B10A2 instances compile as before.
 #include "reblur_filters.cuh"
 
 namespace {
@@ -74,7 +78,7 @@ __device__ __forceinline__ Cta cta() {
 
 // Blur (stage 0: sig2 -> sig3) or PostBlur (stage 1: sig3 -> out) of one signal; kSh: its SH
 // too (sh2 -> sh3, sh3 -> out_sh); kOcc: the one-channel signal
-template <int kTaps, bool kSpec, bool kSh, bool kOcc>
+template <int kTaps, bool kSpec, bool kSh, bool kOcc, bool kDec>
 __device__ __forceinline__ void blur_pixel(const BandArgs& a, int stage, int x, int y) {
   constexpr int s = kSpec ? 1 : 0;
   constexpr int kC = kOcc ? 1 : 4;  // the signal's channels, the hit distance the last
@@ -86,7 +90,7 @@ __device__ __forceinline__ void blur_pixel(const BandArgs& a, int stage, int x, 
   float* dst = (stage == 0 ? a.sig3 : a.out) + kC * s * plane;
   const nrd::StageConsts& k = a.stage[stage];
   // the centre's geometry: sf_filter reads what hf_centre loads but the frustum size
-  const nrd::Centre c = nrd::hf_centre(a.planes + i, plane, nr, x, y);
+  const nrd::Centre c = nrd::hf_centre<kDec>(a.planes + i, plane, nr, x, y);
   const float* P = a.planes + i;
   const float nov = __ldg(P + BP_NOV * plane);
   const float hit_dist = __ldg(src + kC * i + (kC - 1));
@@ -105,8 +109,8 @@ __device__ __forceinline__ void blur_pixel(const BandArgs& a, int stage, int x, 
   const float* sh_src = stage == 0 ? fx.sh_out[s] : a.sh3 + 4 * s * plane;
   nrd::sf_filter<kTaps, mode, false, kSh, kOcc>(a.sf, c, prm, 1, fx.min_material[s],
                                                 Image<float, 4>{src, w, h},
-                                                nrd::UnpackedTaps{fx.geometry, nr}, out, nullptr,
-                                                1.0f, sh_src, sh_out);
+                                                nrd::UnpackedTapsT<0, kDec>{fx.geometry, nr}, out,
+                                                nullptr, 1.0f, sh_src, sh_out);
   if constexpr (kOcc)
     dst[i] = out[3];
   else
@@ -119,41 +123,41 @@ __device__ __forceinline__ void blur_pixel(const BandArgs& a, int stage, int x, 
 
 // phase 0: the geometry; 1: the history fix and the clamp; 2: Blur; 3: PostBlur. kTaps: the
 // Poisson taps of phases 2 and 3 (8, or 6 in performance mode); kOcc: the one-channel signals
-template <int kPhase, int kTaps, bool kSh, bool kOcc = false>
+template <int kPhase, int kTaps, bool kSh, bool kOcc = false, bool kDec = false>
 __global__ void __launch_bounds__(kThreads, kPhase == 1 ? kFixCtas : kBlurCtas)
     reblur_band_kernel(BandArgs a) {
   const int w = a.fix.f.w, h = a.fix.f.h;
   if constexpr (kPhase == 0) {  // one thread a pixel
     const int x = blockIdx.x * kTileX + threadIdx.x, y = blockIdx.y * kTileY + threadIdx.y;
     if (x >= w || y >= h) return;
-    nrd::write_tap_geometry(const_cast<float4*>(a.fix.geometry), a.fix.nr, a.fix.view_z,
-                            a.fix.f.view_z_scale, (size_t)y * w + x);
+    nrd::write_tap_geometry<kDec>(const_cast<float4*>(a.fix.geometry), a.fix.nr, a.fix.view_z,
+                                  a.fix.f.view_z_scale, (size_t)y * w + x);
   } else if constexpr (kPhase == 1) {
-    nrd::history_fix_cta<nrd::kBothSignals, kSh, kOcc>(a.fix);
+    nrd::history_fix_cta<nrd::kBothSignals, kSh, kOcc, false, kDec>(a.fix);
   } else {
     const Cta t = cta();
     if (t.x >= w || t.y >= h) return;
     if (t.s == 0)
-      blur_pixel<kTaps, false, kSh, kOcc>(a, kPhase - 2, t.x, t.y);
+      blur_pixel<kTaps, false, kSh, kOcc, kDec>(a, kPhase - 2, t.x, t.y);
     else
-      blur_pixel<kTaps, true, kSh, kOcc>(a, kPhase - 2, t.x, t.y);
+      blur_pixel<kTaps, true, kSh, kOcc, kDec>(a, kPhase - 2, t.x, t.y);
   }
 }
 
 using Kernel = void (*)(BandArgs);
 
 // the four launches of one mode, in stream order
-template <bool kSh, bool kOcc = false>
+template <bool kSh, bool kOcc = false, bool kDec = false>
 cudaError_t launch(const BandArgs& a, int ntaps, dim3 tiles, dim3 grid, dim3 block,
                    cudaStream_t st) {
-  const Kernel blur =
-      ntaps == 8 ? reblur_band_kernel<2, 8, kSh, kOcc> : reblur_band_kernel<2, 6, kSh, kOcc>;
-  const Kernel post =
-      ntaps == 8 ? reblur_band_kernel<3, 8, kSh, kOcc> : reblur_band_kernel<3, 6, kSh, kOcc>;
-  reblur_band_kernel<0, 8, false><<<tiles, block, 0, st>>>(a);
+  const Kernel blur = ntaps == 8 ? reblur_band_kernel<2, 8, kSh, kOcc, kDec>
+                                 : reblur_band_kernel<2, 6, kSh, kOcc, kDec>;
+  const Kernel post = ntaps == 8 ? reblur_band_kernel<3, 8, kSh, kOcc, kDec>
+                                 : reblur_band_kernel<3, 6, kSh, kOcc, kDec>;
+  reblur_band_kernel<0, 8, false, false, kDec><<<tiles, block, 0, st>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  reblur_band_kernel<1, 8, kSh, kOcc><<<grid, block, 0, st>>>(a);
+  reblur_band_kernel<1, 8, kSh, kOcc, kDec><<<grid, block, 0, st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   blur<<<grid, block, 0, st>>>(a);
@@ -175,7 +179,8 @@ cudaError_t launch(const BandArgs& a, int ntaps, dim3 tiles, dim3 grid, dim3 blo
 //         fraction and 1 - it, encoding error, the Blur and PostBlur rotators, and per stage
 //         (Blur, PostBlur) fraction scale, radius scale, min hit-distance weight scale, scaled
 //         roughness fraction; then SH (0 or 1), one-channel occlusion signals (0 or 1; not with
-//         SH: diff, spec, sig2, sig3 and out one float a pixel a signal)
+//         SH: diff, spec, sig2, sig3 and out one float a pixel a signal), nr the RGBA formats'
+//         decoded plane (0 or 1)
 extern "C" int nrd_reblur_band(void* const* p, const float* c, int w, int h, void* stream) {
   BandArgs a;
   nrd::HistoryFixArgs& x = a.fix;
@@ -254,6 +259,10 @@ extern "C" int nrd_reblur_band(void* const* p, const float* c, int w, int h, voi
   const dim3 tiles((w + kTileX - 1) / kTileX, (h + kTileY - 1) / kTileY);
   const dim3 grid(2 * tiles.x, tiles.y);
   const cudaStream_t st = (cudaStream_t)stream;
+  if (c[42] != 0.0f)  // the decoded plane
+    return (int)(occ  ? launch<false, true, true>(a, ntaps, tiles, grid, block, st)
+                 : sh ? launch<true, false, true>(a, ntaps, tiles, grid, block, st)
+                      : launch<false, false, true>(a, ntaps, tiles, grid, block, st));
   return (int)(occ  ? launch<false, true>(a, ntaps, tiles, grid, block, st)
                : sh ? launch<true>(a, ntaps, tiles, grid, block, st)
                     : launch<false>(a, ntaps, tiles, grid, block, st));

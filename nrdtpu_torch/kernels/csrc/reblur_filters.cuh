@@ -27,6 +27,13 @@
 // lane that every weight reads as the hit distance, so the loops run the radiance code
 // unchanged and the sums of .xyz, zeros that no output reads, are dead code. The callers then
 // write .w alone. The four-channel instances compile as before.
+//
+// The RGBA normal encodings (kDec, a template parameter of the Taps policies, the centres and
+// the geometry): every plane a kernel reads is the one that the frame decodes once
+// (frontend.py:decode_normal_plane, its roughness decoded as well): the normal .xyz as it is,
+// the roughness .w, the material 0 (common.cuh:unpack_nr). The formats carry no material, so
+// the tap loops' material tests are compiled out (the TPU kernels' mat_occ=False; with the
+// material 0 everywhere every such test passes). The R10G10B10A2 instances compile as before.
 #pragma once
 
 #include "common.cuh"
@@ -45,13 +52,19 @@ struct TapGeometry {
 // kRough: the roughness encoding of nr (common.cuh:decode_roughness), decoded at the tap; H2's
 // specular instances at SQRT_LINEAR / SQ_LINEAR take the packed plane, whose centre the
 // reference reads as packed and whose taps it decodes (nrdtpu/passes/reblur/kernels.py:37-42,
-// :1716); every other reader gets a plane decoded once a frame, at kRough 0.
-template <int kRough = 0>
+// :1716); every other reader gets a plane decoded once a frame, at kRough 0. kDec: the
+// decoded plane of the RGBA formats (its normal .xyz, roughness .w, no material), at kRough 0.
+template <int kRough = 0, bool kDec = false>
 struct PackedTapsT {
+  static_assert(!(kDec && kRough != 0), "the decoded plane's roughness is decoded");
+  static constexpr bool kDecoded = kDec;
   Image<float, 4> nr;
   Image<float, 1> vz;
   float view_z_scale;
   __device__ __forceinline__ TapGeometry at(int x, int y) const {
+    if constexpr (kDec)
+      return TapGeometry{V3{nr.at(x, y, 0), nr.at(x, y, 1), nr.at(x, y, 2)}, 0.0f,
+                         nr.at(x, y, 3), fabsf(vz.at(x, y, 0)) * view_z_scale};
     return TapGeometry{unpack_normal(nr.at(x, y, 0), nr.at(x, y, 1)), nr.at(x, y, 3) * 3.0f,
                        decode_roughness<kRough>(nr.at(x, y, 2)),
                        fabsf(vz.at(x, y, 0)) * view_z_scale};
@@ -64,23 +77,29 @@ struct PackedTapsT {
 using PackedTaps = PackedTapsT<0>;
 
 // from a (h, w, 4) plane unpacked once a frame, (n.x, n.y, n.z, scaled viewZ), and nr for the
-// material and the roughness: the same values as PackedTaps; kRough as for PackedTapsT
-template <int kRough = 0>
+// material and the roughness: the same values as PackedTaps; kRough and kDec as for
+// PackedTapsT (kDec: the roughness .w, no material)
+template <int kRough = 0, bool kDec = false>
 struct UnpackedTapsT {
+  static_assert(!(kDec && kRough != 0), "the decoded plane's roughness is decoded");
+  static constexpr bool kDecoded = kDec;
   const float4* geometry;
   Image<float, 4> nr;
   __device__ __forceinline__ TapGeometry at(int x, int y) const {
     const size_t k = nr.index(x, y);
     const float4 g = __ldg(geometry + k);
+    if constexpr (kDec) return TapGeometry{V3{g.x, g.y, g.z}, 0.0f, __ldg(nr.p + 4 * k + 3), g.w};
     const float4 p = __ldg(reinterpret_cast<const float4*>(nr.p) + k);
     return TapGeometry{V3{g.x, g.y, g.z}, p.w * 3.0f, decode_roughness<kRough>(p.z), g.w};
   }
 };
 using UnpackedTaps = UnpackedTapsT<0>;
 
-// the (n.x, n.y, n.z, scaled viewZ) record of UnpackedTaps, as PackedTaps computes it
+// the (n.x, n.y, n.z, scaled viewZ) record of UnpackedTaps, as PackedTaps computes it (kDec:
+// the decoded plane's normal as it is)
+template <bool kDec = false>
 __device__ __forceinline__ float4 unpacked_geometry(float4 nr, float raw_z, float view_z_scale) {
-  const V3 n = unpack_normal(nr.x, nr.y);
+  const V3 n = kDec ? V3{nr.x, nr.y, nr.z} : unpack_normal(nr.x, nr.y);
   return make_float4(n.x, n.y, n.z, fabsf(raw_z) * view_z_scale);
 }
 
@@ -94,12 +113,13 @@ __device__ __forceinline__ float4 signal_texel(const Image<float, 4>& sig, int x
     return sig.at4(x, y);
 }
 
-// the record of pixel i, written by the prologue of N5 and K23 (one thread a pixel)
+// the record of pixel i, written by the prologue of H3, N5 and K23 (one thread a pixel)
+template <bool kDec = false>
 __device__ __forceinline__ void write_tap_geometry(float4* geometry, const float* nr,
                                                    const float* view_z, float view_z_scale,
                                                    size_t i) {
-  geometry[i] = unpacked_geometry(__ldg(reinterpret_cast<const float4*>(nr) + i),
-                                  __ldg(view_z + i), view_z_scale);
+  geometry[i] = unpacked_geometry<kDec>(__ldg(reinterpret_cast<const float4*>(nr) + i),
+                                        __ldg(view_z + i), view_z_scale);
 }
 
 // ---------------------------------------------------------------------------------------
@@ -164,7 +184,9 @@ struct Centre {
   V3 n, nv;
 };
 
-// the centre pixel's geometry from the shared planes; P points at the pixel in plane 0
+// the centre pixel's geometry from the shared planes; P points at the pixel in plane 0 (kDec:
+// the decoded plane, no material)
+template <bool kDec = false>
 __device__ __forceinline__ Centre sf_centre(const float* P, size_t plane,
                                             const Image<float, 4>& nr, int x, int y) {
   Centre c;
@@ -172,7 +194,7 @@ __device__ __forceinline__ Centre sf_centre(const float* P, size_t plane,
   c.y = y;
   c.u = pixel_u(x, nr.w);
   c.v = pixel_u(y, nr.h);
-  c.material = nr.at(x, y, 3) * 3.0f;
+  c.material = kDec ? 0.0f : nr.at(x, y, 3) * 3.0f;
   c.ga = P[SF_GA * plane];
   c.gb = P[SF_GB * plane];
   c.fsz = 0.0f;
@@ -257,7 +279,8 @@ __device__ __forceinline__ float sf_filter(const SfFrame& f, const Centre& c, co
     if constexpr (kSh) sh_tap = shi.at4(sx, sy);
     float w_ = in_screen_nearest(us, vs);
     w_ = w_ * compute_weight(dot3(c.nv, xvs), c.ga, c.gb);
-    w_ = w_ * (mat_c == fmaxf(g.material, min_material) ? 1.0f : 0.0f);
+    if constexpr (!Taps::kDecoded)  // the RGBA formats carry no material
+      w_ = w_ * (mat_c == fmaxf(g.material, min_material) ? 1.0f : 0.0f);
     float rnd = 0.0f;
     if constexpr (prepass) rnd = hash_float(rng);  // one draw a tap, as the XLA loop draws
     const float angle = acos_approx(dot3(c.n, g.n));
@@ -366,6 +389,7 @@ struct HfFrame {
   float rect_inv_w, rect_inv_h, view_z_scale, ortho;
 };
 
+template <bool kDec = false>
 __device__ __forceinline__ Centre hf_centre(const float* P, size_t plane,
                                             const Image<float, 4>& nr, int x, int y) {
   Centre c;
@@ -373,7 +397,7 @@ __device__ __forceinline__ Centre hf_centre(const float* P, size_t plane,
   c.y = y;
   c.u = pixel_u(x, nr.w);
   c.v = pixel_u(y, nr.h);
-  c.material = nr.at(x, y, 3) * 3.0f;
+  c.material = kDec ? 0.0f : nr.at(x, y, 3) * 3.0f;
   c.ga = P[HF_GA * plane];
   c.gb = P[HF_GB * plane];
   c.fsz = P[HF_FSZ * plane];
@@ -485,7 +509,8 @@ __device__ __forceinline__ void hf_filter(const HfFrame& f, const Centre& c, con
       if constexpr (kSh) sh_tap = shi.at4(px, py);
       float w_ = in_screen_nearest(us, vs);
       w_ = w_ * compute_weight(dot3(c.nv, xvs), c.ga, c.gb);
-      w_ = w_ * (mat_c == fmaxf(g.material, min_material) ? 1.0f : 0.0f);
+      if constexpr (!Taps::kDecoded)  // the RGBA formats carry no material
+        w_ = w_ * (mat_c == fmaxf(g.material, min_material) ? 1.0f : 0.0f);
       const float angle = acos_approx(dot3(g.n, c.n));
       w_ = w_ * compute_exponential_weight(angle, nwp, 0.0f);
       if constexpr (kSpec) {
@@ -751,14 +776,16 @@ struct FilterGeometry {
   V3 n, nv, xv, vv;
 };
 
-template <bool kSpec>
+// kDec: nr is the decoded plane's texel, its normal .xyz as it is and its roughness .w
+// (params.py:filter_geometry with decoded)
+template <bool kSpec, bool kDec = false>
 __device__ __forceinline__ FilterGeometry filter_geometry(const SfFrame& f,
                                                           const GeometryConsts& k, float u,
                                                           float v, float raw_z, float4 nr) {
   FilterGeometry g;
   g.view_z = fabsf(raw_z) * f.view_z_scale;
-  g.n = decode_oct_raw(nr.x, nr.y);
-  g.roughness = nr.z;
+  g.n = kDec ? V3{nr.x, nr.y, nr.z} : decode_oct_raw(nr.x, nr.y);
+  g.roughness = kDec ? nr.w : nr.z;
   g.nv = rotate<3>(k.wtv, g.n);
   g.xv = reconstruct_view_position(u, v, f.fr, g.view_z, f.ortho);
   if (f.ortho == 0.0f) {  // a frame constant: a uniform branch
@@ -894,22 +921,22 @@ struct FastWindow {
 // one pixel: the 3x3 (and ring) moments from the window, the stride taps (their geometry from
 // the plane), the clamp; kSh: the SH1 through the taps and scaled to the clamped luma; kOcc:
 // the one-channel signal; kDir: the directional-occlusion clamp (hf_clamp), the taps those of
-// the radiance signal
-template <bool kSpec, bool kSh, bool kOcc, bool kDir = false>
+// the radiance signal; kDec: nr is the RGBA formats' decoded plane
+template <bool kSpec, bool kSh, bool kOcc, bool kDir = false, bool kDec = false>
 __device__ __forceinline__ void history_fix_pixel(const HistoryFixArgs& a, const FastWindow& win,
                                                   int x, int y) {
   constexpr int s = kSpec ? 1 : 0;
   const int w = a.f.w, h = a.f.h;
   const size_t i = (size_t)y * w + x, plane = (size_t)w * h;
   const Image<float, 4> nr{a.nr, w, h};
-  const Centre c = hf_centre(a.shared + i, plane, nr, x, y);
+  const Centre c = hf_centre<kDec>(a.shared + i, plane, nr, x, y);
   float m1, m2, am1 = 0.0f, am2 = 0.0f;
   fast_moments(win, x, y, &m1, &m2);
   if (a.anti_firefly[s]) anti_firefly_moments(win, x, y, &am1, &am2);
   float sig[4], sh[4];
   hf_filter<kSpec, kSh, kOcc>(a.f, c, a.params[s] + i, plane, a.min_material[s],
                         Image<float, 4>{a.signal[s], w, h}, Image<float, 1>{a.data1[s], w, h},
-                        UnpackedTaps{a.geometry, nr}, sig, a.sh[s], sh);
+                        UnpackedTapsT<0, kDec>{a.geometry, nr}, sig, a.sh[s], sh);
   const float smc = kSpec ? __ldg(a.smc + i) : 0.0f;
   float fast_out;
   const float luma = hf_clamp<kOcc, kDir>(a.clamp, sig, __ldg(a.data1[s] + i), win.at(x, y, 0),
@@ -929,8 +956,9 @@ __device__ __forceinline__ void history_fix_pixel(const HistoryFixArgs& a, const
 // kSig: the CTA's signal (0 diffuse, 1 specular), or kBothSignals: the low bit of blockIdx.x,
 // so that the two CTAs of a tile run side by side and share the centre's planes in L2. Every
 // thread stages the window, then the threads outside the image leave. kSh: the SH variants;
-// kOcc: the occlusion variants; kDir: REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION (diffuse only).
-template <int kSig, bool kSh = false, bool kOcc = false, bool kDir = false>
+// kOcc: the occlusion variants; kDir: REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION (diffuse only); kDec:
+// the RGBA formats' decoded plane.
+template <int kSig, bool kSh = false, bool kOcc = false, bool kDir = false, bool kDec = false>
 __device__ __forceinline__ void history_fix_cta(const HistoryFixArgs& a) {
   static_assert(kSig == kBothSignals || kSig == 0 || kSig == 1, "a signal, or both");
   static_assert(!kDir || (kSig == 0 && !kSh && !kOcc), "directional occlusion: diffuse only");
@@ -948,9 +976,9 @@ __device__ __forceinline__ void history_fix_cta(const HistoryFixArgs& a) {
   const int x = x0 + (int)threadIdx.x, y = y0 + (int)threadIdx.y;
   if (x >= a.f.w || y >= a.f.h) return;
   if (s == 0)
-    history_fix_pixel<false, kSh, kOcc, kDir>(a, win, x, y);
+    history_fix_pixel<false, kSh, kOcc, kDir, kDec>(a, win, x, y);
   else
-    history_fix_pixel<true, kSh, kOcc>(a, win, x, y);
+    history_fix_pixel<true, kSh, kOcc, false, kDec>(a, win, x, y);
 }
 
 }  // namespace nrd

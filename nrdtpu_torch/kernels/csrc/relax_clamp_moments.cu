@@ -32,6 +32,10 @@
 //     responsive history's select before them) is per-pixel arithmetic on host constants:
 //     it runs here term by term, true divisions kept (each feeds a threshold or saturate),
 //     and writes the slow and responsive histories as two float4 planes.
+//   - Every min, max and saturate of the per-pixel part returns NaN where an operand is NaN
+//     (common.cuh:min_nan, max_nan, saturate_nan), as the plain version's torch.minimum,
+//     torch.maximum, clamp_min and clamp do; fminf / fmaxf would return the other operand and
+//     turn a NaN history finite where the plain version keeps it NaN.
 #include "relax_common.cuh"
 
 namespace {
@@ -145,7 +149,7 @@ __device__ __forceinline__ void clamp_pixel(const ClampArgs& a, const ClampSigna
       nm2 = nm2 + n.w * n.w * w_;
       wsum = wsum + w_;
     }
-  wsum = fmaxf(wsum, 1.0f);
+  wsum = nrd::max_nan(wsum, 1.0f);
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     m1[c] = m1[c] / wsum;
@@ -162,10 +166,11 @@ __device__ __forceinline__ void clamp_pixel(const ClampArgs& a, const ClampSigna
   relax::linear_to_ycocg(slow.x, slow.y, slow.z, slow_ycocg);
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    sigma[c] = sqrtf(fmaxf(m2[c] - m1[c] * m1[c], 0.0f));
-    const float cmin = fminf(m1[c] - a.color_box_sigma_scale * sigma[c], resp_ycocg[c]);
-    const float cmax = fmaxf(m1[c] + a.color_box_sigma_scale * sigma[c], resp_ycocg[c]);
-    clamped_ycocg[c] = g.clamp ? fminf(fmaxf(slow_ycocg[c], cmin), cmax) : slow_ycocg[c];
+    sigma[c] = sqrtf(nrd::max_nan(m2[c] - m1[c] * m1[c], 0.0f));
+    const float cmin = nrd::min_nan(m1[c] - a.color_box_sigma_scale * sigma[c], resp_ycocg[c]);
+    const float cmax = nrd::max_nan(m1[c] + a.color_box_sigma_scale * sigma[c], resp_ycocg[c]);
+    clamped_ycocg[c] =
+        g.clamp ? nrd::min_nan(nrd::max_nan(slow_ycocg[c], cmin), cmax) : slow_ycocg[c];
   }
   float clamped[3];
   relax::ycocg_to_linear(clamped_ycocg, clamped);
@@ -182,7 +187,7 @@ __device__ __forceinline__ void clamp_pixel(const ClampArgs& a, const ClampSigna
   const float denom = resp_ycocg[0] - slow_ycocg[0];
   float clamping_factor =
       dy_clamp == 0.0f ? 0.0f
-                       : nrd::saturate(dy_clamp / (fabsf(denom) < 1e-15f ? 1e-15f : denom));
+                       : nrd::saturate_nan(dy_clamp / (fabsf(denom) < 1e-15f ? 1e-15f : denom));
   clamping_factor = in_fix ? 1.0f : clamping_factor;
   if constexpr (kSh) {  // lerp(sh, sh_fast, clamping factor)
     const float4 sh = __ldg(reinterpret_cast<const float4*>(g.sh) + i);
@@ -198,12 +203,12 @@ __device__ __forceinline__ void clamp_pixel(const ClampArgs& a, const ClampSigna
   hist_diff_l = in_fix ? 0.0f : hist_diff_l;
   const float dist[3] = {nm1[0] - out_resp[0], nm1[1] - out_resp[1], nm1[2] - out_resp[2]};
   const float dist_l = luminance_abs(dist[0], dist[1], dist[2]);
-  const float q = hist_diff_l / fmaxf(dist_l, 1e-15f);
+  const float q = hist_diff_l / nrd::max_nan(dist_l, 1e-15f);
   float accel[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c) accel[c] = dist_l == 0.0f ? 0.0f : dist[c] * q;
   const float accel_l = luminance_abs(accel[0], accel[1], accel[2]);
-  const float ratio = accel_l == 0.0f ? 0.0f : dist_l / fmaxf(accel_l, 1e-15f);
+  const float ratio = accel_l == 0.0f ? 0.0f : dist_l / nrd::max_nan(accel_l, 1e-15f);
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     accel[c] = ratio < 1.0f ? accel[c] * ratio : accel[c];
@@ -216,11 +221,13 @@ __device__ __forceinline__ void clamp_pixel(const ClampArgs& a, const ClampSigna
   const float4 noisy = wnd.noisy[wc];
   const float slow_l = relax::luminance(slow.x, slow.y, slow.z);
   const float noisy_l = relax::luminance(nm1[0], nm1[1], nm1[2]);
-  const float t_sigma = a.reset_temporal_sigma_scale * sqrtf(fmaxf(nm2 - noisy_l * noisy_l, 0.0f));
+  const float t_sigma =
+      a.reset_temporal_sigma_scale * sqrtf(nrd::max_nan(nm2 - noisy_l * noisy_l, 0.0f));
   const float s_sigma = a.reset_spatial_sigma_scale * sigma[0];
-  float reset = g.reset_amount * fmaxf(fabsf(slow_l - noisy_l) - s_sigma - t_sigma, 0.0f) /
-                (1e-6f + fmaxf(slow_l, noisy_l) + s_sigma + t_sigma);
-  reset = nrd::saturate(reset);
+  float reset =
+      g.reset_amount * nrd::max_nan(fabsf(slow_l - noisy_l) - s_sigma - t_sigma, 0.0f) /
+      (1e-6f + nrd::max_nan(slow_l, noisy_l) + s_sigma + t_sigma);
+  reset = nrd::saturate_nan(reset);
   const float nz[3] = {noisy.x, noisy.y, noisy.z};
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
@@ -230,7 +237,7 @@ __device__ __forceinline__ void clamp_pixel(const ClampArgs& a, const ClampSigna
 
   // the second-moment correction (:1264-1271)
   const float out_l = relax::luminance(out_slow[0], out_slow[1], out_slow[2]);
-  const float out_m2 = fmaxf(slow.w + (out_l * out_l - slow_l * slow_l), 0.0f);
+  const float out_m2 = nrd::max_nan(slow.w + (out_l * out_l - slow_l * slow_l), 0.0f);
   reinterpret_cast<float4*>(g.out_slow)[i] = make_float4(out_slow[0], out_slow[1], out_slow[2],
                                                          out_m2);
   reinterpret_cast<float4*>(g.out_resp)[i] = make_float4(out_resp[0], out_resp[1], out_resp[2],

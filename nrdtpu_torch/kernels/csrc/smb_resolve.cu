@@ -32,6 +32,10 @@
 //     unsigned short) widened to float, written as one float (the TPU kernel's n_hist planes
 //     at c = 1, nrdtpu/passes/reblur/denoiser.py:311-320). The four-channel instances compile
 //     as before.
+//   - kDec, the RGBA normal encodings: the current and previous planes are the ones that the
+//     frame decodes once (frontend.py:decode_normal_plane), their normal .xyz read as it is,
+//     and the footprint tests no material (the TPU kernel's mat_occ=False,
+//     reblur_pallas.py:603). The R10G10B10A2 instances compile as before.
 #include "common.cuh"
 
 namespace {
@@ -65,7 +69,7 @@ struct SmbArgs {
   float m[9];               // world_prev_to_world rotation, row-major
 };
 
-template <int kNSig, bool kSh, bool kOcc = false>
+template <int kNSig, bool kSh, bool kOcc = false, bool kDec = false>
 __global__ void __launch_bounds__(256, kMinCtas) smb_resolve_kernel(SmbArgs a) {
   static_assert(!(kSh && kOcc), "the occlusion variants have no SH");
   // every thread of the CTA stages, then the ones outside the image leave
@@ -75,8 +79,12 @@ __global__ void __launch_bounds__(256, kMinCtas) smb_resolve_kernel(SmbArgs a) {
   for (int k = threadIdx.y * nrd::kBlock + threadIdx.x; k < kWin * kWin;
        k += nrd::kBlock * nrd::kBlock) {
     const float4 p = nr.at4(ox0 + k % kWin, oy0 + k / kWin);
-    const V3 n = nrd::unpack_normal(p.x, p.y);
-    win[k] = make_float4(n.x, n.y, n.z, p.w);
+    if constexpr (kDec) {
+      win[k] = make_float4(p.x, p.y, p.z, 0.0f);
+    } else {
+      const V3 n = nrd::unpack_normal(p.x, p.y);
+      win[k] = make_float4(n.x, n.y, n.z, p.w);
+    }
   }
   __syncthreads();
   const int x = blockIdx.x * nrd::kBlock + threadIdx.x;
@@ -120,7 +128,7 @@ __global__ void __launch_bounds__(256, kMinCtas) smb_resolve_kernel(SmbArgs a) {
     zc[t] = fabsf(__ldg(a.prev_vz + tap)) * a.view_z_scale;
     const float w_ = zc[t] < a.denoising_range ? 1.0f : 0.0f;
     const float4 p = __ldg(reinterpret_cast<const float4*>(a.prev_nr) + tap);
-    const V3 n = nrd::unpack_normal(p.x, p.y);
+    const V3 n = kDec ? V3{p.x, p.y, p.z} : nrd::unpack_normal(p.x, p.y);
     sn = V3{sn.x + n.x * w_, sn.y + n.y * w_, sn.z + n.z * w_};
     wsum = wsum + w_;
   }
@@ -158,8 +166,11 @@ __global__ void __launch_bounds__(256, kMinCtas) smb_resolve_kernel(SmbArgs a) {
       const size_t tap = row[j] + col[k];
       const float z = centre ? zc[c] : fabsf(__ldg(a.prev_vz + tap)) * a.view_z_scale;
       const float o = fabsf(z - xvz) <= qthr[q] ? 1.0f : 0.0f;
-      const float mt = fmaxf(__ldg(a.prev_mat + tap), a.min_material);
-      const float occ = o * (mat_c == mt ? 1.0f : 0.0f);
+      float occ = o;
+      if constexpr (!kDec) {  // the RGBA formats carry no material
+        const float mt = fmaxf(__ldg(a.prev_mat + tap), a.min_material);
+        occ = o * (mat_c == mt ? 1.0f : 0.0f);
+      }
       occ12 = occ12 + occ;
       if (centre) oc[c] = occ;
     }
@@ -219,6 +230,26 @@ __global__ void __launch_bounds__(256, kMinCtas) smb_resolve_kernel(SmbArgs a) {
   nv[2] = sn.z;
 }
 
+// the instance of the call's mode; kDec: the RGBA formats' decoded planes
+template <bool kDec>
+cudaError_t launch(const SmbArgs& a, int nsig, bool sh, bool occ, dim3 grid, dim3 block,
+                   cudaStream_t st) {
+  if (occ) {
+    if (nsig == 1)
+      smb_resolve_kernel<1, false, true, kDec><<<grid, block, 0, st>>>(a);
+    else
+      smb_resolve_kernel<2, false, true, kDec><<<grid, block, 0, st>>>(a);
+    return cudaGetLastError();
+  }
+  switch (nsig * 2 + (sh ? 1 : 0)) {
+    case 2: smb_resolve_kernel<1, false, false, kDec><<<grid, block, 0, st>>>(a); break;
+    case 4: smb_resolve_kernel<2, false, false, kDec><<<grid, block, 0, st>>>(a); break;
+    case 3: smb_resolve_kernel<1, true, false, kDec><<<grid, block, 0, st>>>(a); break;
+    default: smb_resolve_kernel<2, true, false, kDec><<<grid, block, 0, st>>>(a); break;
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" const char* nrd_error_string(int err) {
@@ -229,7 +260,8 @@ extern "C" const char* nrd_error_string(int err) {
 //       hist, fast, out_hist, out_planes, out_navg, accum, hist, fast of a second signal (null
 //       with one), out_sh, the SH history of each signal (bf16; null without SH)
 // consts: view_z_scale, denoising_range, rect_prev_w, rect_prev_h, min_material, m[9],
-//         signal count (1 or 2), SH (0 or 1), one-channel histories (0 or 1; not with SH)
+//         signal count (1 or 2), SH (0 or 1), one-channel histories (0 or 1; not with SH), nr
+//         and prev_nr the RGBA formats' decoded planes (0 or 1)
 extern "C" int nrd_smb_resolve(void* const* p, const float* c, int w, int h, void* stream) {
   SmbArgs a;
   a.smb_uv = (const float*)p[0];
@@ -269,18 +301,6 @@ extern "C" int nrd_smb_resolve(void* const* p, const float* c, int w, int h, voi
   const dim3 block(nrd::kBlock, nrd::kBlock);
   const dim3 grid((w + nrd::kBlock - 1) / nrd::kBlock, (h + nrd::kBlock - 1) / nrd::kBlock);
   const cudaStream_t st = (cudaStream_t)stream;
-  if (occ) {
-    if (nsig == 1)
-      smb_resolve_kernel<1, false, true><<<grid, block, 0, st>>>(a);
-    else
-      smb_resolve_kernel<2, false, true><<<grid, block, 0, st>>>(a);
-    return (int)cudaGetLastError();
-  }
-  switch (nsig * 2 + (sh ? 1 : 0)) {
-    case 2: smb_resolve_kernel<1, false><<<grid, block, 0, st>>>(a); break;
-    case 4: smb_resolve_kernel<2, false><<<grid, block, 0, st>>>(a); break;
-    case 3: smb_resolve_kernel<1, true><<<grid, block, 0, st>>>(a); break;
-    default: smb_resolve_kernel<2, true><<<grid, block, 0, st>>>(a); break;
-  }
-  return (int)cudaGetLastError();
+  return (int)(c[17] != 0.0f ? launch<true>(a, nsig, sh, occ, grid, block, st)
+                             : launch<false>(a, nsig, sh, occ, grid, block, st));
 }

@@ -38,6 +38,11 @@
 // (:1716), so these instances take the packed plane, compute the centre from it as before and
 // decode at the taps (reblur_filters.cuh:PackedTapsT / UnpackedTapsT). The diffuse filter reads
 // no roughness, and the kRough 0 instances compile as before.
+// The RGBA normal encodings are the last template parameter (kDec, at kRough 0 only): nr is the
+// plane that the frame decodes once (its normal .xyz, its roughness .w decoded), which the
+// reference's centre reads decoded too at these formats (unpack_nr3 falls back to unpack_nr,
+// nrdtpu/passes/reblur/kernels.py:37-42); the centre's geometry and the taps read it as it is
+// and test no material (reblur_filters.cuh). The R10G10B10A2 instances compile as before.
 #include "reblur_filters.cuh"
 
 namespace {
@@ -64,10 +69,12 @@ struct SfArgs {
   nrd::StageConsts stage;
 };
 
-template <int kTaps, bool kSpec, bool kPrepass, bool kSh, bool kOcc, bool kCb, int kRough = 0>
+template <int kTaps, bool kSpec, bool kPrepass, bool kSh, bool kOcc, bool kCb, int kRough = 0,
+          bool kDec = false>
 __global__ void __launch_bounds__(256, kMinCtas) spatial_filter_kernel(SfArgs a) {
   static_assert(!kCb || kPrepass, "the checkerboard mode is the PrePass's");
   static_assert(kRough == 0 || kSpec, "the diffuse filter reads no roughness");
+  static_assert(!(kDec && kRough != 0), "the decoded plane's roughness is decoded");
   static_assert(!kOcc || (!kPrepass && !kSh), "the occlusion mode is Blur's and PostBlur's");
   constexpr nrd::SfMode mode = !kSpec ? nrd::SfMode::kDiffuse
                                : kPrepass ? nrd::SfMode::kPrepass : nrd::SfMode::kSpec;
@@ -87,7 +94,7 @@ __global__ void __launch_bounds__(256, kMinCtas) spatial_filter_kernel(SfArgs a)
   const float data1 = kPrepass ? 0.0f : __ldg(a.data1 + i);
   const float u = nrd::pixel_u(x, a.f.w), v = nrd::pixel_u(y, a.f.h);
   const nrd::FilterGeometry g =
-      nrd::filter_geometry<kSpec>(a.f, a.geo, u, v, __ldg(a.view_z + i), nrc);
+      nrd::filter_geometry<kSpec, kDec>(a.f, a.geo, u, v, __ldg(a.view_z + i), nrc);
 
   float prm[kSpec ? nrd::kSfPrepassParams : nrd::kSfDiffParams];
   if constexpr (kPrepass && kSpec)
@@ -107,7 +114,7 @@ __global__ void __launch_bounds__(256, kMinCtas) spatial_filter_kernel(SfArgs a)
   c.y = y;
   c.u = u;
   c.v = v;
-  c.material = nrc.w * 3.0f;
+  c.material = kDec ? 0.0f : nrc.w * 3.0f;
   c.ga = g.ga;
   c.gb = g.gb;
   c.fsz = g.fsz;
@@ -116,8 +123,8 @@ __global__ void __launch_bounds__(256, kMinCtas) spatial_filter_kernel(SfArgs a)
   float out[4], sh_out[4];
   float* const hdt = kSpec && kPrepass ? a.hdt + i : nullptr;
   if constexpr (kPrepass) {
-    const nrd::PackedTapsT<kRough> taps{nr, Image<float, 1>{a.view_z, a.f.w, a.f.h},
-                                        a.f.view_z_scale};
+    const nrd::PackedTapsT<kRough, kDec> taps{nr, Image<float, 1>{a.view_z, a.f.w, a.f.h},
+                                              a.f.view_z_scale};
     const float sum =
         nrd::sf_filter<kTaps, mode, kCb, kSh>(a.f, c, prm, 1, a.min_material, sig, taps, out,
                                               hdt, has_data, a.sh, sh_out);
@@ -127,7 +134,7 @@ __global__ void __launch_bounds__(256, kMinCtas) spatial_filter_kernel(SfArgs a)
                                  out);
   } else
     nrd::sf_filter<kTaps, mode, false, kSh, kOcc>(a.f, c, prm, 1, a.min_material, sig,
-                                                  nrd::UnpackedTapsT<kRough>{a.geometry, nr},
+                                                  nrd::UnpackedTapsT<kRough, kDec>{a.geometry, nr},
                                                   out, hdt, 1.0f, a.sh, sh_out);
   if constexpr (kOcc)
     a.out[i] = out[3];
@@ -140,13 +147,26 @@ __global__ void __launch_bounds__(256, kMinCtas) spatial_filter_kernel(SfArgs a)
 
 using Kernel = void (*)(SfArgs);
 
-template <int kTaps, bool kSh>
+template <int kTaps, bool kSh, bool kDec = false>
 Kernel pick_stage(bool spec, bool prepass) {
   if (prepass)
-    return spec ? spatial_filter_kernel<kTaps, true, true, kSh, false, false>
-                : spatial_filter_kernel<kTaps, false, true, kSh, false, false>;
-  return spec ? spatial_filter_kernel<kTaps, true, false, kSh, false, false>
-              : spatial_filter_kernel<kTaps, false, false, kSh, false, false>;
+    return spec ? spatial_filter_kernel<kTaps, true, true, kSh, false, false, 0, kDec>
+                : spatial_filter_kernel<kTaps, false, true, kSh, false, false, 0, kDec>;
+  return spec ? spatial_filter_kernel<kTaps, true, false, kSh, false, false, 0, kDec>
+              : spatial_filter_kernel<kTaps, false, false, kSh, false, false, 0, kDec>;
+}
+
+// the instances on the RGBA formats' decoded plane (kDec; the roughness decoded, kRough 0)
+template <int kTaps>
+Kernel pick_dec(bool spec, bool prepass, bool cb, bool sh, bool occ) {
+  if (prepass && cb)
+    return spec ? spatial_filter_kernel<kTaps, true, true, false, false, true, 0, true>
+                : spatial_filter_kernel<kTaps, false, true, false, false, true, 0, true>;
+  if (occ)  // Blur and PostBlur
+    return spec ? spatial_filter_kernel<kTaps, true, false, false, true, false, 0, true>
+                : spatial_filter_kernel<kTaps, false, false, false, true, false, 0, true>;
+  return sh ? pick_stage<kTaps, true, true>(spec, prepass)
+            : pick_stage<kTaps, false, true>(spec, prepass);
 }
 
 // the specular instances that decode the taps' roughness (kRough 1 or 2)
@@ -162,7 +182,8 @@ Kernel pick_rough(bool prepass, bool cb, bool sh, bool occ) {
 }
 
 template <int kTaps>
-Kernel pick(bool spec, bool prepass, bool cb, bool sh, bool occ, int rough) {
+Kernel pick(bool spec, bool prepass, bool cb, bool sh, bool occ, int rough, bool dec) {
+  if (dec) return pick_dec<kTaps>(spec, prepass, cb, sh, occ);
   if (spec && rough == 1) return pick_rough<kTaps, 1>(prepass, cb, sh, occ);
   if (spec && rough == 2) return pick_rough<kTaps, 2>(prepass, cb, sh, occ);
   if (prepass && cb)
@@ -188,7 +209,8 @@ Kernel pick(bool spec, bool prepass, bool cb, bool sh, bool occ, int rough) {
 //         use_prepass_not_only, frame index low 16 bits, high 16 bits, the checkerboard's
 //         has-data parity (-1: off; PrePass only), denoising range, SH (0 or 1; not with the
 //         checkerboard), one-channel occlusion signal (0 or 1; Blur and PostBlur only, no SH),
-//         the roughness encoding of nr (0 LINEAR, 1 SQRT_LINEAR, 2 SQ_LINEAR; specular only)
+//         the roughness encoding of nr (0 LINEAR, 1 SQRT_LINEAR, 2 SQ_LINEAR; specular only),
+//         nr the RGBA formats' decoded plane (0 or 1; at LINEAR only)
 extern "C" int nrd_spatial_filter(void* const* p, const float* c, int w, int h, void* stream) {
   SfArgs a;
   a.signal = (const float*)p[0];
@@ -240,8 +262,9 @@ extern "C" int nrd_spatial_filter(void* const* p, const float* c, int w, int h, 
   const bool sh = c[51] != 0.0f;
   const bool occ = c[52] != 0.0f;
   const int rough = (int)c[53];
+  const bool dec = c[54] != 0.0f;
   if ((ntaps != 8 && ntaps != 6) || stage < 0 || stage > 2 || a.cb.parity > 1 ||
-      rough < 0 || rough > 2 || (rough != 0 && !spec) ||
+      rough < 0 || rough > 2 || (rough != 0 && !spec) || (rough != 0 && dec) ||
       (occ && (prepass || sh)) ||
       (cb && !prepass) || (sh && (cb || a.sh == nullptr || a.out_sh == nullptr)) ||
       (!prepass && (a.data1 == nullptr || a.geometry == nullptr)) ||
@@ -250,8 +273,8 @@ extern "C" int nrd_spatial_filter(void* const* p, const float* c, int w, int h, 
   const dim3 block(nrd::kBlock, nrd::kBlock);
   const dim3 grid((w + nrd::kBlock - 1) / nrd::kBlock, (h + nrd::kBlock - 1) / nrd::kBlock);
   const Kernel kernel =
-      ntaps == 8 ? pick<8>(spec, prepass, cb, sh, occ, rough)
-                 : pick<6>(spec, prepass, cb, sh, occ, rough);
+      ntaps == 8 ? pick<8>(spec, prepass, cb, sh, occ, rough, dec)
+                 : pick<6>(spec, prepass, cb, sh, occ, rough, dec);
   kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

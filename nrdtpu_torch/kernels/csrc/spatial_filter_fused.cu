@@ -30,6 +30,10 @@
 // each signal is the (h, w, 1) hit distance, one float a tap, written as one float a pixel (TPU
 // reblur_fused.py:787 at c = 1); the glue's planes carry the occlusion rule of the min
 // hit-distance weight. The four-channel instances compile as before.
+// The RGBA normal encodings (kDec, the last template parameter, every mode above): nr is the
+// plane that the frame decodes once (its normal .xyz, its roughness .w decoded), the tap
+// geometry plane N5's kDec prologue wrote from it; the centres and the taps test no material
+// (reblur_filters.cuh). The R10G10B10A2 instances compile as before.
 #include "reblur_filters.cuh"
 
 namespace {
@@ -78,7 +82,7 @@ __device__ __forceinline__ void filter_pixel(const SffArgs& a, const Taps& taps,
   const size_t i = (size_t)y * a.f.w + x;
   const size_t plane = (size_t)a.f.w * a.f.h;
   const Image<float, 4> nr{a.nr, a.f.w, a.f.h};
-  const nrd::Centre c = nrd::sf_centre(a.shared + i, plane, nr, x, y);
+  const nrd::Centre c = nrd::sf_centre<Taps::kDecoded>(a.shared + i, plane, nr, x, y);
   const Image<float, 4> sig{a.signal[s], a.f.w, a.f.h};
   const float has_data = kCb ? nrd::cb_has_data(x, y, a.f.frame_index, a.cb.parity) : 1.0f;
   float out[4], sh_out[4];
@@ -108,7 +112,7 @@ __device__ __forceinline__ void filter_pixel(const SffArgs& a, const Taps& taps,
         make_float4(sh_out[0], sh_out[1], sh_out[2], sh_out[3]);
 }
 
-template <int kTaps, bool kPrepass, bool kSh, bool kOcc, bool kCb>
+template <int kTaps, bool kPrepass, bool kSh, bool kOcc, bool kCb, bool kDec = false>
 __global__ void __launch_bounds__(256, kSfCtas) spatial_filter_fused_kernel(SffArgs a) {
   static_assert(!kCb || kPrepass, "the checkerboard mode is the PrePass's");
   static_assert(!kOcc || (!kPrepass && !kSh), "the occlusion mode is Blur's and PostBlur's");
@@ -119,24 +123,32 @@ __global__ void __launch_bounds__(256, kSfCtas) spatial_filter_fused_kernel(SffA
   const Image<float, 4> nr{a.nr, a.f.w, a.f.h};
   if constexpr (kPrepass)
     filter_pixel<kTaps, SfMode::kPrepass, kCb, kSh, false>(
-        a, nrd::PackedTaps{nr, Image<float, 1>{a.view_z, a.f.w, a.f.h}, a.f.view_z_scale}, s, x,
-        y);
+        a,
+        nrd::PackedTapsT<0, kDec>{nr, Image<float, 1>{a.view_z, a.f.w, a.f.h},
+                                  a.f.view_z_scale},
+        s, x, y);
   else
-    filter_pixel<kTaps, SfMode::kSpec, false, kSh, kOcc>(a, nrd::UnpackedTaps{a.geometry, nr},
-                                                          s, x, y);
+    filter_pixel<kTaps, SfMode::kSpec, false, kSh, kOcc>(
+        a, nrd::UnpackedTapsT<0, kDec>{a.geometry, nr}, s, x, y);
 }
 
 using Kernel = void (*)(SffArgs);
 
-template <int kTaps>
-Kernel pick(bool prepass, bool cb, bool sh, bool occ) {
-  if (prepass && cb) return spatial_filter_fused_kernel<kTaps, true, false, false, true>;
-  if (occ) return spatial_filter_fused_kernel<kTaps, false, false, true, false>;
+template <int kTaps, bool kDec>
+Kernel pick_mode(bool prepass, bool cb, bool sh, bool occ) {
+  if (prepass && cb) return spatial_filter_fused_kernel<kTaps, true, false, false, true, kDec>;
+  if (occ) return spatial_filter_fused_kernel<kTaps, false, false, true, false, kDec>;
   if (sh)
-    return prepass ? spatial_filter_fused_kernel<kTaps, true, true, false, false>
-                   : spatial_filter_fused_kernel<kTaps, false, true, false, false>;
-  return prepass ? spatial_filter_fused_kernel<kTaps, true, false, false, false>
-                 : spatial_filter_fused_kernel<kTaps, false, false, false, false>;
+    return prepass ? spatial_filter_fused_kernel<kTaps, true, true, false, false, kDec>
+                   : spatial_filter_fused_kernel<kTaps, false, true, false, false, kDec>;
+  return prepass ? spatial_filter_fused_kernel<kTaps, true, false, false, false, kDec>
+                 : spatial_filter_fused_kernel<kTaps, false, false, false, false, kDec>;
+}
+
+template <int kTaps>
+Kernel pick(bool prepass, bool cb, bool sh, bool occ, bool dec) {
+  return dec ? pick_mode<kTaps, true>(prepass, cb, sh, occ)
+             : pick_mode<kTaps, false>(prepass, cb, sh, occ);
 }
 
 }  // namespace
@@ -145,11 +157,10 @@ Kernel pick(bool prepass, bool cb, bool sh, bool occ) {
 //       mode, required otherwise), out, hdt, diff_sh, spec_sh, out_sh (the last three SH only)
 // consts: frustum[4], rect_w, rect_h, view_z_scale, ortho_mode, diff_min_material,
 //         spec_min_material, ntaps (8 or 6), spec nparams, SH (0 or 1), one-channel occlusion
-//         signals (0 or 1; Blur and PostBlur only, no SH); in PrePass mode also
-//         hit-distance
-//         params[4], use_prepass_not_only, frame index low 16 bits, high 16 bits, the
-//         checkerboard's has-data parity (-1: off), denoising range,
-//         min_rect_dim_mul_unproject
+//         signals (0 or 1; Blur and PostBlur only, no SH), nr the RGBA formats' decoded plane
+//         (0 or 1); in PrePass mode also hit-distance params[4], use_prepass_not_only, frame
+//         index low 16 bits, high 16 bits, the checkerboard's has-data parity (-1: off),
+//         denoising range, min_rect_dim_mul_unproject
 extern "C" int nrd_spatial_filter_fused(void* const* p, const float* c, int w, int h,
                                         void* stream) {
   SffArgs a;
@@ -184,6 +195,7 @@ extern "C" int nrd_spatial_filter_fused(void* const* p, const float* c, int w, i
   const bool prepass = spec_nparams == nrd::kSfPrepassParams;
   const bool sh = c[12] != 0.0f;
   const bool occ = c[13] != 0.0f;
+  const bool dec = c[14] != 0.0f;
   if (prepass != (a.geometry == nullptr) || (occ && (prepass || sh)) ||
       (sh && (a.sh[0] == nullptr || a.sh[1] == nullptr || a.out_sh == nullptr)))
     return (int)cudaErrorInvalidValue;
@@ -193,17 +205,17 @@ extern "C" int nrd_spatial_filter_fused(void* const* p, const float* c, int w, i
   a.cb = nrd::CbConsts{-1, 0.0f};
   a.min_rect_dim_mul_unproject = 0.0f;
   if (prepass) {
-    for (int k = 0; k < 4; ++k) a.f.hdp[k] = c[14 + k];
-    a.f.use_prepass_not_only = c[18];
-    a.f.frame_index = (uint32_t)c[19] | ((uint32_t)c[20] << 16);
-    a.cb = nrd::CbConsts{(int)c[21], c[22]};
-    a.min_rect_dim_mul_unproject = c[23];
+    for (int k = 0; k < 4; ++k) a.f.hdp[k] = c[15 + k];
+    a.f.use_prepass_not_only = c[19];
+    a.f.frame_index = (uint32_t)c[20] | ((uint32_t)c[21] << 16);
+    a.cb = nrd::CbConsts{(int)c[22], c[23]};
+    a.min_rect_dim_mul_unproject = c[24];
   }
   if (a.cb.parity > 1) return (int)cudaErrorInvalidValue;
   const bool cb = a.cb.parity >= 0;
   if (cb && sh) return (int)cudaErrorInvalidValue;
   const Kernel kernel =
-      ntaps == 8 ? pick<8>(prepass, cb, sh, occ) : pick<6>(prepass, cb, sh, occ);
+      ntaps == 8 ? pick<8>(prepass, cb, sh, occ, dec) : pick<6>(prepass, cb, sh, occ, dec);
   const dim3 block(nrd::kBlock, nrd::kBlock);
   const dim3 tiles((w + nrd::kBlock - 1) / nrd::kBlock, (h + nrd::kBlock - 1) / nrd::kBlock);
   const dim3 grid(2 * tiles.x, tiles.y);  // one CTA per (tile, signal)

@@ -4,6 +4,11 @@
 // shift_planes + :171 nearest_resolve) with the XLA semantics of
 // nrdtpu/passes/reblur/kernels.py:1005-1022, :1093-1097 and :1125-1128. The plain version is
 // nrdtpu_torch/kernels/spec_ta_head.py:spec_ta_head_ref. One thread per pixel.
+// The RGBA normal encodings (kDec): the plane is IN_NORMAL_ROUGHNESS as packed with its .w,
+// the roughness, decoded (frontend.py:decode_roughness_plane with decoded); the moments read
+// the roughness from .w, and the curvature and high-parallax lanes stay .xy of the plane, as
+// the reference reads them at every encoding (nrdtpu/passes/reblur/kernels.py:1094-1097,
+// :1126-1128; ROADMAP.md Queue 3). The R10G10B10A2 instance compiles as before.
 #include "common.cuh"
 
 namespace {
@@ -12,7 +17,7 @@ using nrd::Image;
 
 struct HeadArgs {
   const float* hdt;     // (h, w) hitDistForTracking, 0 = none
-  const float* nr;      // (h, w, 4) packed normal / roughness / material
+  const float* nr;      // (h, w, 4) packed normal / roughness (.z, kDec .w) / material
   const float* view_z;  // (h, w) raw
   const float* uv_high; // (h, w, 2)
   float* out;           // (10, h, w): hdt_min, m1, m2, nr01 x2, nr10 x2, z_high, nr_high x2
@@ -24,6 +29,7 @@ __device__ __forceinline__ float hdt_src(const Image<float, 1>& img, int x, int 
   return v == 0.0f ? 1e6f : v;  // NRD_INF
 }
 
+template <bool kDec = false>
 __global__ void __launch_bounds__(256) spec_ta_head_kernel(HeadArgs a) {
   const int x = blockIdx.x * nrd::kBlock + threadIdx.x;
   const int y = blockIdx.y * nrd::kBlock + threadIdx.y;
@@ -39,7 +45,7 @@ __global__ void __launch_bounds__(256) spec_ta_head_kernel(HeadArgs a) {
 #pragma unroll
     for (int dx = -1; dx <= 1; ++dx) {
       hmin = fminf(hmin, hdt_src(hdt, x + dx, y + dy));
-      float rsq = nr.at(x + dx, y + dy, 2);
+      float rsq = nr.at(x + dx, y + dy, nrd::kRoughLane<kDec>);
       rsq = rsq * rsq;
       m1 = m1 + rsq;
       m2 = m2 + rsq * rsq;
@@ -64,9 +70,8 @@ __global__ void __launch_bounds__(256) spec_ta_head_kernel(HeadArgs a) {
 
 }  // namespace
 
-// ptrs: hdt, nr, view_z, uv_high, out;  consts: none
+// ptrs: hdt, nr, view_z, uv_high, out;  consts: the roughness in .w (kDec: 0 or 1)
 extern "C" int nrd_spec_ta_head(void* const* p, const float* c, int w, int h, void* stream) {
-  (void)c;
   HeadArgs a;
   a.hdt = (const float*)p[0];
   a.nr = (const float*)p[1];
@@ -77,6 +82,9 @@ extern "C" int nrd_spec_ta_head(void* const* p, const float* c, int w, int h, vo
   a.h = h;
   dim3 block(nrd::kBlock, nrd::kBlock);
   dim3 grid((w + nrd::kBlock - 1) / nrd::kBlock, (h + nrd::kBlock - 1) / nrd::kBlock);
-  spec_ta_head_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  if (c[0] != 0.0f)
+    spec_ta_head_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  else
+    spec_ta_head_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

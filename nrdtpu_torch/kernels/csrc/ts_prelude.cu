@@ -30,6 +30,11 @@
 // window stages .w, and the luma change scales .xyz by (luma_stab + 1e-6) / (.w + 1e-6) and
 // sets .w to luma_stab (nrdtpu/passes/reblur/common.py:139-147). The other instances compile as
 // before.
+// The RGBA normal encodings (kDec, the specular half only, <true, false, true>): nr is the plane
+// that the frame decodes once (frontend.py:decode_normal_plane, its roughness decoded): the
+// roughness .w and the material 0, which is still compared with the strand material id, as the
+// reference compares it (nrdtpu/passes/reblur/kernels.py:2531). The diffuse half reads no
+// normal. The other instances compile as before.
 #include "common.cuh"
 
 namespace {
@@ -50,6 +55,7 @@ struct TsArgs {
   const float* vmb_uv;         // (h, w, 2) virtual-motion uv (specular)
   const float* vha;            // (h, w) virtual history amount (specular)
   const float* nr;             // (h, w, 4) IN_NORMAL_ROUGHNESS: .z roughness, .w material / 3
+                               //   (kDec: the decoded plane, .w roughness, no material)
   float* out;                  // (h, w, 4) stabilized signal
   float* planes;               // (2, h, w): luma_stab, new accumulation speed
   int w, h;
@@ -96,9 +102,10 @@ __device__ __forceinline__ float luma_texel(const TsArgs& a, int ox, int oy, int
   return __ldg(a.signal + 4 * ((size_t)ty * a.w + tx) + (kDir ? 3 : 0));
 }
 
-template <bool kSpec, bool kDir = false>
+template <bool kSpec, bool kDir = false, bool kDec = false>
 __global__ void __launch_bounds__(kTile * kTile, kMinCtas) ts_prelude_kernel(TsArgs a) {
   static_assert(!(kSpec && kDir), "directional occlusion: the diffuse half only");
+  static_assert(!kDec || kSpec, "the decoded plane: the specular half only");
   __shared__ float luma_wnd[kWin * kWin];
   const int ox = (int)blockIdx.x * kTile - kBorder, oy = (int)blockIdx.y * kTile - kBorder;
   // the pixel's own inputs, then its two texels of the window, every load issued before the
@@ -169,14 +176,15 @@ __global__ void __launch_bounds__(kTile * kTile, kMinCtas) ts_prelude_kernel(TsA
     history_weight = history_weight * (vha != 1.0f ? smb_ok : 1.0f);
     history_weight = history_weight * (vha != 0.0f ? vmb_ok : 1.0f);
     const float4 nr = __ldg(reinterpret_cast<const float4*>(a.nr) + i);
-    const float roughness = nr.z;
+    const float roughness = kDec ? nr.w : nr.z;
+    const float material = kDec ? 0.0f : nr.w * 3.0f;
     // RemapRoughnessToResponsiveFactor: smoothstep01((roughness + eps) / threshold)
     const float f = nrd::saturate((roughness + kEps) / a.responsive_threshold);
     const float responsive_factor = f * f * (3.0f - 2.0f * f);
     const float smc = nrd::spec_magic_curve(roughness);
     const float acceleration = smc + (1.0f - smc) * (0.5f + responsive_factor * 0.5f);
     history_weight =
-        history_weight * (nr.w * 3.0f == a.strand_material_id ? 0.5f : acceleration);
+        history_weight * (material == a.strand_material_id ? 0.5f : acceleration);
   } else {
     history_weight = history_weight * smb_ok;
   }
@@ -202,7 +210,8 @@ __global__ void __launch_bounds__(kTile * kTile, kMinCtas) ts_prelude_kernel(TsA
 // consts: rect_prev_w, rect_prev_h, max_blur_radius != 0, split_screen, split_screen_prev,
 //         antilag sigma scale, antilag magic, 3 x framerate scale, stabilization strength,
 //         history fix frame num, specular (0 / 1), responsive roughness threshold + eps,
-//         strand material id, directional occlusion (0 / 1; diffuse only)
+//         strand material id, directional occlusion (0 / 1; diffuse only), nr the RGBA formats'
+//         decoded plane (0 / 1; specular only)
 extern "C" int nrd_ts_prelude(void* const* p, const float* c, int w, int h, void* stream) {
   TsArgs a;
   a.signal = (const float*)p[0];
@@ -235,7 +244,11 @@ extern "C" int nrd_ts_prelude(void* const* p, const float* c, int w, int h, void
     return (int)cudaErrorInvalidValue;
   const dim3 block(kTile, kTile);
   const dim3 grid((w + kTile - 1) / kTile, (h + kTile - 1) / kTile);
-  if (dir)
+  const bool dec = c[14] != 0.0f;
+  if (dec && !spec) return (int)cudaErrorInvalidValue;
+  if (dec)
+    ts_prelude_kernel<true, false, true><<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  else if (dir)
     ts_prelude_kernel<false, true><<<grid, block, 0, (cudaStream_t)stream>>>(a);
   else if (spec)
     ts_prelude_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(a);

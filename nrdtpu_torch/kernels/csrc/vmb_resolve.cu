@@ -15,6 +15,11 @@
 // (vmb_resolve_occ_kernel, the body's kOcc) samples the (h, w, 1) bf16 hit-distance history
 // through the same CatRom, one channel, and writes one float a pixel (the TPU kernel at c = 1,
 // nrdtpu/passes/reblur/denoiser.py:317-318); VmbArgs is unchanged.
+// The RGBA normal encodings (kDec, the body's last template parameter, one kernel each of the
+// three above: vmb_resolve_dec_kernel, vmb_resolve_sh_dec_kernel, vmb_resolve_occ_dec_kernel):
+// prev_nr is the previous plane that the frame decodes once, its roughness .w, and the taps
+// test no material (the TPU kernel's mat_occ=False, reblur_pallas.py:798). The other kernels
+// compile as before.
 #include "common.cuh"
 
 namespace {
@@ -27,7 +32,7 @@ struct VmbArgs {
   const float* uv;              // (h, w, 2) virtual-motion uv
   const float* params;          // (14, h, w), order of Param
   const float* prev_vz;         // (h, w) raw previous viewZ
-  const float* prev_nr;         // (h, w, 4)
+  const float* prev_nr;         // (h, w, 4): the roughness .z (kDec: .w)
   const float* prev_mat;        // (h, w)
   const float* accum;           // (h, w) previous specular accumulation speed
   const __nv_bfloat16* hist;    // (h, w, 4), or (h, w, 1) with kOcc
@@ -40,7 +45,7 @@ struct VmbArgs {
   float view_z_scale, ortho, rect_prev_w, rect_prev_h, min_material, res_scale_x, res_scale_y;
 };
 
-template <bool kSh, bool kOcc = false>
+template <bool kSh, bool kOcc = false, bool kDec = false>
 __device__ __forceinline__ void vmb_resolve_body(const VmbArgs& a, const uint2* sh,
                                                  float* out_sh) {
   const int x = blockIdx.x * nrd::kBlock + threadIdx.x;
@@ -75,7 +80,7 @@ __device__ __forceinline__ void vmb_resolve_body(const VmbArgs& a, const uint2* 
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const int tx = bx + (k & 1), ty = by + (k >> 1);
-    const float r_t = prev_nr.at(tx, ty, 2);
+    const float r_t = prev_nr.at(tx, ty, nrd::kRoughLane<kDec>);
     const float w_ = nrd::compute_weight_with_sigma(r_t * r_t, ra, rb, rsig);
     rw[k] = psm + (1.0f - psm) * w_;
     const float z_t = fabsf(prev_vz.at(tx, ty, 0)) * a.view_z_scale;
@@ -83,7 +88,9 @@ __device__ __forceinline__ void vmb_resolve_body(const VmbArgs& a, const uint2* 
     const float nox_prev = (nx * vvx + ny * vvy) * zscale + nz * vvz * z_t;
     float o = fabsf(nox_prev - nox_curr) <= thr * in4[k] - 1e-6f ? 1.0f : 0.0f;
     o = o * (rw[k] >= 0.5f ? 1.0f : 0.0f);
-    occ[k] = o * (mat_c == fmaxf(prev_mat.at(tx, ty, 0), a.min_material) ? 1.0f : 0.0f);
+    if constexpr (!kDec)  // the RGBA formats carry no material
+      o = o * (mat_c == fmaxf(prev_mat.at(tx, ty, 0), a.min_material) ? 1.0f : 0.0f);
+    occ[k] = o;
   }
   float ow[4];
 #pragma unroll
@@ -131,13 +138,24 @@ __global__ void __launch_bounds__(256) vmb_resolve_sh_kernel(VmbArgs a, const ui
 __global__ void __launch_bounds__(256) vmb_resolve_occ_kernel(VmbArgs a) {
   vmb_resolve_body<false, true>(a, nullptr, nullptr);
 }
+__global__ void __launch_bounds__(256) vmb_resolve_dec_kernel(VmbArgs a) {
+  vmb_resolve_body<false, false, true>(a, nullptr, nullptr);
+}
+__global__ void __launch_bounds__(256) vmb_resolve_sh_dec_kernel(VmbArgs a, const uint2* sh,
+                                                                 float* out_sh) {
+  vmb_resolve_body<true, false, true>(a, sh, out_sh);
+}
+__global__ void __launch_bounds__(256) vmb_resolve_occ_dec_kernel(VmbArgs a) {
+  vmb_resolve_body<false, true, true>(a, nullptr, nullptr);
+}
 
 }  // namespace
 
 // ptrs: uv, params, prev_vz, prev_nr, prev_mat, accum, hist, fast, prev_hdt, out_hist,
 //       out_planes, sh (bf16), out_sh (both null without SH)
 // consts: view_z_scale, ortho_mode, rect_prev_w, rect_prev_h, min_material,
-//         resolution_scale_prev x, y, SH (0 or 1), one-channel history (0 or 1; not with SH)
+//         resolution_scale_prev x, y, SH (0 or 1), one-channel history (0 or 1; not with SH),
+//         prev_nr the RGBA formats' decoded plane (0 or 1)
 extern "C" int nrd_vmb_resolve(void* const* p, const float* c, int w, int h, void* stream) {
   VmbArgs a;
   a.uv = (const float*)p[0];
@@ -168,11 +186,19 @@ extern "C" int nrd_vmb_resolve(void* const* p, const float* c, int w, int h, voi
     return (int)cudaErrorInvalidValue;
   dim3 block(nrd::kBlock, nrd::kBlock);
   dim3 grid((w + nrd::kBlock - 1) / nrd::kBlock, (h + nrd::kBlock - 1) / nrd::kBlock);
-  if (occ)
-    vmb_resolve_occ_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (c[9] != 0.0f) {  // the decoded plane
+    if (occ)
+      vmb_resolve_occ_dec_kernel<<<grid, block, 0, st>>>(a);
+    else if (sh)
+      vmb_resolve_sh_dec_kernel<<<grid, block, 0, st>>>(a, sh_in, sh_out);
+    else
+      vmb_resolve_dec_kernel<<<grid, block, 0, st>>>(a);
+  } else if (occ)
+    vmb_resolve_occ_kernel<<<grid, block, 0, st>>>(a);
   else if (sh)
-    vmb_resolve_sh_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a, sh_in, sh_out);
+    vmb_resolve_sh_kernel<<<grid, block, 0, st>>>(a, sh_in, sh_out);
   else
-    vmb_resolve_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);
+    vmb_resolve_kernel<<<grid, block, 0, st>>>(a);
   return (int)cudaGetLastError();
 }

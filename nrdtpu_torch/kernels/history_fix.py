@@ -34,6 +34,10 @@ radiance taps; the clamp takes .w as the luma with sigma scale 1, and its Change
 The kernel is the one-signal instance of the body that N5 and K23 run for two signals
 (`csrc/reblur_filters.cuh:history_fix_cta`).
 
+At the RGBA normal encodings (`decoded`) the planes are the ones that the frame decodes once
+(`frontend.decode_normal_plane`, the roughness decoded as well): the tap geometry copies their
+normal, and the kernel's `kDec` instances read the roughness from .w and test no material.
+
 Bound on the H100: bytes. Per pixel at 2560x1440 it reads 9 shared planes, 5 (diffuse) or 9
 (specular) of the signal's own planes, the specular magic curve, the signal, viewZ, the packed
 normal, the accumulation speed and the fast history (88-108 B), and writes the clamped signal
@@ -53,6 +57,7 @@ from ..passes.reblur import params as P
 from . import build
 
 launches = 0
+dec_launches = 0  # of them, the instances on the decoded plane of the RGBA formats (kDec)
 
 # per-pixel planes, in order (the pass glue stacks them): shared by the signals of a pixel,
 # and the signal's own
@@ -83,19 +88,20 @@ def anti_firefly_offsets():
             if not (abs(dy) <= 1 and abs(dx) <= 1)]
 
 
-def tap_geometry_ref(normal_roughness, view_z_in, view_z_scale):
+def tap_geometry_ref(normal_roughness, view_z_in, view_z_scale, decoded=False):
     """(h, w, 4): each pixel's unpacked normal and scaled viewZ, what a tap reads of its texel
-    (`csrc/reblur_filters.cuh:unpacked_geometry`)."""
-    n, _, _ = fe.unpack_normal_roughness(normal_roughness)
+    (`csrc/reblur_filters.cuh:unpacked_geometry`); decoded: the RGBA formats' decoded plane."""
+    n, _, _ = fe.unpack_normal_plane(normal_roughness, decoded)
     return torch.cat([n, (torch.abs(view_z_in) * view_z_scale)[..., None]], -1)
 
 
 def taps_and_clamp_ref(signal, view_z_in, normal_roughness, data1, fast_history, shared, params,
                     smc, *, frustum, rect_size_inv, view_z_scale, ortho_mode, min_material, dc,
-                    anti_firefly=False, sh=None, directional=False):
+                    anti_firefly=False, sh=None, directional=False, decoded=False):
     """The XLA stride-tap loop, the 3x3 moments and the ring, then
     `params.history_fix_clamp`. Returns (signal_out, fast_out), and with `sh` (the signal's
-    SH1) also its history fix, scaled to the clamped luma."""
+    SH1) also its history fix, scaled to the clamped luma. decoded: normal_roughness is the
+    RGBA formats' decoded plane (its material 0)."""
     h, w = view_z_in.shape
     spec = params.shape[0] == len(PARAMS) + len(SPEC_PARAMS)
     p = dict(zip(SHARED, shared))
@@ -103,7 +109,7 @@ def taps_and_clamp_ref(signal, view_z_in, normal_roughness, data1, fast_history,
     stride = p["stride"]
     n = torch.stack([p["nx"], p["ny"], p["nz"]], -1)
     nv = torch.stack([p["nvx"], p["nvy"], p["nvz"]], -1)
-    material_id = normal_roughness[..., 3] * 3.0
+    material_id = fe.unpack_normal_plane(normal_roughness, decoded)[2]
     uv = resample.pixel_uv_grid(h, w, signal.device)
     xs = torch.arange(w, dtype=torch.float32, device=signal.device)[None, :].expand(h, w)
     ys = torch.arange(h, dtype=torch.float32, device=signal.device)[:, None].expand(h, w)
@@ -121,7 +127,8 @@ def taps_and_clamp_ref(signal, view_z_in, normal_roughness, data1, fast_history,
             px = torch.clamp(xs + ofx, 0, w - 1).long()
             py = torch.clamp(ys + ofy, 0, h - 1).long()
             zs = torch.abs(resample.texel_fetch(view_z_in, px, py)) * view_z_scale
-            ns, rs, ms = fe.unpack_normal_roughness(resample.texel_fetch(normal_roughness, px, py))
+            ns, rs, ms = fe.unpack_normal_plane(resample.texel_fetch(normal_roughness, px, py),
+                                                decoded)
             angle = nm.acos_approx(nm.dot(ns, n))
             xvs = nm.reconstruct_view_position(uv_s, frustum, zs, ortho_mode)
             w_ = resample.is_in_screen_nearest(uv_s)
@@ -160,7 +167,7 @@ def taps_and_clamp_ref(signal, view_z_in, normal_roughness, data1, fast_history,
 
 def history_fix_ref(signal, view_z_in, normal_roughness, data1, fast_history, shared, params,
                     smc, *, frustum, rect_size_inv, view_z_scale, ortho_mode, min_material, dc,
-                    anti_firefly=False, sh=None, directional=False):
+                    anti_firefly=False, sh=None, directional=False, decoded=False):
     """Plain PyTorch version of the kernel: the XLA stride-tap loop, the 3x3 moments and the
     ring, then `params.history_fix_clamp`; and the tap geometry. Returns dict(signal, fast,
     geometry[, sh])."""
@@ -168,9 +175,9 @@ def history_fix_ref(signal, view_z_in, normal_roughness, data1, fast_history, sh
         signal, view_z_in, normal_roughness, data1, fast_history, shared, params, smc,
         frustum=frustum, rect_size_inv=rect_size_inv, view_z_scale=view_z_scale,
         ortho_mode=ortho_mode, min_material=min_material, dc=dc, anti_firefly=anti_firefly,
-        sh=sh, directional=directional)
+        sh=sh, directional=directional, decoded=decoded)
     out = dict(signal=res[0], fast=res[1],
-               geometry=tap_geometry_ref(normal_roughness, view_z_in, view_z_scale))
+               geometry=tap_geometry_ref(normal_roughness, view_z_in, view_z_scale, decoded))
     if sh is not None:
         out["sh"] = res[2]
     return out
@@ -185,7 +192,7 @@ def check_params(shared, params):
 
 def history_fix(signal, view_z_in, normal_roughness, data1, fast_history, shared, params, smc,
                 *, frustum, rect_size_inv, view_z_scale, ortho_mode, min_material, dc,
-                anti_firefly=False, sh=None, directional=False):
+                anti_firefly=False, sh=None, directional=False, decoded=False):
     """signal (h, w, 4), or (h, w, 1) with the occlusion variants (no SH), data1 = accumulated
     frames (h, w), fast_history (h, w), shared float32
     planes named by SHARED (9, h, w), params named by PARAMS (5, h, w; diffuse) or PARAMS +
@@ -194,11 +201,13 @@ def history_fix(signal, view_z_in, normal_roughness, data1, fast_history, shared
     the input's shape), fast (h, w), geometry (h, w, 4)): the clamped signal, the fast history
     and the tap geometry; with the SH variants' `sh` (the signal's SH1, (h, w, 4)) also sh (h,
     w, 4); directional: REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION's clamp (diffuse, four channels,
-    no SH)."""
-    global launches
+    no SH); decoded: normal_roughness is the RGBA formats' decoded plane
+    (`frontend.decode_normal_plane`, its roughness decoded; the kernel's kDec instances), else
+    packed R10G10B10A2."""
+    global launches, dec_launches
     kw = dict(frustum=frustum, rect_size_inv=rect_size_inv, view_z_scale=view_z_scale,
               ortho_mode=ortho_mode, min_material=min_material, dc=dc,
-              anti_firefly=anti_firefly, sh=sh, directional=directional)
+              anti_firefly=anti_firefly, sh=sh, directional=directional, decoded=decoded)
     check_params(shared, params)
     spec = params.shape[0] != len(PARAMS)
     if (smc is None) == spec:
@@ -228,11 +237,12 @@ def history_fix(signal, view_z_in, normal_roughness, data1, fast_history, shared
     out_sh = None if sh is None else torch.empty((h, w, 4), dtype=f32, device=dev)
     consts = [*frustum, rect_size_inv[0], rect_size_inv[1], view_z_scale, ortho_mode,
               min_material, spec, anti_firefly, P.history_fix_frame_div(dc),
-              P.fast_history_enabled(dc), sh is not None, c == 1, directional]
+              P.fast_history_enabled(dc), sh is not None, c == 1, directional, decoded]
     build.launch("nrd_history_fix", [t for _, t, _ in ins[:7]] + [smc, out, fast, geometry,
                                                                  sh, out_sh],
                  consts, w, h)
     launches += 1
+    dec_launches += bool(decoded)
     res = dict(signal=out, fast=fast, geometry=geometry)
     if sh is not None:
         res["sh"] = out_sh

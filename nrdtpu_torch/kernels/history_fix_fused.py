@@ -40,6 +40,7 @@ from . import history_fix as hf
 from .history_fix import tap_geometry_ref
 
 launches = 0
+dec_launches = 0  # of them, the instances on the decoded plane of the RGBA formats (kDec)
 
 SIGNALS = ("diff", "spec")
 
@@ -47,11 +48,12 @@ SIGNALS = ("diff", "spec")
 def history_fix_fused_ref(diff, spec, view_z_in, normal_roughness, diff_data1, spec_data1,
                           diff_fast, spec_fast, shared, diff_params, spec_params, smc, *,
                           frustum, rect_size_inv, view_z_scale, ortho_mode, diff_min_material,
-                          spec_min_material, dc, anti_firefly=(False, False), sh=None):
+                          spec_min_material, dc, anti_firefly=(False, False), sh=None,
+                          decoded=False):
     """Plain version: H3's plain version (the taps and the clamp) of each signal, and the tap
     geometry."""
     kw = dict(frustum=frustum, rect_size_inv=rect_size_inv, view_z_scale=view_z_scale,
-              ortho_mode=ortho_mode, dc=dc)
+              ortho_mode=ortho_mode, dc=dc, decoded=decoded)
     sh = (None, None) if sh is None else sh
     out = {}
     for k, (name, sig, data1, fast, params, smc_, mm) in enumerate((
@@ -63,27 +65,30 @@ def history_fix_fused_ref(diff, spec, view_z_in, normal_roughness, diff_data1, s
         out[name], out[name + "_fast"] = res[:2]
         if sh[k] is not None:
             out[name + "_sh"] = res[2]
-    out["geometry"] = tap_geometry_ref(normal_roughness, view_z_in, view_z_scale)
+    out["geometry"] = tap_geometry_ref(normal_roughness, view_z_in, view_z_scale, decoded)
     return out
 
 
 def history_fix_fused(diff, spec, view_z_in, normal_roughness, diff_data1, spec_data1,
                       diff_fast, spec_fast, shared, diff_params, spec_params, smc, *, frustum,
                       rect_size_inv, view_z_scale, ortho_mode, diff_min_material,
-                      spec_min_material, dc, anti_firefly=(False, False), sh=None):
+                      spec_min_material, dc, anti_firefly=(False, False), sh=None,
+                      decoded=False):
     """diff, spec (h, w, 4), or (h, w, 1) each with the occlusion variants (no SH); *_data1,
     *_fast (h, w); shared (9, h, w) named by history_fix.SHARED; diff_params (5, h, w) named
     by history_fix.PARAMS, spec_params (9, h, w) by PARAMS + SPEC_PARAMS; smc (h, w) the specular magic curve; dc: the REBLUR frame
     constants (the clamp's); anti_firefly: (diffuse, specular) ring flags; sh: with the SH
-    variants the (diffuse, specular) SH1, (h, w, 4) each. Returns dict(diff, spec, diff_fast,
-    spec_fast, geometry[, diff_sh, spec_sh]): the clamped signals, the fast histories, the
-    frame's tap geometry (h, w, 4) and the SH after the history fix."""
-    global launches
+    variants the (diffuse, specular) SH1, (h, w, 4) each; decoded: normal_roughness is the RGBA
+    formats' decoded plane (`frontend.decode_normal_plane`, its roughness decoded; the kernel's
+    kDec instances), else packed R10G10B10A2. Returns dict(diff, spec, diff_fast, spec_fast,
+    geometry[, diff_sh, spec_sh]): the clamped signals, the fast histories, the frame's tap
+    geometry (h, w, 4) and the SH after the history fix."""
+    global launches, dec_launches
     sh = None if sh is None else tuple(sh)
     kw = dict(frustum=frustum, rect_size_inv=rect_size_inv, view_z_scale=view_z_scale,
               ortho_mode=ortho_mode, diff_min_material=diff_min_material,
               spec_min_material=spec_min_material, dc=dc, anti_firefly=tuple(anti_firefly),
-              sh=sh)
+              sh=sh, decoded=decoded)
     if sh is not None and (len(sh) != 2 or any(t is None for t in sh)):
         raise ValueError("sh: the SH1 of both signals")
     hf.check_params(shared, diff_params)
@@ -114,10 +119,12 @@ def history_fix_fused(diff, spec, view_z_in, normal_roughness, diff_data1, spec_
     out_sh = None if sh is None else torch.empty((2, h, w, 4), dtype=f32, device=dev)
     consts = [*frustum, rect_size_inv[0], rect_size_inv[1], view_z_scale, ortho_mode,
               diff_min_material, spec_min_material, *map(bool, anti_firefly),
-              P.history_fix_frame_div(dc), P.fast_history_enabled(dc), sh is not None, c == 1]
+              P.history_fix_frame_div(dc), P.fast_history_enabled(dc), sh is not None, c == 1,
+              decoded]
     build.launch("nrd_history_fix_fused", [t for _, t, _ in ins] + [out, fast, geometry]
                  + list(sh or (None, None)) + [out_sh], consts, w, h)
     launches += 1
+    dec_launches += bool(decoded)
     res = dict(diff=out[0], spec=out[1], diff_fast=fast[0], spec_fast=fast[1],
                geometry=geometry)
     if sh is not None:

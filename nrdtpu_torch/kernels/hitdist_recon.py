@@ -13,8 +13,10 @@ the packed normal and the frame constants, and writes each signal whole: .xyz co
 reconstructed. The occlusion variants' signals are (h, w, 1), the hit distance alone: the
 kernel's one-channel instances read and write one float a pixel. The roughness is unpacked
 with the roughness encoding, a template parameter of the kernel; at the RGBA normal encodings
-(RELAX's calls, `decoded=`) the kernel reads the decoded plane (its kDec instances). REBLUR
-and RELAX (its raw hit distance) both call it.
+(`decoded=`) the kernel reads the decoded plane (its kDec instances: RELAX's and REBLUR's
+four-channel calls, and REBLUR's occlusion variants on one channel, whose plane has its
+roughness decoded too, so their instances are LINEAR only). REBLUR and RELAX (its raw hit
+distance) both call it.
 
 Bound on the H100: memory. Per pixel at 2560x1440 it reads viewZ (4 B), the packed normal
 (16 B) and each signal (16 B), and writes each signal (16 B): 52 B/px with one signal, 84 B/px
@@ -126,9 +128,9 @@ def hitdist_recon(view_z_in, normal_roughness, diff, spec, *, radius, view_z_sca
     the occlusion variants, or None (at least one given, both of one shape); radius 1 or 2; the
     frame constants of `centre_params`; roughness_encoding: how the packed roughness is
     unpacked; decoded: normal_roughness is the RGBA formats' decoded plane
-    (`frontend.decode_normal_plane`, the kernel's kDec instances; four channels only), else
-    packed R10G10B10A2. Returns {"diff": ..., "spec": ...} for the signals given, each of its
-    input's shape with its reconstructed hit distance."""
+    (`frontend.decode_normal_plane`, the kernel's kDec instances; with one-channel signals at
+    LINEAR only), else packed R10G10B10A2. Returns {"diff": ..., "spec": ...} for the signals
+    given, each of its input's shape with its reconstructed hit distance."""
     global launches, dec_launches
     kw = dict(radius=radius, view_z_scale=view_z_scale, frustum=frustum, ortho_mode=ortho_mode,
               rect_size_inv=rect_size_inv, world_to_view=world_to_view,
@@ -146,8 +148,8 @@ def hitdist_recon(view_z_in, normal_roughness, diff, spec, *, radius, view_z_sca
     f32 = torch.float32
     given = [(name, s) for name, s in (("diff", diff), ("spec", spec)) if s is not None]
     c = build.channels(*given[0])
-    if decoded and c != 4:
-        raise ValueError("decoded: the kernel's kDec instances take four-channel signals")
+    if decoded and c == 1 and roughness_encoding != RoughnessEncoding.LINEAR:
+        raise ValueError("decoded one-channel signals: the plane's roughness is decoded, LINEAR")
     ins = [("view_z_in", view_z_in, (h, w)), ("normal_roughness", normal_roughness, (h, w, 4))]
     ins += [(name, s, (h, w, c)) for name, s in given]
     for name, t, shape in ins:

@@ -63,6 +63,7 @@ from . import spatial_filter as sf
 from . import spatial_filter_fused as sff
 
 launches = 0
+dec_launches = 0  # of them, the instances on the decoded plane of the RGBA formats (kDec)
 
 # the per-pixel planes of the frame's geometry, in order: the history fix's shared planes,
 # then what the Blur and PostBlur parameters read
@@ -83,7 +84,7 @@ def reblur_band_ref(diff, spec, view_z_in, normal_roughness, diff_data1, spec_da
                     spec_fast, planes, diff_params, spec_params, *, frustum, rect_size,
                     rect_size_inv, view_z_scale, ortho_mode, diff_min_material,
                     spec_min_material, rotator, rotator_post, enc_err, dc, perf_mode,
-                    anti_firefly=(False, False), sh=None):
+                    anti_firefly=(False, False), sh=None, decoded=False):
     """Plain version: N5's plain version (the history fix and its clamp), and for Blur and
     PostBlur the parameters and N4's plain version."""
     p = dict(zip(PLANES, planes))
@@ -92,7 +93,7 @@ def reblur_band_ref(diff, spec, view_z_in, normal_roughness, diff_data1, spec_da
         planes[:len(hf.SHARED)], diff_params, spec_params, p["smc"], frustum=frustum,
         rect_size_inv=rect_size_inv, view_z_scale=view_z_scale, ortho_mode=ortho_mode,
         diff_min_material=diff_min_material, spec_min_material=spec_min_material, dc=dc,
-        anti_firefly=anti_firefly, sh=sh)
+        anti_firefly=anti_firefly, sh=sh, decoded=decoded)
     geom = _geometry(planes, view_z_in, view_z_scale, enc_err)
     sig = dict(diff=res["diff"], spec=res["spec"])
     if sh is not None:
@@ -109,7 +110,7 @@ def reblur_band_ref(diff, spec, view_z_in, normal_roughness, diff_data1, spec_da
             frustum=frustum, rect_size=rect_size, view_z_scale=view_z_scale,
             ortho_mode=ortho_mode, diff_min_material=diff_min_material,
             spec_min_material=spec_min_material, perf_mode=perf_mode,
-            sh=None if sh is None else (sig["diff_sh"], sig["spec_sh"]))
+            sh=None if sh is None else (sig["diff_sh"], sig["spec_sh"]), decoded=decoded)
     out.update(sig)
     return out
 
@@ -133,22 +134,24 @@ def reblur_band(diff, spec, view_z_in, normal_roughness, diff_data1, spec_data1,
                 spec_fast, planes, diff_params, spec_params, *, frustum, rect_size,
                 rect_size_inv, view_z_scale, ortho_mode, diff_min_material, spec_min_material,
                 rotator, rotator_post, enc_err, dc, perf_mode, anti_firefly=(False, False),
-                sh=None):
+                sh=None, decoded=False):
     """diff, spec (h, w, 4), or (h, w, 1) each with the occlusion variants (no SH): the TA
     outputs; *_data1, *_fast (h, w); planes (14, h, w) named by
     PLANES; diff_params (5, h, w) named by history_fix.PARAMS, spec_params (9, h, w) by PARAMS
     + SPEC_PARAMS; rotator, rotator_post: the Blur and PostBlur rotators; dc: the REBLUR frame
     constants; anti_firefly: (diffuse, specular) ring flags; sh: with the SH variants the
-    (diffuse, specular) SH1 after TA, (h, w, 4) each. Returns dict(diff, spec, diff_fast,
-    spec_fast[, diff_sh, spec_sh]): the PostBlur signals, the history fix's fast histories and
-    the PostBlur SH."""
-    global launches
+    (diffuse, specular) SH1 after TA, (h, w, 4) each; decoded: normal_roughness is the RGBA
+    formats' decoded plane (`frontend.decode_normal_plane`, its roughness decoded; the kernel's
+    kDec instances), else packed R10G10B10A2. Returns dict(diff, spec, diff_fast, spec_fast[,
+    diff_sh, spec_sh]): the PostBlur signals, the history fix's fast histories and the PostBlur
+    SH."""
+    global launches, dec_launches
     sh = None if sh is None else tuple(sh)
     kw = dict(frustum=frustum, rect_size=rect_size, rect_size_inv=rect_size_inv,
               view_z_scale=view_z_scale, ortho_mode=ortho_mode,
               diff_min_material=diff_min_material, spec_min_material=spec_min_material,
               rotator=rotator, rotator_post=rotator_post, enc_err=enc_err, dc=dc,
-              perf_mode=perf_mode, anti_firefly=tuple(anti_firefly), sh=sh)
+              perf_mode=perf_mode, anti_firefly=tuple(anti_firefly), sh=sh, decoded=decoded)
     if sh is not None and (len(sh) != 2 or any(t is None for t in sh)):
         raise ValueError("sh: the SH1 of both signals")
     if planes.shape[0] != len(PLANES):
@@ -184,10 +187,11 @@ def reblur_band(diff, spec, view_z_in, normal_roughness, diff_data1, spec_data1,
               view_z_scale, ortho_mode, diff_min_material, spec_min_material,
               *map(bool, anti_firefly), sf.ntaps(perf_mode),
               *band_consts(dc, rotator=rotator, rotator_post=rotator_post, enc_err=enc_err),
-              sh is not None, c == 1]
+              sh is not None, c == 1, decoded]
     build.launch("nrd_reblur_band", [t for _, t, _ in ins[:11]] + [scratch, fast, out]
                  + list(sh or (None, None)) + [out_sh], consts, w, h)
     launches += 1
+    dec_launches += bool(decoded)
     res = dict(diff=out[0], spec=out[1], diff_fast=fast[0], spec_fast=fast[1])
     if sh is not None:
         res.update(diff_sh=out_sh[0], spec_sh=out_sh[1])

@@ -23,7 +23,11 @@ never through the CatRom (`sample_history_bilinear`, `:473-476`; the TPU kernel'
 `nrdtpu/kernels/reblur_pallas.py:580`, `:605`). With the occlusion variants each history is the
 (h, w, 1) bf16 hit distance: the one-channel instances sample it through the same CatRom
 footprint and write (nsig, h, w, 1) (the TPU kernel's `n_hist` planes at c = 1,
-`nrdtpu/passes/reblur/denoiser.py:311-320`).
+`nrdtpu/passes/reblur/denoiser.py:311-320`). At the RGBA normal encodings (`decoded=True`) the
+current and previous planes are the ones that the frame decodes once
+(`frontend.decode_normal_plane`): the normals are read from .xyz as they are and the footprint
+tests no material (the kernel's `kDec` instances; the TPU kernel's mat_occ=False,
+`reblur_pallas.py:603`).
 
 Bound on the H100: gathers. Per pixel at 2560x1440 it reads 12 viewZ + 12 material taps
 (96 B), 4 current (staged once a CTA) and 4 previous packed normals, 4 accumulation taps (16 B),
@@ -47,6 +51,7 @@ from ..ops import resample, stencil
 from . import build
 
 launches = 0
+dec_launches = 0  # of them, the instances on the decoded planes of the RGBA formats (kDec)
 
 CENTER_TAPS = ((1, 1), (2, 1), (1, 2), (2, 2))  # (x, y) of the bilinear 2x2 inside the 4x4
 CORNER_TAPS = ((0, 0), (3, 0), (0, 3), (3, 3))
@@ -65,12 +70,13 @@ def _pack(history, planes, navg):
 def smb_resolve_ref(smb_uv, xv_prev_z, base_threshold, navg_thr, normal_roughness,
                     prev_view_z, prev_normal_roughness, prev_material_id, prev_accum,
                     history, fast_history, *, view_z_scale, denoising_range,
-                    rect_size_prev, min_material, world_prev_to_world, second=None, sh=None):
+                    rect_size_prev, min_material, world_prev_to_world, second=None, sh=None,
+                    decoded=False):
     """Plain PyTorch version of the kernel (the XLA formulas, gather by gather); with a
     second signal, the one-signal version run per signal."""
     kw = dict(view_z_scale=view_z_scale, denoising_range=denoising_range,
               rect_size_prev=rect_size_prev, min_material=min_material,
-              world_prev_to_world=world_prev_to_world)
+              world_prev_to_world=world_prev_to_world, decoded=decoded)
     if second is not None:
         args = (smb_uv, xv_prev_z, base_threshold, navg_thr, normal_roughness, prev_view_z,
                 prev_normal_roughness, prev_material_id)
@@ -81,7 +87,7 @@ def smb_resolve_ref(smb_uv, xv_prev_z, base_threshold, navg_thr, normal_roughnes
         return out
 
     def unpack(p):
-        return fe.unpack_normal_roughness(p)[0]
+        return fe.unpack_normal_plane(p, decoded)[0]
 
     # current Navg over the 2x2 at offsets {-1, 0} (TA lines 70-97)
     n_avg = torch.zeros_like(normal_roughness[..., :3])
@@ -119,8 +125,10 @@ def smb_resolve_ref(smb_uv, xv_prev_z, base_threshold, navg_thr, normal_roughnes
             q = (1 if i >= 2 else 0) + (2 if j >= 2 else 0)
             plane_dist = torch.abs(z_taps[j][i] - xv_prev_z)
             o = (plane_dist <= quad_threshold[q]).to(torch.float32)
-            mat = resample.texel_fetch(prev_material_id, x0 - 1 + i, y0 - 1 + j)
-            occ[j][i] = o * (mat_c == torch.clamp_min(mat, min_material)).to(torch.float32)
+            if not decoded:  # the RGBA formats carry no material
+                mat = resample.texel_fetch(prev_material_id, x0 - 1 + i, y0 - 1 + j)
+                o = o * (mat_c == torch.clamp_min(mat, min_material)).to(torch.float32)
+            occ[j][i] = o
 
     occ_center = torch.stack([occ[ty][tx] for tx, ty in CENTER_TAPS], -1)
     weights = nm.get_bilinear_custom_weights(frac, occ_center)
@@ -154,7 +162,7 @@ def _check_sh(sh, nsig):
 def smb_resolve(smb_uv, xv_prev_z, base_threshold, navg_thr, normal_roughness, prev_view_z,
                 prev_normal_roughness, prev_material_id, prev_accum, history, fast_history,
                 *, view_z_scale, denoising_range, rect_size_prev, min_material,
-                world_prev_to_world, second=None, sh=None):
+                world_prev_to_world, second=None, sh=None, decoded=False):
     """prev_accum: the previous accumulation speed of the signal whose history is sampled;
     history: its bf16 history, (h, w, 4), or (h, w, 1) with the occlusion variants.
     Returns dict(history (h, w, 4) or (h, w, 1), fast, fbits, allow_catrom (bool), footprint_raw,
@@ -164,11 +172,13 @@ def smb_resolve(smb_uv, xv_prev_z, base_threshold, navg_thr, normal_roughness, p
     second: (prev_accum, history, fast_history) of a second signal, sampled in the same
     launch; its results come as history_2, fast_2 and accum_speed_2. sh: with the SH variants
     the (h, w, 4) bf16 SH history of each signal (one or two), sampled in the same launch: sh
-    (h, w, 4) float32, and sh_2 for the second signal."""
-    global launches
+    (h, w, 4) float32, and sh_2 for the second signal. decoded: normal_roughness and
+    prev_normal_roughness are the RGBA formats' decoded planes (the kernel's kDec instances),
+    else packed R10G10B10A2."""
+    global launches, dec_launches
     kw = dict(view_z_scale=view_z_scale, denoising_range=denoising_range,
               rect_size_prev=rect_size_prev, min_material=min_material,
-              world_prev_to_world=world_prev_to_world)
+              world_prev_to_world=world_prev_to_world, decoded=decoded)
     sh = None if sh is None else tuple(sh)
     _check_sh(sh, 1 if second is None else 2)
     c = build.channels("history", history, sh)
@@ -202,13 +212,14 @@ def smb_resolve(smb_uv, xv_prev_z, base_threshold, navg_thr, normal_roughness, p
     m = np.asarray(world_prev_to_world, np.float32)[:3, :3].reshape(-1)
     out_sh = torch.empty((nsig, h, w, 4), dtype=f32, device=dev) if sh else None
     consts = [view_z_scale, denoising_range, rect_size_prev[0], rect_size_prev[1],
-              min_material, *m, nsig, sh is not None, c == 1]
+              min_material, *m, nsig, sh is not None, c == 1, decoded]
     extra_ptrs = [t for _, t, _, _ in extra] + [None] * (3 - len(extra))
     build.launch("nrd_smb_resolve",
                  [t for _, t, _, _ in ins] + [out_hist, planes, navg] + extra_ptrs
                  + [out_sh] + [t for _, t, _, _ in sh_ins] + [None] * (2 - len(sh_ins)),
                  consts, w, h)
     launches += 1
+    dec_launches += bool(decoded)
     out = _pack(out_hist[0], planes, navg)
     if second is not None:
         out.update(history_2=out_hist[1], accum_speed_2=planes[len(PLANES)],

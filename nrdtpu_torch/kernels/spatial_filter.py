@@ -42,6 +42,12 @@ takes IN_NORMAL_ROUGHNESS as packed: the reference computes the centre's geometr
 parameters from the packed roughness (`unpack_nr3`, `nrdtpu/passes/reblur/kernels.py:37-42`,
 `:1576`) and decodes each tap's (`:1716`), so the `kRough` instances decode at the taps only.
 
+At the RGBA normal encodings (`decoded`) the kernel takes the plane that the frame decodes once
+(`frontend.decode_normal_plane`, its roughness decoded as well, at LINEAR): the reference reads
+the centre decoded there too (`unpack_nr3` falls back to `unpack_nr`), so its `kDec` instances
+read the normal from .xyz and the roughness from .w at the centre and the taps, and test no
+material (the RGBA formats carry none).
+
 The kernel takes the raw planes (the signal, viewZ, the packed normal and, for Blur and
 PostBlur, the accumulation speed and `geometry`, the (unpacked normal, scaled viewZ) plane that
 H3 (`history_fix`) returns) and the frame constants (`sc`, `dc`); no parameter plane. The
@@ -72,6 +78,7 @@ from . import build
 launches = 0
 cb_launches = 0  # of them, the checkerboard PrePass instances
 rough_launches = 0  # of them, the specular instances that decode the taps' roughness (kRough)
+dec_launches = 0  # of them, the instances on the decoded plane of the RGBA formats (kDec)
 NRD_DISOCCLUSION_THRESHOLD = 0.02  # `nrdtpu/passes/reblur/common.py:42`
 
 # per-pixel planes of the tap loop, in order (`taps_ref`; N4's and K23's glue stacks them):
@@ -127,7 +134,7 @@ def cb_neighbor_resolve(signal, view_z, frustum_size, nov, denoising_range):
 
 def taps_ref(signal, view_z_in, normal_roughness, shared, params, *, frustum, rect_size,
              view_z_scale, ortho_mode, min_material, perf_mode, prepass=None, cb=None, sh=None,
-             roughness_encoding=RoughnessEncoding.LINEAR):
+             roughness_encoding=RoughnessEncoding.LINEAR, decoded=False):
     """The XLA tap loop on the centre's planes: shared named by SHARED (8, h, w), params by
     PARAMS (+ SPEC_PARAMS (+ PREPASS_PARAMS)); the specular PrePass mode takes `prepass` =
     dict(hit_dist_params (A, B, C, D), use_prepass_not_only, frame_index); the checkerboard
@@ -135,8 +142,9 @@ def taps_ref(signal, view_z_in, normal_roughness, shared, params, *, frustum, re
     (h, w, 4) fallback written where the weight sum is 0); `sh`: the signal's SH1 (h, w, 4),
     filtered with the taps' final weights (all four channels in the diffuse mode; three, the
     centre's `.w` kept, in the specular modes); roughness_encoding: how the taps' roughness
-    in normal_roughness is packed. Returns the filtered signal (h, w, 4), in the PrePass mode
-    also hitDistForTracking (h, w), and with `sh` last the filtered SH."""
+    in normal_roughness is packed; decoded: normal_roughness is the RGBA formats' decoded plane
+    (its material 0). Returns the filtered signal (h, w, 4), in the PrePass mode also
+    hitDistForTracking (h, w), and with `sh` last the filtered SH."""
     h, w = view_z_in.shape
     mode = MODES[params.shape[0]]
     p = dict(zip(SHARED, shared))
@@ -145,7 +153,7 @@ def taps_ref(signal, view_z_in, normal_roughness, shared, params, *, frustum, re
     rot = torch.stack([p["rot0"], p["rot1"], p["rot2"], p["rot3"]], -1)
     n = torch.stack([p["nx"], p["ny"], p["nz"]], -1)
     nv = torch.stack([p["nvx"], p["nvy"], p["nvz"]], -1)
-    material_id = normal_roughness[..., 3] * 3.0
+    material_id = fe.unpack_normal_plane(normal_roughness, decoded)[2]
     rw, rh = float(rect_size[0]), float(rect_size[1])
 
     if sh is not None and cb is not None:
@@ -169,7 +177,7 @@ def taps_ref(signal, view_z_in, normal_roughness, shared, params, *, frustum, re
                             nm.div(torch.floor(vs * rh) + 0.5, rh)], -1)
         zs = torch.abs(resample.sample_nearest(view_z_in, uv_s)) * view_z_scale
         nr_s = resample.sample_nearest(normal_roughness, uv_s)
-        ns, rs, ms = fe.unpack_normal_roughness(nr_s, roughness_encoding=roughness_encoding)
+        ns, rs, ms = fe.unpack_normal_plane(nr_s, decoded, roughness_encoding)
         angle = nm.acos_approx(nm.dot(n, ns))
         xvs = nm.reconstruct_view_position(uv_s, frustum, zs, ortho_mode)
         w_ = resample.is_in_screen_nearest(uv_s)
@@ -258,15 +266,16 @@ def cb_ref(signal, view_z, frustum_size, nov, *, frame_index, parity, denoising_
 
 def spatial_filter_ref(signal, view_z_in, normal_roughness, data1=None, *, sc, dc, mode, spec,
                        enc_err, perf_mode, geometry=None, cb=None, sh=None,
-                       roughness_encoding=RoughnessEncoding.LINEAR):
+                       roughness_encoding=RoughnessEncoding.LINEAR, decoded=False):
     """Plain PyTorch version of the kernel: the centre's planes that the kernel computes per
     pixel, from the pass glue's torch functions (`params.filter_geometry`,
     `diff_spatial_params`, `spec_spatial_params`; under checkerboard on the centre signal
     zeroed where it has no data), then the XLA tap loop (`taps_ref`); the taps unpack their
     geometry from normal_roughness and view_z_in, the values of `geometry`, and decode their
-    roughness by `roughness_encoding` (the centre's stays as packed)."""
+    roughness by `roughness_encoding` (the centre's stays as packed); decoded: the RGBA
+    formats' decoded plane, read as it is at the centre and the taps."""
     geom = P.filter_geometry(sc, dc, view_z_in, normal_roughness, enc_err,
-                             ("spec",) if spec else ("diff",))
+                             ("spec",) if spec else ("diff",), decoded=decoded)
     shared = torch.stack([geom["ga"], geom["gb"], *geom["n3"], *geom["nv3"]])
     centre, cbd = signal, None
     if cb is not None:
@@ -281,11 +290,11 @@ def spatial_filter_ref(signal, view_z_in, normal_roughness, data1=None, *, sc, d
                     frustum=_v(sc["frustum"]), rect_size=_v(sc["rect_size"]),
                     view_z_scale=float(sc["view_z_scale"]), ortho_mode=float(sc["ortho_mode"]),
                     min_material=min_material(dc, spec), perf_mode=perf_mode, prepass=prepass,
-                    cb=cbd, sh=sh, roughness_encoding=roughness_encoding)
+                    cb=cbd, sh=sh, roughness_encoding=roughness_encoding, decoded=decoded)
 
 
 def launch_consts(sc, dc, mode, spec, enc_err, perf_mode, cb=None, sh=False, occlusion=False,
-                  roughness_encoding=RoughnessEncoding.LINEAR):
+                  roughness_encoding=RoughnessEncoding.LINEAR, decoded=False):
     """The kernel's host constants, each the float32 value that the plain version's torch ops
     see (`csrc/spatial_filter.cu:nrd_spatial_filter` lists them)."""
     fraction_scale, radius_scale = P.STAGE_SCALES[mode]
@@ -304,12 +313,12 @@ def launch_consts(sc, dc, mode, spec, enc_err, perf_mode, cb=None, sh=False, occ
             P.roughness_fraction_scaled(dc, fraction_scale), min_material(dc, spec),
             ntaps(perf_mode), mode, spec, *prepass_consts(prepass)[4:],
             -1 if cb is None else int(cb), float(sc["denoising_range"]), bool(sh),
-            bool(occlusion), build.ROUGHNESS_MODE[roughness_encoding]]
+            bool(occlusion), build.ROUGHNESS_MODE[roughness_encoding], bool(decoded)]
 
 
 def spatial_filter(signal, view_z_in, normal_roughness, data1=None, *, sc, dc, mode, spec,
                    enc_err, perf_mode, geometry=None, cb=None, sh=None,
-                   roughness_encoding=RoughnessEncoding.LINEAR):
+                   roughness_encoding=RoughnessEncoding.LINEAR, decoded=False):
     """signal (h, w, 4), or with the occlusion variants (h, w, 1) (Blur and PostBlur only, no
     SH), view_z_in (h, w), normal_roughness (h, w, 4), its roughness packed by
     `roughness_encoding` (only the specular filter reads it; the diffuse filter takes LINEAR),
@@ -319,13 +328,19 @@ def spatial_filter(signal, view_z_in, normal_roughness, data1=None, *, sc, dc, m
     4) that `history_fix` returns, None in the PrePass; cb: in a checkerboard PrePass the
     mode's has-data parity (int(CheckerboardMode) - 1, 0 or 1), the signal expanded from half
     width; else None; sh: with the SH variants the signal's SH1 (h, w, 4), not under
-    checkerboard. Returns the filtered signal (of the input's shape), in the specular PrePass
-    also hitDistForTracking (h, w), and with `sh` last the filtered SH (h, w, 4)."""
-    global launches, cb_launches, rough_launches
+    checkerboard; decoded: normal_roughness is the RGBA formats' decoded plane
+    (`frontend.decode_normal_plane` with its roughness decoded, at LINEAR; the kernel's kDec
+    instances), else packed R10G10B10A2. Returns the filtered signal (of the input's shape), in
+    the specular PrePass also hitDistForTracking (h, w), and with `sh` last the filtered SH
+    (h, w, 4)."""
+    global launches, cb_launches, rough_launches, dec_launches
     if not spec and roughness_encoding != RoughnessEncoding.LINEAR:
         raise ValueError("the diffuse filter reads no roughness: it takes LINEAR")
+    if decoded and roughness_encoding != RoughnessEncoding.LINEAR:
+        raise ValueError("decoded: the plane's roughness is decoded: it takes LINEAR")
     kw = dict(sc=sc, dc=dc, mode=mode, spec=bool(spec), enc_err=enc_err, perf_mode=perf_mode,
-              geometry=geometry, cb=cb, sh=sh, roughness_encoding=roughness_encoding)
+              geometry=geometry, cb=cb, sh=sh, roughness_encoding=roughness_encoding,
+              decoded=decoded)
     prepass = mode == P.PRE_BLUR
     if prepass != (data1 is None) or prepass != (geometry is None):
         raise ValueError("data1 and geometry (the history fix's tap-geometry plane) go with "
@@ -355,10 +370,11 @@ def spatial_filter(signal, view_z_in, normal_roughness, data1=None, *, sc, dc, m
     build.launch("nrd_spatial_filter", [signal, view_z_in, normal_roughness, data1, geometry,
                                         out, hdt, sh, out_sh],
                  launch_consts(sc, dc, mode, bool(spec), enc_err, perf_mode, cb, sh is not None,
-                               c == 1, roughness_encoding), w, h)
+                               c == 1, roughness_encoding, decoded), w, h)
     launches += 1
     cb_launches += cb is not None
     rough_launches += roughness_encoding != RoughnessEncoding.LINEAR
+    dec_launches += bool(decoded)
     res = (out, hdt) if spec and prepass else (out,)
     if sh is not None:
         res += (out_sh,)

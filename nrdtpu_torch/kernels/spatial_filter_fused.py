@@ -31,6 +31,10 @@ With the occlusion variants (Blur and PostBlur; they run no PrePass) each signal
 parameter planes (`params.diff_spatial_params(occlusion=True)`) carry the min hit-distance
 weight without its sqrt(nlas).
 
+At the RGBA normal encodings (`decoded`) normal_roughness is the plane that the frame decodes
+once (`frontend.decode_normal_plane`, its roughness decoded as well) and the tap geometry the one
+N5 wrote from it: the kernel's `kDec` instances read the roughness from .w and test no material.
+
 Not carried over from the TPU kernel: the shared static tap lattice and hat-blended radius
 levels (`reblur_fused.py:17-20`), bf16 windows, and the zeroed radius of sky pixels.
 
@@ -52,6 +56,7 @@ from . import spatial_filter as sf
 
 launches = 0
 cb_launches = 0  # of them, the checkerboard PrePass instance
+dec_launches = 0  # of them, the instances on the decoded plane of the RGBA formats (kDec)
 
 
 def cb_centre(view_z_in, nv3, *, frustum, view_z_scale, ortho_mode,
@@ -72,13 +77,13 @@ def cb_centre(view_z_in, nv3, *, frustum, view_z_scale, ortho_mode,
 def spatial_filter_fused_ref(diff, spec, view_z_in, normal_roughness, shared, diff_params,
                              spec_params, *, frustum, rect_size, view_z_scale, ortho_mode,
                              diff_min_material, spec_min_material, perf_mode, prepass=None,
-                             geometry=None, cb=None, sh=None):
+                             geometry=None, cb=None, sh=None, decoded=False):
     """Plain version: H2's tap loop (`spatial_filter.taps_ref`) run once per signal (the tap
     geometry it computes from normal_roughness and view_z_in, the values of `geometry`); under
     checkerboard with each signal's has-data plane and fallback (`spatial_filter.cb_ref`)."""
     sh = (None, None) if sh is None else sh
     kw = dict(frustum=frustum, rect_size=rect_size, view_z_scale=view_z_scale,
-              ortho_mode=ortho_mode, perf_mode=perf_mode)
+              ortho_mode=ortho_mode, perf_mode=perf_mode, decoded=decoded)
     cbs = dict(diff=None, spec=None)
     if cb is not None:
         centre = cb_centre(view_z_in, v3.V3(shared[5], shared[6], shared[7]),
@@ -110,7 +115,7 @@ def spatial_filter_fused_ref(diff, spec, view_z_in, normal_roughness, shared, di
 def spatial_filter_fused(diff, spec, view_z_in, normal_roughness, shared, diff_params,
                          spec_params, *, frustum, rect_size, view_z_scale, ortho_mode,
                          diff_min_material, spec_min_material, perf_mode, prepass=None,
-                         geometry=None, cb=None, sh=None):
+                         geometry=None, cb=None, sh=None, decoded=False):
     """diff, spec (h, w, 4), or (h, w, 1) each with the occlusion variants (Blur and PostBlur,
     no SH); shared (8, h, w) planes named by spatial_filter.SHARED;
     diff_params (8, h, w) named by spatial_filter.PARAMS; spec_params (10 | 15, h, w) named by
@@ -120,14 +125,16 @@ def spatial_filter_fused(diff, spec, view_z_in, normal_roughness, shared, diff_p
     parity, int(CheckerboardMode) - 1; denoising_range; min_rect_dim_mul_unproject), the
     signals expanded from half width and the parameter planes computed on the centre signals
     zeroed where they have no data; else None; sh: with the SH variants the (diffuse,
-    specular) SH1, (h, w, 4) each, not under checkerboard. Returns dict(diff, spec[, hdt][,
+    specular) SH1, (h, w, 4) each, not under checkerboard; decoded: normal_roughness is the
+    RGBA formats' decoded plane (`frontend.decode_normal_plane`, its roughness decoded; the
+    kernel's kDec instances), else packed R10G10B10A2. Returns dict(diff, spec[, hdt][,
     diff_sh, spec_sh])."""
-    global launches, cb_launches
+    global launches, cb_launches, dec_launches
     sh = None if sh is None else tuple(sh)
     kw = dict(frustum=frustum, rect_size=rect_size, view_z_scale=view_z_scale,
               ortho_mode=ortho_mode, diff_min_material=diff_min_material,
               spec_min_material=spec_min_material, perf_mode=perf_mode, prepass=prepass,
-              geometry=geometry, cb=cb, sh=sh)
+              geometry=geometry, cb=cb, sh=sh, decoded=decoded)
     if sh is not None and (len(sh) != 2 or any(t is None for t in sh) or cb is not None):
         raise ValueError("sh: the SH1 of both signals, and not under checkerboard")
     if sf.MODES.get(diff_params.shape[0]) != "diffuse":
@@ -163,7 +170,8 @@ def spatial_filter_fused(diff, spec, view_z_in, normal_roughness, shared, diff_p
     hdt = torch.empty((h, w) if prepass_mode else (1,), dtype=torch.float32, device=dev)
     out_sh = None if sh is None else torch.empty((2, h, w, 4), dtype=torch.float32, device=dev)
     consts = [*frustum, rect_size[0], rect_size[1], view_z_scale, ortho_mode, diff_min_material,
-              spec_min_material, sf.ntaps(perf_mode), spec_params.shape[0], sh is not None, c == 1]
+              spec_min_material, sf.ntaps(perf_mode), spec_params.shape[0], sh is not None, c == 1,
+              decoded]
     if prepass_mode:
         consts += sf.prepass_consts(prepass)
         consts += ([-1, 0.0, 0.0] if cb is None else
@@ -173,6 +181,7 @@ def spatial_filter_fused(diff, spec, view_z_in, normal_roughness, shared, diff_p
                  + [out_sh], consts, w, h)
     launches += 1
     cb_launches += cb is not None
+    dec_launches += bool(decoded)
     res = dict(diff=out[0], spec=out[1])
     if prepass_mode:
         res["hdt"] = hdt

@@ -18,6 +18,11 @@ With REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION (`directional=True`, the diffuse half)
 signal's .w (`luma_is_last`, `:2400-2404`) and the luma change the directional one: .xyz scaled
 by (luma_stab + 1e-6) / (.w + 1e-6), .w set to luma_stab (the kernel's `kDir` instance).
 
+At the RGBA normal encodings (`decoded=True`, the specular half) IN_NORMAL_ROUGHNESS is the plane
+that the frame decodes once (`frontend.decode_normal_plane`, its roughness decoded): the roughness
+.w and the material 0, still compared with the strand material id as the reference compares it
+(the kernel's `kDec` instance). The diffuse half reads no normal.
+
 Bound on the H100: memory. Per pixel the diffuse half reads the signal (16 B), the bf16 history
 near the reprojected position (~2-4 B from device memory), the uv, fbits and accumulation
 speed (16 B), and writes the signal, its luma and the accumulation speed (24 B): ~58 B/px,
@@ -38,6 +43,7 @@ from ..passes.reblur import common as C
 from . import build
 
 launches = 0
+dec_launches = 0  # of them, the specular instance on the decoded plane of the RGBA formats
 
 
 def _sample(history, uv, fbits, first_bit, rect_size_prev):
@@ -60,7 +66,7 @@ def ts_prelude_ref(signal, history, smb_uv, fbits, data1, vmb_uv=None,
                    max_blur_radius, split_screen, split_screen_prev, antilag_params,
                    framerate_scale, stabilization_strength, history_fix_frame_num,
                    responsive_roughness_threshold=None, strand_material_id=None,
-                   directional=False):
+                   directional=False, decoded=False):
     """Plain PyTorch version of the kernel (the XLA half, op for op). Returns dict(signal,
     luma_stab, data1)."""
     h, w = data1.shape
@@ -112,8 +118,8 @@ def ts_prelude_ref(signal, history, smb_uv, fbits, data1, vmb_uv=None,
         vmb_ok = (vmb_uv[..., 0] >= split_screen_prev).to(torch.float32)
         history_weight = history_weight * torch.where(virtual_history_amount != 1.0, smb_ok, 1.0)
         history_weight = history_weight * torch.where(virtual_history_amount != 0.0, vmb_ok, 1.0)
-        roughness = normal_roughness[..., 2]  # LINEAR: the glue passes the decoded plane
-        material_id = normal_roughness[..., 3] * 3.0
+        # LINEAR: the glue passes the plane with its roughness decoded
+        _, roughness, material_id = fe.unpack_normal_plane(normal_roughness, decoded)
         # RemapRoughnessToResponsiveFactor (REBLUR_Common.hlsli:126-131)
         responsive_factor = nm.smoothstep01(nm.div(roughness + nm.EPS, float(
             np.float32(responsive_roughness_threshold) + np.float32(nm.EPS))))
@@ -136,24 +142,28 @@ def ts_prelude(signal, history, smb_uv, fbits, data1, vmb_uv=None, virtual_histo
                normal_roughness=None, *, rect_size_prev, max_blur_radius, split_screen,
                split_screen_prev, antilag_params, framerate_scale, stabilization_strength,
                history_fix_frame_num, responsive_roughness_threshold=None,
-               strand_material_id=None, directional=False):
+               strand_material_id=None, directional=False, decoded=False):
     """signal (h, w, 4) float32 (its .x the luma; .w with `directional`, the diffuse half of
     REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION), history (h, w) bf16, smb_uv (h, w, 2), fbits
     and data1 (h, w) float32; for the specular half also vmb_uv (h, w, 2), the virtual history
     amount (h, w) and IN_NORMAL_ROUGHNESS (h, w, 4) at LINEAR roughness, with the responsive
-    roughness threshold and the strand material id. The constants are host values as the pass
-    reads them. Returns dict(signal (h, w, 4), luma_stab (h, w), data1 (h, w))."""
-    global launches
+    roughness threshold and the strand material id; decoded (specular): IN_NORMAL_ROUGHNESS is the
+    RGBA formats' decoded plane (the kernel's kDec instance), else packed R10G10B10A2. The
+    constants are host values as the pass reads them. Returns dict(signal (h, w, 4), luma_stab
+    (h, w), data1 (h, w))."""
+    global launches, dec_launches
     kw = dict(rect_size_prev=rect_size_prev, max_blur_radius=max_blur_radius,
               split_screen=split_screen, split_screen_prev=split_screen_prev,
               antilag_params=antilag_params, framerate_scale=framerate_scale,
               stabilization_strength=stabilization_strength,
               history_fix_frame_num=history_fix_frame_num,
               responsive_roughness_threshold=responsive_roughness_threshold,
-              strand_material_id=strand_material_id, directional=directional)
+              strand_material_id=strand_material_id, directional=directional, decoded=decoded)
     spec = vmb_uv is not None
     if spec and directional:
         raise ValueError("directional: the diffuse half only")
+    if decoded and not spec:
+        raise ValueError("decoded: the specular half only (the diffuse half reads no normal)")
     dev = build.kernel_device(signal)
     if dev is None:
         return ts_prelude_ref(signal, history, smb_uv, fbits, data1, vmb_uv,
@@ -176,8 +186,9 @@ def ts_prelude(signal, history, smb_uv, fbits, data1, vmb_uv=None, virtual_histo
               float(f(antilag_params[1]) * f(framerate_scale) * f(framerate_scale)),
               3.0 * float(framerate_scale), stabilization_strength, history_fix_frame_num, spec,
               float(f(responsive_roughness_threshold) + f(nm.EPS)) if spec else 0.0,
-              strand_material_id if spec else 0.0, directional]
+              strand_material_id if spec else 0.0, directional, decoded]
     build.launch("nrd_ts_prelude", [t for _, t, _, _ in ins]
                  + [t if spec else None for _, t, _, _ in spec_ins] + [out, planes], consts, w, h)
     launches += 1
+    dec_launches += bool(decoded)
     return dict(signal=out, luma_stab=planes[0], data1=planes[1])

@@ -20,6 +20,11 @@ XLA semantics (`nrdtpu/passes/reblur/kernels.py:1163-1174`, `:1272-1310`, `:1338
   - with the occlusion variants, the (h, w, 1) bf16 hit-distance history through the same
     CatRom in one channel (the kernel's one-channel instance, `vmb_resolve_occ_kernel`).
 
+At the RGBA normal encodings (`decoded=True`) the previous plane is the one that the frame
+decodes once (`frontend.decode_normal_plane`, its roughness decoded): the roughness weights read
+.w and the footprint tests no material (the kernels' `kDec` instances; the TPU kernel's
+mat_occ=False, `reblur_pallas.py:798`).
+
 The TPU kernel's block-base residual and its `valid` mask are not carried over.
 
 Bound on the H100: gathers. Per pixel at 2560x1440 it reads 14 parameter planes (56 B), 4
@@ -38,6 +43,7 @@ from ..ops import resample
 from . import build
 
 launches = 0
+dec_launches = 0  # of them, the instances on the decoded plane of the RGBA formats (kDec)
 
 # params planes, in order (the pass glue stacks them)
 PARAMS = ("nox_curr", "vmb_thr", "nx", "ny", "nz", "vvx", "vvy", "vvz", "ra", "rb",
@@ -55,7 +61,8 @@ def _pack(history, planes):
 
 def vmb_resolve_ref(vmb_uv, params, prev_view_z, prev_normal_roughness, prev_material_id,
                     prev_accum, history, fast_history, prev_hdt, *, view_z_scale, ortho_mode,
-                    rect_size_prev, min_material, resolution_scale_prev, sh_history=None):
+                    rect_size_prev, min_material, resolution_scale_prev, sh_history=None,
+                    decoded=False):
     """Plain PyTorch version of the kernel (the XLA formulas, gather by gather)."""
     p = dict(zip(PARAMS, params))
     origin, frac = nm.bilinear_filter(vmb_uv, rect_size_prev)
@@ -68,7 +75,7 @@ def vmb_resolve_ref(vmb_uv, params, prev_view_z, prev_normal_roughness, prev_mat
 
     rough_w, occ = [], []
     for k in range(4):
-        r_t = nr_taps[k][..., 2]
+        r_t = nr_taps[k][..., 3 if decoded else 2]
         w_ = nm.compute_non_exponential_weight_with_sigma(r_t * r_t, p["ra"], p["rb"],
                                                           p["roughness_sigma"])
         rough_w.append(nm.lerp(p["parallax_sm"], 1.0, w_))
@@ -78,7 +85,9 @@ def vmb_resolve_ref(vmb_uv, params, prev_view_z, prev_normal_roughness, prev_mat
         plane_dist = torch.abs(nox_prev - p["nox_curr"])
         o = (plane_dist <= p["vmb_thr"] * in_screen[..., k] - 1e-6).to(torch.float32)
         o = o * (rough_w[k] >= 0.5).to(torch.float32)
-        occ.append(o * (mat_c == torch.clamp_min(mat_taps[k], min_material)).to(torch.float32))
+        if not decoded:  # the RGBA formats carry no material
+            o = o * (mat_c == torch.clamp_min(mat_taps[k], min_material)).to(torch.float32)
+        occ.append(o)
     rough_w4 = torch.stack(rough_w, -1)
     occ4 = torch.stack(occ, -1)
     rough_conf = torch.sum(rough_w4 * bw, -1)
@@ -106,17 +115,20 @@ def vmb_resolve_ref(vmb_uv, params, prev_view_z, prev_normal_roughness, prev_mat
 
 def vmb_resolve(vmb_uv, params, prev_view_z, prev_normal_roughness, prev_material_id,
                 prev_accum, history, fast_history, prev_hdt, *, view_z_scale, ortho_mode,
-                rect_size_prev, min_material, resolution_scale_prev, sh_history=None):
+                rect_size_prev, min_material, resolution_scale_prev, sh_history=None,
+                decoded=False):
     """vmb_uv (h, w, 2), params (14, h, w) float32 planes named by PARAMS; the previous
     frame's viewZ, packed normals, material, specular accumulation speed, bf16 specular
     history (h, w, 4), or (h, w, 1) with the occlusion variants, and fast history, and
     hitDistForTracking; sh_history: with the SH variants the bf16 specular SH history (h, w,
-    4). Returns dict(history (h, w, 4) or (h, w, 1),
-    allow_catrom (bool), the (h, w) planes named by PLANES, and with sh_history sh (h, w, 4))."""
-    global launches
+    4); decoded: prev_normal_roughness is the RGBA formats' decoded plane (the kernels' kDec
+    instances: no material test), else packed R10G10B10A2. Returns dict(history (h, w, 4) or
+    (h, w, 1), allow_catrom (bool), the (h, w) planes named by PLANES, and with sh_history sh
+    (h, w, 4))."""
+    global launches, dec_launches
     kw = dict(view_z_scale=view_z_scale, ortho_mode=ortho_mode, rect_size_prev=rect_size_prev,
               min_material=min_material, resolution_scale_prev=resolution_scale_prev,
-              sh_history=sh_history)
+              sh_history=sh_history, decoded=decoded)
     dev = build.kernel_device(vmb_uv)
     if dev is None:
         return vmb_resolve_ref(vmb_uv, params, prev_view_z, prev_normal_roughness,
@@ -139,10 +151,12 @@ def vmb_resolve(vmb_uv, params, prev_view_z, prev_normal_roughness, prev_materia
     planes = torch.empty((len(PLANES), h, w), dtype=f32, device=dev)
     out_sh = None if sh_history is None else torch.empty((h, w, 4), dtype=f32, device=dev)
     consts = [view_z_scale, ortho_mode, rect_size_prev[0], rect_size_prev[1], min_material,
-              resolution_scale_prev[0], resolution_scale_prev[1], sh_history is not None, c == 1]
+              resolution_scale_prev[0], resolution_scale_prev[1], sh_history is not None, c == 1,
+              decoded]
     build.launch("nrd_vmb_resolve", [t for _, t, _, _ in ins[:9]] + [out_hist, planes]
                  + [sh_history, out_sh], consts, w, h)
     launches += 1
+    dec_launches += bool(decoded)
     out = _pack(out_hist, planes)
     if sh_history is not None:
         out["sh"] = out_sh

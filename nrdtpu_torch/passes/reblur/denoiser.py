@@ -39,10 +39,21 @@ is forced off (`:434-435`, `:448-449`).
 Every variant runs at the three roughness encodings of IN_NORMAL_ROUGHNESS. At SQRT_LINEAR and
 SQ_LINEAR the frame decodes the input and the previous frame's copy once (`frontend.
 decode_roughness_plane`): every reader of the roughness takes the decoded planes at LINEAR,
-but for the centre pixel of HistoryFix, PrePass, Blur and PostBlur, which the reference reads
-as packed (`unpack_nr3`, `nrdtpu/passes/reblur/kernels.py:37-42`): their centre geometry comes
-from the packed plane and their taps read the decoded one (`tap_normal_roughness`; H2 decodes
-at its taps itself). The state keeps the packed input, as the reference does (`:548-550`).
+but, at R10G10B10A2 alone, for the centre pixel of HistoryFix, PrePass, Blur and PostBlur,
+which the reference reads as packed there (`unpack_nr3`, `nrdtpu/passes/reblur/kernels.py:
+37-42`): their centre geometry comes from the packed plane and their taps read the decoded one
+(`tap_normal_roughness`; H2 decodes at its taps itself). The state keeps the packed input, as
+the reference does (`:548-550`).
+
+Every variant runs at the four RGBA normal encodings too (RGBA8_UNORM, RGBA8_SNORM,
+RGBA16_UNORM, RGBA16_SNORM). There the reference decodes every read, the centres' too, and
+tests no material (`denoiser.py:204-207`: the XLA path). The frame decodes the input and the
+previous frame's copy once (`frontend.decode_normal_plane`, then `decode_roughness_plane(
+decoded=True)`) and every reader, the filters' centres included, takes those planes at LINEAR
+(the kernels' `kDec` modes; no `kRough` instance, no `tap_normal_roughness`). The specular TA
+also takes the packed planes (`packed=`): it samples the previous normals along the virtual
+motion bilinearly from the packed plane, and reads the curvature neighbours' .xy as the
+reference does (`nrdtpu/passes/reblur/kernels.py:910-931`, `:1094-1097`).
 
 State (the permanent pool; histories in bf16, the RGBA16f-history analogue):
   prev_view_z (h, w), prev_normal_roughness (h, w, 4), diff_accum / spec_accum / material_id
@@ -65,7 +76,6 @@ from ...settings import (
     CheckerboardMode,
     Denoiser,
     HitDistanceReconstructionMode,
-    NormalEncoding,
     ReblurSettings,
     ResourceType,
     RoughnessEncoding,
@@ -102,12 +112,6 @@ class ReblurDenoiser:
             raise NotImplementedError(
                 f"{config.denoiser.name} is not ported yet; the port runs "
                 + ", ".join(d.name for d in PORTED) + " (ROADMAP.md lists the next slices)")
-        if config.normal_encoding != NormalEncoding.R10_G10_B10_A2_UNORM:
-            raise NotImplementedError(
-                f"{config.denoiser.name} at {config.normal_encoding.name}: REBLUR takes "
-                "R10G10B10A2 normals only; REBLUR at the RGBA normal encodings is the next "
-                "slice (ROADMAP.md Queue 1.5: its nine kernels, K12's REBLUR calls and the TA's "
-                "bilinear previous-normal sample)")
         self.config = config
         self.device = torch.device(device)
         self.has_diffuse = "DIFFUSE" in config.denoiser.name
@@ -120,6 +124,8 @@ class ReblurDenoiser:
                                                       ("spec", self.has_specular)) if present)
         # the frame's readers of a decoded roughness plane take it at LINEAR
         self.linear_config = replace(config, roughness_encoding=RoughnessEncoding.LINEAR)
+        # the RGBA normal encodings: every reader takes the planes decoded once a frame
+        self.decoded = fe.decoded_normals(config.normal_encoding)
         self._s = ReblurSettings()
 
     def static_key(self, s: ReblurSettings):
@@ -215,15 +221,26 @@ class ReblurDenoiser:
         cfg = self.config
         s = self._s
         view_z = inputs[RT.IN_VIEWZ]
-        # IN_NORMAL_ROUGHNESS as packed: the state and the filters' centre geometry read it
-        # (`unpack_nr3`); every other reader takes `nr` / `prev_nr`, the roughness decoded once
-        # a frame, with `lin` (the config at LINEAR); the filters' taps read `taps_nr`
+        # IN_NORMAL_ROUGHNESS as packed: the state reads it, and at R10G10B10A2 the filters'
+        # centre geometry (`unpack_nr3`), with `fcfg`; every other reader takes `nr` / `prev_nr`,
+        # decoded once a frame, with `lin` (the config at LINEAR); the filters' taps read
+        # `taps_nr`. At the RGBA formats `nr` / `prev_nr` are the decoded planes, which every
+        # reader takes, the filters' centres too (`centre_nr`), and the specular TA also
+        # samples the packed planes (`packed`)
         normal_roughness = inputs[RT.IN_NORMAL_ROUGHNESS]
-        nr = fe.decode_roughness_plane(normal_roughness, cfg.roughness_encoding)
-        prev_nr = fe.decode_roughness_plane(state["prev_normal_roughness"],
-                                            cfg.roughness_encoding)
-        taps_nr = None if nr is normal_roughness else nr
         lin = self.linear_config
+        if self.decoded:
+            nr, prev_nr = (fe.decode_roughness_plane(
+                fe.decode_normal_plane(p, cfg.normal_encoding), cfg.roughness_encoding,
+                decoded=True) for p in (normal_roughness, state["prev_normal_roughness"]))
+            centre_nr, taps_nr, fcfg = nr, None, lin
+            packed = (normal_roughness, state["prev_normal_roughness"])
+        else:
+            nr = fe.decode_roughness_plane(normal_roughness, cfg.roughness_encoding)
+            prev_nr = fe.decode_roughness_plane(state["prev_normal_roughness"],
+                                                cfg.roughness_encoding)
+            centre_nr, fcfg, packed = normal_roughness, cfg, None
+            taps_nr = None if nr is normal_roughness else nr
         mv = inputs[RT.IN_MV]
         h, w = view_z.shape
         # checkerboard: half-width inputs expanded to full width (`denoiser.py:169-176`), the
@@ -254,8 +271,7 @@ class ReblurDenoiser:
 
         tile_map = K.classify_tiles(sc, view_z)
         dead = K.sky_pixel_mask(sc, tile_map, view_z)
-        geom = (K.make_filter_geometry(sc, dc, view_z, normal_roughness, cfg)
-                if fused else None)
+        geom = K.make_filter_geometry(sc, dc, view_z, centre_nr, fcfg) if fused else None
 
         # HITDIST_RECONSTRUCTION: off under checkerboard (`denoiser.py:225-237`)
         signal = dict(raw_in)
@@ -274,7 +290,7 @@ class ReblurDenoiser:
         if not skip_prepass and not self.directional:
             if fused:
                 res = K.fused_spatial_filter(
-                    sc, dc, K.PRE_BLUR, geom, view_z, normal_roughness, signal["diff"],
+                    sc, dc, K.PRE_BLUR, geom, view_z, centre_nr, signal["diff"],
                     signal["spec"], perf_mode=perf, cb=cb,
                     sh=(sh["diff"], sh["spec"]) if self.sh else None,
                     tap_normal_roughness=taps_nr)
@@ -283,13 +299,13 @@ class ReblurDenoiser:
                     sh1["diff"], sh1["spec"] = res[3]
             elif self.has_specular:
                 res = K.specular_spatial_filter(
-                    sc, dc, K.PRE_BLUR, signal["spec"], view_z, normal_roughness, None, cfg,
+                    sc, dc, K.PRE_BLUR, signal["spec"], view_z, centre_nr, None, fcfg,
                     perf_mode=perf, cb=cb, sh=sh.get("spec"))
                 signal["spec"], hdt_prepass = res[:2]
                 if self.sh:
                     sh1["spec"] = res[2]
             else:
-                res = K.diffuse_pre_pass(sc, dc, signal["diff"], view_z, normal_roughness, cfg,
+                res = K.diffuse_pre_pass(sc, dc, signal["diff"], view_z, centre_nr, fcfg,
                                          perf_mode=perf, cb=cb, sh=sh.get("diff"))
                 if self.sh:
                     signal["diff"], sh1["diff"] = res
@@ -299,7 +315,7 @@ class ReblurDenoiser:
         # the occlusion variants under checkerboard: no PrePass, so the neighbour resolve fills
         # the pixels without data (`denoiser.py:278-298`)
         if cb is not None and self.occlusion:
-            signal = K.cb_resolve(sc, view_z, normal_roughness, signal, has_data)
+            signal = K.cb_resolve(sc, view_z, centre_nr, signal, has_data, self.decoded)
 
         # TEMPORAL ACCUMULATION: one surface-motion footprint, both signals' samples
         prev_internal = {k: state[k] for k in ("diff_accum", "spec_accum", "material_id")}
@@ -325,10 +341,10 @@ class ReblurDenoiser:
                 sc, dc, sm, signal["spec"], state["spec_history"], state["spec_fast_history"],
                 view_z, nr, state["prev_view_z"], prev_nr, prev_internal,
                 C.extract_hit_dist(signal["spec"]) if skip_prepass else hdt_prepass,
-                state["prev_spec_hitdist_for_tracking"], lin, inputs.get(RT.IN_SPEC_CONFIDENCE),
-                has_prepass_hitdist=not skip_prepass, has_data=has_data,
-                sh_input=sh1.get("spec"), sh_history=state.get("spec_sh_history"),
-                occlusion=self.occlusion)
+                state["prev_spec_hitdist_for_tracking"], cfg if self.decoded else lin,
+                inputs.get(RT.IN_SPEC_CONFIDENCE), has_prepass_hitdist=not skip_prepass,
+                has_data=has_data, sh_input=sh1.get("spec"),
+                sh_history=state.get("spec_sh_history"), occlusion=self.occlusion, packed=packed)
             sig1["spec"], fast1["spec"], data1["spec"] = ta["spec"], ta["fast"], ta["accum_speed"]
             if self.sh:
                 sh2["spec"] = ta["sh"]
@@ -342,7 +358,7 @@ class ReblurDenoiser:
         if fused:
             band = os.environ.get("NRDTPU_REBLUR_BAND", "0") == "1"
             res = (K.spatial_band if band else K.spatial_chain)(
-                sc, dc, geom, view_z, normal_roughness,
+                sc, dc, geom, view_z, centre_nr,
                 (sig1["diff"], data1["diff"], fast1["diff"]),
                 (sig1["spec"], data1["spec"], fast1["spec"]),
                 anti_firefly=(anti_firefly["diff"], anti_firefly["spec"]), perf_mode=perf,
@@ -354,7 +370,7 @@ class ReblurDenoiser:
             (sig,) = self.signals
             spec_path = sig == "spec"
             res = K.history_fix(
-                sc, dc, view_z, normal_roughness, data1[sig], sig1[sig], fast1[sig], cfg,
+                sc, dc, view_z, centre_nr, data1[sig], sig1[sig], fast1[sig], fcfg,
                 is_diffuse=not spec_path, anti_firefly=anti_firefly[sig], sh=sh2.get(sig),
                 directional=self.directional, tap_normal_roughness=taps_nr)
             sig2, fast2[sig], tap_geometry = res[:3]
@@ -364,14 +380,12 @@ class ReblurDenoiser:
             sig3 = sig2
             for stage in (K.BLUR, K.POST_BLUR):
                 if spec_path:
-                    res = K.specular_spatial_filter(sc, dc, stage, sig3, view_z,
-                                                    normal_roughness, data1[sig], cfg, sh=sh3,
-                                                    **kw)
+                    res = K.specular_spatial_filter(sc, dc, stage, sig3, view_z, centre_nr,
+                                                    data1[sig], fcfg, sh=sh3, **kw)
                     sig3, sh3 = res[0], res[2] if self.sh else None
                 else:
-                    res = K.diffuse_spatial_filter(sc, dc, stage, sig3, view_z,
-                                                   normal_roughness, data1[sig], cfg, sh=sh3,
-                                                   **kw)
+                    res = K.diffuse_spatial_filter(sc, dc, stage, sig3, view_z, centre_nr,
+                                                   data1[sig], fcfg, sh=sh3, **kw)
                     sig3, sh3 = res if self.sh else (res, None)
             sig4[sig] = sig3
             if self.sh:

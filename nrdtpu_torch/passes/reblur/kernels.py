@@ -6,7 +6,8 @@ Each pass is elementwise torch glue around hand-written kernels of `nrdtpu_torch
   surface_motion_reprojection     -> smb_resolve     (prev footprint + history sampling,
                                                       one launch for one or both signals)
   temporal_accumulation_specular  -> spec_ta_head    (3x3 stencils, curvature neighbours)
-                                     nearest_multi   (stochastic nearest previous normals)
+                                     nearest_multi   (stochastic nearest previous normals; at
+                                                      the RGBA formats bilinear_resolve)
                                      vmb_resolve     (virtual-motion footprint + history)
   diffuse_pre_pass, diffuse_spatial_filter,
   specular_spatial_filter         -> spatial_filter  (PrePass / Blur / PostBlur tap loop)
@@ -43,7 +44,19 @@ centre pixel's roughness as packed (`unpack_nr3`, `nrdtpu/passes/reblur/kernels.
 and only their taps' decoded (`:642`, `:850`, `:1716`, `:2169`). So their centre geometry is
 built from the packed plane and their taps read `tap_normal_roughness`, the decoded copy; H2,
 which computes its centre itself, takes the packed plane and decodes at its taps (its
-`kRough` instances, `roughness_encoding=`).
+`kRough` instances, `roughness_encoding=`). That exception is R10G10B10A2's alone.
+
+At the RGBA normal encodings (RGBA8 / RGBA16, UNORM / SNORM) the reference decodes every read
+of IN_NORMAL_ROUGHNESS, the centres' too (`unpack_nr3` falls back to `unpack_nr`), and tests
+no material. The denoiser decodes the input and the previous frame's copy once a frame
+(`frontend.decode_normal_plane`, then the roughness, `decode_roughness_plane(decoded=True)`)
+and every reader takes those planes at LINEAR: the glue through `unpack_nr`, the kernels in
+their decoded modes (`decoded=`, `kDec`; `geom["decoded"]` for the fused passes). Two readers
+keep the packed planes (`packed=` on the specular TA): the previous normals along the virtual
+motion, which the reference samples bilinearly from the packed plane and only then unpacks
+(`bilinear_resolve`, no hash draws, no lerp of the prev-prev weights), and the curvature
+neighbours, whose .xy the reference decodes as octahedral at every encoding (ROADMAP.md Queue
+3).
 
 The glue keeps the op order of the XLA functions; the kernels compute the per-pixel formula
 of the XLA gathers, not the TPU kernels' workarounds. Frame constants (`sc`, `dc`) are host
@@ -59,6 +72,7 @@ from ... import frontend as fe
 from ... import math as nm
 from ... import vec3 as v3
 from ...frontend import NRD_EPS
+from ...kernels import bilinear_resolve as k_bilinear
 from ...kernels import history_fix as k_history_fix
 from ...kernels import history_fix_fused as k_history_fix_fused
 from ...kernels import hitdist_recon as k_hitdist_recon
@@ -86,8 +100,14 @@ def unpack_view_z(sc, z):
 
 
 def unpack_nr(normal_roughness, config):
-    return fe.unpack_normal_roughness(normal_roughness, config.normal_encoding,
-                                      config.roughness_encoding)
+    """(normal, roughness, material) of the plane a reader takes: packed R10G10B10A2, or at
+    the RGBA formats the plane that the denoiser decodes once a frame (material 0)."""
+    return fe.unpack_normal_plane(normal_roughness, _decoded(config), config.roughness_encoding)
+
+
+def _decoded(config):
+    """Whether the frame's planes are the RGBA formats' decoded ones (the kernels' kDec)."""
+    return fe.decoded_normals(config.normal_encoding)
 
 
 def classify_tiles(sc, view_z):
@@ -199,7 +219,8 @@ def surface_motion_reprojection(sc, dc, view_z_in, normal_roughness, mv_in, prev
         rect_size_prev=_v(sc["rect_size_prev"]), min_material=min_material,
         world_prev_to_world=np.asarray(sc["world_prev_to_world"], np.float32)[:3, :3],
         second=per_signal[1] if len(signals) == 2 else None,
-        sh=None if sh_histories is None else [sh_histories[sig] for sig in signals])
+        sh=None if sh_histories is None else [sh_histories[sig] for sig in signals],
+        decoded=_decoded(config))
 
     # footprint quality (lines 296-305)
     smb_vprev = C.get_view_vector_prev(sc, x_prev)
@@ -352,7 +373,7 @@ def temporal_accumulation_specular(sc, dc, sm, spec_input, spec_history, spec_fa
                                    hit_dist_for_tracking_in, prev_spec_hitdist_for_tracking,
                                    config, spec_confidence=None, *, has_prepass_hitdist,
                                    has_data=None, sh_input=None, sh_history=None,
-                                   occlusion=False):
+                                   occlusion=False, packed=None):
     """Specular half of TA (`nrdtpu/passes/reblur/kernels.py:978-1548`, XLA path) for the
     radiance signal; `sm` is surface_motion_reprojection with the "spec" signal. The gathers run
     in three kernels: spec_ta_head (3x3 stencils, curvature neighbours, high-parallax
@@ -364,12 +385,22 @@ def temporal_accumulation_specular(sc, dc, sm, spec_input, spec_history, spec_fa
     set to the modified roughness, and the anti-firefly scale (`:1483-1500`, `:1516-1521`);
     occlusion: the (h, w, 1) hit distance and history (vmb_resolve's one-channel mode), mixed
     by f_hit alone, no firefly suppressor (`:1464-1480`, `:1507`, `:1533`).
+    At the RGBA formats normal_roughness and prev_normal_roughness are the decoded planes and
+    `packed` is (IN_NORMAL_ROUGHNESS, the previous frame's copy) as packed, in config's
+    encodings: spec_ta_head reads the first with its roughness decoded, and the virtual-motion
+    normal and the prev-prev taps are bilinear samples of the second (`bilinear_resolve`),
+    unpacked after the blend (`_sample_normal_roughness_stochastic`, `:920-931`), without hash
+    draws and without the lerp of the prev-prev weights (`:1383-1385`). At R10G10B10A2 config
+    is the planes' (LINEAR where the denoiser decoded the roughness) and `packed` None.
     Returns dict(spec, fast, accum_speed, fbits_vmb, curvature, virtual_history_amount,
     hit_dist_for_tracking[, sh])."""
     h, w = view_z_in.shape
     uv, view_z = sm["uv"], sm["view_z"]
     n, roughness, nov = sm["n"], sm["roughness"], sm["nov"]
     enc_err = nm.normal_encoding_error(int(config.normal_encoding))
+    decoded = _decoded(config)
+    if decoded == (packed is None):
+        raise ValueError("packed: the packed planes at the RGBA formats, and only there")
     ortho = float(sc["ortho_mode"])
     is_persp = ortho == 0.0
     rw_, rh_ = _v(sc["rect_size"])
@@ -403,9 +434,13 @@ def temporal_accumulation_specular(sc, dc, sm, spec_input, spec_history, spec_fa
     in_screen_high = (mu > 0.0) & (mu < 1.0) & (mv_ > 0.0) & (mv_ < 1.0)
 
     # 3x3 min hitDist for tracking + roughness variance (lines 62-111), the curvature
-    # neighbours and the high-parallax nearest fetches: one launch
-    head = k_spec_ta_head.spec_ta_head(hit_dist_for_tracking_in.contiguous(), normal_roughness,
-                                       view_z_in, torch.stack([mu, mv_], -1))
+    # neighbours and the high-parallax nearest fetches: one launch. At the RGBA formats its
+    # plane is the packed input with its roughness .w decoded: the curvature lanes read .xy
+    # of the packed texel, as the reference does (its fault, ROADMAP.md Queue 3)
+    head_nr = (fe.decode_roughness_plane(packed[0], config.roughness_encoding, decoded=True)
+               if decoded else normal_roughness)
+    head = k_spec_ta_head.spec_ta_head(hit_dist_for_tracking_in.contiguous(), head_nr,
+                                       view_z_in, torch.stack([mu, mv_], -1), decoded=decoded)
     roughness_sigma = nm.get_std_dev(head["rough_m1"], head["rough_m2"])
     roughness_modified = C.get_modified_roughness_from_normal_variance(roughness, sm["n_avg"])
     hit_dist_normalization = fe.get_hit_distance_normalization(view_z, dc["hit_dist_params"],
@@ -440,6 +475,8 @@ def temporal_accumulation_specular(sc, dc, sm, spec_input, spec_history, spec_fa
 
     x10 = edge_point(1.0, 0.0)
     x01 = edge_point(0.0, 1.0)
+    # octahedral .xy at every encoding, the reference's reads (`kernels.py:1094-1097`,
+    # `:1126-1128`); at the RGBA formats a fault of the reference (ROADMAP.md Queue 3)
     n10 = v3.decode_oct_raw(head["nr01_0"], head["nr01_1"])
     n01 = v3.decode_oct_raw(head["nr10_0"], head["nr10_1"])
     wmx = torch.abs(dux) + 1.0 / 256.0
@@ -479,7 +516,8 @@ def temporal_accumulation_specular(sc, dc, sm, spec_input, spec_history, spec_fa
         C.REBLUR_ROUGHNESS_SENSITIVITY_IN_TA)
 
     # virtual normal confidence: the vmb normal and the prev-prev taps (lines 472-479,
-    # 579-585), fetched stochastically-nearest in one launch
+    # 579-585), fetched stochastically-nearest in one launch; at the RGBA formats bilinear
+    # samples of the packed previous plane, unpacked after the blend (`kernels.py:920-931`)
     iters = C.REBLUR_VIRTUAL_MOTION_PREV_PREV_WEIGHT_ITERATION_NUM
     step_between_taps = torch.clamp_max(vmb_pixels_traveled * float(sc["framerate_scale"]),
                                         2.0) + vmb_pixels_traveled / iters
@@ -494,11 +532,16 @@ def temporal_accumulation_specular(sc, dc, sm, spec_input, spec_history, spec_fa
         ppv = vmb_v + vmb_dir_v * (it * step_between_taps)
         pp_uvs.append(torch.stack([ppu, ppv], -1))
         pp_inscreen.append((ppu > 0.0) & (ppu < 1.0) & (ppv > 0.0) & (ppv < 1.0))
-    ph, pw = prev_normal_roughness.shape[:2]
-    taps = k_nearest_multi.nearest_multi(
-        prev_normal_roughness,
-        _stochastic_bilinear_uvs(sc, [vmb_pixel_uv] + pp_uvs, (float(pw), float(ph))))
-    vmb_n, vmb_roughness, _ = unpack_nr(taps[0], config)
+    if decoded:
+        taps = [fe.unpack_normal_roughness(t, config.normal_encoding, config.roughness_encoding)
+                for t in k_bilinear.bilinear_resolve(
+                    packed[1], torch.stack([vmb_pixel_uv] + pp_uvs), scale=(1.0, 1.0))]
+    else:
+        ph, pw = prev_normal_roughness.shape[:2]
+        taps = [unpack_nr(t, config) for t in k_nearest_multi.nearest_multi(
+            prev_normal_roughness,
+            _stochastic_bilinear_uvs(sc, [vmb_pixel_uv] + pp_uvs, (float(pw), float(ph))))]
+    vmb_n, vmb_roughness, _ = taps[0]
     vmb_n3 = v3.rotate(sc["world_prev_to_world"], v3.V3.of(vmb_n))
     dfactor = nm.get_specular_dominant_factor(nov, roughness)
     virtual_normal_confidence = 1.0 / (
@@ -523,7 +566,7 @@ def temporal_accumulation_specular(sc, dc, sm, spec_input, spec_history, spec_fa
         prev_spec_hitdist_for_tracking, view_z_scale=float(sc["view_z_scale"]),
         ortho_mode=ortho, rect_size_prev=rect_prev, min_material=float(dc["spec_min_material"]),
         resolution_scale_prev=_v(sc["resolution_scale_prev"]),
-        sh_history=sh_history if sh_input is not None else None)
+        sh_history=sh_history if sh_input is not None else None, decoded=decoded)
     virtual_roughness_confidence = vmb["rough_conf"]
     vmb_footprint_quality = torch.sqrt(nm.saturate(vmb["footprint_raw"]))
     vmb_accum = vmb["accum_raw"]
@@ -567,15 +610,16 @@ def temporal_accumulation_specular(sc, dc, sm, spec_input, spec_history, spec_fa
         vmb_roughness * vmb_roughness, float(dc["roughness_fraction"]),
         C.REBLUR_ROUGHNESS_SENSITIVITY_IN_TA)
     for it in range(1, iters + 1):
-        n_pp, r_pp, _ = unpack_nr(taps[it], config)
+        n_pp, r_pp, _ = taps[it]
         angle_pp = nm.acos_approx(v3.dot(vmb_n3, v3.V3.of(n_pp)))
         wx = nm.smoothstep01(
             1.0 - (angle_pp - curvature_angle * (1.0 + it * step_between_taps) - enc_err)
             / lobe_half_angle)
         wy = nm.compute_non_exponential_weight_with_sigma(r_pp * r_pp, ra2, rb2,
                                                           roughness_sigma)
-        wx = nm.lerp(1.0, wx, nm.saturate(step_between_taps))
-        wy = nm.lerp(1.0, wy, nm.saturate(step_between_taps))
+        if not decoded:  # R10G10B10A2 only (`kernels.py:1383-1385`)
+            wx = nm.lerp(1.0, wx, nm.saturate(step_between_taps))
+            wy = nm.lerp(1.0, wy, nm.saturate(step_between_taps))
         wx = torch.where(pp_inscreen[it - 1], wx, 1.0)
         wy = torch.where(pp_inscreen[it - 1], wy, 1.0)
         virtual_normal_confidence = torch.minimum(virtual_normal_confidence, wx)
@@ -686,9 +730,11 @@ def temporal_accumulation_specular(sc, dc, sm, spec_input, spec_history, spec_fa
 
 
 def make_filter_geometry(sc, dc, view_z_in, normal_roughness, config, signals=("diff", "spec")):
-    """`params.filter_geometry` for the config's normal encoding. It depends only on the
-    G-buffer, so REBLUR_DIFFUSE_SPECULAR computes it once a frame."""
-    return filter_geometry(sc, dc, view_z_in, normal_roughness, _enc_err(config), signals)
+    """`params.filter_geometry` for the config's normal encoding (at the RGBA formats on the
+    decoded plane). It depends only on the G-buffer, so REBLUR_DIFFUSE_SPECULAR computes it once
+    a frame."""
+    return filter_geometry(sc, dc, view_z_in, normal_roughness, _enc_err(config), signals,
+                           decoded=_decoded(config))
 
 
 def _enc_err(config):
@@ -774,7 +820,8 @@ def history_fix(sc, dc, view_z_in, normal_roughness, data1, signal, fast_history
         signal, view_z_in, _taps_nr(normal_roughness, tap_normal_roughness), data1,
         fast_history, _hfix_shared(geom), _hfix_params(dc, geom, signal, data1, is_diffuse),
         None if is_diffuse else geom["smc"], min_material=float(min_material), dc=dc,
-        anti_firefly=anti_firefly, sh=sh, directional=directional, **_hfix_consts(sc))
+        anti_firefly=anti_firefly, sh=sh, directional=directional, decoded=_decoded(config),
+        **_hfix_consts(sc))
     if sh is not None:
         return res["signal"], res["fast"], res["geometry"], res["sh"]
     return res["signal"], res["fast"], res["geometry"]
@@ -797,7 +844,7 @@ def fused_history_fix(sc, dc, geom, view_z_in, normal_roughness, diff, spec, *,
         _hfix_params(dc, geom, spec[0], spec[1], False), geom["smc"],
         diff_min_material=float(dc["diff_min_material"]),
         spec_min_material=float(dc["spec_min_material"]), dc=dc, anti_firefly=anti_firefly,
-        sh=sh, **_hfix_consts(sc))
+        sh=sh, decoded=geom["decoded"], **_hfix_consts(sc))
     out = (res["diff"], res["diff_fast"]), (res["spec"], res["spec_fast"]), res["geometry"]
     return out if sh is None else out + ((res["diff_sh"], res["spec_sh"]),)
 
@@ -834,7 +881,7 @@ def diffuse_spatial_filter(sc, dc, mode, signal, view_z_in, normal_roughness, da
     return k_spatial_filter.spatial_filter(
         signal, view_z_in, normal_roughness, None if mode == PRE_BLUR else data1, sc=sc, dc=dc,
         mode=mode, spec=False, enc_err=_enc_err(config), perf_mode=perf_mode,
-        geometry=tap_geometry, sh=sh)
+        geometry=tap_geometry, sh=sh, decoded=_decoded(config))
 
 
 def diffuse_pre_pass(sc, dc, signal, view_z_in, normal_roughness, config, *,
@@ -847,7 +894,8 @@ def diffuse_pre_pass(sc, dc, signal, view_z_in, normal_roughness, config, *,
         return signal if sh is None else (signal, sh)
     return k_spatial_filter.spatial_filter(
         signal, view_z_in, normal_roughness, None, sc=sc, dc=dc, mode=PRE_BLUR, spec=False,
-        enc_err=_enc_err(config), perf_mode=perf_mode, geometry=None, cb=cb, sh=sh)
+        enc_err=_enc_err(config), perf_mode=perf_mode, geometry=None, cb=cb, sh=sh,
+        decoded=_decoded(config))
 
 
 def specular_spatial_filter(sc, dc, mode, spec, view_z_in, normal_roughness, data1, config, *,
@@ -868,7 +916,7 @@ def specular_spatial_filter(sc, dc, mode, spec, view_z_in, normal_roughness, dat
     res = k_spatial_filter.spatial_filter(
         spec, view_z_in, normal_roughness, None if prepass else data1, sc=sc, dc=dc, mode=mode,
         spec=True, enc_err=_enc_err(config), perf_mode=perf_mode, geometry=tap_geometry, cb=cb,
-        sh=sh, roughness_encoding=config.roughness_encoding)
+        sh=sh, roughness_encoding=config.roughness_encoding, decoded=_decoded(config))
     if sh is not None:
         return res if prepass else (res[0], None, res[1])
     return res if prepass else (res, None)
@@ -906,7 +954,7 @@ def fused_spatial_filter(sc, dc, mode, geom, view_z_in, normal_roughness, diff, 
         diff_min_material=float(dc["diff_min_material"]),
         spec_min_material=float(dc["spec_min_material"]), perf_mode=perf_mode,
         prepass=k_spatial_filter.prepass_inputs(sc, dc) if prepass else None,
-        geometry=tap_geometry, cb=kcb, sh=sh, **_sf_consts(sc))
+        geometry=tap_geometry, cb=kcb, sh=sh, decoded=geom["decoded"], **_sf_consts(sc))
     diff_out, spec_out, hdt = res["diff"], res["spec"], res.get("hdt")
     sh_out = None if sh is None else [res["diff_sh"], res["spec_sh"]]
     if prepass and cb is None and float(dc["diff_prepass_blur_radius"]) == 0.0:
@@ -964,7 +1012,7 @@ def spatial_band(sc, dc, geom, view_z_in, normal_roughness, diff, spec, *, anti_
         rect_size=_v(sc["rect_size"]), diff_min_material=float(dc["diff_min_material"]),
         spec_min_material=float(dc["spec_min_material"]), rotator=sc["rotator"],
         rotator_post=sc["rotator_post"], enc_err=geom["enc_err"], dc=dc, perf_mode=perf_mode,
-        anti_firefly=anti_firefly, sh=sh, **_hfix_consts(sc))
+        anti_firefly=anti_firefly, sh=sh, decoded=geom["decoded"], **_hfix_consts(sc))
     out = (res["diff"], res["diff_fast"]), (res["spec"], res["spec_fast"])
     return out if sh is None else out + ((res["diff_sh"], res["spec_sh"]),)
 
@@ -980,8 +1028,9 @@ def hit_dist_reconstruction(sc, dc, view_z_in, normal_roughness, diff, spec, con
     (`kernels.py:2212-2293`) in one `hitdist_recon` launch, which computes the centre's
     parameters itself. diff / spec: (h, w, 4) signals, (h, w, 1) with the occlusion variants,
     or None; only the hit-distance channel changes. normal_roughness: the plane of
-    `frontend.decode_normal_plane` for the config's normal encoding (RELAX's calls at the RGBA
-    formats read it decoded). Returns (diff_out, spec_out)."""
+    `frontend.decode_normal_plane` for the config's normal encoding (RELAX's and REBLUR's calls
+    at the RGBA formats read it decoded, REBLUR's with its roughness decoded too, at LINEAR).
+    Returns (diff_out, spec_out)."""
     out = k_hitdist_recon.hitdist_recon(
         view_z_in, normal_roughness, diff, spec, radius=radius,
         view_z_scale=float(sc["view_z_scale"]), frustum=sc["frustum"],
@@ -990,7 +1039,7 @@ def hit_dist_reconstruction(sc, dc, view_z_in, normal_roughness, diff, spec, con
         min_rect_dim_mul_unproject=float(sc["min_rect_dim_mul_unproject"]),
         plane_dist_sensitivity=float(dc["plane_dist_sensitivity"]), enc_err=_enc_err(config),
         roughness_encoding=config.roughness_encoding,
-        decoded=fe.decoded_normals(config.normal_encoding))
+        decoded=_decoded(config))
     return out.get("diff"), out.get("spec")
 
 
@@ -999,18 +1048,19 @@ def hit_dist_reconstruction(sc, dc, view_z_in, normal_roughness, diff, spec, con
 # ---------------------------------------------------------------------------
 
 
-def cb_resolve(sc, view_z_in, normal_roughness, signals, has_data):
+def cb_resolve(sc, view_z_in, normal_roughness, signals, has_data, decoded=False):
     """The occlusion variants under checkerboard (`nrdtpu/passes/reblur/denoiser.py:278-298`):
     they run no PrePass, so each expanded signal takes on the pixels without data the
     horizontal neighbour resolve (`kernels.py:743-762`, the plain helper
     `kernels.spatial_filter.cb_neighbor_resolve`), from the centre's scaled viewZ, frustum size
     and nov. Torch glue, as in JAX. signals: {name: (h, w, c)}; has_data: the (h, w) bool plane
-    of the pixels with data. Returns the signals resolved."""
+    of the pixels with data; normal_roughness: packed R10G10B10A2, or with `decoded` the RGBA
+    formats' decoded plane. Returns the signals resolved."""
     h, w = view_z_in.shape
     ortho = float(sc["ortho_mode"])
     view_z = unpack_view_z(sc, view_z_in)
     frustum_size = nm.get_frustum_size(float(sc["min_rect_dim_mul_unproject"]), ortho, view_z)
-    n, _, _ = fe.unpack_normal_roughness(normal_roughness)
+    n, _, _ = fe.unpack_normal_plane(normal_roughness, decoded)
     uv = resample.pixel_uv_grid(h, w, view_z_in.device)
     xv = nm.reconstruct_view_position(uv, sc["frustum"], view_z, ortho)
     nv = nm.rotate_vector(sc["world_to_view"], n)
@@ -1142,7 +1192,7 @@ def temporal_stabilization_specular(sc, dc, view_z_in, normal_roughness, mv_in, 
         spec, spec_luma_stab_history, smb_pixel_uv, fbits, data1_spec, vmb_pixel_uv,
         virtual_history_amount, normal_roughness, **_ts_consts(sc, dc),
         responsive_roughness_threshold=float(dc["responsive_accumulation_roughness_threshold"]),
-        strand_material_id=float(sc["strand_material_id"]))
+        strand_material_id=float(sc["strand_material_id"]), decoded=_decoded(config))
     out = dict(spec=ts["signal"], spec_luma_stab=ts["luma_stab"], data1_spec=ts["data1"],
                mv_out=mv_out)
     if sh is not None:

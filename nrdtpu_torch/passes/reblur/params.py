@@ -60,18 +60,26 @@ def fast_history_enabled(dc) -> float:
 # ---------------------------------------------------------------------------
 
 
-def filter_geometry(sc, dc, view_z_in, normal_roughness, enc_err, signals=("diff", "spec")):
+def filter_geometry(sc, dc, view_z_in, normal_roughness, enc_err, signals=("diff", "spec"), *,
+                    decoded=False):
     """The per-frame geometry of the spatial stages and HistoryFix
     (`nrdtpu/passes/reblur/kernels.py:1783-1816`): view_z, n3, nv3, xv3, vv3, nov, frustum
     size, the plane-distance parameters ga/gb, and per signal its hit-distance scale (and the
-    specular magic curve). It depends only on the G-buffer (R10G10B10A2 normals, the roughness
-    as packed) and the frame constants; enc_err is the normal encoding's error. H2's kernel
-    computes the same per pixel (`csrc/reblur_filters.cuh:filter_geometry`)."""
+    specular magic curve). It depends only on the G-buffer and the frame constants: at
+    R10G10B10A2 the octahedral normal of .xy and the roughness .z as packed; with `decoded`
+    (the RGBA formats) the plane that the frame decodes once, its normal .xyz and its roughness
+    .w (`unpack_nr3` at these formats). enc_err is the normal encoding's error. H2's kernel
+    computes the same per pixel (`csrc/reblur_filters.cuh:filter_geometry`). The dict records
+    `decoded`, which the kernels that read its planes take as their mode."""
     h, w = view_z_in.shape
     uv = resample.pixel_uv_grid(h, w, view_z_in.device)
     view_z = torch.abs(view_z_in) * float(sc["view_z_scale"])
-    n3 = v3.decode_oct_raw(normal_roughness[..., 0], normal_roughness[..., 1])
-    roughness = normal_roughness[..., 2]
+    if decoded:
+        n3 = v3.V3(normal_roughness[..., 0], normal_roughness[..., 1], normal_roughness[..., 2])
+        roughness = normal_roughness[..., 3]
+    else:
+        n3 = v3.decode_oct_raw(normal_roughness[..., 0], normal_roughness[..., 1])
+        roughness = normal_roughness[..., 2]
     nv3 = v3.rotate(sc["world_to_view"], n3)
     ortho = float(sc["ortho_mode"])
     xv3 = v3.reconstruct_view_position(uv[..., 0], uv[..., 1], sc["frustum"], view_z, ortho)
@@ -81,7 +89,7 @@ def filter_geometry(sc, dc, view_z_in, normal_roughness, enc_err, signals=("diff
     ga = 1.0 / (float(dc["plane_dist_sensitivity"]) * frustum_size)
     geom = dict(view_z=view_z, n3=n3, roughness=roughness, nv3=nv3, xv3=xv3, vv3=vv3,
                 nov=torch.abs(v3.dot(nv3, vv3)), frustum_size=frustum_size, ga=ga,
-                gb=-v3.dot(nv3, xv3) * ga, enc_err=enc_err)
+                gb=-v3.dot(nv3, xv3) * ga, enc_err=enc_err, decoded=decoded)
     if "diff" in signals:
         geom["hd_scale_diff"] = fe.get_hit_distance_normalization(
             view_z, dc["hit_dist_params"], torch.ones_like(roughness))

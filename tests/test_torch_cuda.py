@@ -22,9 +22,12 @@ against the Engine on the CPU, for every path and output (the checkerboard paths
 under NRDTPU_REBLUR_BAND=1 too, and of RELAX included), and RELAX_DIFFUSE_SPECULAR's outputs
 on the card against RELAX_DIFFUSE's and RELAX_SPECULAR's on the card (with SH likewise). At the
 RGBA normal encodings (`RGBA_PATHS`: RELAX_DIFFUSE, RELAX_SPECULAR, RELAX_DIFFUSE_SPECULAR, two
-SH variants and both SIGMA variants, with AREA_3X3 / AREA_5X5 and the anti-firefly pass) each
-kernel's decoded-plane instances are held against the plain versions, and the Engine on the card
-against the Engine on the CPU. Run on a machine with an H100:
+SH variants and both SIGMA variants, with AREA_3X3 / AREA_5X5 and the anti-firefly pass; every
+REBLUR variant, with the band, checkerboard, performance mode, the anti-firefly ring and
+AREA_3X3 / AREA_5X5 between them) each kernel's decoded-plane instances are held against the
+plain versions (H2's, N4's and K23's also at the other tap count), and the Engine on the card
+against the Engine on the CPU; K20 `relax_clamp_moments` on NaN histories keeps NaN exactly
+where its plain version does. Run on a machine with an H100:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 
@@ -72,6 +75,7 @@ REBLUR_OCC = (Denoiser.REBLUR_DIFFUSE_OCCLUSION, Denoiser.REBLUR_SPECULAR_OCCLUS
               Denoiser.REBLUR_DIFFUSE_SPECULAR_OCCLUSION)
 OCC_RESOURCES = {"DIFFUSE": (RT.IN_DIFF_HITDIST, RT.OUT_DIFF_HITDIST),
                  "SPECULAR": (RT.IN_SPEC_HITDIST, RT.OUT_SPEC_HITDIST)}
+DO = Denoiser.REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION
 SH_RESOURCES = {"DIFFUSE": (RT.IN_DIFF_SH0, RT.IN_DIFF_SH1, RT.OUT_DIFF_SH0, RT.OUT_DIFF_SH1),
                 "SPECULAR": (RT.IN_SPEC_SH0, RT.IN_SPEC_SH1, RT.OUT_SPEC_SH0, RT.OUT_SPEC_SH1)}
 AREA_3X3 = dict(hitDistanceReconstructionMode=HitDistanceReconstructionMode.AREA_3X3)
@@ -107,7 +111,10 @@ def _pools(denoiser, n, holes=False, checkerboard=CB.OFF):
         fd.common_settings.timeDeltaBetweenFrames = 16.66
         pool = {RT.IN_VIEWZ: fd.view_z, RT.IN_NORMAL_ROUGHNESS: gen.packed_normal_roughness(fd),
                 RT.IN_MV: fd.mv}
-        if denoiser in REBLUR_OCC:  # a binary AO a signal: the scene's, and a second draw
+        if denoiser == DO:  # the AO times the surface normal, and the AO
+            pool[RT.IN_DIFF_DIRECTION_HITDIST] = fe.reblur_pack_directional_occlusion(
+                torch.from_numpy(fd.normal), torch.from_numpy(fd.ao_noisy)).numpy()
+        elif denoiser in REBLUR_OCC:  # a binary AO a signal: the scene's, and a second draw
             pool[RT.IN_DIFF_HITDIST] = fd.ao_noisy
             pool[RT.IN_SPEC_HITDIST] = (rng.random(fd.ao_clean.shape) < fd.ao_clean).astype(
                 np.float32)
@@ -165,6 +172,8 @@ def _pools(denoiser, n, holes=False, checkerboard=CB.OFF):
 
 
 def _outs(denoiser):
+    if denoiser == DO:
+        return [RT.OUT_DIFF_DIRECTION_HITDIST]
     if denoiser in SIGMA:
         return [RT.OUT_SHADOW_TRANSLUCENCY]
     if denoiser in REBLUR_OCC:
@@ -407,21 +416,45 @@ def test_engine_card_matches_cpu_occlusion(cuda, denoiser, settings, band, monke
 # The RGBA normal encodings: (denoiser, normal encoding, settings, inputs with holes) of the
 # paths whose kernels read the decoded plane (`kDec`), the SNORM ones with the sky's normal
 # (0, 0, 1) (`tests/test_torch_relax_enc_slice.py` says why)
-RGBA_PATHS = [(Denoiser.RELAX_DIFFUSE_SPECULAR, NormalEncoding.RGBA8_UNORM, AREA_3X3, True),
-              (Denoiser.RELAX_DIFFUSE_SPECULAR, NormalEncoding.RGBA16_SNORM,
+NE = NormalEncoding
+PERF = dict(enablePerformanceMode=True)
+RGBA_PATHS = [(Denoiser.RELAX_DIFFUSE_SPECULAR, NE.RGBA8_UNORM, AREA_3X3, True),
+              (Denoiser.RELAX_DIFFUSE_SPECULAR, NE.RGBA16_SNORM,
                dict(enableAntiFirefly=True), False),
-              (Denoiser.RELAX_SPECULAR, NormalEncoding.RGBA8_SNORM, AREA_5X5, True),
-              (Denoiser.RELAX_DIFFUSE, NormalEncoding.RGBA16_UNORM, {}, False),
-              (Denoiser.RELAX_SPECULAR_SH, NormalEncoding.RGBA8_SNORM, {}, False),
-              (Denoiser.RELAX_DIFFUSE_SPECULAR_SH, NormalEncoding.RGBA16_UNORM, {}, False),
-              (Denoiser.SIGMA_SHADOW, NormalEncoding.RGBA8_SNORM, {}, False),
-              (Denoiser.SIGMA_SHADOW_TRANSLUCENCY, NormalEncoding.RGBA8_UNORM, {}, False)]
+              (Denoiser.RELAX_SPECULAR, NE.RGBA8_SNORM, AREA_5X5, True),
+              (Denoiser.RELAX_DIFFUSE, NE.RGBA16_UNORM, {}, False),
+              (Denoiser.RELAX_SPECULAR_SH, NE.RGBA8_SNORM, {}, False),
+              (Denoiser.RELAX_DIFFUSE_SPECULAR_SH, NE.RGBA16_UNORM, {}, False),
+              (Denoiser.SIGMA_SHADOW, NE.RGBA8_SNORM, {}, False),
+              (Denoiser.SIGMA_SHADOW_TRANSLUCENCY, NE.RGBA8_UNORM, {}, False),
+              # REBLUR: every kDec instance's structure between them (`BAND` in the settings:
+              # NRDTPU_REBLUR_BAND=1 around the engine)
+              (Denoiser.REBLUR_DIFFUSE_SPECULAR, NE.RGBA8_UNORM, dict(enableAntiFirefly=True),
+               False),
+              (Denoiser.REBLUR_DIFFUSE_SPECULAR, NE.RGBA16_SNORM, dict(AREA_3X3, BAND=True), True),
+              (Denoiser.REBLUR_DIFFUSE_SPECULAR, NE.RGBA16_UNORM, dict(BLACK, **PERF), False),
+              (REBLUR_SH[2], NE.RGBA8_SNORM, dict(BAND=True), False),
+              (REBLUR_SH[2], NE.RGBA16_UNORM, {}, False),
+              (REBLUR_OCC[2], NE.RGBA16_UNORM, AREA_5X5, True),
+              (REBLUR_OCC[2], NE.RGBA8_UNORM, dict(BAND=True), False),
+              (Denoiser.REBLUR_DIFFUSE, NE.RGBA16_UNORM, dict(WHITE, **PERF), False),
+              (Denoiser.REBLUR_DIFFUSE, NE.RGBA8_SNORM, dict(enableAntiFirefly=True), False),
+              (Denoiser.REBLUR_SPECULAR, NE.RGBA8_SNORM,
+               dict(responsiveAccumulationRoughnessThreshold=0.5), False),
+              (Denoiser.REBLUR_SPECULAR, NE.RGBA16_SNORM, BLACK, False),
+              (REBLUR_SH[0], NE.RGBA16_SNORM, {}, False),
+              (REBLUR_SH[1], NE.RGBA8_UNORM, PERF, False),
+              (REBLUR_OCC[0], NE.RGBA8_SNORM, {}, False),
+              (REBLUR_OCC[1], NE.RGBA16_UNORM, AREA_3X3, True),
+              (DO, NE.RGBA8_UNORM, {}, False)]
 
 
-def _rgba_pools(denoiser, encoding, n, holes=False):
-    """`_pools` with IN_NORMAL_ROUGHNESS packed at the RGBA encoding (quantized)."""
+def _rgba_pools(denoiser, encoding, n, holes=False, settings=None):
+    """`_pools` with IN_NORMAL_ROUGHNESS packed at the RGBA encoding (quantized), at half width
+    under the settings' checkerboard mode."""
     gen = SceneGenerator(SceneSpec(size=SIZE, noise=0.4), camera_mode="orbit")
-    for i, (cs, pool) in enumerate(_pools(denoiser, n, holes)):
+    cb = (settings or {}).get("checkerboardMode", CB.OFF)
+    for i, (cs, pool) in enumerate(_pools(denoiser, n, holes, cb)):
         sky = (0.0, 0.0, 1.0) if encoding in fe.SNORM_ENCODINGS else None
         pool[RT.IN_NORMAL_ROUGHNESS] = gen.packed_normal_roughness(gen.frame(i), encoding,
                                                                    sky_normal=sky)
@@ -431,40 +464,61 @@ def _rgba_pools(denoiser, encoding, n, holes=False):
 def _rgba_engine(denoiser, encoding, device, settings):
     eng = Engine({0: denoiser}, resource_size=SIZE, device=device, normal_encoding=encoding)
     if denoiser not in SIGMA:
-        eng.set_denoiser_settings(0, replace(eng._settings[0], **settings))
+        eng.set_denoiser_settings(0, replace(eng._settings[0], **{
+            k: v for k, v in settings.items() if k != "BAND"}))
     return eng
+
+
+def _band(monkeypatch, settings):
+    """NRDTPU_REBLUR_BAND=1 where the path's settings ask for the band."""
+    if settings.get("BAND"):
+        monkeypatch.setenv("NRDTPU_REBLUR_BAND", "1")
+    else:
+        monkeypatch.delenv("NRDTPU_REBLUR_BAND", raising=False)
 
 
 @pytest.fixture(scope="module")
 def recorded_dec(cuda):
-    """The last frame's calls of the kernels with a decoded mode on every RGBA path."""
+    """The last frame's calls of the kernels with a decoded mode on every RGBA path (TS's
+    diffuse half, which reads no normal, left out)."""
     calls = []
     names = [name.removesuffix("_dec") for name in KM.DEC_INSTANCES]
     originals = {n: getattr(KM.MODULES[n], n) for n in names}
     for denoiser, encoding, settings, holes in RGBA_PATHS:
         eng = _rgba_engine(denoiser, encoding, cuda, settings)
-        pools = list(_rgba_pools(denoiser, encoding, 4, holes))
+        pools = list(_rgba_pools(denoiser, encoding, 4, holes, settings))
+        mp = pytest.MonkeyPatch()
+        _band(mp, settings)
         try:
             for i, (cs, pool) in enumerate(pools):
                 if i == len(pools) - 1:
                     for n in names:
                         def rec(*a, _n=n, _f=originals[n], **k):
-                            calls.append((_n, a, k))
+                            if not (_n == "ts_prelude" and len(a) < 6):
+                                calls.append((_n, a, k))
                             return _f(*a, **k)
                         setattr(KM.MODULES[n], n, rec)
                 eng.set_common_settings(cs)
                 eng.denoise([0], pool)
         finally:
+            mp.undo()
             for n in names:
                 setattr(KM.MODULES[n], n, originals[n])
     return calls
+
+
+def _other_taps(kernel, k):
+    """H2, N4 and K23 also at the other tap count (performance mode's 6, or 8)."""
+    if kernel not in ("spatial_filter", "spatial_filter_fused", "reblur_band"):
+        return [k]
+    return [k, dict(k, perf_mode=not k.get("perf_mode", False))]
 
 
 @pytest.mark.parametrize("name", sorted(KM.DEC_INSTANCES))
 def test_dec_instance_matches_plain_version(recorded_dec, name):
     """Each kernel's decoded-plane instances (`kDec`) on the RGBA paths' inputs."""
     kernel = name.removesuffix("_dec")
-    calls = [(a, k) for n, a, k in recorded_dec if n == kernel]
+    calls = [(a, k2) for n, a, k in recorded_dec if n == kernel for k2 in _other_taps(n, k)]
     assert calls and all(k["decoded"] for _, k in calls)
     mod = KM.MODULES[kernel]
     for a, k in calls:
@@ -480,13 +534,15 @@ def test_dec_instance_matches_plain_version(recorded_dec, name):
 
 
 @pytest.mark.parametrize("denoiser,encoding,settings,holes", RGBA_PATHS,
-                         ids=[f"{d.name}-{e.name}" for d, e, _, _ in RGBA_PATHS])
-def test_engine_card_matches_cpu_rgba(cuda, denoiser, encoding, settings, holes):
-    """RELAX and SIGMA at the RGBA normal encodings: the Engine on the card against the Engine
+                         ids=[f"{d.name}-{e.name}-{i}" for i, (d, e, _, _)
+                              in enumerate(RGBA_PATHS)])
+def test_engine_card_matches_cpu_rgba(cuda, denoiser, encoding, settings, holes, monkeypatch):
+    """Every variant at the RGBA normal encodings: the Engine on the card against the Engine
     on the CPU, every output >= 50 dB."""
+    _band(monkeypatch, settings)
     card = _rgba_engine(denoiser, encoding, cuda, settings)
     cpu = _rgba_engine(denoiser, encoding, "cpu", settings)
-    for cs, pool in _rgba_pools(denoiser, encoding, 4, holes):
+    for cs, pool in _rgba_pools(denoiser, encoding, 4, holes, settings):
         outs = []
         for eng in (card, cpu):
             eng.set_common_settings(cs)
@@ -497,3 +553,36 @@ def test_engine_card_matches_cpu_rgba(cuda, denoiser, encoding, settings, holes)
             mse = float(((a - b) ** 2).mean())
             peak = float(b.abs().max())
             assert mse == 0.0 or 10.0 * np.log10(peak * peak / mse) >= 50.0, rt
+
+
+def test_clamp_moments_keeps_nan(cuda):
+    """K20 on NaN inputs (ROADMAP.md Queue 3, closed): RELAX_DIFFUSE's history clamping on the
+    last frame at RGBA8_SNORM, its responsive and slow histories NaN on a seeded 5 % of the
+    pixels each: the kernel's outputs are non-finite exactly where the plain version's are, and
+    the finite values agree within the tolerance."""
+    mod = KM.MODULES["relax_clamp_moments"]
+    f, rec = mod.relax_clamp_moments, []
+
+    def r(*a, **k):
+        rec.append((a, k))
+        return f(*a, **k)
+    eng = _rgba_engine(Denoiser.RELAX_DIFFUSE, NE.RGBA8_SNORM, cuda, {})
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(mod, "relax_clamp_moments", r)
+        for cs, pool in _rgba_pools(Denoiser.RELAX_DIFFUSE, NE.RGBA8_SNORM, 4):
+            eng.set_common_settings(cs)
+            eng.denoise([0], pool)
+    a, k = rec[-1]
+    a = list(a)
+    gen = torch.Generator(device="cpu").manual_seed(97)
+    for i in (1, 5):  # fast, slow
+        t = a[i].clone()
+        t[(torch.rand(t.shape[:2], generator=gen) < 0.05).to(t.device)] = float("nan")
+        a[i] = t
+    got, want = mod.relax_clamp_moments(*a, **k), mod.relax_clamp_moments_ref(*a, **k)
+    for g, w in zip(got, want):
+        assert bool(torch.isnan(w).any())
+        assert torch.equal(~torch.isfinite(g), ~torch.isfinite(w))
+        fin = torch.isfinite(w)
+        over = ((g[fin] - w[fin]).abs() > ATOL + RTOL * w[fin].abs()).float().mean().item()
+        assert over <= FLIP_FRACTION

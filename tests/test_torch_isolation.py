@@ -251,21 +251,17 @@ def test_unported_variants_raise():
 
 
 def test_rgba_normal_encodings_raise_in_reblur_only():
-    """At the four RGBA normal encodings every RELAX and SIGMA variant and REFERENCE build on
-    the CPU, and every REBLUR variant raises NotImplementedError that names the next slice
-    (ROADMAP.md Queue 1.5)."""
+    """No variant raises at a normal encoding any more (REBLUR, the last, since the RGBA slice):
+    at every encoding every variant builds on the CPU, and a REBLUR instance takes the decoded
+    planes exactly at the four RGBA formats."""
     from nrdtpu_torch.engine import Engine
     from nrdtpu_torch.settings import Denoiser, NormalEncoding
 
     for enc in NormalEncoding:
-        if enc == NormalEncoding.R10_G10_B10_A2_UNORM:
-            continue
         for d in Denoiser:
+            eng = Engine({0: d}, resource_size=(64, 48), normal_encoding=enc, device="cpu")
             if d.name.startswith("REBLUR"):
-                with pytest.raises(NotImplementedError, match="next slice"):
-                    Engine({0: d}, resource_size=(64, 48), normal_encoding=enc, device="cpu")
-            else:
-                Engine({0: d}, resource_size=(64, 48), normal_encoding=enc, device="cpu")
+                assert eng._instances[0].decoded == (enc != NormalEncoding.R10_G10_B10_A2_UNORM)
 
 
 def test_denoise_before_common_settings_raises():
