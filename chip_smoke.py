@@ -28,7 +28,8 @@ renderer that traces half the pixels sends it): REBLUR_DIFFUSE_SPECULAR in BLACK
 NRDTPU_REBLUR_BAND=1), REBLUR_DIFFUSE in WHITE, REBLUR_SPECULAR in BLACK and
 RELAX_DIFFUSE_SPECULAR in BLACK (`CB_PATHS`); REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION on the
 scene's binary AO with the surface normal as the direction (`reblur_pack_directional_occlusion`;
-the history fix and TS in their directional modes); and REBLUR_SPECULAR at SQ_LINEAR and
+the history fix and TS in their directional modes); REBLUR_DIFFUSE_SPECULAR in performance
+mode (`+PERF`: N4's 6-tap instances); and REBLUR_SPECULAR at SQ_LINEAR and
 REBLUR_DIFFUSE_SPECULAR at SQRT_LINEAR roughness (IN_NORMAL_ROUGHNESS packed with the encoding:
 the denoiser decodes it once a frame, and H2's specular instances decode at their taps, counted
 apart as `spatial_filter_rough`); and at the RGBA normal encodings (`NORMAL_ENCODED`):
@@ -125,6 +126,15 @@ Phases, each of which raises on failure (exit code != 0):
      output must lie in [0, 1], be lit on average (> 0.99) where the 9x9 neighbourhood is lit
      and dark (< 0.15) in the umbra core; prints the median ms/frame (CUDA events), the host
      ms/frame and the peak allocator bytes;
+  3b. dynamic resolution (`rect_phase`): REBLUR_DIFFUSE_SPECULAR, RELAX_DIFFUSE_SPECULAR and
+     SIGMA_SHADOW_TRANSLUCENCY sliced at a rect of 3/4 of the resource (1920x1080 in 2560x1440;
+     each frame downsampled by nearest texel into the top-left of NaN resource planes, outputs
+     0 outside the rect), the device time a frame of those cells, of their full-rect cells
+     and of the performance-mode path (torch.profiler, also without `--profile`; with it, the
+     full-rect cells' traces are those of `--profile`), and each of `RECT_HELD`'s paths through
+     the rects 2560x1440, 1920x1080, 1707x960, 2560x1440 (two frames each, the state migrated
+     at each change) with every card call held on its own against its plain version
+     (`held_calls`, `check_held`);
   4. lit scene: both SIGMA variants on a scene without occluders at 256x160 keep every lit
      pixel above 0.99; RELAX pair: RELAX_DIFFUSE_SPECULAR's two outputs on the card hold to
      RELAX_DIFFUSE's and RELAX_SPECULAR's on the card on every frame of the slices (the JAX
@@ -138,10 +148,14 @@ Phases, each of which raises on failure (exit code != 0):
      BLACK (`OCC_CB`), of REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION under checkerboard BLACK and with
      AREA_3X3 on the AO with holes (`DIR_EXTRA`), of REBLUR_SPECULAR and REBLUR_DIFFUSE_SPECULAR
      at both encodings, and of REFERENCE on a static camera (plain torch ops on both, no
-     kernel); and RELAX_SPECULAR at RGBA8_SNORM on the scene's own sky normal of 0 on both,
-     with the non-finite values each gives printed (`snorm_sky_fault`, no bar on the
-     reference's fault), every card call held against its plain version there: K20
-     `relax_clamp_moments` must give non-finite values exactly where its plain version does.
+     kernel); the rect sequence 256x160, 200x121, 171x107, 256x160 (a frame a rect) of the
+     three rect paths on both, every card call held on its own (`rect_card_vs_cpu`); and
+     RELAX_SPECULAR at RGBA8_SNORM on the
+     scene's own sky normal of 0 on both, with the non-finite values each gives printed
+     (`snorm_sky_fault`, no bar on the reference's fault), every card call held against its
+     plain version there: K16 `relax_smb_resolve`, K17 `relax_vmb_resolve`, K20
+     `relax_clamp_moments` and K22 `relax_atrous` must give non-finite values exactly where their
+     plain versions do.
 
 With `--profile` it also traces 3 frames of each path (after 4 warm-up) with
 torch.profiler and prints the device time a frame, the device's idle share against the
@@ -157,6 +171,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import copy
 import inspect
 import json
 import os
@@ -342,7 +357,28 @@ PATHS = {
     "REBLUR_DIFFUSE_SPECULAR+SQRT_LINEAR": dict(denoiser="REBLUR_DIFFUSE_SPECULAR",
                                                 signals=("diff", "spec"), encoding="SQRT_LINEAR",
                                                 launches=DS_LAUNCHES),
+    # performance mode (N4's 6-tap instances), DS's launches
+    "REBLUR_DIFFUSE_SPECULAR+PERF": dict(denoiser="REBLUR_DIFFUSE_SPECULAR",
+                                         signals=("diff", "spec"),
+                                         settings=dict(enablePerformanceMode=True),
+                                         launches=DS_LAUNCHES),
 }
+# dynamic resolution (`Engine` at a rect smaller than the resource, `rect_phase`): the paths run
+# at a rect, the rect sequences as fractions of the resource (at 2560x1440: 1920x1080 and
+# 1707x960) and, for the card against the CPU, at 256x160; RECT_FRAMES_EACH frames a rect at
+# the full size, one at 256x160
+RECT_PATHS = ("REBLUR_DIFFUSE_SPECULAR", "RELAX_DIFFUSE_SPECULAR", "SIGMA_SHADOW_TRANSLUCENCY")
+RECT_SLICE_SCALE = 0.75
+RECT_SCALES = (1.0, 0.75, 2.0 / 3.0, 1.0)
+SMALL_RECTS = ((256, 160), (200, 121), (171, 107), (256, 160))
+RECT_FRAMES_EACH = 2
+# the paths that the full-size rect sequence also runs, so that every kernel of a main path is
+# held at a rect on the card: H2 and H3 (REBLUR_SPECULAR), K12 (on the frames with holes), K23
+# and K21
+RECT_HELD = RECT_PATHS + ("REBLUR_SPECULAR", "REBLUR_DIFFUSE_SPECULAR+AREA_3X3",
+                          "REBLUR_DIFFUSE_SPECULAR+BAND", "RELAX_SPECULAR+ANTI_FIREFLY")
+# the paths whose device time the rect phase traces (with their cells at the rect)
+PROFILED = RECT_PATHS + ("REBLUR_DIFFUSE_SPECULAR+PERF",)
 # the checkerboard paths: half-width signal inputs in the mode `cb`, the non-cb path's launches
 # with the PrePass in its checkerboard instance (counted apart as well)
 # the RGBA normal encodings (`kDec`): per path its normal encoding; the kernels of the
@@ -907,12 +943,17 @@ def card_line():
     return res.stdout.strip().splitlines()[0]
 
 
-def _outputs(r):
-    if isinstance(r, dict):
-        return dict(r)
-    if isinstance(r, tuple):
-        return {str(i): v for i, v in enumerate(r)}
-    return {"out": r}
+def _outputs(r, prefix=""):
+    """{name: tensor} of a kernel's result: a tensor ("out"), or dicts, tuples and lists of
+    them, nested names joined by "." (a tuple's i-th tensor is "i"); None left out."""
+    if isinstance(r, torch.Tensor):
+        return {prefix or "out": r}
+    items = (r.items() if isinstance(r, dict) else enumerate(r) if isinstance(r, (tuple, list))
+             else ())
+    out = {}
+    for k, v in items:
+        out.update(_outputs(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
 
 
 def _tensors(x):
@@ -1829,8 +1870,52 @@ def lit_scene_check(w=256, h=160, frames=3):
             raise AssertionError(f"{path}: a lit pixel of the occluder-free scene is {low}")
 
 
-def slice_phase(path, w, h, frames, warmup):
-    """One main path through the Engine, with its own launch counts."""
+def downsampled(x, rect):
+    """A (h, w, ...) plane at the rect by nearest texel: the scene as a renderer at the rect's
+    resolution sees it (the motion vectors are in uv, which the rect does not change); dicts
+    and tuples of planes plane by plane."""
+    if isinstance(x, dict):
+        return {k: downsampled(v, rect) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(downsampled(v, rect) for v in x)
+    h, w = x.shape[:2]
+    rw, rh = rect
+    if (rw, rh) == (w, h):
+        return x
+    ys = ((np.arange(rh) + 0.5) * (h / rh)).astype(np.int64)
+    xs = ((np.arange(rw) + 0.5) * (w / rw)).astype(np.int64)
+    return x[ys[:, None], xs[None, :]]
+
+
+def rect_inputs(pool, rect, w, h, device):
+    """A path's pool at the rect: each plane downsampled to the rect and pasted into the
+    top-left of a resource-sized plane that is NaN elsewhere (the engine must not read there),
+    on `device`."""
+    out = {}
+    for k, v in pool.items():
+        small = torch.from_numpy(np.ascontiguousarray(downsampled(v, rect))).to(device)
+        full = torch.full((h, w) + tuple(small.shape[2:]), float("nan"), device=device)
+        full[:rect[1], :rect[0]] = small
+        out[k] = full
+    return out
+
+
+def at_rect(cs, rect, prev):
+    """A copy of the common settings with rectSize `rect` and rectSizePrev `prev`."""
+    cs = copy.copy(cs)
+    cs.rectSize, cs.rectSizePrev = tuple(rect), tuple(prev)
+    return cs
+
+
+def rect_of(w, h, scale):
+    return round(w * scale), round(h * scale)
+
+
+def slice_phase(path, w, h, frames, warmup, rect=None):
+    """One main path through the Engine, with its own launch counts; with `rect` at that rect
+    of the resource (w, h) (`rect_inputs`, `cs.rectSize`): the outputs resource-sized, 0
+    outside the rect and checked inside it. Returns the counts, the median ms/frame and the
+    peak allocated bytes."""
     from nrdtpu_torch import frontend as fe
     from nrdtpu_torch import kernels as KM
     from nrdtpu_torch import math as nm
@@ -1838,13 +1923,19 @@ def slice_phase(path, w, h, frames, warmup):
     n = len(frames)
     sh = PATHS[path].get("sh", False)
     eng = path_engine(path, w, h, "cuda")
+    name = path if rect is None else f"{path}@{rect[0]}x{rect[1]}"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ms, host_ms = [], []
     gains, ao_err = {}, {}
     KM.reset_launch_counts()
     for i, (cs, pools, truth) in enumerate(frames):
-        pool = {k: torch.from_numpy(v).cuda() for k, v in pools[path].items()}
+        if rect is None:
+            pool = {k: torch.from_numpy(v).cuda() for k, v in pools[path].items()}
+        else:
+            pool = rect_inputs(pools[path], rect, w, h, "cuda")
+            cs = at_rect(cs, rect, rect)
+            truth = None if truth is None else downsampled(truth, rect)
         torch.cuda.synchronize()
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
@@ -1860,11 +1951,17 @@ def slice_phase(path, w, h, frames, warmup):
         for label, sig, rt in outputs_of(path):
             out = outs[rt]
             c = 1 if path == "SIGMA_SHADOW" or occ else 4
-            if tuple(out.shape) != (h, w, c) or not bool(torch.isfinite(out).all()):
-                raise AssertionError(f"{path} frame {i} {label}: output not finite or of "
-                                     f"shape {tuple(out.shape)}")
+            if tuple(out.shape) != (h, w, c):
+                raise AssertionError(f"{name} frame {i} {label}: output of shape "
+                                     f"{tuple(out.shape)}")
+            if rect is not None:
+                if bool(out[rect[1]:].any()) or bool(out[:, rect[0]:].any()):
+                    raise AssertionError(f"{name} frame {i} {label}: not 0 outside the rect")
+                out = out[:rect[1], :rect[0]]
+            if not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"{name} frame {i} {label}: output not finite")
             if occ and not (float(out.min()) >= 0.0 and float(out.max()) <= 1.0):
-                raise AssertionError(f"{path} frame {i} {label}: output outside [0, 1]: "
+                raise AssertionError(f"{name} frame {i} {label}: output outside [0, 1]: "
                                      f"[{float(out.min())}, {float(out.max())}]")
             if truth is None or label.endswith("SH1"):  # SH1: finite and of its shape
                 continue
@@ -1876,7 +1973,7 @@ def slice_phase(path, w, h, frames, warmup):
                                               - truth["ao_clean"])[m].mean()))
                 continue
             if sig == "shadow":
-                check_shadow(path, out, truth)
+                check_shadow(name, out, truth)
                 continue
             if sh and not PATHS[path].get("relax"):  # REBLUR's SH0: YCoCg and normHitDist
                 rgb = fe.sg_extract_color(fe.reblur_unpack_sh(
@@ -1896,27 +1993,27 @@ def slice_phase(path, w, h, frames, warmup):
     counts = KM.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     expected = {k: n * PATHS[path]["launches"].get(k, 0) for k in KM.launch_counts()}
-    log(f"slice {path}: {n} frames at {w}x{h}, launches {counts} (expected {expected})")
+    log(f"slice {name}: {n} frames at {w}x{h}, launches {counts} (expected {expected})")
     if counts != expected:
-        raise AssertionError(f"{path} launch counts {counts} != {expected}")
-    log(f"slice {path}: median {np.median(ms):.3f} ms/frame (CUDA events, {len(ms)} frames "
+        raise AssertionError(f"{name} launch counts {counts} != {expected}")
+    log(f"slice {name}: median {np.median(ms):.3f} ms/frame (CUDA events, {len(ms)} frames "
         f"after {warmup} warm-up; min {min(ms):.3f}, max {max(ms):.3f}); host wall "
         f"{np.median(host_ms):.3f} ms/frame")
-    log(f"slice {path}: peak allocated {peak / 1e6:.2f} MB (NRD REBLUR_DIFFUSE working set "
+    log(f"slice {name}: peak allocated {peak / 1e6:.2f} MB (NRD REBLUR_DIFFUSE working set "
         f"{NRD_WORKING_SET_MB} MB)")
     for sig, (noisy_db, out_db) in gains.items():
-        log(f"slice {path} {sig}: PSNR vs clean on geometry: noisy input {noisy_db:.2f} dB, "
+        log(f"slice {name} {sig}: PSNR vs clean on geometry: noisy input {noisy_db:.2f} dB, "
             f"denoised {out_db:.2f} dB")
         if not out_db >= noisy_db + 3.0:
-            raise AssertionError(f"{path} {sig}: denoised output does not beat the noisy "
+            raise AssertionError(f"{name} {sig}: denoised output does not beat the noisy "
                                  f"input by 3 dB: {gains[sig]}")
     for sig, (noisy_err, out_err) in ao_err.items():
-        log(f"slice {path} {sig}: mean absolute error to the clean AO on geometry: binary "
+        log(f"slice {name} {sig}: mean absolute error to the clean AO on geometry: binary "
             f"input {noisy_err:.4f}, denoised {out_err:.4f}")
         if not out_err < noisy_err:
-            raise AssertionError(f"{path} {sig}: denoised AO is no closer to the clean AO than "
+            raise AssertionError(f"{name} {sig}: denoised AO is no closer to the clean AO than "
                                  f"its binary input: {ao_err[sig]}")
-    return counts, float(np.median(ms))
+    return counts, float(np.median(ms)), peak
 
 
 def relax_pair_check(w, h, frames, sh=False):
@@ -1955,15 +2052,21 @@ def relax_pair_check(w, h, frames, sh=False):
     return {label: dict(max_abs=v[0], over=v[1], count=v[2]) for label, v in worst.items()}
 
 
-def profile_phase(path, w, h, frames, slice_ms, warmup=4, n=3):
-    """Device time a frame by kernel name over n traced frames after `warmup` frames."""
+def profile_phase(path, w, h, frames, slice_ms, warmup=4, n=3, rect=None):
+    """Device time a frame by kernel name over n traced frames after `warmup` frames (with
+    `rect`, the path at that rect, as `slice_phase`); returns the device's busy ms a frame."""
     from torch.profiler import ProfilerActivity, profile
 
     from nrdtpu_torch import kernels as KM
 
     eng = path_engine(path, w, h, "cuda")
-    pools = [(cs, {k: torch.from_numpy(v).cuda() for k, v in p[path].items()})
-             for cs, p, _ in frames[:warmup + n]]
+    if rect is None:
+        pools = [(cs, {k: torch.from_numpy(v).cuda() for k, v in p[path].items()})
+                 for cs, p, _ in frames[:warmup + n]]
+    else:
+        pools = [(at_rect(cs, rect, rect), rect_inputs(p[path], rect, w, h, "cuda"))
+                 for cs, p, _ in frames[:warmup + n]]
+    label = path if rect is None else f"{path}@{rect[0]}x{rect[1]}"
     # the history fix's calls of the traced frames, for its share of pixels that run the taps
     history_fix = types.SimpleNamespace(MODULES={"relax_history_fix":
                                                  KM.MODULES["relax_history_fix"]})
@@ -1980,7 +2083,7 @@ def profile_phase(path, w, h, frames, slice_ms, warmup=4, n=3):
             torch.cuda.synchronize()
     if fixes:
         shares = [history_fix_live(a, k) / a[3].numel() for _, a, k in fixes]
-        log(f"profile {path}: relax_history_fix runs the taps on "
+        log(f"profile {label}: relax_history_fix runs the taps on "
             + ", ".join(f"{x:.4f}" for x in shares) + " of the pixels of the traced frames "
             f"{warmup + 1}-{warmup + n}")
 
@@ -1990,7 +2093,7 @@ def profile_phase(path, w, h, frames, slice_ms, warmup=4, n=3):
 
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not events:
-        raise AssertionError(f"profile {path}: the trace holds no device events")
+        raise AssertionError(f"profile {label}: the trace holds no device events")
     by_name = {}
     for e in events:
         t, c = by_name.get(e.name, (0.0, 0))
@@ -2002,19 +2105,22 @@ def profile_phase(path, w, h, frames, slice_ms, warmup=4, n=3):
                else "torch.cat / torch.stack copies" if "CatArrayBatchedCopy" in name
                else "rest of the glue")
         groups[key] += t
-    log(f"profile {path}: device busy {busy:.3f} ms/frame, idle share "
+    log(f"profile {label}: device busy {busy:.3f} ms/frame, idle share "
         f"{1.0 - busy / slice_ms:.3f} of the slice's {slice_ms:.3f} ms/frame; "
         f"{len(events) / n:.0f} device events a frame; "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in groups.items()))
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     for name, (t, c) in ranked[:12]:
-        log(f"profile {path}:   {t:8.3f} ms/frame  {c / n:5.0f} x  {name[:90]}")
+        log(f"profile {label}:   {t:8.3f} ms/frame  {c / n:5.0f} x  {name[:90]}")
     for name, (t, c) in ranked:  # every hand kernel of the path, in or below the top 12
         if any(f"{k}_kernel" in name for k in KM.MODULES):
-            log(f"profile {path}: hand kernel {t:8.3f} ms/frame  {c / n:5.0f} x  {name[:90]}")
+            log(f"profile {label}: hand kernel {t:8.3f} ms/frame  {c / n:5.0f} x  {name[:90]}")
+    return busy
 
 
 def card_vs_cpu_phase(w=256, h=160, frames=3):
+    """Every path's outputs on the card against the CPU's plain path on the same frames at
+    256x160, REFERENCE, the rect sequence and the SNORM sky fault."""
     frames = list(Scene(w, h).frames(frames, workers=1))
     sq = "RELAX_SPECULAR+SQ_LINEAR"
     encoded = [p for p in ENCODED if not ENCODED[p].get("relax")]
@@ -2035,6 +2141,7 @@ def card_vs_cpu_phase(w=256, h=160, frames=3):
             if p < 50.0:
                 raise AssertionError(f"{path} {label}: card and CPU disagree: {p:.2f} dB < 50 dB")
     reference_card_vs_cpu(w, h, len(frames))
+    rect_card_vs_cpu(w, h)
     snorm_sky_fault(w, h, len(frames))
 
 
@@ -2044,17 +2151,20 @@ def snorm_sky_fault(w, h, n):
     0 by 0 (the JAX reference's fault, ROADMAP.md Queue 3, which the port does not guard). The
     non-finite output pixels of the card's kernels and of the CPU's plain versions on each
     frame, on geometry and in all; printed, no bar. Every kernel call of the card's engine is
-    also held against its plain version on the same inputs (`finiteness_split`), and the calls
+    also held against its plain version on the same inputs (`held_calls`), and the calls
     whose outputs hold non-finite values elsewhere than the plain version's are printed: they
-    name the kernels that turn the NaN finite or keep it. K20 `relax_clamp_moments` must be
-    none of them (its min, max and saturate keep NaN as the plain version's do)."""
+    name the kernels that turn the NaN finite or keep it. K16 `relax_smb_resolve`, K17
+    `relax_vmb_resolve`, K20 `relax_clamp_moments` and K22 `relax_atrous` must be none of them
+    (their CatRom reads every texel the plain version multiplies, a weight of 0 included, and
+    their min, max and saturate keep NaN as the plain version's do)."""
     from nrdtpu_torch import frontend as fe
     from nrdtpu_torch.settings import ResourceType as RT
 
     scene = Scene(w, h)
     engs = {d: engine("RELAX_SPECULAR", w, h, d, normal_encoding="RGBA8_SNORM")
             for d in ("cuda", "cpu")}
-    k20_calls, k20_split = 0, []
+    kept = ("relax_smb_resolve", "relax_vmb_resolve", "relax_clamp_moments", "relax_atrous")
+    kept_calls, kept_split = {n: 0 for n in kept}, []
     for i in range(n):
         fd = scene.gen.frame(i)
         cs = fd.common_settings
@@ -2067,7 +2177,7 @@ def snorm_sky_fault(w, h, n):
         counts, split = [], []
         for d, eng in engs.items():
             eng.set_common_settings(cs)
-            with finiteness_split() if d == "cuda" else contextlib.nullcontext(split) as got:
+            with held_calls() if d == "cuda" else contextlib.nullcontext(split) as got:
                 out = eng.denoise([0], pool)[RT.OUT_SPEC_RADIANCE_HITDIST].cpu()
             split = got
             bad = ~torch.isfinite(out).all(-1)
@@ -2078,40 +2188,48 @@ def snorm_sky_fault(w, h, n):
         for c, (name, dec, key, n_in, n_kern, n_plain) in split.entries:
             log(f"snorm sky fault frame {i} call {c} {name}{'_dec' if dec else ''} output "
                 f"{key}: non-finite values: inputs {n_in}, kernel {n_kern}, plain {n_plain}")
-            if name == "relax_clamp_moments":
-                k20_split.append((i, c, key, n_in, n_kern, n_plain))
-        k20_calls += split.calls.get("relax_clamp_moments", 0)
+            if name in kept:
+                kept_split.append((i, c, name, key, n_in, n_kern, n_plain))
+        for n_ in kept:
+            kept_calls[n_] += split.calls.get(n_, 0)
         log(f"snorm sky fault frame {i}: {len(split.entries)} card outputs hold non-finite "
-            f"values elsewhere than their plain versions'; relax_clamp_moments "
-            f"{split.non_finite.get('relax_clamp_moments', (0, 0))} non-finite values (kernel, "
-            f"plain) in its {split.calls.get('relax_clamp_moments', 0)} call(s)")
-    if not k20_calls or k20_split:
-        raise AssertionError(f"relax_clamp_moments on NaN inputs: {k20_calls} calls, the "
-                             f"kernel's non-finite values differ from the plain version's in "
-                             f"{k20_split}")
+            f"values elsewhere than their plain versions'; " + "; ".join(
+                f"{n_} {split.non_finite.get(n_, (0, 0))} non-finite values (kernel, plain) in "
+                f"its {split.calls.get(n_, 0)} call(s)" for n_ in kept))
+    if not all(kept_calls.values()) or kept_split:
+        raise AssertionError(f"K16, K17, K20 and K22 on NaN inputs: calls {kept_calls}, the "
+                             f"kernels' non-finite values differ from the plain versions' in "
+                             f"{kept_split}")
 
 
 @contextlib.contextmanager
-def finiteness_split():
-    """While open, every kernel call (`kernels.MODULES`) also runs its plain version on the
-    same inputs. It yields a namespace: `entries` gets (call index, (kernel, decoded, output,
-    non-finite input values, non-finite values of the kernel's output, of the plain
-    version's)) for each output whose non-finite values lie elsewhere than the plain
-    version's; `calls` counts each kernel's calls and `non_finite` sums, per kernel, the
-    non-finite values of its outputs (kernel, plain)."""
+def held_calls():
+    """While open, every kernel call on the card (`kernels.MODULES`; a CPU engine's plain
+    calls pass through) also runs its plain version on the same inputs. It yields a namespace:
+    `held` gets (call index, kernel, values outside ATOL + RTOL |plain| (`disagreement`, on the
+    values the plain version has finite), values, largest |kernel - plain| there) for each
+    call; `entries` gets (call index, (kernel, decoded, output, non-finite input values,
+    non-finite values of the kernel's output, of the plain version's)) for each output whose
+    non-finite values lie elsewhere than the plain version's; `calls` counts each kernel's
+    calls and `non_finite` sums, per kernel, the non-finite values of its outputs (kernel,
+    plain)."""
     from nrdtpu_torch import kernels as KM
 
-    split = types.SimpleNamespace(entries=[], calls={}, non_finite={})
+    split = types.SimpleNamespace(held=[], entries=[], calls={}, non_finite={})
     index = [0]
     saved = [(m, name, getattr(m, name)) for name, m in KM.MODULES.items()]
 
     def check(name, f, ref):
         def call(*a, **k):
             r = f(*a, **k)
+            if not any(t.is_cuda for t in _tensors((a, k))):
+                return r
             got, want = _outputs(r), _outputs(ref(*a, **k))
             n_in = sum(int((~torch.isfinite(t)).sum()) for t in _tensors((a, k))
                        if t.is_floating_point())
             split.calls[name] = split.calls.get(name, 0) + 1
+            over = count = 0
+            worst = 0.0
             for key in want:
                 bad = [~torch.isfinite(o[key].float()) for o in (got, want)]
                 nk, npl = (int(b.sum()) for b in bad)
@@ -2120,6 +2238,11 @@ def finiteness_split():
                 if not torch.equal(*bad):
                     split.entries.append(
                         (index[0], (name, bool(k.get("decoded")), key, n_in, nk, npl)))
+                fin = ~bad[1]
+                if bool(fin.any()):
+                    mx, _, o, n = disagreement({key: got[key][fin]}, {key: want[key][fin]})[key]
+                    over, count, worst = over + o, count + n, max(worst, mx)
+            split.held.append((index[0], name, over, count, worst))
             index[0] += 1
             return r
         return call
@@ -2162,6 +2285,107 @@ def reference_card_vs_cpu(w, h, n):
         raise AssertionError(f"REFERENCE does not accumulate the running mean: {err}")
 
 
+def check_held(label, split):
+    """Each call of `held_calls` on its own: at most FLIP_FRACTION of its values outside the
+    tolerance, and its non-finite values where the plain version's are. Logs each kernel's
+    calls and its worst call."""
+    by_kernel = {}
+    for c, name, over, count, worst in split.held:
+        by_kernel.setdefault(name, []).append((over / max(count, 1), over, count, worst, c))
+    for name, calls in sorted(by_kernel.items()):
+        frac, over, count, _, c = max(calls)
+        log(f"{label}: {name} held on {len(calls)} call(s) one by one: worst call {c} {over} "
+            f"of {count} values out of tolerance; max |d| {max(x[3] for x in calls):.3g}")
+        if frac > FLIP_FRACTION:
+            raise AssertionError(f"{label}: {name} call {c} disagrees with its plain version: "
+                                 f"{over} of {count} values")
+    if split.entries:
+        raise AssertionError(f"{label}: non-finite values elsewhere than the plain versions' "
+                             f"in {split.entries}")
+    if not by_kernel:
+        raise AssertionError(f"{label}: no kernel call")
+
+
+def rect_sequence(path, w, h, frames, rects, each, cpu=False):
+    """One engine of the path on the card through a rect sequence, `each` frames at each rect
+    of the resource (w, h), `cs.rectSizePrev` the rect of the frame before (so the history
+    migrates at each change): every kernel call held on its own against its plain version
+    (`held_calls`, `check_held`), the outputs resource-sized, finite inside the rect and 0
+    outside, the state at the rect's shape. With `cpu` an engine on the CPU runs the same
+    frames, and every card output must be >= 50 dB against it inside the rect."""
+    label = f"rect sequence {path} at {w}x{h} (" + ", ".join(f"{a}x{b}" for a, b in rects) + ")"
+    engs = {d: path_engine(path, w, h, d) for d in (("cuda", "cpu") if cpu else ("cuda",))}
+    seq = [r for r in rects for _ in range(each)]
+    worst = {}
+    with held_calls() as split:
+        for i, (rect, (cs, pools, _)) in enumerate(zip(seq, frames)):
+            rw, rh = rect
+            cs = at_rect(cs, rect, seq[max(i - 1, 0)])
+            outs = {}
+            for d, eng in engs.items():
+                eng.set_common_settings(cs)
+                with path_env(path):
+                    outs[d] = eng.denoise([0], rect_inputs(pools[path], rect, w, h, d))
+                st = eng.get_state(0)
+                bad = [k for k, t in st.items() if t.ndim >= 2 and tuple(t.shape[:2]) != (rh, rw)]
+                if bad:
+                    raise AssertionError(f"{label} frame {i} {d}: state {bad} not at the rect")
+            for name, _, rt in outputs_of(path):
+                out = outs["cuda"][rt]
+                if tuple(out.shape[:2]) != (h, w):
+                    raise AssertionError(f"{label} frame {i} {name}: shape {tuple(out.shape)}")
+                if bool(out[rh:].any()) or bool(out[:, rw:].any()):
+                    raise AssertionError(f"{label} frame {i} {name}: not 0 outside the rect")
+                inside = out[:rh, :rw]
+                if not bool(torch.isfinite(inside).all()):
+                    raise AssertionError(f"{label} frame {i} {name}: not finite in the rect")
+                if cpu:
+                    p = psnr(inside.cpu().numpy(), outs["cpu"][rt][:rh, :rw].cpu().numpy())
+                    worst[name] = min(worst.get(name, float("inf")), p)
+        torch.cuda.synchronize()
+    check_held(label, split)
+    for name, p in worst.items():
+        log(f"{label} {name}: card vs cpu worst frame {p:.2f} dB")
+        if p < 50.0:
+            raise AssertionError(f"{label} {name}: card and CPU disagree: {p:.2f} dB < 50 dB")
+
+
+def rect_phase(w, h, frames, warmup, counts, slice_ms, peaks, busy):
+    """Dynamic resolution at the full size: each RECT_PATHS path's slice at the rect
+    RECT_SLICE_SCALE of the resource (its counts, ms/frame and peak memory added under
+    `<path>@<w>x<h>`), the device time a frame of it, of its full-rect slice and of the
+    performance-mode path (`PROFILED`; `busy` holds those that `--profile` has traced), a
+    summary line a path, then the rect sequence (RECT_SCALES) of each RECT_HELD path with every
+    kernel call held."""
+    rect = rect_of(w, h, RECT_SLICE_SCALE)
+    for path in PROFILED:
+        if path not in busy:
+            busy[path] = profile_phase(path, w, h, frames, slice_ms[path])
+    for path in RECT_PATHS:
+        key = f"{path}@{rect[0]}x{rect[1]}"
+        counts[key], slice_ms[key], peaks[key] = slice_phase(path, w, h, frames, warmup, rect)
+        busy[key] = profile_phase(path, w, h, frames, slice_ms[key], rect=rect)
+        log(f"rect cell {path}: at {w}x{h} {slice_ms[path]:.3f} ms/frame, device busy "
+            f"{busy[path]:.3f} ms, peak {peaks[path] / 1e6:.2f} MB; at the rect {rect[0]}x"
+            f"{rect[1]} {slice_ms[key]:.3f} ms/frame, device busy {busy[key]:.3f} ms, peak "
+            f"{peaks[key] / 1e6:.2f} MB; launches a frame {PATHS[path]['launches']} in both")
+    perf = "REBLUR_DIFFUSE_SPECULAR+PERF"
+    log(f"performance mode {perf}: {slice_ms[perf]:.3f} ms/frame, device busy {busy[perf]:.3f} "
+        f"ms at {w}x{h}; REBLUR_DIFFUSE_SPECULAR {slice_ms['REBLUR_DIFFUSE_SPECULAR']:.3f} "
+        f"ms/frame, device busy {busy['REBLUR_DIFFUSE_SPECULAR']:.3f} ms")
+    rects = [rect_of(w, h, f) for f in RECT_SCALES]
+    for path in RECT_HELD:
+        rect_sequence(path, w, h, frames, rects, RECT_FRAMES_EACH)
+
+
+def rect_card_vs_cpu(w, h):
+    """The rect sequence SMALL_RECTS at 256x160, a frame a rect, on the card and on the CPU
+    (`rect_sequence`)."""
+    frames = list(Scene(w, h).frames(len(SMALL_RECTS), workers=1))
+    for path in RECT_PATHS:
+        rect_sequence(path, w, h, frames, SMALL_RECTS, 1, cpu=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--width", type=int, default=2560)
@@ -2190,17 +2414,21 @@ def main():
     log(f"scene: {len(frames)} frames in {time.perf_counter() - t0:.1f} s")
     kr = kernel_phase(args.width, args.height, frames[:4])
     log(f"phase kernels: done at {time.perf_counter() - t_start:.1f} s")
-    counts, slice_ms = {}, {}
+    counts, slice_ms, peaks = {}, {}, {}
     for path in PATHS:
-        counts[path], slice_ms[path] = slice_phase(path, args.width, args.height, frames, warmup)
+        counts[path], slice_ms[path], peaks[path] = slice_phase(path, args.width, args.height,
+                                                                frames, warmup)
         log(f"phase slice {path}: done at {time.perf_counter() - t_start:.1f} s")
     relax_pair_check(args.width, args.height, frames)
     relax_pair_check(args.width, args.height, frames, sh=True)
     log(f"phase relax pair: done at {time.perf_counter() - t_start:.1f} s")
+    busy = {}
     if args.profile:
         for path in PATHS:
-            profile_phase(path, args.width, args.height, frames, slice_ms[path])
+            busy[path] = profile_phase(path, args.width, args.height, frames, slice_ms[path])
         log(f"phase profile: done at {time.perf_counter() - t_start:.1f} s")
+    rect_phase(args.width, args.height, frames, warmup, counts, slice_ms, peaks, busy)
+    log(f"phase dynamic resolution: done at {time.perf_counter() - t_start:.1f} s")
     del frames
     lit_scene_check()
     card_vs_cpu_phase()

@@ -12,10 +12,17 @@ a dict of tensors on that device. The engine runs on the card unless the caller 
 `device="cpu"`: on "cuda" (the default) every kernel of the pass graph is a hand-written CUDA
 kernel; on "cpu" each runs its plain PyTorch version. On a machine without CUDA the default
 raises - the engine never carries on on the CPU unless asked to.
+
+Dynamic resolution (`nrdtpu/engine.py:251-275`, NRD's rectSize / rectSizePrev): inputs stay
+resource-sized with the image in the top-left `rect_size` (`Engine(rect_size=)`, or a per-frame
+`cs.rectSize` clipped to the resource). Each instance runs at its rect's shape; a new rect
+re-creates the instance and crops or zero-pads the state (`_migrate_state`), and the outputs
+come back resource-sized, zero outside the rect.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
@@ -27,6 +34,7 @@ from . import camera
 from .interop import consts_from_numpy
 from .settings import (
     AccumulationMode,
+    CheckerboardMode,
     CommonSettings,
     Denoiser,
     NormalEncoding,
@@ -67,6 +75,43 @@ def _denoiser_class(d: Denoiser):
     raise NotImplementedError(f"{d.name} is not ported yet (ROADMAP.md lists the next slices)")
 
 
+def _migrate_state(state: dict, old_rect, new_rect) -> dict:
+    """Crop or zero-pad every (old_h, old_w, ...) state tensor to the new rect's shape, its
+    dtype kept (`nrdtpu/engine.py:_migrate_state`): grown rows and columns read as fresh
+    history, shrunk ones are dropped. Rects are (w, h), tensors (h, w[, c])."""
+    ow, oh = old_rect
+    nw, nh = new_rect
+
+    def mig(t):
+        if not isinstance(t, torch.Tensor) or t.ndim < 2 or tuple(t.shape[:2]) != (oh, ow):
+            return t
+        out = t.new_zeros((nh, nw) + tuple(t.shape[2:]))
+        ch, cw = min(oh, nh), min(ow, nw)
+        out[:ch, :cw] = t[:ch, :cw]
+        return out
+
+    return {k: mig(v) for k, v in state.items()}
+
+
+def _crop(t: torch.Tensor, rect) -> torch.Tensor:
+    """The top-left rect of a resource-sized plane, dense: the kernels assume a (h, w, C) row
+    pitch, so the copy is made after the crop."""
+    rw, rh = rect
+    if t.ndim >= 2 and t.shape[0] >= rh and t.shape[1] >= rw:
+        return t[:rh, :rw].contiguous()
+    return t
+
+
+def _pad(t: torch.Tensor, rect, resource) -> torch.Tensor:
+    """A rect-sized output zero-padded to the resource size."""
+    (rw, rh), (res_w, res_h) = rect, resource
+    if t.ndim < 2 or tuple(t.shape[:2]) != (rh, rw):
+        return t
+    out = t.new_zeros((res_h, res_w) + tuple(t.shape[2:]))
+    out[:rh, :rw] = t
+    return out
+
+
 class Engine:
     def __init__(self, denoisers: Dict[int, Denoiser], resource_size: Tuple[int, int],
                  rect_size: Optional[Tuple[int, int]] = None,
@@ -82,8 +127,6 @@ class Engine:
         if mesh is not None:
             raise NotImplementedError("Engine(mesh=) is not ported yet (ROADMAP.md)")
         rect_size = tuple(rect_size or resource_size)
-        if rect_size != tuple(resource_size):
-            raise NotImplementedError("rect_size != resource_size is not ported yet (ROADMAP.md)")
         self._frame_math = camera.FrameMath()
         self._consts: Optional[dict] = None
         self._cs: Optional[CommonSettings] = None
@@ -106,11 +149,8 @@ class Engine:
         self._last_time = now
         if cs.enableValidation:
             raise NotImplementedError("the validation overlay is not ported yet (ROADMAP.md)")
-        res = tuple(int(v) for v in cs.resourceSize)
         for inst in self._instances.values():
-            if all(cs.rectSize) and tuple(int(v) for v in cs.rectSize) != res:
-                raise NotImplementedError("a rect smaller than the resource is not ported yet")
-            w_, h_ = inst.config.rect_size
+            w_, h_ = self._rect(inst, cs)
             if 0 <= cs.printfAt[0] < w_ and 0 <= cs.printfAt[1] < h_:
                 raise NotImplementedError("printfAt is not ported yet (ROADMAP.md)")
         self._cs = cs
@@ -131,6 +171,15 @@ class Engine:
         dc = consts_from_numpy(inst.frame_constants(self._consts, self._settings[identifier]))
         return dict(self._consts), dc
 
+    @staticmethod
+    def _rect(inst, cs: Optional[CommonSettings]) -> Tuple[int, int]:
+        """This frame's rect of an instance: `cs.rectSize` clipped to the resource, else the
+        instance's own (`nrdtpu/engine.py:260-264`)."""
+        res_w, res_h = inst.config.resource_size
+        if cs is not None and all(cs.rectSize):
+            return min(int(cs.rectSize[0]), res_w), min(int(cs.rectSize[1]), res_h)
+        return tuple(inst.config.rect_size)
+
     def _to_device(self, v):
         t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))
         if t.dtype != torch.float32:
@@ -149,13 +198,33 @@ class Engine:
         for ident in identifiers:
             inst = self._instances[ident]
             settings = self._settings[ident]
+            rect = self._rect(inst, self._cs)
+            cb = getattr(settings, "checkerboardMode", CheckerboardMode.OFF)
+            if rect != tuple(inst.config.resource_size) and cb != CheckerboardMode.OFF:
+                raise NotImplementedError(
+                    "checkerboard at a rect smaller than the resource is not ported: the JAX "
+                    "reference crops only the inputs at least as wide as the rect "
+                    "(nrdtpu/engine.py:322-328), so its half-width checkerboard inputs keep the "
+                    "resource's height and its frame fails on their shape; there is nothing to "
+                    "hold the port against (ROADMAP.md Queue 3)")
+            # a new rect: the instance at the new shape, the state cropped or padded to it
+            if rect != tuple(inst.config.rect_size):
+                old_rect = tuple(inst.config.rect_size)
+                inst = type(inst)(dataclasses.replace(inst.config, rect_size=rect), self.device)
+                self._instances[ident] = inst
+                if self._states[ident] is not None:
+                    self._states[ident] = _migrate_state(self._states[ident], old_rect, rect)
             if self._states[ident] is None or clear:
                 self._states[ident] = inst.init_state()
-            key = inst.static_key(settings)
+            key = (inst.static_key(settings), rect)
             if self._static_keys.get(ident) != key:
                 inst.specialize(settings)
                 self._static_keys[ident] = key
             sc, dc = self.frame_constants(ident)
-            outs, self._states[ident] = inst.frame(sc, dc, self._states[ident], pool)
+            resource = tuple(inst.config.resource_size)
+            pool_i = pool if rect == resource else {k: _crop(v, rect) for k, v in pool.items()}
+            outs, self._states[ident] = inst.frame(sc, dc, self._states[ident], pool_i)
+            if rect != resource:
+                outs = {k: _pad(v, rect, resource) for k, v in outs.items()}
             outputs.update(outs)
         return outputs

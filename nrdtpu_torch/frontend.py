@@ -14,6 +14,9 @@ NRD_FP16_MAX = 65504.0
 NRD_EPS = 1e-6
 NRD_INF = 1e6
 NRD_ROUGHNESS_EPS = float(torch.sqrt(torch.sqrt(torch.tensor(NRD_EPS, dtype=torch.float32))))
+NRD_MATERIAL_FACTOR_MIN_SCALE = 0.02
+NRD_ROUGHNESS_FACTOR_MIN_SCALE = 0.1
+NRD_REJITTER_VIEWZ_THRESHOLD = 0.01
 
 
 def pack_normal_roughness(n, roughness, material_id=0.0,
@@ -128,6 +131,11 @@ def reblur_get_norm_hit_dist(hit_dist, view_z, hit_dist_params, roughness):
     """REBLUR_FrontEnd_GetNormHitDist (NRD.hlsli:722-727)."""
     return nm.saturate(hit_dist / get_hit_distance_normalization(view_z, hit_dist_params,
                                                                  roughness))
+
+
+def reblur_get_hit_dist(norm_hit_dist, view_z, hit_dist_params, roughness=1.0):
+    """REBLUR_GetHitDist (NRD.hlsli:1146-1151): the hit distance of a normalized one."""
+    return norm_hit_dist * get_hit_distance_normalization(view_z, hit_dist_params, roughness)
 
 
 def _sanitize(x, lo, hi):
@@ -250,6 +258,15 @@ def environment_term_rtg(rf0, nov, roughness):
     return nm.saturate(rf0 * scale[..., None] + bias[..., None])
 
 
+def material_factors(n, v, albedo, rf0, roughness):
+    """NRD_MaterialFactors (NRD.hlsli:676-687): (diffFactor, specFactor)."""
+    nov = torch.abs(nm.dot(n, v))
+    fenv = environment_term_rtg(rf0, nov, roughness)
+    diff = nm.lerp(NRD_MATERIAL_FACTOR_MIN_SCALE, 1.0, (1.0 - fenv) * albedo)
+    spec = fenv * nm.lerp(NRD_ROUGHNESS_FACTOR_MIN_SCALE, 1.0, roughness[..., None])
+    return diff, nm.lerp(NRD_MATERIAL_FACTOR_MIN_SCALE, 1.0, spec)
+
+
 def get_normalized_strand_thickness(strand_thickness, pixel_size):
     """NRD_GetNormalizedStrandThickness (NRD.hlsli:1158-1161)."""
     return pixel_size / (pixel_size + strand_thickness)
@@ -317,6 +334,77 @@ def _geometry_term(roughness, nol, nov):
     a = nol + torch.sqrt(nm.saturate((nol - m2 * nol) * nol + m2))
     b = nov + torch.sqrt(nm.saturate((nov - m2 * nov) * nov + m2))
     return 1.0 / torch.clamp_min(a * b, NRD_EPS)
+
+
+# BRDF terms of NRD_SG_ReJitter (NRD.hlsli:407-488)
+def _pow5(x):
+    return torch.pow(nm.saturate(1.0 - x), 5.0)
+
+
+def _fresnel_term(rf0, vonh):
+    return rf0 + (1.0 - rf0) * _pow5(vonh)
+
+
+def _distribution_term(roughness, noh):
+    m = roughness * roughness
+    m2 = m * m
+    a = m / ((noh * m2 - noh) * noh + 1.0)
+    return a * a / nm.PI
+
+
+def _diffuse_term(roughness, nol, nov, voh):
+    f = 2.0 * voh * voh * (roughness * roughness) - 0.5
+    return (f * _pow5(nov) + 1.0) * (f * _pow5(nol) + 1.0) / nm.PI
+
+
+def compute_brdfs(ld, ls, n, v, rf0, roughness):
+    """_NRD_ComputeBrdfs (NRD.hlsli:453-488): (diff, spec) for the diffuse and specular
+    light directions."""
+    nov = torch.abs(nm.dot(n, v))
+    h = nm.normalize(ld + v)
+    nol = nm.saturate(nm.dot(n, ld))
+    voh = nm.saturate(nm.dot(v, h))
+    diff = (1.0 - _fresnel_term(rf0, voh)) * _diffuse_term(roughness, nol, nov, voh) * nol
+
+    h = nm.normalize(nm.lerp(n, nm.normalize(ls + v), roughness[..., None]))
+    nol = nm.saturate(nm.dot(n, ls))
+    noh = nm.saturate(nm.dot(n, h))
+    voh = nm.saturate(nm.dot(v, h))
+    spec = (_fresnel_term(rf0, voh) * _distribution_term(roughness, noh)
+            * _geometry_term(roughness, nol, nov) * nol)
+    return diff, spec
+
+
+def sg_rejitter(diff_sg: SG, spec_sg: SG, rf0, v, roughness,
+                z, ze, zw, zn, zs, n, ne, nw, nn, ns):
+    """NRD_SG_ReJitter (NRD.hlsli:1064-1111): the (..., 2) jacobian (diffuse, specular) that
+    moves the resolved SG to the jittered pixel's BRDF, 1 unless the four neighbours (east,
+    west, north, south: view z and normal) all lie on the centre's surface."""
+    roughness = torch.clamp_min(roughness, NRD_ROUGHNESS_EPS)
+    rf0l = nm.luminance(rf0)
+    ld = _sg_extract_direction(diff_sg)
+    smc = 1.0 - torch.exp2(-30.0 * roughness * roughness)  # _NRD_GetSpecMagicCurve
+    ls = nm.normalize(nm.lerp(v, _sg_extract_direction(spec_sg), smc[..., None]))
+
+    cd, cs_ = compute_brdfs(ld, ls, n, v, rf0l, roughness)
+    ad, as_ = compute_brdfs(ld, ls, ne, v, rf0l, roughness)
+    for nb in (nn, nw, ns):
+        d2, s2 = compute_brdfs(ld, ls, nb, v, rf0l, roughness)
+        ad, as_ = ad + d2, as_ + s2
+
+    nov = torch.abs(nm.dot(n, v))
+    z_threshold = NRD_REJITTER_VIEWZ_THRESHOLD * torch.abs(z) / (nov * 0.95 + 0.05)
+    total = sum(((torch.abs(zx - z) < z_threshold) & (nm.dot(nx, n) > 0.0)).to(torch.int32)
+                for zx, nx in ((ze, ne), (zn, nn), (zw, nw), (zs, ns)))
+    fd = (cd * 4.0 + NRD_EPS) / (ad + NRD_EPS)
+    fs = (cs_ * 4.0 + NRD_EPS) / (as_ + NRD_EPS)
+    f = torch.clamp(torch.stack(torch.broadcast_tensors(fd, fs), -1), 1.0 / nm.PI, nm.PI)
+    return torch.where((total != 4)[..., None], torch.ones_like(f), f)
+
+
+def is_valid_radiance(radiance):
+    """NRD_IsValidRadiance (NRD.hlsli:1140-1144): every channel finite."""
+    return torch.all(torch.isfinite(radiance), dim=-1)
 
 
 def _ycocg_to_linear_corrected(y, y0, cocg):

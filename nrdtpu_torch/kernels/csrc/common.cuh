@@ -28,6 +28,13 @@ __device__ __forceinline__ float max_nan(float a, float b) {
   return a != a ? a : b != b ? b : fmaxf(a, b);
 }
 __device__ __forceinline__ float saturate_nan(float x) { return min_nan(max_nan(x, 0.0f), 1.0f); }
+// min / max / saturate of x against a bound that is never NaN (a literal or a host constant):
+// NaN where x is, as torch.clamp_max / clamp_min / clamp, in one compare and one select each
+__device__ __forceinline__ float min_bound(float x, float hi) { return hi < x ? hi : x; }
+__device__ __forceinline__ float max_bound(float x, float lo) { return lo > x ? lo : x; }
+__device__ __forceinline__ float saturate_bound(float x) {
+  return min_bound(max_bound(x, 0.0f), 1.0f);
+}
 
 // float texel coordinate -> int, bounded first (any coordinate beyond +-2^20 clamps to the
 // same edge texel)
@@ -326,12 +333,13 @@ __device__ __forceinline__ float divide(float a, float d) { return a / d; }
 // their record). V, the texel's type, is float4 or float. The 5 bilinear samples in order,
 // each sample's position, origin and weights computed once for all images. A texel is read,
 // as one wide load (texel4), only where its bilinear weight is non-zero, and a sample only
-// where its CatRom weight is: a term of weight 0 adds an exact 0 where the texel is finite (a
-// non-finite texel times 0 would be NaN), and the callers' histories are the previous
-// frame's outputs, finite. In the bicubic footprint whose positions land on their texels
-// exactly, that reads each of the 12 texels it covers once, in place of the 20 of 5 full
-// bilinears.
-template <int N, typename T, typename V>
+// where its CatRom weight is: a term of weight 0 adds an exact 0 where the texel is finite. In
+// the bicubic footprint whose positions land on their texels exactly, that reads each of the
+// 12 texels it covers once, in place of the 20 of 5 full bilinears. A non-finite texel times 0
+// is NaN in the plain version, so where a history may hold NaN (K16's and K17's float
+// histories after a NaN input) kKeepNaN reads all 20 texels and adds every term, a weight of 0
+// included: the result is NaN exactly where the plain version's is. H1, H4 and K14 skip.
+template <int N, bool kKeepNaN = false, typename T, typename V>
 __device__ __forceinline__ void catrom_apply4(const T* const img[N], int w, int h,
                                               const CatromTaps& t, V out[N]) {
   const float inv_w = 1.0f / (float)w, inv_h = 1.0f / (float)h;
@@ -341,7 +349,7 @@ __device__ __forceinline__ void catrom_apply4(const T* const img[N], int w, int 
   for (int s = 0; s < N; ++s) acc[s] = zero;
 #pragma unroll
   for (int k = 0; k < 5; ++k) {
-    if (t.wt[k] == 0.0f) continue;
+    if (!kKeepNaN && t.wt[k] == 0.0f) continue;
     const float posx = (t.tx[k] * inv_w) * (float)w - 0.5f;
     const float posy = (t.ty[k] * inv_h) * (float)h - 0.5f;
     const float ox = floorf(posx), oy = floorf(posy);
@@ -355,7 +363,8 @@ __device__ __forceinline__ void catrom_apply4(const T* const img[N], int w, int 
     for (int s = 0; s < N; ++s) {
       V v[4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) v[q] = bw[q] != 0.0f ? texel4(img[s], idx[q]) : zero;
+      for (int q = 0; q < 4; ++q)
+        v[q] = kKeepNaN || bw[q] != 0.0f ? texel4(img[s], idx[q]) : zero;
       acc[s] = add_weighted(acc[s], bilinear_sum(v, bw), t.wt[k]);
     }
   }

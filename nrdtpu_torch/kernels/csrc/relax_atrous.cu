@@ -42,7 +42,11 @@
 // template parameter kRough (common.cuh:decode_roughness), as the TPU kernel's rough_sq. With SH
 // a texel is one float4 more a signal (its SH), staged at iteration 0 as well. At the RGBA
 // normal encodings derive reads the decoded plane (kDec: normal .xyz, roughness .w, material 0)
-// and no tap tests the material.
+// and no tap tests the material. Every min, max and saturate of the per-pixel part returns NaN
+// where its operand is NaN (common.cuh:min_bound, max_bound, saturate_bound: the other operand
+// is a constant, one compare and one select), as the plain version's clamp_min, clamp_max and
+// clamp do: with fmaxf the variance of a NaN signal's moments was 0 where the plain version's
+// is NaN (the SNORM sky fault's frames, ROADMAP.md Queue 3).
 #include "relax_common.cuh"
 
 namespace {
@@ -192,7 +196,8 @@ __device__ __forceinline__ void variance_estimation(const AtrousArgs& a, const W
 #pragma unroll
       for (int k = 0; k < kN; ++k) {
         const float w_ =
-            kDec ? wn : wn * (fmaxf(t.m.y, a.sig[k].min_material) == mat_c[k] ? 1.0f : 0.0f);
+            kDec ? wn
+                 : wn * (nrd::max_bound(t.m.y, a.sig[k].min_material) == mat_c[k] ? 1.0f : 0.0f);
         const float s[4] = {t.s[k].x, t.s[k].y, t.s[k].z, t.s[k].w};
         swsum[k] = swsum[k] + w_;
 #pragma unroll
@@ -202,22 +207,22 @@ __device__ __forceinline__ void variance_estimation(const AtrousArgs& a, const W
         if constexpr (kSh) s_sh[k] = nrd::add_weighted(s_sh[k], t.sh[k], w_);
       }
     }
-  const float boost = fmaxf(4.0f / (hl + 1.0f), 1.0f);
+  const float boost = nrd::max_bound(4.0f / (hl + 1.0f), 1.0f);
 #pragma unroll
   for (int k = 0; k < kN; ++k) {
-    swsum[k] = fmaxf(swsum[k], 1e-6f);
+    swsum[k] = nrd::max_bound(swsum[k], 1e-6f);
 #pragma unroll
     for (int c = 0; c < 3; ++c) out[k][c] = s_rgb[k][c] / swsum[k];
     s_m1[k] = s_m1[k] / swsum[k];
     s_m2[k] = s_m2[k] / swsum[k];
-    out[k][3] = fmaxf(s_m2[k] - s_m1[k] * s_m1[k], 0.0f) * boost;
+    out[k][3] = nrd::max_bound(s_m2[k] - s_m1[k] * s_m1[k], 0.0f) * boost;
     if constexpr (kSh) out_sh[k] = nrd::divide(s_sh[k], swsum[k]);
   }
 }
 
 // saturate(multiplier (1 - confidence)) x a relaxation, saturated
 __device__ __forceinline__ float relaxation(const AtrousArgs& a, float conf, float r) {
-  return nrd::saturate(nrd::saturate(a.conf_mult * (1.0f - conf)) * r);
+  return nrd::saturate_bound(nrd::saturate_bound(a.conf_mult * (1.0f - conf)) * r);
 }
 
 template <bool kSh>
@@ -282,7 +287,7 @@ __global__ void __launch_bounds__(kTileX * kTileY, kMinCtas)
   const V3 n{ct.g.x, ct.g.y, ct.g.z};
   float mat_c[kN];
 #pragma unroll
-  for (int k = 0; k < kN; ++k) mat_c[k] = fmaxf(ct.m.y, a.sig[k].min_material);
+  for (int k = 0; k < kN; ++k) mat_c[k] = nrd::max_bound(ct.m.y, a.sig[k].min_material);
   float out[kN][4];
   float4 out_sh[kN] = {};
   if (a.is_first && !(hl >= a.history_threshold)) {
@@ -300,7 +305,7 @@ __global__ void __launch_bounds__(kTileX * kTileY, kMinCtas)
 
   // the diffuse lobe fraction, relaxed by IN_DIFF_CONFIDENCE
   const float dlf0 =
-      a.is_first ? a.lobe_fraction : 0.99f + a.lobe_span * nrd::saturate(hl / 5.0f);
+      a.is_first ? a.lobe_fraction : 0.99f + a.lobe_span * nrd::saturate_bound(hl / 5.0f);
   // each signal's luminance relaxation: the diffuse one's first
   float dlf = dlf0, lum_relax[kN];
   lum_relax[0] = 1.0f;
@@ -333,7 +338,7 @@ __global__ void __launch_bounds__(kTileX * kTileY, kMinCtas)
     if (spec_taps) {
       nwp_simpl = relax::normal_weight_param2(dlf_simpl);
       const float rough = ct.m.z;
-      ra = 1.0f / (0.01f + 0.99f * nrd::saturate(rough * a.rf));
+      ra = 1.0f / (0.01f + 0.99f * nrd::saturate_bound(rough * a.rf));
       rb = -(rough * ra);
       relax::normal_weight_params_atrous(rough, hl, reproj, a.nesr, spec_lobe, a.slack,
                                          &angle0, &f0);
@@ -371,7 +376,7 @@ __global__ void __launch_bounds__(kTileX * kTileY, kMinCtas)
 #pragma unroll
     for (int k = 0; k < kN; ++k) {
       const float m1 = relax::luminance(pre[k][0], pre[k][1], pre[k][2]);
-      var[k] = fmaxf(pre[k][3] - m1 * m1, 0.0f);
+      var[k] = nrd::max_bound(pre[k][3] - m1 * m1, 0.0f);
     }
   } else {
 #pragma unroll
@@ -382,7 +387,7 @@ __global__ void __launch_bounds__(kTileX * kTileY, kMinCtas)
   float4 acc_sh[kN];
 #pragma unroll
   for (int k = 0; k < kN; ++k) {
-    phi_inv[k] = 1.0f / fmaxf(a.sig[k].phi * sqrtf(var[k]), 1e-4f);
+    phi_inv[k] = 1.0f / nrd::max_bound(a.sig[k].phi * sqrtf(var[k]), 1e-4f);
     wsum[k] = a.w0;
     acc_sh[k] = make_float4(ct.sh[k].x * a.w0, ct.sh[k].y * a.w0, ct.sh[k].z * a.w0,
                             ct.sh[k].w * a.w0);
@@ -424,10 +429,11 @@ __global__ void __launch_bounds__(kTileX * kTileY, kMinCtas)
           w_ = gw * nrd::compute_weight(angle, nwp, 0.0f);
         }
         if constexpr (!kDec)
-          w_ = w_ * (fmaxf(ms, a.sig[k].min_material) == mat_c[k] ? 1.0f : 0.0f);
+          w_ = w_ * (nrd::max_bound(ms, a.sig[k].min_material) == mat_c[k] ? 1.0f : 0.0f);
         const float s[4] = {t.s[k].x, t.s[k].y, t.s[k].z, t.s[k].w};
         const float lw =
-            fminf(fabsf(lum(ct, k) - lum(t, k)) * phi_inv[k], a.sig[k].max_rel) * lum_relax[k];
+            nrd::min_bound(fabsf(lum(ct, k) - lum(t, k)) * phi_inv[k], a.sig[k].max_rel) *
+            lum_relax[k];
         w_ = w_ * expf(-lw);
         wsum[k] = wsum[k] + w_;
 #pragma unroll
@@ -442,7 +448,7 @@ __global__ void __launch_bounds__(kTileX * kTileY, kMinCtas)
 #pragma unroll
       for (int ch = 0; ch < 4; ++ch) out[k][ch] = acc[k][ch] / wsum[k];
       const float m1 = relax::luminance(out[k][0], out[k][1], out[k][2]);
-      out[k][3] = fmaxf(out[k][3] - m1 * m1, 0.0f);
+      out[k][3] = nrd::max_bound(out[k][3] - m1 * m1, 0.0f);
     } else {
 #pragma unroll
       for (int ch = 0; ch < 3; ++ch) out[k][ch] = acc[k][ch] / wsum[k];

@@ -29,11 +29,15 @@
 //   - the previous normal's bilinear as four float4 reads;
 //   - the histories through one CatRom footprint (common.cuh:catrom_apply4), all of them in
 //     one loop over its 5 bilinear samples: each sample's position, origin and weights
-//     computed once, and a texel read as one float4 only where its weight is non-zero (the
-//     12 texels of the 4x4 without its corners, each once, where the samples land on their
-//     texels). The 5 samples keep their order: summing the 12 texels directly, with the
-//     CatRom weights' products, moved values outside the tolerance where the history's
-//     second moment cancels (PERF.md);
+//     computed once, and each of its 4 texels read as one float4, a weight of 0 included
+//     (`kKeepNaN`: a NaN history texel that the plain version multiplies by 0 makes its
+//     sample NaN here too; most of the 20 reads hit the same 12 texels in L1). The 5
+//     samples keep their order: summing the 12 texels directly, with the CatRom weights'
+//     products, moved values outside the tolerance where the history's second moment
+//     cancels (PERF.md);
+//   - every min, max and clamp of the per-pixel part returns NaN where an operand is NaN
+//     (common.cuh:min_nan; max_bound and min_bound against a constant), as the plain
+//     version's torch.minimum, clamp_min and clamp_max do;
 //   - each history written as one float4;
 //   - each SH history's 2x2 as four 8-byte loads (uint2), widened to float, written as one
 //     float4.
@@ -107,7 +111,7 @@ __global__ void __launch_bounds__(256, kNHist <= 2 ? kMinCtas : 2)
     for (int dx = 0; dx < 3; ++dx) {
       const float4 t = win[(threadIdx.y + dy) * kWin + threadIdx.x + dx];
       na = V3{na.x + t.x, na.y + t.y, na.z + t.z};
-      if constexpr (kSpec) min_hit = fminf(min_hit, t.w);
+      if constexpr (kSpec) min_hit = nrd::min_nan(min_hit, t.w);
     }
   na = V3{na.x / 9.0f, na.y / 9.0f, na.z / 9.0f};
   if constexpr (kSpec) {
@@ -116,7 +120,7 @@ __global__ void __launch_bounds__(256, kNHist <= 2 ? kMinCtas : 2)
     a.planes[5 * plane + i] = na.z;
     a.planes[6 * plane + i] = min_hit;
   }
-  const float inv = rsqrtf(fmaxf(na.x * na.x + na.y * na.y + na.z * na.z, 1e-15f));
+  const float inv = rsqrtf(nrd::max_bound(na.x * na.x + na.y * na.y + na.z * na.z, 1e-15f));
   na = V3{na.x * inv, na.y * inv, na.z * inv};
 
   const float u = __ldg(a.smb_uv + 2 * i), v = __ldg(a.smb_uv + 2 * i + 1);
@@ -139,7 +143,7 @@ __global__ void __launch_bounds__(256, kNHist <= 2 ? kMinCtas : 2)
   // plane-distance and material occlusion of the 12 non-corner taps of the 4x4
   const float xvz = __ldg(a.xv_prev_z + i);
   float mat_c = 0.0f;  // kDec: no material test
-  if constexpr (!kDec) mat_c = fmaxf(__ldg(a.nr + 4 * i + 3) * 3.0f, a.min_material);
+  if constexpr (!kDec) mat_c = nrd::max_bound(__ldg(a.nr + 4 * i + 3) * 3.0f, a.min_material);
   int col[4];
   size_t row[4];
 #pragma unroll
@@ -161,7 +165,7 @@ __global__ void __launch_bounds__(256, kNHist <= 2 ? kMinCtas : 2)
       if constexpr (kDec) {
         occ[j][k] = o;
       } else {
-        const float mt = fmaxf(__ldg(a.prev_mat + t), a.min_material);
+        const float mt = nrd::max_bound(__ldg(a.prev_mat + t), a.min_material);
         occ[j][k] = o * (mat_c == mt ? 1.0f : 0.0f);
       }
       occ12 = occ12 + occ[j][k];
@@ -195,7 +199,7 @@ __global__ void __launch_bounds__(256, kNHist <= 2 ? kMinCtas : 2)
   const float quality = bicubic ? 1.0f : cw[0] + cw[1] + cw[2] + cw[3];
   float hl;
   nrd::bilinear_custom(Image<float, 1>{a.prev_hl, a.w, a.h}, bx, by, cw, &hl);
-  a.planes[i] = fminf(hl + 1.0f, 255.0f);
+  a.planes[i] = nrd::min_bound(hl + 1.0f, 255.0f);
   a.planes[plane + i] = any_valid ? quality : 0.0f;
   a.planes[2 * plane + i] = any_valid ? (bicubic ? 2.0f : 1.0f) : 0.0f;
   if constexpr (kSpec) {
@@ -211,7 +215,7 @@ __global__ void __launch_bounds__(256, kNHist <= 2 ? kMinCtas : 2)
 #pragma unroll
   for (int s = 0; s < kNHist; ++s) img[s] = reinterpret_cast<const float4*>(a.hist[s]);
   float4 out[kNHist];
-  nrd::catrom_apply4<kNHist>(img, a.w, a.h, taps, out);
+  nrd::catrom_apply4<kNHist, true>(img, a.w, a.h, taps, out);
   float4* hist_out = reinterpret_cast<float4*>(a.hist_out);
 #pragma unroll
   for (int s = 0; s < kNHist; ++s) hist_out[s * plane + i] = out[s];

@@ -16,10 +16,11 @@
 // (kDec: the current plane is the RGBA formats' decoded one, and the taps test no material,
 // as the TPU kernel's mat_occ=False), at most kMinCtas' register budget. Bound by its
 // gathers: both histories go through one CatRom footprint in one loop over its 5 bilinear
-// samples (common.cuh:catrom_apply4: each texel read as one float4 and
-// only where its weight is non-zero, the 12 texels of the footprint each once where the
-// samples land on their texels), in place of 5 bilinear samples of 16 scalar reads per
-// history; the previous packed normal is read as four float4; every (h, w, 4) output is
+// samples (common.cuh:catrom_apply4: each texel read as one float4, a weight of 0 included,
+// `kKeepNaN`, so that a NaN history texel the plain version multiplies by 0 leaves NaN where
+// the plain version's does), in place of 5 bilinear samples of 16 scalar reads per history;
+// the material maxima return NaN where the material is NaN (common.cuh:max_bound), as
+// clamp_min does; the previous packed normal is read as four float4; every (h, w, 4) output is
 // written as one float4; an SH history's 2x2 is four 8-byte loads (uint2) widened to float.
 #include "relax_common.cuh"
 
@@ -79,7 +80,7 @@ __global__ void __launch_bounds__(256, kMinCtas) relax_vmb_resolve_kernel(RelaxV
   const V3 xm{__ldg(a.xm + 3 * i), __ldg(a.xm + 3 * i + 1), __ldg(a.xm + 3 * i + 2)};
   const float tb = __ldg(a.thr_base + i);
   float mat_c = 0.0f;  // kDec: no material test
-  if constexpr (!kDec) mat_c = fmaxf(__ldg(a.nr + 4 * i + 3) * 3.0f, a.min_material);
+  if constexpr (!kDec) mat_c = nrd::max_bound(__ldg(a.nr + 4 * i + 3) * 3.0f, a.min_material);
   float valid[4];
   bool any = false, all = true;
 #pragma unroll
@@ -91,7 +92,7 @@ __global__ void __launch_bounds__(256, kMinCtas) relax_vmb_resolve_kernel(RelaxV
     const float thr = tb * in4[k] - 1e-6f;
     float ok = relax::plane_dist(xm, xp, n) <= thr ? 1.0f : 0.0f;
     if constexpr (!kDec)
-      ok = ok * (mat_c == fmaxf(prev_mat.ldg(tx, ty), a.min_material) ? 1.0f : 0.0f);
+      ok = ok * (mat_c == nrd::max_bound(prev_mat.ldg(tx, ty), a.min_material) ? 1.0f : 0.0f);
     valid[k] = ok;
     any = any || ok > 0.0f;
     all = all && ok > 0.0f;
@@ -108,7 +109,7 @@ __global__ void __launch_bounds__(256, kMinCtas) relax_vmb_resolve_kernel(RelaxV
   const float4* img[2] = {reinterpret_cast<const float4*>(a.hist),
                           reinterpret_cast<const float4*>(a.resp)};
   float4 out[2];
-  nrd::catrom_apply4<2>(img, w, h, taps, out);
+  nrd::catrom_apply4<2, true>(img, w, h, taps, out);
   float4* sig = reinterpret_cast<float4*>(a.sig);
   sig[i] = out[0];
   sig[plane + i] = out[1];

@@ -586,3 +586,88 @@ def test_clamp_moments_keeps_nan(cuda):
         fin = torch.isfinite(w)
         over = ((g[fin] - w[fin]).abs() > ATOL + RTOL * w[fin].abs()).float().mean().item()
         assert over <= FLIP_FRACTION
+
+
+NAN_KERNELS = ("relax_smb_resolve", "relax_vmb_resolve", "relax_atrous")
+
+
+@pytest.fixture(scope="module")
+def snorm_fault_calls(cuda):
+    """Every card call of K16, K17 and K22 over 4 frames of RELAX_SPECULAR at RGBA8_SNORM with
+    the scene's zero sky normal: the reference's fault leaves NaN in the specular TA's output
+    (ROADMAP.md Queue 3), which reaches the histories K16 and K17 sample and the signal K22
+    filters."""
+    rec = {n: [] for n in NAN_KERNELS}
+    eng = _rgba_engine(Denoiser.RELAX_SPECULAR, NE.RGBA8_SNORM, cuda, {})
+    gen = SceneGenerator(SceneSpec(size=SIZE, noise=0.4), camera_mode="orbit")
+
+    def recorder(n, wrapper):
+        def r(*a, **k):
+            rec[n].append((a, k))
+            return wrapper(*a, **k)
+        return r
+    with pytest.MonkeyPatch.context() as mp:
+        for n in NAN_KERNELS:
+            mp.setattr(KM.MODULES[n], n, recorder(n, getattr(KM.MODULES[n], n)))
+        for i, (cs, pool) in enumerate(_pools(Denoiser.RELAX_SPECULAR, 4)):
+            pool[RT.IN_NORMAL_ROUGHNESS] = gen.packed_normal_roughness(gen.frame(i),
+                                                                       NE.RGBA8_SNORM)
+            eng.set_common_settings(cs)
+            eng.denoise([0], pool)
+    return rec
+
+
+@pytest.mark.parametrize("name", NAN_KERNELS)
+def test_relax_kernels_keep_nan(snorm_fault_calls, name):
+    """K16, K17 and K22 on the SNORM sky fault's frames (ROADMAP.md Queue 3, closed): on every
+    call each output's non-finite values lie exactly where the plain version's do, and the
+    finite values agree within the tolerance."""
+    mod = KM.MODULES[name]
+    nonfinite = 0
+    for a, k in snorm_fault_calls[name]:
+        got, want = _flat(getattr(mod, name)(*a, **k)), _flat(getattr(mod, name + "_ref")(*a, **k))
+        for key, w in want.items():
+            if not isinstance(w, torch.Tensor):
+                continue
+            g, w = got[key].float(), w.float()
+            nonfinite += int((~torch.isfinite(w)).sum())
+            assert torch.equal(~torch.isfinite(g), ~torch.isfinite(w)), (name, key)
+            fin = torch.isfinite(w)
+            over = ((g[fin] - w[fin]).abs() > ATOL + RTOL * w[fin].abs()).sum().item()
+            assert over <= FLIP_FRACTION * max(int(fin.sum()), 1), (name, key)
+    assert nonfinite, name
+
+
+RECT_SEQUENCE = [(128, 96), (128, 96), (101, 77), (117, 83), (128, 96)]
+
+
+@pytest.mark.parametrize("denoiser", [Denoiser.REBLUR_DIFFUSE_SPECULAR,
+                                      Denoiser.RELAX_DIFFUSE_SPECULAR,
+                                      Denoiser.SIGMA_SHADOW_TRANSLUCENCY], ids=lambda d: d.name)
+def test_engine_card_matches_cpu_rect_change(cuda, denoiser):
+    """Dynamic resolution on the card: the resource 128x96 and rects 128x96, 101x77, 117x83,
+    128x96 (`cs.rectSize`, `cs.rectSizePrev` the rect before), the scene's frames at the
+    resource with NaN outside the rect. Every output >= 50 dB against the Engine on the CPU
+    inside the rect and 0 outside; the state has the rect's shape."""
+    card, cpu = _engine(denoiser, cuda), _engine(denoiser, "cpu")
+    for i, (cs, pool) in enumerate(_pools(denoiser, len(RECT_SEQUENCE))):
+        rw, rh = RECT_SEQUENCE[i]
+        cs.rectSize, cs.rectSizePrev = (rw, rh), RECT_SEQUENCE[max(i - 1, 0)]
+        pool = {key: v.copy() for key, v in pool.items()}
+        for v in pool.values():
+            v[rh:] = np.nan
+            v[:, rw:] = np.nan
+        outs = []
+        for eng in (card, cpu):
+            eng.set_common_settings(cs)
+            outs.append(eng.denoise([0], pool))
+        for rt in _outs(denoiser):
+            a, b = outs[0][rt].cpu().double(), outs[1][rt].cpu().double()
+            assert tuple(a.shape[:2]) == (SIZE[1], SIZE[0])
+            assert bool(torch.isfinite(a[:rh, :rw]).all())
+            assert not a[rh:].any() and not a[:, rw:].any()
+            mse = float(((a - b) ** 2).mean())
+            peak = float(b.abs().max())
+            assert mse == 0.0 or 10.0 * np.log10(peak * peak / mse) >= 50.0, (i, rt)
+        assert all(tuple(t.shape[:2]) == (rh, rw) for t in card.get_state(0).values()
+                   if t.ndim >= 2)

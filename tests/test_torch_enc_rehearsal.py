@@ -37,10 +37,7 @@ Tolerance: that of `chip_smoke.py` on the card, |kernel - plain| <= 1e-4 + 1e-4 
 but 1e-4 of the values.
 """
 
-import ctypes
 import enum
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -48,13 +45,12 @@ import torch
 
 from nrdtpu_torch import kernels as KM
 from nrdtpu_torch.engine import Engine
-from nrdtpu_torch.kernels import build
 from nrdtpu_torch.settings import CheckerboardMode as CB
 from nrdtpu_torch.settings import Denoiser, HitDistanceReconstructionMode as HM
 from nrdtpu_torch.settings import NormalEncoding as NE, ResourceType as RT
 from nrdtpu_torch.settings import RoughnessEncoding as RE, replace
 
-from test_torch_kernel_rehearsal import SHIM, _hold, kernels_on_cpu, rewrite
+from test_torch_kernel_rehearsal import _hold, kernels_on_cpu, shared_library
 from test_torch_reblur_enc_slice import frames_of as reblur_frames_of
 from test_torch_relax_enc_slice import frames_of
 
@@ -65,12 +61,6 @@ SIZE = (48, 32)
 FRAMES = 3
 FLIP_FRACTION = 1e-4
 HOLE_FRACTION = 0.3
-# smb_resolve.cu defines the library's nrd_error_string
-SOURCES = ("smb_resolve.cu", "hitdist_recon.cu", "sigma_blur.cu", "relax_prepass.cu",
-           "relax_smb_resolve.cu", "relax_vmb_resolve.cu", "relax_history_fix.cu",
-           "relax_antifirefly.cu", "relax_atrous.cu", "spec_ta_head.cu", "vmb_resolve.cu",
-           "spatial_filter.cu", "history_fix.cu", "ts_prelude.cu", "spatial_filter_fused.cu",
-           "history_fix_fused.cu", "reblur_band.cu", "relax_clamp_moments.cu")
 RELAX_DEC = ("relax_prepass", "relax_smb_resolve", "relax_vmb_resolve", "relax_history_fix",
              "relax_antifirefly", "relax_atrous", "hitdist_recon", "sigma_blur")
 KERNELS = RELAX_DEC
@@ -104,33 +94,7 @@ CALLED = {name: ({"sigma_blur"} if v.startswith("SIGMA") else
 
 @pytest.fixture(scope="module")
 def library(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("no g++: the rehearsal compiles the CUDA sources as C++")
-    d = tmp_path_factory.mktemp("enc_rehearsal")
-    for stub in ("cuda_runtime.h", "cuda_bf16.h"):
-        (d / stub).write_text("#pragma once\n")
-    units = []
-    for name in SOURCES:
-        src = rewrite((build.CSRC / name).read_text())
-        assert "<<<" not in src and "extern __shared__" not in src, name
-        units.append(d / name.replace(".cu", ".cpp"))
-        units[-1].write_text(src)
-    flags = ["-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-pthread", "-include",
-             str(SHIM), f"-I{d}", f"-I{build.CSRC}"]
-    jobs = [subprocess.Popen([gxx, *flags, "-c", str(u), "-o", str(u.with_suffix(".o"))],
-                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for u in units]
-    for u, p in zip(units, jobs):
-        out = p.communicate()[0]
-        assert p.returncode == 0, f"g++ {u.name}:\n{out[-4000:]}"
-    so = d / "libencrehearsal.so"
-    subprocess.run([gxx, "-shared", "-pthread", "-o", str(so),
-                    *[str(u.with_suffix(".o")) for u in units]], check=True)
-    lib = ctypes.CDLL(str(so))
-    lib.nrd_error_string.argtypes = [ctypes.c_int]
-    lib.nrd_error_string.restype = ctypes.c_char_p
-    return lib
+    return shared_library(tmp_path_factory)
 
 
 def _punched(pool, frame):
@@ -396,3 +360,75 @@ def test_clamp_moments_keeps_nan(library):
         fin = ~nan_w
         d = (g[fin] - w[fin]).abs()
         assert (d > 1e-4 + 1e-4 * w[fin].abs()).float().mean() <= FLIP_FRACTION
+
+
+# K16, K17 and K22 on the SNORM sky fault's frames: the kernels and the calls that the NaN cases
+# hold, recorded once
+NAN_KERNELS = ("relax_smb_resolve", "relax_vmb_resolve", "relax_atrous")
+
+
+@pytest.fixture(scope="module")
+def snorm_fault_calls():
+    """Every call of K16, K17 and K22 over 3 frames of RELAX_SPECULAR at RGBA8_SNORM with the
+    scene's zero sky normal (`frames_of(..., sky=False)`): the reference's fault (ROADMAP.md
+    Queue 3) leaves NaN on every geometry pixel of the specular TA's output, which reaches the
+    histories K16 and K17 sample and the signal K22 filters."""
+    rec = {n: [] for n in NAN_KERNELS}
+    eng = Engine({0: Denoiser.RELAX_SPECULAR}, resource_size=SIZE,
+                 normal_encoding=NE.RGBA8_SNORM, device="cpu")
+
+    def recorder(n, wrapper):
+        def r(*a, **k):
+            rec[n].append((a, k))
+            return wrapper(*a, **k)
+        return r
+    with pytest.MonkeyPatch.context() as mp:
+        for n in NAN_KERNELS:
+            mp.setattr(KM.MODULES[n], n, recorder(n, getattr(KM.MODULES[n], n)))
+        for cs, pool in frames_of("RELAX_SPECULAR", "RGBA8_SNORM", frames=FRAMES, sky=False,
+                                  size=SIZE):
+            eng.set_common_settings(cs)
+            eng.denoise([0], pool)
+    return rec
+
+
+@pytest.mark.parametrize("kernel", NAN_KERNELS)
+def test_relax_kernels_keep_nan(library, snorm_fault_calls, kernel):
+    """K16, K17 and K22 keep NaN where their plain versions do (ROADMAP.md Queue 3, closed) on
+    every call of the SNORM sky fault's frames: each output's non-finite values lie exactly where
+    the plain version's do, and the finite values agree within the tolerance. The kernels before
+    the repair failed each case on frames 1-2 (K16's and K17's histories: their CatRom skipped
+    the texels of weight 0, which the plain version multiplies by 0, a NaN there included; K22's
+    staged iteration 0: its variance's fmaxf turned the NaN moments into 0), e.g. K22's first
+    call with 2583 non-finite values against the plain version's 3444."""
+    mod = KM.MODULES[kernel]
+    calls = snorm_fault_calls[kernel]
+    assert calls
+    split = {}
+    nonfinite = 0
+    for ci, (a, k) in enumerate(calls):
+        with kernels_on_cpu(library):
+            got = mod_out(getattr(mod, kernel)(*a, **k))
+        want = mod_out(getattr(mod, kernel + "_ref")(*a, **k))
+        for key, w in want.items():
+            g = got[key].float()
+            w = w.float()
+            bad_g, bad_w = ~torch.isfinite(g), ~torch.isfinite(w)
+            nonfinite += int(bad_w.sum())
+            if not torch.equal(bad_g, bad_w):
+                split[(ci, key)] = (int(bad_g.sum()), int(bad_w.sum()))
+            fin = ~bad_w
+            d = (g[fin] - w[fin]).abs()
+            assert int((d > 1e-4 + 1e-4 * w[fin].abs()).sum()) <= FLIP_FRACTION * d.numel(), (
+                ci, key)
+    assert nonfinite, kernel  # the frames carry the fault's NaN
+    assert not split, f"{kernel}: (call, output): (kernel's, plain's non-finite values) {split}"
+
+
+def mod_out(r):
+    """A wrapper's outputs as {name: tensor}, the tuples of a two-signal call flattened."""
+    if isinstance(r, dict):
+        return {k: v for k, v in r.items() if isinstance(v, torch.Tensor)}
+    if isinstance(r, tuple):
+        return {i: v for i, v in enumerate(r) if isinstance(v, torch.Tensor)}
+    return {"out": r}

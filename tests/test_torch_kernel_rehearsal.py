@@ -56,6 +56,9 @@ what remains is last-bit differences of the C library's exp/sqrt against PyTorch
 
 import contextlib
 import ctypes
+import fcntl
+import hashlib
+import os
 import re
 import shutil
 import subprocess
@@ -79,11 +82,13 @@ from nrdtpu_torch.utils.scene import SceneGenerator, SceneSpec
 torch.set_num_threads(1)
 
 SHIM = Path(__file__).with_name("cuda_shim.h")
+# every source that a rehearsal holds; smb_resolve.cu defines the library's nrd_error_string
 SOURCES = ("relax_atrous.cu", "reblur_band.cu", "spatial_filter_fused.cu",
            "history_fix_fused.cu", "sigma_blur.cu", "relax_history_fix.cu",
            "relax_smb_resolve.cu", "relax_vmb_resolve.cu", "relax_prepass.cu",
            "hitdist_recon.cu", "smb_resolve.cu", "sigma_ts.cu", "history_fix.cu",
-           "relax_clamp_moments.cu", "ts_prelude.cu", "spatial_filter.cu")
+           "relax_clamp_moments.cu", "ts_prelude.cu", "spatial_filter.cu", "spec_ta_head.cu",
+           "nearest_multi.cu", "vmb_resolve.cu", "bilinear_resolve.cu", "relax_antifirefly.cu")
 SIZE = (48, 32)
 FRAMES = 4
 ATOL, RTOL, FLIP_FRACTION = 1e-4, 1e-4, 1e-4
@@ -268,15 +273,15 @@ def rewrite(src):
                                         f"(shim::dynamic_smem);", src)
 
 
-@pytest.fixture(scope="module")
-def library(tmp_path_factory):
+def compile_library(d):
+    """The rehearsal library of SOURCES (`csrc/*.cu`), compiled by g++ in the directory `d`,
+    one process a source, all started together; skips without g++. Returns its path."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++: the rehearsal compiles the CUDA sources as C++")
-    d = tmp_path_factory.mktemp("rehearsal")
     for stub in ("cuda_runtime.h", "cuda_bf16.h"):
         (d / stub).write_text("#pragma once\n")
-    units = []  # smb_resolve.cu defines the library's nrd_error_string
+    units = []
     for name in SOURCES:
         src = rewrite((build.CSRC / name).read_text())
         assert "<<<" not in src and "extern __shared__" not in src, name
@@ -290,13 +295,39 @@ def library(tmp_path_factory):
     for u, p in zip(units, jobs):
         out = p.communicate()[0]
         assert p.returncode == 0, f"g++ {u.name}:\n{out[-4000:]}"
-    so = d / "librehearsal.so"
-    subprocess.run([gxx, "-shared", "-pthread", "-o", str(so),
+    so, part = d / "librehearsal.so", d / "librehearsal.so.part"
+    subprocess.run([gxx, "-shared", "-pthread", "-o", str(part),
                     *[str(u.with_suffix(".o")) for u in units]], check=True)
+    part.rename(so)
+    return so
+
+
+def shared_library(tmp_path_factory):
+    """The rehearsal library, built once a test run: the first test process that asks builds
+    it under a lock in the run's temporary root (the one that the pytest-xdist workers share),
+    in a directory named by a hash of the sources and the shim; the others load it."""
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent
+    digest = hashlib.sha256()
+    for f in sorted(build.CSRC.iterdir()) + [SHIM]:
+        digest.update(f.name.encode() + f.read_bytes())
+    d = root / f"rehearsal-{digest.hexdigest()[:16]}"
+    with open(root / "rehearsal.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        so = d / "librehearsal.so"
+        if not so.exists():
+            d.mkdir(exist_ok=True)
+            compile_library(d)
     lib = ctypes.CDLL(str(so))
     lib.nrd_error_string.argtypes = [ctypes.c_int]
     lib.nrd_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@pytest.fixture(scope="module")
+def library(tmp_path_factory):
+    return shared_library(tmp_path_factory)
 
 
 class _Stream:

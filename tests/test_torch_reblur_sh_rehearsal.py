@@ -18,26 +18,20 @@ Tolerance: that of `chip_smoke.py` on the card, |kernel - plain| <= 1e-4 + 1e-4 
 but 1e-4 of the values.
 """
 
-import ctypes
-import shutil
-import subprocess
 
 import pytest
 import torch
 
 from nrdtpu_torch import kernels as KM
 from nrdtpu_torch.engine import Engine
-from nrdtpu_torch.kernels import build
 from nrdtpu_torch.settings import Denoiser, replace
 
-from test_torch_kernel_rehearsal import SHIM, _hold, rewrite
+from test_torch_kernel_rehearsal import _hold, shared_library
 from test_torch_reblur_sh_slice import SIZE, frames_of
 
 # the tensors here are small: one intra-op thread, so that test workers do not contend
 torch.set_num_threads(1)
 
-SOURCES = ("smb_resolve.cu", "vmb_resolve.cu", "spatial_filter.cu", "history_fix.cu",
-           "spatial_filter_fused.cu", "history_fix_fused.cu", "reblur_band.cu")
 FRAMES = 2
 FLIP_FRACTION = 1e-4
 D, S, DS = "REBLUR_DIFFUSE_SH", "REBLUR_SPECULAR_SH", "REBLUR_DIFFUSE_SPECULAR_SH"
@@ -55,33 +49,7 @@ RUNS = {"D": (D, {}, False, ("smb_resolve", "spatial_filter", "history_fix")),
 
 @pytest.fixture(scope="module")
 def library(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("no g++: the rehearsal compiles the CUDA sources as C++")
-    d = tmp_path_factory.mktemp("sh_rehearsal")
-    for stub in ("cuda_runtime.h", "cuda_bf16.h"):
-        (d / stub).write_text("#pragma once\n")
-    units = []  # smb_resolve.cu defines the library's nrd_error_string
-    for name in SOURCES:
-        src = rewrite((build.CSRC / name).read_text())
-        assert "<<<" not in src and "extern __shared__" not in src, name
-        units.append(d / name.replace(".cu", ".cpp"))
-        units[-1].write_text(src)
-    flags = ["-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-pthread", "-include",
-             str(SHIM), f"-I{d}", f"-I{build.CSRC}"]
-    jobs = [subprocess.Popen([gxx, *flags, "-c", str(u), "-o", str(u.with_suffix(".o"))],
-                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for u in units]
-    for u, p in zip(units, jobs):
-        out = p.communicate()[0]
-        assert p.returncode == 0, f"g++ {u.name}:\n{out[-4000:]}"
-    so = d / "libshrehearsal.so"
-    subprocess.run([gxx, "-shared", "-pthread", "-o", str(so),
-                    *[str(u.with_suffix(".o")) for u in units]], check=True)
-    lib = ctypes.CDLL(str(so))
-    lib.nrd_error_string.argtypes = [ctypes.c_int]
-    lib.nrd_error_string.restype = ctypes.c_char_p
-    return lib
+    return shared_library(tmp_path_factory)
 
 
 def _record(variant, settings, band, names):
