@@ -135,6 +135,19 @@ Phases, each of which raises on failure (exit code != 0):
      the rects 2560x1440, 1920x1080, 1707x960, 2560x1440 (two frames each, the state migrated
      at each change) with every card call held on its own against its plain version
      (`held_calls`, `check_held`);
+  3c. the debug and host surface: `memory_phase` (DS, RDS and ST at the full size:
+     `get_memory_usage` of a fresh engine after two frames, persistent the state's bytes
+     exactly, aliasable > 0, printed beside the slice's peak and NRD's working set);
+     `overlay_cost_phase` (DS at the full size with OUT_VALIDATION off and on in turns, twice
+     each: ms/frame and device busy a frame); `observability_phase` (DS, RDS, SIGMA_SHADOW and DS+BAND at 256x160
+     for 3 frames with the overlay, printfAt at a geometry pixel and, on REBLUR, a SHOW tag, on
+     the card and on the CPU: OUT_VALIDATION card vs CPU within 1e-4 abs + 1e-4 rel, its
+     world-units layer by the wrap-aware distance min(|d|, 1 - |d|); the other outputs equal to
+     the card's run without the debug modes, max abs 0; the printfAt dict the CPU's keys, its
+     values within 1e-4 abs + 1e-4 rel; the SHOW planes >= 50 dB against the CPU's, with the
+     count outside the kernel tolerance printed; DS+BAND under printfAt with no reblur_band
+     launch and DS's outputs); `c_abi_phase` (the shim built with g++ and loaded with ctypes,
+     DS with the overlay through it on the card equal to the Engine on the card, max abs 0);
   4. lit scene: both SIGMA variants on a scene without occluders at 256x160 keep every lit
      pixel above 0.99; RELAX pair: RELAX_DIFFUSE_SPECULAR's two outputs on the card hold to
      RELAX_DIFFUSE's and RELAX_SPECULAR's on the card on every frame of the slices (the JAX
@@ -1842,6 +1855,248 @@ def check_shadow(path, out, truth):
                              f"max {umbra_max} (< 0.15 expected)")
 
 
+# ---------------------------------------------------------------------------------------------
+# the debug and host surface: the overlay, printfAt / SHOW, the memory query, the C ABI
+# ---------------------------------------------------------------------------------------------
+
+OBS_PATHS = ("REBLUR_DIFFUSE_SPECULAR", "RELAX_DIFFUSE_SPECULAR", "SIGMA_SHADOW",
+             "REBLUR_DIFFUSE_SPECULAR+BAND")
+# the SHOW tag of each REBLUR path's debug runs
+OBS_SHOW = {"REBLUR_DIFFUSE_SPECULAR": "reblur/ta/virtual_history_confidence",
+            "REBLUR_DIFFUSE_SPECULAR+BAND": "reblur/hfix/spec_fast_history"}
+MEMORY_PATHS = ("REBLUR_DIFFUSE_SPECULAR", "RELAX_DIFFUSE_SPECULAR", "SIGMA_SHADOW_TRANSLUCENCY")
+
+
+def debug_run(path, w, h, frames, device, probe_at=None, validation=False, show=None):
+    """A path's frames on a fresh engine with the debug modes; every tensor to the host. Returns
+    the outputs a frame and the launch counts of the run."""
+    from nrdtpu_torch import kernels as KM
+    from nrdtpu_torch.engine import Engine
+
+    eng = path_engine(path, w, h, device)
+    eng.set_debug_show(show)
+    out = []
+    KM.reset_launch_counts()
+    for cs, pools, _ in frames:
+        cs = copy.copy(cs)
+        cs.enableValidation = validation
+        cs.printfAt = probe_at or (9999, 9999)
+        eng.set_common_settings(cs)
+        with path_env(path):
+            o = eng.denoise([0], pools[path])
+        out.append({k: ({t: x.cpu() for t, x in v.items()} if k == Engine.PROBE_KEY
+                        else None if v is None else v.cpu()) for k, v in o.items()})
+    return out, KM.launch_counts()
+
+
+def observability_phase(w, h, frames):
+    """The overlay, printfAt and SHOW on DS, RDS, SS and DS+BAND at 256x160 (`frames`): each
+    path with validation and printfAt at a geometry pixel (REBLUR's with a SHOW tag) on the card
+    and on the CPU, and on the card without them. OUT_VALIDATION card against CPU (frame 0 all
+    zeros, then 1e-4 abs + 1e-4 rel, the world-units layer by min(|d|, 1 - |d|)); every other
+    output equal to the card's run without the debug modes (max abs 0; DS+BAND's, which runs
+    the chain under printfAt, to DS's); the probe's keys the CPU's and its values within 1e-4
+    abs + 1e-4 rel; the SHOW planes at the kernel tolerance; DS+BAND launches no reblur_band."""
+    from nrdtpu_torch.engine import Engine
+    from nrdtpu_torch.settings import ResourceType as RT
+
+    mask = frames[-1][2]["mask"]
+    ys, xs = np.nonzero(mask)
+    k = int(np.argmin((ys - h * 0.6) ** 2 + (xs - w * 0.6) ** 2))
+    probe_at = (int(xs[k]), int(ys[k]))
+    from nrdtpu_torch.passes.validation import viewport4_masks
+
+    units = np.repeat(viewport4_masks(h, w)[1][..., None], 4, -1)
+    units[..., 3] = False  # the alpha is exact
+    card = {}
+    for path in OBS_PATHS:
+        dbg = dict(probe_at=probe_at, validation=True, show=OBS_SHOW.get(path))
+        card[path], counts = debug_run(path, w, h, frames, "cuda", **dbg)
+        cpu, _ = debug_run(path, w, h, frames, "cpu", **dbg)
+        if path.endswith("+BAND"):
+            plain = card["REBLUR_DIFFUSE_SPECULAR"]  # the chain's, under the same debug modes
+            if counts["reblur_band"] != 0 or counts["history_fix_fused"] != len(frames):
+                raise AssertionError(f"observability {path}: the band ran under printfAt: "
+                                     f"{counts}")
+        else:
+            plain, _ = debug_run(path, w, h, frames, "cuda")
+        worst = dict(overlay=0.0, probe=0.0, show=0.0)
+        for i, (a, b, c) in enumerate(zip(card[path], cpu, plain)):
+            for label, _, rt in outputs_of(path):
+                if not torch.equal(a[rt], c[rt]):
+                    raise AssertionError(f"observability {path} frame {i} {label}: the debug "
+                                         "modes changed the output")
+            if path.startswith("SIGMA"):
+                if RT.OUT_VALIDATION in a or RT.OUT_VALIDATION in b:
+                    raise AssertionError(f"observability {path}: SIGMA renders no overlay")
+            else:
+                got, want = a[RT.OUT_VALIDATION].numpy(), b[RT.OUT_VALIDATION].numpy()
+                if i == 0 and (got.any() or want.any()):
+                    raise AssertionError(f"observability {path}: frame 0's overlay not cleared")
+                d = np.abs(got - want)
+                d[units] = np.minimum(d[units], 1.0 - d[units])
+                over = int((d > ATOL + RTOL * np.abs(want)).sum())
+                worst["overlay"] = max(worst["overlay"], float(d.max()))
+                if over or (i > 0 and want[..., 3].max() != 1.0):
+                    raise AssertionError(f"observability {path} frame {i}: OUT_VALIDATION card "
+                                         f"vs CPU: {over} values out, max {float(d.max())}")
+            pa, pb = a[Engine.PROBE_KEY], b[Engine.PROBE_KEY]
+            if set(pa) != set(pb) or (path.startswith("REBLUR") and len(pb) != 14):
+                raise AssertionError(f"observability {path} frame {i}: probe keys "
+                                     f"{sorted(pa)} vs the CPU's {sorted(pb)}")
+            for t in pb:
+                d = float((pa[t].float() - pb[t].float()).abs().max())
+                worst["probe"] = max(worst["probe"], d)
+                if not bool(((pa[t].float() - pb[t].float()).abs()
+                             <= ATOL + RTOL * pb[t].float().abs()).all()):
+                    raise AssertionError(f"observability {path} frame {i} probe {t}: "
+                                         f"{pa[t]} vs the CPU's {pb[t]}")
+            if path in OBS_SHOW:
+                sa, sb = a[Engine.SHOW_KEY].float(), b[Engine.SHOW_KEY].float()
+                dd = (sa - sb).abs()
+                over = int((dd > ATOL + RTOL * sb.abs()).sum())
+                p = psnr(sa.numpy(), sb.numpy())
+                worst["show"] = max(worst["show"], float(dd.max()))
+                worst["show_db"] = min(worst.get("show_db", float("inf")), p)
+                worst["show_over"] = max(worst.get("show_over", 0), over)
+                log(f"observability {path} frame {i} SHOW {OBS_SHOW[path]}: card vs CPU "
+                    f"{p:.2f} dB, max abs {float(dd.max()):.3g}, {over} of {sb.numel()} values "
+                    f"outside atol={ATOL}, rtol={RTOL}")
+                if tuple(sa.shape) != (h, w) or p < 50.0:
+                    raise AssertionError(f"observability {path} frame {i} SHOW "
+                                         f"{OBS_SHOW[path]}: card vs CPU {p:.2f} dB < 50 dB")
+            elif a.get(Engine.SHOW_KEY) is not None:
+                raise AssertionError(f"observability {path}: a SHOW plane without a tag")
+        log(f"observability {path}: {len(frames)} frames at {w}x{h}, printfAt {probe_at} "
+            f"({len(card[path][0][Engine.PROBE_KEY])} tags), SHOW {OBS_SHOW.get(path)}: card vs "
+            f"CPU max abs overlay {worst['overlay']:.3g} (world units wrap-aware), probe "
+            f"{worst['probe']:.3g}, SHOW {worst['show']:.3g}; other outputs equal to the run "
+            f"without the debug modes")
+    for a, b in zip(card["REBLUR_DIFFUSE_SPECULAR+BAND"], card["REBLUR_DIFFUSE_SPECULAR"]):
+        for k in b:
+            if k != Engine.PROBE_KEY and k != Engine.SHOW_KEY and not torch.equal(a[k], b[k]):
+                raise AssertionError(f"observability DS+BAND under printfAt: {k} differs from "
+                                     "the chain's")
+    log("observability REBLUR_DIFFUSE_SPECULAR+BAND: under printfAt 0 reblur_band launches, "
+        "outputs equal to the chain's (max abs 0)")
+
+
+def memory_phase(w, h, frames, peaks):
+    """`get_memory_usage` at the full size on MEMORY_PATHS: a fresh engine's first two frames;
+    persistent must be the state's bytes exactly, aliasable (the first frame's transient peak)
+    > 0; printed beside the slice's peak and NRD's working set."""
+    for path in MEMORY_PATHS:
+        eng = path_engine(path, w, h, "cuda")
+        for cs, pools, _ in frames[:2]:
+            eng.set_common_settings(cs)
+            with path_env(path):
+                eng.denoise([0], {k: torch.from_numpy(v).cuda() for k, v in pools[path].items()})
+        mem = eng.get_memory_usage(0)
+        state = sum(t.numel() * t.element_size() for t in eng.get_state(0).values())
+        if mem["persistent_mb"] != state / 2 ** 20 or not mem["aliasable_mb"] > 0.0:
+            raise AssertionError(f"memory {path}: {mem} for a state of {state} B")
+        log(f"memory {path} at {w}x{h}: persistent {mem['persistent_mb']:.3f} MiB (the state, "
+            f"{state} B), aliasable {mem['aliasable_mb']:.3f} MiB, total {mem['total_mb']:.3f} "
+            f"MiB; the slice's peak allocated {peaks[path] / 2 ** 20:.3f} MiB "
+            f"({peaks[path] / 1e6:.2f} MB); NRD REBLUR_DIFFUSE working set {NRD_WORKING_SET_MB} "
+            "MB")
+
+
+def overlay_cost_phase(w, h, frames, warmup, n=3):
+    """REBLUR_DIFFUSE_SPECULAR at the full size with OUT_VALIDATION off and on, in turns (off,
+    on, off, on): the median ms/frame (CUDA events) of the timed frames and the device's busy
+    ms a frame over n traced frames (torch.profiler, device events only) of each run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    path = "REBLUR_DIFFUSE_SPECULAR"
+    pools = [(cs, {k: torch.from_numpy(v).cuda() for k, v in p[path].items()})
+             for cs, p, _ in frames]
+    res = {False: [], True: []}
+    for validation in (False, True, False, True):
+        eng = path_engine(path, w, h, "cuda")
+
+        def frame(cs, pool):
+            cs = copy.copy(cs)
+            cs.enableValidation = validation
+            eng.set_common_settings(cs)
+            eng.denoise([0], pool)
+
+        ms = []
+        for i, (cs, pool) in enumerate(pools):
+            torch.cuda.synchronize()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            frame(cs, pool)
+            e1.record()
+            torch.cuda.synchronize()
+            if i >= warmup:
+                ms.append(e0.elapsed_time(e1))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for cs, pool in pools[warmup:warmup + n]:
+                frame(cs, pool)
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        busy = sum(e.time_range.elapsed_us() for e in events) / 1e3 / n
+        res[validation].append((float(np.median(ms)), busy, len(events) / n))
+        log(f"overlay cost {path} at {w}x{h}, validation {'on' if validation else 'off'}: "
+            f"{res[validation][-1][0]:.3f} ms/frame, device busy {busy:.3f} ms, "
+            f"{len(events) / n:.0f} device events a frame")
+    off, on = (np.mean(res[v], axis=0) for v in (False, True))
+    log(f"overlay cost {path} at {w}x{h}: the overlay adds {on[0] - off[0]:.3f} ms/frame, "
+        f"{on[1] - off[1]:.3f} ms of device time and {on[2] - off[2]:.0f} device events a frame "
+        "(the mean of two runs each, in turns)")
+
+
+def c_abi_phase(w, h, frames):
+    """The C ABI: the shim built with g++, loaded with ctypes, REBLUR_DIFFUSE_SPECULAR with the
+    overlay on "cuda" through it against the port's Engine on the card on the same inputs: max
+    abs 0 on every output, OUT_VALIDATION included."""
+    import ctypes
+
+    from nrdtpu_torch.engine import Engine
+    from nrdtpu_torch.native import bindings as B
+    from nrdtpu_torch.settings import Denoiser, ResourceType as RT
+
+    t0 = time.perf_counter()
+    lib = B.load()
+    log(f"c abi: {lib.nrdtpu_get_version_string().decode()} built and loaded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    path = "REBLUR_DIFFUSE_SPECULAR"
+    descs = (B.DenoiserDescC * 1)(B.DenoiserDescC(0, int(Denoiser[path])))
+    inst = ctypes.c_void_p()
+    if lib.nrdtpu_create_instance(descs, 1, w, h, 2, 1, ctypes.byref(inst)) != 0:
+        raise AssertionError(f"c abi: {lib.nrdtpu_get_last_error().decode()}")
+    eng = Engine({0: Denoiser[path]}, resource_size=(w, h), device="cuda")
+    rts = [rt for _, _, rt in outputs_of(path)] + [RT.OUT_VALIDATION]
+    worst = 0.0
+    try:
+        for cs, pools, _ in frames:
+            cs = copy.copy(cs)
+            cs.enableValidation = True
+            c = B.common_settings_c(cs)
+            if lib.nrdtpu_set_common_settings(inst, ctypes.byref(c)) != 0:
+                raise AssertionError(f"c abi: {lib.nrdtpu_get_last_error().decode()}")
+            planes = {k: np.ascontiguousarray(v, np.float32) for k, v in pools[path].items()}
+            outs = {rt: np.full((h, w, 4), np.nan, np.float32) for rt in rts}
+            slots = [B.slot(k, v) for k, v in {**planes, **outs}.items()]
+            if lib.nrdtpu_denoise(inst, (ctypes.c_uint32 * 1)(0), 1,
+                                  (B.ResourceSlotC * len(slots))(*slots), len(slots)) != 0:
+                raise AssertionError(f"c abi: {lib.nrdtpu_get_last_error().decode()}")
+            eng.set_common_settings(B.common_settings_from_c(c))
+            want = eng.denoise([0], planes)
+            for rt in rts:
+                d = float(np.abs(outs[rt] - want[rt].cpu().numpy()).max())
+                worst = max(worst, d)
+                if not d == 0.0:
+                    raise AssertionError(f"c abi {path} {rt.name}: max abs {d} against the "
+                                         "Engine")
+    finally:
+        lib.nrdtpu_destroy_instance(inst)
+    log(f"c abi {path}: {len(frames)} frames at {w}x{h} on the card through the ABI, every "
+        f"output and OUT_VALIDATION equal to the Engine's (max abs {worst})")
+
+
 def lit_scene_check(w=256, h=160, frames=3):
     """tests/test_sigma.py's "fully lit stays lit" on the card: a scene without occluders,
     static camera; every lit geometry pixel of both SIGMA variants' output > 0.99."""
@@ -2429,7 +2684,15 @@ def main():
         log(f"phase profile: done at {time.perf_counter() - t_start:.1f} s")
     rect_phase(args.width, args.height, frames, warmup, counts, slice_ms, peaks, busy)
     log(f"phase dynamic resolution: done at {time.perf_counter() - t_start:.1f} s")
+    t0 = time.perf_counter()
+    memory_phase(args.width, args.height, frames, peaks)
+    overlay_cost_phase(args.width, args.height, frames[:warmup + 12], warmup)
     del frames
+    small = list(Scene(256, 160).frames(3, workers=1))
+    observability_phase(256, 160, small)
+    c_abi_phase(256, 160, small)
+    log(f"phase debug and host surface: done at {time.perf_counter() - t_start:.1f} s "
+        f"({time.perf_counter() - t0:.1f} s)")
     lit_scene_check()
     card_vs_cpu_phase()
     log(f"phase card vs cpu: done at {time.perf_counter() - t_start:.1f} s")

@@ -18,10 +18,21 @@ resource-sized with the image in the top-left `rect_size` (`Engine(rect_size=)`,
 `cs.rectSize` clipped to the resource). Each instance runs at its rect's shape; a new rect
 re-creates the instance and crops or zero-pads the state (`_migrate_state`), and the outputs
 come back resource-sized, zero outside the rect.
+
+Debug and host surface (`nrdtpu/engine.py:134-135`, `:202-236`, `:274-367`):
+`cs.enableValidation` renders OUT_VALIDATION (REBLUR and RELAX; `passes/validation.py`), its
+previous overlay carried in the state under "validation"; a `cs.printfAt` inside this frame's
+rect returns each tagged plane's value at that pixel under `outputs[Engine.PROBE_KEY]` (a dict
+of tag -> 0-d or (C,) tensor on the engine's device, `utils/probe.py`); `set_debug_show(tag)`
+returns the whole rect-sized plane of one tag under `outputs[Engine.SHOW_KEY]` (None where no
+pass emits it). Each of them re-specializes the instance, as a changed setting does.
+`get_memory_usage(identifier)` gives the state's bytes and, on the card, the transient peak of
+the frame that last specialized the instance.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from dataclasses import dataclass
@@ -32,6 +43,7 @@ import torch
 
 from . import camera
 from .interop import consts_from_numpy
+from .utils import probe
 from .settings import (
     AccumulationMode,
     CheckerboardMode,
@@ -113,6 +125,9 @@ def _pad(t: torch.Tensor, rect, resource) -> torch.Tensor:
 
 
 class Engine:
+    PROBE_KEY = "__probe__"  # outputs key of the printfAt values (utils/probe.py)
+    SHOW_KEY = "__show__"    # outputs key of the SHOW-mode plane
+
     def __init__(self, denoisers: Dict[int, Denoiser], resource_size: Tuple[int, int],
                  rect_size: Optional[Tuple[int, int]] = None,
                  normal_encoding: NormalEncoding = NormalEncoding.R10_G10_B10_A2_UNORM,
@@ -135,6 +150,8 @@ class Engine:
         self._settings: Dict[int, Any] = {}
         self._states: Dict[int, Any] = {}
         self._static_keys: Dict[int, Any] = {}
+        self._aliasable: Dict[int, int] = {}
+        self._debug_show: Optional[str] = None
         for ident, d in denoisers.items():
             cfg = DenoiserConfig(d, rect_size, tuple(resource_size), normal_encoding,
                                  roughness_encoding)
@@ -147,12 +164,6 @@ class Engine:
         now = time.perf_counter()
         raw_dt_ms = None if self._last_time is None else (now - self._last_time) * 1e3
         self._last_time = now
-        if cs.enableValidation:
-            raise NotImplementedError("the validation overlay is not ported yet (ROADMAP.md)")
-        for inst in self._instances.values():
-            w_, h_ = self._rect(inst, cs)
-            if 0 <= cs.printfAt[0] < w_ and 0 <= cs.printfAt[1] < h_:
-                raise NotImplementedError("printfAt is not ported yet (ROADMAP.md)")
         self._cs = cs
         self._consts = consts_from_numpy(self._frame_math.set_common_settings(cs, raw_dt_ms))
 
@@ -160,10 +171,32 @@ class Engine:
         self._settings[identifier] = settings
 
     def set_debug_show(self, tag: Optional[str]):
-        raise NotImplementedError("SHOW-mode capture is not ported yet (ROADMAP.md)")
+        """Capture the whole plane of one probe tag (e.g. "reblur/ta/curvature",
+        "reblur/hfix/spec_fast_history") and return it under `Engine.SHOW_KEY`, the analogue of
+        NRD's REBLUR_SHOW_* switches (REBLUR_Config.hlsli:39-50); None turns it off."""
+        self._debug_show = tag
 
     def get_state(self, identifier: int):
         return self._states[identifier]
+
+    def get_memory_usage(self, identifier: int) -> Dict[str, float]:
+        """GetTotal/Persistent/AliasableMemoryUsageInMb (Integration/NRDIntegration.h:116-123).
+
+        persistent_mb: the bytes of the state's tensors (NRD's permanent pool), the overlay's
+            too while it is carried; 0 before the first frame.
+        aliasable_mb: on the card, the transient peak of the frame that last specialized the
+            instance (its first frame, or one after a change of settings, debug mode or rect):
+            the allocator's peak during that frame minus what was allocated at its start, the
+            analogue of the compile whose temporaries the JAX Engine reads. 0.0 on the CPU, as
+            the JAX Engine gives where its backend has no memory analysis.
+        total_mb: the sum."""
+        state = self._states.get(identifier)
+        persistent = sum(t.numel() * t.element_size() for t in (state or {}).values()
+                         if isinstance(t, torch.Tensor))
+        aliasable = self._aliasable.get(identifier, 0)
+        mb = 1.0 / (1024 * 1024)
+        return {"persistent_mb": persistent * mb, "aliasable_mb": aliasable * mb,
+                "total_mb": (persistent + aliasable) * mb}
 
     def frame_constants(self, identifier: int) -> Tuple[dict, dict]:
         """(shared, denoiser) constants of the current frame, as `denoise` passes them."""
@@ -216,14 +249,42 @@ class Engine:
                     self._states[ident] = _migrate_state(self._states[ident], old_rect, rect)
             if self._states[ident] is None or clear:
                 self._states[ident] = inst.init_state()
-            key = (inst.static_key(settings), rect)
-            if self._static_keys.get(ident) != key:
+            # the debug modes: the overlay per instance, printfAt when it falls in this frame's
+            # rect, the SHOW tag; each re-specializes the instance (`nrdtpu/engine.py:274-293`)
+            inst.enable_validation = bool(self._cs.enableValidation)
+            px, py = self._cs.printfAt
+            probe_at = (int(px), int(py)) if 0 <= px < rect[0] and 0 <= py < rect[1] else None
+            show_tag = self._debug_show
+            key = (inst.static_key(settings), inst.enable_validation, probe_at, rect, show_tag)
+            specialized = self._static_keys.get(ident) != key
+            if specialized:
                 inst.specialize(settings)
                 self._static_keys[ident] = key
             sc, dc = self.frame_constants(ident)
             resource = tuple(inst.config.resource_size)
             pool_i = pool if rect == resource else {k: _crop(v, rect) for k, v in pool.items()}
-            outs, self._states[ident] = inst.frame(sc, dc, self._states[ident], pool_i)
+            measure = specialized and self.device.type == "cuda"
+            if measure:
+                caller_peak = torch.cuda.max_memory_allocated(self.device)
+                start = torch.cuda.memory_allocated(self.device)
+                torch.cuda.reset_peak_memory_stats(self.device)
+            with contextlib.ExitStack() as stack:
+                collector = (stack.enter_context(probe.collect(probe_at))
+                             if probe_at is not None else None)
+                shown = (stack.enter_context(probe.collect_show(show_tag))
+                         if show_tag is not None else None)
+                outs, self._states[ident] = inst.frame(sc, dc, self._states[ident], pool_i)
+            if measure:
+                peak = torch.cuda.max_memory_allocated(self.device)
+                self._aliasable[ident] = peak - start
+                if peak < caller_peak:  # give the caller's peak reading back: one block of
+                    # the difference, allocated and freed (block sizes are multiples of 512 B)
+                    torch.empty(caller_peak - torch.cuda.memory_allocated(self.device),
+                                dtype=torch.uint8, device=self.device)
+            if shown is not None:
+                outputs[Engine.SHOW_KEY] = shown.plane  # rect-sized, as the JAX Engine's
+            if collector is not None:
+                outputs[Engine.PROBE_KEY] = dict(collector.values)
             if rect != resource:
                 outs = {k: _pad(v, rect, resource) for k, v in outs.items()}
             outputs.update(outs)

@@ -71,6 +71,8 @@ import numpy as np
 import torch
 
 from ...config import requantize_state
+from ...utils import probe
+from ..validation import render_validation
 from ...settings import (
     REBLUR_MAX_HISTORY_FRAME_NUM,
     CheckerboardMode,
@@ -104,6 +106,10 @@ DIR_OUT_RT = {"diff": RT.OUT_DIFF_DIRECTION_HITDIST}
 SH_IN_RT = {"diff": (RT.IN_DIFF_SH0, RT.IN_DIFF_SH1), "spec": (RT.IN_SPEC_SH0, RT.IN_SPEC_SH1)}
 SH_OUT_RT = {"diff": (RT.OUT_DIFF_SH0, RT.OUT_DIFF_SH1),
              "spec": (RT.OUT_SPEC_SH0, RT.OUT_SPEC_SH1)}
+# the specular TA's confidences, REBLUR_SHOW_*'s planes (REBLUR_Config.hlsli:43-48)
+CONFIDENCES = ("surface_history_confidence", "virtual_history_confidence",
+               "virtual_normal_confidence", "virtual_roughness_confidence",
+               "virtual_parallax_confidence")
 
 
 class ReblurDenoiser:
@@ -126,6 +132,7 @@ class ReblurDenoiser:
         self.linear_config = replace(config, roughness_encoding=RoughnessEncoding.LINEAR)
         # the RGBA normal encodings: every reader takes the planes decoded once a frame
         self.decoded = fe.decoded_normals(config.normal_encoding)
+        self.enable_validation = False  # OUT_VALIDATION, set by the Engine a frame
         self._s = ReblurSettings()
 
     def static_key(self, s: ReblurSettings):
@@ -328,7 +335,8 @@ class ReblurDenoiser:
             if self.sh else None)
         fbits = sm["fbits"]
         sig1, fast1, data1, sh2 = {}, {}, {}, {}
-        ta = None
+        ta, confidences = None, {}
+        debug = probe.active() or probe.show_active()
         if self.has_diffuse:
             res = K.temporal_accumulation_diffuse(
                 sc, dc, sm, signal["diff"], inputs.get(RT.IN_DIFF_CONFIDENCE), has_data,
@@ -345,18 +353,38 @@ class ReblurDenoiser:
                 inputs.get(RT.IN_SPEC_CONFIDENCE), has_prepass_hitdist=not skip_prepass,
                 has_data=has_data, sh_input=sh1.get("spec"),
                 sh_history=state.get("spec_sh_history"), occlusion=self.occlusion, packed=packed)
+            # its confidences serve the probe alone: without one they go at once, so that the
+            # frame allocates as it does without them
+            confidences = {k: ta.pop(k) for k in CONFIDENCES}
+            if not debug:
+                confidences = {}
             sig1["spec"], fast1["spec"], data1["spec"] = ta["spec"], ta["fast"], ta["accum_speed"]
             if self.sh:
                 sh2["spec"] = ta["sh"]
             fbits = fbits + ta["fbits_vmb"]
         material_id = sm["material_id"]
-        del sm  # its full-resolution planes are dead after TA: free them for the later passes
+        if debug:  # the printfAt probe / SHOW planes (`denoiser.py:387-401`); a one-signal
+            # variant's defaults where the other's TA gives a plane (`:351-356`): the previous
+            # accumulation, zero curvature and virtual history
+            probe.emit("reblur/smb/footprint_quality", sm["footprint_quality"])
+            probe.emit("reblur/smb/fbits", fbits)
+            for sig in ("diff", "spec"):
+                probe.emit(f"reblur/ta/{sig}_accum_frames",
+                           data1[sig] if sig in data1 else state[f"{sig}_accum"])
+            for k in ("curvature", "virtual_history_amount"):
+                probe.emit(f"reblur/ta/{k}", ta[k] if ta is not None else torch.zeros_like(view_z))
+            if ta is not None:
+                probe.emit("reblur/ta/hit_dist_for_tracking", ta["hit_dist_for_tracking"])
+            for k, plane in confidences.items():
+                probe.emit(f"reblur/ta/{k}", plane)
+        del sm, confidences  # dead after TA: free them for the later passes
 
         # HISTORY FIX, BLUR, POST BLUR: with both signals, in one band launch under
-        # NRDTPU_REBLUR_BAND=1 (`denoiser.py:403-428`), else three launches
+        # NRDTPU_REBLUR_BAND=1 (`denoiser.py:403-428`) unless a probe or SHOW reads the history
+        # fix's output (`:410-413`), else three launches
         sig4, fast2, sh4 = {}, {}, {}
         if fused:
-            band = os.environ.get("NRDTPU_REBLUR_BAND", "0") == "1"
+            band = os.environ.get("NRDTPU_REBLUR_BAND", "0") == "1" and not debug
             res = (K.spatial_band if band else K.spatial_chain)(
                 sc, dc, geom, view_z, centre_nr,
                 (sig1["diff"], data1["diff"], fast1["diff"]),
@@ -392,6 +420,9 @@ class ReblurDenoiser:
                 sh4[sig] = sh3
             del tap_geometry
         del geom
+        if debug:  # REBLUR_SHOW_FAST_HISTORY (REBLUR_Config.hlsli:40, `denoiser.py:459-464`)
+            for sig in self.signals:
+                probe.emit(f"reblur/hfix/{sig}_fast_history", fast2[sig])
 
         new_state = dict(state)
         keep = dead
@@ -448,4 +479,15 @@ class ReblurDenoiser:
                 outs[SH_OUT_RT[sig][1]] = torch.where(dead[..., None], sh[sig], out_sh[sig])
                 new_state[f"{sig}_sh_history"] = torch.where(
                     keep[..., None], state[f"{sig}_sh_history"], sh4[sig])
+        if self.enable_validation:  # `denoiser.py:591-603`: the input's .w before reconstruction
+            hit_t = {sig: raw_in[sig][..., -1] for sig in self.signals}
+            overlay = render_validation(
+                sc, view_z, normal_roughness, mv, cfg, diff_accum=data1.get("diff"),
+                spec_accum=data1.get("spec"),
+                virtual_history_amount=(ta["virtual_history_amount"] if ta is not None
+                                        else torch.zeros_like(view_z)),
+                max_accumulated_frame_num=63.0, diff_hit_t=hit_t.get("diff"),
+                spec_hit_t=hit_t.get("spec"), prev_validation=state.get("validation"))
+            outs[RT.OUT_VALIDATION] = overlay
+            new_state["validation"] = overlay
         return outs, requantize_state(state, new_state)

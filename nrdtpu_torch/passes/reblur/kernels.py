@@ -718,7 +718,14 @@ def temporal_accumulation_specular(sc, dc, sm, spec_input, spec_history, spec_fa
     out = dict(spec=spec_result, fast=fast_result, accum_speed=spec_accum_speed,
                fbits_vmb=vmb["fbits_vmb"], curvature=curvature,
                virtual_history_amount=virtual_history_amount,
-               hit_dist_for_tracking=hit_dist_for_tracking)
+               hit_dist_for_tracking=hit_dist_for_tracking,
+               # the probe's and SHOW's confidences (REBLUR_Config.hlsli:43-48,
+               # `nrdtpu/passes/reblur/kernels.py:1544-1548`)
+               surface_history_confidence=surface_history_confidence,
+               virtual_history_confidence=virtual_confidence,
+               virtual_normal_confidence=virtual_normal_confidence,
+               virtual_roughness_confidence=virtual_roughness_confidence,
+               virtual_parallax_confidence=virtual_parallax_confidence)
     if sh_result is not None:
         out["sh"] = sh_result
     return out

@@ -54,6 +54,7 @@ from ... import frontend as fe
 from ... import math as nm
 from ..reblur import common as RC  # cb_expand, as the JAX package shares it
 from ..reblur import kernels as RK  # hit-distance reconstruction is shared machinery
+from ..validation import render_validation
 from . import frustum_vectors, pack_prev_normal_roughness, unpack_nr
 from . import kernels as K
 
@@ -86,6 +87,7 @@ class RelaxDenoiser:
         self.signals = tuple(sig for sig, part in (("diff", "DIFFUSE"), ("spec", "SPECULAR"))
                              if part in config.denoiser.name)
         self.sh = config.denoiser.name.endswith("_SH")  # `denoiser.py:41`
+        self.enable_validation = False  # OUT_VALIDATION, set by the Engine a frame
         self._s = RelaxSettings()
 
     def static_key(self, s: RelaxSettings):
@@ -329,4 +331,10 @@ class RelaxDenoiser:
         if "spec" in sigs:
             new_state["reflection_hit_t"] = torch.where(keep, state["reflection_hit_t"],
                                                         ta["reflection_hit_t"])
+        if self.enable_validation:  # viewports 0-4 and 8 only (`denoiser.py:380-389`)
+            overlay = render_validation(sc, view_z, inputs[RT.IN_NORMAL_ROUGHNESS], mv, cfg,
+                                        diff_accum=history_length, max_accumulated_frame_num=255.0,
+                                        prev_validation=state.get("validation"))
+            outs[RT.OUT_VALIDATION] = overlay
+            new_state["validation"] = overlay
         return outs, requantize_state(state, new_state)

@@ -18,6 +18,7 @@ import torch
 from ... import frontend as fe
 from ...config import requantize_state
 from ...settings import SIGMA_MAX_HISTORY_FRAME_NUM, Denoiser, ResourceType, SigmaSettings
+from ...utils import probe
 from . import kernels as K
 
 RT = ResourceType
@@ -74,6 +75,12 @@ class SigmaDenoiser:
                                  first_pass=True, decoded=fe.decoded_normals(enc))
         penum2, shadow2 = K.blur(sc, dc, penum1, shadow1, view_z, normal_roughness, tile,
                                  first_pass=False, decoded=fe.decoded_normals(enc))
+        if probe.active():  # printfAt only, so a SHOW tag of SIGMA captures nothing
+            # (`nrdtpu/passes/sigma/denoiser.py:110-115`)
+            probe.emit("sigma/tiles_smoothed", tiles_smoothed)
+            probe.emit("sigma/blur/penumbra1", penum1)
+            probe.emit("sigma/postblur/penumbra2", penum2)
+            probe.emit("sigma/history_len", state["history_len"])
         if self._stabilization and mv is not None:
             if mv.shape[-1] == 2:
                 mv = torch.cat([mv, torch.zeros_like(mv[..., :1])], -1)

@@ -27,7 +27,10 @@ REBLUR variant, with the band, checkerboard, performance mode, the anti-firefly 
 AREA_3X3 / AREA_5X5 between them) each kernel's decoded-plane instances are held against the
 plain versions (H2's, N4's and K23's also at the other tap count), and the Engine on the card
 against the Engine on the CPU; K20 `relax_clamp_moments` on NaN histories keeps NaN exactly
-where its plain version does. Run on a machine with an H100:
+where its plain version does. The debug and host surface: OUT_VALIDATION, the printfAt dict
+and the SHOW planes on the card against the CPU, the memory query (the state's bytes, a
+transient peak > 0, the caller's peak reading kept) and the C ABI on "cuda" against the Engine
+on the card (max abs 0). Run on a machine with an H100:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 
@@ -44,6 +47,7 @@ import torch
 from nrdtpu_torch import frontend as fe
 from nrdtpu_torch import kernels as KM
 from nrdtpu_torch.engine import Engine
+from nrdtpu_torch.passes.validation import viewport4_masks
 from nrdtpu_torch.settings import CheckerboardMode as CB
 from nrdtpu_torch.settings import Denoiser, HitDistanceReconstructionMode, ResourceType as RT
 from nrdtpu_torch.settings import NormalEncoding, replace
@@ -671,3 +675,128 @@ def test_engine_card_matches_cpu_rect_change(cuda, denoiser):
             assert mse == 0.0 or 10.0 * np.log10(peak * peak / mse) >= 50.0, (i, rt)
         assert all(tuple(t.shape[:2]) == (rh, rw) for t in card.get_state(0).values()
                    if t.ndim >= 2)
+
+
+# ---------------------------------------------------------------------------------------------
+# the debug and host surface on the card: the overlay, the probe and SHOW, the memory query and
+# the C ABI, each against the same on the CPU
+# ---------------------------------------------------------------------------------------------
+
+PROBE_AT = (80, 60)  # a geometry pixel of the orbit scene's frames at SIZE
+
+
+def _debug_run(device, denoiser, n, validation=True, printf=True, show=None):
+    eng = _engine(denoiser, device)
+    eng.set_debug_show(show)
+    out = []
+    for cs, pool in _pools(denoiser, n):
+        cs.enableValidation = validation
+        cs.printfAt = PROBE_AT if printf else (9999, 9999)
+        eng.set_common_settings(cs)
+        o = eng.denoise([0], pool)
+        out.append({k: (v if k == Engine.PROBE_KEY or v is None else v.cpu())
+                    for k, v in o.items()})
+    return eng, out
+
+
+@pytest.mark.parametrize("denoiser", [Denoiser.REBLUR_DIFFUSE_SPECULAR, Denoiser.RELAX_DIFFUSE],
+                         ids=lambda d: d.name)
+def test_overlay_card_matches_cpu(cuda, denoiser):
+    """OUT_VALIDATION on the card against the CPU over 3 frames: frame 0 all zeros, then every
+    channel within 1e-4 abs + 1e-4 rel, the world-units layer by the wrap-aware distance
+    min(|d|, 1 - |d|); every other output equal to the card's run without the debug modes."""
+    _, card = _debug_run(cuda, denoiser, 3)
+    _, cpu = _debug_run("cpu", denoiser, 3)
+    _, plain = _debug_run(cuda, denoiser, 3, validation=False, printf=False)
+    units = np.repeat(viewport4_masks(SIZE[1], SIZE[0])[1][..., None], 4, -1)
+    units[..., 3] = False  # the alpha is exact
+    for i, (a, b, c) in enumerate(zip(card, cpu, plain)):
+        got, want = a[RT.OUT_VALIDATION].numpy(), b[RT.OUT_VALIDATION].numpy()
+        if i == 0:
+            assert not got.any() and not want.any()
+        d = np.abs(got - want)
+        d[units] = np.minimum(d[units], 1.0 - d[units])
+        assert (d <= ATOL + RTOL * np.abs(want)).all(), (i, float(d.max()))
+        for rt in _outs(denoiser):
+            assert torch.equal(a[rt], c[rt]), (i, rt)
+
+
+def test_probe_and_show_card_match_cpu(cuda):
+    """REBLUR_DIFFUSE_SPECULAR's printfAt dict on the card has the CPU's keys and values within
+    1e-4 abs + 1e-4 rel; its SHOW planes ("reblur/ta/virtual_history_confidence",
+    "reblur/hfix/spec_fast_history") >= 50 dB against the CPU's, the bar of every output card
+    against CPU: the confidences are step functions of the TA's glue, whose transcendental
+    functions differ in the last bit between the card and the CPU."""
+    _, card = _debug_run(cuda, Denoiser.REBLUR_DIFFUSE_SPECULAR, 2)
+    _, cpu = _debug_run("cpu", Denoiser.REBLUR_DIFFUSE_SPECULAR, 2)
+    for a, b in zip(card, cpu):
+        pa, pb = a[Engine.PROBE_KEY], b[Engine.PROBE_KEY]
+        assert set(pa) == set(pb) and len(pb) == 14
+        for k in pb:
+            assert pa[k].device.type == "cuda"
+            np.testing.assert_allclose(pa[k].cpu().float().numpy(), pb[k].float().numpy(),
+                                       rtol=RTOL, atol=ATOL, err_msg=k)
+    for tag in ("reblur/ta/virtual_history_confidence", "reblur/hfix/spec_fast_history"):
+        _, card = _debug_run(cuda, Denoiser.REBLUR_DIFFUSE_SPECULAR, 2, False, False, tag)
+        _, cpu = _debug_run("cpu", Denoiser.REBLUR_DIFFUSE_SPECULAR, 2, False, False, tag)
+        for a, b in zip(card, cpu):
+            got, want = a[Engine.SHOW_KEY].double(), b[Engine.SHOW_KEY].double()
+            assert tuple(got.shape) == (SIZE[1], SIZE[0])
+            mse = float(((got - want) ** 2).mean())
+            peak = float(want.abs().max())
+            assert mse == 0.0 or 10.0 * np.log10(peak * peak / mse) >= 50.0, tag
+
+
+@pytest.mark.parametrize("denoiser", [Denoiser.REBLUR_DIFFUSE_SPECULAR,
+                                      Denoiser.RELAX_DIFFUSE_SPECULAR,
+                                      Denoiser.SIGMA_SHADOW_TRANSLUCENCY], ids=lambda d: d.name)
+def test_memory_query_on_card(cuda, denoiser):
+    """`persistent_mb` is the state's bytes (the overlay's too), `aliasable_mb` the first
+    frame's transient peak (> 0), and the caller's peak reading is never lowered by it."""
+    torch.cuda.synchronize()
+    big = torch.empty(256 << 20, dtype=torch.uint8, device=cuda)
+    del big  # a transient peak of the caller's, before the engine's first frame
+    before = torch.cuda.max_memory_allocated()
+    eng, _ = _debug_run(cuda, denoiser, 2, printf=False)
+    mem = eng.get_memory_usage(0)
+    state = sum(t.numel() * t.element_size() for t in eng.get_state(0).values())
+    assert mem["persistent_mb"] == state / 2 ** 20
+    assert mem["aliasable_mb"] > 0.0
+    assert mem["total_mb"] == mem["persistent_mb"] + mem["aliasable_mb"]
+    assert torch.cuda.max_memory_allocated() >= before
+
+
+def test_c_abi_on_card(cuda):
+    """Through the C ABI on "cuda", REBLUR_DIFFUSE_SPECULAR with the overlay over 3 frames equals
+    the port's Engine on the card on the same inputs (max abs 0), OUT_VALIDATION included."""
+    import ctypes
+
+    from nrdtpu_torch.native import bindings as B
+
+    lib = B.load()
+    w, h = SIZE
+    d = Denoiser.REBLUR_DIFFUSE_SPECULAR
+    descs = (B.DenoiserDescC * 1)(B.DenoiserDescC(0, int(d)))
+    inst = ctypes.c_void_p()
+    assert lib.nrdtpu_create_instance(descs, 1, w, h, 2, 1, ctypes.byref(inst)) == 0, \
+        lib.nrdtpu_get_last_error()
+    eng = Engine({0: d}, resource_size=SIZE, device=cuda)
+    rts = _outs(d) + [RT.OUT_VALIDATION]
+    try:
+        for cs, pool in _pools(d, 3):
+            cs.enableValidation = True
+            c = B.common_settings_c(cs)
+            assert lib.nrdtpu_set_common_settings(inst, ctypes.byref(c)) == 0
+            planes = {k: np.ascontiguousarray(v, np.float32) for k, v in pool.items()
+                      if k in (RT.IN_VIEWZ, RT.IN_MV, RT.IN_NORMAL_ROUGHNESS,
+                               RT.IN_DIFF_RADIANCE_HITDIST, RT.IN_SPEC_RADIANCE_HITDIST)}
+            outs = {rt: np.full((h, w, 4), np.nan, np.float32) for rt in rts}
+            slots = [B.slot(k, v) for k, v in {**planes, **outs}.items()]
+            assert lib.nrdtpu_denoise(inst, (ctypes.c_uint32 * 1)(0), 1,
+                                      (B.ResourceSlotC * len(slots))(*slots), len(slots)) == 0
+            eng.set_common_settings(B.common_settings_from_c(c))
+            want = eng.denoise([0], planes)
+            for rt in rts:
+                np.testing.assert_array_equal(outs[rt], want[rt].cpu().numpy(), err_msg=rt.name)
+    finally:
+        assert lib.nrdtpu_destroy_instance(inst) == 0

@@ -1,5 +1,7 @@
-"""The PyTorch port stands alone: no JAX and no `nrdtpu` import, a CPU tensor always takes a
-kernel's plain version, and nothing carries on on the CPU where CUDA was asked for."""
+"""The PyTorch port stands alone: no JAX and no `nrdtpu` import (a frame of each main path, the
+overlay, the probe and SHOW, the memory query and the C ABI's build and bindings,
+`utils/probe.py`, `passes/validation.py` and `native/`), a CPU tensor always takes a kernel's
+plain version, and nothing carries on on the CPU where CUDA was asked for."""
 
 import os
 import shutil
@@ -57,6 +59,21 @@ eng.set_common_settings(fd.common_settings)
 assert eng.denoise([0], {RT.IN_SIGNAL: sig})[RT.OUT_SIGNAL].shape == (48, 64, 4)
 from nrdtpu_torch.kernels import halo
 assert halo.halo_call("box", [torch.from_numpy(sig)], [4], 2)[0].shape == (48, 64, 4)
+# the debug and host surface: the overlay, the probe and SHOW, the memory query, the C ABI
+for d in (Denoiser.REBLUR_DIFFUSE_SPECULAR, Denoiser.RELAX_DIFFUSE, Denoiser.SIGMA_SHADOW):
+    eng = Engine({0: d}, resource_size=(64, 48), device="cpu")
+    eng.set_debug_show("reblur/ta/curvature")
+    for i in range(2):
+        cs = gen.frame(i).common_settings
+        cs.enableValidation, cs.printfAt = True, (40, 30)
+        eng.set_common_settings(cs)
+        outs = eng.denoise([0], pool)
+    assert (RT.OUT_VALIDATION in outs) == (d != Denoiser.SIGMA_SHADOW)
+    assert isinstance(outs[Engine.PROBE_KEY], dict)
+    assert eng.get_memory_usage(0)["persistent_mb"] > 0.0
+from nrdtpu_torch.native import bindings, build
+lib = bindings.load()
+assert lib.nrdtpu_get_version_string() == b"nrdtpu_torch 0.1.0"
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.") or m == "nrdtpu"
              or m.startswith("nrdtpu."))
 print("IMPORTED", bad)

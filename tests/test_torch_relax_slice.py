@@ -181,18 +181,24 @@ def test_unported_variants_raise(denoiser):
 @pytest.mark.parametrize("settings", [dict(checkerboardMode=CheckerboardMode.BLACK),
                                       "validation"], ids=["checkerboard", "validation"])
 def test_unported_settings_raise(settings):
-    """The validation overlay raises NotImplementedError. Checkerboard raised until the port
-    ran it; now a frame of half-width input (every other pixel of the full-width one) gives a
-    finite full-width output (`tests/test_torch_relax_cb.py` holds it against the JAX
-    Engine)."""
+    """Neither raises any more. The validation overlay raised NotImplementedError until the port
+    rendered it; now frame 1 gives a finite (h, w, 4) OUT_VALIDATION that shows
+    (`tests/test_torch_observability_relax.py` holds it against the JAX Engine). Checkerboard
+    raised until the port ran it; now a frame of half-width input (every other pixel of the
+    full-width one) gives a finite full-width output (`tests/test_torch_relax_cb.py` holds it
+    against the JAX Engine)."""
     gen = SceneGenerator(SceneSpec(size=(48, 32)), camera_mode="orbit")
     eng = TEngine({0: Denoiser.RELAX_DIFFUSE}, resource_size=(48, 32), device="cpu")
     fd = gen.frame(0)
     if settings == "validation":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        for i in range(2):  # frame 0 resets the history, which clears the overlay
+            fd = gen.frame(i)
             cs = fd.common_settings
             cs.enableValidation = True
             eng.set_common_settings(cs)
+            overlay = eng.denoise([0], pool_of(gen, fd))[RT.OUT_VALIDATION]
+        assert tuple(overlay.shape) == (32, 48, 4)
+        assert bool(overlay.isfinite().all()) and float(overlay[..., 3].max()) == 1.0
         return
     eng.set_denoiser_settings(0, replace(RelaxSettings(), **settings))
     eng.set_common_settings(fd.common_settings)
