@@ -185,12 +185,15 @@ import argparse
 import concurrent.futures
 import contextlib
 import copy
+import dataclasses
 import inspect
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -2641,6 +2644,188 @@ def rect_card_vs_cpu(w, h):
         rect_sequence(path, w, h, frames, SMALL_RECTS, 1, cpu=True)
 
 
+# the row-sharded Engine (`Engine(mesh=)`): its variants, the ranks that share the one card, the
+# small size of the engine check and the frames of the full-size run
+MESH_VARIANTS = ("REFERENCE", "SIGMA_SHADOW", "REBLUR_DIFFUSE")
+MESH_RANKS = 4
+MESH_SMALL = (256, 160)
+MESH_FULL_FRAMES = 8
+
+
+def mesh_halos(frames, w, h):
+    """{row-origin kernel: its halo}: the largest halo of the passes that launch it, from the
+    denoisers' own derivation (`halos`) at the default settings and this resolution."""
+    reblur, sigma = engine("REBLUR_DIFFUSE", w, h, "cuda"), engine("SIGMA_SHADOW", w, h, "cuda")
+    reblur.set_common_settings(frames[0][0])
+    r = reblur._instances[0].halos(reblur.frame_constants(0)[1])
+    s = sigma._instances[0].halos()
+    return {"smb_resolve": r["smb"], "history_fix": r["history_fix"], "ts_prelude": r["ts"],
+            "spatial_filter": max(r["prepass"], r["blur"], r["post_blur"]),
+            "sigma_blur": s["blur"], "sigma_ts": s["ts"]}
+
+
+def mesh_kernel_check(frames, w, h):
+    """(a) H1, H2, H3, H4, K13 and K14 at a row origin: each call of frame 4 of REBLUR_DIFFUSE
+    and SIGMA_SHADOW on the top, a middle and the bottom band of h / MESH_RANKS rows, padded by
+    the kernel's halo (`parallel.sharding.band_call`), held against the rows of the unsharded
+    launch and against its plain version on the same band (the kernel tolerance)."""
+    from nrdtpu_torch import kernels as KM
+    from nrdtpu_torch.parallel.sharding import band_call
+
+    halos = mesh_halos(frames, w, h)
+    calls = (record_calls("REBLUR_DIFFUSE", "REBLUR_DIFFUSE", w, h, frames[:5])
+             + record_calls("SIGMA_SHADOW", "SIGMA_SHADOW", w, h, frames[:5]))
+    rows = h // MESH_RANKS
+    bands = {"top": 0, "middle": (MESH_RANKS // 2) * rows, "bottom": h - rows}
+    res = {}
+    for name, a, k in calls:
+        if name not in KM.ROW_ORIGIN:
+            continue
+        m, halo = KM.MODULES[name], halos[name]
+        whole = _outputs(getattr(m, name)(*a, **k))
+        r = res.setdefault(name, dict(halo=halo, calls=0, vs_plain=[0.0, 0, 0],
+                                      vs_unsharded=[0.0, 0, 0]))
+        r["calls"] += 1
+        for row0 in bands.values():
+            ba, bk = band_call(getattr(m, name), a, k, row0, rows, halo, h)
+            got = _outputs(getattr(m, name)(*ba, **bk))
+            crop = {key: v[halo:halo + rows] for key, v in got.items()}
+            want = {key: v[row0:row0 + rows] for key, v in whole.items()}
+            plain = getattr(m, name + "_ref")(*ba, **bk)
+            for total, d in ((r["vs_plain"], disagreement(got, plain)),
+                             (r["vs_unsharded"], disagreement(crop, want))):
+                for mx, _, over, count in d.values():
+                    total[0] = max(total[0], mx)
+                    total[1] += over
+                    total[2] += count
+    torch.cuda.synchronize()
+    for name in KM.ROW_ORIGIN:
+        r = res.get(name)
+        if r is None:
+            raise AssertionError(f"mesh: {name} was not called on frame 4")
+        log(f"mesh row origin {name}: {r['calls']} call(s) x {len(bands)} bands of {rows} rows, "
+            f"halo {r['halo']}: vs plain max |d| {r['vs_plain'][0]:.3g}, {r['vs_plain'][1]} of "
+            f"{r['vs_plain'][2]} out of tolerance; vs the unsharded launch max |d| "
+            f"{r['vs_unsharded'][0]:.3g}, {r['vs_unsharded'][1]} of {r['vs_unsharded'][2]}")
+        for what in ("vs_plain", "vs_unsharded"):
+            _, over, count = r[what]
+            if over > FLIP_FRACTION * count:
+                raise AssertionError(f"mesh: {name} at a row origin {what}: {over} of {count}")
+    return {name: dict(halo=r["halo"], calls=r["calls"], bands=list(bands),
+                       max_abs_err_vs_plain=r["vs_plain"][0],
+                       max_abs_err_vs_unsharded=r["vs_unsharded"][0]) for name, r in res.items()}
+
+
+def _held_outputs(label, got, want):
+    """Outputs of a sharded run against an unsharded run on the card: the kernel tolerance."""
+    worst = 0.0
+    for key, wv in want.items():
+        d = np.abs(got[key].astype(np.float64) - wv)
+        over = int((d > ATOL + RTOL * np.abs(wv)).sum())
+        worst = max(worst, float(d.max()))
+        if over > FLIP_FRACTION * d.size:
+            raise AssertionError(f"mesh {label} {key}: {over} of {d.size} values out of "
+                                 "tolerance against the unsharded card run")
+    return worst
+
+
+def rank0_frame_times(label, result):
+    """The frame times of a sharded run (its `time_delta_ms` a rank), which every rank must
+    share: the frame time is left at 0, so each rank's Engine times its frames by rank 0's
+    clock."""
+    times = result["time_delta_ms"]
+    if any(t != times[0] for t in times):
+        raise AssertionError(f"mesh {label}: the ranks' frame times differ: {times}")
+    return times[0]
+
+
+def mesh_engine_check(w, h, frames=3):
+    """(b) the sharded Engine on the one card: REFERENCE, SIGMA_SHADOW and REBLUR_DIFFUSE, 3
+    frames at w x h with the frame time left at 0 (the Engine's clock, rank 0's), on MESH_RANKS
+    gloo ranks and on a one-rank nccl group (it starts the nccl group and the Engine on it;
+    one rank exchanges nothing), gathered and held against Engine(device="cuda") unsharded
+    (the kernel tolerance) and against the CPU plain path (>= 50 dB), both at the sharded
+    run's frame times."""
+    from nrdtpu_torch.parallel import launch
+
+    cases = [dict(denoiser=v, size=(w, h), frames=frames) for v in MESH_VARIANTS]
+    runs = {f"gloo x{MESH_RANKS}": launch.spawn(launch.run_engine_ranks, MESH_RANKS, "gloo",
+                                                "cuda", cases),
+            "nccl x1": launch.spawn(launch.run_engine_ranks, 1, "nccl", "cuda", cases)}
+    out = {}
+    for i, v in enumerate(MESH_VARIANTS):
+        for label, results in runs.items():
+            times = rank0_frame_times(f"{label} {v}", results[i])
+            card = launch.run_engine(None, v, (w, h), frames, device="cuda",
+                                     frame_times=times)["outputs"]
+            cpu = launch.run_engine(None, v, (w, h), frames, device="cpu",
+                                    frame_times=times)["outputs"]
+            got = results[i]["outputs"]
+            worst = _held_outputs(f"{label} {v}", got, card)
+            p = min(psnr(got[k], cpu[k]) for k in cpu)
+            log(f"mesh engine {label} {v} at {w}x{h}, {frames} frames (frame times "
+                f"{', '.join(f'{t:.3f}' for t in times)} ms): vs the unsharded card run max |d| "
+                f"{worst:.3g}; vs the CPU plain path {p:.2f} dB")
+            if p < 50.0:
+                raise AssertionError(f"mesh {label} {v}: {p:.2f} dB < 50 dB against the CPU")
+            out[f"{label} {v}"] = dict(max_abs_vs_unsharded=worst, psnr_vs_cpu=p,
+                                       frame_times_ms=times)
+    return out
+
+
+def mesh_full_run(frames, w, h):
+    """(c) REBLUR_DIFFUSE at w x h over MESH_RANKS gloo ranks sharing the one card, for
+    MESH_FULL_FRAMES frames (saved to an ignored directory of the checkout, which each rank maps
+    and reads its rows of), held against the unsharded card run; each rank's ms/frame (CUDA
+    events around `denoise`, the median of the frames after the first two) and bytes received a
+    frame. The frames are saved with the frame time at 0 (the Engine's clock, rank 0's), and the
+    unsharded run takes the sharded run's frame times. These ranks share one card: their times
+    are no multi-card scaling."""
+    from nrdtpu_torch.parallel import launch
+
+    n = MESH_FULL_FRAMES
+    free, total = torch.cuda.mem_get_info()
+    gib = 2.0 ** 30
+    log(f"mesh full size: the card's free memory {free / gib:.2f} of {total / gib:.2f} GiB before "
+        f"the launcher empties this process's cache ({torch.cuda.memory_allocated() / gib:.2f} "
+        f"GiB allocated, {torch.cuda.memory_reserved() / gib:.2f} GiB reserved)")
+    d = tempfile.mkdtemp(prefix="_mesh_frames_", dir=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        launch.save_frames(d, ((dataclasses.replace(cs, timeDeltaBetweenFrames=0.0),
+                                pools["REBLUR_DIFFUSE"]) for cs, pools, _ in frames[:n]))
+        case = dict(denoiser="REBLUR_DIFFUSE", size=(w, h), frames=n, frame_dir=d)
+        (sharded,) = launch.spawn(launch.run_engine_ranks, MESH_RANKS, "gloo", "cuda", [case])
+        times = rank0_frame_times(f"REBLUR_DIFFUSE at {w}x{h}", sharded)
+        whole = launch.run_engine(None, **case, device="cuda", frame_times=times)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    worst = _held_outputs(f"REBLUR_DIFFUSE at {w}x{h}", sharded["outputs"], whole["outputs"])
+    ms = [float(np.median(r[2:])) for r in sharded["ms"]]
+    nbytes = [int(np.median(r[2:])) for r in sharded["exchanged_bytes"]]
+    one = float(np.median(whole["ms"][2:]))
+    log(f"mesh full size ({card_line()}): REBLUR_DIFFUSE at {w}x{h}, {MESH_RANKS} gloo ranks "
+        f"SHARING ONE CARD (not multi-card scaling): ms/frame by rank "
+        f"{', '.join(f'{x:.2f}' for x in ms)}; bytes received a frame by rank "
+        f"{', '.join(str(b) for b in nbytes)}; the unsharded Engine on the same card "
+        f"{one:.2f} ms/frame; max |sharded - unsharded| {worst:.3g}")
+    return dict(variant="REBLUR_DIFFUSE", size=[w, h], frames=n, ranks=MESH_RANKS,
+                backend="gloo", ranks_share_one_card=True, card=card_line(),
+                ms_per_frame_by_rank=ms, bytes_received_per_frame_by_rank=nbytes,
+                unsharded_ms_per_frame=one, max_abs_vs_unsharded=worst, frame_times_ms=times)
+
+
+def mesh_phase(frames, w, h):
+    """The row-sharded Engine: (a) the six kernels at a row origin, (b) the Engine on
+    MESH_RANKS gloo ranks and on one nccl rank at MESH_SMALL, (c) REBLUR_DIFFUSE at the full
+    size on MESH_RANKS ranks; prints one JSON line `{"mesh": ...}`."""
+    t0 = time.perf_counter()
+    result = dict(row_origin=mesh_kernel_check(frames, w, h),
+                  engine=mesh_engine_check(*MESH_SMALL), full=mesh_full_run(frames, w, h))
+    result["seconds"] = time.perf_counter() - t0
+    log(json.dumps({"mesh": result}))
+    return result
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--width", type=int, default=2560)
@@ -2684,6 +2869,8 @@ def main():
         log(f"phase profile: done at {time.perf_counter() - t_start:.1f} s")
     rect_phase(args.width, args.height, frames, warmup, counts, slice_ms, peaks, busy)
     log(f"phase dynamic resolution: done at {time.perf_counter() - t_start:.1f} s")
+    mesh_phase(frames, args.width, args.height)
+    log(f"phase mesh: done at {time.perf_counter() - t_start:.1f} s")
     t0 = time.perf_counter()
     memory_phase(args.width, args.height, frames, peaks)
     overlay_cost_phase(args.width, args.height, frames[:warmup + 12], warmup)

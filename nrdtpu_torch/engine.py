@@ -28,6 +28,20 @@ returns the whole rect-sized plane of one tag under `outputs[Engine.SHOW_KEY]` (
 pass emits it). Each of them re-specializes the instance, as a changed setting does.
 `get_memory_usage(identifier)` gives the state's bytes and, on the card, the transient peak of
 the frame that last specialized the instance.
+
+Row sharding (`nrdtpu/engine.py:142-188`, `:290-294`, `:341-346`): `Engine(..., mesh=RowMesh)`
+runs on one rank of a `torch.distributed` group (`parallel.make_mesh`, `parallel.launch.spawn`),
+each rank holding a band of rows. Inputs are the whole frame, as the JAX Engine takes them
+(a plane of the band's height is taken as this rank's rows); `denoise` returns this rank's rows
+of each output, which `parallel.gather_rows` assembles (the JAX Engine returns global arrays);
+the state is created row-sharded and `get_state` gives this rank's rows; the frame constants
+are computed whole on every rank, from rank 0's frame time where the frame gives none
+(`timeDeltaBetweenFrames` 0: `set_common_settings` takes the time since the last call from rank
+0, so that every rank smooths the same times). Under a mesh the port runs REFERENCE,
+SIGMA_SHADOW and REBLUR_DIFFUSE at R10G10B10A2 and LINEAR, rect = resource, without
+checkerboard, hit-distance reconstruction or the debug surface; anything else raises
+NotImplementedError (ROADMAP.md Queue 1.1), and a frame height that the ranks do not divide
+raises ValueError.
 """
 
 from __future__ import annotations
@@ -43,12 +57,14 @@ import torch
 
 from . import camera
 from .interop import consts_from_numpy
+from .parallel import sharding, spmd
 from .utils import probe
 from .settings import (
     AccumulationMode,
     CheckerboardMode,
     CommonSettings,
     Denoiser,
+    HitDistanceReconstructionMode,
     NormalEncoding,
     ResourceType,
     RoughnessEncoding,
@@ -85,6 +101,15 @@ def _denoiser_class(d: Denoiser):
 
         return RelaxDenoiser
     raise NotImplementedError(f"{d.name} is not ported yet (ROADMAP.md lists the next slices)")
+
+
+# the variants that run under a mesh
+MESH_DENOISERS = (Denoiser.REFERENCE, Denoiser.SIGMA_SHADOW, Denoiser.REBLUR_DIFFUSE)
+
+
+def _not_under_mesh(what: str) -> NotImplementedError:
+    return NotImplementedError(f"Engine(mesh=): {what} is not ported under a mesh yet (ROADMAP.md "
+                               "Queue 1.1 lists the mesh slices)")
 
 
 def _migrate_state(state: dict, old_rect, new_rect) -> dict:
@@ -140,7 +165,20 @@ class Engine:
         if self.device.type not in ("cpu", "cuda"):
             raise ValueError(f"unsupported device {self.device}")
         if mesh is not None:
-            raise NotImplementedError("Engine(mesh=) is not ported yet (ROADMAP.md)")
+            if mesh.device.type != self.device.type or (
+                    self.device.index is not None and mesh.device != self.device):
+                raise ValueError(f"Engine(device={device!r}): the mesh's device is {mesh.device}")
+            self.device = mesh.device
+            for d in denoisers.values():
+                if d not in MESH_DENOISERS:
+                    raise _not_under_mesh(d.name)
+            if (normal_encoding != NormalEncoding.R10_G10_B10_A2_UNORM
+                    or roughness_encoding != RoughnessEncoding.LINEAR):
+                raise _not_under_mesh("encoding")
+            if rect_size is not None and tuple(rect_size) != tuple(resource_size):
+                raise _not_under_mesh("rect")
+            sharding.rows(resource_size[1], mesh)  # raises unless the ranks divide the height
+        self.mesh = mesh
         rect_size = tuple(rect_size or resource_size)
         self._frame_math = camera.FrameMath()
         self._consts: Optional[dict] = None
@@ -156,6 +194,7 @@ class Engine:
             cfg = DenoiserConfig(d, rect_size, tuple(resource_size), normal_encoding,
                                  roughness_encoding)
             self._instances[ident] = _denoiser_class(d)(cfg, self.device)
+            self._instances[ident].mesh = mesh
             self._settings[ident] = default_settings(d)
             self._states[ident] = None
 
@@ -164,6 +203,8 @@ class Engine:
         now = time.perf_counter()
         raw_dt_ms = None if self._last_time is None else (now - self._last_time) * 1e3
         self._last_time = now
+        if raw_dt_ms is not None:  # under a mesh every rank times its frames by rank 0's clock
+            raw_dt_ms = sharding.from_rank0(raw_dt_ms, self.mesh)
         self._cs = cs
         self._consts = consts_from_numpy(self._frame_math.set_common_settings(cs, raw_dt_ms))
 
@@ -190,6 +231,8 @@ class Engine:
             analogue of the compile whose temporaries the JAX Engine reads. 0.0 on the CPU, as
             the JAX Engine gives where its backend has no memory analysis.
         total_mb: the sum."""
+        if self.mesh is not None:
+            raise _not_under_mesh("get_memory_usage")
         state = self._states.get(identifier)
         persistent = sum(t.numel() * t.element_size() for t in (state or {}).values()
                          if isinstance(t, torch.Tensor))
@@ -213,6 +256,20 @@ class Engine:
             return min(int(cs.rectSize[0]), res_w), min(int(cs.rectSize[1]), res_h)
         return tuple(inst.config.rect_size)
 
+    def _check_mesh_frame(self, inst, settings, rect, cb):
+        """Raise for what a frame asks that the mesh does not run yet."""
+        if rect != tuple(inst.config.resource_size):
+            raise _not_under_mesh("rect")
+        if cb != CheckerboardMode.OFF:
+            raise _not_under_mesh("checkerboard")
+        if getattr(settings, "hitDistanceReconstructionMode",
+                   HitDistanceReconstructionMode.OFF) != HitDistanceReconstructionMode.OFF:
+            raise _not_under_mesh("hit-distance reconstruction")
+        px, py = self._cs.printfAt
+        if (self._cs.enableValidation or self._debug_show is not None
+                or (0 <= px < rect[0] and 0 <= py < rect[1])):
+            raise _not_under_mesh("debug surface")
+
     def _to_device(self, v):
         t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))
         if t.dtype != torch.float32:
@@ -226,6 +283,9 @@ class Engine:
             raise RuntimeError("call set_common_settings before denoise")
         clear = (self._cs is not None
                  and self._cs.accumulationMode == AccumulationMode.CLEAR_AND_RESTART)
+        if self.mesh is not None:  # this rank's rows of the whole frame's planes
+            res_w, res_h = next(iter(self._instances.values())).config.resource_size
+            user_pool = spmd.shard_frame_tree(self.mesh, user_pool, res_h, res_w)
         pool = {k: self._to_device(v) for k, v in user_pool.items()}
         outputs: Dict[ResourceType, torch.Tensor] = {}
         for ident in identifiers:
@@ -233,6 +293,8 @@ class Engine:
             settings = self._settings[ident]
             rect = self._rect(inst, self._cs)
             cb = getattr(settings, "checkerboardMode", CheckerboardMode.OFF)
+            if self.mesh is not None:
+                self._check_mesh_frame(inst, settings, rect, cb)
             if rect != tuple(inst.config.resource_size) and cb != CheckerboardMode.OFF:
                 raise NotImplementedError(
                     "checkerboard at a rect smaller than the resource is not ported: the JAX "
@@ -249,6 +311,10 @@ class Engine:
                     self._states[ident] = _migrate_state(self._states[ident], old_rect, rect)
             if self._states[ident] is None or clear:
                 self._states[ident] = inst.init_state()
+                if self.mesh is not None:  # row-sharded at creation (`nrdtpu/engine.py:290-294`)
+                    res_w, res_h = inst.config.resource_size
+                    self._states[ident] = {k: v.clone() for k, v in spmd.shard_frame_tree(
+                        self.mesh, self._states[ident], res_h, res_w).items()}
             # the debug modes: the overlay per instance, printfAt when it falls in this frame's
             # rect, the SHOW tag; each re-specializes the instance (`nrdtpu/engine.py:274-293`)
             inst.enable_validation = bool(self._cs.enableValidation)
@@ -263,7 +329,7 @@ class Engine:
             sc, dc = self.frame_constants(ident)
             resource = tuple(inst.config.resource_size)
             pool_i = pool if rect == resource else {k: _crop(v, rect) for k, v in pool.items()}
-            measure = specialized and self.device.type == "cuda"
+            measure = specialized and self.device.type == "cuda" and self.mesh is None
             if measure:
                 caller_peak = torch.cuda.max_memory_allocated(self.device)
                 start = torch.cuda.memory_allocated(self.device)

@@ -28,6 +28,22 @@ def state_from_numpy(state: dict, device="cpu") -> dict:
     return {k: tensor_from_numpy(v, device).clone() for k, v in state.items()}
 
 
+def state_rows(state: dict, rank: int, n: int, device="cpu") -> dict:
+    """One rank's port state of an n-rank row mesh from a JAX Engine's whole state (numpy
+    leaves): the rank's band of rows of every plane, so that a sharded port run can start from
+    the JAX state."""
+    out = {}
+    for k, v in state.items():
+        t = tensor_from_numpy(v, device)
+        if t.dim() >= 2:
+            if t.shape[0] % n:
+                raise ValueError(f"{k}: {t.shape[0]} rows do not split into {n} bands")
+            band = t.shape[0] // n
+            t = t[rank * band:(rank + 1) * band]
+        out[k] = t.clone()
+    return out
+
+
 def consts_from_numpy(consts: dict) -> dict:
     """Shared (`sc`) or denoiser (`dc`) frame constants in the port's host form."""
     out = {}

@@ -97,6 +97,11 @@ DEC_INSTANCES = {"relax_prepass_dec": relax_prepass, "relax_smb_resolve_dec": re
                  "history_fix_fused_dec": history_fix_fused, "reblur_band_dec": reblur_band}
 
 
+# the kernels with a row-origin mode (`parallel.shard_stencil`): each module names its wrapper's
+# previous-frame arguments in PREVIOUS_PLANES
+ROW_ORIGIN = tuple(name for name, m in MODULES.items() if hasattr(m, "PREVIOUS_PLANES"))
+
+
 def reset_launch_counts():
     for m in MODULES.values():
         m.launches = 0

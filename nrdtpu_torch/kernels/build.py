@@ -3,7 +3,9 @@ ctypes (no PyTorch headers, so a build takes seconds). Each source compiles in i
 process, all started together; one more call links the objects.
 
 The library is built at first use into `_build/`, named by a hash of the sources and flags,
-and reused while neither changes. A missing nvcc, a failed build or a failed launch raises.
+and reused while neither changes; a file lock there lets one process build it while others
+(the ranks of `parallel.launch`) wait and then load it. A missing nvcc, a failed build or a
+failed launch raises.
 
 Every C entry has one signature,
     int entry(void* const* ptrs, const float* consts, int w, int h, void* stream)
@@ -14,6 +16,7 @@ or allocating, and returns cudaGetLastError().
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import subprocess
@@ -71,7 +74,11 @@ def library():
     so = library_path()
     t0 = time.perf_counter()
     if not so.exists():
-        _build(so, _sources()[0])
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with open(BUILD_DIR / ".lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not so.exists():  # another process may have built it while this one waited
+                _build(so, _sources()[0])
     lib = ctypes.CDLL(str(so))
     lib.nrd_error_string.argtypes = [ctypes.c_int]
     lib.nrd_error_string.restype = ctypes.c_char_p

@@ -88,7 +88,8 @@ cudaError_t launch_fix(const nrd::HistoryFixArgs& a, int s, bool sh, bool occ, b
 //         specular mode (0 or 1), anti-firefly ring (0 or 1), the clamp's frame divisor and
 //         fast-history flag, SH (0 or 1), one-channel occlusion signal (0 or 1; not with SH),
 //         directional occlusion (0 or 1; diffuse only, not with SH or one channel), nr the RGBA
-//         formats' decoded plane (0 or 1)
+//         formats' decoded plane (0 or 1), the planes' first row in the frame and the frame's
+//         height (reblur_filters.cuh:HfFrame)
 extern "C" int nrd_history_fix(void* const* p, const float* c, int w, int h, void* stream) {
   const int s = c[9] != 0.0f ? 1 : 0;  // the signal's slot: 0 diffuse, 1 specular
   nrd::HistoryFixArgs a{};
@@ -108,6 +109,8 @@ extern "C" int nrd_history_fix(void* const* p, const float* c, int w, int h, voi
   const bool sh = c[13] != 0.0f;
   a.f.w = w;
   a.f.h = h;
+  a.f.row0 = (int)c[17];
+  a.f.fh = (int)c[18];
   for (int k = 0; k < 4; ++k) a.f.fr[k] = c[k];
   a.f.rect_inv_w = c[4];
   a.f.rect_inv_h = c[5];

@@ -99,6 +99,8 @@ extern "C" int nrd_history_fix_fused(void* const* p, const float* c, int w, int 
   x.geometry = (const float4*)p[14];
   x.f.w = w;
   x.f.h = h;
+  x.f.row0 = 0;  // a whole frame
+  x.f.fh = h;
   for (int k = 0; k < 4; ++k) x.f.fr[k] = c[k];
   x.f.rect_inv_w = c[4];
   x.f.rect_inv_h = c[5];

@@ -90,7 +90,7 @@ __device__ __forceinline__ void blur_pixel(const BandArgs& a, int stage, int x, 
   float* dst = (stage == 0 ? a.sig3 : a.out) + kC * s * plane;
   const nrd::StageConsts& k = a.stage[stage];
   // the centre's geometry: sf_filter reads what hf_centre loads but the frustum size
-  const nrd::Centre c = nrd::hf_centre<kDec>(a.planes + i, plane, nr, x, y);
+  const nrd::Centre c = nrd::hf_centre<kDec>(fx.f, a.planes + i, plane, nr, x, y);
   const float* P = a.planes + i;
   const float nov = __ldg(P + BP_NOV * plane);
   const float hit_dist = __ldg(src + kC * i + (kC - 1));
@@ -218,6 +218,8 @@ extern "C" int nrd_reblur_band(void* const* p, const float* c, int w, int h, voi
 
   x.f.w = a.sf.w = w;
   x.f.h = a.sf.h = h;
+  x.f.row0 = a.sf.row0 = 0;  // a whole frame
+  x.f.fh = a.sf.fh = h;
   for (int k = 0; k < 4; ++k) x.f.fr[k] = a.sf.fr[k] = c[k];
   a.sf.rect_w = c[4];
   a.sf.rect_h = c[5];

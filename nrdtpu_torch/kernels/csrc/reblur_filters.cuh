@@ -167,8 +167,12 @@ __device__ __forceinline__ PoissonTap poisson_tap(int t) {
   return PoissonTap{p[3 * t], p[3 * t + 1], p[3 * t + 2]};
 }
 
+// w, h: the planes' size; row0, fh: their first row in the frame and the frame's height (a
+// band of rows of a frame: uv, the taps' rows, the hash seed and the checkerboard parity are
+// the frame's, a texel is read at its frame row minus row0; 0 and h for a whole frame)
 struct SfFrame {
   int w, h;
+  int row0, fh;
   float fr[4];
   float rect_w, rect_h, view_z_scale, ortho;
   float inv_rect_w, inv_rect_h;  // 1 / rect_w, 1 / rect_h
@@ -187,13 +191,13 @@ struct Centre {
 // the centre pixel's geometry from the shared planes; P points at the pixel in plane 0 (kDec:
 // the decoded plane, no material)
 template <bool kDec = false>
-__device__ __forceinline__ Centre sf_centre(const float* P, size_t plane,
+__device__ __forceinline__ Centre sf_centre(const SfFrame& f, const float* P, size_t plane,
                                             const Image<float, 4>& nr, int x, int y) {
   Centre c;
   c.x = x;
   c.y = y;
   c.u = pixel_u(x, nr.w);
-  c.v = pixel_u(y, nr.h);
+  c.v = pixel_u(y + f.row0, f.fh);
   c.material = kDec ? 0.0f : nr.at(x, y, 3) * 3.0f;
   c.ga = P[SF_GA * plane];
   c.gb = P[SF_GB * plane];
@@ -240,7 +244,7 @@ __device__ __forceinline__ float sf_filter(const SfFrame& f, const Centre& c, co
     rough_lerp = saturate((P[SF_ROUGH * plane] - 0.5f) / 0.5f);
     xv = V3{P[SF_XVX * plane], P[SF_XVY * plane], P[SF_XVZ * plane]};
     hdt = hit_dist == 0.0f ? 1e6f : hit_dist;  // NRD_INF
-    rng = hash_init((uint32_t)c.x, (uint32_t)c.y, f.frame_index);
+    rng = hash_init((uint32_t)c.x, (uint32_t)(c.y + f.row0), f.frame_index);
   }
 
   float sum = kCb ? centre_weight : 1.0f;
@@ -268,7 +272,7 @@ __device__ __forceinline__ float sf_filter(const SfFrame& f, const Centre& c, co
     us = (floorf(us * f.rect_w) + 0.5f) * f.inv_rect_w;  // snap to the pixel centre
     vs = (floorf(vs * f.rect_h) + 0.5f) * f.inv_rect_h;
     const int sx = to_index(floorf(us * (float)f.w));
-    const int sy = to_index(floorf(vs * (float)f.h));
+    const int sy = to_index(floorf(vs * (float)f.fh)) - f.row0;
 
     const TapGeometry g = taps.at(sx, sy);
     const float zs = g.z;
@@ -385,18 +389,19 @@ constexpr int kAntiFireflyRadius = 4;  // REBLUR_ANTI_FIREFLY_FILTER_RADIUS, eve
 
 struct HfFrame {
   int w, h;
+  int row0, fh;  // as SfFrame's
   float fr[4];
   float rect_inv_w, rect_inv_h, view_z_scale, ortho;
 };
 
 template <bool kDec = false>
-__device__ __forceinline__ Centre hf_centre(const float* P, size_t plane,
+__device__ __forceinline__ Centre hf_centre(const HfFrame& f, const float* P, size_t plane,
                                             const Image<float, 4>& nr, int x, int y) {
   Centre c;
   c.x = x;
   c.y = y;
   c.u = pixel_u(x, nr.w);
-  c.v = pixel_u(y, nr.h);
+  c.v = pixel_u(y + f.row0, f.fh);
   c.material = kDec ? 0.0f : nr.at(x, y, 3) * 3.0f;
   c.ga = P[HF_GA * plane];
   c.gb = P[HF_GB * plane];
@@ -500,7 +505,9 @@ __device__ __forceinline__ void hf_filter(const HfFrame& f, const Centre& c, con
       const float ofx = (float)k * stride, ofy = (float)j * stride;
       const float us = c.u + ofx * f.rect_inv_w, vs = c.v + ofy * f.rect_inv_h;
       const int px = (int)fminf(fmaxf((float)c.x + ofx, 0.0f), (float)(f.w - 1));
-      const int py = (int)fminf(fmaxf((float)c.y + ofy, 0.0f), (float)(f.h - 1));
+      // the tap's frame row, clamped to the frame, then its row in the planes
+      const int py =
+          (int)fminf(fmaxf((float)(c.y + f.row0) + ofy, 0.0f), (float)(f.fh - 1)) - f.row0;
 
       const TapGeometry g = taps.at(px, py);
       const V3 xvs = reconstruct_view_position(us, vs, f.fr, g.z, f.ortho);
@@ -929,7 +936,7 @@ __device__ __forceinline__ void history_fix_pixel(const HistoryFixArgs& a, const
   const int w = a.f.w, h = a.f.h;
   const size_t i = (size_t)y * w + x, plane = (size_t)w * h;
   const Image<float, 4> nr{a.nr, w, h};
-  const Centre c = hf_centre<kDec>(a.shared + i, plane, nr, x, y);
+  const Centre c = hf_centre<kDec>(a.f, a.shared + i, plane, nr, x, y);
   float m1, m2, am1 = 0.0f, am2 = 0.0f;
   fast_moments(win, x, y, &m1, &m2);
   if (a.anti_firefly[s]) anti_firefly_moments(win, x, y, &am1, &am2);

@@ -47,6 +47,7 @@ struct BlurArgs {
   float* out_penumbra;    // (h, w)
   float* out_shadow;      // (h, w, C) sqrt-packed
   int w, h;
+  int row0, fh;           // the planes' first row in the frame, the frame's height
   float view_z_scale, fr[4], ortho, unproject, mrdu, pds;
   float m[9];             // world_to_view rotation, row-major
   float rot[4];           // the pass's rotator
@@ -154,7 +155,7 @@ __global__ void __launch_bounds__(kTile * kTile, kMinCtas<C>) sigma_blur_kernel(
   // the window index of the pixel's own texel
   const int wc = ((int)threadIdx.y + kBorder) * kWin + (int)threadIdx.x + kBorder;
 
-  const float u = nrd::pixel_u(x, a.w), v = nrd::pixel_u(y, a.h);
+  const float u = nrd::pixel_u(x, a.w), v = nrd::pixel_u(y + a.row0, a.fh);
   const Texel<C> ct = wnd.load(wc);
   const float view_z = ct.zs;
   const float pc = ct.penum;
@@ -237,7 +238,7 @@ __global__ void __launch_bounds__(kTile * kTile, kMinCtas<C>) sigma_blur_kernel(
     us = (floorf(us * a.rect_w) + 0.5f) * a.rinv_x;  // snap to the pixel centre (:238)
     vs = (floorf(vs * a.rect_h) + 0.5f) * a.rinv_y;
     const int tx = nrd::clampi(nrd::to_index(floorf(us * (float)a.w)), 0, a.w - 1);
-    const int ty = nrd::clampi(nrd::to_index(floorf(vs * (float)a.h)), 0, a.h - 1);
+    const int ty = nrd::clampi(nrd::to_index(floorf(vs * (float)a.fh)) - a.row0, 0, a.h - 1);
     const int wi = tx - ox, wj = ty - oy;  // the texel's place in the window
     const Texel<C> t = ((unsigned)wi < (unsigned)kWin && (unsigned)wj < (unsigned)kWin)
                            ? wnd.load(wj * kWin + wi)
@@ -271,7 +272,9 @@ using Kernel = void (*)(BlurArgs);
 // consts: channels, first_pass, has_shadow, view_z_scale, frustum[4], ortho, unproject,
 //         min_rect_dim_mul_unproject, plane_dist_sensitivity, m[9], rotator[4],
 //         rect_size[2], rect_size_inv[2], denoising_range, 25 dense Gaussian weights,
-//         8 x (x, y, Gaussian weight) Poisson taps, the plane decoded (kDec: 0 or 1)
+//         8 x (x, y, Gaussian weight) Poisson taps, the plane decoded (kDec: 0 or 1), the
+//         planes' first row in the frame and the frame's height (a band of rows: the uv and
+//         the taps' rows are the frame's, a texel is read at its frame row minus row0)
 extern "C" int nrd_sigma_blur(void* const* p, const float* c, int w, int h, void* stream) {
   BlurArgs a;
   a.penumbra = (const float*)p[0];
@@ -304,6 +307,8 @@ extern "C" int nrd_sigma_blur(void* const* p, const float* c, int w, int h, void
   for (int k = 0; k < kPoissonTaps; ++k)
     for (int j = 0; j < 3; ++j) a.poisson[k][j] = c[30 + kDenseTaps + 3 * k + j];
   const bool dec = c[30 + kDenseTaps + 3 * kPoissonTaps] != 0.0f;
+  a.row0 = (int)c[31 + kDenseTaps + 3 * kPoissonTaps];
+  a.fh = (int)c[32 + kDenseTaps + 3 * kPoissonTaps];
   // without a shadow input the pass reads no shadow, so the first-pass flag does not matter;
   // the decoded plane (kDec) in the modes that the two SIGMA variants launch
   const Kernel kernel = dec ? (!has_shadow      ? sigma_blur_kernel<1, true, false, true>

@@ -48,13 +48,15 @@ struct TsArgs {
   const float* penumbra;        // (h, w) PostBlur penumbra
   const float* view_z;          // (h, w) raw viewZ
   const float* mv;              // (h, w, 3) IN_MV
-  const float* prev_view_z;     // (h, w) state
-  const float* prev_len;        // (h, w) state: history length
-  const __nv_bfloat16* hist;    // (h, w, C) state: packed shadow history
+  const float* prev_view_z;     // (ph, w) state
+  const float* prev_len;        // (ph, w) state: history length
+  const __nv_bfloat16* hist;    // (ph, w, C) state: packed shadow history
   const float* tile;            // (2, h, w): tile value, sky-tile mask
   float* out;                   // (h, w, C) packed shadow
   float* state;                 // (2, h, w): new prev_view_z, new history length
   int w, h;
+  int row0, fh;                 // the current planes' first row in the frame, its height
+  int ph;                       // the previous planes' height
   float view_z_scale, mrdu, rect_prev_w, rect_prev_h, stab, denoising_range;
   nrd::SurfaceMotionConsts smc;
   float gauss[kTaps];
@@ -125,8 +127,9 @@ __global__ void __launch_bounds__(kTile * kTile, kMinCtas<C>) sigma_ts_kernel(Ts
   float new_z, new_len;
   if (dead) {  // the input and the state pass through
     channels<C>(load_texel(shadow, i), packed);
-    new_z = __ldg(a.prev_view_z + i);
-    new_len = rintf(__ldg(a.prev_len + i));
+    const size_t pi = (size_t)nrd::clampi(y + a.row0, 0, a.ph - 1) * a.w + x;
+    new_z = __ldg(a.prev_view_z + pi);
+    new_len = rintf(__ldg(a.prev_len + pi));
   } else if (is_hard_shadow) {  // the centre, with the full history length
 #pragma unroll
     for (int c = 0; c < C; ++c) packed[c] = sqrtf(nrd::saturate(center[c]));
@@ -165,15 +168,16 @@ __global__ void __launch_bounds__(kTile * kTile, kMinCtas<C>) sigma_ts_kernel(Ts
     // the reprojected position (:329-352)
     const float mv_in[3] = {__ldg(a.mv + 3 * i), __ldg(a.mv + 3 * i + 1), __ldg(a.mv + 3 * i + 2)};
     const nrd::SurfaceMotion sm =
-        nrd::surface_motion(a.smc, nrd::pixel_u(x, a.w), nrd::pixel_u(y, a.h), view_z, mv_in);
+        nrd::surface_motion(a.smc, nrd::pixel_u(x, a.w), nrd::pixel_u(y + a.row0, a.fh), view_z,
+                            mv_in);
 
     // history length gather with disocclusion (:354-376)
     const float posx = sm.u * a.rect_prev_w - 0.5f, posy = sm.v * a.rect_prev_h - 0.5f;
     const float fx = floorf(posx), fy = floorf(posy);
     const int bx = nrd::to_index(fx), by = nrd::to_index(fy);
     const int c0 = nrd::clampi(bx, 0, a.w - 1), c1 = nrd::clampi(bx + 1, 0, a.w - 1);
-    const size_t r0 = (size_t)nrd::clampi(by, 0, a.h - 1) * a.w;
-    const size_t r1 = (size_t)nrd::clampi(by + 1, 0, a.h - 1) * a.w;
+    const size_t r0 = (size_t)nrd::clampi(by, 0, a.ph - 1) * a.w;
+    const size_t r1 = (size_t)nrd::clampi(by + 1, 0, a.ph - 1) * a.w;
     const size_t idx[4] = {r0 + c0, r0 + c1, r1 + c0, r1 + c1};
     const float lz = view_z + (1.0f - view_z) * fabsf(a.smc.ortho);
     float threshold = a.mrdu * lz * kDisocclusionThreshold;
@@ -199,7 +203,7 @@ __global__ void __launch_bounds__(kTile * kTile, kMinCtas<C>) sigma_ts_kernel(Ts
     using Bf16Texel = std::conditional_t<C == 4, uint2, unsigned short>;
     const Bf16Texel* img[1] = {reinterpret_cast<const Bf16Texel*>(a.hist)};
     Texel<C> sampled[1];
-    nrd::catrom_apply4<1>(img, a.w, a.h, taps, sampled);
+    nrd::catrom_apply4<1>(img, a.w, a.ph, taps, sampled);
     float hist[C];
     channels<C>(sampled[0], hist);
 #pragma unroll
@@ -246,7 +250,9 @@ __global__ void __launch_bounds__(kTile * kTile, kMinCtas<C>) sigma_ts_kernel(Ts
 //         stabilization_strength, denoising_range, 25 Gaussian weights of the 5x5, then the
 //         reprojection's (sigma_ts.py:reprojection_consts): frustum[4], frustum_prev[4],
 //         world_to_view[:3, :3], world_to_view_prev[:3, :4], world_to_clip_prev rows 0, 1, 3,
-//         camera_delta[3], mv_scale[:3], mv_scale[2] != 0, mv_scale[3] != 0, ortho_mode
+//         camera_delta[3], mv_scale[:3], mv_scale[2] != 0, mv_scale[3] != 0, ortho_mode,
+//         then the current planes' first row in the frame and the frame's height, and the
+//         previous planes' height (the whole frame's under a band of its rows; same width)
 extern "C" int nrd_sigma_ts(void* const* p, const float* c, int w, int h, void* stream) {
   TsArgs a;
   a.shadow = (const float*)p[0];
@@ -282,6 +288,9 @@ extern "C" int nrd_sigma_ts(void* const* p, const float* c, int w, int h, void* 
   k.mv_z_given = r[47] != 0.0f;
   k.world_mv = r[48] != 0.0f;
   k.ortho = r[49];
+  a.row0 = (int)r[50];
+  a.fh = (int)r[51];
+  a.ph = (int)r[52];
   const dim3 block(kTile, kTile);
   const dim3 grid((w + kTile - 1) / kTile, (h + kTile - 1) / kTile);
   if (channels == 1)

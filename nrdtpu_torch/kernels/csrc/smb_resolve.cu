@@ -65,6 +65,8 @@ struct SmbArgs {
   const uint2* sh[2];       // (h, w, 4) bf16 SH history of each signal (kSh)
   float* out_sh;            // (nsig, h, w, 4) (kSh)
   int w, h;
+  int ph;                   // the previous planes' and histories' height (the whole frame's
+                            // when the current planes are a band of its rows; same width)
   float view_z_scale, denoising_range, rect_prev_w, rect_prev_h, min_material;
   float m[9];               // world_prev_to_world rotation, row-major
 };
@@ -114,7 +116,7 @@ __global__ void __launch_bounds__(256, kMinCtas) smb_resolve_kernel(SmbArgs a) {
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     col[k] = nrd::clampi(bx - 1 + k, 0, a.w - 1);
-    row[k] = (size_t)nrd::clampi(by - 1 + k, 0, a.h - 1) * a.w;
+    row[k] = (size_t)nrd::clampi(by - 1 + k, 0, a.ph - 1) * a.w;
   }
 
   // previous normal average over the centre 2x2 (t = 0..3: (1, 1), (2, 1), (1, 2), (2, 2)),
@@ -196,20 +198,20 @@ __global__ void __launch_bounds__(256, kMinCtas) smb_resolve_kernel(SmbArgs a) {
     const unsigned short* img[kNSig];
 #pragma unroll
     for (int s = 0; s < kNSig; ++s) img[s] = reinterpret_cast<const unsigned short*>(a.hist[s]);
-    nrd::catrom_apply4<kNSig>(img, a.w, a.h, taps, hist1);
+    nrd::catrom_apply4<kNSig>(img, a.w, a.ph, taps, hist1);
   } else {
     const uint2* img[kNSig];
 #pragma unroll
     for (int s = 0; s < kNSig; ++s) img[s] = reinterpret_cast<const uint2*>(a.hist[s]);
-    nrd::catrom_apply4<kNSig>(img, a.w, a.h, taps, hist);
+    nrd::catrom_apply4<kNSig>(img, a.w, a.ph, taps, hist);
   }
   const int fx0 = nrd::to_index(floorf(spx - 0.5f)), fy0 = nrd::to_index(floorf(spy - 0.5f));
   float4* out_hist = reinterpret_cast<float4*>(a.out_hist);
 #pragma unroll
   for (int s = 0; s < kNSig; ++s) {
     float das, fast;
-    nrd::bilinear_custom(Image<float, 1>{a.accum[s], a.w, a.h}, bx, by, ow, &das);
-    nrd::bilinear_custom(Image<__nv_bfloat16, 1>{a.fast[s], a.w, a.h}, fx0, fy0, ow, &fast);
+    nrd::bilinear_custom(Image<float, 1>{a.accum[s], a.w, a.ph}, bx, by, ow, &das);
+    nrd::bilinear_custom(Image<__nv_bfloat16, 1>{a.fast[s], a.w, a.ph}, fx0, fy0, ow, &fast);
     if constexpr (kOcc)
       a.out_hist[s * plane + i] = hist1[s];
     else
@@ -218,7 +220,7 @@ __global__ void __launch_bounds__(256, kMinCtas) smb_resolve_kernel(SmbArgs a) {
     a.out_planes[(4 + 2 * s) * plane + i] = fast;
     if constexpr (kSh)
       reinterpret_cast<float4*>(a.out_sh)[s * plane + i] =
-          nrd::bilinear_custom4(a.sh[s], a.w, a.h, fx0, fy0, ow);
+          nrd::bilinear_custom4(a.sh[s], a.w, a.ph, fx0, fy0, ow);
   }
   float* nv = a.out_navg + 3 * i;
   nv[0] = n_avg.x;
@@ -261,7 +263,7 @@ extern "C" const char* nrd_error_string(int err) {
 //       with one), out_sh, the SH history of each signal (bf16; null without SH)
 // consts: view_z_scale, denoising_range, rect_prev_w, rect_prev_h, min_material, m[9],
 //         signal count (1 or 2), SH (0 or 1), one-channel histories (0 or 1; not with SH), nr
-//         and prev_nr the RGBA formats' decoded planes (0 or 1)
+//         and prev_nr the RGBA formats' decoded planes (0 or 1), the previous planes' height
 extern "C" int nrd_smb_resolve(void* const* p, const float* c, int w, int h, void* stream) {
   SmbArgs a;
   a.smb_uv = (const float*)p[0];
@@ -277,6 +279,7 @@ extern "C" int nrd_smb_resolve(void* const* p, const float* c, int w, int h, voi
   a.out_navg = (float*)p[13];
   a.w = w;
   a.h = h;
+  a.ph = (int)c[18];
   const int nsig = (int)c[14];
   if (nsig != 1 && nsig != 2) return (int)cudaErrorInvalidValue;
   for (int s = 0; s < 2; ++s) {  // the second signal's pointers follow the outputs

@@ -88,11 +88,11 @@ __global__ void __launch_bounds__(256, kMinCtas) spatial_filter_kernel(SfArgs a)
   float hit_dist = kOcc ? __ldg(a.signal + i) : __ldg(a.signal + 4 * i + 3);
   float has_data = 1.0f;
   if constexpr (kCb) {  // the centre's signal zeroed where it has no data, as signal * cb_mask
-    has_data = nrd::cb_has_data(x, y, a.f.frame_index, a.cb.parity);
+    has_data = nrd::cb_has_data(x, y + a.f.row0, a.f.frame_index, a.cb.parity);
     hit_dist = hit_dist * has_data;
   }
   const float data1 = kPrepass ? 0.0f : __ldg(a.data1 + i);
-  const float u = nrd::pixel_u(x, a.f.w), v = nrd::pixel_u(y, a.f.h);
+  const float u = nrd::pixel_u(x, a.f.w), v = nrd::pixel_u(y + a.f.row0, a.f.fh);
   const nrd::FilterGeometry g =
       nrd::filter_geometry<kSpec, kDec>(a.f, a.geo, u, v, __ldg(a.view_z + i), nrc);
 
@@ -210,7 +210,8 @@ Kernel pick(bool spec, bool prepass, bool cb, bool sh, bool occ, int rough, bool
 //         has-data parity (-1: off; PrePass only), denoising range, SH (0 or 1; not with the
 //         checkerboard), one-channel occlusion signal (0 or 1; Blur and PostBlur only, no SH),
 //         the roughness encoding of nr (0 LINEAR, 1 SQRT_LINEAR, 2 SQ_LINEAR; specular only),
-//         nr the RGBA formats' decoded plane (0 or 1; at LINEAR only)
+//         nr the RGBA formats' decoded plane (0 or 1; at LINEAR only), the planes' first row in
+//         the frame and the frame's height (reblur_filters.cuh:SfFrame)
 extern "C" int nrd_spatial_filter(void* const* p, const float* c, int w, int h, void* stream) {
   SfArgs a;
   a.signal = (const float*)p[0];
@@ -224,6 +225,8 @@ extern "C" int nrd_spatial_filter(void* const* p, const float* c, int w, int h, 
   a.out_sh = (float*)p[8];
   a.f.w = w;
   a.f.h = h;
+  a.f.row0 = (int)c[55];
+  a.f.fh = (int)c[56];
   for (int k = 0; k < 4; ++k) a.f.fr[k] = c[k];
   a.f.rect_w = c[4];
   a.f.rect_h = c[5];

@@ -82,7 +82,7 @@ __device__ __forceinline__ void filter_pixel(const SffArgs& a, const Taps& taps,
   const size_t i = (size_t)y * a.f.w + x;
   const size_t plane = (size_t)a.f.w * a.f.h;
   const Image<float, 4> nr{a.nr, a.f.w, a.f.h};
-  const nrd::Centre c = nrd::sf_centre<Taps::kDecoded>(a.shared + i, plane, nr, x, y);
+  const nrd::Centre c = nrd::sf_centre<Taps::kDecoded>(a.f, a.shared + i, plane, nr, x, y);
   const Image<float, 4> sig{a.signal[s], a.f.w, a.f.h};
   const float has_data = kCb ? nrd::cb_has_data(x, y, a.f.frame_index, a.cb.parity) : 1.0f;
   float out[4], sh_out[4];
@@ -179,6 +179,8 @@ extern "C" int nrd_spatial_filter_fused(void* const* p, const float* c, int w, i
   a.out_sh = (float*)p[12];
   a.f.w = w;
   a.f.h = h;
+  a.f.row0 = 0;  // a whole frame
+  a.f.fh = h;
   for (int k = 0; k < 4; ++k) a.f.fr[k] = c[k];
   a.f.rect_w = c[4];
   a.f.rect_h = c[5];

@@ -59,6 +59,8 @@ struct TsArgs {
   float* out;                  // (h, w, 4) stabilized signal
   float* planes;               // (2, h, w): luma_stab, new accumulation speed
   int w, h;
+  int ph;                      // the history's height (the whole frame's under a band of its
+                               // rows; same width)
   float rect_prev_w, rect_prev_h;
   bool rcrs;                   // maxBlurRadius != 0
   float split_screen, split_screen_prev;
@@ -89,7 +91,7 @@ __device__ __forceinline__ Sample sample_history(const TsArgs& a, float u, float
                                                 occ_sum > 3.5f, ow);
   const unsigned short* img[1] = {reinterpret_cast<const unsigned short*>(a.hist)};
   float h[1];
-  nrd::catrom_apply4<1>(img, a.w, a.h, taps, h);
+  nrd::catrom_apply4<1>(img, a.w, a.ph, taps, h);
   return Sample{fmaxf(h[0], 0.0f),
                 sqrtf(nrd::saturate(ow[0] + ow[1] + ow[2] + ow[3]))};
 }
@@ -211,7 +213,7 @@ __global__ void __launch_bounds__(kTile * kTile, kMinCtas) ts_prelude_kernel(TsA
 //         antilag sigma scale, antilag magic, 3 x framerate scale, stabilization strength,
 //         history fix frame num, specular (0 / 1), responsive roughness threshold + eps,
 //         strand material id, directional occlusion (0 / 1; diffuse only), nr the RGBA formats'
-//         decoded plane (0 / 1; specular only)
+//         decoded plane (0 / 1; specular only), the history's height
 extern "C" int nrd_ts_prelude(void* const* p, const float* c, int w, int h, void* stream) {
   TsArgs a;
   a.signal = (const float*)p[0];
@@ -240,6 +242,7 @@ extern "C" int nrd_ts_prelude(void* const* p, const float* c, int w, int h, void
   a.responsive_threshold = c[11];
   a.strand_material_id = c[12];
   const bool dir = c[13] != 0.0f;
+  a.ph = (int)c[15];
   if ((spec && (a.vmb_uv == nullptr || a.vha == nullptr || a.nr == nullptr)) || (spec && dir))
     return (int)cudaErrorInvalidValue;
   const dim3 block(kTile, kTile);

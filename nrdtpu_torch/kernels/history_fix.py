@@ -97,11 +97,13 @@ def tap_geometry_ref(normal_roughness, view_z_in, view_z_scale, decoded=False):
 
 def taps_and_clamp_ref(signal, view_z_in, normal_roughness, data1, fast_history, shared, params,
                     smc, *, frustum, rect_size_inv, view_z_scale, ortho_mode, min_material, dc,
-                    anti_firefly=False, sh=None, directional=False, decoded=False):
+                    anti_firefly=False, sh=None, directional=False, decoded=False, row0=0,
+                    frame_h=None):
     """The XLA stride-tap loop, the 3x3 moments and the ring, then
     `params.history_fix_clamp`. Returns (signal_out, fast_out), and with `sh` (the signal's
     SH1) also its history fix, scaled to the clamped luma. decoded: normal_roughness is the
-    RGBA formats' decoded plane (its material 0)."""
+    RGBA formats' decoded plane (its material 0); row0, frame_h: the planes' rows in the frame
+    (the uv and a tap's row, clamped to the frame, are the frame's)."""
     h, w = view_z_in.shape
     spec = params.shape[0] == len(PARAMS) + len(SPEC_PARAMS)
     p = dict(zip(SHARED, shared))
@@ -110,9 +112,11 @@ def taps_and_clamp_ref(signal, view_z_in, normal_roughness, data1, fast_history,
     n = torch.stack([p["nx"], p["ny"], p["nz"]], -1)
     nv = torch.stack([p["nvx"], p["nvy"], p["nvz"]], -1)
     material_id = fe.unpack_normal_plane(normal_roughness, decoded)[2]
-    uv = resample.pixel_uv_grid(h, w, signal.device)
+    fh = h if frame_h is None else frame_h
+    uv = resample.pixel_uv_grid(h, w, signal.device, row0, fh)
     xs = torch.arange(w, dtype=torch.float32, device=signal.device)[None, :].expand(h, w)
-    ys = torch.arange(h, dtype=torch.float32, device=signal.device)[:, None].expand(h, w)
+    ys = torch.arange(row0, row0 + h, dtype=torch.float32,
+                      device=signal.device)[:, None].expand(h, w)
 
     sum_ = 1.0 + data1
     acc = signal * sum_[..., None]
@@ -125,7 +129,7 @@ def taps_and_clamp_ref(signal, view_z_in, normal_roughness, data1, fast_history,
             uv_s = torch.stack([uv[..., 0] + ofx * float(rect_size_inv[0]),
                                 uv[..., 1] + ofy * float(rect_size_inv[1])], -1)
             px = torch.clamp(xs + ofx, 0, w - 1).long()
-            py = torch.clamp(ys + ofy, 0, h - 1).long()
+            py = torch.clamp(ys + ofy, 0, fh - 1).long() - row0
             zs = torch.abs(resample.texel_fetch(view_z_in, px, py)) * view_z_scale
             ns, rs, ms = fe.unpack_normal_plane(resample.texel_fetch(normal_roughness, px, py),
                                                 decoded)
@@ -167,7 +171,8 @@ def taps_and_clamp_ref(signal, view_z_in, normal_roughness, data1, fast_history,
 
 def history_fix_ref(signal, view_z_in, normal_roughness, data1, fast_history, shared, params,
                     smc, *, frustum, rect_size_inv, view_z_scale, ortho_mode, min_material, dc,
-                    anti_firefly=False, sh=None, directional=False, decoded=False):
+                    anti_firefly=False, sh=None, directional=False, decoded=False, row0=0,
+                    frame_h=None):
     """Plain PyTorch version of the kernel: the XLA stride-tap loop, the 3x3 moments and the
     ring, then `params.history_fix_clamp`; and the tap geometry. Returns dict(signal, fast,
     geometry[, sh])."""
@@ -175,7 +180,7 @@ def history_fix_ref(signal, view_z_in, normal_roughness, data1, fast_history, sh
         signal, view_z_in, normal_roughness, data1, fast_history, shared, params, smc,
         frustum=frustum, rect_size_inv=rect_size_inv, view_z_scale=view_z_scale,
         ortho_mode=ortho_mode, min_material=min_material, dc=dc, anti_firefly=anti_firefly,
-        sh=sh, directional=directional, decoded=decoded)
+        sh=sh, directional=directional, decoded=decoded, row0=row0, frame_h=frame_h)
     out = dict(signal=res[0], fast=res[1],
                geometry=tap_geometry_ref(normal_roughness, view_z_in, view_z_scale, decoded))
     if sh is not None:
@@ -190,9 +195,15 @@ def check_params(shared, params):
         raise ValueError(f"params: {params.shape[0]} planes")
 
 
+# the wrapper's arguments that are previous-frame planes: whole frames under a mesh, while
+# the current planes are a band of rows (`parallel.sharding.band_call`)
+PREVIOUS_PLANES = ()
+
+
 def history_fix(signal, view_z_in, normal_roughness, data1, fast_history, shared, params, smc,
                 *, frustum, rect_size_inv, view_z_scale, ortho_mode, min_material, dc,
-                anti_firefly=False, sh=None, directional=False, decoded=False):
+                anti_firefly=False, sh=None, directional=False, decoded=False, row0=0,
+                frame_h=None):
     """signal (h, w, 4), or (h, w, 1) with the occlusion variants (no SH), data1 = accumulated
     frames (h, w), fast_history (h, w), shared float32
     planes named by SHARED (9, h, w), params named by PARAMS (5, h, w; diffuse) or PARAMS +
@@ -203,11 +214,13 @@ def history_fix(signal, view_z_in, normal_roughness, data1, fast_history, shared
     w, 4); directional: REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION's clamp (diffuse, four channels,
     no SH); decoded: normal_roughness is the RGBA formats' decoded plane
     (`frontend.decode_normal_plane`, its roughness decoded; the kernel's kDec instances), else
-    packed R10G10B10A2."""
+    packed R10G10B10A2; row0, frame_h: the planes are the frame rows row0 .. row0 + h - 1 of a
+    frame frame_h high (a band of `parallel.shard_stencil`; default the whole frame)."""
     global launches, dec_launches
     kw = dict(frustum=frustum, rect_size_inv=rect_size_inv, view_z_scale=view_z_scale,
               ortho_mode=ortho_mode, min_material=min_material, dc=dc,
-              anti_firefly=anti_firefly, sh=sh, directional=directional, decoded=decoded)
+              anti_firefly=anti_firefly, sh=sh, directional=directional, decoded=decoded,
+              row0=row0, frame_h=frame_h)
     check_params(shared, params)
     spec = params.shape[0] != len(PARAMS)
     if (smc is None) == spec:
@@ -237,7 +250,8 @@ def history_fix(signal, view_z_in, normal_roughness, data1, fast_history, shared
     out_sh = None if sh is None else torch.empty((h, w, 4), dtype=f32, device=dev)
     consts = [*frustum, rect_size_inv[0], rect_size_inv[1], view_z_scale, ortho_mode,
               min_material, spec, anti_firefly, P.history_fix_frame_div(dc),
-              P.fast_history_enabled(dc), sh is not None, c == 1, directional, decoded]
+              P.fast_history_enabled(dc), sh is not None, c == 1, directional, decoded, row0,
+              h if frame_h is None else frame_h]
     build.launch("nrd_history_fix", [t for _, t, _ in ins[:7]] + [smc, out, fast, geometry,
                                                                  sh, out_sh],
                  consts, w, h)

@@ -63,13 +63,14 @@ def _unpacked(shadow, first_pass):
 def sigma_blur_ref(penumbra_in, shadow_in, view_z_in, normal_roughness, tile, *, first_pass,
                    rotator, view_z_scale, frustum, ortho_mode, unproject,
                    min_rect_dim_mul_unproject, plane_dist_sensitivity, world_to_view, rect_size,
-                   rect_size_inv, denoising_range, decoded=False):
+                   rect_size_inv, denoising_range, decoded=False, row0=0, frame_h=None):
     """Plain PyTorch version of the kernel (the XLA `blur`, op for op). shadow_in: (h, w, c)
-    or None; tile: (2, h, w) = the tile value and the sky-tile mask per pixel. Returns
-    (penumbra (h, w), packed shadow (h, w, c))."""
+    or None; tile: (2, h, w) = the tile value and the sky-tile mask per pixel; row0, frame_h:
+    the planes' rows in the frame (`resample.pixel_uv_grid`). Returns (penumbra (h, w), packed
+    shadow (h, w, c))."""
     h, w = penumbra_in.shape
     dev = penumbra_in.device
-    uv = resample.pixel_uv_grid(h, w, dev)
+    uv = resample.pixel_uv_grid(h, w, dev, row0, frame_h)
     view_z = torch.abs(view_z_in) * view_z_scale
     ortho = float(ortho_mode)
     shadow = (S.is_lit(penumbra_in)[..., None] if shadow_in is None
@@ -138,10 +139,10 @@ def sigma_blur_ref(penumbra_in, shadow_in, view_z_in, normal_roughness, tile, *,
         # snap to the pixel centre (:238), a true division as in the kernel
         uv_s = torch.stack([nm.div(torch.floor(uv_s[..., a] * rs[a]) + 0.5, rs[a])
                             for a in (0, 1)], -1)
-        penum = resample.sample_nearest(penumbra_in, uv_s)
-        zs = torch.abs(resample.sample_nearest(view_z_in, uv_s)) * view_z_scale
+        penum = resample.sample_nearest(penumbra_in, uv_s, row0, frame_h)
+        zs = torch.abs(resample.sample_nearest(view_z_in, uv_s, row0, frame_h)) * view_z_scale
         s = (S.is_lit(penum)[..., None] if shadow_in is None
-             else _unpacked(resample.sample_nearest(shadow_in, uv_s), first_pass))
+             else _unpacked(resample.sample_nearest(shadow_in, uv_s, row0, frame_h), first_pass))
         xvs = nm.reconstruct_view_position(uv_s, frustum, zs, ortho)
         w_ = resample.is_in_screen_nearest(uv_s)
         w_ = w_ * nm.compute_weight(nm.dot(nv, xvs), ga, gb)
@@ -166,22 +167,28 @@ def sigma_blur_ref(penumbra_in, shadow_in, view_z_in, normal_roughness, tile, *,
     return torch.where(no_denoise, center_penumbra, penumbra_out), shadow_final
 
 
+# the wrapper's arguments that are previous-frame planes: whole frames under a mesh, while
+# the current planes are a band of rows (`parallel.sharding.band_call`)
+PREVIOUS_PLANES = ()
+
+
 def sigma_blur(penumbra_in, shadow_in, view_z_in, normal_roughness, tile, *, first_pass,
                rotator, view_z_scale, frustum, ortho_mode, unproject,
                min_rect_dim_mul_unproject, plane_dist_sensitivity, world_to_view, rect_size,
-               rect_size_inv, denoising_range, decoded=False):
+               rect_size_inv, denoising_range, decoded=False, row0=0, frame_h=None):
     """penumbra_in, view_z_in (h, w), normal_roughness (h, w, 4), shadow_in (h, w, c) with
     c = 1 or 4, or None (then c = 1), tile (2, h, w) = tile value and sky mask; decoded:
     normal_roughness is the RGBA formats' decoded plane (`frontend.decode_normal_plane`, the
-    kernel's kDec instances), else packed R10G10B10A2. Returns (penumbra (h, w), packed shadow
-    (h, w, c))."""
+    kernel's kDec instances), else packed R10G10B10A2; row0, frame_h: the planes are the frame
+    rows row0 .. row0 + h - 1 of a frame frame_h high (a band of `parallel.shard_stencil`;
+    default the whole frame). Returns (penumbra (h, w), packed shadow (h, w, c))."""
     global launches, dec_launches
     kw = dict(first_pass=first_pass, rotator=rotator, view_z_scale=view_z_scale,
               frustum=frustum, ortho_mode=ortho_mode, unproject=unproject,
               min_rect_dim_mul_unproject=min_rect_dim_mul_unproject,
               plane_dist_sensitivity=plane_dist_sensitivity, world_to_view=world_to_view,
               rect_size=rect_size, rect_size_inv=rect_size_inv, denoising_range=denoising_range,
-              decoded=decoded)
+              decoded=decoded, row0=row0, frame_h=frame_h)
     dev = build.kernel_device(penumbra_in)
     if dev is None:
         return sigma_blur_ref(penumbra_in, shadow_in, view_z_in, normal_roughness, tile, **kw)
@@ -202,7 +209,8 @@ def sigma_blur(penumbra_in, shadow_in, view_z_in, normal_roughness, tile, *, fir
               unproject, min_rect_dim_mul_unproject, plane_dist_sensitivity,
               *np.asarray(world_to_view, np.float32)[:3, :3].reshape(-1), *_v(rotator),
               *_v(rect_size), *_v(rect_size_inv), denoising_range,
-              *[g for _, _, g in DENSE_TAPS], *[v for tap in POISSON_TAPS for v in tap], decoded]
+              *[g for _, _, g in DENSE_TAPS], *[v for tap in POISSON_TAPS for v in tap], decoded,
+              row0, h if frame_h is None else frame_h]
     # without a shadow input the kernel gets the penumbra in its place and does not read it
     shadow = shadow_in if shadow_in is not None else penumbra_in
     build.launch("nrd_sigma_blur", [penumbra_in, shadow, view_z_in, normal_roughness, tile,

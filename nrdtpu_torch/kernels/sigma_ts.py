@@ -45,18 +45,20 @@ TAPS = [(dy, dx, nm.get_gaussian_weight(float((dx * dx + dy * dy) ** 0.5) / BORD
 
 def sigma_ts_ref(shadow_packed, penumbra, view_z_in, mv_in, prev_view_z, prev_history_len,
                  history, tile, *, view_z_scale, min_rect_dim_mul_unproject, rect_size_prev,
-                 stabilization_strength, denoising_range, reprojection):
+                 stabilization_strength, denoising_range, reprojection, row0=0, frame_h=None):
     """Plain PyTorch version of the kernel (the XLA `temporal_stabilization`, op for op).
-    shadow_packed (h, w, c) float32, mv_in (h, w, 3) IN_MV, history (h, w, c) bf16, tile
-    (2, h, w); reprojection: the frame constants of `surface_motion_position` (REPROJECTION).
-    Returns (packed shadow (h, w, c), new prev_view_z, new history_len)."""
+    shadow_packed (h, w, c) float32, mv_in (h, w, 3) IN_MV, history (ph, w, c) bf16, tile
+    (2, h, w); reprojection: the frame constants of `surface_motion_position` (REPROJECTION);
+    row0, frame_h: the current planes' rows in the frame; the previous planes (prev_view_z,
+    prev_history_len, history) are whole frames. Returns (packed shadow (h, w, c), new
+    prev_view_z, new history_len)."""
     # the pass glue's own function; its module imports this package, so it is imported here
     from ..passes.reblur.kernels import surface_motion_position
 
     h, w = view_z_in.shape
     ortho_mode = float(reprojection["ortho_mode"])
     # the reprojected position (:329-352)
-    uv = resample.pixel_uv_grid(h, w, view_z_in.device)
+    uv = resample.pixel_uv_grid(h, w, view_z_in.device, row0, frame_h)
     view_z = torch.abs(view_z_in) * view_z_scale
     xv = nm.reconstruct_view_position(uv, reprojection["frustum"], view_z, ortho_mode)
     x = nm.rotate_vector_transposed(reprojection["world_to_view"], xv)
@@ -128,8 +130,10 @@ def sigma_ts_ref(shadow_packed, penumbra, view_z_in, mv_in, prev_view_z, prev_hi
     new_history_length = torch.clamp_max(history_length + 1.0, S.SIGMA_MAX_ACCUM_FRAME_NUM)
     dead = (sky_tile > 0.0) | (view_z > float(denoising_range))
     out = torch.where(dead[..., None], shadow_packed, S.pack_shadow(result))
-    new_history_length = torch.round(torch.where(dead, prev_history_len, new_history_length))
-    return out, torch.where(dead, prev_view_z, view_z), new_history_length
+    new_history_length = torch.round(torch.where(
+        dead, resample.frame_rows(prev_history_len, row0, h), new_history_length))
+    return (out, torch.where(dead, resample.frame_rows(prev_view_z, row0, h), view_z),
+            new_history_length)
 
 
 # the frame constants of the reprojection (`surface_motion_position`'s `sc` keys)
@@ -153,27 +157,36 @@ def reprojection_consts(reprojection):
             float(reprojection["ortho_mode"])]
 
 
+# the wrapper's arguments that are previous-frame planes: whole frames under a mesh, while
+# the current planes are a band of rows (`parallel.sharding.band_call`)
+PREVIOUS_PLANES = ("prev_view_z", "prev_history_len", "history")
+
+
 def sigma_ts(shadow_packed, penumbra, view_z_in, mv_in, prev_view_z, prev_history_len, history,
              tile, *, view_z_scale, min_rect_dim_mul_unproject, rect_size_prev,
-             stabilization_strength, denoising_range, reprojection):
-    """See `sigma_ts_ref`; c = 1 or 4. Returns (packed shadow, prev_view_z, history_len)."""
+             stabilization_strength, denoising_range, reprojection, row0=0, frame_h=None):
+    """See `sigma_ts_ref`; c = 1 or 4; the previous planes (ph, w), a height of their own (the
+    whole frame's when the current planes are a band of its rows). Returns (packed shadow,
+    prev_view_z, history_len)."""
     global launches
     kw = dict(view_z_scale=view_z_scale, min_rect_dim_mul_unproject=min_rect_dim_mul_unproject,
               rect_size_prev=rect_size_prev, stabilization_strength=stabilization_strength,
-              denoising_range=denoising_range, reprojection=reprojection)
+              denoising_range=denoising_range, reprojection=reprojection, row0=row0,
+              frame_h=frame_h)
     dev = build.kernel_device(shadow_packed)
     if dev is None:
         return sigma_ts_ref(shadow_packed, penumbra, view_z_in, mv_in, prev_view_z,
                             prev_history_len, history, tile, **kw)
     h, w, c = shadow_packed.shape
+    ph = prev_view_z.shape[0]
     if c not in (1, 4):
         raise ValueError(f"shadow_packed: {c} channels, the kernel takes 1 or 4")
     f32 = torch.float32
     ins = [("shadow_packed", shadow_packed, f32, (h, w, c)), ("penumbra", penumbra, f32, (h, w)),
            ("view_z_in", view_z_in, f32, (h, w)), ("mv_in", mv_in, f32, (h, w, 3)),
-           ("prev_view_z", prev_view_z, f32, (h, w)),
-           ("prev_history_len", prev_history_len, f32, (h, w)),
-           ("history", history, torch.bfloat16, (h, w, c)), ("tile", tile, f32, (2, h, w))]
+           ("prev_view_z", prev_view_z, f32, (ph, w)),
+           ("prev_history_len", prev_history_len, f32, (ph, w)),
+           ("history", history, torch.bfloat16, (ph, w, c)), ("tile", tile, f32, (2, h, w))]
     for name, t, dt, shape in ins:
         build.check(name, t, dev, dt, shape)
     out = torch.empty((h, w, c), dtype=f32, device=dev)
@@ -181,7 +194,7 @@ def sigma_ts(shadow_packed, penumbra, view_z_in, mv_in, prev_view_z, prev_histor
     consts = [c, view_z_scale, min_rect_dim_mul_unproject,
               *[float(v) for v in np.asarray(rect_size_prev, np.float32)],
               stabilization_strength, denoising_range, *[g for _, _, g in TAPS],
-              *reprojection_consts(reprojection)]
+              *reprojection_consts(reprojection), row0, h if frame_h is None else frame_h, ph]
     build.launch("nrd_sigma_ts", [t for _, t, _, _ in ins] + [out, state], consts, w, h)
     launches += 1
     return out, state[0], state[1]

@@ -159,6 +159,12 @@ def _check_sh(sh, nsig):
         raise ValueError(f"sh: {len(sh)} SH histories for {nsig} signal(s); one a signal")
 
 
+# the wrapper's arguments that are previous-frame planes: whole frames under a mesh, while
+# the current planes are a band of rows (`parallel.sharding.band_call`)
+PREVIOUS_PLANES = ("prev_view_z", "prev_normal_roughness", "prev_material_id", "prev_accum",
+                   "history", "fast_history")
+
+
 def smb_resolve(smb_uv, xv_prev_z, base_threshold, navg_thr, normal_roughness, prev_view_z,
                 prev_normal_roughness, prev_material_id, prev_accum, history, fast_history,
                 *, view_z_scale, denoising_range, rect_size_prev, min_material,
@@ -166,9 +172,12 @@ def smb_resolve(smb_uv, xv_prev_z, base_threshold, navg_thr, normal_roughness, p
     """prev_accum: the previous accumulation speed of the signal whose history is sampled;
     history: its bf16 history, (h, w, 4), or (h, w, 1) with the occlusion variants.
     Returns dict(history (h, w, 4) or (h, w, 1), fast, fbits, allow_catrom (bool), footprint_raw,
-    accum_speed, n_avg (h, w, 3), smb_navg (h, w, 3)). All planes share the (h, w) of the
-    current frame;
-    the previous-frame planes and the histories have the same size (rect = resource).
+    accum_speed, n_avg (h, w, 3), smb_navg (h, w, 3)) at the (h, w) of the current planes. The
+    previous-frame planes and the histories share a height ph of their own (and the current
+    planes' width): the current planes', or the whole frame's where they are a band of its rows
+    (the kernel
+    takes no row origin: its uv is the `smb_uv` input, and its only stencil, the 2x2 normal
+    average, reads the band's own rows).
     second: (prev_accum, history, fast_history) of a second signal, sampled in the same
     launch; its results come as history_2, fast_2 and accum_speed_2. sh: with the SH variants
     the (h, w, 4) bf16 SH history of each signal (one or two), sampled in the same launch: sh
@@ -188,21 +197,23 @@ def smb_resolve(smb_uv, xv_prev_z, base_threshold, navg_thr, normal_roughness, p
                                prev_view_z, prev_normal_roughness, prev_material_id,
                                prev_accum, history, fast_history, second=second, sh=sh, **kw)
     h, w = xv_prev_z.shape
+    ph = prev_view_z.shape[0]
     f32, bf16 = torch.float32, torch.bfloat16
     ins = [("smb_uv", smb_uv, f32, (h, w, 2)), ("xv_prev_z", xv_prev_z, f32, (h, w)),
            ("base_threshold", base_threshold, f32, (h, w)), ("navg_thr", navg_thr, f32, (h, w)),
            ("normal_roughness", normal_roughness, f32, (h, w, 4)),
-           ("prev_view_z", prev_view_z, f32, (h, w)),
-           ("prev_normal_roughness", prev_normal_roughness, f32, (h, w, 4)),
-           ("prev_material_id", prev_material_id, f32, (h, w)),
-           ("prev_accum", prev_accum, f32, (h, w)),
-           ("history", history, bf16, (h, w, c)), ("fast_history", fast_history, bf16, (h, w))]
+           ("prev_view_z", prev_view_z, f32, (ph, w)),
+           ("prev_normal_roughness", prev_normal_roughness, f32, (ph, w, 4)),
+           ("prev_material_id", prev_material_id, f32, (ph, w)),
+           ("prev_accum", prev_accum, f32, (ph, w)),
+           ("history", history, bf16, (ph, w, c)),
+           ("fast_history", fast_history, bf16, (ph, w))]
     extra = []
     if second is not None:
-        extra = [("prev_accum_2", second[0], f32, (h, w)),
-                 ("history_2", second[1], bf16, (h, w, c)),
-                 ("fast_history_2", second[2], bf16, (h, w))]
-    sh_ins = [(f"sh[{k}]", t, bf16, (h, w, 4)) for k, t in enumerate(sh or ())]
+        extra = [("prev_accum_2", second[0], f32, (ph, w)),
+                 ("history_2", second[1], bf16, (ph, w, c)),
+                 ("fast_history_2", second[2], bf16, (ph, w))]
+    sh_ins = [(f"sh[{k}]", t, bf16, (ph, w, 4)) for k, t in enumerate(sh or ())]
     for name, t, dt, shape in ins + extra + sh_ins:
         build.check(name, t, dev, dt, shape)
     nsig = 1 + len(extra) // 3
@@ -212,7 +223,7 @@ def smb_resolve(smb_uv, xv_prev_z, base_threshold, navg_thr, normal_roughness, p
     m = np.asarray(world_prev_to_world, np.float32)[:3, :3].reshape(-1)
     out_sh = torch.empty((nsig, h, w, 4), dtype=f32, device=dev) if sh else None
     consts = [view_z_scale, denoising_range, rect_size_prev[0], rect_size_prev[1],
-              min_material, *m, nsig, sh is not None, c == 1, decoded]
+              min_material, *m, nsig, sh is not None, c == 1, decoded, ph]
     extra_ptrs = [t for _, t, _, _ in extra] + [None] * (3 - len(extra))
     build.launch("nrd_smb_resolve",
                  [t for _, t, _, _ in ins] + [out_hist, planes, navg] + extra_ptrs

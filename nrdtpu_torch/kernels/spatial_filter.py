@@ -105,10 +105,12 @@ def ntaps(perf_mode: bool) -> int:
     return len(nm.SPECIAL_6 if perf_mode else nm.SPECIAL_8)
 
 
-def cb_mask(h, w, frame_index, parity, device=None):
+def cb_mask(h, w, frame_index, parity, device=None, row0=0):
     """(h, w) float32: 1 where a pixel has data under the checkerboard of has-data parity
-    `parity` (int(mode) - 1), else 0 (`nrdtpu/passes/reblur/denoiser.py:189-195`)."""
-    return nm.checkerboard_has_data(h, w, frame_index, parity + 1, device).to(torch.float32)
+    `parity` (int(mode) - 1), else 0 (`nrdtpu/passes/reblur/denoiser.py:189-195`); the rows
+    are the frame rows row0 .. row0 + h - 1."""
+    return nm.checkerboard_has_data(h, w, frame_index, parity + 1, device,
+                                    row0).to(torch.float32)
 
 
 def cb_neighbor_resolve(signal, view_z, frustum_size, nov, denoising_range):
@@ -134,7 +136,7 @@ def cb_neighbor_resolve(signal, view_z, frustum_size, nov, denoising_range):
 
 def taps_ref(signal, view_z_in, normal_roughness, shared, params, *, frustum, rect_size,
              view_z_scale, ortho_mode, min_material, perf_mode, prepass=None, cb=None, sh=None,
-             roughness_encoding=RoughnessEncoding.LINEAR, decoded=False):
+             roughness_encoding=RoughnessEncoding.LINEAR, decoded=False, row0=0, frame_h=None):
     """The XLA tap loop on the centre's planes: shared named by SHARED (8, h, w), params by
     PARAMS (+ SPEC_PARAMS (+ PREPASS_PARAMS)); the specular PrePass mode takes `prepass` =
     dict(hit_dist_params (A, B, C, D), use_prepass_not_only, frame_index); the checkerboard
@@ -143,13 +145,15 @@ def taps_ref(signal, view_z_in, normal_roughness, shared, params, *, frustum, re
     filtered with the taps' final weights (all four channels in the diffuse mode; three, the
     centre's `.w` kept, in the specular modes); roughness_encoding: how the taps' roughness
     in normal_roughness is packed; decoded: normal_roughness is the RGBA formats' decoded plane
-    (its material 0). Returns the filtered signal (h, w, 4), in the PrePass mode also
-    hitDistForTracking (h, w), and with `sh` last the filtered SH."""
+    (its material 0); row0, frame_h: the planes' rows in the frame (`resample.pixel_uv_grid`:
+    the uv, the taps' rows and the hash seed are the frame's). Returns the filtered signal (h,
+    w, 4), in the PrePass mode also hitDistForTracking (h, w), and with `sh` last the filtered
+    SH."""
     h, w = view_z_in.shape
     mode = MODES[params.shape[0]]
     p = dict(zip(SHARED, shared))
     p.update(zip(PARAMS + SPEC_PARAMS + PREPASS_PARAMS, params))
-    uv = resample.pixel_uv_grid(h, w, signal.device)
+    uv = resample.pixel_uv_grid(h, w, signal.device, row0, frame_h)
     rot = torch.stack([p["rot0"], p["rot1"], p["rot2"], p["rot3"]], -1)
     n = torch.stack([p["nx"], p["ny"], p["nz"]], -1)
     nv = torch.stack([p["nvx"], p["nvy"], p["nvz"]], -1)
@@ -166,7 +170,8 @@ def taps_ref(signal, view_z_in, normal_roughness, shared, params, *, frustum, re
         hdt = torch.where(hit_dist == 0.0, fe.NRD_INF, hit_dist)
         xv = torch.stack([p["xvx"], p["xvy"], p["xvz"]], -1)
         state = nm.hash_init(torch.arange(w, device=signal.device)[None, :].expand(h, w),
-                             torch.arange(h, device=signal.device)[:, None].expand(h, w),
+                             torch.arange(row0, row0 + h, device=signal.device)[:, None]
+                             .expand(h, w),
                              prepass["frame_index"])
         rough_lerp = nm.linearstep(0.5, 1.0, p["roughness"])
     for ox, oy, gw in tap_table(perf_mode):
@@ -175,8 +180,8 @@ def taps_ref(signal, view_z_in, normal_roughness, shared, params, *, frustum, re
         vs = uv[..., 1] + (ox * rot[..., 1] + oy * rot[..., 3])
         uv_s = torch.stack([nm.div(torch.floor(us * rw) + 0.5, rw),
                             nm.div(torch.floor(vs * rh) + 0.5, rh)], -1)
-        zs = torch.abs(resample.sample_nearest(view_z_in, uv_s)) * view_z_scale
-        nr_s = resample.sample_nearest(normal_roughness, uv_s)
+        zs = torch.abs(resample.sample_nearest(view_z_in, uv_s, row0, frame_h)) * view_z_scale
+        nr_s = resample.sample_nearest(normal_roughness, uv_s, row0, frame_h)
         ns, rs, ms = fe.unpack_normal_plane(nr_s, decoded, roughness_encoding)
         angle = nm.acos_approx(nm.dot(n, ns))
         xvs = nm.reconstruct_view_position(uv_s, frustum, zs, ortho_mode)
@@ -187,7 +192,7 @@ def taps_ref(signal, view_z_in, normal_roughness, shared, params, *, frustum, re
         w_ = w_ * nm.compute_weight(angle, p["normal_weight_param"], 0.0)
         if mode != "diffuse":
             w_ = w_ * nm.compute_weight(rs, p["wr_a"], p["wr_b"])
-        s = resample.sample_nearest(signal, uv_s)
+        s = resample.sample_nearest(signal, uv_s, row0, frame_h)
         s = torch.where((w_ == 0.0)[..., None], 0.0, s)
         if mode == "spec_prepass":
             hs = s[..., -1] * fe.get_hit_distance_normalization(zs, prepass["hit_dist_params"],
@@ -206,7 +211,7 @@ def taps_ref(signal, view_z_in, normal_roughness, shared, params, *, frustum, re
         sum_ = sum_ + w_
         acc = acc + s * w_[..., None]
         if sh is not None:
-            sh_s = resample.sample_nearest(sh, uv_s)
+            sh_s = resample.sample_nearest(sh, uv_s, row0, frame_h)
             sh_s = torch.where((w_ == 0.0)[..., None], 0.0, sh_s)
             if mode == "diffuse":
                 acc_sh = acc_sh + sh_s * w_[..., None]
@@ -257,31 +262,34 @@ def min_material(dc, spec):
     return float(dc["spec_min_material" if spec else "diff_min_material"])
 
 
-def cb_ref(signal, view_z, frustum_size, nov, *, frame_index, parity, denoising_range):
+def cb_ref(signal, view_z, frustum_size, nov, *, frame_index, parity, denoising_range, row0=0):
     """`taps_ref`'s `cb` of a checkerboard PrePass: the has-data plane and the fallback."""
     h, w = view_z.shape
-    return dict(mask=cb_mask(h, w, frame_index, parity, signal.device),
+    return dict(mask=cb_mask(h, w, frame_index, parity, signal.device, row0),
                 resolve=cb_neighbor_resolve(signal, view_z, frustum_size, nov, denoising_range))
 
 
 def spatial_filter_ref(signal, view_z_in, normal_roughness, data1=None, *, sc, dc, mode, spec,
                        enc_err, perf_mode, geometry=None, cb=None, sh=None,
-                       roughness_encoding=RoughnessEncoding.LINEAR, decoded=False):
+                       roughness_encoding=RoughnessEncoding.LINEAR, decoded=False, row0=0,
+                       frame_h=None):
     """Plain PyTorch version of the kernel: the centre's planes that the kernel computes per
     pixel, from the pass glue's torch functions (`params.filter_geometry`,
     `diff_spatial_params`, `spec_spatial_params`; under checkerboard on the centre signal
     zeroed where it has no data), then the XLA tap loop (`taps_ref`); the taps unpack their
     geometry from normal_roughness and view_z_in, the values of `geometry`, and decode their
     roughness by `roughness_encoding` (the centre's stays as packed); decoded: the RGBA
-    formats' decoded plane, read as it is at the centre and the taps."""
+    formats' decoded plane, read as it is at the centre and the taps; row0, frame_h: the
+    planes' rows in the frame."""
     geom = P.filter_geometry(sc, dc, view_z_in, normal_roughness, enc_err,
-                             ("spec",) if spec else ("diff",), decoded=decoded)
+                             ("spec",) if spec else ("diff",), decoded=decoded, row0=row0,
+                             frame_h=frame_h)
     shared = torch.stack([geom["ga"], geom["gb"], *geom["n3"], *geom["nv3"]])
     centre, cbd = signal, None
     if cb is not None:
         cbd = cb_ref(signal, geom["view_z"], geom["frustum_size"], geom["nov"],
                      frame_index=int(sc["frame_index"]), parity=cb,
-                     denoising_range=float(sc["denoising_range"]))
+                     denoising_range=float(sc["denoising_range"]), row0=row0)
         centre = signal * cbd["mask"][..., None]
     params = (P.spec_spatial_params if spec else P.diff_spatial_params)(
         sc, dc, mode, geom, centre, data1, occlusion=signal.shape[-1] == 1)
@@ -290,7 +298,8 @@ def spatial_filter_ref(signal, view_z_in, normal_roughness, data1=None, *, sc, d
                     frustum=_v(sc["frustum"]), rect_size=_v(sc["rect_size"]),
                     view_z_scale=float(sc["view_z_scale"]), ortho_mode=float(sc["ortho_mode"]),
                     min_material=min_material(dc, spec), perf_mode=perf_mode, prepass=prepass,
-                    cb=cbd, sh=sh, roughness_encoding=roughness_encoding, decoded=decoded)
+                    cb=cbd, sh=sh, roughness_encoding=roughness_encoding, decoded=decoded,
+                    row0=row0, frame_h=frame_h)
 
 
 def launch_consts(sc, dc, mode, spec, enc_err, perf_mode, cb=None, sh=False, occlusion=False,
@@ -316,9 +325,15 @@ def launch_consts(sc, dc, mode, spec, enc_err, perf_mode, cb=None, sh=False, occ
             bool(occlusion), build.ROUGHNESS_MODE[roughness_encoding], bool(decoded)]
 
 
+# the wrapper's arguments that are previous-frame planes: whole frames under a mesh, while
+# the current planes are a band of rows (`parallel.sharding.band_call`)
+PREVIOUS_PLANES = ()
+
+
 def spatial_filter(signal, view_z_in, normal_roughness, data1=None, *, sc, dc, mode, spec,
                    enc_err, perf_mode, geometry=None, cb=None, sh=None,
-                   roughness_encoding=RoughnessEncoding.LINEAR, decoded=False):
+                   roughness_encoding=RoughnessEncoding.LINEAR, decoded=False, row0=0,
+                   frame_h=None):
     """signal (h, w, 4), or with the occlusion variants (h, w, 1) (Blur and PostBlur only, no
     SH), view_z_in (h, w), normal_roughness (h, w, 4), its roughness packed by
     `roughness_encoding` (only the specular filter reads it; the diffuse filter takes LINEAR),
@@ -330,9 +345,10 @@ def spatial_filter(signal, view_z_in, normal_roughness, data1=None, *, sc, dc, m
     width; else None; sh: with the SH variants the signal's SH1 (h, w, 4), not under
     checkerboard; decoded: normal_roughness is the RGBA formats' decoded plane
     (`frontend.decode_normal_plane` with its roughness decoded, at LINEAR; the kernel's kDec
-    instances), else packed R10G10B10A2. Returns the filtered signal (of the input's shape), in
-    the specular PrePass also hitDistForTracking (h, w), and with `sh` last the filtered SH
-    (h, w, 4)."""
+    instances), else packed R10G10B10A2; row0, frame_h: the planes are the frame rows row0 ..
+    row0 + h - 1 of a frame frame_h high (a band of `parallel.shard_stencil`; default the whole
+    frame). Returns the filtered signal (of the input's shape), in the specular PrePass also
+    hitDistForTracking (h, w), and with `sh` last the filtered SH (h, w, 4)."""
     global launches, cb_launches, rough_launches, dec_launches
     if not spec and roughness_encoding != RoughnessEncoding.LINEAR:
         raise ValueError("the diffuse filter reads no roughness: it takes LINEAR")
@@ -340,7 +356,7 @@ def spatial_filter(signal, view_z_in, normal_roughness, data1=None, *, sc, dc, m
         raise ValueError("decoded: the plane's roughness is decoded: it takes LINEAR")
     kw = dict(sc=sc, dc=dc, mode=mode, spec=bool(spec), enc_err=enc_err, perf_mode=perf_mode,
               geometry=geometry, cb=cb, sh=sh, roughness_encoding=roughness_encoding,
-              decoded=decoded)
+              decoded=decoded, row0=row0, frame_h=frame_h)
     prepass = mode == P.PRE_BLUR
     if prepass != (data1 is None) or prepass != (geometry is None):
         raise ValueError("data1 and geometry (the history fix's tap-geometry plane) go with "
@@ -370,7 +386,8 @@ def spatial_filter(signal, view_z_in, normal_roughness, data1=None, *, sc, dc, m
     build.launch("nrd_spatial_filter", [signal, view_z_in, normal_roughness, data1, geometry,
                                         out, hdt, sh, out_sh],
                  launch_consts(sc, dc, mode, bool(spec), enc_err, perf_mode, cb, sh is not None,
-                               c == 1, roughness_encoding, decoded), w, h)
+                               c == 1, roughness_encoding, decoded)
+                 + [row0, h if frame_h is None else frame_h], w, h)
     launches += 1
     cb_launches += cb is not None
     rough_launches += roughness_encoding != RoughnessEncoding.LINEAR

@@ -138,13 +138,20 @@ def ts_prelude_ref(signal, history, smb_uv, fbits, data1, vmb_uv=None,
                 data1=nm.lerp(dmin, d1, antilag))
 
 
+# the wrapper's arguments that are previous-frame planes: whole frames under a mesh, while
+# the current planes are a band of rows (`parallel.sharding.band_call`)
+PREVIOUS_PLANES = ("history",)
+
+
 def ts_prelude(signal, history, smb_uv, fbits, data1, vmb_uv=None, virtual_history_amount=None,
                normal_roughness=None, *, rect_size_prev, max_blur_radius, split_screen,
                split_screen_prev, antilag_params, framerate_scale, stabilization_strength,
                history_fix_frame_num, responsive_roughness_threshold=None,
                strand_material_id=None, directional=False, decoded=False):
     """signal (h, w, 4) float32 (its .x the luma; .w with `directional`, the diffuse half of
-    REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION), history (h, w) bf16, smb_uv (h, w, 2), fbits
+    REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION), history (ph, w) bf16 (the current planes' height, or
+    the whole frame's where they are a band of its rows: the kernel derives no position from
+    its row index, its uv are the inputs), smb_uv (h, w, 2), fbits
     and data1 (h, w) float32; for the specular half also vmb_uv (h, w, 2), the virtual history
     amount (h, w) and IN_NORMAL_ROUGHNESS (h, w, 4) at LINEAR roughness, with the responsive
     roughness threshold and the strand material id; decoded (specular): IN_NORMAL_ROUGHNESS is the
@@ -170,7 +177,8 @@ def ts_prelude(signal, history, smb_uv, fbits, data1, vmb_uv=None, virtual_histo
                               virtual_history_amount, normal_roughness, **kw)
     h, w = data1.shape
     f32 = torch.float32
-    ins = [("signal", signal, f32, (h, w, 4)), ("history", history, torch.bfloat16, (h, w)),
+    ph = history.shape[0]
+    ins = [("signal", signal, f32, (h, w, 4)), ("history", history, torch.bfloat16, (ph, w)),
            ("smb_uv", smb_uv, f32, (h, w, 2)), ("fbits", fbits, f32, (h, w)),
            ("data1", data1, f32, (h, w))]
     spec_ins = [("vmb_uv", vmb_uv, f32, (h, w, 2)),
@@ -186,7 +194,7 @@ def ts_prelude(signal, history, smb_uv, fbits, data1, vmb_uv=None, virtual_histo
               float(f(antilag_params[1]) * f(framerate_scale) * f(framerate_scale)),
               3.0 * float(framerate_scale), stabilization_strength, history_fix_frame_num, spec,
               float(f(responsive_roughness_threshold) + f(nm.EPS)) if spec else 0.0,
-              strand_material_id if spec else 0.0, directional, decoded]
+              strand_material_id if spec else 0.0, directional, decoded, ph]
     build.launch("nrd_ts_prelude", [t for _, t, _, _ in ins]
                  + [t if spec else None for _, t, _, _ in spec_ins] + [out, planes], consts, w, h)
     launches += 1

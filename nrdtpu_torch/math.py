@@ -57,11 +57,12 @@ def checkerboard(px, py, frame_index):
     return (px + py + int(frame_index)) & 1
 
 
-def checkerboard_has_data(h: int, w: int, frame_index, mode: int, device=None):
+def checkerboard_has_data(h: int, w: int, frame_index, mode: int, device=None, row0: int = 0):
     """(h, w) bool: the pixels that carry data this frame under checkerboard mode `mode`
-    (1 BLACK, 2 WHITE), `nrdtpu/passes/reblur/denoiser.py:189-195`."""
+    (1 BLACK, 2 WHITE), `nrdtpu/passes/reblur/denoiser.py:189-195`; the rows are the frame rows
+    row0 .. row0 + h - 1."""
     px = torch.arange(w, device=device)[None, :]
-    py = torch.arange(h, device=device)[:, None]
+    py = torch.arange(row0, row0 + h, device=device)[:, None]
     return checkerboard(px, py, frame_index) == int(mode) - 1
 
 

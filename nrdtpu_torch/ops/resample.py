@@ -3,6 +3,11 @@
 Conventions: images are (H, W) or (H, W, C); pixel (x, y) lives at [y, x]; uv is (..., 2) in
 [0, 1] with texel centres at (i + 0.5) / size; addressing is clamp-to-edge. These are the
 plain versions the hand kernels are held against (`kernels/csrc/common.cuh` mirrors them).
+
+Row origin (a band of rows of a frame, `parallel/sharding.py`): `pixel_uv_grid` and
+`sample_nearest` take `row0`, the frame row of the plane's first row, and `frame_h`, the
+frame's height. uv stays the frame's; a texel is fetched at its frame row minus row0, clamped to
+the plane. Unsharded row0 is 0 and frame_h the plane's height.
 """
 
 from __future__ import annotations
@@ -33,11 +38,12 @@ def to_index(origin):
     return torch.clamp(origin, -1048576.0, 1048576.0).long()
 
 
-def sample_nearest(img, uv):
+def sample_nearest(img, uv, row0: int = 0, frame_h=None):
     img_c, _ = _chanify(img)
     h, w = img_c.shape[0], img_c.shape[1]
+    fh = h if frame_h is None else frame_h
     return texel_fetch(img, to_index(torch.floor(uv[..., 0] * w)),
-                       to_index(torch.floor(uv[..., 1] * h)))
+                       to_index(torch.floor(uv[..., 1] * fh)) - row0)
 
 
 def gather_2x2(img, origin):
@@ -150,12 +156,23 @@ def sample_bicubic_bspline(img, uv):
     return out if had_c else out[..., 0]
 
 
-def pixel_uv_grid(h: int, w: int, device=None):
-    """uv of every pixel centre of an (h, w) rect: (h, w, 2), y-down."""
+def pixel_uv_grid(h: int, w: int, device=None, row0: int = 0, frame_h=None):
+    """uv of every pixel centre of an (h, w) plane: (h, w, 2), y-down; the plane's rows are
+    the frame rows row0 .. row0 + h - 1 of a frame frame_h high (default: the plane itself)."""
+    fh = h if frame_h is None else frame_h
     x = nm.div(torch.arange(w, dtype=torch.float32, device=device) + 0.5, w)
-    y = nm.div(torch.arange(h, dtype=torch.float32, device=device) + 0.5, h)
+    y = nm.div(torch.arange(row0, row0 + h, dtype=torch.float32, device=device) + 0.5, fh)
     v, u = torch.meshgrid(y, x, indexing="ij")
     return torch.stack([u, v], -1)
+
+
+def frame_rows(plane, row0: int, h: int):
+    """The rows row0 .. row0 + h - 1 of a whole-frame plane, clamped to the frame: what a band
+    of h rows at row0 reads of a previous-frame plane at its own pixels."""
+    if row0 == 0 and plane.shape[0] == h:
+        return plane
+    rows = torch.clamp(torch.arange(row0, row0 + h, device=plane.device), 0, plane.shape[0] - 1)
+    return plane.index_select(0, rows)
 
 
 def is_in_screen_nearest(uv):

@@ -55,6 +55,12 @@ also takes the packed planes (`packed=`): it samples the previous normals along 
 motion bilinearly from the packed plane, and reads the curvature neighbours' .xy as the
 reference does (`nrdtpu/passes/reblur/kernels.py:910-931`, `:1094-1097`).
 
+Under a mesh (`Engine(mesh=)`, REBLUR_DIFFUSE at R10G10B10A2 and LINEAR, no checkerboard, rect
+or hit-distance reconstruction) each rank holds a band of rows of every plane: the sky tiles come
+from the gathered viewZ; PrePass, the surface-motion resolve, HistoryFix, Blur, PostBlur and TS
+run on halo-padded bands at their row origin (`parallel.shard_stencil`, `halos`); the resolve and
+TS read the previous frame's planes gathered whole.
+
 State (the permanent pool; histories in bf16, the RGBA16f-history analogue):
   prev_view_z (h, w), prev_normal_roughness (h, w, 4), diff_accum / spec_accum / material_id
   (h, w); per signal s present in {diff, spec}: s_history (h, w, 4) ((h, w, 1) with
@@ -64,6 +70,7 @@ State (the permanent pool; histories in bf16, the RGBA16f-history analogue):
 
 from __future__ import annotations
 
+import math
 import os
 from dataclasses import replace
 
@@ -71,6 +78,8 @@ import numpy as np
 import torch
 
 from ...config import requantize_state
+from ...kernels import history_fix as k_history_fix
+from ...parallel import sharding
 from ...utils import probe
 from ..validation import render_validation
 from ...settings import (
@@ -113,6 +122,9 @@ CONFIDENCES = ("surface_history_confidence", "virtual_history_confidence",
 
 
 class ReblurDenoiser:
+    mesh = None  # the Engine's RowMesh, None unsharded
+    halo_override = None  # `parallel.sharding.halo_table`'s override
+
     def __init__(self, config, device):
         if config.denoiser not in PORTED:
             raise NotImplementedError(
@@ -180,6 +192,29 @@ class ReblurDenoiser:
             state["prev_spec_hitdist_for_tracking"] = torch.zeros((h, w), dtype=f32, **kw)
         return state
 
+    def halos(self, dc: dict) -> dict:
+        """Rows each pass of REBLUR_DIFFUSE reads beyond a band (PERF.md, the halo table). A
+        Poisson tap lands within the blur radius (its rotator is a rotation, its skew at most
+        1, the offsets within the unit disc) and snaps to a pixel centre: ceil(radius) + 1
+        rows, the radius at most max(PrePass radius, minBlurRadius) in the PrePass and
+        max(maxBlurRadius x the stage's radius scale, minBlurRadius) in Blur and PostBlur.
+        HistoryFix's taps reach 2 x its stride, floor(historyFixBasePixelStride / 2) at 0
+        accumulated frames, its moments 1 and its anti-firefly ring 4; the surface-motion
+        resolve's 2x2 normal average and TS's 3x3 moments reach 1."""
+        min_r = float(dc["min_blur_radius"])
+
+        def poisson(radius):
+            return math.ceil(max(radius, min_r)) + 1
+
+        stride = int(float(dc["history_fix_base_pixel_stride"]) // 2)
+        return sharding.halo_table({
+            "prepass": poisson(float(dc["diff_prepass_blur_radius"])),
+            "smb": 1,
+            "history_fix": max(2 * stride, k_history_fix.ANTI_FIREFLY_RADIUS),
+            "blur": poisson(float(dc["max_blur_radius"])),
+            "post_blur": poisson(float(dc["max_blur_radius"]) * C.REBLUR_POST_BLUR_RADIUS_SCALE),
+            "ts": 1}, self.halo_override)
+
     # -- AddSharedConstants_Reblur (Reblur.cpp:297-406), denoiser part -------------
     def frame_constants(self, consts: dict, s: ReblurSettings) -> dict:
         rect_w, rect_h = self.config.rect_size
@@ -236,16 +271,25 @@ class ReblurDenoiser:
         # samples the packed planes (`packed`)
         normal_roughness = inputs[RT.IN_NORMAL_ROUGHNESS]
         lin = self.linear_config
+        # under a mesh this rank holds the rows row0 .. row0 + h - 1 of a frame fh high; the
+        # passes that reproject read the previous frame's planes whole (`gathered`)
+        mesh, fh = self.mesh, cfg.rect_size[1]
+        row0 = sharding.rows(fh, mesh)[0]
+        halo = self.halos(dc)
+
+        def gathered(t):
+            return sharding.gather_rows(t, mesh)
+
+        prev_packed = gathered(state["prev_normal_roughness"])
         if self.decoded:
             nr, prev_nr = (fe.decode_roughness_plane(
                 fe.decode_normal_plane(p, cfg.normal_encoding), cfg.roughness_encoding,
-                decoded=True) for p in (normal_roughness, state["prev_normal_roughness"]))
+                decoded=True) for p in (normal_roughness, prev_packed))
             centre_nr, taps_nr, fcfg = nr, None, lin
             packed = (normal_roughness, state["prev_normal_roughness"])
         else:
             nr = fe.decode_roughness_plane(normal_roughness, cfg.roughness_encoding)
-            prev_nr = fe.decode_roughness_plane(state["prev_normal_roughness"],
-                                                cfg.roughness_encoding)
+            prev_nr = fe.decode_roughness_plane(prev_packed, cfg.roughness_encoding)
             centre_nr, fcfg, packed = normal_roughness, cfg, None
             taps_nr = None if nr is normal_roughness else nr
         mv = inputs[RT.IN_MV]
@@ -276,8 +320,8 @@ class ReblurDenoiser:
         anti_firefly = {sig: s.enableAntiFirefly and not self.occlusion and not self.directional
                         for sig in self.signals}
 
-        tile_map = K.classify_tiles(sc, view_z)
-        dead = K.sky_pixel_mask(sc, tile_map, view_z)
+        tile_map = K.classify_tiles(sc, gathered(view_z))
+        dead = K.sky_pixel_mask(sc, tile_map, view_z, row0)
         geom = K.make_filter_geometry(sc, dc, view_z, centre_nr, fcfg) if fused else None
 
         # HITDIST_RECONSTRUCTION: off under checkerboard (`denoiser.py:225-237`)
@@ -312,8 +356,12 @@ class ReblurDenoiser:
                 if self.sh:
                     sh1["spec"] = res[2]
             else:
-                res = K.diffuse_pre_pass(sc, dc, signal["diff"], view_z, centre_nr, fcfg,
-                                         perf_mode=perf, cb=cb, sh=sh.get("diff"))
+                res = sharding.shard_stencil(
+                    mesh, lambda t, r: K.diffuse_pre_pass(
+                        sc, dc, t["signal"], t["view_z"], t["nr"], fcfg, perf_mode=perf, cb=cb,
+                        sh=t["sh"], row0=r, frame_h=fh), halo["prepass"],
+                    dict(signal=signal["diff"], view_z=view_z, nr=centre_nr, sh=sh.get("diff")),
+                    fh)
                 if self.sh:
                     signal["diff"], sh1["diff"] = res
                 else:
@@ -325,14 +373,20 @@ class ReblurDenoiser:
             signal = K.cb_resolve(sc, view_z, centre_nr, signal, has_data, self.decoded)
 
         # TEMPORAL ACCUMULATION: one surface-motion footprint, both signals' samples
-        prev_internal = {k: state[k] for k in ("diff_accum", "spec_accum", "material_id")}
-        sm = K.surface_motion_reprojection(
-            sc, dc, view_z, nr, mv, state["prev_view_z"], prev_nr, prev_internal, lin,
-            {sig: (state[f"{sig}_history"], state[f"{sig}_fast_history"])
-             for sig in self.signals},
-            disocclusion_threshold_mix=inputs.get(RT.IN_DISOCCLUSION_THRESHOLD_MIX),
-            sh_histories={sig: state[f"{sig}_sh_history"] for sig in self.signals}
-            if self.sh else None)
+        prev_internal = {k: gathered(state[k]) for k in ("diff_accum", "spec_accum",
+                                                          "material_id")}
+        prev_view_z = gathered(state["prev_view_z"])
+        histories = {sig: (gathered(state[f"{sig}_history"]),
+                           gathered(state[f"{sig}_fast_history"])) for sig in self.signals}
+        sh_histories = ({sig: gathered(state[f"{sig}_sh_history"]) for sig in self.signals}
+                        if self.sh else None)
+        sm = sharding.shard_stencil(
+            mesh, lambda t, r: K.surface_motion_reprojection(
+                sc, dc, t["view_z"], t["nr"], t["mv"], prev_view_z, prev_nr, prev_internal, lin,
+                histories, disocclusion_threshold_mix=t["mix"], sh_histories=sh_histories,
+                row0=r, frame_h=fh), halo["smb"],
+            dict(view_z=view_z, nr=nr, mv=mv, mix=inputs.get(RT.IN_DISOCCLUSION_THRESHOLD_MIX)),
+            fh)
         fbits = sm["fbits"]
         sig1, fast1, data1, sh2 = {}, {}, {}, {}
         ta, confidences = None, {}
@@ -397,23 +451,32 @@ class ReblurDenoiser:
         else:
             (sig,) = self.signals
             spec_path = sig == "spec"
-            res = K.history_fix(
-                sc, dc, view_z, centre_nr, data1[sig], sig1[sig], fast1[sig], fcfg,
-                is_diffuse=not spec_path, anti_firefly=anti_firefly[sig], sh=sh2.get(sig),
-                directional=self.directional, tap_normal_roughness=taps_nr)
+            res = sharding.shard_stencil(
+                mesh, lambda t, r: K.history_fix(
+                    sc, dc, t["view_z"], t["nr"], t["data1"], t["signal"], t["fast"], fcfg,
+                    is_diffuse=not spec_path, anti_firefly=anti_firefly[sig], sh=t["sh"],
+                    directional=self.directional, tap_normal_roughness=t["taps_nr"], row0=r,
+                    frame_h=fh), halo["history_fix"],
+                dict(view_z=view_z, nr=centre_nr, data1=data1[sig], signal=sig1[sig],
+                     fast=fast1[sig], sh=sh2.get(sig), taps_nr=taps_nr), fh)
             sig2, fast2[sig], tap_geometry = res[:3]
             sh3 = res[3] if self.sh else None
             # Blur and PostBlur read the tap geometry that the history fix wrote
             kw = dict(perf_mode=perf, tap_geometry=tap_geometry)
             sig3 = sig2
-            for stage in (K.BLUR, K.POST_BLUR):
+            for stage, stage_halo in ((K.BLUR, halo["blur"]), (K.POST_BLUR, halo["post_blur"])):
                 if spec_path:
                     res = K.specular_spatial_filter(sc, dc, stage, sig3, view_z, centre_nr,
                                                     data1[sig], fcfg, sh=sh3, **kw)
                     sig3, sh3 = res[0], res[2] if self.sh else None
                 else:
-                    res = K.diffuse_spatial_filter(sc, dc, stage, sig3, view_z, centre_nr,
-                                                   data1[sig], fcfg, sh=sh3, **kw)
+                    res = sharding.shard_stencil(
+                        mesh, lambda t, r, stage=stage: K.diffuse_spatial_filter(
+                            sc, dc, stage, t["signal"], t["view_z"], t["nr"], t["data1"], fcfg,
+                            perf_mode=perf, tap_geometry=t["geometry"], sh=t["sh"], row0=r,
+                            frame_h=fh), stage_halo,
+                        dict(signal=sig3, view_z=view_z, nr=centre_nr, data1=data1[sig],
+                             geometry=tap_geometry, sh=sh3), fh)
                     sig3, sh3 = res if self.sh else (res, None)
             sig4[sig] = sig3
             if self.sh:
@@ -433,13 +496,23 @@ class ReblurDenoiser:
             out_sh = dict(sh4)
             inc = {sig: data1[sig] + 1.0 for sig in self.signals}
         else:
-            ts_sm = K.ts_surface_motion(sc, view_z, mv)
+            ts_sm = K.ts_surface_motion(sc, view_z, mv) if mesh is None else None
             ts = {}
             if self.has_diffuse:
-                ts["diff"] = K.temporal_stabilization(
-                    sc, dc, view_z, nr, mv, data1["diff"], fbits, sig4["diff"],
-                    state["diff_luma_stab"], lin, surface_motion=ts_sm, sh=sh4.get("diff"),
-                    directional=self.directional)
+                luma_stab_prev = gathered(state["diff_luma_stab"])
+
+                def stabilize(t, r):
+                    smo = (ts_sm if mesh is None
+                           else K.ts_surface_motion(sc, t["view_z"], t["mv"], r, fh))
+                    return K.temporal_stabilization(
+                        sc, dc, t["view_z"], t["nr"], t["mv"], t["data1"], t["fbits"],
+                        t["signal"], luma_stab_prev, lin, surface_motion=smo, sh=t["sh"],
+                        directional=self.directional)
+
+                ts["diff"] = sharding.shard_stencil(
+                    mesh, stabilize, halo["ts"],
+                    dict(view_z=view_z, nr=nr, mv=mv, data1=data1["diff"], fbits=fbits,
+                         signal=sig4["diff"], sh=sh4.get("diff")), fh)
             if self.has_specular:
                 ts["spec"] = K.temporal_stabilization_specular(
                     sc, dc, view_z, nr, mv, data1["spec"], fbits, ta["curvature"],

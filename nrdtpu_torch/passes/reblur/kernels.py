@@ -114,10 +114,11 @@ def classify_tiles(sc, view_z):
     return tiles.classify_sky_tiles(unpack_view_z(sc, view_z), float(sc["denoising_range"]))
 
 
-def sky_pixel_mask(sc, tile_map, view_z):
-    """Combined early-out mask: sky tile or beyond denoising range (True = skip)."""
+def sky_pixel_mask(sc, tile_map, view_z, row0=0):
+    """Combined early-out mask: sky tile or beyond denoising range (True = skip); view_z's rows
+    are the frame rows row0 .. row0 + h - 1 of the frame whose tile map is given."""
     h, w = view_z.shape
-    sky = tiles.tile_upsample_nearest(tile_map, h, w)
+    sky = tiles.tile_upsample_nearest(tile_map, h, w, row0=row0)
     return (sky > 0.0) | (unpack_view_z(sc, view_z) > float(sc["denoising_range"]))
 
 
@@ -148,7 +149,8 @@ def surface_motion_position(sc, uv, view_z, x, mv_in):
 
 def surface_motion_reprojection(sc, dc, view_z_in, normal_roughness, mv_in, prev_view_z,
                                 prev_normal_roughness, prev_internal, config, histories,
-                                disocclusion_threshold_mix=None, sh_histories=None):
+                                disocclusion_threshold_mix=None, sh_histories=None, row0=0,
+                                frame_h=None):
     """The surface-motion machinery of TA (lines 131-305) plus the history samples at the
     reprojected position (`sample_history` / `sample_history_bilinear`, lines 451-456).
 
@@ -158,9 +160,11 @@ def surface_motion_reprojection(sc, dc, view_z_in, normal_roughness, mv_in, prev
     sampling run in one `kernels.smb_resolve` launch; the rest is elementwise here. Returns
     the `sm` dict both TA halves read, with `{signal}_history`, `{signal}_fast` and
     `{signal}_accum_speed` per signal; with the SH variants' `sh_histories` ({signal: bf16 SH
-    history}) also `{signal}_sh`, each sampled as the fast history is (`:473-476`)."""
+    history}) also `{signal}_sh`, each sampled as the fast history is (`:473-476`). row0,
+    frame_h: the current planes are the frame rows row0 .. row0 + h - 1 of a frame frame_h high
+    (a band of `parallel.shard_stencil`); the previous planes and histories are whole frames."""
     h, w = view_z_in.shape
-    uv = resample.pixel_uv_grid(h, w, view_z_in.device)
+    uv = resample.pixel_uv_grid(h, w, view_z_in.device, row0, frame_h)
     view_z = unpack_view_z(sc, view_z_in)
     n, roughness, material_id = unpack_nr(normal_roughness, config)
 
@@ -736,12 +740,13 @@ def temporal_accumulation_specular(sc, dc, sm, spec_input, spec_history, spec_fa
 # ---------------------------------------------------------------------------
 
 
-def make_filter_geometry(sc, dc, view_z_in, normal_roughness, config, signals=("diff", "spec")):
+def make_filter_geometry(sc, dc, view_z_in, normal_roughness, config, signals=("diff", "spec"),
+                         row0=0, frame_h=None):
     """`params.filter_geometry` for the config's normal encoding (at the RGBA formats on the
     decoded plane). It depends only on the G-buffer, so REBLUR_DIFFUSE_SPECULAR computes it once
     a frame."""
     return filter_geometry(sc, dc, view_z_in, normal_roughness, _enc_err(config), signals,
-                           decoded=_decoded(config))
+                           decoded=_decoded(config), row0=row0, frame_h=frame_h)
 
 
 def _enc_err(config):
@@ -808,7 +813,7 @@ def _hfix_consts(sc):
 
 def history_fix(sc, dc, view_z_in, normal_roughness, data1, signal, fast_history, config, *,
                 is_diffuse: bool = True, anti_firefly: bool = False, sh=None,
-                directional: bool = False, tap_normal_roughness=None):
+                directional: bool = False, tap_normal_roughness=None, row0=0, frame_h=None):
     """Sparse 5x5-no-corners history reconstruction + fast-history color clamping, with the
     9x9 anti-firefly clamp when `anti_firefly`, in one `history_fix` launch.
 
@@ -819,16 +824,17 @@ def history_fix(sc, dc, view_z_in, normal_roughness, data1, signal, fast_history
     signal's SH1) the SH after the history fix comes fourth. directional: the clamp of
     REBLUR_DIFFUSE_DIRECTIONAL_OCCLUSION (diffuse). tap_normal_roughness: the plane the taps
     read, the decoded copy at a non-linear roughness encoding (the centre's geometry is built
-    from `normal_roughness` as packed); None: `normal_roughness`."""
+    from `normal_roughness` as packed); None: `normal_roughness`. row0, frame_h: the planes'
+    rows in the frame (a band of `parallel.shard_stencil`)."""
     geom = make_filter_geometry(sc, dc, view_z_in, normal_roughness, config,
-                                ("diff",) if is_diffuse else ("spec",))
+                                ("diff",) if is_diffuse else ("spec",), row0, frame_h)
     min_material = dc["diff_min_material"] if is_diffuse else dc["spec_min_material"]
     res = k_history_fix.history_fix(
         signal, view_z_in, _taps_nr(normal_roughness, tap_normal_roughness), data1,
         fast_history, _hfix_shared(geom), _hfix_params(dc, geom, signal, data1, is_diffuse),
         None if is_diffuse else geom["smc"], min_material=float(min_material), dc=dc,
         anti_firefly=anti_firefly, sh=sh, directional=directional, decoded=_decoded(config),
-        **_hfix_consts(sc))
+        row0=row0, frame_h=frame_h, **_hfix_consts(sc))
     if sh is not None:
         return res["signal"], res["fast"], res["geometry"], res["sh"]
     return res["signal"], res["fast"], res["geometry"]
@@ -879,30 +885,32 @@ def _prepass_off_hit_dist(spec):
 
 
 def diffuse_spatial_filter(sc, dc, mode, signal, view_z_in, normal_roughness, data1, config,
-                           *, perf_mode: bool = False, tap_geometry=None, sh=None):
+                           *, perf_mode: bool = False, tap_geometry=None, sh=None, row0=0,
+                           frame_h=None):
     """Adaptive-radius 8-tap Poisson blur, screen-space sampling: one `spatial_filter` launch
     that computes the geometry and the parameters itself. mode: PRE_BLUR (see
     diffuse_pre_pass), BLUR or POST_BLUR; tap_geometry: the plane that `history_fix` returns,
     which Blur and PostBlur require; sh: with the SH variants the signal's SH1, then
-    (signal, sh) is returned."""
+    (signal, sh) is returned; row0, frame_h: the planes' rows in the frame."""
     return k_spatial_filter.spatial_filter(
         signal, view_z_in, normal_roughness, None if mode == PRE_BLUR else data1, sc=sc, dc=dc,
         mode=mode, spec=False, enc_err=_enc_err(config), perf_mode=perf_mode,
-        geometry=tap_geometry, sh=sh, decoded=_decoded(config))
+        geometry=tap_geometry, sh=sh, decoded=_decoded(config), row0=row0, frame_h=frame_h)
 
 
 def diffuse_pre_pass(sc, dc, signal, view_z_in, normal_roughness, config, *,
-                     perf_mode: bool = False, cb=None, sh=None):
+                     perf_mode: bool = False, cb=None, sh=None, row0=0, frame_h=None):
     """Diffuse PrePass: the spatial filter with pre-pass constants and no skew. cb: under
     checkerboard the mode's has-data parity (the signal expanded from half width), else None.
     A PrePass whose radius is 0 passes the signal through, but not under checkerboard, whose
-    PrePass runs at any radius (`kernels.py:2145-2150`). sh: as for diffuse_spatial_filter."""
+    PrePass runs at any radius (`kernels.py:2145-2150`). sh, row0, frame_h: as for
+    diffuse_spatial_filter."""
     if cb is None and float(dc["diff_prepass_blur_radius"]) == 0.0:
         return signal if sh is None else (signal, sh)
     return k_spatial_filter.spatial_filter(
         signal, view_z_in, normal_roughness, None, sc=sc, dc=dc, mode=PRE_BLUR, spec=False,
         enc_err=_enc_err(config), perf_mode=perf_mode, geometry=None, cb=cb, sh=sh,
-        decoded=_decoded(config))
+        decoded=_decoded(config), row0=row0, frame_h=frame_h)
 
 
 def specular_spatial_filter(sc, dc, mode, spec, view_z_in, normal_roughness, data1, config, *,
@@ -1100,11 +1108,11 @@ def split_screen(sc, noisy_input, view_z_in, out_signal):
 # ---------------------------------------------------------------------------
 
 
-def ts_surface_motion(sc, view_z_in, mv_in):
-    """TS lines 50-70: the surface-motion position, shared by both halves of TS. Returns (uv,
-    view_z, x, x_prev, smb_pixel_uv)."""
+def ts_surface_motion(sc, view_z_in, mv_in, row0=0, frame_h=None):
+    """TS lines 50-70: the surface-motion position, shared by both halves of TS; row0,
+    frame_h: the planes' rows in the frame. Returns (uv, view_z, x, x_prev, smb_pixel_uv)."""
     h, w = view_z_in.shape
-    uv = resample.pixel_uv_grid(h, w, view_z_in.device)
+    uv = resample.pixel_uv_grid(h, w, view_z_in.device, row0, frame_h)
     view_z = unpack_view_z(sc, view_z_in)
     xv = nm.reconstruct_view_position(uv, sc["frustum"], view_z, sc["ortho_mode"])
     x = nm.rotate_vector(sc["view_to_world"], xv)

@@ -61,7 +61,7 @@ def fast_history_enabled(dc) -> float:
 
 
 def filter_geometry(sc, dc, view_z_in, normal_roughness, enc_err, signals=("diff", "spec"), *,
-                    decoded=False):
+                    decoded=False, row0=0, frame_h=None):
     """The per-frame geometry of the spatial stages and HistoryFix
     (`nrdtpu/passes/reblur/kernels.py:1783-1816`): view_z, n3, nv3, xv3, vv3, nov, frustum
     size, the plane-distance parameters ga/gb, and per signal its hit-distance scale (and the
@@ -70,9 +70,10 @@ def filter_geometry(sc, dc, view_z_in, normal_roughness, enc_err, signals=("diff
     (the RGBA formats) the plane that the frame decodes once, its normal .xyz and its roughness
     .w (`unpack_nr3` at these formats). enc_err is the normal encoding's error. H2's kernel
     computes the same per pixel (`csrc/reblur_filters.cuh:filter_geometry`). The dict records
-    `decoded`, which the kernels that read its planes take as their mode."""
+    `decoded`, which the kernels that read its planes take as their mode. row0, frame_h: the
+    planes' rows in the frame (`resample.pixel_uv_grid`)."""
     h, w = view_z_in.shape
-    uv = resample.pixel_uv_grid(h, w, view_z_in.device)
+    uv = resample.pixel_uv_grid(h, w, view_z_in.device, row0, frame_h)
     view_z = torch.abs(view_z_in) * float(sc["view_z_scale"])
     if decoded:
         n3 = v3.V3(normal_roughness[..., 0], normal_roughness[..., 1], normal_roughness[..., 2])

@@ -20,6 +20,8 @@ RT = ResourceType
 
 
 class ReferenceDenoiser:
+    mesh = None  # the Engine's RowMesh: every pass is per pixel, so a band of rows runs as is
+
     def __init__(self, config, device):
         self.config = config
         self.device = torch.device(device)

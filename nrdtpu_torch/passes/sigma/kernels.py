@@ -63,13 +63,14 @@ def smooth_tiles(tile_map):
     return torch.stack([tile_map[..., 2], blurry / wsum], -1)
 
 
-def tile_planes(sc, tiles_smoothed, h: int, w: int):
+def tile_planes(sc, tiles_smoothed, h: int, w: int, row0=0, frame_h=None):
     """(2, h, w): the tile value (B-spline upsampled, 0 on sky tiles) and the sky-tile mask,
-    the per-pixel tile data of Blur, PostBlur and TS (`kernels.py:158-161`, `:304-306`). A
-    sky pixel is passed through by all three either way, so zeroing its tile value changes
-    no output."""
-    return torch.stack([tiles.upsample_tile_value(tiles_smoothed, h, w, sc["resolution_scale"]),
-                        tiles.tile_upsample_nearest(tiles_smoothed[..., 0], h, w)])
+    the per-pixel tile data of Blur, PostBlur and TS (`kernels.py:158-161`, `:304-306`), of
+    the frame rows row0 .. row0 + h - 1 (a frame frame_h high, default h). A sky pixel is
+    passed through by all three either way, so zeroing its tile value changes no output."""
+    return torch.stack([tiles.upsample_tile_value(tiles_smoothed, h, w, sc["resolution_scale"],
+                                                  row0=row0, frame_h=frame_h),
+                        tiles.tile_upsample_nearest(tiles_smoothed[..., 0], h, w, row0=row0)])
 
 
 def _blur_consts(sc, dc, first_pass):
@@ -83,21 +84,23 @@ def _blur_consts(sc, dc, first_pass):
 
 
 def blur(sc, dc, penumbra_in, shadow_in, view_z_in, normal_roughness, tile, *, first_pass,
-         decoded=False):
+         decoded=False, row0=0, frame_h=None):
     """Dense 5x5 penumbra estimation + sparse 8-tap Poisson shadow filter (`kernels.py:133`),
     one `sigma_blur` launch. shadow_in: None on the first pass of SIGMA_SHADOW (then
     IsLit(penumbra)), the packed translucency on the first pass of
     SIGMA_SHADOW_TRANSLUCENCY, the sqrt-packed Blur output on PostBlur. decoded:
     normal_roughness is the RGBA formats' decoded plane (`frontend.decode_normal_plane`).
-    Returns (penumbra_out, shadow_packed_out)."""
+    row0, frame_h: the planes' rows in the frame. Returns (penumbra_out, shadow_packed_out)."""
     return k_sigma_blur.sigma_blur(penumbra_in, shadow_in, view_z_in, normal_roughness, tile,
-                                   **_blur_consts(sc, dc, first_pass), decoded=decoded)
+                                   **_blur_consts(sc, dc, first_pass), decoded=decoded,
+                                   row0=row0, frame_h=frame_h)
 
 
 def temporal_stabilization(sc, dc, view_z_in, mv_in, penumbra, shadow_packed, history_packed,
-                           prev_view_z, prev_history_len, tile):
+                           prev_view_z, prev_history_len, tile, row0=0, frame_h=None):
     """Surface-motion reprojection + sigma-clamped history blend + antilag (`kernels.py:290`),
-    one `sigma_ts` launch (both MV branches in the kernel). Returns (out_shadow_packed,
+    one `sigma_ts` launch (both MV branches in the kernel). row0, frame_h: the current planes'
+    rows in the frame; the previous planes are whole frames. Returns (out_shadow_packed,
     new_prev_view_z, new_history_len)."""
     return k_sigma_ts.sigma_ts(
         shadow_packed, penumbra, view_z_in, mv_in.contiguous(), prev_view_z, prev_history_len,
@@ -106,7 +109,7 @@ def temporal_stabilization(sc, dc, view_z_in, mv_in, penumbra, shadow_packed, hi
         rect_size_prev=sc["rect_size_prev"],
         stabilization_strength=float(dc["stabilization_strength"]),
         denoising_range=float(sc["denoising_range"]),
-        reprojection={k: sc[k] for k in k_sigma_ts.REPROJECTION})
+        reprojection={k: sc[k] for k in k_sigma_ts.REPROJECTION}, row0=row0, frame_h=frame_h)
 
 
 def split_screen(sc, penumbra, view_z_in, out_shadow, translucency=None, *, channels: int):

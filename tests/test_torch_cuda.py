@@ -30,7 +30,10 @@ against the Engine on the CPU; K20 `relax_clamp_moments` on NaN histories keeps 
 where its plain version does. The debug and host surface: OUT_VALIDATION, the printfAt dict
 and the SHOW planes on the card against the CPU, the memory query (the state's bytes, a
 transient peak > 0, the caller's peak reading kept) and the C ABI on "cuda" against the Engine
-on the card (max abs 0). Run on a machine with an H100:
+on the card (max abs 0). The row-sharded slice: H1, H2, H3, H4, K13 and K14 on bands of rows at a
+row origin (`parallel.sharding.band_call`) against their plain versions and the whole-frame launch, and
+the Engine on 2 gloo ranks sharing the card (`parallel.launch.spawn`) against the Engine
+unsharded. Run on a machine with an H100:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 
@@ -47,6 +50,7 @@ import torch
 from nrdtpu_torch import frontend as fe
 from nrdtpu_torch import kernels as KM
 from nrdtpu_torch.engine import Engine
+from nrdtpu_torch.parallel.sharding import band_call
 from nrdtpu_torch.passes.validation import viewport4_masks
 from nrdtpu_torch.settings import CheckerboardMode as CB
 from nrdtpu_torch.settings import Denoiser, HitDistanceReconstructionMode, ResourceType as RT
@@ -800,3 +804,50 @@ def test_c_abi_on_card(cuda):
                 np.testing.assert_array_equal(outs[rt], want[rt].cpu().numpy(), err_msg=rt.name)
     finally:
         assert lib.nrdtpu_destroy_instance(inst) == 0
+
+
+@pytest.mark.parametrize("name", KM.ROW_ORIGIN)
+def test_row_origin_matches_plain_version(recorded, name):
+    """Every recorded call of a kernel of the sharded slice on the top, a middle and the bottom
+    band of a quarter of the rows: with a halo of 6 rows and of the frame's height, against its
+    plain version on the same band; with the frame's height also against the rows of the
+    whole-frame launch."""
+    mod = KM.MODULES[name]
+    h, rows = SIZE[1], SIZE[1] // 4
+    calls = [(a, k) for n, a, k in recorded if n == name]
+    assert calls
+    for a, k in calls:
+        whole = _flat(getattr(mod, name)(*a, **k))
+        for row0 in (0, h // 2, h - rows):
+            for halo in (6, h):
+                ba, bk = band_call(getattr(mod, name), a, k, row0, rows, halo, h)
+                got = _flat(getattr(mod, name)(*ba, **bk))
+                want = _flat(getattr(mod, name + "_ref")(*ba, **bk))
+                pairs = [(got[key], want[key], "plain") for key in want]
+                if halo == h:
+                    pairs += [(got[key][halo:halo + rows], whole[key][row0:row0 + rows], "whole")
+                              for key in whole]
+                for g, w, what in pairs:
+                    g, w = g.float(), w.float()
+                    over = ((g - w).abs() > ATOL + RTOL * w.abs()).float().mean().item()
+                    assert over <= FLIP_FRACTION, (name, row0, halo, what, over)
+
+
+def test_sharded_engine_on_card(cuda):
+    """REFERENCE, SIGMA_SHADOW and REBLUR_DIFFUSE on 2 gloo ranks sharing the card, gathered,
+    against the Engine on the card unsharded: the kernels' tolerance. The frame time is left at
+    0: both ranks time their frames by rank 0's clock, and the unsharded run takes those times."""
+    from nrdtpu_torch.parallel import launch
+
+    variants = ("REFERENCE", "SIGMA_SHADOW", "REBLUR_DIFFUSE")
+    cases = [dict(denoiser=v, size=SIZE, frames=3) for v in variants]
+    for case, r in zip(cases, launch.spawn(launch.run_engine_ranks, 2, "gloo", "cuda", cases)):
+        times = r["time_delta_ms"]
+        assert times[1] == times[0], times
+        want = launch.run_engine(None, **case, device="cuda", frame_times=times[0])["outputs"]
+        for key, w in want.items():
+            g = r["outputs"][key]
+            over = float((np.abs(g - w) > ATOL + RTOL * np.abs(w)).mean())
+            assert over <= FLIP_FRACTION, (case["denoiser"], key, over)
+        assert all(shape[0] == SIZE[1] // 2 for shapes in r["state_shapes"]
+                   for shape in shapes.values())

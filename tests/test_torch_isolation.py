@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no JAX and no `nrdtpu` import (a frame of each main path, the
 overlay, the probe and SHOW, the memory query and the C ABI's build and bindings,
-`utils/probe.py`, `passes/validation.py` and `native/`), a CPU tensor always takes a kernel's
-plain version, and nothing carries on on the CPU where CUDA was asked for."""
+`utils/probe.py`, `passes/validation.py`, `native/` and the row-sharding package `parallel/`),
+a CPU tensor always takes a kernel's plain version, and nothing carries on on the CPU where CUDA
+was asked for."""
 
 import os
 import shutil
@@ -72,6 +73,9 @@ for d in (Denoiser.REBLUR_DIFFUSE_SPECULAR, Denoiser.RELAX_DIFFUSE, Denoiser.SIG
     assert isinstance(outs[Engine.PROBE_KEY], dict)
     assert eng.get_memory_usage(0)["persistent_mb"] > 0.0
 from nrdtpu_torch.native import bindings, build
+import nrdtpu_torch.parallel
+from nrdtpu_torch.parallel import launch, sharding, spmd
+assert launch.run_engine(None, "REFERENCE", (64, 48), 1)["outputs"]["OUT_SIGNAL"].shape == (48, 64, 3)
 lib = bindings.load()
 assert lib.nrdtpu_get_version_string() == b"nrdtpu_torch 0.1.0"
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.") or m == "nrdtpu"

@@ -72,6 +72,7 @@ from nrdtpu_torch import frontend as fe
 from nrdtpu_torch import kernels as KM
 from nrdtpu_torch.engine import Engine
 from nrdtpu_torch.kernels import build
+from nrdtpu_torch.parallel.sharding import band_call
 from nrdtpu_torch.settings import CheckerboardMode as CB
 from nrdtpu_torch.settings import Denoiser, HitDistanceReconstructionMode as HM
 from nrdtpu_torch.settings import RelaxAntilagSettings
@@ -1244,3 +1245,40 @@ def test_spatial_filter_cb_edge_rehearsal(library):
     over, count, worst = _hold(library, "spatial_filter", calls)
     assert over <= FLIP_FRACTION * count, (f"{over} of {count} values out of tolerance, max "
                                            f"|d| {worst:.3g}")
+
+
+# The row origin (`parallel.shard_stencil`): each of H1, H2, H3, H4, K13 and K14 on a band of
+# the frame's rows with a halo (`parallel.sharding.band_call`: the planes edge-replicated beyond the
+# frame, the previous-frame planes whole), at the band's row origin, against its plain version
+# on the same band. The calls are those of the last frame of REBLUR_DIFFUSE and SIGMA_SHADOW
+# (the frames and the library of the cases above).
+ROW_ORIGIN_RUNS = {Denoiser.REBLUR_DIFFUSE: ("smb_resolve", "spatial_filter", "history_fix",
+                                             "ts_prelude"),
+                   Denoiser.SIGMA_SHADOW: ("sigma_blur", "sigma_ts")}
+BAND_ROWS, BAND_HALO = 8, 6
+BANDS = {"top": 0, "middle": 12, "bottom": SIZE[1] - BAND_ROWS}
+
+
+@pytest.fixture(scope="module")
+def row_origin_calls():
+    """{kernel: the calls of the last of FRAMES frames}."""
+    out = {}
+    for denoiser, names in ROW_ORIGIN_RUNS.items():
+        for name, calls in _record(denoiser, names).items():
+            out[name] = calls[len(calls) - len(calls) // FRAMES:]
+    return out
+
+
+@pytest.mark.parametrize("band", list(BANDS))
+@pytest.mark.parametrize("name", KM.ROW_ORIGIN)
+def test_row_origin_rehearsal(library, row_origin_calls, name, band):
+    calls = row_origin_calls[name]
+    assert calls, name
+    banded = [band_call(getattr(KM.MODULES[name], name), a, k, BANDS[band], BAND_ROWS,
+                        BAND_HALO, SIZE[1])
+              for a, k in calls]
+    assert all(any(isinstance(t, torch.Tensor) and t.shape[0] == BAND_ROWS + 2 * BAND_HALO
+                   for t in a) for a, _ in banded)
+    over, count, worst = _hold(library, name, banded)
+    assert over <= FLIP_FRACTION * count, (f"{name} {band}: {over} of {count} values out of "
+                                           f"tolerance, max |d| {worst:.3g}")
